@@ -1,0 +1,899 @@
+"""Advisor plane: observe -> propose. Evidence-chained tuning proposals.
+
+The proposal half of a self-driving engine in the sense of Pavlo et al.
+(CIDR 2017), with break-even index selection modeled on the AutoAdmin
+what-if advisor (Chaudhuri & Narasayya, VLDB 1997): a read-only sweep
+(`bg:advisor`, profiler.py's service pattern) consumes the observability
+planes the engine already maintains and emits typed PROPOSALS — it never
+applies anything. The planes and what each contributes:
+
+- **stats store** (stats.py): per-fingerprint calls/latency/plan-mix plus
+  the planner cost hook's recorded chosen-vs-declined estimates — the
+  break-even inputs for ``index.create`` / ``index.drop``;
+- **accounting store** (accounting.py): per-(ns, db) meters with
+  per-fingerprint rows-scanned drill-down (the measured scan volume) and
+  budget-breach recurrence for ``tenant.quota_review``; the per-node
+  scatter breakdown is the per-shard skew input for ``cluster.rebalance``;
+- **telemetry counters**: column-pipeline / mirror-delta decline drift
+  between sweeps for ``mirror.field_budget``;
+- **vector mirrors** (idx/knn.py): IVF staleness (live size vs trained
+  size) for ``ivf.retrain``.
+
+Every proposal is a stable-id'd record::
+
+    {id, kind, severity, created_hlc,
+     evidence: [{plane, metric, window, value, threshold}],
+     estimated_benefit, fingerprints, tenant, subject,
+     armed, miss_count, created_ts, last_seen_ts}
+
+The id is a digest of (kind, subject), so a proposal RE-ARMS (armed+=1,
+evidence refreshed — never a duplicate) while its evidence persists, and
+EXPIRES after `SURREAL_ADVISOR_EXPIRE_SWEEPS` consecutive sweeps without
+it (kept in a bounded expired ring; `advisor.expired` event). Every
+evidence entry is machine-checkable: it names the PLANE and METRIC it was
+read from, so a consumer (scripts/check_bench_artifact.py rule 14) can
+resolve the chain against the same artifact's embedded plane state.
+
+Construction goes through ONE door, :func:`propose` — graftlint GL014
+enforces statically that no call site builds a proposal record ad hoc or
+invents a kind outside :data:`KINDS`, and that every call carries at
+least one evidence entry.
+
+Surfaces: system-gated ``GET /advisor`` (``?cluster=1`` federates via the
+`advisor` RPC op with id-dedup merge — the same proposal observed from
+two nodes is ONE record, node-tagged), ``INFO FOR ROOT``
+(``system.advisor``), debug-bundle section 15 (schema bundle/8),
+``advisor_proposals{kind,severity}`` gauges + ``advisor_sweep`` duration
+metrics, and per-phase embeds in bench config 12.
+
+Observe-only contract: nothing here mutates engine state, schedules a
+rebuild, or touches a knob. PR 18+'s opt-in apply mode is the only
+place a proposal may ever become an action.
+
+Lock discipline: ``advisor.store`` is an observability leaf in
+locks.HIERARCHY (mutate-and-release). Sweeps snapshot every source plane
+BEFORE any store mutation (stats.store / accounting.store are same-level
+leaves and must never nest), and events/telemetry side effects are
+emitted AFTER release.
+"""
+
+from __future__ import annotations
+
+import re
+import threading
+import time
+from collections import OrderedDict, deque
+from typing import Any, Deque, Dict, List, Optional, Tuple
+
+from surrealdb_tpu_torch.utils import locks as _locks
+
+# ------------------------------------------------------------------ registry
+# kind -> one-line description (the proposal-kind catalog; README mirrors
+# it). Closed set: propose() raises on anything else and GL014 lints call
+# sites statically.
+KINDS: Dict[str, str] = {
+    "index.create": "observed scan volume crossed the modeled index break-even",
+    "index.drop": "a defined index serves no reads while its table takes writes",
+    "ivf.retrain": "a vector mirror's IVF quantizer went stale (recall drifting)",
+    "mirror.field_budget": "column-mirror declines are drifting up (field budget)",
+    "cluster.rebalance": "sustained per-shard load skew (epoch-safe target named)",
+    "tenant.quota_review": "a tenant's soft-budget breaches keep recurring",
+    "plan_cache.review": "a hot statement shape misses or thrashes the plan cache",
+}
+
+SEVERITIES = ("info", "warn", "critical")
+
+# evidence plane vocabulary — check_bench_artifact resolves pointers by
+# plane name, so the set is closed like the kinds
+EVIDENCE_PLANES = frozenset({"stats", "accounting", "telemetry", "idx", "cluster"})
+
+_EVIDENCE_KEYS = ("plane", "metric", "window", "value", "threshold")
+
+
+class UnknownProposalKind(ValueError):
+    """Raised for a kind outside KINDS — the runtime half of GL014."""
+
+
+_lock = _locks.Lock("advisor.store")
+_store: "OrderedDict[str, dict]" = OrderedDict()  # id -> record
+_expired_ring: Deque[dict] = deque(maxlen=64)
+_evicted = 0
+_sweeps = 0
+_last_sweep: Optional[dict] = None
+# counter families sampled last sweep (decline-drift deltas)
+_counter_base: Dict[Tuple[str, tuple], float] = {}
+
+_started = False
+_start_lock = threading.Lock()  # raw: one-shot service spawn guard
+_paused = threading.Event()
+# datastores the service sweeps (weakly held — a closed ds just drops out)
+import weakref
+
+_datastores: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def _digest(kind: str, subject: str) -> str:
+    import hashlib
+
+    return hashlib.blake2b(
+        f"{kind}|{subject}".encode(), digest_size=8
+    ).hexdigest()
+
+
+# ------------------------------------------------------------------ the door
+def propose(
+    kind: str,
+    subject: str,
+    *,
+    evidence: List[dict],
+    severity: str = "info",
+    estimated_benefit: Optional[dict] = None,
+    fingerprints: Tuple[str, ...] = (),
+    tenant: Optional[Tuple[str, str]] = None,
+    node_id: str = "local",
+    sweep: Optional[int] = None,
+) -> dict:
+    """THE construction door (graftlint GL014): register-or-re-arm one
+    proposal. `kind` MUST be in KINDS and `evidence` MUST carry >=1 entry
+    of shape {plane, metric, window, value, threshold} — a proposal
+    without a resolvable evidence chain is an opinion, not a proposal.
+
+    The stable id is a digest of (kind, subject): proposing the same
+    (kind, subject) again RE-ARMS the stored record (armed+=1, evidence /
+    severity / benefit refreshed, miss streak cleared) instead of minting
+    a duplicate. A NEW record emits `advisor.proposal` (after the store
+    lock is released) and bumps `advisor_proposals_total{kind}`."""
+    from surrealdb_tpu_torch import cnf
+
+    if kind not in KINDS:
+        raise UnknownProposalKind(
+            f"proposal kind {kind!r} is not in the advisor.KINDS registry — "
+            "register it (with a description) before proposing"
+        )
+    if not evidence:
+        raise ValueError("a proposal requires at least one evidence entry")
+    ev_norm: List[dict] = []
+    for e in evidence:
+        if not isinstance(e, dict) or not e.get("plane") or not e.get("metric"):
+            raise ValueError(f"malformed evidence entry: {e!r}")
+        if e["plane"] not in EVIDENCE_PLANES:
+            raise ValueError(f"unknown evidence plane {e['plane']!r}")
+        ev_norm.append({k: e.get(k) for k in _EVIDENCE_KEYS})
+    if severity not in SEVERITIES:
+        severity = "info"
+    pid = _digest(kind, subject)
+    now = time.time()
+    created = False
+    evictions = 0
+    # mint the HLC stamp BEFORE taking the store lock: cluster.hlc sits
+    # LOWER in the hierarchy than advisor.store, so stamping under the
+    # lock would be a static order inversion (GF001). Wasted only on the
+    # re-arm path, where the stored created_hlc wins anyway.
+    from surrealdb_tpu_torch.cluster import hlc
+
+    created_hlc = hlc.encode(hlc.now(node_id))
+    with _lock:
+        rec = _store.get(pid)
+        if rec is None:
+            created = True
+            rec = _store[pid] = {
+                "id": pid,
+                "kind": kind,
+                "subject": subject,
+                "severity": severity,
+                "created_hlc": created_hlc,
+                "created_ts": round(now, 3),
+                "evidence": ev_norm,
+                "estimated_benefit": estimated_benefit,
+                "fingerprints": list(fingerprints),
+                "tenant": list(tenant) if tenant is not None else None,
+                "armed": 0,
+                "miss_count": 0,
+                "last_seen_ts": round(now, 3),
+            }
+        else:
+            _store.move_to_end(pid)
+            rec["armed"] += 1
+            rec["miss_count"] = 0
+            rec["severity"] = severity
+            rec["evidence"] = ev_norm
+            rec["estimated_benefit"] = estimated_benefit
+            rec["fingerprints"] = list(fingerprints)
+            rec["tenant"] = list(tenant) if tenant is not None else None
+            rec["last_seen_ts"] = round(now, 3)
+        cap = max(int(getattr(cnf, "ADVISOR_STORE_SIZE", 128)), 8)
+        global _evicted
+        while len(_store) > cap:
+            _store.popitem(last=False)
+            _evicted += 1
+            evictions += 1
+        out = dict(rec)
+    # side effects OUTSIDE the store lock: events/telemetry are LOWER
+    # observability leaves and must never nest inside advisor.store
+    from surrealdb_tpu_torch import telemetry
+
+    if evictions:
+        telemetry.inc("advisor_evictions", by=float(evictions))
+    if created:
+        telemetry.inc("advisor_proposals_total", kind=kind)
+        from surrealdb_tpu_torch import events
+
+        events.emit(
+            "advisor.proposal",
+            id=pid, proposal_kind=kind, severity=severity, subject=subject,
+            **({"sweep": sweep} if sweep is not None else {}),
+        )
+    return out
+
+
+def _expire_missing(seen: set, sweep: Optional[int]) -> List[dict]:
+    """Age every stored proposal NOT re-proposed this sweep; drop (and
+    ring-keep) the ones whose evidence stayed gone for
+    ADVISOR_EXPIRE_SWEEPS consecutive sweeps. Returns the expired records
+    (events emitted by the caller, after the lock is long released)."""
+    from surrealdb_tpu_torch import cnf
+
+    limit = max(int(getattr(cnf, "ADVISOR_EXPIRE_SWEEPS", 3)), 1)
+    expired: List[dict] = []
+    now = time.time()
+    with _lock:
+        for pid in list(_store.keys()):
+            if pid in seen:
+                continue
+            rec = _store[pid]
+            rec["miss_count"] += 1
+            if rec["miss_count"] >= limit:
+                del _store[pid]
+                rec["expired_ts"] = round(now, 3)
+                _expired_ring.append(rec)
+                expired.append(dict(rec))
+    return expired
+
+
+# ------------------------------------------------------------------ analyzers
+# normalized-SQL table extraction (heuristic: the first identifier after a
+# statement's target keyword; keywords are uppercased by the normalizer,
+# real identifiers keep their case)
+_TABLE_RE = re.compile(
+    r"\b(?:FROM|INTO|UPDATE|UPSERT|CREATE|DELETE)\s+(?:ONLY\s+)?"
+    r"([A-Za-z_][A-Za-z0-9_]*)"
+)
+_WRITE_KINDS = frozenset(
+    {"CreateStatement", "UpdateStatement", "UpsertStatement",
+     "DeleteStatement", "InsertStatement", "RelateStatement"}
+)
+_SCAN_MIX = ("columnar-pipeline", "columnar-scan", "row")
+
+
+def _table_of(sql: str) -> Optional[str]:
+    m = _TABLE_RE.search(sql or "")
+    return m.group(1) if m else None
+
+
+def _scan_fraction(mix: Dict[str, int]) -> Tuple[float, int]:
+    total = sum(mix.values())
+    if not total:
+        return 0.0, 0
+    scans = sum(mix.get(k, 0) for k in _SCAN_MIX)
+    return scans / total, total
+
+
+def _rows_scanned_by_fp(tenants: List[dict]) -> Dict[str, float]:
+    """Measured scan volume per fingerprint, summed across tenants (the
+    accounting plane's by_fp drill-down — the advisor's ground truth for
+    'how many rows did this shape actually touch')."""
+    out: Dict[str, float] = {}
+    for t in tenants:
+        for fpd in t.get("by_fp") or ():
+            fp = fpd.get("fingerprint")
+            v = fpd.get("rows_scanned") or 0.0
+            if fp and v:
+                out[fp] = out.get(fp, 0.0) + float(v)
+    return out
+
+
+def _index_create_candidates(
+    stmts: List[dict], tenants: List[dict]
+) -> List[dict]:
+    """AutoAdmin-style break-even: a scan-dominated fingerprint whose
+    measured per-call scan volume exceeds the modeled index-probe cost by
+    the configured floor earns an ``index.create`` proposal citing the
+    exact fingerprint and its scan/latency evidence."""
+    import math
+
+    from surrealdb_tpu_torch import cnf
+
+    min_calls = max(int(getattr(cnf, "ADVISOR_MIN_CALLS", 8)), 1)
+    scan_floor = max(int(getattr(cnf, "ADVISOR_SCAN_ROWS", 512)), 1)
+    scanned_by_fp = _rows_scanned_by_fp(tenants)
+    out: List[dict] = []
+    for e in stmts:
+        if e.get("kind") != "SelectStatement":
+            continue
+        calls = int(e.get("calls") or 0)
+        if calls < min_calls:
+            continue
+        frac, _total = _scan_fraction(e.get("plan_mix") or {})
+        if frac < 0.6:
+            continue
+        scanned = scanned_by_fp.get(e["fingerprint"], 0.0)
+        per_call = scanned / calls if calls else 0.0
+        if per_call < scan_floor:
+            continue
+        # modeled probe cost: a B-tree descent plus the result rows
+        probe = math.log2(max(per_call, 2.0)) + (
+            (e.get("rows_out") or 0) / calls
+        )
+        benefit = calls * max(per_call - probe, 0.0)
+        tb = _table_of(e.get("sql") or "")
+        evidence = [
+            {"plane": "stats", "metric": "plan_mix.scan_fraction",
+             "window": "cumulative", "value": round(frac, 4),
+             "threshold": 0.6},
+            {"plane": "stats", "metric": "calls", "window": "cumulative",
+             "value": calls, "threshold": min_calls},
+            {"plane": "accounting", "metric": "rows_scanned_per_call",
+             "window": "cumulative", "value": round(per_call, 2),
+             "threshold": scan_floor},
+        ]
+        cost = e.get("cost")
+        if isinstance(cost, dict) and cost.get("notes"):
+            # the planner cost hook's recorded chosen-vs-declined margin
+            # (satellite of this PR): the break-even delta, per call
+            evidence.append({
+                "plane": "stats", "metric": "cost.margin_per_call",
+                "window": "cumulative",
+                "value": cost.get("margin_per_call"),
+                "threshold": 0.0,
+            })
+        out.append({
+            "kind": "index.create",
+            "subject": f"{tb or 'table'}:{e['fingerprint']}",
+            "severity": "warn" if per_call >= 8 * scan_floor else "info",
+            "evidence": evidence,
+            "estimated_benefit": {
+                "unit": "row-visits", "value": round(benefit, 2),
+            },
+            "fingerprints": (e["fingerprint"],),
+        })
+    return out
+
+
+def _iter_indexes(ds) -> List[Tuple[str, str, str, dict]]:
+    """Every defined (ns, db, tb, index-def) in one read transaction —
+    read-only catalog walk, never under any advisor lock."""
+    out: List[Tuple[str, str, str, dict]] = []
+    if ds is None:
+        return out
+    try:
+        txn = ds.transaction(write=False)
+    except Exception:  # noqa: BLE001 — a closing ds yields no candidates
+        return out
+    try:
+        for nsd in txn.all_ns():
+            ns = nsd["name"]
+            for dbd in txn.all_db(ns):
+                db = dbd["name"]
+                for tbd in txn.all_tb(ns, db):
+                    tb = tbd["name"]
+                    for ix in txn.all_tb_indexes(ns, db, tb):
+                        out.append((ns, db, tb, ix))
+    except Exception:  # noqa: BLE001 — a catalog race mid-walk is not a
+        # sweep error; the partial list just yields fewer candidates
+        from surrealdb_tpu_torch import telemetry
+
+        telemetry.inc("advisor_sweep_errors")
+    finally:
+        txn.cancel()
+    return out
+
+
+def _index_drop_candidates(ds, stmts: List[dict]) -> List[dict]:
+    """A defined (non-vector) index whose table keeps taking writes while
+    NO read on that table took an index plan: every write pays the
+    index-maintenance cost, nothing collects the benefit."""
+    from surrealdb_tpu_torch import cnf
+
+    min_calls = max(int(getattr(cnf, "ADVISOR_MIN_CALLS", 8)), 1)
+    # per-table read plan-mix + write call totals
+    idx_reads: Dict[str, int] = {}
+    writes: Dict[str, int] = {}
+    for e in stmts:
+        tb = _table_of(e.get("sql") or "")
+        if not tb:
+            continue
+        if e.get("kind") == "SelectStatement":
+            mix = e.get("plan_mix") or {}
+            idx_reads[tb] = idx_reads.get(tb, 0) + int(mix.get("index", 0))
+        elif e.get("kind") in _WRITE_KINDS:
+            writes[tb] = writes.get(tb, 0) + int(e.get("calls") or 0)
+    out: List[dict] = []
+    for ns, db, tb, ix in _iter_indexes(ds):
+        if ix.get("index", {}).get("type") in ("hnsw", "mtree"):
+            continue  # vector indexes belong to the ivf.retrain analyzer
+        w = writes.get(tb, 0)
+        if w < min_calls or idx_reads.get(tb, 0) != 0:
+            continue
+        out.append({
+            "kind": "index.drop",
+            "subject": f"{ns}.{db}.{tb}.{ix.get('name')}",
+            "severity": "info",
+            "evidence": [
+                {"plane": "stats", "metric": "plan_mix.index",
+                 "window": "cumulative", "value": 0, "threshold": 1},
+                {"plane": "stats", "metric": "writes", "window": "cumulative",
+                 "value": w, "threshold": min_calls},
+            ],
+            "estimated_benefit": {"unit": "writes-unburdened", "value": w},
+        })
+    return out
+
+
+def _ivf_candidates(ds) -> List[dict]:
+    """Stale IVF quantizers: the mirror grew past needs_retrain()'s ratio
+    of its trained size, so list assignments (and recall) are drifting."""
+    stores = getattr(ds, "index_stores", None) if ds is not None else None
+    if stores is None:
+        return []
+    with stores._lock:  # noqa: SLF001 — read-only snapshot (bundle pattern)
+        items = list(stores._stores.items())  # noqa: SLF001
+    out: List[dict] = []
+    for key, m in items:
+        if not hasattr(m, "ivf_status"):
+            continue
+        try:
+            st = m.ivf_status()
+        except Exception:  # noqa: BLE001 — unreadable state is no candidate
+            continue
+        if st.get("state") != "stale":
+            continue
+        trained = max(int(st.get("trained_n") or 1), 1)
+        rows = m.count() if hasattr(m, "count") else None
+        ratio = (rows / trained) if rows else None
+        out.append({
+            "kind": "ivf.retrain",
+            "subject": ".".join(str(k) for k in key),
+            "severity": "warn",
+            "evidence": [
+                {"plane": "idx", "metric": "ivf.size_ratio",
+                 "window": "current",
+                 "value": round(ratio, 3) if ratio is not None else None,
+                 "threshold": 1.5},
+                {"plane": "idx", "metric": "ivf.state", "window": "current",
+                 "value": 1, "threshold": 1},  # 1 = stale (numeric chain)
+            ],
+            "estimated_benefit": {
+                "unit": "recall-drift-ratio",
+                "value": round(ratio - 1.0, 3) if ratio is not None else None,
+            },
+        })
+    return out
+
+
+def _decline_deltas() -> Dict[str, float]:
+    """Per-metric decline growth since the LAST sweep (the drift signal):
+    column-pipeline decline outcomes + mirror-delta overflow/decline
+    outcomes. Updates the sweep-local counter baseline."""
+    from surrealdb_tpu_torch import telemetry
+
+    out: Dict[str, float] = {}
+    for fam, match in (
+        ("column_pipeline", lambda o: o.startswith("decline_")),
+        ("column_mirror_delta", lambda o: o.startswith("overflow_")),
+    ):
+        for labels, v in telemetry.counters_matching(fam).items():
+            outcome = dict(labels).get("outcome", "")
+            key = (fam, labels)
+            base = _counter_base.get(key, 0.0)
+            _counter_base[key] = v
+            if match(outcome) and v > base:
+                out[f"{fam}.{outcome}"] = out.get(f"{fam}.{outcome}", 0.0) + (
+                    v - base
+                )
+    return out
+
+
+def _mirror_candidates() -> List[dict]:
+    from surrealdb_tpu_torch import cnf
+
+    floor = max(int(getattr(cnf, "ADVISOR_DECLINE_MIN", 32)), 1)
+    deltas = _decline_deltas()
+    total = sum(deltas.values())
+    if total < floor:
+        return []
+    evidence = [
+        {"plane": "telemetry", "metric": metric, "window": "sweep",
+         "value": round(v, 1), "threshold": floor}
+        for metric, v in sorted(deltas.items(), key=lambda kv: -kv[1])[:4]
+    ]
+    return [{
+        "kind": "mirror.field_budget",
+        "subject": "column_mirror",
+        "severity": "warn" if total >= 8 * floor else "info",
+        "evidence": evidence,
+        "estimated_benefit": {
+            "unit": "declines-avoided/sweep", "value": round(total, 1),
+        },
+    }]
+
+
+def _rebalance_candidates(ds, tenants: List[dict]) -> List[dict]:
+    """Sustained per-shard skew: the cross-tenant sum of per-node scatter
+    calls (the accounting plane's by_node breakdown) names one member
+    taking a multiple of the mean. The proposal is EPOCH-SAFE: it names
+    the membership epoch it observed, so a cutover mints a fresh subject
+    (the old proposal decays instead of pointing at a re-hashed ring)."""
+    from surrealdb_tpu_torch import cnf
+
+    node = getattr(ds, "cluster", None) if ds is not None else None
+    if node is None:
+        return []
+    ratio_floor = max(float(getattr(cnf, "ADVISOR_SKEW_RATIO", 3.0)), 1.0)
+    min_calls = max(int(getattr(cnf, "ADVISOR_MIN_CALLS", 8)), 1)
+    per_node: Dict[str, float] = {}
+    for t in tenants:
+        for nid, d in (t.get("by_node") or {}).items():
+            per_node[nid] = per_node.get(nid, 0.0) + float(
+                d.get("scatter_calls") or 0.0
+            )
+    members = [m["id"] for m in node.membership.nodes()]
+    for m in members:
+        per_node.setdefault(m, 0.0)
+    total = sum(per_node.values())
+    if len(per_node) < 2 or total < min_calls:
+        return []
+    mean = total / len(per_node)
+    hot = max(per_node, key=lambda n: per_node[n])
+    ratio = per_node[hot] / mean if mean else 0.0
+    if ratio < ratio_floor:
+        return []
+    epoch = node.membership.epoch
+    return [{
+        "kind": "cluster.rebalance",
+        "subject": f"epoch{epoch}:{hot}",
+        "severity": "warn",
+        "evidence": [
+            {"plane": "cluster", "metric": f"scatter_calls.{hot}",
+             "window": "cumulative", "value": round(per_node[hot], 1),
+             "threshold": round(mean * ratio_floor, 1)},
+            {"plane": "cluster", "metric": "skew_ratio",
+             "window": "cumulative", "value": round(ratio, 3),
+             "threshold": ratio_floor},
+            {"plane": "cluster", "metric": "epoch", "window": "current",
+             "value": epoch, "threshold": epoch},
+        ],
+        "estimated_benefit": {
+            "unit": "scatter-calls-rebalanced",
+            "value": round(per_node[hot] - mean, 1),
+        },
+    }]
+
+
+def _quota_candidates(tenants: List[dict]) -> List[dict]:
+    from surrealdb_tpu_torch import cnf
+
+    floor = max(int(getattr(cnf, "ADVISOR_BREACH_MIN", 3)), 1)
+    out: List[dict] = []
+    for t in tenants:
+        breaches = t.get("breaches") or {}
+        total = sum(int(v) for v in breaches.values())
+        if total < floor:
+            continue
+        worst = max(breaches, key=lambda m: breaches[m])
+        out.append({
+            "kind": "tenant.quota_review",
+            "subject": f"{t.get('ns')}.{t.get('db')}",
+            "severity": "warn" if total >= 2 * floor else "info",
+            "evidence": [
+                {"plane": "accounting", "metric": f"breaches.{worst}",
+                 "window": "cumulative", "value": int(breaches[worst]),
+                 "threshold": floor},
+                {"plane": "accounting", "metric": "breaches.total",
+                 "window": "cumulative", "value": total, "threshold": floor},
+            ],
+            "estimated_benefit": {
+                "unit": "breaches/window", "value": total,
+            },
+            "tenant": (t.get("ns"), t.get("db")),
+        })
+    return out
+
+
+def _plan_cache_candidates(ds) -> List[dict]:
+    """Plan-cache pathologies worth a human look: fingerprints whose
+    entries mostly MISS (unparameterizable literal churn, verify demotion)
+    and fingerprints that keep getting EVICTED (plan-mix flips, DDL storms
+    — the cache installs, something invalidates, repeat). Observe-only:
+    the fix is a schema/statement change or a knob, never applied here."""
+    from surrealdb_tpu_torch import cnf
+
+    pc = getattr(ds, "plan_cache", None) if ds is not None else None
+    if pc is None:
+        return []
+    min_calls = max(int(getattr(cnf, "ADVISOR_MIN_CALLS", 8)), 1)
+    out: List[dict] = []
+    for row in pc.review_rows(min_calls=min_calls):
+        fp = row["fingerprint"]
+        if row["kind"] == "low_hit_rate":
+            out.append({
+                "kind": "plan_cache.review",
+                "subject": f"low_hit_rate:{fp}",
+                "severity": "info",
+                "evidence": [
+                    {"plane": "stats", "metric": f"plan_cache.hit_rate.{fp}",
+                     "window": "cumulative", "value": row["hit_rate"],
+                     "threshold": 0.5},
+                    {"plane": "telemetry", "metric": "plan_cache_misses",
+                     "window": "cumulative", "value": row["misses"],
+                     "threshold": min_calls},
+                ],
+                "estimated_benefit": {
+                    "unit": "replans-avoided/window", "value": row["misses"],
+                },
+                "fingerprints": (fp,),
+            })
+        elif row["kind"] == "thrash":
+            out.append({
+                "kind": "plan_cache.review",
+                "subject": f"thrash:{fp}",
+                "severity": "warn",
+                "evidence": [
+                    {"plane": "telemetry",
+                     "metric": "plan_cache_invalidations",
+                     "window": "recent", "value": row["evictions"],
+                     "threshold": 2},
+                    {"plane": "stats",
+                     "metric": f"plan_cache.evict_causes.{fp}",
+                     "window": "recent",
+                     "value": ",".join(row.get("causes") or []),
+                     "threshold": None},
+                ],
+                "estimated_benefit": {
+                    "unit": "reinstalls-avoided/window",
+                    "value": row["evictions"],
+                },
+                "fingerprints": (fp,),
+            })
+    return out
+
+
+# ------------------------------------------------------------------ the sweep
+def sweep_once(ds=None) -> dict:
+    """One read-only analyzer pass: snapshot every source plane, derive
+    candidates, re-arm/register each through propose(), then age-out the
+    stored proposals whose evidence stayed gone. Registered as a bg task
+    (`advisor` kind) so the flight recorder attributes the sweep;
+    UNEVENTFUL sweeps forget their record (the changefeed-GC pattern) so
+    the bounded registry keeps diagnostically interesting entries."""
+    from surrealdb_tpu_torch import accounting, bg, stats, telemetry
+
+    global _sweeps, _last_sweep
+    t0 = time.perf_counter()
+    node_id = "local"
+    cluster = getattr(ds, "cluster", None) if ds is not None else None
+    if cluster is not None:
+        node_id = str(cluster.node_id)
+    tid = bg.register("advisor", "sweep")
+    created = 0
+    expired: List[dict] = []
+    seen: set = set()
+    with bg.run(tid, rename_thread=False):
+        # plane snapshots FIRST — stats.store / accounting.store are
+        # same-level leaves; nothing here runs under advisor.store
+        stmts = stats.statements(limit=100)
+        tenants = accounting.top(limit=100, fp_limit=16)
+        candidates: List[dict] = []
+        candidates += _index_create_candidates(stmts, tenants)
+        candidates += _index_drop_candidates(ds, stmts)
+        candidates += _ivf_candidates(ds)
+        candidates += _mirror_candidates()
+        candidates += _rebalance_candidates(ds, tenants)
+        candidates += _quota_candidates(tenants)
+        candidates += _plan_cache_candidates(ds)
+        for c in candidates:
+            rec = propose(
+                c["kind"], c["subject"],
+                evidence=c["evidence"],
+                severity=c.get("severity", "info"),
+                estimated_benefit=c.get("estimated_benefit"),
+                fingerprints=tuple(c.get("fingerprints") or ()),
+                tenant=c.get("tenant"),
+                node_id=node_id,
+                sweep=tid,
+            )
+            seen.add(rec["id"])
+            if rec["armed"] == 0:
+                created += 1
+        expired = _expire_missing(seen, tid)
+    dt = time.perf_counter() - t0
+    # side effects after every lock is released
+    from surrealdb_tpu_torch import events
+
+    for rec in expired:
+        telemetry.inc("advisor_proposals_expired", kind=rec["kind"])
+        events.emit(
+            "advisor.expired",
+            id=rec["id"], proposal_kind=rec["kind"], subject=rec["subject"],
+            armed=rec["armed"], sweep=tid,
+        )
+    telemetry.inc("advisor_sweeps")
+    telemetry.observe("advisor_sweep", dt)
+    _refresh_gauges()
+    with _lock:
+        _sweeps += 1
+        _last_sweep = {
+            "ts": round(time.time(), 3),
+            "duration_ms": round(dt * 1e3, 3),
+            "candidates": len(seen),
+            "created": created,
+            "expired": len(expired),
+            "task_id": tid,
+        }
+        out = dict(_last_sweep)
+    if not created and not expired:
+        bg.forget(tid)
+    return out
+
+
+def _refresh_gauges() -> None:
+    """advisor_proposals{kind,severity}: live proposal counts, stale
+    series zeroed (the bg.export_gauges pattern)."""
+    from surrealdb_tpu_torch import telemetry
+
+    with _lock:
+        live: Dict[Tuple[str, str], int] = {}
+        for rec in _store.values():
+            key = (rec["kind"], rec["severity"])
+            live[key] = live.get(key, 0) + 1
+    seen = set()
+    for (kind, sev), n in live.items():
+        telemetry.gauge_set("advisor_proposals", n, kind=kind, severity=sev)
+        seen.add((kind, sev))
+    for labels in telemetry.gauges_matching("advisor_proposals"):
+        d = dict(labels)
+        key = (d.get("kind"), d.get("severity"))
+        if key not in seen:
+            telemetry.gauge_set(
+                "advisor_proposals", 0, kind=key[0], severity=key[1]
+            )
+
+
+# ------------------------------------------------------------------ service
+def ensure_started(ds=None) -> bool:
+    """Start the process-global sweep service once (Datastore.__init__
+    calls this; every later call only registers the new datastore with
+    the running loop). Returns True when the service is (now) running,
+    False when SURREAL_ADVISOR=0 / interval<=0 disables it."""
+    global _started
+    from surrealdb_tpu_torch import cnf
+
+    if ds is not None:
+        _datastores.add(ds)
+    if not getattr(cnf, "ADVISOR", True) or cnf.ADVISOR_INTERVAL_SECS <= 0:
+        return False
+    with _start_lock:
+        if _started:
+            return True
+        _started = True
+    from surrealdb_tpu_torch import bg
+
+    bg.spawn_service("advisor", "", _loop)
+    return True
+
+
+def pause() -> None:
+    """Park the sweep loop without stopping the service (the bench
+    overhead A/B measures with the advisor parked vs live)."""
+    _paused.set()
+
+
+def resume() -> None:
+    _paused.clear()
+
+
+def _loop() -> None:
+    """The sweep body (profiler.py's service skeleton): interval re-read
+    every tick so tests can retune a live service through cnf
+    monkeypatching; interval<=0 mid-flight retires the service."""
+    from surrealdb_tpu_torch import cnf
+
+    while True:
+        interval = cnf.ADVISOR_INTERVAL_SECS
+        if not getattr(cnf, "ADVISOR", True) or interval <= 0:
+            return  # disabled mid-flight: retire the service
+        time.sleep(max(interval, 0.05))
+        if _paused.is_set():
+            continue
+        for ds in list(_datastores):
+            try:
+                sweep_once(ds)
+            except Exception:  # noqa: BLE001 — a failed sweep must never
+                # take the service down; the bg task record carries it
+                from surrealdb_tpu_torch import telemetry
+
+                telemetry.inc("advisor_sweep_errors")
+        if not _datastores:
+            # no engine instance registered (bare stats/accounting use):
+            # the planes still exist process-globally, sweep them
+            try:
+                sweep_once(None)
+            except Exception:  # noqa: BLE001
+                from surrealdb_tpu_torch import telemetry
+
+                telemetry.inc("advisor_sweep_errors")
+
+
+# ------------------------------------------------------------------ views
+def proposals(
+    limit: int = 50, kind: Optional[str] = None
+) -> List[dict]:
+    """Live proposals, most-severe first then most-recently-seen — the
+    `GET /advisor` payload."""
+    rank = {s: i for i, s in enumerate(SEVERITIES)}
+    with _lock:
+        out = [dict(r) for r in _store.values()]
+    if kind:
+        out = [r for r in out if r["kind"] == kind]
+    out.sort(
+        key=lambda r: (-rank.get(r["severity"], 0), -r["last_seen_ts"], r["id"])
+    )
+    return out[: max(int(limit), 1)]
+
+
+def get(pid: str) -> Optional[dict]:
+    with _lock:
+        rec = _store.get(pid)
+        return dict(rec) if rec is not None else None
+
+
+def size() -> int:
+    with _lock:
+        return len(_store)
+
+
+def snapshot(limit: int = 50) -> dict:
+    """The bundle's `advisor` section (and the single-node GET /advisor
+    body): live proposals + the expired ring + sweep health."""
+    from surrealdb_tpu_torch import cnf
+
+    with _lock:
+        n, ev, sweeps = len(_store), _evicted, _sweeps
+        last = dict(_last_sweep) if _last_sweep is not None else None
+        expired = [dict(r) for r in _expired_ring]
+    return {
+        "enabled": _started and getattr(cnf, "ADVISOR", True)
+        and cnf.ADVISOR_INTERVAL_SECS > 0,
+        "paused": _paused.is_set(),
+        "kinds": dict(KINDS),
+        "proposals": proposals(limit=limit),
+        "size": n,
+        "evicted": ev,
+        "sweeps": sweeps,
+        "last_sweep": last,
+        "expired": expired[-10:],
+    }
+
+
+def export_state(limit: int = 100) -> List[dict]:
+    """Per-node proposal records for cluster federation (the `advisor`
+    RPC op): node-UNtagged — the coordinator merges same-id records
+    across members into ONE node-tagged entry."""
+    return proposals(limit=limit)
+
+
+def reset() -> None:
+    """Drop every proposal + sweep statistic (tests / bench windows).
+    The service keeps running; the counter baseline RE-PRIMES to the
+    current telemetry counters, so the next sweep's decline deltas
+    measure growth since THIS reset — not since process start (clearing
+    to zero would replay the whole pre-reset decline history as one
+    giant delta on the first post-reset sweep)."""
+    global _evicted, _sweeps, _last_sweep
+    with _lock:
+        _store.clear()
+        _expired_ring.clear()
+        _evicted = 0
+        _sweeps = 0
+        _last_sweep = None
+    _counter_base.clear()
+    _decline_deltas()

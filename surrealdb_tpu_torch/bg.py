@@ -1,0 +1,709 @@
+"""Background-task registry + watchdog (the flight recorder's task layer).
+
+PRs 3-4 moved the engine's heaviest work into debounced background threads:
+column-mirror rebuilds (idx/column_mirror.py), graph-CSR prewarm
+(idx/graph_csr.py), IVF training (idx/knn.py), shape warming
+(idx/knn.py / idx/ivf.py), changefeed GC (cf/gc.py). A wedged rebuild or a
+surprise on-demand compile used to show up only as an unexplained latency
+swing. This module makes every asynchronous engine activity a first-class,
+attributable, exportable object (the Dapper posture: always on,
+attribute everything):
+
+- every job registers with a lifecycle `scheduled -> running -> done |
+  failed | stalled`, carrying start/duration/retry/error fields and a
+  parent trace link when a query triggered it;
+- a single lazy watchdog thread flips tasks to `stalled` once they run
+  past a per-kind deadline and bumps the `bg_task_stalled` counter — a
+  wedged rebuild is now a metric + a registry entry, not a mystery;
+- threads get deterministic names (`bg:<kind>:<target>`) so stack dumps
+  and the txn leak detector's reports are attributable;
+- `shutdown(owner)` joins an owner's pending tasks on `Datastore.close()`
+  (no daemon-thread leaks under pytest), and parks the watchdog once the
+  whole registry is idle.
+
+The registry is process-global (like telemetry/tracing): tasks carry an
+`owner` token (id of the owning Datastore) so per-datastore teardown only
+joins its own work. Finished tasks are kept in a bounded ring
+(cnf.BG_REGISTRY_CAP) for the debug bundle and bench overlap accounting.
+
+Knobs: SURREAL_BG_WATCHDOG, SURREAL_BG_WATCHDOG_INTERVAL,
+SURREAL_BG_WATCHDOG_DEADLINE (per-task override at register time).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from contextlib import contextmanager
+from typing import Any, Callable, Dict, List, Optional
+
+from surrealdb_tpu_torch.utils import locks as _locks
+
+# default per-kind watchdog deadlines (seconds) — how long a RUNNING task
+# of this kind may take before it is presumed wedged. Callers may override
+# per task; the global default (cnf.BG_WATCHDOG_DEADLINE_SECS) covers the
+# rest. IVF training and graph prewarm legitimately run minutes at scale.
+KIND_DEADLINES: Dict[str, float] = {
+    "column_mirror": 120.0,
+    "graph_prewarm": 600.0,
+    "ivf_train": 900.0,
+    "shape_warm": 300.0,
+    "changefeed_gc": 60.0,
+    "index_build": 900.0,
+    "cluster_read_repair": 60.0,
+    "cluster_tombstone_gc": 120.0,
+    "advisor": 60.0,
+}
+
+_STATES = ("scheduled", "running", "done", "failed", "stalled")
+
+
+class Task:
+    """One background job's registry record."""
+
+    __slots__ = (
+        "id", "kind", "target", "state", "owner", "trace_id", "deadline_s",
+        "scheduled_ts", "start_ts", "end_ts", "duration_s", "error",
+        "retries", "stalled", "thread", "service", "stack", "tenant",
+    )
+
+    def __init__(self, tid, kind, target, owner, trace_id, deadline_s):
+        self.id = tid
+        self.kind = kind
+        self.target = target
+        self.state = "scheduled"
+        self.owner = owner
+        self.trace_id = trace_id
+        self.deadline_s = deadline_s
+        self.scheduled_ts = time.time()
+        self.start_ts: Optional[float] = None
+        self.end_ts: Optional[float] = None
+        self.duration_s: Optional[float] = None
+        self.error: Optional[str] = None
+        self.retries = 0
+        self.stalled = False  # sticky: set once the watchdog flagged it
+        self.thread: Optional[threading.Thread] = None
+        # long-lived worker loop (WS pump/pool, SDK reader, server tick):
+        # lives as long as its connection, exempt from deadlines and joins
+        self.service = False
+        # stack sample captured by the watchdog when it flagged the stall
+        self.stack: Optional[List[str]] = None
+        # the (ns, db) whose statement ARMED this task — the same parent
+        # link trace_id rides; the task's run time is charged to it
+        self.tenant: Optional[tuple] = None
+
+    def to_dict(self) -> dict:
+        return {
+            "id": self.id,
+            "kind": self.kind,
+            "target": self.target,
+            "state": self.state,
+            "trace_id": self.trace_id,
+            "scheduled_ts": round(self.scheduled_ts, 3),
+            "start_ts": round(self.start_ts, 3) if self.start_ts else None,
+            "end_ts": round(self.end_ts, 3) if self.end_ts else None,
+            "duration_s": round(self.duration_s, 4)
+            if self.duration_s is not None
+            else None,
+            "error": self.error,
+            "retries": self.retries,
+            "stalled": self.stalled,
+            "service": self.service,
+            "stack": self.stack,
+            "thread": self.thread.name if self.thread is not None else None,
+            "tenant": list(self.tenant) if self.tenant is not None else None,
+        }
+
+
+_lock = _locks.Lock("bg.registry")
+_tasks: Dict[int, Task] = {}  # id -> Task (bounded: finished tasks trimmed)
+_next_id = 0
+_watchdog: Optional[threading.Thread] = None
+_watchdog_stop = threading.Event()
+
+
+def _trim_locked() -> None:
+    """Drop the oldest FINISHED tasks past the registry cap (caller holds
+    _lock). Live (scheduled/running/stalled-running) tasks are never
+    evicted — the watchdog and teardown must always see them."""
+    from surrealdb_tpu_torch import cnf
+
+    _locks.assert_held(_lock, "bg._tasks")
+    cap = max(cnf.BG_REGISTRY_CAP, 16)
+    if len(_tasks) <= cap:
+        return
+    for tid in sorted(_tasks):
+        if len(_tasks) <= cap:
+            break
+        if _tasks[tid].state in ("done", "failed"):
+            del _tasks[tid]
+
+
+# ------------------------------------------------------------------ lifecycle
+def register(
+    kind: str,
+    target: str = "",
+    owner: Optional[int] = None,
+    deadline: Optional[float] = None,
+    trace_id: Any = "auto",
+) -> int:
+    """Create a `scheduled` task record; returns its id. `trace_id`
+    defaults to the active request's trace (the parent link that turns
+    "a rebuild ran" into "THIS query's commit armed it")."""
+    global _next_id
+    from surrealdb_tpu_torch import cnf
+
+    if trace_id == "auto":
+        from surrealdb_tpu_torch import tracing
+
+        trace_id = tracing.current_trace_id()
+    # the ARMING statement's tenant (registration happens on its thread /
+    # context, exactly like the trace link above) — run() charges the
+    # task's duration to it, however much later the body executes
+    from surrealdb_tpu_torch import accounting
+
+    tenant = accounting.current_tenant()
+    if deadline is None:
+        deadline = KIND_DEADLINES.get(kind, cnf.BG_WATCHDOG_DEADLINE_SECS)
+    with _lock:
+        _next_id += 1
+        tid = _next_id
+        t = _tasks[tid] = Task(tid, kind, target, owner, trace_id, deadline)
+        t.tenant = tenant
+        _trim_locked()
+    _ensure_watchdog()
+    return tid
+
+
+def touch(task_id: int) -> None:
+    """Refresh a scheduled task's timestamp (debounce deadline advanced)."""
+    with _lock:
+        t = _tasks.get(task_id)
+        if t is not None and t.state == "scheduled":
+            t.scheduled_ts = time.time()
+
+
+def retried(task_id: int) -> None:
+    with _lock:
+        t = _tasks.get(task_id)
+        if t is not None:
+            t.retries += 1
+
+
+def forget(task_id: int) -> None:
+    """Drop a FINISHED task's record entirely. For high-frequency periodic
+    jobs (the 10s changefeed-GC tick) whose uneventful sweeps would
+    otherwise flood the bounded finished ring and evict the diagnostically
+    useful records; the task was still watchdog-covered while running."""
+    with _lock:
+        t = _tasks.get(task_id)
+        if t is not None and t.state in ("done", "failed"):
+            del _tasks[task_id]
+
+
+def cancel(task_id: int, reason: str = "cancelled") -> None:
+    """Resolve a scheduled task that will never run (timer cancelled)."""
+    with _lock:
+        t = _tasks.get(task_id)
+        if t is not None and t.state == "scheduled":
+            t.state = "done"
+            t.error = reason
+            t.end_ts = time.time()
+            t.duration_s = 0.0
+
+
+@contextmanager
+def run(task_id: int, rename_thread: bool = True):
+    """Execute a task's body: flips it to `running` (naming the current
+    thread `bg:<kind>:<target>`), then to `done`/`failed`. A task the
+    watchdog flagged keeps its sticky `stalled` field either way."""
+    from surrealdb_tpu_torch import telemetry
+
+    # a prior Datastore.close() may have parked the watchdog while this
+    # task was still timer-armed ('scheduled'); its actual run must be
+    # stall-covered, so re-ensure the watchdog here, not only at register
+    _ensure_watchdog()
+    cur = threading.current_thread()
+    with _lock:
+        t = _tasks.get(task_id)
+        if t is not None:
+            t.state = "running"
+            t.start_ts = time.time()
+            t.thread = cur
+            if rename_thread:
+                cur.name = f"bg:{t.kind}:{t.target}" if t.target else f"bg:{t.kind}"
+    err: Optional[BaseException] = None
+    try:
+        if t is not None:
+            # chaos hook: every background-task body is an injection site
+            # (`bg.<kind>` family) — an injected error/panic resolves the
+            # record as failed exactly like a real body crash would
+            from surrealdb_tpu_torch import faults
+
+            faults.fire(f"bg.{t.kind}")
+        yield t
+    except BaseException as e:
+        err = e
+        raise
+    finally:
+        now = time.time()
+        with _lock:
+            t = _tasks.get(task_id)
+            if t is not None:
+                t.end_ts = now
+                t.duration_s = now - (t.start_ts or now)
+                t.state = "failed" if err is not None else "done"
+                if err is not None:
+                    t.error = f"{type(err).__name__}: {err}"[:300]
+                if t.stalled:
+                    # it finished after all — count the recovery so a
+                    # stalled counter spike can be read against it
+                    telemetry.inc("bg_task_recovered", kind=t.kind)
+                    from surrealdb_tpu_torch import events
+
+                    events.emit(
+                        "bg.recovered", trace_id=t.trace_id,
+                        task=t.kind, target=t.target, task_id=t.id,
+                        duration_s=round(t.duration_s, 3),
+                    )
+                kind = t.kind
+            else:
+                kind = None
+        if kind is not None:
+            telemetry.inc(
+                "bg_tasks", kind=kind, state="failed" if err else "done"
+            )
+            if t.duration_s is not None:
+                telemetry.observe("bg_task", t.duration_s, kind=kind)
+                # tenant accounting (AFTER _lock release — the store lock
+                # must never nest inside bg.registry): the task's run time
+                # lands on whoever armed it, mirrored into the global
+                # counter the conservation check reads
+                from surrealdb_tpu_torch import accounting
+
+                tenant = t.tenant or (None, None)
+                telemetry.inc("bg_task_seconds", by=t.duration_s)
+                accounting.charge(
+                    tenant[0], tenant[1], bg_kind=kind,
+                    bg_s=t.duration_s, bg_tasks=1,
+                )
+
+
+def spawn(
+    kind: str,
+    target: str,
+    fn: Callable,
+    *args,
+    owner: Optional[int] = None,
+    deadline: Optional[float] = None,
+) -> int:
+    """Register + start a named daemon thread running `fn(*args)` under the
+    task lifecycle. Returns the task id (thread joinable via shutdown)."""
+    tid = register(kind, target, owner=owner, deadline=deadline)
+
+    def body():
+        try:
+            with run(tid):
+                fn(*args)
+        except Exception:
+            # best-effort background work; run() already resolved the task
+            # record as failed with the error text — count the escape so a
+            # spike of dying spawn bodies is a metric, not a silent pass
+            from surrealdb_tpu_torch import telemetry
+
+            telemetry.inc("bg_spawn_body_errors", kind=kind)
+
+    t = threading.Thread(
+        target=body,
+        name=f"bg:{kind}:{target}" if target else f"bg:{kind}",
+        daemon=True,
+    )
+    with _lock:
+        rec = _tasks.get(tid)
+        if rec is not None:
+            rec.thread = t
+    t.start()
+    return tid
+
+
+def spawn_service(
+    kind: str,
+    target: str,
+    fn: Callable,
+    *args,
+    owner: Optional[int] = None,
+    restart: bool = False,
+) -> threading.Thread:
+    """Register + start a long-lived WORKER LOOP (WS notification pump,
+    WS request-pool worker, SDK reader, server tick loop): a daemon thread
+    that lives as long as its connection/server, so it is exempt from the
+    per-kind stall deadline and from shutdown() joins — its registry entry
+    exists for ATTRIBUTION (deterministic `bg:<kind>:<target>` thread name,
+    flight-recorder visibility, stack-dump identification). The entry
+    flips to done/failed when the loop exits. Returns the Thread (callers
+    that join on their own teardown need it).
+
+    `restart=True` supervises the loop: a body that dies on an UNCAUGHT
+    exception (including a panic-class BaseException) is re-run on the
+    same thread after an exponential backoff (cnf.BG_SERVICE_BACKOFF_*,
+    capped; reset after a healthy run) with `bg_service_restarts{kind}`
+    counting each revival — a crashed pump degrades to a hiccup instead of
+    dying silently. A NORMAL return (connection closed, stop flag) always
+    ends the loop; supervisable services must encode shutdown as a return,
+    not an exception."""
+    tid = register(kind, target, owner=owner, deadline=float("inf"))
+    with _lock:
+        rec = _tasks.get(tid)
+        if rec is not None:
+            rec.service = True
+
+    def body():
+        from surrealdb_tpu_torch import cnf, telemetry
+
+        backoff = max(cnf.BG_SERVICE_BACKOFF_BASE_SECS, 0.01)
+        while True:
+            started = time.monotonic()
+            try:
+                with run(tid):
+                    fn(*args)
+                return  # normal exit: the service is done for good
+            except BaseException:
+                # the registry record carries the error either way
+                if not restart:
+                    return
+                with _lock:
+                    rec = _tasks.get(tid)
+                    if rec is not None:
+                        rec.retries += 1
+                        err = rec.error
+                    else:
+                        err = None
+                telemetry.inc("bg_service_restarts", kind=kind)
+                from surrealdb_tpu_torch import events
+
+                events.emit(
+                    "bg.service_restart", task=kind, target=target,
+                    **({"error": err} if err else {}),
+                )
+                if time.monotonic() - started >= max(
+                    cnf.BG_SERVICE_HEALTHY_RESET_SECS, 1.0
+                ):
+                    backoff = max(cnf.BG_SERVICE_BACKOFF_BASE_SECS, 0.01)
+                time.sleep(min(backoff, max(cnf.BG_SERVICE_BACKOFF_MAX_SECS, 0.01)))
+                backoff = min(
+                    backoff * 2, max(cnf.BG_SERVICE_BACKOFF_MAX_SECS, 0.01)
+                )
+
+    t = threading.Thread(
+        target=body,
+        name=f"bg:{kind}:{target}" if target else f"bg:{kind}",
+        daemon=True,
+    )
+    with _lock:
+        rec = _tasks.get(tid)
+        if rec is not None:
+            rec.thread = t
+    t.start()
+    return t
+
+
+def start_thread(task_id: int, fn: Callable, *args) -> threading.Thread:
+    """Start the daemon thread for an ALREADY-REGISTERED task whose body
+    enters `bg.run(task_id)` itself (the IVF-train / index-build pattern:
+    registration happens under the caller's lock, the heavy body later).
+    Centralizes raw thread creation in this module (graftlint GL001)."""
+    with _lock:
+        rec = _tasks.get(task_id)
+        kind = rec.kind if rec is not None else "task"
+        target = rec.target if rec is not None else ""
+    t = threading.Thread(
+        target=fn,
+        args=args,
+        name=f"bg:{kind}:{target}" if target else f"bg:{kind}",
+        daemon=True,
+    )
+    with _lock:
+        rec = _tasks.get(task_id)
+        if rec is not None:
+            rec.thread = t
+    t.start()
+    return t
+
+
+def timer(
+    delay: float, fn: Callable, *args, task_id: Optional[int] = None,
+    name: Optional[str] = None, start: bool = True,
+) -> threading.Timer:
+    """Create a named daemon Timer attributed to a registered task (the
+    debounced column-mirror / graph-prewarm arm sites). The caller keeps
+    the Timer for cancel(); the registry keeps the attribution. Pass
+    `start=False` when the callback must learn its own Timer object first
+    (the self-identifying debounce pattern) — then call .start() yourself."""
+    t = threading.Timer(delay, fn, args=args)
+    t.daemon = True
+    if task_id is not None:
+        with _lock:
+            rec = _tasks.get(task_id)
+            if rec is not None:
+                rec.thread = t
+                if name is None:
+                    name = (
+                        f"bg:{rec.kind}:{rec.target}"
+                        if rec.target
+                        else f"bg:{rec.kind}"
+                    )
+    if name:
+        t.name = name
+    if start:
+        t.start()
+    return t
+
+
+# ------------------------------------------------------------------ watchdog
+def _ensure_watchdog() -> None:
+    global _watchdog
+    from surrealdb_tpu_torch import cnf
+
+    if not cnf.BG_WATCHDOG:
+        return
+    with _lock:
+        if _watchdog is not None and _watchdog.is_alive():
+            return
+        _watchdog_stop.clear()
+        _watchdog = threading.Thread(
+            target=_watchdog_loop, name="bg:watchdog", daemon=True
+        )
+        _watchdog.start()
+
+
+def _watchdog_loop() -> None:
+    from surrealdb_tpu_torch import cnf, telemetry
+
+    while not _watchdog_stop.wait(max(cnf.BG_WATCHDOG_INTERVAL_SECS, 0.05)):
+        now = time.time()
+        flagged: List[Task] = []
+        with _lock:
+            for t in _tasks.values():
+                if (
+                    t.state == "running"
+                    and not t.stalled
+                    and t.start_ts is not None
+                    and now - t.start_ts > t.deadline_s
+                ):
+                    t.state = "stalled"
+                    t.stalled = True
+                    flagged.append(t)
+        for t in flagged:
+            # counter first: observers poll state->counter in lockstep and
+            # must not see a stalled task without its metric
+            telemetry.inc("bg_task_stalled", kind=t.kind)
+            from surrealdb_tpu_torch import events
+
+            # the watchdog runs outside any request — cite the task's own
+            # arming trace so the timeline entry still joins a statement
+            events.emit(
+                "bg.stall", trace_id=t.trace_id,
+                task=t.kind, target=t.target, task_id=t.id,
+            )
+        if flagged:
+            # sample the wedged threads' stacks (sys._current_frames — the
+            # faulthandler view, but attributable per task) so the bundle's
+            # task-registry section says WHERE a stalled rebuild is stuck,
+            # not just that it is
+            stacks = _sample_stacks([t.thread for t in flagged])
+            with _lock:
+                for t in flagged:
+                    if t.thread is not None and t.thread.ident in stacks:
+                        t.stack = stacks[t.thread.ident]
+
+
+def _sample_stacks(threads) -> Dict[int, List[str]]:
+    """{thread ident: formatted stack tail} for live threads, via
+    sys._current_frames(). Best-effort: a thread that exits between the
+    flag and the sample simply yields no entry."""
+    import sys
+    import traceback
+
+    idents = {t.ident for t in threads if t is not None and t.ident is not None}
+    out: Dict[int, List[str]] = {}
+    if not idents:
+        return out
+    try:
+        frames = sys._current_frames()  # noqa: SLF001 — the documented API
+    except Exception:  # noqa: BLE001
+        return out
+    for ident, frame in frames.items():
+        if ident in idents:
+            out[ident] = [
+                ln.rstrip()
+                for ln in traceback.format_stack(frame, limit=12)
+            ][-12:]
+    return out
+
+
+def watchdog_alive() -> bool:
+    with _lock:
+        return _watchdog is not None and _watchdog.is_alive()
+
+
+# ------------------------------------------------------------------ teardown
+def shutdown(owner: Optional[int] = None, timeout: float = 10.0) -> bool:
+    """Join the owner's pending tasks (all owners when None); then, if the
+    registry is globally idle, stop + join the watchdog. Returns True when
+    everything joined inside the timeout. Called by Datastore.close()."""
+    global _watchdog
+    deadline = time.monotonic() + timeout
+    while True:
+        with _lock:
+            # services (WS pumps/pools, SDK readers) live as long as their
+            # CONNECTION, not the datastore — they are never joined here;
+            # their run() lifecycle resolves them when the loop exits
+            pending = [
+                t
+                for t in _tasks.values()
+                if t.state in ("running", "stalled")
+                and not t.service
+                and (owner is None or t.owner == owner)
+            ]
+        if not pending:
+            break
+        for t in pending:
+            th = t.thread
+            if th is not None and th.is_alive() and th is not threading.current_thread():
+                # join in SHORT increments and re-check task state: a task
+                # running on a persistent thread (changefeed GC on the
+                # server tick loop) finishes in milliseconds while its
+                # thread never exits — waiting on thread liveness for the
+                # full deadline would stall close() for nothing
+                th.join(min(0.1, max(deadline - time.monotonic(), 0.05)))
+        if time.monotonic() >= deadline:
+            break
+    with _lock:
+        # owner's never-ran scheduled tasks resolve as cancelled
+        for t in _tasks.values():
+            if t.state == "scheduled" and (owner is None or t.owner == owner):
+                t.state = "done"
+                t.error = "cancelled: datastore closed"
+                t.end_ts = time.time()
+                t.duration_s = 0.0
+        idle = not any(
+            t.state in ("running", "stalled") and not t.service
+            for t in _tasks.values()
+        )
+        wd = _watchdog if idle else None
+        if idle:
+            _watchdog = None
+    joined = True
+    if wd is not None:
+        _watchdog_stop.set()
+        if wd is not threading.current_thread():
+            wd.join(max(deadline - time.monotonic(), 0.1))
+            joined = not wd.is_alive()
+    with _lock:
+        still = [
+            t
+            for t in _tasks.values()
+            if t.state in ("running", "stalled")
+            and not t.service
+            and (owner is None or t.owner == owner)
+        ]
+    return joined and not still
+
+
+def wait_idle(timeout: float = 30.0, owner: Optional[int] = None) -> bool:
+    """Block until no scheduled/running task (of `owner`, or any) remains —
+    test/bench determinism helper, never used on the query path."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        with _lock:
+            # 'stalled' is still EXECUTING (the watchdog only re-labeled
+            # it) — reporting idle while a flagged rebuild keeps mutating
+            # mirrors would race exactly the slow tasks this helper gates
+            busy = any(
+                t.state in ("scheduled", "running", "stalled")
+                and not t.service  # worker loops never go idle by design
+                and (owner is None or t.owner == owner)
+                for t in _tasks.values()
+            )
+        if not busy:
+            return True
+        time.sleep(0.01)
+    return False
+
+
+# ------------------------------------------------------------------ views
+def get(task_id: int) -> Optional[dict]:
+    with _lock:
+        t = _tasks.get(task_id)
+        return t.to_dict() if t is not None else None
+
+
+def snapshot() -> dict:
+    """Registry state for the debug bundle: live tasks in full, finished
+    ones newest-first, plus per-kind/state counts."""
+    with _lock:
+        tasks = [t.to_dict() for t in _tasks.values()]
+    live = [t for t in tasks if t["state"] in ("scheduled", "running", "stalled")]
+    recent = sorted(
+        (t for t in tasks if t["state"] in ("done", "failed")),
+        key=lambda t: t["end_ts"] or 0,
+        reverse=True,
+    )
+    counts: Dict[str, int] = {}
+    for t in tasks:
+        key = f"{t['kind']}:{t['state']}"
+        counts[key] = counts.get(key, 0) + 1
+    return {
+        "live": live,
+        "recent": recent[:100],
+        "counts": counts,
+        "stalled_total": sum(1 for t in tasks if t["stalled"]),
+        "watchdog_alive": _watchdog is not None and _watchdog.is_alive(),
+    }
+
+
+def window(t0: float, t1: Optional[float] = None) -> List[dict]:
+    """Tasks whose RUN overlapped [t0, t1] wall-clock (t1 = now): the
+    bench's structural overlap accounting — which background work ran
+    inside a measurement window, and for how long."""
+    if t1 is None:
+        t1 = time.time()
+    out = []
+    with _lock:
+        tasks = [t.to_dict() for t in _tasks.values()]
+    for t in tasks:
+        start = t["start_ts"]
+        if start is None:
+            continue
+        end = t["end_ts"] if t["end_ts"] is not None else t1
+        if start < t1 and end > t0:
+            t["overlap_s"] = round(min(end, t1) - max(start, t0), 4)
+            out.append(t)
+    return out
+
+
+def export_gauges() -> None:
+    """Refresh bg_tasks_live{kind,state} gauges (called by the /metrics
+    scrape path right before rendering)."""
+    from surrealdb_tpu_torch import telemetry
+
+    with _lock:
+        live: Dict[tuple, int] = {}
+        for t in _tasks.values():
+            if t.state in ("scheduled", "running", "stalled"):
+                live[(t.kind, t.state)] = live.get((t.kind, t.state), 0) + 1
+    seen = set()
+    for (kind, state), n in live.items():
+        telemetry.gauge_set("bg_tasks_live", n, kind=kind, state=state)
+        seen.add((kind, state))
+    # zero out series whose tasks all finished since the last scrape
+    for lbls in telemetry.gauges_matching("bg_tasks_live"):
+        key = (dict(lbls).get("kind"), dict(lbls).get("state"))
+        if key not in seen:
+            telemetry.gauge_set("bg_tasks_live", 0, kind=key[0], state=key[1])
+
+
+def reset() -> None:
+    """Drop every record (tests). Does not touch running threads."""
+    with _lock:
+        _tasks.clear()

@@ -1,0 +1,108 @@
+// CPU emulation of the CUDA subset that csrc/knn.cu uses, for rehearsing
+// the kernels' logic on a machine without a card or nvcc
+// (tests/test_torch_kernel_emulation.py). One OS thread per CUDA thread;
+// blocks run one after another, so a kernel's `__shared__` arrays become
+// function statics; __syncthreads and every warp intrinsic are barriers
+// (the kernels call them with all 32 lanes, as the full masks say). A
+// `k<<<grid, block, smem, stream>>>(args)` launch is rewritten to
+// emu_launch(grid, block, smem, stream, [&]{ k(args); }). It checks logic
+// (indexing, barriers, ties, masks), never speed or the hardware's limits.
+#pragma once
+#include <atomic>
+#include <barrier>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <cstddef>
+#include <algorithm>
+#include <functional>
+#include <thread>
+#include <vector>
+#include <memory>
+using std::min; using std::max;
+#define __global__
+#define __device__
+#define __host__
+#define __shared__ static
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+#define __align__(n) __attribute__((aligned(n)))
+struct dim3 { unsigned x = 1, y = 1, z = 1; dim3() {} dim3(unsigned a) : x(a) {} };
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
+typedef int cudaError_t;
+typedef struct CUstream_st* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+inline cudaError_t cudaGetLastError() { return 0; }
+inline const char* cudaGetErrorString(cudaError_t) { return "emu"; }
+template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
+struct __nv_bfloat16 { unsigned short v; };
+inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
+inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
+inline float __bfloat162float(__nv_bfloat16 b) { return __uint_as_float(((unsigned)b.v) << 16); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __clz(int x) { return x == 0 ? 32 : __builtin_clz((unsigned)x); }
+struct uint4 { unsigned x, y, z, w; };
+struct float4 { float x, y, z, w; };
+template <class T> T __ldg(const T* p) { return *p; }
+inline unsigned atomicAdd(unsigned* p, unsigned v) { return std::atomic_ref<unsigned>(*p).fetch_add(v); }
+
+struct EmuBlock {
+  std::unique_ptr<std::barrier<>> block_bar;
+  std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
+  std::vector<unsigned long long> xchg;  // [threads]
+};
+inline EmuBlock* g_blk = nullptr;
+inline void __syncthreads() { g_blk->block_bar->arrive_and_wait(); }
+inline unsigned lane_id() { return threadIdx.x & 31; }
+inline unsigned warp_id() { return threadIdx.x >> 5; }
+template <class F> auto warp_exchange(unsigned long long mine, F f) {
+  auto& bar = *g_blk->warp_bar[warp_id()];
+  unsigned base = warp_id() * 32;
+  g_blk->xchg[base + lane_id()] = mine;
+  bar.arrive_and_wait();
+  auto r = f(&g_blk->xchg[base]);
+  bar.arrive_and_wait();
+  return r;
+}
+inline unsigned __match_any_sync(unsigned, unsigned v) {
+  return warp_exchange(v, [&](unsigned long long* w) {
+    unsigned m = 0; for (int l = 0; l < 32; ++l) if ((unsigned)w[l] == v) m |= 1u << l; return m; });
+}
+inline unsigned __ballot_sync(unsigned, int p) {
+  return warp_exchange(p ? 1 : 0, [&](unsigned long long* w) {
+    unsigned m = 0; for (int l = 0; l < 32; ++l) if (w[l]) m |= 1u << l; return m; });
+}
+template <class T> T __shfl_sync(unsigned, T v, int src) {
+  unsigned long long bits = 0; std::memcpy(&bits, &v, sizeof(T));
+  return warp_exchange(bits, [&](unsigned long long* w) { T r; std::memcpy(&r, &w[src], sizeof(T)); return r; });
+}
+template <class T> T __shfl_xor_sync(unsigned, T v, int o) {
+  unsigned long long bits = 0; std::memcpy(&bits, &v, sizeof(T));
+  return warp_exchange(bits, [&](unsigned long long* w) { T r; std::memcpy(&r, &w[lane_id() ^ o], sizeof(T)); return r; });
+}
+// One OS thread per CUDA thread of a block, reused for every block of the
+// grid in turn; an end-of-block barrier keeps the blocks apart (every
+// thread reaches each __syncthreads of a block equally often, so the block
+// barrier needs no thread to leave it).
+inline void emu_launch(unsigned grid, unsigned block, size_t, cudaStream_t, std::function<void()> fn) {
+  EmuBlock blk;
+  blk.block_bar = std::make_unique<std::barrier<>>(block);
+  for (unsigned w = 0; w < (block + 31) / 32; ++w) blk.warp_bar.push_back(std::make_unique<std::barrier<>>(32));
+  blk.xchg.assign(block, 0);
+  std::barrier<> end_bar(block);
+  g_blk = &blk;
+  std::vector<std::thread> ts;
+  for (unsigned t = 0; t < block; ++t)
+    ts.emplace_back([&, t] {
+      threadIdx = dim3(t);
+      blockDim = dim3(block);
+      gridDim = dim3(grid);
+      for (unsigned b = 0; b < grid; ++b) {
+        blockIdx = dim3(b);
+        fn();
+        end_bar.arrive_and_wait();
+      }
+    });
+  for (auto& t : ts) t.join();
+}

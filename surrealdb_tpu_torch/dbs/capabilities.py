@@ -1,0 +1,436 @@
+"""Operator-controllable capabilities: allow/deny lists gating what queries
+and clients may do.
+
+Role of the reference's Capabilities system (reference:
+core/src/dbs/capabilities.rs — Targets<T> None/Some/All, FuncTarget,
+NetTarget, MethodTarget, RouteTarget; a capability allows an element iff the
+allow-list matches it AND the deny-list does not). Carried by the Datastore
+(server-wide policy, configured from CLI/env) and consulted at the chokepoints:
+builtin-function dispatch (fnc), scripting, guest access (HTTP + RPC), RPC
+method dispatch, HTTP route dispatch, and outbound network targets
+(http:: functions).
+"""
+
+from __future__ import annotations
+
+import ipaddress
+from typing import FrozenSet, Iterable, Optional, Union
+
+from surrealdb_tpu_torch.err import SurrealError
+
+
+# ------------------------------------------------------------------ targets
+class FuncTarget:
+    """`family` (whole namespace), `family::*`, or `family::name`
+    (reference capabilities.rs FuncTarget)."""
+
+    __slots__ = ("family", "name")
+
+    def __init__(self, family: str, name: Optional[str] = None):
+        self.family = family
+        self.name = name
+
+    @staticmethod
+    def parse(s: str) -> "FuncTarget":
+        # lowercased: fnc.run lowercases call names before matching
+        s = s.strip().lower()
+        if not s:
+            raise SurrealError("empty function target")
+        if "::" in s:
+            family, rest = s.split("::", 1)
+            if rest in ("*", ""):
+                return FuncTarget(family)
+            return FuncTarget(family, rest)
+        return FuncTarget(s)
+
+    def matches(self, func_name: str) -> bool:
+        if self.name is not None:
+            if "::" not in func_name:
+                return False
+            f, r = func_name.split("::", 1)
+            return f == self.family and r == self.name
+        f = func_name.split("::", 1)[0]
+        return f == self.family
+
+    def __repr__(self):
+        return f"{self.family}::{self.name}" if self.name else f"{self.family}::*"
+
+    def __eq__(self, o):
+        return isinstance(o, FuncTarget) and (self.family, self.name) == (o.family, o.name)
+
+    def __hash__(self):
+        return hash((self.family, self.name))
+
+
+class NetTarget:
+    """Host name, IP, or CIDR block, each with an optional port
+    (reference capabilities.rs NetTarget)."""
+
+    __slots__ = ("host", "net", "port")
+
+    def __init__(self, host: Optional[str], net, port: Optional[int]):
+        self.host = host  # lowercase hostname, or None
+        self.net = net  # ipaddress.ip_network, or None
+        self.port = port
+
+    @staticmethod
+    def parse(s: str) -> "NetTarget":
+        s = s.strip()
+        if not s:
+            raise SurrealError("empty network target")
+        host, port = s, None
+        try:
+            if s.startswith("["):  # [v6]:port
+                body, _, rest = s[1:].partition("]")
+                host = body
+                if rest.startswith(":"):
+                    port = int(rest[1:])
+            elif s.count(":") == 1 and "/" not in s:
+                host, p = s.split(":")
+                port = int(p)
+        except ValueError as e:
+            raise SurrealError(f"invalid network target {s!r}") from e
+        try:
+            net = ipaddress.ip_network(host, strict=False)
+            return NetTarget(None, net, port)
+        except ValueError:
+            return NetTarget(host.lower(), None, port)
+
+    def matches(self, host: str, port: Optional[int] = None) -> bool:
+        if self.port is not None and port != self.port:
+            return False
+        if self.net is not None:
+            try:
+                return ipaddress.ip_address(host) in self.net
+            except ValueError:
+                return False
+        return host.lower() == self.host
+
+    def __repr__(self):
+        base = str(self.net) if self.net is not None else self.host
+        return f"{base}:{self.port}" if self.port is not None else base
+
+    def __eq__(self, o):
+        return isinstance(o, NetTarget) and (self.host, self.net, self.port) == (
+            o.host,
+            o.net,
+            o.port,
+        )
+
+    def __hash__(self):
+        return hash((self.host, self.net, self.port))
+
+
+RPC_METHODS = frozenset(
+    {
+        "ping", "info", "use", "signup", "signin", "authenticate", "invalidate",
+        "reset", "kill", "live", "let", "set", "unset", "select", "insert",
+        "create", "upsert", "update", "merge", "patch", "relate", "delete",
+        "version", "query", "run", "graphql", "ml_import", "ml_export",
+    }
+)
+
+HTTP_ROUTES = frozenset(
+    {
+        "export", "import", "rpc", "version", "sql", "signin", "signup", "key",
+        "ml", "graphql", "health", "sync", "status", "metrics", "slow",
+        "trace", "traces", "debug", "cluster", "events", "statements", "tenants",
+        "advisor",
+    }
+)
+
+
+def _check_member(kind: str, value: str, universe: FrozenSet[str]) -> str:
+    v = value.strip().lower()
+    if v not in universe:
+        raise SurrealError(f"invalid {kind} target {value!r}")
+    return v
+
+
+# ------------------------------------------------------------------ Targets
+class Targets:
+    """None / Some(set) / All (reference capabilities.rs Targets<T>)."""
+
+    __slots__ = ("kind", "items")
+
+    def __init__(self, kind: str, items=None):
+        self.kind = kind  # "none" | "some" | "all"
+        self.items = items or ()
+
+    NONE: "Targets"
+    ALL: "Targets"
+
+    @staticmethod
+    def some(items: Iterable) -> "Targets":
+        return Targets("some", tuple(items))
+
+    def matches(self, *elem) -> bool:
+        if self.kind == "none":
+            return False
+        if self.kind == "all":
+            return True
+        return any(t.matches(*elem) if hasattr(t, "matches") else t == elem[0] for t in self.items)
+
+    def __repr__(self):
+        if self.kind in ("none", "all"):
+            return self.kind
+        return ", ".join(repr(t) for t in self.items)
+
+
+Targets.NONE = Targets("none")
+Targets.ALL = Targets("all")
+
+
+def parse_targets(spec: Union[str, None], parser) -> Targets:
+    """Parse a CLI/env spec: '' or 'none' → None; '*' or 'all' → All;
+    otherwise a comma-separated target list."""
+    if spec is None:
+        return Targets.NONE
+    s = spec.strip().lower()
+    if s in ("", "none", "false"):
+        return Targets.NONE
+    if s in ("*", "all", "true"):
+        return Targets.ALL
+    return Targets.some(parser(p) for p in spec.split(",") if p.strip())
+
+
+# ------------------------------------------------------------------ capabilities
+class Capabilities:
+    """A capability allows an element iff allow matches AND deny does not
+    (reference capabilities.rs Capabilities::allows_*)."""
+
+    __slots__ = (
+        "scripting",
+        "guest_access",
+        "live_query_notifications",
+        "allow_funcs",
+        "deny_funcs",
+        "allow_net",
+        "deny_net",
+        "allow_rpc",
+        "deny_rpc",
+        "allow_http",
+        "deny_http",
+        "experimental",
+    )
+
+    def __init__(self):
+        # reference Default: guests denied, functions/rpc/http allowed,
+        # outbound network denied
+        self.scripting = False
+        self.guest_access = False
+        self.live_query_notifications = True
+        self.allow_funcs = Targets.ALL
+        self.deny_funcs = Targets.NONE
+        self.allow_net = Targets.NONE
+        self.deny_net = Targets.NONE
+        self.allow_rpc = Targets.ALL
+        self.deny_rpc = Targets.NONE
+        self.allow_http = Targets.ALL
+        self.deny_http = Targets.NONE
+        self.experimental = frozenset()
+
+    @staticmethod
+    def default() -> "Capabilities":
+        return Capabilities()
+
+    @staticmethod
+    def all() -> "Capabilities":
+        c = Capabilities()
+        c.scripting = True
+        c.guest_access = True
+        c.allow_net = Targets.ALL
+        return c
+
+    @staticmethod
+    def none() -> "Capabilities":
+        c = Capabilities()
+        c.live_query_notifications = False
+        c.allow_funcs = Targets.NONE
+        c.allow_rpc = Targets.NONE
+        c.allow_http = Targets.NONE
+        return c
+
+    # ------------------------------------------------------------ builders
+    def with_scripting(self, v: bool) -> "Capabilities":
+        self.scripting = v
+        return self
+
+    def with_guest_access(self, v: bool) -> "Capabilities":
+        self.guest_access = v
+        return self
+
+    def with_live_query_notifications(self, v: bool) -> "Capabilities":
+        self.live_query_notifications = v
+        return self
+
+    def with_functions(self, t: Targets) -> "Capabilities":
+        self.allow_funcs = t
+        return self
+
+    def without_functions(self, t: Targets) -> "Capabilities":
+        self.deny_funcs = t
+        return self
+
+    def with_network_targets(self, t: Targets) -> "Capabilities":
+        self.allow_net = t
+        return self
+
+    def without_network_targets(self, t: Targets) -> "Capabilities":
+        self.deny_net = t
+        return self
+
+    def with_rpc_methods(self, t: Targets) -> "Capabilities":
+        self.allow_rpc = t
+        return self
+
+    def without_rpc_methods(self, t: Targets) -> "Capabilities":
+        self.deny_rpc = t
+        return self
+
+    def with_http_routes(self, t: Targets) -> "Capabilities":
+        self.allow_http = t
+        return self
+
+    def without_http_routes(self, t: Targets) -> "Capabilities":
+        self.deny_http = t
+        return self
+
+    # ------------------------------------------------------------ checks
+    def allows_scripting(self) -> bool:
+        return self.scripting
+
+    def allows_guest_access(self) -> bool:
+        return self.guest_access
+
+    def allows_live_query_notifications(self) -> bool:
+        return self.live_query_notifications
+
+    def allows_function_name(self, name: str) -> bool:
+        return self.allow_funcs.matches(name) and not self.deny_funcs.matches(name)
+
+    def allows_network_target(self, host: str, port: Optional[int] = None) -> bool:
+        return self.allow_net.matches(host, port) and not self.deny_net.matches(host, port)
+
+    def allows_rpc_method(self, method: str) -> bool:
+        m = method.lower()
+        return self.allow_rpc.matches(m) and not self.deny_rpc.matches(m)
+
+    def allows_http_route(self, route: str) -> bool:
+        r = route.lower()
+        return self.allow_http.matches(r) and not self.deny_http.matches(r)
+
+    def __repr__(self):
+        return (
+            f"scripting={self.scripting}, guest_access={self.guest_access}, "
+            f"live_query_notifications={self.live_query_notifications}, "
+            f"allow_funcs={self.allow_funcs!r}, deny_funcs={self.deny_funcs!r}, "
+            f"allow_net={self.allow_net!r}, deny_net={self.deny_net!r}, "
+            f"allow_rpc={self.allow_rpc!r}, deny_rpc={self.deny_rpc!r}, "
+            f"allow_http={self.allow_http!r}, deny_http={self.deny_http!r}"
+        )
+
+
+# ------------------------------------------------------------------ env/CLI
+def from_env_and_args(args=None) -> Capabilities:
+    """Build server capabilities from CLI args (cli.py start) and/or
+    SURREAL_CAPS_* environment variables (reference: the --allow-*/--deny-*
+    flags on `surreal start`)."""
+    from surrealdb_tpu_torch import cnf
+
+    caps = Capabilities.default()
+    falsy = ("", "0", "false", "no", "off", "none")
+
+    def flag(cli_name: str, env: str) -> Optional[str]:
+        v = getattr(args, cli_name, None) if args is not None else None
+        if v is None:
+            v = cnf.env_str(env)
+        if v is True:
+            return "all"
+        if v is False:
+            return "none"
+        return v
+
+    def truthy(v: Optional[str]) -> bool:
+        return v is not None and v.strip().lower() not in falsy
+
+    if truthy(flag("allow_all", "SURREAL_CAPS_ALLOW_ALL")):
+        caps = Capabilities.all()
+    if truthy(flag("deny_all", "SURREAL_CAPS_DENY_ALL")):
+        caps = Capabilities.none()
+
+    v = flag("allow_scripting", "SURREAL_CAPS_ALLOW_SCRIPT")
+    if v is not None:
+        caps.with_scripting(truthy(v))
+    v = flag("allow_guests", "SURREAL_CAPS_ALLOW_GUESTS")
+    if v is not None:
+        caps.with_guest_access(truthy(v))
+    v = flag("allow_funcs", "SURREAL_CAPS_ALLOW_FUNC")
+    if v is not None:
+        caps.with_functions(parse_targets(v, FuncTarget.parse))
+    v = flag("deny_funcs", "SURREAL_CAPS_DENY_FUNC")
+    if v is not None:
+        caps.without_functions(parse_targets(v, FuncTarget.parse))
+    v = flag("allow_net", "SURREAL_CAPS_ALLOW_NET")
+    if v is not None:
+        caps.with_network_targets(parse_targets(v, NetTarget.parse))
+    v = flag("deny_net", "SURREAL_CAPS_DENY_NET")
+    if v is not None:
+        caps.without_network_targets(parse_targets(v, NetTarget.parse))
+    v = flag("allow_rpc", "SURREAL_CAPS_ALLOW_RPC")
+    if v is not None:
+        caps.with_rpc_methods(
+            parse_targets(v, lambda s: _Member(_check_member("rpc", s, RPC_METHODS)))
+        )
+    v = flag("deny_rpc", "SURREAL_CAPS_DENY_RPC")
+    if v is not None:
+        caps.without_rpc_methods(
+            parse_targets(v, lambda s: _Member(_check_member("rpc", s, RPC_METHODS)))
+        )
+    v = flag("allow_http", "SURREAL_CAPS_ALLOW_HTTP")
+    if v is not None:
+        caps.with_http_routes(
+            parse_targets(v, lambda s: _Member(_check_member("http", s, HTTP_ROUTES)))
+        )
+    v = flag("deny_http", "SURREAL_CAPS_DENY_HTTP")
+    if v is not None:
+        caps.without_http_routes(
+            parse_targets(v, lambda s: _Member(_check_member("http", s, HTTP_ROUTES)))
+        )
+    return caps
+
+
+def check_net_target(caps: Capabilities, url: str) -> None:
+    """Chokepoint for outbound network access (http:: functions): parse the
+    URL's host/port and raise unless the capability allows it (reference:
+    fnc/http.rs net-target check before every request)."""
+    from urllib.parse import urlparse
+
+    from surrealdb_tpu_torch.err import NetTargetNotAllowedError
+
+    p = urlparse(url)
+    host = p.hostname or ""
+    port = p.port or {"http": 80, "https": 443}.get(p.scheme or "", None)
+    if not host or not caps.allows_network_target(host, port):
+        raise NetTargetNotAllowedError(f"{host}:{port}" if port else host)
+
+
+class _Member:
+    """Exact-string target (RPC methods, HTTP route names)."""
+
+    __slots__ = ("value",)
+
+    def __init__(self, value: str):
+        self.value = value
+
+    def matches(self, elem: str) -> bool:
+        return elem == self.value
+
+    def __repr__(self):
+        return self.value
+
+    def __eq__(self, o):
+        return isinstance(o, _Member) and self.value == o.value
+
+    def __hash__(self):
+        return hash(self.value)

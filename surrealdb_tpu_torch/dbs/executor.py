@@ -1,0 +1,406 @@
+"""Statement loop and transaction management.
+
+Role of the reference's Executor (reference: core/src/dbs/executor.rs:34-593):
+runs each statement of a query, opening one transaction per bare statement or
+one shared transaction for an explicit BEGIN..COMMIT block; buffers responses
+inside an explicit transaction so a failure/cancel can retroactively flip
+them; flushes live-query notifications only on successful commit.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from typing import Any, Dict, List, Optional
+
+from surrealdb_tpu_torch import cnf
+from surrealdb_tpu_torch.err import (
+    ControlFlow,
+    QueryCancelledError,
+    ReturnError,
+    SurrealError,
+)
+from surrealdb_tpu_torch.sql.statements import (
+    AlterStatement,
+    BeginStatement,
+    CancelStatement,
+    CommitStatement,
+    DefineStatement,
+    KillStatement,
+    LiveStatement,
+    OptionStatement,
+    Query,
+    RebuildStatement,
+    RemoveStatement,
+    UseStatement,
+)
+from surrealdb_tpu_torch.sql.value import NONE, is_none
+
+from .context import Context
+from .session import Session
+
+# Expression recursion is depth-limited by MAX_COMPUTATION_DEPTH (120), but
+# each level can span many Python frames; mirror the reference's big-stack
+# runtime setup (reference: src/main.rs:38-49 RUNTIME_STACK_SIZE).
+if sys.getrecursionlimit() < 20_000:
+    sys.setrecursionlimit(20_000)
+
+_FAILED_TX = "The query was not executed due to a failed transaction"
+_CANCELLED_TX = "The query was not executed due to a cancelled transaction"
+
+
+def _fmt_time(seconds: float) -> str:
+    if seconds < 1e-3:
+        return f"{seconds * 1e6:.1f}µs"
+    if seconds < 1.0:
+        return f"{seconds * 1e3:.2f}ms"
+    return f"{seconds:.3f}s"
+
+
+class Executor:
+    def __init__(self, ds, session: Session, vars: Optional[Dict[str, Any]] = None):
+        self.ds = ds
+        self.session = session
+        self.vars = vars or {}
+        self.txn = None
+        self.explicit = False  # inside BEGIN..COMMIT
+        self.failed: Optional[str] = None  # error text that poisoned the txn
+        # plan-cache serve state (dbs/plan_cache.py): per-execution slot
+        # bindings for a shared template AST (read by SlotLiteral.compute
+        # through ctx.executor), whether this execution was served warm,
+        # and the schema-generation token captured at statement start
+        # (plan artifacts installed under a stale token are refused)
+        self.slot_values: Optional[tuple] = None
+        self.cache_warm = False
+        self.plan_gen: Optional[tuple] = None
+        self._ddl_open: List[tuple] = []  # DDL brackets held to COMMIT/CANCEL
+        self._buffered: List[dict] = []  # responses inside the explicit txn
+        self._notifications: List[Any] = []
+
+    # ------------------------------------------------------------ txns
+    def current_txn(self):
+        return self.txn
+
+    def _open(self, write: bool) -> None:
+        if self.txn is None or self.txn.done:
+            self.txn = self.ds.transaction(write)
+
+    def _commit(self) -> None:
+        if self.txn is not None and not self.txn.done:
+            self.txn.commit()
+            self._flush_notifications()
+        self.txn = None
+        self._close_ddl_brackets()
+
+    def _cancel(self) -> None:
+        if self.txn is not None and not self.txn.done:
+            self.txn.cancel()
+        self.txn = None
+        self._notifications = []
+        self._close_ddl_brackets()
+
+    def _close_ddl_brackets(self) -> None:
+        """Release plan-cache DDL brackets held across an explicit txn
+        (the schema change is now committed or cancelled either way)."""
+        if self._ddl_open:
+            pc = self.ds.plan_cache
+            for ns, db in self._ddl_open:
+                pc.ddl_end(ns, db)
+            self._ddl_open = []
+
+    # ------------------------------------------------------------ notifications
+    def buffer_notification(self, n) -> None:
+        self._notifications.append(n)
+
+    def _flush_notifications(self) -> None:
+        hub = self.ds.notifications
+        if hub is not None:
+            for n in self._notifications:
+                hub.publish(n)
+        self._notifications = []
+
+    # ------------------------------------------------------------ main loop
+    def execute(self, query: Query) -> List[dict]:
+        out: List[dict] = []
+        ctx = Context(self, self.session)
+        for name, value in self.vars.items():
+            ctx.set_param(name, value)
+
+        # per-statement source spans (syn/parser.py) feed the workload
+        # statistics plane; reprs stand in for programmatic ASTs (a length
+        # mismatch must never drop a statement from the zip)
+        sources = query.sources
+        if sources is None or len(sources) != len(query.statements):
+            sources = [repr(s) for s in query.statements]
+        for stm, src in zip(query.statements, sources):
+            t0 = time.perf_counter()
+
+            if isinstance(stm, BeginStatement):
+                if not self.explicit:
+                    self._open(True)
+                    self.explicit = True
+                    self.failed = None
+                    self._buffered = []
+                continue
+
+            if isinstance(stm, CommitStatement):
+                if self.explicit:
+                    if self.failed is None:
+                        try:
+                            self._commit()
+                        except SurrealError as e:
+                            self.failed = str(e)
+                            self._cancel()
+                    else:
+                        self._cancel()
+                    if self.failed is not None:
+                        for r in self._buffered:
+                            if r["status"] == "OK":
+                                r["status"] = "ERR"
+                                r["result"] = _FAILED_TX
+                    out.extend(self._buffered)
+                    self._buffered = []
+                    self.explicit = False
+                    self.failed = None
+                continue
+
+            if isinstance(stm, CancelStatement):
+                if self.explicit:
+                    self._cancel()
+                    for r in self._buffered:
+                        r["status"] = "ERR"
+                        r["result"] = _CANCELLED_TX
+                    out.extend(self._buffered)
+                    self._buffered = []
+                    self.explicit = False
+                    self.failed = None
+                continue
+
+            # inside a poisoned explicit transaction: report, don't run
+            if self.explicit and self.failed is not None:
+                self._push(out, {"status": "ERR", "result": _FAILED_TX, "time": _fmt_time(0)})
+                continue
+
+            resp = self._run_statement(ctx, stm, src)
+            resp["time"] = _fmt_time(time.perf_counter() - t0)
+            self._push(out, resp)
+
+        # an unterminated BEGIN block: treat like CANCEL (reference cancels on drop)
+        if self.explicit:
+            self._cancel()
+            for r in self._buffered:
+                r["status"] = "ERR"
+                r["result"] = _CANCELLED_TX
+            out.extend(self._buffered)
+            self._buffered = []
+            self.explicit = False
+
+        return out
+
+    def _push(self, out: List[dict], resp: dict) -> None:
+        if self.explicit:
+            self._buffered.append(resp)
+        else:
+            out.append(resp)
+
+    def _run_statement(self, ctx: Context, stm, src: Optional[str] = None) -> dict:
+        # session-state statements need no transaction
+        if isinstance(stm, (UseStatement, OptionStatement)):
+            try:
+                stm.compute(ctx)
+                return {"status": "OK", "result": NONE}
+            except SurrealError as e:
+                return {"status": "ERR", "result": str(e)}
+
+        from surrealdb_tpu_torch import accounting, stats, telemetry, tracing
+
+        # workload statistics plane: the literal-erased statement shape.
+        # The fingerprint rides the trace meta (kept traces join their
+        # stats row) and the per-thread activation table (the sampling
+        # profiler attributes wall-clock samples to it).
+        fp, norm = stats.fingerprint(src if src else repr(stm))
+        tracing.annotate(**self._session_info(), fingerprint=fp)
+        t0 = time.perf_counter()
+        cpu0 = time.thread_time()
+        dstats0 = self.ds.dispatch.stats()
+        # rows_in: bulk-ingest rows landed over this statement's window
+        # (process-global counter delta, like the dispatch delta below)
+        bulk0 = telemetry.get_counter("bulk_insert_rows")
+        telemetry.drain_plan_notes()  # clear notes left by a prior statement
+        tok = stats.activate(fp)
+        # tenant accounting: the statement executes FOR session (ns, db) —
+        # the activation is what dispatch riders, bg registrations and the
+        # profiler's cross-thread reads attribute through; the tally is
+        # the iterator's rows-scanned scratch, flushed below
+        atok = accounting.activate(self.session.ns, self.session.db)
+        tally0 = accounting.tally_begin()
+        # plan cache: capture the schema-generation token this statement
+        # plans under; DDL brackets itself so artifacts raced against a
+        # concurrent schema change can never install (dbs/plan_cache.py)
+        pc = self.ds.plan_cache
+        ddl = isinstance(
+            stm,
+            (DefineStatement, RemoveStatement, AlterStatement,
+             RebuildStatement),
+        )
+        self.plan_gen = pc.gen_token(self.session.ns, self.session.db)
+        if ddl:
+            pc.ddl_begin(self.session.ns, self.session.db)
+        try:
+            resp = self._execute_statement(ctx, stm)
+        finally:
+            scanned = accounting.tally_end(tally0)
+            accounting.deactivate(atok)
+            stats.deactivate(tok)
+            if ddl:
+                if self.explicit:
+                    # the schema change lands at COMMIT (or dies at
+                    # CANCEL): hold the bracket open until then
+                    self._ddl_open.append(
+                        (self.session.ns, self.session.db)
+                    )
+                else:
+                    pc.ddl_end(self.session.ns, self.session.db)
+        dt = time.perf_counter() - t0
+        cpu_s = time.thread_time() - cpu0
+        # drained ONCE per statement: the stats record and the slow-query
+        # ring read the same plan-note list
+        notes = telemetry.drain_plan_notes()
+        d1 = self.ds.dispatch.stats()
+        dispatch_delta = {k: round(d1[k] - dstats0[k], 4) for k in d1}
+        errored = resp.get("status") == "ERR"
+        slow = dt >= cnf.SLOW_QUERY_THRESHOLD_SECS
+        result = resp.get("result")
+        rows_out = (
+            len(result) if isinstance(result, list) else (0 if errored else 1)
+        )
+        rows_in = int(telemetry.get_counter("bulk_insert_rows") - bulk0)
+        stats.record(
+            fp, norm, type(stm).__name__, dt,
+            error=errored, slow=slow, rows_out=rows_out,
+            rows_in=rows_in,
+            plan=notes, dispatch=dispatch_delta,
+        )
+        # tenant accounting flush: ONE charge per statement, mirrored into
+        # the global conservation counters with the SAME values so
+        # per-tenant sums reconcile against independent telemetry totals
+        rows_scanned = scanned.get("rows_scanned", 0.0)
+        telemetry.inc("statement_cpu_seconds", by=cpu_s)
+        telemetry.inc("statement_rows_scanned", by=rows_scanned)
+        telemetry.inc("statement_rows_returned", by=float(rows_out))
+        accounting.charge(
+            self.session.ns, self.session.db, fingerprint=fp,
+            statements=1, errors=1 if errored else 0, slow=1 if slow else 0,
+            exec_s=dt, cpu_s=cpu_s, rows_scanned=rows_scanned,
+            rows_returned=rows_out, rows_written=rows_in,
+        )
+        if errored:
+            telemetry.inc("statement_errors", kind=type(stm).__name__)
+            # joinable side of the counter: cite the request's trace (and
+            # pin it — the citation must stay resolvable via /trace/:id)
+            tracing.force_keep()
+            telemetry.record_error(
+                {
+                    "ts": time.time(),
+                    "kind": type(stm).__name__,
+                    "error": str(resp["result"])[:300],
+                    "trace_id": tracing.current_trace_id(),
+                    "fingerprint": fp,
+                    "session": self._session_info(),
+                }
+            )
+        if slow:
+            # structured slow-query record (reference: query duration
+            # warnings in telemetry/metrics) — ring-buffered with the plan
+            # decisions plus the dispatch-queue delta over this statement's
+            # window (process-global: concurrent statements' dispatches are
+            # included), drained via telemetry.snapshot() or GET /slow
+            kind = type(stm).__name__
+            telemetry.inc("slow_queries", kind=kind)
+            tracing.force_keep()  # /slow -> /trace/:id must be one hop
+            telemetry.record_slow_query(
+                {
+                    "ts": time.time(),
+                    "sql": repr(stm)[:500],
+                    "kind": kind,
+                    "duration_s": round(dt, 6),
+                    "plan": notes,
+                    "dispatch": dispatch_delta,
+                    "trace_id": tracing.current_trace_id(),
+                    "fingerprint": fp,
+                    "session": self._session_info(),
+                    "error": str(resp["result"])[:500]
+                    if resp.get("status") == "ERR"
+                    else None,
+                }
+            )
+        return resp
+
+    def _session_info(self) -> dict:
+        """Joinable request context: ns/db and the auth LEVEL only — a
+        token or credential must never reach a log surface."""
+        s = self.session
+        return {
+            "ns": s.ns,
+            "db": s.db,
+            "auth": getattr(s.auth, "level", None) or "anon",
+        }
+
+    def _execute_statement(self, ctx: Context, stm) -> dict:
+        from surrealdb_tpu_torch import telemetry
+
+        writeable = stm.writeable()
+        own_txn = not self.explicit
+        if own_txn:
+            self._open(writeable)
+        try:
+            try:
+                with telemetry.span("statement", kind=type(stm).__name__):
+                    result = stm.compute(ctx)
+            except ReturnError as r:
+                result = r.value
+            if own_txn:
+                if writeable:
+                    self._commit()
+                else:
+                    self._cancel()
+            return {"status": "OK", "result": result}
+        except ControlFlow as e:
+            # BREAK/CONTINUE outside a loop etc.
+            if own_txn:
+                self._cancel()
+            if self.explicit:
+                self.failed = str(e)
+            return {"status": "ERR", "result": f"Unexpected control flow: {e}"}
+        except SurrealError as e:
+            if own_txn:
+                self._cancel()
+            if self.explicit:
+                self.failed = str(e)
+            return {"status": "ERR", "result": str(e)}
+        except Exception as e:
+            # engine bugs must not leak transactions or abort the whole call
+            if own_txn:
+                self._cancel()
+            if self.explicit:
+                self.failed = str(e)
+            return {"status": "ERR", "result": f"Internal error: {type(e).__name__}: {e}"}
+
+    # ------------------------------------------------------------ expressions
+    def compute_expression(self, expr) -> Any:
+        """Evaluate one expression in its own transaction
+        (reference kvs/ds.rs compute)."""
+        ctx = Context(self, self.session)
+        for name, value in self.vars.items():
+            ctx.set_param(name, value)
+        self._open(getattr(expr, "writeable", lambda: False)())
+        try:
+            try:
+                v = expr.compute(ctx)
+            except ReturnError as r:
+                v = r.value
+            self._commit()
+            return v
+        except BaseException:
+            self._cancel()
+            raise

@@ -1,0 +1,982 @@
+"""Statement iteration: source collection, record processing, postprocessing.
+
+Role of the reference's Iterator + Iterable + Processor trio (reference:
+core/src/dbs/iterator.rs:44-808, processor.rs:23-754): a statement's FROM
+targets are classified into Iterables (value, thing, range, table, edges,
+mergeable, relatable, index plan); each expands into processed records; the
+per-verb document pipeline runs per record; SELECT output then flows through
+SPLIT → GROUP → ORDER → START/LIMIT → FETCH postprocessing
+(iterator.rs:306-394).
+
+The batch boundary: table/index scans fetch in NORMAL_FETCH_SIZE batches, and
+index-backed kNN/BM25 sources arrive as whole scored device batches — this is
+the seam where the reference's PARALLEL thread pipeline becomes a TPU batch
+dispatch (SURVEY §2.5).
+"""
+
+from __future__ import annotations
+
+import random
+from typing import Any, Iterable as PyIterable, List, Optional, Tuple
+
+from surrealdb_tpu_torch import cnf
+from surrealdb_tpu_torch import key as keys
+from surrealdb_tpu_torch.err import (
+    IgnoreError,
+    InvalidStatementTargetError,
+    SurrealError,
+    TypeError_,
+)
+from surrealdb_tpu_torch.key.encode import prefix_end
+from surrealdb_tpu_torch.sql.ast import (
+    Expr,
+    FunctionCall,
+    ThingRange,
+)
+from surrealdb_tpu_torch.sql.path import Idiom, PField, PGraph, PStart, get_path, set_path
+from surrealdb_tpu_torch.sql.value import (
+    NONE,
+    Range,
+    Table,
+    Thing,
+    copy_value,
+    format_value,
+    is_none,
+    is_nullish,
+    sort_key,
+    truthy,
+    value_cmp,
+    value_eq,
+)
+from surrealdb_tpu_torch.utils.ser import unpack
+
+
+# ------------------------------------------------------------------ iterables
+class IValue:
+    __slots__ = ("v",)
+
+    def __init__(self, v):
+        self.v = v
+
+
+class IThing:
+    __slots__ = ("t",)
+
+    def __init__(self, t: Thing):
+        self.t = t
+
+
+class IDefer:
+    """A record id for CREATE — existence checked at write time."""
+
+    __slots__ = ("t",)
+
+    def __init__(self, t: Thing):
+        self.t = t
+
+
+class IRange:
+    __slots__ = ("tb", "rng")
+
+    def __init__(self, tb: str, rng: Range):
+        self.tb = tb
+        self.rng = rng
+
+
+class ITable:
+    __slots__ = ("tb",)
+
+    def __init__(self, tb: str):
+        self.tb = tb
+
+
+class IMergeable:
+    __slots__ = ("t", "row")
+
+    def __init__(self, t: Thing, row: dict):
+        self.t = t
+        self.row = row
+
+
+class IRelatable:
+    __slots__ = ("f", "e", "w", "row")
+
+    def __init__(self, f: Thing, e: Thing, w: Thing, row: Optional[dict] = None):
+        self.f = f
+        self.e = e
+        self.w = w
+        self.row = row  # extra fields from INSERT RELATION
+
+
+class IIndex:
+    """Planner-selected index scan (reference Iterable::Index)."""
+
+    __slots__ = ("tb", "plan")
+
+    def __init__(self, tb: str, plan):
+        self.tb = tb
+        self.plan = plan
+
+
+# ------------------------------------------------------------------ source classification
+def target_value(ctx, e: Expr):
+    """Evaluate a statement-target expression. A bare identifier in target
+    position always denotes a table, even when a document is bound (the
+    reference parses targets as Table values, not idioms)."""
+    if isinstance(e, Idiom):
+        name = e.simple_name()
+        if name is not None:
+            return Table(name)
+    return e.compute(ctx)
+
+
+def classify_sources(ctx, what_exprs: List[Expr], verb: str) -> List[Any]:
+    """Evaluate FROM/target expressions into Iterables
+    (reference: statements/select.rs what-loop + iterator.rs ingest)."""
+    out: List[Any] = []
+    for e in what_exprs:
+        v = target_value(ctx, e)
+        _classify_value(ctx, v, verb, out)
+    return out
+
+
+def _classify_value(ctx, v, verb: str, out: List[Any]) -> None:
+    if isinstance(v, Table):
+        if verb == "create":
+            out.append(IDefer(Thing(str(v))))
+        else:
+            out.append(ITable(str(v)))
+    elif isinstance(v, Thing):
+        if isinstance(v.id, Range):
+            out.append(IRange(v.tb, v.id))
+        elif verb == "create":
+            out.append(IDefer(v))
+        else:
+            out.append(IThing(v))
+    elif isinstance(v, ThingRange):
+        out.append(IRange(v.tb, v.rng))
+    elif isinstance(v, (list, tuple)):
+        for item in v:
+            _classify_value(ctx, item, verb, out)
+    elif isinstance(v, str) and verb != "select":
+        # string record id like "person:1" used as a write target
+        try:
+            t = Thing.parse(v)
+            _classify_value(ctx, t, verb, out)
+        except SurrealError:
+            raise InvalidStatementTargetError(format_value(v))
+    else:
+        if verb == "select":
+            out.append(IValue(v))
+        else:
+            raise InvalidStatementTargetError(format_value(v))
+
+
+# ------------------------------------------------------------------ record streams
+def scan_table(ctx, tb: str) -> PyIterable[Tuple[Thing, dict]]:
+    from surrealdb_tpu_torch import accounting
+
+    ns, db = ctx.ns_db()
+    txn = ctx.txn()
+    pre = keys.thing_prefix(ns, db, tb)
+    # deadline checks amortized to every Nth row: a monotonic clock read
+    # per row is measurable GIL-held overhead on a million-row scan
+    interval = max(cnf.SCAN_DEADLINE_INTERVAL, 1)
+    n = 0
+    for chunk in txn.batch(pre, prefix_end(pre), cnf.NORMAL_FETCH_SIZE):
+        # rows-scanned tally per CHUNK, not per row: the statement-local
+        # scratch the executor flushes into its one accounting.charge()
+        accounting.tally(rows_scanned=len(chunk))
+        for k, raw in chunk:
+            if n % interval == 0:
+                ctx.check_deadline()
+            n += 1
+            rid = Thing(tb, keys.decode_thing_id(k, ns, db, tb))
+            yield rid, unpack(raw)
+
+
+def scan_range(ctx, tb: str, rng: Range) -> PyIterable[Tuple[Thing, dict]]:
+    ns, db = ctx.ns_db()
+    txn = ctx.txn()
+    if is_none(rng.beg):
+        beg = keys.thing_prefix(ns, db, tb)
+    else:
+        beg = keys.thing(ns, db, tb, rng.beg)
+        if not rng.beg_incl:
+            beg += b"\x00"
+    if is_none(rng.end):
+        end = prefix_end(keys.thing_prefix(ns, db, tb))
+    else:
+        end = keys.thing(ns, db, tb, rng.end)
+        if rng.end_incl:
+            end += b"\x00"
+    from surrealdb_tpu_torch import accounting
+
+    interval = max(cnf.SCAN_DEADLINE_INTERVAL, 1)
+    n = 0
+    for chunk in txn.batch(beg, end, cnf.NORMAL_FETCH_SIZE):
+        accounting.tally(rows_scanned=len(chunk))
+        for k, raw in chunk:
+            if n % interval == 0:
+                ctx.check_deadline()
+            n += 1
+            rid = Thing(tb, keys.decode_thing_id(k, ns, db, tb))
+            yield rid, unpack(raw)
+
+
+# ------------------------------------------------------------------ iterator
+class Iterator:
+    """Runs one data statement's iteration (reference dbs/iterator.rs:117)."""
+
+    def __init__(self, ctx, stm, verb: str):
+        self.ctx = ctx
+        self.stm = stm
+        self.verb = verb
+        self.entries: List[Any] = []
+        # SELECT results spill to disk past EXTERNAL_SORTING_BUFFER_LIMIT
+        # (reference dbs/result.rs:15 Memory|File, dbs/store/file.rs:18);
+        # mutating verbs keep plain lists (their outputs are the mutated
+        # rows the caller asked back for)
+        if verb == "select":
+            from surrealdb_tpu_torch.dbs.store import ResultStore
+
+            self.results: Any = ResultStore()
+        else:
+            self.results = []
+        self.cancel_on_limit: Optional[int] = None
+        self.mutated = 0  # records actually processed (incl. RETURN NONE)
+        # grouped SELECTs collect raw docs; projection happens per group
+        self.grouping = verb == "select" and bool(
+            getattr(stm, "group", None) or getattr(stm, "group_all", False)
+        )
+        # SELECTs whose projection invokes ml:: models collect raw docs too,
+        # so every scanned row feeds ONE batched device dispatch instead of
+        # a per-row forward (BASELINE config 5; reference runs Model::compute
+        # per document, core/src/sql/model.rs). Guests / record-access
+        # sessions keep the per-row path so per-doc model PERMISSIONS hold.
+        self.ml_calls: List[Any] = []
+        if verb == "select" and not self.grouping:
+            from surrealdb_tpu_torch.iam.check import perms_apply
+
+            if not perms_apply(ctx):
+                self.ml_calls = find_model_calls(getattr(stm, "fields", None))
+        self.defer_projection = bool(self.ml_calls)
+        # set when the (single) planned source already yields rows in the
+        # statement's ORDER BY order (IndexOrderPlan) — skips the post-sort
+        # and re-enables the LIMIT fast path
+        self.order_pushed = False
+
+    def ingest(self, it) -> None:
+        self.entries.append(it)
+
+    # -------------------------------------------------------------- run
+    def output(self) -> List[Any]:
+        ctx, stm, verb = self.ctx, self.stm, self.verb
+
+        # fast-path cancellation: plain SELECT with LIMIT and no
+        # reordering/aggregation can stop scanning early (iterator.rs START+LIMIT)
+        if (
+            verb == "select"
+            and stm.limit is not None
+            and (not stm.order or self.order_pushed)
+            and not stm.group
+            and not getattr(stm, "group_all", False)
+            and not stm.split
+        ):
+            try:
+                limit = int(stm.limit.compute(ctx))
+                start = int(stm.start.compute(ctx)) if stm.start is not None else 0
+                self.cancel_on_limit = limit + start
+            except (TypeError, ValueError):
+                pass
+
+        if (
+            verb == "select"
+            and getattr(stm, "parallel", False)
+            and len(self.entries) > 1
+        ):
+            self._iterate_parallel()
+        else:
+            for it in self.entries:
+                self._iterate(it)
+                if self.cancel_on_limit is not None and len(self.results) >= self.cancel_on_limit:
+                    break
+
+        rows = self.results
+        if verb == "select":
+            rows = self._postprocess(rows)
+        elif not isinstance(rows, list):
+            rows = rows.to_list()
+        return rows
+
+    def _iterate_parallel(self) -> None:
+        """PARALLEL SELECT over multiple sources: each source runs on its own
+        worker with an isolated child context; device dispatches issued by
+        concurrent sources coalesce through the datastore's DispatchQueue.
+
+        TPU-first reading of the reference's PARALLEL thread pipeline
+        (core/src/dbs/iterator.rs:569-710): the per-record stages stay
+        sequential per source (the kernel batches already cover them); the
+        parallelism that pays on this hardware is overlapping *dispatches*.
+        Read-only by construction — mutating verbs keep the sequential path.
+        """
+        from concurrent.futures import ThreadPoolExecutor
+
+        workers = min(len(self.entries), cnf.MAX_CONCURRENT_TASKS)
+
+        def run_entry(entry):
+            sub = Iterator(self.ctx._child(), self.stm, self.verb)
+            sub.cancel_on_limit = self.cancel_on_limit
+            sub._iterate(entry)
+            return sub.results
+
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            for res in pool.map(run_entry, self.entries):
+                self.results.extend(res)
+                if self._full():
+                    break
+
+    # -------------------------------------------------------------- dispatch
+    def _iterate(self, it) -> None:
+        verb = self.verb
+        if isinstance(it, IValue):
+            self._process_value(it.v)
+        elif isinstance(it, IThing):
+            self._process_thing(it.t)
+        elif isinstance(it, IDefer):
+            self._process_defer(it.t)
+        elif isinstance(it, IRange):
+            for rid, doc in scan_range(self.ctx, it.tb, it.rng):
+                self._process_record(rid, doc)
+                if self._full():
+                    return
+        elif isinstance(it, ITable):
+            if verb == "upsert":
+                # UPSERT over a whole table: if no record was updated (none
+                # exist, or the WHERE matched nothing), create the guaranteed
+                # record (reference iterator.rs guaranteed-create)
+                before = self.mutated
+                for rid, doc in scan_table(self.ctx, it.tb):
+                    self._process_record(rid, doc)
+                if self.mutated == before:
+                    self._process_defer(Thing(it.tb), generated_id=True)
+                return
+            for rid, doc in scan_table(self.ctx, it.tb):
+                self._process_record(rid, doc)
+                if self._full():
+                    return
+        elif isinstance(it, IMergeable):
+            self._process_mergeable(it)
+        elif isinstance(it, IRelatable):
+            self._process_relatable(it)
+        elif isinstance(it, IIndex):
+            self._process_index(it)
+        else:
+            raise TypeError_(f"unknown iterable {type(it).__name__}")
+
+    def _full(self) -> bool:
+        return (
+            self.cancel_on_limit is not None
+            and len(self.results) >= self.cancel_on_limit
+        )
+
+    # -------------------------------------------------------------- per-kind
+    def _push(self, v) -> None:
+        self.results.append(v)
+
+    def _process_value(self, v) -> None:
+        ctx, stm = self.ctx, self.stm
+        if self.verb != "select":
+            raise InvalidStatementTargetError(format_value(v))
+        with ctx.with_doc_value(v) as c:
+            if stm.cond is not None and not truthy(stm.cond.compute(c)):
+                return
+            if self.defer_projection:
+                self._push((None, copy_value(v), None))
+            elif self.grouping:
+                self._push((None, copy_value(v)))
+            else:
+                self._push(project_fields(c, stm.fields, v, None, stm.value_mode))
+
+    def _process_thing(self, t: Thing) -> None:
+        ns, db = self.ctx.ns_db()
+        doc = self.ctx.txn().get_record(ns, db, t.tb, t.id)
+        if doc is None:
+            if self.verb == "upsert":
+                self._process_defer(t)
+            return
+        self._process_record(t, doc)
+
+    def _process_defer(self, t: Thing, generated_id: bool = False) -> None:
+        from surrealdb_tpu_torch.doc import pipeline as doc
+        from surrealdb_tpu_torch.err import IndexExistsError
+
+        txn = self.ctx.txn()
+        sp = txn.savepoint()
+        try:
+            if self.verb in ("create", "upsert"):
+                self._push(doc.process_create(self.ctx, t, self.stm, check_exists=self.verb == "create"))
+                self.mutated += 1
+            else:
+                raise InvalidStatementTargetError(format_value(t))
+        except IgnoreError as e:
+            if e.mutated:
+                self.mutated += 1
+        except IndexExistsError as e:
+            # a table-level UPSERT (generated id) hitting a unique-index
+            # holder retries as an UPDATE of that record (reference
+            # RetryWithId, doc/process.rs:24-120); the savepoint discards
+            # the half-written create first. An explicit-id UPSERT keeps
+            # the error — the user named a DIFFERENT record.
+            txn.rollback_to(sp)
+            if (
+                self.verb != "upsert"
+                or not generated_id
+                or not isinstance(e.thing, Thing)
+            ):
+                raise
+            ns, db = self.ctx.ns_db()
+            existing = txn.get_record(ns, db, e.thing.tb, e.thing.id)
+            if existing is None:
+                raise
+            try:
+                self._push(doc.process_update(self.ctx, e.thing, existing, self.stm))
+                self.mutated += 1
+            except IgnoreError as ig:
+                if ig.mutated:
+                    self.mutated += 1
+
+    def _process_record(self, rid: Thing, docv: dict, ir=None, skip_cond: bool = False) -> None:
+        from surrealdb_tpu_torch.doc import pipeline as doc
+
+        ctx, stm, verb = self.ctx, self.stm, self.verb
+        try:
+            if verb == "select":
+                # per-record PERMISSIONS for record-access / guest sessions
+                from surrealdb_tpu_torch.iam.check import (
+                    check_table_permission,
+                    filter_fields_for_select,
+                    perms_apply,
+                )
+
+                if rid is not None and perms_apply(ctx):
+                    if not check_table_permission(ctx, rid, docv, "select"):
+                        return
+                    docv = filter_fields_for_select(ctx, rid, docv)
+                with ctx.with_doc_value(docv, rid=rid, ir=ir) as c:
+                    if (
+                        not skip_cond
+                        and stm.cond is not None
+                        and not truthy(stm.cond.compute(c))
+                    ):
+                        return
+                    if self.grouping or self.defer_projection:
+                        self._push((rid, docv, ir) if self.defer_projection else (rid, docv))
+                    else:
+                        self._push(project_fields(c, stm.fields, docv, rid, stm.value_mode))
+            elif verb in ("update", "upsert"):
+                self._push(doc.process_update(ctx, rid, docv, stm))
+                self.mutated += 1
+            elif verb == "delete":
+                self._push(doc.process_delete(ctx, rid, docv, stm))
+                self.mutated += 1
+            else:
+                raise TypeError_(f"verb {verb} cannot process a stored record")
+        except IgnoreError as e:
+            if e.mutated:
+                self.mutated += 1
+
+    def _process_mergeable(self, it: IMergeable) -> None:
+        from surrealdb_tpu_torch.doc import pipeline as doc
+        from surrealdb_tpu_torch.err import IndexExistsError
+
+        txn = self.ctx.txn()
+        sp = txn.savepoint()
+        try:
+            self._push(doc.process_insert(self.ctx, it.t, it.row, self.stm))
+        except IgnoreError:
+            pass
+        except IndexExistsError as e:
+            # a UNIQUE INDEX conflict (not an id conflict) on INSERT: roll
+            # the half-written record back, then honor IGNORE / ON
+            # DUPLICATE KEY UPDATE against the HOLDER record (reference
+            # RetryWithId, doc/process.rs:24-120)
+            txn.rollback_to(sp)
+            if getattr(self.stm, "ignore", False):
+                return
+            update = getattr(self.stm, "update", None)
+            if update is None or not isinstance(e.thing, Thing):
+                raise
+            ns, db = self.ctx.ns_db()
+            existing = txn.get_record(ns, db, e.thing.tb, e.thing.id)
+            if existing is None:
+                raise
+            from surrealdb_tpu_torch.sql.statements import Data
+
+            sub = doc._StmView(
+                data=Data("set", update), output=getattr(self.stm, "output", None)
+            )
+            try:
+                self._push(doc.process_update(self.ctx, e.thing, existing, sub))
+            except IgnoreError:
+                pass
+
+    def _process_relatable(self, it: IRelatable) -> None:
+        from surrealdb_tpu_torch.doc import pipeline as doc
+
+        try:
+            self._push(
+                doc.process_relate(self.ctx, it.e, it.f, it.w, self.stm, row=it.row)
+            )
+        except IgnoreError:
+            pass
+
+    def _process_index(self, it: IIndex) -> None:
+        """Index-plan iteration: batches of (rid, doc, ir) from the planner's
+        ThingIterator equivalents (reference processor.rs:703-737)."""
+        from surrealdb_tpu_torch import telemetry
+
+        # a plan that already applied the full WHERE (columnar scan) tells
+        # the per-record stage to skip re-evaluating it
+        skip_cond = bool(getattr(it.plan, "cond_satisfied", False))
+        n = 0
+        try:
+            for rid, docv, ir in it.plan.iterate(self.ctx):
+                n += 1
+                if docv is None:
+                    ns, db = self.ctx.ns_db()
+                    docv = self.ctx.txn().get_record(ns, db, rid.tb, rid.id)
+                    if docv is None:
+                        continue
+                self._process_record(rid, docv, ir=ir, skip_cond=skip_cond)
+                if self._full():
+                    return
+        finally:
+            # candidates the chosen plan actually surfaced — the scan-width
+            # signal for "why was this statement slow"
+            telemetry.observe_hist(
+                "plan_candidates", n, buckets=telemetry.COUNT_BUCKETS
+            )
+
+    # -------------------------------------------------------------- ml batching
+    def _batched_projection(self, rows: List[Any]) -> List[Any]:
+        """Deferred projection for SELECTs containing ml:: calls: every
+        scanned row's model input is collected host-side, each distinct call
+        runs as ONE batched forward, then the projection is evaluated with
+        the per-row results parked as overrides (sql/ast.py ModelCall).
+
+        Rows whose argument expression fails to evaluate fall back to the
+        inline per-row path (the call may sit under a conditional branch
+        that never reaches it for that row)."""
+        from surrealdb_tpu_torch.ml.exec import run_model_batch
+
+        ctx, stm = self.ctx, self.stm
+        outputs: dict = {}  # id(call) -> {row_index: value}
+        ex = ctx.executor
+        # save/restore: a nested deferred SELECT (subquery with its own ml::
+        # calls) must not clobber the enclosing projection's overrides
+        prev = getattr(ex, "_ml_overrides", None)
+        try:
+            # innermost-first: a call nested in another call's argument
+            # resolves from its overrides while the outer one is collected
+            for call in reversed(self.ml_calls):
+                per_row: dict = {}
+                for i, (rid, docv, ir) in enumerate(rows):
+                    ex._ml_overrides = {
+                        cid: m[i] for cid, m in outputs.items() if i in m
+                    }
+                    try:
+                        with ctx.with_doc_value(docv, rid=rid, ir=ir) as c:
+                            if len(call.args) == 1:
+                                per_row[i] = call.args[0].compute(c)
+                    except SurrealError:
+                        pass
+                    finally:
+                        ex._ml_overrides = prev
+                outputs[id(call)] = run_model_batch(
+                    ctx, call.name, call.version, per_row
+                )
+            out = []
+            for i, (rid, docv, ir) in enumerate(rows):
+                ex._ml_overrides = {
+                    cid: m[i] for cid, m in outputs.items() if i in m
+                }
+                with ctx.with_doc_value(docv, rid=rid, ir=ir) as c:
+                    out.append(
+                        project_fields(c, stm.fields, docv, rid, stm.value_mode)
+                    )
+        finally:
+            ex._ml_overrides = prev
+        return out
+
+    # -------------------------------------------------------------- postprocess
+    def _postprocess(self, rows: Any) -> List[Any]:
+        from surrealdb_tpu_torch.dbs.store import ResultStore
+
+        ctx, stm = self.ctx, self.stm
+        store = rows if isinstance(rows, ResultStore) else None
+        if store is not None and not (
+            store.spilled
+            and stm.order
+            and not self.order_pushed
+            and not any(o.rand for o in stm.order)
+            and not self.defer_projection
+            and not self.grouping
+            and not stm.split
+        ):
+            # no spill (common case) or a shape the external sort can't
+            # stream — materialize and run the standard pipeline
+            rows = store.to_list()
+            store.cleanup()
+            store = None
+        if store is not None:
+            # external merge sort over the spilled result set (reference
+            # dbs/store/file.rs:18): runs merge lazily; START+LIMIT slice
+            # without materializing the full ordered set
+            import itertools
+
+            def keyfunc(row, _order=stm.order):
+                out = []
+                for o in _order:
+                    v = get_path(ctx, row, o.idiom.parts) if isinstance(row, dict) else row
+                    k = sort_key(v)
+                    out.append(k if o.asc else _RevKey(k))
+                return tuple(out)
+
+            start = int(stm.start.compute(ctx)) if stm.start is not None else 0
+            limit = (
+                int(stm.limit.compute(ctx)) if stm.limit is not None else None
+            )
+            it = store.sorted_iter(keyfunc)
+            if limit is not None:
+                rows = list(itertools.islice(it, start, start + limit))
+            else:
+                rows = list(itertools.islice(it, start, None)) if start else list(it)
+            store.cleanup()
+        else:
+            if self.defer_projection:
+                rows = self._batched_projection(rows)
+            if self.grouping:
+                rows = aggregate_groups(ctx, stm, rows)
+            if stm.split:
+                rows = apply_split(ctx, rows, stm.split)
+            if stm.order and not self.order_pushed:
+                rows = apply_order(ctx, rows, stm.order)
+            rows = apply_start_limit(ctx, rows, stm.start, stm.limit)
+        if stm.omit:
+            for row in rows:
+                for om in stm.omit:
+                    from surrealdb_tpu_torch.sql.path import del_path
+
+                    if isinstance(row, dict):
+                        del_path(ctx, row, om.parts)
+        if stm.fetch:
+            from .fetch import apply_fetch
+
+            rows = apply_fetch(ctx, rows, stm.fetch)
+        return rows
+
+# ------------------------------------------------------------------ ml detection
+def find_model_calls(fields) -> List[Any]:
+    """ModelCall nodes evaluated directly in a projection (not inside
+    subquery scope boundaries — those bind a different document)."""
+    from surrealdb_tpu_torch.sql.ast import ModelCall, walk_exprs
+
+    found: List[Any] = []
+
+    def visit(node):
+        if isinstance(node, ModelCall):
+            found.append(node)
+
+    walk_exprs(fields, visit)
+    return found
+
+
+# ------------------------------------------------------------------ projection
+def project_fields(ctx, fields, doc_v, rid: Optional[Thing], value_mode: bool):
+    """Evaluate the SELECT projection against one document
+    (reference: core/src/doc/pluck.rs + sql/field.rs)."""
+    if value_mode:
+        f = fields[0]
+        if f.all:
+            return copy_value(doc_v)
+        return f.expr.compute(ctx)
+
+    if len(fields) == 1 and fields[0].all:
+        return copy_value(doc_v)
+
+    row: dict = {}
+    for f in fields:
+        if f.all:
+            if isinstance(doc_v, dict):
+                merged = copy_value(doc_v)
+                merged.update(row)
+                row = merged
+            continue
+        v = f.expr.compute(ctx)
+        _assign_field(ctx, row, f, v)
+    return row
+
+
+def _assign_field(ctx, row: dict, f, v) -> None:
+    if f.alias is not None:
+        parts = f.alias.parts if isinstance(f.alias, Idiom) else [PField(str(f.alias))]
+        set_path(ctx, row, parts, v)
+        return
+    expr = f.expr
+    if isinstance(expr, Idiom):
+        fp = expr.field_path()
+        if fp is not None:
+            set_path(ctx, row, [PField(n) for n in fp], v)
+            return
+        row[field_display_name(expr)] = v
+        return
+    row[field_display_name(expr)] = v
+
+
+def field_display_name(expr) -> str:
+    """Default output key for an expression field (reference Idiom::simplify)."""
+    if isinstance(expr, FunctionCall):
+        return expr.name
+    if isinstance(expr, Idiom):
+        return repr(expr)
+    return repr(expr)
+
+
+class _RevKey:
+    """Inverts comparison for DESC components of a composite external-sort
+    key (heapq.merge needs ONE ascending keyfunc across all runs)."""
+
+    __slots__ = ("v",)
+
+    def __init__(self, v):
+        self.v = v
+
+    def __lt__(self, other):
+        return other.v < self.v
+
+    def __eq__(self, other):
+        return self.v == other.v
+
+
+# ------------------------------------------------------------------ split/order/limit
+def apply_split(ctx, rows: List[Any], split_idioms) -> List[Any]:
+    for idiom in split_idioms:
+        out = []
+        for row in rows:
+            if not isinstance(row, dict):
+                out.append(row)
+                continue
+            v = get_path(ctx, row, idiom.parts)
+            if isinstance(v, list):
+                for item in v:
+                    r2 = copy_value(row)
+                    set_path(ctx, r2, idiom.parts, item)
+                    out.append(r2)
+            else:
+                out.append(row)
+        rows = out
+    return rows
+
+
+def apply_order(ctx, rows: List[Any], order_items) -> List[Any]:
+    if any(o.rand for o in order_items):
+        rows = list(rows)
+        random.shuffle(rows)
+        return rows
+
+    # stable multi-key sort honoring per-key direction: sort by keys in
+    # reverse priority order
+    out = list(rows)
+    for o in reversed(order_items):
+
+        def single(row, o=o):
+            v = get_path(ctx, row, o.idiom.parts) if isinstance(row, dict) else row
+            return sort_key(v)
+
+        out.sort(key=single, reverse=not o.asc)
+    return out
+
+
+def apply_start_limit(ctx, rows: List[Any], start_e, limit_e) -> List[Any]:
+    start = 0
+    if start_e is not None:
+        start = _as_int(start_e.compute(ctx), "START")
+    if limit_e is not None:
+        limit = _as_int(limit_e.compute(ctx), "LIMIT")
+        return rows[start : start + limit]
+    return rows[start:] if start else rows
+
+
+def _as_int(v, clause: str) -> int:
+    if isinstance(v, bool) or not isinstance(v, (int, float)):
+        raise TypeError_(f"Found {format_value(v)} but the {clause} clause expects a number")
+    return int(v)
+
+
+# ------------------------------------------------------------------ grouping
+# Aggregate function names handled over whole groups
+# (reference: core/src/dbs/group.rs OptimisedAggregate :320).
+_AGGREGATES = {
+    "count",
+    "math::sum",
+    "math::mean",
+    "math::min",
+    "math::max",
+    "math::stddev",
+    "math::variance",
+    "math::median",
+    "time::min",
+    "time::max",
+    "array::group",
+    "array::distinct",
+    "array::flatten",
+    "array::concat",
+    "array::first",
+    "array::last",
+}
+
+
+def aggregate_groups(ctx, stm, docs: List[Tuple[Optional[Thing], Any]]) -> List[Any]:
+    """Group raw documents and evaluate the projection with aggregate
+    semantics (reference: core/src/dbs/group.rs GroupsCollector)."""
+    group_idioms = stm.group or []
+    groups: dict = {}
+    order: List[Any] = []
+    for rid, docv in docs:
+        if group_idioms:
+            with ctx.with_doc_value(docv, rid=rid) as c:
+                key_vals = tuple(
+                    _hashable(g.compute(c)) for g in group_idioms
+                )
+        else:
+            key_vals = ()
+        if key_vals not in groups:
+            groups[key_vals] = []
+            order.append(key_vals)
+        groups[key_vals].append((rid, docv))
+
+    out = []
+    for key_vals in order:
+        members = groups[key_vals]
+        row: dict = {}
+        for f in stm.fields:
+            if f.all:
+                # `*` in a grouped select: merge the first member
+                first = members[0][1]
+                if isinstance(first, dict):
+                    merged = copy_value(first)
+                    merged.update(row)
+                    row = merged
+                continue
+            v = _eval_grouped(ctx, f.expr, members)
+            _assign_field(ctx, row, f, v)
+        out.append(row)
+    return out
+
+
+def _hashable(v):
+    if isinstance(v, list):
+        return tuple(_hashable(x) for x in v)
+    if isinstance(v, dict):
+        return tuple(sorted((k, _hashable(x)) for k, x in v.items()))
+    return v
+
+
+def _eval_grouped(ctx, expr, members: List[Tuple[Optional[Thing], Any]]):
+    if isinstance(expr, FunctionCall) and expr.name in _AGGREGATES:
+        return _eval_aggregate(ctx, expr, members)
+    # non-aggregate: evaluate on the first member of the group
+    rid, docv = members[0]
+    with ctx.with_doc_value(docv, rid=rid) as c:
+        return expr.compute(c)
+
+
+def _eval_aggregate(ctx, call: FunctionCall, members):
+    name = call.name
+    if name == "count" and not call.args:
+        return len(members)
+
+    # evaluate the argument per member
+    vals = []
+    for rid, docv in members:
+        with ctx.with_doc_value(docv, rid=rid) as c:
+            vals.append(call.args[0].compute(c))
+
+    if name == "count":
+        return sum(1 for v in vals if truthy(v))
+
+    nums = [v for v in vals if isinstance(v, (int, float)) and not isinstance(v, bool)]
+    if name == "math::sum":
+        return sum(nums)
+    if name == "math::mean":
+        return (sum(nums) / len(nums)) if nums else NONE
+    if name == "math::min":
+        return min(nums, default=NONE)
+    if name == "math::max":
+        return max(nums, default=NONE)
+    if name == "math::stddev":
+        return _stddev(nums)
+    if name == "math::variance":
+        return _variance(nums)
+    if name == "math::median":
+        if not nums:
+            return NONE
+        s = sorted(nums)
+        n = len(s)
+        return s[n // 2] if n % 2 else (s[n // 2 - 1] + s[n // 2]) / 2
+    if name == "time::min":
+        present = [v for v in vals if not is_nullish(v)]
+        return min(present, key=sort_key, default=NONE)
+    if name == "time::max":
+        present = [v for v in vals if not is_nullish(v)]
+        return max(present, key=sort_key, default=NONE)
+    if name == "array::group":
+        out = []
+        for v in vals:
+            items = v if isinstance(v, list) else [v]
+            for x in items:
+                if not any(value_eq(x, y) for y in out):
+                    out.append(x)
+        return out
+    if name == "array::distinct":
+        out = []
+        for v in vals:
+            if not any(value_eq(v, y) for y in out):
+                out.append(v)
+        return out
+    if name == "array::flatten":
+        out = []
+        for v in vals:
+            if isinstance(v, list):
+                out.extend(v)
+            else:
+                out.append(v)
+        return out
+    if name == "array::concat":
+        out = []
+        for v in vals:
+            if isinstance(v, list):
+                out.extend(v)
+            else:
+                out.append(v)
+        return out
+    if name == "array::first":
+        return vals[0] if vals else NONE
+    if name == "array::last":
+        return vals[-1] if vals else NONE
+    raise TypeError_(f"unknown aggregate {name}")
+
+
+def _variance(nums):
+    if len(nums) < 2:
+        return NONE if not nums else 0.0
+    m = sum(nums) / len(nums)
+    return sum((x - m) ** 2 for x in nums) / (len(nums) - 1)
+
+
+def _stddev(nums):
+    v = _variance(nums)
+    if isinstance(v, (int, float)):
+        return v**0.5
+    return v

@@ -1,0 +1,1117 @@
+"""Fingerprint-keyed plan & pipeline cache: serve hot statement shapes
+without re-parsing or re-planning.
+
+The workload statistics plane (stats.py) proved that production traffic
+collapses onto a small set of statement SHAPES — the PR 15 fingerprint.
+Every execution still paid the full cold ladder: parse, plan probe
+(`txn.all_tb_indexes`), pipeline lowering (`ops/pipeline.analyze_select`),
+predicate compile (`ops/predicates.compile_where`). This module caches all
+of it per fingerprint and serves hot shapes from memory:
+
+- **Template AST.** The first parses of a shape install the parsed Query
+  as a shared template. Literal slots are parameterized (`ast.SlotLiteral`)
+  so `WHERE age > 30` and `WHERE age > 40` — and the `$param` spelling of
+  the same shape — share one entry; the active execution's values ride the
+  per-query Executor (`executor.slot_values`), never the shared nodes.
+- **Dispatch skeleton.** Which `dbs/stmt_exec.select_compute` front
+  resolved the statement (ml / count / pipeline / plan), so warm serves
+  skip the fronts that declined cold.
+- **Pipeline lowering.** The resolved `ops/pipeline.Lowering` — grouped
+  shape or order specs, projection, and the compiled `ops/predicates.py`
+  mask *program*. Mask content still binds per execution: the compiled
+  predicate is `rebind()`-ed against the live context on every serve.
+- **Planner schema prefetch.** The `all_tb_indexes` probe result per
+  (ns, db, tb), so `idx/planner._build_index_plan` skips its per-execution
+  KV scan.
+
+Correctness is validation-on-serve, NEVER TTL:
+
+- **Binding is verified, not assumed.** A new text that lex-matches a
+  parameterized variant is parsed ONCE and structurally compared against
+  the bound template (`_ast_equal`). Only after `_VERIFY_TRUST` distinct
+  texts verify byte-identically does the variant serve on lex alone; a
+  single mismatch demotes it to exact-digest serving forever.
+- **Schema/index generation.** Routes record a per-(ns, db) generation.
+  DDL (`DEFINE`/`REMOVE`/`ALTER`/`REBUILD`, and the async index builder's
+  ready flip) brackets itself with `ddl_begin`/`ddl_end`: the begin bump
+  invalidates every pre-DDL artifact, installs are refused while a DDL is
+  in flight, and the end bump invalidates anything raced in between — no
+  window in which a plan built on the old schema can be served against
+  the new one.
+- **Tenant/session scope.** Route artifacts are keyed by
+  (ns, db, auth level, roles, access, record id): a cached plan never
+  leaks across tenants or privilege levels. The template AST itself is
+  scope-free (it is just the parse).
+- **Cluster epoch.** Routes record the membership epoch seen at install;
+  `note_epoch` invalidates them all when the ring changes.
+- **Mirror serve state.** A cached pipeline serve that the mirror
+  declines drops the route (cause `mirror`) and falls back to the cold
+  ladder, which re-resolves and re-installs.
+- **Plan-mix flips.** A PR 15 plan-flip (`stats.record`) evicts the
+  flipped fingerprint's whole entry (cause `flip`) — visible as a
+  `plan_cache.evict` event and a `plan_cache_invalidations` count.
+- **Periodic revalidation.** Every `_REVALIDATE_EVERY` serves a route
+  declines once so the cold ladder re-derives it — insurance against
+  decisions pinned forever (a cached row route never re-attempting a
+  newly serveable mirror).
+
+Every mutation goes through this class — the single write door graftlint
+GL015 enforces statically. Knobs: `SURREAL_PLAN_CACHE` (on/off),
+`SURREAL_PLAN_CACHE_CAP` (entries), `SURREAL_PLAN_CACHE_MIN_HITS`
+(observations before a shape is installed).
+
+Lock discipline: `plan_cache.store` is a leaf-style observability lock
+(locks.HIERARCHY level 85). Telemetry counters and `plan_cache.evict`
+events are emitted AFTER release, mirroring stats.py.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import time
+import weakref
+from collections import Counter, OrderedDict, deque
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+from surrealdb_tpu_torch.utils import locks as _locks
+
+_DIGEST_CAP = 32  # distinct literal combinations remembered per variant
+_VARIANT_CAP = 4  # arity/spelling variants kept per fingerprint entry
+_SCOPE_CAP = 8  # tenant/session scopes with routes per variant
+_VERIFY_TRUST = 4  # verified lex-serves before a variant skips the parse
+_REVALIDATE_EVERY = 64  # serves between forced cold re-resolutions
+_EVLOG_CAP = 64  # recent evictions kept for the advisor's thrash view
+
+
+class Served(NamedTuple):
+    """One warm AST serve: the shared template Query plus this
+    execution's slot bindings (None when the variant is unparameterized)."""
+
+    query: Any
+    slot_values: Optional[Tuple[Any, ...]]
+    fp: str
+
+
+class _Route:
+    """One tenant scope's resolved dispatch for a template statement."""
+
+    __slots__ = ("front", "lowering", "gen", "epoch", "serves", "installed")
+
+    def __init__(self, front: str, gen: Tuple, epoch: Any):
+        self.front = front
+        self.lowering = None  # ops/pipeline.Lowering for front == "pipeline"
+        self.gen = gen  # (ns, db, generation) captured at statement start
+        self.epoch = epoch
+        self.serves = 0
+        self.installed = time.time()
+
+
+class _Variant:
+    """One spelling of a fingerprint: a shared template AST plus the
+    token signature that decides whether a new text can bind into it."""
+
+    __slots__ = (
+        "query", "stmt", "kinds", "fixed", "slot_idx", "digests",
+        "routes", "parameterized", "trust", "text",
+    )
+
+    def __init__(self, query, kinds, fixed, slot_idx, parameterized, text):
+        self.query = query
+        self.stmt = query.statements[0]
+        self.kinds = kinds  # signature token kinds, source order
+        self.fixed = fixed  # ((token_idx, value), ...) must match verbatim
+        self.slot_idx = slot_idx  # token indices bound to SlotLiteral slots
+        self.digests: "OrderedDict[str, Optional[Tuple]]" = OrderedDict()
+        self.routes: "OrderedDict[Tuple, _Route]" = OrderedDict()
+        self.parameterized = parameterized
+        self.trust = 0  # verified lex-serves; >= _VERIFY_TRUST skips verify
+        self.text = text  # first-seen spelling (views/debug only)
+
+
+class _Entry:
+    """One fingerprint's cached variants and serve counters."""
+
+    __slots__ = ("fp", "variants", "hits", "route_hits", "misses",
+                 "invalidations", "churn", "installed_ts")
+
+    def __init__(self, fp: str):
+        self.fp = fp
+        self.variants: List[_Variant] = []
+        self.hits = 0
+        self.route_hits = 0
+        self.misses = 0
+        self.invalidations = 0
+        self.churn = 0  # variant capacity evictions (thrash guard)
+        self.installed_ts = time.time()
+
+
+# statements whose ASTs are safe and worth sharing: no DDL (those bump
+# generations instead), no LIVE/KILL (a live query retains its AST past
+# the execution, where slot bindings would no longer ride the executor),
+# no transaction control, no EXPLAIN (stmt_exec mutate-restores it)
+def _cacheable(stm) -> bool:
+    from surrealdb_tpu_torch.sql import statements as S
+
+    if not isinstance(
+        stm,
+        (
+            S.SelectStatement, S.CreateStatement, S.UpdateStatement,
+            S.DeleteStatement, S.InsertStatement, S.RelateStatement,
+            S.ReturnStatement,
+        ),
+    ):
+        return False
+    if isinstance(stm, S.SelectStatement) and (
+        stm.explain or stm.explain_full or stm.explain_analyze
+    ):
+        return False
+    return True
+
+
+def _stmt_key(text: str) -> str:
+    """Canonical single-statement text: what the parser records as the
+    statement's source (`Query.sources`) and what stats.fingerprint keys
+    on — leading/trailing separators stripped so `SELECT 1` and
+    `SELECT 1;` share the entry the flip hook will evict."""
+    return text.strip().strip(";").strip()
+
+
+def _digest(key: str) -> str:
+    return hashlib.blake2b(key.encode("utf-8"), digest_size=8).hexdigest()
+
+
+def _fixed_eq(a: Any, b: Any) -> bool:
+    """Strict signature equality: same concrete type AND equal value
+    (int 5 never matches float 5.0 — binding the wrong numeric flavor
+    changes results). Regex-ish values compare by pattern (fresh lex
+    runs produce distinct objects)."""
+    if a is b:
+        return True
+    if type(a) is not type(b):
+        return False
+    pa = getattr(a, "pattern", None)
+    if pa is not None:
+        return pa == getattr(b, "pattern", None)
+    try:
+        return bool(a == b)
+    except Exception:
+        return False
+
+
+# ------------------------------------------------------------------ AST walk
+def _is_sql_node(o: Any) -> bool:
+    return type(o).__module__.startswith("surrealdb_tpu_torch.sql")
+
+
+def _slot_names(o: Any) -> List[str]:
+    names: List[str] = []
+    for klass in type(o).__mro__:
+        names.extend(getattr(klass, "__slots__", ()))
+    return names
+
+
+def _collect_literal_sites(root) -> List[Tuple[Any, Any, Any]]:
+    """Every exact-type ast.Literal reachable from `root`, as
+    (container, key, node) so the node can be swapped for a SlotLiteral.
+    Literals inside tuples/sets are unreplaceable and not collected —
+    their tokens stay fixed in the signature, which is always sound."""
+    from surrealdb_tpu_torch.sql import ast as A
+
+    sites: List[Tuple[Any, Any, Any]] = []
+    seen: set = set()
+
+    def consider(container, key, v) -> bool:
+        if type(v) is A.Literal:
+            sites.append((container, key, v))
+            return True
+        return False
+
+    def walk(o) -> None:
+        oid = id(o)
+        if oid in seen:
+            return
+        seen.add(oid)
+        if isinstance(o, list):
+            for i, v in enumerate(o):
+                if not consider(o, i, v):
+                    walk(v)
+        elif isinstance(o, dict):
+            for k, v in list(o.items()):
+                if not consider(o, k, v):
+                    walk(v)
+        elif isinstance(o, (tuple, set, frozenset)):
+            for v in o:
+                walk(v)
+        elif _is_sql_node(o):
+            for name in _slot_names(o):
+                try:
+                    v = getattr(o, name)
+                except AttributeError:
+                    continue
+                if not consider(o, name, v):
+                    walk(v)
+
+    walk(root)
+    return sites
+
+
+def _ast_equal(tmpl, fresh, slot_values: Tuple[Any, ...]) -> bool:
+    """Structural equality of the bound template against a fresh parse —
+    the serve-time proof that slot binding reproduces exactly what the
+    parser would have built for the new text."""
+    from surrealdb_tpu_torch.sql import ast as A
+
+    def eq(a, b) -> bool:
+        if isinstance(a, A.SlotLiteral):
+            bound = (
+                slot_values[a.slot]
+                if a.slot < len(slot_values)
+                else a.value
+            )
+            return type(b) is A.Literal and _fixed_eq(bound, b.value)
+        if type(a) is not type(b):
+            return False
+        if isinstance(a, list) or isinstance(a, tuple):
+            return len(a) == len(b) and all(eq(x, y) for x, y in zip(a, b))
+        if isinstance(a, dict):
+            if a.keys() != b.keys():
+                return False
+            return all(eq(v, b[k]) for k, v in a.items())
+        if _is_sql_node(a):
+            for name in _slot_names(a):
+                try:
+                    va, vb = getattr(a, name), getattr(b, name)
+                except AttributeError:
+                    return False
+                if not eq(va, vb):
+                    return False
+            return True
+        return _fixed_eq(a, b)
+
+    return eq(tmpl, fresh)
+
+
+def _parameterize(text: str, query) -> Optional[_Variant]:
+    """Build a variant for `query` (parsed from `text`): lex the
+    signature tokens, match bindable token values 1:1 against replaceable
+    Literal nodes, swap matches for SlotLiterals. Any ambiguity — a
+    duplicated value among tokens or among nodes, a token folded into a
+    non-Literal (record ids, negative-number folding) — demotes that
+    token to a fixed position; a variant with no slots still serves any
+    literal-identical respelling (case/whitespace) plus its routes."""
+    from surrealdb_tpu_torch.sql import ast as A
+    from surrealdb_tpu_torch.syn import parser as _parser
+
+    lexed = _parser.lex_literal_slots(text)
+    if lexed is None:
+        return None
+    kinds, values = lexed
+    sites = _collect_literal_sites(query)
+    taken: set = set()
+    slot_sites: List[Tuple[int, Tuple[Any, Any, Any]]] = []
+    fixed: List[Tuple[int, Any]] = []
+    bindable = [
+        i for i, k in enumerate(kinds) if k in _parser.BINDABLE_TOKEN_KINDS
+    ]
+    for i in bindable:
+        v = values[i]
+        dup = any(j != i and _fixed_eq(values[j], v) for j in bindable)
+        matches = [
+            s for s in sites
+            if id(s[2]) not in taken and _fixed_eq(s[2].value, v)
+        ]
+        if dup or len(matches) != 1:
+            fixed.append((i, v))
+            continue
+        taken.add(id(matches[0][2]))
+        slot_sites.append((i, matches[0]))
+    for i, k in enumerate(kinds):
+        if k not in _parser.BINDABLE_TOKEN_KINDS:
+            fixed.append((i, values[i]))
+    fixed.sort()
+    for slot, (_, (container, key, node)) in enumerate(slot_sites):
+        sl = A.SlotLiteral(slot, node.value)
+        if isinstance(container, list):
+            container[key] = sl
+        elif isinstance(container, dict):
+            container[key] = sl
+        else:
+            setattr(container, key, sl)
+    return _Variant(
+        query,
+        kinds,
+        tuple(fixed),
+        tuple(i for i, _ in slot_sites),
+        bool(slot_sites),
+        _stmt_key(text)[:200],
+    )
+
+
+def _scope_key(session) -> Tuple:
+    """The tenant/session scope a route is valid for — a cached plan must
+    never leak across namespaces, databases, or privilege levels."""
+    a = getattr(session, "auth", None)
+    return (
+        getattr(session, "ns", None),
+        getattr(session, "db", None),
+        getattr(a, "level", None),
+        tuple(getattr(a, "roles", ()) or ()),
+        getattr(a, "access", None),
+        str(getattr(a, "rid", None)),
+    )
+
+
+# ------------------------------------------------------------------ cache
+class PlanCache:
+    """Per-datastore plan & pipeline cache. All state behind `_lock`
+    (`plan_cache.store`, locks.HIERARCHY 85); every mutation goes through
+    the public methods below — graftlint GL015's single write door."""
+
+    def __init__(self, ds):
+        from surrealdb_tpu_torch import cnf
+
+        self.enabled = bool(getattr(cnf, "PLAN_CACHE", True))
+        self._cap = max(int(getattr(cnf, "PLAN_CACHE_CAP", 512)), 8)
+        self._min_hits = max(int(getattr(cnf, "PLAN_CACHE_MIN_HITS", 2)), 1)
+        self._ds = weakref.ref(ds)
+        self._lock = _locks.Lock("plan_cache.store")
+        self._entries: "OrderedDict[str, _Entry]" = OrderedDict()
+        self._warm: "OrderedDict[str, int]" = OrderedDict()  # fp -> observes
+        self._by_stmt: Dict[int, Tuple[str, _Variant]] = {}
+        self._index_defs: "OrderedDict[Tuple, Tuple[Tuple, list]]" = (
+            OrderedDict()
+        )  # (ns, db, tb) -> (gen token, raw defs)
+        self._gen: Dict[Tuple, int] = {}  # (ns, db) -> schema generation
+        self._inflight: Dict[Tuple, int] = {}  # (ns, db) -> DDLs in flight
+        self._epoch: Any = None  # cluster membership epoch, None standalone
+        self._timing: "OrderedDict[str, Dict[str, float]]" = OrderedDict()
+        self._hits = {"ast": 0, "route": 0}
+        self._misses: Counter = Counter()
+        self._invalidations: Counter = Counter()
+        self._verifies = {"ok": 0, "failed": 0}
+        self._evlog: deque = deque(maxlen=_EVLOG_CAP)
+        _caches.add(self)
+
+    # ------------------------------------------------------- AST serve
+    def fetch(self, text: str) -> Optional[Served]:
+        """The parser cache-front (ds.execute_local). Returns a warm
+        Served or None (caller parses cold and calls observe())."""
+        if not self.enabled:
+            return None
+        from surrealdb_tpu_torch import stats
+
+        t0 = time.perf_counter()
+        key = _stmt_key(text)
+        if not key or ";" in key:
+            return None  # empty or multi-statement: never cached
+        fp, _ = stats.fingerprint(key)
+        dg = _digest(key)
+        with self._lock:
+            entry = self._entries.get(fp)
+            if entry is None:
+                self._misses["cold"] += 1
+                out = None
+            else:
+                self._entries.move_to_end(fp)
+                out = self._serve_digest(entry, dg)
+        if out is None and entry is not None:
+            out = self._serve_lexed(entry, fp, key, dg)
+        if out is not None:
+            self._note_timing(fp, "parse", (time.perf_counter() - t0) * 1e6, True)
+            self._inc_hit("ast")
+        elif entry is None:
+            self._inc_miss("cold")
+        return out
+
+    def _serve_digest(self, entry: _Entry, dg: str) -> Optional[Served]:
+        """Exact-text hit: no lexing, no binding derivation. Lock held."""
+        for v in entry.variants:
+            if dg in v.digests:
+                v.digests.move_to_end(dg)
+                entry.hits += 1
+                self._hits["ast"] += 1
+                return Served(v.query, v.digests[dg], entry.fp)
+        return None
+
+    def _serve_lexed(
+        self, entry: _Entry, fp: str, key: str, dg: str
+    ) -> Optional[Served]:
+        """New spelling of a cached shape: lex, match a variant's
+        signature, bind slot values — verifying against a fresh parse
+        until the variant has earned trust."""
+        from surrealdb_tpu_torch.syn import parser as _parser
+
+        lexed = _parser.lex_literal_slots(key)
+        if lexed is None:
+            with self._lock:
+                entry.misses += 1
+                self._misses["unlexable"] += 1
+            self._inc_miss("unlexable")
+            return None
+        kinds, values = lexed
+        with self._lock:
+            match: Optional[_Variant] = None
+            for v in entry.variants:
+                if v.kinds == kinds and all(
+                    _fixed_eq(values[i], fv) for i, fv in v.fixed
+                ):
+                    match = v
+                    break
+            if match is None or (not match.parameterized and match.digests):
+                # unparameterized variants serve by digest only — a new
+                # spelling means a genuinely different statement
+                entry.misses += 1
+                self._misses["variant"] += 1
+                cause = "variant"
+            else:
+                slots = tuple(values[i] for i in match.slot_idx)
+                trusted = match.trust >= _VERIFY_TRUST
+        if match is None or (not match.parameterized and match.digests):
+            self._inc_miss(cause)
+            return None
+        if not trusted and not self._verify(match, key, slots):
+            return None
+        with self._lock:
+            entry.hits += 1
+            self._hits["ast"] += 1
+            if len(match.digests) >= _DIGEST_CAP:
+                match.digests.popitem(last=False)
+            match.digests[dg] = slots or None
+        return Served(match.query, slots or None, fp)
+
+    def _verify(self, variant: _Variant, key: str, slots: Tuple) -> bool:
+        """Parse `key` fresh and prove the bound template reproduces it.
+        Success builds trust; ONE failure demotes the variant to
+        exact-digest serving for good (cause `verify`)."""
+        from surrealdb_tpu_torch.syn import parse_query
+
+        try:
+            fresh = parse_query(key)
+        except Exception:
+            return False
+        ok = len(fresh.statements) == 1 and _ast_equal(
+            variant.stmt, fresh.statements[0], slots
+        )
+        with self._lock:
+            if ok:
+                variant.trust += 1
+                self._verifies["ok"] += 1
+            else:
+                variant.parameterized = False
+                variant.trust = 0
+                self._verifies["failed"] += 1
+                self._invalidations["verify"] += 1
+        if not ok:
+            self._inc_invalidation("verify")
+            self._inc_miss("verify")
+        return ok
+
+    def observe(self, text: str, query, parse_us: float) -> None:
+        """The cold-parse report (ds.execute_local): counts the shape and,
+        once it has been seen `_MIN_HITS` times, installs the parsed
+        query as a shared template (parameterized in place — SlotLiteral
+        defaults keep this very execution's values)."""
+        if not self.enabled:
+            return
+        from surrealdb_tpu_torch import stats
+
+        if len(query.statements) != 1 or not _cacheable(query.statements[0]):
+            return
+        key = _stmt_key(text)
+        if not key or ";" in key:
+            return
+        fp, _ = stats.fingerprint(key)
+        self._note_timing(fp, "parse", parse_us, False)
+        with self._lock:
+            n = self._warm.get(fp, 0) + 1
+            self._warm[fp] = n
+            self._warm.move_to_end(fp)
+            while len(self._warm) > self._cap * 4:
+                self._warm.popitem(last=False)
+            if n < self._min_hits:
+                return
+        variant = _parameterize(text, query)
+        if variant is None:
+            return
+        evicted: List[Tuple[str, str]] = []
+        dg = _digest(key)
+        with self._lock:
+            entry = self._entries.get(fp)
+            if entry is None:
+                entry = self._entries[fp] = _Entry(fp)
+            self._entries.move_to_end(fp)
+            for v in entry.variants:
+                if v.kinds == variant.kinds and len(v.fixed) == len(
+                    variant.fixed
+                ) and all(
+                    i == j and _fixed_eq(a, b)
+                    for (i, a), (j, b) in zip(v.fixed, variant.fixed)
+                ):
+                    # raced install of the same spelling: keep the winner
+                    return
+            if entry.churn > 8 and not variant.parameterized:
+                # a high-cardinality unparameterizable shape (distinct
+                # record ids, folded literals): installing yet another
+                # exact-text variant would just keep thrashing the slots
+                return
+            while len(entry.variants) >= _VARIANT_CAP:
+                old = entry.variants.pop(0)
+                self._drop_variant(old)
+                self._invalidations["capacity"] += 1
+                entry.churn += 1
+            entry.variants.append(variant)
+            variant.digests[dg] = tuple(self._defaults_of(variant)) or None
+            self._by_stmt[id(variant.stmt)] = (fp, variant)
+            while len(self._entries) > self._cap:
+                old_fp, old_e = self._entries.popitem(last=False)
+                for v in old_e.variants:
+                    self._drop_variant(v)
+                self._invalidations["capacity"] += 1
+                self._evlog.append(
+                    {"fp": old_fp, "cause": "capacity", "ts": time.time()}
+                )
+                evicted.append((old_fp, "capacity"))
+        for efp, cause in evicted:
+            self._emit_evict(efp, cause)
+
+    @staticmethod
+    def _defaults_of(variant: _Variant) -> List[Any]:
+        """The installing text's own slot values (the SlotLiteral
+        defaults), so its digest serves without re-deriving bindings."""
+        from surrealdb_tpu_torch.sql import ast as A
+
+        out: Dict[int, Any] = {}
+
+        def walk(o, seen):
+            if id(o) in seen:
+                return
+            seen.add(id(o))
+            if isinstance(o, A.SlotLiteral):
+                out[o.slot] = o.value
+                return
+            if isinstance(o, (list, tuple, set, frozenset)):
+                for v in o:
+                    walk(v, seen)
+            elif isinstance(o, dict):
+                for v in o.values():
+                    walk(v, seen)
+            elif _is_sql_node(o):
+                for name in _slot_names(o):
+                    try:
+                        walk(getattr(o, name), seen)
+                    except AttributeError:
+                        pass
+
+        walk(variant.stmt, set())
+        return [out[k] for k in sorted(out)]
+
+    def _drop_variant(self, v: _Variant) -> None:
+        """Lock held: detach a variant's identity-map entry and routes."""
+        self._by_stmt.pop(id(v.stmt), None)
+        v.routes.clear()
+
+    # ------------------------------------------------------- route serve
+    def _route_for(self, ctx, stm) -> Optional[Tuple[str, _Variant, _Route]]:
+        """Lock held by caller? No — takes the lock itself. Resolves the
+        (fp, variant, route) for `stm` IF stm is a cached template
+        statement and every validation stamp still matches."""
+        o = self._by_stmt.get(id(stm))
+        if o is None or o[1].stmt is not stm:
+            return None
+        fp, variant = o
+        scope = _scope_key(getattr(ctx.executor, "session", None))
+        route = variant.routes.get(scope)
+        if route is None:
+            return None
+        ns, db, gen = route.gen
+        if self._gen.get((ns, db), 0) != gen or self._inflight.get((ns, db)):
+            del variant.routes[scope]
+            self._invalidations["ddl"] += 1
+            return ("ddl", variant, route)
+        if route.epoch != self._epoch:
+            del variant.routes[scope]
+            self._invalidations["epoch"] += 1
+            return ("epoch", variant, route)
+        route.serves += 1
+        if route.serves % _REVALIDATE_EVERY == 0:
+            self._invalidations["revalidate"] += 1
+            return ("revalidate", variant, route)
+        return (fp, variant, route)
+
+    def front_for(self, ctx, stm) -> Optional[str]:
+        """The dispatch skeleton (stmt_exec.select_compute): which front
+        resolved this shape cold, or None to run the full ladder."""
+        if not self.enabled:
+            return None
+        cause = None
+        with self._lock:
+            res = self._route_for(ctx, stm)
+            if res is None:
+                return None
+            tag, variant, route = res
+            if tag in ("ddl", "epoch", "revalidate"):
+                cause = tag
+                front = None
+            else:
+                front = route.front
+                self._hits["route"] += 1
+                e = self._entries.get(tag)
+                if e is not None:
+                    e.route_hits += 1
+        if cause is not None:
+            self._inc_invalidation(cause)
+            return None
+        self._inc_hit("route")
+        return front
+
+    def note_front(self, ctx, stm, front: str) -> None:
+        """Cold-ladder report: record which front resolved the template
+        statement, under the generation token captured at statement
+        start (refused while a DDL is in flight)."""
+        if not self.enabled:
+            return
+        token = getattr(ctx.executor, "plan_gen", None)
+        if token is None:
+            return
+        ns, db, gen = token
+        with self._lock:
+            o = self._by_stmt.get(id(stm))
+            if o is None or o[1].stmt is not stm:
+                return
+            if (
+                self._gen.get((ns, db), 0) != gen
+                or self._inflight.get((ns, db))
+            ):
+                return
+            variant = o[1]
+            scope = _scope_key(getattr(ctx.executor, "session", None))
+            route = variant.routes.get(scope)
+            if route is None or route.front != front:
+                route = _Route(front, token, self._epoch)
+                while len(variant.routes) >= _SCOPE_CAP:
+                    variant.routes.popitem(last=False)
+                variant.routes[scope] = route
+            else:
+                route.gen = token
+                route.epoch = self._epoch
+                variant.routes.move_to_end(scope)
+
+    def lowering_for(self, ctx, stm):
+        """The cached ops/pipeline.Lowering for this template statement
+        and scope, already stamp-validated — or None (cold analyze)."""
+        if not self.enabled:
+            return None
+        with self._lock:
+            o = self._by_stmt.get(id(stm))
+            if o is None or o[1].stmt is not stm:
+                return None
+            scope = _scope_key(getattr(ctx.executor, "session", None))
+            route = o[1].routes.get(scope)
+            if route is None or route.front != "pipeline":
+                return None
+            ns, db, gen = route.gen
+            if (
+                self._gen.get((ns, db), 0) != gen
+                or self._inflight.get((ns, db))
+                or route.epoch != self._epoch
+            ):
+                return None  # front_for already counted the invalidation
+            return route.lowering
+
+    def install_lowering(self, ctx, stm, lowering) -> None:
+        """Attach the cold-analyzed Lowering to the statement's pipeline
+        route (note_front has just recorded the front)."""
+        if not self.enabled:
+            return
+        with self._lock:
+            o = self._by_stmt.get(id(stm))
+            if o is None or o[1].stmt is not stm:
+                return
+            scope = _scope_key(getattr(ctx.executor, "session", None))
+            route = o[1].routes.get(scope)
+            if route is not None and route.front == "pipeline":
+                route.lowering = lowering
+
+    def install_pipeline(self, ctx, stm, lowering) -> None:
+        """Cold pipeline resolve: record the front AND attach the
+        Lowering in one door (ops/pipeline.run_pipeline)."""
+        self.note_front(ctx, stm, "pipeline")
+        self.install_lowering(ctx, stm, lowering)
+
+    def drop_route(self, ctx, stm, cause: str) -> None:
+        """A validated serve was declined downstream (the mirror said
+        no): drop the route so the cold ladder re-resolves next time."""
+        dropped = False
+        with self._lock:
+            o = self._by_stmt.get(id(stm))
+            if o is not None and o[1].stmt is stm:
+                scope = _scope_key(getattr(ctx.executor, "session", None))
+                if o[1].routes.pop(scope, None) is not None:
+                    self._invalidations[cause] += 1
+                    dropped = True
+        if dropped:
+            self._inc_invalidation(cause)
+
+    # ------------------------------------------------------- planner defs
+    def index_defs_for(self, ctx, ns, db, tb) -> Optional[list]:
+        """The cached raw `all_tb_indexes` probe for (ns, db, tb), valid
+        only at the current schema generation with no DDL in flight."""
+        if not self.enabled:
+            return None
+        key = (ns, db, tb)
+        with self._lock:
+            got = self._index_defs.get(key)
+            if got is None:
+                return None
+            (gns, gdb, gen), defs = got
+            if self._gen.get((gns, gdb), 0) != gen or self._inflight.get(
+                (gns, gdb)
+            ):
+                del self._index_defs[key]
+                self._invalidations["ddl"] += 1
+                return None
+            self._index_defs.move_to_end(key)
+        return defs
+
+    def install_index_defs(self, ctx, ns, db, tb, defs: list) -> None:
+        token = getattr(
+            getattr(ctx, "executor", None), "plan_gen", None
+        ) or (ns, db, self._gen.get((ns, db), 0))
+        tns, tdb, gen = token
+        if (tns, tdb) != (ns, db):
+            return  # a USE switched scope mid-statement: don't stamp-mix
+        with self._lock:
+            if self._gen.get((ns, db), 0) != gen or self._inflight.get(
+                (ns, db)
+            ):
+                return
+            self._index_defs[(ns, db, tb)] = (token, list(defs))
+            while len(self._index_defs) > self._cap:
+                self._index_defs.popitem(last=False)
+
+    # ------------------------------------------------------- invalidation
+    def gen_token(self, ns, db) -> Tuple:
+        """The generation token an executor captures at statement start;
+        installs made under a stale or in-flight token are refused, which
+        closes the DDL-commit-to-bump race."""
+        if self._inflight.get((ns, db)):
+            return (ns, db, -1)  # never matches: a DDL is in flight
+        return (ns, db, self._gen.get((ns, db), 0))
+
+    def ddl_begin(self, ns, db) -> None:
+        """Bracket a schema change: bump the generation (invalidating
+        every pre-DDL artifact lazily) and refuse installs until
+        ddl_end's second bump covers anything raced in between."""
+        with self._lock:
+            self._gen[(ns, db)] = self._gen.get((ns, db), 0) + 1
+            self._inflight[(ns, db)] = self._inflight.get((ns, db), 0) + 1
+
+    def ddl_end(self, ns, db) -> None:
+        with self._lock:
+            self._gen[(ns, db)] = self._gen.get((ns, db), 0) + 1
+            n = self._inflight.get((ns, db), 0) - 1
+            if n > 0:
+                self._inflight[(ns, db)] = n
+            else:
+                self._inflight.pop((ns, db), None)
+        self._inc_invalidation("ddl")
+
+    def bump_generation(self, ns, db) -> None:
+        """One-shot generation bump for schema changes that are not
+        statement-bracketed (the async index builder's ready flip)."""
+        with self._lock:
+            self._gen[(ns, db)] = self._gen.get((ns, db), 0) + 1
+        self._inc_invalidation("ddl")
+
+    def on_plan_flip(self, fp: str) -> None:
+        """stats.record detected a plan-mix flip: the shape's cached
+        decision is now suspect — evict the whole entry."""
+        with self._lock:
+            entry = self._entries.pop(fp, None)
+            if entry is not None:
+                for v in entry.variants:
+                    self._drop_variant(v)
+                self._invalidations["flip"] += 1
+                self._evlog.append(
+                    {"fp": fp, "cause": "flip", "ts": time.time()}
+                )
+        if entry is not None:
+            self._inc_invalidation("flip")
+            self._emit_evict(fp, "flip")
+
+    def note_epoch(self, epoch) -> None:
+        """Cluster membership changed: every route resolved under the old
+        ring is invalid (scatter targets moved)."""
+        emit = False
+        with self._lock:
+            if self._epoch != epoch:
+                emit = self._epoch is not None and bool(self._entries)
+                self._epoch = epoch
+                if emit:
+                    self._invalidations["epoch"] += 1
+        if emit:
+            self._inc_invalidation("epoch")
+            self._emit_evict(None, "epoch")
+
+    def clear(self) -> None:
+        """Drop everything (tests / bench cold windows)."""
+        with self._lock:
+            self._entries.clear()
+            self._warm.clear()
+            self._by_stmt.clear()
+            self._index_defs.clear()
+
+    def reset_window(self) -> None:
+        """Zero counters and timing but KEEP entries — the bench's warm
+        measurement window starts here."""
+        with self._lock:
+            self._timing.clear()
+            self._hits = {"ast": 0, "route": 0}
+            self._misses.clear()
+            self._invalidations.clear()
+            self._verifies = {"ok": 0, "failed": 0}
+            for e in self._entries.values():
+                e.hits = e.misses = e.route_hits = 0
+
+    # ------------------------------------------------------- timing
+    def _note_timing(self, fp: str, phase: str, us: float, warm: bool) -> None:
+        k = ("warm_" if warm else "cold_") + phase
+        with self._lock:
+            t = self._timing.get(fp)
+            if t is None:
+                t = self._timing[fp] = {}
+                while len(self._timing) > self._cap * 2:
+                    self._timing.popitem(last=False)
+            t[k + "_us"] = t.get(k + "_us", 0.0) + us
+            t[k + "_n"] = t.get(k + "_n", 0) + 1
+
+    def note_plan_time(self, fp: Optional[str], us: float, warm: bool) -> None:
+        """Pre-kernel plan/lower time attribution (planner + pipeline
+        analyze); `fp` is the active statement fingerprint."""
+        if fp and self.enabled:
+            self._note_timing(fp, "plan", us, warm)
+
+    # ------------------------------------------------------- views
+    def _prekernel(self, t: Dict[str, float]) -> Dict[str, Any]:
+        def avg(pfx: str) -> Optional[float]:
+            n = t.get(pfx + "_parse_n", 0) + 0
+            us = t.get(pfx + "_parse_us", 0.0)
+            pn = t.get(pfx + "_plan_n", 0)
+            pus = t.get(pfx + "_plan_us", 0.0)
+            parse = us / n if n else None
+            plan = pus / pn if pn else None
+            if parse is None and plan is None:
+                return None
+            return round((parse or 0.0) + (plan or 0.0), 2)
+
+        return {"cold_us": avg("cold"), "warm_us": avg("warm")}
+
+    def window_stats(self, per_fp_limit: int = 20) -> dict:
+        """The bench embed: window hit rates + per-fingerprint pre-kernel
+        overhead, warm vs cold."""
+        with self._lock:
+            hits = dict(self._hits)
+            misses = sum(self._misses.values())
+            inv = dict(self._invalidations)
+            verifies = dict(self._verifies)
+            timing = {fp: dict(t) for fp, t in self._timing.items()}
+            entries = len(self._entries)
+            variants = sum(len(e.variants) for e in self._entries.values())
+        total = hits["ast"] + misses
+        fps = []
+        for fp, t in timing.items():
+            pk = self._prekernel(t)
+            if pk["cold_us"] is None and pk["warm_us"] is None:
+                continue
+            fps.append({"fingerprint": fp, **pk})
+        fps.sort(key=lambda r: (r["cold_us"] or 0.0), reverse=True)
+        colds = [r["cold_us"] for r in fps if r["cold_us"] is not None]
+        warms = [r["warm_us"] for r in fps if r["warm_us"] is not None]
+        return {
+            "enabled": self.enabled,
+            "entries": entries,
+            "variants": variants,
+            "hits": hits["ast"],
+            "route_hits": hits["route"],
+            "misses": misses,
+            "hit_rate": round(hits["ast"] / total, 4) if total else None,
+            "invalidations": inv,
+            "verifies": verifies,
+            "prekernel": {
+                "cold_avg_us": round(sum(colds) / len(colds), 2)
+                if colds
+                else None,
+                "warm_avg_us": round(sum(warms) / len(warms), 2)
+                if warms
+                else None,
+            },
+            "fingerprints": fps[: max(per_fp_limit, 1)],
+        }
+
+    def snapshot(self, limit: int = 20) -> dict:
+        """The debug bundle's `plan_cache` section."""
+        with self._lock:
+            rows = []
+            for fp, e in list(self._entries.items())[-limit:]:
+                rows.append(
+                    {
+                        "fingerprint": fp,
+                        "sql": e.variants[0].text if e.variants else None,
+                        "variants": len(e.variants),
+                        "hits": e.hits,
+                        "route_hits": e.route_hits,
+                        "misses": e.misses,
+                        "routes": sum(
+                            len(v.routes) for v in e.variants
+                        ),
+                        "fronts": sorted(
+                            {
+                                r.front
+                                for v in e.variants
+                                for r in v.routes.values()
+                            }
+                        ),
+                        "parameterized": any(
+                            v.parameterized for v in e.variants
+                        ),
+                    }
+                )
+            state = {
+                "enabled": self.enabled,
+                "cap": self._cap,
+                "min_hits": self._min_hits,
+                "entries": len(self._entries),
+                "hits": dict(self._hits),
+                "misses": dict(self._misses),
+                "invalidations": dict(self._invalidations),
+                "verifies": dict(self._verifies),
+                "epoch": self._epoch,
+                "generations": {
+                    f"{ns}/{db}": g for (ns, db), g in self._gen.items()
+                },
+                "recent_evictions": list(self._evlog)[-16:],
+            }
+        state["top"] = rows[::-1]
+        return state
+
+    def describe(self, fp: str) -> Optional[dict]:
+        """One fingerprint's cache state — the /statements annotation."""
+        with self._lock:
+            e = self._entries.get(fp)
+            if e is None:
+                n = self._warm.get(fp)
+                return {"cached": False, "observed": n} if n else None
+            return {
+                "cached": True,
+                "variants": len(e.variants),
+                "hits": e.hits,
+                "route_hits": e.route_hits,
+                "misses": e.misses,
+                "fronts": sorted(
+                    {
+                        r.front
+                        for v in e.variants
+                        for r in v.routes.values()
+                    }
+                ),
+            }
+
+    def annotate(self, rows: List[dict]) -> List[dict]:
+        """Attach `plan_cache` state to /statements rows in place."""
+        for row in rows:
+            fp = row.get("fingerprint")
+            if fp and "plan_cache" not in row:
+                got = self.describe(fp)
+                if got is not None:
+                    row["plan_cache"] = got
+        return rows
+
+    def review_rows(self, min_calls: int = 8) -> List[dict]:
+        """The advisor's raw material: low-hit-rate entries and
+        thrash-evicted fingerprints (evicted 2+ times recently)."""
+        with self._lock:
+            out = []
+            for fp, e in self._entries.items():
+                total = e.hits + e.misses
+                if total >= min_calls and e.hits / total < 0.5:
+                    out.append(
+                        {
+                            "fingerprint": fp,
+                            "kind": "low_hit_rate",
+                            "hits": e.hits,
+                            "misses": e.misses,
+                            "hit_rate": round(e.hits / total, 3),
+                            "sql": e.variants[0].text
+                            if e.variants
+                            else None,
+                        }
+                    )
+            thrash = Counter(
+                ev["fp"] for ev in self._evlog if ev["fp"] is not None
+            )
+            for fp, n in thrash.items():
+                if n >= 2:
+                    out.append(
+                        {
+                            "fingerprint": fp,
+                            "kind": "thrash",
+                            "evictions": n,
+                            "causes": sorted(
+                                {
+                                    ev["cause"]
+                                    for ev in self._evlog
+                                    if ev["fp"] == fp
+                                }
+                            ),
+                        }
+                    )
+        return out
+
+    # ------------------------------------------------------- emission
+    # One helper per metric family so every emission site carries a STATIC
+    # name and STATIC label keys (GL006: bounded series cardinality); the
+    # variable part rides the label VALUE. All are called outside the
+    # store lock (locks.HIERARCHY: telemetry and events are peers/lower
+    # leaves — never nest under us).
+    def _inc_hit(self, kind: str) -> None:
+        from surrealdb_tpu_torch import telemetry
+
+        telemetry.inc("plan_cache_hits", kind=kind)
+
+    def _inc_miss(self, cause: str) -> None:
+        from surrealdb_tpu_torch import telemetry
+
+        telemetry.inc("plan_cache_misses", cause=cause)
+
+    def _inc_invalidation(self, cause: str) -> None:
+        from surrealdb_tpu_torch import telemetry
+
+        telemetry.inc("plan_cache_invalidations", cause=cause)
+
+    def _emit_evict(self, fp: Optional[str], cause: str) -> None:
+        from surrealdb_tpu_torch import events
+
+        events.emit("plan_cache.evict", fingerprint=fp, cause=cause)
+
+
+# ------------------------------------------------------------------ registry
+# every live PlanCache, so stats.record's flip hook (which has no ds
+# handle) can reach them all — the same weak registry shape advisor uses
+_caches: "weakref.WeakSet[PlanCache]" = weakref.WeakSet()
+
+
+def on_plan_flip(fp: str) -> None:
+    """stats.record's post-lock flip hook: evict `fp` everywhere."""
+    for pc in list(_caches):
+        pc.on_plan_flip(fp)
+
+
+def active_plan_cache(ctx) -> Optional[PlanCache]:
+    """The executing statement's datastore cache, or None (no executor on
+    the context / cache disabled)."""
+    ex = getattr(ctx, "executor", None)
+    ds = getattr(ex, "ds", None)
+    pc = getattr(ds, "plan_cache", None)
+    if pc is not None and pc.enabled:
+        return pc
+    return None

@@ -1,0 +1,486 @@
+"""Per-statement execution drivers.
+
+Role of the reference's statement compute() impls (reference:
+core/src/sql/statements/select.rs:98-197, create.rs, update.rs, upsert.rs,
+delete.rs, insert.rs, relate.rs, live.rs, kill.rs): evaluate targets, feed the
+Iterator, run the planner for SELECT, apply ONLY/EXPLAIN/TIMEOUT semantics.
+"""
+
+from __future__ import annotations
+
+from typing import Any, List, Optional
+
+import uuid as _uuid
+
+from surrealdb_tpu_torch import cnf
+from surrealdb_tpu_torch import key as keys
+from surrealdb_tpu_torch.err import SurrealError, TypeError_
+from surrealdb_tpu_torch.sql.ast import Expr
+from surrealdb_tpu_torch.sql.value import (
+    NONE,
+    Table,
+    Thing,
+    Uuid,
+    format_value,
+    is_nullish,
+)
+from surrealdb_tpu_torch.utils.ser import pack
+
+from .iterator import (
+    IDefer,
+    IMergeable,
+    IRelatable,
+    ITable,
+    IThing,
+    IValue,
+    Iterator,
+    classify_sources,
+    target_value,
+)
+
+
+def _with_timeout(ctx, stm):
+    t = getattr(stm, "timeout", None)
+    return ctx.with_deadline(t.seconds if t is not None else None)
+
+
+def _only(stm, rows: List[Any]):
+    if not getattr(stm, "only", False):
+        return rows
+    if len(rows) == 1:
+        return rows[0]
+    if len(rows) == 0:
+        return NONE
+    raise SurrealError(
+        "Expected a single result output when using the ONLY keyword"
+    )
+
+
+# ------------------------------------------------------------------ SELECT
+def select_compute(ctx, stm) -> Any:
+    with _with_timeout(ctx, stm) as c:
+        sources = classify_sources(c, stm.what, "select")
+
+        if stm.explain:
+            from surrealdb_tpu_torch.idx.planner import explain
+
+            # whole-pipeline columnar lowering renders its own plan row
+            # (strategy columnar-pipeline + stages); EXPLAIN ANALYZE below
+            # then executes it for real and the per-stage rows+ms arrive
+            # via plan notes on the Execute row
+            plan = None
+            if len(sources) == 1 and isinstance(sources[0], ITable):
+                from surrealdb_tpu_torch.ops.pipeline import explain_pipeline
+
+                detail = explain_pipeline(c, stm, sources[0].tb)
+                if detail is not None:
+                    plan = [
+                        {
+                            "detail": {"plan": detail, "table": sources[0].tb},
+                            "operation": "Iterate Index",
+                        }
+                    ]
+                    if stm.explain_full:
+                        plan.append(
+                            {"detail": {"type": "Memory"}, "operation": "Collector"}
+                        )
+            if plan is None:
+                plan = explain(c, stm, sources, full=stm.explain_full)
+            if not getattr(stm, "explain_analyze", False):
+                return plan
+            # EXPLAIN ANALYZE: the plan AND the execution it describes —
+            # run the statement for real (flag stripped; the parsed AST is
+            # request-local, so the mutate-restore is race-free) and append
+            # an Execute row with the measured stats + the plan decisions
+            # the execution actually took (telemetry plan notes)
+            import time as _time
+
+            from surrealdb_tpu_torch import telemetry
+            from surrealdb_tpu_torch.sql.value import is_none as _is_none
+
+            telemetry.drain_plan_notes()
+            stm.explain = False
+            t0 = _time.perf_counter()
+            try:
+                rows = select_compute(ctx, stm)
+            finally:
+                stm.explain = True
+            dur = _time.perf_counter() - t0
+            n = (
+                len(rows)
+                if isinstance(rows, list)
+                else (0 if rows is None or _is_none(rows) else 1)
+            )
+            detail = {"duration_ms": round(dur * 1e3, 3), "rows": n}
+            notes = telemetry.drain_plan_notes()
+            if notes:
+                detail["plan_notes"] = notes
+            return plan + [{"operation": "Execute", "detail": detail}]
+
+        # plan-cache dispatch skeleton (dbs/plan_cache.py): when this
+        # statement IS a cached template, start the front ladder at the
+        # front that resolved it cold — the ones before it declined on
+        # shape and need not re-check. front_for validated the route
+        # (generation, epoch, tenant scope, periodic revalidation); a
+        # cached front that now declines just continues down the ladder.
+        from surrealdb_tpu_torch.dbs.plan_cache import active_plan_cache
+
+        pc = active_plan_cache(c)
+        front = pc.front_for(c, stm) if pc is not None else None
+        start_at = {"ml": 0, "count": 1, "pipeline": 2, "plan": 3}.get(
+            front or "ml", 0
+        )
+
+        if start_at <= 0:
+            from surrealdb_tpu_torch.ml.exec import try_columnar_ml_scan
+
+            fast = try_columnar_ml_scan(c, stm, sources)
+            if fast is not None:
+                if pc is not None:
+                    pc.note_front(c, stm, "ml")
+                return _only(stm, fast)
+
+        # filtered count over a mirrored table: one mask popcount, no
+        # documents (idx/column_mirror.py; exact per-row fallback inside)
+        if start_at <= 1:
+            from surrealdb_tpu_torch.idx.column_mirror import try_columnar_count
+
+            fast = try_columnar_count(c, stm, sources)
+            if fast is not None:
+                if pc is not None:
+                    pc.note_front(c, stm, "count")
+                return _only(stm, fast)
+
+        # whole-pipeline columnar lowering (ops/pipeline.py): ORDER BY +
+        # START/LIMIT as mask -> argsort/top-k, GROUP BY aggregates as
+        # factorize + segment-reduce, plain projections read off the
+        # columns — declines (counted) keep the planner/row path
+        if start_at <= 2 and len(sources) == 1 and isinstance(
+            sources[0], ITable
+        ):
+            from surrealdb_tpu_torch.ops.pipeline import run_pipeline
+
+            res = run_pipeline(c, stm, sources[0].tb)
+            if res is not None:
+                if pc is not None:
+                    pc.note_front(c, stm, "pipeline")
+                return _only(stm, res[0])
+            if front == "pipeline" and pc is not None:
+                # the cached pipeline route was declined downstream (the
+                # mirror said no): re-resolve cold from here on
+                pc.drop_route(c, stm, "mirror")
+
+        from surrealdb_tpu_torch.idx.planner import plan_sources
+
+        sources = plan_sources(c, stm, sources)
+        if pc is not None:
+            pc.note_front(c, stm, "plan")
+
+        from surrealdb_tpu_torch.dbs.iterator import IIndex
+        from surrealdb_tpu_torch.idx.planner import OrderPushdownBailout
+
+        it = Iterator(c, stm, "select")
+        for s in sources:
+            it.ingest(s)
+        if (
+            len(sources) == 1
+            and isinstance(sources[0], IIndex)
+            and getattr(sources[0].plan, "provides_order", False)
+        ):
+            it.order_pushed = True
+            # single-source guarantee lets ranked plans fill their score
+            # lookup lazily (only yielded docs are ever probed)
+            sources[0].plan.order_pushed = True
+        try:
+            rows = it.output()
+        except OrderPushdownBailout:
+            # the ordered scan met an array-valued row: key order would be
+            # wrong, so re-run on the plain scan + post-sort path
+            from surrealdb_tpu_torch import telemetry
+
+            telemetry.inc("plan_fallbacks", cause="order_pushdown_bailout")
+            it = Iterator(c, stm, "select")
+            for s in sources:
+                it.ingest(ITable(s.tb) if isinstance(s, IIndex) else s)
+            rows = it.output()
+    return _only(stm, rows)
+
+
+# ------------------------------------------------------------------ writes
+def create_compute(ctx, stm) -> Any:
+    with _with_timeout(ctx, stm) as c:
+        sources = classify_sources(c, stm.what, "create")
+        it = Iterator(c, stm, "create")
+        for s in sources:
+            it.ingest(s)
+        rows = it.output()
+    return _only(stm, rows)
+
+
+def update_compute(ctx, stm) -> Any:
+    with _with_timeout(ctx, stm) as c:
+        sources = classify_sources(c, stm.what, "update")
+        it = Iterator(c, stm, "update")
+        for s in sources:
+            it.ingest(s)
+        rows = it.output()
+    return _only(stm, rows)
+
+
+def upsert_compute(ctx, stm) -> Any:
+    with _with_timeout(ctx, stm) as c:
+        sources = classify_sources(c, stm.what, "upsert")
+        it = Iterator(c, stm, "upsert")
+        for s in sources:
+            it.ingest(s)
+        rows = it.output()
+    return _only(stm, rows)
+
+
+def delete_compute(ctx, stm) -> Any:
+    with _with_timeout(ctx, stm) as c:
+        sources = classify_sources(c, stm.what, "delete")
+        it = Iterator(c, stm, "delete")
+        for s in sources:
+            it.ingest(s)
+        rows = it.output()
+    return _only(stm, rows)
+
+
+# ------------------------------------------------------------------ INSERT
+def insert_compute(ctx, stm) -> Any:
+    rows: List[dict] = []
+    data = stm.data
+    if data.kind == "values":
+        cols, tuples = data.items
+        for tup in tuples:
+            row = {}
+            for col, expr in zip(cols, tup):
+                v = expr.compute(ctx)
+                from surrealdb_tpu_torch.sql.path import set_path
+
+                set_path(ctx, row, col.parts, v)
+            rows.append(row)
+    else:  # content
+        v = data.items.compute(ctx)
+        if isinstance(v, dict):
+            rows = [v]
+        elif isinstance(v, (list, tuple)):
+            for item in v:
+                if not isinstance(item, dict):
+                    raise TypeError_(
+                        f"Cannot INSERT {format_value(item)}; expected an object"
+                    )
+                rows.append(dict(item))
+        else:
+            raise TypeError_(f"Cannot INSERT {format_value(v)}")
+
+    into_tb: Optional[str] = None
+    if stm.into is not None:
+        tv = target_value(ctx, stm.into)
+        if isinstance(tv, Table):
+            into_tb = str(tv)
+        elif isinstance(tv, str):
+            into_tb = tv
+        else:
+            raise TypeError_(f"Cannot INSERT INTO {format_value(tv)}")
+
+    # bulk fast path: big single-shot row batches skip the per-row pipeline
+    # when table state allows (doc/bulk.py); None means fall through
+    if len(rows) >= cnf.BULK_INSERT_MIN:
+        from surrealdb_tpu_torch.doc.bulk import try_bulk_insert
+
+        with _with_timeout(ctx, stm) as c:
+            bulk_out = try_bulk_insert(c, stm, rows, into_tb)
+        if bulk_out is not None:
+            return bulk_out
+
+    if stm.relation:
+        # the rows themselves carry the data; process_relate must not
+        # re-apply the INSERT payload as a CONTENT clause
+        from surrealdb_tpu_torch.doc.pipeline import _StmView
+
+        stm_view = _StmView(
+            data=None,
+            output=stm.output,
+            ignore=stm.ignore,
+            update=stm.update,
+        )
+        it = Iterator(ctx, stm_view, "insert")
+    else:
+        it = Iterator(ctx, stm, "insert")
+    for row in rows:
+        row = dict(row)
+        rid_v = row.pop("id", None)
+        if stm.relation:
+            f, w = row.get("in"), row.get("out")
+            if not isinstance(f, Thing) or not isinstance(w, Thing):
+                raise TypeError_(
+                    "INSERT RELATION requires `in` and `out` record links"
+                )
+            tb = into_tb or (rid_v.tb if isinstance(rid_v, Thing) else None)
+            if tb is None:
+                raise TypeError_("INSERT RELATION requires a target table")
+            e = _make_rid(tb, rid_v)
+            it.ingest(IRelatable(f, e, w, row=row))
+        else:
+            # each row resolves its own table when INTO is absent
+            row_tb = into_tb or (rid_v.tb if isinstance(rid_v, Thing) else None)
+            if row_tb is None:
+                raise TypeError_("INSERT requires a target table")
+            it.ingest(IMergeable(_make_rid(row_tb, rid_v), row))
+    with _with_timeout(ctx, stm) as c:
+        it.ctx = c
+        rows_out = it.output()
+    return rows_out
+
+
+def _make_rid(tb: str, rid_v) -> Thing:
+    if isinstance(rid_v, Thing):
+        # retable: keep the id part under the target table
+        # (reference insert.rs gen_id → Thing::generate retable)
+        return rid_v if rid_v.tb == tb else Thing(tb, rid_v.id)
+    if rid_v is None or is_nullish(rid_v):
+        return Thing(tb)
+    return Thing(tb, rid_v)
+
+
+# ------------------------------------------------------------------ RELATE
+def relate_compute(ctx, stm) -> Any:
+    froms = _relate_endpoints(ctx, stm.from_)
+    withs = _relate_endpoints(ctx, stm.with_)
+    kind_v = target_value(ctx, stm.kind)
+    # bulk fast path: a big literal/array endpoint product over a plain
+    # edge table routes through the batched edge writer (doc/bulk.py),
+    # the same path INSERT RELATION takes; None falls through per-row
+    if (
+        isinstance(kind_v, (Table, str))
+        and len(froms) * len(withs) >= cnf.BULK_INSERT_MIN
+    ):
+        from surrealdb_tpu_torch.doc.bulk import try_bulk_relate
+
+        pairs = [(f, w) for f in froms for w in withs]
+        with _with_timeout(ctx, stm) as c:
+            bulk_out = try_bulk_relate(c, stm, pairs, str(kind_v))
+        if bulk_out is not None:
+            return _only(stm, bulk_out)
+    it = Iterator(ctx, stm, "relate")
+    for f in froms:
+        for w in withs:
+            if isinstance(kind_v, Thing):
+                e = kind_v
+            elif isinstance(kind_v, (Table, str)):
+                e = Thing(str(kind_v))
+            else:
+                raise TypeError_(f"Cannot RELATE via {format_value(kind_v)}")
+            it.ingest(IRelatable(f, e, w))
+    with _with_timeout(ctx, stm) as c:
+        it.ctx = c
+        rows = it.output()
+    return _only(stm, rows)
+
+
+def _relate_endpoints(ctx, expr) -> List[Thing]:
+    v = expr.compute(ctx)
+    out: List[Thing] = []
+    _flatten_things(v, out)
+    if not out:
+        raise TypeError_(f"Cannot use {format_value(v)} as a RELATE endpoint")
+    return out
+
+
+def _flatten_things(v, out: List[Thing]) -> None:
+    if isinstance(v, Thing):
+        out.append(v)
+    elif isinstance(v, (list, tuple)):
+        for item in v:
+            _flatten_things(item, out)
+    elif isinstance(v, dict) and isinstance(v.get("id"), Thing):
+        out.append(v["id"])
+
+
+# ------------------------------------------------------------------ LIVE / KILL
+def live_compute(ctx, stm) -> Any:
+    if not ctx.session.rt:
+        raise SurrealError("LIVE queries are not supported on this connection")
+    ns, db = ctx.ns_db()
+    what = target_value(ctx, stm.what)
+    if isinstance(what, Table):
+        tb = str(what)
+    elif isinstance(what, str):
+        tb = what
+    else:
+        raise SurrealError(f"Cannot use {format_value(what)} in a LIVE query")
+    txn = ctx.txn()
+    txn.ensure_tb(ns, db, tb)
+    live_id = str(_uuid.uuid4())
+    lq = {
+        "id": live_id,
+        "ns": ns,
+        "db": db,
+        "tb": tb,
+        "fields": stm.fields,
+        "cond": stm.cond,
+        "fetch": stm.fetch,
+        "diff": stm.diff,
+        "session": ctx.session.id,
+    }
+    txn.set(keys.live_query(ns, db, tb, live_id.encode()), pack_lq(lq))
+    txn.invalidate_tb_lives(ns, db, tb)
+    ds = ctx.ds()
+    # node-scoped pointer so surviving nodes can archive this LQ if this
+    # node dies (reference key::node::lq; kvs/node.py remove_archived)
+    txn.set(
+        keys.node_lq(ds.node_id.bytes, live_id.encode()),
+        pack({"ns": ns, "db": db, "tb": tb}),
+    )
+    ds.enable_notifications()
+    ds.notifications.subscribe(live_id)
+    return Uuid(_uuid.UUID(live_id))
+
+
+def pack_lq(lq: dict) -> bytes:
+    # fields/cond are AST nodes; persist via pickle inside the msgpack ext
+    import pickle
+
+    return pickle.dumps(lq)
+
+
+def unpack_lq(raw: bytes) -> dict:
+    import pickle
+
+    return pickle.loads(raw)
+
+
+def kill_compute(ctx, stm) -> Any:
+    ns, db = ctx.ns_db()
+    v = stm.id.compute(ctx)
+    if isinstance(v, Uuid):
+        live_id = str(v.value)
+    elif isinstance(v, str):
+        live_id = v
+    else:
+        raise SurrealError(f"Can not KILL {format_value(v)}")
+    txn = ctx.txn()
+    # find the registration across tables of this db
+    from surrealdb_tpu_torch.key.encode import prefix_end
+
+    found = False
+    for tb_def in txn.all_tb(ns, db):
+        k = keys.live_query(ns, db, tb_def["name"], live_id.encode())
+        if txn.exists(k):
+            txn.delete(k)
+            txn.invalidate_tb_lives(ns, db, tb_def["name"])
+            found = True
+    ds = ctx.ds()
+    if found:
+        txn.delete(keys.node_lq(ds.node_id.bytes, live_id.encode()))
+    if ds.notifications is not None:
+        from .notification import Notification
+
+        if found:
+            ctx.notify(Notification(live_id, "KILLED", None, NONE))
+        ds.notifications.unsubscribe(live_id)
+    if not found:
+        raise SurrealError(f"Can not execute KILL statement using id '{live_id}'")
+    return NONE

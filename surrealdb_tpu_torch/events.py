@@ -1,0 +1,172 @@
+"""Structured engine event timeline: bounded, trace-linked, kind-registered.
+
+The metrics surface answers "how much"; the rings answer "which statement";
+this module answers "WHAT HAPPENED, IN WHAT ORDER" — the operational state
+transitions a post-incident read needs to line up against a latency spike:
+node liveness flaps, circuit-breaker transitions, degraded reads/writes,
+admission sheds, failpoint trips, background-task stalls and service
+restarts, group-commit rescues.
+
+Every event is one dict in a bounded ring:
+
+    {"seq": <monotonic>, "ts": <epoch>, "kind": <registered kind>,
+     "trace_id": <active trace or None>, ...kind-specific fields}
+
+The `trace_id` is captured from the ACTIVE request context at emit time
+(tracing.current_trace_id), so a degraded read or breaker flip observed
+while serving a statement is joinable to that statement's span tree — the
+Dapper-style attribution the cluster observability plane is built on. An
+event emitted outside any request (a probe pump, the watchdog) carries
+`trace_id: None`; callers that know the owning trace pass it explicitly.
+
+Kinds are a CLOSED registry (`KINDS`): `emit()` rejects anything else, and
+graftlint GL009 enforces statically that no call site invents one ad hoc —
+an unregistered kind is a timeline nobody can filter, alert on, or document.
+
+Exported as the debug bundle's ninth section (`events`, bundle.py) and via
+`GET /events` (system-gated; `?cluster=1` on a cluster node federates the
+merged timeline across members).
+"""
+
+from __future__ import annotations
+
+import itertools
+import time
+from collections import deque
+from typing import Any, Deque, Dict, List, Optional
+
+from surrealdb_tpu_torch.utils import locks as _locks
+
+# ------------------------------------------------------------------ registry
+# kind -> one-line description (the event-kind catalog; README mirrors it).
+# Closed set: emit() raises on anything else and GL009 lints call sites.
+KINDS: Dict[str, str] = {
+    # cluster liveness + fault tolerance
+    "cluster.node_up": "a member transitioned to alive (probe or call)",
+    "cluster.node_down": "a member transitioned to dead (probe or call)",
+    "cluster.breaker_open": "a node's circuit breaker tripped open",
+    "cluster.breaker_half_open": "an open breaker admitted a trial call",
+    "cluster.breaker_close": "a node's circuit breaker closed (recovered)",
+    "cluster.degraded_read": "a scatter read failed over onto replicas",
+    "cluster.degraded_write": "a routed write tolerated a down replica",
+    "cluster.admission_shed": "admission control shed a statement",
+    # elastic membership + convergent repair
+    "cluster.member_join": "a node joined the membership (epoch bumped)",
+    "cluster.member_leave": "a node left the membership (epoch bumped)",
+    "cluster.migration_start": "background shard migration began for an epoch",
+    "cluster.migration_done": "shard migration finished (or failed) for an epoch",
+    "cluster.read_repair": "a divergent read back-filled a stale replica",
+    "cluster.antientropy_repair": "an anti-entropy sweep repaired stale copies",
+    "cluster.tombstone_gc": "expired tombstones swept after a clean repair pass",
+    # workload statistics plane
+    "stats.plan_flip": "a statement fingerprint's primary plan decision flipped",
+    # plan & pipeline cache (dbs/plan_cache.py)
+    "plan_cache.evict": "a cached plan was evicted (plan flip / DDL / epoch / capacity)",
+    # tenant accounting plane
+    "tenant.budget_exceeded": "a tenant crossed a soft budget limit (observe-only)",
+    # network plane (net/loop.py + net/qos.py)
+    "net.admission_shed": "per-tenant admission control shed a request",
+    "net.throttle": "a tenant hit its rate/in-flight quota and was queued",
+    "net.backpressure_close": "a connection's write queue overflowed its bound and was closed",
+    "net.overload_close": "ingress shed a connection (accept cap or header deadline)",
+    "cluster.auth_reject": "an internal /cluster request failed per-node key auth",
+    # advisor plane (observe->propose; nothing is ever applied)
+    "advisor.proposal": "the advisor registered a new evidence-chained proposal",
+    "advisor.expired": "an advisor proposal's evidence decayed and it expired",
+    # failpoints / chaos
+    "fault.trip": "an armed failpoint site fired",
+    # background machinery
+    "bg.stall": "the watchdog flagged a background task past deadline",
+    "bg.recovered": "a stalled background task finished after the flag",
+    "bg.service_restart": "a supervised service loop crashed and restarted",
+    # write path
+    "txn.group_commit_rescue": "a submitter self-rescued a dead flusher",
+}
+
+_lock = _locks.Lock("events")
+_seq = itertools.count(1)
+_ring: Deque[dict] = deque(maxlen=1024)  # re-bounded from cnf on first emit
+_sized = False
+
+
+class UnknownEventKind(ValueError):
+    """Raised for a kind outside the registry — the runtime half of GL009."""
+
+
+def _ensure_sized() -> None:
+    """Apply the cnf cap lazily (cnf import order must not matter)."""
+    global _ring, _sized
+    if _sized:
+        return
+    from surrealdb_tpu_torch import cnf
+
+    cap = max(int(getattr(cnf, "EVENTS_CAP", 1024)), 16)
+    with _lock:
+        if not _sized:
+            if _ring.maxlen != cap:
+                _ring = deque(_ring, maxlen=cap)
+            _sized = True
+
+
+def emit(kind: str, trace_id: Optional[str] = None, **fields: Any) -> dict:
+    """Append one event to the timeline. `kind` MUST be registered in
+    KINDS (UnknownEventKind otherwise — graftlint GL009 is the static
+    twin of this check). `trace_id` defaults to the active request's
+    trace; pass it explicitly when emitting on behalf of another context
+    (the watchdog citing a task's arming trace). Returns the event dict."""
+    from surrealdb_tpu_torch import telemetry, tracing
+
+    if kind not in KINDS:
+        raise UnknownEventKind(
+            f"event kind {kind!r} is not in the events.KINDS registry — "
+            "register it (with a description) before emitting"
+        )
+    _ensure_sized()
+    if trace_id is None:
+        trace_id = tracing.current_trace_id()
+    ev = {
+        "seq": next(_seq),
+        "ts": time.time(),
+        "kind": kind,
+        "trace_id": trace_id,
+        **fields,
+    }
+    with _lock:
+        _ring.append(ev)
+    # the label is bounded by the closed registry, so it is cardinality-safe
+    telemetry.inc("events_emitted", kind=kind)
+    return ev
+
+
+def snapshot(
+    kind_prefix: Optional[str] = None, limit: Optional[int] = None
+) -> List[dict]:
+    """The timeline, oldest first; optionally filtered by kind prefix
+    (`cluster.` selects the whole cluster family) and tail-limited
+    (limit=0 means zero events — a bare `out[-0:]` would be the whole
+    ring)."""
+    with _lock:
+        out = list(_ring)
+    if kind_prefix:
+        out = [e for e in out if e["kind"].startswith(kind_prefix)]
+    if limit is not None and limit >= 0:
+        out = out[-limit:] if limit > 0 else []
+    return out
+
+
+def since(seq: int) -> List[dict]:
+    """Events strictly after `seq` — the incremental-poll read."""
+    with _lock:
+        return [e for e in _ring if e["seq"] > seq]
+
+
+def last_seq() -> int:
+    with _lock:
+        return _ring[-1]["seq"] if _ring else 0
+
+
+def reset() -> None:
+    """Clear the ring (tests / bench window isolation); seq keeps counting
+    so `since()` cursors from before the reset stay monotonic."""
+    with _lock:
+        _ring.clear()

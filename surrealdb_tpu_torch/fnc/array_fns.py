@@ -1,0 +1,526 @@
+"""array:: functions (reference: core/src/fnc/array.rs)."""
+
+from __future__ import annotations
+
+import random
+from typing import Any, List
+
+from surrealdb_tpu_torch.err import InvalidArgumentsError, TypeError_
+from surrealdb_tpu_torch.sql.value import (
+    NONE,
+    Closure,
+    is_nullish,
+    sort_key,
+    truthy,
+    value_cmp,
+    value_eq,
+)
+
+from . import register
+
+
+def _arr(v, name="array") -> list:
+    if not isinstance(v, list):
+        raise InvalidArgumentsError(name, "Argument 1 was the wrong type. Expected an array.")
+    return v
+
+
+def _call(ctx, f, args: List[Any]):
+    from .custom import run_closure
+
+    if isinstance(f, Closure):
+        return run_closure(ctx, f, args)
+    raise TypeError_("Expected a closure")
+
+
+@register("array::add")
+def add(ctx, a, v):
+    a = list(_arr(a))
+    items = v if isinstance(v, list) else [v]
+    for x in items:
+        if not any(value_eq(x, y) for y in a):
+            a.append(x)
+    return a
+
+
+@register("array::all")
+def all_(ctx, a, f=None):
+    """No arg: truthiness of every element; closure: predicate; plain
+    value: every element equals it (reference array.rs all/any accept
+    closure or value)."""
+    from surrealdb_tpu_torch.sql.value import Closure as _C
+
+    if f is None:
+        return all(truthy(x) for x in _arr(a))
+    if isinstance(f, _C):
+        return all(truthy(_call(ctx, f, [x])) for x in _arr(a))
+    return all(value_eq(x, f) for x in _arr(a))
+
+
+@register("array::any")
+def any_(ctx, a, f=None):
+    from surrealdb_tpu_torch.sql.value import Closure as _C
+
+    if f is None:
+        return any(truthy(x) for x in _arr(a))
+    if isinstance(f, _C):
+        return any(truthy(_call(ctx, f, [x])) for x in _arr(a))
+    return any(value_eq(x, f) for x in _arr(a))
+
+
+@register("array::append")
+def append(ctx, a, v):
+    return list(_arr(a)) + [v]
+
+
+@register("array::at")
+def at(ctx, a, i):
+    a = _arr(a)
+    i = int(i)
+    if -len(a) <= i < len(a):
+        return a[i]
+    return NONE
+
+
+@register("array::boolean_and")
+def boolean_and(ctx, a, b):
+    a, b = _arr(a), _arr(b)
+    n = max(len(a), len(b))
+    out = []
+    for i in range(n):
+        x = a[i] if i < len(a) else False
+        y = b[i] if i < len(b) else False
+        out.append(truthy(x) and truthy(y))
+    return out
+
+
+@register("array::boolean_or")
+def boolean_or(ctx, a, b):
+    a, b = _arr(a), _arr(b)
+    n = max(len(a), len(b))
+    return [
+        truthy(a[i] if i < len(a) else False) or truthy(b[i] if i < len(b) else False)
+        for i in range(n)
+    ]
+
+
+@register("array::boolean_xor")
+def boolean_xor(ctx, a, b):
+    a, b = _arr(a), _arr(b)
+    n = max(len(a), len(b))
+    return [
+        truthy(a[i] if i < len(a) else False) != truthy(b[i] if i < len(b) else False)
+        for i in range(n)
+    ]
+
+
+@register("array::boolean_not")
+def boolean_not(ctx, a):
+    return [not truthy(x) for x in _arr(a)]
+
+
+@register("array::clump")
+def clump(ctx, a, size):
+    a = _arr(a)
+    size = int(size)
+    if size < 1:
+        raise InvalidArgumentsError("array::clump", "The second argument must be an integer greater than 0.")
+    return [a[i : i + size] for i in range(0, len(a), size)]
+
+
+@register("array::combine")
+def combine(ctx, a, b):
+    return [[x, y] for x in _arr(a) for y in _arr(b)]
+
+
+@register("array::complement")
+def complement(ctx, a, b):
+    b = _arr(b)
+    return [x for x in _arr(a) if not any(value_eq(x, y) for y in b)]
+
+
+@register("array::concat")
+def concat(ctx, *arrays):
+    out: list = []
+    for a in arrays:
+        out.extend(_arr(a))
+    return out
+
+
+@register("array::difference")
+def difference(ctx, a, b):
+    a, b = _arr(a), _arr(b)
+    out = [x for x in a if not any(value_eq(x, y) for y in b)]
+    out += [y for y in b if not any(value_eq(y, x) for x in a)]
+    return out
+
+
+@register("array::distinct")
+def distinct(ctx, a):
+    out: list = []
+    for x in _arr(a):
+        if not any(value_eq(x, y) for y in out):
+            out.append(x)
+    return out
+
+
+@register("array::fill")
+def fill(ctx, a, v, start=None, end=None):
+    a = list(_arr(a))
+    s = int(start) if start is not None else 0
+    e = int(end) if end is not None else len(a)
+    for i in range(max(s, 0), min(e, len(a))):
+        a[i] = v
+    return a
+
+
+@register("array::filter")
+def filter_(ctx, a, f):
+    return [x for x in _arr(a) if truthy(_call(ctx, f, [x]))]
+
+
+@register("array::filter_index")
+def filter_index(ctx, a, v):
+    from surrealdb_tpu_torch.sql.value import Closure as _C
+
+    a = _arr(a)
+    if isinstance(v, _C):
+        return [i for i, x in enumerate(a) if truthy(_call(ctx, v, [x]))]
+    return [i for i, x in enumerate(a) if value_eq(x, v)]
+
+
+@register("array::find")
+def find(ctx, a, f):
+    for x in _arr(a):
+        if truthy(_call(ctx, f, [x])):
+            return x
+    return NONE
+
+
+@register("array::find_index")
+def find_index(ctx, a, v):
+    from surrealdb_tpu_torch.sql.value import Closure as _C
+
+    for i, x in enumerate(_arr(a)):
+        if isinstance(v, _C):
+            if truthy(_call(ctx, v, [x])):
+                return i
+        elif value_eq(x, v):
+            return i
+    return NONE
+
+
+@register("array::first")
+def first(ctx, a):
+    a = _arr(a)
+    return a[0] if a else NONE
+
+
+@register("array::flatten")
+def flatten(ctx, a):
+    out: list = []
+    for x in _arr(a):
+        if isinstance(x, list):
+            out.extend(x)
+        else:
+            out.append(x)
+    return out
+
+
+@register("array::fold")
+def fold(ctx, a, init, f):
+    acc = init
+    for i, x in enumerate(_arr(a)):
+        acc = _call(ctx, f, [acc, x, i])
+    return acc
+
+
+@register("array::group")
+def group(ctx, a):
+    out: list = []
+    for x in _arr(a):
+        items = x if isinstance(x, list) else [x]
+        for y in items:
+            if not any(value_eq(y, z) for z in out):
+                out.append(y)
+    return out
+
+
+@register("array::insert")
+def insert(ctx, a, v, i=None):
+    a = list(_arr(a))
+    if i is None:
+        a.append(v)
+    else:
+        i = int(i)
+        if i < 0:
+            i += len(a) + 1
+        a.insert(i, v)
+    return a
+
+
+@register("array::intersect")
+def intersect(ctx, a, b):
+    b = _arr(b)
+    return [x for x in _arr(a) if any(value_eq(x, y) for y in b)]
+
+
+@register("array::is_empty")
+def is_empty(ctx, a):
+    return len(_arr(a)) == 0
+
+
+@register("array::join")
+def join(ctx, a, sep):
+    from surrealdb_tpu_torch.sql.value import format_value
+
+    return str(sep).join(
+        x if isinstance(x, str) else format_value(x) for x in _arr(a)
+    )
+
+
+@register("array::last")
+def last(ctx, a):
+    a = _arr(a)
+    return a[-1] if a else NONE
+
+
+@register("array::len")
+def len_(ctx, a):
+    return len(_arr(a))
+
+
+@register("array::logical_and")
+def logical_and(ctx, a, b):
+    a, b = _arr(a), _arr(b)
+    n = max(len(a), len(b))
+    out = []
+    for i in range(n):
+        x = a[i] if i < len(a) else NONE
+        y = b[i] if i < len(b) else NONE
+        out.append(y if truthy(x) and truthy(y) else (x if not truthy(x) else y))
+    return out
+
+
+@register("array::logical_or")
+def logical_or(ctx, a, b):
+    a, b = _arr(a), _arr(b)
+    n = max(len(a), len(b))
+    out = []
+    for i in range(n):
+        x = a[i] if i < len(a) else NONE
+        y = b[i] if i < len(b) else NONE
+        out.append(x if truthy(x) else y)
+    return out
+
+
+@register("array::logical_xor")
+def logical_xor(ctx, a, b):
+    a, b = _arr(a), _arr(b)
+    n = max(len(a), len(b))
+    out = []
+    for i in range(n):
+        x = a[i] if i < len(a) else NONE
+        y = b[i] if i < len(b) else NONE
+        tx, ty = truthy(x), truthy(y)
+        if tx and not ty:
+            out.append(x)
+        elif ty and not tx:
+            out.append(y)
+        else:
+            out.append(False)
+    return out
+
+
+@register("array::map")
+def map_(ctx, a, f):
+    return [_call(ctx, f, [x, i]) for i, x in enumerate(_arr(a))]
+
+
+@register("array::matches")
+def matches(ctx, a, v):
+    return [value_eq(x, v) for x in _arr(a)]
+
+
+@register("array::max")
+def max_(ctx, a):
+    a = [x for x in _arr(a) if not is_nullish(x)]
+    return max(a, key=sort_key, default=NONE)
+
+
+@register("array::min")
+def min_(ctx, a):
+    a = [x for x in _arr(a) if not is_nullish(x)]
+    return min(a, key=sort_key, default=NONE)
+
+
+@register("array::pop")
+def pop(ctx, a):
+    a = _arr(a)
+    return a[-1] if a else NONE
+
+
+@register("array::prepend")
+def prepend(ctx, a, v):
+    return [v] + list(_arr(a))
+
+
+@register("array::push")
+def push(ctx, a, v):
+    return list(_arr(a)) + [v]
+
+
+@register("array::range")
+def range_(ctx, start, count):
+    start, count = int(start), int(count)
+    if count < 0:
+        raise InvalidArgumentsError("array::range", "Argument 2 must not be negative.")
+    return list(range(start, start + count))
+
+
+@register("array::remove")
+def remove(ctx, a, i):
+    a = list(_arr(a))
+    i = int(i)
+    if -len(a) <= i < len(a):
+        del a[i]
+    return a
+
+
+@register("array::repeat")
+def repeat(ctx, v, n):
+    return [v] * int(n)
+
+
+@register("array::reverse")
+def reverse(ctx, a):
+    return list(reversed(_arr(a)))
+
+
+@register("array::shuffle")
+def shuffle(ctx, a):
+    a = list(_arr(a))
+    random.shuffle(a)
+    return a
+
+
+@register("array::slice")
+def slice_(ctx, a, start=None, length=None):
+    a = _arr(a)
+    s = int(start) if start is not None else 0
+    if s < 0:
+        s += len(a)
+    if length is None:
+        return a[s:]
+    n = int(length)
+    if n < 0:
+        return a[s : n]
+    return a[s : s + n]
+
+
+@register("array::sort")
+def sort(ctx, a, order=None):
+    a = sorted(_arr(a), key=sort_key)
+    if order is False or (isinstance(order, str) and order.lower() == "desc"):
+        a.reverse()
+    return a
+
+
+@register("array::sort::asc")
+def sort_asc(ctx, a):
+    return sorted(_arr(a), key=sort_key)
+
+
+@register("array::sort::desc")
+def sort_desc(ctx, a):
+    return sorted(_arr(a), key=sort_key, reverse=True)
+
+
+@register("array::sort_natural")
+def sort_natural(ctx, a):
+    return sorted(_arr(a), key=sort_key)
+
+
+@register("array::sort_lexical")
+def sort_lexical(ctx, a):
+    return sorted(_arr(a), key=lambda v: str(v))
+
+
+@register("array::swap")
+def swap(ctx, a, i, j):
+    a = list(_arr(a))
+    i, j = int(i), int(j)
+    n = len(a)
+    if i < 0:
+        i += n
+    if j < 0:
+        j += n
+    if not (0 <= i < n and 0 <= j < n):
+        raise InvalidArgumentsError(
+            "array::swap", f"Argument index out of bounds: {i} / {j}."
+        )
+    a[i], a[j] = a[j], a[i]
+    return a
+
+
+@register("array::transpose")
+def transpose(ctx, a):
+    a = _arr(a)
+    if not a:
+        return []
+    rows = [x if isinstance(x, list) else [x] for x in a]
+    n = max(len(r) for r in rows)
+    return [[r[i] for r in rows if i < len(r)] for i in range(n)]
+
+
+@register("array::union")
+def union(ctx, a, b):
+    out: list = []
+    for x in list(_arr(a)) + list(_arr(b)):
+        if not any(value_eq(x, y) for y in out):
+            out.append(x)
+    return out
+
+
+@register("array::windows")
+def windows(ctx, a, size):
+    a = _arr(a)
+    size = int(size)
+    if size < 1:
+        raise InvalidArgumentsError("array::windows", "The second argument must be an integer greater than 0.")
+    return [a[i : i + size] for i in range(0, len(a) - size + 1)]
+
+
+# aliases + late additions (reference fnc/mod.rs:105-460 name set)
+@register("array::every")
+def every(ctx, a, f=None):
+    return all_(ctx, a, f)
+
+
+@register("array::some")
+def some(ctx, a, f=None):
+    return any_(ctx, a, f)
+
+
+@register("array::includes")
+def includes(ctx, a, v):
+    """Alias of array::any's membership form (closures work too)."""
+    return any_(ctx, a, v)
+
+
+@register("array::index_of")
+def index_of(ctx, a, v):
+    """Alias of array::find_index (value or closure)."""
+    return find_index(ctx, a, v)
+
+
+@register("array::reduce")
+def reduce_(ctx, a, f):
+    """Like fold but seeded with the first element (reference array.rs)."""
+    items = _arr(a)
+    if not items:
+        return NONE
+    acc = items[0]
+    for i, x in enumerate(items[1:]):
+        acc = _call(ctx, f, [acc, x, i])
+    return acc

@@ -1,0 +1,685 @@
+"""Device-resident CSR graph mirrors + batched frontier expansion.
+
+Role of the reference's per-record edge-prefix scans (reference:
+core/src/dbs/processor.rs:610-701 collect_edges, sql/value/get.rs:404-446 —
+hop N over R records ⇒ R separate KV range scans) re-designed TPU-first
+(SURVEY §3.5): each (src_table, direction, foreign_table) pointer keyspace is
+packed into CSR arrays (indptr/indices) over a node id space shared across
+all mirrors of a database, so a multi-hop idiom like `->knows->person` is a
+sequence of fixed-shape gather kernels with on-device dedup instead of
+R₁+R₂+… pointer chases.
+
+Maintenance is incremental: the base adjacency is built with ONE scan over
+the source table's `~` keyspace (all directions/foreign-tables at once), and
+every committed RELATE/DELETE applies per-edge deltas through the
+transaction's graph-delta buffer (kvs/tx.py) — no corpus rescans on write
+(reference analog: trees/store/cache.rs generation swap, improved). Device
+arrays are recompacted lazily from the host adjacency when dirty; queries
+inside a transaction that has its own uncommitted edge writes fall back to
+the exact KV walk (sql/path.py graph_hop).
+
+In surrealdb_tpu_torch the device kernels (K6-K8) are not ported yet: the
+device functions below raise NotImplementedError, and the host hop path
+serves below the on-device thresholds as in the reference.
+"""
+
+from __future__ import annotations
+
+import threading
+from surrealdb_tpu_torch.utils import locks as _locks
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+import numpy as np
+
+from surrealdb_tpu_torch import key as keys
+from surrealdb_tpu_torch.key.encode import prefix_end
+from surrealdb_tpu_torch.sql.value import Thing
+from surrealdb_tpu_torch.utils.num import next_pow2 as _next_pow2
+
+
+class NodeInterner:
+    """Thing ↔ dense-int mapping shared by every mirror of one (ns, db)."""
+
+    def __init__(self):
+        self.id_of: Dict[Tuple[str, str], int] = {}
+        self.node_of: List[Thing] = []
+        self._lock = _locks.Lock("idx.graph.interner")
+
+    def __len__(self) -> int:
+        return len(self.node_of)
+
+    def intern(self, t: Thing) -> int:
+        k = (t.tb, repr(t.id))
+        i = self.id_of.get(k)
+        if i is None:
+            with self._lock:
+                i = self.id_of.get(k)
+                if i is None:
+                    i = len(self.node_of)
+                    self.node_of.append(t)
+                    self.id_of[k] = i
+        return i
+
+    def lookup(self, t: Thing) -> Optional[int]:
+        return self.id_of.get((t.tb, repr(t.id)))
+
+
+class PointerCsr:
+    """Adjacency for one (src_tb, direction, foreign_tb) pointer keyspace.
+
+    Host side: `adj` dict of global-int lists — authoritative, updated by
+    deltas. Device side: indptr/indices arrays compacted lazily.
+    """
+
+    def __init__(self, interner: NodeInterner):
+        self.interner = interner
+        self.adj: Dict[int, List[int]] = {}
+        self.version = 0  # bumped on every mutation (dense-operator cache key)
+        self.dirty = True
+        self.indptr: Optional[np.ndarray] = None
+        self.indices: Optional[np.ndarray] = None
+        self._dev = None  # device (indptr, indices) cache
+        self._dev_csc = None  # device (cptr, csrc) dst-sorted cache
+        self.edge_count = 0
+        self.n_built = 0
+        self.max_degree = 0
+        self._lock = _locks.Lock("idx.graph.mirror")
+
+    def load(self, adj: Dict[int, List[int]]) -> None:
+        with self._lock:
+            _locks.assert_held(self._lock, "graph.adjacency")
+            self.adj = adj
+            self.edge_count = sum(len(v) for v in adj.values())
+            self.version += 1
+            self.dirty = True
+
+    def apply(self, src: int, dst: int, add: bool) -> None:
+        """Idempotent delta: pointer keys are unique in KV, so the mirror
+        holds at most one (src, dst) entry per keyspace."""
+        with self._lock:
+            # adjacency/version/dirty are one guarded unit: a mutation
+            # outside idx.graph.mirror races ensure_arrays' compaction
+            _locks.assert_held(self._lock, "graph.adjacency")
+            lst = self.adj.setdefault(src, [])
+            if add:
+                if dst not in lst:
+                    lst.append(dst)
+                    self.edge_count += 1
+            else:
+                try:
+                    lst.remove(dst)
+                    self.edge_count -= 1
+                except ValueError:
+                    pass
+                if not lst:
+                    del self.adj[src]
+            self.version += 1
+            self.dirty = True
+
+    def ensure_arrays(self) -> None:
+        """Compact host adjacency into CSR arrays (numpy only — no KV)."""
+        n = len(self.interner)
+        with self._lock:
+            _locks.assert_held(self._lock, "graph.adjacency")
+            if not self.dirty and self.n_built == n and self.indptr is not None:
+                return
+            # indptr spans a pow2-padded node capacity and indices a pow2
+            # buffer so XLA kernel shapes stay stable while edges trickle in
+            # (a recompile per RELATE would dwarf the gather itself)
+            cap = _next_pow2(max(n, 1))
+            indptr = np.zeros(cap + 1, dtype=np.int32)
+            for src, lst in self.adj.items():
+                if src < n:
+                    indptr[src + 1] = len(lst)
+            self.max_degree = int(indptr.max()) if n else 0
+            np.cumsum(indptr, out=indptr)
+            indices = np.zeros(_next_pow2(max(int(indptr[-1]), 1)), dtype=np.int32)
+            fill = indptr[:-1].copy()
+            for src, lst in self.adj.items():
+                if src >= n:
+                    continue
+                k = fill[src]
+                indices[k : k + len(lst)] = lst
+            self.indptr = indptr
+            self.indices = indices
+            self._dev = None
+            self._dev_csc = None
+            self.n_built = n
+            self.dirty = False
+
+    def device_arrays(self):
+        raise NotImplementedError(
+            'graph kernels (K6-K8, idx/graph_csr.py) not ported yet; see ROADMAP queue 2'
+        )
+
+    def device_csc(self):
+        """Destination-sorted (cptr, csrc) device arrays for scatter-free
+        dense SpMV hops (batched count chains): y[v] = Σ x[src] over edges
+        into v becomes cumsum over dst-sorted x[csrc] + a boundary gather —
+        gathers and a prefix-scan only, no scatter (TPU scatter-add is
+        serial-slow; cumsum + gather ride the VPU). Padding edges carry the
+        sentinel src/dst `cap` and fall outside every real bin."""
+        raise NotImplementedError(
+            'graph kernels (K6-K8, idx/graph_csr.py) not ported yet; see ROADMAP queue 2'
+        )
+
+
+# ------------------------------------------------------------------ kernels
+def _kernels():
+    """The fused hop-chain and batched count kernels (reference
+    idx/graph_csr.py chain_kernel, chain_count_batch, dense_count_batch)."""
+    raise NotImplementedError(
+        'graph kernels (K6-K8, idx/graph_csr.py) not ported yet; see ROADMAP queue 2'
+    )
+
+
+class GraphMirrors:
+    """Per-datastore registry: (ns, db, src_tb, dir, ft) → PointerCsr, with a
+    shared NodeInterner per (ns, db) so hops compose across tables."""
+
+    def __init__(self):
+        self._interners: Dict[Tuple[str, str], NodeInterner] = {}
+        self._m: Dict[tuple, PointerCsr] = {}
+        self._built: Set[Tuple[str, str, str]] = set()
+        # dense composed operators + per-table compact id spaces
+        self._spaces: Dict[tuple, dict] = {}  # (ns,db,tb) -> space dict
+        self._dense: Dict[tuple, dict] = {}  # pair key -> operator dict
+        # tables mid-build: deltas committed during the build scan are
+        # buffered here and replayed after load (closes the scan→built gap)
+        self._building: Dict[Tuple[str, str, str], List[tuple]] = {}
+        self._build_locks: Dict[Tuple[str, str, str], threading.Lock] = {}
+        self._lock = _locks.RLock("idx.graph.registry")
+        # ingest-time prewarm (cnf.GRAPH_PREWARM): RELATE commits into a
+        # not-yet-mirrored table arm a debounced timer; when ingest
+        # quiesces, the mirror build + batched-count-kernel compiles run in
+        # the background so the FIRST query doesn't pay the multi-second
+        # (at scale, multi-minute) build + XLA-compile cliff
+        self._ds = None  # weakref to the owning Datastore (set by bind_ds)
+        self._prewarm_timers: Dict[Tuple[str, str, str], threading.Timer] = {}
+        self._prewarm_deadline: Dict[Tuple[str, str, str], float] = {}
+        self._prewarm_running: Set[Tuple[str, str, str]] = set()
+        self._warmed_pairs: Set[tuple] = set()
+        # flight-recorder task ids of armed prewarms (bg.py lifecycle)
+        self._task_ids: Dict[Tuple[str, str, str], int] = {}
+        self._owner = None  # id(ds), for bg teardown scoping
+
+    # ------------------------------------------------------------ plumbing
+    def bind_ds(self, ds) -> None:
+        """Bind the owning Datastore (weakly): prewarm builds open their own
+        read transactions, which needs more than the commit-path hook has."""
+        import weakref
+
+        self._ds = weakref.ref(ds)
+        self._owner = id(ds)
+
+    def interner(self, ns: str, db: str) -> NodeInterner:
+        with self._lock:
+            it = self._interners.get((ns, db))
+            if it is None:
+                it = NodeInterner()
+                self._interners[(ns, db)] = it
+            return it
+
+    def _get_or_create(self, ns, db, src_tb, d: bytes, ft: str) -> PointerCsr:
+        k = (ns, db, src_tb, bytes(d), ft)
+        with self._lock:
+            m = self._m.get(k)
+            if m is None:
+                m = PointerCsr(self.interner(ns, db))
+                self._m[k] = m
+            return m
+
+    def get(self, ns, db, src_tb, d: bytes, ft: str) -> Optional[PointerCsr]:
+        return self._m.get((ns, db, src_tb, bytes(d), ft))
+
+    def table_built(self, ns: str, db: str, src_tb: str) -> bool:
+        return (ns, db, src_tb) in self._built
+
+    def drop_table(self, ns: str, db: str, tb: str) -> None:
+        """Forget a table's mirrors (REMOVE TABLE / bulk invalidation)."""
+        with self._lock:
+            self._built.discard((ns, db, tb))
+            self._building.pop((ns, db, tb), None)
+            for k in [k for k in self._m if k[:3] == (ns, db, tb)]:
+                del self._m[k]
+
+    def drop_db(self, ns: str, db: str) -> None:
+        """Forget everything of one database (REMOVE DATABASE)."""
+        with self._lock:
+            self._built = {k for k in self._built if k[:2] != (ns, db)}
+            self._building = {k: v for k, v in self._building.items() if k[:2] != (ns, db)}
+            for k in [k for k in self._m if k[:2] == (ns, db)]:
+                del self._m[k]
+            self._interners.pop((ns, db), None)
+
+    def drop_ns(self, ns: str) -> None:
+        """Forget everything of one namespace (REMOVE NAMESPACE)."""
+        with self._lock:
+            self._built = {k for k in self._built if k[0] != ns}
+            self._building = {k: v for k, v in self._building.items() if k[0] != ns}
+            for k in [k for k in self._m if k[0] == ns]:
+                del self._m[k]
+            for k in [k for k in self._interners if k[0] == ns]:
+                del self._interners[k]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._m.clear()
+            self._built.clear()
+            self._building.clear()
+            self._interners.clear()
+
+    # ------------------------------------------------------------ build
+    def ensure_table(self, ctx, src_tb: str) -> None:
+        """Build every (dir, ft) mirror of `src_tb` with ONE scan over its
+        `~` pointer keyspace. The scan runs on a FRESH snapshot opened after
+        delta-buffering starts, so (a) deltas committed concurrently with
+        the scan are buffered and replayed afterwards (apply is idempotent)
+        and no committed edge can fall between the scan and the built flag,
+        and (b) the querying transaction's own uncommitted writes never
+        leak into the shared mirror (they force the exact KV walk anyway)."""
+        ns, db = ctx.ns_db()
+        self.build_table(ctx.ds(), ns, db, src_tb)
+
+    def build_table(self, ds, ns: str, db: str, src_tb: str) -> None:
+        """ensure_table's engine: also callable from the background prewarm
+        thread, which has a Datastore but no request context."""
+        key3 = (ns, db, src_tb)
+        with self._lock:
+            if key3 in self._built:
+                return
+            bl = self._build_locks.setdefault(key3, _locks.Lock("idx.graph.build"))
+        with bl:
+            with self._lock:
+                if key3 in self._built:
+                    return
+                self._building[key3] = []
+            it = self.interner(ns, db)
+            adjs: Dict[Tuple[bytes, str], Dict[int, List[int]]] = {}
+            pre = keys.graph_prefix(ns, db, src_tb)
+            txn = ds.transaction(False)
+            try:
+                for chunk in txn.batch(pre, prefix_end(pre), 4096):
+                    for k, _ in chunk:
+                        id_, d, ft, fk = keys.decode_graph(k, ns, db, src_tb)
+                        if not isinstance(fk, Thing):
+                            continue
+                        s = it.intern(Thing(src_tb, id_))
+                        t = it.intern(fk)
+                        adjs.setdefault((bytes(d), ft), {}).setdefault(s, []).append(t)
+            finally:
+                txn.cancel()
+            with self._lock:
+                for (d, ft), adj in adjs.items():
+                    self._get_or_create(ns, db, src_tb, d, ft).load(adj)
+                pending = self._building.pop(key3, [])
+                for delta in pending:
+                    self._apply_one(delta)
+                self._built.add(key3)
+
+    # ------------------------------------------------------------ deltas
+    def _apply_one(self, delta: tuple) -> None:
+        ns, db, src_tb, d, ft, src, dst, add = delta
+        it = self.interner(ns, db)
+        m = self._get_or_create(ns, db, src_tb, d, ft)
+        m.apply(it.intern(src), it.intern(dst), add)
+
+    def apply_deltas(self, deltas: Sequence[tuple]) -> None:
+        """Apply committed edge-pointer deltas to built (or mid-build)
+        tables. Each delta: (ns, db, src_tb, dir, ft, src, dst, add).
+        Unbuilt tables ignore deltas — their eventual build scan sees the
+        committed KV state anyway — but each such commit (re-)arms the
+        debounced prewarm so the build + kernel compiles happen in the
+        ingest→first-query gap instead of inside the first query.
+        """
+        unbuilt: Set[Tuple[str, str, str]] = set()
+        for delta in deltas:
+            key3 = tuple(delta[:3])
+            with self._lock:
+                if key3 in self._building:
+                    self._building[key3].append(delta)
+                    continue
+                if key3 not in self._built:
+                    unbuilt.add(key3)
+                    continue
+                self._apply_one(delta)
+        if unbuilt:
+            self._schedule_prewarm(unbuilt)
+
+    # ------------------------------------------------------------ prewarm
+    def _arm_timer(self, key3: Tuple[str, str, str], delay: float) -> None:
+        """Start one self-identifying timer for key3 (caller holds _lock)."""
+        from surrealdb_tpu_torch import bg
+
+        timer = bg.timer(
+            delay, self._prewarm, key3, None,
+            task_id=self._task_ids.get(key3),
+            name=f"bg:graph_prewarm:{key3[2]}", start=False,
+        )
+        timer.args = (key3, timer)  # the callback must recognise itself
+        self._prewarm_timers[key3] = timer
+        timer.start()
+
+    def _schedule_prewarm(self, keys3: Set[Tuple[str, str, str]]) -> None:
+        """Debounce by DEADLINE, not by timer churn: each commit just moves
+        the key's deadline forward; at most ONE live timer exists per key
+        (it re-arms itself if it wakes early), so a million single-edge
+        commits cost a million dict writes, not a million thread spawns."""
+        import time as _time
+
+        from surrealdb_tpu_torch import cnf
+
+        from surrealdb_tpu_torch import bg
+
+        if not cnf.GRAPH_PREWARM or self._ds is None:
+            return
+        delay = cnf.GRAPH_PREWARM_DELAY_SECS
+        now = _time.monotonic()
+        with self._lock:
+            for key3 in keys3:
+                self._prewarm_deadline[key3] = now + delay
+                if key3 not in self._prewarm_timers:
+                    # flight-recorder record: scheduled now, running when
+                    # ingest quiesces and the build + kernel compiles start
+                    self._task_ids[key3] = bg.register(
+                        "graph_prewarm", target=".".join(key3), owner=self._owner
+                    )
+                    self._arm_timer(key3, delay)
+                else:
+                    tid = self._task_ids.get(key3)
+                    if tid is not None:
+                        bg.touch(tid)
+
+    def _prewarm(self, key3: Tuple[str, str, str], timer) -> None:
+        """Timer body (background thread): build the table's mirrors, then
+        compile the batched count kernels its chains will hit. Best-effort —
+        any failure leaves the lazy first-query path fully intact."""
+        import time as _time
+
+        from surrealdb_tpu_torch import telemetry
+
+        ns, db, tb = key3
+        with self._lock:
+            if self._prewarm_timers.get(key3) is not timer:
+                return  # superseded — the newer timer owns this key
+            remaining = self._prewarm_deadline.get(key3, 0.0) - _time.monotonic()
+            if remaining > 0.001:
+                # woke before the (commit-advanced) deadline: re-arm
+                self._arm_timer(key3, remaining)
+                return
+            del self._prewarm_timers[key3]
+            self._prewarm_deadline.pop(key3, None)
+            self._prewarm_running.add(key3)
+            task_id = self._task_ids.pop(key3, None)
+        from surrealdb_tpu_torch import bg
+
+        if task_id is None:
+            task_id = bg.register(
+                "graph_prewarm", target=".".join(key3), owner=self._owner,
+                trace_id=None,
+            )
+        try:
+            with bg.run(task_id):
+                ds = self._ds() if self._ds is not None else None
+                if ds is None:
+                    return
+                telemetry.inc("graph_prewarm", stage="build")
+                self.build_table(ds, ns, db, tb)
+                self.warm_count_kernels(ns, db)
+        except Exception:
+            # the bg task record carries the error detail; the counter makes
+            # a string of failed prewarms visible on /metrics
+            telemetry.inc("prewarm_errors", subsystem="graph")
+        finally:
+            with self._lock:
+                self._prewarm_running.discard(key3)
+
+    def wait_prewarm(self, timeout: float = 30.0) -> bool:
+        """Block until no prewarm timer or build is pending (test/bench
+        determinism helper, never used on the query path)."""
+        import time as _time
+
+        deadline = _time.monotonic() + timeout
+        while _time.monotonic() < deadline:
+            with self._lock:
+                if not self._prewarm_timers and not self._prewarm_running:
+                    return True
+            _time.sleep(0.01)
+        return False
+
+    def shutdown(self, timeout: float = 10.0) -> None:
+        """Teardown on Datastore.close(): cancel armed prewarm timers
+        (resolving their flight-recorder records) and wait out in-flight
+        builds, so no prewarm thread outlives its datastore."""
+        from surrealdb_tpu_torch import bg
+
+        with self._lock:
+            timers = list(self._prewarm_timers.values())
+            self._prewarm_timers.clear()
+            self._prewarm_deadline.clear()
+            task_ids = list(self._task_ids.values())
+            self._task_ids.clear()
+        for t in timers:
+            t.cancel()
+        for tid in task_ids:
+            bg.cancel(tid, "cancelled: datastore closed")
+        self.wait_prewarm(timeout)
+
+    def warm_count_kernels(self, ns: str, db: str) -> None:
+        """Compile the batched count kernels for every composable
+        `->edge->node` OUT-pair over built mirrors, at the lane counts and
+        frontier pad the serving runners use — so a post-ingest burst of
+        count-chain queries starts on pre-compiled shapes (the r6 scale-1.0
+        log showed 84.8s/26.4s first-query stalls that were exactly these
+        compiles). Results are discarded; zero-weight lanes are harmless."""
+        raise NotImplementedError(
+            'graph kernels (K6-K8, idx/graph_csr.py) not ported yet; see ROADMAP queue 2'
+        )
+
+    # ------------------------------------------------------------ traversal
+    def _hop_mirrors(self, ns, db, spec) -> List[PointerCsr]:
+        srcs, dirs, fts = spec
+        out = []
+        for tb in srcs:
+            for d in dirs:
+                for ft in fts:
+                    m = self.get(ns, db, tb, d, ft)
+                    if m is not None and m.adj:
+                        out.append(m)
+        return out
+
+    def _host_hop(self, ns, db, frontier: np.ndarray, counts: np.ndarray, spec):
+        out: Dict[int, int] = {}
+        for m in self._hop_mirrors(ns, db, spec):
+            with m._lock:  # deltas may mutate adj lists concurrently
+                for i, c in zip(frontier.tolist(), counts.tolist()):
+                    for dst in m.adj.get(int(i), ()):
+                        out[dst] = out.get(dst, 0) + c
+        nodes = np.fromiter(sorted(out), dtype=np.int32, count=len(out))
+        return nodes, np.array([out[int(n)] for n in nodes], dtype=np.int32)
+
+    def _chain_work_estimate(self, ns, db, specs, counts) -> float:
+        """Expected edges traversed by a count chain: Σ over hops of the
+        frontier size estimate × that hop's average degree (random-graph
+        expectation from mirror edge counts). Decides device routing — a
+        1-seed chain over a degree-4 graph is ~40 edges of HOST work no
+        matter how many total edges the graph has, while the same seed on
+        a degree-100 social graph explodes past any host budget."""
+        frontier_est = float(counts.sum())
+        work = 0.0
+        for sp in specs:
+            deg = 0.0
+            for m in self._hop_mirrors(ns, db, sp):
+                deg += m.edge_count / max(len(m.adj), 1)
+            frontier_est *= deg
+            work += frontier_est
+            if work >= 1e12:
+                break
+        return work
+
+    # ------------------------------------------------ dense composed counts
+    def table_space(self, ns: str, db: str, tb: str) -> dict:
+        """Compact per-table id space over the shared interner: sorted
+        global ids of `tb`'s nodes + a global->local inverse array.
+        Incrementally extended as the interner grows (append-only)."""
+        it = self.interner(ns, db)
+        with self._lock:
+            sp = self._spaces.get((ns, db, tb))
+            if sp is None:
+                sp = self._spaces[(ns, db, tb)] = {
+                    "globals": [], "inv": {}, "scanned": 0,
+                }
+            n = len(it.node_of)
+            if sp["scanned"] < n:
+                g, inv = sp["globals"], sp["inv"]
+                for i in range(sp["scanned"], n):
+                    if it.node_of[i].tb == tb:
+                        inv[i] = len(g)
+                        g.append(i)
+                sp["scanned"] = n
+            return sp
+
+    @staticmethod
+    def _pad128(n: int) -> int:
+        return max(((n + 127) // 128) * 128, 128)
+
+    def _dense_pair(self, ns, db, spec1, spec2):
+        """Composed dense operator for one `->edge->node` spec pair:
+        A[local_src, local_dst] = number of 2-hop paths through the edge
+        table (bf16 on device — exact for multiplicities < 256; falls back
+        to None if anything about the pair doesn't fit the dense form)."""
+        raise NotImplementedError(
+            'graph kernels (K6-K8, idx/graph_csr.py) not ported yet; see ROADMAP queue 2'
+        )
+
+    def _dense_chain_count(self, ns, db, frontier, counts, specs, dispatch):
+        """Count chain as composed dense matmuls (see dense_count_batch).
+        Returns None when the chain doesn't fit the dense form (odd spec
+        count, multi-table hops, oversized tables, fat multiplicities) —
+        the caller then uses the CSC path."""
+        raise NotImplementedError(
+            'graph kernels (K6-K8, idx/graph_csr.py) not ported yet; see ROADMAP queue 2'
+        )
+
+    def _device_chain(
+        self, ns, db, frontier: np.ndarray, counts: np.ndarray, specs,
+        count_only: bool = False, dispatch=None,
+    ):
+        """Run the remaining hops entirely on device in ONE fused dispatch:
+        one upload, H weighted gathers with on-device scatter-add dedup
+        between hops, one download at the end (a scalar when count_only).
+        Every static dimension (frontier size, max degree, node capacity,
+        dedup output) is pow2-rounded so steady writes don't recompile."""
+        raise NotImplementedError(
+            'graph kernels (K6-K8, idx/graph_csr.py) not ported yet; see ROADMAP queue 2'
+        )
+
+    def _chain_frontier(self, ctx, start: List[Thing], parts: List, count_only: bool = False):
+        """Shared frontier machinery for chain()/chain_count(): returns
+        (frontier int32[], counts int32[], interner) — or the scalar path
+        count when count_only (the device chain then downloads one int)."""
+        from surrealdb_tpu_torch import cnf
+
+        ns, db = ctx.ns_db()
+        it = self.interner(ns, db)
+        dir_map = {"out": [keys.DIR_OUT], "in": [keys.DIR_IN], "both": [keys.DIR_IN, keys.DIR_OUT]}
+        # pre-resolve hop specs; a hop filtered on foreign-table ft lands
+        # entirely in table ft, so the next hop's sources are exactly p.what
+        tables = {t.tb for t in start}
+        specs = []
+        for p in parts:
+            for tb in tables:
+                self.ensure_table(ctx, tb)
+            specs.append((sorted(tables), dir_map[p.dir], p.what))
+            tables = set(p.what)
+        cmap: Dict[int, int] = {}
+        for t in start:
+            i = it.lookup(t)
+            if i is not None:
+                cmap[i] = cmap.get(i, 0) + 1
+        frontier = np.fromiter(sorted(cmap), dtype=np.int32, count=len(cmap))
+        counts = np.array([cmap[int(i)] for i in frontier], dtype=np.int32)
+        dispatch = getattr(ctx.ds(), "dispatch", None)
+        if (
+            count_only
+            and not cnf.TPU_DISABLE
+            and dispatch is not None
+            and frontier.size
+            and self._chain_work_estimate(ns, db, specs, counts)
+            >= cnf.TPU_GRAPH_COUNT_EDGES
+        ):
+            # big count chain: straight to device from the seed — the whole
+            # chain is one tiny-upload batched dispatch (no host hops means
+            # no GIL serialization across concurrent clients, and every
+            # query shares one compiled shape so they coalesce). Preferred
+            # form: composed dense matmuls on the MXU; CSC cumsum otherwise.
+            res = self._dense_chain_count(ns, db, frontier, counts, specs, dispatch)
+            if res is not None:
+                return res
+            return self._device_chain(
+                ns, db, frontier, counts, specs,
+                count_only=True, dispatch=dispatch,
+            )
+        i = 0
+        while i < len(specs):
+            # a hop goes on device once the CURRENT frontier is device-sized,
+            # or — for count-only chains — as soon as the NEXT frontier would
+            # be: the whole remaining chain fuses into one dispatch either
+            # way, and skipping the host hops keeps every concurrent query's
+            # shapes identical so they coalesce into one vmapped launch
+            md = max(
+                (m.max_degree for m in self._hop_mirrors(ns, db, specs[i])),
+                default=0,
+            )
+            device_now = frontier.size >= cnf.TPU_GRAPH_ONDEVICE_THRESHOLD or (
+                count_only
+                and frontier.size * md >= cnf.TPU_GRAPH_ONDEVICE_THRESHOLD
+            )
+            if not cnf.TPU_DISABLE and device_now:
+                res = self._device_chain(
+                    ns, db, frontier, counts, specs[i:],
+                    count_only=count_only, dispatch=dispatch,
+                )
+                if count_only:
+                    return res
+                frontier, counts = res
+                break
+            frontier, counts = self._host_hop(ns, db, frontier, counts, specs[i])
+            i += 1
+        if count_only:
+            return int(counts.sum())
+        return frontier, counts, it
+
+    def chain(
+        self,
+        ctx,
+        start: List[Thing],
+        parts: List,  # List[PGraph]
+    ) -> List[Thing]:
+        """Run a maximal chain of cond-free graph parts `->a->b->c` as
+        batched frontier hops: host adjacency while the frontier is small,
+        then the rest of the chain on device once it crosses
+        TPU_GRAPH_ONDEVICE_THRESHOLD.
+
+        Multiplicity matches the reference's flatten-without-dedup semantics
+        (sql/value/get.rs:404-446): the frontier is deduplicated between hops
+        but each node carries its path count, and the final result expands
+        each node count times. Result order is deterministic (ascending
+        intern order ≈ build-scan key order, with delta-added nodes after)
+        but not identical to the KV walk's key order; graph hop ordering is
+        unspecified upstream.
+        """
+        frontier, counts, it = self._chain_frontier(ctx, start, parts)
+        out: List[Thing] = []
+        for j, c in zip(frontier, counts):
+            out.extend([it.node_of[int(j)]] * int(c))
+        return out
+
+    def chain_count(self, ctx, start: List[Thing], parts: List) -> int:
+        """Path count of a chain WITHOUT materializing the expanded result —
+        `count(->a->b->c)` sums the frontier's path counts directly (on a
+        3-hop over 1M edges the Python expansion would dominate the whole
+        query; the device already holds the counts, and the fused chain
+        kernel downloads a single scalar)."""
+        return self._chain_frontier(ctx, start, parts, count_only=True)
+

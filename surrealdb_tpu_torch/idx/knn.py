@@ -1,0 +1,866 @@
+"""kNN query plans: device-batched exact and index-backed search.
+
+Mirrors surrealdb_tpu/idx/knn.py. The mirror uploads to a torch tensor on
+the datastore's device (`ds.device`), and the exact strategies launch the
+CUDA kernels of ops/distances.py (K1 `knn_pairwise` + K2 `knn_select`).
+The IVF and mesh strategies are not ported yet and raise
+NotImplementedError (ROADMAP, queue 1: IVF; last queue: mesh).
+
+Role of the reference's kNN plumbing (reference: core/src/idx/planner/knn.rs,
+checker.rs, trees/knn.rs, and the brute-force CollectKnn→BuildKnn workflow
+planner/mod.rs:208-232) re-designed TPU-first: instead of a priority queue
+fed one distance at a time, the candidate vectors live in a device-resident
+padded matrix (generation-swapped mirror of the KV state, like the
+reference's TreeCache) and one fused kernel computes all distances + top-k.
+
+The plan object doubles as the per-statement QueryExecutor for the
+`<|k|>` operator (reference planner/executor.rs knn :282): records admitted
+by the plan evaluate the operator to true and expose their distance to
+vector::distance::knn().
+"""
+
+from __future__ import annotations
+
+import threading
+from surrealdb_tpu_torch.utils import locks as _locks
+import time as _time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from surrealdb_tpu_torch import cnf
+from surrealdb_tpu_torch.err import TypeError_
+from surrealdb_tpu_torch.sql.path import get_path
+from surrealdb_tpu_torch.sql.value import Thing, is_nullish
+
+from surrealdb_tpu_torch.ops import distances as D
+from surrealdb_tpu_torch.utils.num import next_pow2 as _pow2
+
+
+def _target_vector(target) -> List[float]:
+    if not isinstance(target, (list, tuple)):
+        raise TypeError_("kNN operator expects a vector on the right-hand side")
+    return [float(x) for x in target]
+
+
+def _rid_key(rid) -> Any:
+    return (rid.tb, repr(rid.id)) if isinstance(rid, Thing) else rid
+
+
+class VectorMirror:
+    """Device-resident [N, D] matrix mirroring a vector index's KV rows.
+
+    Built ONCE with a single scan, then maintained incrementally: committed
+    writes apply per-row deltas (append / overwrite / tombstone a slot) via
+    the transaction's vector-delta buffer — no corpus rescans (VERDICT r1
+    item 4; improves on the reference's generation-swap full reload,
+    trees/store/cache.rs:28-60). Device arrays recompact lazily with pow2
+    row padding so steady writes don't change kernel shapes. Dead slots are
+    compacted away once they exceed a quarter of capacity.
+
+    An optional IVF state (idx/ivf.py) rides on the same slot space and is
+    kept in sync by the same deltas.
+    """
+
+    def __init__(self):
+        self.built = False
+        self.rids: List[Any] = []  # slot -> rid
+        self.slot_of: Dict[Any, int] = {}
+        self.data: Optional[np.ndarray] = None  # [cap, D] float32
+        self.alive: Optional[np.ndarray] = None  # [cap] bool
+        self.n_slots = 0
+        self.dirty = True
+        self.gen = 0  # bumped on every mutation; caches key off it
+        self.mask: Optional[np.ndarray] = None
+        self._dev_matrix = None  # torch tensor [cap, D] on self._device
+        self._device = None
+        self.ivf = None  # IvfState, built on demand
+        self._ivf_building = False
+        self._ivf_done = threading.Event()  # signals a finished train round
+        self._train_touched: Optional[set] = None  # slots mutated mid-train
+        self._renumber = 0  # bumped when compaction renumbers slots
+        self._pending: Optional[List[tuple]] = None  # deltas during build
+        self._host_cache = None  # (contig data, sq-norms, rids) for host search
+        self._lock = _locks.RLock("idx.knn.state")
+        self._build_lock = _locks.Lock("idx.knn.build")
+        self.label = ""  # "<table>.<index>", set on build (task attribution)
+        self._owner = None  # id(ds), for bg teardown scoping
+
+    # ------------------------------------------------------------ build
+    def ensure_built(self, ctx, ix: dict) -> None:
+        """One scan builds the mirror. The scan runs on a FRESH snapshot
+        opened after delta-buffering starts, so (a) no committed write can
+        fall between the scan and the built flag, and (b) the querying
+        transaction's own uncommitted writes never leak into the shared
+        mirror (they are served by the exact overlay path instead)."""
+        from surrealdb_tpu_torch.idx.vector_index import scan_vectors
+
+        if self.built:
+            return
+        with self._build_lock:
+            if self.built:
+                return
+            with self._lock:
+                self._pending = []
+            ns, db = ctx.ns_db()
+            tb, name = ix["table"], ix["name"]
+            self.label = f"{tb}.{name}"
+            self._owner = id(ctx.ds())
+            txn = ctx.ds().transaction(False)
+            try:
+                rids, rows = [], []
+                for rid, vec in scan_vectors(txn, ns, db, tb, name):
+                    rids.append(rid)
+                    rows.append(vec)
+            finally:
+                txn.cancel()
+            with self._lock:
+                dim = len(rows[0]) if rows else int(ix["index"].get("dimension") or 0)
+                cap = max(_pow2(len(rows)), cnf.TPU_BATCH_MIN_TILE)
+                self.data = np.zeros((cap, max(dim, 1)), dtype=np.float32)
+                self.alive = np.zeros(cap, dtype=bool)
+                if rows:
+                    self.data[: len(rows)] = np.asarray(rows, dtype=np.float32)
+                    self.alive[: len(rows)] = True
+                self.rids = rids
+                self.slot_of = {_rid_key(r): i for i, r in enumerate(rids)}
+                self.n_slots = len(rids)
+                self.dirty = True
+                self.gen += 1
+                self.built = True
+                pending, self._pending = self._pending, None
+                # replay INSIDE the lock (RLock): a delta committed after
+                # built flips must order after the buffered ones, never
+                # be overwritten by a stale replay
+                for rid, vec in pending:
+                    self.apply(rid, vec)
+
+    # ------------------------------------------------------------ deltas
+    def apply(self, rid, vec) -> None:
+        """One committed row change; vec=None tombstones the record.
+        Idempotent, so a build-window delta replayed over a scan that
+        already saw the row is harmless."""
+        with self._lock:
+            if self._pending is not None:
+                self._pending.append((rid, vec))
+                return
+            if not self.built:
+                return
+            k = _rid_key(rid)
+            slot = self.slot_of.get(k)
+            if vec is None:
+                if slot is not None:
+                    self.alive[slot] = False
+                    if self.ivf is not None:
+                        self.ivf.remove(slot, self.data[slot])
+                    del self.slot_of[k]
+                self.dirty = True
+                self.gen += 1
+                return
+            v = np.asarray(vec, dtype=np.float32)
+            if slot is not None:  # overwrite in place
+                if self.ivf is not None:
+                    self.ivf.remove(slot, self.data[slot])
+                self.data[slot] = v
+                if self.ivf is not None:
+                    self.ivf.add(slot, v)
+                if self._train_touched is not None:
+                    self._train_touched.add(slot)
+                self.dirty = True
+                self.gen += 1
+                return
+            if self.n_slots >= self.data.shape[0] or v.shape[0] != self.data.shape[1]:
+                self._grow(v.shape[0])
+            slot = self.n_slots
+            self.n_slots += 1
+            self.data[slot] = v
+            self.alive[slot] = True
+            if slot < len(self.rids):
+                self.rids[slot] = rid
+            else:
+                self.rids.append(rid)
+            self.slot_of[k] = slot
+            if self.ivf is not None:
+                self.ivf.add(slot, v)
+            self.dirty = True
+            self.gen += 1
+
+    def apply_many(self, rids, vecs) -> None:
+        """One committed bulk block ([B, D] float32): the all-new-rows fast
+        path appends the whole block under ONE lock hold with one array
+        copy — the per-row path cost B lock round-trips and B numpy row
+        writes per bulk statement. Rows that already have a slot (or a
+        building mirror) fall back to the per-row apply, which is always
+        correct."""
+        with self._lock:
+            if self._pending is not None:
+                self._pending.extend(zip(rids, vecs))
+                return
+            if not self.built:
+                return
+            vecs = np.asarray(vecs, dtype=np.float32)
+            if (
+                vecs.ndim != 2
+                or len(rids) != vecs.shape[0]
+                or self.data is None
+                or (self.data.shape[1] not in (vecs.shape[1], 1) and self.n_slots)
+            ):
+                for rid, vec in zip(rids, vecs):
+                    self.apply(rid, vec)
+                return
+            n0, B = self.n_slots, len(rids)
+            if len(self.rids) != n0 or any(
+                _rid_key(r) in self.slot_of for r in rids
+            ):
+                for rid, vec in zip(rids, vecs):
+                    self.apply(rid, vec)
+                return
+            if n0 + B > self.data.shape[0] or vecs.shape[1] != self.data.shape[1]:
+                self._grow(vecs.shape[1], need=n0 + B)
+            self.data[n0 : n0 + B] = vecs
+            self.alive[n0 : n0 + B] = True
+            self.rids.extend(rids)
+            for i, r in enumerate(rids):
+                self.slot_of[_rid_key(r)] = n0 + i
+            if self.ivf is not None:
+                for i in range(B):
+                    self.ivf.add(n0 + i, vecs[i])
+            self.n_slots = n0 + B
+            self.dirty = True
+            self.gen += 1
+
+    def _grow(self, dim: int, need: Optional[int] = None) -> None:
+        cap = max(_pow2(max(self.n_slots + 1, need or 0)), cnf.TPU_BATCH_MIN_TILE)
+        d = max(dim, self.data.shape[1])
+        data = np.zeros((cap, d), dtype=np.float32)
+        data[: self.data.shape[0], : self.data.shape[1]] = self.data
+        alive = np.zeros(cap, dtype=bool)
+        alive[: self.alive.shape[0]] = self.alive
+        self.data, self.alive = data, alive
+
+    def _maybe_compact(self) -> None:
+        """Drop dead slots once they dominate; pure numpy, no KV."""
+        dead = self.n_slots - int(self.alive[: self.n_slots].sum())
+        if dead <= self.n_slots // 4 or dead < 256:
+            return
+        live = np.nonzero(self.alive[: self.n_slots])[0]
+        cap = max(_pow2(live.size), cnf.TPU_BATCH_MIN_TILE)
+        data = np.zeros((cap, self.data.shape[1]), dtype=np.float32)
+        data[: live.size] = self.data[live]
+        alive = np.zeros(cap, dtype=bool)
+        alive[: live.size] = True
+        self.rids = [self.rids[i] for i in live.tolist()]
+        self.slot_of = {_rid_key(r): i for i, r in enumerate(self.rids)}
+        self.data, self.alive, self.n_slots = data, alive, live.size
+        self.gen += 1  # slot space renumbered
+        self._renumber += 1
+        self.ivf = None  # slot space changed; retrain on next ANN query
+
+    # ------------------------------------------------------------ views
+    def count(self) -> int:
+        with self._lock:
+            return int(self.alive[: self.n_slots].sum()) if self.built and self.alive is not None else 0
+
+    def device_view(self, device):
+        """(matrix tensor [cap, D] on `device`, host mask [cap]) for the
+        exact kernels.
+
+        On CUDA the matrix uploads as cnf.TPU_VECTOR_DTYPE (bf16 by default:
+        half the bytes the distance kernel streams; the kernel accumulates
+        in f32). The CPU keeps f32 exactness, as the reference keeps f32 on
+        its CPU backend. The upload copies, so later host-side deltas never
+        alias a matrix a launched batch is still reading."""
+        import torch
+
+        with self._lock:
+            self._maybe_compact()
+            if self.dirty or self._dev_matrix is None or self._device != device:
+                data = torch.from_numpy(self.data)
+                if device.type == "cuda":
+                    dtype = (
+                        torch.bfloat16
+                        if cnf.TPU_VECTOR_DTYPE == "bfloat16"
+                        else torch.float32
+                    )
+                    self._dev_matrix = None  # free the old generation first
+                    self._dev_matrix = data.to(device).to(dtype)
+                else:
+                    self._dev_matrix = data.clone()
+                self._device = device
+                self.mask = self.alive.copy()
+                self.dirty = False
+            return self._dev_matrix, self.mask
+
+    def device_snapshot(self, device):
+        """(matrix, mask, rids) captured atomically: `rids` is the list
+        OBJECT tied to this matrix's slot numbering. A later compaction
+        installs a NEW list (never renumbering this one in place — appends
+        only), so resolving kernel slots through this snapshot stays correct
+        even if the mirror compacts while the batch is on device."""
+        with self._lock:
+            m, mask = self.device_view(device)
+            return m, mask, self.rids
+
+    def host_view(self):
+        """(data [n, D], alive [n], rids) — numpy views for small corpora."""
+        with self._lock:
+            return self.data[: self.n_slots], self.alive[: self.n_slots], self.rids
+
+    def host_search_view(self):
+        """(contiguous live rows [m, D] f32, their squared norms [m], live
+        rids) cached across queries, keyed off the mutation generation —
+        the CPU search path must not re-copy the corpus or recompute norms
+        per query (it IS the baseline the device path is judged against,
+        so it gets the same care)."""
+        with self._lock:
+            if self._host_cache is None or self._host_cache[0] != self.gen:
+                n = self.n_slots
+                live = np.nonzero(self.alive[:n])[0]
+                if live.size == n:
+                    # fully-live slot space (the common bulk-ingest case):
+                    # serve the mirror array itself — a fancy-index here
+                    # would copy the whole corpus (GBs) for nothing
+                    data = np.ascontiguousarray(self.data[:n], dtype=np.float32)
+                    rids = list(self.rids[:n])
+                else:
+                    data = np.ascontiguousarray(self.data[live], dtype=np.float32)
+                    rids = [self.rids[i] for i in live.tolist()]
+                # f64 accumulation without materializing an f64 corpus copy
+                norms = np.einsum(
+                    "ij,ij->i", data, data, dtype=np.float64
+                ).astype(np.float32)
+                self._host_cache = (self.gen, data, norms, rids)
+            return self._host_cache[1:]
+
+    def wait_ivf(self, timeout: float = 60.0) -> bool:
+        """Block until the in-flight training round (if any) finishes —
+        test/bench determinism helper, never used on the query path."""
+        deadline = _time.monotonic() + timeout
+        while _time.monotonic() < deadline:
+            with self._lock:
+                if self.ivf is not None and not self._ivf_building:
+                    return True
+                building = self._ivf_building
+            if not building:
+                return False  # nothing training and no ivf (e.g. never kicked)
+            self._ivf_done.wait(min(1.0, timeout))
+        return False
+
+    def ivf_status(self) -> dict:
+        """INFO FOR INDEX 'ann' section."""
+        with self._lock:
+            if self._ivf_building:
+                state = "training"
+            elif self.ivf is None:
+                state = "none"
+            elif self.ivf.needs_retrain():
+                state = "stale"
+            else:
+                state = "ready"
+            out = {"state": state}
+            if self.ivf is not None:
+                out["nlists"] = self.ivf.nlists
+                out["trained_n"] = self.ivf.trained_n
+            return out
+
+
+
+
+
+def _start_host_copy(d, r):
+    """Start the device->host copy of one tile's results without blocking:
+    a non_blocking copy into pinned host memory plus an event that collect()
+    waits on (the reference's _start_host_copy, idx/ivf.py:35). On the CPU
+    the results already are host tensors."""
+    import torch
+
+    if d.device.type != "cuda":
+        return d, r, None
+    hd = torch.empty(d.shape, dtype=d.dtype, pin_memory=True)
+    hr = torch.empty(r.shape, dtype=r.dtype, pin_memory=True)
+    hd.copy_(d, non_blocking=True)
+    hr.copy_(r, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    return hd, hr, ev
+
+
+def _exact_device_launch(qs: np.ndarray, matrix, mask, metric: str, k: int, owner=None):
+    """Async exact distance+top-k over a [Q, D] query batch, Q padded to a
+    dispatch tile (1, 8 or the width cap) so coalesced batches of any size
+    reuse a small set of launch shapes. Launches go on the current stream;
+    returns a collect() closure (two-phase dispatch) that waits for the
+    host copies."""
+    import torch
+
+    from surrealdb_tpu_torch.utils.num import dispatch_tile, pad_tail, tile_slices
+
+    from surrealdb_tpu_torch import compile_log
+
+    nq = qs.shape[0]
+    tile = dispatch_tile(nq)
+    device = matrix.device
+    mj = torch.from_numpy(np.ascontiguousarray(mask)).to(device, non_blocking=True)
+    pending = []
+    # every distinct (tile, dim, cap, k, metric) is one launch shape: the
+    # first call through a new shape carries the kernel build and load
+    shape_key = _exact_shape_key(tile, matrix, metric, k)
+    with compile_log.tracked("knn_exact", shape_key):
+        for lo, hi in tile_slices(nq, tile):
+            qt = torch.from_numpy(np.ascontiguousarray(pad_tail(qs[lo:hi], tile), dtype=np.float32))
+            d, r = D.knn_search(qt.to(device, non_blocking=True), matrix, mj, metric, k)
+            pending.append((lo, hi) + _start_host_copy(d, r))
+
+    def collect():
+        dd = np.empty((nq, k), dtype=np.float32)
+        rr = np.empty((nq, k), dtype=np.int64)
+        for lo, hi, d, r, ev in pending:
+            if ev is not None:
+                ev.synchronize()
+            dd[lo:hi] = d.numpy()[: hi - lo]
+            rr[lo:hi] = r.numpy()[: hi - lo]
+        return dd, rr
+
+    _warm_exact_tiles(qs.shape[1], matrix, mj, metric, k, tile, owner)
+    return collect
+
+
+_EXACT_WARMED: set = set()
+
+
+def _exact_shape_key(tile: int, matrix, metric: str, k: int):
+    """Launch-shape key of the exact kernels: the static dims of one
+    launch (the reference keyed XLA's executable cache on the same)."""
+    return (tile, int(matrix.shape[1]), int(matrix.shape[0]), str(matrix.dtype), metric, k)
+
+
+def _warm_exact_tiles(dim, matrix, mask_j, metric, k, served_tile, owner=None) -> None:
+    """Warm the other dispatch tile shapes of the exact kernels in the
+    background: one launch per tile shape, which builds and loads the
+    kernel library on first use and touches each launch configuration. The
+    warm set tracks the dispatcher's width cap, so every width the
+    coalescer can hand a runner has been launched once."""
+    from surrealdb_tpu_torch.utils.num import warm_tile_sizes
+
+    todo = []
+    for t in warm_tile_sizes():
+        key = (t, id(matrix), metric, k)
+        if t != served_tile and key not in _EXACT_WARMED:
+            _EXACT_WARMED.add(key)
+            todo.append(t)
+    _EXACT_WARMED.add((served_tile, id(matrix), metric, k))
+    if not todo:
+        return
+
+    def warm():
+        import torch
+
+        from surrealdb_tpu_torch import compile_log
+
+        for t in todo:
+            try:
+                with compile_log.tracked(
+                    "knn_exact", _exact_shape_key(t, matrix, metric, k),
+                    prewarmed=True,
+                ):
+                    D.knn_search(
+                        torch.zeros((t, dim), dtype=torch.float32, device=matrix.device),
+                        matrix, mask_j, metric, k,
+                    )
+            except Exception:
+                from surrealdb_tpu_torch import telemetry
+
+                # a failed tile warm means the first real query at this
+                # width pays the first launch — count it so a cold p99 is
+                # attributable from metrics alone
+                telemetry.inc("prewarm_errors", subsystem="knn_exact")
+
+    from surrealdb_tpu_torch import bg
+
+    bg.spawn("shape_warm", f"knn_exact:k{k}", warm, owner=owner)
+
+
+def _exact_device_batch(qs: np.ndarray, matrix, mask, metric: str, k: int):
+    return _exact_device_launch(qs, matrix, mask, metric, k)()
+
+
+def mirror_from_reference(data, alive, rids, device) -> VectorMirror:
+    """A built VectorMirror holding the reference mirror's host_view()
+    state: `data` [n, D] f32, `alive` [n] bool and `rids` (any object with
+    `.tb` and `.id`, converted to this package's Thing). The tests use it to
+    run both packages' launch functions on identical mirror state."""
+    data = np.asarray(data, dtype=np.float32)
+    alive = np.asarray(alive, dtype=bool)
+    n = data.shape[0]
+    cap = max(_pow2(n), cnf.TPU_BATCH_MIN_TILE)
+    m = VectorMirror()
+    m.data = np.zeros((cap, max(data.shape[1], 1)), dtype=np.float32)
+    m.data[:n] = data
+    m.alive = np.zeros(cap, dtype=bool)
+    m.alive[:n] = alive
+    m.rids = [r if isinstance(r, Thing) else Thing(r.tb, r.id) for r in rids]
+    m.slot_of = {_rid_key(r): i for i, r in enumerate(m.rids) if alive[i]}
+    m.n_slots = n
+    m.built = True
+    m.dirty = True
+    m.gen += 1
+    return m
+
+
+class _KnnResult:
+    """Admitted record set for the operator check (reference KnnPriorityList)."""
+
+    def __init__(self):
+        self.dists: Dict[Any, float] = {}
+
+    def key(self, rid) -> Any:
+        return (rid.tb, repr(rid.id)) if isinstance(rid, Thing) else rid
+
+    def add(self, rid, dist: float) -> None:
+        self.dists[self.key(rid)] = dist
+
+    def contains(self, rid) -> bool:
+        return self.key(rid) in self.dists
+
+    def dist(self, rid) -> Optional[float]:
+        return self.dists.get(self.key(rid))
+
+
+class _KnnExecutorMixin:
+    """QueryExecutor protocol for the `<|k|>` operator and distance fn."""
+
+    result: _KnnResult
+
+    def knn(self, ctx, doc, op) -> bool:
+        rid = doc.rid
+        return rid is not None and self.result.contains(rid)
+
+    def matches(self, ctx, doc, op) -> bool:
+        return False
+
+    def knn_distance(self, rid) -> Optional[float]:
+        return self.result.dist(rid)
+
+    def score(self, ctx, doc, ref=None):
+        return None
+
+
+class KnnPlan(_KnnExecutorMixin):
+    """`<|k[,ef]|>` against a DEFINEd HNSW/MTREE index.
+
+    Above TPU_ANN_MIN_ROWS an HNSW index takes the reference's approximate
+    IVF strategy, which is not ported yet and raises NotImplementedError.
+    MTREE, and HNSW below it, take exact distance+top-k (recall 1.0) on the
+    datastore's device. A transaction with uncommitted writes to this index
+    searches an exact overlay merge instead.
+    """
+
+    def __init__(self, tb: str, ix: dict, op, target):
+        self.tb = tb
+        self.ix = ix
+        self.op = op
+        self.k = op.k
+        self.ef = getattr(op, "ef", None)
+        self.target = _target_vector(target)
+        self.result = _KnnResult()
+        self.strategy = "?"
+        # residual-WHERE mask lowered onto the table's column mirror
+        # (set by the planner): exact strategies prefilter with it
+        self.prefilter = None
+
+    def _prefilter_slot_mask(self, ctx, rids, cap):
+        """(mask over vector-mirror slots, coalescing key tag) — or None
+        when the column mirror can't serve this reader exactly. The mask
+        marks slots whose record satisfies the residual WHERE, so the
+        kernel's top-k is computed among matching rows only."""
+        from surrealdb_tpu_torch import telemetry
+        from surrealdb_tpu_torch.idx.column_mirror import columnar_mask
+
+        res = columnar_mask(ctx, self.tb, self.prefilter)
+        if res is None:
+            telemetry.inc("knn_prefilter", outcome="unavailable")
+            return None
+        mask, needs_row, col = res
+        if needs_row.any():
+            # the mask abstained on mixed-type rows: post-filter semantics
+            # stay (dropping those rows from the search would be wrong)
+            telemetry.inc("knn_prefilter", outcome="mixed_rows")
+            return None
+        perm = col.slot_permutation(rids, cap)
+        ok = perm >= 0
+        out = np.zeros(cap, dtype=bool)
+        out[ok] = mask[perm[ok]]
+        telemetry.inc("knn_prefilter", outcome="applied")
+        # key the dispatch batch by MASK CONTENT, not predicate text: the
+        # same SQL with different $param bindings lowers to different masks,
+        # and a rider must never be served through a leader's tighter mask.
+        # Identical masks (same predicate+constants, same column build)
+        # still coalesce into one launch.
+        return out, (hash(out.tobytes()), id(col))
+
+    def explain(self) -> dict:
+        idx = self.ix["index"]
+        return {
+            "index": self.ix["name"],
+            "operator": f"<|{self.k}|>",
+            "ann": {"type": idx["type"], "dist": idx.get("dist", "euclidean")},
+        }
+
+    def _pending_overlay(self, ctx, ns, db) -> Optional[Dict[Any, Any]]:
+        """Uncommitted vector writes of this txn against this index."""
+        deltas = getattr(ctx.txn(), "vector_deltas", None)
+        if not deltas:
+            return None
+        want = (ns, db, self.tb, self.ix["name"])
+        overlay = {}
+        for ns_, db_, tb_, name_, rid, vec in deltas:
+            if (ns_, db_, tb_, name_) != want:
+                continue
+            if isinstance(rid, list):
+                # bulk block (vector_bulk_delta): rid is the rid LIST and
+                # vec the [B, D] matrix — expand to per-row entries
+                for r, v in zip(rid, vec):
+                    overlay[_rid_key(r)] = (r, v)
+            else:
+                overlay[(_rid_key(rid))] = (rid, vec)
+        return overlay or None
+
+    def iterate(self, ctx):
+        ctx.qe = self
+        ds = ctx.ds()
+        ns, db = ctx.ns_db()
+        mirror = ds.index_stores.get_or_create(
+            ns, db, self.tb, self.ix["name"], VectorMirror
+        )
+        mirror.ensure_built(ctx, self.ix)
+        metric = self.ix["index"].get("dist", "euclidean")
+        overlay = self._pending_overlay(ctx, ns, db)
+        if overlay is not None:
+            yield from self._exact_overlay(mirror, overlay, metric)
+            return
+        n = mirror.count()
+        if n == 0:
+            return
+        k = min(self.k, n)
+        import time as _time
+
+        from surrealdb_tpu_torch import telemetry, tracing
+
+        # kernel-level node in the request's span tree: opened BEFORE the
+        # serving-path chain so the dispatch spans it triggers nest under it
+        t_search = _time.perf_counter()
+        _trace_tok = tracing.push()
+        _search_err: Optional[BaseException] = None
+        q = np.asarray(self.target, dtype=np.float32)
+        try:
+            # MTREE preserves the reference's exactness contract
+            # (core/src/idx/trees/mtree.rs:135 — an exact metric tree): it
+            # always takes the exact fused distance+top-k paths; only HNSW
+            # indexes may serve approximate IVF results
+            approx_ok = self.ix["index"]["type"] != "mtree"
+            # ANN pays off only when k is a small fraction of the corpus; a big-k
+            # query gets the exact fused kernel (IVF would cap results at the
+            # probed-candidate count)
+            mesh = None if cnf.TPU_DISABLE else ds.mesh()
+            if mesh is not None and n >= cnf.TPU_KNN_ONDEVICE_THRESHOLD:
+                # the reference's multi-chip strategies (exact-sharded,
+                # ivf-sharded over parallel/mesh.py) — never an exact
+                # single-device serve in their place
+                raise NotImplementedError(
+                    "multi-GPU kNN (K11-K13, parallel/mesh.py) not ported yet; "
+                    "see ROADMAP, last queue"
+                )
+            elif (
+                not cnf.TPU_DISABLE
+                and approx_ok
+                and n >= cnf.TPU_ANN_MIN_ROWS
+                and self.k * 4 <= n
+            ):
+                # the reference's approximate IVF strategy (and its
+                # exact-device(ivf-training) stand-in while it trains)
+                raise NotImplementedError(
+                    "IVF kNN (K3-K5, idx/ivf.py) not ported yet; see ROADMAP queue 1"
+                )
+            elif not cnf.TPU_DISABLE and n >= cnf.TPU_KNN_ONDEVICE_THRESHOLD:
+                self.strategy = "exact-device"
+                matrix, mask, rids = mirror.device_snapshot(ds.device)
+                key = ("knn-exact", id(matrix), metric, k)
+                if self.prefilter is not None:
+                    pre = self._prefilter_slot_mask(ctx, rids, len(mask))
+                    if pre is not None:
+                        mask = mask & pre[0]
+                        key = key + pre[1]
+
+                def runner(qs):
+                    collect = _exact_device_launch(
+                        np.stack(qs), matrix, mask, metric, k,
+                        owner=mirror._owner,
+                    )
+
+                    def finish():
+                        dd, rr = collect()
+                        return list(zip(dd, rr))
+
+                    return finish
+
+                dists, slots = ds.dispatch.submit(key, q, runner)
+            else:
+                # CPU serving path. The reference serves an already-trained
+                # quantizer here (ivf-host); none is ever trained in this
+                # package (IVF is not ported), which is the reference's own
+                # state before training, so the exact scan serves.
+                self.strategy = "exact-host"
+                data, norms, rids = mirror.host_search_view()
+                if self.prefilter is not None:
+                    pre = self._prefilter_slot_mask(ctx, rids, len(rids))
+                    if pre is not None:
+                        sel = np.nonzero(pre[0])[0]
+                        if sel.size == 0:
+                            return
+                        data, norms = data[sel], norms[sel]
+                        rids = [rids[int(i)] for i in sel]
+                        k = min(k, sel.size)
+                dists, li = D.knn_search_host(
+                    q[None, :], data, metric, k, x_sq_norms=norms
+                )
+                dists, slots = dists[0], np.asarray(li)[0]
+        except BaseException as e:
+            _search_err = e
+            raise
+        finally:
+            dur = _time.perf_counter() - t_search
+            telemetry.observe("knn_search", dur, strategy=self.strategy)
+            if _trace_tok is not None:
+                tracing.pop(
+                    _trace_tok, "knn_search",
+                    {"strategy": self.strategy, "n": n, "k": k},
+                    t_search, dur, _search_err,
+                )
+        self._count_strategy(n)
+        for d, s in zip(np.asarray(dists), np.asarray(slots)):
+            if not np.isfinite(d) or s < 0 or s >= len(rids):
+                continue
+            rid = rids[int(s)]
+            if not isinstance(rid, Thing):
+                rid = Thing(self.tb, rid)
+            self.result.add(rid, float(d))
+            yield rid, None, {"dist": float(d)}
+
+    def _count_strategy(self, n: int) -> None:
+        """Record which serving path answered this kNN query: the strategy
+        counter attributes recall/latency anomalies per path, and the
+        fallback counter isolates queries that LOST their sublinear path
+        (quantizer still training → exact serve)."""
+        from surrealdb_tpu_torch import telemetry
+
+        telemetry.inc("knn_strategy", strategy=self.strategy)
+        if "(ivf-training)" in self.strategy:
+            telemetry.inc("knn_fallbacks", cause="ivf_training")
+        telemetry.note_plan(
+            {"knn": self.strategy, "index": self.ix["name"], "k": self.k, "n": n}
+        )
+
+    def _exact_overlay(self, mirror, overlay, metric):
+        """Merge uncommitted rows over the mirror and search exactly."""
+        self.strategy = "exact-overlay"
+        self._count_strategy(mirror.count())
+        data, alive, rids = mirror.host_view()
+        rows, out_rids = [], []
+        for i in np.nonzero(alive)[0].tolist():
+            key = _rid_key(rids[i])
+            if key in overlay:
+                continue  # superseded by the pending write
+            rows.append(data[i])
+            out_rids.append(rids[i])
+        for key, (rid, vec) in overlay.items():
+            if vec is not None:
+                rows.append(np.asarray(vec, dtype=np.float32))
+                out_rids.append(rid)
+        if not rows:
+            return
+        mat = np.stack(rows)
+        k = min(self.k, len(rows))
+        dists, idxs = D.knn_search_host(
+            np.asarray([self.target], dtype=np.float32), mat, metric, k
+        )
+        for d, i in zip(dists[0], idxs[0]):
+            if not np.isfinite(d):
+                continue
+            rid = out_rids[int(i)]
+            if not isinstance(rid, Thing):
+                rid = Thing(self.tb, rid)
+            self.result.add(rid, float(d))
+            yield rid, None, {"dist": float(d)}
+
+
+class BruteForceKnnPlan(_KnnExecutorMixin):
+    """`<|k,DIST|>` with no matching index: one streamed pass gathers the
+    field vectors, then a single fused device kernel does distance + top-k
+    (replaces the reference's two-stage CollectKnn→BuildKnn workflow
+    planner/mod.rs:208-232 with one batched pass)."""
+
+    def __init__(self, tb: str, op, target):
+        self.tb = tb
+        self.op = op
+        self.k = op.k
+        self.metric = (op.dist or "euclidean").lower()
+        self.target = _target_vector(target)
+        self.result = _KnnResult()
+
+    def explain(self) -> dict:
+        return {
+            "operator": f"<|{self.k},{self.metric.upper()}|>",
+            "table": self.tb,
+            "strategy": "brute-force (device batch)",
+        }
+
+    def iterate(self, ctx):
+        ctx.qe = self
+        from surrealdb_tpu_torch.dbs.iterator import scan_table
+
+        field = self.op.l
+        rids: List[Thing] = []
+        rows: List[List[float]] = []
+        docs: Dict[Any, dict] = {}
+        dim = len(self.target)
+        for rid, doc in scan_table(ctx, self.tb):
+            with ctx.with_doc_value(doc, rid=rid) as c:
+                v = field.compute(c)
+            if not isinstance(v, (list, tuple)) or len(v) != dim:
+                continue
+            try:
+                rows.append([float(x) for x in v])
+            except (TypeError, ValueError):
+                continue
+            rids.append(rid)
+            docs[(rid.tb, repr(rid.id))] = doc
+        if not rows:
+            return
+        from surrealdb_tpu_torch import telemetry
+
+        telemetry.inc("knn_strategy", strategy="brute-force")
+        telemetry.note_plan({"knn": "brute-force", "table": self.tb, "n": len(rows)})
+        k = min(self.k, len(rids))
+        q = np.asarray([self.target], dtype=np.float32)
+        if cnf.TPU_DISABLE or len(rids) < cnf.TPU_KNN_ONDEVICE_THRESHOLD:
+            dists, idxs = D.knn_search_host(q, np.asarray(rows, dtype=np.float32), self.metric, k)
+        else:
+            import torch
+
+            device = ctx.ds().device
+            mat, mask = D.pad_rows(np.asarray(rows, dtype=np.float32), cnf.TPU_BATCH_MIN_TILE)
+            dists, idxs = D.knn_search(
+                torch.from_numpy(q).to(device),
+                torch.from_numpy(mat).to(device),
+                torch.from_numpy(mask).to(device),
+                self.metric, k,
+            )
+            dists, idxs = dists.cpu().numpy(), idxs.cpu().numpy()
+        dists = np.asarray(dists)[0]
+        idxs = np.asarray(idxs)[0]
+        for d, i in zip(dists, idxs):
+            if not np.isfinite(d) or i >= len(rids):
+                continue
+            rid = rids[int(i)]
+            self.result.add(rid, float(d))
+            yield rid, docs[(rid.tb, repr(rid.id))], {"dist": float(d)}

@@ -1,0 +1,716 @@
+"""Query planner: choose index-backed iteration over table scans.
+
+Role of the reference's QueryPlanner (reference: core/src/idx/planner/mod.rs:
+93-232, plan.rs:27-93, tree.rs): analyze the WHERE/WITH clauses per table and
+replace ITable sources with IIndex plans. Plan taxonomy mirrors the
+reference: SingleIndex / SingleIndexRange / MultiIndex / TableIterator, plus
+the kNN/MATCHES operator wiring.
+
+v1 supports equality/range/kNN plans over 'idx', 'uniq', 'hnsw' and 'mtree'
+indexes; unsupported shapes fall back to a table scan (always correct).
+"""
+
+from __future__ import annotations
+
+from typing import Any, List, Optional, Tuple
+
+from surrealdb_tpu_torch import key as keys
+from surrealdb_tpu_torch.key.encode import prefix_end
+from surrealdb_tpu_torch.sql.ast import BinaryOp, Expr, KnnOp, Literal, MatchesOp, Param
+from surrealdb_tpu_torch.sql.path import Idiom
+from surrealdb_tpu_torch.sql.value import Range, Thing, is_nullish
+from surrealdb_tpu_torch.utils.ser import unpack
+
+from .knn import KnnPlan
+from .ft_search import MatchesPlan
+
+
+def _rid_key(rid):
+    """Dedup identity for record ids yielded by index scans."""
+    return (rid.tb, repr(rid.id)) if isinstance(rid, Thing) else rid
+
+
+# ------------------------------------------------------------------ plans
+class OrderPushdownBailout(Exception):
+    """Raised by IndexOrderPlan when it meets an array-valued entry: key
+    order sorts a record at its smallest element while value_cmp sorts
+    arrays after scalars, so the pushdown is unsound — the statement
+    re-runs on the plain scan + post-sort path."""
+
+
+class IndexEqualPlan:
+    """WHERE field = value (or a compound-prefix of equalities) over an
+    'idx'/'uniq' index (reference ThingIterator::IndexEqual/UniqueEqual).
+    `values` may cover only a PREFIX of a compound index's fields — the
+    lookup becomes a prefix scan."""
+
+    def __init__(self, tb: str, ix: dict, values: List[Any]):
+        self.tb = tb
+        self.ix = ix
+        self.values = values
+        self.partial = len(values) < len(ix["fields"])
+
+    def explain(self) -> dict:
+        return {
+            "index": self.ix["name"],
+            "operator": "=",
+            "value": self.values[0] if len(self.values) == 1 else self.values,
+        }
+
+    def iterate(self, ctx):
+        ns, db = ctx.ns_db()
+        txn = ctx.txn()
+        name = self.ix["name"]
+        if self.ix["index"]["type"] == "uniq" and not self.partial:
+            raw = txn.get(keys.unique_entry(ns, db, self.tb, name, self.values))
+            if raw is not None:
+                rid = unpack(raw)
+                yield rid, None, None
+            return
+        # array-valued fields write one entry per element (_combinations),
+        # so scans must dedup record ids or a row repeats in the output
+        seen = set()
+        if self.ix["index"]["type"] == "uniq":
+            pre = keys.unique_entry_prefix(ns, db, self.tb, name, self.values)
+            for chunk in txn.batch(pre, prefix_end(pre), 1000):
+                for _, v in chunk:
+                    rid = unpack(v)
+                    k2 = _rid_key(rid)
+                    if k2 in seen:
+                        continue
+                    seen.add(k2)
+                    yield rid, None, None
+            return
+        pre = keys.index_entry_prefix(ns, db, self.tb, name, self.values)
+        nvals = len(self.ix["fields"])  # keys hold ALL fields' values
+        for chunk in txn.batch(pre, prefix_end(pre), 1000):
+            for k, _ in chunk:
+                _, rid = keys.decode_index_entry_id(k, ns, db, self.tb, name, nvals)
+                k2 = _rid_key(rid)
+                if k2 in seen:
+                    continue
+                seen.add(k2)
+                yield rid, None, None
+
+
+class IndexRangePlan:
+    """WHERE field >/</BETWEEN over an ordered index
+    (reference ThingIterator::IndexRange/UniqueRange)."""
+
+    def __init__(self, tb: str, ix: dict, beg, end, beg_incl: bool, end_incl: bool):
+        self.tb = tb
+        self.ix = ix
+        self.beg, self.end = beg, end
+        self.beg_incl, self.end_incl = beg_incl, end_incl
+
+    def explain(self) -> dict:
+        rng: dict = {}
+        if self.beg is not None:
+            rng["from"] = {"inclusive": self.beg_incl, "value": self.beg}
+        if self.end is not None:
+            rng["to"] = {"inclusive": self.end_incl, "value": self.end}
+        return {"index": self.ix["name"], "operator": "range", "range": rng}
+
+    def iterate(self, ctx):
+        ns, db = ctx.ns_db()
+        txn = ctx.txn()
+        name = self.ix["name"]
+        uniq = self.ix["index"]["type"] == "uniq"
+        mk_pre = keys.unique_entry_prefix if uniq else keys.index_entry_prefix
+        base = mk_pre(ns, db, self.tb, name)
+        from surrealdb_tpu_torch.key.encode import enc_value_key
+
+        if self.beg is None:
+            beg = base
+        else:
+            bk = base + enc_value_key(self.beg)
+            beg = bk if self.beg_incl else prefix_end(bk)
+        if self.end is None:
+            end = prefix_end(base)
+        else:
+            ek = base + enc_value_key(self.end)
+            end = prefix_end(ek) if self.end_incl else ek
+        seen = set()  # array-valued fields write one entry per element
+        for chunk in txn.batch(beg, end, 1000):
+            for k, v in chunk:
+                if uniq:
+                    rid = unpack(v)
+                else:
+                    _, rid = keys.decode_index_entry_id(k, ns, db, self.tb, name, 1)
+                k2 = _rid_key(rid)
+                if k2 in seen:
+                    continue
+                seen.add(k2)
+                yield rid, None, None
+
+
+class MultiIndexPlan:
+    """AND/OR condition trees over several index plans (reference
+    Plan::MultiIndex + IndexUnion/IndexJoin thing iterators,
+    plan.rs:27-93, iterators.rs:107-120).
+
+    union:     every branch of an OR is indexable; stream each branch,
+               dedup record ids (the reference's SyncDistinct role).
+    intersect: several AND conjuncts hit different indexes; intersect the
+               candidate id sets, smallest first. Residual conjuncts stay
+               in the statement's WHERE, evaluated per record — plans only
+               ever narrow the candidate set.
+    """
+
+    def __init__(self, tb: str, plans: List[Any], mode: str):
+        self.tb = tb
+        self.plans = plans
+        self.mode = mode  # "union" | "intersect"
+
+    def explain(self) -> dict:
+        return {
+            "type": "MultiIndex",
+            "mode": self.mode,
+            "parts": [p.explain() for p in self.plans],
+        }
+
+    def iterate(self, ctx):
+        if self.mode == "union":
+            seen = set()
+            for p in self.plans:
+                for rid, doc, ir in p.iterate(ctx):
+                    k = _rid_key(rid)
+                    if k in seen:
+                        continue
+                    seen.add(k)
+                    yield rid, doc, ir
+            return
+        # intersect: materialize candidate id maps, smallest set drives
+        maps = []
+        for p in self.plans:
+            m = {}
+            for rid, _, _ in p.iterate(ctx):
+                m[_rid_key(rid)] = rid
+            maps.append(m)
+        maps.sort(key=len)
+        inter = set(maps[0])
+        for m in maps[1:]:
+            inter &= set(m)
+        for k in inter:
+            yield maps[0][k], None, None
+
+
+class IndexOrderPlan:
+    """ORDER BY field [ASC] served straight from an ordered index scan with
+    the LIMIT pushed into the scan (reference: order/limit pushdown,
+    planner/mod.rs + iterators.rs IndexRange). Only forward (ASC) order —
+    the KV scans forward."""
+
+    def __init__(self, tb: str, ix: dict, limit: Optional[int]):
+        self.tb = tb
+        self.ix = ix
+        self.limit = limit
+        self.provides_order = True
+
+    def explain(self) -> dict:
+        out = {"index": self.ix["name"], "operator": "order", "direction": "ASC"}
+        if self.limit is not None:
+            out["limit_pushdown"] = self.limit
+        return out
+
+    def iterate(self, ctx):
+        from surrealdb_tpu_torch.sql.path import get_path
+
+        ns, db = ctx.ns_db()
+        txn = ctx.txn()
+        name = self.ix["name"]
+        field_parts = self.ix["fields"][0].parts
+        pre = keys.index_entry_prefix(ns, db, self.tb, name)
+        n = 0
+        seen = set()  # array-valued fields write one entry per element
+        for chunk in txn.batch(pre, prefix_end(pre), 1000):
+            for k, v in chunk:
+                _, rid = keys.decode_index_entry_id(
+                    k, ns, db, self.tb, name, len(self.ix["fields"])
+                )
+                k2 = _rid_key(rid)
+                if k2 in seen:
+                    continue
+                # fetch the doc here (the SELECT needs it anyway) and check
+                # the order field: an array value writes one entry per
+                # element and key order would place the row at its smallest
+                # element — unsound vs value_cmp, so abandon the pushdown
+                doc = txn.get_record(ns, db, rid.tb, rid.id) if isinstance(rid, Thing) else None
+                if doc is not None:
+                    with ctx.with_doc_value(doc, rid=rid) as c:
+                        if isinstance(get_path(c, doc, field_parts), list):
+                            raise OrderPushdownBailout()
+                seen.add(k2)
+                yield rid, doc, None
+                n += 1
+                if self.limit is not None and n >= self.limit:
+                    return
+
+
+class TableScanPlan:
+    def __init__(self, tb: str):
+        self.tb = tb
+
+    def explain(self) -> dict:
+        return {"table": self.tb}
+
+
+# ------------------------------------------------------------------ analysis
+def plan_sources(ctx, stm, sources: List[Any]) -> List[Any]:
+    """Rewrite ITable sources into IIndex plans where the WHERE/kNN shape
+    allows (reference QueryPlanner::add_iterables)."""
+    from surrealdb_tpu_torch.dbs.iterator import IIndex, ITable
+
+    with_ = getattr(stm, "with_", None)
+    if with_ is not None and with_.noindex:
+        return sources
+
+    from surrealdb_tpu_torch import telemetry
+
+    out: List[Any] = []
+    import time as _time
+
+    t0 = _time.perf_counter()
+    with telemetry.span("plan"):
+        for s in sources:
+            if not isinstance(s, ITable):
+                out.append(s)
+                continue
+            plan = build_plan(ctx, stm, s.tb, with_)
+            if plan is None:
+                telemetry.inc("plan_strategy", strategy="TableScan")
+                out.append(s)
+            else:
+                strategy = type(plan).__name__
+                telemetry.inc("plan_strategy", strategy=strategy)
+                note = {"table": s.tb, "plan": strategy}
+                if strategy == "ColumnScanPlan":
+                    # a slow columnar statement must name what was lowered
+                    if plan.compiled is not None:
+                        note["predicate"] = plan.compiled.source
+                    if plan.order_specs:
+                        note["order"] = [
+                            {"key": s.path, "direction": "ASC" if s.asc else "DESC"}
+                            for s in plan.order_specs
+                        ]
+                if isinstance(plan, KnnPlan):
+                    # a kNN statement's latency is governed by the dispatch
+                    # pipeline: pin the active knobs into the plan note so a
+                    # slow-query record names the width/depth it ran under
+                    from surrealdb_tpu_torch import cnf as _cnf
+
+                    note["dispatch"] = {
+                        "max_width": _cnf.DISPATCH_MAX_WIDTH,
+                        "pipeline_depth": _cnf.DISPATCH_PIPELINE_DEPTH,
+                        "split_floor": _cnf.DISPATCH_SPLIT_FLOOR,
+                    }
+                telemetry.note_plan(note)
+                out.append(IIndex(s.tb, plan))
+    # plan-cache pre-kernel accounting: planner time per fingerprint,
+    # warm (template served from cache) vs cold
+    from surrealdb_tpu_torch.dbs.plan_cache import active_plan_cache
+
+    pc = active_plan_cache(ctx)
+    if pc is not None:
+        from surrealdb_tpu_torch import stats as _stats
+
+        pc.note_plan_time(
+            _stats.active_fingerprint(),
+            (_time.perf_counter() - t0) * 1e6,
+            bool(getattr(getattr(ctx, "executor", None), "cache_warm", False)),
+        )
+    return out
+
+
+def build_plan(ctx, stm, tb: str, with_) -> Optional[Any]:
+    plan = _build_index_plan(ctx, stm, tb, with_)
+    if plan is not None:
+        return plan
+    # no servable index shape: a simple WHERE can still leave the per-row
+    # path for the vectorized columnar scan (idx/column_mirror.py)
+    from surrealdb_tpu_torch.idx.column_mirror import column_scan_plan
+
+    return column_scan_plan(ctx, stm, tb)
+
+
+def _build_index_plan(ctx, stm, tb: str, with_) -> Optional[Any]:
+    ns, db = ctx.ns_db()
+    # plan-cache schema prefetch: the raw index-def probe for this table
+    # is generation-stamped, so hot statements skip the per-execution KV
+    # scan (DDL and the builder's ready flip bump the generation)
+    from surrealdb_tpu_torch.dbs.plan_cache import active_plan_cache
+
+    pc = active_plan_cache(ctx)
+    indexes = pc.index_defs_for(ctx, ns, db, tb) if pc is not None else None
+    if indexes is None:
+        txn = ctx.txn()
+        indexes = txn.all_tb_indexes(ns, db, tb)
+        if pc is not None:
+            pc.install_index_defs(ctx, ns, db, tb, indexes)
+    # an index mid-build (CONCURRENTLY) must not serve reads yet
+    indexes = [ix for ix in indexes if ix.get("status", "ready") == "ready"]
+    if not indexes:
+        return None
+    if with_ is not None and with_.indexes:
+        indexes = [ix for ix in indexes if ix["name"] in with_.indexes]
+
+    cond = getattr(stm, "cond", None)
+
+    # kNN / MATCHES operators take priority (reference executor entries)
+    knn = _find_operator(cond, KnnOp)
+    if knn is not None:
+        plan = _plan_knn(ctx, tb, indexes, knn)
+        if plan is not None:
+            if isinstance(plan, KnnPlan):
+                _attach_knn_prefilter(ctx, plan, cond, knn)
+            return plan
+    matches = _find_operator(cond, MatchesOp)
+    if matches is not None:
+        plan = _plan_matches(ctx, tb, indexes, matches, stm)
+        if plan is not None:
+            return plan
+
+    if cond is not None:
+        return _plan_condition(ctx, tb, indexes, cond)
+
+    # no WHERE: ORDER BY field ASC [LIMIT n] can ride an ordered index scan.
+    # Not under GROUP/SPLIT (rows feed an aggregator, truncation would be
+    # wrong), and only over plain 'idx' (uniq indexes are sparse: records
+    # with a NONE field have no entry and would vanish from the result).
+    order = getattr(stm, "order", None)
+    if (
+        order
+        and len(order) == 1
+        and order[0].asc
+        and not getattr(order[0], "rand", False)
+        and not getattr(stm, "group", None)
+        and not getattr(stm, "group_all", False)
+        and not getattr(stm, "split", None)
+    ):
+        field_txt = repr(order[0].idiom)
+        for ix in indexes:
+            if ix["index"]["type"] != "idx":
+                continue
+            if repr(ix["fields"][0]) != field_txt:
+                continue
+            from surrealdb_tpu_torch.iam.check import perms_apply
+
+            # per-record permission filtering drops rows AFTER the plan, so
+            # a plan-level limit would under-fill the result for guests /
+            # record-access sessions — they keep the full ordered scan
+            limit = None if perms_apply(ctx) else _static_limit(ctx, stm)
+            return IndexOrderPlan(tb, ix, limit)
+    return None
+
+
+def _static_limit(ctx, stm) -> Optional[int]:
+    try:
+        limit = int(stm.limit.compute(ctx)) if stm.limit is not None else None
+        start = int(stm.start.compute(ctx)) if stm.start is not None else 0
+    except (TypeError, ValueError):
+        return None
+    return (limit + start) if limit is not None else None
+
+
+def _attach_knn_prefilter(ctx, plan, cond, knn) -> None:
+    """Lower the WHERE conjuncts AROUND the kNN operator onto the table's
+    column mirror: the exact search strategies then mask non-matching rows
+    out BEFORE top-k (the reference's condition-checker semantics — k
+    results that all match — instead of post-filtering the top-k down)."""
+    from surrealdb_tpu_torch import cnf as _cnf
+
+    if not (_cnf.KNN_COLUMN_PREFILTER and _cnf.COLUMN_MIRROR):
+        return
+    residual = _strip_operator(cond, knn)
+    if residual is None:
+        return
+    from surrealdb_tpu_torch.iam.check import perms_apply
+
+    if perms_apply(ctx):
+        return
+    from surrealdb_tpu_torch.ops.predicates import compile_where
+
+    plan.prefilter = compile_where(ctx, residual)
+
+
+def _strip_operator(expr, op_node):
+    """The condition tree minus one operator reachable through ANDs."""
+    if expr is op_node:
+        return None
+    if isinstance(expr, BinaryOp) and expr.op in ("&&", "AND"):
+        l = _strip_operator(expr.l, op_node)
+        r = _strip_operator(expr.r, op_node)
+        if l is None:
+            return r
+        if r is None:
+            return l
+        return BinaryOp(expr.op, l, r)
+    return expr
+
+
+def _find_operator(expr, klass):
+    """Locate a kNN/MATCHES operator reachable through ANDs."""
+    if expr is None:
+        return None
+    if isinstance(expr, klass):
+        return expr
+    if isinstance(expr, BinaryOp) and expr.op in ("&&", "AND"):
+        return _find_operator(expr.l, klass) or _find_operator(expr.r, klass)
+    return None
+
+
+def _plan_knn(ctx, tb: str, indexes: List[dict], knn: KnnOp):
+    if not isinstance(knn.l, Idiom):
+        return None
+    field_txt = repr(knn.l)
+    target = knn.r.compute(ctx)
+    for ix in indexes:
+        if ix["index"]["type"] not in ("hnsw", "mtree"):
+            continue
+        if not ix["fields"] or repr(ix["fields"][0]) != field_txt:
+            continue
+        return KnnPlan(tb, ix, knn, target)
+    # no vector index: brute-force kNN plan over the table
+    from .knn import BruteForceKnnPlan
+
+    return BruteForceKnnPlan(tb, knn, target)
+
+
+def _plan_matches(ctx, tb: str, indexes: List[dict], m: MatchesOp, stm):
+    if not isinstance(m.l, Idiom):
+        return None
+    field_txt = repr(m.l)
+    for ix in indexes:
+        if ix["index"]["type"] != "search":
+            continue
+        if not ix["fields"] or repr(ix["fields"][0]) != field_txt:
+            continue
+        plan = MatchesPlan(tb, ix, m, m.r.compute(ctx))
+        plan.provides_order = _matches_score_order(stm, m)
+        return plan
+    return None
+
+
+def _matches_score_order(stm, m: MatchesOp) -> bool:
+    """ORDER BY <search score> DESC — directly or through a projection
+    alias — ranks rows exactly how the MATCHES iterator already yields
+    them (BM25 descending), so the post-sort can be skipped and LIMIT can
+    stop the scan early (the reference's top-k search shortcut;
+    planner/executor.rs score-ordered iteration)."""
+    order = getattr(stm, "order", None)
+    if not order or len(order) != 1:
+        return False
+    o = order[0]
+    if o.asc or getattr(o, "rand", False):
+        return False
+    if stm.group or getattr(stm, "group_all", False) or stm.split:
+        return False
+    target = repr(o.idiom)
+    expr = None
+    for f in getattr(stm, "fields", None) or []:
+        if getattr(f, "all", False) or f.expr is None:
+            continue
+        name = repr(f.alias) if f.alias is not None else repr(f.expr)
+        if name == target:
+            expr = f.expr
+            break
+    if expr is None:
+        return False
+    from surrealdb_tpu_torch.sql.ast import FunctionCall
+
+    return (
+        isinstance(expr, FunctionCall)
+        and expr.name == "search::score"
+        and len(expr.args) == 1
+        and repr(expr.args[0]) == repr(m.ref)
+    )
+
+
+def _plan_condition(ctx, tb: str, indexes: List[dict], cond):
+    """Decompose the WHERE condition tree into per-index candidate plans
+    (reference planner/tree.rs analysis + plan.rs PlanBuilder). Residual
+    conjuncts are fine: the iterator re-evaluates the full WHERE per
+    record, so a plan only has to produce a candidate SUPERSET of one
+    AND-branch… (for OR, every branch must be indexable)."""
+    usable = [ix for ix in indexes if ix["index"]["type"] in ("idx", "uniq")]
+    if not usable:
+        return None
+
+    if isinstance(cond, BinaryOp) and cond.op in ("||", "OR"):
+        branches = _or_branches(ctx, cond)
+        if branches is None:
+            return None
+        plans = []
+        for leaves in branches:
+            p = _plan_and(ctx, tb, usable, leaves)
+            if p is None:
+                return None  # one unindexable OR-branch forces a scan
+            plans.append(p)
+        if len(plans) == 1:
+            return plans[0]
+        return MultiIndexPlan(tb, plans, "union")
+
+    leaves, _residual = _and_leaves(ctx, cond)
+    return _plan_and(ctx, tb, usable, leaves)
+
+
+def _plan_and(ctx, tb: str, usable: List[dict], leaves):
+    """Best plan for one AND-branch's leaves: compound-prefix equality
+    first, then single-field plans; ≥2 distinct index hits → intersect."""
+    if not leaves:
+        return None
+    eq_by_field = {f: v for f, op, v in leaves if op == "="}
+    plans: List[Any] = []
+    covered: set = set()
+
+    # compound indexes: longest equality prefix wins
+    best = None
+    for ix in usable:
+        fields = [repr(f) for f in ix["fields"]]
+        if len(fields) < 2:
+            continue
+        n = 0
+        for f in fields:
+            if f in eq_by_field:
+                n += 1
+            else:
+                break
+        if n >= 2 and (best is None or n > best[1]):
+            best = (ix, n)
+    if best is not None:
+        ix, n = best
+        fields = [repr(f) for f in ix["fields"]][:n]
+        plans.append(IndexEqualPlan(tb, ix, [eq_by_field[f] for f in fields]))
+        covered.update(fields)
+
+    single = {
+        repr(ix["fields"][0]): ix for ix in usable if len(ix["fields"]) == 1
+    }
+    for f, op, v in leaves:
+        if f in covered:
+            continue
+        ix = single.get(f)
+        if ix is None:
+            continue
+        p = _leaf_plan(tb, ix, op, v)
+        if p is not None:
+            plans.append(p)
+            covered.add(f)
+
+    if not plans:
+        # last resort: a compound index whose FIRST field has an equality
+        # serves as a 1-value prefix scan
+        for ix in usable:
+            if len(ix["fields"]) >= 2 and repr(ix["fields"][0]) in eq_by_field:
+                return IndexEqualPlan(tb, ix, [eq_by_field[repr(ix["fields"][0])]])
+        return None
+    if len(plans) == 1:
+        return plans[0]
+    return MultiIndexPlan(tb, plans, "intersect")
+
+
+def _leaf_plan(tb: str, ix: dict, op: str, value):
+    if op == "=":
+        return IndexEqualPlan(tb, ix, [value])
+    if op == "<":
+        return IndexRangePlan(tb, ix, None, value, True, False)
+    if op == "<=":
+        return IndexRangePlan(tb, ix, None, value, True, True)
+    if op == ">":
+        return IndexRangePlan(tb, ix, value, None, False, False)
+    if op == ">=":
+        return IndexRangePlan(tb, ix, value, None, True, False)
+    return None
+
+
+def _and_leaves(ctx, cond) -> Tuple[List[Tuple[str, str, Any]], bool]:
+    """Flatten an AND chain into (leaves, residual?) — residual marks
+    subtrees that couldn't be expressed as `field op constant`."""
+    if isinstance(cond, BinaryOp) and cond.op in ("&&", "AND"):
+        l, lr = _and_leaves(ctx, cond.l)
+        r, rr = _and_leaves(ctx, cond.r)
+        return l + r, lr or rr
+    leaf = _extract_leaf(ctx, cond)
+    return ([leaf], False) if leaf is not None else ([], True)
+
+
+def _or_branches(ctx, cond) -> Optional[List[List[Tuple[str, str, Any]]]]:
+    """Flatten an OR chain into per-branch AND-leaf lists; None when any
+    branch contains a residual (the whole OR then needs a scan)."""
+    if isinstance(cond, BinaryOp) and cond.op in ("||", "OR"):
+        l = _or_branches(ctx, cond.l)
+        r = _or_branches(ctx, cond.r)
+        if l is None or r is None:
+            return None
+        return l + r
+    leaves, _residual = _and_leaves(ctx, cond)
+    # a residual conjunct inside a branch is fine (the iterator re-checks
+    # the full WHERE); only a branch with NO indexable leaf forces a scan
+    if not leaves:
+        return None
+    return [leaves]
+
+
+def _extract_leaf(ctx, cond) -> Optional[Tuple[str, str, Any]]:
+    """One `field op constant` comparison (either side)."""
+    if not isinstance(cond, BinaryOp):
+        return None
+    op = cond.op
+    if op not in ("=", "<", "<=", ">", ">="):
+        return None
+    l, r = cond.l, cond.r
+    if isinstance(l, Idiom) and _is_const(r):
+        leaf = repr(l), op, r.compute(ctx)
+    elif isinstance(r, Idiom) and _is_const(l):
+        flip = {"=": "=", "<": ">", "<=": ">=", ">": "<", ">=": "<="}
+        leaf = repr(r), flip[op], l.compute(ctx)
+    else:
+        return None
+    # array/object constants are not servable from per-element index
+    # entries (an equality on a whole array would match nothing — a
+    # candidate SUBSET, which plans must never produce)
+    if isinstance(leaf[2], (list, dict)):
+        return None
+    return leaf
+
+
+def _is_const(e) -> bool:
+    return isinstance(e, (Literal, Param))
+
+
+# ------------------------------------------------------------------ explain
+def explain(ctx, stm, sources: List[Any], full: bool = False) -> List[dict]:
+    """EXPLAIN output (reference: core/src/dbs/plan.rs)."""
+    from surrealdb_tpu_torch.dbs.iterator import (
+        IIndex,
+        IRange,
+        ITable,
+        IThing,
+        IValue,
+    )
+
+    planned = plan_sources(ctx, stm, sources)
+    out: List[dict] = []
+    for s in planned:
+        if isinstance(s, IIndex):
+            out.append({"detail": {"plan": s.plan.explain(), "table": s.tb}, "operation": "Iterate Index"})
+        elif isinstance(s, ITable):
+            out.append({"detail": {"table": s.tb}, "operation": "Iterate Table"})
+        elif isinstance(s, IRange):
+            out.append({"detail": {"table": s.tb}, "operation": "Iterate Range"})
+        elif isinstance(s, IThing):
+            out.append({"detail": {"thing": s.t}, "operation": "Iterate Thing"})
+        elif isinstance(s, IValue):
+            out.append({"detail": {"value": s.v}, "operation": "Iterate Value"})
+    if getattr(stm, "parallel", False) and len(planned) > 1:
+        from surrealdb_tpu_torch import cnf as _cnf
+
+        out.append(
+            {
+                "detail": {"workers": min(len(planned), _cnf.MAX_CONCURRENT_TASKS)},
+                "operation": "Parallel",
+            }
+        )
+    if full:
+        out.append({"detail": {"type": "Memory"}, "operation": "Collector"})
+    return out

@@ -1,0 +1,251 @@
+"""Order-preserving binary encoding of key components.
+
+The reference derives an order-preserving serializer for every key struct
+(reference: core/src/key/mod.rs:1-77 documents the keyspace; `derive(Key)` is
+a bincode-like order-preserving serializer). We implement the same property
+from scratch with an FDB-tuple-style encoding:
+
+- strings: utf-8 with 0x00 escaped as 0x00 0xFF, terminated by a bare 0x00
+- ints:    8-byte big-endian offset-binary (i ^ 1<<63)
+- floats:  IEEE-754 big-endian; negative => all bits flipped, else sign bit set
+- values:  type-tag byte + payload, tags ordered like the Value type ordering
+
+`enc_value_key` / `dec_value_key` handle the full Value domain used in record
+ids and index entries (numbers, strings, uuids, arrays, objects, things, ...).
+"""
+
+from __future__ import annotations
+
+import decimal as _decimal
+import math
+import struct
+import uuid as _uuid
+from typing import Any, Tuple
+
+TERM = b"\x00"
+ESCAPE = b"\x00\xff"
+
+
+def enc_str(s: str) -> bytes:
+    return s.encode("utf-8").replace(b"\x00", ESCAPE) + TERM
+
+
+def enc_bytes(b: bytes) -> bytes:
+    return b.replace(b"\x00", ESCAPE) + TERM
+
+
+def dec_str(buf: bytes, pos: int) -> Tuple[str, int]:
+    raw, pos = dec_bytes(buf, pos)
+    return raw.decode("utf-8"), pos
+
+
+def dec_bytes(buf: bytes, pos: int) -> Tuple[bytes, int]:
+    out = bytearray()
+    n = len(buf)
+    while pos < n:
+        c = buf[pos]
+        if c == 0x00:
+            if pos + 1 < n and buf[pos + 1] == 0xFF:
+                out.append(0x00)
+                pos += 2
+                continue
+            return bytes(out), pos + 1
+        out.append(c)
+        pos += 1
+    raise ValueError("unterminated string in key")
+
+
+# direct C-level bound method: enc_u64 is the hottest key helper (once per
+# posting/tree-node id); a Python wrapper frame would double its cost
+enc_u64 = struct.Struct(">Q").pack
+
+
+def dec_u64(buf: bytes, pos: int) -> Tuple[int, int]:
+    return struct.unpack_from(">Q", buf, pos)[0], pos + 8
+
+
+def enc_i64(v: int) -> bytes:
+    return struct.pack(">Q", (v ^ (1 << 63)) & 0xFFFFFFFFFFFFFFFF)
+
+
+def dec_i64(buf: bytes, pos: int) -> Tuple[int, int]:
+    raw = struct.unpack_from(">Q", buf, pos)[0]
+    return raw ^ (1 << 63), pos + 8
+
+
+def enc_f64(v: float) -> bytes:
+    bits = struct.unpack(">Q", struct.pack(">d", v))[0]
+    if bits & (1 << 63):
+        bits = ~bits & 0xFFFFFFFFFFFFFFFF
+    else:
+        bits |= 1 << 63
+    return struct.pack(">Q", bits)
+
+
+def dec_f64(buf: bytes, pos: int) -> Tuple[float, int]:
+    bits = struct.unpack_from(">Q", buf, pos)[0]
+    if bits & (1 << 63):
+        bits &= ~(1 << 63) & 0xFFFFFFFFFFFFFFFF
+    else:
+        bits = ~bits & 0xFFFFFFFFFFFFFFFF
+    return struct.unpack(">d", struct.pack(">Q", bits))[0], pos + 8
+
+
+# --------------------------------------------------------------------- values
+# Tag ordering mirrors the Value type ordering (None < Null < Bool < Number <
+# Strand < Duration < Datetime < Uuid < Array < Object < Bytes < Thing), so
+# ORDER BY over a mixed-type indexed field matches index-key order.
+T_NONE = 0x02
+T_NULL = 0x03
+T_FALSE = 0x04
+T_TRUE = 0x05
+T_NUMBER = 0x10
+T_STRAND = 0x20
+T_DURATION = 0x25
+T_DATETIME = 0x28
+T_UUID = 0x30
+T_ARRAY = 0x40
+T_OBJECT = 0x50
+T_BYTES = 0x5C
+T_THING = 0x60
+ARRAY_END = 0x01  # sorts before any tag so shorter arrays order first
+
+
+_M64 = (1 << 64) - 1
+_SIGN = 1 << 63
+_pack_dd = struct.Struct(">d").pack
+_unpack_q = struct.Struct(">Q").unpack
+_pack_num = struct.Struct(">BQQ").pack
+
+
+def _enc_int_key(v: int) -> bytes:
+    """Hot path: int ids dominate record keys during bulk ingest."""
+    bits = _unpack_q(_pack_dd(float(v)))[0]
+    bits = (~bits & _M64) if bits & _SIGN else (bits | _SIGN)
+    return _pack_num(T_NUMBER, bits, (v ^ _SIGN) & _M64)
+
+
+def enc_value_key(v: Any) -> bytes:
+    """Order-preserving encoding of a Value for use inside keys."""
+    t = type(v)
+    if t is int:  # bool has type bool, not int, under an exact type check
+        if not (-_SIGN <= v < _SIGN):
+            raise ValueError("integer key component out of i64 range")
+        return _enc_int_key(v)
+    if t is str:
+        return bytes([T_STRAND]) + enc_str(v)
+    # Imported lazily to avoid a cycle (sql.value imports nothing from here).
+    from surrealdb_tpu_torch.sql.value import Thing, Duration, Datetime, Uuid, NONE, Null
+
+    if t is Thing:
+        return bytes([T_THING]) + enc_str(v.tb) + enc_value_key(v.id)
+    if v is NONE or isinstance(v, type(NONE)):
+        return bytes([T_NONE])
+    if v is None or v is Null or isinstance(v, type(Null)):
+        return bytes([T_NULL])
+    if isinstance(v, bool):
+        return bytes([T_TRUE if v else T_FALSE])
+    if isinstance(v, _decimal.Decimal):
+        # decimals ride the shared numeric ordering (f64 precision in keys)
+        v = int(v) if v == int(v) and -(2**63) <= v < 2**63 else float(v)
+    if isinstance(v, (int, float)):
+        # Ints and floats share one numeric ordering and one representation:
+        # f64 ordering bytes + clamped i64 tie-break, so 1 and 1.0 (equal in
+        # SurrealQL) produce identical key bytes. -0.0 normalizes to 0.
+        if isinstance(v, int) and not (-(2**63) <= v < 2**63):
+            raise ValueError("integer key component out of i64 range")
+        f = 0.0 if v == 0 else float(v)
+        if math.isfinite(f) and -(2**63) <= v < 2**63:
+            tie = int(v)
+        else:
+            tie = 0  # inf/nan/out-of-i64 floats have no integral tie-break
+        return bytes([T_NUMBER]) + enc_f64(f) + enc_i64(tie)
+    if isinstance(v, str):
+        return bytes([T_STRAND]) + enc_str(v)
+    if isinstance(v, Duration):
+        return bytes([T_DURATION]) + enc_u64(v.nanos)
+    if isinstance(v, Datetime):
+        return bytes([T_DATETIME]) + enc_i64(v.nanos)
+    if isinstance(v, (Uuid, _uuid.UUID)):
+        u = v.value if isinstance(v, Uuid) else v
+        return bytes([T_UUID]) + u.bytes
+    if isinstance(v, (list, tuple)):
+        out = bytearray([T_ARRAY])
+        for item in v:
+            out += enc_value_key(item)
+        out.append(ARRAY_END)
+        return bytes(out)
+    if isinstance(v, dict):
+        out = bytearray([T_OBJECT])
+        for k in sorted(v):
+            out += enc_str(k)
+            out += enc_value_key(v[k])
+        out.append(ARRAY_END)
+        return bytes(out)
+    if isinstance(v, bytes):
+        return bytes([T_BYTES]) + enc_bytes(v)
+    if isinstance(v, Thing):
+        return bytes([T_THING]) + enc_str(v.tb) + enc_value_key(v.id)
+    raise ValueError(f"cannot encode {type(v).__name__} as key component")
+
+
+def dec_value_key(buf: bytes, pos: int) -> Tuple[Any, int]:
+    from surrealdb_tpu_torch.sql.value import Thing, Duration, Datetime, Uuid, NONE, Null
+
+    tag = buf[pos]
+    pos += 1
+    if tag == T_NONE:
+        return NONE, pos
+    if tag == T_NULL:
+        return Null, pos
+    if tag == T_FALSE:
+        return False, pos
+    if tag == T_TRUE:
+        return True, pos
+    if tag == T_NUMBER:
+        f, pos = dec_f64(buf, pos)
+        i, pos = dec_i64(buf, pos)
+        # Integral numbers decode as int (1 and 1.0 are the same key).
+        if float(i) == f:
+            return i, pos
+        return f, pos
+    if tag == T_STRAND:
+        return dec_str(buf, pos)
+    if tag == T_DURATION:
+        n, pos = dec_u64(buf, pos)
+        return Duration(n), pos
+    if tag == T_DATETIME:
+        n, pos = dec_i64(buf, pos)
+        return Datetime(n), pos
+    if tag == T_UUID:
+        return Uuid(_uuid.UUID(bytes=buf[pos : pos + 16])), pos + 16
+    if tag == T_ARRAY:
+        out = []
+        while buf[pos] != ARRAY_END:
+            item, pos = dec_value_key(buf, pos)
+            out.append(item)
+        return out, pos + 1
+    if tag == T_OBJECT:
+        out = {}
+        while buf[pos] != ARRAY_END:
+            k, pos = dec_str(buf, pos)
+            out[k], pos = dec_value_key(buf, pos)
+        return out, pos + 1
+    if tag == T_BYTES:
+        return dec_bytes(buf, pos)
+    if tag == T_THING:
+        tb, pos = dec_str(buf, pos)
+        rid, pos = dec_value_key(buf, pos)
+        return Thing(tb, rid), pos
+    raise ValueError(f"unknown key tag 0x{tag:02x} at {pos - 1}")
+
+
+def prefix_end(prefix: bytes) -> bytes:
+    """Smallest key strictly greater than every key starting with `prefix`."""
+    b = bytearray(prefix)
+    while b:
+        if b[-1] != 0xFF:
+            b[-1] += 1
+            return bytes(b)
+        b.pop()
+    return b"\xff"

@@ -1,0 +1,570 @@
+"""Datastore: the engine root.
+
+Role of the reference's Datastore (reference: core/src/kvs/ds.rs:60): owns the
+storage backend, hands out transactions, runs queries (execute/process), holds
+the node identity, the versionstamp oracle, the device-side index store
+registry, and the live-query notification channel.
+"""
+
+from __future__ import annotations
+
+import contextvars
+import threading
+import time as _time
+import weakref
+from surrealdb_tpu_torch.utils import locks as _locks
+import uuid as _uuid
+from typing import Any, Dict, List, Optional
+
+from surrealdb_tpu_torch import cnf
+from surrealdb_tpu_torch.err import KvsError
+from .api import BackendDatastore
+from .mem import MemDatastore
+from .tx import Transaction
+from .vs import Oracle, SystemClock
+
+_gc_tls = threading.local()  # .in_flusher: group-commit re-entrancy guard
+
+
+class _CommitSlot:
+    """One queued commit's outcome channel."""
+
+    __slots__ = ("done", "error")
+
+    def __init__(self):
+        self.done = threading.Event()
+        self.error: Optional[BaseException] = None
+
+
+class _ColumnSink:
+    """Combines one group-commit flush's column-mirror work: per-table
+    version-bump counts and bulk delta blocks across every member txn,
+    applied in ONE pass after all backend commits — a 5-statement bulk
+    stream appends to the mirror once, not five times."""
+
+    def __init__(self):
+        self.cm = None
+        self.cv = None  # newest member commit version (serve floor)
+        self.bumps: Dict[tuple, int] = {}
+        self.parts: Dict[tuple, list] = {}
+        self.poisoned: set = set()  # tables some member wrote row-at-a-time
+        self.touched: set = set()
+
+    def add(self, txn, touched) -> None:
+        if txn._column_mirrors is not None:
+            self.cm = txn._column_mirrors
+        cv = getattr(txn.tr, "commit_version", None)
+        if cv is not None:
+            self.cv = cv if self.cv is None else max(self.cv, cv)
+        self.touched |= touched
+        for t in touched:
+            self.bumps[t] = self.bumps.get(t, 0) + 1
+        delta_tables = set()
+        for key3, ids, eks, docs in txn.column_deltas:
+            if key3 not in txn.touched_row_tables:
+                self.parts.setdefault(key3, []).append((ids, eks, docs))
+                delta_tables.add(key3)
+        for t in touched:
+            # a touched table whose writes this member did NOT fully express
+            # as a bulk block can never delta-apply in this flush
+            if t not in delta_tables or cv is None:
+                self.poisoned.add(t)
+
+    def flush(self) -> None:
+        cm = self.cm
+        if cm is None:
+            return
+        applied = set()
+        for key3, parts in self.parts.items():
+            if key3 in self.poisoned:
+                continue
+            try:
+                ok = cm.apply_bulk(key3, parts, self.bumps.get(key3, 1), self.cv)
+            except Exception:
+                ok = False  # commit is durable; rebuild fallback below
+            if ok:
+                applied.add(key3)
+        left = self.touched - applied
+        if left:
+            cm.schedule_rebuild(left)
+
+
+class GroupCommit:
+    """Bounded-latency write-commit coalescer (the ingest group-commit).
+
+    Write transactions submit themselves and block until a per-datastore
+    flusher thread (flight-recorder-visible as `bg:group_commit:flush`)
+    drains the queue: each flush commits every queued backend txn under ONE
+    commit-lock hold, then applies the combined column-mirror deltas and
+    per-table rebuild scheduling once for the whole group. Commit
+    SEMANTICS are unchanged — submit() returns only after this txn's own
+    backend commit (or conflict error) completed; the coalescer batches
+    work, it never defers acknowledgement or visibility. The flusher is
+    ephemeral: it exits after GROUP_COMMIT_LINGER_SECS idle and respawns
+    on the next write commit, so idle datastores hold no thread."""
+
+    def __init__(self, ds):
+        self._ds = weakref.ref(ds)
+        self._lock = _locks.Lock("kvs.group_commit")
+        self._wake = threading.Event()  # raw: pure wakeup, no state guarded
+        self._queue: List[tuple] = []  # [(txn, contextvars ctx, slot)]
+        self._live = False  # a flusher incarnation is (being) spawned
+        self._gen = 0  # incarnation counter (crash recovery, see _body)
+        self._thread: Optional[threading.Thread] = None
+        self._closed = False
+
+    # ------------------------------------------------------------ submit
+    def submit(self, txn) -> bool:
+        """Queue a write commit and wait for its flush; False = caller
+        must commit inline (coalescer off/closed, or already on the
+        flusher thread — an on_commit callback committing a txn)."""
+        if not cnf.GROUP_COMMIT or getattr(_gc_tls, "in_flusher", False):
+            return False
+        slot = _CommitSlot()
+        ctx = contextvars.copy_context()
+        entry = (txn, ctx, slot)
+        with self._lock:
+            if self._closed:
+                return False
+            self._queue.append(entry)
+            spawn = not self._live
+            if spawn:
+                self._live = True
+                self._gen += 1
+                gen = self._gen
+        if spawn:
+            try:
+                self._spawn(gen)
+            except BaseException:
+                # our txn must NOT stay queued behind a raised commit —
+                # a later flusher would durably commit a transaction whose
+                # owner was told the commit failed
+                with self._lock:
+                    if entry in self._queue:
+                        self._queue.remove(entry)
+                raise
+        self._wake.set()
+        while not slot.done.wait(0.25):
+            # self-rescue: if the flusher died (spawn failure, crash)
+            # without serving us, drain the queue on this thread
+            with self._lock:
+                rescue = not self._live and any(
+                    s is slot for _, _, s in self._queue
+                )
+                if rescue:
+                    self._live = True
+                    self._gen += 1
+                    rgen = self._gen
+            if rescue:
+                from surrealdb_tpu_torch import events
+
+                # timeline entry under the submitter's own trace: a commit
+                # that had to rescue a dead flusher is exactly the latency
+                # outlier the event log exists to explain
+                events.emit("txn.group_commit_rescue")
+                _gc_tls.in_flusher = True
+                try:
+                    self._drain(linger=0.0)
+                finally:
+                    _gc_tls.in_flusher = False
+                    with self._lock:
+                        if self._gen == rgen and self._live:
+                            self._live = False
+        if slot.error is not None:
+            raise slot.error
+        return True
+
+    # ------------------------------------------------------------ flusher
+    def _spawn(self, gen: int) -> None:
+        from surrealdb_tpu_torch import bg
+
+        ds = self._ds()
+        try:
+            t = bg.spawn_service(
+                "group_commit", "flush", self._body, gen,
+                owner=id(ds) if ds is not None else None,
+            )
+            with self._lock:
+                self._thread = t
+        except BaseException:
+            with self._lock:
+                if self._gen == gen:
+                    self._live = False  # submitters self-rescue
+            raise
+
+    def _body(self, gen: int) -> None:
+        _gc_tls.in_flusher = True
+        try:
+            self._drain(cnf.GROUP_COMMIT_LINGER_SECS)
+        finally:
+            _gc_tls.in_flusher = False
+            # crash recovery: an exception escaping _drain must not leave
+            # _live latched True — submitters would poll forever with no
+            # flusher alive. Gen-guarded so a crashed incarnation's cleanup
+            # can't clobber a successor spawned after a normal exit.
+            with self._lock:
+                if self._gen == gen and self._live:
+                    self._live = False
+
+    def _drain(self, linger: float) -> None:
+        cap = max(cnf.GROUP_COMMIT_MAX_TXNS, 1)
+        while True:
+            # clear BEFORE reading the queue: a submitter appends before it
+            # sets the event, so either the drain below sees its txn or the
+            # wait below sees its wakeup — no lost-signal linger stall
+            self._wake.clear()
+            with self._lock:
+                batch = self._queue[:cap]
+                del self._queue[: len(batch)]
+            if batch:
+                try:
+                    self._flush(batch)
+                except BaseException as e:
+                    # a crash past the drain must still resolve every
+                    # drained slot — these txns are no longer in the queue,
+                    # so the submitter self-rescue can never reach them.
+                    # Slots _flush already resolved (done set) are left
+                    # alone: a member whose backend commit succeeded must
+                    # not be re-marked failed after its submitter returned.
+                    for _, _, slot in batch:
+                        if not slot.done.is_set():
+                            if slot.error is None:
+                                slot.error = e
+                            slot.done.set()
+                    raise
+                continue
+            if linger <= 0 or self._closed or not self._wake.wait(linger):
+                with self._lock:
+                    if not self._queue:
+                        self._live = False
+                        return
+                    # work arrived between timeout and lock: keep going
+
+    def _flush(self, batch: List[tuple]) -> None:
+        from surrealdb_tpu_torch import faults, telemetry
+
+        # chaos hook: a flusher that dies HERE exercises the whole rescue
+        # chain — drained slots resolve with the error (commit callers see
+        # a clean failure), _live un-latches, submitters self-rescue
+        faults.fire("kvs.group_commit.flush")
+        ds = self._ds()
+        sink = _ColumnSink()
+        lock = ds.commit_lock if ds is not None else None
+        # ONE commit-lock hold for the whole group: per-member version
+        # bumps + backend commits, then one combined delta application.
+        # The span feeds the txn_group_commit duration histogram (and the
+        # flight recorder names the thread bg:group_commit:flush).
+        with telemetry.span("txn_group_commit"):
+            if lock is not None:
+                lock.acquire()
+            try:
+                for i, (txn, ctx, slot) in enumerate(batch):
+                    try:
+                        # the submitter's contextvars (trace/span identity)
+                        # ride along: txn_commit spans attribute to the
+                        # right request, not to the flusher thread
+                        ctx.run(txn.commit_direct, sink)
+                    except Exception as e:  # per-member outcome channel
+                        slot.error = e
+                    except BaseException as e:
+                        # process-shutdown class (KeyboardInterrupt /
+                        # SystemExit / injected panics): resolve THIS member
+                        # and every not-yet-committed one, then propagate —
+                        # already-committed members keep their success, and
+                        # the flush must not keep committing through it
+                        slot.error = e
+                        for _, _, s in batch[i + 1:]:
+                            if s.error is None:
+                                s.error = e
+                        raise
+                try:
+                    sink.flush()
+                except Exception:
+                    # derived-state upkeep is best-effort past this point:
+                    # commits are durable, stale mirrors can't serve
+                    # (version mismatch), and the flusher must stay alive —
+                    # but the decline has to be countable
+                    telemetry.inc("column_mirror_delta", outcome="flush_error")
+            finally:
+                if lock is not None:
+                    lock.release()
+                for _, _, slot in batch:
+                    slot.done.set()
+        telemetry.observe_hist(
+            "txn_group_commit_width", len(batch), buckets=telemetry.COUNT_BUCKETS
+        )
+
+    # ------------------------------------------------------------ teardown
+    def close(self, timeout: float = 5.0) -> None:
+        """Flush anything queued and retire the flusher thread."""
+        with self._lock:
+            self._closed = True
+            t = self._thread
+        self._wake.set()
+        if t is not None and t.is_alive():
+            t.join(timeout)
+
+
+class Datastore:
+    """The engine root. `device` is where the device-resident index mirrors
+    live and the kernels run: "cuda" (the default) needs a CUDA device and
+    raises without one; only an explicit "cpu" runs the plain PyTorch
+    versions. Mirrors and plans read it as `ctx.ds().device`."""
+
+    def __init__(self, path: str = "memory", clock=None, device="cuda"):
+        import torch
+
+        device = torch.device(device)
+        if device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "Datastore(device='cuda') needs a CUDA device and none is "
+                    "available; pass device='cpu' to run the plain PyTorch versions"
+                )
+            if device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
+        elif device.type != "cpu":
+            raise ValueError(f"unsupported device {device}")
+        self.device = device
+        self.path = path
+        self.backend = self._open(path)
+        self.clock = clock or SystemClock()
+        self.oracle = Oracle()
+        self.node_id = _uuid.uuid4()
+        # device-resident index mirrors (vector / graph / ft columnar snapshots)
+        from surrealdb_tpu_torch.idx.store import IndexStores
+        from surrealdb_tpu_torch.idx.graph_csr import GraphMirrors
+
+        from surrealdb_tpu_torch.dbs.dispatch import DispatchQueue
+        from surrealdb_tpu_torch.idx.builder import IndexBuilder
+
+        self.index_stores = IndexStores()
+        self.graph_mirrors = GraphMirrors()
+        # ingest-time mirror builds + count-kernel prewarm need a Datastore
+        # to open scan transactions from the background timer thread
+        self.graph_mirrors.bind_ds(self)
+        # columnar table mirrors backing the vectorized WHERE/projection
+        # scan path (idx/column_mirror.py)
+        from surrealdb_tpu_torch.idx.column_mirror import ColumnMirrors
+
+        self.column_mirrors = ColumnMirrors()
+        self.column_mirrors.bind_ds(self)
+        # cross-query device dispatch coalescing (dbs/dispatch.py)
+        self.dispatch = DispatchQueue()
+        # fingerprint-keyed plan & pipeline cache (dbs/plan_cache.py):
+        # hot statement shapes serve their template AST, dispatch
+        # skeleton, pipeline lowering, and planner schema prefetch
+        # without re-parsing or re-planning (validation-on-serve)
+        from surrealdb_tpu_torch.dbs.plan_cache import PlanCache
+
+        self.plan_cache = PlanCache(self)
+        # background index builds (DEFINE INDEX ... CONCURRENTLY)
+        self.index_builder = IndexBuilder(self)
+        # serializes backend commit + mirror-delta application so two
+        # concurrently committing transactions can't apply graph/vector
+        # deltas in the opposite order of their backend commits (advisor r2)
+        self.commit_lock = _locks.Lock("kvs.commit")
+        # bounded-latency write-commit coalescer (bulk-ingest group commit)
+        self.group_commit = GroupCommit(self)
+        # live queries: uuid(hex) -> LiveSubscription (registered in M10)
+        self.notifications = None  # set by enable_notifications()
+        self.auth_enabled = False
+        # operator-controllable allow/deny policy (dbs/capabilities.py;
+        # reference core/src/dbs/capabilities.rs). Servers override from
+        # CLI/env; embedded use keeps the defaults.
+        from surrealdb_tpu_torch.dbs.capabilities import Capabilities
+
+        self.capabilities = Capabilities.default()
+        # always-on sampling profiler (profiler.py): one process-global
+        # supervised service, started with the first engine instance
+        # (SURREAL_PROFILE_HZ=0 keeps it off); every later call is a no-op
+        from surrealdb_tpu_torch import profiler as _profiler
+
+        _profiler.ensure_started()
+        # advisor plane (advisor.py): observe->propose sweeps over this
+        # instance's planes; same one-shot process-global service shape
+        # (SURREAL_ADVISOR=0 keeps it off), later instances just register
+        from surrealdb_tpu_torch import advisor as _advisor
+
+        _advisor.ensure_started(self)
+        # cluster mode (surrealdb_tpu_torch/cluster/): when attach()ed, execute()
+        # routes through the distributed scatter/gather executor; the
+        # internal /cluster channel and the executor's own sub-queries run
+        # execute_local() against this node's shard
+        self.cluster = None
+
+    @staticmethod
+    def _open(path: str) -> BackendDatastore:
+        scheme, _, rest = path.partition("://")
+        if path in ("memory", "mem") or scheme in ("mem", "memory"):
+            return MemDatastore()
+        if scheme in ("file", "surrealkv", "rocksdb"):
+            raise NotImplementedError(
+                "the file backend (kvs/file.py) is not ported yet; see ROADMAP"
+            )
+        raise KvsError(f"Unknown datastore path {path!r}")
+
+    # ------------------------------------------------------------ txns
+    def transaction(self, write: bool = False) -> Transaction:
+        txn = Transaction(
+            self.backend.transaction(write), self.oracle, self.clock, self.graph_mirrors
+        )
+        txn._index_stores = self.index_stores
+        txn._column_mirrors = self.column_mirrors
+        txn._commit_lock = self.commit_lock
+        txn._group = self.group_commit
+        cluster = self.cluster
+        if cluster is not None:
+            # cluster mode: every record write mints an HLC stamp under
+            # this node's identity (cluster/hlc.py LWW convergence)
+            txn.hlc_node = cluster.node_id
+        return txn
+
+    # ------------------------------------------------------------ notifications
+    def enable_notifications(self) -> None:
+        from surrealdb_tpu_torch.dbs.notification import NotificationHub
+
+        if self.notifications is None:
+            self.notifications = NotificationHub()
+
+    # ------------------------------------------------------------ execution
+    def execute(
+        self,
+        text: str,
+        session=None,
+        vars: Optional[Dict[str, Any]] = None,
+    ) -> List[dict]:
+        """Parse and run a SurrealQL query string; returns a list of response
+        dicts {status, result|error, time} (reference kvs/ds.rs:768). In
+        cluster mode the statement routes through the distributed executor
+        (scatter to shard owners, merge results) instead of running against
+        this node's local shard alone."""
+        if self.cluster is not None:
+            from surrealdb_tpu_torch.dbs.session import Session
+
+            return self.cluster.executor.execute(
+                text, session or Session.owner(), vars
+            )
+        return self.execute_local(text, session, vars)
+
+    def execute_local(
+        self,
+        text: str,
+        session=None,
+        vars: Optional[Dict[str, Any]] = None,
+    ) -> List[dict]:
+        """Single-node execution against THIS node's data — the only entry
+        the cluster executor and the /cluster RPC channel use (routing back
+        through execute() would recurse the scatter)."""
+        from surrealdb_tpu_torch import tracing
+        from surrealdb_tpu_torch.syn import parse_query
+        from surrealdb_tpu_torch.dbs.session import Session
+
+        # the executor level of the span tree: a root trace for embedded
+        # callers (SDK/bench), a child span under an HTTP/WS/RPC ingress.
+        # The sql label is trace-only (tracing never feeds metric families,
+        # so truncated statement text can't mint unbounded series).
+        with tracing.request("execute", sql=text[:120]):
+            # plan-cache front: a hot shape serves its shared template AST
+            # (with this text's literal values bound as executor slots)
+            # and skips the parse entirely; cold parses are observed so
+            # the shape installs once it crosses the min-hits floor
+            served = self.plan_cache.fetch(text)
+            if served is not None:
+                return self.process(
+                    served.query,
+                    session or Session.owner(),
+                    vars,
+                    slot_values=served.slot_values,
+                    cache_warm=True,
+                )
+            t0 = _time.perf_counter()
+            ast = parse_query(text)
+            self.plan_cache.observe(
+                text, ast, (_time.perf_counter() - t0) * 1e6
+            )
+            return self.process(ast, session or Session.owner(), vars)
+
+    def process(
+        self,
+        ast,
+        session,
+        vars: Optional[Dict[str, Any]] = None,
+        slot_values: Optional[tuple] = None,
+        cache_warm: bool = False,
+    ) -> List[dict]:
+        from surrealdb_tpu_torch.dbs.executor import Executor
+
+        ex = Executor(self, session, vars or {})
+        # plan-cache slot bindings ride the per-query executor (every
+        # child Context shares it), never the shared template AST
+        ex.slot_values = slot_values
+        ex.cache_warm = cache_warm
+        return ex.execute(ast)
+
+    def compute(self, expr, session, vars: Optional[Dict[str, Any]] = None):
+        """Evaluate one expression against a fresh read transaction
+        (reference kvs/ds.rs compute/evaluate)."""
+        from surrealdb_tpu_torch.dbs.executor import Executor
+
+        ex = Executor(self, session, vars or {})
+        return ex.compute_expression(expr)
+
+    # ------------------------------------------------------------ mesh
+    def mesh(self):
+        """The device mesh for sharded mirrors. This package runs on one
+        card, so there is none: the multi-GPU mesh (parallel/mesh.py) is
+        the last queue of the ROADMAP."""
+        return None
+
+    # ------------------------------------------------------------ maintenance
+    def tick(self) -> int:
+        """One maintenance pass (reference kvs/ds.rs tick + the SDK's
+        background tasks engine/tasks.rs:45-51): refresh this node's
+        heartbeat, archive stale nodes, clean up dead nodes' live queries,
+        then changefeed GC. Called periodically by the server loop;
+        embedded users may call it directly. Returns the number of change
+        entries collected."""
+        from surrealdb_tpu_torch.cf.gc import gc_all
+        from surrealdb_tpu_torch.kvs import node as _node
+
+        _node.heartbeat(self)
+        _node.expire_nodes(self)
+        _node.remove_archived(self)
+        return gc_all(self)
+
+    def bootstrap(self) -> None:
+        """Startup membership protocol (reference ds.rs:623)."""
+        from surrealdb_tpu_torch.kvs import node as _node
+
+        _node.bootstrap(self)
+
+    def close(self) -> None:
+        """Close the backend AND tear down this datastore's background
+        machinery: cancel armed mirror-rebuild/prewarm timers, join running
+        tasks, and (when the whole registry goes idle) park the flight-
+        recorder watchdog — no daemon-thread leaks under pytest."""
+        from surrealdb_tpu_torch import bg
+
+        try:
+            if self.cluster is not None:
+                if self.cluster.client is not None:
+                    self.cluster.client.shutdown()
+                if self.cluster.executor is not None:
+                    self.cluster.executor.shutdown()
+            self.group_commit.close()
+            self.column_mirrors.shutdown()
+            self.graph_mirrors.shutdown()
+            bg.shutdown(owner=id(self))
+        except Exception:  # noqa: BLE001 — teardown must never mask close()
+            # counted, not silent: a teardown failure that skipped the rest
+            # of the shutdown chain is a leak suspect worth a metric. The
+            # recording itself is best-effort (interpreter shutdown can have
+            # torn modules down) — backend.close() below must still run.
+            import contextlib
+
+            with contextlib.suppress(Exception):
+                from surrealdb_tpu_torch import telemetry
+
+                telemetry.inc("teardown_errors", stage="datastore_close")
+        self.backend.close()

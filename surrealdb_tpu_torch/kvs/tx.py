@@ -1,0 +1,826 @@
+"""Transaction: catalog-aware wrapper over a backend transaction.
+
+Role of the reference's cached Transaction + Transactor pair (reference:
+core/src/kvs/tx.rs:42, core/src/kvs/tr.rs:76): raw KV verbs plus ~70 typed
+catalog accessors with a per-transaction cache, changefeed buffering completed
+at commit, and record/graph helpers.
+
+Definitions (namespace/database/table/field/index/...) are stored as plain
+dicts (produced by the DEFINE statement AST) packed with the value codec.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+from surrealdb_tpu_torch import key as keys
+from surrealdb_tpu_torch.err import DbNotFoundError, NsNotFoundError, TbNotFoundError
+from surrealdb_tpu_torch.utils.ser import pack, unpack
+
+from .api import KV, BackendTransaction
+from .vs import Oracle
+
+
+class Transaction:
+    def __init__(self, backend: BackendTransaction, oracle: Oracle, clock, graph_mirrors=None):
+        self.tr = backend
+        self.oracle = oracle
+        self.clock = clock
+        self.cache: Dict[bytes, Any] = {}
+        # changefeed buffer: (ns, db, tb) -> list of mutation dicts
+        self.cf_buffer: Dict[Tuple[str, str, str], List[dict]] = {}
+        # index-mirror deltas buffered until commit, then applied to the
+        # shared device mirrors (incremental maintenance — idx/graph_csr.py,
+        # idx/knn.py); a cancelled transaction never touches the mirrors
+        self.graph_deltas: List[tuple] = []
+        self.vector_deltas: List[tuple] = []
+        self.ft_deltas: List[tuple] = []
+        # tables whose RECORD keyspace this txn wrote (set_record/del_record/
+        # bulk ingest) + coarser dropped scopes (REMOVE ns/db/table): at
+        # commit these bump the columnar-mirror version counters so a stale
+        # column mask can never serve (idx/column_mirror.py protocol)
+        self.touched_tables: set = set()
+        self.touched_scopes: set = set()
+        # tables written ROW-AT-A-TIME (set_record/del_record/raw deletes):
+        # a bulk column delta for such a table is not the complete picture
+        # of this txn's writes, so the delta-feed must decline it
+        self.touched_row_tables: set = set()
+        # bulk ingest delta-feed blocks: (key3, ids, enc_keys, docs) handed
+        # to ColumnMirrors.apply_bulk after a successful backend commit
+        self.column_deltas: List[tuple] = []
+        self._graph_mirrors = graph_mirrors
+        self._column_mirrors = None  # set by Datastore.transaction
+        self._group = None  # set by Datastore.transaction (GroupCommit)
+        self._index_stores = None  # set by Datastore.transaction
+        # callbacks run strictly after a successful commit (mirror drops on
+        # REMOVE …— running them at statement time would let a concurrent
+        # rebuild resurrect state the uncommitted delete was about to erase)
+        self._on_commit: List = []
+        self._commit_lock = None  # set by Datastore.transaction
+        # HLC last-writer-wins stamping (cluster/hlc.py): the node id to
+        # mint per-record write stamps under, or None (single-node mode —
+        # the stamp keyspace stays empty, zero overhead)
+        self.hlc_node: Optional[str] = None
+        self.write = backend.write
+
+    # ------------------------------------------------------------ lifecycle
+    def __del__(self):
+        """Leak detector (reference: core/src/kvs/mem/mod.rs:29-56 — the
+        mem backend asserts a transaction is completed before drop). A
+        transaction garbage-collected unfinished is an engine bug: its
+        buffered writes silently vanish and its MVCC snapshot pins the
+        version-chain GC horizon. Count it, release the snapshot, warn —
+        and raise under pytest, which surfaces as a loud unraisable-
+        exception traceback + PytestUnraisableExceptionWarning (a raise in
+        __del__ cannot fail the test itself, and GC timing may attribute
+        it to a later test than the leaker)."""
+        try:
+            tr = self.tr
+            if tr.done:
+                return
+            leaked_write = bool(self.write)
+            tr.cancel()  # always release the snapshot refcount
+            if not leaked_write:
+                return
+            import warnings
+
+            from surrealdb_tpu_torch import cnf, telemetry
+
+            telemetry.inc("unfinished_txns")
+            msg = (
+                "write transaction garbage-collected with uncommitted writes "
+                "(missing commit()/cancel())"
+            )
+            if cnf.under_pytest():
+                raise RuntimeError(msg)
+            warnings.warn(msg, ResourceWarning, stacklevel=2)
+        except (AttributeError, ImportError, TypeError):
+            pass  # interpreter shutdown: modules may already be torn down
+
+    def commit(self) -> None:
+        # write commits coalesce through the datastore's GroupCommit flusher
+        # (kvs/ds.py): same semantics — this call still returns only after
+        # THIS transaction's backend commit (or conflict error) — but a
+        # stream/burst of bulk commits drains as one flush: one commit-lock
+        # hold, combined per-table version bumps and ONE combined column
+        # delta application
+        group = self._group
+        if group is not None and self.write and not self.done:
+            if group.submit(self):
+                return
+        self.commit_direct()
+
+    def commit_direct(self, column_sink=None) -> None:
+        from surrealdb_tpu_torch import faults, telemetry
+
+        # chaos hook: a commit that fails HERE fails before the backend
+        # commit — the caller sees the error and the write provably did
+        # not land (the no-lost-acknowledged-writes invariant's dual)
+        faults.fire("kvs.commit")
+        # the kvs level of the request's span tree (+ a write-labeled
+        # duration histogram): commit-lock waits and mirror-delta
+        # application show up here when they stall a query
+        with telemetry.span("txn_commit", write=str(bool(self.write)).lower()):
+            self.complete_changes()
+            # backend commit + mirror-delta application must be one atomic
+            # unit across threads: without the datastore-level lock two
+            # committing transactions could apply their deltas in the
+            # opposite order of their backend commits and leave shared
+            # mirrors diverged from KV
+            if self._commit_lock is not None and (
+                self.graph_deltas
+                or self.vector_deltas
+                or self.ft_deltas
+                or self._on_commit
+                or self.touched_tables
+                or self.touched_scopes
+            ):
+                if column_sink is not None:
+                    # group-commit leader: already inside the commit lock
+                    from surrealdb_tpu_torch.utils import locks as _locks
+
+                    _locks.assert_held(self._commit_lock, "group commit drain")
+                    self._commit_and_apply(column_sink)
+                else:
+                    with self._commit_lock:
+                        self._commit_and_apply()
+            else:
+                self._commit_and_apply(column_sink)
+
+    def _commit_and_apply(self, column_sink=None) -> None:
+        cm = self._column_mirrors
+        if cm is not None and (self.touched_tables or self.touched_scopes):
+            # BEFORE the backend commit (and under the datastore commit
+            # lock, see commit()): any reader whose snapshot will include
+            # these writes then provably sees the bumped version too
+            if self._commit_lock is not None:
+                from surrealdb_tpu_torch.utils import locks as _locks
+
+                _locks.assert_held(
+                    self._commit_lock, "column_mirror.versions (commit bump)"
+                )
+            cm.invalidate(self.touched_tables, self.touched_scopes)
+        self.tr.commit()
+        touched, self.touched_tables = self.touched_tables, set()
+        self.touched_scopes = set()
+        if cm is not None and touched:
+            if column_sink is not None:
+                # group-commit leader combines the whole flush's deltas
+                # into one application pass after every backend commit
+                column_sink.add(self, touched)
+            else:
+                self._apply_column_deltas(cm, touched)
+        self.column_deltas = []
+        if self.graph_deltas and self._graph_mirrors is not None:
+            self._graph_mirrors.apply_deltas(self.graph_deltas)
+            self.graph_deltas = []
+        if self.vector_deltas and self._index_stores is not None:
+            from surrealdb_tpu_torch import faults
+
+            # chaos hook AFTER the backend commit: an injected failure here
+            # exercises the mirror-diverged recovery story (the commit is
+            # durable; a stale vector mirror must rebuild, never serve)
+            faults.fire("vector.delta_apply")
+            for ns, db, tb, name, rid, vec in self.vector_deltas:
+                mirror = self._index_stores.get(ns, db, tb, name)
+                if mirror is None:
+                    continue
+                if isinstance(rid, list):
+                    # bulk block: one lock hold + one [B, D] array append
+                    if hasattr(mirror, "apply_many"):
+                        mirror.apply_many(rid, vec)
+                    elif hasattr(mirror, "apply"):
+                        for r, v in zip(rid, vec):
+                            mirror.apply(r, v)
+                elif hasattr(mirror, "apply"):
+                    # apply() buffers during a build and no-ops when unbuilt
+                    mirror.apply(rid, vec)
+            self.vector_deltas = []
+        if self.ft_deltas and self._index_stores is not None:
+            for d in self.ft_deltas:
+                mirror = self._index_stores.get(d[1], d[2], d[3], d[4])
+                if mirror is None:
+                    continue
+                if d[0] == "doc" and hasattr(mirror, "apply_ft"):
+                    mirror.apply_ft(*d[5:])
+                elif d[0] == "bulk" and hasattr(mirror, "apply_ft_bulk"):
+                    mirror.apply_ft_bulk(*d[5:])
+            self.ft_deltas = []
+        for fn in self._on_commit:
+            fn()
+        self._on_commit = []
+
+    def _apply_column_deltas(self, cm, touched) -> None:
+        """Post-commit mirror upkeep for this txn's bulk blocks: tables whose
+        delta applied cleanly serve the mirror immediately and skip the
+        debounced re-scan rebuild; everything else falls back to it."""
+        applied: set = set()
+        if self.column_deltas:
+            cv = getattr(self.tr, "commit_version", None)
+            by_tb: Dict[tuple, List[tuple]] = {}
+            for key3, ids, eks, docs in self.column_deltas:
+                by_tb.setdefault(key3, []).append((ids, eks, docs))
+            for key3, parts in by_tb.items():
+                try:
+                    ok = (
+                        key3 in touched
+                        and key3 not in self.touched_row_tables
+                        and cm.apply_bulk(key3, parts, 1, cv)
+                    )
+                except Exception:
+                    # a delta-apply failure must never fail the COMMIT —
+                    # the KV write is already durable; fall back to the
+                    # debounced rebuild (the stale mirror cannot serve:
+                    # its version no longer matches)
+                    ok = False
+                if ok:
+                    applied.add(key3)
+        left = touched - applied
+        if left:
+            cm.schedule_rebuild(left)
+
+    def on_commit(self, fn) -> None:
+        """Defer a side effect until this transaction has committed."""
+        self._on_commit.append(fn)
+
+    # ------------------------------------------------------------ savepoints
+    def savepoint(self):
+        """Mark the uncommitted state so a mid-record failure can roll back
+        just its own writes (role of the reference's kvs savepoints backing
+        the RetryWithId protocol, doc/process.rs:24-120). O(1): the backend
+        records an undo log from here on; delta buffers are append-only so
+        their lengths suffice."""
+        tr = self.tr
+        if getattr(tr, "undo", None) is None:
+            tr.undo = []
+        return (
+            len(tr.undo),
+            {k: len(v) for k, v in self.cf_buffer.items()},
+            len(self.graph_deltas),
+            len(self.vector_deltas),
+            len(self.ft_deltas),
+            len(self._on_commit),
+            len(self.column_deltas),
+        )
+
+    def rollback_to(self, sp) -> None:
+        n_undo, cf_lens, ng, nv, nf, noc, ncd = sp
+        tr = self.tr
+        undo = getattr(tr, "undo", None)
+        if undo is not None:
+            from surrealdb_tpu_torch.kvs.mem import _ABSENT
+
+            for key, prev in reversed(undo[n_undo:]):
+                if prev is _ABSENT:
+                    tr.writes.pop(key, None)
+                else:
+                    tr.writes[key] = prev
+            del undo[n_undo:]
+        for k in list(self.cf_buffer):
+            if k in cf_lens:
+                del self.cf_buffer[k][cf_lens[k] :]
+            else:
+                del self.cf_buffer[k]
+        self.graph_deltas = self.graph_deltas[:ng]
+        self.vector_deltas = self.vector_deltas[:nv]
+        self.ft_deltas = self.ft_deltas[:nf]
+        self._on_commit = self._on_commit[:noc]
+        self.column_deltas = self.column_deltas[:ncd]
+        # catalog entries written in the rolled-back span (ensure_tb etc.)
+        # would otherwise survive in the cache while their KV rows are gone
+        self.cache.clear()
+
+    def graph_delta(self, ns, db, src_tb, d: bytes, ft: str, src, dst, add: bool) -> None:
+        """Record one edge-pointer mutation for post-commit mirror upkeep."""
+        self.graph_deltas.append((ns, db, src_tb, bytes(d), ft, src, dst, add))
+
+    def vector_delta(self, ns, db, tb, name, rid, vec) -> None:
+        """Record one vector-row mutation for post-commit mirror upkeep."""
+        self.vector_deltas.append((ns, db, tb, name, rid, vec))
+
+    def vector_bulk_delta(self, ns, db, tb, name, rids, vecs) -> None:
+        """Record one bulk-ingested vector block ([B, D] f32) — applied as
+        ONE mirror append (VectorMirror.apply_many) instead of B per-row
+        lock round-trips."""
+        self.vector_deltas.append((ns, db, tb, name, list(rids), vecs))
+
+    def bulk_column_delta(self, ns, db, tb, ids, enc_keys, docs) -> None:
+        """Record one bulk op's decoded rows for the column-mirror delta
+        feed (idx/column_mirror.py apply_bulk): the batch was decoded once
+        by doc/bulk.py, so the mirror appends typed blocks at commit
+        instead of arming a full re-scan rebuild."""
+        self.touched_tables.add((ns, db, tb))
+        self.column_deltas.append(((ns, db, tb), ids, enc_keys, docs))
+
+    def ft_delta(self, ns, db, tb, name, rid, did, old_tf, new_tf, new_len) -> None:
+        """Record one full-text document mutation for post-commit mirror
+        upkeep (idx/ft_mirror.py)."""
+        self.ft_deltas.append(("doc", ns, db, tb, name, rid, did, old_tf, new_tf, new_len))
+
+    def ft_bulk_delta(self, ns, db, tb, name, start, terms, lens, rids) -> None:
+        """Record one bulk-ingested batch (packed chunk arrays) for
+        post-commit mirror upkeep (idx/ft_mirror.py apply_ft_bulk)."""
+        self.ft_deltas.append(("bulk", ns, db, tb, name, start, terms, lens, rids))
+
+    def cancel(self) -> None:
+        self.tr.cancel()
+
+    @property
+    def done(self) -> bool:
+        return self.tr.done
+
+    # ------------------------------------------------------------ raw verbs
+    def get(self, key: bytes, version: Optional[int] = None) -> Optional[bytes]:
+        return self.tr.get(key, version)
+
+    def set(self, key: bytes, val: bytes) -> None:
+        self.tr.set(key, val)
+
+    def put(self, key: bytes, val: bytes) -> None:
+        self.tr.put(key, val)
+
+    def putc(self, key: bytes, val: bytes, chk: Optional[bytes]) -> None:
+        self.tr.putc(key, val, chk)
+
+    def delete(self, key: bytes) -> None:
+        self.tr.delete(key)
+
+    def delc(self, key: bytes, chk: Optional[bytes]) -> None:
+        self.tr.delc(key, chk)
+
+    def exists(self, key: bytes) -> bool:
+        return self.tr.exists(key)
+
+    def keys(self, beg: bytes, end: bytes, limit: int = -1) -> List[bytes]:
+        return self.tr.keys(beg, end, limit)
+
+    def scan(self, beg: bytes, end: bytes, limit: int = -1) -> List[KV]:
+        return self.tr.scan(beg, end, limit)
+
+    def batch(self, beg: bytes, end: bytes, batch_size: int) -> Iterable[List[KV]]:
+        return self.tr.batch(beg, end, batch_size)
+
+    def delr(self, beg: bytes, end: bytes) -> None:
+        self.tr.delr(beg, end)
+
+    def scan_prefix(self, prefix: bytes, limit: int = -1) -> List[KV]:
+        from surrealdb_tpu_torch.key.encode import prefix_end
+
+        return self.tr.scan(prefix, prefix_end(prefix), limit)
+
+    # ------------------------------------------------------------ obj verbs
+    def get_obj(self, key: bytes) -> Optional[Any]:
+        raw = self.tr.get(key)
+        return None if raw is None else unpack(raw)
+
+    def set_obj(self, key: bytes, val: Any) -> None:
+        self.tr.set(key, pack(val))
+
+    def _cached(self, key: bytes, loader):
+        if key in self.cache:
+            return self.cache[key]
+        v = loader()
+        self.cache[key] = v
+        return v
+
+    def _get_obj_cached(self, key: bytes) -> Optional[Any]:
+        return self._cached(key, lambda: self.get_obj(key))
+
+    def _scan_objs(self, prefix: bytes) -> List[Any]:
+        from surrealdb_tpu_torch.key.encode import prefix_end
+
+        return [unpack(v) for _, v in self.tr.scan(prefix, prefix_end(prefix))]
+
+    # ------------------------------------------------------------ namespaces
+    def all_ns(self) -> List[dict]:
+        return self._scan_objs(keys.namespace_prefix())
+
+    def get_ns(self, ns: str) -> Optional[dict]:
+        return self._get_obj_cached(keys.namespace(ns))
+
+    def expect_ns(self, ns: str) -> dict:
+        d = self.get_ns(ns)
+        if d is None:
+            raise NsNotFoundError(ns)
+        return d
+
+    def put_ns(self, ns: str, d: dict) -> None:
+        k = keys.namespace(ns)
+        self.set_obj(k, d)
+        self.cache[k] = d
+
+    def del_ns(self, ns: str) -> None:
+        k = keys.namespace(ns)
+        self.tr.delete(k)
+        self.cache.pop(k, None)
+
+    def ensure_ns(self, ns: str) -> dict:
+        d = self.get_ns(ns)
+        if d is None:
+            d = {"name": ns, "comment": None}
+            self.put_ns(ns, d)
+        return d
+
+    # ------------------------------------------------------------ databases
+    def all_db(self, ns: str) -> List[dict]:
+        return self._scan_objs(keys.database_prefix(ns))
+
+    def get_db(self, ns: str, db: str) -> Optional[dict]:
+        return self._get_obj_cached(keys.database(ns, db))
+
+    def expect_db(self, ns: str, db: str) -> dict:
+        d = self.get_db(ns, db)
+        if d is None:
+            raise DbNotFoundError(db)
+        return d
+
+    def put_db(self, ns: str, db: str, d: dict) -> None:
+        k = keys.database(ns, db)
+        self.set_obj(k, d)
+        self.cache[k] = d
+
+    def del_db(self, ns: str, db: str) -> None:
+        k = keys.database(ns, db)
+        self.tr.delete(k)
+        self.cache.pop(k, None)
+
+    def ensure_db(self, ns: str, db: str) -> dict:
+        self.ensure_ns(ns)
+        d = self.get_db(ns, db)
+        if d is None:
+            d = {"name": db, "comment": None, "changefeed": None}
+            self.put_db(ns, db, d)
+        return d
+
+    # ------------------------------------------------------------ tables
+    def all_tb(self, ns: str, db: str) -> List[dict]:
+        return self._scan_objs(keys.table_prefix(ns, db))
+
+    def get_tb(self, ns: str, db: str, tb: str) -> Optional[dict]:
+        return self._get_obj_cached(keys.table(ns, db, tb))
+
+    def expect_tb(self, ns: str, db: str, tb: str) -> dict:
+        d = self.get_tb(ns, db, tb)
+        if d is None:
+            raise TbNotFoundError(tb)
+        return d
+
+    def put_tb(self, ns: str, db: str, tb: str, d: dict) -> None:
+        k = keys.table(ns, db, tb)
+        self.set_obj(k, d)
+        self.cache[k] = d
+
+    def del_tb(self, ns: str, db: str, tb: str) -> None:
+        k = keys.table(ns, db, tb)
+        self.tr.delete(k)
+        self.cache.pop(k, None)
+
+    def ensure_tb(self, ns: str, db: str, tb: str) -> dict:
+        self.ensure_db(ns, db)
+        d = self.get_tb(ns, db, tb)
+        if d is None:
+            d = {
+                "name": tb,
+                "drop": False,
+                "schemafull": False,
+                "kind": "ANY",  # ANY | NORMAL | RELATION
+                "relation_in": None,
+                "relation_out": None,
+                "enforced": False,
+                "view": None,
+                "permissions": None,
+                "changefeed": None,
+                "comment": None,
+            }
+            self.put_tb(ns, db, tb, d)
+        return d
+
+    # ------------------------------------------------------------ fields
+    def all_tb_fields(self, ns: str, db: str, tb: str) -> List[dict]:
+        return self._cached(
+            keys.field_prefix(ns, db, tb),
+            lambda: self._scan_objs(keys.field_prefix(ns, db, tb)),
+        )
+
+    def get_tb_field(self, ns: str, db: str, tb: str, fd: str) -> Optional[dict]:
+        return self.get_obj(keys.field(ns, db, tb, fd))
+
+    def put_tb_field(self, ns: str, db: str, tb: str, fd: str, d: dict) -> None:
+        self.set_obj(keys.field(ns, db, tb, fd), d)
+        self.cache.pop(keys.field_prefix(ns, db, tb), None)
+
+    def del_tb_field(self, ns: str, db: str, tb: str, fd: str) -> None:
+        self.tr.delete(keys.field(ns, db, tb, fd))
+        self.cache.pop(keys.field_prefix(ns, db, tb), None)
+
+    # ------------------------------------------------------------ indexes
+    def all_tb_indexes(self, ns: str, db: str, tb: str) -> List[dict]:
+        return self._cached(
+            keys.index_def_prefix(ns, db, tb),
+            lambda: self._scan_objs(keys.index_def_prefix(ns, db, tb)),
+        )
+
+    def get_tb_index(self, ns: str, db: str, tb: str, ix: str) -> Optional[dict]:
+        return self.get_obj(keys.index_def(ns, db, tb, ix))
+
+    def put_tb_index(self, ns: str, db: str, tb: str, ix: str, d: dict) -> None:
+        self.set_obj(keys.index_def(ns, db, tb, ix), d)
+        self.cache.pop(keys.index_def_prefix(ns, db, tb), None)
+
+    def del_tb_index(self, ns: str, db: str, tb: str, ix: str) -> None:
+        self.tr.delete(keys.index_def(ns, db, tb, ix))
+        self.cache.pop(keys.index_def_prefix(ns, db, tb), None)
+
+    # ------------------------------------------------------------ events
+    def all_tb_events(self, ns: str, db: str, tb: str) -> List[dict]:
+        return self._cached(
+            keys.event_prefix(ns, db, tb),
+            lambda: self._scan_objs(keys.event_prefix(ns, db, tb)),
+        )
+
+    # ------------------------------------------------------------ live queries
+    def all_tb_lives(self, ns: str, db: str, tb: str) -> List[bytes]:
+        """Raw packed live-query records for a table, catalog-cached so the
+        per-record mutation hook doesn't rescan the keyspace on every write
+        (reference: doc/lives.rs lq caching via Transaction)."""
+        pre = keys.live_query_prefix(ns, db, tb)
+        from surrealdb_tpu_torch.key.encode import prefix_end
+
+        return self._cached(
+            pre, lambda: [raw for _, raw in self.scan(pre, prefix_end(pre))]
+        )
+
+    def invalidate_tb_lives(self, ns: str, db: str, tb: str) -> None:
+        self.cache.pop(keys.live_query_prefix(ns, db, tb), None)
+
+    def get_tb_event(self, ns: str, db: str, tb: str, ev: str) -> Optional[dict]:
+        return self.get_obj(keys.event(ns, db, tb, ev))
+
+    def put_tb_event(self, ns: str, db: str, tb: str, ev: str, d: dict) -> None:
+        self.set_obj(keys.event(ns, db, tb, ev), d)
+        self.cache.pop(keys.event_prefix(ns, db, tb), None)
+
+    def del_tb_event(self, ns: str, db: str, tb: str, ev: str) -> None:
+        self.tr.delete(keys.event(ns, db, tb, ev))
+        self.cache.pop(keys.event_prefix(ns, db, tb), None)
+
+    # ------------------------------------------------------------ views
+    def all_tb_views(self, ns: str, db: str, tb: str) -> List[dict]:
+        """Foreign tables: views defined AS SELECT ... FROM tb."""
+        return self._cached(
+            keys.foreign_table_prefix(ns, db, tb),
+            lambda: self._scan_objs(keys.foreign_table_prefix(ns, db, tb)),
+        )
+
+    def put_tb_view(self, ns: str, db: str, tb: str, ft: str, d: dict) -> None:
+        self.set_obj(keys.foreign_table(ns, db, tb, ft), d)
+        self.cache.pop(keys.foreign_table_prefix(ns, db, tb), None)
+
+    def del_tb_view(self, ns: str, db: str, tb: str, ft: str) -> None:
+        self.tr.delete(keys.foreign_table(ns, db, tb, ft))
+        self.cache.pop(keys.foreign_table_prefix(ns, db, tb), None)
+
+    # ------------------------------------------------------------ analyzers
+    def all_az(self, ns: str, db: str) -> List[dict]:
+        return self._scan_objs(keys.analyzer_prefix(ns, db))
+
+    def get_az(self, ns: str, db: str, az: str) -> Optional[dict]:
+        return self._get_obj_cached(keys.analyzer(ns, db, az))
+
+    def put_az(self, ns: str, db: str, az: str, d: dict) -> None:
+        k = keys.analyzer(ns, db, az)
+        self.set_obj(k, d)
+        self.cache[k] = d
+
+    def del_az(self, ns: str, db: str, az: str) -> None:
+        k = keys.analyzer(ns, db, az)
+        self.tr.delete(k)
+        self.cache.pop(k, None)
+
+    # ------------------------------------------------------------ functions
+    def all_fc(self, ns: str, db: str) -> List[dict]:
+        return self._scan_objs(keys.function_prefix(ns, db))
+
+    def get_fc(self, ns: str, db: str, fc: str) -> Optional[dict]:
+        return self._get_obj_cached(keys.function(ns, db, fc))
+
+    def put_fc(self, ns: str, db: str, fc: str, d: dict) -> None:
+        k = keys.function(ns, db, fc)
+        self.set_obj(k, d)
+        self.cache[k] = d
+
+    def del_fc(self, ns: str, db: str, fc: str) -> None:
+        k = keys.function(ns, db, fc)
+        self.tr.delete(k)
+        self.cache.pop(k, None)
+
+    # ------------------------------------------------------------ params
+    def all_pa(self, ns: str, db: str) -> List[dict]:
+        return self._scan_objs(keys.param_prefix(ns, db))
+
+    def get_pa(self, ns: str, db: str, pa: str) -> Optional[dict]:
+        return self._get_obj_cached(keys.param(ns, db, pa))
+
+    def put_pa(self, ns: str, db: str, pa: str, d: dict) -> None:
+        k = keys.param(ns, db, pa)
+        self.set_obj(k, d)
+        self.cache[k] = d
+
+    def del_pa(self, ns: str, db: str, pa: str) -> None:
+        k = keys.param(ns, db, pa)
+        self.tr.delete(k)
+        self.cache.pop(k, None)
+
+    # ------------------------------------------------------------ models
+    def all_ml(self, ns: str, db: str) -> List[dict]:
+        return self._scan_objs(keys.model_prefix(ns, db))
+
+    def get_ml(self, ns: str, db: str, ml: str, version: str) -> Optional[dict]:
+        return self._get_obj_cached(keys.model(ns, db, ml, version))
+
+    def put_ml(self, ns: str, db: str, ml: str, version: str, d: dict) -> None:
+        k = keys.model(ns, db, ml, version)
+        self.set_obj(k, d)
+        self.cache[k] = d
+
+    def del_ml(self, ns: str, db: str, ml: str, version: str) -> None:
+        k = keys.model(ns, db, ml, version)
+        self.tr.delete(k)
+        self.cache.pop(k, None)
+
+    # ------------------------------------------------------------ users
+    def get_root_user(self, user: str) -> Optional[dict]:
+        return self.get_obj(keys.root_user(user))
+
+    def all_root_users(self) -> List[dict]:
+        return self._scan_objs(keys.root_user_prefix())
+
+    def put_root_user(self, user: str, d: dict) -> None:
+        self.set_obj(keys.root_user(user), d)
+
+    def del_root_user(self, user: str) -> None:
+        self.tr.delete(keys.root_user(user))
+
+    def get_ns_user(self, ns: str, user: str) -> Optional[dict]:
+        return self.get_obj(keys.ns_user(ns, user))
+
+    def all_ns_users(self, ns: str) -> List[dict]:
+        return self._scan_objs(keys.ns_user_prefix(ns))
+
+    def put_ns_user(self, ns: str, user: str, d: dict) -> None:
+        self.set_obj(keys.ns_user(ns, user), d)
+
+    def del_ns_user(self, ns: str, user: str) -> None:
+        self.tr.delete(keys.ns_user(ns, user))
+
+    def get_db_user(self, ns: str, db: str, user: str) -> Optional[dict]:
+        return self.get_obj(keys.db_user(ns, db, user))
+
+    def all_db_users(self, ns: str, db: str) -> List[dict]:
+        return self._scan_objs(keys.db_user_prefix(ns, db))
+
+    def put_db_user(self, ns: str, db: str, user: str, d: dict) -> None:
+        self.set_obj(keys.db_user(ns, db, user), d)
+
+    def del_db_user(self, ns: str, db: str, user: str) -> None:
+        self.tr.delete(keys.db_user(ns, db, user))
+
+    # ------------------------------------------------------------ accesses
+    def get_access(self, level: tuple, ac: str) -> Optional[dict]:
+        return self.get_obj(self._access_key(level, ac))
+
+    def all_accesses(self, level: tuple) -> List[dict]:
+        if len(level) == 0:
+            return self._scan_objs(keys.root_access_prefix())
+        if len(level) == 1:
+            return self._scan_objs(keys.ns_access_prefix(level[0]))
+        return self._scan_objs(keys.db_access_prefix(level[0], level[1]))
+
+    def put_access(self, level: tuple, ac: str, d: dict) -> None:
+        self.set_obj(self._access_key(level, ac), d)
+
+    def del_access(self, level: tuple, ac: str) -> None:
+        self.tr.delete(self._access_key(level, ac))
+
+    # ------------------------------------------------------------ access grants
+    def get_grant(self, level: tuple, ac: str, gr: str) -> Optional[dict]:
+        return self.get_obj(keys.access_grant(level, ac, gr))
+
+    def put_grant(self, level: tuple, ac: str, gr: str, d: dict) -> None:
+        self.set_obj(keys.access_grant(level, ac, gr), d)
+
+    def all_grants(self, level: tuple, ac: str) -> List[dict]:
+        return self._scan_objs(keys.access_grant_prefix(level, ac))
+
+    def del_grant(self, level: tuple, ac: str, gr: str) -> None:
+        self.tr.delete(keys.access_grant(level, ac, gr))
+
+    @staticmethod
+    def _access_key(level: tuple, ac: str) -> bytes:
+        if len(level) == 0:
+            return keys.root_access(ac)
+        if len(level) == 1:
+            return keys.ns_access(level[0], ac)
+        return keys.db_access(level[0], level[1], ac)
+
+    # ------------------------------------------------------------ records
+    def touch_table(self, ns: str, db: str, tb: str) -> None:
+        """Mark a table's record keyspace as written row-at-a-time by this
+        transaction (columnar-mirror invalidation; raw-write paths like the
+        view maintainer call this explicitly)."""
+        self.touched_tables.add((ns, db, tb))
+        self.touched_row_tables.add((ns, db, tb))
+
+    def touch_table_bulk(self, ns: str, db: str, tb: str) -> None:
+        """Mark a table written ONLY through the bulk block path: versions
+        still bump at commit, but the write-set stays representable as a
+        column delta (touch_table would poison the delta feed)."""
+        self.touched_tables.add((ns, db, tb))
+
+    def touch_scope(self, scope: tuple) -> None:
+        """Coarse invalidation for REMOVE NAMESPACE/DATABASE/TABLE."""
+        self.touched_scopes.add(tuple(scope))
+
+    def get_record(self, ns: str, db: str, tb: str, id_: Any) -> Optional[dict]:
+        raw = self.tr.get(keys.thing(ns, db, tb, id_))
+        return None if raw is None else unpack(raw)
+
+    def set_record(self, ns: str, db: str, tb: str, id_: Any, doc: dict) -> None:
+        self.touched_tables.add((ns, db, tb))
+        self.touched_row_tables.add((ns, db, tb))
+        self.tr.set(keys.thing(ns, db, tb, id_), pack(doc))
+        if self.hlc_node is not None:
+            self.mint_stamp(ns, db, tb, id_)
+
+    def del_record(self, ns: str, db: str, tb: str, id_: Any) -> None:
+        self.touched_tables.add((ns, db, tb))
+        self.touched_row_tables.add((ns, db, tb))
+        self.tr.delete(keys.thing(ns, db, tb, id_))
+        if self.hlc_node is not None:
+            # tombstone: anti-entropy must tell "deleted" from "never
+            # written", or a stale replica's copy would resurrect the record
+            self.mint_stamp(ns, db, tb, id_, dead=True)
+
+    # ------------------------------------------------------------ HLC stamps
+    def mint_stamp(self, ns: str, db: str, tb: str, id_: Any, dead: bool = False) -> None:
+        """Mint + write this record's LWW stamp under THIS node's identity
+        (the cluster write path; no-op shape — callers gate on hlc_node)."""
+        from surrealdb_tpu_torch import faults
+        from surrealdb_tpu_torch.cluster import hlc
+
+        # chaos hook BEFORE the mint: an injected failure here fails the
+        # statement pre-commit — the write provably did not land half-stamped
+        faults.fire("cluster.hlc.stamp")
+        self.put_stamp(ns, db, tb, id_, hlc.now(self.hlc_node), dead=dead)
+
+    def put_stamp(
+        self, ns: str, db: str, tb: str, id_: Any, stamp, dead: bool = False
+    ) -> None:
+        """Write an EXPLICIT stamp (repair/migration apply: the origin
+        replica's stamp must ride along, not be re-minted)."""
+        from surrealdb_tpu_torch.cluster import hlc
+
+        meta: Dict[str, Any] = {"hlc": hlc.encode(stamp)}
+        if dead:
+            meta["dead"] = True
+        self.tr.set(keys.record_meta(ns, db, tb, id_), pack(meta))
+
+    def get_record_meta(self, ns: str, db: str, tb: str, id_: Any) -> Optional[dict]:
+        """The record's replication meta ({"hlc": [...], "dead"?: true}),
+        or None when never stamped (pre-cluster data)."""
+        raw = self.tr.get(keys.record_meta(ns, db, tb, id_))
+        return None if raw is None else unpack(raw)
+
+    def record_exists(self, ns: str, db: str, tb: str, id_: Any) -> bool:
+        return self.tr.exists(keys.thing(ns, db, tb, id_))
+
+    # ------------------------------------------------------------ changefeed
+    def buffer_change(self, ns: str, db: str, tb: str, mutation: dict) -> None:
+        self.cf_buffer.setdefault((ns, db, tb), []).append(mutation)
+
+    def buffer_bulk_change(self, ns: str, db: str, tb: str, rids) -> None:
+        """ONE compact changefeed mutation for a whole bulk op: the record
+        ids only, not a per-row copy of every document. SHOW CHANGES
+        expands it reader-side (cf/reader.py) with a versioned read at the
+        entry's own commit version, so replay values are exactly the
+        committed documents."""
+        self.cf_buffer.setdefault((ns, db, tb), []).append(
+            {"bulk_ids": [r.id for r in rids]}
+        )
+
+    def complete_changes(self) -> None:
+        """Write buffered changefeed mutations under versionstamped keys
+        (reference Transactor::complete_changes, kvs/tr.rs:600)."""
+        if not self.cf_buffer:
+            return
+        by_db: Dict[Tuple[str, str], Dict[str, List[dict]]] = {}
+        for (ns, db, tb), muts in self.cf_buffer.items():
+            by_db.setdefault((ns, db), {}).setdefault(tb, []).extend(muts)
+        for (ns, db), tables in by_db.items():
+            now = self.clock.now_nanos()
+            vs = self.oracle.next_vs(now)
+            # ts enables datetime SINCE filtering and retention GC
+            self.tr.set(
+                keys.change(ns, db, vs), pack({"vs": vs, "ts": now, "tables": tables})
+            )
+        self.cf_buffer = {}

@@ -1,0 +1,444 @@
+"""Vectorized WHERE compilation over columnar table mirrors.
+
+Role of the batch-at-a-time predicate evaluation in the columnar-execution
+literature (PAPERS.md — amortize per-row interpretation over column blocks):
+a simple WHERE tree (comparisons, AND/OR/NOT, IN, bare-field truthiness,
+bounded `a.b` path lookups, scalar constants) is lowered ONCE per statement
+onto the table's column arrays (idx/column_mirror.py) and evaluated as numpy
+mask algebra — one C-speed pass over the table instead of a per-row
+`cond.compute` with context-manager scoping.
+
+Semantics contract: a lowered predicate must be EXACTLY truthy(cond.compute)
+per row. Value-domain quirks the masks reproduce:
+  - missing field and explicit NONE are both NONE (get_path semantics);
+  - ordering is value_cmp's total order: different type ordinals compare by
+    ordinal (so `missing < 5` is TRUE — NONE's ordinal is 0);
+  - equality is value_eq (NONE = NONE true; bool never equals number;
+    int/float interoperate; NaN != NaN);
+  - number NaN sorts below every non-NaN number and ties with NaN;
+  - AND/OR/NOT reduce to boolean mask algebra because only truthiness
+    survives a WHERE (the value-returning short-circuit forms agree).
+
+Anything outside this fragment refuses to lower (compile returns None) and
+the statement keeps the row path — plans must never change results. Rows
+whose referenced columns hold non-scalar values (tag OTHER: things, arrays,
+objects, datetimes, big ints, decimals) are returned in a `needs_row` mask
+and re-checked per row by the caller, so type-mixed columns stay exact.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, List, Optional, Set, Tuple
+
+import numpy as np
+
+from surrealdb_tpu_torch.sql.ast import ArrayLit, BinaryOp, Expr, Literal, Param, UnaryOp
+from surrealdb_tpu_torch.sql.path import Idiom
+from surrealdb_tpu_torch.sql.value import Datetime, is_none, is_null
+
+# column tag codes (idx/column_mirror.py writes these)
+TAG_NONE = 0  # missing field or explicit NONE
+TAG_NULL = 1
+TAG_BOOL = 2
+TAG_INT = 3
+TAG_FLOAT = 4
+TAG_STR = 5
+TAG_OTHER = 6  # non-scalar / unlowerable value -> per-row fallback
+TAG_DATETIME = 7  # nanos held exactly in the column's int64 plane
+
+# tag -> sql.value type ordinal (value_cmp's cross-type order: None < Null <
+# Bool < Number < Strand < Duration < Datetime < ...); OTHER rows never
+# reach an ordinal comparison (they are masked into needs_row first)
+ORD_OF_TAG = np.array([0, 1, 2, 3, 3, 4, 127, 6], dtype=np.int16)
+
+# ints beyond the f64 mantissa can't round-trip the numeric column
+F64_EXACT_INT = 1 << 53
+
+# deepest dotted path the mirror builder materializes (column_mirror._scan
+# descends ONE dict level). The compile-time depth gate must never exceed
+# this, whatever COLUMN_MIRROR_MAX_DEPTH says — a deeper path would resolve
+# to a virtual all-NONE column and return wrong results instead of falling
+# back to the row path.
+MATERIALIZED_DEPTH = 2
+
+
+def _depth_limit() -> int:
+    from surrealdb_tpu_torch import cnf
+
+    return min(cnf.COLUMN_MIRROR_MAX_DEPTH, MATERIALIZED_DEPTH)
+
+_CMP_OPS = ("=", "!=", "<", "<=", ">", ">=")
+
+
+class _Node:
+    __slots__ = ()
+
+
+class _Leaf(_Node):
+    # `src` is the constant's SOURCE expression (Literal / Param / ArrayLit)
+    # so a cached predicate program can re-derive `const` per execution
+    # (rebind below) — the program is reusable, the mask content is not
+    __slots__ = ("path", "op", "const", "src")
+
+    def __init__(self, path: str, op: str, const: Any, src: Optional[Expr] = None):
+        self.path = path
+        self.op = op  # one of _CMP_OPS, "in", "truthy", "contains"
+        self.const = const
+        self.src = src
+
+
+class _Bool(_Node):
+    __slots__ = ("op", "kids")
+
+    def __init__(self, op: str, kids: List[_Node]):
+        self.op = op  # "and" | "or" | "not"
+        self.kids = kids
+
+
+class CompiledPredicate:
+    """A WHERE tree lowered onto column paths. `paths` is the set of dotted
+    field paths the evaluation reads; `evaluate` returns (mask, needs_row):
+    mask[i] is the predicate's truth for row i, valid wherever needs_row[i]
+    is False; needs_row flags rows holding OTHER-tagged values in ANY
+    referenced column (coarse but exact — the caller re-checks those rows
+    through the ordinary row path)."""
+
+    __slots__ = ("root", "paths", "source")
+
+    def __init__(self, root: _Node, paths: Set[str], source: str):
+        self.root = root
+        self.paths = paths
+        self.source = source
+
+    def rebind(self, ctx) -> Optional["CompiledPredicate"]:
+        """A fresh predicate with every leaf constant RE-derived from its
+        source expression under `ctx` — the plan cache's per-execution
+        binding step: the compiled program (tree shape, paths, ops) is
+        reused, the constants ($params, literal slots) are not. Returns a
+        new instance (cached programs are shared across threads; rebinding
+        in place would race) or None when a re-derived constant falls
+        outside the lowerable fragment (caller re-plans cold)."""
+        root = _rebind_node(ctx, self.root)
+        if root is None:
+            return None
+        return CompiledPredicate(root, self.paths, self.source)
+
+    def evaluate(self, columns) -> Tuple[np.ndarray, np.ndarray]:
+        """columns: {path: Column} covering self.paths (idx/column_mirror)."""
+        needs_row: Optional[np.ndarray] = None
+        for p in self.paths:
+            other = columns[p].tags == TAG_OTHER
+            needs_row = other if needs_row is None else (needs_row | other)
+        mask = _eval_node(self.root, columns)
+        if needs_row is None:
+            needs_row = np.zeros_like(mask)
+        return mask, needs_row
+
+
+# ------------------------------------------------------------------ compile
+def compile_where(ctx, cond: Expr) -> Optional[CompiledPredicate]:
+    """Lower a WHERE tree; None when any part falls outside the vectorizable
+    fragment. Constants (literals and $params) are evaluated once, here —
+    they cannot vary per row."""
+    from surrealdb_tpu_torch import telemetry
+
+    with telemetry.span("predicate_compile"):
+        paths: Set[str] = set()
+        root = _compile_node(ctx, cond, paths)
+    if root is None or not paths:
+        telemetry.inc("predicate_compile_outcome", outcome="fallback")
+        return None
+    telemetry.inc("predicate_compile_outcome", outcome="lowered")
+    return CompiledPredicate(root, paths, repr(cond))
+
+
+def _compile_node(ctx, e: Expr, paths: Set[str]) -> Optional[_Node]:
+    from surrealdb_tpu_torch import cnf
+
+    if isinstance(e, BinaryOp):
+        op = e.op
+        if op in ("&&", "AND", "||", "OR"):
+            l = _compile_node(ctx, e.l, paths)
+            r = _compile_node(ctx, e.r, paths)
+            if l is None or r is None:
+                return None
+            return _Bool("and" if op in ("&&", "AND") else "or", [l, r])
+        if op in _CMP_OPS:
+            leaf = _cmp_leaf(ctx, e, paths)
+            return leaf
+        if op in ("CONTAINS", "∋", "CONTAINSNOT", "∌"):
+            # `field CONTAINS 'sub'`: for STRING cells this is substring
+            # containment; array/object/range/geometry cells are TAG_OTHER
+            # (needs_row re-checks them) and every other scalar tag is
+            # False — exactly _contains() per row. Only string constants
+            # lower: a non-string item can still match inside OTHER-tagged
+            # containers, but never inside a string.
+            path = _lower_path(e.l)
+            if path is None or not _is_const(e.r):
+                return None
+            item = _const_value(ctx, e.r)
+            if not (isinstance(item, str) and type(item) is str):
+                return None
+            if len(path.split(".")) > _depth_limit():
+                return None
+            paths.add(path)
+            leaf = _Leaf(path, "contains", item, src=e.r)
+            if op in ("CONTAINSNOT", "∌"):
+                return _Bool("not", [leaf])
+            return leaf
+        if op in ("IN", "INSIDE", "∈", "NOT IN", "NOTINSIDE", "∉"):
+            path = _lower_path(e.l)
+            if path is None or not _is_const(e.r):
+                return None
+            items = _const_value(ctx, e.r)
+            if not isinstance(items, (list, tuple)):
+                return None
+            for x in items:
+                if not _scalar_const(x):
+                    return None
+            if len(path.split(".")) > _depth_limit():
+                return None
+            paths.add(path)
+            leaf = _Leaf(path, "in", list(items), src=e.r)
+            if op in ("NOT IN", "NOTINSIDE", "∉"):
+                return _Bool("not", [leaf])
+            return leaf
+        return None
+    if isinstance(e, UnaryOp):
+        if e.op in ("!", "NOT"):
+            kid = _compile_node(ctx, e.expr, paths)
+            return _Bool("not", [kid]) if kid is not None else None
+        if e.op == "!!":
+            return _compile_node(ctx, e.expr, paths)
+        return None
+    # bare idiom: truthiness of the field value
+    path = _lower_path(e)
+    if path is not None and len(path.split(".")) <= _depth_limit():
+        paths.add(path)
+        return _Leaf(path, "truthy", None)
+    # bare constant predicate (WHERE true) — rare; don't bother
+    return None
+
+
+def _cmp_leaf(ctx, e: BinaryOp, paths: Set[str]) -> Optional[_Leaf]:
+    from surrealdb_tpu_torch import cnf
+
+    op = e.op
+    if isinstance(e.l, Idiom) and _is_const(e.r):
+        path, const, src = _lower_path(e.l), _const_value(ctx, e.r), e.r
+    elif isinstance(e.r, Idiom) and _is_const(e.l):
+        flip = {"=": "=", "!=": "!=", "<": ">", "<=": ">=", ">": "<", ">=": "<="}
+        path, const, op, src = _lower_path(e.r), _const_value(ctx, e.l), flip[op], e.l
+    else:
+        return None
+    if path is None or not _scalar_const(const):
+        return None
+    if len(path.split(".")) > _depth_limit():
+        return None
+    paths.add(path)
+    return _Leaf(path, op, const, src=src)
+
+
+def _lower_path(e) -> Optional[str]:
+    if not isinstance(e, Idiom):
+        return None
+    fp = e.field_path()
+    return ".".join(fp) if fp else None
+
+
+def _is_const(e) -> bool:
+    if isinstance(e, (Literal, Param)):
+        return True
+    if isinstance(e, ArrayLit):
+        return all(_is_const(x) for x in e.items)
+    return False
+
+
+def _const_value(ctx, e):
+    return e.compute(ctx)
+
+
+def _scalar_const(v) -> bool:
+    """Constants the masks can compare against: NONE/NULL, bool, exact-f64
+    number, string, datetime (nanos compare on the int64 plane). Everything
+    else (things, durations, arrays, objects, decimals, huge ints) refuses
+    to lower."""
+    if is_none(v) or is_null(v):
+        return True
+    if isinstance(v, bool):
+        return True
+    if isinstance(v, int):
+        return -F64_EXACT_INT <= v <= F64_EXACT_INT
+    if isinstance(v, float):
+        return True
+    if isinstance(v, str) and type(v) is str:  # Table subclasses str
+        return True
+    if isinstance(v, Datetime):
+        return True
+    return False
+
+
+def _rebind_node(ctx, n: _Node) -> Optional[_Node]:
+    """Clone a compiled node tree with leaf constants re-derived from their
+    source expressions. The same validation compile applied runs again: a
+    $param that was a scalar last execution may be an object this one."""
+    if isinstance(n, _Bool):
+        kids = []
+        for k in n.kids:
+            rk = _rebind_node(ctx, k)
+            if rk is None:
+                return None
+            kids.append(rk)
+        return _Bool(n.op, kids)
+    assert isinstance(n, _Leaf)
+    if n.src is None:  # truthy leaves carry no constant
+        return _Leaf(n.path, n.op, n.const, src=None)
+    const = _const_value(ctx, n.src)
+    if n.op == "in":
+        if not isinstance(const, (list, tuple)):
+            return None
+        if any(not _scalar_const(x) for x in const):
+            return None
+        const = list(const)
+    elif n.op == "contains":
+        if not (isinstance(const, str) and type(const) is str):
+            return None
+    elif not _scalar_const(const):
+        return None
+    return _Leaf(n.path, n.op, const, src=n.src)
+
+
+# ------------------------------------------------------------------ evaluate
+def _eval_node(n: _Node, columns) -> np.ndarray:
+    if isinstance(n, _Bool):
+        if n.op == "not":
+            return ~_eval_node(n.kids[0], columns)
+        acc = _eval_node(n.kids[0], columns)
+        for k in n.kids[1:]:
+            nxt = _eval_node(k, columns)
+            acc = (acc & nxt) if n.op == "and" else (acc | nxt)
+        return acc
+    col = columns[n.path]
+    if n.op == "truthy":
+        return _truthy_mask(col)
+    if n.op == "contains":
+        return (col.tags == TAG_STR) & col.str_contains(n.const)
+    if n.op == "in":
+        acc = None
+        for x in n.const:
+            m = _eq_mask(col, x)
+            acc = m if acc is None else (acc | m)
+        return acc if acc is not None else np.zeros(len(col.tags), dtype=bool)
+    if n.op == "=":
+        return _eq_mask(col, n.const)
+    if n.op == "!=":
+        return ~_eq_mask(col, n.const)
+    return _order_mask(col, n.op, n.const)
+
+
+def _truthy_mask(col) -> np.ndarray:
+    tags = col.tags
+    out = np.zeros(len(tags), dtype=bool)
+    num = (tags == TAG_BOOL) | (tags == TAG_INT) | (tags == TAG_FLOAT)
+    if num.any():
+        # NaN != 0 is True — matching python truthy(nan)
+        out[num] = col.nums[num] != 0.0
+    s = tags == TAG_STR
+    if s.any():
+        out[s] = col.str_nonempty()[s]
+    out |= tags == TAG_DATETIME  # truthy(datetime) is always True
+    return out
+
+
+def _eq_mask(col, c) -> np.ndarray:
+    """value_eq semantics against a scalar constant."""
+    tags = col.tags
+    if is_none(c):
+        return tags == TAG_NONE
+    if is_null(c):
+        return tags == TAG_NULL
+    if isinstance(c, bool):
+        return (tags == TAG_BOOL) & (col.nums == (1.0 if c else 0.0))
+    if isinstance(c, (int, float)):
+        cf = float(c)
+        numeric = (tags == TAG_INT) | (tags == TAG_FLOAT)
+        if isinstance(c, float) and math.isnan(cf):
+            return np.zeros(len(tags), dtype=bool)  # NaN equals nothing
+        return numeric & (col.nums == cf)
+    if isinstance(c, str):
+        return (tags == TAG_STR) & col.str_eq(c)
+    if isinstance(c, Datetime):
+        return (tags == TAG_DATETIME) & (col.i64() == c.nanos)
+    return np.zeros(len(tags), dtype=bool)
+
+
+def _order_mask(col, op: str, c) -> np.ndarray:
+    """value_cmp semantics: cross-type by ordinal, within-type by value."""
+    tags = col.tags
+    ords = ORD_OF_TAG[tags]
+    ord_c = _const_ordinal(c)
+    lt = ords < ord_c
+    gt = ords > ord_c
+    same = ords == ord_c
+    if same.any():
+        s_lt, s_gt = _same_type_cmp(col, c, same)
+        lt = lt | (same & s_lt)
+        gt = gt | (same & s_gt)
+    if op == "<":
+        return lt
+    if op == "<=":
+        return ~gt
+    if op == ">":
+        return gt
+    return ~lt  # >=
+
+
+def _const_ordinal(c) -> int:
+    if is_none(c):
+        return 0
+    if is_null(c):
+        return 1
+    if isinstance(c, bool):
+        return 2
+    if isinstance(c, (int, float)):
+        return 3
+    if isinstance(c, Datetime):
+        return 6  # after strand (4) and duration (5), value_cmp order
+    return 4  # str
+
+
+def _same_type_cmp(col, c, same: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(lt, gt) within the constant's type ordinal, value_cmp rules."""
+    n = len(col.tags)
+    lt = np.zeros(n, dtype=bool)
+    gt = np.zeros(n, dtype=bool)
+    if is_none(c) or is_null(c):
+        return lt, gt  # ties
+    if isinstance(c, bool):
+        v = 1.0 if c else 0.0
+        lt[same] = col.nums[same] < v
+        gt[same] = col.nums[same] > v
+        return lt, gt
+    if isinstance(c, (int, float)):
+        cf = float(c)
+        nums = col.nums
+        row_nan = np.isnan(nums)
+        if isinstance(c, float) and math.isnan(cf):
+            # value_cmp: non-NaN > NaN; NaN ties NaN
+            gt[same] = ~row_nan[same]
+            return lt, gt
+        # NaN rows sort below every non-NaN constant
+        lt[same] = row_nan[same] | (nums[same] < cf)
+        gt[same] = ~row_nan[same] & (nums[same] > cf)
+        return lt, gt
+    if isinstance(c, Datetime):
+        i64 = col.i64()
+        lt[same] = i64[same] < c.nanos
+        gt[same] = i64[same] > c.nanos
+        return lt, gt
+    # strings: lexicographic (python order == numpy unicode/object order)
+    s_lt, s_gt = col.str_cmp(c)
+    lt[same] = s_lt[same]
+    gt[same] = s_gt[same]
+    return lt, gt

@@ -1,0 +1,258 @@
+"""Always-on sampling profiler: wall-clock stack samples per engine thread.
+
+The continuous-profiling half of the workload statistics plane (stats.py
+is the per-statement-shape half): a supervised background sampler
+(`bg:profiler`, bg.spawn_service) wakes at `SURREAL_PROFILE_HZ` and folds
+one `sys._current_frames()` snapshot per tick into bounded aggregates:
+
+- **per-thread attribution** rides the engine's deterministic thread
+  names: every background thread is `bg:<kind>:<target>` (bg.py), so a
+  sample lands on `bg:column_mirror` / `bg:cluster_antientropy` /
+  `ws:...` without any registration step. Targets are stripped — the
+  KIND is the unit, or per-table rebuilds would mint unbounded series;
+- **per-fingerprint attribution** joins samples to the workload plane:
+  the executor marks each statement's fingerprint active for its thread
+  (stats.activate), and the sampler reads that table — so "which query
+  shapes are eating the cluster" has a wall-clock answer, not only a
+  per-call latency sum;
+- **folded stacks**: `frame;frame;frame` leaf-last, the flamegraph
+  collapsed format (`folded_text()` feeds flamegraph.pl / speedscope
+  directly), bounded to PROFILE_MAX_STACKS distinct stacks with an
+  overflow bucket — the profiler must never become the memory leak it
+  exists to find.
+
+Overhead contract: one `sys._current_frames()` snapshot + a bounded
+frame walk per tick, everything precomputed outside the state lock. At
+the default rate the measured overhead on bench config 2 must stay <=3%
+(bench.py measures it sampler-on vs sampler-paused; scripts/bench_gate.py
+enforces the ceiling). `SURREAL_PROFILE_HZ=0` disables the service
+entirely; `pause()`/`resume()` gate sampling without stopping the thread
+(the bench A/B uses this).
+
+Exported as the debug bundle's `profiler` section (bundle.py), inside
+`GET /statements` artifacts via bench.py, and as raw folded stacks for
+flamegraph tooling.
+"""
+
+from __future__ import annotations
+
+import re
+import sys
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+from surrealdb_tpu_torch.utils import locks as _locks
+
+_lock = _locks.Lock("profiler.state")
+_samples_total = 0
+_ticks = 0
+_dropped = 0  # stacks folded into the overflow bucket
+_started_ts: Optional[float] = None
+_by_thread: Dict[str, int] = {}
+_by_fp: Dict[str, int] = {}
+_by_tenant: Dict[str, int] = {}  # "ns.db" -> samples (tenant accounting)
+_folded: Dict[Tuple[str, str], int] = {}  # (thread kind, stack) -> samples
+
+_started = False
+_start_lock = threading.Lock()  # raw: one-shot service spawn guard
+_paused = threading.Event()
+
+# worker-pool threads carry numeric suffixes (ThreadPoolExecutor-0_1);
+# fold them so a 16-wide pool is one series, not sixteen
+_POOL_SUFFIX = re.compile(r"[-_]\d+(?:[-_]\d+)*$")
+_STACK_DEPTH = 24
+_FP_SERIES_CAP = 256
+
+
+def ensure_started() -> bool:
+    """Start the process-global sampler service once (Datastore.__init__
+    calls this; every later call is a no-op). Returns True when the
+    sampler is (now) running, False when SURREAL_PROFILE_HZ disables it."""
+    global _started, _started_ts
+    from surrealdb_tpu_torch import cnf
+
+    if cnf.PROFILE_HZ <= 0:
+        return False
+    with _start_lock:
+        if _started:
+            return True
+        _started = True
+        _started_ts = time.time()
+    from surrealdb_tpu_torch import bg
+
+    bg.spawn_service("profiler", "", _loop)
+    return True
+
+
+def pause() -> None:
+    """Stop taking samples without stopping the service (the bench
+    overhead A/B measures with the sampler parked vs live)."""
+    _paused.set()
+
+
+def resume() -> None:
+    _paused.clear()
+
+
+def _loop() -> None:
+    """The sampler body (supervised: bg.spawn_service restarts nothing
+    here by default — a sampler crash resolves its task record; the
+    engine keeps serving). HZ is re-read every tick so tests can retune
+    a live sampler through cnf monkeypatching."""
+    from surrealdb_tpu_torch import cnf
+
+    while True:
+        hz = cnf.PROFILE_HZ
+        if hz <= 0:
+            return  # disabled mid-flight: retire the service
+        time.sleep(1.0 / max(hz, 0.1))
+        if _paused.is_set():
+            continue
+        sample_once()
+
+
+def sample_once() -> int:
+    """Take one snapshot of every live thread's stack; returns the number
+    of threads sampled. Exposed for deterministic tests."""
+    from surrealdb_tpu_torch import accounting, cnf, stats
+
+    self_ident = threading.get_ident()
+    try:
+        frames = sys._current_frames()  # noqa: SLF001 — the documented API
+    except Exception:  # noqa: BLE001 — a failed snapshot skips one tick
+        return 0
+    names = {t.ident: t.name for t in threading.enumerate()}
+    batch: List[Tuple[str, str, Optional[str], Optional[str]]] = []
+    for ident, frame in frames.items():
+        if ident == self_ident:
+            continue  # never profile the profiler
+        kind = _thread_kind(names.get(ident, "thread"))
+        stack = _fold(frame)
+        # tenant attribution rides the same cross-thread activation
+        # tables the fingerprint does — scatter-pool threads activate
+        # their statement's tenant, so their samples attribute too
+        tenant = accounting.active_tenant(ident)
+        batch.append((
+            kind, stack, stats.active_fingerprint(ident),
+            f"{tenant[0]}.{tenant[1]}" if tenant is not None else None,
+        ))
+    if not batch:
+        return 0
+    cap = max(int(getattr(cnf, "PROFILE_MAX_STACKS", 512)), 16)
+    global _samples_total, _ticks, _dropped
+    with _lock:
+        _ticks += 1
+        for kind, stack, fp, tenant in batch:
+            _samples_total += 1
+            _by_thread[kind] = _by_thread.get(kind, 0) + 1
+            if fp is not None and (
+                fp in _by_fp or len(_by_fp) < _FP_SERIES_CAP
+            ):
+                _by_fp[fp] = _by_fp.get(fp, 0) + 1
+            if tenant is not None and (
+                tenant in _by_tenant or len(_by_tenant) < _FP_SERIES_CAP
+            ):
+                _by_tenant[tenant] = _by_tenant.get(tenant, 0) + 1
+            key = (kind, stack)
+            if key in _folded or len(_folded) < cap:
+                _folded[key] = _folded.get(key, 0) + 1
+            else:
+                _dropped += 1
+                _folded[(kind, "<overflow>")] = (
+                    _folded.get((kind, "<overflow>"), 0) + 1
+                )
+    return len(batch)
+
+
+def _thread_kind(name: str) -> str:
+    """Bounded thread series: `bg:<kind>:<target>` keeps only `bg:<kind>`
+    (targets are tables/nodes — unbounded), pool workers drop their
+    numeric suffixes, everything else passes through."""
+    if name.startswith("bg:"):
+        parts = name.split(":", 2)
+        return f"bg:{parts[1]}" if len(parts) > 1 else "bg"
+    return _POOL_SUFFIX.sub("", name) or "thread"
+
+
+def _fold(frame) -> str:
+    """`frame;frame;leaf` root-first, bounded depth, `file:func` units
+    (basename only — paths are noise in a flamegraph)."""
+    out: List[str] = []
+    f = frame
+    while f is not None and len(out) < _STACK_DEPTH:
+        code = f.f_code
+        fname = code.co_filename
+        base = fname[fname.rfind("/") + 1 :]
+        out.append(f"{base}:{code.co_name}")
+        f = f.f_back
+    out.reverse()
+    return ";".join(out)
+
+
+# ------------------------------------------------------------------ views
+def report(top: int = 50) -> dict:
+    """The profiler's whole picture (bundle section; /statements embeds a
+    summary): totals, per-thread and per-fingerprint sample counts, and
+    the hottest folded stacks."""
+    from surrealdb_tpu_torch import cnf
+
+    with _lock:
+        folded = sorted(_folded.items(), key=lambda kv: -kv[1])[: max(top, 1)]
+        out = {
+            "enabled": _started and cnf.PROFILE_HZ > 0,
+            "hz": cnf.PROFILE_HZ,
+            "paused": _paused.is_set(),
+            "started_ts": _started_ts,
+            "ticks": _ticks,
+            "samples": _samples_total,
+            "distinct_stacks": len(_folded),
+            "dropped_stacks": _dropped,
+            "by_thread": dict(sorted(_by_thread.items(), key=lambda kv: -kv[1])),
+            "by_fingerprint": dict(
+                sorted(_by_fp.items(), key=lambda kv: -kv[1])[:top]
+            ),
+            "by_tenant": dict(
+                sorted(_by_tenant.items(), key=lambda kv: -kv[1])[:top]
+            ),
+            "top": [
+                {"thread": kind, "stack": stack, "samples": n}
+                for (kind, stack), n in folded
+            ],
+        }
+    return out
+
+
+def summary(top: int = 5) -> dict:
+    """Compact per-window embed for bench artifact config lines."""
+    full = report(top=top)
+    return {
+        "hz": full["hz"],
+        "samples": full["samples"],
+        "by_thread": dict(list(full["by_thread"].items())[:top]),
+        "by_fingerprint": full["by_fingerprint"],
+    }
+
+
+def folded_text() -> str:
+    """Flamegraph collapsed format: `thread;frame;...;leaf count` lines
+    (flamegraph.pl / speedscope open this directly)."""
+    with _lock:
+        items = sorted(_folded.items())
+    return "\n".join(
+        f"{kind};{stack} {n}" for (kind, stack), n in items
+    ) + ("\n" if items else "")
+
+
+def reset() -> None:
+    """Drop aggregates (tests / bench accounting windows). The service
+    keeps running; counters restart from zero."""
+    global _samples_total, _ticks, _dropped
+    with _lock:
+        _samples_total = 0
+        _ticks = 0
+        _dropped = 0
+        _by_thread.clear()
+        _by_fp.clear()
+        _by_tenant.clear()
+        _folded.clear()

@@ -1,0 +1,897 @@
+"""Expression AST.
+
+Role of the reference's `sql::Value` expression variants and idiom machinery
+(reference: core/src/sql/value/value.rs, sql/idiom.rs, sql/part.rs,
+sql/graph.rs, sql/operator.rs). Every node computes against a Context
+(surrealdb_tpu_torch.dbs.context) carrying the transaction, session, options,
+current document and parameters.
+
+Path (idiom) evaluation including graph hops lives in sql/path.py; statement
+nodes live in sql/statements.py.
+"""
+
+from __future__ import annotations
+
+import decimal as _dec
+import math
+import re as _re
+from typing import Any, List, Optional, Tuple
+
+from surrealdb_tpu_torch.err import ComputationDepthError, TypeError_
+from surrealdb_tpu_torch import cnf
+from .value import (
+    NONE,
+    Closure,
+    Datetime,
+    Duration,
+    Geometry,
+    Null,
+    Range,
+    Table,
+    Thing,
+    Uuid,
+    is_none,
+    is_nullish,
+    is_null,
+    format_value,
+    truthy,
+    value_cmp,
+    value_eq,
+    type_ordinal,
+    format_id,
+    escape_ident,
+)
+
+
+class Expr:
+    """Base expression node."""
+
+    __slots__ = ()
+
+    def compute(self, ctx) -> Any:
+        raise NotImplementedError(type(self).__name__)
+
+    def writeable(self) -> bool:
+        """Does evaluating this expression potentially write?"""
+        return False
+
+
+# ------------------------------------------------------------------ literals
+class Literal(Expr):
+    __slots__ = ("value",)
+
+    def __init__(self, value):
+        self.value = value
+
+    def compute(self, ctx):
+        return self.value
+
+    def __repr__(self):
+        return format_value(self.value)
+
+    def __eq__(self, other):
+        return isinstance(other, Literal) and value_eq(self.value, other.value)
+
+
+class SlotLiteral(Literal):
+    """A literal parameterized by the plan cache (dbs/plan_cache.py): slot
+    `i` of the statement shape's literal-token sequence. A cached template
+    AST is SHARED across executions of every same-fingerprint text, so the
+    active execution's values ride the per-query Executor (set by the
+    datastore before process()), never this node — `value` keeps the
+    first-seen text's literal as the unbound default (repr/explain)."""
+
+    __slots__ = ("slot",)
+
+    def __init__(self, slot: int, value):
+        super().__init__(value)
+        self.slot = slot
+
+    def compute(self, ctx):
+        sv = getattr(ctx.executor, "slot_values", None)
+        if sv is not None and self.slot < len(sv):
+            return sv[self.slot]
+        return self.value
+
+
+class ArrayLit(Expr):
+    __slots__ = ("items",)
+
+    def __init__(self, items: List[Expr]):
+        self.items = items
+
+    def compute(self, ctx):
+        return [compute_or_flatten(it, ctx) for it in self.items]
+
+    def writeable(self):
+        return any(i.writeable() for i in self.items)
+
+    def __repr__(self):
+        return "[" + ", ".join(repr(i) for i in self.items) + "]"
+
+
+class ObjectLit(Expr):
+    __slots__ = ("pairs",)
+
+    def __init__(self, pairs: List[Tuple[str, Expr]]):
+        self.pairs = pairs
+
+    def compute(self, ctx):
+        return {k: compute_or_flatten(v, ctx) for k, v in self.pairs}
+
+    def writeable(self):
+        return any(v.writeable() for _, v in self.pairs)
+
+    def __repr__(self):
+        inner = ", ".join(f"{escape_ident(k)}: {v!r}" for k, v in self.pairs)
+        return "{ " + inner + " }"
+
+
+class ThingLit(Expr):
+    """`person:1`, `person:⟨x⟩`, `person:[1,2]`, `person:uuid()` ..."""
+
+    __slots__ = ("tb", "id")
+
+    def __init__(self, tb: str, id_expr):
+        self.tb = tb
+        self.id = id_expr  # Expr or literal value
+
+    def compute(self, ctx):
+        id_ = self.id.compute(ctx) if isinstance(self.id, Expr) else self.id
+        if isinstance(id_, Range):
+            return ThingRange(self.tb, id_)
+        return Thing(self.tb, id_)
+
+    def __repr__(self):
+        if isinstance(self.id, Expr):
+            return f"{escape_ident(self.tb)}:{self.id!r}"
+        return repr(Thing(self.tb, self.id))
+
+
+class ThingRange:
+    """A range of record ids `person:1..100` (value-level, from ThingLit)."""
+
+    __slots__ = ("tb", "rng")
+
+    def __init__(self, tb: str, rng: Range):
+        self.tb = tb
+        self.rng = rng
+
+    def __repr__(self):
+        return f"{escape_ident(self.tb)}:{self.rng!r}"
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, ThingRange)
+            and self.tb == other.tb
+            and self.rng == other.rng
+        )
+
+    def __hash__(self):
+        return hash((self.tb, self.rng))
+
+
+class RangeLit(Expr):
+    __slots__ = ("beg", "end", "beg_incl", "end_incl")
+
+    def __init__(self, beg, end, beg_incl=True, end_incl=False):
+        self.beg, self.end = beg, end
+        self.beg_incl, self.end_incl = beg_incl, end_incl
+
+    def compute(self, ctx):
+        beg = self.beg.compute(ctx) if isinstance(self.beg, Expr) else self.beg
+        end = self.end.compute(ctx) if isinstance(self.end, Expr) else self.end
+        return Range(beg, end, self.beg_incl, self.end_incl)
+
+    def __repr__(self):
+        b = "" if self.beg is NONE else repr(self.beg)
+        e = "" if self.end is NONE else repr(self.end)
+        return f"{b}{'' if self.beg_incl else '>'}..{'=' if self.end_incl else ''}{e}"
+
+
+class MockExpr(Expr):
+    """`|person:1000|` / `|person:1..1000|` — generate test records."""
+
+    __slots__ = ("tb", "count", "range")
+
+    def __init__(self, tb: str, count: Optional[int], range_: Optional[Tuple[int, int]]):
+        self.tb = tb
+        self.count = count
+        self.range = range_
+
+    def compute(self, ctx):
+        if self.range:
+            return [Thing(self.tb, i) for i in range(self.range[0], self.range[1] + 1)]
+        return [Thing(self.tb) for _ in range(self.count or 0)]
+
+    def __repr__(self):
+        if self.range:
+            return f"|{self.tb}:{self.range[0]}..{self.range[1]}|"
+        return f"|{self.tb}:{self.count}|"
+
+
+class RegexLit(Expr):
+    __slots__ = ("pattern", "compiled")
+
+    def __init__(self, pattern: str):
+        self.pattern = pattern
+        try:
+            self.compiled = _re.compile(pattern)
+        except _re.error as e:
+            from surrealdb_tpu_torch.err import ParseError
+
+            raise ParseError(f"invalid regex literal: {e}")
+
+    def compute(self, ctx):
+        return self.compiled
+
+    def __repr__(self):
+        return f"/{self.pattern}/"
+
+
+class Param(Expr):
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def compute(self, ctx):
+        return ctx.get_param(self.name)
+
+    def __repr__(self):
+        return f"${self.name}"
+
+
+class TableExpr(Expr):
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def compute(self, ctx):
+        return Table(self.name)
+
+    def __repr__(self):
+        return escape_ident(self.name)
+
+
+class Constant(Expr):
+    """math::pi and friends (reference core/src/sql/constant.rs)."""
+
+    _VALUES = {
+        "math::e": math.e,
+        "math::frac_1_pi": 1 / math.pi,
+        "math::frac_1_sqrt_2": 1 / math.sqrt(2),
+        "math::frac_2_pi": 2 / math.pi,
+        "math::frac_2_sqrt_pi": 2 / math.sqrt(math.pi),
+        "math::frac_pi_2": math.pi / 2,
+        "math::frac_pi_3": math.pi / 3,
+        "math::frac_pi_4": math.pi / 4,
+        "math::frac_pi_6": math.pi / 6,
+        "math::frac_pi_8": math.pi / 8,
+        "math::inf": math.inf,
+        "math::neg_inf": -math.inf,
+        "math::ln_10": math.log(10),
+        "math::ln_2": math.log(2),
+        "math::log10_2": math.log10(2),
+        "math::log10_e": math.log10(math.e),
+        "math::log2_10": math.log2(10),
+        "math::log2_e": math.log2(math.e),
+        "math::pi": math.pi,
+        "math::sqrt_2": math.sqrt(2),
+        "math::tau": math.tau,
+        "math::nan": math.nan,
+        "time::epoch": Datetime(0),
+        "time::minimum": Datetime(-(2**62)),
+        "time::maximum": Datetime(2**62),
+        "duration::max": Duration(2**63 - 1),
+    }
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def compute(self, ctx):
+        return self._VALUES[self.name.lower()]
+
+    def __repr__(self):
+        return self.name
+
+
+# ------------------------------------------------------------------ operators
+class UnaryOp(Expr):
+    __slots__ = ("op", "expr")
+
+    def __init__(self, op: str, expr: Expr):
+        self.op = op
+        self.expr = expr
+
+    def compute(self, ctx):
+        v = self.expr.compute(ctx)
+        if self.op == "-":
+            if isinstance(v, bool) or not isinstance(v, (int, float, _dec.Decimal)):
+                raise TypeError_(f"Can not negate {format_value(v)}")
+            return -v
+        if self.op == "+":
+            return v
+        if self.op in ("!", "NOT"):
+            return not truthy(v)
+        if self.op == "!!":
+            return truthy(v)
+        raise TypeError_(f"unknown unary operator {self.op}")
+
+    def writeable(self):
+        return self.expr.writeable()
+
+    def __repr__(self):
+        return f"{self.op}{self.expr!r}"
+
+
+def _numeric(v, op: str):
+    if isinstance(v, bool) or not isinstance(v, (int, float, _dec.Decimal)):
+        raise TypeError_(
+            f"Cannot perform arithmetic '{op}' on {format_value(v)}"
+        )
+    return v
+
+
+def _num_pair(l, r, op: str):
+    """Numeric operand pair with decimal promotion: mixing a decimal with a
+    float promotes the float (reference Number arithmetic, sql/number.rs —
+    decimal wins); int/Decimal interoperate natively."""
+    ln, rn = _numeric(l, op), _numeric(r, op)
+    if isinstance(ln, _dec.Decimal) and isinstance(rn, float):
+        rn = _dec.Decimal(repr(rn))
+    elif isinstance(rn, _dec.Decimal) and isinstance(ln, float):
+        ln = _dec.Decimal(repr(ln))
+    return ln, rn
+
+
+def _sum2(l, r, op: str):
+    ln, rn = _num_pair(l, r, op)
+    return ln + rn
+
+
+def _fuzzy_match(a: str, b: str) -> bool:
+    """`~` operator: case/diacritic-insensitive containment."""
+    return b.lower() in a.lower()
+
+
+def _regex_match(val, rx) -> bool:
+    if not isinstance(val, str):
+        val = format_value(val)
+    return rx.search(val) is not None
+
+
+def _contains(container, item) -> bool:
+    if isinstance(container, (list, tuple)):
+        return any(value_eq(x, item) for x in container)
+    if isinstance(container, str):
+        return isinstance(item, str) and item in container
+    if isinstance(container, dict):
+        return isinstance(item, str) and item in container
+    if isinstance(container, Range):
+        return container.contains(item)
+    if isinstance(container, Geometry):
+        return _geo_contains(container, item)
+    return False
+
+
+def _geo_contains(poly: Geometry, item) -> bool:
+    pt = None
+    if isinstance(item, Geometry) and item.kind == "Point":
+        pt = item.coords
+    elif isinstance(item, (list, tuple)) and len(item) == 2:
+        pt = item
+    if pt is None or poly.kind != "Polygon":
+        return False
+    return _point_in_ring(pt, poly.coords[0]) and not any(
+        _point_in_ring(pt, hole) for hole in poly.coords[1:]
+    )
+
+
+def _point_in_ring(pt, ring) -> bool:
+    x, y = pt
+    inside = False
+    j = len(ring) - 1
+    for i in range(len(ring)):
+        xi, yi = ring[i][0], ring[i][1]
+        xj, yj = ring[j][0], ring[j][1]
+        if (yi > y) != (yj > y) and x < (xj - xi) * (y - yi) / (yj - yi) + xi:
+            inside = not inside
+        j = i
+    return inside
+
+
+class BinaryOp(Expr):
+    __slots__ = ("op", "l", "r")
+
+    def __init__(self, op: str, l: Expr, r: Expr):
+        self.op = op
+        self.l = l
+        self.r = r
+
+    def writeable(self):
+        return self.l.writeable() or self.r.writeable()
+
+    def compute(self, ctx):
+        op = self.op
+        # short-circuiting forms first
+        if op in ("||", "OR"):
+            l = self.l.compute(ctx)
+            return l if truthy(l) else self.r.compute(ctx)
+        if op in ("&&", "AND"):
+            l = self.l.compute(ctx)
+            return l if not truthy(l) else self.r.compute(ctx)
+        if op == "??":
+            l = self.l.compute(ctx)
+            return self.r.compute(ctx) if is_nullish(l) else l
+        if op == "?:":
+            l = self.l.compute(ctx)
+            return l if truthy(l) else self.r.compute(ctx)
+
+        l = self.l.compute(ctx)
+        r = self.r.compute(ctx)
+        return apply_operator(op, l, r, ctx)
+
+    def __repr__(self):
+        return f"{self.l!r} {self.op} {self.r!r}"
+
+
+def apply_operator(op: str, l, r, ctx=None):
+    if op == "=":
+        if isinstance(r, _re.Pattern):
+            return _regex_match(l, r)
+        return value_eq(l, r)
+    if op in ("!=",):
+        if isinstance(r, _re.Pattern):
+            return not _regex_match(l, r)
+        return not value_eq(l, r)
+    if op == "==":
+        return type_ordinal(l) == type_ordinal(r) and value_eq(l, r)
+    if op == "?=":
+        return isinstance(l, (list, tuple)) and any(value_eq(x, r) for x in l)
+    if op == "*=":
+        return isinstance(l, (list, tuple)) and all(value_eq(x, r) for x in l)
+    if op == "~":
+        if isinstance(r, _re.Pattern):
+            return _regex_match(l, r)
+        return isinstance(l, str) and isinstance(r, str) and _fuzzy_match(l, r)
+    if op == "!~":
+        return not apply_operator("~", l, r, ctx)
+    if op == "?~":
+        return isinstance(l, (list, tuple)) and any(
+            apply_operator("~", x, r, ctx) for x in l
+        )
+    if op == "*~":
+        return isinstance(l, (list, tuple)) and all(
+            apply_operator("~", x, r, ctx) for x in l
+        )
+    if op == "<":
+        return value_cmp(l, r) < 0
+    if op == "<=":
+        return value_cmp(l, r) <= 0
+    if op == ">":
+        return value_cmp(l, r) > 0
+    if op == ">=":
+        return value_cmp(l, r) >= 0
+    if op == "+":
+        if isinstance(l, str) and isinstance(r, str):
+            return l + r
+        if isinstance(l, (Datetime, Duration)) or isinstance(r, (Datetime, Duration)):
+            try:
+                return l + r
+            except TypeError:
+                raise TypeError_(
+                    f"Cannot add {format_value(l)} and {format_value(r)}"
+                )
+        if isinstance(l, (list, tuple)) and isinstance(r, (list, tuple)):
+            return list(l) + list(r)
+        if isinstance(l, (list, tuple)):
+            return list(l) + [r]
+        return _sum2(l, r, op)
+    if op == "-":
+        if isinstance(l, (Datetime, Duration)) and isinstance(r, (Datetime, Duration)):
+            try:
+                return l - r
+            except TypeError:
+                raise TypeError_(
+                    f"Cannot subtract {format_value(r)} from {format_value(l)}"
+                )
+        if isinstance(l, (list, tuple)):
+            return [x for x in l if not value_eq(x, r)]
+        ln, rn = _num_pair(l, r, op)
+        return ln - rn
+    if op in ("*", "×"):
+        ln, rn = _num_pair(l, r, op)
+        return ln * rn
+    if op in ("/", "÷"):
+        ln, rn = _num_pair(l, r, op)
+        if rn == 0:
+            if isinstance(ln, float) or isinstance(rn, float):
+                return math.nan if ln == 0 else math.copysign(math.inf, ln)
+            raise TypeError_("Cannot divide by zero")
+        if isinstance(ln, int) and isinstance(rn, int):
+            q = ln // rn
+            return q if q * rn == ln else ln / rn
+        return ln / rn
+    if op == "%":
+        ln, rn = _num_pair(l, r, op)
+        if rn == 0:
+            raise TypeError_("Cannot divide by zero")
+        if isinstance(ln, _dec.Decimal) or isinstance(rn, _dec.Decimal):
+            return _dec.Decimal(ln) % _dec.Decimal(rn)
+        return math.fmod(ln, rn) if isinstance(ln, float) or isinstance(rn, float) else ln - rn * int(ln / rn)
+    if op == "**":
+        ln, rn = _num_pair(l, r, op)
+        try:
+            return ln**rn
+        except _dec.InvalidOperation:
+            raise TypeError_("Cannot raise to this power as a decimal")
+    if op in ("IN", "INSIDE", "∈"):
+        return _contains(r, l)
+    if op in ("NOT IN", "NOTINSIDE", "∉"):
+        return not _contains(r, l)
+    if op in ("CONTAINS", "∋"):
+        return _contains(l, r)
+    if op in ("CONTAINSNOT", "∌"):
+        return not _contains(l, r)
+    if op in ("CONTAINSALL", "⊇"):
+        return isinstance(r, (list, tuple)) and all(_contains(l, x) for x in r)
+    if op in ("CONTAINSANY", "⊃"):
+        return isinstance(r, (list, tuple)) and any(_contains(l, x) for x in r)
+    if op in ("CONTAINSNONE", "⊅"):
+        return isinstance(r, (list, tuple)) and not any(_contains(l, x) for x in r)
+    if op in ("ALLINSIDE", "⊆"):
+        return isinstance(l, (list, tuple)) and all(_contains(r, x) for x in l)
+    if op in ("ANYINSIDE", "⊂"):
+        return isinstance(l, (list, tuple)) and any(_contains(r, x) for x in l)
+    if op in ("NONEINSIDE", "⊄"):
+        return isinstance(l, (list, tuple)) and not any(_contains(r, x) for x in l)
+    if op == "OUTSIDE":
+        return not _contains(r, l)
+    if op == "INTERSECTS":
+        return _geo_intersects(l, r)
+    raise TypeError_(f"unknown operator {op}")
+
+
+def _geo_intersects(l, r) -> bool:
+    if isinstance(l, Geometry) and isinstance(r, Geometry):
+        if l.kind == "Point":
+            return _geo_contains(r, l)
+        if r.kind == "Point":
+            return _geo_contains(l, r)
+        if l.kind == "Polygon" and r.kind == "Polygon":
+            return any(_point_in_ring(p, r.coords[0]) for p in l.coords[0]) or any(
+                _point_in_ring(p, l.coords[0]) for p in r.coords[0]
+            )
+    return False
+
+
+class MatchesOp(Expr):
+    """`field @ref@ 'terms'` full-text matches operator
+    (reference: sql/operator.rs:42)."""
+
+    __slots__ = ("l", "r", "ref")
+
+    def __init__(self, l: Expr, r: Expr, ref: Optional[int]):
+        self.l = l
+        self.r = r
+        self.ref = ref
+
+    def compute(self, ctx):
+        exe = ctx.query_executor()
+        if exe is not None and ctx.doc is not None:
+            return exe.matches(ctx, ctx.doc, self)
+        # fallback: naive containment over the raw text
+        l = self.l.compute(ctx)
+        r = self.r.compute(ctx)
+        if isinstance(l, str) and isinstance(r, str):
+            hay = l.lower().split()
+            return all(t in hay for t in r.lower().split())
+        return False
+
+    def __repr__(self):
+        at = f"@{self.ref}@" if self.ref is not None else "@@"
+        return f"{self.l!r} {at} {self.r!r}"
+
+
+class KnnOp(Expr):
+    """`field <|k|> $vec`, `<|k,ef|>` (HNSW), `<|k,DIST|>` (brute/MTree)
+    (reference: sql/operator.rs:63-65)."""
+
+    __slots__ = ("l", "r", "k", "ef", "dist")
+
+    def __init__(self, l: Expr, r: Expr, k: int, ef: Optional[int], dist: Optional[str]):
+        self.l = l
+        self.r = r
+        self.k = k
+        self.ef = ef
+        self.dist = dist
+
+    def compute(self, ctx):
+        exe = ctx.query_executor()
+        if exe is not None and ctx.doc is not None:
+            return exe.knn(ctx, ctx.doc, self)
+        return False
+
+    def __repr__(self):
+        if self.ef is not None:
+            mid = f"{self.k},{self.ef}"
+        elif self.dist is not None:
+            mid = f"{self.k},{self.dist}"
+        else:
+            mid = f"{self.k}"
+        return f"{self.l!r} <|{mid}|> {self.r!r}"
+
+
+# ------------------------------------------------------------------ calls
+class FunctionCall(Expr):
+    __slots__ = ("name", "args")
+
+    def __init__(self, name: str, args: List[Expr]):
+        self.name = name
+        self.args = args
+
+    def compute(self, ctx):
+        from surrealdb_tpu_torch import fnc
+
+        # count(->graph->chain) sums path counts on the mirror frontier
+        # instead of materializing millions of expanded Things just to
+        # len() them (the 3-hop north-star metric's hot path)
+        if self.name == "count" and len(self.args) == 1:
+            from surrealdb_tpu_torch.sql.path import graph_chain_count
+
+            n = graph_chain_count(ctx, self.args[0])
+            if n is not None:
+                return n
+        args = [a.compute(ctx) for a in self.args]
+        return fnc.run(ctx, self.name, args, exprs=self.args)
+
+    def writeable(self):
+        return any(a.writeable() for a in self.args)
+
+    def __repr__(self):
+        return f"{self.name}(" + ", ".join(repr(a) for a in self.args) + ")"
+
+
+class ScriptCall(Expr):
+    """`function(args) { js }` — embedded script block (reference:
+    core/src/sql/function.rs:31 Function::Script; executed with `this` =
+    current document and `arguments` = computed args, fnc/script/main.rs)."""
+
+    __slots__ = ("src", "args")
+
+    def __init__(self, src: str, args: List[Expr]):
+        self.src = src
+        self.args = args
+
+    def compute(self, ctx):
+        from surrealdb_tpu_torch.fnc.script import run_script
+
+        args = [a.compute(ctx) for a in self.args]
+        doc = ctx.doc.current if ctx.doc is not None else None
+        return run_script(ctx, self.src, args, doc)
+
+    def writeable(self):
+        return any(a.writeable() for a in self.args)
+
+    def __repr__(self):
+        return f"function({', '.join(repr(a) for a in self.args)}) {{{self.src}}}"
+
+
+class CustomFunctionCall(Expr):
+    """fn::name(args) — DEFINE FUNCTION lookup."""
+
+    __slots__ = ("name", "args")
+
+    def __init__(self, name: str, args: List[Expr]):
+        self.name = name
+        self.args = args
+
+    def compute(self, ctx):
+        from surrealdb_tpu_torch.fnc.custom import run_custom
+
+        args = [a.compute(ctx) for a in self.args]
+        return run_custom(ctx, self.name, args)
+
+    def writeable(self):
+        return True
+
+    def __repr__(self):
+        return f"fn::{self.name}(" + ", ".join(repr(a) for a in self.args) + ")"
+
+
+class ModelCall(Expr):
+    """ml::name<version>(args) (reference: core/src/sql/model.rs:37)."""
+
+    __slots__ = ("name", "version", "args")
+
+    def __init__(self, name: str, version: str, args: List[Expr]):
+        self.name = name
+        self.version = version
+        self.args = args
+
+    def compute(self, ctx):
+        # batched-SELECT override: the iterator pre-computes this call for
+        # every scanned row in ONE device dispatch (dbs/iterator.py
+        # _batched_projection) and parks the per-row result here
+        ov = getattr(ctx.executor, "_ml_overrides", None)
+        if ov is not None and id(self) in ov:
+            return ov[id(self)]
+        from surrealdb_tpu_torch.ml.exec import run_model
+
+        args = [a.compute(ctx) for a in self.args]
+        return run_model(ctx, self.name, self.version, args)
+
+    def __repr__(self):
+        return (
+            f"ml::{self.name}<{self.version}>("
+            + ", ".join(repr(a) for a in self.args)
+            + ")"
+        )
+
+
+class ClosureLit(Expr):
+    __slots__ = ("params", "returns", "body")
+
+    def __init__(self, params, returns, body):
+        self.params = params
+        self.returns = returns
+        self.body = body
+
+    def compute(self, ctx):
+        return Closure(self.params, self.returns, self.body)
+
+    def __repr__(self):
+        ps = ", ".join(f"${p}" for p, _ in self.params)
+        return f"|{ps}| {self.body!r}"
+
+
+class ClosureCall(Expr):
+    """Invoke a closure-valued expression: $fn(args) or <expr>(args)."""
+
+    __slots__ = ("target", "args")
+
+    def __init__(self, target: Expr, args: List[Expr]):
+        self.target = target
+        self.args = args
+
+    def compute(self, ctx):
+        from surrealdb_tpu_torch.fnc.custom import run_closure
+
+        f = self.target.compute(ctx)
+        args = [a.compute(ctx) for a in self.args]
+        return run_closure(ctx, f, args)
+
+    def __repr__(self):
+        return f"{self.target!r}(" + ", ".join(repr(a) for a in self.args) + ")"
+
+
+# ------------------------------------------------------------------ structure
+class Cast(Expr):
+    __slots__ = ("kind", "expr")
+
+    def __init__(self, kind: str, expr: Expr):
+        self.kind = kind
+        self.expr = expr
+
+    def compute(self, ctx):
+        from .kind import coerce_cast
+
+        return coerce_cast(self.kind, self.expr.compute(ctx))
+
+    def writeable(self):
+        return self.expr.writeable()
+
+    def __repr__(self):
+        return f"<{self.kind}> {self.expr!r}"
+
+
+class FutureLit(Expr):
+    """`<future> { expr }` — lazily evaluated value."""
+
+    __slots__ = ("expr",)
+
+    def __init__(self, expr: Expr):
+        self.expr = expr
+
+    def compute(self, ctx):
+        if ctx.opt_futures:
+            return self.expr.compute(ctx)
+        return self
+
+    def __repr__(self):
+        return f"<future> {{ {self.expr!r} }}"
+
+
+class Subquery(Expr):
+    __slots__ = ("stmt",)
+
+    def __init__(self, stmt):
+        self.stmt = stmt
+
+    def compute(self, ctx):
+        with ctx.descend() as c:
+            return self.stmt.compute(c)
+
+    def writeable(self):
+        return self.stmt.writeable()
+
+    def __repr__(self):
+        return f"({self.stmt!r})"
+
+
+class Block(Expr):
+    """{ stmt; stmt; ... } — scoped statements, evaluates to last value."""
+
+    __slots__ = ("stmts",)
+
+    def __init__(self, stmts: List[Any]):
+        self.stmts = stmts
+
+    def compute(self, ctx):
+        from surrealdb_tpu_torch.err import ReturnError
+
+        with ctx.child_scope() as c:
+            out = NONE
+            for s in self.stmts:
+                try:
+                    out = s.compute(c)
+                except ReturnError as r:
+                    return r.value
+            return out
+
+    def writeable(self):
+        return any(s.writeable() for s in self.stmts)
+
+    def __repr__(self):
+        return "{ " + "; ".join(repr(s) for s in self.stmts) + " }"
+
+
+def compute_or_flatten(e: Expr, ctx):
+    v = e.compute(ctx)
+    return v
+
+
+# ------------------------------------------------------------------ walking
+# Scope boundaries: nodes whose interior evaluates against a DIFFERENT
+# document binding than the enclosing projection (so a walk looking for
+# batchable work must not cross into them).
+_SCOPE_BOUNDARIES = ("Subquery", "Block", "ClosureLit", "FutureLit")
+
+
+def walk_exprs(node, visit, _depth: int = 0) -> None:
+    """Generic pre-order walk over an AST fragment (exprs, idiom parts,
+    field lists). `visit` is called for every surrealdb_tpu_torch node; descent
+    stops at subquery-like scope boundaries."""
+    if node is None or _depth > 80:
+        return
+    if isinstance(node, (list, tuple)):
+        for x in node:
+            walk_exprs(x, visit, _depth + 1)
+        return
+    if isinstance(node, dict):
+        for x in node.values():
+            walk_exprs(x, visit, _depth + 1)
+        return
+    cls = type(node)
+    if not cls.__module__.startswith("surrealdb_tpu_torch"):
+        return
+    visit(node)
+    if cls.__name__ in _SCOPE_BOUNDARIES:
+        return
+    seen = set()
+    for klass in cls.__mro__:
+        for slot in getattr(klass, "__slots__", ()) or ():
+            if slot in seen:
+                continue
+            seen.add(slot)
+            try:
+                v = getattr(node, slot)
+            except AttributeError:
+                continue
+            walk_exprs(v, visit, _depth + 1)
+    for v in getattr(node, "__dict__", {}).values():
+        walk_exprs(v, visit, _depth + 1)

@@ -1,0 +1,638 @@
+"""Idiom (path) evaluation: `a.b[3]->likes->person[WHERE age > 2].name`.
+
+Role of the reference's idiom machinery (reference: core/src/sql/idiom.rs,
+part.rs, graph.rs, and the 33 value-operation files in sql/value/ — get.rs,
+set.rs, del.rs...). A Part::Graph hop scans the graph-pointer keyspace written
+by RELATE (see doc/edges: endpoint --Out--> edge, edge --In/Out--> endpoints),
+so `->knows->person` is: OUT-scan from the current ids over edge-table
+`knows`, then OUT-scan from those edge ids restricted to table `person`.
+
+The batched TPU frontier path (idx/graph) plugs in underneath `graph_hop` for
+large frontiers; the semantics here are the per-record reference behavior.
+"""
+
+from __future__ import annotations
+
+from typing import Any, List, Optional, Tuple
+
+from surrealdb_tpu_torch import key as keys
+from surrealdb_tpu_torch.err import TypeError_
+from .value import (
+    NONE,
+    Null,
+    Range,
+    Thing,
+    escape_ident,
+    is_none,
+    is_nullish,
+    truthy,
+    value_eq,
+)
+from .ast import Expr
+
+
+# ------------------------------------------------------------------- parts
+class Part:
+    __slots__ = ()
+
+
+class PStart(Part):
+    __slots__ = ("expr",)
+
+    def __init__(self, expr: Expr):
+        self.expr = expr
+
+    def __repr__(self):
+        return repr(self.expr)
+
+
+class PField(Part):
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __repr__(self):
+        return f".{escape_ident(self.name)}"
+
+
+class PIndex(Part):
+    __slots__ = ("i",)
+
+    def __init__(self, i: int):
+        self.i = i
+
+    def __repr__(self):
+        return f"[{self.i}]"
+
+
+class PAll(Part):
+    def __repr__(self):
+        return "[*]"
+
+
+class PLast(Part):
+    def __repr__(self):
+        return "[$]"
+
+
+class PFlatten(Part):
+    def __repr__(self):
+        return "…"
+
+
+class POptional(Part):
+    def __repr__(self):
+        return "?"
+
+
+class PWhere(Part):
+    __slots__ = ("cond",)
+
+    def __init__(self, cond: Expr):
+        self.cond = cond
+
+    def __repr__(self):
+        return f"[WHERE {self.cond!r}]"
+
+
+class PValue(Part):
+    __slots__ = ("expr",)
+
+    def __init__(self, expr: Expr):
+        self.expr = expr
+
+    def __repr__(self):
+        return f"[{self.expr!r}]"
+
+
+class PMethod(Part):
+    """.method(args) — value method / closure-field call."""
+
+    __slots__ = ("name", "args")
+
+    def __init__(self, name: str, args: List[Expr]):
+        self.name = name
+        self.args = args
+
+    def __repr__(self):
+        return f".{self.name}(" + ", ".join(repr(a) for a in self.args) + ")"
+
+
+class PDestructure(Part):
+    """.{ a, b: b.c } — object destructuring projection."""
+
+    __slots__ = ("fields",)
+
+    def __init__(self, fields: List[Tuple[str, Optional[List[Part]]]]):
+        self.fields = fields
+
+    def __repr__(self):
+        inner = ", ".join(k for k, _ in self.fields)
+        return ".{" + inner + "}"
+
+
+class PGraph(Part):
+    """->table / <-table / <->table, with optional (tables.. WHERE cond AS alias)."""
+
+    __slots__ = ("dir", "what", "cond", "alias", "expr_fields")
+
+    def __init__(self, dir_: str, what: List[str], cond: Optional[Expr] = None, alias=None):
+        self.dir = dir_  # 'out' | 'in' | 'both'
+        self.what = what  # table names; empty = ? (any)
+        self.cond = cond
+        self.alias = alias
+
+    def __repr__(self):
+        arrow = {"out": "->", "in": "<-", "both": "<->"}[self.dir]
+        what = "?" if not self.what else ",".join(self.what)
+        if self.cond is not None:
+            return f"{arrow}({what} WHERE {self.cond!r})"
+        return f"{arrow}{what}"
+
+
+class PRecurse(Part):
+    """Recursion bounds `{min..max}` applied to the following path segment
+    (reference IDIOM_RECURSION_LIMIT cnf/mod.rs:97)."""
+
+    __slots__ = ("min", "max", "parts")
+
+    def __init__(self, min_: int, max_: Optional[int], parts: List[Part]):
+        self.min = min_
+        self.max = max_
+        self.parts = parts
+
+    def __repr__(self):
+        rng = f"{self.min}..{self.max if self.max is not None else ''}"
+        return "{" + rng + "}" + "".join(repr(p) for p in self.parts)
+
+
+# ------------------------------------------------------------------- idiom
+class Idiom(Expr):
+    __slots__ = ("parts",)
+
+    def __init__(self, parts: List[Part]):
+        self.parts = parts
+
+    def compute(self, ctx):
+        parts = self.parts
+        if not parts:
+            return NONE
+        first = parts[0]
+        if isinstance(first, PStart):
+            start = first.expr.compute(ctx)
+            return get_path(ctx, start, parts[1:])
+        if isinstance(first, PGraph):
+            start = ctx.doc_value()
+            return get_path(ctx, start, parts)
+        if isinstance(first, PField):
+            if ctx.doc is not None:
+                return get_path(ctx, ctx.doc_value(), parts)
+            # no doc: a bare identifier denotes a table reference
+            if len(parts) == 1:
+                from .value import Table
+
+                return Table(first.name)
+            return NONE
+        return get_path(ctx, ctx.doc_value(), parts)
+
+    def writeable(self):
+        return any(
+            isinstance(p, PStart) and p.expr.writeable() for p in self.parts
+        )
+
+    def simple_name(self) -> Optional[str]:
+        """If this is a single plain field (`name`), return it."""
+        if len(self.parts) == 1 and isinstance(self.parts[0], PField):
+            return self.parts[0].name
+        return None
+
+    def field_path(self) -> Optional[List[str]]:
+        """If purely nested fields (`a.b.c`), return the name list."""
+        out = []
+        for p in self.parts:
+            if isinstance(p, PField):
+                out.append(p.name)
+            else:
+                return None
+        return out or None
+
+    def __repr__(self):
+        out = []
+        for i, p in enumerate(self.parts):
+            if i == 0 and isinstance(p, PField):
+                out.append(escape_ident(p.name))
+            else:
+                out.append(repr(p))
+        return "".join(out)
+
+    def __eq__(self, other):
+        return isinstance(other, Idiom) and repr(self) == repr(other)
+
+    def __hash__(self):
+        return hash(repr(self))
+
+
+# ------------------------------------------------------------------- get
+def _fetch_record(ctx, thing: Thing):
+    ns, db = ctx.ns_db()
+    doc = ctx.txn().get_record(ns, db, thing.tb, thing.id)
+    return doc if doc is not None else NONE
+
+
+def get_path(ctx, value, parts: List[Part]):
+    """Apply path parts to a value, fetching records / walking edges."""
+    if not parts:
+        return value
+    p, rest = parts[0], parts[1:]
+
+    # record pointer: fetch before applying a field-ish part
+    if isinstance(value, Thing) and not isinstance(p, (POptional,)):
+        if isinstance(p, PGraph):
+            return _graph_part(ctx, [value], p, rest)
+        if isinstance(p, PMethod):
+            # record methods dispatch on the POINTER, not the fetched doc
+            # (reference record-type method table: exists/id/tb/table)
+            return _method_call(ctx, value, p, rest)
+        value = _fetch_record(ctx, value)
+
+    if isinstance(p, PStart):
+        return get_path(ctx, p.expr.compute(ctx), rest)
+
+    if isinstance(p, POptional):
+        if is_nullish(value):
+            return NONE
+        return get_path(ctx, value, rest)
+
+    if isinstance(p, PGraph):
+        things = value if isinstance(value, list) else [value]
+        things = [_as_thing(t) for t in things]
+        things = [t for t in things if t is not None]
+        return _graph_part(ctx, things, p, rest)
+
+    if isinstance(p, PRecurse):
+        return _recurse_part(ctx, value, p, rest)
+
+    if isinstance(value, list):
+        if isinstance(p, PIndex):
+            v = value[p.i] if -len(value) <= p.i < len(value) else NONE
+            return get_path(ctx, v, rest)
+        if isinstance(p, PLast):
+            return get_path(ctx, value[-1] if value else NONE, rest)
+        if isinstance(p, PAll):
+            return [get_path(ctx, v, rest) for v in value]
+        if isinstance(p, PWhere):
+            kept = []
+            for v in value:
+                dv = _fetch_record(ctx, v) if isinstance(v, Thing) else v
+                with ctx.with_doc_value(dv, rid=v if isinstance(v, Thing) else None) as c:
+                    if truthy(p.cond.compute(c)):
+                        kept.append(v)
+            return get_path(ctx, kept, rest)
+        if isinstance(p, PValue):
+            idx = p.expr.compute(ctx)
+            if isinstance(idx, int) and not isinstance(idx, bool):
+                v = value[idx] if -len(value) <= idx < len(value) else NONE
+                return get_path(ctx, v, rest)
+            if isinstance(idx, Range):
+                lo = idx.beg if not is_none(idx.beg) else 0
+                hi = idx.end if not is_none(idx.end) else len(value)
+                if not idx.beg_incl:
+                    lo += 1
+                if idx.end_incl:
+                    hi += 1
+                return get_path(ctx, value[int(lo) : int(hi)], rest)
+            return get_path(ctx, NONE, rest)
+        if isinstance(p, PFlatten):
+            flat = []
+            for v in value:
+                if isinstance(v, list):
+                    flat.extend(v)
+                else:
+                    flat.append(v)
+            return get_path(ctx, flat, rest)
+        if isinstance(p, PMethod):
+            return _method_call(ctx, value, p, rest)
+        # field access distributes over arrays
+        out = [get_path(ctx, v, [p]) for v in value]
+        return get_path(ctx, out, rest)
+
+    if isinstance(value, dict):
+        if isinstance(p, PField):
+            return get_path(ctx, value.get(p.name, NONE), rest)
+        if isinstance(p, PAll):
+            return get_path(ctx, value, rest) if not rest else {
+                k: get_path(ctx, v, rest) for k, v in value.items()
+            }
+        if isinstance(p, PValue):
+            k = p.expr.compute(ctx)
+            if isinstance(k, str):
+                return get_path(ctx, value.get(k, NONE), rest)
+            return get_path(ctx, NONE, rest)
+        if isinstance(p, PDestructure):
+            out = {}
+            for name, sub in p.fields:
+                if sub is None:
+                    out[name] = value.get(name, NONE)
+                else:
+                    out[name] = get_path(ctx, value, sub)
+            return get_path(ctx, out, rest)
+        if isinstance(p, PMethod):
+            return _method_call(ctx, value, p, rest)
+        if isinstance(p, PWhere):
+            with ctx.with_doc_value(value) as c:
+                ok = truthy(p.cond.compute(c))
+            return get_path(ctx, value if ok else NONE, rest)
+        return get_path(ctx, NONE, rest)
+
+    if isinstance(p, PMethod):
+        return _method_call(ctx, value, p, rest)
+
+    if is_nullish(value):
+        return NONE
+
+    # scalar with remaining non-applicable parts
+    return NONE
+
+
+def _method_call(ctx, value, p: PMethod, rest):
+    """`.method(args)`: closure field first, else builtin whose first arg is
+    the receiver (reference: "value methods")."""
+    from surrealdb_tpu_torch import fnc
+    from surrealdb_tpu_torch.fnc.custom import run_closure
+    from .value import Closure as ClosureV
+
+    if isinstance(value, dict) and isinstance(value.get(p.name), ClosureV):
+        args = [a.compute(ctx) for a in p.args]
+        return get_path(ctx, run_closure(ctx, value[p.name], args), rest)
+    args = [a.compute(ctx) for a in p.args]
+    out = fnc.run_method(ctx, p.name, value, args)
+    return get_path(ctx, out, rest)
+
+
+def _as_thing(v) -> Optional[Thing]:
+    """A record pointer: a Thing itself or a fetched document's id."""
+    if isinstance(v, Thing):
+        return v
+    if isinstance(v, dict) and isinstance(v.get("id"), Thing):
+        return v["id"]
+    return None
+
+
+# ------------------------------------------------------------------- graph
+def graph_hop(ctx, things: List[Thing], dir_: str, what: List[str]) -> List[Thing]:
+    """One edge hop: scan graph-pointer keys for each source id.
+
+    Reference behavior: processor.rs:610-701 collect_edges. The TPU CSR path
+    (idx/graph.py) accelerates multi-hop frontiers; this is the exact KV walk.
+    """
+    ns, db = ctx.ns_db()
+    txn = ctx.txn()
+    dirs = {"out": [keys.DIR_OUT], "in": [keys.DIR_IN], "both": [keys.DIR_IN, keys.DIR_OUT]}[
+        dir_
+    ]
+    out: List[Thing] = []
+    for t in things:
+        for d in dirs:
+            if what:
+                for ft in what:
+                    pre = keys.graph_prefix(ns, db, t.tb, t.id, d, ft)
+                    for k in txn.keys(pre, _prefix_end(pre)):
+                        _, _, _, fk = keys.decode_graph(k, ns, db, t.tb)
+                        out.append(fk)
+            else:
+                pre = keys.graph_prefix(ns, db, t.tb, t.id, d)
+                for k in txn.keys(pre, _prefix_end(pre)):
+                    _, _, _, fk = keys.decode_graph(k, ns, db, t.tb)
+                    out.append(fk)
+    return out
+
+
+def _prefix_end(p: bytes) -> bytes:
+    from surrealdb_tpu_torch.key.encode import prefix_end
+
+    return prefix_end(p)
+
+
+def graph_chain_count(ctx, expr) -> "int | None":
+    """count(->a->b->c) fast path: when the argument is a pure cond-free
+    graph-chain idiom over the current record, sum the path counts on the
+    CSR frontier without expanding (idx/graph_csr.py chain_count). Returns
+    None when ineligible — the caller falls back to normal evaluation, so
+    this is purely an execution strategy, never a semantics change."""
+    if not isinstance(expr, Idiom) or not expr.parts:
+        return None
+    if not all(isinstance(p, PGraph) for p in expr.parts):
+        return None
+    doc = ctx.doc
+    rid = doc.rid if doc is not None else None
+    if not isinstance(rid, Thing):
+        return None
+    for p in expr.parts:
+        if not _mirror_eligible(ctx, p):
+            return None
+    # no exception guard: deadline/internal errors must propagate, not
+    # silently re-run the whole traversal on the slow path
+    return ctx.ds().graph_mirrors.chain_count(ctx, [rid], list(expr.parts))
+
+
+def _mirror_eligible(ctx, p: PGraph) -> bool:
+    """A hop can ride the CSR mirrors when its edge tables are named, it has
+    no per-record WHERE, and this transaction has no uncommitted edge writes
+    (those are only visible to the exact KV walk)."""
+    if p.cond is not None or not p.what:
+        return False
+    try:
+        return ctx.ds() is not None and not ctx.txn().graph_deltas
+    except Exception:
+        return False
+
+
+def _graph_part(ctx, things: List[Thing], p: PGraph, rest: List[Part]):
+    # batched frontier path: a maximal run of eligible graph parts becomes a
+    # chain of CSR gather hops (device above TPU_GRAPH_ONDEVICE_THRESHOLD)
+    # instead of per-record `~` prefix scans (reference processor.rs:610-701)
+    if things and _mirror_eligible(ctx, p):
+        chain = [p]
+        i = 0
+        while (
+            i < len(rest)
+            and isinstance(rest[i], PGraph)
+            and _mirror_eligible(ctx, rest[i])
+        ):
+            chain.append(rest[i])
+            i += 1
+        found = ctx.ds().graph_mirrors.chain(ctx, things, chain)
+        return get_path(ctx, found, rest[i:])
+    found = graph_hop(ctx, things, p.dir, p.what)
+    if p.cond is not None:
+        kept = []
+        for t in found:
+            doc = _fetch_record(ctx, t)
+            with ctx.with_doc_value(doc, rid=t) as c:
+                if truthy(p.cond.compute(c)):
+                    kept.append(t)
+        found = kept
+    # no dedup: the reference flattens hop results without deduplication
+    # (sql/value/get.rs:404-446), so parallel edges / converging paths
+    # yield duplicate records — multiplicity is part of the result
+    return get_path(ctx, found, rest)
+
+
+def _recurse_part(ctx, value, p: PRecurse, rest: List[Part]):
+    from surrealdb_tpu_torch import cnf
+
+    max_depth = p.max if p.max is not None else cnf.IDIOM_RECURSION_LIMIT
+    if max_depth > cnf.IDIOM_RECURSION_LIMIT:
+        raise TypeError_("Recursion depth exceeds the allowed limit")
+    cur = value
+    depth = 0
+    while depth < max_depth:
+        nxt = get_path(ctx, cur, p.parts)
+        if isinstance(nxt, list) and not nxt:
+            break
+        if is_nullish(nxt):
+            break
+        cur = nxt
+        depth += 1
+        if depth >= p.min and p.max is None:
+            # unbounded: iterate to fixpoint-ish; stop when result repeats
+            continue
+    if depth < p.min:
+        return NONE
+    return get_path(ctx, cur, rest)
+
+
+# ------------------------------------------------------------------- set/del
+def set_path(ctx, value, parts: List[Part], new) -> Any:
+    """Set a nested path inside a document value (mutates dicts/lists)."""
+    if not parts:
+        return new
+    p, rest = parts[0], parts[1:]
+    if isinstance(p, PField):
+        if isinstance(value, dict):
+            if not rest:
+                value[p.name] = new
+            else:
+                cur = value.get(p.name, NONE)
+                if is_nullish(cur) or not isinstance(cur, (dict, list)):
+                    cur = {} if not isinstance(
+                        rest[0], (PIndex, PAll, PLast)
+                    ) else []
+                    value[p.name] = cur
+                set_path(ctx, cur, rest, new)
+        elif isinstance(value, list):
+            for item in value:
+                set_path(ctx, item, parts, new)
+        return value
+    if isinstance(p, PIndex):
+        if isinstance(value, list) and -len(value) <= p.i < len(value):
+            if not rest:
+                value[p.i] = new
+            else:
+                set_path(ctx, value[p.i], rest, new)
+        return value
+    if isinstance(p, PLast):
+        if isinstance(value, list) and value:
+            if not rest:
+                value[-1] = new
+            else:
+                set_path(ctx, value[-1], rest, new)
+        return value
+    if isinstance(p, PAll):
+        if isinstance(value, list):
+            if not rest:
+                value[:] = [new for _ in value]
+            else:
+                for item in value:
+                    set_path(ctx, item, rest, new)
+        elif isinstance(value, dict):
+            if not rest:
+                for k in value:
+                    value[k] = new
+            else:
+                for k in value:
+                    set_path(ctx, value[k], rest, new)
+        return value
+    if isinstance(p, PWhere):
+        if isinstance(value, list):
+            for item in value:
+                dv = item
+                with ctx.with_doc_value(dv) as c:
+                    if truthy(p.cond.compute(c)):
+                        set_path(ctx, item, rest, new) if rest else None
+        return value
+    if isinstance(p, PValue):
+        k = p.expr.compute(ctx)
+        if isinstance(value, dict) and isinstance(k, str):
+            if not rest:
+                value[k] = new
+            else:
+                cur = value.get(k)
+                if not isinstance(cur, (dict, list)):
+                    cur = {}
+                    value[k] = cur
+                set_path(ctx, cur, rest, new)
+        elif isinstance(value, list) and isinstance(k, int):
+            if -len(value) <= k < len(value):
+                if not rest:
+                    value[k] = new
+                else:
+                    set_path(ctx, value[k], rest, new)
+        return value
+    return value
+
+
+def del_path(ctx, value, parts: List[Part]) -> Any:
+    if not parts:
+        return value
+    p, rest = parts[0], parts[1:]
+    if isinstance(p, PField):
+        if isinstance(value, dict):
+            if not rest:
+                value.pop(p.name, None)
+            elif p.name in value:
+                del_path(ctx, value[p.name], rest)
+        elif isinstance(value, list):
+            for item in value:
+                del_path(ctx, item, parts)
+        return value
+    if isinstance(p, PIndex):
+        if isinstance(value, list) and -len(value) <= p.i < len(value):
+            if not rest:
+                del value[p.i]
+            else:
+                del_path(ctx, value[p.i], rest)
+        return value
+    if isinstance(p, PAll):
+        if isinstance(value, list):
+            if not rest:
+                value.clear()
+            else:
+                for item in value:
+                    del_path(ctx, item, rest)
+        return value
+    if isinstance(p, PWhere):
+        if isinstance(value, list):
+            if not rest:
+                keep = []
+                for item in value:
+                    with ctx.with_doc_value(item) as c:
+                        if not truthy(p.cond.compute(c)):
+                            keep.append(item)
+                value[:] = keep
+            else:
+                for item in value:
+                    with ctx.with_doc_value(item) as c:
+                        if truthy(p.cond.compute(c)):
+                            del_path(ctx, item, rest)
+        return value
+    if isinstance(p, PValue):
+        k = p.expr.compute(ctx)
+        if isinstance(value, dict) and isinstance(k, str):
+            if not rest:
+                value.pop(k, None)
+            elif k in value:
+                del_path(ctx, value[k], rest)
+        return value
+    return value

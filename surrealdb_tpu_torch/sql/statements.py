@@ -1,0 +1,825 @@
+"""Statement AST nodes.
+
+Role of the reference's 29 statement kinds (reference:
+core/src/sql/statement.rs:62-100, statements/). Execution of the data
+statements (SELECT/CREATE/...) is delegated to the iterator machinery in
+surrealdb_tpu_torch.dbs; control-flow statements compute inline.
+"""
+
+from __future__ import annotations
+
+from typing import Any, List, Optional, Tuple
+
+from surrealdb_tpu_torch.err import (
+    BreakError,
+    ContinueError,
+    ReturnError,
+    ThrownError,
+    TypeError_,
+)
+from .value import NONE, Duration, Thing, escape_ident, format_value, is_nullish, truthy
+from .ast import Expr
+
+
+class Statement:
+    __slots__ = ()
+
+    def compute(self, ctx):
+        raise NotImplementedError(type(self).__name__)
+
+    def writeable(self) -> bool:
+        return False
+
+
+class Query:
+    # `sources` (parallel to `statements`) carries each statement's original
+    # source text when parsed from a string — the cluster executor ships
+    # THAT to peer nodes, because not every statement repr round-trips
+    # (DDL reprs are summaries)
+    __slots__ = ("statements", "sources")
+
+    def __init__(self, statements: List[Statement], sources=None):
+        self.statements = statements
+        self.sources = sources
+
+    def __repr__(self):
+        return ";\n".join(repr(s) for s in self.statements) + ";"
+
+
+# ------------------------------------------------------------------ clauses
+class Field:
+    """One projection in SELECT: expr [AS alias], or *."""
+
+    __slots__ = ("expr", "alias", "all")
+
+    def __init__(self, expr: Optional[Expr], alias=None, all_: bool = False):
+        self.expr = expr
+        self.alias = alias  # Idiom or None
+        self.all = all_
+
+    def __repr__(self):
+        if self.all:
+            return "*"
+        if self.alias is not None:
+            return f"{self.expr!r} AS {self.alias!r}"
+        return repr(self.expr)
+
+
+class Data:
+    """SET/UNSET/CONTENT/MERGE/PATCH/REPLACE payload."""
+
+    __slots__ = ("kind", "items")
+
+    def __init__(self, kind: str, items):
+        self.kind = kind  # set | unset | content | merge | patch | replace | values
+        self.items = items
+
+    def __repr__(self):
+        if self.kind == "set":
+            inner = ", ".join(f"{i!r} {op} {v!r}" for i, op, v in self.items)
+            return f"SET {inner}"
+        if self.kind == "unset":
+            return "UNSET " + ", ".join(repr(i) for i in self.items)
+        return f"{self.kind.upper()} {self.items!r}"
+
+
+class Output:
+    __slots__ = ("kind", "fields")
+
+    def __init__(self, kind: str, fields=None):
+        self.kind = kind  # none | null | diff | before | after | fields
+        self.fields = fields
+
+    def __repr__(self):
+        if self.kind == "fields":
+            return "RETURN " + ", ".join(repr(f) for f in self.fields)
+        return f"RETURN {self.kind.upper()}"
+
+
+class OrderItem:
+    __slots__ = ("idiom", "asc", "collate", "numeric", "rand")
+
+    def __init__(self, idiom, asc=True, collate=False, numeric=False, rand=False):
+        self.idiom = idiom
+        self.asc = asc
+        self.collate = collate
+        self.numeric = numeric
+        self.rand = rand
+
+    def __repr__(self):
+        if self.rand:
+            return "RAND()"
+        out = repr(self.idiom)
+        if self.collate:
+            out += " COLLATE"
+        if self.numeric:
+            out += " NUMERIC"
+        out += " ASC" if self.asc else " DESC"
+        return out
+
+
+class With:
+    __slots__ = ("noindex", "indexes")
+
+    def __init__(self, noindex: bool, indexes: Optional[List[str]] = None):
+        self.noindex = noindex
+        self.indexes = indexes or []
+
+    def __repr__(self):
+        return "WITH NOINDEX" if self.noindex else "WITH INDEX " + ", ".join(self.indexes)
+
+
+# ------------------------------------------------------------------ control
+class UseStatement(Statement):
+    __slots__ = ("ns", "db")
+
+    def __init__(self, ns: Optional[str], db: Optional[str]):
+        self.ns = ns
+        self.db = db
+
+    def compute(self, ctx):
+        if self.ns:
+            ctx.session.ns = self.ns
+        if self.db:
+            ctx.session.db = self.db
+        return NONE
+
+    def __repr__(self):
+        out = "USE"
+        if self.ns:
+            out += f" NS {self.ns}"
+        if self.db:
+            out += f" DB {self.db}"
+        return out
+
+
+class LetStatement(Statement):
+    __slots__ = ("name", "what", "kind")
+
+    def __init__(self, name: str, what: Expr, kind=None):
+        self.name = name
+        self.what = what
+        self.kind = kind
+
+    def compute(self, ctx):
+        v = self.what.compute(ctx)
+        if self.kind is not None:
+            from .kind import coerce
+
+            v = coerce(self.kind, v)
+        ctx.set_param(self.name, v)
+        return NONE
+
+    def writeable(self):
+        return self.what.writeable()
+
+    def __repr__(self):
+        return f"LET ${self.name} = {self.what!r}"
+
+
+class ReturnStatement(Statement):
+    __slots__ = ("what", "fetch")
+
+    def __init__(self, what: Expr, fetch=None):
+        self.what = what
+        self.fetch = fetch
+
+    def compute(self, ctx):
+        v = self.what.compute(ctx)
+        if self.fetch:
+            from surrealdb_tpu_torch.dbs.fetch import apply_fetch
+
+            v = apply_fetch(ctx, v, self.fetch)
+        raise ReturnError(v)
+
+    def writeable(self):
+        return self.what.writeable()
+
+    def __repr__(self):
+        return f"RETURN {self.what!r}"
+
+
+class IfStatement(Statement):
+    __slots__ = ("branches", "else_")
+
+    def __init__(self, branches: List[Tuple[Expr, Expr]], else_: Optional[Expr]):
+        self.branches = branches
+        self.else_ = else_
+
+    def compute(self, ctx):
+        for cond, then in self.branches:
+            if truthy(cond.compute(ctx)):
+                return then.compute(ctx)
+        if self.else_ is not None:
+            return self.else_.compute(ctx)
+        return NONE
+
+    def writeable(self):
+        return any(
+            c.writeable() or t.writeable() for c, t in self.branches
+        ) or (self.else_ is not None and self.else_.writeable())
+
+    def __repr__(self):
+        out = []
+        for i, (c, t) in enumerate(self.branches):
+            kw = "IF" if i == 0 else "ELSE IF"
+            out.append(f"{kw} {c!r} {t!r}")
+        if self.else_ is not None:
+            out.append(f"ELSE {self.else_!r}")
+        return " ".join(out)
+
+
+class ForStatement(Statement):
+    __slots__ = ("param", "what", "block")
+
+    def __init__(self, param: str, what: Expr, block):
+        self.param = param
+        self.what = what
+        self.block = block
+
+    def compute(self, ctx):
+        from .value import Range
+
+        vals = self.what.compute(ctx)
+        if isinstance(vals, Range):
+            beg = vals.beg if not is_nullish(vals.beg) else 0
+            end = vals.end
+            if not vals.beg_incl:
+                beg += 1
+            if vals.end_incl:
+                end += 1
+            vals = range(int(beg), int(end))
+        elif not isinstance(vals, (list, tuple, range)):
+            raise TypeError_(
+                f"Can not iterate over {format_value(vals)} in a FOR statement"
+            )
+        for v in vals:
+            ctx.set_param(self.param, v)
+            try:
+                self.block.compute(ctx)
+            except BreakError:
+                break
+            except ContinueError:
+                continue
+        return NONE
+
+    def writeable(self):
+        return self.block.writeable()
+
+    def __repr__(self):
+        return f"FOR ${self.param} IN {self.what!r} {self.block!r}"
+
+
+class BreakStatement(Statement):
+    def compute(self, ctx):
+        raise BreakError()
+
+    def __repr__(self):
+        return "BREAK"
+
+
+class ContinueStatement(Statement):
+    def compute(self, ctx):
+        raise ContinueError()
+
+    def __repr__(self):
+        return "CONTINUE"
+
+
+class ThrowStatement(Statement):
+    __slots__ = ("what",)
+
+    def __init__(self, what: Expr):
+        self.what = what
+
+    def compute(self, ctx):
+        raise ThrownError(format_value(self.what.compute(ctx)))
+
+    def __repr__(self):
+        return f"THROW {self.what!r}"
+
+
+class SleepStatement(Statement):
+    __slots__ = ("duration",)
+
+    def __init__(self, duration: Duration):
+        self.duration = duration
+
+    def compute(self, ctx):
+        import time
+
+        time.sleep(self.duration.seconds)
+        return NONE
+
+    def __repr__(self):
+        return f"SLEEP {self.duration!r}"
+
+
+class OptionStatement(Statement):
+    __slots__ = ("name", "value")
+
+    def __init__(self, name: str, value: bool):
+        self.name = name
+        self.value = value
+
+    def compute(self, ctx):
+        ctx.set_option(self.name, self.value)
+        return NONE
+
+    def __repr__(self):
+        return f"OPTION {self.name} = {'true' if self.value else 'false'}"
+
+
+class BeginStatement(Statement):
+    def compute(self, ctx):
+        return NONE
+
+    def __repr__(self):
+        return "BEGIN TRANSACTION"
+
+
+class CommitStatement(Statement):
+    def compute(self, ctx):
+        return NONE
+
+    def __repr__(self):
+        return "COMMIT TRANSACTION"
+
+
+class CancelStatement(Statement):
+    def compute(self, ctx):
+        return NONE
+
+    def __repr__(self):
+        return "CANCEL TRANSACTION"
+
+
+# ------------------------------------------------------------------ data
+class SelectStatement(Statement):
+    __slots__ = (
+        "fields",
+        "omit",
+        "only",
+        "what",
+        "with_",
+        "cond",
+        "split",
+        "group",
+        "group_all",
+        "order",
+        "limit",
+        "start",
+        "fetch",
+        "version",
+        "timeout",
+        "parallel",
+        "explain",
+        "explain_full",
+        "explain_analyze",
+        "value_mode",
+    )
+
+    def __init__(self, fields, what, **kw):
+        self.fields = fields
+        self.what = what
+        self.omit = kw.get("omit")
+        self.only = kw.get("only", False)
+        self.with_ = kw.get("with_")
+        self.cond = kw.get("cond")
+        self.split = kw.get("split")
+        self.group = kw.get("group")
+        self.group_all = kw.get("group_all", False)
+        self.order = kw.get("order")
+        self.limit = kw.get("limit")
+        self.start = kw.get("start")
+        self.fetch = kw.get("fetch")
+        self.version = kw.get("version")
+        self.timeout = kw.get("timeout")
+        self.parallel = kw.get("parallel", False)
+        self.explain = kw.get("explain", False)
+        self.explain_full = kw.get("explain_full", False)
+        self.explain_analyze = kw.get("explain_analyze", False)
+        self.value_mode = kw.get("value_mode", False)
+
+    def compute(self, ctx):
+        from surrealdb_tpu_torch.dbs.stmt_exec import select_compute
+
+        return select_compute(ctx, self)
+
+    def writeable(self):
+        return False
+
+    def __repr__(self):
+        out = "SELECT "
+        if self.value_mode:
+            out += "VALUE "
+        out += ", ".join(repr(f) for f in self.fields)
+        out += " FROM "
+        if self.only:
+            out += "ONLY "
+        out += ", ".join(repr(w) for w in self.what)
+        if self.with_ is not None:
+            out += f" {self.with_!r}"
+        if self.cond is not None:
+            out += f" WHERE {self.cond!r}"
+        if self.split:
+            out += " SPLIT " + ", ".join(repr(s) for s in self.split)
+        if self.group:
+            out += " GROUP BY " + ", ".join(repr(g) for g in self.group)
+        elif self.group_all:
+            out += " GROUP ALL"
+        if self.order:
+            out += " ORDER BY " + ", ".join(repr(o) for o in self.order)
+        if self.limit is not None:
+            out += f" LIMIT {self.limit!r}"
+        if self.start is not None:
+            out += f" START {self.start!r}"
+        if self.fetch:
+            out += " FETCH " + ", ".join(repr(f) for f in self.fetch)
+        if self.parallel:
+            out += " PARALLEL"
+        if self.explain:
+            out += " EXPLAIN"
+            if self.explain_full:
+                out += " FULL"
+            if self.explain_analyze:
+                out += " ANALYZE"
+        return out
+
+
+class CreateStatement(Statement):
+    __slots__ = ("only", "what", "data", "output", "timeout", "parallel", "version")
+
+    def __init__(self, what, **kw):
+        self.what = what
+        self.only = kw.get("only", False)
+        self.data = kw.get("data")
+        self.output = kw.get("output")
+        self.timeout = kw.get("timeout")
+        self.parallel = kw.get("parallel", False)
+        self.version = kw.get("version")
+
+    def compute(self, ctx):
+        from surrealdb_tpu_torch.dbs.stmt_exec import create_compute
+
+        return create_compute(ctx, self)
+
+    def writeable(self):
+        return True
+
+    def __repr__(self):
+        out = "CREATE " + ("ONLY " if self.only else "")
+        out += ", ".join(repr(w) for w in self.what)
+        if self.data is not None:
+            out += f" {self.data!r}"
+        if self.output is not None:
+            out += f" {self.output!r}"
+        return out
+
+
+class UpdateStatement(Statement):
+    __slots__ = ("only", "what", "data", "cond", "output", "timeout", "parallel")
+
+    def __init__(self, what, **kw):
+        self.what = what
+        self.only = kw.get("only", False)
+        self.data = kw.get("data")
+        self.cond = kw.get("cond")
+        self.output = kw.get("output")
+        self.timeout = kw.get("timeout")
+        self.parallel = kw.get("parallel", False)
+
+    def compute(self, ctx):
+        from surrealdb_tpu_torch.dbs.stmt_exec import update_compute
+
+        return update_compute(ctx, self)
+
+    def writeable(self):
+        return True
+
+    def __repr__(self):
+        out = "UPDATE " + ("ONLY " if self.only else "")
+        out += ", ".join(repr(w) for w in self.what)
+        if self.data is not None:
+            out += f" {self.data!r}"
+        if self.cond is not None:
+            out += f" WHERE {self.cond!r}"
+        if self.output is not None:
+            out += f" {self.output!r}"
+        return out
+
+
+class UpsertStatement(UpdateStatement):
+    def compute(self, ctx):
+        from surrealdb_tpu_torch.dbs.stmt_exec import upsert_compute
+
+        return upsert_compute(ctx, self)
+
+    def __repr__(self):
+        return "UPSERT" + super().__repr__()[6:]
+
+
+class DeleteStatement(Statement):
+    __slots__ = ("only", "what", "cond", "output", "timeout", "parallel")
+
+    def __init__(self, what, **kw):
+        self.what = what
+        self.only = kw.get("only", False)
+        self.cond = kw.get("cond")
+        self.output = kw.get("output")
+        self.timeout = kw.get("timeout")
+        self.parallel = kw.get("parallel", False)
+
+    def compute(self, ctx):
+        from surrealdb_tpu_torch.dbs.stmt_exec import delete_compute
+
+        return delete_compute(ctx, self)
+
+    def writeable(self):
+        return True
+
+    def __repr__(self):
+        out = "DELETE " + ("ONLY " if self.only else "")
+        out += ", ".join(repr(w) for w in self.what)
+        if self.cond is not None:
+            out += f" WHERE {self.cond!r}"
+        if self.output is not None:
+            out += f" {self.output!r}"
+        return out
+
+
+class InsertStatement(Statement):
+    __slots__ = ("into", "data", "ignore", "update", "output", "relation", "version")
+
+    def __init__(self, into, data, **kw):
+        self.into = into  # Expr or None (data carries ids)
+        self.data = data  # Data('values', (fields, tuples)) | Data('content', expr)
+        self.ignore = kw.get("ignore", False)
+        self.update = kw.get("update")  # ON DUPLICATE KEY UPDATE set-items
+        self.output = kw.get("output")
+        self.relation = kw.get("relation", False)
+        self.version = kw.get("version")
+
+    def compute(self, ctx):
+        from surrealdb_tpu_torch.dbs.stmt_exec import insert_compute
+
+        return insert_compute(ctx, self)
+
+    def writeable(self):
+        return True
+
+    def __repr__(self):
+        out = "INSERT "
+        if self.relation:
+            out += "RELATION "
+        if self.ignore:
+            out += "IGNORE "
+        if self.into is not None:
+            out += f"INTO {self.into!r} "
+        out += repr(self.data)
+        return out
+
+
+class RelateStatement(Statement):
+    __slots__ = ("only", "kind", "from_", "with_", "uniq", "data", "output", "timeout", "parallel")
+
+    def __init__(self, kind, from_, with_, **kw):
+        self.kind = kind  # edge-table expr
+        self.from_ = from_
+        self.with_ = with_
+        self.only = kw.get("only", False)
+        self.uniq = kw.get("uniq", False)
+        self.data = kw.get("data")
+        self.output = kw.get("output")
+        self.timeout = kw.get("timeout")
+        self.parallel = kw.get("parallel", False)
+
+    def compute(self, ctx):
+        from surrealdb_tpu_torch.dbs.stmt_exec import relate_compute
+
+        return relate_compute(ctx, self)
+
+    def writeable(self):
+        return True
+
+    def __repr__(self):
+        out = "RELATE " + ("ONLY " if self.only else "")
+        out += f"{self.from_!r} -> {self.kind!r} -> {self.with_!r}"
+        if self.uniq:
+            out += " UNIQUE"
+        if self.data is not None:
+            out += f" {self.data!r}"
+        if self.output is not None:
+            # the cluster executor routes RELATE by repr — dropping the
+            # RETURN clause would change what the owner node answers
+            out += f" {self.output!r}"
+        return out
+
+
+# ------------------------------------------------------------------ live
+class LiveStatement(Statement):
+    __slots__ = ("fields", "what", "cond", "fetch", "diff")
+
+    def __init__(self, fields, what, cond=None, fetch=None, diff=False):
+        self.fields = fields
+        self.what = what
+        self.cond = cond
+        self.fetch = fetch
+        self.diff = diff
+
+    def compute(self, ctx):
+        from surrealdb_tpu_torch.dbs.stmt_exec import live_compute
+
+        return live_compute(ctx, self)
+
+    def writeable(self):
+        return True
+
+    def __repr__(self):
+        body = "DIFF" if self.diff else ", ".join(repr(f) for f in self.fields)
+        out = f"LIVE SELECT {body} FROM {self.what!r}"
+        if self.cond is not None:
+            out += f" WHERE {self.cond!r}"
+        return out
+
+
+class KillStatement(Statement):
+    __slots__ = ("id",)
+
+    def __init__(self, id_):
+        self.id = id_
+
+    def compute(self, ctx):
+        from surrealdb_tpu_torch.dbs.stmt_exec import kill_compute
+
+        return kill_compute(ctx, self)
+
+    def writeable(self):
+        return True
+
+    def __repr__(self):
+        return f"KILL {self.id!r}"
+
+
+class ShowStatement(Statement):
+    """SHOW CHANGES FOR TABLE tb SINCE ts [LIMIT n]."""
+
+    __slots__ = ("table", "since", "limit")
+
+    def __init__(self, table, since, limit=None):
+        self.table = table
+        self.since = since
+        self.limit = limit
+
+    def compute(self, ctx):
+        from surrealdb_tpu_torch.cf.reader import show_changes
+
+        return show_changes(ctx, self)
+
+    def __repr__(self):
+        out = f"SHOW CHANGES FOR TABLE {self.table}"
+        if self.since is not None:
+            out += f" SINCE {self.since!r}"
+        if self.limit is not None:
+            out += f" LIMIT {self.limit}"
+        return out
+
+
+# ------------------------------------------------------------------ info
+class InfoStatement(Statement):
+    __slots__ = ("level", "target", "structure")
+
+    def __init__(self, level: str, target: Optional[str] = None, structure=False):
+        self.level = level  # root | ns | db | table | user | index
+        self.target = target
+        self.structure = structure
+
+    def compute(self, ctx):
+        from surrealdb_tpu_torch.dbs.info import info_compute
+
+        return info_compute(ctx, self)
+
+    def __repr__(self):
+        lvl = {"root": "ROOT", "ns": "NAMESPACE", "db": "DATABASE", "table": "TABLE", "index": "INDEX", "user": "USER"}[
+            self.level
+        ]
+        out = f"INFO FOR {lvl}"
+        if self.target:
+            out += f" {self.target}"
+        return out
+
+
+# ------------------------------------------------------------------ define
+class DefineStatement(Statement):
+    """One node for all DEFINE kinds; `kind` selects the handler.
+
+    kinds: namespace database table field index event analyzer function param
+    user access model config
+    """
+
+    __slots__ = ("kind", "args")
+
+    def __init__(self, defkind: str, **args):
+        self.kind = defkind
+        self.args = args
+
+    def compute(self, ctx):
+        from surrealdb_tpu_torch.dbs.define import define_compute
+
+        return define_compute(ctx, self)
+
+    def writeable(self):
+        return True
+
+    def __repr__(self):
+        name = self.args.get("name", "")
+        return f"DEFINE {self.kind.upper()} {name}"
+
+
+class RemoveStatement(Statement):
+    __slots__ = ("kind", "name", "table", "if_exists", "level")
+
+    def __init__(self, kind: str, name: str, table=None, if_exists=False, level=None):
+        self.kind = kind
+        self.name = name
+        self.table = table
+        self.if_exists = if_exists
+        self.level = level
+
+    def compute(self, ctx):
+        from surrealdb_tpu_torch.dbs.define import remove_compute
+
+        return remove_compute(ctx, self)
+
+    def writeable(self):
+        return True
+
+    def __repr__(self):
+        out = f"REMOVE {self.kind.upper()} {self.name}"
+        if self.table:
+            out += f" ON {self.table}"
+        return out
+
+
+class AlterStatement(Statement):
+    __slots__ = ("kind", "name", "if_exists", "args")
+
+    def __init__(self, kind: str, name: str, if_exists=False, **args):
+        self.kind = kind
+        self.name = name
+        self.if_exists = if_exists
+        self.args = args
+
+    def compute(self, ctx):
+        from surrealdb_tpu_torch.dbs.define import alter_compute
+
+        return alter_compute(ctx, self)
+
+    def writeable(self):
+        return True
+
+    def __repr__(self):
+        return f"ALTER {self.kind.upper()} {self.name}"
+
+
+class RebuildStatement(Statement):
+    __slots__ = ("name", "table", "if_exists")
+
+    def __init__(self, name: str, table: str, if_exists=False):
+        self.name = name
+        self.table = table
+        self.if_exists = if_exists
+
+    def compute(self, ctx):
+        from surrealdb_tpu_torch.dbs.define import rebuild_compute
+
+        return rebuild_compute(ctx, self)
+
+    def writeable(self):
+        return True
+
+    def __repr__(self):
+        return f"REBUILD INDEX {self.name} ON {self.table}"
+
+
+class AccessStatement(Statement):
+    """ACCESS ... GRANT/SHOW/REVOKE/PURGE (token/grant management)."""
+
+    __slots__ = ("name", "base", "op", "args")
+
+    def __init__(self, name: str, base, op: str, **args):
+        self.name = name
+        self.base = base
+        self.op = op
+        self.args = args
+
+    def writeable(self) -> bool:
+        return self.op in ("grant", "revoke", "purge")
+
+    def compute(self, ctx):
+        from surrealdb_tpu_torch.iam.access import access_compute
+
+        return access_compute(ctx, self)
+
+    def __repr__(self):
+        return f"ACCESS {self.name} {self.op.upper()}"

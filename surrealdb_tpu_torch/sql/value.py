@@ -1,0 +1,776 @@
+"""The Value domain.
+
+Role of the reference's 25-variant `Value` enum (reference:
+core/src/sql/value/value.rs:91-131). Python natives carry the common cases
+(bool/int/float/str/list/dict/bytes); distinguished singletons carry
+NONE/NULL; wrapper classes carry the SurrealQL-specific types (Thing,
+Duration, Datetime, Uuid, Range, Geometry, Closure, Future...).
+
+Total ordering across types (for ORDER BY / index keys) follows the type
+ordinal order: None < Null < Bool < Number < Strand < Duration < Datetime <
+Uuid < Array < Object < Geometry < Bytes < Thing.
+"""
+
+from __future__ import annotations
+
+import decimal as _decimal
+import math
+import os as _os
+import random
+import string as _string
+import uuid as _uuid
+from datetime import datetime as _pydt, timezone as _tz
+from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+
+# ----------------------------------------------------------------- singletons
+class _ValueNone:
+    """SurrealQL NONE — absence of a value (distinct from NULL)."""
+
+    _inst = None
+
+    def __new__(cls):
+        if cls._inst is None:
+            cls._inst = super().__new__(cls)
+        return cls._inst
+
+    def __repr__(self):
+        return "NONE"
+
+    def __bool__(self):
+        return False
+
+    def __eq__(self, other):
+        return other is self or isinstance(other, _ValueNone)
+
+    def __hash__(self):
+        return hash("__surreal_none__")
+
+
+class _ValueNull:
+    """SurrealQL NULL — an explicitly set null."""
+
+    _inst = None
+
+    def __new__(cls):
+        if cls._inst is None:
+            cls._inst = super().__new__(cls)
+        return cls._inst
+
+    def __repr__(self):
+        return "NULL"
+
+    def __bool__(self):
+        return False
+
+    def __eq__(self, other):
+        return other is self or isinstance(other, _ValueNull) or other is None
+
+    def __hash__(self):
+        return hash("__surreal_null__")
+
+
+NONE = _ValueNone()
+Null = _ValueNull()
+
+
+def is_none(v) -> bool:
+    return v is NONE or isinstance(v, _ValueNone)
+
+
+def is_null(v) -> bool:
+    return v is Null or v is None or isinstance(v, _ValueNull)
+
+
+def is_nullish(v) -> bool:
+    return is_none(v) or is_null(v)
+
+
+# ----------------------------------------------------------------- Thing (record id)
+_ID_CHARS = _string.ascii_lowercase + _string.digits
+# byte -> id-char translation table; one urandom + translate per id is ~10x
+# cheaper than 20 random.choices draws (hot in bulk RELATE ingest)
+_ID_TABLE = bytes(ord(_ID_CHARS[b % 36]) for b in range(256))
+
+# per-thread entropy buffer: on this kernel a getrandom syscall costs ~100µs,
+# which made per-id urandom(20) calls 40% of bulk RELATE ingest. One 80KB
+# read amortizes the syscall over 4096 ids; thread-local so two threads can
+# never be handed the same slice (a shared cursor would mint duplicate ids).
+_ID_BUF_IDS = 4096
+import threading as _threading
+
+_id_tls = _threading.local()
+
+
+def generate_record_id() -> str:
+    """20-char random id, same shape the reference generates for `CREATE tb`."""
+    buf = getattr(_id_tls, "buf", None)
+    pos = getattr(_id_tls, "pos", 0)
+    if buf is None or pos + 20 > len(buf):
+        buf = _id_tls.buf = _os.urandom(20 * _ID_BUF_IDS).translate(_ID_TABLE)
+        pos = 0
+    _id_tls.pos = pos + 20
+    return buf[pos : pos + 20].decode("ascii")
+
+
+class Thing:
+    """A record pointer `tb:id`. Id may be int/str/Uuid/array/object/Range."""
+
+    __slots__ = ("tb", "id")
+
+    def __init__(self, tb: str, id_: Any = None):
+        if id_ is None:
+            id_ = generate_record_id()
+        self.tb = tb
+        self.id = id_
+
+    @staticmethod
+    def parse(text: str) -> "Thing":
+        from surrealdb_tpu_torch.syn import parse_thing
+
+        return parse_thing(text)
+
+    def __repr__(self):
+        return f"{escape_ident(self.tb)}:{format_id(self.id)}"
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, Thing)
+            and self.tb == other.tb
+            and _id_eq(self.id, other.id)
+        )
+
+    def __hash__(self):
+        try:
+            return hash((self.tb, _hashable(self.id)))
+        except TypeError:
+            return hash((self.tb, repr(self.id)))
+
+    def __lt__(self, other):
+        if not isinstance(other, Thing):
+            return NotImplemented
+        return (self.tb, _cmp_key(self.id)) < (other.tb, _cmp_key(other.id))
+
+
+def _id_eq(a, b):
+    return a == b
+
+
+def _hashable(v):
+    if isinstance(v, list):
+        return tuple(_hashable(x) for x in v)
+    if isinstance(v, dict):
+        return tuple(sorted((k, _hashable(x)) for k, x in v.items()))
+    return v
+
+
+# ----------------------------------------------------------------- Duration
+_DUR_UNITS = [
+    ("y", 365 * 24 * 3600 * 1_000_000_000),
+    ("w", 7 * 24 * 3600 * 1_000_000_000),
+    ("d", 24 * 3600 * 1_000_000_000),
+    ("h", 3600 * 1_000_000_000),
+    ("m", 60 * 1_000_000_000),
+    ("s", 1_000_000_000),
+    ("ms", 1_000_000),
+    ("us", 1_000),
+    ("ns", 1),
+]
+_DUR_UNIT_MAP = {u: n for u, n in _DUR_UNITS}
+_DUR_UNIT_MAP["µs"] = 1_000
+
+
+class Duration:
+    __slots__ = ("nanos",)
+
+    def __init__(self, nanos: int = 0):
+        self.nanos = int(nanos)
+
+    @staticmethod
+    def parse(text: str) -> "Duration":
+        total = 0
+        i, n = 0, len(text)
+        while i < n:
+            j = i
+            while j < n and (text[j].isdigit() or text[j] == "."):
+                j += 1
+            if j == i:
+                raise ValueError(f"invalid duration {text!r}")
+            num = float(text[i:j]) if "." in text[i:j] else int(text[i:j])
+            k = j
+            while k < n and not (text[k].isdigit() or text[k] == "."):
+                k += 1
+            unit = text[j:k]
+            if unit not in _DUR_UNIT_MAP:
+                raise ValueError(f"invalid duration unit {unit!r}")
+            total += int(num * _DUR_UNIT_MAP[unit])
+            i = k
+        return Duration(total)
+
+    @property
+    def seconds(self) -> float:
+        return self.nanos / 1e9
+
+    def __repr__(self):
+        if self.nanos == 0:
+            return "0ns"
+        if self.nanos < 0:
+            return "-" + repr(Duration(-self.nanos))
+        out = []
+        rest = self.nanos
+        for unit, size in _DUR_UNITS:
+            if unit == "w":  # reference formats years then days (no weeks)
+                continue
+            q, rest = divmod(rest, size)
+            if q:
+                out.append(f"{q}{unit}")
+        return "".join(out)
+
+    def __eq__(self, other):
+        return isinstance(other, Duration) and self.nanos == other.nanos
+
+    def __hash__(self):
+        return hash(("dur", self.nanos))
+
+    def __lt__(self, other):
+        if not isinstance(other, Duration):
+            return NotImplemented
+        return self.nanos < other.nanos
+
+    def __add__(self, other):
+        if isinstance(other, Duration):
+            return Duration(self.nanos + other.nanos)
+        if isinstance(other, Datetime):
+            return Datetime(other.nanos + self.nanos)
+        return NotImplemented
+
+    def __sub__(self, other):
+        if isinstance(other, Duration):
+            return Duration(self.nanos - other.nanos)
+        return NotImplemented
+
+
+# ----------------------------------------------------------------- Datetime
+class Datetime:
+    """UTC datetime held as integer nanoseconds since the Unix epoch."""
+
+    __slots__ = ("nanos",)
+
+    def __init__(self, nanos: int = 0):
+        self.nanos = int(nanos)
+
+    @staticmethod
+    def parse(text: str) -> "Datetime":
+        t = text.strip()
+        if t.endswith("Z"):
+            t = t[:-1] + "+00:00"
+        # Fractional seconds beyond microseconds: keep nanos manually
+        extra_nanos = 0
+        if "." in t:
+            head, _, tail = t.partition(".")
+            frac = ""
+            idx = 0
+            while idx < len(tail) and tail[idx].isdigit():
+                frac += tail[idx]
+                idx += 1
+            rest = tail[idx:]
+            if len(frac) > 6:
+                extra_nanos = int(frac[6:].ljust(3, "0")[:3])
+                frac = frac[:6]
+            t = head + ("." + frac if frac else "") + rest
+        if "T" not in t and " " not in t:
+            t = t + "T00:00:00+00:00"
+        elif "+" not in t and not t.endswith("00:00") and "Z" not in text:
+            # naive datetime -> UTC
+            try:
+                _pydt.fromisoformat(t)
+                if _pydt.fromisoformat(t).tzinfo is None:
+                    t = t + "+00:00"
+            except ValueError:
+                pass
+        dt = _pydt.fromisoformat(t)
+        if dt.tzinfo is None:
+            dt = dt.replace(tzinfo=_tz.utc)
+        return Datetime(int(dt.timestamp() * 1_000_000) * 1000 + extra_nanos)
+
+    @staticmethod
+    def now() -> "Datetime":
+        import time
+
+        return Datetime(time.time_ns())
+
+    @property
+    def seconds(self) -> float:
+        return self.nanos / 1e9
+
+    def to_py(self) -> _pydt:
+        return _pydt.fromtimestamp(self.nanos / 1e9, tz=_tz.utc)
+
+    def __repr__(self):
+        micros, nrem = divmod(self.nanos, 1000)
+        secs, urem = divmod(micros, 1_000_000)
+        dt = _pydt.fromtimestamp(secs, tz=_tz.utc)
+        base = dt.strftime("%Y-%m-%dT%H:%M:%S")
+        frac_ns = urem * 1000 + nrem
+        if frac_ns:
+            frac = f"{frac_ns:09d}".rstrip("0")
+            return f"d'{base}.{frac}Z'"
+        return f"d'{base}Z'"
+
+    def __eq__(self, other):
+        return isinstance(other, Datetime) and self.nanos == other.nanos
+
+    def __hash__(self):
+        return hash(("dt", self.nanos))
+
+    def __lt__(self, other):
+        if not isinstance(other, Datetime):
+            return NotImplemented
+        return self.nanos < other.nanos
+
+    def __sub__(self, other):
+        if isinstance(other, Datetime):
+            return Duration(self.nanos - other.nanos)
+        if isinstance(other, Duration):
+            return Datetime(self.nanos - other.nanos)
+        return NotImplemented
+
+    def __add__(self, other):
+        if isinstance(other, Duration):
+            return Datetime(self.nanos + other.nanos)
+        return NotImplemented
+
+
+# ----------------------------------------------------------------- Uuid
+class Uuid:
+    __slots__ = ("value",)
+
+    def __init__(self, value: Optional[_uuid.UUID] = None):
+        if value is None:
+            value = _uuid.uuid4()
+        elif isinstance(value, str):
+            value = _uuid.UUID(value)
+        self.value = value
+
+    @staticmethod
+    def v4() -> "Uuid":
+        return Uuid(_uuid.uuid4())
+
+    @staticmethod
+    def v7() -> "Uuid":
+        import time
+
+        ts = time.time_ns() // 1_000_000
+        rand_a = random.getrandbits(12)
+        rand_b = random.getrandbits(62)
+        val = (ts & ((1 << 48) - 1)) << 80
+        val |= 0x7 << 76
+        val |= rand_a << 64
+        val |= 0b10 << 62
+        val |= rand_b
+        return Uuid(_uuid.UUID(int=val))
+
+    def __repr__(self):
+        return f"u'{self.value}'"
+
+    def __eq__(self, other):
+        if isinstance(other, Uuid):
+            return self.value == other.value
+        if isinstance(other, _uuid.UUID):
+            return self.value == other
+        return False
+
+    def __hash__(self):
+        return hash(self.value)
+
+    def __lt__(self, other):
+        if isinstance(other, Uuid):
+            return self.value < other.value
+        return NotImplemented
+
+
+# ----------------------------------------------------------------- Range
+class Range:
+    """`beg..end`, `beg..=end`, `beg>..end` — used in ids and WHERE."""
+
+    __slots__ = ("beg", "end", "beg_incl", "end_incl")
+
+    def __init__(self, beg=NONE, end=NONE, beg_incl=True, end_incl=False):
+        self.beg, self.end = beg, end
+        self.beg_incl, self.end_incl = beg_incl, end_incl
+
+    def __repr__(self):
+        b = "" if is_none(self.beg) else format_value(self.beg)
+        e = "" if is_none(self.end) else format_value(self.end)
+        pre = ">" if not self.beg_incl and not is_none(self.beg) else ""
+        eq = "=" if self.end_incl else ""
+        return f"{b}{pre}..{eq}{e}"
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, Range)
+            and self.beg == other.beg
+            and self.end == other.end
+            and self.beg_incl == other.beg_incl
+            and self.end_incl == other.end_incl
+        )
+
+    def __hash__(self):
+        return hash(("range", _hashable(self.beg), _hashable(self.end), self.beg_incl, self.end_incl))
+
+    def contains(self, v) -> bool:
+        if not is_none(self.beg):
+            c = value_cmp(v, self.beg)
+            if c < 0 or (c == 0 and not self.beg_incl):
+                return False
+        if not is_none(self.end):
+            c = value_cmp(v, self.end)
+            if c > 0 or (c == 0 and not self.end_incl):
+                return False
+        return True
+
+
+# ----------------------------------------------------------------- Geometry
+class Geometry:
+    """GeoJSON-style geometry. kind: Point/LineString/Polygon/MultiPoint/
+    MultiLineString/MultiPolygon/GeometryCollection; coords: nested lists."""
+
+    __slots__ = ("kind", "coords")
+
+    def __init__(self, kind: str, coords: Any):
+        self.kind = kind
+        self.coords = coords
+
+    def to_json(self) -> dict:
+        if self.kind == "GeometryCollection":
+            return {
+                "type": self.kind,
+                "geometries": [g.to_json() for g in self.coords],
+            }
+        return {"type": self.kind, "coordinates": self.coords}
+
+    def __repr__(self):
+        if self.kind == "Point":
+            return f"({self.coords[0]}, {self.coords[1]})"
+        import json
+
+        return json.dumps(self.to_json())
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, Geometry)
+            and self.kind == other.kind
+            and self.coords == other.coords
+        )
+
+    def __hash__(self):
+        return hash((self.kind, repr(self.coords)))
+
+
+# ----------------------------------------------------------------- Table ref
+class Table(str):
+    """A bare table name used as a value (FROM person)."""
+
+    def __repr__(self):
+        return escape_ident(str(self))
+
+
+# ----------------------------------------------------------------- Closure
+class Closure:
+    """`|$a: int| $a + 1` — anonymous function value."""
+
+    __slots__ = ("params", "returns", "body")
+
+    def __init__(self, params, returns, body):
+        self.params = params  # list[(name, kind|None)]
+        self.returns = returns
+        self.body = body  # AST expression/block
+
+    def __repr__(self):
+        ps = ", ".join(f"${p}" for p, _ in self.params)
+        return f"|{ps}| ..."
+
+    def __eq__(self, other):
+        return self is other
+
+    def __hash__(self):
+        return id(self)
+
+
+# ----------------------------------------------------------------- ordering
+_ORDINAL = {
+    "none": 0,
+    "null": 1,
+    "bool": 2,
+    "number": 3,
+    "strand": 4,
+    "duration": 5,
+    "datetime": 6,
+    "uuid": 7,
+    "array": 8,
+    "object": 9,
+    "geometry": 10,
+    "bytes": 11,
+    "thing": 12,
+    "table": 13,
+    "range": 14,
+    "closure": 15,
+}
+
+
+def type_ordinal(v) -> int:
+    if is_none(v):
+        return _ORDINAL["none"]
+    if is_null(v):
+        return _ORDINAL["null"]
+    if isinstance(v, bool):
+        return _ORDINAL["bool"]
+    if isinstance(v, (int, float, _decimal.Decimal)):
+        return _ORDINAL["number"]
+    if isinstance(v, Table):
+        return _ORDINAL["table"]
+    if isinstance(v, str):
+        return _ORDINAL["strand"]
+    if isinstance(v, Duration):
+        return _ORDINAL["duration"]
+    if isinstance(v, Datetime):
+        return _ORDINAL["datetime"]
+    if isinstance(v, (Uuid, _uuid.UUID)):
+        return _ORDINAL["uuid"]
+    if isinstance(v, (list, tuple)):
+        return _ORDINAL["array"]
+    if isinstance(v, dict):
+        return _ORDINAL["object"]
+    if isinstance(v, Geometry):
+        return _ORDINAL["geometry"]
+    if isinstance(v, bytes):
+        return _ORDINAL["bytes"]
+    if isinstance(v, Thing):
+        return _ORDINAL["thing"]
+    if isinstance(v, Range):
+        return _ORDINAL["range"]
+    if isinstance(v, Closure):
+        return _ORDINAL["closure"]
+    return 99
+
+
+def value_cmp(a, b) -> int:
+    """Total order over the Value domain; -1/0/1."""
+    ta, tb = type_ordinal(a), type_ordinal(b)
+    if ta != tb:
+        return -1 if ta < tb else 1
+    if ta == 0 or ta == 1:
+        return 0
+    if ta == _ORDINAL["bool"]:
+        return (a > b) - (a < b)
+    if ta == _ORDINAL["number"]:
+        if math.isnan(a) if isinstance(a, float) else False:
+            return 0 if (isinstance(b, float) and math.isnan(b)) else -1
+        if math.isnan(b) if isinstance(b, float) else False:
+            return 1
+        return (a > b) - (a < b)
+    if ta == _ORDINAL["strand"] or ta == _ORDINAL["table"]:
+        return (a > b) - (a < b)
+    if ta == _ORDINAL["duration"]:
+        return (a.nanos > b.nanos) - (a.nanos < b.nanos)
+    if ta == _ORDINAL["datetime"]:
+        return (a.nanos > b.nanos) - (a.nanos < b.nanos)
+    if ta == _ORDINAL["uuid"]:
+        ua = a.value if isinstance(a, Uuid) else a
+        ub = b.value if isinstance(b, Uuid) else b
+        return (ua > ub) - (ua < ub)
+    if ta == _ORDINAL["array"]:
+        for x, y in zip(a, b):
+            c = value_cmp(x, y)
+            if c != 0:
+                return c
+        return (len(a) > len(b)) - (len(a) < len(b))
+    if ta == _ORDINAL["object"]:
+        ka, kb = sorted(a.keys()), sorted(b.keys())
+        for x, y in zip(ka, kb):
+            if x != y:
+                return -1 if x < y else 1
+            c = value_cmp(a[x], b[y])
+            if c != 0:
+                return c
+        return (len(ka) > len(kb)) - (len(ka) < len(kb))
+    if ta == _ORDINAL["bytes"]:
+        return (a > b) - (a < b)
+    if ta == _ORDINAL["thing"]:
+        if a.tb != b.tb:
+            return -1 if a.tb < b.tb else 1
+        return value_cmp(a.id, b.id)
+    ra, rb = repr(a), repr(b)
+    return (ra > rb) - (ra < rb)
+
+
+class _CmpKey:
+    __slots__ = ("v",)
+
+    def __init__(self, v):
+        self.v = v
+
+    def __lt__(self, other):
+        return value_cmp(self.v, other.v) < 0
+
+    def __eq__(self, other):
+        return value_cmp(self.v, other.v) == 0
+
+
+def _cmp_key(v):
+    return _CmpKey(v)
+
+
+def sort_key(v):
+    """Key function usable with sorted() over mixed Values."""
+    return _CmpKey(v)
+
+
+def value_eq(a, b) -> bool:
+    """SurrealQL `=` semantics (NONE = NONE true, NULL = NULL true...)."""
+    if is_none(a) or is_none(b):
+        return is_none(a) and is_none(b)
+    if is_null(a) or is_null(b):
+        return is_null(a) and is_null(b)
+    if isinstance(a, bool) != isinstance(b, bool):
+        return False
+    if isinstance(a, (int, float)) and isinstance(b, (int, float)):
+        return a == b
+    if type_ordinal(a) != type_ordinal(b):
+        # Thing vs string coercion: person:1 == "person:1"
+        if isinstance(a, Thing) and isinstance(b, str):
+            return repr(a) == b
+        if isinstance(b, Thing) and isinstance(a, str):
+            return repr(b) == a
+        return False
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(value_eq(x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(value_eq(a[k], b[k]) for k in a)
+    return a == b
+
+
+def truthy(v) -> bool:
+    """SurrealQL truthiness."""
+    if is_nullish(v):
+        return False
+    if isinstance(v, bool):
+        return v
+    if isinstance(v, (int, float)):
+        return v != 0
+    if isinstance(v, str):
+        return len(v) > 0
+    if isinstance(v, (list, dict, bytes)):
+        return len(v) > 0
+    if isinstance(v, Duration):
+        return v.nanos != 0
+    if isinstance(v, (Thing, Datetime, Uuid, Geometry, Range, Closure)):
+        return True
+    return bool(v)
+
+
+# ----------------------------------------------------------------- formatting
+_IDENT_OK = set(_string.ascii_letters + _string.digits + "_")
+
+
+def escape_ident(name: str) -> str:
+    if name and all(c in _IDENT_OK for c in name) and not name.isdigit():
+        return name
+    return "⟨" + name.replace("⟩", "\\⟩") + "⟩"
+
+
+def format_id(id_: Any) -> str:
+    if isinstance(id_, int):
+        return str(id_)
+    if isinstance(id_, str):
+        return escape_ident(id_)
+    if isinstance(id_, Range):
+        return repr(id_)
+    return format_value(id_)
+
+
+def format_value(v: Any, pretty: bool = False, _ind: int = 0) -> str:
+    """Render a Value as SurrealQL text (the canonical output format)."""
+    if is_none(v):
+        return "NONE"
+    if is_null(v):
+        return "NULL"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, float):
+        if math.isnan(v):
+            return "NaN"
+        if math.isinf(v):
+            return "inf" if v > 0 else "-inf"
+        if v == int(v) and abs(v) < 1e15:
+            return f"{int(v)}f"
+        return repr(v) + "f"
+    if isinstance(v, _decimal.Decimal):
+        return format(v, "f") + "dec"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, Table):
+        return repr(v)
+    if isinstance(v, str):
+        return "'" + v.replace("\\", "\\\\").replace("'", "\\'") + "'"
+    if isinstance(v, (list, tuple)):
+        inner = ", ".join(format_value(x, pretty, _ind + 1) for x in v)
+        return f"[{inner}]"
+    if type(v).__name__ == "ndarray":  # packed vector formats like its array
+        return format_value(v.tolist(), pretty, _ind)
+    if isinstance(v, dict):
+        items = ", ".join(
+            f"{escape_ident(k)}: {format_value(x, pretty, _ind + 1)}" for k, x in v.items()
+        )
+        return "{ " + items + " }" if items else "{  }"
+    if isinstance(v, bytes):
+        return 'b"' + v.hex().upper() + '"'
+    if isinstance(v, _uuid.UUID):
+        return f"u'{v}'"
+    return repr(v)
+
+
+def to_json_value(v: Any) -> Any:
+    """Convert a Value to plain JSON-able Python."""
+    if is_none(v) or is_null(v):
+        return None
+    if isinstance(v, (bool, int, str)):
+        return v
+    if isinstance(v, float):
+        return v
+    if isinstance(v, _decimal.Decimal):
+        # decimals render as JSON numbers (reference serde impl); exact
+        # values survive in the storage/wire ext codecs, not json
+        return int(v) if v == int(v) else float(v)
+    if isinstance(v, (list, tuple)):
+        return [to_json_value(x) for x in v]
+    if type(v).__name__ == "ndarray":  # packed vector -> plain JSON array
+        return v.tolist()
+    if isinstance(v, dict):
+        return {k: to_json_value(x) for k, x in v.items()}
+    if isinstance(v, Thing):
+        return repr(v)
+    if isinstance(v, Duration):
+        return repr(v)
+    if isinstance(v, Datetime):
+        return repr(v)[2:-1]  # strip d'...'
+    if isinstance(v, Uuid):
+        return str(v.value)
+    if isinstance(v, Geometry):
+        return v.to_json()
+    if isinstance(v, bytes):
+        import base64
+
+        return base64.b64encode(v).decode()
+    if isinstance(v, Range):
+        return repr(v)
+    return repr(v)
+
+
+def copy_value(v: Any) -> Any:
+    """Deep-copy the mutable parts of a Value tree."""
+    if isinstance(v, list):
+        return [copy_value(x) for x in v]
+    if isinstance(v, dict):
+        return {k: copy_value(x) for k, x in v.items()}
+    return v

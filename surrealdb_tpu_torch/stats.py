@@ -1,0 +1,514 @@
+"""Workload statistics plane: statement fingerprints + per-shape stats.
+
+The pg_stat_statements analog for an engine whose hot paths are jitted
+kernels. Every executed statement is normalized at the ingress choke
+points (dbs/executor.py for local execution, cluster/executor.py for
+coordinated statements) into a literal-and-parameter-erased FINGERPRINT,
+and cumulative per-fingerprint statistics accumulate in a bounded LRU
+store:
+
+- calls / errors / slow count, a fixed log-bucket latency histogram
+  (telemetry.DURATION_BUCKETS, so p50/p99 are derivable per shape),
+  rows in/out;
+- the **plan-mix vector**: how many executions took each plan decision
+  (columnar-pipeline vs columnar-scan vs index vs knn-<strategy> vs row,
+  plus scatter/degraded/agg-pushdown in cluster mode and dispatch
+  split/retry counts) — pulled from the existing plan-note machinery
+  (`telemetry.note_plan`), NOT re-derived;
+- **plan flips**: when a fingerprint's primary scan decision changes
+  between consecutive executions (columnar-pipeline one call, row the
+  next — the signature of a mirror decline or a cluster pushdown
+  stand-down), the flip is counted, logged into a bounded per-entry
+  flip ring, and emitted as a `stats.plan_flip` event joined to the
+  statement's trace. This is the regression signal EXPLAIN cannot show,
+  because nobody re-ran EXPLAIN after the plan silently changed.
+
+Fingerprinting reuses the SurrealQL lexer: literals (NUMBER / STRING /
+DURATION / DATETIME / UUID / BYTES / REGEX / SCRIPT) erase to `?`,
+parameters to `$?`, comments and whitespace vanish with tokenization,
+and literal-list runs collapse (`[?, ?, ?]` -> `[?..]`) so batch size
+does not mint new shapes. Identifiers are kept verbatim — `person` and
+`Person` are different tables, and shape-distinct statements must never
+collide. The mapping is memoized (statement TEXT -> fingerprint), so the
+steady-state cost per executed statement is one dict hit.
+
+GL012 (scripts/graftlint): recording MUST go through `record()` — no
+call site reaches into the private store, so the lock discipline and the
+flip detection cannot be bypassed by an ad-hoc writer.
+
+Surfaces: `GET /statements` (system-gated; `?cluster=1` federates
+node-tagged per-member stores through cluster/federation.py),
+`INFO FOR ROOT` (`system.statements`), debug-bundle section 12
+(bundle.py), per-config embeds in bench artifacts (schema /12) and
+`scripts/bench_diff.py --statements` regression naming.
+"""
+
+from __future__ import annotations
+
+import functools
+import re
+import threading
+import time
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional, Tuple
+
+from surrealdb_tpu_torch.utils import locks as _locks
+
+# token kinds that erase to `?` (value-carrying literals)
+_LITERAL_KINDS = frozenset(
+    {"NUMBER", "STRING", "DURATION", "DATETIME", "UUID", "BYTES", "REGEX",
+     "SCRIPT"}
+)
+# collapse literal-list runs: `? , ?` repeats fold to one `?..` so
+# `IN [1,2,3]` and `IN [4,5]` are the same statement shape; a bracketed
+# single literal folds too (`IN [4]` is the same shape at length 1)
+_LIST_RUN = re.compile(r"(\?|\$\?)( , (\?|\$\?))+")
+_LIST_ONE = re.compile(r"\[ \? \]")
+
+# SurrealQL keywords are case-insensitive (the parser matches IDENTs
+# contextually), so keyword-cased variants of one statement must collapse.
+# Identifiers that HAPPEN to spell a keyword fold too — grammatically they
+# can't occupy the same token position as the keyword, so no two
+# shape-distinct statements collide through this fold.
+_KEYWORDS = frozenset(
+    """
+    select create update upsert delete insert relate define remove info
+    use let begin commit cancel return if else then end for in from where
+    group by order asc desc collate numeric limit start fetch timeout
+    parallel explain analyze full set unset content merge patch replace
+    values on duplicate key only with noindex index split at version
+    and or not is contains containsall containsany containsnone inside
+    notinside outside intersects knn live kill show changes since table
+    database namespace ns db field type schemafull schemaless permissions
+    when event function param analyzer access user password passhash
+    roles token relation into ignore after before diff wait concurrently
+    unique search mtree hnsw dimension dist efc bm25 highlights as true
+    false null none break continue throw sleep option value flexible
+    readonly default assert comment drop changefeed out what
+    """.split()
+)
+# fallback normalizer pieces for text the lexer rejects (fingerprinting
+# must never fail a statement that somehow reached execution)
+_FB_STRING = re.compile(r"'(?:[^'\\]|\\.)*'|\"(?:[^\"\\]|\\.)*\"")
+_FB_NUMBER = re.compile(r"\b\d[\d_]*(?:\.\d+)?(?:[eE][+-]?\d+)?\b")
+_FB_PARAM = re.compile(r"\$\w+")
+_FB_WS = re.compile(r"\s+")
+
+# plan-mix decision priority, most-specific first: an execution's PRIMARY
+# decision (the flip detector's unit) is the first of these present in its
+# mix. `knn` entries rank by prefix; `row` is the absence of any note.
+_PRIMARY_ORDER = ("columnar-pipeline", "columnar-scan", "agg-pushdown",
+                  "index", "knn", "row")
+
+
+def _digest(text: str) -> str:
+    import hashlib
+
+    return hashlib.blake2b(text.encode(), digest_size=8).hexdigest()
+
+
+@functools.lru_cache(maxsize=4096)
+def fingerprint(text: str) -> Tuple[str, str]:
+    """(fingerprint id, normalized text) of one statement's source. The
+    id is a 16-hex blake2b of the normalized form; the normalized form is
+    the human-readable shape the store keeps as its sample."""
+    normalized = _normalize(text)
+    return _digest(normalized), normalized
+
+
+def _normalize(text: str) -> str:
+    from surrealdb_tpu_torch.err import ParseError
+    from surrealdb_tpu_torch.syn.lexer import Lexer
+
+    try:
+        tokens = Lexer(text).lex()
+    except (ParseError, RecursionError):
+        # unlexable text (a statement that reached execution some other
+        # way): a regex-light erasure keeps the fingerprint total
+        t = _FB_STRING.sub("?", text)
+        t = _FB_PARAM.sub("$?", t)
+        t = _FB_NUMBER.sub("?", t)
+        return _FB_WS.sub(" ", t).strip()
+    parts: List[str] = []
+    for t in tokens:
+        if t.kind == "EOF":
+            break
+        if t.kind in _LITERAL_KINDS:
+            parts.append("?")
+        elif t.kind == "PARAM":
+            parts.append("$?")
+        elif t.kind == "OP":
+            parts.append(str(t.value))
+        else:
+            # IDENT: keywords fold to upper case (SurrealQL keywords are
+            # case-insensitive); real identifiers keep their case —
+            # `person` and `Person` are different tables
+            v = str(t.value)
+            parts.append(v.upper() if v.lower() in _KEYWORDS else v)
+    out = _LIST_RUN.sub("?..", " ".join(parts))
+    return _LIST_ONE.sub("[ ?.. ]", out)
+
+
+# ------------------------------------------------------------------ store
+class _Entry:
+    """One fingerprint's cumulative statistics (mutated under _lock)."""
+
+    __slots__ = (
+        "fp", "text", "kind", "calls", "errors", "slow", "dur_sum",
+        "dur_max", "buckets", "rows_out", "rows_in", "plan_mix",
+        "dispatch_splits", "dispatch_retries", "last_primary", "flips",
+        "flip_log", "first_ts", "last_ts",
+        "cost_chosen", "cost_declined", "cost_margin", "cost_notes",
+    )
+
+    def __init__(self, fp: str, text: str, kind: str):
+        from surrealdb_tpu_torch import telemetry
+
+        self.fp = fp
+        self.text = text
+        self.kind = kind
+        self.calls = 0
+        self.errors = 0
+        self.slow = 0
+        self.dur_sum = 0.0
+        self.dur_max = 0.0
+        self.buckets = [0] * (len(telemetry.DURATION_BUCKETS) + 1)
+        self.rows_out = 0
+        self.rows_in = 0
+        self.plan_mix: Dict[str, int] = {}
+        self.dispatch_splits = 0
+        self.dispatch_retries = 0
+        self.last_primary: Optional[str] = None
+        # planner cost-hook accumulators (choose_strategy's est_cost
+        # note): chosen AND declined modeled costs in row-visit units —
+        # the break-even margin the advisor's index math consumes
+        self.cost_chosen = 0.0
+        self.cost_declined = 0.0
+        self.cost_margin = 0.0
+        self.cost_notes = 0
+        self.flips = 0
+        self.flip_log: List[dict] = []  # bounded: newest _FLIP_LOG_CAP
+        self.first_ts = time.time()
+        self.last_ts = self.first_ts
+
+    def quantile(self, q: float) -> Optional[float]:
+        """Approximate latency quantile (seconds) off the fixed buckets:
+        the upper bound of the bucket the q-th call falls in (the +Inf
+        overflow reports the observed max)."""
+        from surrealdb_tpu_torch import telemetry
+
+        if not self.calls:
+            return None
+        want = max(int(self.calls * q), 1)
+        cum = 0
+        for i, n in enumerate(self.buckets):
+            cum += n
+            if cum >= want:
+                if i < len(telemetry.DURATION_BUCKETS):
+                    return telemetry.DURATION_BUCKETS[i]
+                return self.dur_max
+        return self.dur_max
+
+    def to_dict(self) -> dict:
+        return {
+            "fingerprint": self.fp,
+            "sql": self.text,
+            "kind": self.kind,
+            "calls": self.calls,
+            "errors": self.errors,
+            "slow": self.slow,
+            "total_s": round(self.dur_sum, 6),
+            "mean_ms": round(self.dur_sum / self.calls * 1e3, 3)
+            if self.calls
+            else None,
+            "max_ms": round(self.dur_max * 1e3, 3),
+            "p50_ms": _ms(self.quantile(0.50)),
+            "p99_ms": _ms(self.quantile(0.99)),
+            "rows_out": self.rows_out,
+            "rows_in": self.rows_in,
+            "plan_mix": dict(self.plan_mix),
+            "cost": {
+                "unit": "row-visits",
+                "chosen": round(self.cost_chosen, 2),
+                "declined": round(self.cost_declined, 2),
+                "margin": round(self.cost_margin, 2),
+                "notes": self.cost_notes,
+                "margin_per_call": round(self.cost_margin / self.calls, 3)
+                if self.calls
+                else None,
+            }
+            if self.cost_notes
+            else None,
+            "primary": self.last_primary,
+            "plan_flips": self.flips,
+            "flip_log": list(self.flip_log),
+            "dispatch": {
+                "splits": self.dispatch_splits,
+                "retries": self.dispatch_retries,
+            },
+            "first_ts": round(self.first_ts, 3),
+            "last_ts": round(self.last_ts, 3),
+        }
+
+
+def _ms(seconds: Optional[float]) -> Optional[float]:
+    return round(seconds * 1e3, 3) if seconds is not None else None
+
+
+_FLIP_LOG_CAP = 8
+
+_lock = _locks.Lock("stats.store")
+_store: "OrderedDict[str, _Entry]" = OrderedDict()  # fp -> entry, LRU order
+_evicted = 0
+
+# thread ident -> fingerprint of the statement EXECUTING on that thread —
+# the profiler's attribution table (profiler.py samples other threads, so
+# a contextvar cannot carry this across; GIL-atomic dict ops, no lock)
+_active_by_thread: Dict[int, str] = {}
+
+
+def activate(fp: str) -> Tuple[int, Optional[str]]:
+    """Mark `fp` as the statement executing on the CURRENT thread (the
+    profiler attributes wall-clock samples through this). Returns a token
+    for deactivate(); nested activations restore the outer statement."""
+    ident = threading.get_ident()
+    prev = _active_by_thread.get(ident)
+    _active_by_thread[ident] = fp
+    return (ident, prev)
+
+
+def deactivate(token: Tuple[int, Optional[str]]) -> None:
+    ident, prev = token
+    if prev is None:
+        _active_by_thread.pop(ident, None)
+    else:
+        _active_by_thread[ident] = prev
+
+
+def active_fingerprint(ident: Optional[int] = None) -> Optional[str]:
+    """The fingerprint executing on `ident` (default: current thread)."""
+    return _active_by_thread.get(
+        threading.get_ident() if ident is None else ident
+    )
+
+
+# ------------------------------------------------------------------ plan mix
+def plan_mix_from(
+    plan_notes: Optional[List[dict]],
+) -> Tuple[Dict[str, int], Optional[str]]:
+    """(mix increments, primary decision) of one execution, derived from
+    the statement's drained plan notes. An EMPTY list is the plain row
+    path (the statement ran locally and left no note); None means the
+    caller has no visibility into the scan decision at all (a cluster
+    coordinator's scatter record) and contributes nothing."""
+    if plan_notes is None:
+        return {}, None
+    mix: Dict[str, int] = {}
+    for note in plan_notes or ():
+        if not isinstance(note, dict):
+            continue
+        strategy = note.get("strategy")
+        plan = note.get("plan")
+        if strategy in ("columnar-pipeline", "columnar-scan"):
+            mix[strategy] = mix.get(strategy, 0) + 1
+        elif note.get("knn") is not None:
+            key = f"knn-{note['knn']}"
+            mix[key] = mix.get(key, 0) + 1
+        elif plan == "ColumnScanPlan":
+            # the planner's plan-time note; the mirror's scan-time note
+            # (strategy above) says which columnar flavor actually served
+            mix["columnar-scan"] = mix.get("columnar-scan", 0) + 1
+        elif plan == "TableScan":
+            mix["row"] = mix.get("row", 0) + 1
+        elif plan is not None:
+            mix["index"] = mix.get("index", 0) + 1
+    if not mix:
+        mix["row"] = 1
+    return mix, _primary_of(mix)
+
+
+def _primary_of(mix: Dict[str, int]) -> str:
+    for key in _PRIMARY_ORDER:
+        if key == "knn":
+            knn = sorted(k for k in mix if k.startswith("knn-"))
+            if knn:
+                return knn[0]
+        elif key in mix:
+            return key
+    return "row"
+
+
+# ------------------------------------------------------------------ recording
+def record(
+    fp: str,
+    text: str,
+    kind: str,
+    duration_s: float,
+    *,
+    error: bool = False,
+    slow: bool = False,
+    rows_out: int = 0,
+    rows_in: int = 0,
+    plan: Optional[List[dict]] = None,
+    dispatch: Optional[Dict[str, float]] = None,
+    extra_mix: Optional[Dict[str, int]] = None,
+    primary: Any = "auto",
+) -> None:
+    """Fold one execution into the fingerprint's cumulative stats. The
+    ONLY write door into the store (graftlint GL012).
+
+    `plan` is the statement's drained plan-note list; `extra_mix` adds
+    decisions the notes cannot carry (cluster scatter/degraded/pushdown).
+    `primary="auto"` derives the flip-detection unit from the notes; pass
+    `None` for records whose scan decision happened elsewhere (the cluster
+    coordinator's scatter record — its shards record the real decision
+    under the same fingerprint) so they never ping-pong the flip counter.
+    """
+    from bisect import bisect_left
+
+    from surrealdb_tpu_torch import cnf, telemetry
+
+    mix, derived = plan_mix_from(plan)
+    if primary == "auto":
+        primary = derived
+    if extra_mix:
+        for k, v in extra_mix.items():
+            mix[k] = mix.get(k, 0) + int(v)
+    # planner cost-hook extraction (outside the lock): every plan note
+    # carrying choose_strategy's est_cost contributes its chosen AND
+    # declined modeled costs, so the entry accumulates the margin — the
+    # delta the advisor's break-even math needs, not just the decision
+    c_chosen = c_declined = c_margin = 0.0
+    c_notes = 0
+    for note in plan or ():
+        ec = note.get("cost", {}).get("est_cost") if isinstance(note, dict) else None
+        if isinstance(ec, dict):
+            c_chosen += float(ec.get("chosen") or 0.0)
+            c_declined += float(ec.get("declined") or 0.0)
+            c_margin += float(ec.get("margin") or 0.0)
+            c_notes += 1
+    flip: Optional[Tuple[str, str]] = None
+    evictions = 0
+    now = time.time()
+    with _lock:
+        e = _store.get(fp)
+        if e is None:
+            e = _store[fp] = _Entry(fp, text, kind)
+        _store.move_to_end(fp)
+        e.calls += 1
+        e.last_ts = now
+        e.errors += 1 if error else 0
+        e.slow += 1 if slow else 0
+        e.dur_sum += duration_s
+        e.dur_max = max(e.dur_max, duration_s)
+        e.buckets[bisect_left(telemetry.DURATION_BUCKETS, duration_s)] += 1
+        e.rows_out += int(rows_out)
+        e.rows_in += int(rows_in)
+        for k, v in mix.items():
+            e.plan_mix[k] = e.plan_mix.get(k, 0) + v
+        if dispatch:
+            e.dispatch_splits += int(dispatch.get("splits", 0) or 0)
+            e.dispatch_retries += int(dispatch.get("retries", 0) or 0)
+        if c_notes:
+            e.cost_chosen += c_chosen
+            e.cost_declined += c_declined
+            e.cost_margin += c_margin
+            e.cost_notes += c_notes
+        if primary is not None:
+            if e.last_primary is not None and e.last_primary != primary:
+                flip = (e.last_primary, primary)
+                e.flips += 1
+                e.flip_log.append(
+                    {"ts": round(now, 3), "from": flip[0], "to": flip[1]}
+                )
+                del e.flip_log[:-_FLIP_LOG_CAP]
+            e.last_primary = primary
+        cap = max(int(getattr(cnf, "STATEMENTS_STORE_SIZE", 512)), 8)
+        while len(_store) > cap:
+            _store.popitem(last=False)
+            evictions += 1
+    # observability side effects OUTSIDE the store lock: telemetry and the
+    # event ring are lower observability leaves than stats.store in
+    # locks.HIERARCHY and must never nest under it
+    if evictions:
+        _note_evictions(evictions)
+    if flip is not None:
+        telemetry.inc("statement_plan_flips")
+        from surrealdb_tpu_torch import events
+
+        events.emit(
+            "stats.plan_flip",
+            fingerprint=fp,
+            sql=text[:120],
+            **{"from": flip[0], "to": flip[1]},
+        )
+        # a flipped primary means every cached plan decision for this
+        # shape is suspect: evict the fingerprint's plan-cache entry
+        # (dbs/plan_cache.py; also outside the store lock — the plan
+        # cache's own lock is a peer level-85 leaf and must not nest)
+        from surrealdb_tpu_torch.dbs import plan_cache as _plan_cache
+
+        _plan_cache.on_plan_flip(fp)
+
+
+def _note_evictions(n: int) -> None:
+    global _evicted
+    from surrealdb_tpu_torch import telemetry
+
+    with _lock:
+        _evicted += n
+    telemetry.inc("statements_evicted_total", by=float(n))
+
+
+# ------------------------------------------------------------------ views
+def statements(
+    limit: int = 50,
+    fingerprint: Optional[str] = None,
+    sort: str = "total_s",
+) -> List[dict]:
+    """Top statements by cumulative time (default) or calls — the
+    `GET /statements` payload. `fingerprint` filters to one shape."""
+    with _lock:
+        entries = [e.to_dict() for e in _store.values()]
+    if fingerprint:
+        entries = [e for e in entries if e["fingerprint"] == fingerprint]
+    key = sort if sort in ("total_s", "calls", "errors", "max_ms") else "total_s"
+    entries.sort(key=lambda e: (e.get(key) or 0, e["calls"]), reverse=True)
+    return entries[: max(int(limit), 1)]
+
+
+def get(fp: str) -> Optional[dict]:
+    with _lock:
+        e = _store.get(fp)
+        return e.to_dict() if e is not None else None
+
+
+def size() -> int:
+    with _lock:
+        return len(_store)
+
+
+def snapshot(limit: int = 50) -> dict:
+    """The bundle's `statements` section: store state + top entries."""
+    with _lock:
+        n, ev = len(_store), _evicted
+    return {
+        "fingerprints": n,
+        "evicted": ev,
+        "top": statements(limit=limit),
+    }
+
+
+def export_state(limit: int = 100) -> List[dict]:
+    """Per-node entries for cluster federation (the `statements` RPC op):
+    the coordinator tags each with node=<id> and merges."""
+    return statements(limit=limit)
+
+
+def reset() -> None:
+    """Drop every entry (tests / bench accounting windows)."""
+    global _evicted
+    with _lock:
+        _store.clear()
+        _evicted = 0
+    fingerprint.cache_clear()

@@ -1,0 +1,2346 @@
+"""SurrealQL recursive-descent parser.
+
+Role of the reference's parser (reference: core/src/syn/parser/mod.rs:1-44 and
+syn/parser/stmt/). Pratt-style expression parsing over the token stream from
+lexer.py; keywords are case-insensitive and recognised contextually.
+"""
+
+from __future__ import annotations
+
+from typing import Any, List, Optional, Tuple
+
+from surrealdb_tpu_torch.err import ParseError
+from surrealdb_tpu_torch.sql import ast as A
+from surrealdb_tpu_torch.sql import statements as S
+from surrealdb_tpu_torch.sql.kind import Kind
+from surrealdb_tpu_torch.sql import path as P
+from surrealdb_tpu_torch.sql.value import (
+    NONE,
+    Datetime,
+    Duration,
+    Null,
+    Range,
+    Thing,
+    Uuid,
+)
+from .lexer import Token, lex
+
+# infix binding powers
+_BP = {
+    "||": (10, 11), "OR": (10, 11),
+    "&&": (20, 21), "AND": (20, 21),
+    "??": (30, 31), "?:": (30, 31),
+    "=": (40, 41), "!=": (40, 41), "==": (40, 41), "?=": (40, 41), "*=": (40, 41),
+    "~": (40, 41), "!~": (40, 41), "?~": (40, 41), "*~": (40, 41),
+    "<": (40, 41), "<=": (40, 41), ">": (40, 41), ">=": (40, 41),
+    "IN": (40, 41), "INSIDE": (40, 41), "NOTINSIDE": (40, 41),
+    "CONTAINS": (40, 41), "CONTAINSNOT": (40, 41), "CONTAINSALL": (40, 41),
+    "CONTAINSANY": (40, 41), "CONTAINSNONE": (40, 41),
+    "ALLINSIDE": (40, 41), "ANYINSIDE": (40, 41), "NONEINSIDE": (40, 41),
+    "OUTSIDE": (40, 41), "INTERSECTS": (40, 41), "IS": (40, 41),
+    "∈": (40, 41), "∉": (40, 41), "∋": (40, 41), "∌": (40, 41),
+    "⊇": (40, 41), "⊃": (40, 41), "⊅": (40, 41), "⊆": (40, 41), "⊂": (40, 41), "⊄": (40, 41),
+    "..": (50, 51),
+    "+": (60, 61), "-": (60, 61),
+    "*": (70, 71), "/": (70, 71), "×": (70, 71), "÷": (70, 71), "%": (70, 71),
+    "**": (81, 80),  # right-assoc
+}
+
+_STMT_KEYWORDS = {
+    "USE", "LET", "RETURN", "IF", "FOR", "BREAK", "CONTINUE", "THROW",
+    "SELECT", "CREATE", "INSERT", "UPDATE", "UPSERT", "DELETE", "RELATE",
+    "DEFINE", "REMOVE", "ALTER", "REBUILD", "INFO", "BEGIN", "COMMIT",
+    "CANCEL", "LIVE", "KILL", "SHOW", "SLEEP", "OPTION", "ACCESS",
+}
+
+_CAST_KINDS = {
+    "bool", "int", "float", "string", "number", "decimal", "datetime",
+    "duration", "uuid", "array", "set", "record", "geometry", "regex", "bytes",
+}
+
+
+# deep enough for any real query (compute bounds expressions at 120 anyway,
+# cnf MAX_COMPUTATION_DEPTH); shallow enough that ~6 Python frames per level
+# stay far from the C-stack limit the 20k recursionlimit cannot see
+_MAX_PARSE_DEPTH = 500
+
+
+class Parser:
+    def __init__(self, text: str):
+        self.text = text
+        self.toks = lex(text)
+        self.i = 0
+        self._no_graph = 0  # >0: don't consume ->/<- as idiom parts (RELATE)
+        self._depth = 0  # expression nesting, bounded by _MAX_PARSE_DEPTH
+
+    # ------------------------------------------------------------- helpers
+    def peek(self, off: int = 0) -> Token:
+        j = min(self.i + off, len(self.toks) - 1)
+        return self.toks[j]
+
+    def next(self) -> Token:
+        t = self.toks[self.i]
+        if t.kind != "EOF":
+            self.i += 1
+        return t
+
+    def expect_int(self, what: str) -> int:
+        """Next token as an integer, or a clean parse error."""
+        tok = self.next()
+        try:
+            return int(tok.value)
+        except (TypeError, ValueError, OverflowError):
+            raise self.error(f"expected {what}", tok)
+
+    def error(self, msg: str, tok: Optional[Token] = None) -> ParseError:
+        t = tok or self.peek()
+        line = self.text.count("\n", 0, t.pos) + 1
+        col = t.pos - (self.text.rfind("\n", 0, t.pos) + 1) + 1
+        return ParseError(msg, t.pos, line, col)
+
+    def is_kw(self, word: str, off: int = 0) -> bool:
+        t = self.peek(off)
+        return t.kind == "IDENT" and t.value.upper() == word
+
+    def eat_kw(self, word: str) -> bool:
+        if self.is_kw(word):
+            self.next()
+            return True
+        return False
+
+    def expect_kw(self, word: str) -> None:
+        if not self.eat_kw(word):
+            raise self.error(f"expected {word}")
+
+    def is_op(self, op: str, off: int = 0) -> bool:
+        t = self.peek(off)
+        return t.kind == "OP" and t.value == op
+
+    def eat_op(self, op: str) -> bool:
+        if self.is_op(op):
+            self.next()
+            return True
+        return False
+
+    def expect_op(self, op: str) -> None:
+        if not self.eat_op(op):
+            raise self.error(f"expected {op!r}")
+
+    def ident(self, what: str = "identifier") -> str:
+        t = self.peek()
+        if t.kind == "IDENT":
+            self.next()
+            return t.value
+        if t.kind == "NUMBER" and isinstance(t.value, int):
+            self.next()
+            return str(t.value)
+        if t.kind == "STRING":
+            self.next()
+            return t.value
+        raise self.error(f"expected {what}")
+
+    # ------------------------------------------------------------- query
+    def parse_query(self) -> S.Query:
+        stmts: List[S.Statement] = []
+        spans: List[tuple] = []
+        while True:
+            while self.eat_op(";"):
+                pass
+            if self.peek().kind == "EOF":
+                break
+            start = self.peek().pos
+            stmts.append(self.parse_statement())
+            spans.append((start, self.peek().pos))
+            if self.peek().kind == "EOF":
+                break
+            if not self.eat_op(";"):
+                raise self.error("expected ;")
+        return S.Query(
+            stmts, sources=[self.text[a:b].strip() for a, b in spans]
+        )
+
+    # ------------------------------------------------------------- statements
+    def parse_statement(self) -> S.Statement:
+        t = self.peek()
+        if t.kind == "IDENT":
+            kw = t.value.upper()
+            m = getattr(self, f"_stmt_{kw.lower()}", None)
+            if kw in _STMT_KEYWORDS and m is not None:
+                return m()
+        # bare expression statement
+        expr = self.parse_expr()
+        return _ExprStatement(expr)
+
+    def _stmt_use(self) -> S.Statement:
+        self.next()
+        ns = db = None
+        while True:
+            if self.eat_kw("NS") or self.eat_kw("NAMESPACE"):
+                ns = self.ident("namespace name")
+            elif self.eat_kw("DB") or self.eat_kw("DATABASE"):
+                db = self.ident("database name")
+            else:
+                break
+        if ns is None and db is None:
+            raise self.error("expected NS or DB after USE")
+        return S.UseStatement(ns, db)
+
+    def _stmt_let(self) -> S.Statement:
+        self.next()
+        t = self.next()
+        if t.kind != "PARAM":
+            raise self.error("expected $param after LET", t)
+        kind = None
+        if self.eat_op(":"):
+            kind = self.parse_kind()
+        self.expect_op("=")
+        return S.LetStatement(t.value, self.parse_expr(), kind)
+
+    def _stmt_return(self) -> S.Statement:
+        self.next()
+        what = self.parse_expr()
+        fetch = None
+        if self.eat_kw("FETCH"):
+            fetch = self._idiom_list()
+        return S.ReturnStatement(what, fetch)
+
+    def _stmt_if(self) -> S.Statement:
+        self.next()
+        return self._parse_if_tail()
+
+    def _parse_if_tail(self) -> S.IfStatement:
+        branches = []
+        cond = self.parse_expr()
+        if self.eat_kw("THEN"):  # legacy syntax IF c THEN x ELSE y END
+            then = self.parse_expr()
+            branches.append((cond, then))
+            while self.eat_kw("ELSE"):
+                if self.eat_kw("IF"):
+                    c2 = self.parse_expr()
+                    self.expect_kw("THEN")
+                    branches.append((c2, self.parse_expr()))
+                else:
+                    el = self.parse_expr()
+                    self.eat_kw("END")
+                    return S.IfStatement(branches, el)
+            self.eat_kw("END")
+            return S.IfStatement(branches, None)
+        then = self.parse_block_expr()
+        branches.append((cond, then))
+        else_ = None
+        while self.eat_kw("ELSE"):
+            if self.eat_kw("IF"):
+                c2 = self.parse_expr()
+                branches.append((c2, self.parse_block_expr()))
+            else:
+                else_ = self.parse_block_expr()
+                break
+        return S.IfStatement(branches, else_)
+
+    def _stmt_for(self) -> S.Statement:
+        self.next()
+        t = self.next()
+        if t.kind != "PARAM":
+            raise self.error("expected $param after FOR", t)
+        self.expect_kw("IN")
+        what = self.parse_expr()
+        block = self.parse_block_expr()
+        return S.ForStatement(t.value, what, block)
+
+    def _stmt_break(self) -> S.Statement:
+        self.next()
+        return S.BreakStatement()
+
+    def _stmt_continue(self) -> S.Statement:
+        self.next()
+        return S.ContinueStatement()
+
+    def _stmt_throw(self) -> S.Statement:
+        self.next()
+        return S.ThrowStatement(self.parse_expr())
+
+    def _stmt_begin(self) -> S.Statement:
+        self.next()
+        self.eat_kw("TRANSACTION")
+        return S.BeginStatement()
+
+    def _stmt_commit(self) -> S.Statement:
+        self.next()
+        self.eat_kw("TRANSACTION")
+        return S.CommitStatement()
+
+    def _stmt_cancel(self) -> S.Statement:
+        self.next()
+        self.eat_kw("TRANSACTION")
+        return S.CancelStatement()
+
+    def _stmt_sleep(self) -> S.Statement:
+        self.next()
+        t = self.next()
+        if t.kind != "DURATION":
+            raise self.error("expected duration after SLEEP", t)
+        return S.SleepStatement(t.value)
+
+    def _stmt_option(self) -> S.Statement:
+        self.next()
+        name = self.ident("option name")
+        val = True
+        if self.eat_op("="):
+            if self.eat_kw("TRUE"):
+                val = True
+            elif self.eat_kw("FALSE"):
+                val = False
+            else:
+                raise self.error("expected true or false")
+        return S.OptionStatement(name.upper(), val)
+
+    def _stmt_info(self) -> S.Statement:
+        self.next()
+        self.expect_kw("FOR")
+        if self.eat_kw("ROOT") or self.eat_kw("KV"):
+            lvl, target = "root", None
+        elif self.eat_kw("NS") or self.eat_kw("NAMESPACE"):
+            lvl, target = "ns", None
+        elif self.eat_kw("DB") or self.eat_kw("DATABASE"):
+            lvl, target = "db", None
+        elif self.eat_kw("TABLE"):
+            lvl, target = "table", self.ident("table name")
+        elif self.eat_kw("INDEX"):
+            name = self.ident("index name")
+            self.expect_kw("ON")
+            self.eat_kw("TABLE")
+            tb = self.ident("table name")
+            return S.InfoStatement("index", f"{name}:{tb}")
+        elif self.eat_kw("USER"):
+            lvl, target = "user", self.ident("user name")
+        else:
+            raise self.error("expected ROOT, NS, DB, TABLE, INDEX or USER")
+        structure = self.eat_kw("STRUCTURE")
+        return S.InfoStatement(lvl, target, structure)
+
+    # ---------------------------------------------------------- SELECT
+    def _stmt_select(self) -> S.Statement:
+        self.next()
+        value_mode = False
+        fields: List[S.Field] = []
+        if self.eat_kw("VALUE"):
+            value_mode = True
+            expr = self.parse_expr()
+            alias = None
+            if self.eat_kw("AS"):
+                alias = self.parse_plain_idiom()
+            fields.append(S.Field(expr, alias))
+        else:
+            while True:
+                if self.is_op("*"):
+                    self.next()
+                    fields.append(S.Field(None, all_=True))
+                else:
+                    expr = self.parse_expr()
+                    alias = None
+                    if self.eat_kw("AS"):
+                        alias = self.parse_plain_idiom()
+                    fields.append(S.Field(expr, alias))
+                if not self.eat_op(","):
+                    break
+        omit = None
+        if self.eat_kw("OMIT"):
+            omit = self._idiom_list()
+        self.expect_kw("FROM")
+        only = self.eat_kw("ONLY")
+        what = [self.parse_expr()]
+        while self.eat_op(","):
+            what.append(self.parse_expr())
+        kw: dict = {"omit": omit, "only": only, "value_mode": value_mode}
+        if self.eat_kw("WITH"):
+            if self.eat_kw("NOINDEX"):
+                kw["with_"] = S.With(True)
+            else:
+                self.expect_kw("INDEX")
+                names = [self.ident("index name")]
+                while self.eat_op(","):
+                    names.append(self.ident("index name"))
+                kw["with_"] = S.With(False, names)
+        if self.eat_kw("WHERE"):
+            kw["cond"] = self.parse_expr()
+        if self.eat_kw("SPLIT"):
+            self.eat_kw("ON")
+            kw["split"] = self._idiom_list()
+        if self.eat_kw("GROUP"):
+            if self.eat_kw("ALL"):
+                kw["group_all"] = True
+            else:
+                self.eat_kw("BY")
+                kw["group"] = self._idiom_list()
+        if self.eat_kw("ORDER"):
+            self.eat_kw("BY")
+            orders = []
+            while True:
+                if self.is_kw("RAND") and self.peek(1).kind == "OP" and self.peek(1).value == "(":
+                    self.next(); self.next(); self.expect_op(")")
+                    orders.append(S.OrderItem(None, rand=True))
+                else:
+                    idm = self.parse_plain_idiom()
+                    collate = self.eat_kw("COLLATE")
+                    numeric = self.eat_kw("NUMERIC")
+                    asc = True
+                    if self.eat_kw("DESC"):
+                        asc = False
+                    else:
+                        self.eat_kw("ASC")
+                    orders.append(S.OrderItem(idm, asc, collate, numeric))
+                if not self.eat_op(","):
+                    break
+            kw["order"] = orders
+        if self.eat_kw("LIMIT"):
+            self.eat_kw("BY")
+            kw["limit"] = self.parse_expr()
+        if self.eat_kw("START"):
+            self.eat_kw("AT")
+            kw["start"] = self.parse_expr()
+        if self.eat_kw("FETCH"):
+            kw["fetch"] = self._idiom_list()
+        if self.eat_kw("VERSION"):
+            kw["version"] = self.parse_expr()
+        if self.eat_kw("TIMEOUT"):
+            kw["timeout"] = self._duration()
+        if self.eat_kw("PARALLEL"):
+            kw["parallel"] = True
+        if self.eat_kw("TEMPFILES"):
+            kw["tempfiles"] = True
+        if self.eat_kw("EXPLAIN"):
+            kw["explain"] = True
+            kw["explain_full"] = self.eat_kw("FULL")
+            # EXPLAIN ANALYZE: run the statement for real and report the
+            # plan WITH execution statistics (per-shard profile in cluster
+            # mode) instead of the plan alone
+            kw["explain_analyze"] = self.eat_kw("ANALYZE")
+        kw.pop("tempfiles", None)
+        return S.SelectStatement(fields, what, **kw)
+
+    def _idiom_list(self) -> List[P.Idiom]:
+        out = [self.parse_plain_idiom()]
+        while self.eat_op(","):
+            out.append(self.parse_plain_idiom())
+        return out
+
+    def _duration(self) -> Duration:
+        t = self.next()
+        if t.kind != "DURATION":
+            raise self.error("expected duration", t)
+        return t.value
+
+    # ---------------------------------------------------------- CRUD
+    def _data_clause(self) -> Optional[S.Data]:
+        if self.eat_kw("SET"):
+            items = []
+            while True:
+                idm = self.parse_plain_idiom()
+                t = self.next()
+                if t.kind != "OP" or t.value not in ("=", "+=", "-=", "+?="):
+                    raise self.error("expected assignment operator", t)
+                items.append((idm, t.value, self.parse_expr()))
+                if not self.eat_op(","):
+                    break
+            return S.Data("set", items)
+        if self.eat_kw("UNSET"):
+            return S.Data("unset", self._idiom_list())
+        if self.eat_kw("CONTENT"):
+            return S.Data("content", self.parse_expr())
+        if self.eat_kw("MERGE"):
+            return S.Data("merge", self.parse_expr())
+        if self.eat_kw("PATCH"):
+            return S.Data("patch", self.parse_expr())
+        if self.eat_kw("REPLACE"):
+            return S.Data("replace", self.parse_expr())
+        return None
+
+    def _output_clause(self) -> Optional[S.Output]:
+        if not self.eat_kw("RETURN"):
+            return None
+        if self.eat_kw("NONE"):
+            return S.Output("none")
+        if self.eat_kw("NULL"):
+            return S.Output("null")
+        if self.eat_kw("DIFF"):
+            return S.Output("diff")
+        if self.eat_kw("BEFORE"):
+            return S.Output("before")
+        if self.eat_kw("AFTER"):
+            return S.Output("after")
+        if self.eat_kw("VALUE"):
+            expr = self.parse_expr()
+            return S.Output("fields", [S.Field(expr, None)])
+        fields = []
+        while True:
+            expr = self.parse_expr()
+            alias = None
+            if self.eat_kw("AS"):
+                alias = self.parse_plain_idiom()
+            fields.append(S.Field(expr, alias))
+            if not self.eat_op(","):
+                break
+        return S.Output("fields", fields)
+
+    def _common_tail(self, kw: dict) -> None:
+        if self.eat_kw("TIMEOUT"):
+            kw["timeout"] = self._duration()
+        if self.eat_kw("PARALLEL"):
+            kw["parallel"] = True
+
+    def _stmt_create(self) -> S.Statement:
+        self.next()
+        only = self.eat_kw("ONLY")
+        what = [self.parse_expr()]
+        while self.eat_op(","):
+            what.append(self.parse_expr())
+        kw: dict = {"only": only}
+        kw["data"] = self._data_clause()
+        kw["output"] = self._output_clause()
+        if self.eat_kw("VERSION"):
+            kw["version"] = self.parse_expr()
+        self._common_tail(kw)
+        return S.CreateStatement(what, **kw)
+
+    def _stmt_update(self) -> S.Statement:
+        return self._update_like(S.UpdateStatement)
+
+    def _stmt_upsert(self) -> S.Statement:
+        return self._update_like(S.UpsertStatement)
+
+    def _update_like(self, cls) -> S.Statement:
+        self.next()
+        only = self.eat_kw("ONLY")
+        what = [self.parse_expr()]
+        while self.eat_op(","):
+            what.append(self.parse_expr())
+        kw: dict = {"only": only}
+        kw["data"] = self._data_clause()
+        if self.eat_kw("WHERE"):
+            kw["cond"] = self.parse_expr()
+        kw["output"] = self._output_clause()
+        self._common_tail(kw)
+        return cls(what, **kw)
+
+    def _stmt_delete(self) -> S.Statement:
+        self.next()
+        self.eat_kw("FROM")
+        only = self.eat_kw("ONLY")
+        what = [self.parse_expr()]
+        while self.eat_op(","):
+            what.append(self.parse_expr())
+        kw: dict = {"only": only}
+        if self.eat_kw("WHERE"):
+            kw["cond"] = self.parse_expr()
+        kw["output"] = self._output_clause()
+        self._common_tail(kw)
+        return S.DeleteStatement(what, **kw)
+
+    def _stmt_insert(self) -> S.Statement:
+        self.next()
+        # accept RELATION/IGNORE in either order
+        relation = self.eat_kw("RELATION")
+        ignore = self.eat_kw("IGNORE")
+        if not relation:
+            relation = self.eat_kw("RELATION")
+        into = None
+        if self.eat_kw("INTO"):
+            # a bare table name even when '(' follows (column-list form)
+            t = self.peek()
+            if t.kind == "IDENT" and not (
+                self.peek(1).kind == "OP" and self.peek(1).value in ("::", ":")
+            ):
+                self.next()
+                into = A.TableExpr(t.value)
+            else:
+                into = self.parse_expr()
+        if self.is_op("("):
+            # INSERT INTO tb (a, b) VALUES (1, 2), (3, 4)
+            self.next()
+            cols = [self.parse_plain_idiom()]
+            while self.eat_op(","):
+                cols.append(self.parse_plain_idiom())
+            self.expect_op(")")
+            self.expect_kw("VALUES")
+            rows = []
+            while True:
+                self.expect_op("(")
+                row = [self.parse_expr()]
+                while self.eat_op(","):
+                    row.append(self.parse_expr())
+                self.expect_op(")")
+                rows.append(row)
+                if not self.eat_op(","):
+                    break
+            data = S.Data("values", (cols, rows))
+        else:
+            data = S.Data("content", self.parse_expr())
+        kw: dict = {"ignore": ignore, "relation": relation}
+        if self.eat_kw("ON"):
+            self.expect_kw("DUPLICATE")
+            self.expect_kw("KEY")
+            self.expect_kw("UPDATE")
+            items = []
+            while True:
+                idm = self.parse_plain_idiom()
+                t = self.next()
+                if t.kind != "OP" or t.value not in ("=", "+=", "-=", "+?="):
+                    raise self.error("expected assignment operator", t)
+                items.append((idm, t.value, self.parse_expr()))
+                if not self.eat_op(","):
+                    break
+            kw["update"] = items
+        kw["output"] = self._output_clause()
+        if self.eat_kw("VERSION"):
+            kw["version"] = self.parse_expr()
+        self._common_tail(kw)
+        return S.InsertStatement(into, data, **kw)
+
+    def _relate_operand(self) -> A.Expr:
+        self._no_graph += 1
+        try:
+            return self.parse_expr()
+        finally:
+            self._no_graph -= 1
+
+    def _stmt_relate(self) -> S.Statement:
+        self.next()
+        only = self.eat_kw("ONLY")
+        first = self._relate_operand()
+        # RELATE from->edge->to  or  RELATE from, edge, to? (only arrow form)
+        if self.is_op("->"):
+            self.next()
+            kind = self._relate_operand()
+            self.expect_op("->")
+            with_ = self._relate_operand()
+            from_ = first
+        elif self.is_op("<-"):
+            self.next()
+            kind = self._relate_operand()
+            self.expect_op("<-")
+            from_ = self._relate_operand()
+            with_ = first
+        else:
+            raise self.error("expected -> or <- in RELATE")
+        kw: dict = {"only": only}
+        kw["uniq"] = self.eat_kw("UNIQUE")
+        kw["data"] = self._data_clause()
+        kw["output"] = self._output_clause()
+        self._common_tail(kw)
+        return S.RelateStatement(kind, from_, with_, **kw)
+
+    # ---------------------------------------------------------- LIVE
+    def _stmt_live(self) -> S.Statement:
+        self.next()
+        self.expect_kw("SELECT")
+        diff = False
+        fields: List[S.Field] = []
+        if self.eat_kw("DIFF"):
+            diff = True
+        elif self.eat_kw("VALUE"):
+            expr = self.parse_expr()
+            fields.append(S.Field(expr, None))
+        else:
+            while True:
+                if self.is_op("*"):
+                    self.next()
+                    fields.append(S.Field(None, all_=True))
+                else:
+                    expr = self.parse_expr()
+                    alias = None
+                    if self.eat_kw("AS"):
+                        alias = self.parse_plain_idiom()
+                    fields.append(S.Field(expr, alias))
+                if not self.eat_op(","):
+                    break
+        self.expect_kw("FROM")
+        what = self.parse_expr()
+        cond = None
+        if self.eat_kw("WHERE"):
+            cond = self.parse_expr()
+        fetch = None
+        if self.eat_kw("FETCH"):
+            fetch = self._idiom_list()
+        return S.LiveStatement(fields, what, cond, fetch, diff)
+
+    def _stmt_kill(self) -> S.Statement:
+        self.next()
+        return S.KillStatement(self.parse_expr())
+
+    def _stmt_show(self) -> S.Statement:
+        self.next()
+        self.expect_kw("CHANGES")
+        self.expect_kw("FOR")
+        if self.eat_kw("DATABASE"):
+            table = None
+        else:
+            self.expect_kw("TABLE")
+            table = self.ident("table name")
+        since = None
+        if self.eat_kw("SINCE"):
+            since = self.parse_expr()
+        limit = None
+        if self.eat_kw("LIMIT"):
+            t = self.next()
+            limit = t.value
+        return S.ShowStatement(table, since, limit)
+
+    # ---------------------------------------------------------- DEFINE
+    def _if_not_exists(self) -> Tuple[bool, bool]:
+        """-> (if_not_exists, overwrite)"""
+        if self.eat_kw("IF"):
+            self.expect_kw("NOT")
+            self.expect_kw("EXISTS")
+            return True, False
+        if self.eat_kw("OVERWRITE"):
+            return False, True
+        return False, False
+
+    def _permissions_clause(self):
+        """PERMISSIONS NONE|FULL|FOR select,create WHERE ..."""
+        if not self.eat_kw("PERMISSIONS"):
+            return None
+        if self.eat_kw("NONE"):
+            return {"select": "NONE", "create": "NONE", "update": "NONE", "delete": "NONE"}
+        if self.eat_kw("FULL"):
+            return {"select": "FULL", "create": "FULL", "update": "FULL", "delete": "FULL"}
+        perms = {"select": "FULL", "create": "FULL", "update": "FULL", "delete": "FULL"}
+        while self.is_kw("FOR"):
+            self.next()
+            kinds = []
+            while True:
+                k = self.ident("permission kind").lower()
+                if k not in ("select", "create", "update", "delete"):
+                    raise self.error(f"invalid permission kind {k}")
+                kinds.append(k)
+                if not self.eat_op(","):
+                    break
+            if self.eat_kw("NONE"):
+                val: Any = "NONE"
+            elif self.eat_kw("FULL"):
+                val = "FULL"
+            elif self.eat_kw("WHERE"):
+                val = self.parse_expr()
+            else:
+                raise self.error("expected NONE, FULL or WHERE")
+            for k in kinds:
+                perms[k] = val
+        return perms
+
+    def _comment_clause(self) -> Optional[str]:
+        if self.eat_kw("COMMENT"):
+            t = self.next()
+            return t.value if t.kind == "STRING" else str(t.value)
+        return None
+
+    def _stmt_define(self) -> S.Statement:
+        self.next()
+        if self.eat_kw("NAMESPACE") or self.eat_kw("NS"):
+            ine, ow = self._if_not_exists()
+            name = self.ident("namespace name")
+            comment = self._comment_clause()
+            return S.DefineStatement(
+                "namespace", name=name, if_not_exists=ine, overwrite=ow, comment=comment
+            )
+        if self.eat_kw("DATABASE") or self.eat_kw("DB"):
+            ine, ow = self._if_not_exists()
+            name = self.ident("database name")
+            changefeed = None
+            comment = None
+            while True:
+                if self.eat_kw("CHANGEFEED"):
+                    changefeed = {"expiry": self._duration().nanos, "original": False}
+                    if self.eat_kw("INCLUDE"):
+                        self.expect_kw("ORIGINAL")
+                        changefeed["original"] = True
+                elif self.is_kw("COMMENT"):
+                    comment = self._comment_clause()
+                else:
+                    break
+            return S.DefineStatement(
+                "database", name=name, if_not_exists=ine, overwrite=ow,
+                changefeed=changefeed, comment=comment,
+            )
+        if self.eat_kw("TABLE"):
+            return self._define_table()
+        if self.eat_kw("FIELD"):
+            return self._define_field()
+        if self.eat_kw("INDEX"):
+            return self._define_index()
+        if self.eat_kw("EVENT"):
+            return self._define_event()
+        if self.eat_kw("ANALYZER"):
+            return self._define_analyzer()
+        if self.eat_kw("FUNCTION"):
+            return self._define_function()
+        if self.eat_kw("PARAM"):
+            ine, ow = self._if_not_exists()
+            t = self.next()
+            if t.kind != "PARAM":
+                raise self.error("expected $param", t)
+            self.expect_kw("VALUE")
+            value = self.parse_expr()
+            perms = self._permissions_clause()
+            comment = self._comment_clause()
+            return S.DefineStatement(
+                "param", name=t.value, if_not_exists=ine, overwrite=ow,
+                value=value, permissions=perms, comment=comment,
+            )
+        if self.eat_kw("USER"):
+            return self._define_user()
+        if self.eat_kw("ACCESS"):
+            return self._define_access()
+        if self.eat_kw("MODEL"):
+            return self._define_model()
+        if self.eat_kw("CONFIG"):
+            kind = self.ident("config kind")
+            rest_start = self.i
+            depth = 0
+            while self.peek().kind != "EOF" and not (self.is_op(";") and depth == 0):
+                if self.peek().kind == "OP" and self.peek().value in "([{":
+                    depth += 1
+                if self.peek().kind == "OP" and self.peek().value in ")]}":
+                    depth -= 1
+                self.next()
+            return S.DefineStatement("config", name=kind, raw=None)
+        raise self.error("unknown DEFINE kind")
+
+    def _define_table(self) -> S.Statement:
+        ine, ow = self._if_not_exists()
+        name = self.ident("table name")
+        args: dict = {
+            "name": name, "if_not_exists": ine, "overwrite": ow,
+            "drop": False, "schemafull": False, "kind": "ANY",
+            "relation_in": None, "relation_out": None, "enforced": False,
+            "view": None, "changefeed": None, "permissions": None, "comment": None,
+        }
+        while True:
+            if self.eat_kw("DROP"):
+                args["drop"] = True
+            elif self.eat_kw("SCHEMAFULL"):
+                args["schemafull"] = True
+            elif self.eat_kw("SCHEMALESS"):
+                args["schemafull"] = False
+            elif self.eat_kw("TYPE"):
+                if self.eat_kw("ANY"):
+                    args["kind"] = "ANY"
+                elif self.eat_kw("NORMAL"):
+                    args["kind"] = "NORMAL"
+                elif self.eat_kw("RELATION"):
+                    args["kind"] = "RELATION"
+                    while True:
+                        if self.eat_kw("IN") or self.eat_kw("FROM"):
+                            tbs = [self.ident("table name")]
+                            while self.eat_op("|"):
+                                tbs.append(self.ident("table name"))
+                            args["relation_in"] = tbs
+                        elif self.eat_kw("OUT") or self.eat_kw("TO"):
+                            tbs = [self.ident("table name")]
+                            while self.eat_op("|"):
+                                tbs.append(self.ident("table name"))
+                            args["relation_out"] = tbs
+                        elif self.eat_kw("ENFORCED"):
+                            args["enforced"] = True
+                        else:
+                            break
+                else:
+                    raise self.error("expected ANY, NORMAL or RELATION")
+            elif self.eat_kw("AS"):
+                self.eat_op("(")
+                sel = self._stmt_select_kw()
+                self.eat_op(")")
+                args["view"] = sel
+            elif self.eat_kw("CHANGEFEED"):
+                cf = {"expiry": self._duration().nanos, "original": False}
+                if self.eat_kw("INCLUDE"):
+                    self.expect_kw("ORIGINAL")
+                    cf["original"] = True
+                args["changefeed"] = cf
+            elif self.is_kw("PERMISSIONS"):
+                args["permissions"] = self._permissions_clause()
+            elif self.is_kw("COMMENT"):
+                args["comment"] = self._comment_clause()
+            else:
+                break
+        return S.DefineStatement("table", **args)
+
+    def _stmt_select_kw(self) -> S.SelectStatement:
+        if not self.is_kw("SELECT"):
+            raise self.error("expected SELECT")
+        st = self._stmt_select()
+        return st
+
+    def _define_field(self) -> S.Statement:
+        ine, ow = self._if_not_exists()
+        name = self.parse_plain_idiom()
+        self.expect_kw("ON")
+        self.eat_kw("TABLE")
+        tb = self.ident("table name")
+        args: dict = {
+            "name": name, "table": tb, "if_not_exists": ine, "overwrite": ow,
+            "flex": False, "kind": None, "readonly": False, "value": None,
+            "assert": None, "default": None, "default_always": False,
+            "permissions": None, "comment": None, "reference": None,
+        }
+        while True:
+            if self.eat_kw("FLEXIBLE") or self.eat_kw("FLEXI") or self.eat_kw("FLEX"):
+                args["flex"] = True
+            elif self.eat_kw("TYPE"):
+                args["kind"] = self.parse_kind()
+            elif self.eat_kw("READONLY"):
+                args["readonly"] = True
+            elif self.eat_kw("VALUE"):
+                args["value"] = self.parse_expr()
+            elif self.eat_kw("ASSERT"):
+                args["assert"] = self.parse_expr()
+            elif self.eat_kw("DEFAULT"):
+                if self.eat_kw("ALWAYS"):
+                    args["default_always"] = True
+                args["default"] = self.parse_expr()
+            elif self.is_kw("PERMISSIONS"):
+                args["permissions"] = self._permissions_clause()
+            elif self.is_kw("COMMENT"):
+                args["comment"] = self._comment_clause()
+            else:
+                break
+        return S.DefineStatement("field", **args)
+
+    def _define_index(self) -> S.Statement:
+        ine, ow = self._if_not_exists()
+        name = self.ident("index name")
+        self.expect_kw("ON")
+        self.eat_kw("TABLE")
+        tb = self.ident("table name")
+        args: dict = {
+            "name": name, "table": tb, "if_not_exists": ine, "overwrite": ow,
+            "fields": [], "index": {"type": "idx"}, "comment": None,
+            "concurrently": False,
+        }
+        if self.eat_kw("FIELDS") or self.eat_kw("COLUMNS"):
+            args["fields"] = self._idiom_list()
+        while True:
+            if self.eat_kw("UNIQUE"):
+                args["index"] = {"type": "uniq"}
+            elif self.eat_kw("SEARCH"):
+                ix = {"type": "search", "analyzer": "like", "k1": 1.2, "b": 0.75,
+                      "highlights": False}
+                if self.eat_kw("ANALYZER"):
+                    ix["analyzer"] = self.ident("analyzer name")
+                while True:
+                    if self.eat_kw("BM25"):
+                        # accepts both `BM25 1.2 0.75` and `BM25(1.2,0.75)`
+                        parens = self.eat_op("(")
+                        if self.peek().kind == "NUMBER":
+                            ix["k1"] = float(self.next().value)
+                            self.eat_op(",")
+                            if self.peek().kind == "NUMBER":
+                                ix["b"] = float(self.next().value)
+                        if parens:
+                            self.expect_op(")")
+                    elif self.eat_kw("HIGHLIGHTS"):
+                        ix["highlights"] = True
+                    elif self.eat_kw("DOC_IDS_ORDER") or self.eat_kw("DOC_LENGTHS_ORDER") or self.eat_kw("POSTINGS_ORDER") or self.eat_kw("TERMS_ORDER"):
+                        self.next()  # legacy btree orders; accepted, ignored
+                    elif self.eat_kw("DOC_IDS_CACHE") or self.eat_kw("DOC_LENGTHS_CACHE") or self.eat_kw("POSTINGS_CACHE") or self.eat_kw("TERMS_CACHE"):
+                        self.next()
+                    else:
+                        break
+                args["index"] = ix
+            elif self.eat_kw("MTREE"):
+                ix = {"type": "mtree", "dimension": 0, "dist": "euclidean",
+                      "vtype": "f64", "capacity": 40}
+                while True:
+                    if self.eat_kw("DIMENSION"):
+                        ix["dimension"] = self.expect_int("a dimension")
+                    elif self.eat_kw("DIST"):
+                        ix["dist"] = self._distance_name()
+                    elif self.eat_kw("TYPE"):
+                        ix["vtype"] = self.ident("vector type").lower()
+                    elif self.eat_kw("CAPACITY"):
+                        ix["capacity"] = self.expect_int("a capacity")
+                    else:
+                        break
+                args["index"] = ix
+            elif self.eat_kw("HNSW"):
+                ix = {"type": "hnsw", "dimension": 0, "dist": "euclidean",
+                      "vtype": "f64", "efc": 150, "m": 12, "m0": 24, "lm": None}
+                while True:
+                    if self.eat_kw("DIMENSION"):
+                        ix["dimension"] = self.expect_int("a dimension")
+                    elif self.eat_kw("DIST"):
+                        ix["dist"] = self._distance_name()
+                    elif self.eat_kw("TYPE"):
+                        ix["vtype"] = self.ident("vector type").lower()
+                    elif self.eat_kw("EFC"):
+                        ix["efc"] = self.expect_int("an EFC value")
+                    elif self.eat_kw("M0"):
+                        ix["m0"] = self.expect_int("an M0 value")
+                    elif self.eat_kw("M"):
+                        ix["m"] = self.expect_int("an M value")
+                    elif self.eat_kw("LM"):
+                        tok = self.next()
+                        try:
+                            ix["lm"] = float(tok.value)
+                        except (TypeError, ValueError):
+                            raise self.error("expected an LM value", tok)
+                    elif self.eat_kw("EXTEND_CANDIDATES") or self.eat_kw("KEEP_PRUNED_CONNECTIONS"):
+                        pass
+                    else:
+                        break
+                if ix["lm"] is None:
+                    import math as _m
+
+                    ix["lm"] = 1.0 / _m.log(max(ix["m"], 2))
+                args["index"] = ix
+            elif self.eat_kw("CONCURRENTLY"):
+                args["concurrently"] = True
+            elif self.is_kw("COMMENT"):
+                args["comment"] = self._comment_clause()
+            else:
+                break
+        return S.DefineStatement("index", **args)
+
+    def _distance_name(self) -> str:
+        name = self.ident("distance").lower()
+        if name == "minkowski":
+            order = self.next()
+            return f"minkowski:{order.value}"
+        return name
+
+    def _define_event(self) -> S.Statement:
+        ine, ow = self._if_not_exists()
+        name = self.ident("event name")
+        self.expect_kw("ON")
+        self.eat_kw("TABLE")
+        tb = self.ident("table name")
+        when = None
+        if self.eat_kw("WHEN"):
+            when = self.parse_expr()
+        self.expect_kw("THEN")
+        then = [self.parse_expr()]
+        while self.eat_op(","):
+            then.append(self.parse_expr())
+        comment = self._comment_clause()
+        return S.DefineStatement(
+            "event", name=name, table=tb, if_not_exists=ine, overwrite=ow,
+            when=when, then=then, comment=comment,
+        )
+
+    def _define_analyzer(self) -> S.Statement:
+        ine, ow = self._if_not_exists()
+        name = self.ident("analyzer name")
+        tokenizers: List[str] = []
+        filters: List[dict] = []
+        function = None
+        comment = None
+        while True:
+            if self.eat_kw("TOKENIZERS"):
+                while True:
+                    tokenizers.append(self.ident("tokenizer").lower())
+                    if not self.eat_op(","):
+                        break
+            elif self.eat_kw("FILTERS"):
+                while True:
+                    fname = self.ident("filter").lower()
+                    fargs = []
+                    if self.eat_op("("):
+                        while not self.is_op(")"):
+                            t = self.next()
+                            fargs.append(t.value)
+                            self.eat_op(",")
+                        self.expect_op(")")
+                    filters.append({"name": fname, "args": fargs})
+                    if not self.eat_op(","):
+                        break
+            elif self.eat_kw("FUNCTION"):
+                self.eat_kw("FN")
+                self.eat_op("::")
+                function = self.ident("function name")
+                while self.eat_op("::"):
+                    function += "::" + self.ident("function name")
+            elif self.is_kw("COMMENT"):
+                comment = self._comment_clause()
+            else:
+                break
+        return S.DefineStatement(
+            "analyzer", name=name, if_not_exists=ine, overwrite=ow,
+            tokenizers=tokenizers, filters=filters, function=function,
+            comment=comment,
+        )
+
+    def _define_function(self) -> S.Statement:
+        ine, ow = self._if_not_exists()
+        self.expect_kw("FN")
+        self.expect_op("::")
+        name = self.ident("function name")
+        while self.eat_op("::"):
+            name += "::" + self.ident("function name")
+        self.expect_op("(")
+        params: List[Tuple[str, Optional[Kind]]] = []
+        while not self.is_op(")"):
+            t = self.next()
+            if t.kind != "PARAM":
+                raise self.error("expected $param", t)
+            self.expect_op(":")
+            kind = self.parse_kind()
+            params.append((t.value, kind))
+            if not self.eat_op(","):
+                break
+        self.expect_op(")")
+        body = self.parse_block_expr()
+        returns = None
+        perms = None
+        comment = None
+        while True:
+            if self.is_kw("PERMISSIONS"):
+                if self.eat_kw("PERMISSIONS"):
+                    if self.eat_kw("NONE"):
+                        perms = "NONE"
+                    elif self.eat_kw("FULL"):
+                        perms = "FULL"
+                    elif self.eat_kw("WHERE"):
+                        perms = self.parse_expr()
+            elif self.is_kw("COMMENT"):
+                comment = self._comment_clause()
+            else:
+                break
+        return S.DefineStatement(
+            "function", name=name, if_not_exists=ine, overwrite=ow,
+            params=params, body=body, returns=returns, permissions=perms,
+            comment=comment,
+        )
+
+    def _define_user(self) -> S.Statement:
+        ine, ow = self._if_not_exists()
+        name = self.ident("user name")
+        self.expect_kw("ON")
+        if self.eat_kw("ROOT"):
+            base = "root"
+        elif self.eat_kw("NAMESPACE") or self.eat_kw("NS"):
+            base = "ns"
+        elif self.eat_kw("DATABASE") or self.eat_kw("DB"):
+            base = "db"
+        else:
+            raise self.error("expected ROOT, NAMESPACE or DATABASE")
+        password = passhash = None
+        roles = ["Viewer"]
+        token_dur = None
+        session_dur = None
+        comment = None
+        while True:
+            if self.eat_kw("PASSWORD"):
+                password = self.next().value
+            elif self.eat_kw("PASSHASH"):
+                passhash = self.next().value
+            elif self.eat_kw("ROLES"):
+                roles = []
+                while True:
+                    roles.append(self.ident("role").capitalize())
+                    if not self.eat_op(","):
+                        break
+            elif self.eat_kw("DURATION"):
+                while self.eat_kw("FOR"):
+                    if self.eat_kw("TOKEN"):
+                        token_dur = self._duration().nanos
+                    elif self.eat_kw("SESSION"):
+                        if self.eat_kw("NONE"):
+                            session_dur = None
+                        else:
+                            session_dur = self._duration().nanos
+                    self.eat_op(",")
+            elif self.is_kw("COMMENT"):
+                comment = self._comment_clause()
+            else:
+                break
+        return S.DefineStatement(
+            "user", name=name, base=base, if_not_exists=ine, overwrite=ow,
+            password=password, passhash=passhash, roles=roles,
+            token_duration=token_dur, session_duration=session_dur,
+            comment=comment,
+        )
+
+    def _define_access(self) -> S.Statement:
+        ine, ow = self._if_not_exists()
+        name = self.ident("access name")
+        self.expect_kw("ON")
+        if self.eat_kw("ROOT"):
+            base = "root"
+        elif self.eat_kw("NAMESPACE") or self.eat_kw("NS"):
+            base = "ns"
+        elif self.eat_kw("DATABASE") or self.eat_kw("DB"):
+            base = "db"
+        else:
+            raise self.error("expected ROOT, NAMESPACE or DATABASE")
+        self.expect_kw("TYPE")
+        args: dict = {
+            "name": name, "base": base, "if_not_exists": ine, "overwrite": ow,
+            "access_type": None, "signup": None, "signin": None,
+            "jwt_alg": "HS512", "jwt_key": None, "jwt_url": None,
+            "authenticate": None, "token_duration": 3600 * 10**9,
+            "session_duration": None, "comment": None,
+        }
+        if self.eat_kw("JWT"):
+            args["access_type"] = "jwt"
+            self._access_jwt_tail(args)
+        elif self.eat_kw("RECORD"):
+            args["access_type"] = "record"
+            while True:
+                if self.eat_kw("SIGNUP"):
+                    args["signup"] = self.parse_expr()
+                elif self.eat_kw("SIGNIN"):
+                    args["signin"] = self.parse_expr()
+                elif self.eat_kw("AUTHENTICATE"):
+                    args["authenticate"] = self.parse_expr()
+                elif self.eat_kw("WITH"):
+                    self.expect_kw("JWT")
+                    self._access_jwt_tail(args)
+                else:
+                    break
+        elif self.eat_kw("BEARER"):
+            args["access_type"] = "bearer"
+            args["bearer_subject"] = "user"
+            if self.eat_kw("FOR"):
+                if self.eat_kw("USER"):
+                    args["bearer_subject"] = "user"
+                elif self.eat_kw("RECORD"):
+                    args["bearer_subject"] = "record"
+                else:
+                    raise self.error("expected USER or RECORD")
+        else:
+            raise self.error("expected JWT, RECORD or BEARER")
+        while True:
+            if self.eat_kw("DURATION"):
+                while self.eat_kw("FOR"):
+                    if self.eat_kw("TOKEN"):
+                        args["token_duration"] = self._duration().nanos
+                    elif self.eat_kw("GRANT"):
+                        if self.eat_kw("NONE"):
+                            args["grant_duration"] = None
+                        else:
+                            args["grant_duration"] = self._duration().nanos
+                    elif self.eat_kw("SESSION"):
+                        if self.eat_kw("NONE"):
+                            args["session_duration"] = None
+                        else:
+                            args["session_duration"] = self._duration().nanos
+                    self.eat_op(",")
+            elif self.eat_kw("AUTHENTICATE"):
+                args["authenticate"] = self.parse_expr()
+            elif self.is_kw("COMMENT"):
+                args["comment"] = self._comment_clause()
+            else:
+                break
+        return S.DefineStatement("access", **args)
+
+    def _access_jwt_tail(self, args: dict) -> None:
+        while True:
+            if self.eat_kw("ALGORITHM"):
+                args["jwt_alg"] = self.ident("algorithm").upper()
+            elif self.eat_kw("KEY"):
+                args["jwt_key"] = self.next().value
+            elif self.eat_kw("URL"):
+                args["jwt_url"] = self.next().value
+            elif self.eat_kw("ISSUER"):
+                self.expect_kw("KEY")
+                args["jwt_issuer_key"] = self.next().value
+            else:
+                break
+
+    def _define_model(self) -> S.Statement:
+        ine, ow = self._if_not_exists()
+        self.expect_kw("ML")
+        self.expect_op("::")
+        name = self.ident("model name")
+        while self.eat_op("::"):
+            name += "::" + self.ident("model name")
+        version = ""
+        if self.eat_op("<"):
+            parts = [str(self.next().value)]
+            while self.eat_op("."):
+                parts.append(str(self.next().value))
+            version = ".".join(parts)
+            self.expect_op(">")
+        perms = self._permissions_clause()
+        comment = self._comment_clause()
+        return S.DefineStatement(
+            "model", name=name, version=version, if_not_exists=ine,
+            overwrite=ow, permissions=perms, comment=comment,
+        )
+
+    # ---------------------------------------------------------- REMOVE
+    def _stmt_remove(self) -> S.Statement:
+        self.next()
+        kinds = {
+            "NAMESPACE": "namespace", "NS": "namespace",
+            "DATABASE": "database", "DB": "database",
+            "TABLE": "table", "FIELD": "field", "INDEX": "index",
+            "EVENT": "event", "ANALYZER": "analyzer", "FUNCTION": "function",
+            "PARAM": "param", "USER": "user", "ACCESS": "access",
+            "MODEL": "model",
+        }
+        t = self.peek()
+        if t.kind != "IDENT" or t.value.upper() not in kinds:
+            raise self.error("unknown REMOVE kind")
+        kind = kinds[self.next().value.upper()]
+        if_exists = False
+        if self.eat_kw("IF"):
+            self.expect_kw("EXISTS")
+            if_exists = True
+        if kind == "function":
+            self.expect_kw("FN")
+            self.expect_op("::")
+            name = self.ident("function name")
+            while self.eat_op("::"):
+                name += "::" + self.ident("function name")
+        elif kind == "model":
+            self.expect_kw("ML")
+            self.expect_op("::")
+            name = self.ident("model name")
+            model_version = ""
+            if self.eat_op("<"):
+                v = [str(self.next().value)]
+                while self.eat_op("."):
+                    v.append(str(self.next().value))
+                model_version = ".".join(v)
+                self.expect_op(">")
+        elif kind == "param":
+            t2 = self.next()
+            if t2.kind != "PARAM":
+                raise self.error("expected $param", t2)
+            name = t2.value
+        else:
+            name = self.ident("name")
+        table = None
+        level = None
+        if kind == "model":
+            table = model_version  # version rides the table slot
+        if kind in ("field", "index", "event") and self.eat_kw("ON"):
+            self.eat_kw("TABLE")
+            table = self.ident("table name")
+        if kind in ("user", "access") and self.eat_kw("ON"):
+            if self.eat_kw("ROOT"):
+                level = "root"
+            elif self.eat_kw("NAMESPACE") or self.eat_kw("NS"):
+                level = "ns"
+            elif self.eat_kw("DATABASE") or self.eat_kw("DB"):
+                level = "db"
+        return S.RemoveStatement(kind, name, table, if_exists, level)
+
+    def _stmt_alter(self) -> S.Statement:
+        self.next()
+        self.expect_kw("TABLE")
+        if_exists = False
+        if self.eat_kw("IF"):
+            self.expect_kw("EXISTS")
+            if_exists = True
+        name = self.ident("table name")
+        args: dict = {}
+        while True:
+            if self.eat_kw("DROP"):
+                args["drop"] = True
+            elif self.eat_kw("SCHEMAFULL"):
+                args["schemafull"] = True
+            elif self.eat_kw("SCHEMALESS"):
+                args["schemafull"] = False
+            elif self.is_kw("PERMISSIONS"):
+                args["permissions"] = self._permissions_clause()
+            elif self.is_kw("COMMENT"):
+                args["comment"] = self._comment_clause()
+            else:
+                break
+        return S.AlterStatement("table", name, if_exists, **args)
+
+    def _stmt_rebuild(self) -> S.Statement:
+        self.next()
+        self.expect_kw("INDEX")
+        if_exists = False
+        if self.eat_kw("IF"):
+            self.expect_kw("EXISTS")
+            if_exists = True
+        name = self.ident("index name")
+        self.expect_kw("ON")
+        self.eat_kw("TABLE")
+        tb = self.ident("table name")
+        return S.RebuildStatement(name, tb, if_exists)
+
+    def _stmt_access(self) -> S.Statement:
+        self.next()
+        name = self.ident("access name")
+        base = None
+        if self.eat_kw("ON"):
+            if self.eat_kw("ROOT"):
+                base = "root"
+            elif self.eat_kw("NAMESPACE") or self.eat_kw("NS"):
+                base = "ns"
+            elif self.eat_kw("DATABASE") or self.eat_kw("DB"):
+                base = "db"
+        if self.eat_kw("GRANT"):
+            args = {}
+            if self.eat_kw("FOR"):
+                if self.eat_kw("USER"):
+                    args["user"] = self.ident("user name")
+                elif self.eat_kw("RECORD"):
+                    args["record"] = self.parse_expr()
+            return S.AccessStatement(name, base, "grant", **args)
+        if self.eat_kw("SHOW"):
+            args = {}
+            if self.eat_kw("GRANT"):
+                args["grant"] = self.ident("grant id")
+            elif self.eat_kw("WHERE"):
+                args["cond"] = self.parse_expr()
+            else:
+                self.eat_kw("ALL")
+            return S.AccessStatement(name, base, "show", **args)
+        if self.eat_kw("REVOKE"):
+            args = {}
+            if self.eat_kw("GRANT"):
+                args["grant"] = self.ident("grant id")
+            elif self.eat_kw("WHERE"):
+                args["cond"] = self.parse_expr()
+            elif not self.eat_kw("ALL"):
+                # revoking everything is destructive: make it explicit
+                raise self.error("expected GRANT <id>, WHERE <cond> or ALL")
+            return S.AccessStatement(name, base, "revoke", **args)
+        if self.eat_kw("PURGE"):
+            args = {"expired": False, "revoked": False}
+            while True:
+                if self.eat_kw("EXPIRED"):
+                    args["expired"] = True
+                elif self.eat_kw("REVOKED"):
+                    args["revoked"] = True
+                elif self.eat_op(","):
+                    continue
+                else:
+                    break
+            if not args["expired"] and not args["revoked"]:
+                args["expired"] = args["revoked"] = True
+            if self.eat_kw("FOR"):
+                args["grace"] = self._duration().nanos
+            return S.AccessStatement(name, base, "purge", **args)
+        raise self.error("expected GRANT, SHOW, REVOKE or PURGE")
+
+    # ------------------------------------------------------------- kinds
+    def parse_kind(self) -> Kind:
+        k = self._parse_single_kind()
+        if self.is_op("|"):
+            kinds = [k]
+            while self.eat_op("|"):
+                kinds.append(self._parse_single_kind())
+            return Kind("either", kinds)
+        return k
+
+    def _parse_single_kind(self) -> Kind:
+        t = self.peek()
+        if t.kind in ("NUMBER", "STRING", "DURATION") or (
+            t.kind == "IDENT" and t.value.upper() in ("TRUE", "FALSE")
+        ):
+            self.next()
+            if t.kind == "IDENT":
+                return Kind("literal", [t.value.upper() == "TRUE"])
+            return Kind("literal", [t.value])
+        name = self.ident("type name").lower()
+        if name == "option":
+            self.expect_op("<")
+            inner = self.parse_kind()
+            self.expect_op(">")
+            return Kind("option", [inner])
+        if name in ("array", "set"):
+            if self.eat_op("<"):
+                inner = self.parse_kind()
+                size = None
+                if self.eat_op(","):
+                    size = self.expect_int("an array size")
+                self.expect_op(">")
+                return Kind(name, [inner], size)
+            return Kind(name)
+        if name == "record":
+            tables = []
+            if self.eat_op("<"):
+                tables.append(self.ident("table name"))
+                while self.eat_op("|"):
+                    tables.append(self.ident("table name"))
+                self.expect_op(">")
+            return Kind("record", tables)
+        if name == "geometry":
+            kinds = []
+            if self.eat_op("<"):
+                kinds.append(self.ident("geometry kind"))
+                while self.eat_op("|"):
+                    kinds.append(self.ident("geometry kind"))
+                self.expect_op(">")
+            return Kind("geometry", kinds)
+        if name == "function":
+            return Kind("function")
+        return Kind(name)
+
+    # ------------------------------------------------------------- idioms
+    def parse_plain_idiom(self) -> P.Idiom:
+        """Idiom without operators: a.b[0].c, used in SET/ORDER/GROUP..."""
+        parts: List[P.Part] = []
+        t = self.peek()
+        if t.kind == "PARAM":
+            self.next()
+            parts.append(P.PStart(A.Param(t.value)))
+        elif t.kind == "IDENT":
+            self.next()
+            parts.append(P.PField(t.value))
+        elif t.kind == "NUMBER":
+            self.next()
+            parts.append(P.PField(str(t.value)))
+        elif t.kind == "STRING":
+            self.next()
+            parts.append(P.PField(t.value))
+        else:
+            raise self.error("expected field path")
+        self._idiom_tail(parts, graph=True)
+        return P.Idiom(parts)
+
+    def _idiom_tail(self, parts: List[P.Part], graph: bool = True) -> None:
+        while True:
+            if self.eat_op("."):
+                if self.eat_op("*"):
+                    parts.append(P.PAll())
+                    continue
+                if self.is_op("{"):
+                    self.next()
+                    fields: List[Tuple[str, Optional[List[P.Part]]]] = []
+                    while not self.is_op("}"):
+                        fname = self.ident("field name")
+                        if self.eat_op(":"):
+                            sub: List[P.Part] = [P.PField(self.ident("field"))]
+                            self._idiom_tail(sub, graph=False)
+                            fields.append((fname, sub))
+                        else:
+                            fields.append((fname, None))
+                        if not self.eat_op(","):
+                            break
+                    self.expect_op("}")
+                    parts.append(P.PDestructure(fields))
+                    continue
+                name = self.ident("field name")
+                if self.is_op("("):
+                    self.next()
+                    args = []
+                    while not self.is_op(")"):
+                        args.append(self.parse_expr())
+                        if not self.eat_op(","):
+                            break
+                    self.expect_op(")")
+                    parts.append(P.PMethod(name, args))
+                else:
+                    parts.append(P.PField(name))
+                continue
+            if self.eat_op("["):
+                if self.eat_op("*"):
+                    self.expect_op("]")
+                    parts.append(P.PAll())
+                elif self.eat_op("$"):
+                    self.expect_op("]")
+                    parts.append(P.PLast())
+                elif self.is_kw("WHERE"):
+                    self.next()
+                    cond = self.parse_expr()
+                    self.expect_op("]")
+                    parts.append(P.PWhere(cond))
+                elif self.is_op("?"):
+                    self.next()
+                    cond = self.parse_expr()
+                    self.expect_op("]")
+                    parts.append(P.PWhere(cond))
+                else:
+                    e = self.parse_expr()
+                    self.expect_op("]")
+                    if isinstance(e, A.Literal) and isinstance(e.value, int):
+                        parts.append(P.PIndex(e.value))
+                    else:
+                        parts.append(P.PValue(e))
+                continue
+            if self.is_op("?") and self.peek(1).kind == "OP" and self.peek(1).value == ".":
+                self.next()
+                parts.append(P.POptional())
+                continue
+            if graph and not self._no_graph and (
+                self.is_op("->") or self.is_op("<-") or self.is_op("<->")
+            ):
+                parts.append(self._graph_part())
+                continue
+            if self.is_op("{") and self._recursion_ahead():
+                parts.append(self._recurse_part())
+                continue
+            if self.eat_op(".."):
+                # flatten operator `…` is typed as '..' + '.'? skip
+                parts.append(P.PFlatten())
+                continue
+            return
+
+    def _recursion_ahead(self) -> bool:
+        # `{1..3}` or `{..}` directly in a path
+        j = self.i + 1
+        t = self.toks[j]
+        if t.kind == "NUMBER":
+            t2 = self.toks[j + 1]
+            return t2.kind == "OP" and t2.value in ("..", "}")
+        return t.kind == "OP" and t.value == ".."
+
+    def _recurse_part(self) -> P.PRecurse:
+        self.expect_op("{")
+        mn, mx = 1, None
+        if self.peek().kind == "NUMBER":
+            mn = self.next().value
+        if self.eat_op(".."):
+            if self.peek().kind == "NUMBER":
+                mx = self.next().value
+        else:
+            mx = mn
+        self.expect_op("}")
+        sub: List[P.Part] = []
+        self._idiom_tail(sub, graph=True)
+        return P.PRecurse(mn, mx, sub)
+
+    def _graph_part(self) -> P.PGraph:
+        t = self.next()
+        dir_ = {"->": "out", "<-": "in", "<->": "both"}[t.value]
+        if self.eat_op("?"):
+            return P.PGraph(dir_, [])
+        if self.eat_op("("):
+            what = []
+            cond = None
+            alias = None
+            if self.eat_op("?"):
+                pass
+            else:
+                what.append(self.ident("edge table"))
+                while self.eat_op(","):
+                    what.append(self.ident("edge table"))
+            if self.eat_kw("WHERE"):
+                cond = self.parse_expr()
+            if self.eat_kw("AS"):
+                alias = self.parse_plain_idiom()
+            self.expect_op(")")
+            return P.PGraph(dir_, what, cond, alias)
+        name = self.ident("edge table")
+        return P.PGraph(dir_, [name])
+
+    # ------------------------------------------------------------- exprs
+    def parse_expr(self, min_bp: int = 0) -> A.Expr:
+        # explicit nesting bound: each level spans several Python frames, so
+        # pathological inputs (fuzzed `((((...`) exhaust the C stack — a hard
+        # crash — long before sys.setrecursionlimit raises RecursionError
+        self._depth += 1
+        if self._depth > _MAX_PARSE_DEPTH:
+            self._depth -= 1
+            raise self.error("query is too deeply nested")
+        try:
+            return self._parse_expr_bp(min_bp)
+        finally:
+            self._depth -= 1
+
+    def _parse_expr_bp(self, min_bp: int) -> A.Expr:
+        lhs = self._parse_prefix()
+        while True:
+            t = self.peek()
+            op = None
+            if t.kind == "OP":
+                if t.value == "<|":
+                    lhs = self._knn_tail(lhs)
+                    continue
+                if t.value == "@":
+                    lhs = self._matches_tail(lhs)
+                    continue
+                if t.value in _BP:
+                    op = t.value
+            elif t.kind == "IDENT":
+                kw = t.value.upper()
+                if kw == "NOT" and self.peek(1).kind == "IDENT" and self.peek(1).value.upper() in ("IN", "INSIDE"):
+                    op = "NOT IN"
+                elif kw in _BP:
+                    op = kw
+            if op is None:
+                return lhs
+            lbp, rbp = _BP.get(op, (40, 41))
+            if lbp < min_bp:
+                return lhs
+            # consume
+            if op == "NOT IN":
+                self.next()
+                self.next()
+            else:
+                self.next()
+            if op == "IS":
+                negate = self.eat_kw("NOT")
+                rhs = self.parse_expr(rbp)
+                lhs = A.BinaryOp("!=" if negate else "==", lhs, rhs)
+                continue
+            if op == "..":
+                # range expression: lhs..[=]rhs
+                end_incl = self.eat_op("=")
+                if self._range_end_ahead():
+                    rhs: Any = A.Literal(NONE)
+                else:
+                    rhs = self.parse_expr(rbp)
+                lhs = A.RangeLit(lhs, rhs, True, end_incl)
+                continue
+            rhs = self.parse_expr(rbp)
+            lhs = A.BinaryOp(op, lhs, rhs)
+
+    def _range_end_ahead(self) -> bool:
+        t = self.peek()
+        return t.kind == "EOF" or (
+            t.kind == "OP" and t.value in (")", "]", "}", ",", ";")
+        )
+
+    def _knn_tail(self, lhs: A.Expr) -> A.Expr:
+        self.expect_op("<|")
+        k = self.expect_int("a kNN k")
+        ef = None
+        dist = None
+        if self.eat_op(","):
+            t = self.next()
+            if t.kind == "NUMBER":
+                try:
+                    ef = int(t.value)
+                except (OverflowError, ValueError):
+                    raise self.error("expected a kNN ef", t)
+            else:
+                dist = str(t.value).lower()
+                if dist == "minkowski":
+                    dist += f":{self.next().value}"
+        self.expect_op("|>")
+        rhs = self.parse_expr(45)
+        return A.KnnOp(lhs, rhs, k, ef, dist)
+
+    def _matches_tail(self, lhs: A.Expr) -> A.Expr:
+        self.expect_op("@")
+        ref = None
+        if self.peek().kind == "NUMBER":
+            ref = self.expect_int("a match ref")
+        self.expect_op("@")
+        rhs = self.parse_expr(45)
+        return A.MatchesOp(lhs, rhs, ref)
+
+    def _literal_methods(self, lit: A.Expr) -> A.Expr:
+        """Allow method calls directly on literals (`'abc'.len()`,
+        `5.is_int()`, `1w.days()` — reference idiom method dispatch)."""
+        if self.is_op(".") and self.peek(1).kind == "IDENT" and self.is_op("(", 2):
+            parts: List[P.Part] = [P.PStart(lit)]
+            self._idiom_tail(parts, graph=False)
+            return P.Idiom(parts)
+        return lit
+
+    def _parse_prefix(self) -> A.Expr:
+        t = self.peek()
+        if t.kind == "NUMBER":
+            self.next()
+            return self._literal_methods(A.Literal(t.value))
+        if t.kind == "STRING":
+            self.next()
+            # record-id strings: "person:1" auto-parse? (reference keeps string)
+            return self._literal_methods(A.Literal(t.value))
+        if t.kind == "DURATION":
+            self.next()
+            return self._literal_methods(A.Literal(t.value))
+        if t.kind == "DATETIME":
+            self.next()
+            return self._literal_methods(A.Literal(t.value))
+        if t.kind == "UUID":
+            self.next()
+            return self._literal_methods(A.Literal(t.value))
+        if t.kind == "BYTES":
+            self.next()
+            return self._literal_methods(A.Literal(t.value))
+        if t.kind == "PARAM":
+            self.next()
+            parts: List[P.Part] = [P.PStart(A.Param(t.value))]
+            self._idiom_tail(parts)
+            if len(parts) == 1:
+                expr: A.Expr = A.Param(t.value)
+            else:
+                expr = P.Idiom(parts)
+            if self.is_op("("):
+                return self._closure_call(expr)
+            return expr
+        if t.kind == "OP":
+            v = t.value
+            if v == "-" or v == "+":
+                self.next()
+                return A.UnaryOp(v, self.parse_expr(65))
+            if v == "!":
+                self.next()
+                if self.eat_op("!"):
+                    return A.UnaryOp("!!", self.parse_expr(65))
+                return A.UnaryOp("!", self.parse_expr(65))
+            if v == "(":
+                return self._paren_or_subquery()
+            if v == "[":
+                self.next()
+                items = []
+                while not self.is_op("]"):
+                    items.append(self.parse_expr())
+                    if not self.eat_op(","):
+                        break
+                self.expect_op("]")
+                arr = A.ArrayLit(items)
+                parts2: List[P.Part] = [P.PStart(arr)]
+                self._idiom_tail(parts2)
+                if len(parts2) > 1:
+                    return P.Idiom(parts2)
+                return arr
+            if v == "{":
+                return self._object_or_block()
+            if v == "<":
+                return self._angle_prefix()
+            if v == "<-" or v == "<->":
+                # graph idiom starting from current doc
+                parts3: List[P.Part] = []
+                self._idiom_tail(parts3)
+                return P.Idiom(parts3)
+            if v == "->":
+                parts4: List[P.Part] = []
+                self._idiom_tail(parts4)
+                return P.Idiom(parts4)
+            if v == "/":
+                return self._regex_literal()
+            if v == "|":
+                return self._mock_or_closure()
+            if v == "..":
+                # open-beginning range ..end
+                self.next()
+                end_incl = self.eat_op("=")
+                if self._range_end_ahead():
+                    return A.RangeLit(A.Literal(NONE), A.Literal(NONE), True, end_incl)
+                rhs = self.parse_expr(51)
+                return A.RangeLit(A.Literal(NONE), rhs, True, end_incl)
+            if v == "$":
+                self.next()
+                return A.Param("")
+            if v == "*":
+                self.next()
+                return A.Literal("*")
+        if t.kind == "IDENT":
+            return self._ident_prefix()
+        raise self.error(f"unexpected token {t.value!r}")
+
+    def _closure_call(self, target: A.Expr) -> A.Expr:
+        self.expect_op("(")
+        args = []
+        while not self.is_op(")"):
+            args.append(self.parse_expr())
+            if not self.eat_op(","):
+                break
+        self.expect_op(")")
+        return A.ClosureCall(target, args)
+
+    def _regex_literal(self) -> A.Expr:
+        # lex manually from the raw text: /pattern/
+        start_tok = self.next()  # consume '/'
+        text = self.text
+        j = start_tok.pos + 1
+        pat = []
+        while j < len(text):
+            c = text[j]
+            if c == "\\" and j + 1 < len(text):
+                pat.append(text[j : j + 2])
+                j += 2
+                continue
+            if c == "/":
+                break
+            pat.append(c)
+            j += 1
+        else:
+            raise self.error("unterminated regex")
+        # re-lex remainder
+        from .lexer import Lexer
+
+        sub = Lexer(text[j + 1 :])
+        toks = sub.lex()
+        offset = j + 1
+        self.toks = self.toks[: self.i] + [
+            Token(k, v, p + offset) for k, v, p in toks
+        ]
+        return A.RegexLit("".join(pat))
+
+    def _mock_or_closure(self) -> A.Expr:
+        self.next()  # consume |
+        if self.peek().kind == "IDENT" and self.is_op(":", 1):
+            tb = self.ident("table name")
+            self.expect_op(":")
+            n1 = self.expect_int("a number")
+            if self.eat_op(".."):
+                n2 = self.expect_int("a number")
+                self.expect_op("|")
+                return A.MockExpr(tb, None, (n1, n2))
+            self.expect_op("|")
+            return A.MockExpr(tb, n1, None)
+        # closure |$a: int, $b| body
+        params: List[Tuple[str, Optional[Kind]]] = []
+        while not self.is_op("|"):
+            t = self.next()
+            if t.kind != "PARAM":
+                raise self.error("expected $param in closure", t)
+            kind = None
+            if self.eat_op(":"):
+                # single kind only: `|` would be ambiguous with the closing pipe
+                kind = self._parse_single_kind()
+            params.append((t.value, kind))
+            if not self.eat_op(","):
+                break
+        self.expect_op("|")
+        returns = None
+        if self.eat_op("->"):
+            returns = self.parse_kind()
+        body = self.parse_block_expr()
+        return A.ClosureLit(params, returns, body)
+
+    def _paren_or_subquery(self) -> A.Expr:
+        self.expect_op("(")
+        t = self.peek()
+        if t.kind == "IDENT" and t.value.upper() in (
+            "SELECT", "CREATE", "UPDATE", "UPSERT", "DELETE", "RELATE",
+            "INSERT", "DEFINE", "REMOVE", "IF", "RETURN",
+        ):
+            stmt = self.parse_statement()
+            self.expect_op(")")
+            sq = A.Subquery(stmt)
+            parts: List[P.Part] = [P.PStart(sq)]
+            self._idiom_tail(parts)
+            if len(parts) > 1:
+                return P.Idiom(parts)
+            return sq
+        # geometry point? (1.5, 2.5)
+        e = self.parse_expr()
+        if self.eat_op(","):
+            e2 = self.parse_expr()
+            self.expect_op(")")
+            from surrealdb_tpu_torch.sql.value import Geometry
+
+            return A.FunctionCall("__point__", [e, e2])
+        self.expect_op(")")
+        parts = [P.PStart(A.Subquery(_ExprStatement(e)) if isinstance(e, (S.Statement,)) else e)]
+        self._idiom_tail(parts)
+        if len(parts) > 1:
+            return P.Idiom(parts)
+        return e
+
+    def _object_or_block(self) -> A.Expr:
+        # lookahead: '{' '}' or '{' (IDENT|STRING) ':' => object, else block
+        if self.is_op("}", 1):
+            self.next()
+            self.next()
+            return A.ObjectLit([])
+        t1, t2 = self.peek(1), self.peek(2)
+        is_obj = (
+            t1.kind in ("IDENT", "STRING", "NUMBER")
+            and t2.kind == "OP"
+            and t2.value == ":"
+        )
+        if is_obj:
+            self.next()
+            pairs: List[Tuple[str, A.Expr]] = []
+            while not self.is_op("}"):
+                kt = self.next()
+                if kt.kind not in ("IDENT", "STRING", "NUMBER"):
+                    raise self.error("expected object key", kt)
+                key = str(kt.value)
+                self.expect_op(":")
+                pairs.append((key, self.parse_expr()))
+                if not self.eat_op(","):
+                    break
+            self.expect_op("}")
+            obj = A.ObjectLit(pairs)
+            parts: List[P.Part] = [P.PStart(obj)]
+            self._idiom_tail(parts)
+            if len(parts) > 1:
+                return P.Idiom(parts)
+            return obj
+        return self.parse_block_expr()
+
+    def parse_block_expr(self) -> A.Expr:
+        """{ stmts } block, or a single expression."""
+        if self.is_op("{"):
+            self.next()
+            stmts: List[S.Statement] = []
+            while True:
+                while self.eat_op(";"):
+                    pass
+                if self.is_op("}"):
+                    break
+                stmts.append(self.parse_statement())
+                if self.is_op("}"):
+                    break
+                if not self.eat_op(";"):
+                    break
+            self.expect_op("}")
+            return A.Block(stmts)
+        # single statement (e.g. FOR body must be block; IF allows expr)
+        t = self.peek()
+        if t.kind == "IDENT" and t.value.upper() in _STMT_KEYWORDS and t.value.upper() not in ("IF",):
+            return A.Subquery(self.parse_statement())
+        return self.parse_expr()
+
+    def _angle_prefix(self) -> A.Expr:
+        """<kind> cast, <future>, <-graph handled elsewhere."""
+        self.next()  # consume <
+        if self.eat_kw("FUTURE"):
+            self.expect_op(">")
+            body = self.parse_block_expr()
+            if isinstance(body, A.Block) and len(body.stmts) == 1 and isinstance(
+                body.stmts[0], _ExprStatement
+            ):
+                return A.FutureLit(body.stmts[0].expr)
+            return A.FutureLit(body)
+        kind = self.parse_kind()
+        self.expect_op(">")
+        return A.Cast(kind, self.parse_expr(65))
+
+    def _ident_prefix(self) -> A.Expr:
+        t = self.next()
+        name = t.value
+        up = name.upper()
+        if up == "TRUE":
+            return A.Literal(True)
+        if up == "FALSE":
+            return A.Literal(False)
+        if up == "NULL":
+            return A.Literal(Null)
+        if up == "NONE":
+            return A.Literal(NONE)
+        if up == "NAN":
+            return A.Literal(float("nan"))
+        if up == "NOT":
+            return A.UnaryOp("!", self.parse_expr(45))
+        if up in ("SELECT", "CREATE", "UPDATE", "UPSERT", "DELETE", "RELATE", "INSERT"):
+            self.i -= 1
+            return A.Subquery(self.parse_statement())
+        if up == "IF":
+            self.i -= 1
+            self.next()
+            return A.Subquery(self._parse_if_tail())
+        # fn::name(...)
+        if up == "FN" and self.is_op("::"):
+            self.next()
+            fname = self.ident("function name")
+            while self.eat_op("::"):
+                fname += "::" + self.ident("function name")
+            self.expect_op("(")
+            args = []
+            while not self.is_op(")"):
+                args.append(self.parse_expr())
+                if not self.eat_op(","):
+                    break
+            self.expect_op(")")
+            return A.CustomFunctionCall(fname, args)
+        # ml::name<ver>(...)
+        if up == "ML" and self.is_op("::"):
+            self.next()
+            mname = self.ident("model name")
+            while self.eat_op("::"):
+                mname += "::" + self.ident("model name")
+            version = ""
+            if self.eat_op("<"):
+                parts = [str(self.next().value)]
+                while self.eat_op("."):
+                    parts.append(str(self.next().value))
+                version = ".".join(parts)
+                self.expect_op(">")
+            self.expect_op("(")
+            args = []
+            while not self.is_op(")"):
+                args.append(self.parse_expr())
+                if not self.eat_op(","):
+                    break
+            self.expect_op(")")
+            return A.ModelCall(mname, version, args)
+        # namespaced function / constant: math::pi, array::len(...)
+        if self.is_op("::"):
+            full = name
+            while self.eat_op("::"):
+                nxt = self.peek()
+                if nxt.kind == "IDENT" or nxt.kind == "NUMBER":
+                    self.next()
+                    full += "::" + str(nxt.value)
+                else:
+                    raise self.error("expected name after ::")
+            if self.is_op("("):
+                self.next()
+                args = []
+                while not self.is_op(")"):
+                    args.append(self.parse_expr())
+                    if not self.eat_op(","):
+                        break
+                self.expect_op(")")
+                call = A.FunctionCall(full, args)
+                parts5: List[P.Part] = [P.PStart(call)]
+                self._idiom_tail(parts5)
+                if len(parts5) > 1:
+                    return P.Idiom(parts5)
+                return call
+            if full.lower() in A.Constant._VALUES:
+                return A.Constant(full.lower())
+            raise self.error(f"unknown constant {full}")
+        # embedded script block: function(args) { js }  (the lexer emits a
+        # SCRIPT token right after the closing paren in exactly this shape)
+        if name == "function" and self.is_op("("):
+            j = self.i + 1
+            depth = 1
+            while j < len(self.toks) and depth:
+                t = self.toks[j]
+                if t.kind == "OP" and t.value == "(":
+                    depth += 1
+                elif t.kind == "OP" and t.value == ")":
+                    depth -= 1
+                j += 1
+            if j < len(self.toks) and self.toks[j].kind == "SCRIPT":
+                self.next()  # (
+                args = []
+                while not self.is_op(")"):
+                    args.append(self.parse_expr())
+                    if not self.eat_op(","):
+                        break
+                self.expect_op(")")
+                src_tok = self.next()
+                return A.ScriptCall(src_tok.value, args)
+        # plain function call: count(), rand(), type::of...
+        if self.is_op("("):
+            self.next()
+            args = []
+            while not self.is_op(")"):
+                args.append(self.parse_expr())
+                if not self.eat_op(","):
+                    break
+            self.expect_op(")")
+            call = A.FunctionCall(name.lower(), args)
+            parts6: List[P.Part] = [P.PStart(call)]
+            self._idiom_tail(parts6)
+            if len(parts6) > 1:
+                return P.Idiom(parts6)
+            return call
+        # record id: ident:...
+        if self.is_op(":"):
+            nt = self.peek(1)
+            if nt.kind in ("NUMBER", "IDENT", "STRING", "UUID", "DURATION") or (
+                nt.kind == "OP" and nt.value in ("[", "{", "..", "⟨", "-", "|")
+            ):
+                self.next()  # consume :
+                thing = self._thing_tail(name)
+                parts7: List[P.Part] = [P.PStart(thing)]
+                self._idiom_tail(parts7)
+                if len(parts7) > 1:
+                    return P.Idiom(parts7)
+                return thing
+        # plain idiom: field path / table name
+        parts8: List[P.Part] = [P.PField(name)]
+        self._idiom_tail(parts8)
+        return P.Idiom(parts8)
+
+    def _thing_tail(self, tb: str) -> A.Expr:
+        """After `tb:` parse the id part (may be a range)."""
+        t = self.peek()
+        beg_incl = True
+        # range forms: tb:beg..end, tb:beg>..end, tb:..end
+        def id_atom() -> Any:
+            t = self.peek()
+            if t.kind in ("NUMBER", "DURATION"):
+                # flexible record ids (reference syn/parser/thing.rs:251
+                # flexible_record_id): digit-leading alphanumeric ids like
+                # `likes:8abc2`, `t:1h30x`, `t:5h44m5f4x` lex as a run of
+                # NUMBER/DURATION/IDENT tokens; merge the whole adjacent
+                # [A-Za-z0-9_]+ source run back into one string id and
+                # resync the token stream past every token inside it
+                nxt = self.peek(1)
+                if nxt.kind in ("IDENT", "NUMBER", "DURATION") and not any(
+                    c.isspace() for c in self.text[t.pos : nxt.pos]
+                ):
+                    end = t.pos
+                    while end < len(self.text) and (
+                        self.text[end].isalnum() or self.text[end] == "_"
+                    ):
+                        end += 1
+                    while self.peek().kind != "EOF" and self.peek().pos < end:
+                        self.next()
+                    # a token straddling the run boundary (e.g. `8e+2`)
+                    # cannot merge cleanly into an id
+                    gap = self.text[end : self.peek().pos]
+                    if gap.strip():
+                        raise self.error("invalid record id", t)
+                    return self.text[t.pos : end]
+                if t.kind == "DURATION":
+                    # a bare duration-shaped id (`t:1h`) is a string id
+                    self.next()
+                    end = t.pos
+                    while end < len(self.text) and (
+                        self.text[end].isalnum() or self.text[end] == "_"
+                    ):
+                        end += 1
+                    return self.text[t.pos : end]
+                self.next()
+                if isinstance(t.value, float):
+                    # `t:8e2` — number-shaped but alnum text is a string id
+                    # (reference Digits + identifier-chars → Id::String)
+                    raw = self.text[t.pos : self.peek().pos].rstrip()
+                    if raw and all(c.isalnum() or c == "_" for c in raw):
+                        return raw
+                    raise self.error("record id must be an integer", t)
+                return t.value
+            if t.kind == "IDENT":
+                self.next()
+                return t.value
+            if t.kind == "STRING":
+                self.next()
+                return t.value
+            if t.kind == "UUID":
+                self.next()
+                return t.value
+            if t.kind == "OP" and t.value == "-":
+                self.next()
+                nt = self.next()
+                if nt.kind != "NUMBER" or isinstance(nt.value, float):
+                    raise self.error("record id must be an integer", nt)
+                return -nt.value
+            if t.kind == "OP" and t.value == "[":
+                self.next()
+                items = []
+                while not self.is_op("]"):
+                    items.append(self.parse_expr())
+                    if not self.eat_op(","):
+                        break
+                self.expect_op("]")
+                return A.ArrayLit(items)
+            if t.kind == "OP" and t.value == "{":
+                e = self._object_or_block()
+                return e
+            if t.kind == "OP" and t.value == "|":
+                raise self.error("unexpected | in record id")
+            raise self.error("expected record id")
+
+        if self.is_op(".."):
+            self.next()
+            end_incl = self.eat_op("=")
+            if self._range_end_ahead():
+                rng = A.RangeLit(A.Literal(NONE), A.Literal(NONE), True, end_incl)
+            else:
+                end = id_atom()
+                rng = A.RangeLit(
+                    A.Literal(NONE),
+                    end if isinstance(end, A.Expr) else A.Literal(end),
+                    True,
+                    end_incl,
+                )
+            return A.ThingLit(tb, rng)
+        atom = id_atom()
+        if self.is_op("..") or (self.is_op(">") and self.is_op("..", 1)):
+            if self.eat_op(">"):
+                beg_incl = False
+            self.next()  # consume ..
+            end_incl = self.eat_op("=")
+            if self._range_end_ahead():
+                end: Any = A.Literal(NONE)
+            else:
+                e2 = id_atom()
+                end = e2 if isinstance(e2, A.Expr) else A.Literal(e2)
+            rng = A.RangeLit(
+                atom if isinstance(atom, A.Expr) else A.Literal(atom),
+                end,
+                beg_incl,
+                end_incl,
+            )
+            return A.ThingLit(tb, rng)
+        if isinstance(atom, A.Expr):
+            return A.ThingLit(tb, atom)
+        return A.Literal(Thing(tb, atom))
+
+
+class _ExprStatement(S.Statement):
+    """A bare expression used in statement position."""
+
+    __slots__ = ("expr",)
+
+    def __init__(self, expr: A.Expr):
+        self.expr = expr
+
+    def compute(self, ctx):
+        return self.expr.compute(ctx)
+
+    def writeable(self):
+        return self.expr.writeable()
+
+    def __repr__(self):
+        return repr(self.expr)
+
+
+# ------------------------------------------------------------------ entries
+def parse_query(text: str) -> S.Query:
+    try:
+        return Parser(text).parse_query()
+    except RecursionError:
+        # pathological nesting (the reference bounds computation depth the
+        # same way, cnf MAX_COMPUTATION_DEPTH) — report a clean parse error
+        raise ParseError("query is too deeply nested") from None
+
+
+# The plan cache's token vocabulary (dbs/plan_cache.py). SIGNATURE kinds
+# are every token whose VALUE the statement fingerprint erases or folds
+# (stats._normalize): literals erase to "?", params to "$?", keyword
+# identifiers case-fold. Two same-fingerprint texts can therefore differ
+# ONLY at these positions — operators are preserved verbatim by the
+# fingerprint, so they can never differ. BINDABLE kinds are the subset
+# whose converted value is exactly what an ast.Literal node would hold,
+# i.e. the ones a cached template can re-bind per execution; the rest
+# (idents, param names, regexes) must match the template verbatim.
+SIGNATURE_TOKEN_KINDS = frozenset(
+    {"IDENT", "PARAM", "NUMBER", "STRING", "DURATION",
+     "DATETIME", "UUID", "BYTES", "REGEX", "SCRIPT"}
+)
+BINDABLE_TOKEN_KINDS = frozenset(
+    {"NUMBER", "STRING", "DURATION", "DATETIME", "UUID", "BYTES"}
+)
+
+
+def lex_literal_slots(text: str) -> Optional[Tuple[Tuple[str, ...], Tuple[Any, ...]]]:
+    """The plan cache's lex-only front (dbs/plan_cache.py): tokenize one
+    statement and return the (kinds, values) sequence of its SIGNATURE
+    tokens in source order, or None when the text does not lex. A warm
+    serve of a new same-fingerprint text pays THIS instead of a full
+    parse — bindable values slot into the cached template AST, everything
+    else is compared verbatim against the template's signature."""
+    try:
+        tokens = lex(text)
+    except (ParseError, RecursionError):
+        return None
+    kinds: List[str] = []
+    values: List[Any] = []
+    for t in tokens:
+        if t.kind == "EOF":
+            break
+        if t.kind in SIGNATURE_TOKEN_KINDS:
+            kinds.append(t.kind)
+            values.append(t.value)
+    return tuple(kinds), tuple(values)
+
+
+def parse_expr_text(text: str) -> A.Expr:
+    try:
+        p = Parser(text)
+        e = p.parse_expr()
+    except RecursionError:
+        raise ParseError("expression is too deeply nested") from None
+    if p.peek().kind != "EOF":
+        raise p.error("unexpected trailing input")
+    return e
+
+
+def parse_thing_text(text: str) -> Thing:
+    p = Parser(text)
+    e = p.parse_expr()
+    if isinstance(e, A.Literal) and isinstance(e.value, Thing):
+        return e.value
+    if isinstance(e, A.ThingLit) and not isinstance(e.id, A.Expr):
+        return Thing(e.tb, e.id)
+    if isinstance(e, A.ThingLit):
+        v = e.compute(None)  # literal-only ids compute without ctx
+        if isinstance(v, Thing):
+            return v
+    raise ParseError(f"not a record id: {text!r}")
+
+
+def parse_kind_text(text: str) -> Kind:
+    return Parser(text).parse_kind()

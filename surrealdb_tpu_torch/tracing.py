@@ -1,0 +1,545 @@
+"""Request-scoped hierarchical tracing: trace ids, span trees, trace store.
+
+Role of the reference's OTEL trace layer (reference: src/telemetry/traces/ —
+every HTTP request and RPC command opens a span, child spans nest under it,
+and an OTLP exporter ships finished trees to a collector). This environment
+has no collector, so finished traces land in a bounded in-memory store with
+tail-based sampling, served by `GET /trace/:id` + `GET /traces` and
+exportable as Chrome-trace JSON (`?format=chrome`) so a request tree drops
+into chrome://tracing / Perfetto next to the `torch.profiler` device traces
+that `bench.py --profile` captures.
+
+Mechanics:
+
+- context propagates via `contextvars` (one `SpanCtx` = active trace +
+  current span id), minted at every ingress — HTTP routes, WS RPC frames,
+  `RpcContext.execute`, `Datastore.execute` — and honored from an inbound
+  W3C `traceparent` or `surreal-trace-id` header / frame field;
+- every `telemetry.span()` that runs under an active trace becomes a node
+  (name, labels, start, duration, error class) instead of only feeding the
+  duration histograms; with no active trace the cost is one ContextVar read;
+- the dispatch queue re-parents kernel spans onto EVERY rider of a
+  coalesced batch (`record_span_into`), so a query that rode someone
+  else's kernel launch still shows its own dispatch/kernel levels;
+- retention is tail-based: traces with errors, over the slow-query
+  threshold, force-kept (slow-query log), or client-tagged are always
+  stored; the rest with probability `cnf.TRACE_SAMPLE`. Recording itself is
+  always on while `cnf.TRACE_ENABLED` — you cannot sample a head you
+  didn't record.
+"""
+
+from __future__ import annotations
+
+import contextvars
+import itertools
+import random
+import re
+from surrealdb_tpu_torch.utils import locks as _locks
+import time
+import uuid
+from collections import OrderedDict
+from contextlib import contextmanager
+from typing import Any, Dict, List, Optional, Tuple
+
+# (span_id, parent_id, name, labels, start_perf, dur_s, error)
+_SpanRec = Tuple[int, Optional[int], str, Dict[str, Any], float, float, Optional[str]]
+
+_HEX32 = re.compile(r"^[0-9a-f]{32}$")
+_SAFE_ID = re.compile(r"[^0-9a-zA-Z._-]")
+
+
+class Trace:
+    """Mutable accumulator for one request's span tree. Span appends are
+    single tuples (GIL-atomic list.append), so the dispatch leader can
+    record into a blocked rider's trace without a per-trace lock."""
+
+    __slots__ = (
+        "trace_id", "t0", "ts", "explicit", "force", "spans", "_ids",
+        "dropped", "meta", "client_parent",
+    )
+
+    def __init__(self, trace_id: str, explicit: bool = False, client_parent: Optional[str] = None):
+        self.trace_id = trace_id
+        self.t0 = time.perf_counter()
+        self.ts = time.time()
+        self.explicit = explicit  # client supplied the id: always retained
+        self.force = False  # slow-query log / error accounting pinned it
+        self.spans: List[_SpanRec] = []
+        self._ids = itertools.count(1)
+        self.dropped = 0
+        self.meta: Dict[str, Any] = {}  # session info (ns/db/auth level)
+        self.client_parent = client_parent  # inbound traceparent span id
+
+    def next_id(self) -> int:
+        return next(self._ids)
+
+    def add(
+        self,
+        span_id: int,
+        parent_id: Optional[int],
+        name: str,
+        labels: Dict[str, Any],
+        start: float,
+        dur: float,
+        error: Optional[str],
+    ) -> None:
+        from surrealdb_tpu_torch import cnf
+
+        if len(self.spans) >= cnf.TRACE_MAX_SPANS:
+            self.dropped += 1
+            return
+        self.spans.append((span_id, parent_id, name, labels, start, dur, error))
+
+
+class SpanCtx:
+    __slots__ = ("trace", "span_id")
+
+    def __init__(self, trace: Trace, span_id: int):
+        self.trace = trace
+        self.span_id = span_id
+
+
+_current: "contextvars.ContextVar[Optional[SpanCtx]]" = contextvars.ContextVar(
+    "surreal_trace", default=None
+)
+
+_store_lock = _locks.Lock("tracing.store")
+_store: "OrderedDict[str, dict]" = OrderedDict()  # trace_id -> finished doc
+
+
+def enabled() -> bool:
+    from surrealdb_tpu_torch import cnf
+
+    return cnf.TRACE_ENABLED
+
+
+def new_trace_id() -> str:
+    return uuid.uuid4().hex
+
+
+def is_hex_trace_id(tid: str) -> bool:
+    """True when `tid` is W3C-shaped (32 hex chars) — only such ids may be
+    echoed in a `traceparent` header; opaque sanitized ids would otherwise
+    derive a second, unresolvable id."""
+    return bool(_HEX32.match(tid))
+
+
+def normalize_trace_id(tid: Any) -> str:
+    """Client ids: 32-hex passes through; anything else is reduced to a
+    filterable opaque token (or replaced when nothing survives)."""
+    t = str(tid).strip().lower()
+    if _HEX32.match(t):
+        return t
+    t = _SAFE_ID.sub("", str(tid).strip())[:64]
+    return t or new_trace_id()
+
+
+def parse_traceparent(header: str) -> Optional[Tuple[str, str]]:
+    """W3C `traceparent: 00-<32hex trace>-<16hex parent>-<flags>` ->
+    (trace_id, parent_span_id), or None when malformed."""
+    try:
+        parts = header.strip().split("-")
+        if len(parts) < 4:
+            return None
+        tid, pid = parts[1].lower(), parts[2].lower()
+        if len(tid) != 32 or len(pid) != 16 or tid == "0" * 32:
+            return None
+        int(tid, 16)
+        int(pid, 16)
+        return tid, pid
+    except (ValueError, AttributeError):
+        return None
+
+
+def format_traceparent(trace_id: str, span_id: int) -> str:
+    tid = trace_id if _HEX32.match(trace_id) else uuid.uuid5(uuid.NAMESPACE_OID, trace_id).hex
+    return f"00-{tid}-{span_id & (2**64 - 1):016x}-01"
+
+
+def _error_name(e: Optional[BaseException]) -> Optional[str]:
+    if e is None:
+        return None
+    from surrealdb_tpu_torch.err import ControlFlow, ReturnError
+
+    # RETURN / BREAK / CONTINUE are control flow, not failures — marking
+    # them would force-retain every RETURN-using request
+    if isinstance(e, (ControlFlow, ReturnError)):
+        return None
+    return type(e).__name__
+
+
+# ------------------------------------------------------------------ context
+def current() -> Optional[SpanCtx]:
+    return _current.get()
+
+
+def current_trace_id() -> Optional[str]:
+    ctx = _current.get()
+    return ctx.trace.trace_id if ctx is not None else None
+
+
+def annotate(**meta: Any) -> None:
+    """Attach request metadata (ns/db/auth LEVEL — never tokens) to the
+    active trace; no-op outside one."""
+    ctx = _current.get()
+    if ctx is not None:
+        ctx.trace.meta.update(meta)
+
+
+def annotate_append(key: str, value: Any) -> None:
+    """Append `value` to a LIST-valued meta key on the active trace (e.g.
+    the cluster executor accumulating one per-shard profile per statement
+    across a multi-statement request); no-op outside a trace."""
+    ctx = _current.get()
+    if ctx is not None:
+        ctx.trace.meta.setdefault(key, []).append(value)
+
+
+def force_keep() -> None:
+    """Pin the active trace into the store regardless of sampling (called
+    when a slow-query / error record cites its trace_id — the `/slow` ->
+    `/trace/:id` hop must not dangle)."""
+    ctx = _current.get()
+    if ctx is not None:
+        ctx.trace.force = True
+
+
+def push() -> Optional[tuple]:
+    """Open a child span under the active trace. Returns an opaque token
+    for pop(), or None when no trace is active (the no-op fast path)."""
+    ctx = _current.get()
+    if ctx is None:
+        return None
+    sid = ctx.trace.next_id()
+    token = _current.set(SpanCtx(ctx.trace, sid))
+    return (token, ctx.trace, sid, ctx.span_id)
+
+
+def pop(
+    tok: tuple,
+    name: str,
+    labels: Dict[str, Any],
+    start: float,
+    dur: float,
+    err: Optional[BaseException] = None,
+) -> None:
+    token, trace, sid, parent = tok
+    _current.reset(token)
+    trace.add(sid, parent, name, labels, start, dur, _error_name(err))
+
+
+@contextmanager
+def span_only(name: str, **labels: Any):
+    """Trace-only child span: records a tree node but feeds NO metric
+    family (labels here may be high-cardinality, e.g. truncated SQL)."""
+    tok = push()
+    if tok is None:
+        yield
+        return
+    t0 = time.perf_counter()
+    err: Optional[BaseException] = None
+    try:
+        yield
+    except BaseException as e:
+        err = e
+        raise
+    finally:
+        pop(tok, name, labels, t0, time.perf_counter() - t0, err)
+
+
+@contextmanager
+def detached():
+    """Run with NO active trace (the dispatch leader executes a batch on
+    behalf of many riders; its own context must not swallow the kernel
+    spans that record_span_into re-parents onto each rider)."""
+    token = _current.set(None)
+    try:
+        yield
+    finally:
+        _current.reset(token)
+
+
+def record_span_into(
+    ctx: Optional[SpanCtx],
+    name: str,
+    labels: Dict[str, Any],
+    start: float,
+    dur: float,
+    error: Any = None,
+) -> None:
+    """Record a completed span into ANOTHER request's trace, parented at
+    the span that was active when that request captured `ctx` (dispatch
+    fan-out: the leader stamps launch/collect onto every rider)."""
+    if ctx is None:
+        return
+    tr = ctx.trace
+    err = error if (error is None or isinstance(error, str)) else _error_name(error)
+    tr.add(tr.next_id(), ctx.span_id, name, labels, start, dur, err)
+
+
+# ------------------------------------------------------------- cross-node
+def export_spans() -> List[dict]:
+    """Serialize the ACTIVE trace's finished spans for a cluster RPC
+    response (cluster/rpc.py): times are relative to the trace start so the
+    coordinator can rebase them into its own clock. The still-open ingress
+    root isn't in the list (it finishes after the response is built); its
+    children surface as roots and re-parent under the coordinator's RPC
+    span when grafted."""
+    ctx = _current.get()
+    if ctx is None:
+        return []
+    tr = ctx.trace
+    return [
+        {
+            "id": sid,
+            "parent": parent,
+            "name": name,
+            "labels": {k: str(v) for k, v in labels.items()},
+            "rel_start": start - tr.t0,
+            "dur": dur,
+            "error": err,
+        }
+        for (sid, parent, name, labels, start, dur, err) in list(tr.spans)
+    ]
+
+
+def graft_spans(spans: List[dict], base_start: float, node: str) -> None:
+    """Splice a remote node's exported spans into the ACTIVE trace, under
+    the current span (the coordinator's cluster_rpc span): span ids are
+    remapped into this trace's id space, orphans parent at the graft
+    point, and every span is labeled with the serving node — one request,
+    ONE span tree across the cluster."""
+    ctx = _current.get()
+    if ctx is None or not spans:
+        return
+    from surrealdb_tpu_torch.sql.value import is_none as _is_none, is_null as _is_null
+
+    tr = ctx.trace
+    idmap: Dict[Any, int] = {}
+    for s in sorted(spans, key=lambda s: s.get("rel_start", 0.0)):
+        try:
+            nid = tr.next_id()
+            idmap[s.get("id")] = nid
+            parent = idmap.get(s.get("parent"), ctx.span_id)
+            err = s.get("error")
+            if err is not None and (_is_none(err) or _is_null(err)):
+                # the CBOR hop decodes a None error as the engine NULL
+                # sentinel — normalize back, or exported trace docs stop
+                # being JSON-serializable
+                err = None
+            tr.add(
+                nid,
+                parent,
+                str(s.get("name", "?")),
+                dict(s.get("labels") or {}, node=node),
+                base_start + float(s.get("rel_start", 0.0)),
+                float(s.get("dur", 0.0)),
+                err,
+            )
+        except (TypeError, ValueError):
+            continue  # a malformed remote span must not break the trace
+
+
+# ------------------------------------------------------------------ ingress
+@contextmanager
+def request(
+    name: str,
+    trace_id: Optional[str] = None,
+    parent_id: Optional[str] = None,
+    nest: bool = True,
+    **labels: Any,
+):
+    """Ingress seam: mint a trace whose root span is `name`, honoring a
+    client-supplied trace id / traceparent. Nested ingresses (HTTP /sql ->
+    Datastore.execute) become plain child spans of the active trace —
+    unless nest=False, for seams whose adjacent telemetry.span() already
+    provides the node (RpcContext.execute under a transport ingress).
+    Yields the Trace (or None when tracing is disabled)."""
+    if not enabled():
+        yield None
+        return
+    active = _current.get()
+    if active is not None:
+        if not nest:
+            yield active.trace
+            return
+        with span_only(name, **labels):
+            yield active.trace
+        return
+    explicit = trace_id is not None
+    tid = normalize_trace_id(trace_id) if explicit else new_trace_id()
+    tr = Trace(tid, explicit=explicit, client_parent=parent_id)
+    sid = tr.next_id()
+    token = _current.set(SpanCtx(tr, sid))
+    t0 = time.perf_counter()
+    err: Optional[BaseException] = None
+    try:
+        yield tr
+    except BaseException as e:
+        err = e
+        raise
+    finally:
+        dur = time.perf_counter() - t0
+        _current.reset(token)
+        tr.add(sid, None, name, labels, t0, dur, _error_name(err))
+        _finish(tr, name, dur)
+
+
+# retention classes, weakest first: probabilistic samples are evicted
+# before client-tagged traces, which are evicted before operator-relevant
+# pins (slow/error/force) — an unauthenticated flood of traceparent-tagged
+# requests must not flush the diagnostics the slow-query log cites
+_RANK = {"probabilistic": 0, "client": 1, "pinned": 2}
+
+
+def _finish(tr: Trace, name: str, dur: float) -> None:
+    from surrealdb_tpu_torch import cnf
+
+    first_error = next((e for (_, _, _, _, _, _, e) in tr.spans if e), None)
+    if tr.force or first_error is not None or dur >= cnf.SLOW_QUERY_THRESHOLD_SECS:
+        sampled = "pinned"
+    elif tr.explicit:
+        sampled = "client"
+    elif random.random() < cnf.TRACE_SAMPLE:
+        sampled = "probabilistic"
+    else:
+        return
+    doc = {
+        "trace_id": tr.trace_id,
+        "name": name,
+        "ts": tr.ts,
+        "duration_ms": round(dur * 1e3, 3),
+        "error": first_error,
+        "sampled": sampled,
+        "client_parent": tr.client_parent,
+        "dropped_spans": tr.dropped,
+        **tr.meta,
+        "spans": [
+            {
+                "id": sid,
+                "parent": parent,
+                "name": n,
+                "labels": {k: str(v) for k, v in labels.items()},
+                "start_ms": round((start - tr.t0) * 1e3, 3),
+                "dur_ms": round(d * 1e3, 3),
+                "error": e,
+            }
+            for (sid, parent, n, labels, start, d, e) in sorted(
+                tr.spans, key=lambda s: s[4]
+            )
+        ],
+    }
+    with _store_lock:
+        prev = _store.get(tr.trace_id)
+        if prev is not None and _RANK[prev["sampled"]] > _RANK[sampled]:
+            # a reused id never downgrades what it names: the pinned doc a
+            # slow-log entry cites must not be replaced by a later
+            # unrelated (weaker) request wearing the same trace id
+            return
+        _store[tr.trace_id] = doc
+        _store.move_to_end(tr.trace_id)
+        while len(_store) > max(cnf.TRACE_STORE_SIZE, 1):
+            # rank-ordered victim scan: O(store size) worst case, but it
+            # only runs on an already-full store, once per RETAINED trace
+            # (sampled-out requests never reach it), and stops at the first
+            # weak entry — for the default 512-entry store this is
+            # microseconds under the lock. bench.py additionally resets
+            # the store per accounting window so its hot path never fills.
+            victim = next(
+                (
+                    k
+                    for rank in ("probabilistic", "client")
+                    for k, d in _store.items()
+                    if d["sampled"] == rank
+                ),
+                None,
+            )
+            if victim is not None:
+                del _store[victim]
+            else:
+                _store.popitem(last=False)
+
+
+# ------------------------------------------------------------------ store
+def get_trace(trace_id: str) -> Optional[dict]:
+    with _store_lock:
+        return _store.get(normalize_trace_id(trace_id))
+
+
+def trace_ids() -> List[str]:
+    with _store_lock:
+        return list(_store)
+
+
+def list_traces(limit: int = 100) -> List[dict]:
+    """Newest-first summaries (the `GET /traces` index)."""
+    with _store_lock:
+        docs = list(_store.values())
+    out = []
+    for d in reversed(docs[-max(limit, 1):]):
+        out.append(
+            {
+                k: d.get(k)
+                for k in (
+                    "trace_id", "name", "ts", "duration_ms", "error",
+                    "sampled", "ns", "db", "auth", "fingerprint",
+                )
+            }
+            | {"spans": len(d["spans"])}
+        )
+    return out
+
+
+def store_reset() -> None:
+    with _store_lock:
+        _store.clear()
+
+
+# ------------------------------------------------------------------ export
+def span_tree(doc: dict) -> List[dict]:
+    """Nest a stored doc's flat span list into parent->children trees
+    (roots first; orphans — parent evicted by the span cap — surface as
+    roots rather than vanishing)."""
+    nodes = {s["id"]: dict(s, children=[]) for s in doc["spans"]}
+    roots: List[dict] = []
+    for s in doc["spans"]:
+        node = nodes[s["id"]]
+        parent = nodes.get(s["parent"]) if s["parent"] is not None else None
+        if parent is None:
+            roots.append(node)
+        else:
+            parent["children"].append(node)
+    return roots
+
+
+def to_chrome(doc: dict) -> dict:
+    """Chrome-trace-format JSON (`chrome://tracing` / Perfetto `Open`):
+    complete ('X') events in microseconds, one process per trace."""
+    events = []
+    for s in doc["spans"]:
+        events.append(
+            {
+                "name": s["name"],
+                "cat": "surreal",
+                "ph": "X",
+                "ts": round(s["start_ms"] * 1e3, 1),
+                "dur": max(round(s["dur_ms"] * 1e3, 1), 0.1),
+                "pid": 1,
+                "tid": 1,
+                "args": {
+                    "span_id": s["id"],
+                    "parent": s["parent"],
+                    **s["labels"],
+                    **({"error": s["error"]} if s["error"] else {}),
+                },
+            }
+        )
+    return {
+        "traceEvents": events,
+        "displayTimeUnit": "ms",
+        "otherData": {
+            "trace_id": doc["trace_id"],
+            "name": doc["name"],
+            "duration_ms": doc["duration_ms"],
+        },
+    }

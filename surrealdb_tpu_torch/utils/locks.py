@@ -1,0 +1,483 @@
+"""Lock-order / guarded-state runtime sanitizer (SURREAL_SANITIZE=1).
+
+The engine is deeply concurrent — 20+ locks across dispatch, the column /
+graph / FT mirrors, the KV layer, bg.py and the WS stack — and the
+reference codebase leans on TLA+ specs and Rust's borrow checker for this
+class of bug (doc/tla/). The Python equivalent has to be built: this
+module is the runtime half of that tooling (scripts/graftlint is the
+static half).
+
+Every engine lock is created through the factories here with a STABLE
+NAME (`locks.Lock("kvs.commit")`, `locks.RLock("idx.column.registry")`).
+With the sanitizer off (the default) the factories return raw
+`threading.Lock`/`RLock` objects — zero overhead, nothing recorded. With
+`SURREAL_SANITIZE=1` (or `locks.enable(True)` before the locks are
+created) they return instrumented wrappers that record, per thread:
+
+- the **lock-acquisition graph**: acquiring B while holding A adds the
+  edge A -> B (keyed by lock NAME, so every `dispatch.bucket` instance
+  aggregates into one node). A cycle in this graph is a potential
+  deadlock — the classic ABBA — even if the interleaving that would
+  actually deadlock never fired in this run;
+- **guarded-state violations**: code paths declare "this mutation requires
+  that lock" via `assert_held(lock, "what")`; running one without the
+  lock held by the current thread records a violation with a stack
+  sample instead of silently racing.
+
+`report()` returns the whole picture (edges, Tarjan-SCC cycles,
+violations) — it is dumped into the debug bundle as the `locks` section
+and, when SURREAL_SANITIZE_OUT is set, written as JSON at pytest
+sessionfinish so `python -m scripts.graftlint --lock-order <file>` can
+cross-check the OBSERVED order against the DECLARED hierarchy below.
+
+The declared hierarchy (`HIERARCHY`) is the engine's documented lock
+order: lower levels are acquired first (outermost). An observed edge from
+a higher level to a lower one is an inversion; two locks on the same
+level must never nest (unless listed in ORDER_EXCEPTIONS).
+"""
+
+from __future__ import annotations
+
+import threading
+import traceback
+from typing import Dict, List, Optional, Tuple
+
+from surrealdb_tpu_torch import cnf
+
+# ------------------------------------------------------------------ declared order
+# The engine's lock hierarchy, outermost (acquired first) -> innermost.
+# Level numbers leave gaps so new locks slot in without renumbering.
+# Maintained by hand; validated against observed runs by
+# `python -m scripts.graftlint --lock-order <SURREAL_SANITIZE_OUT dump>`.
+HIERARCHY: Dict[str, int] = {
+    # coordination / ownership layers (held across engine calls)
+    "idx.knn.build": 10,       # IVF build serialization (held across training)
+    "idx.ft.build": 10,        # FT mirror build serialization
+    "idx.column.build": 10,    # column-mirror build serialization
+    "idx.graph.build": 10,     # graph-CSR build serialization
+    "dispatch.bucket": 20,     # per-bucket queue hand-off
+    "dispatch.queue": 22,      # dispatch counters/bucket map
+    "kvs.group_commit": 28,    # group-commit queue (taken standalone, before
+                               # the flusher ever enters kvs.commit)
+    "kvs.commit": 30,          # datastore commit: backend commit + mirror deltas
+    # state registries (held briefly, may take leaf locks)
+    "idx.store": 40,           # index-store registry (RLock, re-entrant reads)
+    "idx.knn.state": 42,       # vector-mirror state (RLock)
+    "idx.ft.state": 44,        # FT mirror state (RLock)
+    "idx.column.registry": 46, # column-mirror registry (RLock)
+    "idx.graph.registry": 48,  # graph-mirror registry (RLock)
+    "idx.graph.mirror": 50,    # one graph mirror's adjacency state
+    "idx.graph.interner": 51,  # Thing <-> dense-int node mapping
+    "idx.builder": 52,         # concurrent index-build status map
+    "ml.cache": 54,            # loaded-model cache
+    "iam.jwks": 56,            # JWKS fetch cache
+    "net.loop": 57,            # event-loop connection registry + per-conn
+                               # write queues (mutate-and-release; only the
+                               # observability leaves may nest inside)
+    "notification.hub": 58,    # live-query channel map
+    "net.qos": 59,             # per-tenant admission queues + token buckets
+                               # (leaf-style: decision under the lock,
+                               # events/counters emit AFTER release)
+    "sdk.ws_client": 60,       # SDK WS pending/notification maps
+    "cluster.membership": 61,  # membership epoch + ring versions (snapshot-
+                               # and-release: held for pure reads/installs,
+                               # never across an RPC or another lock)
+    "net.ws_send": 62,         # per-socket write framing
+    "cluster.breaker": 63,     # per-node circuit-breaker state (never nests
+                               # with cluster.client; both only precede
+                               # the observability leaves)
+    "cluster.client": 64,      # cluster node-health map (leaf-ish: only
+                               # telemetry may nest inside it)
+    "cluster.migration": 65,   # shard-migration stream progress (leaf-style:
+                               # counters mutated and released, no calls out)
+    "cluster.repair": 66,      # anti-entropy sweep state + read-repair
+                               # in-flight set (leaf-style, no calls out)
+    # storage leaves
+    "kvs.version_store": 70,   # MVCC version chains
+    "kvs.file": 72,            # file-backend WAL
+    "kvs.mem": 74,             # in-memory backend (RLock)
+    "cluster.hlc": 76,         # hybrid-logical-clock state (write-path
+                               # stamp mint + remote-stamp observe: a pure
+                               # tuple update under any commit/write lock)
+    # observability leaves (any layer may record into these; must be last)
+    "faults": 78,              # failpoint engine (fires under any engine
+                               # lock — commit, dispatch, rpc)
+    "bg.registry": 80,         # background-task registry
+    "compile_log": 82,         # compile-event log
+    "events": 83,              # structured event timeline (events.py)
+    "tracing.store": 84,       # bounded trace store
+    "stats.store": 85,         # statement-fingerprint store (stats.py):
+                               # leaf-style — record() mutates and
+                               # releases; flip events/counters emit
+                               # AFTER release (events/telemetry are
+                               # LOWER levels and must never nest inside)
+    "profiler.state": 85,      # sampling-profiler aggregates (profiler.py):
+                               # pure fold-and-release; never nests with
+                               # stats.store (the attribution table it
+                               # reads is a lock-free dict)
+    "accounting.store": 85,    # tenant meter store (accounting.py):
+                               # leaf-style — charge() mutates and
+                               # releases; breach events/counters emit
+                               # AFTER release (events/telemetry are
+                               # LOWER levels and must never nest inside)
+    "plan_cache.store": 85,    # plan & pipeline cache (dbs/plan_cache.py):
+                               # leaf-style — lookups/installs mutate the
+                               # entry LRU and release; eviction events
+                               # and counters emit AFTER release (events/
+                               # telemetry are LOWER levels and must never
+                               # nest inside); never nests with the other
+                               # level-85 observability leaves
+    "advisor.store": 85,       # advisor proposal store (advisor.py):
+                               # leaf-style — propose() mutates and
+                               # releases; proposal/expired events and
+                               # counters emit AFTER release, and sweeps
+                               # snapshot the stats/accounting planes
+                               # BEFORE touching this lock (same-level
+                               # leaves never nest)
+    "telemetry.registry": 86,  # metrics registry (the hottest leaf)
+}
+
+# same-name nesting that is legitimate (distinct INSTANCES of one named
+# family taken together — none today; bucket hand-off never nests buckets)
+SELF_NESTING_OK: frozenset = frozenset()
+
+# observed edges exempt from the level rule (documented, deliberate)
+ORDER_EXCEPTIONS: frozenset = frozenset()
+
+_enabled = bool(cnf.SANITIZE)
+
+_state_lock = threading.Lock()  # raw: guards the graph below, never traced
+_edges: Dict[Tuple[str, str], int] = {}
+_edge_stacks: Dict[Tuple[str, str], List[str]] = {}
+_violations: List[dict] = []
+_known: set = set()
+_tls = threading.local()  # .held: per-thread [[name, lock_id, count], ...]
+
+_VIOLATION_CAP = 256
+
+
+def enable(on: bool = True) -> None:
+    """Flip the sanitizer (tests). Only locks CREATED while enabled are
+    instrumented — module-global locks need SURREAL_SANITIZE=1 in the
+    process environment before import."""
+    global _enabled
+    _enabled = bool(on)
+
+
+def enabled() -> bool:
+    return _enabled
+
+
+# ------------------------------------------------------------------ recording
+def _held_stack() -> list:
+    held = getattr(_tls, "held", None)
+    if held is None:
+        held = _tls.held = []
+    return held
+
+
+def _note_acquire(lk: "_SanitizedBase") -> None:
+    held = _held_stack()
+    for ent in reversed(held):
+        if ent[1] == id(lk):
+            ent[2] += 1  # re-entrant re-acquire: not an ordering event
+            return
+    if held:
+        top = held[-1]
+        _record_edge(top[0], lk.name)
+    held.append([lk.name, id(lk), 1])
+
+
+def _note_release(lk: "_SanitizedBase") -> None:
+    held = getattr(_tls, "held", None)
+    if not held:
+        return  # released by a thread that never traced the acquire
+    for i in range(len(held) - 1, -1, -1):
+        if held[i][1] == id(lk):
+            held[i][2] -= 1
+            if held[i][2] <= 0:
+                del held[i]
+            return
+
+
+def _record_edge(a: str, b: str) -> None:
+    key = (a, b)
+    with _state_lock:
+        n = _edges.get(key, 0)
+        _edges[key] = n + 1
+        if n == 0:
+            # first observation: keep one stack sample so a surprising
+            # edge in the report is immediately attributable
+            _edge_stacks[key] = [
+                ln.strip() for ln in traceback.format_stack(limit=10)[:-3]
+            ][-6:]
+
+
+class _SanitizedBase:
+    """Instrumented drop-in for a threading lock: records acquisition
+    order and held-state, delegates everything else."""
+
+    __slots__ = ("name", "_inner")
+
+    def __init__(self, name: str, inner):
+        self.name = name
+        self._inner = inner
+        with _state_lock:
+            _known.add(name)
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        ok = self._inner.acquire(blocking, timeout)
+        if ok:
+            _note_acquire(self)
+        return ok
+
+    def release(self) -> None:
+        _note_release(self)
+        self._inner.release()
+
+    def held_by_current(self) -> bool:
+        held = getattr(_tls, "held", None)
+        if not held:
+            return False
+        return any(ent[1] == id(self) for ent in held)
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self.release()
+        return False
+
+    def __repr__(self) -> str:
+        return f"<{type(self).__name__} {self.name!r} wrapping {self._inner!r}>"
+
+
+class _SanitizedLock(_SanitizedBase):
+    __slots__ = ()
+
+    def locked(self) -> bool:
+        return self._inner.locked()
+
+
+class _SanitizedRLock(_SanitizedBase):
+    # NB: no locked() — threading.RLock itself has none before 3.14, and a
+    # wrapper method that raises would make hasattr() lie to duck-typers
+    __slots__ = ()
+
+
+def Lock(name: str):
+    """Named engine lock. Raw `threading.Lock` unless the sanitizer is on
+    at creation time (so production pays literally nothing)."""
+    if not _enabled:
+        return threading.Lock()
+    return _SanitizedLock(name, threading.Lock())
+
+
+def RLock(name: str):
+    """Named re-entrant engine lock (see Lock)."""
+    if not _enabled:
+        return threading.RLock()
+    return _SanitizedRLock(name, threading.RLock())
+
+
+def assert_held(lock, state: str) -> None:
+    """Declare "mutating `state` requires `lock`". A no-op unless the
+    sanitizer is on AND the lock is instrumented; then a mutation without
+    the lock held by the current thread records a violation (with a stack
+    sample) instead of silently racing."""
+    if not _enabled or not isinstance(lock, _SanitizedBase):
+        return
+    if lock.held_by_current():
+        return
+    stack = [ln.strip() for ln in traceback.format_stack(limit=8)[:-2]][-5:]
+    with _state_lock:
+        if len(_violations) < _VIOLATION_CAP:
+            _violations.append(
+                {
+                    "lock": lock.name,
+                    "state": state,
+                    "thread": threading.current_thread().name,
+                    "stack": stack,
+                }
+            )
+
+
+# ------------------------------------------------------------------ analysis
+def _cycles_of(edges) -> List[List[str]]:
+    """Tarjan SCCs over the name graph; every SCC with more than one node
+    (or a self-loop) is a potential-deadlock cycle."""
+    adj: Dict[str, set] = {}
+    for (a, b) in edges:
+        adj.setdefault(a, set()).add(b)
+        adj.setdefault(b, set())
+    index: Dict[str, int] = {}
+    low: Dict[str, int] = {}
+    on_stack: set = set()
+    stack: List[str] = []
+    out: List[List[str]] = []
+    counter = [0]
+
+    def strongconnect(v: str) -> None:
+        # iterative Tarjan (the graph is tiny, but no recursion limits)
+        work = [(v, iter(sorted(adj[v])))]
+        index[v] = low[v] = counter[0]
+        counter[0] += 1
+        stack.append(v)
+        on_stack.add(v)
+        while work:
+            node, it = work[-1]
+            advanced = False
+            for w in it:
+                if w not in index:
+                    index[w] = low[w] = counter[0]
+                    counter[0] += 1
+                    stack.append(w)
+                    on_stack.add(w)
+                    work.append((w, iter(sorted(adj[w]))))
+                    advanced = True
+                    break
+                if w in on_stack:
+                    low[node] = min(low[node], index[w])
+            if advanced:
+                continue
+            work.pop()
+            if work:
+                parent = work[-1][0]
+                low[parent] = min(low[parent], low[node])
+            if low[node] == index[node]:
+                scc = []
+                while True:
+                    w = stack.pop()
+                    on_stack.discard(w)
+                    scc.append(w)
+                    if w == node:
+                        break
+                if len(scc) > 1 or node in adj[node]:
+                    out.append(sorted(scc))
+
+    for v in sorted(adj):
+        if v not in index:
+            strongconnect(v)
+    return out
+
+
+def check_hierarchy(
+    edges, hierarchy: Optional[Dict[str, int]] = None
+) -> Tuple[List[str], List[str]]:
+    """Validate observed edges against the declared order. Returns
+    (errors, warnings): inversions/unordered-nesting are errors; edges
+    touching undeclared lock names are warnings (test-local locks)."""
+    h = HIERARCHY if hierarchy is None else hierarchy
+    errors: List[str] = []
+    warnings: List[str] = []
+    for (a, b) in sorted(edges):
+        if (a, b) in ORDER_EXCEPTIONS:
+            continue
+        if a == b:
+            if a not in SELF_NESTING_OK:
+                errors.append(f"same-name nesting {a} -> {b} (not in SELF_NESTING_OK)")
+            continue
+        la, lb = h.get(a), h.get(b)
+        if la is None or lb is None:
+            missing = [n for n, l in ((a, la), (b, lb)) if l is None]
+            warnings.append(
+                f"edge {a} -> {b} touches undeclared lock(s): {', '.join(missing)}"
+            )
+            continue
+        if la > lb:
+            errors.append(
+                f"order inversion: {a} (level {la}) held while acquiring "
+                f"{b} (level {lb})"
+            )
+        elif la == lb:
+            errors.append(
+                f"same-level nesting: {a} and {b} are both level {la} but "
+                f"were observed nested"
+            )
+    return errors, warnings
+
+
+# ------------------------------------------------------------------ views
+def report() -> dict:
+    """The sanitizer's whole picture — the bundle `locks` section and the
+    SURREAL_SANITIZE_OUT dump."""
+    with _state_lock:
+        edges = dict(_edges)
+        stacks = {k: list(v) for k, v in _edge_stacks.items()}
+        violations = [dict(v) for v in _violations]
+        known = sorted(_known)
+    cycles = _cycles_of(edges)
+    errors, warnings = check_hierarchy(edges)
+    return {
+        "enabled": _enabled,
+        "locks": known,
+        "edges": [
+            {
+                "from": a,
+                "to": b,
+                "count": n,
+                "stack": stacks.get((a, b)),
+            }
+            for (a, b), n in sorted(edges.items())
+        ],
+        "cycles": cycles,
+        "violations": violations,
+        "hierarchy_errors": errors,
+        "hierarchy_warnings": warnings,
+    }
+
+
+def dump(path: str) -> Optional[str]:
+    """Write report() as JSON (the graftlint lock-order cross-check input);
+    returns the path, or None on failure — diagnostics never raise."""
+    import json
+
+    try:
+        with open(path, "w") as f:
+            json.dump(report(), f, indent=1, default=str)
+            f.write("\n")
+        return path
+    except Exception:  # noqa: BLE001
+        return None
+
+
+def reset() -> None:
+    """Drop all recorded state (tests)."""
+    with _state_lock:
+        _edges.clear()
+        _edge_stacks.clear()
+        _violations.clear()
+        _known.clear()
+
+
+class isolated:
+    """Context manager: run with a FRESH recording scope, restoring the
+    previous graph afterwards — the ABBA tests construct deliberate cycles
+    that must not leak into the process-wide report/dump."""
+
+    def __enter__(self):
+        with _state_lock:
+            self._saved = (
+                dict(_edges),
+                dict(_edge_stacks),
+                list(_violations),
+                set(_known),
+            )
+            _edges.clear()
+            _edge_stacks.clear()
+            _violations.clear()
+            _known.clear()
+        return self
+
+    def __exit__(self, *exc):
+        with _state_lock:
+            _edges.clear()
+            _edges.update(self._saved[0])
+            _edge_stacks.clear()
+            _edge_stacks.update(self._saved[1])
+            _violations.clear()
+            _violations.extend(self._saved[2])
+            _known.clear()
+            _known.update(self._saved[3])
+        return False

@@ -1,0 +1,136 @@
+"""The PyTorch port stands alone: no JAX, nothing of surrealdb_tpu, CUDA
+unless told otherwise, and no silent stand-in for an unported strategy."""
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "surrealdb_tpu_torch")
+
+_SLICE = r"""
+import sys
+import numpy as np
+sys.path.insert(0, {repo!r})
+from surrealdb_tpu_torch import cnf
+from surrealdb_tpu_torch.kvs.ds import Datastore
+cnf.TPU_KNN_ONDEVICE_THRESHOLD = 16
+ds = Datastore("memory", device="cpu")
+rng = np.random.default_rng(0)
+rows = [{{"id": i, "emb": rng.standard_normal(8).astype(np.float32).tolist()}} for i in range(64)]
+ds.execute("DEFINE TABLE item; DEFINE INDEX im ON item FIELDS emb MTREE DIMENSION 8 DIST EUCLIDEAN")
+ds.execute("INSERT INTO item $rows RETURN NONE", vars={{"rows": rows}})
+out = ds.execute("SELECT id FROM item WHERE emb <|3|> $q", vars={{"q": rows[1]["emb"]}})
+assert out[-1]["status"] == "OK" and len(out[-1]["result"]) == 3, out
+ds.close()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "ml_dtypes"))
+             or m == "surrealdb_tpu" or m.startswith("surrealdb_tpu."))
+print("LEAKED", bad)
+"""
+
+
+def test_slice_loads_no_jax_and_no_reference_module():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", _SLICE.format(repo=REPO)],
+        capture_output=True, text=True, timeout=120, env=env, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "LEAKED []" in proc.stdout, proc.stdout
+
+
+_FORBIDDEN = [
+    re.compile(r"^\s*(import\s+jax|from\s+jax)\b", re.M),
+    re.compile(r"\bjnp\b"),
+    re.compile(r"\bml_dtypes\b"),
+    # a module path of the reference package (file paths in docstrings,
+    # surrealdb_tpu/..., name the file a module mirrors and are allowed)
+    re.compile(r"\bsurrealdb_tpu\b(?!_torch)(?!/)"),
+]
+
+
+def _port_sources():
+    for root, _dirs, files in os.walk(PKG):
+        if "_build" in root or "__pycache__" in root:
+            continue
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+@pytest.mark.parametrize("pattern", _FORBIDDEN, ids=lambda p: p.pattern)
+def test_static_scan_finds_no_reference_import(pattern):
+    hits = []
+    for path in _port_sources():
+        with open(path) as f:
+            for n, line in enumerate(f, 1):
+                if pattern.search(line):
+                    hits.append(f"{os.path.relpath(path, REPO)}:{n}: {line.strip()}")
+    assert not hits, "\n".join(hits)
+
+
+def test_datastore_defaults_to_cuda_and_raises_without_a_card():
+    from surrealdb_tpu_torch.kvs.ds import Datastore
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default constructor succeeds")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Datastore("memory")
+
+
+def test_cpu_datastore_keeps_its_device():
+    from surrealdb_tpu_torch.kvs.ds import Datastore
+
+    ds = Datastore("memory", device="cpu")
+    try:
+        assert ds.device == torch.device("cpu")
+        assert ds.mesh() is None
+    finally:
+        ds.close()
+
+
+def test_unported_ivf_branch_raises(monkeypatch):
+    """HNSW above TPU_ANN_MIN_ROWS takes the reference's IVF strategy, which
+    is not ported: the query fails, it is not served exactly instead."""
+    from surrealdb_tpu_torch import cnf
+    from surrealdb_tpu_torch.kvs.ds import Datastore
+
+    monkeypatch.setattr(cnf, "TPU_KNN_ONDEVICE_THRESHOLD", 16)
+    monkeypatch.setattr(cnf, "TPU_ANN_MIN_ROWS", 32)
+    ds = Datastore("memory", device="cpu")
+    try:
+        rng = np.random.default_rng(0)
+        rows = [{"id": i, "emb": rng.standard_normal(8).astype(np.float32).tolist()}
+                for i in range(64)]
+        ds.execute("DEFINE TABLE item; DEFINE INDEX ih ON item FIELDS emb "
+                   "HNSW DIMENSION 8 DIST EUCLIDEAN")
+        ds.execute("INSERT INTO item $rows RETURN NONE", vars={"rows": rows})
+        out = ds.execute("SELECT id FROM item WHERE emb <|3|> $q", vars={"q": rows[0]["emb"]})
+        assert out[-1]["status"] == "ERR"
+        assert "NotImplementedError" in out[-1]["result"] and "ROADMAP" in out[-1]["result"]
+    finally:
+        ds.close()
+
+
+def test_unported_file_backend_raises():
+    from surrealdb_tpu_torch.kvs.ds import Datastore
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Datastore("file:///nowhere", device="cpu")
+
+
+def test_dispatch_retries_only_out_of_memory():
+    from surrealdb_tpu_torch.dbs.dispatch import _transient
+    from surrealdb_tpu_torch.faults import TransientFaultError
+
+    assert _transient(torch.cuda.OutOfMemoryError("CUDA out of memory"))
+    assert _transient(TransientFaultError("injected"))
+    assert not _transient(RuntimeError("knn_select: CUDA launch failed with error 9"))
+    assert not _transient(RuntimeError("RESOURCE_EXHAUSTED"))
