@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
 """Smoke run of surrealdb_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py                  # full size: 2^20 x 768 MTREE corpus
-    python3 chip_smoke.py --rows 262144    # a cut corpus (record the cut)
+    python3 chip_smoke.py                  # full size: 2^20 x 768 corpora
+    python3 chip_smoke.py --rows 262144    # a cut MTREE corpus (record the cut)
     python3 chip_smoke.py --cpu-rehearsal  # tiny, on the CPU, plain versions;
                                            # exits 1 and prints no result
 
-Phases, one JSON line each:
-1. environment: the card, its power limit, the kernel build (nvcc, sm_90a);
-2. every CUDA kernel of the exact-kNN path against its plain PyTorch version
-   on the card, with median times beside the bound, the plain version and
-   the torch.cdist(+topk) yardstick;
-3. the main path through Datastore.execute: an MTREE index over a seeded
-   clustered corpus, ingested with INSERT, then sequential and concurrent
-   `<|10|>` queries; every query must take the `exact-device` strategy,
-   the kernels' launch counts must show the path ran through them, and
-   recall@10 against an f32 exact ground truth must be >= 0.99.
+Phases, one JSON line each (or more):
+1. environment: the card, its power limit, the kernel build (nvcc, sm_90a,
+   one process a source);
+2. every CUDA kernel against its plain PyTorch version on the card: K1/K2
+   (exact kNN), K5 ivf_assign and the K4 k-means update at the training's
+   shapes; then median times beside the bound, the plain version and a
+   one-call PyTorch yardstick where one exists;
+3. the MTREE main path through Datastore.execute: an exact index over a
+   seeded clustered corpus, ingested with INSERT, then sequential and
+   concurrent `<|10|>` queries; every query must take `exact-device`, the
+   launch counts must equal the dispatched tiles, recall@10 against an f32
+   exact ground truth must be >= 0.99;
+4. the HNSW main path: `DEFINE INDEX … HNSW … EFC 64` over the same corpus,
+   `<|10,64|>` queries; the first after ingest serves exactly while the
+   quantizer trains (K4, K5), every timed query takes `ivf` (K1+K2 probe,
+   K3 rerank), launch counts equal the dispatched tiles, device recall@10
+   lies within 0.01 of the host twin's (IvfState.search_host); then K3
+   against its plain version and its times, on the trained state.
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`. Any failure exits non-zero. This
@@ -25,6 +33,7 @@ script imports nothing of JAX or of the reference package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -128,32 +137,6 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# the engine's own duration histograms (telemetry.observe) along the kNN
-# path, outermost first
-LAYER_SPANS = (
-    'statement_duration_seconds{kind="SelectStatement"}',
-    "plan_duration_seconds",
-    'knn_search_duration_seconds{strategy="exact-device"}',
-    "dispatch_queue_wait_duration_seconds",
-    "dispatch_launch_duration_seconds",
-    "dispatch_pipeline_wait_duration_seconds",
-    "dispatch_collect_duration_seconds",
-)
-
-
-def layer_means_ms(before: dict, after: dict) -> dict:
-    """Mean ms a call of each layer span over the calls between two
-    telemetry snapshots."""
-    out = {}
-    for name in LAYER_SPANS:
-        a, b = after.get(name), before.get(name, {"count": 0, "sum": 0.0})
-        if a and a["count"] > b["count"]:
-            out[name.split("{")[0].replace("_duration_seconds", "")] = (
-                (a["sum"] - b["sum"]) / (a["count"] - b["count"]) * 1e3
-            )
-    return out
-
-
 def device_busy_share(torch, fn):
     """Run fn() under torch.profiler (CUDA activity only: host-op tracing
     slowed the host path about a hundredfold) and return the device time by
@@ -206,12 +189,14 @@ def phase_environment(torch):
 
 
 # ------------------------------------------------------------------ phase 2
-def ids_match_up_to_ties(a_d, a_i, b_d, b_i) -> bool:
+def ids_match_up_to_ties(a_d, a_i, b_d, b_i, finite_kth: bool = False) -> bool:
     """Per query, every id in one result and not the other lies within the
     distance tolerance of the k-th distance (a tie that the two summation
-    orders may break differently)."""
+    orders may break differently). With finite_kth the k-th distance is the
+    largest finite one of b's row (its misses then must match exactly)."""
     for r in range(a_i.shape[0]):
-        kth = float(b_d[r, -1])
+        fin = b_d[r][np.isfinite(b_d[r])]
+        kth = float(fin.max()) if finite_kth and fin.size else float(b_d[r, -1])
         tol = TOL["atol"] + TOL["rtol"] * abs(kth)
         sa, sb = set(a_i[r].tolist()), set(b_i[r].tolist())
         extra = [j for j, v in enumerate(a_i[r].tolist()) if v not in sb]
@@ -323,50 +308,439 @@ def phase_timing(torch, dim: int, n: int, k: int):
     return out
 
 
-# ------------------------------------------------------------------ phase 3
-def phase_main_path(torch, device: str, n_rows: int, dim: int, batch: int,
-                    n_seq: int, n_threads: int, rounds: int, seed: int = 42):
-    from surrealdb_tpu_torch import bg, telemetry
-    from surrealdb_tpu_torch.kvs.ds import Datastore
+# ------------------------------------------------------------------ IVF kernels
+def ids_equal_up_to_ties(got, want, d):
+    """got / want [n, k] ids of the k nearest rows of d [n, C]: equal, or
+    where they differ the two picks' distances tie within TOL. Returns
+    (ok, max |d[got] - d[want]|)."""
+    g = got.long().reshape(d.shape[0], -1)
+    w = want.long().reshape(d.shape[0], -1)
+    dg, dw = d.gather(1, g), d.gather(1, w)
+    err = float((dg - dw).abs().max()) if dg.numel() else 0.0
+    tol = TOL["atol"] + TOL["rtol"] * dw.abs()
+    return bool(((g == w) | ((dg - dw).abs() <= tol)).all()), err
+
+
+def phase_ivf_kernels(torch, dim: int, cap: int, n_rows: int = 65_536, nlists: int = 1024):
+    """K5 ivf_assign and the K4 update against their plain versions on the
+    card at the training's shapes: 65,536 bf16 rows (a k-means sample, or
+    one tile of the full assignment gathered from a [cap, D] corpus) and
+    1,024 f32 centroids."""
+    from surrealdb_tpu_torch.idx import ivf as IVF
     from surrealdb_tpu_torch.ops import distances as D
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator().manual_seed(2)
+    matrix = torch.from_numpy(gen_corpus(cap, dim, seed=3)).to(dev).to(torch.bfloat16)
+    idx = torch.randint(-5, cap + 5, (n_rows,), generator=g, dtype=torch.int32).to(dev)
+    x = matrix[:n_rows].contiguous()
+    cents = matrix[torch.randperm(cap, generator=g)[:nlists].to(dev)].float().contiguous()
+    k5_err = 0.0
+    for gather in (False, True):
+        rows = matrix[idx.long().clamp(0, cap - 1)] if gather else x
+        d = D.pairwise_distance_plain(rows, cents, "euclidean")
+        for k in (1, 2):
+            got = IVF._assign_gather(matrix, idx, cents, k) if gather else IVF._assign_chunk(x, cents, k)
+            torch.cuda.synchronize()
+            want = IVF.assign_plain(matrix, cents, k, idx=idx) if gather else IVF.assign_plain(x, cents, k)
+            ok, err = ids_equal_up_to_ties(got, want, d)
+            emit("k5_check", rows=n_rows, cap=cap if gather else n_rows, c=nlists, d=dim,
+                 k_assign=k, index_vector=gather, ids_equal=bool(torch.equal(got, want)),
+                 max_abs_err=err, ok=ok)
+            require(ok, f"ivf_assign k={k} gather={gather} disagrees with its plain version")
+            k5_err = max(k5_err, err)
+        del d, rows
+    a = IVF._assign_chunk(x, cents, 1)
+    got_c, got_n = IVF.kmeans_update(x, a, cents)
+    torch.cuda.synchronize()
+    want_c, want_n = IVF.kmeans_update_plain(x, a, cents)
+    k4_err = float((got_c - want_c).abs().max())
+    ok = bool(torch.allclose(got_c, want_c, **TOL)) and bool(torch.equal(got_n, want_n))
+    again = IVF.kmeans_update(x, a, cents)[0]
+    emit("k4_check", rows=n_rows, c=nlists, d=dim, max_abs_err=k4_err,
+         counts_equal=bool(torch.equal(got_n, want_n)), empty_clusters=int((want_n == 0).sum()),
+         deterministic=bool(torch.equal(again, got_c)), ok=ok)
+    require(ok, "ivf_kmeans_update disagrees with its plain version")
+    require(bool(torch.equal(again, got_c)), "ivf_kmeans_update is not deterministic")
+    return dict(matrix=matrix, idx=idx, x=x, cents=cents, assign=a), k5_err, k4_err
+
+
+def phase_ivf_timing(torch, inputs, dim: int):
+    """Median times of K5 (both launch forms) and of K4 (a whole k-means
+    step, and its update alone) at the training's shapes."""
+    from surrealdb_tpu_torch.idx import ivf as IVF
+
+    matrix, idx, x, cents, a = (inputs[k] for k in ("matrix", "idx", "x", "cents", "assign"))
+    n, nl = x.shape[0], cents.shape[0]
+    flops = 2.0 * n * nl * dim
+    out = {}
+    for name, k, gather in (("ivf_assign", 2, True), ("ivf_assign_rows_k1", 1, False)):
+        nbytes = n * dim * 2 + nl * dim * 4 + n * k * 4 + (n * 4 if gather else 0)
+        bound, by = bound_ms(nbytes, flops, "bfloat16")
+        if gather:
+            run = lambda: IVF._assign_gather(matrix, idx, cents, k)  # noqa: E731
+            plain = lambda: IVF.assign_plain(matrix, cents, k, idx=idx)  # noqa: E731
+            rows = lambda: matrix[idx.long().clamp(0, matrix.shape[0] - 1)].float()  # noqa: E731
+        else:
+            run = lambda: IVF._assign_chunk(x, cents, k)  # noqa: E731
+            plain = lambda: IVF.assign_plain(x, cents, k)  # noqa: E731
+            rows = lambda: x.float()  # noqa: E731
+        out[name] = dict(
+            ms=median_ms(run), plain_ms=median_ms(plain, iters=5),
+            library_ms=median_ms(lambda: torch.topk(torch.cdist(rows(), cents), k, largest=False),
+                                 iters=5),
+            bound_ms=bound, bound_by=by, k_assign=k, index_vector=gather,
+        )
+    step_bytes = n * dim * 2 + 2 * nl * dim * 4 + nl * 4
+    step_bound, step_by = bound_ms(step_bytes, flops + n * dim, "bfloat16")
+    upd_bound, upd_by = bound_ms(step_bytes + n * 4, n * dim, "bfloat16")
+    out["ivf_kmeans_update"] = dict(
+        ms=median_ms(lambda: IVF._kmeans_step(x, cents, nl)),
+        plain_ms=median_ms(lambda: IVF.kmeans_update_plain(
+            x, IVF.assign_plain(x, cents, 1), cents), iters=5),
+        library_ms=None, bound_ms=step_bound, bound_by=step_by,
+        update_ms=median_ms(lambda: IVF.kmeans_update(x, a, cents)),
+        update_plain_ms=median_ms(lambda: IVF.kmeans_update_plain(x, a, cents), iters=5),
+        update_bound_ms=upd_bound, update_bound_by=upd_by,
+    )
+    emit("timing_ivf", rows=n, c=nl, d=dim, corpus="bfloat16", **out)
+    return out
+
+
+def check_ivf_search(torch, ivf, matrix, queries, nprobe: int):
+    """K3 (the probe+rerank composition) against its plain version on the
+    trained state: Q in {1, 8, 64}, euclidean and cosine, a slot_ok that
+    masks a third of the slots, k = 10 and k above the candidate count.
+    Ids must agree up to ties at the k-th distance, misses (-1 / +inf)
+    exactly and distances within TOL; a query whose probed lists differ
+    at a tie of the nprobe-th centroid distance is counted and left out.
+    The queries are fresh points of the corpus's clusters, not the main
+    path's near-duplicates: close to a zero distance the sqrt amplifies the
+    cancellation in |q|^2 + |x|^2 - 2 q.x (|x|^2 ~ 860 here), which any two
+    f32 summation orders expose beyond TOL."""
+    from surrealdb_tpu_torch.idx import ivf as IVF
+    from surrealdb_tpu_torch.ops import distances as D
+
+    dev = matrix.device
+    cents, list_rows, list_mask, probe_ok = ivf._device(dev)
+    cap = matrix.shape[0]
+    slot_ok = (torch.arange(cap, device=dev) % 3) != 0
+    lmax = int(list_rows.shape[1])
+    err_max, checks, probe_ties = 0.0, 0, 0
+    for metric in ("euclidean", "cosine"):
+        for nq in (1, 8, 64):
+            q = torch.from_numpy(np.ascontiguousarray(queries[:nq], dtype=np.float32)).to(dev)
+            pd = D.pairwise_distance_plain(q, cents, metric)
+            pv, pp = D._topk_min_stable(pd, nprobe)
+            _, kp = D.knn_search(q, cents, probe_ok, metric, nprobe)
+            same = (kp.sort(1).values == pp.sort(1).values).all(1)
+            for r in (~same).nonzero()[:, 0].tolist():
+                diff = set(kp[r].tolist()) ^ set(pp[r].tolist())
+                kth = float(pv[r, -1])
+                require(all(abs(float(pd[r, c]) - kth) <= TOL["atol"] + TOL["rtol"] * abs(kth)
+                            for c in diff), f"K3 probe of query {r} differs beyond a tie")
+            probe_ties += int((~same).sum())
+            for k in (10, nprobe * lmax + 7):
+                got_d, got_i = IVF._ivf_search(q, cents, list_rows, list_mask, matrix, slot_ok,
+                                               metric=metric, probe_metric=metric, k=k,
+                                               nprobe=nprobe, probe_ok=probe_ok)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                want_d, want_i = IVF.ivf_search_plain(q, cents, list_rows, list_mask, matrix,
+                                                      slot_ok, metric, metric, k, nprobe)
+                s = same
+                gd, gi, wd, wi = got_d[s], got_i[s], want_d[s], want_i[s]
+                miss = torch.isinf(wd)
+                miss_ok = bool(torch.equal(torch.isinf(gd), miss)) and bool(
+                    torch.equal(gi[miss], wi[miss]))
+                fin = ~miss
+                err = float((gd[fin] - wd[fin]).abs().max()) if bool(fin.any()) else 0.0
+                d_ok = bool(torch.allclose(gd[fin], wd[fin], **TOL))
+                id_ok = ids_match_up_to_ties(
+                    gd.cpu().numpy(), gi.cpu().numpy(), wd.cpu().numpy(), wi.cpu().numpy(),
+                    finite_kth=True,
+                )
+                emit("k3_check", metric=metric, q=nq, k=k, k_served=int(got_d.shape[1]),
+                     nprobe=nprobe, L=lmax, probe_tie_queries=int((~s).sum()),
+                     misses=int(miss.sum()), max_abs_err=err,
+                     ids_equal=bool(torch.equal(gi, wi)), ok=miss_ok and d_ok and id_ok)
+                require(miss_ok and d_ok and id_ok,
+                        f"K3 {metric} Q={nq} k={k} disagrees with its plain version")
+                err_max = max(err_max, err)
+                checks += 1
+    return err_max, checks, probe_ties
+
+
+def time_ivf_search(torch, ivf, matrix, queries, nprobe: int, k: int, dim: int):
+    """Median time of K3 at the main path's launch shapes (Q in {1, 8, 64},
+    all slots ok, euclidean), with its bound from this run's probed lists."""
+    from surrealdb_tpu_torch.idx import ivf as IVF
+    from surrealdb_tpu_torch.ops import distances as D
+
+    dev = matrix.device
+    cents, list_rows, list_mask, probe_ok = ivf._device(dev)
+    slot_ok = ivf._all_slots(int(matrix.shape[0]), dev)
+    nl, lmax = int(cents.shape[0]), int(list_rows.shape[1])
+    lens = np.array([len(l) for l in ivf.lists])
+    out = {}
+    for nq in (1, 8, 64):
+        q = torch.from_numpy(np.ascontiguousarray(queries[:nq], dtype=np.float32)).to(dev)
+        _, probes = D.knn_search(q, cents, probe_ok, "euclidean", nprobe)
+        cand = int(lens[probes.cpu().numpy()].sum())  # real candidate rows of this run
+        nbytes = (nq * dim * 4 + nl * dim * 4 + cand * dim * 2
+                  + nq * nprobe * lmax * 5 + nq * k * 8)
+        flops = 2.0 * nq * nl * dim + 2.0 * cand * dim
+        bound, by = bound_ms(nbytes, flops, "bfloat16")
+        args = (q, cents, list_rows, list_mask, matrix, slot_ok)
+        kw = dict(metric="euclidean", probe_metric="euclidean", k=k, nprobe=nprobe)
+        out[nq] = dict(
+            ms=median_ms(lambda: IVF._ivf_search(*args, probe_ok=probe_ok, **kw)),
+            plain_ms=median_ms(lambda: IVF.ivf_search_plain(*args, **kw), iters=5),
+            library_ms=None, bound_ms=bound, bound_by=by, candidate_rows=cand,
+        )
+        emit("timing_k3", q=nq, nlists=nl, nprobe=nprobe, L=lmax, k=k, **out[nq])
+    return out
+
+
+# ------------------------------------------------------------------ main paths
+def layer_spans(strategy: str):
+    """The engine's own duration histograms (telemetry.observe) along the
+    kNN path, outermost first."""
+    return (
+        'statement_duration_seconds{kind="SelectStatement"}',
+        "plan_duration_seconds",
+        f'knn_search_duration_seconds{{strategy="{strategy}"}}',
+        "dispatch_queue_wait_duration_seconds",
+        "dispatch_launch_duration_seconds",
+        "dispatch_pipeline_wait_duration_seconds",
+        "dispatch_collect_duration_seconds",
+    )
+
+
+def layer_means_ms(before: dict, after: dict, strategy: str) -> dict:
+    """Mean ms a call of each layer span over the calls between two
+    telemetry snapshots."""
+    out = {}
+    for name in layer_spans(strategy):
+        a, b = after.get(name), before.get(name, {"count": 0, "sum": 0.0})
+        if a and a["count"] > b["count"]:
+            out[name.split("{")[0].replace("_duration_seconds", "")] = (
+                (a["sum"] - b["sum"]) / (a["count"] - b["count"]) * 1e3
+            )
+    return out
+
+
+def window_start(torch, device):
+    """Start the timed window's device-memory accounting: the peak from
+    here on, and the bytes already allocated (None on the CPU)."""
+    if device != "cuda":
+        return None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def large_device_tensors(torch, min_bytes: int = 1 << 28):
+    """(dtype, shape) of every live CUDA tensor of at least min_bytes: names
+    what holds device memory when a window starts above its corpus."""
+    out = []
+    for obj in gc.get_objects():
+        try:
+            if isinstance(obj, torch.Tensor) and obj.is_cuda and (
+                obj.element_size() * obj.nelement() >= min_bytes
+            ):
+                out.append(f"{str(obj.dtype).split('.')[-1]}{list(obj.shape)}")
+        except Exception:  # noqa: BLE001 — objects mid-teardown
+            continue
+    return out
+
+
+def make_queries(corpus, n, seed, noise=0.05):
+    """Queries near corpus rows: a row plus gaussian noise of scale `noise`
+    (0.05: the main paths' near-duplicates; CLUSTER_SIGMA: a fresh point of
+    the row's cluster)."""
+    rng = np.random.default_rng(seed + 1)
+    qidx = rng.integers(0, corpus.shape[0], size=n)
+    return corpus[qidx] + rng.standard_normal((n, corpus.shape[1])).astype(np.float32) * noise
+
+
+def strategies():
+    from surrealdb_tpu_torch import telemetry
+
+    return {
+        lab: v for lab, v in telemetry.snapshot()["counters"].items()
+        if lab.startswith("knn_strategy")
+    }
+
+
+def strategy_delta(before: dict) -> dict:
+    after = strategies()
+    return {lab: v - before.get(lab, 0) for lab, v in after.items() if v - before.get(lab, 0)}
+
+
+def kernel_counters():
+    from surrealdb_tpu_torch.idx import ivf as IVF
+    from surrealdb_tpu_torch.ops import distances as D
+
+    return D.KERNELS + IVF.KERNELS
+
+
+def read_launches() -> dict:
+    return {c.name: c.launches for c in kernel_counters()}
+
+
+def reset_launches() -> None:
+    for c in kernel_counters():
+        c.reset()
+
+
+def sql_runner(ds):
+    def run(sql, vars=None):
+        res = ds.execute(sql, vars=vars or {})
+        for r in res:
+            require(r.get("status") == "OK", f"{sql[:60]!r} failed: {r}")
+        return res[-1]["result"]
+
+    return run
+
+
+def ingest(run, corpus, batch: int, lo: int = 0, hi: int = None) -> float:
+    """INSERT rows lo..hi of the corpus (record ids = row numbers) in
+    batches; returns the seconds spent in INSERT."""
+    hi = corpus.shape[0] if hi is None else hi
+    total = 0.0
+    for i in range(lo, hi, batch):
+        rows = [{"id": j, "emb": corpus[j]} for j in range(i, min(i + batch, hi))]
+        t = time.perf_counter()
+        run("INSERT INTO item $rows RETURN NONE", {"rows": rows})
+        total += time.perf_counter() - t
+    return total
+
+
+class GcPauses:
+    """Python garbage-collector pauses inside a window (gc.callbacks): a
+    full collection over a million stored documents stalls every thread."""
+
+    def __init__(self):
+        self.pauses = []  # (generation, seconds)
+        self._t0 = 0.0
+
+    def _cb(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.pauses.append((info["generation"], time.perf_counter() - self._t0))
+
+    def __enter__(self):
+        gc.callbacks.append(self._cb)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._cb)
+
+    def summary(self) -> dict:
+        by_gen = {}
+        for g, s in self.pauses:
+            n, tot, mx = by_gen.get(str(g), (0, 0.0, 0.0))
+            by_gen[str(g)] = (n + 1, tot + s * 1e3, max(mx, s * 1e3))
+        return {g: {"collections": n, "total_ms": tot, "max_ms": mx}
+                for g, (n, tot, mx) in sorted(by_gen.items())}
+
+
+def drive_queries(torch, ds, run, sql, queries, n_seq, n_threads, rounds, device, strategy):
+    """24-style sequential queries, then n_threads closed-loop clients x
+    rounds. Returns the results and the timing of both parts."""
+    with GcPauses() as gcp:
+        results, out = _drive_queries(ds, run, sql, queries, n_seq, n_threads, rounds,
+                                      strategy)
+    out["gc_pauses"] = gcp.summary()
+    return results, out
+
+
+def _drive_queries(ds, run, sql, queries, n_seq, n_threads, rounds, strategy):
+    from surrealdb_tpu_torch import telemetry
+
+    results = [None] * queries.shape[0]
+    seq_lat = []
+    spans0 = telemetry.snapshot()["histograms"]
+    for i in range(n_seq):
+        t = time.perf_counter()
+        results[i] = run(sql, {"q": queries[i].tolist()})
+        seq_lat.append(time.perf_counter() - t)
+    layers = layer_means_ms(spans0, telemetry.snapshot()["histograms"], strategy)
+    conc_lat = []
+    lat_lock = threading.Lock()
+    errors = []
+
+    def client(ti):
+        try:
+            for r in range(rounds):
+                qi = n_seq + r * n_threads + ti
+                t1 = time.perf_counter()
+                res = run(sql, {"q": queries[qi].tolist()})
+                with lat_lock:
+                    conc_lat.append(time.perf_counter() - t1)
+                results[qi] = res
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(ti,)) for ti in range(n_threads)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    conc_wall = time.perf_counter() - t
+    require(not any(th.is_alive() for th in threads), "concurrent clients hung")
+    if errors:
+        raise errors[0]
+    n_conc = n_threads * rounds
+    return results, dict(
+        seq_queries=n_seq, seq_p50_ms=statistics.median(seq_lat) * 1e3,
+        seq_max_ms=max(seq_lat) * 1e3, seq_slowest=int(np.argmax(seq_lat)),
+        seq_qps=n_seq / sum(seq_lat), seq_layer_mean_ms=layers,
+        concurrent_clients=n_threads, rounds=rounds,
+        conc_p50_ms=statistics.median(conc_lat) * 1e3, conc_qps=n_conc / conc_wall,
+    )
+
+
+def recall_of(results, truth, k):
+    recalls = []
+    for i, res in enumerate(results):
+        require(res is not None and len(res) == k, f"query {i} returned {res!r}")
+        got = {int(r["id"].id) for r in res}
+        recalls.append(len(got & set(truth[i].tolist())) / k)
+    return float(np.mean(recalls))
+
+
+def dispatched_tiles(ds, widths0):
     from surrealdb_tpu_torch.utils.num import dispatch_tile, tile_slices
 
-    k = 10
-    t0 = time.perf_counter()
-    corpus = gen_corpus(n_rows, dim, seed=seed)
-    gen_s = time.perf_counter() - t0
-    rng = np.random.default_rng(seed + 1)
-    n_conc = n_threads * rounds
-    qidx = rng.integers(0, n_rows, size=n_seq + n_conc)
-    queries = corpus[qidx] + rng.standard_normal((qidx.size, dim)).astype(np.float32) * 0.05
+    widths1 = ds.dispatch.width_distribution()
+    widths = {w: c - widths0.get(w, 0) for w, c in widths1.items() if c - widths0.get(w, 0)}
+    tiles = sum(c * len(list(tile_slices(w, dispatch_tile(w)))) for w, c in widths.items())
+    return widths, tiles
 
+
+def phase_main_path(torch, device: str, corpus, queries, truth, batch: int,
+                    n_seq: int, n_threads: int, rounds: int):
+    """MTREE: exact kNN through Datastore.execute, every query `exact-device`."""
+    from surrealdb_tpu_torch import bg
+    from surrealdb_tpu_torch.kvs.ds import Datastore
+
+    k = 10
+    n_rows, dim = corpus.shape
     ds = Datastore("memory", device=device)
     try:
-        def run(sql, vars=None):
-            res = ds.execute(sql, vars=vars or {})
-            for r in res:
-                require(r.get("status") == "OK", f"{sql[:60]!r} failed: {r}")
-            return res[-1]["result"]
-
+        run = sql_runner(ds)
         run("DEFINE TABLE item SCHEMALESS; "
             f"DEFINE INDEX iemb ON item FIELDS emb MTREE DIMENSION {dim} DIST EUCLIDEAN")
-        ingest_s = 0.0
-        for i in range(0, n_rows, batch):
-            rows = [{"id": j, "emb": corpus[j]} for j in range(i, min(i + batch, n_rows))]
-            t = time.perf_counter()
-            run("INSERT INTO item $rows RETURN NONE", {"rows": rows})
-            ingest_s += time.perf_counter() - t
-            if i == 0:
-                # build the mirror from the first batch, so the rest of the
-                # ingest reaches it as deltas (no 1M-row rescan later)
-                run(f"SELECT id FROM item WHERE emb <|{k}|> $q", {"q": corpus[0].tolist()})
         sql = f"SELECT id FROM item WHERE emb <|{k}|> $q"
-
-        def strategies():
-            return {
-                lab: v for lab, v in telemetry.snapshot()["counters"].items()
-                if lab.startswith("knn_strategy")
-            }
+        ingest_s = ingest(run, corpus, batch, 0, batch)
+        # build the mirror from the first batch, so the rest of the ingest
+        # reaches it as deltas (no 1M-row rescan later)
+        run(sql, {"q": corpus[0].tolist()})
+        ingest_s += ingest(run, corpus, batch, batch)
 
         # the first query after ingest uploads the mirror to the device
         t = time.perf_counter()
@@ -375,62 +749,21 @@ def phase_main_path(torch, device: str, n_rows: int, dim: int, batch: int,
         # that query's background warmers launch every other tile shape of
         # this matrix once; let them finish before the counts start
         require(bg.wait_idle(timeout=120, owner=id(ds)), "background tasks did not finish")
-        if device == "cuda":
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
+        mem0 = window_start(torch, device)
         before = strategies()
         widths0 = ds.dispatch.width_distribution()
-        for c in D.KERNELS:
-            c.reset()
-
-        results = [None] * qidx.size
-        seq_lat = []
-        spans0 = telemetry.snapshot()["histograms"]
-        for i in range(n_seq):
-            t = time.perf_counter()
-            results[i] = run(sql, {"q": queries[i].tolist()})
-            seq_lat.append(time.perf_counter() - t)
-        layers = layer_means_ms(spans0, telemetry.snapshot()["histograms"])
-        conc_lat = []
-        lat_lock = threading.Lock()
-        errors = []
-
-        def client(ti):
-            try:
-                for r in range(rounds):
-                    qi = n_seq + r * n_threads + ti
-                    t1 = time.perf_counter()
-                    res = run(sql, {"q": queries[qi].tolist()})
-                    with lat_lock:
-                        conc_lat.append(time.perf_counter() - t1)
-                    results[qi] = res
-            except BaseException as e:  # noqa: BLE001 — re-raised below
-                errors.append(e)
-
-        threads = [threading.Thread(target=client, args=(ti,)) for ti in range(n_threads)]
-        t = time.perf_counter()
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=600)
-        conc_wall = time.perf_counter() - t
-        require(not any(th.is_alive() for th in threads), "concurrent clients hung")
-        if errors:
-            raise errors[0]
+        reset_launches()
+        results, timing = drive_queries(torch, ds, run, sql, queries, n_seq, n_threads,
+                                        rounds, device, "exact-device")
         # the background tile warmers launch too: wait for them to finish
         # before the counts are read
         require(bg.wait_idle(timeout=120, owner=id(ds)), "background tasks did not finish")
         if device == "cuda":
             torch.cuda.synchronize()
-        launches = {c.name: c.launches for c in D.KERNELS}
-        after = strategies()
-        widths1 = ds.dispatch.width_distribution()
-        widths = {w: c - widths0.get(w, 0) for w, c in widths1.items() if c - widths0.get(w, 0)}
-        tiles = sum(
-            c * len(list(tile_slices(w, dispatch_tile(w)))) for w, c in widths.items()
-        )
-        delta = {lab: v - before.get(lab, 0) for lab, v in after.items() if v - before.get(lab, 0)}
-        n_queries = qidx.size
+        launches = read_launches()
+        widths, tiles = dispatched_tiles(ds, widths0)
+        delta = strategy_delta(before)
+        n_queries = queries.shape[0]
         require(
             delta == {'knn_strategy{strategy="exact-device"}': float(n_queries)},
             f"strategies {delta}, expected {n_queries} exact-device",
@@ -438,37 +771,25 @@ def phase_main_path(torch, device: str, n_rows: int, dim: int, batch: int,
         if device == "cuda":
             # every dispatched tile is one knn_search call: one K1 launch and
             # one selection (every tile shape was warmed before the counts)
-            require(
-                launches == {"knn_pairwise": tiles, "knn_select": tiles},
-                f"launches {launches} for {tiles} dispatched tiles",
-            )
-        truth = knn_ground_truth(corpus, queries, k)
-        recalls = []
-        for i, res in enumerate(results):
-            require(res is not None and len(res) == k, f"query {i} returned {res!r}")
-            got = {int(r["id"].id) for r in res}
-            recalls.append(len(got & set(truth[i].tolist())) / k)
-        recall = float(np.mean(recalls))
+            want = {c.name: 0 for c in kernel_counters()}
+            want.update(knn_pairwise=tiles, knn_select=tiles)
+            require(launches == want, f"launches {launches} for {tiles} dispatched tiles")
+        recall = recall_of(results, truth, k)
         require(recall >= 0.99, f"recall@{k} {recall} < 0.99")
         busy = device_busy_share(torch, lambda: [
             run(sql, {"q": queries[i].tolist()}) for i in range(8)
         ]) if device == "cuda" else None
         out = dict(
-            rows=n_rows, dim=dim, device=str(ds.device), corpus_gen_s=gen_s,
+            rows=n_rows, dim=dim, device=str(ds.device),
             ingest_rows_per_s=n_rows / ingest_s, ingest_s=ingest_s,
-            first_query_with_upload_s=upload_query_s,
-            seq_queries=n_seq, seq_p50_ms=statistics.median(seq_lat) * 1e3,
-            seq_qps=n_seq / sum(seq_lat),
-            seq_layer_mean_ms=layers,
-            concurrent_clients=n_threads, rounds=rounds,
-            conc_p50_ms=statistics.median(conc_lat) * 1e3,
-            conc_qps=n_conc / conc_wall,
+            first_query_with_upload_s=upload_query_s, **timing,
             dispatch_widths={str(w): c for w, c in sorted(widths.items())},
             tiles_dispatched=tiles, launches=launches,
             strategies=delta, recall_at_10=recall, profiled_8_seq_queries=busy,
             peak_device_memory_bytes=(
                 torch.cuda.max_memory_allocated() if device == "cuda" else None
             ),
+            device_memory_at_window_start_bytes=mem0,
         )
         emit("main_path", **out)
         return out
@@ -476,12 +797,144 @@ def phase_main_path(torch, device: str, n_rows: int, dim: int, batch: int,
         ds.close()
 
 
+def phase_main_path_hnsw(torch, device: str, corpus, queries, truth, batch: int,
+                         n_seq: int, n_threads: int, rounds: int, ef: int = 64):
+    """HNSW: `DEFINE INDEX … HNSW … EFC 64` queried with `<|10,64|>`. The
+    first query after ingest serves exactly while the quantizer trains in
+    the background (K4 k-means, K5 full assignment); every timed query then
+    takes the `ivf` strategy (K1+K2 probe, K3 gather + select + mapping).
+    Device recall@10 must lie within 0.01 of the host twin's
+    (IvfState.search_host, numpy f32) on the same quantizer and queries."""
+    from surrealdb_tpu_torch import bg
+    from surrealdb_tpu_torch.idx.ivf import default_nprobe
+    from surrealdb_tpu_torch.kvs.ds import Datastore
+
+    k = 10
+    n_rows, dim = corpus.shape
+    ds = Datastore("memory", device=device)
+    try:
+        run = sql_runner(ds)
+        run("DEFINE TABLE item SCHEMALESS; DEFINE INDEX iemb ON item FIELDS emb "
+            f"HNSW DIMENSION {dim} DIST EUCLIDEAN EFC 64")
+        sql = f"SELECT id FROM item WHERE emb <|{k},{ef}|> $q"
+        reset_launches()  # the main path's run: training and queries
+        # build the (empty) mirror first: the whole ingest reaches it as
+        # deltas, and no quantizer exists before the corpus is in
+        run(sql, {"q": queries[0].tolist()})
+        ingest_s = ingest(run, corpus, batch)
+        mirror = ds.index_stores.get("test", "test", "item", "iemb")
+        require(mirror is not None and mirror.count() == n_rows, "HNSW mirror missing rows")
+
+        before = strategies()
+        t0 = time.perf_counter()
+        run(sql, {"q": queries[0].tolist()})
+        first_query_s = time.perf_counter() - t0
+        first = strategy_delta(before)
+        require(first == {'knn_strategy{strategy="exact-device(ivf-training)"}': 1.0},
+                f"first query after ingest took {first}, expected exact-device(ivf-training)")
+        require(mirror.wait_ivf(600), "IVF training did not finish in 600 s")
+        train_s = time.perf_counter() - t0
+        if device == "cuda":
+            torch.cuda.synchronize()
+        train_launches = read_launches()
+        ivf = mirror.ivf
+        nprobe = default_nprobe(ivf.nlists, ef)
+        lens = np.array([len(l) for l in ivf.lists])
+        # the first IVF query builds the list tables and warms the other
+        # tile shapes in the background
+        run(sql, {"q": queries[0].tolist()})
+        require(bg.wait_idle(timeout=120, owner=id(ds)), "background tasks did not finish")
+        matrix = mirror.device_snapshot(ds.device)[0]
+        lmax = int(ivf._device(matrix.device)[1].shape[1])
+        mem0 = window_start(torch, device)
+        gen0 = mirror.gen
+        held = (large_device_tensors(torch) if device == "cuda"
+                and mem0 > 1.25 * matrix.element_size() * matrix.nelement() else None)
+        before = strategies()
+        widths0 = ds.dispatch.width_distribution()
+        launches0 = read_launches()
+        results, timing = drive_queries(torch, ds, run, sql, queries, n_seq, n_threads,
+                                        rounds, device, "ivf")
+        require(bg.wait_idle(timeout=120, owner=id(ds)), "background tasks did not finish")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches1 = read_launches()
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+        timed = {n: launches1[n] - launches0[n] for n in launches1}
+        widths, tiles = dispatched_tiles(ds, widths0)
+        delta = strategy_delta(before)
+        n_queries = queries.shape[0]
+        require(delta == {'knn_strategy{strategy="ivf"}': float(n_queries)},
+                f"strategies {delta}, expected {n_queries} ivf")
+        n_assign = 8 + -(-n_rows // 65_536)  # 8 k-means steps + the full assignment's tiles
+        if device == "cuda":
+            # each dispatched tile: one probe (K1 + K2 select), the gather,
+            # a second select and the slot mapping; no training launch
+            want = {c.name: 0 for c in kernel_counters()}
+            want.update(knn_pairwise=tiles, knn_select=2 * tiles,
+                        ivf_gather_distance=tiles, ivf_map_slots=tiles)
+            require(timed == want, f"launches {timed} for {tiles} dispatched tiles")
+            require(train_launches["ivf_assign"] == n_assign
+                    and train_launches["ivf_kmeans_update"] == 8,
+                    f"training launched {train_launches}, expected {n_assign} assignments "
+                    "and 8 k-means updates")
+        recall = recall_of(results, truth, k)
+        data, _alive, rids = mirror.host_view()
+        _, hslots = ivf.search_host(queries, data, "euclidean", k, nprobe)
+        host_recall = float(np.mean([
+            len({int(rids[s].id) for s in row if s >= 0} & set(truth[i].tolist())) / k
+            for i, row in enumerate(hslots)
+        ]))
+        require(abs(recall - host_recall) <= 0.01,
+                f"device recall@{k} {recall} vs host twin {host_recall}")
+        busy = device_busy_share(torch, lambda: [
+            run(sql, {"q": queries[i].tolist()}) for i in range(8)
+        ]) if device == "cuda" else None
+        out = dict(
+            rows=n_rows, dim=dim, device=str(ds.device),
+            ingest_rows_per_s=n_rows / ingest_s, ingest_s=ingest_s,
+            first_query_s=first_query_s, first_query_strategy="exact-device(ivf-training)",
+            training_s=train_s, training_launches={
+                n: train_launches[n] for n in ("ivf_assign", "ivf_kmeans_update")},
+            nlists=ivf.nlists, nprobe=nprobe, L=lmax, list_len_mean=float(lens.mean()),
+            list_len_max=int(lens.max()), **timing,
+            dispatch_widths={str(w): c for w, c in sorted(widths.items())},
+            tiles_dispatched=tiles, launches=timed, strategies=delta,
+            recall_at_10=recall, host_twin_recall_at_10=host_recall,
+            profiled_8_seq_queries=busy, peak_device_memory_bytes=peak,
+            device_memory_at_window_start_bytes=mem0,
+            large_tensors_at_window_start=held,
+            mirror_mutations_in_window=mirror.gen - gen0,
+        )
+        emit("main_path_hnsw", **out)
+        out["run_launches"] = read_launches()
+        if device == "cuda":
+            require(all(v > 0 for v in out["run_launches"].values()),
+                    f"a kernel of the HNSW path never launched: {out['run_launches']}")
+        fresh = make_queries(corpus, 64, 7, noise=CLUSTER_SIGMA)
+        k3_err, k3_checks, probe_ties = check_ivf_search(torch, ivf, matrix, fresh, nprobe)
+        out.update(k3_err=k3_err, k3_checks=k3_checks, k3_probe_tie_queries=probe_ties)
+        if device == "cuda":
+            out["k3_timing"] = time_ivf_search(torch, ivf, matrix, queries, nprobe, k, dim)
+        return out
+    finally:
+        ds.close()
+
+
 # ------------------------------------------------------------------ main
+def kernel_entry(name, kern, source, replaces, launches, err, timing, shape, extra=None):
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": err, **timing, "shape": shape, **(extra or {}),
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--rows", type=int, default=1 << 20)
+    ap.add_argument("--rows", type=int, default=1 << 20,
+                    help="MTREE corpus rows (the HNSW phase always runs at 2^20)")
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run the main path tiny on the CPU (plain versions); exits 1")
+                    help="run both main paths tiny on the CPU (plain versions); exits 1")
     args = ap.parse_args(argv)
 
     import torch
@@ -491,8 +944,14 @@ def main(argv=None) -> int:
         from surrealdb_tpu_torch import cnf
 
         cnf.TPU_KNN_ONDEVICE_THRESHOLD = 16
-        phase_main_path(torch, "cpu", n_rows=4096, dim=32, batch=1000,
+        cnf.TPU_ANN_MIN_ROWS = 1024
+        corpus = gen_corpus(4096, 32)
+        queries = make_queries(corpus, 4 + 8 * 2, 42)
+        truth = knn_ground_truth(corpus, queries, 10)
+        phase_main_path(torch, "cpu", corpus, queries, truth, batch=1000,
                         n_seq=4, n_threads=8, rounds=2)
+        phase_main_path_hnsw(torch, "cpu", corpus, queries, truth, batch=1000,
+                             n_seq=4, n_threads=8, rounds=2)
         print("cpu rehearsal: no card, no result", file=sys.stderr)
         return 1
     if not torch.cuda.is_available():
@@ -505,18 +964,34 @@ def main(argv=None) -> int:
         print(f"chip_smoke: surrealdb_tpu_torch not found beside this script: {e}",
               file=sys.stderr)
         return 2
+    full = 1 << 20
     t_all = time.perf_counter()
     try:
         smi = phase_environment(torch)
-        k1_err, k2_err = phase_kernels(torch, DIM, min(args.rows, 1 << 20))
+        k1_err, k2_err = phase_kernels(torch, DIM, min(args.rows, full))
+        ivf_inputs, k5_err, k4_err = phase_ivf_kernels(torch, DIM, full)
         timing = phase_timing(torch, DIM, args.rows, 10)
-        main = phase_main_path(torch, "cuda", n_rows=args.rows, dim=DIM,
+        ivf_timing = phase_ivf_timing(torch, ivf_inputs, DIM)
+        del ivf_inputs
+        torch.cuda.empty_cache()
+        corpus = gen_corpus(full, DIM)
+        queries = make_queries(corpus, 24 + 32 * 2, 42)
+        t = time.perf_counter()
+        truth = knn_ground_truth(corpus, queries, 10)  # shared by both main paths
+        emit("ground_truth", queries=queries.shape[0], seconds=time.perf_counter() - t)
+        main = phase_main_path(torch, "cuda", corpus[: args.rows], queries, truth
+                               if args.rows == full else knn_ground_truth(
+                                   corpus[: args.rows], queries, 10),
                                batch=20_000, n_seq=24, n_threads=32, rounds=2)
+        gc.collect()
+        hnsw = phase_main_path_hnsw(torch, "cuda", corpus, queries, truth, batch=20_000,
+                                    n_seq=24, n_threads=32, rounds=2)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    # one entry a kernel, timed at Q=1, the tile most of the main path's
-    # launches use; the other tiles' times ride along under "by_q"
+    # one entry a kernel, timed at Q=1 (the tile most of the main paths'
+    # launches use) or at the training's shapes; other shapes ride along
+    knn_shape = {"q": 1, "n": args.rows, "d": DIM, "k": 10, "corpus": "bfloat16"}
     kernels = []
     for name, kern, replaces, err in (
         ("K1 pairwise_distance (knn_pairwise)", "knn_pairwise",
@@ -524,13 +999,39 @@ def main(argv=None) -> int:
         ("K2 knn_search (knn_pairwise + knn_select)", "knn_select",
          "surrealdb_tpu/ops/distances.py:87", k2_err),
     ):
-        kernels.append({
-            "name": name, "route": "cuda", "source": "surrealdb_tpu_torch/csrc/knn.cu",
-            "replaces": replaces, "launches": main["launches"][kern], "max_abs_err": err,
-            **timing[1][kern],
-            "shape": {"q": 1, "n": args.rows, "d": DIM, "k": 10, "corpus": "bfloat16"},
-            "by_q": {str(nq): timing[nq][kern] for nq in (8, 64)},
-        })
+        kernels.append(kernel_entry(
+            name, kern, "surrealdb_tpu_torch/csrc/knn.cu", replaces, main["launches"][kern],
+            err, timing[1][kern], knn_shape,
+            {"by_q": {str(nq): timing[nq][kern] for nq in (8, 64)}},
+        ))
+    run_launches = hnsw["run_launches"]
+    k3 = hnsw["k3_timing"]
+    kernels.append(kernel_entry(
+        "K3 _ivf_search (knn_search probe + ivf_gather_distance + knn_select + ivf_map_slots)",
+        "ivf_gather_distance", "surrealdb_tpu_torch/csrc/ivf.cu",
+        "surrealdb_tpu/idx/ivf.py:693", run_launches["ivf_gather_distance"], hnsw["k3_err"],
+        {kk: v for kk, v in k3[1].items() if kk != "candidate_rows"},
+        {"q": 1, "nlists": hnsw["nlists"], "nprobe": hnsw["nprobe"], "L": hnsw["L"],
+         "n": full, "d": DIM, "k": 10, "candidate_rows": k3[1]["candidate_rows"]},
+        {"by_q": {str(nq): k3[nq] for nq in (8, 64)},
+         "launches_by_kernel": {n: run_launches[n] for n in ("ivf_gather_distance",
+                                                              "ivf_map_slots")}},
+    ))
+    kernels.append(kernel_entry(
+        "K4 _kmeans_step (ivf_assign k=1 + ivf_kmeans_update)", "ivf_kmeans_update",
+        "surrealdb_tpu_torch/csrc/ivf.cu", "surrealdb_tpu/idx/ivf.py:98",
+        run_launches["ivf_kmeans_update"], k4_err, ivf_timing["ivf_kmeans_update"],
+        {"rows": 65_536, "c": 1024, "d": DIM, "corpus": "bfloat16"},
+    ))
+    kernels.append(kernel_entry(
+        "K5 _assign_gather / _assign_chunk (ivf_assign)", "ivf_assign",
+        "surrealdb_tpu_torch/csrc/ivf.cu", "surrealdb_tpu/idx/ivf.py:82",
+        run_launches["ivf_assign"], k5_err, ivf_timing["ivf_assign"],
+        {"rows": 65_536, "cap": full, "c": 1024, "d": DIM, "k_assign": 2,
+         "index_vector": True, "corpus": "bfloat16"},
+        {"by_variant": {"rows_k1 (surrealdb_tpu/idx/ivf.py:71)":
+                        ivf_timing["ivf_assign_rows_k1"]}},
+    ))
     emit("done", seconds=time.perf_counter() - t_all)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,4 +1,4 @@
-// CPU emulation of the CUDA subset that csrc/knn.cu uses, for rehearsing
+// CPU emulation of the CUDA subset that csrc/*.cu use, for rehearsing
 // the kernels' logic on a machine without a card or nvcc
 // (tests/test_torch_kernel_emulation.py). One OS thread per CUDA thread;
 // blocks run one after another, so a kernel's `__shared__` arrays become
@@ -76,6 +76,11 @@ inline unsigned __ballot_sync(unsigned, int p) {
 template <class T> T __shfl_sync(unsigned, T v, int src) {
   unsigned long long bits = 0; std::memcpy(&bits, &v, sizeof(T));
   return warp_exchange(bits, [&](unsigned long long* w) { T r; std::memcpy(&r, &w[src], sizeof(T)); return r; });
+}
+template <class T> T __shfl_up_sync(unsigned, T v, unsigned d) {
+  unsigned long long bits = 0; std::memcpy(&bits, &v, sizeof(T));
+  return warp_exchange(bits, [&](unsigned long long* w) {
+    T r; std::memcpy(&r, &w[lane_id() >= d ? lane_id() - d : lane_id()], sizeof(T)); return r; });
 }
 template <class T> T __shfl_xor_sync(unsigned, T v, int o) {
   unsigned long long bits = 0; std::memcpy(&bits, &v, sizeof(T));

@@ -43,44 +43,14 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "metric.cuh"
+
 namespace {
-
-enum Metric {
-  M_EUCLIDEAN = 0,
-  M_COSINE = 1,
-  M_MANHATTAN = 2,
-  M_CHEBYSHEV = 3,
-  M_HAMMING = 4,
-  M_JACCARD = 5,
-  M_PEARSON = 6,
-  M_MINKOWSKI = 7,
-};
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // ------------------------------------------------------------------ K1
 
 constexpr int PW_THREADS = 256;  // = corpus rows a block, one row a thread
 constexpr int DK = 32;           // columns staged a step
-
-template <int METRIC>
-__device__ __forceinline__ void pw_step(float qv, float xv, float p, float& acc, float& acc2) {
-  if (METRIC == M_EUCLIDEAN || METRIC == M_COSINE || METRIC == M_PEARSON) {
-    acc = fmaf(qv, xv, acc);
-  } else if (METRIC == M_MANHATTAN) {
-    acc += fabsf(qv - xv);
-  } else if (METRIC == M_CHEBYSHEV) {
-    acc = fmaxf(acc, fabsf(qv - xv));
-  } else if (METRIC == M_HAMMING) {
-    acc += (qv != xv) ? 1.f : 0.f;
-  } else if (METRIC == M_JACCARD) {
-    acc += fminf(qv, xv);
-    acc2 += fmaxf(qv, xv);
-  } else {  // M_MINKOWSKI
-    acc += powf(fabsf(qv - xv), p);
-  }
-}
 
 // One block: PW_THREADS corpus rows x QT queries; thread r owns row r0 + r
 // and all QT queries of the block (QT accumulators in registers). The row
@@ -93,8 +63,7 @@ pairwise_kernel(const float* __restrict__ q, const T* __restrict__ x, int Q,
                 long long N, int D, float p, const float* __restrict__ qmean,
                 const float* __restrict__ xmean, float* __restrict__ out, int vec) {
   constexpr int TN = PW_THREADS;
-  constexpr bool DOT =
-      METRIC == M_EUCLIDEAN || METRIC == M_COSINE || METRIC == M_PEARSON;
+  constexpr bool DOT = is_dot_metric<METRIC>();
   constexpr int V = 16 / (int)sizeof(T);  // corpus values in 16 bytes
   __shared__ float xs[TN][DK + 1];  // +1: conflict-free row reads
   __shared__ __align__(16) float qs[DK][QT];
@@ -194,19 +163,7 @@ pairwise_kernel(const float* __restrict__ q, const T* __restrict__ x, int Q,
   for (int j = 0; j < QT; ++j) {
     const int qi = q0 + j;
     if (qi >= Q) continue;
-    float v;
-    if (METRIC == M_EUCLIDEAN) {
-      v = sqrtf(fmaxf(qnorm[j] + xss - 2.f * acc[j], 0.f));
-    } else if (METRIC == M_COSINE || METRIC == M_PEARSON) {
-      // divide twice: max(.,1e-30)^2 underflows f32 for two zero vectors
-      v = 1.f - acc[j] / fmaxf(sqrtf(qnorm[j]), 1e-30f) / fmaxf(sqrtf(xss), 1e-30f);
-    } else if (METRIC == M_JACCARD) {
-      v = 1.f - acc[j] / fmaxf(acc2[j], 1e-30f);
-    } else if (METRIC == M_MINKOWSKI) {
-      v = powf(acc[j], 1.f / p);
-    } else {
-      v = acc[j];
-    }
+    const float v = pw_finish<METRIC>(qnorm[j], xss, acc[j], acc2[j], p);
     out[(long long)qi * N + row] = v;
   }
 }

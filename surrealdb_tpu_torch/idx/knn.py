@@ -1,10 +1,11 @@
 """kNN query plans: device-batched exact and index-backed search.
 
 Mirrors surrealdb_tpu/idx/knn.py. The mirror uploads to a torch tensor on
-the datastore's device (`ds.device`), and the exact strategies launch the
-CUDA kernels of ops/distances.py (K1 `knn_pairwise` + K2 `knn_select`).
-The IVF and mesh strategies are not ported yet and raise
-NotImplementedError (ROADMAP, queue 1: IVF; last queue: mesh).
+the datastore's device (`ds.device`). The exact strategies launch the CUDA
+kernels of ops/distances.py (K1 `knn_pairwise` + K2 `knn_select`); the
+`ivf` strategy (HNSW above TPU_ANN_MIN_ROWS) trains and searches through
+idx/ivf.py (K3-K5, csrc/ivf.cu). The mesh strategies are not ported yet
+and raise NotImplementedError (ROADMAP, mesh queue).
 
 Role of the reference's kNN plumbing (reference: core/src/idx/planner/knn.rs,
 checker.rs, trees/knn.rs, and the brute-force CollectKnn→BuildKnn workflow
@@ -332,6 +333,67 @@ class VectorMirror:
                 self._host_cache = (self.gen, data, norms, rids)
             return self._host_cache[1:]
 
+    def ensure_ivf(self, matrix=None):
+        """Return the current IVF state WITHOUT ever blocking the query:
+        a missing or outgrown quantizer kicks a background training thread
+        and the caller serves this query from the stale IVF (or, when None,
+        the exact kernels). No query pays the multi-second training
+        cliff (reference analog: the async builder, kvs/index.rs:28-41)."""
+        with self._lock:
+            ivf = self.ivf
+            if ivf is not None and not ivf.needs_retrain():
+                return ivf
+            if self._ivf_building or matrix is None:
+                return ivf
+            self._ivf_building = True
+            self._ivf_done.clear()
+            self._train_touched = set()
+            alive = self.alive[: self.n_slots].copy()
+            data = self.data
+            renum0 = self._renumber
+        from surrealdb_tpu_torch import bg
+
+        # flight-recorder record: the multi-second training cliff is now an
+        # attributable task (linked to the query that kicked it), named so
+        # stack dumps say WHICH index is training
+        task_id = bg.register("ivf_train", target=self.label, owner=self._owner)
+        bg.start_thread(task_id, self._train_ivf, data, alive, matrix, renum0, task_id)
+        return ivf
+
+    def _train_ivf(self, data, alive, matrix, renum0: int, task_id=None) -> None:
+        from surrealdb_tpu_torch import bg
+        from surrealdb_tpu_torch.idx.ivf import IvfState
+
+        try:
+            if task_id is None:
+                task_id = bg.register("ivf_train", target=self.label, trace_id=None)
+            with bg.run(task_id):
+                new = IvfState.train(data[: alive.size], alive, matrix=matrix)
+        except BaseException:
+            with self._lock:
+                self._ivf_building = False
+                self._train_touched = None
+                self._ivf_done.set()
+            raise
+        with self._lock:
+            self._ivf_building = False
+            touched, self._train_touched = self._train_touched, None
+            self._ivf_done.set()
+            if self._renumber != renum0:
+                return  # slot space renumbered mid-train; next query re-kicks
+            # reconcile rows that changed while training ran on the snapshot
+            cur = self.alive[: self.n_slots]
+            for slot in range(alive.size, self.n_slots):  # appended rows
+                if cur[slot]:
+                    new.add(slot, self.data[slot])
+            for slot in np.nonzero(~cur[: alive.size] & alive)[0]:  # tombstoned
+                new.remove(int(slot), None)
+            for slot in touched or ():  # overwritten in place mid-train
+                new.remove(slot, None)
+                if slot < self.n_slots and cur[slot]:
+                    new.add(slot, self.data[slot])
+            self.ivf = new
+
     def wait_ivf(self, timeout: float = 60.0) -> bool:
         """Block until the in-flight training round (if any) finishes —
         test/bench determinism helper, never used on the query path."""
@@ -367,24 +429,6 @@ class VectorMirror:
 
 
 
-def _start_host_copy(d, r):
-    """Start the device->host copy of one tile's results without blocking:
-    a non_blocking copy into pinned host memory plus an event that collect()
-    waits on (the reference's _start_host_copy, idx/ivf.py:35). On the CPU
-    the results already are host tensors."""
-    import torch
-
-    if d.device.type != "cuda":
-        return d, r, None
-    hd = torch.empty(d.shape, dtype=d.dtype, pin_memory=True)
-    hr = torch.empty(r.shape, dtype=r.dtype, pin_memory=True)
-    hd.copy_(d, non_blocking=True)
-    hr.copy_(r, non_blocking=True)
-    ev = torch.cuda.Event()
-    ev.record()
-    return hd, hr, ev
-
-
 def _exact_device_launch(qs: np.ndarray, matrix, mask, metric: str, k: int, owner=None):
     """Async exact distance+top-k over a [Q, D] query batch, Q padded to a
     dispatch tile (1, 8 or the width cap) so coalesced batches of any size
@@ -393,6 +437,7 @@ def _exact_device_launch(qs: np.ndarray, matrix, mask, metric: str, k: int, owne
     host copies."""
     import torch
 
+    from surrealdb_tpu_torch.idx.ivf import _start_host_copy
     from surrealdb_tpu_torch.utils.num import dispatch_tile, pad_tail, tile_slices
 
     from surrealdb_tpu_torch import compile_log
@@ -548,11 +593,11 @@ class _KnnExecutorMixin:
 class KnnPlan(_KnnExecutorMixin):
     """`<|k[,ef]|>` against a DEFINEd HNSW/MTREE index.
 
-    Above TPU_ANN_MIN_ROWS an HNSW index takes the reference's approximate
-    IVF strategy, which is not ported yet and raises NotImplementedError.
-    MTREE, and HNSW below it, take exact distance+top-k (recall 1.0) on the
-    datastore's device. A transaction with uncommitted writes to this index
-    searches an exact overlay merge instead.
+    Above TPU_ANN_MIN_ROWS an HNSW index is searched approximately by IVF
+    (idx/ivf.py — sublinear, recall governed by ef→nprobe, exact rerank of
+    the probed lists). MTREE, and HNSW below it, take exact distance+top-k
+    (recall 1.0) on the datastore's device. A transaction with uncommitted
+    writes to this index searches an exact overlay merge instead.
     """
 
     def __init__(self, tb: str, ix: dict, op, target):
@@ -676,11 +721,71 @@ class KnnPlan(_KnnExecutorMixin):
                 and n >= cnf.TPU_ANN_MIN_ROWS
                 and self.k * 4 <= n
             ):
-                # the reference's approximate IVF strategy (and its
-                # exact-device(ivf-training) stand-in while it trains)
-                raise NotImplementedError(
-                    "IVF kNN (K3-K5, idx/ivf.py) not ported yet; see ROADMAP queue 1"
-                )
+                self.strategy = "ivf"
+                # snapshot first: device_view may compact dead slots, which
+                # renumbers the slot space and invalidates any trained IVF; the
+                # snapshot's rids list is tied to this matrix's numbering
+                matrix, mask, rids = mirror.device_snapshot(ds.device)
+                ivf = mirror.ensure_ivf(matrix)
+                if ivf is None:
+                    # quantizer still training in the background: serve this
+                    # query exactly (no latency cliff, full recall)
+                    self.strategy = "exact-device(ivf-training)"
+                    key = ("knn-exact", id(matrix), metric, k)
+                    if self.prefilter is not None:
+                        pre = self._prefilter_slot_mask(ctx, rids, len(mask))
+                        if pre is not None:
+                            mask = mask & pre[0]
+                            key = key + pre[1]
+
+                    def runner(qs):
+                        collect = _exact_device_launch(
+                            np.stack(qs), matrix, mask, metric, k,
+                            owner=mirror._owner,
+                        )
+
+                        def finish():
+                            dd, rr = collect()
+                            return list(zip(dd, rr))
+
+                        return finish
+
+                    dists, slots = ds.dispatch.submit(key, q, runner)
+                else:
+                    from surrealdb_tpu_torch.idx.ivf import default_nprobe
+
+                    ef = self.ef or self.ix["index"].get("efc")
+                    nprobe = default_nprobe(ivf.nlists, ef)
+                    # concurrent same-shape queries coalesce into one launch
+                    # sequence (dbs/dispatch.py — the cross-query PARALLEL
+                    # seam). Keyed by the matrix/ivf identities so a batch
+                    # never mixes slot numberings.
+                    key = ("knn-ivf", id(matrix), id(ivf), metric, k, nprobe)
+                    # residual-WHERE prefilter (parity with the exact
+                    # strategies): the mask rides into the probe+rerank
+                    # kernels so top-k is computed among MATCHING rows; the
+                    # key carries the mask content so riders with different
+                    # $param bindings never share a leader's tighter mask
+                    slot_mask = None
+                    if self.prefilter is not None:
+                        pre = self._prefilter_slot_mask(ctx, rids, len(mask))
+                        if pre is not None:
+                            slot_mask = pre[0]
+                            key = key + pre[1]
+
+                    def runner(qs):
+                        collect = ivf.search_batch_launch(
+                            np.stack(qs), matrix, metric, k, nprobe,
+                            owner=mirror._owner, slot_mask=slot_mask,
+                        )
+
+                        def finish():
+                            dd, rr = collect()
+                            return list(zip(dd, rr))
+
+                        return finish
+
+                    dists, slots = ds.dispatch.submit(key, q, runner)
             elif not cnf.TPU_DISABLE and n >= cnf.TPU_KNN_ONDEVICE_THRESHOLD:
                 self.strategy = "exact-device"
                 matrix, mask, rids = mirror.device_snapshot(ds.device)
@@ -705,25 +810,52 @@ class KnnPlan(_KnnExecutorMixin):
 
                 dists, slots = ds.dispatch.submit(key, q, runner)
             else:
-                # CPU serving path. The reference serves an already-trained
-                # quantizer here (ivf-host); none is ever trained in this
-                # package (IVF is not ported), which is the reference's own
-                # state before training, so the exact scan serves.
-                self.strategy = "exact-host"
-                data, norms, rids = mirror.host_search_view()
-                if self.prefilter is not None:
-                    pre = self._prefilter_slot_mask(ctx, rids, len(rids))
-                    if pre is not None:
-                        sel = np.nonzero(pre[0])[0]
-                        if sel.size == 0:
-                            return
-                        data, norms = data[sel], norms[sel]
-                        rids = [rids[int(i)] for i in sel]
-                        k = min(k, sel.size)
-                dists, li = D.knn_search_host(
-                    q[None, :], data, metric, k, x_sq_norms=norms
-                )
-                dists, slots = dists[0], np.asarray(li)[0]
+                # CPU serving path: an already-trained quantizer serves ANN on
+                # host too (probe + exact rerank, idx/ivf.py search_host) — the
+                # same sublinear contract as the device path, and the honest
+                # CPU-ANN baseline for the bench. Never trains here (training
+                # needs the device matrix); exact scan otherwise.
+                ivf = mirror.ivf
+                if (
+                    approx_ok
+                    and ivf is not None
+                    and not ivf.needs_retrain()
+                    and metric in ("euclidean", "cosine")
+                    and n >= cnf.TPU_ANN_MIN_ROWS
+                    and self.k * 4 <= n
+                ):
+                    from surrealdb_tpu_torch.idx.ivf import default_nprobe
+
+                    self.strategy = "ivf-host"
+                    ef = self.ef or self.ix["index"].get("efc")
+                    data, alive, rids = mirror.host_view()
+                    slot_mask = None
+                    if self.prefilter is not None:
+                        pre = self._prefilter_slot_mask(ctx, rids, len(alive))
+                        if pre is not None:
+                            slot_mask = pre[0]
+                    dists, li = ivf.search_host(
+                        q[None, :], data, metric, k,
+                        default_nprobe(ivf.nlists, ef),
+                        slot_mask=slot_mask,
+                    )
+                    dists, slots = dists[0], li[0]
+                else:
+                    self.strategy = "exact-host"
+                    data, norms, rids = mirror.host_search_view()
+                    if self.prefilter is not None:
+                        pre = self._prefilter_slot_mask(ctx, rids, len(rids))
+                        if pre is not None:
+                            sel = np.nonzero(pre[0])[0]
+                            if sel.size == 0:
+                                return
+                            data, norms = data[sel], norms[sel]
+                            rids = [rids[int(i)] for i in sel]
+                            k = min(k, sel.size)
+                    dists, li = D.knn_search_host(
+                        q[None, :], data, metric, k, x_sq_norms=norms
+                    )
+                    dists, slots = dists[0], np.asarray(li)[0]
         except BaseException as e:
             _search_err = e
             raise

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels (csrc/*.cu).
 
-The sources compile with `nvcc` for sm_90a into one shared library with a
-plain C interface, loaded with ctypes. The build happens at first use,
+Each source compiles with `nvcc` for sm_90a into an object, all at once
+(one nvcc process a source), and the objects link into one shared library
+with a plain C interface, loaded with ctypes. The build happens at first use,
 under a lock (the dispatch leader and the tile-warm threads can both get
 here first), into `surrealdb_tpu_torch/_build/<hash of the sources>/`, so a
 checkout builds its own sources once and an edited source rebuilds. The
@@ -24,12 +25,12 @@ from typing import Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-lineinfo", "-Xptxas", "-v",
 )
-_LIB_NAME = "libsurreal_knn.so"
+_LIB_NAME = "libsurreal_kernels.so"
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -47,6 +48,15 @@ _SIGNATURES = {
     "knn_select_mid_elems": (ctypes.c_longlong, [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]),
     "knn_select_smem_pairs": (ctypes.c_int, []),
     "knn_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    "ivf_assign": (ctypes.c_int, [_P, ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_longlong,
+                                  _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P]),
+    "ivf_kmeans_update": (ctypes.c_int, [_P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                         _P, _P, ctypes.c_int, _P, _P, _P]),
+    "ivf_gather_distance": (ctypes.c_int, [_P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_float, _P, ctypes.c_int,
+                                           ctypes.c_int, _P, _P, ctypes.c_int, _P, _P, _P]),
+    "ivf_map_slots": (ctypes.c_int, [_P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
+                                     _P, _P, ctypes.c_int, _P, _P]),
 }
 
 
@@ -75,6 +85,25 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built on this machine")
 
 
+def _run_all(cmds, out_dir: str):
+    """Run the commands side by side; (returncode, output) of each. Output
+    goes to files, so a chatty process never blocks on a full pipe."""
+    import tempfile
+
+    logs = [tempfile.TemporaryFile("w+", dir=out_dir) for _ in cmds]
+    procs = [
+        subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True)
+        for cmd, log in zip(cmds, logs)
+    ]
+    out = []
+    for p, log in zip(procs, logs):
+        rc = p.wait()
+        log.seek(0)
+        out.append((rc, log.read()))
+        log.close()
+    return out
+
+
 def _build(sources, out_dir: str) -> str:
     global build_seconds, build_log
     import time
@@ -85,16 +114,27 @@ def _build(sources, out_dir: str) -> str:
     if os.path.exists(so):
         return so
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(s for s in sources if s.endswith(".cu"))]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    cus = [s for s in sources if s.endswith(".cu")]
+    objs = [os.path.join(out_dir, f"{os.path.basename(s)}.{tag}.o") for s in cus]
+    compile_cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(cus, objs)]
+    tmp = f"{so}.{tag}"
+    link_cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
     t0 = time.perf_counter()
     with compile_log.tracked("kernel_build", (os.path.basename(out_dir),)):
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
+        results = _run_all(compile_cmds, out_dir)
+        if all(rc == 0 for rc, _ in results):
+            results.append(_run_all([link_cmd], out_dir)[0])
+    build_log = "".join(out for _, out in results)
     with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + build_log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log[-4000:]}")
+        f.write("\n".join(" ".join(c) for c in compile_cmds + [link_cmd]) + "\n" + build_log)
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    failed = [rc for rc, _ in results if rc != 0]
+    if failed or len(results) != len(compile_cmds) + 1:
+        raise RuntimeError(f"nvcc failed ({failed}):\n{build_log[-4000:]}")
     os.replace(tmp, so)  # atomic: a concurrent loader sees no half-written library
     build_seconds = time.perf_counter() - t0
     return so

@@ -13,7 +13,8 @@ reference are hand-written CUDA kernels here (csrc/knn.cu):
 
 The launch counters count wrapper calls that launched: one per K1 call
 (`knn_pairwise`, with its row-mean pre-pass for pearson) and one per K2
-selection (`knn_select`, one or two launches).
+selection (`knn_select`, one or two launches). `select_min_k` is K2's
+selection alone, which the IVF rerank (idx/ivf.py, K3) uses.
 
 Each wrapper takes tensors on one device. A CUDA tensor goes to the kernel
 (or the wrapper raises); a CPU tensor goes to the plain PyTorch version
@@ -229,24 +230,43 @@ def knn_search(
         raise ValueError(f"mask must be a bool [{n}] tensor on {q.device}")
     if not 1 <= k <= n:
         raise ValueError(f"k={k} outside 1..{n}")
+    d = _pairwise_cuda(q, x, metric)
+    return _select_cuda(d, mask.contiguous().view(torch.uint8), k)
+
+
+def select_min_k(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's selection alone: the k smallest of each row of d [Q, N] f32 in
+    (distance, lower index) order -> (dists [Q, k] f32, idxs [Q, k] int32).
+    The IVF rerank (idx/ivf.py) selects its candidates' distances with it."""
+    if d.device.type == "cpu":
+        return _topk_min_stable(d.float(), k)
+    if d.dtype != torch.float32 or d.dim() != 2 or not d.is_contiguous():
+        raise ValueError(f"d must be a contiguous [Q, N] float32 tensor, got {d.dtype} {tuple(d.shape)}")
+    if not 1 <= k <= d.shape[1]:
+        raise ValueError(f"k={k} outside 1..{d.shape[1]}")
+    return _select_cuda(d, None, k)
+
+
+def _select_cuda(d: torch.Tensor, m, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """knn_select over d [Q, N] f32 on the card; m is a [N] uint8 mask (0 =
+    the column reads as +inf) or None."""
     from surrealdb_tpu_torch.ops import _cuda
 
     lib = _cuda.lib()
-    d = _pairwise_cuda(q, x, metric)
-    m = mask.contiguous().view(torch.uint8)
-    nq = q.shape[0]
-    out_d = torch.empty((nq, k), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((nq, k), dtype=torch.int32, device=q.device)
+    nq, n = d.shape
+    out_d = torch.empty((nq, k), dtype=torch.float32, device=d.device)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=d.device)
     n2 = 1 << max(k - 1, 0).bit_length()
     cand = None
     if n2 > lib.knn_select_smem_pairs():
-        cand = torch.empty((nq, n2), dtype=torch.int64, device=q.device)
+        cand = torch.empty((nq, n2), dtype=torch.int64, device=d.device)
     mid = lib.knn_select_mid_elems(nq, n, k)
-    mid_d = torch.empty(mid, dtype=torch.float32, device=q.device) if mid else None
-    mid_i = torch.empty(mid, dtype=torch.int32, device=q.device) if mid else None
-    with torch.cuda.device(q.device):
+    mid_d = torch.empty(mid, dtype=torch.float32, device=d.device) if mid else None
+    mid_i = torch.empty(mid, dtype=torch.int32, device=d.device) if mid else None
+    with torch.cuda.device(d.device):
         status = lib.knn_select(
-            d.data_ptr(), m.data_ptr(), nq, n, k, out_d.data_ptr(), out_i.data_ptr(),
+            d.data_ptr(), None if m is None else m.data_ptr(), nq, n, k,
+            out_d.data_ptr(), out_i.data_ptr(),
             None if mid_d is None else mid_d.data_ptr(),
             None if mid_i is None else mid_i.data_ptr(),
             None if cand is None else cand.data_ptr(), 0 if cand is None else n2,

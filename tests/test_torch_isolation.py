@@ -27,6 +27,14 @@ ds.execute("DEFINE TABLE item; DEFINE INDEX im ON item FIELDS emb MTREE DIMENSIO
 ds.execute("INSERT INTO item $rows RETURN NONE", vars={{"rows": rows}})
 out = ds.execute("SELECT id FROM item WHERE emb <|3|> $q", vars={{"q": rows[1]["emb"]}})
 assert out[-1]["status"] == "OK" and len(out[-1]["result"]) == 3, out
+# the HNSW strategy: train the quantizer, then serve through IVF
+cnf.TPU_ANN_MIN_ROWS = 32
+ds.execute("DEFINE INDEX ih ON vec FIELDS emb HNSW DIMENSION 8 DIST EUCLIDEAN")
+ds.execute("INSERT INTO vec $rows RETURN NONE", vars={{"rows": rows}})
+ds.execute("SELECT id FROM vec WHERE emb <|3|> $q", vars={{"q": rows[1]["emb"]}})
+assert ds.index_stores.get("test", "test", "vec", "ih").wait_ivf(60)
+out = ds.execute("SELECT id FROM vec WHERE emb <|3|> $q", vars={{"q": rows[1]["emb"]}})
+assert out[-1]["status"] == "OK" and len(out[-1]["result"]) == 3, out
 ds.close()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "ml_dtypes"))
@@ -97,9 +105,12 @@ def test_cpu_datastore_keeps_its_device():
 
 
 def test_unported_ivf_branch_raises(monkeypatch):
-    """HNSW above TPU_ANN_MIN_ROWS takes the reference's IVF strategy, which
-    is not ported: the query fails, it is not served exactly instead."""
+    """The sharded IVF strategy (`ivf-sharded`, K13 over several GPUs) is
+    not ported: with a mesh, an HNSW query above TPU_ANN_MIN_ROWS fails, it
+    is not served single-device instead; IvfState's sharded search raises
+    too."""
     from surrealdb_tpu_torch import cnf
+    from surrealdb_tpu_torch.idx.ivf import IvfState
     from surrealdb_tpu_torch.kvs.ds import Datastore
 
     monkeypatch.setattr(cnf, "TPU_KNN_ONDEVICE_THRESHOLD", 16)
@@ -112,11 +123,16 @@ def test_unported_ivf_branch_raises(monkeypatch):
         ds.execute("DEFINE TABLE item; DEFINE INDEX ih ON item FIELDS emb "
                    "HNSW DIMENSION 8 DIST EUCLIDEAN")
         ds.execute("INSERT INTO item $rows RETURN NONE", vars={"rows": rows})
+        monkeypatch.setattr(ds, "mesh", lambda: object())
         out = ds.execute("SELECT id FROM item WHERE emb <|3|> $q", vars={"q": rows[0]["emb"]})
         assert out[-1]["status"] == "ERR"
         assert "NotImplementedError" in out[-1]["result"] and "ROADMAP" in out[-1]["result"]
     finally:
         ds.close()
+    st = IvfState(np.zeros((2, 8), dtype=np.float32), [[0], [1]], 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        st.search_batch_sharded(np.zeros((1, 8), dtype=np.float32), object(),
+                                torch.zeros(2, 8), "euclidean", 1, 1)
 
 
 def test_unported_file_backend_raises():

@@ -1,6 +1,6 @@
-"""The CUDA kernels' logic (surrealdb_tpu_torch/csrc/knn.cu), run on the CPU
-under the emulation header csrc/emu/cuda_emu.h and held against the plain
-PyTorch versions.
+"""The CUDA kernels' logic (surrealdb_tpu_torch/csrc/knn.cu and ivf.cu), run
+on the CPU under the emulation header csrc/emu/cuda_emu.h and held against
+the plain PyTorch versions.
 
 The source is compiled with the host C++ compiler: CUDA qualifiers become
 no-ops, `__shared__` arrays become function statics (blocks run one after
@@ -10,8 +10,12 @@ masking at small shapes — not speed, and not what only the card can show
 (it builds, launches and agrees there: chip_smoke.py). Skipped where there
 is no C++20 compiler.
 
-Tolerances: K1 rtol 1e-5, atol 1e-4 (f32 sums in another order); K2 exact,
-since both sides select from the same distances.
+Tolerances: K1 and the IVF rerank distances rtol 1e-5, atol 1e-4 (f32 sums
+in another order); K2 exact, since both sides select from the same
+distances; the K5 assignment's ids exact except where two centroids' distances
+tie within that tolerance; the K4 update's counts exact and its centroids
+bit-equal to the CPU's index_add_, which adds in row order as the kernel
+must; the slot mapping exact.
 """
 
 import ctypes
@@ -24,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from surrealdb_tpu_torch.idx import ivf as IVF
 from surrealdb_tpu_torch.ops import _cuda
 from surrealdb_tpu_torch.ops import distances as D
 
@@ -33,10 +38,8 @@ CSRC = _cuda.CSRC
 def _translate(src: str) -> str:
     src = src.replace("#include <cuda_runtime.h>", '#include "cuda_emu.h"')
     src = src.replace("#include <cuda_bf16.h>", "")
-    src = src.replace(
-        "extern __shared__ unsigned long long smem_pairs[];",
-        "static unsigned long long smem_pairs[8192];",
-    )
+    # dynamic shared memory: a static array, large enough for the test shapes
+    src = re.sub(r"extern __shared__ (.*?) (\w+)\[\];", r"static \1 \2[1 << 18];", src)
     return re.sub(
         r"([\w:]+(?:<[^<>;]*>)?)<<<(.*?)>>>\((.*?)\);",
         lambda m: f"emu_launch({m.group(2)}, [&]{{ {m.group(1)}({m.group(3)}); }});",
@@ -50,14 +53,17 @@ def lib(tmp_path_factory):
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no g++ to build the emulated kernels")
-    out = tmp_path_factory.mktemp("knn_emu")
-    cpp = out / "knn_emu.cpp"
-    with open(os.path.join(CSRC, "knn.cu")) as f:
-        cpp.write_text(_translate(f.read()))
-    so = out / "libknn_emu.so"
+    out = tmp_path_factory.mktemp("kernels_emu")
+    cpps = []
+    for name in ("knn.cu", "ivf.cu"):
+        cpp = out / name.replace(".cu", "_emu.cpp")
+        with open(os.path.join(CSRC, name)) as f:
+            cpp.write_text(_translate(f.read()))
+        cpps.append(str(cpp))
+    so = out / "libkernels_emu.so"
     proc = subprocess.run(
         [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-Wno-unknown-pragmas",
-         "-I", os.path.join(CSRC, "emu"), "-o", str(so), str(cpp)],
+         "-I", os.path.join(CSRC, "emu"), "-I", CSRC, "-o", str(so), *cpps],
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -171,3 +177,173 @@ def test_k2_select_matches_plain_exactly(lib, case):
     )
     assert torch.equal(got_i, want_i)
     assert torch.equal(got_d, want_d)
+
+
+# ------------------------------------------------------------------ IVF
+
+
+def _assign(lib, x, cents, k, idx=None):
+    n = x.shape[0] if idx is None else idx.shape[0]
+    out = torch.empty((n,) if k == 1 else (n, k), dtype=torch.int32)
+    status = lib.ivf_assign(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), None if idx is None else idx.data_ptr(),
+        n, x.shape[0], cents.data_ptr(), cents.shape[0], x.shape[1], k, out.data_ptr(), None,
+    )
+    assert status == 0
+    return out
+
+
+def _assert_ids_up_to_ties(got, want, d):
+    """Ids equal, except where the two picks' distances tie within the
+    tolerance (f32 sums in another order)."""
+    got2, want2 = got.reshape(len(d), -1).long(), want.reshape(len(d), -1).long()
+    for r, c in (got2 != want2).nonzero().tolist():
+        a, b = float(d[r, got2[r, c]]), float(d[r, want2[r, c]])
+        assert abs(a - b) <= 1e-4 + 1e-5 * abs(b), (r, c, a, b)
+
+
+@pytest.mark.parametrize("gather", [False, True], ids=["rows", "index"])
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("corpus", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k5_assign_matches_plain(lib, corpus, k, gather):
+    rng = np.random.default_rng(40 + k)
+    cents = torch.from_numpy(rng.standard_normal((70, 40)).astype(np.float32))
+    cents[40] = cents[5]  # exact ties: the lower index wins
+    cents[60] = cents[3]
+    x = torch.from_numpy(rng.standard_normal((150, 40)).astype(np.float32))
+    x[:20] = cents[[5, 3] * 10] + 0.01 * x[:20]
+    x = x.to(corpus)
+    idx = None
+    if gather:  # out-of-range indices are clipped, as the reference clips
+        idx = torch.from_numpy(rng.integers(-5, 160, size=130).astype(np.int32))
+    got = _assign(lib, x, cents, k, idx)
+    want = IVF.assign_plain(x, cents, k, idx=idx)
+    rows = x if idx is None else x[idx.long().clamp(0, x.shape[0] - 1)]
+    d = D.pairwise_distance_plain(rows, cents, "euclidean")
+    _assert_ids_up_to_ties(got, want, d)
+    near = slice(0, 20) if idx is None else (idx.clamp(0, 149) < 20).nonzero()[:, 0]
+    assert set(got.reshape(len(rows), -1)[near, 0].tolist()) <= {3, 5}
+
+
+@pytest.mark.parametrize("skewed", [False, True], ids=["uniform", "skewed"])
+@pytest.mark.parametrize("corpus", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k4_update_matches_plain(lib, corpus, skewed):
+    rng = np.random.default_rng(9)
+    n = 5001  # three compaction rounds, the last one short
+    xs = torch.from_numpy(rng.standard_normal((n, 24)).astype(np.float32)).to(corpus)
+    c = torch.from_numpy(rng.standard_normal((20, 24)).astype(np.float32))
+    a = rng.integers(0, 20, size=n).astype(np.int32)
+    if skewed:  # one centroid takes most rows: a whole round in one list
+        a[rng.random(n) < 0.9] = 3
+    a[a == 7] = 8  # centroid 7 stays empty and keeps its value
+    assign = torch.from_numpy(a)
+    new = torch.empty_like(c)
+    counts = torch.empty(20, dtype=torch.int32)
+    status = lib.ivf_kmeans_update(
+        xs.data_ptr(), int(corpus == torch.bfloat16), n, 24, assign.data_ptr(),
+        c.data_ptr(), 20, new.data_ptr(), counts.data_ptr(), None,
+    )
+    assert status == 0
+    want, want_counts = IVF.kmeans_update_plain(xs, assign, c)
+    assert torch.equal(counts, want_counts) and int(counts[7]) == 0
+    assert torch.equal(new[7], c[7])
+    torch.testing.assert_close(new, want, rtol=1e-5, atol=1e-4)
+    # the sums run in row order, as the CPU's index_add_ adds: bit-equal
+    assert torch.equal(new, want)
+
+
+def _ivf_case(rng, corpus, metric):
+    cap, dim, nlists, lmax = 300, 24, 10, 32
+    x = rng.standard_normal((cap, dim)).astype(np.float32)
+    if metric == "jaccard":
+        x = np.abs(x)
+    lens = rng.integers(5, lmax + 1, size=nlists)
+    lens[0] = lmax
+    list_rows = np.zeros((nlists, lmax), dtype=np.int32)
+    list_mask = np.zeros((nlists, lmax), dtype=bool)
+    for i, n in enumerate(lens):
+        list_rows[i, :n] = rng.choice(cap, size=n, replace=False)
+        list_mask[i, :n] = True
+    slot_ok = rng.random(cap) > 0.3
+    return (torch.from_numpy(x).to(corpus), torch.from_numpy(list_rows),
+            torch.from_numpy(list_mask), torch.from_numpy(slot_ok))
+
+
+def _gather(lib, q, x, probes, list_rows, list_mask, slot_ok, metric):
+    code, p = D._metric_code(metric)
+    nq, nprobe = probes.shape
+    lmax = list_rows.shape[1]
+    out = torch.empty((nq, nprobe * lmax))
+    status = lib.ivf_gather_distance(
+        q.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16), x.shape[0], x.shape[1],
+        code, p, probes.data_ptr(), nq, nprobe, list_rows.data_ptr(),
+        list_mask.view(torch.uint8).data_ptr(), lmax, slot_ok.view(torch.uint8).data_ptr(),
+        out.data_ptr(), None,
+    )
+    assert status == 0
+    return out
+
+
+@pytest.mark.parametrize("corpus", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("metric", list(D.METRICS) + ["minkowski:3"])
+def test_k3_gather_distance_matches_plain(lib, metric, corpus):
+    rng = np.random.default_rng(len(metric))
+    x, list_rows, list_mask, slot_ok = _ivf_case(rng, corpus, metric)
+    q = torch.from_numpy(rng.standard_normal((3, x.shape[1])).astype(np.float32))
+    if metric == "jaccard":
+        q = q.abs()
+    probes = torch.tensor([[0, 3, 7, 1], [2, 9, 0, 5], [4, 6, 8, 3]], dtype=torch.int32)
+    got = _gather(lib, q, x, probes, list_rows, list_mask, slot_ok, metric)
+    lmax = list_rows.shape[1]
+    rows = list_rows[probes.long()].reshape(3, -1).long()
+    ok = list_mask[probes.long()].reshape(3, -1) & slot_ok[rows]
+    for i in range(3):
+        want = D.pairwise_distance_plain(q[i : i + 1], x[rows[i]], metric)[0]
+        want = torch.where(ok[i], want, torch.full_like(want, float("inf")))
+        torch.testing.assert_close(got[i], want, rtol=1e-5, atol=1e-4, msg=metric)
+    assert got.shape == (3, 4 * lmax)
+
+
+def test_k3_map_slots_maps_positions_and_misses(lib):
+    list_rows = torch.arange(40, dtype=torch.int32).reshape(5, 8) * 3
+    probes = torch.tensor([[4, 1], [0, 2]], dtype=torch.int32)
+    sel_d = torch.tensor([[0.5, 1.0, float("inf")], [0.1, float("inf"), float("inf")]])
+    sel_i = torch.tensor([[3, 9, 15], [8, 0, 1]], dtype=torch.int32)
+    out = torch.empty((2, 3), dtype=torch.int32)
+    status = lib.ivf_map_slots(probes.data_ptr(), 2, 2, list_rows.data_ptr(), 8,
+                               sel_d.data_ptr(), sel_i.data_ptr(), 3, out.data_ptr(), None)
+    assert status == 0
+    want = torch.tensor([[list_rows[4, 3], list_rows[1, 1], -1], [list_rows[2, 0], -1, -1]],
+                        dtype=torch.int32)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("k", [3, 200])
+@pytest.mark.parametrize("metric", ["euclidean", "cosine", "pearson"])
+def test_k3_composed_search_matches_plain(lib, metric, k):
+    """The CUDA composition of _ivf_search (K2 probe, gather, K2 select,
+    slot mapping) under emulation against the plain version; k = 200 is
+    above the 4 x 32 candidates."""
+    rng = np.random.default_rng(5)
+    x, list_rows, list_mask, slot_ok = _ivf_case(rng, torch.float32, metric)
+    cents = torch.from_numpy(rng.standard_normal((10, x.shape[1])).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((4, x.shape[1])).astype(np.float32))
+    probe_metric = metric if metric in IVF._PROBE_METRICS else "euclidean"
+    nprobe, lmax = 4, list_rows.shape[1]
+    dc = _pairwise(lib, q, cents, probe_metric)
+    _, probes, _ = _select(lib, dc, torch.ones(10, dtype=torch.bool), nprobe)
+    dist = _gather(lib, q, x, probes, list_rows, list_mask, slot_ok, metric)
+    kk = min(k, nprobe * lmax)
+    vals, pos, _ = _select(lib, dist, torch.ones(nprobe * lmax, dtype=torch.bool), kk)
+    slots = torch.empty((4, kk), dtype=torch.int32)
+    assert lib.ivf_map_slots(probes.data_ptr(), 4, nprobe, list_rows.data_ptr(), lmax,
+                             vals.data_ptr(), pos.data_ptr(), kk, slots.data_ptr(), None) == 0
+    want_d, want_i = IVF.ivf_search_plain(q, cents, list_rows, list_mask, x, slot_ok, metric,
+                                          probe_metric, k, nprobe)
+    miss = torch.isinf(want_d)
+    assert torch.equal(torch.isinf(vals), miss) and torch.equal(slots[miss], want_i[miss])
+    torch.testing.assert_close(vals[~miss], want_d[~miss], rtol=1e-5, atol=1e-4)
+    for r in range(4):
+        kth = float(want_d[r][~miss[r]].max())
+        for c in (slots[r] != want_i[r]).nonzero()[:, 0].tolist():
+            assert abs(float(vals[r, c]) - kth) <= 1e-4 + 1e-5 * abs(kth)
