@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of surrealdb_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py                  # full size: 2^20 x 768 corpora
+    python3 chip_smoke.py                  # full size: 2^20 x 768 corpora and
+                                           # the 1M-edge graph
     python3 chip_smoke.py --rows 262144    # a cut MTREE corpus (record the cut)
     python3 chip_smoke.py --cpu-rehearsal  # tiny, on the CPU, plain versions;
                                            # exits 1 and prints no result
@@ -23,7 +24,15 @@ Phases, one JSON line each (or more):
    quantizer trains (K4, K5), every timed query takes `ivf` (K1+K2 probe,
    K3 rerank), launch counts equal the dispatched tiles, device recall@10
    lies within 0.01 of the host twin's (IvfState.search_host); then K3
-   against its plain version and its times, on the trained state.
+   against its plain version and its times, on the trained state;
+5. the graph kernels K6 graph_chain, K7 graph_csc_count and K8
+   graph_dense_count against their plain versions, exactly, on bench config
+   1's adjacency (10,000 `person` nodes, 1,000,000 `knows` edges), and their
+   times;
+6. the graph main path: config 1 ingested with INSERT / INSERT RELATION,
+   then `count(->knows->person x3)` (K8) sequentially and from 32 clients,
+   the odd 5-spec count (K7) and the friends-of-friends expand (K6); every
+   answer equals an independent numpy reference built from the same pairs.
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`. Any failure exits non-zero. This
@@ -579,10 +588,11 @@ def strategy_delta(before: dict) -> dict:
 
 
 def kernel_counters():
+    from surrealdb_tpu_torch.idx import graph_csr as G
     from surrealdb_tpu_torch.idx import ivf as IVF
     from surrealdb_tpu_torch.ops import distances as D
 
-    return D.KERNELS + IVF.KERNELS
+    return D.KERNELS + IVF.KERNELS + G.KERNELS
 
 
 def read_launches() -> dict:
@@ -909,13 +919,486 @@ def phase_main_path_hnsw(torch, device: str, corpus, queries, truth, batch: int,
         emit("main_path_hnsw", **out)
         out["run_launches"] = read_launches()
         if device == "cuda":
-            require(all(v > 0 for v in out["run_launches"].values()),
-                    f"a kernel of the HNSW path never launched: {out['run_launches']}")
+            from surrealdb_tpu_torch.idx import ivf as IVF
+            from surrealdb_tpu_torch.ops import distances as D
+
+            path = {c.name: out["run_launches"][c.name] for c in D.KERNELS + IVF.KERNELS}
+            require(all(v > 0 for v in path.values()),
+                    f"a kernel of the HNSW path never launched: {path}")
         fresh = make_queries(corpus, 64, 7, noise=CLUSTER_SIGMA)
         k3_err, k3_checks, probe_ties = check_ivf_search(torch, ivf, matrix, fresh, nprobe)
         out.update(k3_err=k3_err, k3_checks=k3_checks, k3_probe_tie_queries=probe_ties)
         if device == "cuda":
             out["k3_timing"] = time_ivf_search(torch, ivf, matrix, queries, nprobe, k, dim)
+        return out
+    finally:
+        ds.close()
+
+
+# ------------------------------------------------------------------ graph
+GRAPH_NODES = 10_000  # bench.py NP_NODES at scale 1 (config 1)
+GRAPH_EDGES = 1_000_000  # bench.py NE at scale 1
+GRAPH_BATCH = 25_000  # bench.py ingest_person_graph's batch
+CHAIN3 = "->knows->person->knows->person->knows->person"  # bench_graph_3hop
+CHAIN5 = "->knows->person->knows->person->knows"  # odd: the CSC route, same count
+CHAIN2 = "->knows->person->knows->person"  # friends of friends, expanded
+
+
+def graph_pairs(nodes: int, edges: int, seed: int = 1):
+    """The `knows` pairs of bench.py ingest_person_graph: uniform (in, out)
+    person ids."""
+    return np.random.default_rng(seed).integers(0, nodes, size=(edges, 2))
+
+
+class GraphReference:
+    """Independent numpy counts over the pairs (not the port's host twin):
+    v <- bincount(dst, weights=v[src]) a hop, exact in float64."""
+
+    def __init__(self, pairs, nodes: int):
+        self.a, self.b, self.nodes = pairs[:, 0], pairs[:, 1], nodes
+
+    def hops(self, seed: int, n: int):
+        v = np.zeros(self.nodes)
+        v[seed] = 1.0
+        out = []
+        for _ in range(n):
+            v = np.bincount(self.b, weights=v[self.a], minlength=self.nodes)
+            out.append(v)
+        return out
+
+    def count3(self, seed: int) -> int:
+        return int(self.hops(seed, 3)[-1].sum())
+
+    def edges_per_seed(self, seed: int) -> int:
+        """bench.py bench_graph_3hop: the 1-, 2- and 3-hop path counts summed."""
+        return int(sum(v.sum() for v in self.hops(seed, 3)))
+
+    def fof_frontiers(self, seed: int):
+        """Frontier sizes before each of CHAIN2's four hops: the seed, its
+        edge records, the distinct persons they reach, their edge records."""
+        deg = np.bincount(self.a, minlength=self.nodes)
+        reached = self.hops(seed, 1)[0] > 0
+        return [1, int(deg[seed]), int(reached.sum()), int(deg[reached].sum())]
+
+    def fof(self, seed: int) -> dict:
+        v = self.hops(seed, 2)[-1]
+        return {int(i): int(v[i]) for i in np.nonzero(v)[0]}
+
+
+def graph_arrays(pairs, nodes: int):
+    """Config 1's adjacency as the mirrors hold it, built directly from the
+    pairs: person p has intern id p, the record of edge i id nodes + i.
+    Returns the person->knows and knows->person CSRs (pow2 padded), their
+    max degrees, n_cap, and the composed person->person operator (the
+    dense pair's A, 128-padded) with its row sums."""
+    from surrealdb_tpu_torch.utils.num import next_pow2
+
+    e = pairs.shape[0]
+    n_cap = next_pow2(nodes + e)
+    width = next_pow2(e)
+
+    def csr(src, dst):
+        order = np.argsort(src, kind="stable")
+        indptr = np.zeros(n_cap + 1, dtype=np.int64)
+        np.add.at(indptr, src + 1, 1)
+        deg_max = int(indptr.max())
+        indptr = np.cumsum(indptr).astype(np.int32)
+        indices = np.zeros(width, dtype=np.int32)
+        indices[:e] = dst[order]
+        return indptr, indices, deg_max
+
+    rec = np.arange(nodes, nodes + e)
+    pk = csr(pairs[:, 0], rec)
+    kp = csr(rec, pairs[:, 1])
+    n0 = max(((nodes + 127) // 128) * 128, 128)
+    A = np.bincount(pairs[:, 0] * n0 + pairs[:, 1], minlength=n0 * n0).reshape(n0, n0)
+    return dict(pk=pk, kp=kp, n_cap=n_cap, n0=n0, A=A.astype(np.float32),
+                outdeg=A.sum(axis=1).astype(np.float32))
+
+
+def fof_frontier(arrs, seed: int):
+    """The frontier K6 takes on the main path: the knows records reached by
+    the first three host hops of CHAIN2 from `seed`, with their path counts."""
+    pk_ptr, pk_idx, _ = arrs["pk"]
+    kp_ptr, kp_idx, _ = arrs["kp"]
+    cnt = {}
+    for r in pk_idx[pk_ptr[seed]:pk_ptr[seed + 1]]:
+        p = int(kp_idx[kp_ptr[r]])
+        for r2 in pk_idx[pk_ptr[p]:pk_ptr[p + 1]]:
+            cnt[int(r2)] = cnt.get(int(r2), 0) + 1
+    nodes = np.array(sorted(cnt), dtype=np.int32)
+    return nodes, np.array([cnt[int(i)] for i in nodes], dtype=np.int32)
+
+
+def _equal(a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(_equal(x, y) for x, y in zip(a, b))
+    return bool(a.shape == b.shape and a.dtype == b.dtype and (a == b).all())
+
+
+def _max_abs(a, b) -> float:
+    if isinstance(a, tuple):
+        return max(_max_abs(x, y) for x, y in zip(a, b))
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def phase_graph_kernels(torch):
+    """K6, K7 and K8 against their plain versions on the card, exactly, on
+    config 1's adjacency; then median times at the main path's shapes
+    beside their bounds, the plain versions and (K8) torch's product."""
+    from surrealdb_tpu_torch import cnf
+    from surrealdb_tpu_torch.idx import graph_csr as G
+    from surrealdb_tpu_torch.utils.num import next_pow2
+
+    dev = torch.device("cuda", 0)
+    nodes = GRAPH_NODES
+    pairs = graph_pairs(nodes, GRAPH_EDGES)
+    arrs = graph_arrays(pairs, nodes)
+    n_cap, n0 = arrs["n_cap"], arrs["n0"]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    pk = (t(arrs["pk"][0]), t(arrs["pk"][1]))
+    kp = (t(arrs["kp"][0]), t(arrs["kp"][1]))
+    pk_csc = tuple(t(a) for a in G.csc_arrays(arrs["pk"][0], arrs["pk"][1]))
+    kp_csc = tuple(t(a) for a in G.csc_arrays(arrs["kp"][0], arrs["kp"][1]))
+    A = torch.from_numpy(arrs["A"]).to(dev).to(torch.bfloat16)
+    outdeg = t(arrs["outdeg"])
+    fsz = next_pow2(max(1, cnf.TPU_GRAPH_FRONTIER_PAD))
+    rng = np.random.default_rng(5)
+
+    def seeds(lanes, pad, per_lane):
+        fr = np.full((lanes, fsz), pad, dtype=np.int32)
+        cw = np.zeros((lanes, fsz), dtype=np.int32)
+        for b in range(lanes - 3):  # the last lanes stay empty, as padding lanes do
+            k = 1 + b % per_lane
+            fr[b, :k] = rng.integers(0, nodes, k)
+            cw[b, :k] = rng.integers(1, 3, k) if per_lane > 1 else 1
+        return t(fr), t(cw)
+
+    err = {"graph_dense_count": 0.0, "graph_csc_count": 0.0, "graph_chain": 0.0}
+    checks = []
+
+    def check(name, label, got, want):
+        torch.cuda.synchronize()
+        ok = _equal(got, want)
+        err[name] = max(err[name], _max_abs(got, want))
+        checks.append(dict(kernel=name, case=label, exact=ok))
+        emit("graph_check", kernel=name, case=label, exact=ok)
+        require(ok, f"{name} {label} differs from its plain version")
+
+    for lanes in (32, 64):
+        fr, cw = seeds(lanes, n0, 2)
+        for prods in (1, 2):
+            As = (A,) * prods
+            check("graph_dense_count", f"lanes{lanes}_products{prods}",
+                  G.dense_count_batch(As, outdeg, fr, cw, n0),
+                  G.dense_count_batch_plain(As, outdeg, fr, cw, n0))
+    fr, cw = seeds(32, n_cap, 3)
+    for hops in range(1, 5):
+        csc = tuple((pk_csc,) if i % 2 == 0 else (kp_csc,) for i in range(hops))
+        last = ((pk[0],),) if hops % 2 == 0 else ((kp[0],),)
+        check("graph_csc_count", f"lanes32_csc_hops{hops}",
+              G.chain_count_batch(csc, last, fr, cw, n_cap),
+              G.chain_count_batch_plain(csc, last, fr, cw, n_cap))
+    fnodes, fcounts = fof_frontier(arrs, int(rng.integers(0, nodes)))
+    ffsz = next_pow2(max(fnodes.size, fsz))
+    f1 = np.full(ffsz, n_cap, dtype=np.int32)
+    f1[: fnodes.size] = fnodes
+    c1 = np.zeros(ffsz, dtype=np.int32)
+    c1[: fcounts.size] = fcounts
+    f1, c1 = t(f1), t(c1)
+    md_pk = next_pow2(max(arrs["pk"][2], 1))
+    one = ((kp,),)
+    three = ((kp,), (pk,), (kp,))
+    out1 = (ffsz,)
+    out3 = (ffsz, next_pow2(min(ffsz * md_pk, n_cap)), n_cap)
+    for label, hops, mds, outs, count_only in (
+        ("expand_1spec", one, ((1,),), out1, False),
+        ("expand_3spec", three, ((1,), (md_pk,), (1,)), out3, False),
+        ("count_3spec", three, ((1,), (md_pk,), (1,)), out3, True),
+    ):
+        check("graph_chain", f"{label}_fsz{ffsz}_outs{'-'.join(map(str, outs))}",
+              G.chain_kernel(hops, f1, c1, mds, n_cap, outs, count_only),
+              G.chain_plain(hops, f1, c1, mds, n_cap, outs, count_only))
+
+    # times at the main path's shapes: K8 a 3-hop count at 32 lanes (two
+    # products), K7 the 5-spec count at 32 lanes (four CSC hops), K6 the
+    # friends-of-friends expand's device hop
+    fr, cw = seeds(32, n0, 1)
+    As = (A, A)
+    Af = A.float()
+    xd = torch.zeros((32, n0 + 1), device=dev).scatter_add_(
+        1, torch.where(cw > 0, fr.long().clamp(0, n0), n0), cw.float())[:, :n0].contiguous()
+    # K8's floor: the bf16 operator read once per product. The function needs
+    # only the regrouped x @ (A @ (A @ outdeg)), 2 n0^2 FMAs, so the bytes
+    # bound it; the kernel's own x @ A @ A form does 2 x 32 n0^2 FMAs, kept
+    # as design_ops_ms beside it.
+    b_bytes = 2 * A.numel() * 2 + n0 * 4 + 2 * fr.numel() * 4 + 32 * 4
+    b_ops = 2 * 2.0 * n0 * n0 + 2.0 * 32 * n0
+    k8_bound, k8_by = bound_ms(b_bytes, b_ops, "float32")
+    design_ops = 2 * 2.0 * 32 * n0 * n0 + 2.0 * 32 * n0
+    lib = lambda: torch.matmul(torch.matmul(torch.matmul(xd, Af), Af), outdeg)  # noqa: E731
+    timing = {"graph_dense_count": dict(
+        ms=median_ms(lambda: G.dense_count_batch(As, outdeg, fr, cw, n0)),
+        plain_ms=median_ms(lambda: G.dense_count_batch_plain(As, outdeg, fr, cw, n0), iters=5),
+        # the kernel's shape in f32 (TF32 off): two [32, n0] x [n0, n0] products, then the dot
+        library_ms=median_ms(lib),
+        library_max_abs_err=_max_abs(lib(), G.dense_count_batch(As, outdeg, fr, cw, n0)),
+        regrouped_multi_dot_ms=median_ms(
+            lambda: torch.linalg.multi_dot([xd, Af, Af, outdeg[:, None]])),
+        bound_ms=k8_bound, bound_by=k8_by,
+        design_ops_ms=design_ops / PEAK_FLOPS["float32"] * 1e3,
+        shape={"lanes": 32, "fsz": fsz, "n0": n0, "products": 2},
+    )}
+    del Af
+    fr, cw = seeds(32, n_cap, 1)
+    csc = ((pk_csc,), (kp_csc,), (pk_csc,), (kp_csc,))
+    last = ((pk[0],),)
+    in_bytes = sum(a.numel() * 4 for hop in csc for pair in hop for a in pair)
+    in_bytes += pk[0].numel() * 4 + 2 * fr.numel() * 4 + 32 * 4
+    x_bytes = 4 * 2 * (n_cap + 1) * 32 * 4  # the lane-minor x written and read back a hop
+    k7_ops = 32.0 * (sum(int(pair[1].numel()) for hop in csc for pair in hop) + 2 * n_cap)
+    k7_bound, k7_by = bound_ms(in_bytes, k7_ops, "float32")
+    timing["graph_csc_count"] = dict(
+        ms=median_ms(lambda: G.chain_count_batch(csc, last, fr, cw, n_cap)),
+        plain_ms=median_ms(lambda: G.chain_count_batch_plain(csc, last, fr, cw, n_cap), iters=5),
+        library_ms=None, bound_ms=k7_bound, bound_by=k7_by,
+        bound_with_x_ms=bound_ms(in_bytes + x_bytes, k7_ops, "float32")[0],
+        shape={"lanes": 32, "fsz": fsz, "n_cap": n_cap, "csc_hops": 4},
+    )
+    # K6's bytes are this frontier's: its entries, their two pointers each,
+    # the adjacency entries it gathers, and the outputs
+    kp_ptr = arrs["kp"][0]
+    touched = int(np.minimum(kp_ptr[fnodes + 1] - kp_ptr[fnodes], 1).sum())
+    k6_bytes = 2 * ffsz * 4 + 2 * int(fnodes.size) * 4 + touched * 4 + 2 * ffsz * 4
+    k6_bound, k6_by = bound_ms(k6_bytes, float(touched), "float32")
+    timing["graph_chain"] = dict(
+        ms=median_ms(lambda: G.chain_kernel(one, f1, c1, ((1,),), n_cap, out1, False)),
+        plain_ms=median_ms(lambda: G.chain_plain(one, f1, c1, ((1,),), n_cap, out1, False),
+                           iters=5),
+        library_ms=None, bound_ms=k6_bound, bound_by=k6_by,
+        shape={"fsz": ffsz, "frontier": int(fnodes.size), "n_cap": n_cap, "md": 1,
+               "out_size": ffsz},
+    )
+    emit("timing_graph", **timing)
+    return {"checks": checks, "max_abs_err": err, "timing": timing}
+
+
+GRAPH_ROUTES = {"graph_dense": "graph_dense_count", "graph_csc": "graph_csc_count",
+                "graph_chain": "graph_chain"}  # compile_log subsystem -> its kernel
+
+
+def graph_routes() -> dict:
+    """Calls of each graph kernel site so far (compile_log counts every
+    tracked call once under compile_cache: a miss, hit or wait), on either
+    device."""
+    from surrealdb_tpu_torch import telemetry
+
+    counters = telemetry.snapshot()["counters"]
+    return {sub: sum(v for k, v in counters.items()
+                     if k.startswith("compile_cache{") and f'subsystem="{sub}"' in k)
+            for sub in GRAPH_ROUTES}
+
+
+def check_graph_window(device, r0, l0, want: dict, what: str):
+    """The window between snapshots r0/l0 and now went through exactly the
+    `want` calls of each graph site; on the card, each call was one launch
+    of its kernel."""
+    r1, l1 = graph_routes(), read_launches()
+    calls = {sub: r1[sub] - r0[sub] for sub in GRAPH_ROUTES}
+    require(calls == {sub: float(want.get(sub, 0)) for sub in GRAPH_ROUTES},
+            f"{what}: graph sites called {calls}, expected {want}")
+    if device == "cuda":
+        launches = {k: l1[k] - l0[k] for k in GRAPH_ROUTES.values()}
+        require(launches == {GRAPH_ROUTES[sub]: int(c) for sub, c in calls.items()},
+                f"{what}: launches {launches} for site calls {calls}")
+    return calls
+
+
+def prewarm_errors() -> float:
+    from surrealdb_tpu_torch import telemetry
+
+    return sum(v for k, v in telemetry.snapshot()["counters"].items()
+               if k.startswith("prewarm_errors"))
+
+
+def phase_main_path_graph(torch, device: str, nodes: int, edges: int, batch: int,
+                          n_seq: int, n_threads: int, rounds: int, n_odd: int = 8,
+                          n_fof: int = 8):
+    """Bench config 1 through Datastore.execute: ingest as bench.py
+    ingest_person_graph does, join the ingest-armed mirror build and kernel
+    prewarm, then the 3-hop count (K8) sequentially and from n_threads
+    clients, the 5-spec count (K7) and the 2-hop expand (K6). Every answer
+    must equal GraphReference's."""
+    from surrealdb_tpu_torch import cnf
+    from surrealdb_tpu_torch.idx import graph_csr as G
+    from surrealdb_tpu_torch.kvs.ds import Datastore
+    from surrealdb_tpu_torch.sql.value import Thing
+
+    pairs = graph_pairs(nodes, edges)
+    ref = GraphReference(pairs, nodes)
+    rng = np.random.default_rng(11)
+    seq_seeds = rng.integers(0, nodes, n_seq).tolist()
+    conc_seeds = rng.integers(0, nodes, n_threads * rounds).tolist()
+    odd_seeds = rng.integers(0, nodes, n_odd).tolist()
+    fof_seeds = rng.integers(0, nodes, n_fof).tolist()
+    t = time.perf_counter()
+    edges_of = {s: ref.edges_per_seed(s) for s in set(seq_seeds + conc_seeds)}
+    ref_s = time.perf_counter() - t
+    errors0 = prewarm_errors()
+    ds = Datastore("memory", device=device)
+    try:
+        gm = ds.graph_mirrors
+        builds = []  # (what, seconds) of the mirror and dense-operator builds
+
+        def timed(name, fn):
+            def wrapper(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    dt = time.perf_counter() - t0
+                    if dt > 0.01:  # a cache hit returns in microseconds
+                        builds.append((name, dt))
+            return wrapper
+
+        gm.build_table = timed("mirror_build", gm.build_table)
+        gm._dense_pair = timed("dense_operator_build", gm._dense_pair)
+        run = sql_runner(ds)
+        reset_launches()  # the graph path's run: ingest-time prewarm and queries
+        run("DEFINE TABLE person SCHEMALESS; DEFINE TABLE knows SCHEMALESS")
+        t = time.perf_counter()
+        for i in range(0, nodes, batch):
+            run("INSERT INTO person $rows RETURN NONE",
+                {"rows": [{"id": j} for j in range(i, min(i + batch, nodes))]})
+        for i in range(0, edges, batch):
+            run("INSERT RELATION INTO knows $rows RETURN NONE",
+                {"rows": [{"in": Thing("person", int(a)), "out": Thing("person", int(b))}
+                          for a, b in pairs[i:i + batch]]})
+        ingest_s = time.perf_counter() - t
+        t = time.perf_counter()
+        require(gm.wait_prewarm(timeout=600), "graph prewarm did not finish in 600 s")
+        prewarm_wait_s = time.perf_counter() - t
+        errors = prewarm_errors() - errors0
+        require(errors == 0, f"{errors} graph prewarm errors (a kernel failed to build or launch)")
+
+        def count(chain, seed):
+            res = run(f"SELECT count({chain}) AS c FROM person:{seed}")
+            return res[0]["c"]
+
+        t = time.perf_counter()
+        first = count(CHAIN3, seq_seeds[0])
+        first_query_s = time.perf_counter() - t
+        require(first == ref.count3(seq_seeds[0]), "first 3-hop count differs from the reference")
+        mem0 = window_start(torch, device)
+        # what holds device memory beyond this phase's own (the 10,112^2
+        # bf16 operator, 204.5 MB, and the mirrors' int32 arrays)
+        held = large_device_tensors(torch) if device == "cuda" and mem0 > 1 << 30 else None
+        d0, r0, l0 = ds.dispatch.stats()["dispatches"], graph_routes(), read_launches()
+        seq_lat = []
+        with GcPauses() as gcp:  # a full collection over the stored graph stalls queries
+            for s in seq_seeds:
+                t = time.perf_counter()
+                got = count(CHAIN3, s)
+                seq_lat.append(time.perf_counter() - t)
+                require(got == ref.count3(s), f"3-hop count of person:{s}: {got} != {ref.count3(s)}")
+            widths0 = ds.dispatch.width_distribution()
+            conc_lat, conc_err, lock = [], [], threading.Lock()
+            results = {}
+
+            def client(i):
+                try:
+                    for r in range(rounds):
+                        s = conc_seeds[i * rounds + r]
+                        t1 = time.perf_counter()
+                        got = count(CHAIN3, s)
+                        with lock:
+                            conc_lat.append(time.perf_counter() - t1)
+                            results[(i, r)] = (s, got)
+                except BaseException as e:  # noqa: BLE001 — re-raised below
+                    conc_err.append(e)
+
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(n_threads)]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            conc_wall = time.perf_counter() - t
+        require(not any(th.is_alive() for th in threads), "graph clients hung")
+        if conc_err:
+            raise conc_err[0]
+        for s, got in results.values():
+            require(got == ref.count3(s), f"concurrent 3-hop count of person:{s} differs")
+        widths = {w: c - widths0.get(w, 0) for w, c in ds.dispatch.width_distribution().items()
+                  if c - widths0.get(w, 0)}
+        dense_calls = check_graph_window(device, r0, l0,
+                                         {"graph_dense": ds.dispatch.stats()["dispatches"] - d0},
+                                         "3-hop window")["graph_dense"]
+        busy = device_busy_share(torch, lambda: [count(CHAIN3, s) for s in seq_seeds[:8]]) \
+            if device == "cuda" else None
+
+        r0, l0 = graph_routes(), read_launches()
+        odd_lat = []
+        for s in odd_seeds:
+            t = time.perf_counter()
+            got = count(CHAIN5, s)
+            odd_lat.append(time.perf_counter() - t)
+            require(got == ref.count3(s), f"5-spec count of person:{s}: {got} != {ref.count3(s)}")
+        check_graph_window(device, r0, l0, {"graph_csc": len(odd_seeds)}, "5-spec window")
+
+        it = gm.interner("test", "test")
+        r0, l0 = graph_routes(), read_launches()
+        fof_lat, fof_sizes = [], []
+        for s in fof_seeds:
+            t = time.perf_counter()
+            res = run(f"SELECT {CHAIN2} AS f FROM person:{s}")
+            fof_lat.append(time.perf_counter() - t)
+            got = res[0]["f"]
+            want = ref.fof(s)
+            multiset = {}
+            for th in got:
+                require(th.tb == "person", f"expand of person:{s} returned {th}")
+                multiset[int(th.id)] = multiset.get(int(th.id), 0) + 1
+            require(multiset == want, f"expand of person:{s} differs from the reference")
+            ids = [it.lookup(th) for th in got]
+            require(ids == sorted(ids), f"expand of person:{s} is not in ascending intern order")
+            fof_sizes.append(len(got))
+        # one device call for each expand whose frontier reaches the
+        # on-device threshold (every seed at config 1's size)
+        on_device = sum(max(ref.fof_frontiers(s)) >= cnf.TPU_GRAPH_ONDEVICE_THRESHOLD
+                        for s in fof_seeds)
+        check_graph_window(device, r0, l0, {"graph_chain": on_device}, "expand window")
+        run_launches = read_launches()
+        if device == "cuda":
+            path = {c.name: run_launches[c.name] for c in G.KERNELS}
+            require(all(v > 0 for v in path.values()),
+                    f"a kernel of the graph path never launched: {path}")
+        seq_edges = sum(edges_of[s] for s in seq_seeds)
+        conc_edges = sum(edges_of[s] for s in conc_seeds)
+        out = dict(
+            nodes=nodes, edges=edges, device=str(ds.device), n_cap=len(it),
+            ingest_rows=nodes + edges, ingest_s=ingest_s,
+            ingest_rows_per_s=(nodes + edges) / ingest_s,
+            prewarm_wait_s=prewarm_wait_s, builds=builds, reference_s=ref_s,
+            first_query_s=first_query_s,
+            seq_queries=len(seq_seeds), seq_p50_ms=statistics.median(seq_lat) * 1e3,
+            seq_max_ms=max(seq_lat) * 1e3, seq_slowest=int(np.argmax(seq_lat)),
+            seq_edges_per_s=seq_edges / sum(seq_lat), gc_pauses=gcp.summary(),
+            concurrent_clients=n_threads, rounds=rounds,
+            conc_p50_ms=statistics.median(conc_lat) * 1e3,
+            conc_edges_per_s=conc_edges / conc_wall, conc_qps=len(conc_lat) / conc_wall,
+            mean_edges_per_seed=conc_edges / len(conc_seeds),
+            dispatch_widths={str(w): c for w, c in sorted(widths.items())},
+            dense_dispatches_3hop=dense_calls,
+            odd_queries=len(odd_seeds), odd_p50_ms=statistics.median(odd_lat) * 1e3,
+            fof_queries=len(fof_seeds), fof_on_device=on_device, fof_p50_ms=statistics.median(fof_lat) * 1e3,
+            fof_mean_results=float(np.mean(fof_sizes)), run_launches=run_launches,
+            profiled_8_seq_queries=busy,
+            peak_device_memory_bytes=(torch.cuda.max_memory_allocated()
+                                      if device == "cuda" else None),
+            device_memory_at_window_start_bytes=mem0, large_tensors_at_window_start=held,
+        )
+        emit("main_path_graph", **out)
         return out
     finally:
         ds.close()
@@ -934,7 +1417,7 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", type=int, default=1 << 20,
                     help="MTREE corpus rows (the HNSW phase always runs at 2^20)")
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run both main paths tiny on the CPU (plain versions); exits 1")
+                    help="run the main paths tiny on the CPU (plain versions); exits 1")
     args = ap.parse_args(argv)
 
     import torch
@@ -952,6 +1435,12 @@ def main(argv=None) -> int:
                         n_seq=4, n_threads=8, rounds=2)
         phase_main_path_hnsw(torch, "cpu", corpus, queries, truth, batch=1000,
                              n_seq=4, n_threads=8, rounds=2)
+        # 200 nodes x 4,000 edges: the thresholds come down so every device
+        # branch of the graph path runs (its plain versions)
+        cnf.TPU_GRAPH_COUNT_EDGES = 1000
+        cnf.TPU_GRAPH_ONDEVICE_THRESHOLD = 64
+        phase_main_path_graph(torch, "cpu", 200, 4000, batch=1000, n_seq=4, n_threads=8,
+                              rounds=2, n_odd=2, n_fof=4)
         print("cpu rehearsal: no card, no result", file=sys.stderr)
         return 1
     if not torch.cuda.is_available():
@@ -974,6 +1463,8 @@ def main(argv=None) -> int:
         ivf_timing = phase_ivf_timing(torch, ivf_inputs, DIM)
         del ivf_inputs
         torch.cuda.empty_cache()
+        graph_k = phase_graph_kernels(torch)
+        torch.cuda.empty_cache()
         corpus = gen_corpus(full, DIM)
         queries = make_queries(corpus, 24 + 32 * 2, 42)
         t = time.perf_counter()
@@ -986,6 +1477,11 @@ def main(argv=None) -> int:
         gc.collect()
         hnsw = phase_main_path_hnsw(torch, "cuda", corpus, queries, truth, batch=20_000,
                                     n_seq=24, n_threads=32, rounds=2)
+        del corpus
+        gc.collect()
+        torch.cuda.empty_cache()
+        graph = phase_main_path_graph(torch, "cuda", GRAPH_NODES, GRAPH_EDGES, GRAPH_BATCH,
+                                      n_seq=24, n_threads=32, rounds=2)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1032,6 +1528,20 @@ def main(argv=None) -> int:
         {"by_variant": {"rows_k1 (surrealdb_tpu/idx/ivf.py:71)":
                         ivf_timing["ivf_assign_rows_k1"]}},
     ))
+    graph_shape = {"nodes": GRAPH_NODES, "edges": GRAPH_EDGES}
+    for name, kern, replaces in (
+        ("K6 chain_kernel (graph_chain)", "graph_chain", "surrealdb_tpu/idx/graph_csr.py:272"),
+        ("K7 chain_count_batch (graph_csc_count)", "graph_csc_count",
+         "surrealdb_tpu/idx/graph_csr.py:287"),
+        ("K8 dense_count_batch (graph_dense_count)", "graph_dense_count",
+         "surrealdb_tpu/idx/graph_csr.py:341"),
+    ):
+        tm = dict(graph_k["timing"][kern])
+        kernels.append(kernel_entry(
+            name, kern, "surrealdb_tpu_torch/csrc/graph.cu", replaces,
+            graph["run_launches"][kern], graph_k["max_abs_err"][kern],
+            {k: v for k, v in tm.items() if k != "shape"}, {**graph_shape, **tm["shape"]},
+        ))
     emit("done", seconds=time.perf_counter() - t_all)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

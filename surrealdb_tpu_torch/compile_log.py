@@ -5,7 +5,8 @@ Mirrors surrealdb_tpu/compile_log.py, where each new padded shape of a
 jitted kernel was an XLA compile. Here the kernels are built once per
 process (ops/_cuda.py, subsystem `kernel_build`) and each new launch shape
 is a first launch, which pays the build when it is the first of all. This
-module wraps the kernel call sites (idx/knn.py, idx/ivf.py):
+module wraps the kernel call sites (idx/knn.py, idx/ivf.py,
+idx/graph_csr.py):
 
 - the FIRST call per (subsystem, shape key) is the first launch: its
   duration, subsystem, shape and mode land in a bounded event log, a
@@ -33,15 +34,19 @@ from contextlib import contextmanager
 from typing import Any, Deque, Optional, Tuple
 
 # ---------------------------------------------------------------- registry
-# subsystem -> the kernel entry points (csrc/*.cu, through ops/distances.py
-# and idx/ivf.py) its tracked calls launch. Keys are EXACTLY the subsystem
-# strings passed to tracked().
+# subsystem -> the kernel entry points (csrc/*.cu, through ops/distances.py,
+# idx/ivf.py and idx/graph_csr.py) its tracked calls launch. Keys are
+# EXACTLY the subsystem strings passed to tracked().
 KERNEL_SITES = {
     "knn_exact": ("knn_pairwise", "knn_select"),
     "ivf": ("knn_pairwise", "knn_select", "ivf_gather_distance", "ivf_map_slots"),
+    "graph_dense": ("graph_dense_count",),
+    "graph_csc": ("graph_csc_count",),
+    "graph_chain": ("graph_chain",),
     "kernel_build": (
         "knn_pairwise", "knn_row_mean", "knn_select",
         "ivf_assign", "ivf_kmeans_update", "ivf_gather_distance", "ivf_map_slots",
+        "graph_dense_count", "graph_csc_count", "graph_chain",
     ),
 }
 

@@ -33,6 +33,7 @@ typedef int cudaError_t;
 typedef struct CUstream_st* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) { std::memset(p, v, n); return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emu"; }
 template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
 struct __nv_bfloat16 { unsigned short v; };
@@ -42,10 +43,13 @@ inline float __bfloat162float(__nv_bfloat16 b) { return __uint_as_float(((unsign
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __clz(int x) { return x == 0 ? 32 : __builtin_clz((unsigned)x); }
+struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
 struct float4 { float x, y, z, w; };
 template <class T> T __ldg(const T* p) { return *p; }
 inline unsigned atomicAdd(unsigned* p, unsigned v) { return std::atomic_ref<unsigned>(*p).fetch_add(v); }
+inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
+inline float atomicAdd(float* p, float v) { return std::atomic_ref<float>(*p).fetch_add(v); }
 
 struct EmuBlock {
   std::unique_ptr<std::barrier<>> block_bar;

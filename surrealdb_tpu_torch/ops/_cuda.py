@@ -57,6 +57,15 @@ _SIGNATURES = {
                                            ctypes.c_int, _P, _P, ctypes.c_int, _P, _P, _P]),
     "ivf_map_slots": (ctypes.c_int, [_P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
                                      _P, _P, ctypes.c_int, _P, _P]),
+    "graph_dense_count": (ctypes.c_int, [_P, _P, ctypes.c_int, _P, _P, _P, ctypes.c_int,
+                                         ctypes.c_int, _P, _P, _P, _P]),
+    "graph_csc_count": (ctypes.c_int, [_P, _P, _P, _P, _P, ctypes.c_int, _P, _P, ctypes.c_int,
+                                       _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                       _P, _P, _P, _P]),
+    "graph_chain": (ctypes.c_int, [_P, _P, _P, _P, _P, _P, ctypes.c_int, _P, _P, _P,
+                                   ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
+                                   _P, _P]),
+    "graph_compact_blocks": (ctypes.c_longlong, [ctypes.c_longlong]),
 }
 
 

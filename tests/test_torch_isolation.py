@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: no JAX, nothing of surrealdb_tpu, CUDA
-unless told otherwise, and no silent stand-in for an unported strategy."""
+unless told otherwise, and no silent stand-in for an unported strategy.
+The subprocess drives every ported path (MTREE, HNSW through IVF, and the
+graph path's count and expand branches) before it looks for a leak."""
 
 import os
 import re
@@ -35,6 +37,16 @@ ds.execute("SELECT id FROM vec WHERE emb <|3|> $q", vars={{"q": rows[1]["emb"]}}
 assert ds.index_stores.get("test", "test", "vec", "ih").wait_ivf(60)
 out = ds.execute("SELECT id FROM vec WHERE emb <|3|> $q", vars={{"q": rows[1]["emb"]}})
 assert out[-1]["status"] == "OK" and len(out[-1]["result"]) == 3, out
+# the graph path's device branches: K8 and K7 counts, a K6 expand
+cnf.TPU_GRAPH_COUNT_EDGES = 1
+cnf.TPU_GRAPH_ONDEVICE_THRESHOLD = 1
+ds.execute("CREATE p:0; CREATE p:1; CREATE p:2; RELATE p:0->knows->p:1; RELATE p:1->knows->p:2")
+out = ds.execute("SELECT count(->knows->p->knows->p) AS c FROM p:0")
+assert out[-1]["result"] == [{{"c": 1}}], out
+out = ds.execute("SELECT count(->knows->p->knows) AS c FROM p:0")
+assert out[-1]["result"] == [{{"c": 1}}], out
+out = ds.execute("SELECT VALUE ->knows->p->knows->p FROM p:0")
+assert [t.id for t in out[-1]["result"][0]] == [2], out
 ds.close()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "ml_dtypes"))

@@ -1,6 +1,6 @@
-"""The CUDA kernels' logic (surrealdb_tpu_torch/csrc/knn.cu and ivf.cu), run
-on the CPU under the emulation header csrc/emu/cuda_emu.h and held against
-the plain PyTorch versions.
+"""The CUDA kernels' logic (surrealdb_tpu_torch/csrc/knn.cu, ivf.cu and
+graph.cu), run on the CPU under the emulation header csrc/emu/cuda_emu.h and
+held against the plain PyTorch versions.
 
 The source is compiled with the host C++ compiler: CUDA qualifiers become
 no-ops, `__shared__` arrays become function statics (blocks run one after
@@ -15,7 +15,8 @@ in another order); K2 exact, since both sides select from the same
 distances; the K5 assignment's ids exact except where two centroids' distances
 tie within that tolerance; the K4 update's counts exact and its centroids
 bit-equal to the CPU's index_add_, which adds in row order as the kernel
-must; the slot mapping exact.
+must; the slot mapping exact; the graph kernels (K6-K8) exact: integer
+counts, node ids and their order.
 """
 
 import ctypes
@@ -28,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from surrealdb_tpu_torch.idx import graph_csr as G
 from surrealdb_tpu_torch.idx import ivf as IVF
 from surrealdb_tpu_torch.ops import _cuda
 from surrealdb_tpu_torch.ops import distances as D
@@ -55,7 +57,7 @@ def lib(tmp_path_factory):
         pytest.skip("no g++ to build the emulated kernels")
     out = tmp_path_factory.mktemp("kernels_emu")
     cpps = []
-    for name in ("knn.cu", "ivf.cu"):
+    for name in ("knn.cu", "ivf.cu", "graph.cu"):
         cpp = out / name.replace(".cu", "_emu.cpp")
         with open(os.path.join(CSRC, name)) as f:
             cpp.write_text(_translate(f.read()))
@@ -347,3 +349,150 @@ def test_k3_composed_search_matches_plain(lib, metric, k):
         kth = float(want_d[r][~miss[r]].max())
         for c in (slots[r] != want_i[r]).nonzero()[:, 0].tolist():
             assert abs(float(vals[r, c]) - kth) <= 1e-4 + 1e-5 * abs(kth)
+
+
+# ------------------------------------------------------------------ graph
+
+
+def _csr(rng, n_nodes, cap, n_edges):
+    """A pow2-padded CSR over node ids < n_nodes (cap >= n_nodes): random
+    edges, some parallel, node 1 isolated, as PointerCsr.ensure_arrays lays
+    it out; returns (indptr, indices, pow2 max degree)."""
+    src = rng.integers(0, n_nodes, n_edges)
+    dst = rng.integers(0, n_nodes, n_edges)
+    src[:6], dst[:6] = src[0], dst[0]
+    src[src == 1] = 2
+    order = np.argsort(src, kind="stable")
+    indptr = np.zeros(cap + 1, dtype=np.int64)
+    np.add.at(indptr, src + 1, 1)
+    md = 1 << max(int(indptr.max()) - 1, 0).bit_length()
+    indptr = np.cumsum(indptr).astype(np.int32)
+    indices = np.zeros(1 << max(n_edges - 1, 0).bit_length(), dtype=np.int32)
+    indices[:n_edges] = dst[order]
+    return torch.from_numpy(indptr), torch.from_numpy(indices), md
+
+
+def _frontier(rng, n, width, fill, k):
+    """k seeds (some with zero weight, one negative id), the rest sentinels."""
+    fr = np.full(width, fill, dtype=np.int32)
+    w = np.zeros(width, dtype=np.int32)
+    fr[:k] = rng.integers(0, n, k)
+    w[:k] = rng.integers(0, 4, k)
+    fr[k // 2] = -3  # clipped to node 0
+    return torch.from_numpy(fr), torch.from_numpy(w)
+
+
+def _chain_cases():
+    # (label, n_nodes, n_cap, mirror caps per hop, out_sizes, frontier width)
+    return [
+        ("one hop, one mirror", 150, 256, [[256]], [256], 64),
+        ("two hops, two mirrors", 150, 256, [[256], [256, 256]], [256, 128], 64),
+        ("truncated at out_size", 150, 256, [[256], [256]], [256, 8], 64),
+        ("mirror cap below n_cap", 200, 256, [[128], [256]], [256, 256], 32),
+        ("several compaction blocks", 5000, 8192, [[8192], [8192]], [8192, 8192], 1024),
+    ]
+
+
+@pytest.mark.parametrize("count_only", [False, True], ids=["expand", "count"])
+@pytest.mark.parametrize("case", _chain_cases(), ids=lambda c: c[0])
+def test_k6_chain_matches_plain_exactly(lib, case, count_only):
+    label, n_nodes, n_cap, caps, outs, width = case
+    rng = np.random.default_rng(len(label))
+    hops, mds = [], []
+    for hop_caps in caps:
+        ms = [_csr(rng, min(n_nodes, cap), cap, 6 * n_nodes) for cap in hop_caps]
+        hops.append(tuple((p, i) for p, i, _ in ms))
+        mds.append(tuple(md for _, _, md in ms))
+    fr, w = _frontier(rng, n_nodes, width, n_cap, width // 2)
+    fr[-1], w[-1] = n_cap - 1, 5  # past every mirror's nodes
+    args = (tuple(hops), fr, w, tuple(mds), n_cap, tuple(outs), count_only)
+    got, want = G._launch_chain(lib, *args), G.chain_plain(*args)
+    if count_only:
+        assert got.dtype == want.dtype == torch.int32 and int(got) == int(want) > 0
+        return
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    live = want[1] > 0
+    nodes = want[0][live]
+    assert nodes.numel() and bool((nodes[1:] > nodes[:-1]).all())  # ascending ids
+    if label.startswith("truncated"):
+        assert bool(live.all())  # more nodes were present than out_size keeps
+
+
+def _csc_hop(rng, n_nodes, cap, n_edges):
+    p, i, _ = _csr(rng, n_nodes, cap, n_edges)
+    return tuple(torch.from_numpy(a) for a in G.csc_arrays(p.numpy(), i.numpy())), p
+
+
+@pytest.mark.parametrize("lanes", [1, 32, 40, 64])
+@pytest.mark.parametrize("hops", [0, 1, 3])
+def test_k7_csc_count_matches_plain_exactly(lib, hops, lanes):
+    rng = np.random.default_rng(hops * 100 + lanes)
+    n_nodes, n_cap = 180, 256
+    csc, ptrs = [], []
+    for _ in range(hops + 1):
+        (cptr, csrc), ptr = _csc_hop(rng, n_nodes, n_cap, 900)
+        csc.append(((cptr, csrc),))
+        ptrs.append(ptr)
+    if hops:  # a hop of two mirrors
+        csc[0] = csc[0] + (_csc_hop(rng, n_nodes, n_cap, 500)[0],)
+    frs, cws = zip(*[_frontier(rng, n_nodes, 16, n_cap, 3) for _ in range(lanes)])
+    fr, w = torch.stack(frs), torch.stack(cws)
+    w[-1] = 0  # an empty lane
+    args = (tuple(csc[:hops]), ((ptrs[-1],),), fr, w, n_cap)
+    got, want = G._launch_csc_count(lib, *args), G.chain_count_batch_plain(*args)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert int(got[-1]) == 0 and (lanes == 1 or bool((got[:-1] > 0).any()))
+
+
+def test_k7_narrow_hop_matches_plain(lib):
+    """A first hop whose mirror cap (64) is below n_cap (256): its output
+    is 65 wide and the next hop's gathers past it read the zero column. A
+    last hop narrower than the frontier fails, as it does in the
+    reference."""
+    rng = np.random.default_rng(8)
+    (c1, s1), _ = _csc_hop(rng, 60, 64, 300)
+    (c2, s2), _ = _csc_hop(rng, 200, 256, 900)
+    _, p3 = _csc_hop(rng, 200, 256, 900)
+    frs, cws = zip(*[_frontier(rng, 60, 8, 256, 4) for _ in range(32)])
+    fr, w = torch.stack(frs), torch.stack(cws)
+    args = ((((c1, s1),), ((c2, s2),)), ((p3,),), fr, w, 256)
+    got = G._launch_csc_count(lib, *args)
+    assert torch.equal(got, G.chain_count_batch_plain(*args)) and bool((got > 0).any())
+    with pytest.raises(ValueError, match="does not cover"):
+        G._launch_csc_count(lib, (((c1, s1),),), ((p3,),), fr, w, 256)
+
+
+def test_k7_reversed_segment_gives_the_negated_sum(lib):
+    """A pointer pair out of order gives the negated (wrapped) sum of the
+    edges between them, as the reference's cumsum difference does."""
+    rng = np.random.default_rng(9)
+    (cptr, csrc), ptr = _csc_hop(rng, 200, 256, 900)
+    frs, cws = zip(*[_frontier(rng, 200, 64, 256, 60) for _ in range(32)])
+    fr, w = torch.stack(frs), torch.stack(cws)
+    v = int(torch.argmax(cptr[1:] - cptr[:-1]))  # the busiest destination
+    swapped = cptr.clone()
+    swapped[v], swapped[v + 1] = cptr[v + 1], cptr[v]
+    args = ((((swapped, csrc),),), ((ptr,),), fr, w, 256)
+    got = G._launch_csc_count(lib, *args)
+    assert torch.equal(got, G.chain_count_batch_plain(*args))
+    plain = G.chain_count_batch_plain((((cptr, csrc),),), ((ptr,),), fr, w, 256)
+    assert not torch.equal(got, plain)  # the swap changes the answer
+
+
+@pytest.mark.parametrize("lanes", [8, 32, 64, 96])
+@pytest.mark.parametrize("products", [0, 1, 2])
+def test_k8_dense_count_matches_plain_exactly(lib, products, lanes):
+    """3 column tiles of 128, a reduction of 384 rows in several splits,
+    lanes in one (8, 32, 64) or two (96) row chunks."""
+    rng = np.random.default_rng(products * 10 + lanes)
+    n_src, n0 = 300, 384
+    a = np.zeros((n0, n0), dtype=np.float32)
+    np.add.at(a, (rng.integers(0, n_src, 4000), rng.integers(0, n_src, 4000)), 1.0)
+    A = torch.from_numpy(a).to(torch.bfloat16)
+    outdeg = torch.from_numpy(a.sum(1).astype(np.float32))
+    frs, cws = zip(*[_frontier(rng, n_src, 16, n0, 3) for _ in range(lanes)])
+    fr, w = torch.stack(frs), torch.stack(cws)
+    args = ((A,) * products, outdeg, fr, w, n0)
+    got, want = G._launch_dense_count(lib, *args), G.dense_count_batch_plain(*args)
+    assert torch.equal(got, want) and bool((want > 0).any())
+    assert float(want.max()) < 2**24  # the exactness guard's range
