@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of surrealdb_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py                  # full size: 2^20 x 768 corpora and
-                                           # the 1M-edge graph
+    python3 chip_smoke.py                  # full size: 2^20 x 768 corpora, the
+                                           # 1M-edge graph, the 1M-document index
     python3 chip_smoke.py --rows 262144    # a cut MTREE corpus (record the cut)
     python3 chip_smoke.py --cpu-rehearsal  # tiny, on the CPU, plain versions;
                                            # exits 1 and prints no result
@@ -32,7 +32,18 @@ Phases, one JSON line each (or more):
 6. the graph main path: config 1 ingested with INSERT / INSERT RELATION,
    then `count(->knows->person x3)` (K8) sequentially and from 32 clients,
    the odd 5-spec count (K7) and the friends-of-friends expand (K6); every
-   answer equals an independent numpy reference built from the same pairs.
+   answer equals an independent numpy reference built from the same pairs;
+7. bm25_kernels: K9 bm25_scores and bm25_topk against their plain versions
+   at config 3's candidate shapes (N up to 2^20, T in {1, 2, 8}, int32 and
+   f32 tf, a total length above 2^24), their times, and the crossover of
+   the engine's device path against the numpy twin;
+8. the full-text main path: bench config 3 (1,000,000 documents of 12
+   zipf-drawn words) ingested with INSERT, then bench_bm25's `@1@ ... ORDER
+   BY sc DESC LIMIT 10` queries sequentially and from 32 clients and one
+   broad one-term query, with cnf.TPU_FT_ONDEVICE_THRESHOLD lowered to 1 so
+   every non-empty candidate set launches K9 (the launches must equal
+   them), then again at the default threshold (the numpy twin); every
+   answer equals an independent numpy BM25 over the generated words.
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`. Any failure exits non-zero. This
@@ -140,6 +151,25 @@ def median_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def queued_device_ms(torch, fn, iters: int = 20, hold_cycles: int = 50_000_000) -> float:
+    """Device time a call of fn() when its launches run back to back: a
+    sleep kernel holds the stream while the host queues `iters` calls, so
+    the events time the kernels (and the gaps between them), not the
+    host's launch overhead, which an event pair around one call of a
+    microsecond kernel mostly measures."""
+    fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(hold_cycles)  # ~25 ms: longer than queueing the calls
+    s.record()
+    for _ in range(iters):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / iters
+
+
 def bound_ms(nbytes: float, flops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -198,21 +228,22 @@ def phase_environment(torch):
 
 
 # ------------------------------------------------------------------ phase 2
-def ids_match_up_to_ties(a_d, a_i, b_d, b_i, finite_kth: bool = False) -> bool:
+def ids_match_up_to_ties(a_d, a_i, b_d, b_i, finite_kth: bool = False, tol=TOL) -> bool:
     """Per query, every id in one result and not the other lies within the
-    distance tolerance of the k-th distance (a tie that the two summation
-    orders may break differently). With finite_kth the k-th distance is the
-    largest finite one of b's row (its misses then must match exactly)."""
+    tolerance of the k-th value (a tie that the two summation orders may
+    break differently). With finite_kth the k-th value is the largest
+    finite one of b's row (its misses then must match exactly)."""
+    rtol, atol = tol["rtol"], tol["atol"]
     for r in range(a_i.shape[0]):
         fin = b_d[r][np.isfinite(b_d[r])]
         kth = float(fin.max()) if finite_kth and fin.size else float(b_d[r, -1])
-        tol = TOL["atol"] + TOL["rtol"] * abs(kth)
+        band = atol + rtol * abs(kth)
         sa, sb = set(a_i[r].tolist()), set(b_i[r].tolist())
         extra = [j for j, v in enumerate(a_i[r].tolist()) if v not in sb]
         missing = [j for j, v in enumerate(b_i[r].tolist()) if v not in sa]
-        if any(abs(float(a_d[r, j]) - kth) > tol for j in extra):
+        if any(abs(float(a_d[r, j]) - kth) > band for j in extra):
             return False
-        if any(abs(float(b_d[r, j]) - kth) > tol for j in missing):
+        if any(abs(float(b_d[r, j]) - kth) > band for j in missing):
             return False
     return True
 
@@ -512,13 +543,15 @@ def time_ivf_search(torch, ivf, matrix, queries, nprobe: int, k: int, dim: int):
 
 
 # ------------------------------------------------------------------ main paths
-def layer_spans(strategy: str):
+def layer_spans(strategy):
     """The engine's own duration histograms (telemetry.observe) along the
-    kNN path, outermost first."""
+    kNN path (or, with no strategy, any SELECT's), outermost first."""
+    knn = () if strategy is None else (
+        f'knn_search_duration_seconds{{strategy="{strategy}"}}',)
     return (
         'statement_duration_seconds{kind="SelectStatement"}',
         "plan_duration_seconds",
-        f'knn_search_duration_seconds{{strategy="{strategy}"}}',
+        *knn,
         "dispatch_queue_wait_duration_seconds",
         "dispatch_launch_duration_seconds",
         "dispatch_pipeline_wait_duration_seconds",
@@ -549,19 +582,90 @@ def window_start(torch, device):
     return torch.cuda.memory_allocated()
 
 
-def large_device_tensors(torch, min_bytes: int = 1 << 28):
-    """(dtype, shape) of every live CUDA tensor of at least min_bytes: names
-    what holds device memory when a window starts above its corpus."""
-    out = []
-    for obj in gc.get_objects():
+def _describe_holder(ref, child, module_dicts) -> str:
+    """One link of a holder chain: how `ref` holds `child`."""
+    import types
+
+    if isinstance(ref, dict):
+        key = next((k for k, v in ref.items() if v is child), "?")
+        owner = module_dicts.get(id(ref))
+        return f"module {owner}.{key}" if owner else f"dict[{key!r}]"[:80]
+    if isinstance(ref, types.FrameType):
+        return f"frame {ref.f_code.co_name} {os.path.basename(ref.f_code.co_filename)}:{ref.f_lineno}"
+    if isinstance(ref, types.FunctionType):
+        return f"function {ref.__qualname__}"
+    if isinstance(ref, (tuple, list)):
+        kinds = ", ".join(type(x).__name__ for x in ref[:6])
+        return f"{type(ref).__name__}({len(ref)}: {kinds})"
+    return type(ref).__qualname__
+
+
+def tensor_holders(torch, min_bytes: int = 1 << 28, depth: int = 24, width: int = 16,
+                   budget: int = 96):
+    """What keeps each live CUDA tensor of at least min_bytes alive: chains
+    of gc.get_referrers links from the tensor outwards, as text. A module
+    global or a frame ends a chain; a chain still open at `depth`, or with
+    no referrer left, ends in "(open)": its holder is invisible to gc (the
+    local of another thread's running frame, or a C++ reference). Each
+    get_referrers call scans every object, so a tensor gets `budget` calls."""
+    import types
+
+    module_dicts = {id(m.__dict__): name for name, m in list(sys.modules.items())
+                    if m is not None and hasattr(m, "__dict__")}
+    here = sys._getframe()
+    # this function's own containers, never a holder; kept alive in `pinned`
+    # so that no later object reuses one of their ids
+    mine, pinned = set(), []
+
+    def own(*objs):
+        pinned.extend(objs)
+        mine.update(id(o) for o in objs)
+
+    objs = gc.get_objects()
+    big = []
+    for obj in objs:
         try:
             if isinstance(obj, torch.Tensor) and obj.is_cuda and (
                 obj.element_size() * obj.nelement() >= min_bytes
             ):
-                out.append(f"{str(obj.dtype).split('.')[-1]}{list(obj.shape)}")
+                big.append(obj)
         except Exception:  # noqa: BLE001 — objects mid-teardown
             continue
-    return out
+    del objs
+    own(big, pinned)
+    found = {}
+    for t in big:
+        label = f"{str(t.dtype).split('.')[-1]}{list(t.shape)}"
+        level, paths, chains, seen = [t], [label], [], {id(t)}
+        calls = 0
+        for _ in range(depth):
+            nxt, nxt_paths = [], []
+            own(level, paths, nxt, nxt_paths)
+            for i in range(min(len(level), budget - calls)):
+                calls += 1
+                refs = gc.get_referrers(level[i])
+                own(refs)
+                grew = False
+                for r in refs:
+                    if id(r) in mine or id(r) in seen or r is here:
+                        continue
+                    seen.add(id(r))
+                    grew = True
+                    link = f"{paths[i]} <- {_describe_holder(r, level[i], module_dicts)}"
+                    if isinstance(r, types.FrameType) or (
+                            isinstance(r, dict) and id(r) in module_dicts):
+                        chains.append(link)
+                    elif len(nxt) < width:
+                        nxt.append(r)
+                        nxt_paths.append(link)
+                if not grew:
+                    chains.append(f"{paths[i]} (open)")
+            level, paths = nxt, nxt_paths
+            if not level or calls >= budget:
+                break
+        chains += [f"{p} (open)" for p in paths]
+        found.setdefault(label, []).extend(chains)
+    return found
 
 
 def make_queries(corpus, n, seed, noise=0.05):
@@ -590,9 +694,10 @@ def strategy_delta(before: dict) -> dict:
 def kernel_counters():
     from surrealdb_tpu_torch.idx import graph_csr as G
     from surrealdb_tpu_torch.idx import ivf as IVF
+    from surrealdb_tpu_torch.ops import bm25 as B
     from surrealdb_tpu_torch.ops import distances as D
 
-    return D.KERNELS + IVF.KERNELS + G.KERNELS
+    return D.KERNELS + IVF.KERNELS + G.KERNELS + B.KERNELS
 
 
 def read_launches() -> dict:
@@ -657,25 +762,25 @@ class GcPauses:
                 for g, (n, tot, mx) in sorted(by_gen.items())}
 
 
-def drive_queries(torch, ds, run, sql, queries, n_seq, n_threads, rounds, device, strategy):
+def drive_queries(ask, n_total, n_seq, n_threads, rounds, strategy):
     """24-style sequential queries, then n_threads closed-loop clients x
-    rounds. Returns the results and the timing of both parts."""
+    rounds; ask(i) runs query i. Returns the results and the timing of both
+    parts."""
     with GcPauses() as gcp:
-        results, out = _drive_queries(ds, run, sql, queries, n_seq, n_threads, rounds,
-                                      strategy)
+        results, out = _drive_queries(ask, n_total, n_seq, n_threads, rounds, strategy)
     out["gc_pauses"] = gcp.summary()
     return results, out
 
 
-def _drive_queries(ds, run, sql, queries, n_seq, n_threads, rounds, strategy):
+def _drive_queries(ask, n_total, n_seq, n_threads, rounds, strategy):
     from surrealdb_tpu_torch import telemetry
 
-    results = [None] * queries.shape[0]
+    results = [None] * n_total
     seq_lat = []
     spans0 = telemetry.snapshot()["histograms"]
     for i in range(n_seq):
         t = time.perf_counter()
-        results[i] = run(sql, {"q": queries[i].tolist()})
+        results[i] = ask(i)
         seq_lat.append(time.perf_counter() - t)
     layers = layer_means_ms(spans0, telemetry.snapshot()["histograms"], strategy)
     conc_lat = []
@@ -687,7 +792,7 @@ def _drive_queries(ds, run, sql, queries, n_seq, n_threads, rounds, strategy):
             for r in range(rounds):
                 qi = n_seq + r * n_threads + ti
                 t1 = time.perf_counter()
-                res = run(sql, {"q": queries[qi].tolist()})
+                res = ask(qi)
                 with lat_lock:
                     conc_lat.append(time.perf_counter() - t1)
                 results[qi] = res
@@ -763,8 +868,9 @@ def phase_main_path(torch, device: str, corpus, queries, truth, batch: int,
         before = strategies()
         widths0 = ds.dispatch.width_distribution()
         reset_launches()
-        results, timing = drive_queries(torch, ds, run, sql, queries, n_seq, n_threads,
-                                        rounds, device, "exact-device")
+        results, timing = drive_queries(lambda i: run(sql, {"q": queries[i].tolist()}),
+                                        queries.shape[0], n_seq, n_threads, rounds,
+                                        "exact-device")
         # the background tile warmers launch too: wait for them to finish
         # before the counts are read
         require(bg.wait_idle(timeout=120, owner=id(ds)), "background tasks did not finish")
@@ -858,13 +964,13 @@ def phase_main_path_hnsw(torch, device: str, corpus, queries, truth, batch: int,
         lmax = int(ivf._device(matrix.device)[1].shape[1])
         mem0 = window_start(torch, device)
         gen0 = mirror.gen
-        held = (large_device_tensors(torch) if device == "cuda"
+        held = (tensor_holders(torch) if device == "cuda"
                 and mem0 > 1.25 * matrix.element_size() * matrix.nelement() else None)
         before = strategies()
         widths0 = ds.dispatch.width_distribution()
         launches0 = read_launches()
-        results, timing = drive_queries(torch, ds, run, sql, queries, n_seq, n_threads,
-                                        rounds, device, "ivf")
+        results, timing = drive_queries(lambda i: run(sql, {"q": queries[i].tolist()}),
+                                        queries.shape[0], n_seq, n_threads, rounds, "ivf")
         require(bg.wait_idle(timeout=120, owner=id(ds)), "background tasks did not finish")
         if device == "cuda":
             torch.cuda.synchronize()
@@ -1292,7 +1398,7 @@ def phase_main_path_graph(torch, device: str, nodes: int, edges: int, batch: int
         mem0 = window_start(torch, device)
         # what holds device memory beyond this phase's own (the 10,112^2
         # bf16 operator, 204.5 MB, and the mirrors' int32 arrays)
-        held = large_device_tensors(torch) if device == "cuda" and mem0 > 1 << 30 else None
+        held = tensor_holders(torch) if device == "cuda" and mem0 > 1 << 30 else None
         d0, r0, l0 = ds.dispatch.stats()["dispatches"], graph_routes(), read_launches()
         seq_lat = []
         with GcPauses() as gcp:  # a full collection over the stored graph stalls queries
@@ -1404,6 +1510,279 @@ def phase_main_path_graph(torch, device: str, nodes: int, edges: int, batch: int
         ds.close()
 
 
+# ------------------------------------------------------------------ full text
+FT_DOCS = 1_000_000  # bench.py ND at scale 1 (config 3)
+FT_VOCAB = 2000  # bench.py VOCAB_N
+FT_WORDS = 12  # words a document (bench.py ingest_docs' L)
+FT_BATCH = 20_000  # bench.py ingest_docs' batch
+FT_SCHEMA = ("DEFINE ANALYZER simple TOKENIZERS blank FILTERS lowercase; "
+             "DEFINE TABLE doc SCHEMALESS; "
+             "DEFINE INDEX fbody ON doc FIELDS body SEARCH ANALYZER simple BM25")
+FT_SQL = ("SELECT id, search::score(1) AS sc FROM doc WHERE body @1@ '{}' "
+          "ORDER BY sc DESC LIMIT 10")  # bench.py bench_bm25
+BM25_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def ft_word(i: int) -> str:
+    return f"w{i:04d}"
+
+
+def ft_query_pairs(n: int, seed: int = 11):
+    """bench.py bench_bm25's query terms: two words of rank 10-119."""
+    return np.random.default_rng(seed).integers(10, 120, size=(n, 2))
+
+
+class FtReference:
+    """Independent numpy BM25 over the generated word ranks W [N, 12] (not
+    the port's host twin): AND-match, f64 scores with the corpus's doc
+    count and total length (every document has 12 tokens), ranked by
+    (-score, id)."""
+
+    def __init__(self, words, k1: float = 1.2, b: float = 0.75):
+        self.W, self.k1, self.b = words, k1, b
+        self.n = words.shape[0]
+        self.tl = float(words.size)
+
+    def top(self, ranks, k: int = 10):
+        """-> (ids, scores) of the k best documents, and the candidate count."""
+        tfs = [(self.W == r).sum(axis=1) for r in dict.fromkeys(int(r) for r in ranks)]
+        ids = np.nonzero(np.logical_and.reduce([t > 0 for t in tfs]))[0]
+        n, avg = float(self.n), self.tl / self.n
+        norm = 1.0 - self.b + self.b * (FT_WORDS / avg)
+        score = np.zeros(ids.size)
+        for t in tfs:
+            df = float(np.count_nonzero(t))
+            idf = np.log1p((n - df + 0.5) / (df + 0.5))
+            f = t[ids].astype(np.float64)
+            score += idf * (f * (self.k1 + 1.0)) / (f + self.k1 * norm)
+        order = np.lexsort((ids, -score))[:k]
+        return ids[order], score[order], int(ids.size)
+
+
+def ft_ingest(run, n_docs: int, batch: int, seed: int = 7):
+    """bench.py ingest_docs: 12 words a document from the 2,000-word
+    vocabulary, rank r drawn with p ~ 1/(r + 10), INSERTed in batches.
+    Returns the word ranks [N, 12] (int16) and the seconds spent in INSERT."""
+    rng = np.random.default_rng(seed)
+    vocab = np.asarray([ft_word(i) for i in range(FT_VOCAB)])
+    w = 1.0 / (np.arange(FT_VOCAB) + 10.0)
+    p = w / w.sum()
+    words = np.empty((n_docs, FT_WORDS), dtype=np.int16)
+    total = 0.0
+    for i in range(0, n_docs, batch):
+        n = min(batch, n_docs - i)
+        ranks = rng.choice(FT_VOCAB, size=(n, FT_WORDS), p=p)
+        words[i:i + n] = ranks
+        rows = [{"id": i + j, "body": " ".join(r)} for j, r in enumerate(vocab[ranks].tolist())]
+        t = time.perf_counter()
+        run("INSERT INTO doc $rows RETURN NONE", {"rows": rows})
+        total += time.perf_counter() - t
+    return words, total
+
+
+def bm25_inputs(rng, n: int, t: int, tf_int: bool, total_len: float = 12e6):
+    """Candidates shaped like config 3's: tf mostly 1, lengths 12 (a few
+    tombstoned documents at 0), so exact ties abound; df as a rank-10-119
+    word's."""
+    tf = rng.choice(np.array([0, 1, 2, 3]), size=(n, t), p=[0.05, 0.8, 0.1, 0.05])
+    lens = np.full(n, 12.0, dtype=np.float32)
+    lens[rng.random(n) < 0.01] = 0.0
+    df = rng.integers(300, 202_000, size=t).astype(np.float32)
+    return (tf.astype(np.int32 if tf_int else np.float32), df, lens,
+            np.float32(1e6), np.float32(total_len))
+
+
+def median_host_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median host-clock time of fn(), which ends in a synchronising copy
+    (the device path) or runs on the host (the numpy twin)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def phase_bm25_kernels(torch):
+    """K9 bm25_scores and bm25_topk against their plain versions on the
+    card at config 3's shapes (N in {1,000, 11,000, 202,000, 2^20}
+    candidates, T in {1, 2, 8}, int32 and f32 tf, one total length above
+    2^24), then at T = 2: the kernel's median time beside its bytes bound
+    and the plain version's, bm25_topk's, and the crossover: the device
+    path as the engine runs it (upload tf / df / lengths, launch, download)
+    beside the numpy twin on the same arrays."""
+    from surrealdb_tpu_torch import cnf
+    from surrealdb_tpu_torch.ops import bm25 as B
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(13)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    err = 0.0
+    cases = [(n, t, ti, 12e6) for n in (1000, 11_000, 202_000, 1 << 20) for t in (1, 2, 8)
+             for ti in (False, True)] + [(1 << 20, 2, False, 20_000_001.0)]
+    for n, t, tf_int, tl in cases:
+        tf, df, lens, dc, tl32 = (up(a) if isinstance(a, np.ndarray) else a
+                                  for a in bm25_inputs(rng, n, t, tf_int, tl))
+        got = B.bm25_scores(tf, df, lens, dc, tl32)
+        torch.cuda.synchronize()
+        want = B.bm25_scores_plain(tf, df, lens, dc, tl32)
+        e = float((got - want).abs().max())
+        ok = bool(torch.allclose(got, want, **BM25_TOL))
+        gv, gi = B.bm25_topk(tf, df, lens, dc, tl32, 10)
+        torch.cuda.synchronize()
+        wv, wi = B.bm25_topk_plain(tf, df, lens, dc, tl32, 10)
+        top_ok = bool(torch.allclose(gv, wv, **BM25_TOL)) and gi.dtype == torch.int32 and \
+            ids_match_up_to_ties(gv[None].cpu().numpy(), gi[None].cpu().numpy(),
+                                 wv[None].cpu().numpy(), wi[None].cpu().numpy(), tol=BM25_TOL)
+        emit("bm25_check", n=n, t=t, tf="int32" if tf_int else "float32", total_len=tl,
+             max_abs_err=e, ok=ok, topk_ids_equal=bool(torch.equal(gi, wi)), topk_ok=top_ok)
+        require(ok and top_ok, f"K9 N={n} T={t} int={tf_int} disagrees with its plain version")
+        err = max(err, e)
+    timing = {}
+    saved = cnf.TPU_FT_ONDEVICE_THRESHOLD
+    cnf.TPU_FT_ONDEVICE_THRESHOLD = 1  # score_candidates always takes the card
+    try:
+        for n in (1000, 11_000, 202_000, 1 << 20):
+            host = bm25_inputs(rng, n, 2, False)
+            tf, df, lens, dc, tl = (up(a) if isinstance(a, np.ndarray) else a for a in host)
+            nbytes = tf.numel() * 4 + df.numel() * 4 + lens.numel() * 4 + n * 4
+            ops = 5.0 * tf.numel() + 3.0 * n + 4.0 * df.numel()
+            bound, by = bound_ms(nbytes, ops, "float32")
+            k_bound, k_by = bound_ms(nbytes - n * 4 + 10 * 8, ops, "float32")
+            timing[n] = dict(
+                ms=median_ms(lambda: B.bm25_scores(tf, df, lens, dc, tl), iters=20),
+                queued_ms=queued_device_ms(torch, lambda: B.bm25_scores(tf, df, lens, dc, tl)),
+                plain_ms=median_ms(lambda: B.bm25_scores_plain(tf, df, lens, dc, tl)),
+                library_ms=None, bound_ms=bound, bound_by=by,
+                topk_ms=median_ms(lambda: B.bm25_topk(tf, df, lens, dc, tl, 10), iters=20),
+                topk_queued_ms=queued_device_ms(
+                    torch, lambda: B.bm25_topk(tf, df, lens, dc, tl, 10)),
+                topk_plain_ms=median_ms(lambda: B.bm25_topk_plain(tf, df, lens, dc, tl, 10)),
+                topk_bound_ms=k_bound, topk_bound_by=k_by,
+            )
+            emit("timing_bm25", n=n, t=2, tf="float32", **timing[n])
+        # the crossover: the engine's device path (three uploads, K9, one
+        # download) beside the numpy twin on the same arrays
+        crossover = {}
+        for n in (500, 1000, 2000, 3000, 5000, 8000, 11_000, 202_000, 1 << 20):
+            host = bm25_inputs(rng, n, 2, False)
+            crossover[n] = dict(
+                engine_device_path_ms=median_host_ms(lambda: B.score_candidates(dev, *host)),
+                engine_host_twin_ms=median_host_ms(lambda: B.bm25_scores_host(*host)),
+            )
+        emit("bm25_crossover", t=2, by_n=crossover)
+    finally:
+        cnf.TPU_FT_ONDEVICE_THRESHOLD = saved
+    return {"max_abs_err": err, "timing": timing, "crossover": crossover, "checks": len(cases)}
+
+
+def phase_main_path_bm25(torch, device: str, n_docs: int, batch: int, n_seq: int,
+                         n_threads: int, rounds: int):
+    """Bench config 3 through Datastore.execute: ingest as bench.py
+    ingest_docs does, then bench_bm25's queries sequentially and from
+    n_threads clients, and the broad one-term query on w0000, with
+    cnf.TPU_FT_ONDEVICE_THRESHOLD lowered to 1 so every non-empty candidate
+    set launches K9; then the sequential queries again at the default
+    threshold (the numpy twin). Every answer must equal FtReference's."""
+    from surrealdb_tpu_torch import cnf
+    from surrealdb_tpu_torch.kvs.ds import Datastore
+
+    pairs = ft_query_pairs(n_seq + n_threads * rounds)
+    texts = [f"{ft_word(a)} {ft_word(b)}" for a, b in pairs]
+    saved = cnf.TPU_FT_ONDEVICE_THRESHOLD
+    ds = Datastore("memory", device=device)
+    try:
+        run = sql_runner(ds)
+        run(FT_SCHEMA)
+        words, ingest_s = ft_ingest(run, n_docs, batch)
+        ref = FtReference(words)
+        t = time.perf_counter()
+        want = [ref.top(p) for p in pairs] + [ref.top([0])]
+        ref_s = time.perf_counter() - t
+        cand = [w[2] for w in want]
+
+        def check(i, res, what):
+            ids, scores, _ = want[i]
+            got_ids = [int(r["id"].id) for r in res]
+            require(got_ids == ids.tolist(),
+                    f"{what}: query {i} ({texts[i] if i < len(texts) else 'w0000'}) "
+                    f"returned {got_ids}, reference {ids.tolist()}")
+            got = np.array([r["sc"] for r in res], dtype=np.float64)
+            require(np.allclose(got, scores, rtol=BM25_TOL["rtol"], atol=0),
+                    f"{what}: query {i} scores {got} vs reference {scores}")
+
+        cnf.TPU_FT_ONDEVICE_THRESHOLD = 1
+        t = time.perf_counter()
+        check(0, run(FT_SQL.format(texts[0])), "first query")
+        first_query_s = time.perf_counter() - t  # builds the mirror
+        mem0 = window_start(torch, device)
+        # what still holds device memory from earlier phases: every tensor
+        # of 16 MB or more (this phase's own are a few MB)
+        holders = tensor_holders(torch, 1 << 24) if device == "cuda" else None
+        if holders:
+            emit("held_at_window_start", holders=holders)
+        reset_launches()
+        results, timing = drive_queries(lambda i: run(FT_SQL.format(texts[i])), len(texts),
+                                        n_seq, n_threads, rounds, None)
+        t = time.perf_counter()
+        results.append(run(FT_SQL.format(ft_word(0))))
+        broad_ms = (time.perf_counter() - t) * 1e3
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+        for i, res in enumerate(results):
+            check(i, res, "threshold 1")
+        non_empty = sum(c > 0 for c in cand)
+        if device == "cuda":
+            want_l = {c.name: 0 for c in kernel_counters()}
+            want_l["bm25_scores"] = non_empty
+            require(launches == want_l,
+                    f"launches {launches}, expected {non_empty} bm25_scores")
+        busy = None
+        for _ in range(2 if device == "cuda" else 0):  # once more if no device time came back
+            busy = device_busy_share(torch, lambda: [
+                run(FT_SQL.format(texts[i])) for i in range(8)
+            ])
+            if busy["device_ms"] != "not measured":
+                break
+
+        cnf.TPU_FT_ONDEVICE_THRESHOLD = saved  # what users get today: the numpy twin
+        l0 = read_launches()["bm25_scores"]
+        lat = []
+        for i in range(n_seq):
+            t = time.perf_counter()
+            res = run(FT_SQL.format(texts[i]))
+            lat.append(time.perf_counter() - t)
+            check(i, res, f"threshold {saved}")
+        above = sum(c >= saved for c in cand[:n_seq])
+        require(read_launches()["bm25_scores"] - l0 == (above if device == "cuda" else 0),
+                f"the default threshold launched K9 other than {above} times")
+        out = dict(
+            docs=n_docs, words_per_doc=FT_WORDS, vocab=FT_VOCAB, device=str(ds.device),
+            ingest_s=ingest_s, ingest_rows_per_s=n_docs / ingest_s, reference_s=ref_s,
+            first_query_s=first_query_s, threshold=1, **timing,
+            broad_query_ms=broad_ms, broad_candidates=cand[-1],
+            candidates=dict(min=int(min(cand[:-1])), p50=float(np.median(cand[:-1])),
+                            max=int(max(cand[:-1])), empty=int(sum(c == 0 for c in cand)),
+                            single_term=int(sum(a == b for a, b in pairs))),
+            launches=launches, non_empty_queries=non_empty,
+            profiled_8_seq_queries=busy, peak_device_memory_bytes=peak,
+            device_memory_at_window_start_bytes=mem0,
+            window_peak_above_start_bytes=None if peak is None else peak - mem0,
+            large_tensors_at_window_start=sorted(holders or ()),
+            default_threshold=saved, default_seq_p50_ms=statistics.median(lat) * 1e3,
+            default_seq_qps=n_seq / sum(lat),
+        )
+        emit("main_path_bm25", **out)
+        return out
+    finally:
+        cnf.TPU_FT_ONDEVICE_THRESHOLD = saved
+        ds.close()
+
+
 # ------------------------------------------------------------------ main
 def kernel_entry(name, kern, source, replaces, launches, err, timing, shape, extra=None):
     return {
@@ -1441,6 +1820,7 @@ def main(argv=None) -> int:
         cnf.TPU_GRAPH_ONDEVICE_THRESHOLD = 64
         phase_main_path_graph(torch, "cpu", 200, 4000, batch=1000, n_seq=4, n_threads=8,
                               rounds=2, n_odd=2, n_fof=4)
+        phase_main_path_bm25(torch, "cpu", 3000, 1000, n_seq=4, n_threads=8, rounds=2)
         print("cpu rehearsal: no card, no result", file=sys.stderr)
         return 1
     if not torch.cuda.is_available():
@@ -1482,6 +1862,11 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         graph = phase_main_path_graph(torch, "cuda", GRAPH_NODES, GRAPH_EDGES, GRAPH_BATCH,
                                       n_seq=24, n_threads=32, rounds=2)
+        gc.collect()
+        torch.cuda.empty_cache()
+        bm25_k = phase_bm25_kernels(torch)
+        bm25 = phase_main_path_bm25(torch, "cuda", FT_DOCS, FT_BATCH, n_seq=24, n_threads=32,
+                                    rounds=2)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1542,6 +1927,22 @@ def main(argv=None) -> int:
             graph["run_launches"][kern], graph_k["max_abs_err"][kern],
             {k: v for k, v in tm.items() if k != "shape"}, {**graph_shape, **tm["shape"]},
         ))
+    # K9 at N = 1,000 candidates (about the main path's median), T = 2
+    bt = bm25_k["timing"]
+    kernels.append(kernel_entry(
+        "K9 bm25_scores (bm25_scores; bm25_topk = bm25_scores + knn_select)", "bm25_scores",
+        "surrealdb_tpu_torch/csrc/bm25.cu", "surrealdb_tpu/ops/bm25.py:19",
+        bm25["launches"]["bm25_scores"], bm25_k["max_abs_err"],
+        {k: bt[1000][k] for k in ("ms", "queued_ms", "plain_ms", "library_ms", "bound_ms",
+                                  "bound_by")},
+        {"n": 1000, "t": 2, "tf": "float32"},
+        {"by_variant": {"bm25_topk k=10 (surrealdb_tpu/ops/bm25.py:40)": {
+            "ms": bt[1000]["topk_ms"], "queued_ms": bt[1000]["topk_queued_ms"],
+            "plain_ms": bt[1000]["topk_plain_ms"],
+            "bound_ms": bt[1000]["topk_bound_ms"], "bound_by": bt[1000]["topk_bound_by"],
+            "library_ms": None}},
+         "by_n": {str(n): v for n, v in bt.items() if n != 1000}},
+    ))
     emit("done", seconds=time.perf_counter() - t_all)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

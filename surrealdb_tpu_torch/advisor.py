@@ -804,23 +804,35 @@ def _loop() -> None:
         time.sleep(max(interval, 0.05))
         if _paused.is_set():
             continue
-        for ds in list(_datastores):
-            try:
-                sweep_once(ds)
-            except Exception:  # noqa: BLE001 — a failed sweep must never
-                # take the service down; the bg task record carries it
-                from surrealdb_tpu_torch import telemetry
+        _sweep_registered()
 
-                telemetry.inc("advisor_sweep_errors")
-        if not _datastores:
-            # no engine instance registered (bare stats/accounting use):
-            # the planes still exist process-globally, sweep them
-            try:
-                sweep_once(None)
-            except Exception:  # noqa: BLE001
-                from surrealdb_tpu_torch import telemetry
 
-                telemetry.inc("advisor_sweep_errors")
+def _sweep_registered() -> None:
+    """One sweep of every registered datastore. A function of its own, so
+    no datastore stays bound to a local of the sleeping loop, which would
+    keep a closed one (and its device mirrors) alive."""
+    for ds in list(_datastores):
+        try:
+            sweep_once(ds)
+        except Exception:  # noqa: BLE001 — a failed sweep must never
+            # take the service down; the bg task record carries it
+            from surrealdb_tpu_torch import telemetry
+
+            telemetry.inc("advisor_sweep_errors")
+    if not _datastores:
+        # no engine instance registered (bare stats/accounting use):
+        # the planes still exist process-globally, sweep them
+        try:
+            sweep_once(None)
+        except Exception:  # noqa: BLE001
+            from surrealdb_tpu_torch import telemetry
+
+            telemetry.inc("advisor_sweep_errors")
+
+
+def forget(ds) -> None:
+    """Stop sweeping a datastore (Datastore.close)."""
+    _datastores.discard(ds)
 
 
 # ------------------------------------------------------------------ views

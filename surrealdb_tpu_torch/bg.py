@@ -430,6 +430,19 @@ def start_thread(task_id: int, fn: Callable, *args) -> threading.Thread:
     return t
 
 
+class _Timer(threading.Timer):
+    """A Timer that lets go of its callable once it has fired or been
+    cancelled, as Thread.run does with its target: the registry keeps a
+    finished task's Timer, and a bound method left on it kept its object
+    (a closed datastore's graph mirrors and their device tensors) alive."""
+
+    def run(self):
+        try:
+            super().run()
+        finally:
+            self.function, self.args, self.kwargs = None, (), {}
+
+
 def timer(
     delay: float, fn: Callable, *args, task_id: Optional[int] = None,
     name: Optional[str] = None, start: bool = True,
@@ -439,7 +452,7 @@ def timer(
     the Timer for cancel(); the registry keeps the attribution. Pass
     `start=False` when the callback must learn its own Timer object first
     (the self-identifying debounce pattern) — then call .start() yourself."""
-    t = threading.Timer(delay, fn, args=args)
+    t = _Timer(delay, fn, args=args)
     t.daemon = True
     if task_id is not None:
         with _lock:

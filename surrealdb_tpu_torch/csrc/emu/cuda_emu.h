@@ -40,6 +40,12 @@ struct __nv_bfloat16 { unsigned short v; };
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
 inline float __bfloat162float(__nv_bfloat16 b) { return __uint_as_float(((unsigned)b.v) << 16); }
+// IEEE single-precision steps, rounded each on its own (the host compiler
+// contracts nothing under -std=c++20)
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __clz(int x) { return x == 0 ? 32 : __builtin_clz((unsigned)x); }

@@ -556,6 +556,9 @@ class Datastore:
             self.column_mirrors.shutdown()
             self.graph_mirrors.shutdown()
             bg.shutdown(owner=id(self))
+            from surrealdb_tpu_torch import advisor
+
+            advisor.forget(self)  # a closed datastore is swept no more
         except Exception:  # noqa: BLE001 — teardown must never mask close()
             # counted, not silent: a teardown failure that skipped the rest
             # of the shutdown chain is a leak suspect worth a metric. The

@@ -66,6 +66,10 @@ _SIGNATURES = {
                                    ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
                                    _P, _P]),
     "graph_compact_blocks": (ctypes.c_longlong, [ctypes.c_longlong]),
+    "bm25_scores": (ctypes.c_int, [_P, ctypes.c_int, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                                   ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                                   ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                                   ctypes.c_int, _P, _P]),
 }
 
 

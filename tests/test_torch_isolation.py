@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no JAX, nothing of surrealdb_tpu, CUDA
 unless told otherwise, and no silent stand-in for an unported strategy.
-The subprocess drives every ported path (MTREE, HNSW through IVF, and the
-graph path's count and expand branches) before it looks for a leak."""
+The subprocess drives every ported path (MTREE, HNSW through IVF, the
+graph path's count and expand branches, and the full-text path) before it
+looks for a leak."""
 
 import os
 import re
@@ -47,6 +48,22 @@ out = ds.execute("SELECT count(->knows->p->knows) AS c FROM p:0")
 assert out[-1]["result"] == [{{"c": 1}}], out
 out = ds.execute("SELECT VALUE ->knows->p->knows->p FROM p:0")
 assert [t.id for t in out[-1]["result"][0]] == [2], out
+# the full-text path: a SEARCH index, bulk and single writes, @1@ with
+# search::score on the host twin and (threshold 1) the kernel's branch,
+# and a transaction's own write through the KV search
+ds.execute("DEFINE ANALYZER simple TOKENIZERS blank FILTERS lowercase; "
+           "DEFINE INDEX fb ON doc FIELDS body SEARCH ANALYZER simple BM25")
+out = ds.execute("INSERT INTO doc $rows RETURN NONE",
+                 vars={{"rows": [{{"id": i, "body": "a b" if i % 2 else "a c"}} for i in range(20)]}})
+assert out[-1]["status"] == "OK", out
+ds.execute("CREATE doc:100 SET body = 'a b b'")
+sql = "SELECT id, search::score(1) AS sc FROM doc WHERE body @1@ 'a b' ORDER BY sc DESC LIMIT 3"
+for th in (262_144, 1):
+    cnf.TPU_FT_ONDEVICE_THRESHOLD = th
+    out = ds.execute(sql)
+    assert out[-1]["status"] == "OK" and out[-1]["result"][0]["id"].id == 100, out
+out = ds.execute("BEGIN; CREATE doc:101 SET body = 'b'; SELECT id FROM doc WHERE body @@ 'b'; COMMIT;")
+assert all(r["status"] == "OK" for r in out) and len(out[-1]["result"]) == 12, out
 ds.close()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "ml_dtypes"))

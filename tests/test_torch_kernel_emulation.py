@@ -1,5 +1,5 @@
-"""The CUDA kernels' logic (surrealdb_tpu_torch/csrc/knn.cu, ivf.cu and
-graph.cu), run on the CPU under the emulation header csrc/emu/cuda_emu.h and
+"""The CUDA kernels' logic (surrealdb_tpu_torch/csrc/knn.cu, ivf.cu,
+graph.cu and bm25.cu), run on the CPU under the emulation header csrc/emu/cuda_emu.h and
 held against the plain PyTorch versions.
 
 The source is compiled with the host C++ compiler: CUDA qualifiers become
@@ -16,7 +16,9 @@ distances; the K5 assignment's ids exact except where two centroids' distances
 tie within that tolerance; the K4 update's counts exact and its centroids
 bit-equal to the CPU's index_add_, which adds in row order as the kernel
 must; the slot mapping exact; the graph kernels (K6-K8) exact: integer
-counts, node ids and their order.
+counts, node ids and their order; BM25 (K9) rtol 1e-5, atol 1e-6 (both
+sides round the same f32 steps in the same order, only log1pf may differ),
+tied rows bit-identical, and its top-k order exact.
 """
 
 import ctypes
@@ -32,6 +34,7 @@ import torch
 from surrealdb_tpu_torch.idx import graph_csr as G
 from surrealdb_tpu_torch.idx import ivf as IVF
 from surrealdb_tpu_torch.ops import _cuda
+from surrealdb_tpu_torch.ops import bm25 as B
 from surrealdb_tpu_torch.ops import distances as D
 
 CSRC = _cuda.CSRC
@@ -50,17 +53,16 @@ def _translate(src: str) -> str:
     )
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def _build_emu(out, sources):
+    """Compile the sources ({name: CUDA text}) under the emulation header
+    into out/libkernels_emu.so and bind the signatures it exports."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no g++ to build the emulated kernels")
-    out = tmp_path_factory.mktemp("kernels_emu")
     cpps = []
-    for name in ("knn.cu", "ivf.cu", "graph.cu"):
+    for name, text in sources.items():
         cpp = out / name.replace(".cu", "_emu.cpp")
-        with open(os.path.join(CSRC, name)) as f:
-            cpp.write_text(_translate(f.read()))
+        cpp.write_text(_translate(text))
         cpps.append(str(cpp))
     so = out / "libkernels_emu.so"
     proc = subprocess.run(
@@ -71,9 +73,21 @@ def lib(tmp_path_factory):
     assert proc.returncode == 0, proc.stderr[-3000:]
     handle = ctypes.CDLL(str(so))
     for name, (restype, argtypes) in _cuda._SIGNATURES.items():
-        fn = getattr(handle, name)
-        fn.restype, fn.argtypes = restype, argtypes
+        fn = getattr(handle, name, None)
+        if fn is not None:
+            fn.restype, fn.argtypes = restype, argtypes
     return handle
+
+
+def _source(name):
+    with open(os.path.join(CSRC, name)) as f:
+        return f.read()
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    out = tmp_path_factory.mktemp("kernels_emu")
+    return _build_emu(out, {n: _source(n) for n in ("knn.cu", "ivf.cu", "graph.cu", "bm25.cu")})
 
 
 def _pairwise(lib, q, x, metric):
@@ -496,3 +510,87 @@ def test_k8_dense_count_matches_plain_exactly(lib, products, lanes):
     got, want = G._launch_dense_count(lib, *args), G.dense_count_batch_plain(*args)
     assert torch.equal(got, want) and bool((want > 0).any())
     assert float(want.max()) < 2**24  # the exactness guard's range
+
+
+# ------------------------------------------------------------------ BM25
+
+
+def _bm25_inputs(rng, n, t, tf_dtype):
+    """Config-3-like candidates with every hazard at once: repeated rows
+    (ties), an all-zero tf row, zero-length (tombstoned) documents, lengths
+    that vary, and a total length above 2^24 (it rounds as f32)."""
+    tf = rng.integers(0, 4, size=(n, t))
+    tf[: n // 3] = tf[0]  # a third of the rows tie with row 0 ...
+    tf[n // 2] = 0  # ... and one row matches nothing
+    lens = rng.integers(3, 40, size=n).astype(np.float32)
+    lens[: n // 3] = lens[0]
+    lens[n // 2 + 1 :: 97] = 0.0
+    df = rng.integers(1, 5000, size=t).astype(np.float32)
+    tf_t = torch.from_numpy(tf.astype(np.float32 if tf_dtype == "f32" else np.int32))
+    return tf_t, torch.from_numpy(df), torch.from_numpy(lens), 9_000.0, 16_777_217.0 + 2_000
+
+
+def _bm25_emu(lib, tf, df, lens, dc, tl, negate=False, k1=1.2, b=0.75):
+    out = torch.empty(tf.shape[0])
+    assert B._launch_scores(lib, tf, df, lens, dc, tl, k1, b, negate, out, None) == 0
+    return out
+
+
+@pytest.mark.parametrize("tf_dtype", ["f32", "i32"])
+@pytest.mark.parametrize("t", [1, 2, 8, 300])
+def test_k9_scores_match_plain(lib, t, tf_dtype):
+    """Any T (300 > the 256 idf values a block stages at once), int32 and
+    f32 tf, 700 rows (three blocks, a ragged last one)."""
+    tf, df, lens, dc, tl = _bm25_inputs(np.random.default_rng(t), 700, t, tf_dtype)
+    got = _bm25_emu(lib, tf, df, lens, dc, tl)
+    want = B.bm25_scores_plain(tf, df, lens, dc, tl)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    tied = got[: 700 // 3]
+    assert bool((tied == tied[0]).all())  # bit-identical ties
+    assert float(got[350]) == 0.0
+    neg = _bm25_emu(lib, tf, df, lens, dc, tl, negate=True)
+    assert torch.equal(neg, -got)
+
+
+@pytest.mark.parametrize("k", [1, 10, 233, 700])
+def test_k9_topk_order_with_ties_matches_plain(lib, k):
+    """bm25_topk on the card: the negated scores, then K2's select; the
+    order is the plain version's (larger first, lower index first), over a
+    third of tied rows and a zero row."""
+    tf, df, lens, dc, tl = _bm25_inputs(np.random.default_rng(k), 700, 2, "f32")
+    neg = _bm25_emu(lib, tf, df, lens, dc, tl, negate=True)
+    d, i, _ = _select(lib, neg.view(1, -1), torch.ones(700, dtype=torch.bool), k)
+    want_v, want_i = B.bm25_topk_plain(tf, df, lens, dc, tl, k)
+    assert torch.equal(i[0], want_i)
+    torch.testing.assert_close(0.0 - d[0], want_v, rtol=1e-5, atol=1e-6)
+
+
+def test_k9_topk_of_a_zero_row_keeps_index_order(lib):
+    tf = torch.zeros((300, 2))
+    df, lens = torch.tensor([3.0, 9.0]), torch.full((300,), 12.0)
+    neg = _bm25_emu(lib, tf, df, lens, 1000.0, 12_000.0, negate=True)
+    d, i, _ = _select(lib, neg.view(1, -1), torch.ones(300, dtype=torch.bool), 20)
+    assert i[0].tolist() == list(range(20)) and bool(((0.0 - d[0]) == 0).all())
+    assert torch.equal(i[0], B.bm25_topk_plain(tf, df, lens, 1000.0, 12_000.0, 20)[1])
+
+
+_BM25_FAULTS = {
+    # the idf's +0.5 smoothing of df
+    "idf": ("__fadd_rn(d, 0.5f)", "__fadd_rn(d, 1.5f)"),
+    # the length normalisation without the division by the average length
+    "length_norm": ("__fdiv_rn(doc_len[row], avg_len)", "doc_len[row]"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(_BM25_FAULTS))
+def test_k9_planted_fault_fails_the_comparison(tmp_path, fault):
+    """The comparison above has teeth: a copy of bm25.cu with one fault
+    planted disagrees with the plain version."""
+    src = _source("bm25.cu")
+    old, new = _BM25_FAULTS[fault]
+    assert src.count(old) == 1
+    bad = _build_emu(tmp_path, {"bm25.cu": src.replace(old, new)})
+    tf, df, lens, dc, tl = _bm25_inputs(np.random.default_rng(1), 300, 2, "f32")
+    got = _bm25_emu(bad, tf, df, lens, dc, tl)
+    assert not torch.allclose(got, B.bm25_scores_plain(tf, df, lens, dc, tl),
+                              rtol=1e-5, atol=1e-6)
