@@ -43,7 +43,19 @@ Phases, one JSON line each (or more):
    broad one-term query, with cnf.TPU_FT_ONDEVICE_THRESHOLD lowered to 1 so
    every non-empty candidate set launches K9 (the launches must equal
    them), then again at the default threshold (the numpy twin); every
-   answer equals an independent numpy BM25 over the generated words.
+   answer equals an independent numpy BM25 over the generated words;
+9. the ML main path, run on phase 4's Datastore before it closes (its
+   2^20 x 768 items and HNSW mirror; nothing re-ingested): bench config 5,
+   `SELECT VALUE ml::scorer<1>(emb) FROM item` with a linear 768 -> 1
+   (warm-up, 5 timed scans, one under cnf.TPU_DISABLE), an MLP 768 -> 128
+   relu -> 10 softmax over the same scan, and the row path `... WHERE id <
+   item:16384`; every answer equals a numpy f64 forward over the bf16
+   features in key order, each scan is one dispatch, and K10's launches are
+   forwards x layers (+ one softmax); cProfile breakdowns and the busy share
+   of a scan;
+10. ml_kernels: K10 ml_linear (config 5's 2^20 x 768 bf16 -> 1, f32, the
+   MLP's layers, the row path's shapes, a ragged M) and ml_softmax against
+   their plain versions, with times, bounds and torch.addmm beside them.
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`. Any failure exits non-zero. This
@@ -694,10 +706,11 @@ def strategy_delta(before: dict) -> dict:
 def kernel_counters():
     from surrealdb_tpu_torch.idx import graph_csr as G
     from surrealdb_tpu_torch.idx import ivf as IVF
+    from surrealdb_tpu_torch.ml import model as ML
     from surrealdb_tpu_torch.ops import bm25 as B
     from surrealdb_tpu_torch.ops import distances as D
 
-    return D.KERNELS + IVF.KERNELS + G.KERNELS + B.KERNELS
+    return D.KERNELS + IVF.KERNELS + G.KERNELS + B.KERNELS + ML.KERNELS
 
 
 def read_launches() -> dict:
@@ -914,13 +927,15 @@ def phase_main_path(torch, device: str, corpus, queries, truth, batch: int,
 
 
 def phase_main_path_hnsw(torch, device: str, corpus, queries, truth, batch: int,
-                         n_seq: int, n_threads: int, rounds: int, ef: int = 64):
+                         n_seq: int, n_threads: int, rounds: int, ef: int = 64, then=None):
     """HNSW: `DEFINE INDEX … HNSW … EFC 64` queried with `<|10,64|>`. The
     first query after ingest serves exactly while the quantizer trains in
     the background (K4 k-means, K5 full assignment); every timed query then
     takes the `ivf` strategy (K1+K2 probe, K3 gather + select + mapping).
     Device recall@10 must lie within 0.01 of the host twin's
-    (IvfState.search_host, numpy f32) on the same quantizer and queries."""
+    (IvfState.search_host, numpy f32) on the same quantizer and queries.
+    `then(ds)`, when given, runs last on the open Datastore (the ML path)
+    and its result is returned under "then"."""
     from surrealdb_tpu_torch import bg
     from surrealdb_tpu_torch.idx.ivf import default_nprobe
     from surrealdb_tpu_torch.kvs.ds import Datastore
@@ -1036,6 +1051,9 @@ def phase_main_path_hnsw(torch, device: str, corpus, queries, truth, batch: int,
         out.update(k3_err=k3_err, k3_checks=k3_checks, k3_probe_tie_queries=probe_ties)
         if device == "cuda":
             out["k3_timing"] = time_ivf_search(torch, ivf, matrix, queries, nprobe, k, dim)
+        if then is not None:
+            del matrix
+            out["then"] = then(ds)
         return out
     finally:
         ds.close()
@@ -1783,6 +1801,348 @@ def phase_main_path_bm25(torch, device: str, n_docs: int, batch: int, n_seq: int
         ds.close()
 
 
+# ------------------------------------------------------------------ ML (K10)
+ML_MLP_HIDDEN = 128  # the scan's MLP: 768 -> 128 relu -> 10 softmax
+ML_MLP_OUT = 10
+ML_ROW_IDS = 16_384  # the row path's WHERE selects ids below this
+SOFTMAX_TOL = dict(rtol=0.0, atol=1e-6)
+
+
+def ml_layers(rng, dims, acts):
+    """Seeded f32 layers (w / sqrt(fan-in), b) for dims[0] -> ... -> dims[-1]."""
+    return [{"w": (rng.standard_normal((dims[i], dims[i + 1])) / np.sqrt(dims[i]))
+             .astype(np.float32),
+             "b": rng.standard_normal(dims[i + 1]).astype(np.float32), "activation": act}
+            for i, act in enumerate(acts)]
+
+
+def ml_reference(feats, layers, step: int = 65_536):
+    """An independent numpy f64 forward over f32 features -> [n, out] f64."""
+    out = []
+    for i in range(0, feats.shape[0], step):
+        h = feats[i : i + step].astype(np.float64)
+        for lay in layers:
+            h = h @ lay["w"].astype(np.float64) + lay["b"].astype(np.float64)
+            act = lay["activation"]
+            if act == "relu":
+                h = np.maximum(h, 0.0)
+            elif act == "tanh":
+                h = np.tanh(h)
+            elif act == "sigmoid":
+                h = 1.0 / (1.0 + np.exp(-h))
+            elif act == "softmax":
+                e = np.exp(h - h.max(axis=1, keepdims=True))
+                h = e / e.sum(axis=1, keepdims=True)
+        out.append(h)
+    return np.concatenate(out)
+
+
+def phase_ml_kernels(torch):
+    """K10 ml_linear and ml_softmax against their plain versions on the card:
+    config 5's [2^20, 768] bf16 x [768, 1] and the same in f32; the MLP
+    768 -> 128 relu -> 64 tanh -> 16 sigmoid and 768 -> 128 -> 10 softmax
+    at 2^20 rows, each layer on the plain version's input; the row path's
+    768 -> 1 at M = 1,024, 4,096 and 65,536; M = 100,003 (no multiple of
+    either path's row tile) at N = 1 and 130. For each: the median time,
+    the bound, the plain version's, and torch.addmm(b, x.float(), W) (TF32
+    off) with, for bf16 x, the cast alone."""
+    from surrealdb_tpu_torch.ml import model as ML
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    big = 1 << 20
+
+    def rand(*shape):
+        return torch.randn(*shape, device=dev, generator=g)
+
+    def layer(k, n):
+        return rand(k, n) / float(np.sqrt(k)), rand(n)
+
+    cases = []  # (label, x, w, b, act, softmax after)
+    x768 = rand(big, DIM)
+    xb = x768.to(torch.bfloat16)
+    w1, b1 = layer(DIM, 1)
+    cases += [("config5_bf16", xb, w1, torch.zeros(1, device=dev), None, False),
+              ("config5_f32", x768, w1, torch.zeros(1, device=dev), None, False)]
+    wh, bh = layer(DIM, 128)
+    h1 = ML.linear_act_plain(xb, wh, bh, "relu")
+    w2, b2 = layer(128, 64)
+    h2 = ML.linear_act_plain(h1, w2, b2, "tanh")
+    w3, b3 = layer(64, 16)
+    w4, b4 = layer(128, 10)
+    cases += [("mlp_768x128_relu_bf16", xb, wh, bh, "relu", False),
+              ("mlp_128x64_tanh", h1, w2, b2, "tanh", False),
+              ("mlp_64x16_sigmoid", h2, w3, b3, "sigmoid", False),
+              ("mlp_128x10_softmax", h1, w4, b4, None, True)]
+    for m in (1024, 4096, 65_536):
+        cases.append((f"row_path_m{m}", x768[:m].contiguous(), w1, b1, None, False))
+    odd = 100_003
+    w5, b5 = layer(DIM, 130)
+    cases += [("ragged_m100003_n1_bf16", xb[:odd].contiguous(), w1, b1, "sigmoid", False),
+              ("ragged_m100003_n130", x768[:odd].contiguous(), w5, b5, "relu", True)]
+    results, lin_err, sm_err = {}, 0.0, 0.0
+    for label, x, w, b, act, softmax in cases:
+        got = ML.linear_act(x, w, b, act)
+        torch.cuda.synchronize()
+        want = ML.linear_act_plain(x, w, b, act)
+        e = float((got - want).abs().max())
+        ok = bool(torch.allclose(got, want, **TOL))
+        m, k = x.shape
+        n = w.shape[1]
+        nbytes = x.numel() * x.element_size() + w.numel() * 4 + n * 4 + m * n * 4
+        bound, by = bound_ms(nbytes, 2.0 * m * k * n, "float32")
+        r = dict(m=m, k=k, n=n, x=str(x.dtype).split(".")[-1], act=act, max_abs_err=e, ok=ok,
+                 ms=median_ms(lambda: ML.linear_act(x, w, b, act)),
+                 plain_ms=median_ms(lambda: ML.linear_act_plain(x, w, b, act)),
+                 library_ms=median_ms(lambda: torch.addmm(b, x.float(), w)),
+                 bound_ms=bound, bound_by=by)
+        if x.dtype == torch.bfloat16:
+            r["library_cast_ms"] = median_ms(lambda: x.float())
+        require(ok, f"ml_linear {label} disagrees with its plain version (max {e})")
+        lin_err = max(lin_err, e)
+        if softmax:
+            h = want
+            sgot = ML.row_softmax(h)
+            torch.cuda.synchronize()
+            swant = ML.row_softmax_plain(h)
+            se = float((sgot - swant).abs().max())
+            sok = bool(torch.allclose(sgot, swant, **SOFTMAX_TOL)) and \
+                bool(torch.isfinite(sgot).all())
+            sb, sby = bound_ms(2.0 * h.numel() * 4, 5.0 * h.numel(), "float32")
+            r["softmax"] = dict(
+                max_abs_err=se, ok=sok, ms=median_ms(lambda: ML.row_softmax(h)),
+                plain_ms=median_ms(lambda: ML.row_softmax_plain(h)),
+                library_ms=median_ms(lambda: torch.softmax(h, dim=-1)),
+                bound_ms=sb, bound_by=sby)
+            require(sok, f"ml_softmax after {label} disagrees with its plain version ({se})")
+            sm_err = max(sm_err, se)
+        results[label] = r
+        emit("ml_check", case=label, **r)
+        del got, want
+    return {"max_abs_err": lin_err, "softmax_max_abs_err": sm_err, "cases": results}
+
+
+def ml_launch_delta(before: dict) -> dict:
+    after = read_launches()
+    return {n: after[n] - before.get(n, 0) for n in after if after[n] - before.get(n, 0)}
+
+
+ML_SCAN_STEPS = {  # cProfile function name -> the scan's step it is
+    "try_columnar_ml_scan": "whole columnar scan",
+    "keys": "table key count (txn.keys)",
+    "device_snapshot": "mirror snapshot",
+    "fwd": "forward (K10 launches + download)",
+    "nonzero": "live mask",
+    "<built-in method builtins.sorted>": "key-order sort (with enc_value_key)",
+    "enc_value_key": "enc_value_key calls",
+}
+
+
+def ml_profile(fn):
+    """cProfile one call of fn(): the cumulative seconds of the scan's
+    steps (ML_SCAN_STEPS; cProfile's per-call cost inflates the Python
+    loops, the sort's key calls most) and the 8 functions with the most
+    self time. The output list is built in try_columnar_ml_scan's own
+    frame (its self time)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(fn)
+    wall = time.perf_counter() - t0
+    steps, top = {}, []
+    for (fname, line, func), (_cc, nc, tt, ct, _callers) in pstats.Stats(prof).stats.items():
+        top.append((tt, f"{os.path.basename(fname)}:{line}:{func}", nc, ct))
+        step = ML_SCAN_STEPS.get(func)
+        if step is not None:
+            prev = steps.get(step, {"cum_s": 0.0, "self_s": 0.0, "calls": 0})
+            steps[step] = {"cum_s": prev["cum_s"] + ct, "self_s": prev["self_s"] + tt,
+                           "calls": prev["calls"] + nc}
+    top.sort(reverse=True)
+    return {"wall_s_under_cprofile": wall, "steps": steps,
+            "top_self": [{"fn": lab, "self_s": tt, "cum_s": ct, "calls": nc}
+                         for tt, lab, nc, ct in top[:8]]}
+
+
+def ml_forward_share(torch, ds, cm, scan):
+    """The device time of one scan's forward by CUDA events around the
+    model's device function (its launches; the download follows it), and
+    its share of the scan's wall time: the busy share where the profiler
+    records no device time."""
+    fwd = cm._device_fn(ds.device)
+    ms = []
+
+    def timed(x):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        y = fwd(x)
+        e.record()
+        e.synchronize()
+        ms.append(s.elapsed_time(e))
+        return y
+
+    cm._device_fns[ds.device] = timed
+    try:
+        t0 = time.perf_counter()
+        scan()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        cm._device_fns[ds.device] = fwd
+    return {"wall_ms": wall_ms, "forward_device_ms": sum(ms), "forwards": len(ms),
+            "busy_share": sum(ms) / wall_ms}
+
+
+def phase_main_path_ml(torch, device: str, ds, corpus, seed: int = 5):
+    """Bench config 5 over the HNSW phase's open Datastore (config 2's items,
+    ids = row numbers): ml::scorer<1> imported as bench_ml_scan does (a
+    linear 768 -> 1, rng.standard_normal weights, b = 0), `SELECT VALUE
+    ml::scorer<1>(emb) FROM item` once to warm up and 5 timed runs, once
+    under cnf.TPU_DISABLE (bench.py's cpu_mode baseline), then an MLP
+    (768 -> 128 relu -> 10 softmax) over the same scan, then the row path
+    `SELECT id, ml::scorer<1>(emb) AS s FROM item WHERE id < item:16384`
+    (one batched forward above the 1024-row threshold). Every answer equals
+    a numpy f64 forward over the features as the device holds them (bf16 on
+    the card), in key order, within TOL; each scan is one dispatch and K10's
+    launches are forwards x layers (+ one softmax)."""
+    from surrealdb_tpu_torch import cnf
+    from surrealdb_tpu_torch.dbs.session import Session
+    from surrealdb_tpu_torch.ml.exec import import_model
+
+    n, dim = corpus.shape
+    run = sql_runner(ds)
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((dim, 1)).astype(np.float32)
+    scorer = [{"w": w, "b": np.zeros(1, np.float32), "activation": None}]
+    mlp = ml_layers(rng, (dim, ML_MLP_HIDDEN, ML_MLP_OUT), ("relu", "softmax"))
+    run("DEFINE MODEL ml::scorer<1>; DEFINE MODEL ml::mlp<1>")
+    for name, layers in (("scorer", scorer), ("mlp", mlp)):
+        import_model(ds, Session.owner(), name, "1", {
+            "format": "mlp" if len(layers) > 1 else "linear",
+            "layers": [{"w": l["w"].tolist(), "b": l["b"].tolist(),
+                        "activation": l["activation"]} for l in layers]})
+    sql = "SELECT VALUE ml::scorer<1>(emb) FROM item"
+    mlp_sql = "SELECT VALUE ml::mlp<1>(emb) FROM item"
+    rows_sql = f"SELECT id, ml::scorer<1>(emb) AS s FROM item WHERE id < item:{ML_ROW_IDS}"
+    n_rows_path = min(ML_ROW_IDS, n)
+
+    t = time.perf_counter()
+    # the features as the device holds them: the card's mirror is bf16
+    feats = corpus if device == "cpu" else \
+        torch.from_numpy(corpus).to(torch.bfloat16).to(torch.float32).numpy()
+    want = ml_reference(feats, scorer)[:, 0]
+    want_f32 = ml_reference(corpus, scorer)[:, 0]
+    want_mlp = ml_reference(feats, mlp)
+    reference_s = time.perf_counter() - t
+
+    def check(got, ref, what, tol=TOL):
+        got = np.asarray(got, dtype=np.float64)
+        require(got.shape == ref.shape and np.isfinite(got).all(),
+                f"{what}: shape {got.shape} vs {ref.shape}, or non-finite values")
+        e = float(np.abs(got - ref).max())
+        require(np.allclose(got, ref, **tol), f"{what}: max abs error {e} against numpy f64")
+        return e
+
+    def timed(q):
+        t0 = time.perf_counter()
+        res = run(q)
+        return res, time.perf_counter() - t0
+
+    saved = cnf.TPU_DISABLE
+    reset_launches()  # the ML main path's run
+    try:
+        res, first_s = timed(sql)  # warm-up: key count, the forward's first launch
+        cm = ds._ml_cache[("test", "test", "scorer", "1")]
+        require(cm.dispatches == 1, f"the first scan took {cm.dispatches} dispatches")
+        err_first = check(res, want, "first scan")
+        mem0 = window_start(torch, device)
+        l0, d0 = read_launches(), cm.dispatches
+        secs, errs, dev_f32 = [], [], []
+        for _ in range(5):
+            res, s_ = timed(sql)
+            secs.append(s_)
+            errs.append(check(res, want, "timed scan"))
+            dev_f32.append(float(np.abs(np.asarray(res, np.float64) - want_f32).max()))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+        timed_launches = ml_launch_delta(l0)
+        require(cm.dispatches - d0 == 5, f"5 scans took {cm.dispatches - d0} dispatches")
+        if device == "cuda":
+            require(timed_launches == {"ml_linear": 5},
+                    f"5 scans launched {timed_launches}, expected 5 ml_linear")
+
+        cnf.TPU_DISABLE = True  # bench.py cpu_mode: the numpy twin over the host mirror
+        l0 = read_launches()
+        res, host_s = timed(sql)
+        cnf.TPU_DISABLE = saved
+        err_host = check(res, want_f32, "TPU_DISABLE scan")
+        require(not ml_launch_delta(l0), "the TPU_DISABLE scan launched a kernel")
+
+        l0 = read_launches()
+        res, mlp_first_s = timed(mlp_sql)
+        res, mlp_s = timed(mlp_sql)
+        err_mlp = check(res, want_mlp, "MLP scan")
+        cm_mlp = ds._ml_cache[("test", "test", "mlp", "1")]
+        require(cm_mlp.dispatches == 2, f"2 MLP scans took {cm_mlp.dispatches} dispatches")
+        mlp_launches = ml_launch_delta(l0)
+        if device == "cuda":
+            require(mlp_launches == {"ml_linear": 4, "ml_softmax": 2},
+                    f"2 MLP scans launched {mlp_launches}")
+
+        l0, d0 = read_launches(), cm.dispatches
+        res, rows_s = timed(rows_sql)
+        require([int(r["id"].id) for r in res] == list(range(n_rows_path)),
+                f"the row path returned {len(res)} rows, not ids 0..{n_rows_path - 1} in order")
+        err_rows = check([r["s"] for r in res], want_f32[:n_rows_path], "row path")
+        require(cm.dispatches - d0 == 1, "the row path took more than one dispatch")
+        rows_launches = ml_launch_delta(l0)
+        if device == "cuda":
+            require(rows_launches == {"ml_linear": 1}, f"the row path launched {rows_launches}")
+            torch.cuda.synchronize()
+        run_launches = read_launches()
+        if device == "cuda":
+            require(run_launches["ml_linear"] > 0 and run_launches["ml_softmax"] > 0,
+                    f"a kernel of the ML path never launched: {run_launches}")
+    finally:
+        cnf.TPU_DISABLE = saved
+    mirror = ds.index_stores.get("test", "test", "item", "iemb")
+
+    def recount_then_scan():
+        mirror._columnar_rows = None  # the first scan's table key count, again
+        run(sql)
+
+    profile_first = ml_profile(recount_then_scan)
+    profile_steady = ml_profile(lambda: run(sql))
+    busy = None
+    for _ in range(2 if device == "cuda" else 0):  # once more if no device time came back
+        busy = device_busy_share(torch, lambda: run(sql))
+        if busy["device_ms"] != "not measured":
+            break
+    forward_events = ml_forward_share(torch, ds, cm, lambda: run(sql)) \
+        if device == "cuda" else None
+    out = dict(
+        rows=n, dim=dim, device=str(ds.device), datastore="the HNSW phase's, handed over open",
+        reference_s=reference_s, first_scan_s=first_s,
+        scan_s=secs, scan_p50_s=statistics.median(secs),
+        rows_per_s=n / statistics.median(secs),
+        host_twin_scan_s=host_s, host_twin_rows_per_s=n / host_s,
+        mlp_first_scan_s=mlp_first_s, mlp_scan_s=mlp_s, mlp_rows_per_s=n / mlp_s,
+        row_path_rows=n_rows_path, row_path_s=rows_s,
+        max_abs_err=dict(first=err_first, timed=max(errs), host_twin=err_host, mlp=err_mlp,
+                         row_path=err_rows),
+        bf16_policy_max_dev_from_f32_scores=max(dev_f32),
+        timed_launches=timed_launches, mlp_launches=mlp_launches,
+        row_path_launches=rows_launches, run_launches=run_launches,
+        peak_device_memory_bytes=peak, device_memory_at_window_start_bytes=mem0,
+        window_peak_above_start_bytes=None if peak is None else peak - mem0,
+        profile_first_scan=profile_first, profile_scan=profile_steady,
+        profiled_one_scan=busy, forward_events_one_scan=forward_events,
+    )
+    emit("main_path_ml", **out)
+    return out
+
+
 # ------------------------------------------------------------------ main
 def kernel_entry(name, kern, source, replaces, launches, err, timing, shape, extra=None):
     return {
@@ -1813,7 +2173,8 @@ def main(argv=None) -> int:
         phase_main_path(torch, "cpu", corpus, queries, truth, batch=1000,
                         n_seq=4, n_threads=8, rounds=2)
         phase_main_path_hnsw(torch, "cpu", corpus, queries, truth, batch=1000,
-                             n_seq=4, n_threads=8, rounds=2)
+                             n_seq=4, n_threads=8, rounds=2,
+                             then=lambda ds: phase_main_path_ml(torch, "cpu", ds, corpus))
         # 200 nodes x 4,000 edges: the thresholds come down so every device
         # branch of the graph path runs (its plain versions)
         cnf.TPU_GRAPH_COUNT_EDGES = 1000
@@ -1855,8 +2216,10 @@ def main(argv=None) -> int:
                                    corpus[: args.rows], queries, 10),
                                batch=20_000, n_seq=24, n_threads=32, rounds=2)
         gc.collect()
-        hnsw = phase_main_path_hnsw(torch, "cuda", corpus, queries, truth, batch=20_000,
-                                    n_seq=24, n_threads=32, rounds=2)
+        hnsw = phase_main_path_hnsw(
+            torch, "cuda", corpus, queries, truth, batch=20_000, n_seq=24, n_threads=32,
+            rounds=2, then=lambda ds: phase_main_path_ml(torch, "cuda", ds, corpus))
+        ml = hnsw.pop("then")
         del corpus
         gc.collect()
         torch.cuda.empty_cache()
@@ -1867,6 +2230,9 @@ def main(argv=None) -> int:
         bm25_k = phase_bm25_kernels(torch)
         bm25 = phase_main_path_bm25(torch, "cuda", FT_DOCS, FT_BATCH, n_seq=24, n_threads=32,
                                     rounds=2)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ml_k = phase_ml_kernels(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1942,6 +2308,23 @@ def main(argv=None) -> int:
             "bound_ms": bt[1000]["topk_bound_ms"], "bound_by": bt[1000]["topk_bound_by"],
             "library_ms": None}},
          "by_n": {str(n): v for n, v in bt.items() if n != 1000}},
+    ))
+    # K10 at bench config 5's shape (the mirror's bf16 [2^20, 768] x [768, 1]);
+    # its library time includes addmm's upcast of x (library_cast_ms alone)
+    c5 = ml_k["cases"]["config5_bf16"]
+    timing_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    sm = ml_k["cases"]["mlp_128x10_softmax"]["softmax"]
+    kernels.append(kernel_entry(
+        "K10 CompiledModel._device_fn (ml_linear; ml_softmax for a softmax layer)",
+        "ml_linear", "surrealdb_tpu_torch/csrc/ml.cu", "surrealdb_tpu/ml/model.py:193",
+        ml["run_launches"]["ml_linear"], ml_k["max_abs_err"],
+        {k: c5[k] for k in timing_keys}, {"m": 1 << 20, "k": DIM, "n": 1, "x": "bfloat16"},
+        {"library_cast_ms": c5["library_cast_ms"],
+         "by_variant": {"ml_softmax [2^20, 10] (surrealdb_tpu/ml/model.py:220)": {
+             **{k: sm[k] for k in timing_keys}, "max_abs_err": sm["max_abs_err"],
+             "launches": ml["run_launches"]["ml_softmax"]}},
+         "by_case": {lab: {k: r[k] for k in ("m", "k", "n", "x", "act") + timing_keys}
+                     for lab, r in ml_k["cases"].items() if lab != "config5_bf16"}},
     ))
     emit("done", seconds=time.perf_counter() - t_all)
     print(json.dumps({"kernels": kernels}), flush=True)

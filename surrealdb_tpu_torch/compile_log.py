@@ -6,7 +6,8 @@ jitted kernel was an XLA compile. Here the kernels are built once per
 process (ops/_cuda.py, subsystem `kernel_build`) and each new launch shape
 is a first launch, which pays the build when it is the first of all. This
 module wraps the kernel call sites (idx/knn.py, idx/ivf.py,
-idx/graph_csr.py, ops/bm25.py for idx/ft_mirror.py and idx/ft_index.py):
+idx/graph_csr.py, ops/bm25.py for idx/ft_mirror.py and idx/ft_index.py,
+ml/model.py):
 
 - the FIRST call per (subsystem, shape key) is the first launch: its
   duration, subsystem, shape and mode land in a bounded event log, a
@@ -35,7 +36,7 @@ from typing import Any, Deque, Optional, Tuple
 
 # ---------------------------------------------------------------- registry
 # subsystem -> the kernel entry points (csrc/*.cu, through ops/distances.py,
-# idx/ivf.py, idx/graph_csr.py and ops/bm25.py) its tracked calls launch. Keys are
+# idx/ivf.py, idx/graph_csr.py, ops/bm25.py and ml/model.py) its tracked calls launch. Keys are
 # EXACTLY the subsystem strings passed to tracked().
 KERNEL_SITES = {
     "knn_exact": ("knn_pairwise", "knn_select"),
@@ -44,10 +45,12 @@ KERNEL_SITES = {
     "graph_csc": ("graph_csc_count",),
     "graph_chain": ("graph_chain",),
     "bm25": ("bm25_scores",),
+    "ml_forward": ("ml_linear", "ml_softmax"),
     "kernel_build": (
         "knn_pairwise", "knn_row_mean", "knn_select",
         "ivf_assign", "ivf_kmeans_update", "ivf_gather_distance", "ivf_map_slots",
         "graph_dense_count", "graph_csc_count", "graph_chain", "bm25_scores",
+        "ml_linear", "ml_softmax",
     ),
 }
 

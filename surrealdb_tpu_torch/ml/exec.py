@@ -3,9 +3,10 @@
 Role of the reference's Model::compute + ml import surface (reference:
 core/src/sql/model.rs:37, src/net/ml.rs, src/cli/ml/). Weights persist as
 content-addressed blobs (obs.py); execution compiles the spec once per
-datastore (cache below) and runs batched rows as ONE jitted device dispatch
-(ml/model.py CompiledModel.forward) — the TPU-native path for BASELINE
-config 5 (model scored over a full-table scan).
+datastore (cache below) and runs batched rows as ONE device dispatch on the
+Datastore's device (ml/model.py CompiledModel.forward, K10's kernels) — the
+path of BASELINE config 5 (model scored over a full-table scan). Mirrors
+surrealdb_tpu/ml/exec.py.
 """
 
 from __future__ import annotations
@@ -170,7 +171,11 @@ def _compiled(ctx, ns, db, name, version) -> CompiledModel:
 
 def _rows_from_arg(arg, in_dim: int):
     """Accept one row (list of numbers / object of numbers) or a batch
-    (list of rows). Returns ([N, D] float32, batched?)."""
+    (list of rows). Returns ([N, D] float32, batched?). A packed vector (a
+    numpy array, as INSERT stores an array-valued field) counts as the list
+    it holds."""
+    if isinstance(arg, np.ndarray):
+        arg = arg.tolist()
     if isinstance(arg, dict):
         arg = [float(v) for v in arg.values()]
     if not isinstance(arg, (list, tuple)) or not arg:
@@ -232,14 +237,14 @@ def run_model(ctx, name: str, version: str, args):
             if k not in arg:
                 raise SurrealError(f"ml:: input object is missing key {k!r}")
             row.append(normalise(float(arg[k]), norms.get(k)))
-        out = cm.forward(np.asarray([row], dtype=np.float32))
+        out = cm.forward(np.asarray([row], dtype=np.float32), ctx.ds().device)
         oname_norm = cm.spec.get("output")
         onorm = oname_norm[1] if oname_norm else None
         if cm.out_dim == 1:
             return denormalise(float(out[0, 0]), onorm)
         return [denormalise(float(x), onorm) for x in out[0]]
     mat, batched = _rows_from_arg(arg, cm.in_dim)
-    out = cm.forward(mat)
+    out = cm.forward(mat, ctx.ds().device)
     if cm.out_dim == 1:
         vals = [float(v) for v in out[:, 0]]
     else:
@@ -272,7 +277,7 @@ def run_model_batch(ctx, name: str, version: str, per_row_args: dict) -> dict:
         total += mat.shape[0]
     if not mats:
         return {}
-    out = cm.forward(np.concatenate(mats, axis=0))
+    out = cm.forward(np.concatenate(mats, axis=0), ctx.ds().device)
     results: dict = {}
     for i, start, count, batched in spans:
         rows = out[start : start + count]
@@ -306,9 +311,9 @@ def try_columnar_ml_scan(ctx, stm, sources):
     erroring per-row).
 
     Results come back in table key order (matching the row path) and, on
-    accelerator backends, are computed from the mirror's compute dtype
-    (bf16 features, f32 accumulation — the same numerical policy as the
-    distance kernels; CPU keeps full f32).
+    the card, are computed from the mirror's compute dtype (bf16 features,
+    read as bf16 by K10 and accumulated in f32 — the same numerical policy
+    as the distance kernels; a CPU Datastore keeps full f32).
     """
     from surrealdb_tpu_torch import key as keys
     from surrealdb_tpu_torch.dbs.iterator import ITable
@@ -394,7 +399,15 @@ def try_columnar_ml_scan(ctx, stm, sources):
         cm.dispatches += 1
         out = cm.forward_host(data)
     else:
-        raise NotImplementedError('ML forward kernel (K10, ml/model.py) not ported yet; see ROADMAP queue 4')
+        device = ds.device
+        matrix, mask, rids = mirror.device_snapshot(device)
+        if int(matrix.shape[1]) != cm.in_dim:
+            return None
+        cm.dispatches += 1
+        full = cm._device_fn(device)(matrix).cpu().numpy()
+        live = np.nonzero(mask[: full.shape[0]])[0]
+        out = full[live]
+        rids_live = [rids[int(i)] for i in live]
     # the whole-table forward examined every mirrored row (tenant meter
     # parity with the iterator path's per-chunk rows_scanned tally)
     from surrealdb_tpu_torch import accounting

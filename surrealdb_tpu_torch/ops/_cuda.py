@@ -70,6 +70,9 @@ _SIGNATURES = {
                                    ctypes.c_float, ctypes.c_float, ctypes.c_float,
                                    ctypes.c_float, ctypes.c_float, ctypes.c_float,
                                    ctypes.c_int, _P, _P]),
+    "ml_linear": (ctypes.c_int, [_P, ctypes.c_int, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_int, _P, _P]),
+    "ml_softmax": (ctypes.c_int, [_P, ctypes.c_longlong, ctypes.c_int, _P, _P]),
 }
 
 

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no JAX, nothing of surrealdb_tpu, CUDA
 unless told otherwise, and no silent stand-in for an unported strategy.
 The subprocess drives every ported path (MTREE, HNSW through IVF, the
-graph path's count and expand branches, and the full-text path) before it
-looks for a leak."""
+graph path's count and expand branches, the full-text path, and the ML
+path: a columnar scan, a batch above the device threshold and an ONNX
+import from a .surml file) before it looks for a leak."""
 
 import os
 import re
@@ -64,6 +65,23 @@ for th in (262_144, 1):
     assert out[-1]["status"] == "OK" and out[-1]["result"][0]["id"].id == 100, out
 out = ds.execute("BEGIN; CREATE doc:101 SET body = 'b'; SELECT id FROM doc WHERE body @@ 'b'; COMMIT;")
 assert all(r["status"] == "OK" for r in out) and len(out[-1]["result"]) == 12, out
+# the ML path: the columnar scan over the MTREE mirror (K10's plain
+# versions on the CPU), a batch above the device threshold, and a .surml
+# import (ONNX y = x @ [[2], [3]] + 1, keys a, b with normalisers) and its
+# buffered compute
+from surrealdb_tpu_torch.dbs.session import Session
+from surrealdb_tpu_torch.ml.exec import import_model, import_surml
+ds.execute("DEFINE MODEL ml::scorer<1>")
+import_model(ds, Session.owner(), "scorer", "1", {{"format": "mlp", "layers": [
+    {{"w": np.ones((8, 4)).tolist(), "b": [0.0] * 4, "activation": "relu"}},
+    {{"w": np.ones((4, 3)).tolist(), "b": [0.0] * 3, "activation": "softmax"}}]}})
+out = ds.execute("SELECT VALUE ml::scorer<1>(emb) FROM item")
+assert out[-1]["status"] == "OK" and len(out[-1]["result"]) == 64, out
+out = ds.execute("RETURN ml::scorer<1>($b)", vars={{"b": [[0.5] * 8] * 1500}})
+assert out[-1]["status"] == "OK" and len(out[-1]["result"]) == 1500, out
+import_surml(ds, Session.owner(), bytes.fromhex({surml!r}))
+out = ds.execute("RETURN ml::lin<1>({{a: 5.0, b: 4.0}})")
+assert out[-1]["status"] == "OK" and abs(out[-1]["result"] - 121.0) < 1e-3, out
 ds.close()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "ml_dtypes"))
@@ -72,10 +90,23 @@ print("LEAKED", bad)
 """
 
 
+# a .surml file: header (keys a, b; a z_score(3, 2), b linear_scaling(0,
+# 10); output price z_score(100, 5); name lin, version 1) and an ONNX graph
+# y = x @ [[2], [3]] + 1 with input shape [N, 2]
+_SURML = (
+    "0000008d613d3e622f2f3d3e613d3e7a5f73636f726528332e302c322e30292f2f623d3e6c696e6561725f"
+    "7363616c696e6728302e302c31302e30292f2f3d3e70726963653d3e7a5f73636f7265283130302e302c35"
+    "2e30292f2f3d3e6c696e2f2f3d3e312f2f3d3e612074657374206d6f64656c2f2f3d3e6f6e6e782f2f3d3e"
+    "74657374732f2f3d3e736f6d656f6e6508073a640a120a01780a017712026d6d22064d61744d756c0a0f0a"
+    "026d6d0a016212017922034164642a130802080110014201774a0800000040000040402a0d080110014201"
+    "624a040000803f5a140a0178120f0a0d080112090a0312014e0a02080262030a0179"
+)
+
+
 def test_slice_loads_no_jax_and_no_reference_module():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
-        [sys.executable, "-c", _SLICE.format(repo=REPO)],
+        [sys.executable, "-c", _SLICE.format(repo=REPO, surml=_SURML)],
         capture_output=True, text=True, timeout=120, env=env, cwd=REPO,
     )
     assert proc.returncode == 0, proc.stderr[-2000:]

@@ -1,5 +1,5 @@
 """The CUDA kernels' logic (surrealdb_tpu_torch/csrc/knn.cu, ivf.cu,
-graph.cu and bm25.cu), run on the CPU under the emulation header csrc/emu/cuda_emu.h and
+graph.cu, bm25.cu and ml.cu), run on the CPU under the emulation header csrc/emu/cuda_emu.h and
 held against the plain PyTorch versions.
 
 The source is compiled with the host C++ compiler: CUDA qualifiers become
@@ -18,7 +18,9 @@ bit-equal to the CPU's index_add_, which adds in row order as the kernel
 must; the slot mapping exact; the graph kernels (K6-K8) exact: integer
 counts, node ids and their order; BM25 (K9) rtol 1e-5, atol 1e-6 (both
 sides round the same f32 steps in the same order, only log1pf may differ),
-tied rows bit-identical, and its top-k order exact.
+tied rows bit-identical, and its top-k order exact; the ML forward (K10)
+rtol 1e-5, atol 1e-5 (f32 sums in another order), softmax outputs atol
+1e-6.
 """
 
 import ctypes
@@ -33,6 +35,7 @@ import torch
 
 from surrealdb_tpu_torch.idx import graph_csr as G
 from surrealdb_tpu_torch.idx import ivf as IVF
+from surrealdb_tpu_torch.ml import model as ML
 from surrealdb_tpu_torch.ops import _cuda
 from surrealdb_tpu_torch.ops import bm25 as B
 from surrealdb_tpu_torch.ops import distances as D
@@ -87,7 +90,8 @@ def _source(name):
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     out = tmp_path_factory.mktemp("kernels_emu")
-    return _build_emu(out, {n: _source(n) for n in ("knn.cu", "ivf.cu", "graph.cu", "bm25.cu")})
+    return _build_emu(out, {n: _source(n) for n in ("knn.cu", "ivf.cu", "graph.cu", "bm25.cu",
+                                                     "ml.cu")})
 
 
 def _pairwise(lib, q, x, metric):
@@ -594,3 +598,106 @@ def test_k9_planted_fault_fails_the_comparison(tmp_path, fault):
     got = _bm25_emu(bad, tf, df, lens, dc, tl)
     assert not torch.allclose(got, B.bm25_scores_plain(tf, df, lens, dc, tl),
                               rtol=1e-5, atol=1e-6)
+
+
+# ------------------------------------------------------------------ ML (K10)
+
+
+def _linear_emu(lib, x, w, b, act):
+    out = torch.empty((x.shape[0], w.shape[1]))
+    assert ML._launch_linear(lib, x, w, b, act, out, None) == 0
+    return out
+
+
+def _softmax_emu(lib, h, out=None):
+    out = torch.empty_like(h) if out is None else out
+    assert ML._launch_softmax(lib, h, out, None) == 0
+    return out
+
+
+def _ml_inputs(seed, m, k, n, x_dtype, scale=1.0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32) * scale).to(x_dtype)
+    w = torch.from_numpy((rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    return x, w, b
+
+
+@pytest.mark.parametrize("act", [None, "relu", "tanh", "sigmoid"], ids=str)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 10, 130])
+def test_k10_linear_matches_plain(lib, n, x_dtype, act):
+    """The skinny path (N = 1, 10: a warp a row, 16-byte loads) and the
+    tiled path (N = 130: three column tiles, the last ragged) over 77 rows,
+    not a multiple of either path's row tile."""
+    x, w, b = _ml_inputs(n, 77, 48, n, x_dtype)
+    got = _linear_emu(lib, x, w, b, act)
+    torch.testing.assert_close(got, ML.linear_act_plain(x, w, b, act), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("k,n", [(45, 1), (45, 3), (45, 40), (1600, 10), (6200, 2)],
+                         ids=["scalar-n1", "scalar-n3", "wide-k45", "chunks-n10",
+                              "chunks-n2"])
+def test_k10_linear_odd_k_and_chunked_w(lib, k, n, x_dtype):
+    """K = 45 takes the scalar loads (no 16-byte alignment); K = 1,600 at N
+    = 10 and 6,200 at N = 2 stage W in more than one 96 KB chunk."""
+    x, w, b = _ml_inputs(k + n, 37, k, n, x_dtype)
+    got = _linear_emu(lib, x, w, b, "relu")
+    torch.testing.assert_close(got, ML.linear_act_plain(x, w, b, "relu"), rtol=1e-5,
+                               atol=1e-4 if k > 1000 else 1e-5)
+
+
+def test_k10_sigmoid_and_tanh_saturate_without_nan(lib):
+    x = torch.tensor([[-200.0], [-90.0], [0.0], [90.0], [200.0]])
+    w, b = torch.ones((1, 1)), torch.zeros(1)
+    sig = _linear_emu(lib, x, w, b, "sigmoid")[:, 0]
+    assert sig.tolist() == [0.0, 0.0, 0.5, 1.0, 1.0]
+    assert _linear_emu(lib, x, w, b, "tanh")[:, 0].tolist() == [-1.0, -1.0, 0.0, 1.0, 1.0]
+    torch.testing.assert_close(ML.linear_act_plain(x, w, b, "sigmoid")[:, 0], sig)
+
+
+@pytest.mark.parametrize("n", [1, 10, 33, 300])
+def test_k10_softmax_matches_plain_on_large_rows(lib, n):
+    """Rows with magnitudes up to 1e3 (exp overflows without the max
+    subtraction), 37 rows: the last block ragged; in place as well."""
+    rng = np.random.default_rng(n)
+    h = torch.from_numpy((rng.standard_normal((37, n)) * 300).astype(np.float32))
+    h[0] = 1000.0  # a row of equal large values
+    want = ML.row_softmax_plain(h)
+    got = _softmax_emu(lib, h)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    inplace = h.clone()
+    _softmax_emu(lib, inplace, inplace)
+    assert torch.equal(inplace, got)
+
+
+_ML_FAULTS = {
+    # the bias left out of both paths' epilogues
+    "dropped_bias": [("ml_act(mine + b[lane], act)", "ml_act(mine, act)"),
+                     ("ml_act(acc[i][j] + b[col], act)", "ml_act(acc[i][j], act)")],
+    # the softmax's exp without the row max subtracted
+    "softmax_without_max": [("expf(src[c] - m)", "expf(src[c])")],
+}
+
+
+@pytest.mark.parametrize("fault", sorted(_ML_FAULTS))
+def test_k10_planted_fault_fails_the_comparison(tmp_path, fault):
+    """The comparisons above have teeth: a copy of ml.cu with one fault
+    planted disagrees with the plain versions."""
+    src = _source("ml.cu")
+    for old, new in _ML_FAULTS[fault]:
+        assert src.count(old) == 1
+        src = src.replace(old, new)
+    bad = _build_emu(tmp_path, {"ml.cu": src})
+    if fault == "softmax_without_max":
+        h = torch.from_numpy((np.random.default_rng(2).standard_normal((9, 10)) * 300)
+                             .astype(np.float32))
+        assert not torch.allclose(_softmax_emu(bad, h), ML.row_softmax_plain(h), atol=1e-6,
+                                  equal_nan=False)
+        return
+    for n in (1, 130):
+        x, w, b = _ml_inputs(n, 40, 48, n, torch.float32)
+        assert not torch.allclose(_linear_emu(bad, x, w, b, None),
+                                  ML.linear_act_plain(x, w, b, None), rtol=1e-5, atol=1e-5)
