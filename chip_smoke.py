@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # full size: 2^20 x 768 corpora, the
                                            # 1M-edge graph, the 1M-document index
     python3 chip_smoke.py --rows 262144    # a cut MTREE corpus (record the cut)
+    python3 chip_smoke.py --multicard      # only the mesh over 2+ cards
     python3 chip_smoke.py --cpu-rehearsal  # tiny, on the CPU, plain versions;
                                            # exits 1 and prints no result
 
@@ -56,6 +57,19 @@ Phases, one JSON line each (or more):
 10. ml_kernels: K10 ml_linear (config 5's 2^20 x 768 bf16 -> 1, f32, the
    MLP's layers, the row path's shapes, a ragged M) and ml_softmax against
    their plain versions, with times, bounds and torch.addmm beside them.
+
+11. the mesh path (surrealdb_tpu_torch/parallel/mesh.py), 8 shards on
+   cuda:0 (the reference's test mesh on one card): `main_path_mesh` runs
+   on phase 3's and (after the ML phase) phase 4's open Datastores with
+   Datastore.mesh() returning the 8-shard mesh, nothing re-ingested: the
+   same 88 queries must all take `exact-sharded` (recall@10 >= 0.99) and
+   `ivf-sharded` (no retraining), return the single-device answers up to
+   ties, launch (K1 + K2 or K3's rerank) x 8 shards + one merge a tile,
+   and hold no second corpus; `mesh_kernels`: K11 and K12 (on a 4 x 2
+   mesh) on the MTREE mirror's shards, K13 on the HNSW state, K14 and K15
+   on config 1's 3-hop BFS, each against its plain version (K11 also
+   against single-device K2, K13 against K3), with times; `dryrun_mesh`:
+   parallel/dryrun.py's entry() and dryrun_multichip(8) on the card.
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`. Any failure exits non-zero. This
@@ -709,8 +723,9 @@ def kernel_counters():
     from surrealdb_tpu_torch.ml import model as ML
     from surrealdb_tpu_torch.ops import bm25 as B
     from surrealdb_tpu_torch.ops import distances as D
+    from surrealdb_tpu_torch.parallel import mesh as M
 
-    return D.KERNELS + IVF.KERNELS + G.KERNELS + B.KERNELS + ML.KERNELS
+    return D.KERNELS + IVF.KERNELS + G.KERNELS + B.KERNELS + ML.KERNELS + M.KERNELS
 
 
 def read_launches() -> dict:
@@ -851,8 +866,10 @@ def dispatched_tiles(ds, widths0):
 
 
 def phase_main_path(torch, device: str, corpus, queries, truth, batch: int,
-                    n_seq: int, n_threads: int, rounds: int):
-    """MTREE: exact kNN through Datastore.execute, every query `exact-device`."""
+                    n_seq: int, n_threads: int, rounds: int, then=None):
+    """MTREE: exact kNN through Datastore.execute, every query `exact-device`.
+    `then(ds, results, out)`, when given, runs last on the open Datastore
+    (the mesh path) and its result is returned under "then"."""
     from surrealdb_tpu_torch import bg
     from surrealdb_tpu_torch.kvs.ds import Datastore
 
@@ -921,6 +938,8 @@ def phase_main_path(torch, device: str, corpus, queries, truth, batch: int,
             device_memory_at_window_start_bytes=mem0,
         )
         emit("main_path", **out)
+        if then is not None:
+            out["then"] = then(ds, results, out)
         return out
     finally:
         ds.close()
@@ -934,8 +953,9 @@ def phase_main_path_hnsw(torch, device: str, corpus, queries, truth, batch: int,
     takes the `ivf` strategy (K1+K2 probe, K3 gather + select + mapping).
     Device recall@10 must lie within 0.01 of the host twin's
     (IvfState.search_host, numpy f32) on the same quantizer and queries.
-    `then(ds)`, when given, runs last on the open Datastore (the ML path)
-    and its result is returned under "then"."""
+    `then(ds, results, out)`, when given, runs last on the open Datastore
+    (the ML path, then the mesh path) and its result is returned under
+    "then"."""
     from surrealdb_tpu_torch import bg
     from surrealdb_tpu_torch.idx.ivf import default_nprobe
     from surrealdb_tpu_torch.kvs.ds import Datastore
@@ -1053,7 +1073,7 @@ def phase_main_path_hnsw(torch, device: str, corpus, queries, truth, batch: int,
             out["k3_timing"] = time_ivf_search(torch, ivf, matrix, queries, nprobe, k, dim)
         if then is not None:
             del matrix
-            out["then"] = then(ds)
+            out["then"] = then(ds, results, out)
         return out
     finally:
         ds.close()
@@ -2143,6 +2163,583 @@ def phase_main_path_ml(torch, device: str, ds, corpus, seed: int = 5):
     return out
 
 
+# ------------------------------------------------------------------ mesh
+MESH_SHARDS = 8  # the reference's test mesh (tests/conftest.py), here on one card
+
+
+def one_device_mesh(torch, device: str, grid=None):
+    """MESH_SHARDS shards on one device: the 1-D `data` mesh, or with `grid`
+    a 2-D (data, model) one."""
+    from surrealdb_tpu_torch.parallel.mesh import Mesh
+
+    dev = torch.device("cuda", 0) if device == "cuda" else torch.device(device)
+    if grid is None:
+        return Mesh([dev] * MESH_SHARDS, ("data",))
+    return Mesh([dev] * MESH_SHARDS, ("data", "model"), grid)
+
+
+class MeshForDatastores:
+    """Inside the block Datastore.mesh() returns `mesh` (the class-level
+    cache, restored on exit)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.prev = None
+
+    def __enter__(self):
+        from surrealdb_tpu_torch.kvs.ds import Datastore
+
+        self.prev = Datastore._mesh_cache
+        Datastore._mesh_cache = ("mesh", self.mesh)
+        return self.mesh
+
+    def __exit__(self, *exc):
+        from surrealdb_tpu_torch.kvs.ds import Datastore
+
+        Datastore._mesh_cache = self.prev
+
+
+def result_ids(res):
+    return [int(r["id"].id) for r in res]
+
+
+def sql_ids_up_to_ties(torch, mirror, rows, queries, got, want, k):
+    """Per query, the ids of two strategies equal as sets, or every id in one
+    and not the other lies within TOL of the k-th distance of `want`'s ids,
+    by the plain K1 over the rows the card holds. Returns (queries with
+    equal sets, queries that differ at a tie)."""
+    from surrealdb_tpu_torch.idx.knn import _rid_key
+    from surrealdb_tpu_torch.ops import distances as D
+    from surrealdb_tpu_torch.sql.value import Thing
+
+    equal = tied = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        gs, ws = set(result_ids(g)), set(result_ids(w))
+        require(len(gs) == len(ws) == k, f"query {i}: {len(gs)} and {len(ws)} ids, want {k}")
+        if gs == ws:
+            equal += 1
+            continue
+        ids = sorted(gs | ws)
+        slots = torch.tensor([mirror.slot_of[_rid_key(Thing("item", j))] for j in ids],
+                             device=rows.device)
+        q = torch.from_numpy(np.ascontiguousarray(queries[i : i + 1], dtype=np.float32))
+        d = D.pairwise_distance_plain(q.to(rows.device), rows[slots])[0].cpu().numpy()
+        dist = dict(zip(ids, d.tolist()))
+        kth = max(dist[j] for j in ws)
+        band = TOL["atol"] + TOL["rtol"] * abs(kth)
+        require(all(abs(dist[j] - kth) <= band for j in gs ^ ws),
+                f"query {i}: ids {sorted(gs ^ ws)} differ beyond a tie at {kth}")
+        tied += 1
+    return equal, tied
+
+
+def phase_main_path_mesh(torch, device: str, ds, cell: str, index: str, sql: str, strategy: str,
+                         per_tile: dict, queries, base_results, base_timing, truth,
+                         n_seq: int, n_threads: int, rounds: int):
+    """One kNN cell again on its open Datastore, nothing re-ingested, with
+    Datastore.mesh() returning MESH_SHARDS shards on one device: the first
+    query re-places the mirror row-sharded (the old matrix freed first);
+    then the same sequential and concurrent queries as the cell's own
+    window. Every one must take `strategy`, launch `per_tile` kernels a
+    dispatched tile (none else), and return the cell's own single-device
+    answers up to ties; the window's own peak device memory must stay below
+    one corpus. Returns the window's numbers, the mesh and the matrix."""
+    from surrealdb_tpu_torch import bg
+    from surrealdb_tpu_torch.parallel.mesh import ShardedTensor
+
+    k = 10
+    run = sql_runner(ds)
+    mirror = ds.index_stores.get("test", "test", "item", index)
+    ivf0 = mirror.ivf
+    mesh = one_device_mesh(torch, device)
+    with MeshForDatastores(mesh):
+        before = strategies()
+        t = time.perf_counter()
+        run(sql, {"q": queries[0].tolist()})
+        first_s = time.perf_counter() - t
+        first = strategy_delta(before)
+        require(first == {f'knn_strategy{{strategy="{strategy}"}}': 1.0},
+                f"first {cell} query under the mesh took {first}, expected {strategy}")
+        require(bg.wait_idle(timeout=120, owner=id(ds)), "background tasks did not finish")
+        matrix = mirror.device_snapshot(ds.device, mesh)[0]
+        require(isinstance(matrix, ShardedTensor) and matrix.base is not None
+                and all(matrix.shard((s,)).data_ptr() == matrix.base[s * matrix.shape[0]
+                                                                     // MESH_SHARDS].data_ptr()
+                        for s in range(MESH_SHARDS)),
+                "the mirror is not one tensor viewed by its shards")
+        corpus_bytes = matrix.nbytes()
+        mem0 = window_start(torch, device)
+        before = strategies()
+        widths0 = ds.dispatch.width_distribution()
+        reset_launches()
+        results, timing = drive_queries(lambda i: run(sql, {"q": queries[i].tolist()}),
+                                        queries.shape[0], n_seq, n_threads, rounds, strategy)
+        require(bg.wait_idle(timeout=120, owner=id(ds)), "background tasks did not finish")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+        widths, tiles = dispatched_tiles(ds, widths0)
+        delta = strategy_delta(before)
+        n_queries = queries.shape[0]
+        require(delta == {f'knn_strategy{{strategy="{strategy}"}}': float(n_queries)},
+                f"strategies {delta}, expected {n_queries} {strategy}")
+        require(mirror.ivf is ivf0, "the quantizer changed in the mesh window")
+        if device == "cuda":
+            want = {c.name: 0 for c in kernel_counters()}
+            want.update({name: n * tiles for name, n in per_tile.items()})
+            require(launches == want, f"launches {launches} for {tiles} dispatched tiles")
+            require(peak - mem0 < corpus_bytes,
+                    f"the window's own peak {peak - mem0} B holds a second corpus")
+        equal, tied = sql_ids_up_to_ties(torch, mirror, matrix.base, queries, results,
+                                         base_results, k)
+        recall = recall_of(results, truth, k)
+        busy = device_busy_share(torch, lambda: [
+            run(sql, {"q": queries[i].tolist()}) for i in range(8)
+        ]) if device == "cuda" else None
+    out = dict(
+        cell=cell, shards=MESH_SHARDS, device=str(ds.device), strategy=strategy,
+        first_query_with_placement_s=first_s, **timing,
+        single_device=base_timing,
+        dispatch_widths={str(w): c for w, c in sorted(widths.items())},
+        tiles_dispatched=tiles, launches=launches, strategies=delta,
+        ids_equal_queries=equal, ids_tied_queries=tied, recall_at_10=recall,
+        profiled_8_seq_queries=busy, corpus_bytes=corpus_bytes,
+        device_memory_at_window_start_bytes=mem0,
+        window_own_peak_bytes=None if peak is None else peak - mem0,
+    )
+    emit("main_path_mesh", **out)
+    return out, mesh, matrix
+
+
+def base_timing_of(out: dict) -> dict:
+    return {k: out[k] for k in ("seq_p50_ms", "seq_qps", "conc_p50_ms", "conc_qps")}
+
+
+def knn_bound(nq: int, n: int, dim: int, k: int):
+    """Bytes and operations of an exact top-k over a bf16 [n, dim] corpus
+    with a [n] mask: each input read once, each output written once."""
+    return bound_ms(nq * dim * 4 + n * dim * 2 + n + nq * k * 8, 2.0 * nq * n * dim, "bfloat16")
+
+
+def phase_mesh_kernels_exact(torch, matrix, dim: int, k: int = 10):
+    """K11 and K12 against their plain versions on the card, on the MTREE
+    cell's sharded 2^20 x 768 bf16 mirror (8 shards on cuda:0), with ~5%
+    dead rows; K11 also against single-device K2. Then median times at Q 1
+    and 64 beside the bound, the plain composition and cdist + topk."""
+    from surrealdb_tpu_torch.ops import distances as D
+    from surrealdb_tpu_torch.parallel import mesh as M
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    mesh = matrix.mesh
+    x = matrix.base
+    n = x.shape[0]
+    g = torch.Generator().manual_seed(3)
+    mask_full = (torch.rand(n, generator=g) > 0.05).to(dev)
+    mask = M.shard_tensor(mesh, mask_full, ("data",), copy=False)
+    mesh2 = one_device_mesh(torch, "cuda", (4, 2))
+    x2 = M.shard_tensor(mesh2, x, ("data", "model"), copy=False)
+    mask2 = M.shard_tensor(mesh2, mask_full, ("data",), copy=False)
+    errs = {"K11": 0.0, "K12": 0.0}
+    for metric in ("euclidean", "cosine"):
+        for nq in (1, 64):
+            q = torch.randn(nq, dim, generator=g).to(dev)
+            got = M.sharded_knn(mesh, matrix, mask, q, k, metric)
+            torch.cuda.synchronize()
+            want = M.sharded_knn_plain(mesh, matrix, mask, q, k, metric)
+            single = D.knn_search(q, x, mask_full, metric, k)
+            gn = [t.cpu().numpy() for t in got + want + single]
+            err = float(np.abs(gn[0] - gn[2]).max())
+            ok = (bool(torch.allclose(got[0], want[0], **TOL)) and got[1].dtype == torch.int32
+                  and ids_match_up_to_ties(gn[0], gn[1], gn[2], gn[3])
+                  and ids_match_up_to_ties(gn[0], gn[1], gn[4], gn[5]))
+            emit("mesh_kernels", kernel="K11", metric=metric, q=nq, n=n, shards=MESH_SHARDS,
+                 max_abs_err=err, max_abs_err_single_device=float(np.abs(gn[0] - gn[4]).max()),
+                 ok=ok)
+            require(ok, f"K11 {metric} Q={nq} disagrees with its plain version or with K2")
+            errs["K11"] = max(errs["K11"], err)
+            if metric != "euclidean":
+                continue
+            got = M.sharded_knn_2d(mesh2, x2, mask2, q, k)
+            torch.cuda.synchronize()
+            want = M.sharded_knn_2d_plain(mesh2, x2, mask2, q, k)
+            gn = [t.cpu().numpy() for t in got + want]
+            err = float(np.abs(gn[0] - gn[2]).max())
+            ok = (bool(torch.allclose(got[0], want[0], **TOL))
+                  and ids_match_up_to_ties(gn[0], gn[1], gn[2], gn[3]))
+            emit("mesh_kernels", kernel="K12", metric=metric, q=nq, n=n, grid=[4, 2],
+                 max_abs_err=err, ok=ok)
+            require(ok, f"K12 Q={nq} disagrees with its plain version")
+            errs["K12"] = max(errs["K12"], err)
+    xf = x.float()  # the yardstick's input: cdist takes one dtype
+    timing = {"K11": {}, "K12": {}}
+    for nq in (1, 64):
+        q = torch.randn(nq, dim, generator=g).to(dev)
+        bound, by = knn_bound(nq, n, dim, k)
+        lib = median_ms(lambda: torch.topk(torch.cdist(q, xf), k, largest=False))
+        timing["K11"][nq] = dict(
+            ms=median_ms(lambda: M.sharded_knn(mesh, matrix, mask, q, k)),
+            queued_ms=queued_device_ms(torch, lambda: M.sharded_knn(mesh, matrix, mask, q, k)),
+            plain_ms=median_ms(lambda: M.sharded_knn_plain(mesh, matrix, mask, q, k), iters=3),
+            library_ms=lib, bound_ms=bound, bound_by=by,
+            single_device_k2_ms=median_ms(lambda: D.knn_search(q, x, mask_full, "euclidean", k)),
+        )
+        timing["K12"][nq] = dict(
+            ms=median_ms(lambda: M.sharded_knn_2d(mesh2, x2, mask2, q, k)),
+            queued_ms=queued_device_ms(torch, lambda: M.sharded_knn_2d(mesh2, x2, mask2, q, k)),
+            plain_ms=median_ms(lambda: M.sharded_knn_2d_plain(mesh2, x2, mask2, q, k), iters=3),
+            library_ms=lib, bound_ms=bound, bound_by=by,
+        )
+        emit("timing_mesh", q=nq, n=n, d=dim, k=k, corpus="bfloat16",
+             K11=timing["K11"][nq], K12=timing["K12"][nq])
+    d_all = torch.rand(1, MESH_SHARDS * k, device=dev)
+    i_all = torch.zeros(1, MESH_SHARDS * k, dtype=torch.int32, device=dev)
+    merge_ms = queued_device_ms(torch, lambda: M.topk_merge(d_all, i_all, k, n // 8, k))
+    del xf
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=errs, timing=timing, merge_queued_ms=merge_ms,
+                seconds=time.perf_counter() - t0)
+
+
+def phase_mesh_kernels_ivf(torch, ivf, mesh, matrix, queries, nprobe: int, dim: int,
+                           k: int = 10):
+    """K13 against its plain version and single-device K3 on the card, on
+    the HNSW cell's trained state and sharded mirror, euclidean and cosine,
+    with and without a slot mask keeping two thirds of the slots; then its
+    median times at Q 1 and 64 beside the bound from this run's probed
+    lists and the plain composition."""
+    from surrealdb_tpu_torch.idx import ivf as IVF
+    from surrealdb_tpu_torch.ops import distances as D
+    from surrealdb_tpu_torch.parallel import mesh as M
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    n = matrix.shape[0]
+    cents_r, lrows, lmask, _ = ivf._device_sharded(mesh, n)
+    cents, rows1, mask1, probe_ok = ivf._device(dev)
+    all_ok = torch.ones(n, dtype=torch.bool, device=dev)
+    some_ok = torch.from_numpy(np.arange(n) % 3 != 0).to(dev)
+    err = 0.0
+    for metric in ("euclidean", "cosine"):
+        probe_metric = metric
+        for nq, sok in ((1, all_ok), (64, all_ok), (8, some_ok)):
+            q = torch.from_numpy(np.ascontiguousarray(queries[:nq], dtype=np.float32)).to(dev)
+            args = (mesh, cents_r, lrows, lmask, matrix, q, k, nprobe)
+            kw = dict(metric=metric, probe_metric=probe_metric,
+                      slot_ok=M.shard_tensor(mesh, sok, ("data",), copy=False))
+            got = M.sharded_ivf_search(*args, **kw)
+            torch.cuda.synchronize()
+            want = M.sharded_ivf_search_plain(*args, **kw)
+            single = IVF._ivf_search(q, cents, rows1, mask1, matrix.base, sok, metric,
+                                     probe_metric, k, nprobe, probe_ok=probe_ok)
+            gn = [t.cpu().numpy() for t in got + want + single]
+            fin = np.isfinite(gn[2])
+            e = float(np.abs(gn[0] - gn[2])[fin].max()) if fin.any() else 0.0
+            ok = (bool(torch.allclose(got[0], want[0], **TOL))
+                  and np.array_equal(~np.isfinite(gn[0]), ~fin)
+                  and ids_match_up_to_ties(gn[0], gn[1], gn[2], gn[3], finite_kth=True)
+                  and ids_match_up_to_ties(gn[0], gn[1], gn[4], gn[5], finite_kth=True))
+            emit("mesh_kernels", kernel="K13", metric=metric, q=nq, nprobe=nprobe,
+                 L=int(lrows.shape[2]), slots_ok=int(sok.sum()), max_abs_err=e,
+                 max_abs_err_single_device=float(np.abs(gn[0] - gn[4])[fin].max())
+                 if fin.any() else 0.0, ok=ok)
+            require(ok, f"K13 {metric} Q={nq} disagrees with its plain version or with K3")
+            err = max(err, e)
+    lens = np.zeros((MESH_SHARDS, ivf.nlists), dtype=np.int64)
+    lens[:] = lmask.base.sum(dim=2).cpu().numpy()
+    lmax = int(lrows.shape[2])
+    all_ok_sharded = M.shard_tensor(mesh, all_ok, ("data",), copy=False)
+    timing = {}
+    for nq in (1, 64):
+        q = torch.from_numpy(np.ascontiguousarray(queries[:nq], dtype=np.float32)).to(dev)
+        _, probes = D.knn_search(q, cents, probe_ok, "euclidean", nprobe)
+        cand = int(lens[:, probes.cpu().numpy()].sum())  # real candidate rows of this run
+        nbytes = (nq * dim * 4 + ivf.nlists * dim * 4 + cand * dim * 2
+                  + nq * nprobe * MESH_SHARDS * lmax * 5 + nq * k * 8)
+        bound, by = bound_ms(nbytes, 2.0 * nq * ivf.nlists * dim + 2.0 * cand * dim, "bfloat16")
+        args = (mesh, cents_r, lrows, lmask, matrix, q, k, nprobe)
+        kw = dict(slot_ok=all_ok_sharded)  # placed once, as search_batch_sharded does
+        timing[nq] = dict(
+            ms=median_ms(lambda: M.sharded_ivf_search(*args, **kw)),
+            queued_ms=queued_device_ms(torch, lambda: M.sharded_ivf_search(*args, **kw)),
+            plain_ms=median_ms(lambda: M.sharded_ivf_search_plain(*args, **kw), iters=3),
+            library_ms=None, bound_ms=bound, bound_by=by, candidate_rows=cand,
+        )
+        emit("timing_mesh_k13", q=nq, nprobe=nprobe, L=lmax, k=k, **timing[nq])
+    return dict(max_abs_err=err, timing=timing, seconds=time.perf_counter() - t0)
+
+
+def person_csr(pairs, nodes: int):
+    """Config 1's person -> person adjacency (knows pairs, parallel edges
+    kept) as int32 CSR: indptr [nodes + 1], indices [E]."""
+    order = np.argsort(pairs[:, 0], kind="stable")
+    indptr = np.zeros(nodes + 1, dtype=np.int64)
+    np.add.at(indptr, pairs[:, 0] + 1, 1)
+    return np.cumsum(indptr).astype(np.int32), pairs[order, 1].astype(np.int32)
+
+
+def phase_mesh_kernels_graph(torch, seed: int = 7, hops: int = 3):
+    """K14 and K15 against their plain versions on the card, exactly, on
+    config 1's person graph over 8 frontier shards on cuda:0: a `hops`-hop
+    BFS from `seed`, each frontier padded to a multiple of 8 with the
+    out-of-range id `nodes` (masked), max_degree its largest out-degree;
+    each hop's reached set equals numpy's. Times at the last hop's shapes,
+    beside the bounds and (K15) torch.unique."""
+    from surrealdb_tpu_torch.parallel import mesh as M
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    nodes = GRAPH_NODES
+    pairs = graph_pairs(nodes, GRAPH_EDGES)
+    indptr, indices = person_csr(pairs, nodes)
+    deg = np.diff(indptr)
+    mesh = one_device_mesh(torch, "cuda")
+    ptr = M.replicate(mesh, indptr)
+    idx = M.replicate(mesh, indices)
+    live = np.array([seed], dtype=np.int32)
+    shapes = []
+    for h in range(hops):
+        f = -(-live.size // MESH_SHARDS) * MESH_SHARDS
+        fr = np.full(f, nodes, dtype=np.int32)
+        fr[: live.size] = live
+        fm = np.zeros(f, dtype=bool)
+        fm[: live.size] = True
+        md = int(deg[live].max())
+        frt = torch.from_numpy(fr).to(dev)
+        fmt = torch.from_numpy(fm).to(dev)
+        nb, valid = M.sharded_frontier_hop(mesh, ptr, idx, frt, fmt, md)
+        torch.cuda.synchronize()
+        want = M.sharded_frontier_hop_plain(mesh, ptr, idx, frt, fmt, md)
+        hop_ok = bool(torch.equal(nb, want[0]) and torch.equal(valid, want[1]))
+        uniq, umask = M.dedup_frontier(nb, valid, nodes)
+        torch.cuda.synchronize()
+        wu, wm = M.dedup_frontier_plain(nb, valid, nodes)
+        dedup_ok = bool(torch.equal(uniq, wu) and torch.equal(umask, wm))
+        reached = np.unique(np.concatenate([indices[indptr[v]:indptr[v + 1]] for v in live]))
+        nxt = uniq[umask].cpu().numpy()
+        numpy_ok = bool(np.array_equal(nxt, reached))
+        emit("mesh_kernels", kernel="K14+K15", hop=h + 1, frontier=f, live=int(live.size),
+             max_degree=md, gathered=int(nb.numel()), reached=int(nxt.size),
+             hop_exact=hop_ok, dedup_exact=dedup_ok, numpy_equal=numpy_ok)
+        require(hop_ok and dedup_ok and numpy_ok, f"K14/K15 hop {h + 1} disagrees")
+        shapes.append((frt, fmt, md, nb, valid))
+        live = nxt.astype(np.int32)
+    frt, fmt, md, nb, valid = shapes[-1]
+    f = frt.numel()
+    hop_bound, hop_by = bound_ms(indptr.nbytes + indices.nbytes + f * 5 + f * md * 5, 0.0,
+                                 "float32")
+    dd_bound, dd_by = bound_ms(f * md * 5 + f * md * 5, 0.0, "float32")
+    timing = {
+        "K14": dict(
+            ms=median_ms(lambda: M.sharded_frontier_hop(mesh, ptr, idx, frt, fmt, md)),
+            queued_ms=queued_device_ms(
+                torch, lambda: M.sharded_frontier_hop(mesh, ptr, idx, frt, fmt, md)),
+            plain_ms=median_ms(lambda: M.sharded_frontier_hop_plain(mesh, ptr, idx, frt, fmt,
+                                                                    md)),
+            library_ms=None, bound_ms=hop_bound, bound_by=hop_by,
+            shape={"frontier": f, "max_degree": md, "nodes": nodes, "edges": GRAPH_EDGES}),
+        "K15": dict(
+            ms=median_ms(lambda: M.dedup_frontier(nb, valid, nodes)),
+            queued_ms=queued_device_ms(torch, lambda: M.dedup_frontier(nb, valid, nodes)),
+            plain_ms=median_ms(lambda: M.dedup_frontier_plain(nb, valid, nodes)),
+            library_ms=median_ms(lambda: torch.unique(nb[valid])),
+            bound_ms=dd_bound, bound_by=dd_by,
+            shape={"entries": int(nb.numel()), "nodes": nodes}),
+    }
+    emit("timing_mesh_graph", **timing)
+    return dict(timing=timing, seconds=time.perf_counter() - t0)
+
+
+def phase_dryrun_mesh(torch, device: str):
+    """parallel/dryrun.py on the device: entry() once, then
+    dryrun_multichip(MESH_SHARDS) with the launch counts read around it
+    (the entry point that runs K12, K14 and K15)."""
+    from surrealdb_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    fn, args = dryrun.entry(device)
+    d, i = fn(*args)
+    reset_launches()
+    out = dryrun.dryrun_multichip(MESH_SHARDS, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = {n: v for n, v in read_launches().items() if v}
+    res = dict(entry_shape=list(d.shape), launches=launches,
+               dists_finite=bool(torch.isfinite(out["dists"]).all()),
+               reached=int(out["umask"].sum()), seconds=time.perf_counter() - t0)
+    if device == "cuda":
+        require(all(launches.get(n, 0) > 0 for n in ("mesh_partial_sqdist", "mesh_frontier_hop",
+                                                      "mesh_dedup_frontier", "mesh_topk_merge")),
+                f"the dry run skipped a mesh kernel: {launches}")
+    emit("dryrun_mesh", **res)
+    return res
+
+
+def phase_mesh_multicard(torch, n: int = 1 << 18, dim: int = DIM, k: int = 10):
+    """The mesh with shards on distinct cards (run with --multicard on a
+    machine with 2+ cards; the default run has one): K11 on every card
+    against its plain version and single-device K2, K12 on an (n/2 x 2)
+    grid of cards against its plain version, K13 against single-device K3,
+    K14/K15 exactly against their plain versions; then Datastore.mesh()
+    over every card through Datastore.execute: MTREE `exact-sharded` and
+    HNSW `ivf-sharded` beside a single-device Datastore (MTREE ids equal up
+    to ties). Correctness only: no time is taken."""
+    from surrealdb_tpu_torch import cnf
+    from surrealdb_tpu_torch.idx import ivf as IVF
+    from surrealdb_tpu_torch.kvs.ds import Datastore
+    from surrealdb_tpu_torch.ops import distances as D
+    from surrealdb_tpu_torch.parallel import mesh as M
+
+    n_dev = torch.cuda.device_count()
+    require(n_dev >= 2, f"--multicard needs 2+ cards, found {n_dev}")
+    mesh = M.make_mesh()
+    dev0 = torch.device("cuda", 0)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(n, dim, generator=g).to(torch.bfloat16)
+    mask = torch.rand(n, generator=g) > 0.05
+    xs = M.shard_tensor(mesh, x, ("data", None))
+    ms = M.shard_tensor(mesh, mask, ("data",))
+    require(xs.base is None and len({xs.shard((s,)).device for s in range(n_dev)}) == n_dev,
+            "the shards are not on distinct cards")
+    xg, mg = x.to(dev0), mask.to(dev0)
+    checks = {}
+    for metric in ("euclidean", "cosine"):
+        for nq in (1, 64):
+            q = torch.randn(nq, dim, generator=g).to(dev0)
+            got, want = M.sharded_knn(mesh, xs, ms, q, k, metric), \
+                M.sharded_knn_plain(mesh, xs, ms, q, k, metric)
+            gn = [t.cpu().numpy() for t in got + want + D.knn_search(q, xg, mg, metric, k)]
+            checks[f"K11 {metric} q{nq}"] = (
+                bool(np.allclose(gn[0], gn[2], **TOL))
+                and ids_match_up_to_ties(gn[0], gn[1], gn[2], gn[3])
+                and ids_match_up_to_ties(gn[0], gn[1], gn[4], gn[5]))
+    if n_dev % 2 == 0:
+        mesh2 = M.Mesh([torch.device("cuda", i) for i in range(n_dev)], ("data", "model"),
+                       (n_dev // 2, 2))
+        x2 = M.shard_tensor(mesh2, x, ("data", "model"))
+        m2 = M.shard_tensor(mesh2, mask, ("data",))
+        for nq in (1, 64):
+            q = torch.randn(nq, dim, generator=g)
+            gn = [t.cpu().numpy() for t in M.sharded_knn_2d(mesh2, x2, m2, q, k)
+                  + M.sharded_knn_2d_plain(mesh2, x2, m2, q, k)]
+            checks[f"K12 q{nq}"] = (bool(np.allclose(gn[0], gn[2], **TOL))
+                                    and ids_match_up_to_ties(gn[0], gn[1], gn[2], gn[3]))
+    corpus = gen_corpus(n, dim)
+    ivf = IVF.IvfState.train(corpus, np.ones(n, dtype=bool), device=dev0)
+    nprobe = IVF.default_nprobe(ivf.nlists, 64)
+    sharded = M.shard_corpus(mesh, corpus, dtype=torch.bfloat16)
+    single = torch.from_numpy(corpus).to(dev0).to(torch.bfloat16)
+    cents, rows1, mask1, probe_ok = ivf._device(dev0)
+    qs = make_queries(corpus, 64, 7, noise=CLUSTER_SIGMA)
+    for nq in (1, 64):
+        d, r = ivf.search_batch_sharded(qs[:nq], mesh, sharded, "euclidean", k, nprobe)
+        q = torch.from_numpy(np.ascontiguousarray(qs[:nq])).to(dev0)
+        sd, sr = IVF._ivf_search(q, cents, rows1, mask1, single,
+                                 torch.ones(n, dtype=torch.bool, device=dev0), "euclidean",
+                                 "euclidean", k, nprobe, probe_ok=probe_ok)
+        checks[f"K13 q{nq}"] = ids_match_up_to_ties(d, r, sd.cpu().numpy(), sr.cpu().numpy(),
+                                                    finite_kth=True)
+    indptr, indices = person_csr(graph_pairs(GRAPH_NODES, 200_000), GRAPH_NODES)
+    fr = np.arange(4 * n_dev * 50, dtype=np.int32)
+    fr[::7] = GRAPH_NODES + 3
+    fm = np.ones(fr.size, dtype=bool)
+    fm[::5] = False
+    md = int(np.diff(indptr).max())
+    got = M.sharded_frontier_hop(mesh, indptr, indices, fr, fm, md)
+    want = M.sharded_frontier_hop_plain(mesh, indptr, indices, fr, fm, md)
+    uniq = M.dedup_frontier(got[0], got[1], GRAPH_NODES)
+    wu = M.dedup_frontier_plain(got[0], got[1], GRAPH_NODES)
+    checks["K14+K15"] = all(bool(torch.equal(a.cpu(), b.cpu()))
+                            for a, b in zip(got + uniq, want + wu))
+    # the engine: Datastore.mesh() over every card beside a single-device one
+    engine = {}
+    prev = cnf.TPU_ANN_MIN_ROWS, Datastore._mesh_cache
+    cnf.TPU_ANN_MIN_ROWS = 8192
+    try:
+        for index in ("MTREE", "HNSW"):
+            answers = []
+            for cache in (("unset", None), ("none", None)):
+                Datastore._mesh_cache = cache
+                ds = Datastore("memory")
+                try:
+                    require((ds.mesh() is not None) == (cache[0] == "unset"), "mesh() rule")
+                    run = sql_runner(ds)
+                    efc = " EFC 64" if index == "HNSW" else ""
+                    run("DEFINE TABLE item SCHEMALESS; DEFINE INDEX iemb ON item FIELDS emb "
+                        f"{index} DIMENSION {dim} DIST EUCLIDEAN{efc}")
+                    ingest(run, corpus[: n // 4], 20_000)
+                    run(HNSW_SQL, {"q": qs[0].tolist()})
+                    if index == "HNSW":
+                        require(ds.index_stores.get("test", "test", "item", "iemb")
+                                .wait_ivf(300), "IVF training did not finish")
+                        run(HNSW_SQL, {"q": qs[0].tolist()})
+                    before = strategies()
+                    answers.append([run(HNSW_SQL, {"q": qs[i].tolist()}) for i in range(16)])
+                    engine[f"{index} {cache[0]}"] = strategy_delta(before)
+                finally:
+                    ds.close()
+            engine[f"{index} equal id sets"] = sum(
+                set(result_ids(a)) == set(result_ids(b)) for a, b in zip(*answers))
+    finally:
+        cnf.TPU_ANN_MIN_ROWS, Datastore._mesh_cache = prev
+    emit("mesh_multicard", cards=n_dev, rows=n, checks=checks, engine=engine)
+    require(all(checks.values()), f"multi-card checks failed: {checks}")
+    require(engine['MTREE unset'] == {'knn_strategy{strategy="exact-sharded"}': 16.0}
+            and engine['HNSW unset'] == {'knn_strategy{strategy="ivf-sharded"}': 16.0}
+            and engine["MTREE equal id sets"] >= 15,
+            f"multi-card engine run: {engine}")
+    return checks, engine
+
+
+MTREE_SQL = "SELECT id FROM item WHERE emb <|10|> $q"  # phase_main_path's
+HNSW_SQL = "SELECT id FROM item WHERE emb <|10,64|> $q"  # phase_main_path_hnsw's
+
+
+class MeshPaths:
+    """The `then` hooks that run the mesh path on the two kNN cells' open
+    Datastores: `mtree` after the MTREE window (exact-sharded, then the K11
+    and K12 checks on its sharded mirror), `hnsw` after the ML phase on the
+    HNSW Datastore (ivf-sharded, then the K13 checks). On the CPU only the
+    main paths run (the plain versions)."""
+
+    def __init__(self, torch, device, queries, truth, corpus, n_seq, n_threads, rounds):
+        self.torch, self.device = torch, device
+        self.queries, self.truth, self.corpus = queries, truth, corpus
+        self.drive = dict(n_seq=n_seq, n_threads=n_threads, rounds=rounds)
+
+    def mtree(self, ds, results, base):
+        t0 = time.perf_counter()
+        out, _mesh, matrix = phase_main_path_mesh(
+            self.torch, self.device, ds, "mtree", "iemb", MTREE_SQL, "exact-sharded",
+            {"knn_pairwise": MESH_SHARDS, "knn_select": MESH_SHARDS, "mesh_topk_merge": 1},
+            self.queries, results, base_timing_of(base), self.truth, **self.drive)
+        require(out["recall_at_10"] >= 0.99, f"exact-sharded recall@10 {out['recall_at_10']}")
+        out["seconds"] = time.perf_counter() - t0
+        if self.device == "cuda":
+            out["kernels"] = phase_mesh_kernels_exact(self.torch, matrix, DIM)
+        return out
+
+    def hnsw(self, ds, results, base):
+        from surrealdb_tpu_torch.idx.ivf import default_nprobe
+
+        ml = phase_main_path_ml(self.torch, self.device, ds, self.corpus)
+        t0 = time.perf_counter()
+        out, mesh, matrix = phase_main_path_mesh(
+            self.torch, self.device, ds, "hnsw", "iemb", HNSW_SQL, "ivf-sharded",
+            {"knn_pairwise": 1, "knn_select": 1 + MESH_SHARDS,
+             "ivf_gather_distance": MESH_SHARDS, "ivf_map_slots": MESH_SHARDS,
+             "mesh_topk_merge": 1},
+            self.queries, results, base_timing_of(base), self.truth, **self.drive)
+        out["seconds"] = time.perf_counter() - t0
+        if self.device == "cuda":
+            ivf = ds.index_stores.get("test", "test", "item", "iemb").ivf
+            fresh = make_queries(self.corpus, 64, 7, noise=CLUSTER_SIGMA)
+            out["kernels"] = phase_mesh_kernels_ivf(
+                self.torch, ivf, mesh, matrix, fresh, default_nprobe(ivf.nlists, 64), DIM)
+        return ml, out
+
+
 # ------------------------------------------------------------------ main
 def kernel_entry(name, kern, source, replaces, launches, err, timing, shape, extra=None):
     return {
@@ -2155,6 +2752,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=1 << 20,
                     help="MTREE corpus rows (the HNSW phase always runs at 2^20)")
+    ap.add_argument("--multicard", action="store_true",
+                    help="only the mesh over every visible card (needs 2+ cards)")
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run the main paths tiny on the CPU (plain versions); exits 1")
     args = ap.parse_args(argv)
@@ -2170,11 +2769,13 @@ def main(argv=None) -> int:
         corpus = gen_corpus(4096, 32)
         queries = make_queries(corpus, 4 + 8 * 2, 42)
         truth = knn_ground_truth(corpus, queries, 10)
+        mesh_paths = MeshPaths(torch, "cpu", queries, truth, corpus, n_seq=4, n_threads=8,
+                               rounds=2)
         phase_main_path(torch, "cpu", corpus, queries, truth, batch=1000,
-                        n_seq=4, n_threads=8, rounds=2)
+                        n_seq=4, n_threads=8, rounds=2, then=mesh_paths.mtree)
         phase_main_path_hnsw(torch, "cpu", corpus, queries, truth, batch=1000,
-                             n_seq=4, n_threads=8, rounds=2,
-                             then=lambda ds: phase_main_path_ml(torch, "cpu", ds, corpus))
+                             n_seq=4, n_threads=8, rounds=2, then=mesh_paths.hnsw)
+        phase_dryrun_mesh(torch, "cpu")
         # 200 nodes x 4,000 edges: the thresholds come down so every device
         # branch of the graph path runs (its plain versions)
         cnf.TPU_GRAPH_COUNT_EDGES = 1000
@@ -2196,6 +2797,15 @@ def main(argv=None) -> int:
         return 2
     full = 1 << 20
     t_all = time.perf_counter()
+    if args.multicard:
+        try:
+            smi = phase_environment(torch)
+            phase_mesh_multicard(torch)
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(smi, flush=True)
+        return 0
     try:
         smi = phase_environment(torch)
         k1_err, k2_err = phase_kernels(torch, DIM, min(args.rows, full))
@@ -2205,21 +2815,27 @@ def main(argv=None) -> int:
         del ivf_inputs
         torch.cuda.empty_cache()
         graph_k = phase_graph_kernels(torch)
+        mesh_graph_k = phase_mesh_kernels_graph(torch)
         torch.cuda.empty_cache()
         corpus = gen_corpus(full, DIM)
         queries = make_queries(corpus, 24 + 32 * 2, 42)
         t = time.perf_counter()
         truth = knn_ground_truth(corpus, queries, 10)  # shared by both main paths
         emit("ground_truth", queries=queries.shape[0], seconds=time.perf_counter() - t)
-        main = phase_main_path(torch, "cuda", corpus[: args.rows], queries, truth
-                               if args.rows == full else knn_ground_truth(
-                                   corpus[: args.rows], queries, 10),
-                               batch=20_000, n_seq=24, n_threads=32, rounds=2)
+        mtree_truth = truth if args.rows == full else knn_ground_truth(
+            corpus[: args.rows], queries, 10)
+        main = phase_main_path(
+            torch, "cuda", corpus[: args.rows], queries, mtree_truth, batch=20_000, n_seq=24,
+            n_threads=32, rounds=2,
+            then=MeshPaths(torch, "cuda", queries, mtree_truth, corpus, n_seq=24,
+                           n_threads=32, rounds=2).mtree)
+        mesh_a = main.pop("then")
         gc.collect()
         hnsw = phase_main_path_hnsw(
             torch, "cuda", corpus, queries, truth, batch=20_000, n_seq=24, n_threads=32,
-            rounds=2, then=lambda ds: phase_main_path_ml(torch, "cuda", ds, corpus))
-        ml = hnsw.pop("then")
+            rounds=2, then=MeshPaths(torch, "cuda", queries, truth, corpus, n_seq=24,
+                                     n_threads=32, rounds=2).hnsw)
+        ml, mesh_b = hnsw.pop("then")
         del corpus
         gc.collect()
         torch.cuda.empty_cache()
@@ -2233,6 +2849,11 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         ml_k = phase_ml_kernels(torch)
+        dry = phase_dryrun_mesh(torch, "cuda")
+        emit("mesh_seconds", main_path_mesh_mtree=mesh_a["seconds"],
+             main_path_mesh_hnsw=mesh_b["seconds"],
+             mesh_kernels=mesh_a["kernels"]["seconds"] + mesh_b["kernels"]["seconds"]
+             + mesh_graph_k["seconds"], dryrun_mesh=dry["seconds"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2326,6 +2947,56 @@ def main(argv=None) -> int:
          "by_case": {lab: {k: r[k] for k in ("m", "k", "n", "x", "act") + timing_keys}
                      for lab, r in ml_k["cases"].items() if lab != "config5_bf16"}},
     ))
+    # K11-K15 (parallel/mesh.py): 8 shards on cuda:0; K11 / K13 launches
+    # are the merges of the mesh windows (one a dispatched tile), K12, K14
+    # and K15's those of the dry run, their only caller
+    ka, kb = mesh_a["kernels"], mesh_b["kernels"]
+    mesh_src = "surrealdb_tpu_torch/csrc/mesh.cu"
+    kernels.append(kernel_entry(
+        "K11 sharded_knn (per shard knn_pairwise + knn_select, then mesh_topk_merge)",
+        "mesh_topk_merge", mesh_src, "surrealdb_tpu/parallel/mesh.py:68",
+        mesh_a["launches"]["mesh_topk_merge"], ka["max_abs_err"]["K11"],
+        {k: v for k, v in ka["timing"]["K11"][1].items() if k != "single_device_k2_ms"},
+        {"q": 1, "n": args.rows, "d": DIM, "k": 10, "shards": MESH_SHARDS, "corpus": "bfloat16"},
+        {"by_q": {"64": ka["timing"]["K11"][64]},
+         "single_device_k2_ms": ka["timing"]["K11"][1]["single_device_k2_ms"],
+         "merge_queued_ms": ka["merge_queued_ms"],
+         "launches_by_kernel": {n: mesh_a["launches"][n] for n in (
+             "knn_pairwise", "knn_select", "mesh_topk_merge")}},
+    ))
+    kernels.append(kernel_entry(
+        "K12 sharded_knn_2d (mesh_partial_sqdist per shard, knn_select, mesh_topk_merge)",
+        "mesh_partial_sqdist", mesh_src, "surrealdb_tpu/parallel/mesh.py:123",
+        dry["launches"].get("mesh_partial_sqdist", 0), ka["max_abs_err"]["K12"],
+        ka["timing"]["K12"][1],
+        {"q": 1, "n": args.rows, "d": DIM, "k": 10, "grid": [4, 2], "corpus": "bfloat16"},
+        {"by_q": {"64": ka["timing"]["K12"][64]}},
+    ))
+    k13 = kb["timing"]
+    kernels.append(kernel_entry(
+        "K13 _ivf_searcher / sharded_ivf_search (probe once; per shard ivf_gather_distance "
+        "+ knn_select + ivf_map_slots; mesh_topk_merge)",
+        "mesh_topk_merge", mesh_src, "surrealdb_tpu/parallel/mesh.py:173",
+        mesh_b["launches"]["mesh_topk_merge"], kb["max_abs_err"],
+        {k: v for k, v in k13[1].items() if k != "candidate_rows"},
+        {"q": 1, "n": full, "d": DIM, "k": 10, "shards": MESH_SHARDS,
+         "candidate_rows": k13[1]["candidate_rows"]},
+        {"by_q": {"64": k13[64]},
+         "launches_by_kernel": {n: mesh_b["launches"][n] for n in (
+             "knn_pairwise", "knn_select", "ivf_gather_distance", "ivf_map_slots",
+             "mesh_topk_merge")}},
+    ))
+    gt = mesh_graph_k["timing"]
+    for name, kern, replaces, key in (
+        ("K14 sharded_frontier_hop (mesh_frontier_hop)", "mesh_frontier_hop",
+         "surrealdb_tpu/parallel/mesh.py:263", "K14"),
+        ("K15 dedup_frontier (mesh_dedup_frontier)", "mesh_dedup_frontier",
+         "surrealdb_tpu/parallel/mesh.py:396", "K15"),
+    ):
+        kernels.append(kernel_entry(
+            name, kern, mesh_src, replaces, dry["launches"].get(kern, 0), 0.0,
+            {k: v for k, v in gt[key].items() if k != "shape"}, gt[key]["shape"],
+        ))
     emit("done", seconds=time.perf_counter() - t_all)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -36,8 +36,9 @@ from typing import Any, Deque, Optional, Tuple
 
 # ---------------------------------------------------------------- registry
 # subsystem -> the kernel entry points (csrc/*.cu, through ops/distances.py,
-# idx/ivf.py, idx/graph_csr.py, ops/bm25.py and ml/model.py) its tracked calls launch. Keys are
-# EXACTLY the subsystem strings passed to tracked().
+# idx/ivf.py, idx/graph_csr.py, ops/bm25.py, ml/model.py and
+# parallel/mesh.py) its tracked calls launch. Keys are EXACTLY the
+# subsystem strings passed to tracked().
 KERNEL_SITES = {
     "knn_exact": ("knn_pairwise", "knn_select"),
     "ivf": ("knn_pairwise", "knn_select", "ivf_gather_distance", "ivf_map_slots"),
@@ -46,11 +47,15 @@ KERNEL_SITES = {
     "graph_chain": ("graph_chain",),
     "bm25": ("bm25_scores",),
     "ml_forward": ("ml_linear", "ml_softmax"),
+    "knn_sharded": ("knn_pairwise", "knn_select", "mesh_topk_merge"),
+    "ivf_sharded": ("knn_pairwise", "knn_select", "ivf_gather_distance", "ivf_map_slots",
+                    "mesh_topk_merge"),
     "kernel_build": (
         "knn_pairwise", "knn_row_mean", "knn_select",
         "ivf_assign", "ivf_kmeans_update", "ivf_gather_distance", "ivf_map_slots",
         "graph_dense_count", "graph_csc_count", "graph_chain", "bm25_scores",
-        "ml_linear", "ml_softmax",
+        "ml_linear", "ml_softmax", "mesh_topk_merge", "mesh_partial_sqdist",
+        "mesh_frontier_hop", "mesh_dedup_frontier",
     ),
 }
 

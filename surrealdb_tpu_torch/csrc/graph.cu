@@ -42,7 +42,7 @@
 // reference's clips and validity (offs < deg, weight > 0, frontier < n), an
 // int32 scatter-add into a dense [n_cap + 1] (integer atomicAdd: any order
 // gives the same sums), the sentinel zeroed, and an ordered stream
-// compaction of the nodes with a count > 0 in ascending id order, truncated
+// compaction (compact.cuh) of the nodes with a count > 0 in ascending id order, truncated
 // at the hop's out_size and filled with (n_cap, 0), as nonzero(size=...,
 // fill_value=n_cap). The order is part of the result (chain() emits records
 // in it). A count-only chain ends with the weighted degree reduction. What
@@ -52,6 +52,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "compact.cuh"
 
 namespace {
 
@@ -323,103 +325,6 @@ __global__ void __launch_bounds__(THREADS) chain_gather(const int* ptr, int n, c
   }
 }
 
-constexpr int CP_PER = 8;                   // dense entries a thread
-constexpr int CP_CHUNK = THREADS * CP_PER;  // dense entries a block
-
-__device__ __forceinline__ bool present_at(const unsigned* dense, long long v, long long n) {
-  return v < n && (int)dense[v] > 0;  // the reference's signed `dense > 0`
-}
-
-// blk[c] = number of present ids in chunk c of [0, n)
-__global__ void __launch_bounds__(THREADS) compact_count(const unsigned* dense, long long n,
-                                                         int* blk) {
-  __shared__ int wsum[THREADS / 32];
-  const long long base = (long long)blockIdx.x * CP_CHUNK;
-  int cnt = 0;
-  for (int i = 0; i < CP_PER; ++i) cnt += present_at(dense, base + i * THREADS + threadIdx.x, n);
-  for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
-  if ((threadIdx.x & 31) == 0) wsum[threadIdx.x >> 5] = cnt;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int t = 0;
-    for (int i = 0; i < THREADS / 32; ++i) t += wsum[i];
-    blk[blockIdx.x] = t;
-  }
-}
-
-// inclusive prefix of v over the block; *total gets the block's sum
-__device__ __forceinline__ int block_inclusive_scan(int v, int* total) {
-  __shared__ int wtot[THREADS / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int u = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += u;
-  }
-  if (lane == 31) wtot[warp] = v;
-  __syncthreads();
-  int before = 0, all = 0;
-  for (int i = 0; i < THREADS / 32; ++i) {
-    if (i < warp) before += wtot[i];
-    all += wtot[i];
-  }
-  __syncthreads();  // wtot is reused by the next call
-  *total = all;
-  return v + before;
-}
-
-// exclusive prefix sum of blk[0, nb) in place, one block
-__global__ void __launch_bounds__(THREADS) compact_scan(int* blk, int nb) {
-  int carry = 0;
-  for (int base = 0; base < nb; base += THREADS) {
-    const int i = base + threadIdx.x;
-    const int v = i < nb ? blk[i] : 0;
-    int total;
-    const int incl = block_inclusive_scan(v, &total);
-    if (i < nb) blk[i] = carry + incl - v;
-    carry += total;
-  }
-}
-
-__global__ void __launch_bounds__(THREADS) fill_frontier(int* present, int* counts, int out_size,
-                                                         int n_cap) {
-  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < out_size;
-       i += (long long)gridDim.x * THREADS) {
-    present[i] = n_cap;
-    counts[i] = 0;
-  }
-}
-
-// present[off + rank] = v, counts[...] = dense[v] for the present ids of
-// this block's chunk, in ascending order, dropped past out_size. A thread
-// owns CP_PER consecutive ids; ranks come from a block scan of its count.
-__global__ void __launch_bounds__(THREADS) compact_write(const unsigned* dense, long long n,
-                                                         const int* blk_off, int out_size,
-                                                         int* present, int* counts) {
-  const int off0 = blk_off[blockIdx.x];
-  if (off0 >= out_size) return;  // the whole block: every id here ranks past out_size
-  const long long base = (long long)blockIdx.x * CP_CHUNK + (long long)threadIdx.x * CP_PER;
-  int cnt = 0;
-  for (int i = 0; i < CP_PER; ++i) cnt += present_at(dense, base + i, n);
-  int total;
-  int pos = off0 + block_inclusive_scan(cnt, &total) - cnt;
-  for (int i = 0; i < CP_PER && pos < out_size; ++i) {
-    const long long v = base + i;
-    if (present_at(dense, v, n)) {
-      present[pos] = (int)v;
-      counts[pos] = (int)dense[v];
-      ++pos;
-    }
-  }
-}
-
-long long compact_blocks(long long n) { return (n + CP_CHUNK - 1) / CP_CHUNK; }
-
-unsigned grid_for(long long work) {
-  long long g = (work + THREADS - 1) / THREADS;
-  if (g < 1) g = 1;
-  return (unsigned)(g < 65536 ? g : 65536);
-}
-
 }  // namespace
 
 extern "C" {
@@ -556,18 +461,11 @@ int graph_chain(const void* const* ptrs, const int* caps, const void* const* idx
     const int out_size = out_sizes[h];
     int* pres = (int*)presents[h];
     int* cnts = (int*)counts[h];
-    const long long nb = compact_blocks(n_cap);
-    fill_frontier<<<grid_for(out_size), THREADS, 0, s>>>(pres, cnts, out_size, n_cap);
+    compact_fill<int><<<grid_for(out_size), CP_THREADS, 0, s>>>(pres, cnts, out_size, n_cap);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    if (nb > 0) {
-      compact_count<<<(unsigned)nb, THREADS, 0, s>>>((const unsigned*)dense, n_cap, (int*)blk);
-      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-      compact_scan<<<1, THREADS, 0, s>>>((int*)blk, (int)nb);
-      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-      compact_write<<<(unsigned)nb, THREADS, 0, s>>>((const unsigned*)dense, n_cap, (const int*)blk,
-                                                     out_size, pres, cnts);
-      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    }
+    if ((e = compact_run<int>((const unsigned*)dense, n_cap, (int*)blk, out_size, pres, cnts, s)) !=
+        cudaSuccess)
+      return (int)e;
     cur_fr = pres;
     cur_w = cnts;
     width = out_size;

@@ -19,8 +19,10 @@ with a wrapper and a plain PyTorch version in this module:
 
 A CUDA tensor goes to the kernels (or the wrapper raises); CPU tensors go
 to the plain versions, which the tests hold against the reference and
-chip_smoke.py holds the kernels against. The mesh half (`_device_sharded`,
-`search_batch_sharded`, K13) is not ported and raises.
+chip_smoke.py holds the kernels against. The mesh half
+(`_device_sharded`, `search_batch_sharded`) runs K13 through
+parallel/mesh.py `sharded_ivf_search`, which calls this module's probe and
+rerank halves (`_ivf_probe`, `_ivf_rerank`) once a device and once a shard.
 
 Role of the reference's graph ANN structures (reference:
 core/src/idx/trees/hnsw/mod.rs:337-416 layered beam search) re-designed
@@ -126,8 +128,19 @@ def ivf_search_plain(q, cents, list_rows, list_mask, x, slot_ok, metric, probe_m
     centroids, rerank the probed lists' members that are listed and
     slot_ok with `metric`, top-k in (distance, position) order, positions
     mapped to slots (-1 where the distance is +inf)."""
+    probes = ivf_probe_plain(q, cents, probe_metric, nprobe)
+    return ivf_rerank_plain(q, probes, list_rows, list_mask, x, slot_ok, metric, k)
+
+
+def ivf_probe_plain(q, cents, probe_metric, nprobe):
+    """The probe of plain K3: the nprobe nearest centroids [Q, nprobe] int32."""
     dc = D.pairwise_distance_plain(q, cents, probe_metric)
-    probes = D._topk_min_stable(dc, nprobe)[1].long()  # [Q, nprobe]
+    return D._topk_min_stable(dc, nprobe)[1]
+
+
+def ivf_rerank_plain(q, probes, list_rows, list_mask, x, slot_ok, metric, k):
+    """The rerank of plain K3 over given probes [Q, nprobe]."""
+    probes = probes.long()
     nq = q.shape[0]
     rows = list_rows[probes].reshape(nq, -1)  # [Q, nprobe*L]
     rows_c = rows.long().clamp(0, x.shape[0] - 1)
@@ -247,17 +260,39 @@ def _ivf_search(q, cents, list_rows, list_mask, x, slot_ok, metric, probe_metric
     if not _on_card(q, cents, list_rows, list_mask, x, slot_ok):
         return ivf_search_plain(q, cents, list_rows, list_mask, x, slot_ok, metric,
                                 probe_metric, k, nprobe)
+    probes = _ivf_probe(q, cents, probe_metric, nprobe, probe_ok)
+    return _ivf_rerank(q, probes, list_rows, list_mask, x, slot_ok, metric, k)
+
+
+def _ivf_probe(q, cents, probe_metric, nprobe, probe_ok=None):
+    """K3's probe: the nprobe nearest centroids of each query, [Q, nprobe]
+    int32 (K1 + K2 over the centroids on the card)."""
+    if not _on_card(q, cents):
+        return ivf_probe_plain(q, cents, probe_metric, nprobe)
+    if probe_ok is None:
+        probe_ok = torch.ones(cents.shape[0], dtype=torch.bool, device=q.device)
+    return D.knn_search(q, cents, probe_ok, probe_metric, nprobe)[1]
+
+
+def _ivf_rerank(q, probes, list_rows, list_mask, x, slot_ok, metric, k):
+    """K3's rerank over given probes: the probed lists' members (list_rows
+    [C, L] row slots of x, list_mask [C, L]) that are listed and slot_ok,
+    by `metric`, top-min(k, nprobe*L) in (distance, position) order, slots
+    -1 where the distance is +inf. On the card `ivf_gather_distance`, K2's
+    selection and `ivf_map_slots`; the mesh (K13) calls it once a shard."""
+    if not _on_card(q, probes, list_rows, list_mask, x, slot_ok):
+        return ivf_rerank_plain(q, probes, list_rows, list_mask, x, slot_ok, metric, k)
     from surrealdb_tpu_torch.ops import _cuda
 
     nlists, lmax = list_rows.shape
-    if probe_ok is None:
-        probe_ok = torch.ones(nlists, dtype=torch.bool, device=q.device)
+    nprobe = probes.shape[1]
     if list_rows.dtype != torch.int32 or list_mask.dtype != torch.bool or slot_ok.dtype != torch.bool:
         raise TypeError("list_rows must be int32, list_mask and slot_ok bool")
     if list_mask.shape != list_rows.shape or slot_ok.shape != (x.shape[0],):
         raise ValueError("list_mask must match list_rows, slot_ok must be [cap]")
+    if probes.dtype != torch.int32 or not probes.is_contiguous():
+        raise ValueError("probes must be a contiguous int32 [Q, nprobe] tensor")
     code, p = D._metric_code(metric)
-    _, probes = D.knn_search(q, cents, probe_ok, probe_metric, nprobe)  # K1 + K2
     xp, bf16 = _rows_ptr(x)
     nq = q.shape[0]
     dist = torch.empty((nq, nprobe * lmax), dtype=torch.float32, device=q.device)
@@ -346,6 +381,8 @@ class IvfState:
         self._dev = None  # (device, cents, list_rows, list_mask, probe_ok)
         self._slot_ok = None  # (cap, device, all-true [cap] bool)
         self._mut = 0  # bumped on every list mutation
+        self._sharded_cache = None  # ((_mut, id(mesh), n_total), sharded tables)
+        self._slot_ok_sharded = None  # (id(mesh), cap, all-true sharded [cap] bool)
         self._warmed: set = set()  # (tile, k, nprobe, metric) combos launched
 
     @property
@@ -362,12 +399,20 @@ class IvfState:
         device="cuda",
     ) -> "IvfState":
         """Train the quantizer. When `matrix` (the mirror's device-resident
-        [cap, D] tensor) is given, the training sample and the full corpus
+        [cap, D] tensor, or its mesh-sharded ShardedTensor) is given, the
+        training sample and the full corpus
         assignment gather rows ON DEVICE — only index vectors and the [C, D]
         centroids cross the host<->device link. Without it the host rows
         train on `device`."""
         rows = np.nonzero(alive)[0]
         c = nlists or default_nlists(rows.size)
+        shards = getattr(matrix, "shards", None)
+        if shards is not None:
+            # a mesh-sharded mirror: on one device its base is the whole
+            # matrix, read in place; across cards the host rows train on
+            # the mesh's first device
+            device = matrix.mesh.merge_device
+            matrix = matrix.base
         if matrix is not None and rows.size:
             dev = matrix.device
             rng = np.random.default_rng(7)
@@ -720,17 +765,107 @@ class IvfState:
 
     # -------------------------------------------------------- mesh search
     def _device_sharded(self, mesh, n_total: int, axis: str = "data"):
-        raise NotImplementedError(
-            "sharded IVF tables (K13, parallel/mesh.py) not ported yet; see ROADMAP, mesh queue"
+        """Per-shard inverted-list tables for sharded_ivf_search: each
+        list's slots bucketed by owning shard (slot // shard_rows, the last
+        shard taking any remainder) into a [n_dev, C, L] local-row table
+        and its mask, list members in list order, L the pow2 of the longest
+        (shard, list) bucket; placed sharded over the mesh axis, so each
+        shard holds only ITS slab, aligned with its corpus rows. Returns
+        (cents replicated, rows, mask, shard_rows); cached per (list
+        mutation, mesh, n_total)."""
+        from surrealdb_tpu_torch.parallel import mesh as M
+
+        n_dev = mesh.shape[axis]
+        shard_rows = n_total // n_dev
+        key = (self._mut, id(mesh), n_total)
+        if self._sharded_cache is not None and self._sharded_cache[0] == key:
+            return self._sharded_cache[1]
+        c = self.nlists
+        lens = np.array([len(l) for l in self.lists], dtype=np.int64)
+        slots = (np.concatenate([np.asarray(l, dtype=np.int64) for l in self.lists])
+                 if lens.sum() else np.zeros(0, dtype=np.int64))
+        owner = np.minimum(slots // max(shard_rows, 1), n_dev - 1)
+        group = owner * c + np.repeat(np.arange(c, dtype=np.int64), lens)  # (shard, list)
+        order = np.argsort(group, kind="stable")  # keeps list order inside a group
+        counts = np.bincount(group, minlength=n_dev * c)
+        starts = np.cumsum(counts) - counts
+        g = group[order]
+        pos = np.arange(order.size) - starts[g]
+        maxlen = _next_pow2(max(int(counts.max()) if counts.size else 1, 1))
+        rows = np.zeros((n_dev * c, maxlen), dtype=np.int32)
+        mask = np.zeros((n_dev * c, maxlen), dtype=bool)
+        rows[g, pos] = (slots - owner * shard_rows)[order]
+        mask[g, pos] = True
+        spec = (axis, None, None)
+        dev = (
+            M.replicate(mesh, np.ascontiguousarray(self.centroids, dtype=np.float32)),
+            M.shard_tensor(mesh, rows.reshape(n_dev, c, maxlen), spec),
+            M.shard_tensor(mesh, mask.reshape(n_dev, c, maxlen), spec),
+            shard_rows,
         )
+        self._sharded_cache = (key, dev)
+        return dev
 
     def search_batch_sharded(
         self, qs: np.ndarray, mesh, matrix, metric: str, k: int, nprobe: int,
         tile: Optional[int] = None, slot_mask: Optional[np.ndarray] = None,
     ) -> Tuple[np.ndarray, np.ndarray]:
-        raise NotImplementedError(
-            "sharded IVF search (K13, parallel/mesh.py) not ported yet; see ROADMAP, mesh queue"
-        )
+        """Batched sharded probe+rerank over a mesh-sharded mirror matrix
+        (K13). Same contract as search_batch; misses surface as +inf/-1.
+        `slot_mask` is the columnar residual prefilter over corpus slots:
+        it rides into the kernels row-sharded alongside the corpus so top-k
+        is computed among MATCHING rows only."""
+        from surrealdb_tpu_torch import compile_log
+        from surrealdb_tpu_torch.parallel import mesh as M
+        from surrealdb_tpu_torch.utils.num import dispatch_tile, pad_tail, tile_slices
+
+        axis = mesh.axis_names[0]
+        matrix = M.as_sharded(mesh, matrix, (axis, None))
+        cents, list_rows, list_mask, _ = self._device_sharded(mesh, matrix.shape[0], axis)
+        probe_metric = metric if metric in _PROBE_METRICS else "euclidean"
+        nprobe = min(nprobe, self.nlists)
+        qs = np.asarray(qs, dtype=np.float32)
+        cap = int(matrix.shape[0])
+        if slot_mask is not None:
+            sm = np.asarray(slot_mask, dtype=bool)
+            if sm.shape[0] < cap:  # pad slots are dead anyway
+                sm = np.concatenate([sm, np.zeros(cap - sm.shape[0], dtype=bool)])
+            sm = sm[:cap]
+            # placed once here, not once a tile
+            slot_dev = M.shard_tensor(mesh, sm, (axis,))
+        else:
+            # all slots: one all-true mask per (mesh, cap), as _all_slots
+            if self._slot_ok_sharded is None or self._slot_ok_sharded[:2] != (id(mesh), cap):
+                self._slot_ok_sharded = (id(mesh), cap, M.shard_tensor(
+                    mesh, torch.ones(cap, dtype=torch.bool), (axis,)))
+            slot_dev = self._slot_ok_sharded[2]
+        tile = dispatch_tile(qs.shape[0], tile)
+        dd = np.full((qs.shape[0], k), np.inf, dtype=np.float32)
+        rr = np.full((qs.shape[0], k), -1, dtype=np.int64)
+
+        def one_slice(lo, hi):
+            d, r = M.sharded_ivf_search(
+                mesh, cents, list_rows, list_mask, matrix,
+                torch.from_numpy(np.ascontiguousarray(pad_tail(qs[lo:hi], tile))),
+                k, nprobe, metric=metric, probe_metric=probe_metric, axis=axis,
+                slot_ok=slot_dev,
+            )
+            k_out = int(d.shape[1])
+            dd[lo:hi, :k_out] = d.cpu().numpy()[: hi - lo]
+            rr[lo:hi, :k_out] = r.cpu().numpy()[: hi - lo]
+
+        # each (tile, corpus, k, nprobe, metrics) is one launch shape: only
+        # the FIRST slice can carry the kernel build, so only it is tracked
+        slices = list(tile_slices(qs.shape[0], tile))
+        with compile_log.tracked(
+            "ivf_sharded",
+            (tile, int(matrix.shape[1]), int(matrix.shape[0]), k, nprobe,
+             metric, probe_metric),
+        ):
+            one_slice(*slices[0])
+        for lo, hi in slices[1:]:
+            one_slice(lo, hi)
+        return dd, rr
 
 
 def ivf_from_reference(centroids, lists, trained_n, device) -> IvfState:

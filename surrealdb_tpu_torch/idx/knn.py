@@ -4,8 +4,10 @@ Mirrors surrealdb_tpu/idx/knn.py. The mirror uploads to a torch tensor on
 the datastore's device (`ds.device`). The exact strategies launch the CUDA
 kernels of ops/distances.py (K1 `knn_pairwise` + K2 `knn_select`); the
 `ivf` strategy (HNSW above TPU_ANN_MIN_ROWS) trains and searches through
-idx/ivf.py (K3-K5, csrc/ivf.cu). The mesh strategies are not ported yet
-and raise NotImplementedError (ROADMAP, mesh queue).
+idx/ivf.py (K3-K5, csrc/ivf.cu). Under a device mesh (`ds.mesh()`) the
+matrix is row-sharded over it and the strategies are `exact-sharded`
+(parallel/mesh.py `sharded_knn`, K11) and `ivf-sharded` (IvfState's
+`search_batch_sharded`, K13), as in the reference.
 
 Role of the reference's kNN plumbing (reference: core/src/idx/planner/knn.rs,
 checker.rs, trees/knn.rs, and the brute-force CollectKnn→BuildKnn workflow
@@ -73,8 +75,10 @@ class VectorMirror:
         self.dirty = True
         self.gen = 0  # bumped on every mutation; caches key off it
         self.mask: Optional[np.ndarray] = None
-        self._dev_matrix = None  # torch tensor [cap, D] on self._device
+        self._dev_matrix = None  # tensor [cap, D] on self._device, or sharded over self._mesh
+        self._dev_mask = None  # the alive mask sharded alongside (mesh only)
         self._device = None
+        self._mesh = None
         self.ivf = None  # IvfState, built on demand
         self._ivf_building = False
         self._ivf_done = threading.Event()  # signals a finished train round
@@ -262,45 +266,64 @@ class VectorMirror:
         with self._lock:
             return int(self.alive[: self.n_slots].sum()) if self.built and self.alive is not None else 0
 
-    def device_view(self, device):
-        """(matrix tensor [cap, D] on `device`, host mask [cap]) for the
-        exact kernels.
+    def device_view(self, device, mesh=None):
+        """(matrix [cap, D] on `device`, host mask [cap]) for the exact
+        kernels.
 
         On CUDA the matrix uploads as cnf.TPU_VECTOR_DTYPE (bf16 by default:
         half the bytes the distance kernel streams; the kernel accumulates
         in f32). The CPU keeps f32 exactness, as the reference keeps f32 on
         its CPU backend. The upload copies, so later host-side deltas never
-        alias a matrix a launched batch is still reading."""
+        alias a matrix a launched batch is still reading. With a device
+        mesh the matrix is placed row-SHARDED over its first axis (cap is
+        pow2, so it divides across any pow2 shard count) and the mask is
+        sharded alongside: a ShardedTensor whose shards are views of one
+        tensor when they share a card (parallel/mesh.py). A change of
+        device or mesh re-places the matrix, freeing the old one first."""
         import torch
 
         with self._lock:
             self._maybe_compact()
-            if self.dirty or self._dev_matrix is None or self._device != device:
+            if (self.dirty or self._dev_matrix is None or self._device != device
+                    or self._mesh is not mesh):
                 data = torch.from_numpy(self.data)
-                if device.type == "cuda":
-                    dtype = (
-                        torch.bfloat16
-                        if cnf.TPU_VECTOR_DTYPE == "bfloat16"
-                        else torch.float32
-                    )
-                    self._dev_matrix = None  # free the old generation first
+                target = mesh.merge_device if mesh is not None else device
+                dtype = (
+                    torch.bfloat16
+                    if target.type == "cuda" and cnf.TPU_VECTOR_DTYPE == "bfloat16"
+                    else torch.float32
+                )
+                self._dev_matrix = self._dev_mask = None  # free the old generation first
+                if mesh is not None:
+                    from surrealdb_tpu_torch.parallel.mesh import shard_tensor
+
+                    axis = mesh.axis_names[0]
+                    self._dev_matrix = shard_tensor(mesh, data, (axis, None), dtype=dtype)
+                    self._dev_mask = shard_tensor(mesh, torch.from_numpy(self.alive), (axis,))
+                elif device.type == "cuda":
                     self._dev_matrix = data.to(device).to(dtype)
                 else:
                     self._dev_matrix = data.clone()
                 self._device = device
+                self._mesh = mesh
                 self.mask = self.alive.copy()
                 self.dirty = False
             return self._dev_matrix, self.mask
 
-    def device_snapshot(self, device):
+    def device_snapshot(self, device, mesh=None):
         """(matrix, mask, rids) captured atomically: `rids` is the list
         OBJECT tied to this matrix's slot numbering. A later compaction
         installs a NEW list (never renumbering this one in place — appends
         only), so resolving kernel slots through this snapshot stays correct
         even if the mirror compacts while the batch is on device."""
         with self._lock:
-            m, mask = self.device_view(device)
+            m, mask = self.device_view(device, mesh)
             return m, mask, self.rids
+
+    def device_sharded_mask(self):
+        """The alive mask sharded like the matrix (None without a mesh)."""
+        with self._lock:
+            return self._dev_mask
 
     def host_view(self):
         """(data [n, D], alive [n], rids) — numpy views for small corpora."""
@@ -708,13 +731,91 @@ class KnnPlan(_KnnExecutorMixin):
             # probed-candidate count)
             mesh = None if cnf.TPU_DISABLE else ds.mesh()
             if mesh is not None and n >= cnf.TPU_KNN_ONDEVICE_THRESHOLD:
-                # the reference's multi-chip strategies (exact-sharded,
-                # ivf-sharded over parallel/mesh.py) — never an exact
-                # single-device serve in their place
-                raise NotImplementedError(
-                    "multi-GPU kNN (K11-K13, parallel/mesh.py) not ported yet; "
-                    "see ROADMAP, last queue"
-                )
+                # sharded: the mirror shards row-wise over the mesh. ANN
+                # composes with the mesh: centroids are replicated,
+                # inverted-list members sharded by slot range — per-shard
+                # probe + rerank, then an O(k*shards) all-gather
+                # (parallel/mesh.py sharded_ivf_search). While the quantizer
+                # trains in the background (or for big-k queries where IVF
+                # can't pay off) the exact per-shard distance+top-k path
+                # (sharded_knn) serves instead. A failed mesh kernel fails
+                # the query: nothing serves single-device in its place.
+                matrix, mask, rids = mirror.device_snapshot(ds.device, mesh)
+                mask_dev = mirror.device_sharded_mask()
+                want_ivf = approx_ok and n >= cnf.TPU_ANN_MIN_ROWS and self.k * 4 <= n
+                ivf = mirror.ensure_ivf(matrix) if want_ivf else None
+                if ivf is not None:
+                    from surrealdb_tpu_torch.idx.ivf import default_nprobe
+
+                    self.strategy = "ivf-sharded"
+                    ef = self.ef or self.ix["index"].get("efc")
+                    nprobe = default_nprobe(ivf.nlists, ef)
+                    key = ("knn-ivf-sharded", id(matrix), id(ivf), metric, k, nprobe)
+                    # columnar residual prefilter (parity with ivf/ivf-host):
+                    # the slot mask shards alongside the corpus rows and the
+                    # dispatch key carries the MASK CONTENT so riders with
+                    # different $param bindings never share a leader's mask
+                    slot_mask = None
+                    if self.prefilter is not None:
+                        pre = self._prefilter_slot_mask(ctx, rids, len(mask))
+                        if pre is not None:
+                            slot_mask = pre[0]
+                            key = key + pre[1]
+
+                    def runner(qs):
+                        qm = np.stack(qs)
+
+                        def collect():
+                            dd, rr = ivf.search_batch_sharded(
+                                qm, mesh, matrix, metric, k, nprobe,
+                                slot_mask=slot_mask,
+                            )
+                            return list(zip(dd, rr))
+
+                        return collect
+
+                    dists, slots = ds.dispatch.submit(key, q, runner)
+                else:
+                    self.strategy = (
+                        "exact-sharded(ivf-training)" if want_ivf else "exact-sharded"
+                    )
+                    key = ("knn-sharded", id(matrix), metric, k)
+
+                    def runner(qs):
+                        import torch
+
+                        from surrealdb_tpu_torch import compile_log
+                        from surrealdb_tpu_torch.parallel.mesh import sharded_knn
+                        from surrealdb_tpu_torch.utils.num import dispatch_tile, pad_tail, tile_slices
+
+                        qs_m = np.stack(qs).astype(np.float32)
+                        nq = qs_m.shape[0]
+                        tile = dispatch_tile(nq)
+                        dd = np.empty((nq, k), dtype=np.float32)
+                        rr = np.empty((nq, k), dtype=np.int64)
+
+                        def one_slice(lo, hi):
+                            qt = torch.from_numpy(np.ascontiguousarray(pad_tail(qs_m[lo:hi], tile)))
+                            d, r = sharded_knn(mesh, matrix, mask_dev, qt, k, metric,
+                                               mesh.axis_names[0])
+                            dd[lo:hi] = d.cpu().numpy()[: hi - lo]
+                            rr[lo:hi] = r.cpu().numpy()[: hi - lo]
+
+                        # one launch shape per (tile, corpus dims, metric,
+                        # k) on the mesh: only the FIRST slice can carry the
+                        # kernel build, so only it is tracked
+                        slices = list(tile_slices(nq, tile))
+                        with compile_log.tracked(
+                            "knn_sharded",
+                            (tile, int(matrix.shape[1]), int(matrix.shape[0]),
+                             metric, k),
+                        ):
+                            one_slice(*slices[0])
+                        for lo, hi in slices[1:]:
+                            one_slice(lo, hi)
+                        return list(zip(dd, rr))
+
+                    dists, slots = ds.dispatch.submit(key, q, runner)
             elif (
                 not cnf.TPU_DISABLE
                 and approx_ok

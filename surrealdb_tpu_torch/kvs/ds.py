@@ -511,11 +511,30 @@ class Datastore:
         return ex.compute_expression(expr)
 
     # ------------------------------------------------------------ mesh
+    _mesh_cache = ("unset", None)
+
     def mesh(self):
-        """The device mesh for sharded mirrors. This package runs on one
-        card, so there is none: the multi-GPU mesh (parallel/mesh.py) is
-        the last queue of the ROADMAP."""
-        return None
+        """The device mesh for sharded mirrors: a 1-D 'data' mesh over all
+        visible CUDA cards when there are 2+ and this Datastore runs on
+        CUDA, else None (the single-device path). Shared across datastores
+        (the devices are process-global) through the class-level cache,
+        which is also how a caller puts shards on one device:
+        `Datastore._mesh_cache = ("mesh", make_mesh(8, devices=[dev] * 8))`."""
+        kind, m = Datastore._mesh_cache
+        if kind != "unset":
+            return m
+        if self.device.type != "cuda":
+            return None
+        import torch
+
+        if torch.cuda.device_count() < 2:
+            Datastore._mesh_cache = ("none", None)
+            return None
+        from surrealdb_tpu_torch.parallel.mesh import make_mesh
+
+        m = make_mesh(torch.cuda.device_count())
+        Datastore._mesh_cache = ("mesh", m)
+        return m
 
     # ------------------------------------------------------------ maintenance
     def tick(self) -> int:

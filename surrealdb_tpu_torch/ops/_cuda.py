@@ -73,6 +73,17 @@ _SIGNATURES = {
     "ml_linear": (ctypes.c_int, [_P, ctypes.c_int, _P, _P, ctypes.c_longlong, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_int, _P, _P]),
     "ml_softmax": (ctypes.c_int, [_P, ctypes.c_longlong, ctypes.c_int, _P, _P]),
+    "mesh_topk_merge": (ctypes.c_int, [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P,
+                                       _P]),
+    "mesh_partial_sqdist": (ctypes.c_int, [_P, ctypes.c_longlong, ctypes.c_int, _P, ctypes.c_int,
+                                           ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                                           _P, ctypes.c_int, ctypes.c_int, _P, _P]),
+    "mesh_frontier_hop": (ctypes.c_int, [_P, ctypes.c_longlong, _P, ctypes.c_longlong, _P, _P,
+                                         ctypes.c_longlong, ctypes.c_int, _P, _P, _P]),
+    "mesh_dedup_frontier": (ctypes.c_int, [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
+                                           _P]),
+    "mesh_dedup_blocks": (ctypes.c_longlong, [ctypes.c_longlong]),
 }
 
 

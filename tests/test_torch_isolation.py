@@ -1,9 +1,10 @@
 """The PyTorch port stands alone: no JAX, nothing of surrealdb_tpu, CUDA
-unless told otherwise, and no silent stand-in for an unported strategy.
+unless told otherwise, and no silent stand-in for a failed strategy.
 The subprocess drives every ported path (MTREE, HNSW through IVF, the
-graph path's count and expand branches, the full-text path, and the ML
+graph path's count and expand branches, the full-text path, the ML
 path: a columnar scan, a batch above the device threshold and an ONNX
-import from a .surml file) before it looks for a leak."""
+import from a .surml file, and the mesh path: MTREE and HNSW on an
+8-shard CPU mesh and the mesh dry run) before it looks for a leak."""
 
 import os
 import re
@@ -82,6 +83,23 @@ assert out[-1]["status"] == "OK" and len(out[-1]["result"]) == 1500, out
 import_surml(ds, Session.owner(), bytes.fromhex({surml!r}))
 out = ds.execute("RETURN ml::lin<1>({{a: 5.0, b: 4.0}})")
 assert out[-1]["status"] == "OK" and abs(out[-1]["result"] - 121.0) < 1e-3, out
+# the mesh path: both indexes again on eight shards of the CPU, then the dry run
+import torch
+from surrealdb_tpu_torch import telemetry
+from surrealdb_tpu_torch.parallel import dryrun
+from surrealdb_tpu_torch.parallel.mesh import make_mesh
+Datastore._mesh_cache = ("mesh", make_mesh(8, devices=[torch.device("cpu")] * 8))
+for tb in ("item", "vec"):
+    out = ds.execute(f"SELECT id FROM {{tb}} WHERE emb <|3|> $q", vars={{"q": rows[2]["emb"]}})
+    assert out[-1]["status"] == "OK" and out[-1]["result"][0]["id"].id == 2, out
+assert ds.index_stores.get("test", "test", "vec", "ih").wait_ivf(60)
+out = ds.execute("SELECT id FROM vec WHERE emb <|3|> $q", vars={{"q": rows[2]["emb"]}})
+assert out[-1]["status"] == "OK" and out[-1]["result"][0]["id"].id == 2, out
+strategies = telemetry.snapshot()["counters"]
+assert strategies['knn_strategy{{strategy="exact-sharded"}}'] == 1, strategies
+assert strategies['knn_strategy{{strategy="ivf-sharded"}}'] >= 1, strategies
+dryrun.dryrun_multichip(8, device="cpu")
+Datastore._mesh_cache = ("unset", None)
 ds.close()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "ml_dtypes"))
@@ -165,34 +183,68 @@ def test_cpu_datastore_keeps_its_device():
 
 
 def test_unported_ivf_branch_raises(monkeypatch):
-    """The sharded IVF strategy (`ivf-sharded`, K13 over several GPUs) is
-    not ported: with a mesh, an HNSW query above TPU_ANN_MIN_ROWS fails, it
-    is not served single-device instead; IvfState's sharded search raises
-    too."""
-    from surrealdb_tpu_torch import cnf
-    from surrealdb_tpu_torch.idx.ivf import IvfState
+    """No fallback under a mesh: a mesh kernel that raises fails the query
+    (`ivf-sharded` for HNSW, `exact-sharded` for MTREE), and no
+    single-device strategy answers in its place."""
+    from surrealdb_tpu_torch import cnf, telemetry
+    from surrealdb_tpu_torch.idx import ivf as IVF
     from surrealdb_tpu_torch.kvs.ds import Datastore
+    from surrealdb_tpu_torch.parallel import mesh as M
 
     monkeypatch.setattr(cnf, "TPU_KNN_ONDEVICE_THRESHOLD", 16)
     monkeypatch.setattr(cnf, "TPU_ANN_MIN_ROWS", 32)
+    monkeypatch.setattr(Datastore, "_mesh_cache",
+                        ("mesh", M.make_mesh(8, devices=[torch.device("cpu")] * 8)))
     ds = Datastore("memory", device="cpu")
     try:
         rng = np.random.default_rng(0)
         rows = [{"id": i, "emb": rng.standard_normal(8).astype(np.float32).tolist()}
                 for i in range(64)]
         ds.execute("DEFINE TABLE item; DEFINE INDEX ih ON item FIELDS emb "
-                   "HNSW DIMENSION 8 DIST EUCLIDEAN")
-        ds.execute("INSERT INTO item $rows RETURN NONE", vars={"rows": rows})
-        monkeypatch.setattr(ds, "mesh", lambda: object())
-        out = ds.execute("SELECT id FROM item WHERE emb <|3|> $q", vars={"q": rows[0]["emb"]})
-        assert out[-1]["status"] == "ERR"
-        assert "NotImplementedError" in out[-1]["result"] and "ROADMAP" in out[-1]["result"]
+                   "HNSW DIMENSION 8 DIST EUCLIDEAN; DEFINE TABLE m; DEFINE INDEX im ON m "
+                   "FIELDS emb MTREE DIMENSION 8 DIST EUCLIDEAN")
+        for tb in ("item", "m"):
+            ds.execute(f"INSERT INTO {tb} $rows RETURN NONE", vars={"rows": rows})
+        ds.execute("SELECT id FROM item WHERE emb <|3|> $q", vars={"q": rows[0]["emb"]})
+        assert ds.index_stores.get("test", "test", "item", "ih").wait_ivf(60)
+
+        def boom(*a, **kw):
+            raise RuntimeError("mesh_topk_merge: CUDA launch failed with error 9")
+
+        monkeypatch.setattr(M, "topk_merge", boom)
+        before = telemetry.snapshot()["counters"]
+        for tb in ("item", "m"):
+            out = ds.execute(f"SELECT id FROM {tb} WHERE emb <|3|> $q",
+                             vars={"q": rows[0]["emb"]})
+            assert out[-1]["status"] == "ERR", out
+            assert "mesh_topk_merge" in out[-1]["result"]
+        after = telemetry.snapshot()["counters"]
+        served = {k: after[k] - before.get(k, 0) for k in after
+                  if k.startswith("knn_strategy") and after[k] != before.get(k, 0)}
+        assert served == {}, served
+        monkeypatch.setattr(IVF, "_ivf_rerank", boom)
+        st = ds.index_stores.get("test", "test", "item", "ih").ivf
+        with pytest.raises(RuntimeError, match="mesh_topk_merge"):
+            st.search_batch_sharded(np.zeros((1, 8), dtype=np.float32), Datastore._mesh_cache[1],
+                                    torch.zeros(64, 8), "euclidean", 1, 1)
     finally:
         ds.close()
-    st = IvfState(np.zeros((2, 8), dtype=np.float32), [[0], [1]], 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        st.search_batch_sharded(np.zeros((1, 8), dtype=np.float32), object(),
-                                torch.zeros(2, 8), "euclidean", 1, 1)
+
+
+def test_mesh_cache_is_set_only_through_monkeypatch():
+    """Tests that put a mesh on the Datastore do it with monkeypatch, which
+    resets `_mesh_cache` after the test; none assigns it directly, so no
+    mesh leaks into another test."""
+    from surrealdb_tpu_torch.kvs.ds import Datastore
+
+    direct = re.compile(r"Datastore\._mesh_cache\s*=(?!=)")
+    hits = []
+    for f in sorted(os.listdir(os.path.join(REPO, "tests"))):
+        if f.startswith("test_torch_") and f.endswith(".py") and f != "test_torch_isolation.py":
+            with open(os.path.join(REPO, "tests", f)) as fh:
+                hits += [f"{f}:{n}" for n, line in enumerate(fh, 1) if direct.search(line)]
+    assert not hits, hits
+    assert Datastore._mesh_cache == ("unset", None)
 
 
 def test_unported_file_backend_raises():

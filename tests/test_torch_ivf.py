@@ -278,9 +278,21 @@ def test_cpu_tensors_launch_no_ivf_kernel(trained):
 
 
 def test_sharded_search_raises_naming_the_roadmap(trained):
-    x, _ref, got = trained
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        got.search_batch_sharded(x[:2], object(), _t(x), "euclidean", 5, 4)
+    """The sharded search is ported (K13, parallel/mesh.py): on an 8-shard
+    CPU mesh it returns the reference's answers for the same quantizer,
+    and a corpus that does not divide over the mesh raises."""
+    from surrealdb_tpu.parallel import mesh as RM
+    from surrealdb_tpu_torch.parallel import mesh as PM
+
+    x, ref, got = trained
+    pmesh = PM.make_mesh(8, devices=[torch.device("cpu")] * 8)
+    rmesh = RM.make_mesh(8)
+    qs = x[:3] + 0.5
+    rd, rr = ref.search_batch_sharded(qs, rmesh, RM.shard_corpus(rmesh, x), "euclidean", 5, 4)
+    pd, pr = got.search_batch_sharded(qs, pmesh, PM.shard_corpus(pmesh, x), "euclidean", 5, 4)
+    _assert_topk_match(rd, rr, pd, pr)
+    with pytest.raises(ValueError, match="divide"):
+        got.search_batch_sharded(x[:2], pmesh, _t(x[:-1]), "euclidean", 5, 4)
 
 
 # ------------------------------------------------------------ SQL parity

@@ -1,6 +1,7 @@
 """The CUDA kernels' logic (surrealdb_tpu_torch/csrc/knn.cu, ivf.cu,
-graph.cu, bm25.cu and ml.cu), run on the CPU under the emulation header csrc/emu/cuda_emu.h and
-held against the plain PyTorch versions.
+graph.cu, bm25.cu, ml.cu and mesh.cu, with the headers they include), run on
+the CPU under the emulation header csrc/emu/cuda_emu.h and held against the
+plain PyTorch versions.
 
 The source is compiled with the host C++ compiler: CUDA qualifiers become
 no-ops, `__shared__` arrays become function statics (blocks run one after
@@ -20,7 +21,9 @@ counts, node ids and their order; BM25 (K9) rtol 1e-5, atol 1e-6 (both
 sides round the same f32 steps in the same order, only log1pf may differ),
 tied rows bit-identical, and its top-k order exact; the ML forward (K10)
 rtol 1e-5, atol 1e-5 (f32 sums in another order), softmax outputs atol
-1e-6.
+1e-6; the mesh kernels: the merge, the frontier hop and the dedup exact
+(ids, order, masks, the index rules), K12's partial distances rtol 1e-5,
+atol 1e-4 (f32 sums in another order).
 """
 
 import ctypes
@@ -39,6 +42,7 @@ from surrealdb_tpu_torch.ml import model as ML
 from surrealdb_tpu_torch.ops import _cuda
 from surrealdb_tpu_torch.ops import bm25 as B
 from surrealdb_tpu_torch.ops import distances as D
+from surrealdb_tpu_torch.parallel import mesh as M
 
 CSRC = _cuda.CSRC
 
@@ -63,14 +67,22 @@ def _build_emu(out, sources):
     if cxx is None:
         pytest.skip("no g++ to build the emulated kernels")
     cpps = []
+    # headers are translated too (compact.cuh launches kernels) and found
+    # in `out` before csrc/; a header given in `sources` replaces csrc's
+    headers = {f: _source(f) for f in os.listdir(CSRC) if f.endswith(".cuh")}
+    headers.update({n: t for n, t in sources.items() if n.endswith(".cuh")})
+    for name, text in headers.items():
+        (out / name).write_text(_translate(text))
     for name, text in sources.items():
+        if name.endswith(".cuh"):
+            continue
         cpp = out / name.replace(".cu", "_emu.cpp")
         cpp.write_text(_translate(text))
         cpps.append(str(cpp))
     so = out / "libkernels_emu.so"
     proc = subprocess.run(
         [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-Wno-unknown-pragmas",
-         "-I", os.path.join(CSRC, "emu"), "-I", CSRC, "-o", str(so), *cpps],
+         "-I", os.path.join(CSRC, "emu"), "-I", str(out), "-o", str(so), *cpps],
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -91,7 +103,7 @@ def _source(name):
 def lib(tmp_path_factory):
     out = tmp_path_factory.mktemp("kernels_emu")
     return _build_emu(out, {n: _source(n) for n in ("knn.cu", "ivf.cu", "graph.cu", "bm25.cu",
-                                                     "ml.cu")})
+                                                     "ml.cu", "mesh.cu")})
 
 
 def _pairwise(lib, q, x, metric):
@@ -701,3 +713,144 @@ def test_k10_planted_fault_fails_the_comparison(tmp_path, fault):
         x, w, b = _ml_inputs(n, 40, 48, n, torch.float32)
         assert not torch.allclose(_linear_emu(bad, x, w, b, None),
                                   ML.linear_act_plain(x, w, b, None), rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------------ mesh (K11-K15)
+INF = float("inf")
+
+
+def _merge_inputs(seed, nq, s, kk, shard_rows):
+    """Candidates with many exact ties (quarters) and +inf picks; each
+    shard's kk sorted as a shard's top-kk is."""
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 6, (nq, s, kk)).astype(np.float32) / 4
+    d[rng.random((nq, s, kk)) < 0.2] = INF
+    d = np.sort(d, axis=2).reshape(nq, s * kk)
+    i = rng.integers(0, shard_rows, (nq, s * kk)).astype(np.int32)
+    i[~np.isfinite(d)] = -1  # K13's misses; K11's +inf picks keep ids
+    i[:, ::3] = rng.integers(0, shard_rows, i[:, ::3].shape)
+    return torch.from_numpy(d), torch.from_numpy(i)
+
+
+@pytest.mark.parametrize("finite_only", [False, True], ids=["k11", "k13"])
+@pytest.mark.parametrize("s,kk,k_out", [(8, 10, 10), (8, 4, 20), (3, 64, 64), (1, 5, 5),
+                                        (8, 64, 1)])
+def test_mesh_topk_merge_matches_plain(lib, finite_only, s, kk, k_out):
+    d, i = _merge_inputs(s * kk + k_out, 5, s, kk, 1000)
+    got = M._launch_topk_merge(lib, d, i, kk, 1000, k_out, finite_only)
+    want = M.topk_merge_plain(d, i, kk, 1000, k_out, finite_only)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_mesh_topk_merge_tie_order_is_lax_top_k(lib):
+    """lax.top_k(-[1, inf, 1, inf, 0.5]) picks positions [4, 0, 2, 1, 3]:
+    equal values go to the lower position first, +inf ones included."""
+    d = torch.tensor([[1.0, INF, 1.0, INF, 0.5]])
+    i = torch.tensor([[10, 11, 12, 13, 14]], dtype=torch.int32)
+    vals, ids = M._launch_topk_merge(lib, d, i, 1, 100, 5, False)
+    assert ids[0].tolist() == [414, 10, 212, 111, 313]
+    assert vals[0].tolist() == [0.5, 1.0, 1.0, INF, INF]
+    _, ids = M._launch_topk_merge(lib, d, i, 1, 100, 5, True)
+    assert ids[0].tolist() == [414, 10, 212, -1, -1]
+
+
+def test_mesh_topk_merge_above_shared_memory(lib):
+    """More candidates than the merge stages in shared memory: the keys are
+    read from device memory instead."""
+    d, i = _merge_inputs(3, 2, 8, 1600, 5000)
+    got = M._launch_topk_merge(lib, d, i, 1600, 5000, 12, False)
+    want = M.topk_merge_plain(d, i, 1600, 5000, 12, False)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("corpus", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("nq", [1, 11])
+def test_mesh_partial_sqdist_matches_plain(lib, nq, corpus):
+    """Two feature slices of 40 and 30 columns (strided views, neither a
+    multiple of the 32-column step) over 300 rows (two row tiles, the last
+    ragged): the first writes, the second adds and finishes with the mask."""
+    rng = np.random.default_rng(nq)
+    q = torch.from_numpy(rng.standard_normal((nq, 70)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((300, 70)).astype(np.float32)).to(corpus)
+    mask = torch.from_numpy(rng.random(300) > 0.1)
+    acc = M._launch_partial_sqdist(lib, q[:, :40], x[:, :40], None, False, mask)
+    want = M.partial_sqdist_plain(q[:, :40], x[:, :40])
+    torch.testing.assert_close(acc, want, rtol=1e-5, atol=1e-4)
+    out = M._launch_partial_sqdist(lib, q[:, 40:], x[:, 40:], acc, True, mask)
+    assert out is acc  # in place: the psum's accumulator
+    want = M.partial_sqdist_plain(q[:, 40:], x[:, 40:], want, True, mask)
+    assert torch.equal(torch.isinf(out), ~mask[None, :].expand(nq, -1))
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("max_degree", [1, 4, 9])
+def test_mesh_frontier_hop_matches_plain(lib, max_degree):
+    """Every entry, padded ones included: a negative id wraps once, then
+    every index clamps; int32 fr + 1 wraps at 2^31 - 1."""
+    rng = np.random.default_rng(max_degree)
+    n = 60
+    deg = rng.integers(0, 7, n)
+    indptr = torch.from_numpy(np.concatenate([[0], np.cumsum(deg)]).astype(np.int32))
+    indices = torch.from_numpy(rng.integers(0, n, int(deg.sum())).astype(np.int32))
+    fr = rng.integers(0, n, 40).astype(np.int32)
+    fr[[0, 3, 7, 11, 12, 20]] = [-1, n, n + 7, -n - 9, 2**31 - 1, -(2**31)]
+    fr, fm = torch.from_numpy(fr), torch.from_numpy(rng.random(40) > 0.25)
+    nb, valid = M._launch_frontier_hop(lib, indptr, indices, fr, fm, max_degree)
+    want_nb, want_valid = M.frontier_hop_plain(indptr, indices, fr, fm, max_degree)
+    assert torch.equal(nb, want_nb) and torch.equal(valid, want_valid)
+
+
+@pytest.mark.parametrize("n_nodes,f", [(40, 16), (3000, 64), (5000, 2100)])
+def test_mesh_dedup_frontier_matches_plain(lib, n_nodes, f):
+    """Duplicates, masked entries, and the scatter rule's drops (at and
+    past n_nodes, negative ids that stay out of range after one wrap);
+    n_nodes of several compaction blocks."""
+    rng = np.random.default_rng(n_nodes)
+    nodes = rng.integers(0, n_nodes, f).astype(np.int32)
+    nodes[:4] = nodes[4:8]
+    nodes[[9, 10, 11, 12, 13]] = [-1, n_nodes, n_nodes + 5, -(n_nodes + 3), -(n_nodes + 1)]
+    mask = rng.random(f) > 0.15
+    mask[[9, 10, 11, 12, 13]] = True
+    nodes, mask = torch.from_numpy(nodes), torch.from_numpy(mask)
+    got = M._launch_dedup_frontier(lib, nodes, mask, n_nodes)
+    want = M.dedup_frontier_plain(nodes, mask, n_nodes)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1].sum()) > 0
+
+
+_MESH_FAULTS = {
+    # equal keys ranked to the higher position first
+    "merge_tie_order": ("(kj == kp && j < p)", "(kj == kp && j > p)"),
+    # a negative frontier id clamped without the wrap
+    "hop_no_wrap": ("if (i < 0) i += n;", ""),
+    # a negative node id dropped without the scatter's wrap
+    "dedup_no_wrap": ("if (v < 0) v += (long long)n_nodes + 1;", ""),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(_MESH_FAULTS))
+def test_mesh_planted_fault_fails_the_comparison(tmp_path, fault):
+    """The comparisons above have teeth: a copy of mesh.cu with one fault
+    planted disagrees with the plain versions."""
+    src = _source("mesh.cu")
+    old, new = _MESH_FAULTS[fault]
+    assert src.count(old) == 1
+    bad = _build_emu(tmp_path, {"mesh.cu": src.replace(old, new)})
+    if fault == "merge_tie_order":
+        d = torch.tensor([[1.0, INF, 1.0, INF, 0.5]])
+        i = torch.tensor([[10, 11, 12, 13, 14]], dtype=torch.int32)
+        got = M._launch_topk_merge(bad, d, i, 1, 100, 5, False)[1]
+        assert not torch.equal(got, M.topk_merge_plain(d, i, 1, 100, 5, False)[1])
+    elif fault == "hop_no_wrap":
+        indptr = torch.arange(11, dtype=torch.int32)
+        indices = torch.arange(10, dtype=torch.int32) * 3
+        fr = torch.tensor([-1, 2, -3, 4], dtype=torch.int32)
+        fm = torch.ones(4, dtype=torch.bool)
+        got = M._launch_frontier_hop(bad, indptr, indices, fr, fm, 2)[0]
+        assert not torch.equal(got, M.frontier_hop_plain(indptr, indices, fr, fm, 2)[0])
+    else:
+        nodes = torch.tensor([3, -2, 1, 0], dtype=torch.int32)  # -2 wraps to node 9
+        mask = torch.tensor([True, True, True, False])
+        got = M._launch_dedup_frontier(bad, nodes, mask, 10)
+        want = M.dedup_frontier_plain(nodes, mask, 10)
+        assert not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
