@@ -5,6 +5,8 @@
                                            # 1M-edge graph, the 1M-document index
     python3 chip_smoke.py --rows 262144    # a cut MTREE corpus (record the cut)
     python3 chip_smoke.py --multicard      # only the mesh over 2+ cards
+    python3 chip_smoke.py --ml-only        # only phase 10 and ml_paths: the
+                                           # narrow against the skinny design
     python3 chip_smoke.py --cpu-rehearsal  # tiny, on the CPU, plain versions;
                                            # exits 1 and prints no result
 
@@ -55,8 +57,12 @@ Phases, one JSON line each (or more):
    forwards x layers (+ one softmax); cProfile breakdowns and the busy share
    of a scan;
 10. ml_kernels: K10 ml_linear (config 5's 2^20 x 768 bf16 -> 1, f32, the
-   MLP's layers, the row path's shapes, a ragged M) and ml_softmax against
-   their plain versions, with times, bounds and torch.addmm beside them.
+   MLP's layers, config 5's width to 2, 10 and 16 outputs, the row path's
+   shapes, a ragged M) and ml_softmax against their plain versions, with
+   event and queued times, bounds (the f32-accurate product's: bytes or
+   its bf16 limb products on the tensor cores; the f32 FMA bound beside)
+   and torch.addmm beside them (with the upcast, and on a pre-cast x); the
+   MLP scan's forward timed by CUDA events (phase 9).
 
 11. the mesh path (surrealdb_tpu_torch/parallel/mesh.py), 8 shards on
    cuda:0 (the reference's test mesh on one card): `main_path_mesh` runs
@@ -79,6 +85,7 @@ script imports nothing of JAX or of the reference package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -1825,6 +1832,7 @@ def phase_main_path_bm25(torch, device: str, n_docs: int, batch: int, n_seq: int
 ML_MLP_HIDDEN = 128  # the scan's MLP: 768 -> 128 relu -> 10 softmax
 ML_MLP_OUT = 10
 ML_ROW_IDS = 16_384  # the row path's WHERE selects ids below this
+ML_NARROW_WIDTHS = (2, 10, 16)  # config 5's 768 inputs to a multi-output head
 SOFTMAX_TOL = dict(rtol=0.0, atol=1e-6)
 
 
@@ -1857,15 +1865,30 @@ def ml_reference(feats, layers, step: int = 65_536):
     return np.concatenate(out)
 
 
+def linear_bound(m: int, k: int, n: int, x_bytes: int):
+    """The least time of one f32-accurate [m, k] x [k, n] product on the
+    card: x read and out written once at HBM rate, or its bf16 limb
+    products on the tensor cores (3 passes for bf16 x, 6 for f32 x) at the
+    bf16 peak, whichever is longer; beside it the f32 FMA bound of the same
+    product on the CUDA cores."""
+    nbytes = m * k * x_bytes + k * n * 4 + n * 4 + m * n * 4
+    passes = 3 if x_bytes == 2 else 6
+    bound, by = bound_ms(nbytes, 2.0 * m * k * n * passes, "bfloat16")
+    return bound, by, bound_ms(nbytes, 2.0 * m * k * n, "float32")[0]
+
+
 def phase_ml_kernels(torch):
     """K10 ml_linear and ml_softmax against their plain versions on the card:
     config 5's [2^20, 768] bf16 x [768, 1] and the same in f32; the MLP
     768 -> 128 relu -> 64 tanh -> 16 sigmoid and 768 -> 128 -> 10 softmax
-    at 2^20 rows, each layer on the plain version's input; the row path's
-    768 -> 1 at M = 1,024, 4,096 and 65,536; M = 100,003 (no multiple of
-    either path's row tile) at N = 1 and 130. For each: the median time,
-    the bound, the plain version's, and torch.addmm(b, x.float(), W) (TF32
-    off) with, for bf16 x, the cast alone."""
+    at 2^20 rows, each layer on the plain version's input; config 5's
+    width to N = 2 (bf16: the skinny path), 10 and 16 (the narrow); the
+    row path's 768 -> 1 at M = 1,024, 4,096 and 65,536; M = 100,003 (no multiple of
+    any path's row tile) at N = 1 and 130. For each: the median time by an
+    event pair and queued (20 calls behind a sleep kernel), the bound
+    (linear_bound), the plain version's time, and torch.addmm(b, x.float(),
+    W) (TF32 off) with, for bf16 x, the cast alone and addmm on a pre-cast
+    x."""
     from surrealdb_tpu_torch.ml import model as ML
 
     dev = torch.device("cuda", 0)
@@ -1900,6 +1923,9 @@ def phase_ml_kernels(torch):
     w5, b5 = layer(DIM, 130)
     cases += [("ragged_m100003_n1_bf16", xb[:odd].contiguous(), w1, b1, "sigmoid", False),
               ("ragged_m100003_n130", x768[:odd].contiguous(), w5, b5, "relu", True)]
+    for n in ML_NARROW_WIDTHS:
+        wn, bn = layer(DIM, n)
+        cases.append((f"narrow_768x{n}_bf16", xb, wn, bn, None, False))
     results, lin_err, sm_err = {}, 0.0, 0.0
     for label, x, w, b, act, softmax in cases:
         got = ML.linear_act(x, w, b, act)
@@ -1909,15 +1935,20 @@ def phase_ml_kernels(torch):
         ok = bool(torch.allclose(got, want, **TOL))
         m, k = x.shape
         n = w.shape[1]
-        nbytes = x.numel() * x.element_size() + w.numel() * 4 + n * 4 + m * n * 4
-        bound, by = bound_ms(nbytes, 2.0 * m * k * n, "float32")
+        bound, by, fma_bound = linear_bound(m, k, n, x.element_size())
         r = dict(m=m, k=k, n=n, x=str(x.dtype).split(".")[-1], act=act, max_abs_err=e, ok=ok,
                  ms=median_ms(lambda: ML.linear_act(x, w, b, act)),
+                 queued_ms=queued_device_ms(torch, lambda: ML.linear_act(x, w, b, act)),
                  plain_ms=median_ms(lambda: ML.linear_act_plain(x, w, b, act)),
                  library_ms=median_ms(lambda: torch.addmm(b, x.float(), w)),
-                 bound_ms=bound, bound_by=by)
+                 library_queued_ms=queued_device_ms(torch, lambda: torch.addmm(b, x.float(), w)),
+                 bound_ms=bound, bound_by=by, f32_fma_bound_ms=fma_bound)
         if x.dtype == torch.bfloat16:
             r["library_cast_ms"] = median_ms(lambda: x.float())
+            xf = x.float()
+            r["library_nocast_ms"] = median_ms(lambda: torch.addmm(b, xf, w))
+            r["library_nocast_queued_ms"] = queued_device_ms(torch, lambda: torch.addmm(b, xf, w))
+            del xf
         require(ok, f"ml_linear {label} disagrees with its plain version (max {e})")
         lin_err = max(lin_err, e)
         if softmax:
@@ -1931,8 +1962,10 @@ def phase_ml_kernels(torch):
             sb, sby = bound_ms(2.0 * h.numel() * 4, 5.0 * h.numel(), "float32")
             r["softmax"] = dict(
                 max_abs_err=se, ok=sok, ms=median_ms(lambda: ML.row_softmax(h)),
+                queued_ms=queued_device_ms(torch, lambda: ML.row_softmax(h)),
                 plain_ms=median_ms(lambda: ML.row_softmax_plain(h)),
                 library_ms=median_ms(lambda: torch.softmax(h, dim=-1)),
+                library_queued_ms=queued_device_ms(torch, lambda: torch.softmax(h, dim=-1)),
                 bound_ms=sb, bound_by=sby)
             require(sok, f"ml_softmax after {label} disagrees with its plain version ({se})")
             sm_err = max(sm_err, se)
@@ -1940,6 +1973,83 @@ def phase_ml_kernels(torch):
         emit("ml_check", case=label, **r)
         del got, want
     return {"max_abs_err": lin_err, "softmax_max_abs_err": sm_err, "cases": results}
+
+
+ML_PATH_VARIANTS = {"skinny": 1, "narrow_r2": 2, "narrow_r4": 3}  # ml.cu's -DML_FORCE_PATH
+
+
+def build_ml_variants():
+    """csrc/ml.cu alone, built once a ML_PATH_VARIANTS value (N <= 16 forced
+    onto the skinny path, or onto the narrow path with 2 rows a thread, or
+    with 4 where N > 4), each nvcc of its own, side by side, into the
+    gitignored build root; -> {name: ctypes library}."""
+    import ctypes
+
+    from surrealdb_tpu_torch.ops import _cuda
+
+    src = os.path.join(_cuda.CSRC, "ml.cu")
+    out = os.path.join(_cuda.BUILD_ROOT, "ml_paths_" + _cuda._digest([src]))
+    os.makedirs(out, exist_ok=True)
+    nvcc = _cuda._nvcc()
+    sos = {name: os.path.join(out, f"libml_{name}.so") for name in ML_PATH_VARIANTS}
+    cmds = [[nvcc, *_cuda.NVCC_FLAGS, f"-DML_FORCE_PATH={code}", "-shared", "-o", sos[name], src]
+            for name, code in ML_PATH_VARIANTS.items()]
+    for (rc, log), name in zip(_cuda._run_all(cmds, out), sos):
+        require(rc == 0, f"nvcc of ml.cu ({name} variant) failed:\n{log[-3000:]}")
+    libs = {}
+    for name, so in sos.items():
+        lib = ctypes.CDLL(so)
+        restype, argtypes = _cuda._SIGNATURES["ml_linear"]
+        lib.ml_linear.restype, lib.ml_linear.argtypes = restype, argtypes
+        libs[name] = lib
+    return libs
+
+
+def phase_ml_paths(torch):
+    """ml_linear's skinny and narrow (2 or 4 rows a thread) designs at 2 <=
+    N <= 16 on the same inputs (build_ml_variants): config 5's width (bf16,
+    K = 768) at N = 2, 10 and 16 and the MLP's f32 layers 64 -> 16 and
+    128 -> 10, 2^20 rows each; each held to the plain version (TOL), timed
+    by an event pair and queued. The measurement behind ml.cu's (K, N)
+    rule."""
+    from surrealdb_tpu_torch.ml import model as ML
+
+    t0 = time.perf_counter()
+    libs = build_ml_variants()
+    build_s = time.perf_counter() - t0
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(1)
+    big = 1 << 20
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cases = [(f"768x{n}_bf16", DIM, n, torch.bfloat16) for n in ML_NARROW_WIDTHS]
+    cases += [("64x16_f32", 64, 16, torch.float32), ("128x10_f32", 128, 10, torch.float32)]
+    out = {"build_s": build_s}
+    for label, k, n, dtype in cases:
+        x = torch.randn(big, k, device=dev, generator=g).to(dtype)
+        w = torch.randn(k, n, device=dev, generator=g) / float(np.sqrt(k))
+        b = torch.randn(n, device=dev, generator=g)
+        want = ML.linear_act_plain(x, w, b, None)
+        rec = {}
+        for name, lib in libs.items():
+            y = torch.empty(big, n, device=dev)
+            status = []
+
+            def run():
+                status.append(ML._launch_linear(lib, x, w, b, None, y, stream))
+
+            run()
+            torch.cuda.synchronize()
+            e = float((y - want).abs().max())
+            require(bool(torch.allclose(y, want, **TOL)),
+                    f"ml.cu's {name} variant disagrees at {label} (max {e})")
+            rec[name] = dict(max_abs_err=e, ms=median_ms(run),
+                             queued_ms=queued_device_ms(torch, run))
+            require(not any(status), f"ml.cu's {name} variant failed to launch: {set(status)}")
+        bound, by, _ = linear_bound(big, k, n, x.element_size())
+        emit("ml_paths", case=label, bound_ms=bound, bound_by=by, **rec)
+        out[label] = dict(bound_ms=bound, **rec)
+        del x, y, want
+    return out
 
 
 def ml_launch_delta(before: dict) -> dict:
@@ -1985,12 +2095,12 @@ def ml_profile(fn):
                          for tt, lab, nc, ct in top[:8]]}
 
 
-def ml_forward_share(torch, ds, cm, scan):
-    """The device time of one scan's forward by CUDA events around the
-    model's device function (its launches; the download follows it), and
-    its share of the scan's wall time: the busy share where the profiler
-    records no device time."""
-    fwd = cm._device_fn(ds.device)
+@contextlib.contextmanager
+def forward_events(torch, cm, device):
+    """CUDA events around each call of the model's device function (its
+    launches; the download follows it) while the block runs: yields the
+    list of their device times in ms."""
+    fwd = cm._device_fn(device)
     ms = []
 
     def timed(x):
@@ -2002,13 +2112,21 @@ def ml_forward_share(torch, ds, cm, scan):
         ms.append(s.elapsed_time(e))
         return y
 
-    cm._device_fns[ds.device] = timed
+    cm._device_fns[device] = timed
     try:
+        yield ms
+    finally:
+        cm._device_fns[device] = fwd
+
+
+def ml_forward_share(torch, ds, cm, scan):
+    """The device time of one scan's forward (forward_events) and its share
+    of the scan's wall time: the busy share where the profiler records no
+    device time."""
+    with forward_events(torch, cm, ds.device) as ms:
         t0 = time.perf_counter()
         scan()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        cm._device_fns[ds.device] = fwd
     return {"wall_ms": wall_ms, "forward_device_ms": sum(ms), "forwards": len(ms),
             "busy_share": sum(ms) / wall_ms}
 
@@ -2101,9 +2219,14 @@ def phase_main_path_ml(torch, device: str, ds, corpus, seed: int = 5):
 
         l0 = read_launches()
         res, mlp_first_s = timed(mlp_sql)
-        res, mlp_s = timed(mlp_sql)
-        err_mlp = check(res, want_mlp, "MLP scan")
         cm_mlp = ds._ml_cache[("test", "test", "mlp", "1")]
+        if device == "cuda":  # the device time of the second scan's forward
+            with forward_events(torch, cm_mlp, ds.device) as mlp_forward_ms:
+                res, mlp_s = timed(mlp_sql)
+        else:
+            res, mlp_s = timed(mlp_sql)
+            mlp_forward_ms = None
+        err_mlp = check(res, want_mlp, "MLP scan")
         require(cm_mlp.dispatches == 2, f"2 MLP scans took {cm_mlp.dispatches} dispatches")
         mlp_launches = ml_launch_delta(l0)
         if device == "cuda":
@@ -2139,7 +2262,7 @@ def phase_main_path_ml(torch, device: str, ds, corpus, seed: int = 5):
         busy = device_busy_share(torch, lambda: run(sql))
         if busy["device_ms"] != "not measured":
             break
-    forward_events = ml_forward_share(torch, ds, cm, lambda: run(sql)) \
+    scan_events = ml_forward_share(torch, ds, cm, lambda: run(sql)) \
         if device == "cuda" else None
     out = dict(
         rows=n, dim=dim, device=str(ds.device), datastore="the HNSW phase's, handed over open",
@@ -2157,7 +2280,8 @@ def phase_main_path_ml(torch, device: str, ds, corpus, seed: int = 5):
         peak_device_memory_bytes=peak, device_memory_at_window_start_bytes=mem0,
         window_peak_above_start_bytes=None if peak is None else peak - mem0,
         profile_first_scan=profile_first, profile_scan=profile_steady,
-        profiled_one_scan=busy, forward_events_one_scan=forward_events,
+        profiled_one_scan=busy, forward_events_one_scan=scan_events,
+        mlp_forward_events_ms=mlp_forward_ms,
     )
     emit("main_path_ml", **out)
     return out
@@ -2754,6 +2878,9 @@ def main(argv=None) -> int:
                     help="MTREE corpus rows (the HNSW phase always runs at 2^20)")
     ap.add_argument("--multicard", action="store_true",
                     help="only the mesh over every visible card (needs 2+ cards)")
+    ap.add_argument("--ml-only", action="store_true",
+                    help="only the K10 checks (phase ml_kernels) and ml_linear's narrow "
+                         "against its skinny design (phase ml_paths)")
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run the main paths tiny on the CPU (plain versions); exits 1")
     args = ap.parse_args(argv)
@@ -2797,10 +2924,14 @@ def main(argv=None) -> int:
         return 2
     full = 1 << 20
     t_all = time.perf_counter()
-    if args.multicard:
+    if args.multicard or args.ml_only:
         try:
             smi = phase_environment(torch)
-            phase_mesh_multicard(torch)
+            if args.ml_only:
+                phase_ml_kernels(torch)
+                phase_ml_paths(torch)
+            else:
+                phase_mesh_multicard(torch)
         except SmokeFailure as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
@@ -2931,21 +3062,26 @@ def main(argv=None) -> int:
          "by_n": {str(n): v for n, v in bt.items() if n != 1000}},
     ))
     # K10 at bench config 5's shape (the mirror's bf16 [2^20, 768] x [768, 1]);
-    # its library time includes addmm's upcast of x (library_cast_ms alone)
+    # its library time includes addmm's upcast of x (library_cast_ms alone,
+    # library_nocast_ms addmm on a pre-cast x)
     c5 = ml_k["cases"]["config5_bf16"]
-    timing_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    timing_keys = ("ms", "queued_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    extra_keys = ("library_queued_ms", "f32_fma_bound_ms", "library_cast_ms",
+                  "library_nocast_ms", "library_nocast_queued_ms")
     sm = ml_k["cases"]["mlp_128x10_softmax"]["softmax"]
     kernels.append(kernel_entry(
         "K10 CompiledModel._device_fn (ml_linear; ml_softmax for a softmax layer)",
         "ml_linear", "surrealdb_tpu_torch/csrc/ml.cu", "surrealdb_tpu/ml/model.py:193",
         ml["run_launches"]["ml_linear"], ml_k["max_abs_err"],
         {k: c5[k] for k in timing_keys}, {"m": 1 << 20, "k": DIM, "n": 1, "x": "bfloat16"},
-        {"library_cast_ms": c5["library_cast_ms"],
+        {**{k: c5[k] for k in extra_keys},
          "by_variant": {"ml_softmax [2^20, 10] (surrealdb_tpu/ml/model.py:220)": {
              **{k: sm[k] for k in timing_keys}, "max_abs_err": sm["max_abs_err"],
              "launches": ml["run_launches"]["ml_softmax"]}},
-         "by_case": {lab: {k: r[k] for k in ("m", "k", "n", "x", "act") + timing_keys}
-                     for lab, r in ml_k["cases"].items() if lab != "config5_bf16"}},
+         "by_case": {lab: {k: r[k] for k in ("m", "k", "n", "x", "act") + timing_keys
+                           + extra_keys if k in r}
+                     for lab, r in ml_k["cases"].items() if lab != "config5_bf16"},
+         "mlp_forward_events_ms": ml["mlp_forward_events_ms"]},
     ))
     # K11-K15 (parallel/mesh.py): 8 shards on cuda:0; K11 / K13 launches
     # are the merges of the mesh windows (one a dispatched tile), K12, K14

@@ -15,6 +15,7 @@
 #include <cstring>
 #include <cstddef>
 #include <algorithm>
+#include <array>
 #include <functional>
 #include <thread>
 #include <vector>
@@ -25,14 +26,19 @@ using std::min; using std::max;
 #define __host__
 #define __shared__ static
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __noinline__ __attribute__((noinline))
+#define __launch_bounds__(...)
 #define __align__(n) __attribute__((aligned(n)))
 struct dim3 { unsigned x = 1, y = 1, z = 1; dim3() {} dim3(unsigned a) : x(a) {} };
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 typedef int cudaError_t;
 typedef struct CUstream_st* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaDevAttrMultiProcessorCount = 16 };
 inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+// a small card: persistent grids walk several tiles a block
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 2; return 0; }
 inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) { std::memset(p, v, n); return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emu"; }
 template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
@@ -51,6 +57,7 @@ inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __clz(int x) { return x == 0 ? 32 : __builtin_clz((unsigned)x); }
 struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
+struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 template <class T> T __ldg(const T* p) { return *p; }
 inline unsigned atomicAdd(unsigned* p, unsigned v) { return std::atomic_ref<unsigned>(*p).fetch_add(v); }
@@ -61,11 +68,13 @@ struct EmuBlock {
   std::unique_ptr<std::barrier<>> block_bar;
   std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
   std::vector<unsigned long long> xchg;  // [threads]
+  std::vector<std::array<unsigned, 6>> frag;  // [threads]: a lane's mma fragments (A 4, B 2)
 };
 inline EmuBlock* g_blk = nullptr;
 inline void __syncthreads() { g_blk->block_bar->arrive_and_wait(); }
 inline unsigned lane_id() { return threadIdx.x & 31; }
 inline unsigned warp_id() { return threadIdx.x >> 5; }
+inline void __syncwarp(unsigned = 0xffffffffu) { g_blk->warp_bar[warp_id()]->arrive_and_wait(); }
 template <class F> auto warp_exchange(unsigned long long mine, F f) {
   auto& bar = *g_blk->warp_bar[warp_id()];
   unsigned base = warp_id() * 32;
@@ -96,6 +105,49 @@ template <class T> T __shfl_xor_sync(unsigned, T v, int o) {
   unsigned long long bits = 0; std::memcpy(&bits, &v, sizeof(T));
   return warp_exchange(bits, [&](unsigned long long* w) { T r; std::memcpy(&r, &w[lane_id() ^ o], sizeof(T)); return r; });
 }
+// cp.async: a synchronous copy; `bytes` (0 or the size) are read and the
+// rest zero-filled, as the PTX src-size operand does. The kernels order
+// their reads of a stage with __syncthreads, which covers this copy too.
+inline void cp_async16(void* dst, const void* src, int bytes) {
+  std::memcpy(dst, src, bytes);
+  std::memset(static_cast<char*>(dst) + bytes, 0, 16 - bytes);
+}
+inline void cp_async4(void* dst, const void* src, int bytes) {
+  std::memcpy(dst, src, bytes);
+  std::memset(static_cast<char*>(dst) + bytes, 0, 4 - bytes);
+}
+inline void cp_async_commit() {}
+template <int N> inline void cp_async_wait() {}
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 on the PTX fragment
+// layouts (g = lane / 4, t = lane % 4): A reg r holds row g + 8 (r & 1),
+// columns 2t + 8 (r >> 1) + {0, 1} (low half first); B reg r holds rows
+// 2t + 8 r + {0, 1} of column g; d [i] is row g + 8 (i >> 1), column
+// 2t + (i & 1). The lanes swap fragments through one of the block's two
+// per-warp buffers, in turn, after one warp barrier (a lane writes a
+// buffer again only two calls later, past the next call's barrier, which
+// every lane reaches after reading this one); each product of two bf16 is
+// exact in f32 and d [i] adds the 16 of them in k order.
+inline thread_local unsigned emu_mma_turn = 0;
+inline void mma_bf16_16816(float* d, const unsigned* a, const unsigned* b) {
+  auto& bar = *g_blk->warp_bar[warp_id()];
+  const unsigned lane = lane_id();
+  const unsigned base = (emu_mma_turn++ & 1) * blockDim.x + warp_id() * 32;
+  g_blk->frag[base + lane] = {a[0], a[1], a[2], a[3], b[0], b[1]};
+  bar.arrive_and_wait();
+  const auto* f = &g_blk->frag[base];
+  auto half = [](unsigned word, int k) { return __uint_as_float(k & 1 ? word & 0xffff0000u : word << 16); };
+  const int g = lane >> 2, t = lane & 3;
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + 8 * (i >> 1), col = 2 * t + (i & 1);
+    float s = d[i];
+    for (int k = 0; k < 16; ++k) {
+      const float av = half(f[(row % 8) * 4 + (k % 8) / 2][(row >= 8) + 2 * (k >= 8)], k);
+      const float bv = half(f[col * 4 + (k % 8) / 2][4 + (k >= 8)], k);
+      s += av * bv;
+    }
+    d[i] = s;
+  }
+}
 // One OS thread per CUDA thread of a block, reused for every block of the
 // grid in turn; an end-of-block barrier keeps the blocks apart (every
 // thread reaches each __syncthreads of a block equally often, so the block
@@ -105,12 +157,14 @@ inline void emu_launch(unsigned grid, unsigned block, size_t, cudaStream_t, std:
   blk.block_bar = std::make_unique<std::barrier<>>(block);
   for (unsigned w = 0; w < (block + 31) / 32; ++w) blk.warp_bar.push_back(std::make_unique<std::barrier<>>(32));
   blk.xchg.assign(block, 0);
+  blk.frag.resize(2 * block);
   std::barrier<> end_bar(block);
   g_blk = &blk;
   std::vector<std::thread> ts;
   for (unsigned t = 0; t < block; ++t)
     ts.emplace_back([&, t] {
       threadIdx = dim3(t);
+      emu_mma_turn = 0;
       blockDim = dim3(block);
       gridDim = dim3(grid);
       for (unsigned b = 0; b < grid; ++b) {

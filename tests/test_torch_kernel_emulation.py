@@ -639,21 +639,25 @@ def _ml_inputs(seed, m, k, n, x_dtype, scale=1.0):
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("n", [1, 10, 130])
 def test_k10_linear_matches_plain(lib, n, x_dtype, act):
-    """The skinny path (N = 1, 10: a warp a row, 16-byte loads) and the
-    tiled path (N = 130: three column tiles, the last ragged) over 77 rows,
-    not a multiple of either path's row tile."""
+    """The skinny path (N = 1: a warp a row, 16-byte loads), the narrow
+    path (N = 10: a thread a row, cp.async stages) and the wide path (N =
+    130: tensor-core limbs, one 256-column tile, ragged) over 77 rows, not
+    a multiple of any path's row tile."""
     x, w, b = _ml_inputs(n, 77, 48, n, x_dtype)
     got = _linear_emu(lib, x, w, b, act)
     torch.testing.assert_close(got, ML.linear_act_plain(x, w, b, act), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("k,n", [(45, 1), (45, 3), (45, 40), (1600, 10), (6200, 2)],
+@pytest.mark.parametrize("k,n", [(45, 1), (45, 3), (45, 40), (1600, 10), (6200, 2),
+                                 (13000, 2)],
                          ids=["scalar-n1", "scalar-n3", "wide-k45", "chunks-n10",
-                              "chunks-n2"])
+                              "chunks-n2", "chunks-n2-past-narrow"])
 def test_k10_linear_odd_k_and_chunked_w(lib, k, n, x_dtype):
-    """K = 45 takes the scalar loads (no 16-byte alignment); K = 1,600 at N
-    = 10 and 6,200 at N = 2 stage W in more than one 96 KB chunk."""
+    """K = 45 takes the scalar loads (no 16-byte alignment) of the skinny
+    and the wide paths; K = 1,600 at N = 10 and 13,000 at N = 2 are past
+    the narrow path's W and stage W on the skinny path in more than one
+    96 KB chunk; K = 6,200 at N = 2 takes the skinny path's one chunk."""
     x, w, b = _ml_inputs(k + n, 37, k, n, x_dtype)
     got = _linear_emu(lib, x, w, b, "relu")
     torch.testing.assert_close(got, ML.linear_act_plain(x, w, b, "relu"), rtol=1e-5,
@@ -685,34 +689,135 @@ def test_k10_softmax_matches_plain_on_large_rows(lib, n):
     assert torch.equal(inplace, got)
 
 
+def _assert_linear_close(got, want, k):
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4 if k > 1000 else 1e-5)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("k", [45, 64, 128, 768])
+@pytest.mark.parametrize("n", [2, 3, 10, 16])
+def test_k10_narrow_matches_plain(lib, n, k, x_dtype):
+    """2 <= N <= 16 over 1,100 rows: three 512-row tiles (the last ragged)
+    walked by the emulation's two persistent blocks, K in 64-byte steps
+    through the 3-stage ring (K = 45: the skinny path's scalar loads)."""
+    x, w, b = _ml_inputs(100 * n + k, 1100, k, n, x_dtype)
+    _assert_linear_close(_linear_emu(lib, x, w, b, "tanh"), ML.linear_act_plain(x, w, b, "tanh"),
+                         k)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("k", [45, 128, 768])
+@pytest.mark.parametrize("n", [17, 64, 128, 130, 300])
+def test_k10_wide_matches_plain(lib, n, k, x_dtype):
+    """N > 16 on the tensor-core limbs over 150 rows (no multiple of the 64-,
+    128- or 256-row tiles; the emulation's two persistent blocks walk up to
+    9 tiles): one column tile up to N = 128, two at N = 130, three at N =
+    300; K = 45 stages x with plain loads and a ragged last K step."""
+    x, w, b = _ml_inputs(1000 + n + k, 150, k, n, x_dtype)
+    _assert_linear_close(_linear_emu(lib, x, w, b, "relu"), ML.linear_act_plain(x, w, b, "relu"),
+                         k)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 10, 64])
+def test_k10_unaligned_base_takes_the_scalar_loads(lib, n, x_dtype):
+    """x a [1:] view (2 or 4 bytes past 16-byte alignment): the skinny and
+    the wide paths' scalar loads."""
+    rng = np.random.default_rng(30 + n)
+    flat = torch.from_numpy(rng.standard_normal(70 * 64 + 1).astype(np.float32)).to(x_dtype)
+    x = flat[1:].view(70, 64)
+    _, w, b = _ml_inputs(n, 1, 64, n, torch.float32)
+    _assert_linear_close(_linear_emu(lib, x, w, b, None), ML.linear_act_plain(x, w, b, None), 64)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 10, 64])
+def test_k10_inf_and_nan_in_x_land_where_f32_puts_them(lib, n, x_dtype):
+    """+-inf and NaN in x: every output, its inf and NaN positions too,
+    equals the plain version's (the wide path recomputes its non-finite
+    outputs as f32 FMA chains)."""
+    x, w, b = _ml_inputs(40 + n, 90, 64, n, torch.float32)
+    x[3, 5] = float("inf")
+    x[7, 0] = -float("inf")
+    x[11, 9] = float("nan")
+    x[20, 1], x[20, 2] = float("inf"), -float("inf")
+    x = x.to(x_dtype)
+    got = _linear_emu(lib, x, w, b, "relu")
+    want = ML.linear_act_plain(x, w, b, "relu")
+    assert bool(torch.isinf(want).any()) and bool(torch.isnan(want).any())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5, equal_nan=True)
+
+
+@pytest.mark.parametrize("n", [1, 7, 10, 32, 33, 130, 1000, 1500])
+def test_k10_softmax_rows_with_neg_inf_match_plain(lib, n):
+    """301 rows (no multiple of the 128-row run or the 4-row warp block),
+    some entries -inf and one row all -inf (NaN, as jax.nn.softmax gives);
+    then the same from a [1:] view (no 16-byte loads); in place too."""
+    rng = np.random.default_rng(200 + n)
+    h = torch.from_numpy((rng.standard_normal((301, n)) * 30).astype(np.float32))
+    h[rng.random((301, n)) < 0.2] = -float("inf")
+    h[:, 0] = torch.where(torch.isinf(h[:, 0]), torch.zeros(()), h[:, 0])
+    h[17] = -float("inf")
+    want = ML.row_softmax_plain(h)
+    torch.testing.assert_close(_softmax_emu(lib, h), want, rtol=0, atol=1e-6, equal_nan=True)
+    flat = torch.empty(301 * n + 1)
+    view = flat[1:].view(301, n)
+    view.copy_(h)
+    torch.testing.assert_close(_softmax_emu(lib, view), want, rtol=0, atol=1e-6,
+                               equal_nan=True)
+    _softmax_emu(lib, view, view)
+    torch.testing.assert_close(view, want, rtol=0, atol=1e-6, equal_nan=True)
+
+
 _ML_FAULTS = {
-    # the bias left out of both paths' epilogues
+    # the bias left out of the three linear paths' epilogues
     "dropped_bias": [("ml_act(mine + b[lane], act)", "ml_act(mine, act)"),
-                     ("ml_act(acc[i][j] + b[col], act)", "ml_act(acc[i][j], act)")],
-    # the softmax's exp without the row max subtracted
-    "softmax_without_max": [("expf(src[c] - m)", "expf(src[c])")],
+                     ("ml_act(acc[i][n] + bias[n], act)", "ml_act(acc[i][n], act)"),
+                     ("v[u] = ml_act(v[u] + b[col + u], act);", "v[u] = ml_act(v[u], act);")],
+    # the softmax's exp without the row max subtracted, in all three kernels
+    "softmax_without_max": [("expf(row[c] - m)", "expf(row[c])"),
+                            ("expf(v[j] - m)", "expf(v[j])"),
+                            ("expf(src[c] - m)", "expf(src[c])")],
+    # the wide path's W limb planes without the middle limb
+    "dropped_w1_limb": [("wl[1 * BN * WD_LPW + c * WD_LPW + kp] = pack_bf16(a1, b1);",
+                         "wl[1 * BN * WD_LPW + c * WD_LPW + kp] = 0u;")],
+    # the narrow and the wide paths read the ring stage after the one that landed
+    "swapped_cp_async_stage": [
+        ("unsigned char* cur = xs + (int)(s % NR_STAGES) * NR_STAGE_BYTES;",
+         "unsigned char* cur = xs + (int)((s + 1) % NR_STAGES) * NR_STAGE_BYTES;"),
+        ("const unsigned char* src = wd_smem + (int)(u % WD_STAGES) * Tile::RAW;",
+         "const unsigned char* src = wd_smem + (int)((u + 1) % WD_STAGES) * Tile::RAW;")],
+    # a softmax thread reduces a window that straddles its row and the next
+    "softmax_rows_straddle": [("float* row = sm_run + r * N;",
+                               "float* row = sm_run + r * (N + 1);")],
 }
+# the widths each fault shows at: the linear paths' N, or the softmax's
+_ML_FAULT_WIDTHS = {"dropped_bias": (1, 10, 130), "softmax_without_max": (10, 130, 1500),
+                    "dropped_w1_limb": (64, 130), "swapped_cp_async_stage": (10, 130),
+                    "softmax_rows_straddle": (10,)}
 
 
 @pytest.mark.parametrize("fault", sorted(_ML_FAULTS))
 def test_k10_planted_fault_fails_the_comparison(tmp_path, fault):
     """The comparisons above have teeth: a copy of ml.cu with one fault
-    planted disagrees with the plain versions."""
+    planted disagrees with the plain versions, on every path it touches."""
     src = _source("ml.cu")
     for old, new in _ML_FAULTS[fault]:
         assert src.count(old) == 1
         src = src.replace(old, new)
     bad = _build_emu(tmp_path, {"ml.cu": src})
-    if fault == "softmax_without_max":
-        h = torch.from_numpy((np.random.default_rng(2).standard_normal((9, 10)) * 300)
-                             .astype(np.float32))
-        assert not torch.allclose(_softmax_emu(bad, h), ML.row_softmax_plain(h), atol=1e-6,
-                                  equal_nan=False)
-        return
-    for n in (1, 130):
-        x, w, b = _ml_inputs(n, 40, 48, n, torch.float32)
-        assert not torch.allclose(_linear_emu(bad, x, w, b, None),
-                                  ML.linear_act_plain(x, w, b, None), rtol=1e-5, atol=1e-5)
+    for n in _ML_FAULT_WIDTHS[fault]:
+        if fault.startswith("softmax"):
+            h = torch.from_numpy((np.random.default_rng(2).standard_normal((300, n)) * 300)
+                                 .astype(np.float32))
+            assert not torch.allclose(_softmax_emu(bad, h), ML.row_softmax_plain(h), atol=1e-6,
+                                      equal_nan=False), n
+            continue
+        for x_dtype in (torch.float32, torch.bfloat16):
+            x, w, b = _ml_inputs(n, 600, 128, n, x_dtype)
+            assert not torch.allclose(_linear_emu(bad, x, w, b, None),
+                                      ML.linear_act_plain(x, w, b, None), rtol=1e-5,
+                                      atol=1e-5), (n, x_dtype)
 
 
 # ------------------------------------------------------------------ mesh (K11-K15)

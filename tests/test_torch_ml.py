@@ -134,6 +134,55 @@ def test_mlp_relu_then_softmax_matches_reference():
     np.testing.assert_allclose(got.sum(axis=1), 1.0, atol=1e-5)
 
 
+@pytest.fixture(scope="module")
+def emu_lib(tmp_path_factory):
+    """csrc/ml.cu compiled for the CPU under csrc/emu/cuda_emu.h (the
+    kernels' own logic: tests/test_torch_kernel_emulation.py)."""
+    from test_torch_kernel_emulation import _build_emu, _source
+
+    return _build_emu(tmp_path_factory.mktemp("ml_emu"), {"ml.cu": _source("ml.cu")})
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16_features"])
+@pytest.mark.parametrize("dims,acts", [((768, 128, 10), ("relu", "softmax")),
+                                       ((768, 16), ("sigmoid",))],
+                         ids=["mlp_768x128x10", "linear_768x16"])
+def test_mlp_shapes_through_the_emulated_kernels_match_reference(monkeypatch, emu_lib, dims,
+                                                                  acts, bf16):
+    """The scan's MLP (768 -> 128 relu -> 10 softmax: the wide then the
+    narrow path and the softmax) and a 768 -> 16 sigmoid (narrow) at M =
+    300: the port's device forward with its `linear_act` / `row_softmax`
+    launching the emulated kernels, against the reference's jitted
+    forward."""
+    calls = []
+
+    def linear(x, w, b, act=None):
+        out = torch.empty((x.shape[0], w.shape[1]))
+        assert PM._launch_linear(emu_lib, x, w, b, act, out, None) == 0
+        calls.append("ml_linear")
+        return out
+
+    def softmax(h):
+        out = torch.empty_like(h)
+        assert PM._launch_softmax(emu_lib, h, out, None) == 0
+        calls.append("ml_softmax")
+        return out
+
+    monkeypatch.setattr(PM, "linear_act", linear)
+    monkeypatch.setattr(PM, "row_softmax", softmax)
+    rng = np.random.default_rng(sum(dims))
+    spec = _spec([_layer(rng, dims[i], dims[i + 1], act) for i, act in enumerate(acts)])
+    x = rng.standard_normal((300, dims[0])).astype(np.float32)
+    xt = torch.from_numpy(x)
+    if bf16:
+        xt = xt.to(torch.bfloat16)
+        x = xt.to(torch.float32).numpy()
+    got = PM.model_from_reference(spec)._device_fn(CPU)(xt).numpy()
+    assert calls == ["ml_linear"] * len(acts) + ["ml_softmax"] * ("softmax" in acts)
+    np.testing.assert_allclose(got, _ref_device(spec, x), rtol=RTOL,
+                               atol=SOFTMAX_ATOL if acts[-1] == "softmax" else ATOL_768)
+
+
 def test_wrappers_reject_bad_inputs_off_the_cpu():
     x, w, b = torch.zeros(4, 3), torch.zeros(3, 2), torch.zeros(2)
     with pytest.raises(ValueError, match="CUDA"):
