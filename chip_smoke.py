@@ -394,11 +394,42 @@ def ids_equal_up_to_ties(got, want, d):
     return bool(((g == w) | ((dg - dw).abs() <= tol)).all()), err
 
 
+def limb_split(torch, c):
+    """The kernel's split of f32 c into three bf16 limbs, by truncation."""
+    def trunc(v):
+        return (v.view(torch.int32) & -65536).view(torch.float32)
+    l0 = trunc(c)
+    l1 = trunc(c - l0)
+    return l0, l1, c - l0 - l1
+
+
+def lower_limb_case(torch, dev, groups: int, dim: int, seed: int = 5):
+    """bf16 rows whose nearest f32 centroid is told from the next one only
+    by limb 1 (even groups) or only by limb 2 (odd groups) of the kernel's
+    split: a group's centroids are `far` (index 2g) and `near` (2g + 1) =
+    far + a value below far's last kept bit, and its row lies 1 above both
+    in every column, so near is nearer, by about 0.65 (limb 1) or 2.5e-3
+    (limb 2) at D = 768. A product that drops limb 1 or limb 2 sees near
+    as far, or farther, and ranks far first."""
+    rng = np.random.default_rng(seed)
+    v = 4 + rng.integers(0, 64, (groups, dim)) / 16  # bf16 values: limbs 1, 2 zero
+    r1 = (1 + rng.integers(0, 128, (groups, dim)) / 128) / 64  # below v's last bit, 2^-5
+    r2 = rng.integers(128, 256, (groups, dim)) / 2 ** 21  # below r1's last bit, 2^-13
+    odd = (np.arange(groups) % 2 == 1)[:, None]
+    far = v + np.where(odd, r1, 0)
+    near = far + np.where(odd, r2, r1)
+    cents = np.stack([far, near], 1).reshape(2 * groups, dim).astype(np.float32)
+    x = torch.from_numpy((v + 1).astype(np.float32)).to(dev).to(torch.bfloat16)
+    return x, torch.from_numpy(cents).to(dev)
+
+
 def phase_ivf_kernels(torch, dim: int, cap: int, n_rows: int = 65_536, nlists: int = 1024):
     """K5 ivf_assign and the K4 update against their plain versions on the
     card at the training's shapes: 65,536 bf16 rows (a k-means sample, or
     one tile of the full assignment gathered from a [cap, D] corpus) and
-    1,024 f32 centroids."""
+    1,024 f32 centroids, the means of one k-means step as the training's
+    are, so limb planes 1 and 2 hold data; then rows whose nearest centroid
+    only limb 1 or limb 2 tells apart."""
     from surrealdb_tpu_torch.idx import ivf as IVF
     from surrealdb_tpu_torch.ops import distances as D
 
@@ -407,7 +438,16 @@ def phase_ivf_kernels(torch, dim: int, cap: int, n_rows: int = 65_536, nlists: i
     matrix = torch.from_numpy(gen_corpus(cap, dim, seed=3)).to(dev).to(torch.bfloat16)
     idx = torch.randint(-5, cap + 5, (n_rows,), generator=g, dtype=torch.int32).to(dev)
     x = matrix[:n_rows].contiguous()
-    cents = matrix[torch.randperm(cap, generator=g)[:nlists].to(dev)].float().contiguous()
+    seeds = matrix[torch.randperm(cap, generator=g)[:nlists].to(dev)].float().contiguous()
+    # one plain k-means step: means of bf16 rows use the whole f32 mantissa
+    cents = IVF.kmeans_update_plain(x, IVF.assign_plain(x, seeds, 1), seeds)[0].contiguous()
+    _, l1, l2 = limb_split(torch, cents)
+    limb1_share, limb2_share = float((l1 != 0).float().mean()), float((l2 != 0).float().mean())
+    emit("k5_centroids", c=nlists, d=dim, limb1_nonzero_share=limb1_share,
+         limb2_nonzero_share=limb2_share)
+    require(limb1_share > 0.5 and limb2_share > 0.5,
+            "the K5 check's centroids leave limb planes 1 and 2 mostly zero")
+    del seeds, l1, l2
     k5_err = 0.0
     for gather in (False, True):
         rows = matrix[idx.long().clamp(0, cap - 1)] if gather else x
@@ -423,6 +463,55 @@ def phase_ivf_kernels(torch, dim: int, cap: int, n_rows: int = 65_536, nlists: i
             require(ok, f"ivf_assign k={k} gather={gather} disagrees with its plain version")
             k5_err = max(k5_err, err)
         del d, rows
+    # the nearest centroid told apart only by limb 1 or limb 2, at the
+    # main path's C and D; the plain version on centroids cut to one or to
+    # two limbs is the control: it must fail the same comparison
+    lx, lc = lower_limb_case(torch, dev, nlists // 2, dim)
+    lidx = torch.randperm(lx.shape[0], generator=g).to(dev).int()
+    cut = limb_split(torch, lc)
+    for gather in (False, True):
+        rows = lx[lidx.long()] if gather else lx
+        d = D.pairwise_distance_plain(rows, lc, "euclidean")
+        for k in (1, 2):
+            got = IVF._assign_gather(lx, lidx, lc, k) if gather else IVF._assign_chunk(lx, lc, k)
+            torch.cuda.synchronize()
+            want = IVF.assign_plain(rows, lc, k)
+            ok, err = ids_equal_up_to_ties(got, want, d)
+            controls = {f"{n}_limb_control_fails": not ids_equal_up_to_ties(
+                IVF.assign_plain(rows, c, k), want, d)[0]
+                for n, c in (("one", cut[0]), ("two", cut[0] + cut[1]))}
+            emit("k5_check", rows=lx.shape[0], c=lc.shape[0], d=dim, k_assign=k,
+                 index_vector=gather, lower_limbs=True, ids_equal=bool(torch.equal(got, want)),
+                 max_abs_err=err, **controls, ok=ok and all(controls.values()))
+            require(ok, f"ivf_assign k={k} gather={gather} disagrees with its plain version "
+                    "where limb 1 or 2 decides")
+            require(all(controls.values()), "the lower-limb case does not tell a one- or "
+                    "two-limb product from the f32 one")
+            k5_err = max(k5_err, err)
+        del d, rows
+    del lx, lc, lidx, cut
+    # rows holding +inf, -inf and NaN; columns 2 and 7 of the centroids on
+    # the bf16 grid, so there the zero limbs 1, 2 meet the infs on the
+    # tensor cores (inf x 0 = NaN); such products are recomputed as f32 FMA
+    # chains, and the ids equal the plain version's (a NaN distance first)
+    bad = x[:256].clone()
+    bad[3, 7], bad[4, 2], bad[5, 11] = float("inf"), float("-inf"), float("nan")
+    nf_cents = cents.clone()
+    nf_cents[:, [2, 7]] = nf_cents[:, [2, 7]].bfloat16().float()
+    rows = [3, 4, 5]
+    rest = [i for i in range(bad.shape[0]) if i not in rows]
+    for k in (1, 2):
+        got = IVF._assign_chunk(bad, nf_cents, k)
+        torch.cuda.synchronize()
+        want = IVF.assign_plain(bad, nf_cents, k)
+        ok_bad = bool(torch.equal(got[rows], want[rows]))
+        ok, err = ids_equal_up_to_ties(got[rest], want[rest],
+                                       D.pairwise_distance_plain(bad[rest], nf_cents, "euclidean"))
+        emit("k5_check", rows=bad.shape[0], c=nlists, d=dim, k_assign=k, index_vector=False,
+             nonfinite_rows=rows, nonfinite_ids_equal=ok_bad, max_abs_err=err, ok=ok and ok_bad)
+        require(ok and ok_bad, f"ivf_assign k={k} on rows holding inf / NaN disagrees with its "
+                "plain version")
+    del bad, nf_cents
     a = IVF._assign_chunk(x, cents, 1)
     got_c, got_n = IVF.kmeans_update(x, a, cents)
     torch.cuda.synchronize()
@@ -446,10 +535,14 @@ def phase_ivf_timing(torch, inputs, dim: int):
     matrix, idx, x, cents, a = (inputs[k] for k in ("matrix", "idx", "x", "cents", "assign"))
     n, nl = x.shape[0], cents.shape[0]
     flops = 2.0 * n * nl * dim
+    # the kernel's f32-accurate product: three bf16 limb passes on the
+    # tensor cores, as K10's wide path counts it; one pass beside it
+    limb_flops = 3 * flops
     out = {}
     for name, k, gather in (("ivf_assign", 2, True), ("ivf_assign_rows_k1", 1, False)):
         nbytes = n * dim * 2 + nl * dim * 4 + n * k * 4 + (n * 4 if gather else 0)
-        bound, by = bound_ms(nbytes, flops, "bfloat16")
+        bound, by = bound_ms(nbytes, limb_flops, "bfloat16")
+        single, single_by = bound_ms(nbytes, flops, "bfloat16")
         if gather:
             run = lambda: IVF._assign_gather(matrix, idx, cents, k)  # noqa: E731
             plain = lambda: IVF.assign_plain(matrix, cents, k, idx=idx)  # noqa: E731
@@ -459,19 +552,22 @@ def phase_ivf_timing(torch, inputs, dim: int):
             plain = lambda: IVF.assign_plain(x, cents, k)  # noqa: E731
             rows = lambda: x.float()  # noqa: E731
         out[name] = dict(
-            ms=median_ms(run), plain_ms=median_ms(plain, iters=5),
+            ms=median_ms(run), queued_ms=queued_device_ms(torch, run, iters=10),
+            plain_ms=median_ms(plain, iters=5),
             library_ms=median_ms(lambda: torch.topk(torch.cdist(rows(), cents), k, largest=False),
                                  iters=5),
-            bound_ms=bound, bound_by=by, k_assign=k, index_vector=gather,
+            bound_ms=bound, bound_by=by, single_pass_bound_ms=single,
+            single_pass_bound_by=single_by, k_assign=k, index_vector=gather,
         )
     step_bytes = n * dim * 2 + 2 * nl * dim * 4 + nl * 4
-    step_bound, step_by = bound_ms(step_bytes, flops + n * dim, "bfloat16")
+    step_bound, step_by = bound_ms(step_bytes, limb_flops + n * dim, "bfloat16")
     upd_bound, upd_by = bound_ms(step_bytes + n * 4, n * dim, "bfloat16")
     out["ivf_kmeans_update"] = dict(
         ms=median_ms(lambda: IVF._kmeans_step(x, cents, nl)),
         plain_ms=median_ms(lambda: IVF.kmeans_update_plain(
             x, IVF.assign_plain(x, cents, 1), cents), iters=5),
         library_ms=None, bound_ms=step_bound, bound_by=step_by,
+        single_pass_bound_ms=bound_ms(step_bytes, flops + n * dim, "bfloat16")[0],
         update_ms=median_ms(lambda: IVF.kmeans_update(x, a, cents)),
         update_plain_ms=median_ms(lambda: IVF.kmeans_update_plain(x, a, cents), iters=5),
         update_bound_ms=upd_bound, update_bound_by=upd_by,
@@ -1243,6 +1339,13 @@ def phase_graph_kernels(torch):
             check("graph_dense_count", f"lanes{lanes}_products{prods}",
                   G.dense_count_batch(As, outdeg, fr, cw, n0),
                   G.dense_count_batch_plain(As, outdeg, fr, cw, n0))
+    # a chain of unequal widths: [n0, 5000] then [5000, n0]
+    fr, cw = seeds(32, n0, 2)
+    As = (A[:, :5000].contiguous(), A[:5000].contiguous())
+    check("graph_dense_count", "lanes32_unequal_widths",
+          G.dense_count_batch(As, outdeg, fr, cw, n0),
+          G.dense_count_batch_plain(As, outdeg, fr, cw, n0))
+    del As
     fr, cw = seeds(32, n_cap, 3)
     for hops in range(1, 5):
         csc = tuple((pk_csc,) if i % 2 == 0 else (kp_csc,) for i in range(hops))
@@ -1279,23 +1382,36 @@ def phase_graph_kernels(torch):
     Af = A.float()
     xd = torch.zeros((32, n0 + 1), device=dev).scatter_add_(
         1, torch.where(cw > 0, fr.long().clamp(0, n0), n0), cw.float())[:, :n0].contiguous()
-    # K8's floor: the bf16 operator read once per product. The function needs
-    # only the regrouped x @ (A @ (A @ outdeg)), 2 n0^2 FMAs, so the bytes
-    # bound it; the kernel's own x @ A @ A form does 2 x 32 n0^2 FMAs, kept
-    # as design_ops_ms beside it.
+    # K8's floor: the bf16 operator read once per product. Regrouped as
+    # x @ (A @ (A @ outdeg)), as the kernel computes it, the function needs
+    # 2 n0^2 FMAs (two matrix-vector passes) and a gather-dot over the
+    # seeds, so the bytes bound it; design_ops_ms is those operations on
+    # the CUDA cores in f32.
     b_bytes = 2 * A.numel() * 2 + n0 * 4 + 2 * fr.numel() * 4 + 32 * 4
     b_ops = 2 * 2.0 * n0 * n0 + 2.0 * 32 * n0
     k8_bound, k8_by = bound_ms(b_bytes, b_ops, "float32")
-    design_ops = 2 * 2.0 * 32 * n0 * n0 + 2.0 * 32 * n0
+    design_ops = 2 * 2.0 * n0 * n0 + 2.0 * fr.numel()
     lib = lambda: torch.matmul(torch.matmul(torch.matmul(xd, Af), Af), outdeg)  # noqa: E731
+    multi = lambda: torch.linalg.multi_dot([xd, Af, Af, outdeg[:, None]])[:, 0]  # noqa: E731
+    k8 = G.dense_count_batch(As, outdeg, fr, cw, n0)
+    multi_err = _max_abs(multi(), k8)
+    emit("graph_check", kernel="graph_dense_count", case="regrouped_multi_dot_lanes32",
+         exact=multi_err == 0.0)
+    require(multi_err == 0.0, "torch.linalg.multi_dot's counts differ from graph_dense_count's")
+    fr64, cw64 = seeds(64, n0, 1)
     timing = {"graph_dense_count": dict(
         ms=median_ms(lambda: G.dense_count_batch(As, outdeg, fr, cw, n0)),
+        queued_ms=queued_device_ms(torch, lambda: G.dense_count_batch(As, outdeg, fr, cw, n0)),
         plain_ms=median_ms(lambda: G.dense_count_batch_plain(As, outdeg, fr, cw, n0), iters=5),
-        # the kernel's shape in f32 (TF32 off): two [32, n0] x [n0, n0] products, then the dot
+        # the reference's x @ A @ A form in f32 (TF32 off): two [32, n0] x [n0, n0] products
         library_ms=median_ms(lib),
-        library_max_abs_err=_max_abs(lib(), G.dense_count_batch(As, outdeg, fr, cw, n0)),
-        regrouped_multi_dot_ms=median_ms(
-            lambda: torch.linalg.multi_dot([xd, Af, Af, outdeg[:, None]])),
+        library_max_abs_err=_max_abs(lib(), k8),
+        # the regrouped order over an f32 copy of A (made outside the timing)
+        regrouped_multi_dot_ms=median_ms(multi),
+        regrouped_multi_dot_queued_ms=queued_device_ms(torch, multi),
+        regrouped_multi_dot_max_abs_err=multi_err,
+        # twice the lanes: the passes over the operators do not depend on them
+        ms_64_lanes=median_ms(lambda: G.dense_count_batch(As, outdeg, fr64, cw64, n0)),
         bound_ms=k8_bound, bound_by=k8_by,
         design_ops_ms=design_ops / PEAK_FLOPS["float32"] * 1e3,
         shape={"lanes": 32, "fsz": fsz, "n0": n0, "products": 2},

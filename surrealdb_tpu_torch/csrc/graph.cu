@@ -5,22 +5,28 @@
 // an exact integer, so no kernel here rounds.
 //
 // K8 graph_dense_count replaces surrealdb_tpu/idx/graph_csr.py
-// dense_count_batch: B seed frontiers densified into x [B, n0] f32, then
-// x = x @ A for each composed node-to-node operator A (bf16, read exactly
-// into f32), then (x * outdeg).sum(1). What bounds it: the function's floor
-// is A's n0*n1*2 bytes a product (61 us of HBM at n0 = n1 = 10,112), since
-// regrouped as x @ (A @ (A @ outdeg)) it needs only n0*n1 FMAs a product.
-// This design keeps the reference's x @ A form, 2*B*n0*n1 FMAs a product on
-// the CUDA cores in f32 (no TF32: x reaches 2^24), 6.5 GFLOP at B = 32, ~0.1
-// ms at 67 TFLOP/s, so its own limit is those operations. Design: x is kept
-// lane-minor ([n, B], one row a node), a block owns 128 output columns and
-// a slice of the reduction (split K, so 79 column tiles still fill 132 SMs);
-// each step stages 32 rows of A (bf16) and of x in shared memory, with the
-// next step's tiles already loading into registers, and each thread keeps a
-// 4 (or 8) lane x 4 column tile of sums in registers. The splits meet in
-// float atomicAdd: every value and partial sum is an integer below 2^24
-// (the caller's guard, graph_csr.py _dense_chain_count), where f32 sums are
-// exact in any order, so the result does not depend on the order.
+// dense_count_batch: out[b] = ((x_b A_0 ... A_{m-1}) * outdeg).sum(), x_b
+// the seeds of lane b densified over the first space (w > 0 only, index
+// clip(fr, 0, n0), column n0 dropped), each A_i a composed node-to-node
+// operator (bf16, read exactly into f32). Regrouped, the same count is
+// out[b] = sum_j [w > 0] w * u_0[clip(fr, 0, n0)] (an index n0 adding
+// nothing) with u_m = outdeg and u_i = A_i u_{i+1}: m matrix-vector
+// passes over the operators, whatever B, then a gather-dot over the seeds.
+// The regrouping is exact: every quantity is a nonnegative integer and the
+// caller's guard (graph_csr.py _dense_chain_count: sum of the seed weights
+// x the product of the operators' infinity norms below 2^24) bounds every
+// entry of every u_i and every partial sum, where f32 sums are exact in
+// any order. What bounds it: reading each A_i's bf16 bytes once (61 us of
+// HBM at n0 = n1 = 10,112); n0 n1 FMAs a pass are far below that. Design
+// (dense_matvec): a persistent grid of a few blocks an SM; each block
+// stages u_{i+1} (at most 64 KB at the dense path's 16,384 columns) in
+// shared memory, split into two planes so a warp's 16-byte reads hit
+// every bank once, then its warps walk work items of (row, 2,048-column
+// segment) of A_i: each lane issues its eight 16-byte loads of the segment
+// at once, the warp adds its products with shuffles and one lane adds the
+// segment's sum into u_i[row] (float atomicAdd, exact by the guard). Items
+// of a fifth of a row keep the warps' shares even. seed_dot then gives
+// each lane of B one block. No [B, n] array is made.
 //
 // K7 graph_csc_count replaces dense_count_batch's sibling chain_count_batch:
 // B count chains over destination-sorted (cptr, csrc) adjacency. The
@@ -54,6 +60,7 @@
 #include <stdint.h>
 
 #include "compact.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -64,45 +71,37 @@ __device__ __forceinline__ long long clampll(long long v, long long lo, long lon
 }
 
 // x[clip(fr, 0, n), b] += w for w > 0, x lane-minor ([n + 1, B]); the
-// sentinel column n is dropped (every caller zeroes or slices it away).
-template <class T>
+// sentinel column n is dropped (the caller zeroes it before each hop).
 __global__ void __launch_bounds__(THREADS) densify(const int* fr, const int* w, int B, int fsz,
-                                                   int n, T* x) {
+                                                   int n, unsigned* x) {
   const long long total = (long long)B * fsz;
   for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < total;
        i += (long long)gridDim.x * THREADS) {
     const int wv = w[i];
     if (wv <= 0) continue;
     const long long c = clampll(fr[i], 0, n);
-    if (c < n) atomicAdd(&x[c * B + i / fsz], (T)wv);
+    if (c < n) atomicAdd(&x[c * B + i / fsz], (unsigned)wv);
   }
 }
 
-// out[b] += sum_v x[v, b] * weight(v) over v < V, x lane-minor [V, B];
-// weight(v) is outdeg[v] (K8) or ptr[v + 1] - ptr[v] (K7). A thread keeps
-// its lane's sum in a register when the lane window divides the block,
-// else adds each term into shared memory.
-template <class T, bool FROM_PTR>
-__global__ void __launch_bounds__(THREADS) lane_dot(const T* x, long long V, int B,
-                                                    const float* outdeg, const int* ptr, T* out) {
-  __shared__ T sacc[THREADS];
+// out[b] += sum_v x[v, b] * (ptr[v + 1] - ptr[v]) over v < V, x lane-minor
+// [V, B]. A thread keeps its lane's sum in a register when the lane window
+// divides the block, else adds each term into shared memory.
+__global__ void __launch_bounds__(THREADS) lane_dot(const unsigned* x, long long V, int B,
+                                                    const int* ptr, unsigned* out) {
+  __shared__ unsigned sacc[THREADS];
   for (int l0 = 0; l0 < B; l0 += THREADS) {
     const int W = B - l0 < THREADS ? B - l0 : THREADS;
     const bool fixed = THREADS % W == 0;
-    sacc[threadIdx.x] = (T)0;
+    sacc[threadIdx.x] = 0u;
     __syncthreads();
-    T mine = (T)0;
+    unsigned mine = 0u;
     const long long total = V * W;
     for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < total;
          i += (long long)gridDim.x * THREADS) {
       const long long v = i / W;
       const int lane = (int)(i % W);
-      T wt;
-      if constexpr (FROM_PTR)
-        wt = (T)(unsigned)(ptr[v + 1] - ptr[v]);
-      else
-        wt = (T)outdeg[v];
-      const T term = x[v * B + l0 + lane] * wt;
+      const unsigned term = x[v * B + l0 + lane] * (unsigned)(ptr[v + 1] - ptr[v]);
       if (fixed)
         mine += term;
       else
@@ -117,121 +116,105 @@ __global__ void __launch_bounds__(THREADS) lane_dot(const T* x, long long V, int
 
 // ------------------------------------------------------------------ K8
 
-constexpr int DN_COLS = 128;  // output columns a block
-constexpr int DN_KT = 32;     // reduction rows staged a step
+constexpr int MV_THREADS = 256;
+constexpr int MV_WARPS = MV_THREADS / 32;
+constexpr int MV_SEG = 2048;                   // columns of a row a work item (4 KB of bf16)
+constexpr int MV_VPL = MV_SEG / 8 / 32;        // 16-byte loads a lane an item
+constexpr int MV_BLOCKS_PER_SM = 4;
+constexpr int MV_MAX_COLS = 48 * 1024;         // u in shared memory: 192 KB at most
+constexpr int MV_SMEM_SM = 227 * 1024;         // shared memory an SM gives its blocks
 
-// y[col, b] += sum_{k in this block's slice} x[k, b] * A[k, col]; x [K, B]
-// f32, A [K, N] bf16 row-major with N % 128 == 0, y [N, B] f32 (zeroed).
-// Thread t: columns tile*128 + (t % 32)*4 .. +3, lanes row0 + (t / 32)*RB ..
-template <int RB>
-__global__ void __launch_bounds__(THREADS) dense_product(const float* x, int B, int K,
-                                                         const uint16_t* A, int N, int col_tiles,
-                                                         int row_chunks, int k_per_split, float* y) {
-  constexpr int LANES = 8 * RB;                        // lanes a block
-  constexpr int A_VECS = DN_KT * DN_COLS / 8;          // 16-byte vectors of an A tile
-  constexpr int A_PER = A_VECS / THREADS;              // 2 a thread
-  constexpr int X_PER = DN_KT * LANES / THREADS;       // RB a thread
-  __shared__ __align__(16) uint16_t As[DN_KT][DN_COLS];
-  __shared__ __align__(16) float xs[DN_KT][LANES];
-  int bid = blockIdx.x;
-  const int tile = bid % col_tiles;
-  bid /= col_tiles;
-  const int chunk = bid % row_chunks;
-  const int split = bid / row_chunks;
-  const int row0 = chunk * LANES;
-  const int k0 = split * k_per_split;
-  const int k1 = k0 + k_per_split < K ? k0 + k_per_split : K;
-  const int cg = threadIdx.x & 31, rg = threadIdx.x >> 5;
-  float acc[RB][4];
+// y[r] += sum_c A[r, c] u[c] for r < R; A [R, N] bf16 row-major, 16-byte
+// aligned rows (N % 8 == 0), u [N] f32, y [R] f32 zeroed. Work item t is
+// row t / nseg, segment t % nseg; warp w of the grid takes w, w + warps, ...
+// u sits in shared memory as two planes: column 8 v + 4 h + q at h N / 2 +
+// 4 v + q, so the float4s that meet a lane's 16 bytes of A (vector v) are
+// consecutive across the warp.
+__global__ void __launch_bounds__(MV_THREADS, MV_BLOCKS_PER_SM) dense_matvec(const uint16_t* __restrict__ A,
+                                                           long long R, int N,
+                                                           const float* __restrict__ u,
+                                                           float* __restrict__ y) {
+  extern __shared__ __align__(16) float mv_u[];
+  const int half = N / 2;
+  for (int c = threadIdx.x; c < N; c += MV_THREADS)
+    mv_u[((c >> 2) & 1) * half + (c >> 3) * 4 + (c & 3)] = u[c];
+  __syncthreads();
+  const float4* ulo = reinterpret_cast<const float4*>(mv_u);
+  const float4* uhi = reinterpret_cast<const float4*>(mv_u + half);
+  const int lane = threadIdx.x & 31;
+  const int nvec = N / 8, nseg = (N + MV_SEG - 1) / MV_SEG;
+  const long long items = R * nseg, warps = (long long)gridDim.x * MV_WARPS;
+  for (long long t = (long long)blockIdx.x * MV_WARPS + (threadIdx.x >> 5); t < items;
+       t += warps) {  // whole warps
+    const long long r = t / nseg;
+    const int v0 = (int)(t % nseg) * (MV_SEG / 8) + lane;
+    const uint4* row = reinterpret_cast<const uint4*>(A + r * N);
+    uint4 a[MV_VPL];
 #pragma unroll
-  for (int i = 0; i < RB; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  uint4 ra[A_PER];
-  float rx[X_PER];
-  auto load = [&](int kb) {
-#pragma unroll
-    for (int p = 0; p < A_PER; ++p) {
-      const int i = threadIdx.x + p * THREADS;
-      const int r = i / (DN_COLS / 8), c8 = i % (DN_COLS / 8);
-      const int k = kb + r;
-      ra[p] = {0u, 0u, 0u, 0u};
-      if (k < k1)
-        ra[p] = *reinterpret_cast<const uint4*>(A + (size_t)k * N + (size_t)tile * DN_COLS + c8 * 8);
+    for (int j = 0; j < MV_VPL; ++j) {  // all loads in flight before the first use
+      a[j] = {0u, 0u, 0u, 0u};
+      if (v0 + 32 * j < nvec) a[j] = __ldg(row + v0 + 32 * j);
     }
+    float s = 0.f;
 #pragma unroll
-    for (int p = 0; p < X_PER; ++p) {
-      const int i = threadIdx.x + p * THREADS;
-      const int r = i / LANES, lane = i % LANES;
-      const int k = kb + r, b = row0 + lane;
-      rx[p] = (k < k1 && b < B) ? x[(size_t)k * B + b] : 0.f;
-    }
-  };
-  if (k0 < k1) load(k0);
-  for (int kb = k0; kb < k1; kb += DN_KT) {
-#pragma unroll
-    for (int p = 0; p < A_PER; ++p) {
-      const int i = threadIdx.x + p * THREADS;
-      *reinterpret_cast<uint4*>(&As[i / (DN_COLS / 8)][(i % (DN_COLS / 8)) * 8]) = ra[p];
-    }
-#pragma unroll
-    for (int p = 0; p < X_PER; ++p) {
-      const int i = threadIdx.x + p * THREADS;
-      xs[i / LANES][i % LANES] = rx[p];
-    }
-    __syncthreads();
-    if (kb + DN_KT < k1) load(kb + DN_KT);  // in flight while this step computes
-#pragma unroll 4
-    for (int r = 0; r < DN_KT; ++r) {
-      const uint2 a2 = *reinterpret_cast<const uint2*>(&As[r][cg * 4]);
+    for (int j = 0; j < MV_VPL; ++j) {
+      const int v = v0 + 32 * j;
+      if (v >= nvec) break;
       // bf16 -> f32 is exact: the bf16 bits are the f32's high half
-      const float a[4] = {__uint_as_float(a2.x << 16), __uint_as_float(a2.x & 0xffff0000u),
-                          __uint_as_float(a2.y << 16), __uint_as_float(a2.y & 0xffff0000u)};
-      float xv[RB];
-#pragma unroll
-      for (int q = 0; q < RB; q += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(&xs[r][rg * RB + q]);
-        xv[q] = v.x;
-        xv[q + 1] = v.y;
-        xv[q + 2] = v.z;
-        xv[q + 3] = v.w;
-      }
-#pragma unroll
-      for (int i = 0; i < RB; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], a[j], acc[i][j]);
+      const float4 lo = ulo[v], hi = uhi[v];
+      s = fmaf(__uint_as_float(a[j].x << 16), lo.x, s);
+      s = fmaf(__uint_as_float(a[j].x & 0xffff0000u), lo.y, s);
+      s = fmaf(__uint_as_float(a[j].y << 16), lo.z, s);
+      s = fmaf(__uint_as_float(a[j].y & 0xffff0000u), lo.w, s);
+      s = fmaf(__uint_as_float(a[j].z << 16), hi.x, s);
+      s = fmaf(__uint_as_float(a[j].z & 0xffff0000u), hi.y, s);
+      s = fmaf(__uint_as_float(a[j].w << 16), hi.z, s);
+      s = fmaf(__uint_as_float(a[j].w & 0xffff0000u), hi.w, s);
     }
-    __syncthreads();
-  }
 #pragma unroll
-  for (int i = 0; i < RB; ++i) {
-    const int b = row0 + rg * RB + i;
-    if (b >= B) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const size_t col = (size_t)tile * DN_COLS + cg * 4 + j;
-      if (acc[i][j] != 0.f) atomicAdd(&y[col * B + b], acc[i][j]);
-    }
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0 && s != 0.f) atomicAdd(&y[r], s);
   }
 }
 
-cudaError_t launch_product(const float* x, int B, int K, const uint16_t* A, int N, float* y,
-                           cudaStream_t s) {
-  const int rb = B <= 32 ? 4 : 8;
-  const int lanes = 8 * rb;
-  const int col_tiles = N / DN_COLS;
-  const int row_chunks = (B + lanes - 1) / lanes;
-  const int ktiles = (K + DN_KT - 1) / DN_KT;
-  // about four resident blocks an SM on 132 SMs
-  const int want = (4 * 132 + col_tiles * row_chunks - 1) / (col_tiles * row_chunks);
-  const int splits = want < ktiles ? (want > 0 ? want : 1) : (ktiles > 0 ? ktiles : 1);
-  const int k_per_split = ((ktiles + splits - 1) / splits) * DN_KT;
-  const int nsplit = (K + k_per_split - 1) / k_per_split;
-  const unsigned grid = (unsigned)(col_tiles * row_chunks * (nsplit > 0 ? nsplit : 1));
-  if (rb == 4)
-    dense_product<4><<<grid, THREADS, 0, s>>>(x, B, K, A, N, col_tiles, row_chunks, k_per_split, y);
-  else
-    dense_product<8><<<grid, THREADS, 0, s>>>(x, B, K, A, N, col_tiles, row_chunks, k_per_split, y);
+// out[b] = sum_j [w > 0] w * u[clip(fr, 0, n)] over lane b's seeds, an
+// index n adding nothing; a block a lane.
+__global__ void __launch_bounds__(THREADS) seed_dot(const int* fr, const int* w, int fsz,
+                                                    const float* u, int n, float* out) {
+  __shared__ float part[THREADS / 32];
+  const long long base = (long long)blockIdx.x * fsz;
+  float s = 0.f;
+  for (int j = threadIdx.x; j < fsz; j += THREADS) {
+    const int wv = w[base + j];
+    const long long c = clampll(fr[base + j], 0, n);
+    if (wv > 0 && c < n) s = fmaf((float)wv, u[c], s);
+  }
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t = 0.f;
+    for (int i = 0; i < THREADS / 32; ++i) t += part[i];
+    out[blockIdx.x] = t;
+  }
+}
+
+cudaError_t launch_matvec(const uint16_t* A, int R, int N, const float* u, float* y,
+                          cudaStream_t s) {
+  cudaError_t e = cudaMemsetAsync(y, 0, (size_t)R * sizeof(float), s);
+  if (e != cudaSuccess) return e;
+  // the limit is raised to the widest u once a device, not per launch
+  static std::atomic<unsigned> seen{0};
+  if ((e = (cudaError_t)opt_in_smem(dense_matvec, MV_MAX_COLS * (int)sizeof(float), seen)) !=
+      cudaSuccess)
+    return e;
+  const int smem = N * (int)sizeof(float), sms = sm_count();
+  int per_sm = MV_SMEM_SM / (smem + 1024);  // each block also holds 1 KB of the system's
+  per_sm = per_sm < 1 ? 1 : (per_sm > MV_BLOCKS_PER_SM ? MV_BLOCKS_PER_SM : per_sm);
+  const long long items = (long long)R * ((N + MV_SEG - 1) / MV_SEG);
+  const long long want = (items + MV_WARPS - 1) / MV_WARPS;
+  const long long grid = want < (long long)sms * per_sm ? want : (long long)sms * per_sm;
+  dense_matvec<<<(unsigned)grid, MV_THREADS, smem, s>>>(A, R, N, u, y);
   return cudaGetLastError();
 }
 
@@ -329,37 +312,31 @@ __global__ void __launch_bounds__(THREADS) chain_gather(const int* ptr, int n, c
 
 extern "C" {
 
-// K8. mats[i] is [dims[i], dims[i+1]] bf16 (dims[i+1] % 128 == 0), outdeg
-// [dims[n_mats]] f32, fr / w [B, fsz] int32 seeds as local ids of the first
-// space; xa / xb scratch of max(dims) * B f32 each; out [B] f32.
+// K8. mats[i] is [dims[i], dims[i+1]] bf16 with 16-byte aligned rows
+// (dims[i+1] % 8 == 0, at most MV_MAX_COLS), outdeg [dims[n_mats]] f32,
+// fr / w [B, fsz] int32 seeds as local ids of the first space; xa / xb
+// scratch of max(dims) f32 each (xb unused with one operator, both with
+// none); out [B] f32.
 int graph_dense_count(const void* const* mats, const int* dims, int n_mats, const void* outdeg,
                       const void* fr, const void* w, int B, int fsz, void* xa, void* xb,
                       void* out, void* stream) {
   if (B <= 0 || fsz < 0 || n_mats < 0 || dims[0] <= 0) return (int)cudaErrorInvalidValue;
   for (int i = 1; i <= n_mats; ++i)
-    if (dims[i] <= 0 || dims[i] % DN_COLS != 0) return (int)cudaErrorInvalidValue;
+    if (dims[i] <= 0 || dims[i] % 8 != 0 || dims[i] > MV_MAX_COLS)
+      return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  float* x = (float*)xa;
-  float* y = (float*)xb;
-  cudaError_t e = cudaMemsetAsync(x, 0, (size_t)dims[0] * B * sizeof(float), s);
-  if (e != cudaSuccess) return (int)e;
-  densify<float><<<grid_for((long long)B * fsz), THREADS, 0, s>>>((const int*)fr, (const int*)w,
-                                                                   B, fsz, dims[0], x);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  for (int i = 0; i < n_mats; ++i) {
-    if ((e = cudaMemsetAsync(y, 0, (size_t)dims[i + 1] * B * sizeof(float), s)) != cudaSuccess)
-      return (int)e;
-    if ((e = launch_product(x, B, dims[i], (const uint16_t*)mats[i], dims[i + 1], y, s)) !=
+  float* bufs[2] = {(float*)xa, (float*)xb};
+  const float* u = (const float*)outdeg;
+  cudaError_t e;
+  for (int i = n_mats - 1; i >= 0; --i) {  // u_i = A_i u_{i+1}, the buffers in turn
+    float* y = bufs[i & 1];
+    if ((e = launch_matvec((const uint16_t*)mats[i], dims[i], dims[i + 1], u, y, s)) !=
         cudaSuccess)
       return (int)e;
-    float* t = x;
-    x = y;
-    y = t;
+    u = y;
   }
-  if ((e = cudaMemsetAsync(out, 0, (size_t)B * sizeof(float), s)) != cudaSuccess) return (int)e;
-  const long long V = dims[n_mats];
-  lane_dot<float, false><<<grid_for(V * B / 8), THREADS, 0, s>>>(x, V, B, (const float*)outdeg,
-                                                                  nullptr, (float*)out);
+  seed_dot<<<(unsigned)B, THREADS, 0, s>>>((const int*)fr, (const int*)w, fsz, u, dims[0],
+                                           (float*)out);
   return (int)cudaGetLastError();
 }
 
@@ -389,7 +366,7 @@ int graph_csc_count(const void* const* cptrs, const void* const* csrcs, const in
   unsigned* y = (unsigned*)xb;
   long long W = (long long)n_cap + 1;
   if ((e = cudaMemsetAsync(x, 0, (size_t)W * B * sizeof(unsigned), s)) != cudaSuccess) return (int)e;
-  densify<unsigned><<<grid_for((long long)B * fsz), THREADS, 0, s>>>(
+  densify<<<grid_for((long long)B * fsz), THREADS, 0, s>>>(
       (const int*)fr, (const int*)w, B, fsz, n_cap, x);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   int m = 0;
@@ -416,8 +393,8 @@ int graph_csc_count(const void* const* cptrs, const void* const* csrcs, const in
     y = t;
   }
   for (int l = 0; l < n_last; ++l) {
-    lane_dot<unsigned, true><<<grid_for((long long)n_cap * B / 8), THREADS, 0, s>>>(
-        x, n_cap, B, nullptr, (const int*)last_ptrs[l], (unsigned*)out);
+    lane_dot<<<grid_for((long long)n_cap * B / 8), THREADS, 0, s>>>(
+        x, n_cap, B, (const int*)last_ptrs[l], (unsigned*)out);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   return (int)cudaSuccess;

@@ -27,8 +27,9 @@ version in this module:
   scatter-add dedup, ordered compaction) launches `graph_chain`;
 - K7 `chain_count_batch` (B count chains over destination-sorted CSC
   adjacency) launches `graph_csc_count`;
-- K8 `dense_count_batch` (B count chains as f32 products with composed
-  node-to-node operators) launches `graph_dense_count`.
+- K8 `dense_count_batch` (B count chains through composed node-to-node
+  operators, as matrix-vector passes over them and a gather-dot over the
+  seeds) launches `graph_dense_count`.
 
 A CUDA tensor goes to the kernel (or the wrapper raises); CPU tensors go to
 the plain version, which the tests hold against the reference and
@@ -382,16 +383,17 @@ def _launch_dense_count(lib, As, outdeg, frontiers, weights, n0):
     for A in As:
         if A.dtype != torch.bfloat16 or A.dim() != 2 or not A.is_contiguous():
             raise ValueError("each operator must be a contiguous 2-d bfloat16 tensor")
-        if A.shape[0] != dims[-1] or A.shape[1] % 128 or A.data_ptr() % 16:
+        if A.shape[0] != dims[-1] or A.shape[1] % 8 or A.data_ptr() % 16:
             raise ValueError(f"operator {tuple(A.shape)} does not follow width {dims[-1]} "
-                             "or is not 128-column padded and 16-byte aligned")
+                             "or its rows are not 16-byte aligned")
         dims.append(int(A.shape[1]))
     if outdeg.dtype != torch.float32 or outdeg.shape != (dims[-1],) or not outdeg.is_contiguous():
         raise ValueError(f"outdeg must be a contiguous float32 [{dims[-1]}] tensor")
     B, fsz = frontiers.shape
     dev = frontiers.device
-    xa = torch.empty(max(dims) * B, dtype=torch.float32, device=dev)
-    xb = torch.empty(max(dims) * B if As else 1, dtype=torch.float32, device=dev)
+    # u_i = A_i u_{i+1} from the last operator back, in the two buffers in turn
+    xa = torch.empty(max(dims) if As else 1, dtype=torch.float32, device=dev)
+    xb = torch.empty(max(dims) if len(As) > 1 else 1, dtype=torch.float32, device=dev)
     out = torch.empty(B, dtype=torch.float32, device=dev)
     status = lib.graph_dense_count(
         _ptrs(As), _ints(dims), len(As), outdeg.data_ptr(), frontiers.data_ptr(),
@@ -532,8 +534,11 @@ def dense_count_batch(As, outdeg, frontiers, weights, n0):
     """Batched count chains as products with composed node-to-node
     operators (K8): each logical `->edge->node` pair is pre-composed into a
     dense adjacency (bf16, exact for multiplicities < 256), so B concurrent
-    3-hop counts are TWO [B, n]x[n, n] products + a degree dot-product in
-    one call. Seeds arrive as compact LOCAL ids. -> [B] f32."""
+    counts are ((x_b A_0 ... A_{m-1}) * outdeg).sum() in one call. The
+    kernel regroups it as x_b . (A_0 (... (A_{m-1} outdeg))): m
+    matrix-vector passes whatever B (a 3-hop count: two over [n, n]), then
+    a gather-dot over each lane's seeds; exact under the caller's 2^24
+    guard. Seeds arrive as compact LOCAL ids. -> [B] f32."""
     if not _on_card(outdeg, frontiers, weights, *As):
         return dense_count_batch_plain(As, outdeg, frontiers, weights, n0)
     from surrealdb_tpu_torch.ops import _cuda

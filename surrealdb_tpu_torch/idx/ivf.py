@@ -100,10 +100,14 @@ def default_nprobe(nlists: int, ef: Optional[int]) -> int:
 def assign_plain(x: torch.Tensor, cents: torch.Tensor, k_assign: int = 1, idx=None) -> torch.Tensor:
     """Plain K5: the nearest (k_assign = 1) or two nearest centroids of each
     row of x [n, D] (or of x[clip(idx, 0, cap-1)]) by euclidean distance,
-    lower index first on a tie -> int32 [n] or [n, 2]."""
+    lower index first on a tie, a NaN distance first of all -> int32 [n]
+    or [n, 2]."""
     if idx is not None:
         x = x[idx.long().clamp(0, x.shape[0] - 1)]
     d = D.pairwise_distance_plain(x, cents, "euclidean")
+    # a NaN distance (a row holding inf or NaN) ranks first, lower index
+    # first, as the reference's argmin and top_k rank it
+    d = torch.where(torch.isnan(d), float("-inf"), d)
     if k_assign == 1:
         return torch.argmin(d, dim=1).to(torch.int32)
     return D._topk_min_stable(d, k_assign)[1]
@@ -175,7 +179,10 @@ def _on_card(*ts) -> bool:
     return True
 
 
-def _assign_cuda(x, cents, k_assign, idx=None):
+def _launch_assign(lib, x, cents, k_assign, idx=None):
+    """ivf_assign's argument checks and launch (K5) through `lib`, the
+    kernel library (the tests pass the CPU-emulated one). A bf16 x gets the
+    centroids' limb planes and squared norms as scratch."""
     from surrealdb_tpu_torch.ops import _cuda
 
     if cents.dtype != torch.float32 or not cents.is_contiguous() or cents.shape[1] != x.shape[1]:
@@ -189,15 +196,29 @@ def _assign_cuda(x, cents, k_assign, idx=None):
         n = idx.shape[0]
     else:
         n = x.shape[0]
+    C, dim = cents.shape
+    limbs = cnorm = None
+    if bf16:
+        limbs = torch.empty(3 * C * lib.ivf_assign_limb_pitch(dim), dtype=torch.bfloat16,
+                            device=x.device)
+        cnorm = torch.empty(C, dtype=torch.float32, device=x.device)
     shape = (n,) if k_assign == 1 else (n, k_assign)
     out = torch.empty(shape, dtype=torch.int32, device=x.device)
+    status = lib.ivf_assign(
+        xp, bf16, None if idx is None else idx.data_ptr(), n, x.shape[0], cents.data_ptr(), C,
+        dim, k_assign, None if limbs is None else limbs.data_ptr(),
+        None if cnorm is None else cnorm.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream if x.device.type == "cuda" else None,
+    )
+    _cuda.check(status, "ivf_assign")
+    return out
+
+
+def _assign_cuda(x, cents, k_assign, idx=None):
+    from surrealdb_tpu_torch.ops import _cuda
+
     with torch.cuda.device(x.device):
-        status = _cuda.lib().ivf_assign(
-            xp, bf16, None if idx is None else idx.data_ptr(), n, x.shape[0],
-            cents.data_ptr(), cents.shape[0], x.shape[1], k_assign, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-        _cuda.check(status, "ivf_assign")
+        out = _launch_assign(_cuda.lib(), x, cents, k_assign, idx)
     ASSIGN.bump()
     return out
 

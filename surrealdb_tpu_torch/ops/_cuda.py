@@ -49,7 +49,8 @@ _SIGNATURES = {
     "knn_select_smem_pairs": (ctypes.c_int, []),
     "knn_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     "ivf_assign": (ctypes.c_int, [_P, ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_longlong,
-                                  _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P]),
+                                  _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P]),
+    "ivf_assign_limb_pitch": (ctypes.c_int, [ctypes.c_int]),
     "ivf_kmeans_update": (ctypes.c_int, [_P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                                          _P, _P, ctypes.c_int, _P, _P, _P]),
     "ivf_gather_distance": (ctypes.c_int, [_P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,

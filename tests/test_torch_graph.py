@@ -189,6 +189,34 @@ def test_dense_count_batch_matches_reference(products, lanes):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def test_dense_count_batch_chain_of_unequal_widths_matches_reference():
+    """[n0, n1] then [n1, n2] with n0 != n1 != n2; seeds with negative ids,
+    ids at and past n0, and weights of 0 and below."""
+    rng = np.random.default_rng(77)
+    n0, n1, n2 = 300, 200, 520
+    mats = []
+    for r, c in ((n0, n1), (n1, n2)):
+        a = np.zeros((r, c), dtype=np.float32)
+        np.add.at(a, (rng.integers(0, r, 3000), rng.integers(0, c, 3000)), 1.0)
+        mats.append(a)
+    outdeg = rng.integers(0, 5, n2).astype(np.float32)
+    fr = np.full((8, 16), n0, dtype=np.int32)
+    w = np.zeros((8, 16), dtype=np.int32)
+    fr[:, :4] = rng.integers(0, n0, (8, 4))
+    w[:, :4] = rng.integers(1, 4, (8, 4))
+    fr[:, 4:8] = [-3, n0 + 7, 5, 6]
+    w[:, 4:8] = [2, 1, 0, -2]
+    want = _ref_kernel("dense_count_batch")(
+        tuple(jnp.asarray(a.astype(ml_dtypes.bfloat16)) for a in mats), jnp.asarray(outdeg),
+        jnp.asarray(fr), jnp.asarray(w), n0=n0,
+    )
+    got = P.dense_count_batch(tuple(torch.from_numpy(a).to(torch.bfloat16) for a in mats),
+                              torch.from_numpy(outdeg), torch.from_numpy(fr),
+                              torch.from_numpy(w), n0)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert bool((got > 0).all())
+
+
 def test_pointer_csr_arrays_match_reference():
     """Host compaction and the destination-sorted CSC (padding edges on the
     sentinel) are the reference's, array for array."""
@@ -364,12 +392,14 @@ def test_remove_database_drops_mirrors(pair):
 
 
 def test_parallel_edges_keep_multiplicity(pair):
+    # edge ids fixed: the answer follows the edges' key order, which random
+    # ids would make differ between the two packages
     _setup(pair, "CREATE p:0; CREATE p:1; CREATE p:2;"
-                 "RELATE p:0->knows->p:1; RELATE p:0->knows->p:1; RELATE p:0->knows->p:2;")
+                 "RELATE p:0->knows:1->p:1; RELATE p:0->knows:2->p:1; RELATE p:0->knows:3->p:2;")
     q = "SELECT VALUE ->knows->p FROM p:0"
     assert _same(pair, q) == [[("p", 1), ("p", 1), ("p", 2)]]
     out = _same_kv_walk(
-        pair, "BEGIN; RELATE p:0->knows->p:2; SELECT VALUE ->knows->p FROM p:0; COMMIT;")
+        pair, "BEGIN; RELATE p:0->knows:4->p:2; SELECT VALUE ->knows->p FROM p:0; COMMIT;")
     assert out == [("p", 1), ("p", 1), ("p", 2), ("p", 2)]
     assert _same(pair, q) == [[("p", 1), ("p", 1), ("p", 2), ("p", 2)]]
 
@@ -385,9 +415,10 @@ def test_count_fast_path_equals_the_expansion(pair):
     rows = [{"id": i} for i in range(20)]
     _setup(pair, "DEFINE TABLE p SCHEMALESS; INSERT INTO p $rows;", {"rows": rows})
     rels = [(i, (i + j) % 20) for i in range(20) for j in (1, 2, 3)] + [(0, 1)]
-    for ds, thing in zip(pair, (RThing, PThing)):
+    for ds, thing in zip(pair, (RThing, PThing)):  # edge ids fixed: one KV order in both
         ds.execute("INSERT RELATION INTO knows $rows;", vars={"rows": [
-            {"in": thing("p", a), "out": thing("p", b)} for a, b in rels]})
+            {"id": thing("knows", k), "in": thing("p", a), "out": thing("p", b)}
+            for k, (a, b) in enumerate(rels)]})
     n = _same(pair, "SELECT count(->knows->p->knows->p) AS c FROM p:0;")[0]["c"]
     expanded = _same(pair, "SELECT ->knows->p->knows->p AS e FROM p:0;")[0]["e"]
     assert n == len(expanded) == 12

@@ -102,6 +102,44 @@ def test_assign_gather_matches_reference(k_assign):
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
+def _nonfinite_inputs(seed):
+    """_assign_inputs plus a row holding +inf, one -inf and one NaN, and a
+    column of small integer centroid values (zeros among them: inf x 0)."""
+    x, cents = _assign_inputs(seed)
+    rng = np.random.default_rng(seed + 100)
+    cents[:, 7] = rng.integers(-2, 3, cents.shape[0])
+    x[50, 7], x[51, 2], x[52, 11] = np.inf, -np.inf, np.nan
+    return x, cents
+
+
+@pytest.mark.parametrize("gather", [False, True], ids=["rows", "index"])
+@pytest.mark.parametrize("k_assign", [1, 2])
+def test_assign_nonfinite_rows_match_reference(k_assign, gather):
+    """Rows holding inf or NaN get the reference's ids: a NaN distance ranks
+    first, lower index first."""
+    x, cents = _nonfinite_inputs(4)
+    if gather:
+        idx = np.array([50, 51, 52, 0, 7, -3, 600], dtype=np.int32)
+        ref = R._assign_gather(jnp.asarray(x), jnp.asarray(idx), jnp.asarray(cents),
+                               k_assign=k_assign)
+        got = P._assign_gather(_t(x), _t(idx), _t(cents), k_assign=k_assign)
+    else:
+        ref = R._assign_chunk(jnp.asarray(x), jnp.asarray(cents), k_assign=k_assign)
+        got = P._assign_chunk(_t(x), _t(cents), k_assign=k_assign)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("k_assign", [1, 2])
+def test_assign_bf16_corpus_matches_reference(k_assign):
+    """The main path's corpus is bf16: the same bf16 rows through both."""
+    x, cents = _assign_inputs(5)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    ref = R._assign_chunk(jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16),
+                          jnp.asarray(cents), k_assign=k_assign)
+    got = P._assign_chunk(xb, _t(cents), k_assign=k_assign)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
 def test_kmeans_step_matches_reference_with_an_empty_cluster():
     xs = _mixture(3000, 16, clusters=8, seed=4)
     rng = np.random.default_rng(5)

@@ -215,23 +215,26 @@ def test_k2_select_matches_plain_exactly(lib, case):
 
 
 def _assign(lib, x, cents, k, idx=None):
-    n = x.shape[0] if idx is None else idx.shape[0]
-    out = torch.empty((n,) if k == 1 else (n, k), dtype=torch.int32)
-    status = lib.ivf_assign(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), None if idx is None else idx.data_ptr(),
-        n, x.shape[0], cents.data_ptr(), cents.shape[0], x.shape[1], k, out.data_ptr(), None,
-    )
-    assert status == 0
+    return IVF._launch_assign(lib, x, cents, k, idx)
+
+
+def _ties_broken(got, want, d):
+    """(row, slot, d[got], d[want]) wherever the ids differ and the two
+    picks' distances do not tie within the tolerance (f32 sums in another
+    order); a non-finite distance never ties."""
+    got2, want2 = got.reshape(len(d), -1).long(), want.reshape(len(d), -1).long()
+    out = []
+    for r, c in (got2 != want2).nonzero().tolist():
+        a, b = float(d[r, got2[r, c]]), float(d[r, want2[r, c]])
+        if not abs(a - b) <= 1e-4 + 1e-5 * abs(b):
+            out.append((r, c, a, b))
     return out
 
 
 def _assert_ids_up_to_ties(got, want, d):
     """Ids equal, except where the two picks' distances tie within the
-    tolerance (f32 sums in another order)."""
-    got2, want2 = got.reshape(len(d), -1).long(), want.reshape(len(d), -1).long()
-    for r, c in (got2 != want2).nonzero().tolist():
-        a, b = float(d[r, got2[r, c]]), float(d[r, want2[r, c]])
-        assert abs(a - b) <= 1e-4 + 1e-5 * abs(b), (r, c, a, b)
+    tolerance."""
+    assert not _ties_broken(got, want, d)
 
 
 @pytest.mark.parametrize("gather", [False, True], ids=["rows", "index"])
@@ -255,6 +258,138 @@ def test_k5_assign_matches_plain(lib, corpus, k, gather):
     _assert_ids_up_to_ties(got, want, d)
     near = slice(0, 20) if idx is None else (idx.clamp(0, 149) < 20).nonzero()[:, 0]
     assert set(got.reshape(len(rows), -1)[near, 0].tolist()) <= {3, 5}
+
+
+def _assign_case(rng, n, C, D, dtype):
+    """Rows near centroids 3 and 5 (ties within the tolerance), two pairs of
+    equal centroids (exact ties: the lower index wins), the rest random."""
+    cents = torch.from_numpy(rng.standard_normal((C, D)).astype(np.float32))
+    cents[C - 10] = cents[5]
+    cents[C - 3] = cents[3]
+    x = torch.from_numpy(rng.standard_normal((n, D)).astype(np.float32))
+    x[:20] = cents[[5, 3] * 10] + 0.01 * x[:20]
+    return x.to(dtype), cents
+
+
+@pytest.mark.parametrize("gather", [False, True], ids=["rows", "index"])
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("C", [70, 300])
+@pytest.mark.parametrize("dim", [20, 40, 768])
+def test_k5_bf16_shapes_match_plain(lib, dim, C, k, gather):
+    """The tensor-core path: D not a multiple of 8 (plain-load staging), of
+    16 (a zero-padded limb plane) and the main path's 768; C within one
+    centroid tile and over three, the last partial; rows past a block."""
+    rng = np.random.default_rng(dim + C + k)
+    x, cents = _assign_case(rng, 150, C, dim, torch.bfloat16)
+    idx = None
+    if gather:  # out-of-range indices are clipped, as the reference clips
+        idx = torch.from_numpy(rng.integers(-5, 160, size=140).astype(np.int32))
+    got = _assign(lib, x, cents, k, idx)
+    want = IVF.assign_plain(x, cents, k, idx=idx)
+    rows = x if idx is None else x[idx.long().clamp(0, x.shape[0] - 1)]
+    _assert_ids_up_to_ties(got, want, D.pairwise_distance_plain(rows, cents, "euclidean"))
+    near = slice(0, 20) if idx is None else (idx.clamp(0, 149) < 20).nonzero()[:, 0]
+    assert set(got.reshape(len(rows), -1)[near, 0].tolist()) <= {3, 5}
+
+
+@pytest.mark.parametrize("gather", [False, True], ids=["rows", "index"])
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("corpus", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k5_inf_and_nan_rows_match_plain(lib, corpus, k, gather):
+    """A row holding +inf, one holding -inf and one holding NaN get the ids
+    f32 gives (a NaN distance first, in index order), also where a zero
+    limb meets the inf; the finite rows beside them are unchanged."""
+    rng = np.random.default_rng(60 + k)
+    x, cents = _assign_case(rng, 150, 70, 40, torch.float32)
+    cents[:, 7] = torch.from_numpy(rng.integers(-2, 3, 70).astype(np.float32))  # limbs 1, 2 zero
+    x[30, 7] = float("inf")
+    x[31, 2] = float("-inf")
+    x[32, 11] = float("nan")
+    x = x.to(corpus)
+    idx = torch.tensor([30, 31, 32, 0, 1, 40, 33], dtype=torch.int32) if gather else None
+    got = _assign(lib, x, cents, k, idx)
+    want = IVF.assign_plain(x, cents, k, idx=idx)
+    bad = [0, 1, 2] if gather else [30, 31, 32]
+    assert torch.equal(got[bad], want[bad])
+    rows = x if idx is None else x[idx.long()]
+    fine = [i for i in range(len(rows)) if i not in bad]
+    _assert_ids_up_to_ties(got[fine], want[fine],
+                           D.pairwise_distance_plain(rows[fine], cents, "euclidean"))
+
+
+def _lower_limb_case(rng, groups, dim):
+    """bf16 rows whose nearest f32 centroid is told from the next one only
+    by limb 1 (even groups) or only by limb 2 (odd groups) of the kernel's
+    truncating split: a group's centroids are `far` (index 2g) and `near`
+    (2g + 1) = far + a value below far's last kept bit, and its row lies 1
+    above both in every column, so near is nearer. A product without limb
+    1 or limb 2 sees near as far, or farther, and ranks far first."""
+    v = 4 + rng.integers(0, 64, (groups, dim)) / 16  # bf16 values: limbs 1, 2 zero
+    r1 = (1 + rng.integers(0, 128, (groups, dim)) / 128) / 64  # below v's last bit, 2^-5
+    r2 = rng.integers(128, 256, (groups, dim)) / 2 ** 21  # below r1's last bit, 2^-13
+    odd = (np.arange(groups) % 2 == 1)[:, None]
+    far = v + np.where(odd, r1, 0)
+    near = far + np.where(odd, r2, r1)
+    cents = np.stack([far, near], 1).reshape(2 * groups, dim).astype(np.float32)
+    return torch.from_numpy((v + 1).astype(np.float32)), torch.from_numpy(cents)
+
+
+@pytest.mark.parametrize("gather", [False, True], ids=["rows", "index"])
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("dim", [40, 768])
+def test_k5_lower_limbs_decide_match_plain(lib, dim, k, gather):
+    """Centroids off the bf16 grid, where limb 1 or limb 2 alone decides
+    the nearest: the ids are the plain version's up to ties, and near wins
+    in every group (the case's gaps are far above the tolerance)."""
+    rng = np.random.default_rng(dim + k)
+    x, cents = _lower_limb_case(rng, 12, dim)
+    x = x.to(torch.bfloat16)
+    idx = torch.from_numpy(rng.permutation(12).astype(np.int32)) if gather else None
+    got = _assign(lib, x, cents, k, idx)
+    rows = x if idx is None else x[idx.long()]
+    want = IVF.assign_plain(rows, cents, k)
+    _assert_ids_up_to_ties(got, want, D.pairwise_distance_plain(rows, cents, "euclidean"))
+    owner = torch.arange(12) if idx is None else idx.long()
+    assert torch.equal(got.reshape(12, -1)[:, 0].long(), 2 * owner + 1)
+
+
+_K5_FAULTS = {
+    # the largest limb's pass left out of the product
+    "dropped_limb0": ("for (int l = hi ? 1 : 0; l < 2; ++l) {",
+                      "for (int l = hi ? 2 : 0; l < 2; ++l) {"),
+    # a single bf16 pass: limbs 1 and 2 left out
+    "dropped_limbs_1_2": ("for (int l = hi ? 1 : 0; l < 2; ++l) {",
+                          "for (int l = hi ? 1 : 2; l < 2; ++l) {"),
+    # two passes: limb 2 left out
+    "dropped_limb2": ("for (int l = hi ? 1 : 0; l < 2; ++l) {",
+                      "for (int l = hi ? 1 : 1; l < 2; ++l) {"),
+    # limb plane 2 staged from plane 1's place
+    "limb_plane2_misplaced": ("const int pl = hi ? 0 : 2 - l;", "const int pl = hi ? 0 : 1;"),
+    # a non-finite tensor-core product kept, its row not recomputed as f32 gives it
+    "no_fma_recompute": ("if (!finite_f(dot)) bad[r] = 1;", ""),
+    # the column warps' best-2 not merged: the first warp's stands
+    "unmerged_column_warps": ("for (int w = 1; w < 4; ++w) {", "for (int w = 1; w < 1; ++w) {"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(_K5_FAULTS))
+def test_k5_planted_fault_fails_the_comparison(tmp_path, fault):
+    """The comparisons above have teeth: a copy of ivf.cu with one fault
+    planted fails the comparison with the plain version (ids up to ties),
+    on random rows, a row holding inf and the lower-limb groups."""
+    src = _source("ivf.cu")
+    old, new = _K5_FAULTS[fault]
+    assert src.count(old) == 1
+    bad = _build_emu(tmp_path, {"ivf.cu": src.replace(old, new)})
+    rng = np.random.default_rng(61)
+    x, cents = _assign_case(rng, 150, 300, 40, torch.float32)
+    cents[:, 7] = torch.from_numpy(rng.integers(-2, 3, 300).astype(np.float32))
+    x[30, 7] = float("inf")
+    lx, lc = _lower_limb_case(rng, 12, 40)
+    x, cents = torch.cat([x, lx]).to(torch.bfloat16), torch.cat([cents, lc])
+    want = IVF.assign_plain(x, cents, 2)
+    assert _ties_broken(_assign(bad, x, cents, 2), want,
+                        D.pairwise_distance_plain(x, cents, "euclidean"))
 
 
 @pytest.mark.parametrize("skewed", [False, True], ids=["uniform", "skewed"])
@@ -526,6 +661,91 @@ def test_k8_dense_count_matches_plain_exactly(lib, products, lanes):
     got, want = G._launch_dense_count(lib, *args), G.dense_count_batch_plain(*args)
     assert torch.equal(got, want) and bool((want > 0).any())
     assert float(want.max()) < 2**24  # the exactness guard's range
+
+
+def _edge_seeds(rng, lanes, width, n_src, n0):
+    """Per lane: a few seeds in range with weights 1-3, and the rules'
+    edge cases: a negative id (clipped to node 0), ids at and past n0
+    (dropped), and weights of 0 and -2 (dropped)."""
+    fr = np.full((lanes, width), n0, dtype=np.int32)
+    w = np.zeros((lanes, width), dtype=np.int32)
+    for b in range(lanes):
+        fr[b, :4] = rng.integers(0, n_src, 4)
+        w[b, :4] = rng.integers(1, 4, 4)
+        fr[b, 4:9] = [-3, n0, n0 + 7, int(rng.integers(0, n_src)), int(rng.integers(0, n_src))]
+        w[b, 4:9] = [2, 5, 1, 0, -2]
+    return torch.from_numpy(fr), torch.from_numpy(w)
+
+
+@pytest.mark.parametrize("order", ["narrow_then_wide", "wide_then_narrow"])
+def test_k8_dense_count_chain_of_unequal_widths(lib, order):
+    """[n0, n1] then [n1, n2] with n0 != n1 != n2, widths off the 128
+    padding, a width of two 2,048-column segments, every seed rule."""
+    rng = np.random.default_rng(31 if order == "narrow_then_wide" else 32)
+    n0, n1, n2 = (300, 200, 2056) if order == "narrow_then_wide" else (200, 2056, 136)
+    mats = []
+    for r, c in ((n0, n1), (n1, n2)):
+        a = np.zeros((r, c), dtype=np.float32)
+        np.add.at(a, (rng.integers(0, r, 3000), rng.integers(0, c, 3000)), 1.0)
+        mats.append(a)
+    A0, A1 = (torch.from_numpy(a).to(torch.bfloat16) for a in mats)
+    outdeg = torch.from_numpy(rng.integers(0, 5, n2).astype(np.float32))
+    fr, w = _edge_seeds(rng, 12, 32, n0, n0)
+    args = ((A0, A1), outdeg, fr, w, n0)
+    got, want = G._launch_dense_count(lib, *args), G.dense_count_batch_plain(*args)
+    assert torch.equal(got, want) and bool((want > 0).all())
+
+
+def test_k8_dense_count_just_under_the_guard_is_exact(lib):
+    """A count of 2^24 - 256 (255 x 2,056 x 32), where a lost unit would
+    show: one row of 255s over two segments' columns, outdeg 32, one seed
+    of weight 1; beside it a lane with node 1 seeded twice (weights 1 and
+    2) over its 1,028 even columns."""
+    n0, n1 = 16, 2056
+    a = np.zeros((n0, n1), dtype=np.float32)
+    a[0, :] = 255.0
+    a[1, ::2] = 1.0
+    A = torch.from_numpy(a).to(torch.bfloat16)
+    outdeg = torch.full((n1,), 32.0)
+    fr = torch.tensor([[0, n0, n0], [1, 1, -1]], dtype=torch.int32)
+    w = torch.tensor([[1, 0, 0], [1, 2, 0]], dtype=torch.int32)
+    args = ((A,), outdeg, fr, w, n0)
+    got, want = G._launch_dense_count(lib, *args), G.dense_count_batch_plain(*args)
+    assert want.tolist() == [2**24 - 256, 3 * 1028 * 32]
+    assert torch.equal(got, want)
+
+
+_K8_FAULTS = {
+    # u staged in one plane: a lane's high float4 is the next vector's low one
+    "one_u_plane": ("mv_u[((c >> 2) & 1) * half + (c >> 3) * 4 + (c & 3)] = u[c];",
+                    "mv_u[c] = u[c];"),
+    # the operators applied front to back
+    "operators_in_order": ("for (int i = n_mats - 1; i >= 0; --i) {", "for (int i = 0; i < n_mats; ++i) {"),
+    # a seed past the space kept (clipped to its last node)
+    "seed_past_n0_kept": ("const long long c = clampll(fr[base + j], 0, n);",
+                          "const long long c = clampll(fr[base + j], 0, n - 1);"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(_K8_FAULTS))
+def test_k8_planted_fault_fails_the_comparison(tmp_path, fault):
+    """The comparisons above have teeth: a copy of graph.cu with one fault
+    planted disagrees with the plain version."""
+    src = _source("graph.cu")
+    old, new = _K8_FAULTS[fault]
+    assert src.count(old) == 1
+    bad = _build_emu(tmp_path, {"graph.cu": src.replace(old, new)})
+    rng = np.random.default_rng(33)
+    n0, n1 = 304, 200
+    mats = []
+    for r, c in ((n0, n1), (n1, n0)):
+        a = np.zeros((r, c), dtype=np.float32)
+        np.add.at(a, (rng.integers(0, r, 3000), rng.integers(0, c, 3000)), 1.0)
+        mats.append(torch.from_numpy(a).to(torch.bfloat16))
+    outdeg = torch.from_numpy(rng.integers(0, 5, n0).astype(np.float32))
+    fr, w = _edge_seeds(rng, 4, 32, n0, n0)
+    args = (tuple(mats), outdeg, fr, w, n0)
+    assert not torch.equal(G._launch_dense_count(bad, *args), G.dense_count_batch_plain(*args))
 
 
 # ------------------------------------------------------------------ BM25
