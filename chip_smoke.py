@@ -14,9 +14,12 @@ Phases, one JSON line each (or more):
 1. environment: the card, its power limit, the kernel build (nvcc, sm_90a,
    one process a source);
 2. every CUDA kernel against its plain PyTorch version on the card: K1/K2
-   (exact kNN), K5 ivf_assign and the K4 k-means update at the training's
-   shapes; then median times beside the bound, the plain version and a
-   one-call PyTorch yardstick where one exists;
+   (exact kNN: the fused search's streaming tier at Q <= 8, its tensor
+   tier at Q = 64 with a lower-limb case, k up to 256 and K1 + select
+   above, the IVF probe's shape), K5 ivf_assign and the K4 k-means update
+   at the training's shapes; then median times (by events and queued)
+   beside the bound, the plain version and a one-call PyTorch yardstick
+   where one exists;
 3. the MTREE main path through Datastore.execute: an exact index over a
    seeded clustered corpus, ingested with INSERT, then sequential and
    concurrent `<|10|>` queries; every query must take `exact-device`, the
@@ -24,8 +27,8 @@ Phases, one JSON line each (or more):
    exact ground truth must be >= 0.99;
 4. the HNSW main path: `DEFINE INDEX … HNSW … EFC 64` over the same corpus,
    `<|10,64|>` queries; the first after ingest serves exactly while the
-   quantizer trains (K4, K5), every timed query takes `ivf` (K1+K2 probe,
-   K3 rerank), launch counts equal the dispatched tiles, device recall@10
+   quantizer trains (K4, K5), every timed query takes `ivf` (K2 probe, K3
+   rerank), launch counts equal the dispatched tiles, device recall@10
    lies within 0.01 of the host twin's (IvfState.search_host); then K3
    against its plain version and its times, on the trained state;
 5. the graph kernels K6 graph_chain, K7 graph_csc_count and K8
@@ -70,7 +73,7 @@ Phases, one JSON line each (or more):
    Datastore.mesh() returning the 8-shard mesh, nothing re-ingested: the
    same 88 queries must all take `exact-sharded` (recall@10 >= 0.99) and
    `ivf-sharded` (no retraining), return the single-device answers up to
-   ties, launch (K1 + K2 or K3's rerank) x 8 shards + one merge a tile,
+   ties, launch (K2 or K3's rerank) x 8 shards + one merge a tile,
    and hold no second corpus; `mesh_kernels`: K11 and K12 (on a 4 x 2
    mesh) on the MTREE mirror's shards, K13 on the HNSW state, K14 and K15
    on config 1's 3-hop BFS, each against its plain version (K11 also
@@ -103,6 +106,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, outside/inside ten
 # the CPU tests' tolerance: f32 sums in another order than the plain
 # version's (both sides upcast a bf16 corpus to f32 first)
 TOL = dict(rtol=1e-5, atol=1e-4)
+PROBE_K = 6  # the IVF probe's k: default_nprobe(1024 lists, ef 64)
 
 
 def emit(phase: str, **kv) -> None:
@@ -253,7 +257,8 @@ def phase_environment(torch):
     emit(
         "environment", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
         torch=torch.__version__, cuda=torch.version.cuda,
-        build_seconds=_cuda.build_seconds, load_seconds=load_s,
+        build_seconds=_cuda.build_seconds, build_source_seconds=_cuda.build_source_seconds,
+        load_seconds=load_s,
         ptxas_register_lines=len(regs),
         max_registers=max((int(l.split("Used ")[1].split()[0]) for l in regs), default=None),
     )
@@ -306,39 +311,83 @@ def phase_kernels(torch, dim: int, big_n: int):
                     k1_err = max(k1_err, err)
 
     k2_err = 0.0
+
+    def k2_check(q, x, mask, metric, k, **label):
+        got_d, got_i = D.knn_search(q, x, mask, metric, k)
+        torch.cuda.synchronize()
+        want_d, want_i = D.knn_search_plain(q, x, mask, metric, k)
+        fin = torch.isfinite(want_d)
+        err = float((got_d - want_d)[fin].abs().max()) if bool(fin.any()) else 0.0
+        d_ok = bool(torch.allclose(got_d, want_d, **TOL)) and got_i.dtype == torch.int32
+        id_ok = ids_match_up_to_ties(
+            got_d.cpu().numpy(), got_i.cpu().numpy(),
+            want_d.cpu().numpy(), want_i.cpu().numpy(),
+        )
+        emit("k2_check", q=q.shape[0], n=x.shape[0], d=x.shape[1], k=k, metric=metric,
+             corpus=str(x.dtype).split(".")[-1], max_abs_err=err,
+             ids_equal=bool(torch.equal(got_i, want_i)), ids_ok=id_ok, ok=d_ok, **label)
+        require(d_ok and id_ok, f"K2 {metric} Q={q.shape[0]} N={x.shape[0]} k={k} {label} "
+                "disagrees with its plain version")
+        return err, got_i
+
+    # the streaming tier (Q <= 8) and the tensor tier (Q = 64, the dispatch
+    # tile above 8); k = 256 is the fused search's largest, 257 takes K1
+    # then knn_select, 5000 the one-block select
     for n in (4096, big_n):
         x = torch.randn(n, dim, generator=g).to(dev).to(torch.bfloat16)
         mask = torch.rand(n, generator=g).to(dev) > 0.05  # ~5% dead rows
         for nq in (1, 8, 64):
             q = torch.randn(nq, dim, generator=g).to(dev)
-            for k in (1, 10, 100, 5000):
-                k = min(k, n)
-                got_d, got_i = D.knn_search(q, x, mask, "euclidean", k)
-                torch.cuda.synchronize()
-                want_d, want_i = D.knn_search_plain(q, x, mask, "euclidean", k)
-                fin = torch.isfinite(want_d)
-                err = float((got_d - want_d)[fin].abs().max()) if bool(fin.any()) else 0.0
-                d_ok = bool(torch.allclose(got_d, want_d, **TOL)) and got_i.dtype == torch.int32
-                id_ok = ids_match_up_to_ties(
-                    got_d.cpu().numpy(), got_i.cpu().numpy(),
-                    want_d.cpu().numpy(), want_i.cpu().numpy(),
-                )
-                emit("k2_check", q=nq, n=n, d=dim, k=k, max_abs_err=err,
-                     ids_equal=bool(torch.equal(got_i, want_i)), ids_ok=id_ok, ok=d_ok)
-                require(d_ok and id_ok, f"K2 Q={nq} N={n} k={k} disagrees with its plain version")
-                k2_err = max(k2_err, err)
+            for k in (1, 10, 100, 256, 257, 5000):
+                k2_err = max(k2_err, k2_check(q, x, mask, "euclidean", min(k, n))[0])
+            if nq > 1:
+                k2_err = max(k2_err, k2_check(q, x, mask, "cosine", 10)[0])
+        del x
+    # the tensor tier's lower limbs: 64 queries whose nearest row only query
+    # limb 1 or limb 2 tells apart (row 2g + 1 for query g); the plain
+    # version on queries cut to one or to two limbs is the control: it must
+    # miss that row
+    q, x = knn_lower_limb_case(torch, dev, 64, dim)
+    ones = torch.ones(x.shape[0], dtype=torch.bool, device=dev)
+    near_rows = 2 * torch.arange(64) + 1
+    cut = limb_split(torch, q)
+    d_full = D.pairwise_distance_plain(q, x, "euclidean")
+    for k in (1, 2):
+        err, ids = k2_check(q, x, ones, "euclidean", k, case="lower_limbs")
+        near = bool(torch.equal(ids[:, 0].long().cpu(), near_rows))
+        want_d, want_i = D.knn_search_plain(q, x, ones, "euclidean", k)
+        controls = {}
+        for name, qc in (("one", cut[0]), ("two", cut[0] + cut[1])):
+            ci = D.knn_search_plain(qc, x, ones, "euclidean", k)[1]
+            cd = d_full.gather(1, ci.long())  # the picks' distances to the f32 queries
+            controls[f"{name}_limb_control_near"] = bool(
+                torch.equal(ci[:, 0].long().cpu(), near_rows))
+            controls[f"{name}_limb_control_ids_ok"] = ids_match_up_to_ties(
+                cd.cpu().numpy(), ci.cpu().numpy(), want_d.cpu().numpy(), want_i.cpu().numpy())
+        emit("k2_lower_limbs", k=k, nearest_is_near=near, **controls)
+        require(near, f"K2's tensor tier missed a lower-limb nearest row (k={k})")
+        require(not controls["one_limb_control_near"] and not controls["two_limb_control_near"],
+                "the K2 lower-limb case does not tell a one- or two-limb product from the f32 one")
+        k2_err = max(k2_err, err)
+    # the IVF probe's shape: one query against 1,024 f32 centroids, k = nprobe
+    cents = torch.randn(1024, dim, generator=g).to(dev)
+    q = torch.randn(1, dim, generator=g).to(dev)
+    probe_ok = torch.ones(1024, dtype=torch.bool, device=dev)
+    k2_err = max(k2_err, k2_check(q, cents, probe_ok, "euclidean", PROBE_K, case="probe")[0])
     # tie order: a corpus of identical rows makes every distance tie, and
     # the dead rows come back as +inf, in index order — once with k = N
-    # (one block a query) and once over a corpus the select splits in chunks
-    for n, k in ((3000, 3000), (200_000, 100)):
-        x = torch.zeros(n, 8, device=dev)
-        q = torch.zeros(2, 8, device=dev)
+    # (K1, then one select block a query), and over many blocks' ranges in
+    # the fused search's streaming and tensor tiers
+    for n, k, nq, dt in ((3000, 3000, 2, torch.float32), (200_000, 100, 2, torch.float32),
+                         (200_000, 100, 64, torch.bfloat16)):
+        x = torch.zeros(n, 8, device=dev, dtype=dt)
+        q = torch.zeros(nq, 8, device=dev)
         mask = torch.ones(n, dtype=torch.bool, device=dev)
         mask[::7] = False
         got = D.knn_search(q, x, mask, "euclidean", k)
         want = D.knn_search_plain(q, x, mask, "euclidean", k)
         exact = bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
-        emit("k2_ties", n=n, k=k, exact=exact)
+        emit("k2_ties", n=n, k=k, q=nq, corpus=str(dt).split(".")[-1], exact=exact)
         require(exact, f"K2 tie order / masked rows differ from the plain version (N={n}, k={k})")
     return k1_err, k2_err
 
@@ -346,7 +395,8 @@ def phase_kernels(torch, dim: int, big_n: int):
 def phase_timing(torch, dim: int, n: int, k: int):
     """Times at the main path's launch shapes: Q in {1, 8, 64} queries (the
     dispatch tiles) against a bf16 corpus of N rows (the mirror's upload
-    type on CUDA)."""
+    type on CUDA), by an event pair and queued; then K2 at the IVF probe's
+    shape (one query, 1,024 f32 centroids, k = PROBE_K)."""
     from surrealdb_tpu_torch.ops import distances as D
 
     dev = torch.device("cuda", 0)
@@ -354,29 +404,37 @@ def phase_timing(torch, dim: int, n: int, k: int):
     x = torch.randn(n, dim, generator=g).to(dev).to(torch.bfloat16)
     xf = x.float()  # the yardstick's input: cdist takes one dtype
     mask = torch.ones(n, dtype=torch.bool, device=dev)
+
+    def timed(fn, plain, library, nbytes, flops):
+        bound, by = bound_ms(nbytes, flops, "bfloat16")
+        return dict(ms=median_ms(fn), queued_ms=queued_device_ms(torch, fn),
+                    plain_ms=median_ms(plain, iters=5), library_ms=median_ms(library),
+                    bound_ms=bound, bound_by=by)
+
     out = {}
     for nq in (1, 8, 64):
         q = torch.randn(nq, dim, generator=g).to(dev)
         in_bytes = nq * dim * 4 + n * dim * 2
         flops = 2.0 * nq * n * dim
-        k1_bound, k1_by = bound_ms(in_bytes + nq * n * 4, flops, "bfloat16")
-        k2_bound, k2_by = bound_ms(in_bytes + n + nq * k * 8, flops, "bfloat16")
         out[nq] = {
-            "knn_pairwise": dict(
-                ms=median_ms(lambda: D.pairwise_distance(q, x, "euclidean")),
-                plain_ms=median_ms(lambda: D.pairwise_distance_plain(q, x, "euclidean"), iters=5),
-                library_ms=median_ms(lambda: torch.cdist(q, xf)),
-                bound_ms=k1_bound, bound_by=k1_by,
-            ),
-            "knn_select": dict(
-                ms=median_ms(lambda: D.knn_search(q, x, mask, "euclidean", k)),
-                plain_ms=median_ms(lambda: D.knn_search_plain(q, x, mask, "euclidean", k), iters=5),
-                library_ms=median_ms(lambda: torch.topk(torch.cdist(q, xf), k, largest=False)),
-                bound_ms=k2_bound, bound_by=k2_by,
-            ),
+            "knn_pairwise": timed(lambda: D.pairwise_distance(q, x, "euclidean"),
+                                  lambda: D.pairwise_distance_plain(q, x, "euclidean"),
+                                  lambda: torch.cdist(q, xf), in_bytes + nq * n * 4, flops),
+            "knn_select": timed(lambda: D.knn_search(q, x, mask, "euclidean", k),
+                                lambda: D.knn_search_plain(q, x, mask, "euclidean", k),
+                                lambda: torch.topk(torch.cdist(q, xf), k, largest=False),
+                                in_bytes + n + nq * k * 8, flops),
         }
         emit("timing", q=nq, n=n, d=dim, k=k, corpus="bfloat16", **out[nq])
     del x, xf
+    cents = torch.randn(1024, dim, generator=g).to(dev)
+    q = torch.randn(1, dim, generator=g).to(dev)
+    ok = torch.ones(1024, dtype=torch.bool, device=dev)
+    out["probe"] = timed(lambda: D.knn_search(q, cents, ok, "euclidean", PROBE_K),
+                         lambda: D.knn_search_plain(q, cents, ok, "euclidean", PROBE_K),
+                         lambda: torch.topk(torch.cdist(q, cents), PROBE_K, largest=False),
+                         dim * 4 + 1024 * dim * 4 + 1024 + PROBE_K * 8, 2.0 * 1024 * dim)
+    emit("timing_probe", q=1, n=1024, d=dim, k=PROBE_K, corpus="float32", **out["probe"])
     torch.cuda.empty_cache()
     return out
 
@@ -421,6 +479,33 @@ def lower_limb_case(torch, dev, groups: int, dim: int, seed: int = 5):
     cents = np.stack([far, near], 1).reshape(2 * groups, dim).astype(np.float32)
     x = torch.from_numpy((v + 1).astype(np.float32)).to(dev).to(torch.bfloat16)
     return x, torch.from_numpy(cents).to(dev)
+
+
+def knn_lower_limb_case(torch, dev, groups: int, dim: int, seed: int = 6):
+    """K2's tensor tier, lower limbs of the f32 queries: query g's nearest
+    bf16 row (2g + 1, b) is told from row 2g (a) only by limb 1 (even
+    groups) or only by limb 2 (odd groups) of the kernel's truncating
+    split. a and b lie at m -+ 4w (w = +-1 by alternating column), the
+    query at m + r1 + r2 with limbs exactly m, r1, r2, so b is nearer by 16
+    sum(w (r1 + r2)) in squared distance: limb-1 groups take r2 = 0 and a
+    larger r1 where w = 1, limb-2 groups equal r1 in a column pair and a
+    larger r2 where w = 1. m is one column pattern plus g / 16 (bf16, below
+    10.5, rows below 14.5: 1/16 steps are exact), so other groups' rows are
+    farther by at least D / 256. A product without the deciding limb sees a
+    tie (a, the lower index, first) or a nearer a."""
+    rng = np.random.default_rng(seed)
+    m = 4 + rng.integers(0, 40, (1, dim)) / 16 + (np.arange(groups) / 16)[:, None]  # < 10.5
+    w = np.where(np.arange(dim) % 2 == 0, 1.0, -1.0)[None, :]
+    odd = (np.arange(groups) % 2 == 1)[:, None]
+    j = rng.integers(0, 64, (groups, dim // 2)).repeat(2, axis=1)
+    j1 = np.where(odd, j, j + np.where(w > 0, 64, 0))
+    r1 = (128 + j1) / 8192  # 8 bits in [2^-6, 2^-5): limb 1
+    r2 = np.where(odd, np.where(w > 0, rng.integers(112, 128, (groups, dim)),
+                                rng.integers(64, 80, (groups, dim))), 0) / 2 ** 20  # limb 2
+    q = (m + r1 + r2).astype(np.float32)
+    rows = np.stack([m - 4 * w, m + 4 * w], 1).reshape(2 * groups, dim)  # bf16: 1/16 steps
+    return (torch.from_numpy(q).to(dev),
+            torch.from_numpy(rows.astype(np.float32)).to(dev).to(torch.bfloat16))
 
 
 def phase_ivf_kernels(torch, dim: int, cap: int, n_rows: int = 65_536, nlists: int = 1024):
@@ -1018,10 +1103,11 @@ def phase_main_path(torch, device: str, corpus, queries, truth, batch: int,
             f"strategies {delta}, expected {n_queries} exact-device",
         )
         if device == "cuda":
-            # every dispatched tile is one knn_search call: one K1 launch and
-            # one selection (every tile shape was warmed before the counts)
+            # every dispatched tile is one fused knn_search call, counted
+            # under knn_select, and no K1 launch (every tile shape was
+            # warmed before the counts)
             want = {c.name: 0 for c in kernel_counters()}
-            want.update(knn_pairwise=tiles, knn_select=tiles)
+            want.update(knn_select=tiles)
             require(launches == want, f"launches {launches} for {tiles} dispatched tiles")
         recall = recall_of(results, truth, k)
         require(recall >= 0.99, f"recall@{k} {recall} < 0.99")
@@ -1053,7 +1139,7 @@ def phase_main_path_hnsw(torch, device: str, corpus, queries, truth, batch: int,
     """HNSW: `DEFINE INDEX … HNSW … EFC 64` queried with `<|10,64|>`. The
     first query after ingest serves exactly while the quantizer trains in
     the background (K4 k-means, K5 full assignment); every timed query then
-    takes the `ivf` strategy (K1+K2 probe, K3 gather + select + mapping).
+    takes the `ivf` strategy (K2 probe, K3 gather + select + mapping).
     Device recall@10 must lie within 0.01 of the host twin's
     (IvfState.search_host, numpy f32) on the same quantizer and queries.
     `then(ds, results, out)`, when given, runs last on the open Datastore
@@ -1122,10 +1208,10 @@ def phase_main_path_hnsw(torch, device: str, corpus, queries, truth, batch: int,
                 f"strategies {delta}, expected {n_queries} ivf")
         n_assign = 8 + -(-n_rows // 65_536)  # 8 k-means steps + the full assignment's tiles
         if device == "cuda":
-            # each dispatched tile: one probe (K1 + K2 select), the gather,
-            # a second select and the slot mapping; no training launch
+            # each dispatched tile: one probe (the fused K2), the gather, a
+            # second select and the slot mapping; no training launch
             want = {c.name: 0 for c in kernel_counters()}
-            want.update(knn_pairwise=tiles, knn_select=2 * tiles,
+            want.update(knn_select=2 * tiles,
                         ivf_gather_distance=tiles, ivf_map_slots=tiles)
             require(timed == want, f"launches {timed} for {tiles} dispatched tiles")
             require(train_launches["ivf_assign"] == n_assign
@@ -1166,7 +1252,8 @@ def phase_main_path_hnsw(torch, device: str, corpus, queries, truth, batch: int,
             from surrealdb_tpu_torch.idx import ivf as IVF
             from surrealdb_tpu_torch.ops import distances as D
 
-            path = {c.name: out["run_launches"][c.name] for c in D.KERNELS + IVF.KERNELS}
+            # K1 has no caller on the engine's paths (K2 fuses its distances)
+            path = {c.name: out["run_launches"][c.name] for c in (D.SELECT,) + IVF.KERNELS}
             require(all(v > 0 for v in path.values()),
                     f"a kernel of the HNSW path never launched: {path}")
         fresh = make_queries(corpus, 64, 7, noise=CLUSTER_SIGMA)
@@ -2952,7 +3039,7 @@ class MeshPaths:
         t0 = time.perf_counter()
         out, _mesh, matrix = phase_main_path_mesh(
             self.torch, self.device, ds, "mtree", "iemb", MTREE_SQL, "exact-sharded",
-            {"knn_pairwise": MESH_SHARDS, "knn_select": MESH_SHARDS, "mesh_topk_merge": 1},
+            {"knn_select": MESH_SHARDS, "mesh_topk_merge": 1},
             self.queries, results, base_timing_of(base), self.truth, **self.drive)
         require(out["recall_at_10"] >= 0.99, f"exact-sharded recall@10 {out['recall_at_10']}")
         out["seconds"] = time.perf_counter() - t0
@@ -2967,7 +3054,7 @@ class MeshPaths:
         t0 = time.perf_counter()
         out, mesh, matrix = phase_main_path_mesh(
             self.torch, self.device, ds, "hnsw", "iemb", HNSW_SQL, "ivf-sharded",
-            {"knn_pairwise": 1, "knn_select": 1 + MESH_SHARDS,
+            {"knn_select": 1 + MESH_SHARDS,
              "ivf_gather_distance": MESH_SHARDS, "ivf_map_slots": MESH_SHARDS,
              "mesh_topk_merge": 1},
             self.queries, results, base_timing_of(base), self.truth, **self.drive)
@@ -3111,18 +3198,21 @@ def main(argv=None) -> int:
     for name, kern, replaces, err in (
         ("K1 pairwise_distance (knn_pairwise)", "knn_pairwise",
          "surrealdb_tpu/ops/distances.py:41", k1_err),
-        ("K2 knn_search (knn_pairwise + knn_select)", "knn_select",
-         "surrealdb_tpu/ops/distances.py:87", k2_err),
+        ("K2 knn_search (fused knn_search + merge; k > 256: knn_pairwise + knn_select)",
+         "knn_select", "surrealdb_tpu/ops/distances.py:87", k2_err),
     ):
+        extra = {"by_q": {str(nq): timing[nq][kern] for nq in (8, 64)}}
+        if kern == "knn_select":
+            extra["by_variant"] = {"ivf probe (q 1, n 1024 f32, k 6)": timing["probe"]}
         kernels.append(kernel_entry(
             name, kern, "surrealdb_tpu_torch/csrc/knn.cu", replaces, main["launches"][kern],
-            err, timing[1][kern], knn_shape,
-            {"by_q": {str(nq): timing[nq][kern] for nq in (8, 64)}},
+            err, timing[1][kern], knn_shape, extra,
         ))
     run_launches = hnsw["run_launches"]
     k3 = hnsw["k3_timing"]
     kernels.append(kernel_entry(
-        "K3 _ivf_search (knn_search probe + ivf_gather_distance + knn_select + ivf_map_slots)",
+        "K3 _ivf_search (fused knn_search probe + ivf_gather_distance + knn_select + "
+        "ivf_map_slots)",
         "ivf_gather_distance", "surrealdb_tpu_torch/csrc/ivf.cu",
         "surrealdb_tpu/idx/ivf.py:693", run_launches["ivf_gather_distance"], hnsw["k3_err"],
         {kk: v for kk, v in k3[1].items() if kk != "candidate_rows"},
@@ -3205,7 +3295,7 @@ def main(argv=None) -> int:
     ka, kb = mesh_a["kernels"], mesh_b["kernels"]
     mesh_src = "surrealdb_tpu_torch/csrc/mesh.cu"
     kernels.append(kernel_entry(
-        "K11 sharded_knn (per shard knn_pairwise + knn_select, then mesh_topk_merge)",
+        "K11 sharded_knn (per shard the fused knn_search, then mesh_topk_merge)",
         "mesh_topk_merge", mesh_src, "surrealdb_tpu/parallel/mesh.py:68",
         mesh_a["launches"]["mesh_topk_merge"], ka["max_abs_err"]["K11"],
         {k: v for k, v in ka["timing"]["K11"][1].items() if k != "single_device_k2_ms"},

@@ -63,6 +63,12 @@ template <class T> T __ldg(const T* p) { return *p; }
 inline unsigned atomicAdd(unsigned* p, unsigned v) { return std::atomic_ref<unsigned>(*p).fetch_add(v); }
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
 inline float atomicAdd(float* p, float v) { return std::atomic_ref<float>(*p).fetch_add(v); }
+inline unsigned long long atomicMin(unsigned long long* p, unsigned long long v) {
+  std::atomic_ref<unsigned long long> a(*p);
+  unsigned long long o = a.load();
+  while (v < o && !a.compare_exchange_weak(o, v)) {}
+  return o;
+}
 
 struct EmuBlock {
   std::unique_ptr<std::barrier<>> block_bar;

@@ -17,13 +17,15 @@
 // - skinny (N = 1, bench config 5's 768 -> 1; N = 2 over rows of 1 KB or
 //   more; any N <= 16 whose x is not 16-byte aligned or whose W is above
 //   NR_W_MAX): the read of x bounds it (2^20 x 768 bf16 = 1.61 GB, 0.48 ms
-//   at 3.35 TB/s). A warp owns SK_ROWS rows at a time; each lane reads x
-//   with 16-byte loads (scalar loads where K or the base is not 16-byte
-//   aligned), keeps NB partial sums a row and the warp adds them with a
-//   butterfly of shuffles. W sits in shared memory, column-major and, on
-//   the vector path, permuted so that the 32 lanes hit 32 banks; a K above
-//   96 KB of W is walked in chunks. At N = 1 the butterfly is 5 shuffles a
-//   row against 24 values a lane at K = 768: the path is right there.
+//   at 3.35 TB/s). The row-streaming core it shares with the exact kNN
+//   kernels (rowstream.cuh): persistent blocks, one an SM, each on its own
+//   contiguous range of rows (no tail of row tiles), a thread owns 2 rows,
+//   x arrives by 16-byte cp.async through a 4-stage ring (plain loads where
+//   K or the base is not 16-byte aligned), W's columns sit in shared memory
+//   (in column chunks where larger than the ring leaves) and each W value
+//   read is a broadcast that serves both rows. The sums are f32 FMA chains
+//   over k. On the H100, 2 rows x 3 stages and 1 row x 4 stages at two
+//   blocks an SM came within 1% of this setting; 4 rows x 2 stages lost 18%.
 // - narrow (2 <= N <= 16, x 16-byte aligned, W [K, NB] within NR_W_MAX):
 //   the skinny path's butterfly (5 shuffles a column a row, N padded to a
 //   power of two) made it shuffle-bound. Here a thread owns R rows and
@@ -91,10 +93,10 @@
 // saturates to 0 and 1 at large |x| without a NaN.
 //
 // The helpers that need the card (cp.async, mma.sync) and the limb split
-// are in mma.cuh, shared with ivf.cu. ML_FORCE_PATH (a -D flag; 0 by default,
-// the rule) forces N <= 16 onto the skinny path (1), or onto the narrow
-// path where it runs with R = 2 (2) or, at NB >= 8, R = 4 (3), to time
-// the designs against each other.
+// are in mma.cuh, shared with ivf.cu and knn.cu. ML_FORCE_PATH (a -D flag;
+// 0 by default, the rule) forces N <= 16 onto the skinny path (1), or onto
+// the narrow path where it runs with R = 2 (2) or, at NB >= 8, R = 4 (3), to
+// time the designs against each other.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -104,6 +106,7 @@
 
 #include "launch.cuh"
 #include "mma.cuh"
+#include "rowstream.cuh"
 
 #ifndef ML_FORCE_PATH
 #define ML_FORCE_PATH 0
@@ -153,96 +156,88 @@ __device__ __noinline__ float exact_dot(const T* __restrict__ x, const float* __
 }
 
 // ------------------------------------------------------------------ skinny
-constexpr int SK_THREADS = 256;
-constexpr int SK_WARPS = SK_THREADS / 32;
-constexpr int SK_ROWS = 4;                     // rows a warp a pass
-constexpr int SK_TILE = SK_WARPS * SK_ROWS;    // rows a block a pass
-constexpr int SK_SMEM = 96 * 1024;             // bytes of W staged a chunk
-constexpr int SK_GRID = 2048;                  // blocks at most (grid-stride over row tiles)
+constexpr int SK_R = 2;       // rows a thread
+constexpr int SK_STAGES = 4;  // ring stages
+using SkTile = RowTile<SK_R, SK_STAGES>;
+// shared memory for W's staged columns: 96 KB, or what the ring leaves
+constexpr int SK_SMEM_CAP = 232448 - 1024;  // one block an SM, less the statics
+constexpr int SK_W_BYTES =
+    SK_SMEM_CAP - SkTile::RING < 96 * 1024 ? SK_SMEM_CAP - SkTile::RING : 96 * 1024;
+static_assert(SK_W_BYTES >= 8 * 1024, "room for W");
 
-// W [K, N] chunk [c0, c0 + kc) into ws [NB][kc], zero-padded past K and N.
-// On the vector path (V > 1) value k of a group of G = 32 V sits at
-// (k % V) * 32 + (k / V) % 32, so that lane l's j-th value is at j*32 + l.
-template <int NB, int V>
-__device__ void stage_w(const float* __restrict__ w, int K, int N, int c0, int kc, float* ws) {
-  constexpr int G = 32 * V;
-  for (int e = threadIdx.x; e < NB * kc; e += SK_THREADS) {
-    const int n = e / kc, kl = e % kc, k = c0 + kl;
-    const float v = (n < N && k < K) ? w[(long long)k * N + n] : 0.f;
-    ws[n * kc + (kl / G) * G + (kl % V) * 32 + (kl / V) % 32] = v;
-  }
-}
+// out[row] = act(x[row] . W[:, n] + b[n]) for the NB (>= N) columns of W
+// staged as f32 [NB][wp] (zero past N and K): an f32 FMA chain over k a
+// (row, column), bias and activation at the row's end (rowstream.cuh)
+template <typename T, int NB>
+struct LinearBody {
+  static constexpr int E = 16 / (int)sizeof(T);
+  const float* w;
+  const float* b;
+  int K, N, act;
+  long long re;
+  float* out;
+  float* ws;
+  int wp;
+  float acc[SK_R][NB];
 
-template <typename T, int NB, int V>
-__global__ void __launch_bounds__(SK_THREADS)
-skinny_kernel(const T* __restrict__ x, const float* __restrict__ w,
-              const float* __restrict__ b, long long M, int K, int N, int act, int kc,
-              float* __restrict__ out) {
-  extern __shared__ float ws[];  // [NB][kc]
-  constexpr int G = 32 * V;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nchunks = (K + kc - 1) / kc;
-  if (nchunks == 1) {
-    stage_w<NB, V>(w, K, N, 0, kc, ws);
-    __syncthreads();
-  }
-  for (long long t0 = (long long)blockIdx.x * SK_TILE; t0 < M;
-       t0 += (long long)gridDim.x * SK_TILE) {
-    const long long r0 = t0 + warp * SK_ROWS;
-    float acc[SK_ROWS][NB];
-#pragma unroll
-    for (int i = 0; i < SK_ROWS; ++i)
-#pragma unroll
-      for (int n = 0; n < NB; ++n) acc[i][n] = 0.f;
-    for (int c0 = 0; c0 < K; c0 += kc) {
-      if (nchunks > 1) {
-        __syncthreads();  // the previous chunk is no longer read
-        stage_w<NB, V>(w, K, N, c0, kc, ws);
-        __syncthreads();
-      }
-      const int klen = min(kc, K - c0);
-      for (int g0 = 0; g0 < klen; g0 += G) {
-        const int k = c0 + g0 + lane * V;  // this lane's first value
-#pragma unroll
-        for (int i = 0; i < SK_ROWS; ++i) {
-          const long long row = r0 + i;
-          float xv[V];
-          if (row < M && k < K) {  // vector path: K % V == 0, so all V are in range
-            const T* src = x + row * K + k;
-            if constexpr (V == 1) {
-              xv[0] = ml_f(src[0]);
-            } else {
-              const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
-              const T* t = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-              for (int j = 0; j < V; ++j) xv[j] = ml_f(t[j]);
-            }
-          } else {
-#pragma unroll
-            for (int j = 0; j < V; ++j) xv[j] = 0.f;
-          }
-#pragma unroll
-          for (int j = 0; j < V; ++j)
-#pragma unroll
-            for (int n = 0; n < NB; ++n)
-              acc[i][n] = fmaf(xv[j], ws[n * kc + g0 + j * 32 + lane], acc[i][n]);
-        }
-      }
+  __device__ void stage(int c0, int clen) {
+    const int wd = (clen + E - 1) / E * E;  // zero past K: the pieces' padding
+    for (int e = threadIdx.x; e < NB * wd; e += RS_THREADS) {
+      const int n = e / wd, c = e % wd;
+      ws[n * wp + c] = (n < N && c < clen) ? w[(long long)(c0 + c) * N + n] : 0.f;
     }
+  }
+  __device__ void start(int i, long long) {
 #pragma unroll
-    for (int i = 0; i < SK_ROWS; ++i) {
-      float mine = 0.f;  // lane n keeps column n's sum
+    for (int n = 0; n < NB; ++n) acc[i][n] = 0.f;
+  }
+  // past K both x (staged zero) and W are zero: n needs no guard
+  // W read as float4 broadcasts: 4 columns of one output a read
+  __device__ __forceinline__ void step(const float (&v)[SK_R][E], int, int lc) {
+#pragma unroll
+    for (int e = 0; e < E; e += 4)
 #pragma unroll
       for (int n = 0; n < NB; ++n) {
-        float v = acc[i][n];
+        const float4 w4 = *reinterpret_cast<const float4*>(ws + n * wp + lc + e);
+        const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
-        if (n == lane) mine = v;
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int i = 0; i < SK_R; ++i) acc[i][n] = fmaf(v[i][e + c], wv[c], acc[i][n]);
       }
-      const long long row = r0 + i;
-      if (row < M && lane < N) out[row * N + lane] = ml_act(mine + b[lane], act);
+  }
+  __device__ void finish(long long row0) {
+#pragma unroll
+    for (int i = 0; i < SK_R; ++i) {
+      const long long row = row0 + i * RS_THREADS + threadIdx.x;
+      if (row >= re) continue;
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+        if (n < N) out[row * N + n] = ml_act(acc[i][n] + b[n], act);
     }
   }
+};
+
+// rows [blockIdx.x * per, + per) of x [M, K]; W staged kchunk columns at a
+// time (>= K: once)
+template <typename T, int NB>
+__global__ void __launch_bounds__(RS_THREADS, 1)
+skinny_kernel(const T* __restrict__ x, const float* __restrict__ w,
+              const float* __restrict__ b, long long M, int K, int N, int act, long long per,
+              int vec, int kchunk, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char sk_smem[];  // ring, then W
+  const long long rb = (long long)blockIdx.x * per, re = min(M, rb + per);
+  LinearBody<T, NB> body;
+  body.w = w;
+  body.b = b;
+  body.K = K;
+  body.N = N;
+  body.act = act;
+  body.re = re;
+  body.out = out;
+  body.ws = reinterpret_cast<float*>(sk_smem + SkTile::RING);
+  body.wp = (min(kchunk, K) + 15) / 16 * 16;
+  row_stream<T, SK_R, SK_STAGES>(x, rb, re, K, vec, kchunk, sk_smem, body);
 }
 
 // ------------------------------------------------------------------ narrow
@@ -727,21 +722,16 @@ softmax_long_kernel(const float* h, long long M, int N, float* out) {
 template <typename T, int NB>
 int launch_skinny(const T* x, const float* w, const float* b, long long M, int K, int N,
                   int act, bool vec, float* out, cudaStream_t s) {
-  constexpr int VV = 16 / (int)sizeof(T);
-  static std::atomic<unsigned> seen_vec{0}, seen_scalar{0};
-  const int g = vec ? 32 * VV : 32;
-  const int fit = (SK_SMEM / (int)(sizeof(float) * NB)) / g * g;
-  const int kc = min((K + g - 1) / g * g, fit);
-  const size_t smem = (size_t)NB * kc * sizeof(float);
-  const long long tiles = (M + SK_TILE - 1) / SK_TILE;
-  const unsigned grid = (unsigned)(tiles < SK_GRID ? tiles : SK_GRID);
-  if (vec) {
-    if (int err = opt_in_smem(skinny_kernel<T, NB, VV>, SK_SMEM, seen_vec)) return err;
-    skinny_kernel<T, NB, VV><<<grid, SK_THREADS, smem, s>>>(x, w, b, M, K, N, act, kc, out);
-  } else {
-    if (int err = opt_in_smem(skinny_kernel<T, NB, 1>, SK_SMEM, seen_scalar)) return err;
-    skinny_kernel<T, NB, 1><<<grid, SK_THREADS, smem, s>>>(x, w, b, M, K, N, act, kc, out);
-  }
+  constexpr int KC = RS_CHUNK / (int)sizeof(T);
+  static std::atomic<unsigned> seen{0};
+  const int fit = SK_W_BYTES / (NB * 4) / KC * KC;
+  const int kchunk = (K + 15) / 16 * 16 <= fit ? K : fit;
+  const int wp = (min(kchunk, K) + 15) / 16 * 16;
+  if (int err = opt_in_smem(skinny_kernel<T, NB>, SkTile::RING + SK_W_BYTES, seen)) return err;
+  const long long grid = min((long long)sm_count(), (M + 31) / 32);
+  const long long per = (M + grid - 1) / grid;
+  skinny_kernel<T, NB><<<(unsigned)grid, RS_THREADS, SkTile::RING + NB * wp * 4, s>>>(
+      x, w, b, M, K, N, act, per, (int)vec, kchunk, out);
   return (int)cudaGetLastError();
 }
 

@@ -287,7 +287,7 @@ def _ivf_search(q, cents, list_rows, list_mask, x, slot_ok, metric, probe_metric
 
 def _ivf_probe(q, cents, probe_metric, nprobe, probe_ok=None):
     """K3's probe: the nprobe nearest centroids of each query, [Q, nprobe]
-    int32 (K1 + K2 over the centroids on the card)."""
+    int32 (the fused K2 over the centroids on the card)."""
     if not _on_card(q, cents):
         return ivf_probe_plain(q, cents, probe_metric, nprobe)
     if probe_ok is None:

@@ -36,12 +36,23 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None  # wall time of this process's build, None if cached
 build_log: str = ""  # nvcc's output (ptxas register / shared-memory report)
+build_source_seconds: dict = {}  # source -> wall seconds of its nvcc -c, side by side
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
     # name: (restype, argtypes)
     "knn_pairwise": (ctypes.c_int, [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                                    ctypes.c_int, ctypes.c_int, ctypes.c_float, _P, _P, _P, _P]),
+                                    ctypes.c_int, ctypes.c_int, ctypes.c_float, _P, _P, _P,
+                                    ctypes.c_longlong, _P, _P]),
+    "knn_pairwise_scratch_bytes": (ctypes.c_longlong, [ctypes.c_int, ctypes.c_longlong,
+                                                       ctypes.c_int, ctypes.c_int, ctypes.c_int]),
+    "knn_search": (ctypes.c_int, [_P, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong,
+                                  ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, _P, _P,
+                                  _P, ctypes.c_longlong, _P, _P, _P]),
+    "knn_search_scratch_bytes": (ctypes.c_longlong, [ctypes.c_int, ctypes.c_longlong,
+                                                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                                     ctypes.c_int]),
+    "knn_search_max_k": (ctypes.c_int, []),
     "knn_row_mean": (ctypes.c_int, [_P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P, _P]),
     "knn_select": (ctypes.c_int, [_P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                                   _P, _P, _P, _P, _P, ctypes.c_longlong, _P]),
@@ -113,27 +124,37 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built on this machine")
 
 
-def _run_all(cmds, out_dir: str):
+def _run_all(cmds, out_dir: str, seconds=None):
     """Run the commands side by side; (returncode, output) of each. Output
-    goes to files, so a chatty process never blocks on a full pipe."""
+    goes to files, so a chatty process never blocks on a full pipe. With a
+    list for seconds, each command's wall time is appended to it."""
     import tempfile
+    import time
 
     logs = [tempfile.TemporaryFile("w+", dir=out_dir) for _ in cmds]
+    t0 = time.perf_counter()
     procs = [
         subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True)
         for cmd, log in zip(cmds, logs)
     ]
+    done = [None] * len(procs)
+    while None in done:
+        for i, p in enumerate(procs):
+            if done[i] is None and p.poll() is not None:
+                done[i] = time.perf_counter() - t0
+        time.sleep(0.05)
+    if seconds is not None:
+        seconds.extend(done)
     out = []
     for p, log in zip(procs, logs):
-        rc = p.wait()
         log.seek(0)
-        out.append((rc, log.read()))
+        out.append((p.returncode, log.read()))
         log.close()
     return out
 
 
 def _build(sources, out_dir: str) -> str:
-    global build_seconds, build_log
+    global build_seconds, build_log, build_source_seconds
     import time
 
     from surrealdb_tpu_torch import compile_log
@@ -151,7 +172,8 @@ def _build(sources, out_dir: str) -> str:
     link_cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
     t0 = time.perf_counter()
     with compile_log.tracked("kernel_build", (os.path.basename(out_dir),)):
-        results = _run_all(compile_cmds, out_dir)
+        secs = []
+        results = _run_all(compile_cmds, out_dir, secs)
         if all(rc == 0 for rc, _ in results):
             results.append(_run_all([link_cmd], out_dir)[0])
     build_log = "".join(out for _, out in results)
@@ -165,6 +187,7 @@ def _build(sources, out_dir: str) -> str:
         raise RuntimeError(f"nvcc failed ({failed}):\n{build_log[-4000:]}")
     os.replace(tmp, so)  # atomic: a concurrent loader sees no half-written library
     build_seconds = time.perf_counter() - t0
+    build_source_seconds = {os.path.basename(c): t for c, t in zip(cus, secs)}
     return so
 
 

@@ -7,14 +7,17 @@ reference are hand-written CUDA kernels here (csrc/knn.cu):
   `knn_pairwise` (plus `knn_row_mean` for pearson);
 - K2 `knn_search` (distances, the [N] mask as +inf, then the k smallest
   per query in (distance, lower index) order, int32 indices as
-  `lax.top_k` returns them) launches `knn_pairwise` into a scratch
-  [Q,N] tensor, then `knn_select` (for k <= 256 over a large corpus, a
-  per-chunk pass and a per-query merge: two launches of one kernel).
+  `lax.top_k` returns them) launches the fused `knn_search` for k up to
+  `knn_search_max_k()` (256): the distance pass keeps a running top-k,
+  so no [Q,N] distances reach device memory, and a merge launch finishes.
+  Above that k (a shape rule) it launches `knn_pairwise` into a scratch
+  [Q,N] tensor, then `knn_select`.
 
 The launch counters count wrapper calls that launched: one per K1 call
 (`knn_pairwise`, with its row-mean pre-pass for pearson) and one per K2
-selection (`knn_select`, one or two launches). `select_min_k` is K2's
-selection alone, which the IVF rerank (idx/ivf.py, K3) uses.
+selection (`knn_select`: the fused search, or the selection after K1).
+`select_min_k` is K2's selection alone, which the IVF rerank (idx/ivf.py,
+K3) uses.
 
 Each wrapper takes tensors on one device. A CUDA tensor goes to the kernel
 (or the wrapper raises); a CPU tensor goes to the plain PyTorch version
@@ -173,6 +176,27 @@ def _check_inputs(q: torch.Tensor, x: torch.Tensor) -> None:
         raise ValueError(f"empty operand: {tuple(q.shape)}, {tuple(x.shape)}")
 
 
+def _row_means(lib, q, x, bf16, stream):
+    """knn_row_mean of the queries and of the corpus (pearson's pre-pass)."""
+    from surrealdb_tpu_torch.ops import _cuda
+
+    nq, dim = q.shape
+    qmean = torch.empty(nq, dtype=torch.float32, device=q.device)
+    xmean = torch.empty(x.shape[0], dtype=torch.float32, device=q.device)
+    _cuda.check(lib.knn_row_mean(q.data_ptr(), 0, nq, dim, qmean.data_ptr(), stream), "knn_row_mean")
+    _cuda.check(lib.knn_row_mean(x.data_ptr(), bf16, x.shape[0], dim, xmean.data_ptr(), stream),
+                "knn_row_mean")
+    return qmean, xmean
+
+
+def _scratch(nbytes: int, device):
+    return torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _pairwise_cuda(q: torch.Tensor, x: torch.Tensor, metric: str) -> torch.Tensor:
     from surrealdb_tpu_torch.ops import _cuda
 
@@ -182,23 +206,48 @@ def _pairwise_cuda(q: torch.Tensor, x: torch.Tensor, metric: str) -> torch.Tenso
     n = x.shape[0]
     bf16 = int(x.dtype == torch.bfloat16)
     out = torch.empty((nq, n), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(q.device):  # the plan sizes itself on the current card
+        nbytes = lib.knn_pairwise_scratch_bytes(nq, n, dim, bf16, code)
+        scratch = _scratch(nbytes, q.device)
         stream = torch.cuda.current_stream().cuda_stream
         qmean = xmean = None
         if metric == "pearson":
-            qmean = torch.empty(nq, dtype=torch.float32, device=q.device)
-            xmean = torch.empty(n, dtype=torch.float32, device=q.device)
-            _cuda.check(lib.knn_row_mean(q.data_ptr(), 0, nq, dim, qmean.data_ptr(), stream), "knn_row_mean")
-            _cuda.check(lib.knn_row_mean(x.data_ptr(), bf16, n, dim, xmean.data_ptr(), stream), "knn_row_mean")
+            qmean, xmean = _row_means(lib, q, x, bf16, stream)
         status = lib.knn_pairwise(
-            q.data_ptr(), x.data_ptr(), bf16, nq, n, dim, code, p,
-            None if qmean is None else qmean.data_ptr(),
-            None if xmean is None else xmean.data_ptr(),
-            out.data_ptr(), stream,
+            q.data_ptr(), x.data_ptr(), bf16, nq, n, dim, code, p, _ptr(qmean), _ptr(xmean),
+            _ptr(scratch), nbytes, out.data_ptr(), stream,
         )
         _cuda.check(status, "knn_pairwise")
     PAIRWISE.bump()
     return out
+
+
+def _search_cuda(q: torch.Tensor, x: torch.Tensor, m: torch.Tensor, metric: str, k: int):
+    """The fused K2 launch (k <= knn_search_max_k()); m is a [N] uint8 mask."""
+    from surrealdb_tpu_torch.ops import _cuda
+
+    code, p = _metric_code(metric)
+    lib = _cuda.lib()
+    nq, dim = q.shape
+    n = x.shape[0]
+    bf16 = int(x.dtype == torch.bfloat16)
+    out_d = torch.empty((nq, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=q.device)
+    with torch.cuda.device(q.device):  # the plan sizes itself on the current card
+        nbytes = lib.knn_search_scratch_bytes(nq, n, dim, k, bf16, code)
+        scratch = _scratch(nbytes, q.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        qmean = xmean = None
+        if metric == "pearson":
+            qmean, xmean = _row_means(lib, q, x, bf16, stream)
+        status = lib.knn_search(
+            q.data_ptr(), x.data_ptr(), bf16, m.data_ptr(), nq, n, dim, code, p, k,
+            _ptr(qmean), _ptr(xmean), _ptr(scratch), nbytes, out_d.data_ptr(),
+            out_i.data_ptr(), stream,
+        )
+        _cuda.check(status, "knn_search")
+    SELECT.bump()
+    return out_d, out_i
 
 
 def pairwise_distance(q: torch.Tensor, x: torch.Tensor, metric: str = "euclidean") -> torch.Tensor:
@@ -230,8 +279,12 @@ def knn_search(
         raise ValueError(f"mask must be a bool [{n}] tensor on {q.device}")
     if not 1 <= k <= n:
         raise ValueError(f"k={k} outside 1..{n}")
-    d = _pairwise_cuda(q, x, metric)
-    return _select_cuda(d, mask.contiguous().view(torch.uint8), k)
+    m = mask.contiguous().view(torch.uint8)
+    from surrealdb_tpu_torch.ops import _cuda
+
+    if k <= _cuda.lib().knn_search_max_k():
+        return _search_cuda(q, x, m, metric, k)
+    return _select_cuda(_pairwise_cuda(q, x, metric), m, k)
 
 
 def select_min_k(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -267,9 +320,7 @@ def _select_cuda(d: torch.Tensor, m, k: int) -> Tuple[torch.Tensor, torch.Tensor
         status = lib.knn_select(
             d.data_ptr(), None if m is None else m.data_ptr(), nq, n, k,
             out_d.data_ptr(), out_i.data_ptr(),
-            None if mid_d is None else mid_d.data_ptr(),
-            None if mid_i is None else mid_i.data_ptr(),
-            None if cand is None else cand.data_ptr(), 0 if cand is None else n2,
+            _ptr(mid_d), _ptr(mid_i), _ptr(cand), 0 if cand is None else n2,
             torch.cuda.current_stream().cuda_stream,
         )
         _cuda.check(status, "knn_select")

@@ -2,7 +2,7 @@
 run. The twin of the repository's `__graft_entry__.py`.
 
 `entry(device)` returns the flagship forward step, the fused distance +
-top-k (K1 + K2) behind the `<|k|>` kNN operator, with its inputs.
+top-k (K2) behind the `<|k|>` kNN operator, with its inputs.
 
 `dryrun_multichip(n_devices, device)` runs the "index step" once on tiny
 shapes over a mesh of n_devices shards on `device`: vector-mirror ingest (a

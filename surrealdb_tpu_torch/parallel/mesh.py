@@ -18,7 +18,7 @@ The copies are data movement; the selection and the id arithmetic are
 kernels (csrc/mesh.cu), each with a wrapper, a launch counter and a plain
 PyTorch version here:
 
-- K11 `sharded_knn`: per shard K1 + K2 (ops/distances.py `knn_search` on
+- K11 `sharded_knn`: per shard the fused K2 (ops/distances.py `knn_search` on
   the shard's slab: N = shard_rows, the shard's slice of the mask), then
   `mesh_topk_merge`, which selects k in lax.top_k's order and adds each
   candidate's shard offset to its id;
@@ -26,7 +26,7 @@ PyTorch version here:
   (the reference's |q|^2 + |x|^2 - 2 q.x over the feature slice, psum over
   `model`, sqrt and mask on the last slice), per row shard K2's selection,
   then `mesh_topk_merge`;
-- K13 `sharded_ivf_search`: the probe (K1 + K2 over the replicated
+- K13 `sharded_ivf_search`: the probe (the fused K2 over the replicated
   centroids) once a distinct device, per shard K3's rerank on the shard's
   [C, L] slab (idx/ivf.py `_ivf_rerank`: `ivf_gather_distance`,
   `knn_select`, `ivf_map_slots`), then `mesh_topk_merge` (ids of finite
@@ -513,7 +513,7 @@ def sharded_knn(mesh: Mesh, corpus, mask, queries, k: int, metric: str = "euclid
     corpus: [N, D] sharded (axis, None); mask: [N] bool sharded (axis,);
     queries: [Q, D] f32, replicated. Returns (dists [Q, k] f32, global ids
     [Q, k] int32) on the merge device. Per shard the distances and a local
-    top-kk (K1 + K2 on the shard's slab), then one all-gather of the
+    top-kk (the fused K2 on the shard's slab), then one all-gather of the
     kk-candidate sets and the merge."""
     return _sharded_knn(mesh, corpus, mask, queries, k, metric, axis, D.knn_search, topk_merge)
 
@@ -627,7 +627,7 @@ def _ivf_search_shards(mesh, cents, list_rows, list_mask, corpus, slot_ok, queri
 def _ivf_searcher(mesh: Mesh, k: int, nprobe: int, kk: int, k_out: int, metric: str,
                   probe_metric: str, axis: str, plain: bool = False):
     """The sharded probe + rerank for one (mesh, params), cached as the
-    reference caches its compiled executable: the probe (K1 + K2 over the
+    reference caches its compiled executable: the probe (the fused K2 over the
     centroids) once a distinct device, K3's rerank once a shard, then the
     merge of the finite picks."""
     from surrealdb_tpu_torch.idx import ivf as IVF

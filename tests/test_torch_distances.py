@@ -106,6 +106,26 @@ def test_knn_search_other_metrics_match_reference(metric):
     assert_knn_match(ref_d, ref_i, got_d.numpy(), got_i.numpy())
 
 
+@pytest.mark.parametrize("nq", [1, 8])
+def test_ivf_probe_shape_matches_reference(nq):
+    """The IVF probe's shape: queries against 1,024 f32 centroids of 768
+    columns, k = nprobe (default_nprobe(1024, ef=64) = 6), through the
+    reference's jitted knn_search and pairwise_distance."""
+    from surrealdb_tpu_torch.idx.ivf import default_nprobe
+
+    k = default_nprobe(1024, 64)
+    q, cents = _inputs(4000 + nq, nq, 1024, 768)
+    ok = np.ones(1024, dtype=bool)
+    ref_d, ref_i = R.knn_search(q, cents, ok, "euclidean", k)
+    got_d, got_i = P.knn_search(torch.from_numpy(q), torch.from_numpy(cents),
+                                torch.from_numpy(ok), "euclidean", k)
+    assert got_i.shape == (nq, 6)
+    assert_knn_match(ref_d, ref_i, got_d.numpy(), got_i.numpy())
+    want = np.asarray(R.pairwise_distance(q, cents, "euclidean"))
+    got = P.pairwise_distance(torch.from_numpy(q), torch.from_numpy(cents), "euclidean")
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
 def test_knn_search_tie_order_is_lower_index_first():
     """All rows equal: every distance ties, so top_k's order is the index
     order, masked rows last as +inf — lax.top_k's tie order."""

@@ -12,8 +12,11 @@ masking at small shapes — not speed, and not what only the card can show
 is no C++20 compiler.
 
 Tolerances: K1 and the IVF rerank distances rtol 1e-5, atol 1e-4 (f32 sums
-in another order); K2 exact, since both sides select from the same
-distances; the K5 assignment's ids exact except where two centroids' distances
+in another order); K2's select exact, since both sides select from the
+same distances; the fused K2 exact against K1's distances selected in the
+plain order (one distance core), and within K1's tolerance of the plain
+search, ids equal up to ties at the k-th distance; the K5 assignment's ids
+exact except where two centroids' distances
 tie within that tolerance; the K4 update's counts exact and its centroids
 bit-equal to the CPU's index_add_, which adds in row order as the kernel
 must; the slot mapping exact; the graph kernels (K6-K8) exact: integer
@@ -102,8 +105,23 @@ def _source(name):
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     out = tmp_path_factory.mktemp("kernels_emu")
-    return _build_emu(out, {n: _source(n) for n in ("knn.cu", "ivf.cu", "graph.cu", "bm25.cu",
-                                                     "ml.cu", "mesh.cu")})
+    return _build_emu(out, {n: _source(n) for n in ("knn.cu", "knn_f32.cu", "ivf.cu", "graph.cu",
+                                                     "bm25.cu", "ml.cu", "mesh.cu")})
+
+
+def _means(lib, q, x, metric):
+    """knn_row_mean of the queries and the corpus for pearson, else None."""
+    if metric != "pearson":
+        return None, None
+    bf16 = int(x.dtype == torch.bfloat16)
+    qm, xm = torch.empty(q.shape[0]), torch.empty(x.shape[0])
+    assert lib.knn_row_mean(q.data_ptr(), 0, q.shape[0], q.shape[1], qm.data_ptr(), None) == 0
+    assert lib.knn_row_mean(x.data_ptr(), bf16, x.shape[0], x.shape[1], xm.data_ptr(), None) == 0
+    return qm, xm
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _pairwise(lib, q, x, metric):
@@ -112,18 +130,31 @@ def _pairwise(lib, q, x, metric):
     n = x.shape[0]
     bf16 = int(x.dtype == torch.bfloat16)
     out = torch.empty((nq, n), dtype=torch.float32)
-    qm = xm = None
-    if metric == "pearson":
-        qm, xm = torch.empty(nq), torch.empty(n)
-        assert lib.knn_row_mean(q.data_ptr(), 0, nq, dim, qm.data_ptr(), None) == 0
-        assert lib.knn_row_mean(x.data_ptr(), bf16, n, dim, xm.data_ptr(), None) == 0
-    status = lib.knn_pairwise(
-        q.data_ptr(), x.data_ptr(), bf16, nq, n, dim, code, p,
-        None if qm is None else qm.data_ptr(), None if xm is None else xm.data_ptr(),
-        out.data_ptr(), None,
-    )
+    qm, xm = _means(lib, q, x, metric)
+    nbytes = lib.knn_pairwise_scratch_bytes(nq, n, dim, bf16, code)
+    scratch = torch.empty(nbytes, dtype=torch.uint8) if nbytes else None
+    status = lib.knn_pairwise(q.data_ptr(), x.data_ptr(), bf16, nq, n, dim, code, p, _ptr(qm),
+                              _ptr(xm), _ptr(scratch), nbytes, out.data_ptr(), None)
     assert status == 0
     return out
+
+
+def _search(lib, q, x, mask, metric, k):
+    """The fused K2 launch: (dists, ids) [Q, k]."""
+    code, p = D._metric_code(metric)
+    nq, dim = q.shape
+    n = x.shape[0]
+    bf16 = int(x.dtype == torch.bfloat16)
+    out_d, out_i = torch.empty((nq, k)), torch.empty((nq, k), dtype=torch.int32)
+    qm, xm = _means(lib, q, x, metric)
+    nbytes = lib.knn_search_scratch_bytes(nq, n, dim, k, bf16, code)
+    scratch = torch.empty(nbytes, dtype=torch.uint8)
+    m = None if mask is None else mask.contiguous().view(torch.uint8)
+    status = lib.knn_search(q.data_ptr(), x.data_ptr(), bf16, _ptr(m), nq, n, dim, code, p, k,
+                            _ptr(qm), _ptr(xm), scratch.data_ptr(), nbytes, out_d.data_ptr(),
+                            out_i.data_ptr(), None)
+    assert status == 0
+    return out_d, out_i
 
 
 def _select(lib, d, mask, k):
@@ -209,6 +240,210 @@ def test_k2_select_matches_plain_exactly(lib, case):
     )
     assert torch.equal(got_i, want_i)
     assert torch.equal(got_d, want_d)
+
+
+# The fused K2 (knn_search): its distances are K1's (one distance core), so
+# its answer must equal K1's distances selected by the plain order exactly;
+# against knn_search_plain it is within the K1 tolerance, ids up to ties.
+_METRICS = list(D.METRICS) + ["minkowski:3"]
+
+
+def _corpus(rng, nq, n, dim, dtype, metric):
+    q = torch.from_numpy(rng.standard_normal((nq, dim)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((n, dim)).astype(np.float32))
+    if metric == "jaccard":
+        q, x = q.abs(), x.abs()
+    x[n // 3] = x[n // 5]  # equal rows: the lower index first
+    return q.contiguous(), x.to(dtype).contiguous()
+
+
+def _check_search(lib, q, x, mask, metric, k):
+    got_d, got_i = _search(lib, q, x, mask, metric, k)
+    d = _pairwise(lib, q, x, metric)
+    if mask is not None:
+        d = torch.where(mask[None, :], d, torch.full_like(d, float("inf")))
+    want_d, want_i = D._topk_min_stable(d, k)
+    assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d)
+    plain_d, plain_i = D.knn_search_plain(q, x, torch.ones(x.shape[0], dtype=torch.bool)
+                                          if mask is None else mask, metric, k)
+    torch.testing.assert_close(got_d, plain_d, rtol=1e-5, atol=1e-4)
+    assert _ids_up_to_kth_ties(got_d, got_i, plain_d, plain_i)
+
+
+def _ids_up_to_kth_ties(a_d, a_i, b_d, b_i):
+    """Per query, an id in one result and not the other lies within the K1
+    tolerance of the k-th distance (a tie two summation orders may break
+    differently)."""
+    for r in range(a_i.shape[0]):
+        kth = float(b_d[r, -1])
+        band = 1e-4 + 1e-5 * abs(kth)
+        sa, sb = set(a_i[r].tolist()), set(b_i[r].tolist())
+        for dd, ii, other in ((a_d, a_i, sb), (b_d, b_i, sa)):
+            for j, v in enumerate(ii[r].tolist()):
+                if v not in other and not abs(float(dd[r, j]) - kth) <= band:
+                    return False
+    return True
+
+
+def _search_cases():
+    cases = []
+    for metric in _METRICS:
+        for nq in (1, 3, 8):
+            cases.append((f"stream-{metric}-q{nq}", metric, nq, 1500, 10, torch.bfloat16, True))
+    for nq, k in ((1, 1), (8, 256), (3, 256)):
+        cases.append((f"stream-k{k}-q{nq}", "euclidean", nq, 1500, k, torch.bfloat16, True))
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "f32" if dt == torch.float32 else "bf16"
+        cases.append((f"stream-{tag}-nomask", "cosine", 8, 1100, 10, dt, False))
+        cases.append((f"stream-{tag}-q12", "manhattan", 12, 700, 10, dt, True))  # 8-query tiles
+    for metric in ("euclidean", "cosine"):
+        for k in (1, 10, 256):
+            cases.append((f"tensor-{metric}-k{k}", metric, 12, 700, k, torch.bfloat16, True))
+    cases.append(("tensor-two-query-tiles", "euclidean", 70, 300, 10, torch.bfloat16, True))
+    cases.append(("probe-shape", "euclidean", 1, 1024, 6, torch.bfloat16, False))
+    return cases
+
+
+@pytest.mark.parametrize("case", _search_cases(), ids=lambda c: c[0])
+def test_k2_fused_search_matches_plain(lib, case):
+    """Streaming tier at Q <= 8 for every metric and over 8-query tiles,
+    tensor tier at Q > 8 (euclidean, cosine on bf16); N over several
+    512-, 1,024- and 256-row tiles, none a multiple of one; k from 1 to
+    256 (lists in shared memory, and in global scratch past it); masked
+    rows read as +inf."""
+    _label, metric, nq, n, k, dtype, masked = case
+    rng = np.random.default_rng(nq * 1000 + n + k)
+    q, x = _corpus(rng, nq, n, 40, dtype, metric)
+    mask = torch.from_numpy(rng.random(n) > 0.1) if masked else None
+    _check_search(lib, q, x, mask, metric, k)
+
+
+@pytest.mark.parametrize("nq", [1, 8, 12])
+@pytest.mark.parametrize("k", [10, 256])
+def test_k2_fused_ties_take_the_lower_index(lib, nq, k):
+    """Identical rows: every distance ties, so the k picks are the lowest
+    live indices, in order; every 7th row is masked (+inf)."""
+    x = torch.zeros(1500, 16, dtype=torch.bfloat16)
+    q = torch.zeros(nq, 16)
+    mask = torch.ones(1500, dtype=torch.bool)
+    mask[::7] = False
+    got = _search(lib, q, x, mask, "euclidean", k)
+    want = D.knn_search_plain(q, x, mask, "euclidean", k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_k2_above_the_fused_k_takes_k1_then_select(lib):
+    """k = 257 is past the fused search (a shape rule): knn_search refuses
+    it, and K1's distances selected by knn_select equal the plain answer."""
+    assert lib.knn_search_max_k() == 256
+    rng = np.random.default_rng(257)
+    q, x = _corpus(rng, 3, 1500, 40, torch.bfloat16, "euclidean")
+    nbytes = lib.knn_search_scratch_bytes(3, 1500, 40, 257, 1, 0)
+    scratch = torch.empty(nbytes, dtype=torch.uint8)
+    out_d, out_i = torch.empty((3, 257)), torch.empty((3, 257), dtype=torch.int32)
+    assert lib.knn_search(q.data_ptr(), x.data_ptr(), 1, None, 3, 1500, 40, 0, 0.0, 257, None,
+                          None, scratch.data_ptr(), nbytes, out_d.data_ptr(), out_i.data_ptr(),
+                          None) != 0
+    mask = torch.ones(1500, dtype=torch.bool)
+    got_d, got_i, _ = _select(lib, _pairwise(lib, q, x, "euclidean"), mask, 257)
+    want_d, want_i = D.knn_search_plain(q, x, mask, "euclidean", 257)
+    torch.testing.assert_close(got_d, want_d, rtol=1e-5, atol=1e-4)
+    assert _ids_up_to_kth_ties(got_d, got_i, want_d, want_i)
+
+
+def _knn_lower_limb_case(rng, groups, dim):
+    """f32 queries whose nearest bf16 row is told apart only by limb 1
+    (even groups) or only by limb 2 (odd groups) of the kernel's truncating
+    split. Group g: rows a (2g) and b (2g + 1) lie at m -+ 4w (w = +-1,
+    alternating by column pair), the query at m + r1 + r2 with limbs m, r1,
+    r2; b is nearer by 16 sum(w (r1 + r2)) in squared distance (far rows
+    keep the formula's cancellation below the tolerance). Limb-1 groups
+    take r2 = 0 and a larger r1 where w = 1; limb-2 groups take equal r1 in
+    a pair (their sum cancels) and a larger r2 where w = 1. m is one column
+    pattern plus g / 16, so other groups' rows are farther by at least D /
+    256. A product without the deciding limb sees an exact tie (a, the
+    lower index, first) or a nearer a."""
+    m = 4 + rng.integers(0, 40, (1, dim)) / 16 + (np.arange(groups) / 16)[:, None]  # bf16
+    w = np.where(np.arange(dim) % 2 == 0, 1.0, -1.0)[None, :]
+    odd = (np.arange(groups) % 2 == 1)[:, None]
+    j = rng.integers(0, 64, (groups, dim // 2)).repeat(2, axis=1)
+    j1 = np.where(odd, j, j + np.where(w > 0, 64, 0))
+    r1 = (128 + j1) / 8192  # 8 bits in [2^-6, 2^-5): limb 1
+    r2 = np.where(odd, np.where(w > 0, rng.integers(112, 128, (groups, dim)),
+                                rng.integers(64, 80, (groups, dim))), 0) / 2 ** 20  # limb 2
+    q = (m + r1 + r2).astype(np.float32)
+    rows = np.stack([m - 4 * w, m + 4 * w], 1).reshape(2 * groups, dim)  # bf16: 1/16 steps
+    return torch.from_numpy(q), torch.from_numpy(rows.astype(np.float32)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("dim", [128, 768])
+@pytest.mark.parametrize("k", [1, 2])
+def test_k2_tensor_tier_lower_limbs_decide(lib, k, dim):
+    """12 queries (the tensor tier) whose nearest row only query limb 1 or
+    limb 2 tells apart: row 2g + 1 is first for query g, as in the plain
+    version."""
+    rng = np.random.default_rng(3 + k + dim)
+    q, x = _knn_lower_limb_case(rng, 12, dim)
+    got_d, got_i = _search(lib, q, x, None, "euclidean", k)
+    assert torch.equal(got_i[:, 0].long(), 2 * torch.arange(12) + 1)
+    want_d, want_i = D.knn_search_plain(q, x, torch.ones(24, dtype=torch.bool), "euclidean", k)
+    assert torch.equal(got_i, want_i)
+    torch.testing.assert_close(got_d, want_d, rtol=1e-5, atol=1e-4)
+
+
+_K2_FAULTS = {  # fault: [(file, old, new)]
+    # the tensor tier without query limb 2
+    "dropped_limb2": [("knn.cu", "for (int l = 2; l >= 0; --l) {", "for (int l = 1; l >= 0; --l) {")],
+    # one sum over the three limbs, step by step
+    "single_limb_sum": [("knn.cu", "mma_bf16_16816(l == 0 ? hi[mt][nt] : lo[mt][nt], a[mt], bq[nt]);",
+                         "mma_bf16_16816(hi[mt][nt], a[mt], bq[nt]);")],
+    # every block's range one row short at its end
+    "range_end_off_by_one": [
+        ("knn.cuh", "const long long rb = b * per, re = min(N, rb + per);\n  const bool fused",
+         "const long long rb = b * per, re = min(N, rb + per - 1);\n  const bool fused"),
+        ("knn.cu", "const long long rb = b * per, re = min(N, rb + per);\n  unsigned long long* kq",
+         "const long long rb = b * per, re = min(N, rb + per - 1);\n  unsigned long long* kq")],
+    # the blocks' picks written last block first: among equal distances the
+    # merge then takes the higher index
+    "ties_take_the_higher_index": [
+        ("knn.cuh", "const long long o = ((long long)(q0 + j) * nblk + b) * k;",
+         "const long long o = ((long long)(q0 + j) * nblk + (nblk - 1 - b)) * k;"),
+        ("knn.cu", "const long long o = ((long long)(q0 + c) * nblk + b) * k;",
+         "const long long o = ((long long)(q0 + c) * nblk + (nblk - 1 - b)) * k;")],
+}
+
+
+@pytest.mark.parametrize("fault", sorted(_K2_FAULTS))
+def test_k2_planted_fault_fails_the_comparison(tmp_path, fault):
+    """The comparisons above have teeth: a copy of knn.cu / knn.cuh with one
+    fault planted disagrees with the plain version on the lower-limb groups, on
+    queries that sit on the blocks' first and last rows, or on a corpus of
+    equal rows."""
+    srcs = {n: _source(n) for n in ("knn.cu", "knn_f32.cu", "knn.cuh")}
+    for name, old, new in _K2_FAULTS[fault]:
+        assert srcs[name].count(old) == 1, old
+        srcs[name] = srcs[name].replace(old, new)
+    bad = _build_emu(tmp_path, srcs)
+    failed = []
+
+    def differs(q, x, k):
+        got_d, got_i = _search(bad, q, x, None, "euclidean", k)
+        want_d, want_i = D.knn_search_plain(q, x, torch.ones(x.shape[0], dtype=torch.bool),
+                                            "euclidean", k)
+        return not (torch.equal(got_i, want_i)
+                    and torch.allclose(got_d, want_d, rtol=1e-5, atol=1e-4))
+
+    failed.append(differs(*_knn_lower_limb_case(np.random.default_rng(4), 12, 768), 1))
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((1500, 40)).astype(np.float32)).to(torch.bfloat16)
+    # the blocks' edges (the emulation's 2 SMs: two ranges of 750 rows in both
+    # tiers) and the quarters
+    edges = [0, 374, 375, 749, 750, 1124, 1125, 1499]
+    for nq in (8, 12):
+        failed.append(differs(x[(edges * 2)[:nq]].float() + 1e-3, x, 3))
+    for nq in (1, 12):
+        failed.append(differs(torch.zeros(nq, 16), torch.zeros(1500, 16, dtype=torch.bfloat16), 10))
+    assert any(failed)
 
 
 # ------------------------------------------------------------------ IVF
@@ -950,6 +1185,22 @@ def test_k10_unaligned_base_takes_the_scalar_loads(lib, n, x_dtype):
     _assert_linear_close(_linear_emu(lib, x, w, b, None), ML.linear_act_plain(x, w, b, None), 64)
 
 
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("k", [45, 768])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k10_skinny_rows_past_a_tile_match_plain(lib, x_dtype, k, offset):
+    """N = 1 (config 5's shape) over 1,100 rows: the emulation's two blocks
+    take 550 rows each, a 512-row tile and a partial one; K = 45 (no
+    16-byte rows) and a base offset by one element take the plain-load
+    staging, K = 768 aligned the cp.async ring."""
+    rng = np.random.default_rng(k + offset)
+    flat = torch.from_numpy(rng.standard_normal(1100 * k + offset).astype(np.float32))
+    x = flat.to(x_dtype)[offset:].view(1100, k)
+    _, w, b = _ml_inputs(k, 1, k, 1, torch.float32)
+    _assert_linear_close(_linear_emu(lib, x, w, b, "sigmoid"),
+                         ML.linear_act_plain(x, w, b, "sigmoid"), k)
+
+
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("n", [1, 10, 64])
 def test_k10_inf_and_nan_in_x_land_where_f32_puts_them(lib, n, x_dtype):
@@ -991,7 +1242,7 @@ def test_k10_softmax_rows_with_neg_inf_match_plain(lib, n):
 
 _ML_FAULTS = {
     # the bias left out of the three linear paths' epilogues
-    "dropped_bias": [("ml_act(mine + b[lane], act)", "ml_act(mine, act)"),
+    "dropped_bias": [("ml_act(acc[i][n] + b[n], act)", "ml_act(acc[i][n], act)"),
                      ("ml_act(acc[i][n] + bias[n], act)", "ml_act(acc[i][n], act)"),
                      ("v[u] = ml_act(v[u] + b[col + u], act);", "v[u] = ml_act(v[u], act);")],
     # the softmax's exp without the row max subtracted, in all three kernels
