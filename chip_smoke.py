@@ -73,11 +73,13 @@ Phases, one JSON line each (or more):
    Datastore.mesh() returning the 8-shard mesh, nothing re-ingested: the
    same 88 queries must all take `exact-sharded` (recall@10 >= 0.99) and
    `ivf-sharded` (no retraining), return the single-device answers up to
-   ties, launch (K2 or K3's rerank) x 8 shards + one merge a tile,
-   and hold no second corpus; `mesh_kernels`: K11 and K12 (on a 4 x 2
-   mesh) on the MTREE mirror's shards, K13 on the HNSW state, K14 and K15
-   on config 1's 3-hop BFS, each against its plain version (K11 also
-   against single-device K2, K13 against K3), with times; `dryrun_mesh`:
+   ties, launch K2 x 8 shards + one merge a tile (exact-sharded) or the
+   probe, one K13 rerank over the 8 shards and one merge a tile
+   (ivf-sharded), and hold no second corpus; `mesh_kernels`: K11 and K12
+   (on a 4 x 2 mesh; Q 1, 4 and 64) on the MTREE mirror's shards, K13 on
+   the HNSW state (Q 1, 8 and 64), K14 and K15 on config 1's 3-hop BFS,
+   each against its plain version (K11 also against single-device K2, K13
+   against K3), with times and the kernels a call runs; `dryrun_mesh`:
    parallel/dryrun.py's entry() and dryrun_multichip(8) on the card.
 
 Then the kernel table as one JSON line, the card's name and power limit,
@@ -238,6 +240,36 @@ def device_busy_share(torch, fn):
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
     return {"wall_ms": wall_ms, "device_ms": dev_ms, "busy_share": dev_ms / wall_ms,
             "top_device_ms": top}
+
+
+def kernels_per_call(torch, fn, calls: int = 10):
+    """The device kernels one call of fn() runs, every kind counted (ours,
+    PyTorch's fills and copies; not memcpy / memset), by torch.profiler
+    over `calls` calls, one a profiler step, after two warm-up steps (a
+    session without them lost the first calls' kernels): {"kernels": n,
+    "device_ms": t, "by_name": {name: [kernels, device ms] a call}}, or
+    "not measured" when the profiler reports no kernel on this machine."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
+                 schedule=schedule(wait=0, warmup=2, active=calls, repeat=1)) as prof:
+        for _ in range(2 + calls):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    by_name = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us and not ev.key.startswith(("Memcpy", "Memset")):
+            n, t = by_name.get(ev.key[:60], (0.0, 0.0))
+            by_name[ev.key[:60]] = (n + ev.count / calls, t + us / 1e3 / calls)
+    if not by_name:
+        return "not measured"
+    return {"kernels": sum(n for n, _ in by_name.values()),
+            "device_ms": sum(t for _, t in by_name.values()),
+            "by_name": {k: list(v) for k, v in by_name.items()}}
 
 
 # ------------------------------------------------------------------ phase 1
@@ -2651,9 +2683,11 @@ def knn_bound(nq: int, n: int, dim: int, k: int):
 
 def phase_mesh_kernels_exact(torch, matrix, dim: int, k: int = 10):
     """K11 and K12 against their plain versions on the card, on the MTREE
-    cell's sharded 2^20 x 768 bf16 mirror (8 shards on cuda:0), with ~5%
-    dead rows; K11 also against single-device K2. Then median times at Q 1
-    and 64 beside the bound, the plain composition and cdist + topk."""
+    cell's sharded 2^20 x 768 bf16 mirror (8 shards on cuda:0; K12 on a
+    4 x 2 grid of it), with ~5% dead rows; K11 also against single-device
+    K2. Then median times (K11 at Q 1 and 64, K12 at Q 1, 4 (the dry run's
+    tile) and 64) beside the bound, the plain composition and cdist +
+    topk, and the kernels a K12 call runs."""
     from surrealdb_tpu_torch.ops import distances as D
     from surrealdb_tpu_torch.parallel import mesh as M
 
@@ -2670,56 +2704,70 @@ def phase_mesh_kernels_exact(torch, matrix, dim: int, k: int = 10):
     mask2 = M.shard_tensor(mesh2, mask_full, ("data",), copy=False)
     errs = {"K11": 0.0, "K12": 0.0}
     for metric in ("euclidean", "cosine"):
-        for nq in (1, 64):
+        for nq in (1, 4, 64):
             q = torch.randn(nq, dim, generator=g).to(dev)
-            got = M.sharded_knn(mesh, matrix, mask, q, k, metric)
-            torch.cuda.synchronize()
-            want = M.sharded_knn_plain(mesh, matrix, mask, q, k, metric)
-            single = D.knn_search(q, x, mask_full, metric, k)
-            gn = [t.cpu().numpy() for t in got + want + single]
-            err = float(np.abs(gn[0] - gn[2]).max())
-            ok = (bool(torch.allclose(got[0], want[0], **TOL)) and got[1].dtype == torch.int32
-                  and ids_match_up_to_ties(gn[0], gn[1], gn[2], gn[3])
-                  and ids_match_up_to_ties(gn[0], gn[1], gn[4], gn[5]))
-            emit("mesh_kernels", kernel="K11", metric=metric, q=nq, n=n, shards=MESH_SHARDS,
-                 max_abs_err=err, max_abs_err_single_device=float(np.abs(gn[0] - gn[4]).max()),
-                 ok=ok)
-            require(ok, f"K11 {metric} Q={nq} disagrees with its plain version or with K2")
-            errs["K11"] = max(errs["K11"], err)
+            if nq != 4:
+                got = M.sharded_knn(mesh, matrix, mask, q, k, metric)
+                torch.cuda.synchronize()
+                want = M.sharded_knn_plain(mesh, matrix, mask, q, k, metric)
+                single = D.knn_search(q, x, mask_full, metric, k)
+                gn = [t.cpu().numpy() for t in got + want + single]
+                err = float(np.abs(gn[0] - gn[2]).max())
+                ok = (bool(torch.allclose(got[0], want[0], **TOL)) and got[1].dtype == torch.int32
+                      and ids_match_up_to_ties(gn[0], gn[1], gn[2], gn[3])
+                      and ids_match_up_to_ties(gn[0], gn[1], gn[4], gn[5]))
+                emit("mesh_kernels", kernel="K11", metric=metric, q=nq, n=n, shards=MESH_SHARDS,
+                     max_abs_err=err,
+                     max_abs_err_single_device=float(np.abs(gn[0] - gn[4]).max()), ok=ok)
+                require(ok, f"K11 {metric} Q={nq} disagrees with its plain version or with K2")
+                errs["K11"] = max(errs["K11"], err)
             if metric != "euclidean":
                 continue
+            before = read_launches()
             got = M.sharded_knn_2d(mesh2, x2, mask2, q, k)
             torch.cuda.synchronize()
+            launches = {c: v - before[c] for c, v in read_launches().items() if v - before[c]}
             want = M.sharded_knn_2d_plain(mesh2, x2, mask2, q, k)
             gn = [t.cpu().numpy() for t in got + want]
             err = float(np.abs(gn[0] - gn[2]).max())
             ok = (bool(torch.allclose(got[0], want[0], **TOL))
                   and ids_match_up_to_ties(gn[0], gn[1], gn[2], gn[3]))
             emit("mesh_kernels", kernel="K12", metric=metric, q=nq, n=n, grid=[4, 2],
-                 max_abs_err=err, ok=ok)
+                 max_abs_err=err, launches=launches, ok=ok)
             require(ok, f"K12 Q={nq} disagrees with its plain version")
+            # one card: a step a feature shard over all row shards, the last
+            # one selecting; no selection or merge launch besides
+            require(launches == {"mesh_knn_2d": 2}, f"K12 Q={nq} launched {launches}")
             errs["K12"] = max(errs["K12"], err)
     xf = x.float()  # the yardstick's input: cdist takes one dtype
     timing = {"K11": {}, "K12": {}}
-    for nq in (1, 64):
+    for nq in (1, 4, 64):
         q = torch.randn(nq, dim, generator=g).to(dev)
         bound, by = knn_bound(nq, n, dim, k)
-        lib = median_ms(lambda: torch.topk(torch.cdist(q, xf), k, largest=False))
-        timing["K11"][nq] = dict(
-            ms=median_ms(lambda: M.sharded_knn(mesh, matrix, mask, q, k)),
-            queued_ms=queued_device_ms(torch, lambda: M.sharded_knn(mesh, matrix, mask, q, k)),
-            plain_ms=median_ms(lambda: M.sharded_knn_plain(mesh, matrix, mask, q, k), iters=3),
-            library_ms=lib, bound_ms=bound, bound_by=by,
-            single_device_k2_ms=median_ms(lambda: D.knn_search(q, x, mask_full, "euclidean", k)),
-        )
+        lib_fn = lambda: torch.topk(torch.cdist(q, xf), k, largest=False)  # noqa: E731
+        lib = median_ms(lib_fn)
+        if nq != 4:
+            timing["K11"][nq] = dict(
+                ms=median_ms(lambda: M.sharded_knn(mesh, matrix, mask, q, k)),
+                queued_ms=queued_device_ms(torch, lambda: M.sharded_knn(mesh, matrix, mask, q, k)),
+                plain_ms=median_ms(lambda: M.sharded_knn_plain(mesh, matrix, mask, q, k),
+                                   iters=3),
+                library_ms=lib, bound_ms=bound, bound_by=by,
+                single_device_k2_ms=median_ms(
+                    lambda: D.knn_search(q, x, mask_full, "euclidean", k)),
+            )
+        k12 = lambda: M.sharded_knn_2d(mesh2, x2, mask2, q, k)  # noqa: E731
         timing["K12"][nq] = dict(
-            ms=median_ms(lambda: M.sharded_knn_2d(mesh2, x2, mask2, q, k)),
-            queued_ms=queued_device_ms(torch, lambda: M.sharded_knn_2d(mesh2, x2, mask2, q, k)),
+            ms=median_ms(k12), queued_ms=queued_device_ms(torch, k12),
             plain_ms=median_ms(lambda: M.sharded_knn_2d_plain(mesh2, x2, mask2, q, k), iters=3),
-            library_ms=lib, bound_ms=bound, bound_by=by,
+            library_ms=lib, library_queued_ms=queued_device_ms(torch, lib_fn, iters=5),
+            bound_ms=bound, bound_by=by, kernels_per_call=kernels_per_call(torch, k12, 10),
         )
         emit("timing_mesh", q=nq, n=n, d=dim, k=k, corpus="bfloat16",
-             K11=timing["K11"][nq], K12=timing["K12"][nq])
+             K11=timing["K11"].get(nq), K12=timing["K12"][nq])
+    require(timing["K12"][64]["queued_ms"] < timing["K12"][64]["library_queued_ms"],
+            f"K12 at Q=64 ({timing['K12'][64]['queued_ms']} ms queued) is not faster than "
+            f"cdist + topk ({timing['K12'][64]['library_queued_ms']} ms)")
     d_all = torch.rand(1, MESH_SHARDS * k, device=dev)
     i_all = torch.zeros(1, MESH_SHARDS * k, dtype=torch.int32, device=dev)
     merge_ms = queued_device_ms(torch, lambda: M.topk_merge(d_all, i_all, k, n // 8, k))
@@ -2729,13 +2777,25 @@ def phase_mesh_kernels_exact(torch, matrix, dim: int, k: int = 10):
                 seconds=time.perf_counter() - t0)
 
 
+# the device kernels behind one count of each wrapper on K13's path on one
+# card: the probe is the fused K2 over f32 centroids (its pass, then the
+# merge of the blocks' picks), the rerank and the merge one kernel each
+K13_KERNELS_A_LAUNCH = {"knn_select": 2, "mesh_ivf_rerank": 1, "mesh_topk_merge": 1}
+# K13's timing keys that are not the kernels line's own
+K13_EXTRA = ("candidate_rows", "probed_lists", "rows_read", "launches", "kernels",
+             "kernels_per_call")
+
+
 def phase_mesh_kernels_ivf(torch, ivf, mesh, matrix, queries, nprobe: int, dim: int,
                            k: int = 10):
     """K13 against its plain version and single-device K3 on the card, on
     the HNSW cell's trained state and sharded mirror, euclidean and cosine,
     with and without a slot mask keeping two thirds of the slots; then its
-    median times at Q 1 and 64 beside the bound from this run's probed
-    lists and the plain composition."""
+    median times at Q 1, 8 and 64 beside the bound from this run's probed
+    lists, the plain composition, and the kernels a call runs: by the
+    wrappers' counts, at most 5 on one card (required), and by
+    torch.profiler, each kernel's device time (for information; the
+    profiler keeps only part of a short call's kernels)."""
     from surrealdb_tpu_torch.idx import ivf as IVF
     from surrealdb_tpu_torch.ops import distances as D
     from surrealdb_tpu_torch.parallel import mesh as M
@@ -2755,8 +2815,10 @@ def phase_mesh_kernels_ivf(torch, ivf, mesh, matrix, queries, nprobe: int, dim: 
             args = (mesh, cents_r, lrows, lmask, matrix, q, k, nprobe)
             kw = dict(metric=metric, probe_metric=probe_metric,
                       slot_ok=M.shard_tensor(mesh, sok, ("data",), copy=False))
+            before = read_launches()
             got = M.sharded_ivf_search(*args, **kw)
             torch.cuda.synchronize()
+            launches = {c: v - before[c] for c, v in read_launches().items() if v - before[c]}
             want = M.sharded_ivf_search_plain(*args, **kw)
             single = IVF._ivf_search(q, cents, rows1, mask1, matrix.base, sok, metric,
                                      probe_metric, k, nprobe, probe_ok=probe_ok)
@@ -2770,30 +2832,50 @@ def phase_mesh_kernels_ivf(torch, ivf, mesh, matrix, queries, nprobe: int, dim: 
             emit("mesh_kernels", kernel="K13", metric=metric, q=nq, nprobe=nprobe,
                  L=int(lrows.shape[2]), slots_ok=int(sok.sum()), max_abs_err=e,
                  max_abs_err_single_device=float(np.abs(gn[0] - gn[4])[fin].max())
-                 if fin.any() else 0.0, ok=ok)
+                 if fin.any() else 0.0, launches=launches, ok=ok)
             require(ok, f"K13 {metric} Q={nq} disagrees with its plain version or with K3")
+            require(launches == {"knn_select": 1, "mesh_ivf_rerank": 1, "mesh_topk_merge": 1},
+                    f"K13 {metric} Q={nq} launched {launches}")
             err = max(err, e)
-    lens = np.zeros((MESH_SHARDS, ivf.nlists), dtype=np.int64)
-    lens[:] = lmask.base.sum(dim=2).cpu().numpy()
+    lens = lmask.base.sum(dim=2).cpu().numpy()  # [shards, lists] members
     lmax = int(lrows.shape[2])
     all_ok_sharded = M.shard_tensor(mesh, all_ok, ("data",), copy=False)
     timing = {}
-    for nq in (1, 64):
+    for nq in (1, 8, 64):
         q = torch.from_numpy(np.ascontiguousarray(queries[:nq], dtype=np.float32)).to(dev)
         _, probes = D.knn_search(q, cents, probe_ok, "euclidean", nprobe)
-        cand = int(lens[:, probes.cpu().numpy()].sum())  # real candidate rows of this run
-        nbytes = (nq * dim * 4 + ivf.nlists * dim * 4 + cand * dim * 2
-                  + nq * nprobe * MESH_SHARDS * lmax * 5 + nq * k * 8)
+        probes = probes.cpu().numpy()
+        cand = int(lens[:, probes].sum())  # (query, member) pairs of this run: the products
+        probed = np.unique(probes)  # the lists any query probes, in every shard
+        rows_read = int(lens[:, probed].sum())
+        # what a correct rerank must read: the queries and centroids, each
+        # probed (shard, list)'s mask bytes (which positions are listed),
+        # and for each member of those lists its slot (4 bytes), its
+        # slot_ok byte and its row, once however many queries probe the
+        # list; the picks written. The operations: a product a (query,
+        # member) pair, and the probe's.
+        nbytes = (nq * dim * 4 + ivf.nlists * dim * 4 + MESH_SHARDS * probed.size * lmax
+                  + rows_read * (5 + dim * 2) + nq * k * 8)
         bound, by = bound_ms(nbytes, 2.0 * nq * ivf.nlists * dim + 2.0 * cand * dim, "bfloat16")
         args = (mesh, cents_r, lrows, lmask, matrix, q, k, nprobe)
         kw = dict(slot_ok=all_ok_sharded)  # placed once, as search_batch_sharded does
+        call = lambda: M.sharded_ivf_search(*args, **kw)  # noqa: E731
+        before = read_launches()
+        call()
+        torch.cuda.synchronize()
+        launched = {c: v - before[c] for c, v in read_launches().items() if v - before[c]}
+        kernels = sum(K13_KERNELS_A_LAUNCH.get(c, 99) * v for c, v in launched.items())
         timing[nq] = dict(
-            ms=median_ms(lambda: M.sharded_ivf_search(*args, **kw)),
-            queued_ms=queued_device_ms(torch, lambda: M.sharded_ivf_search(*args, **kw)),
+            ms=median_ms(call), queued_ms=queued_device_ms(torch, call),
             plain_ms=median_ms(lambda: M.sharded_ivf_search_plain(*args, **kw), iters=3),
             library_ms=None, bound_ms=bound, bound_by=by, candidate_rows=cand,
+            probed_lists=int(probed.size), rows_read=rows_read, launches=launched,
+            kernels=kernels, kernels_per_call=kernels_per_call(torch, call, 10),
         )
         emit("timing_mesh_k13", q=nq, nprobe=nprobe, L=lmax, k=k, **timing[nq])
+        # the kernels a call, from the wrappers' counts (one card)
+        require(set(launched) == set(K13_KERNELS_A_LAUNCH) and kernels <= 5,
+                f"K13 at Q={nq} launched {launched}: {kernels} kernels a call")
     return dict(max_abs_err=err, timing=timing, seconds=time.perf_counter() - t0)
 
 
@@ -2881,7 +2963,7 @@ def phase_mesh_kernels_graph(torch, seed: int = 7, hops: int = 3):
 def phase_dryrun_mesh(torch, device: str):
     """parallel/dryrun.py on the device: entry() once, then
     dryrun_multichip(MESH_SHARDS) with the launch counts read around it
-    (the entry point that runs K12, K14 and K15)."""
+    (the entry point that runs K12, K14 and K15, and K11 and K13 too)."""
     from surrealdb_tpu_torch.parallel import dryrun
 
     t0 = time.perf_counter()
@@ -2896,8 +2978,9 @@ def phase_dryrun_mesh(torch, device: str):
                dists_finite=bool(torch.isfinite(out["dists"]).all()),
                reached=int(out["umask"].sum()), seconds=time.perf_counter() - t0)
     if device == "cuda":
-        require(all(launches.get(n, 0) > 0 for n in ("mesh_partial_sqdist", "mesh_frontier_hop",
-                                                      "mesh_dedup_frontier", "mesh_topk_merge")),
+        require(all(launches.get(n, 0) > 0 for n in ("mesh_knn_2d", "mesh_frontier_hop",
+                                                      "mesh_dedup_frontier", "mesh_topk_merge",
+                                                      "mesh_ivf_rerank")),
                 f"the dry run skipped a mesh kernel: {launches}")
     emit("dryrun_mesh", **res)
     return res
@@ -2948,10 +3031,13 @@ def phase_mesh_multicard(torch, n: int = 1 << 18, dim: int = DIM, k: int = 10):
         m2 = M.shard_tensor(mesh2, mask, ("data",))
         for nq in (1, 64):
             q = torch.randn(nq, dim, generator=g)
-            gn = [t.cpu().numpy() for t in M.sharded_knn_2d(mesh2, x2, m2, q, k)
-                  + M.sharded_knn_2d_plain(mesh2, x2, m2, q, k)]
+            before = read_launches()
+            got = M.sharded_knn_2d(mesh2, x2, m2, q, k)
+            launched = read_launches()["mesh_knn_2d"] - before["mesh_knn_2d"]
+            gn = [t.cpu().numpy() for t in got + M.sharded_knn_2d_plain(mesh2, x2, m2, q, k)]
             checks[f"K12 q{nq}"] = (bool(np.allclose(gn[0], gn[2], **TOL))
-                                    and ids_match_up_to_ties(gn[0], gn[1], gn[2], gn[3]))
+                                    and ids_match_up_to_ties(gn[0], gn[1], gn[2], gn[3])
+                                    and launched == n_dev)  # a step a card
     corpus = gen_corpus(n, dim)
     ivf = IVF.IvfState.train(corpus, np.ones(n, dtype=bool), device=dev0)
     nprobe = IVF.default_nprobe(ivf.nlists, 64)
@@ -2960,7 +3046,12 @@ def phase_mesh_multicard(torch, n: int = 1 << 18, dim: int = DIM, k: int = 10):
     cents, rows1, mask1, probe_ok = ivf._device(dev0)
     qs = make_queries(corpus, 64, 7, noise=CLUSTER_SIGMA)
     for nq in (1, 64):
+        before = read_launches()
         d, r = ivf.search_batch_sharded(qs[:nq], mesh, sharded, "euclidean", k, nprobe)
+        launched = {c: v - before[c] for c, v in read_launches().items()}
+        # a rerank a card (one shard each), no K3 gather
+        checks[f"K13 launches q{nq}"] = (launched["mesh_ivf_rerank"] == n_dev
+                                         and launched["ivf_gather_distance"] == 0)
         q = torch.from_numpy(np.ascontiguousarray(qs[:nq])).to(dev0)
         sd, sr = IVF._ivf_search(q, cents, rows1, mask1, single,
                                  torch.ones(n, dtype=torch.bool, device=dev0), "euclidean",
@@ -3054,9 +3145,7 @@ class MeshPaths:
         t0 = time.perf_counter()
         out, mesh, matrix = phase_main_path_mesh(
             self.torch, self.device, ds, "hnsw", "iemb", HNSW_SQL, "ivf-sharded",
-            {"knn_select": 1 + MESH_SHARDS,
-             "ivf_gather_distance": MESH_SHARDS, "ivf_map_slots": MESH_SHARDS,
-             "mesh_topk_merge": 1},
+            {"knn_select": 1, "mesh_ivf_rerank": 1, "mesh_topk_merge": 1},
             self.queries, results, base_timing_of(base), self.truth, **self.drive)
         out["seconds"] = time.perf_counter() - t0
         if self.device == "cuda":
@@ -3289,9 +3378,9 @@ def main(argv=None) -> int:
                      for lab, r in ml_k["cases"].items() if lab != "config5_bf16"},
          "mlp_forward_events_ms": ml["mlp_forward_events_ms"]},
     ))
-    # K11-K15 (parallel/mesh.py): 8 shards on cuda:0; K11 / K13 launches
-    # are the merges of the mesh windows (one a dispatched tile), K12, K14
-    # and K15's those of the dry run, their only caller
+    # K11-K15 (parallel/mesh.py): 8 shards on cuda:0; K11's launches are
+    # the merges of its mesh window and K13's its reranks (one a dispatched
+    # tile each), K12, K14 and K15's those of the dry run, their only caller
     ka, kb = mesh_a["kernels"], mesh_b["kernels"]
     mesh_src = "surrealdb_tpu_torch/csrc/mesh.cu"
     kernels.append(kernel_entry(
@@ -3306,27 +3395,31 @@ def main(argv=None) -> int:
          "launches_by_kernel": {n: mesh_a["launches"][n] for n in (
              "knn_pairwise", "knn_select", "mesh_topk_merge")}},
     ))
+    k12 = ka["timing"]["K12"]
     kernels.append(kernel_entry(
-        "K12 sharded_knn_2d (mesh_partial_sqdist per shard, knn_select, mesh_topk_merge)",
-        "mesh_partial_sqdist", mesh_src, "surrealdb_tpu/parallel/mesh.py:123",
-        dry["launches"].get("mesh_partial_sqdist", 0), ka["max_abs_err"]["K12"],
-        ka["timing"]["K12"][1],
+        "K12 sharded_knn_2d (mesh_knn_2d per (row, feature) shard, the last one selecting; "
+        "mesh_topk_merge)",
+        "mesh_knn_2d", mesh_src, "surrealdb_tpu/parallel/mesh.py:123",
+        dry["launches"].get("mesh_knn_2d", 0), ka["max_abs_err"]["K12"],
+        {kk: v for kk, v in k12[1].items() if kk != "kernels_per_call"},
         {"q": 1, "n": args.rows, "d": DIM, "k": 10, "grid": [4, 2], "corpus": "bfloat16"},
-        {"by_q": {"64": ka["timing"]["K12"][64]}},
+        {"by_q": {str(nq): k12[nq] for nq in (4, 64)},
+         "kernels_per_call": k12[1]["kernels_per_call"]},
     ))
     k13 = kb["timing"]
     kernels.append(kernel_entry(
-        "K13 _ivf_searcher / sharded_ivf_search (probe once; per shard ivf_gather_distance "
-        "+ knn_select + ivf_map_slots; mesh_topk_merge)",
-        "mesh_topk_merge", mesh_src, "surrealdb_tpu/parallel/mesh.py:173",
-        mesh_b["launches"]["mesh_topk_merge"], kb["max_abs_err"],
-        {k: v for k, v in k13[1].items() if k != "candidate_rows"},
+        "K13 _ivf_searcher / sharded_ivf_search (probe once a card; mesh_ivf_rerank once "
+        "over a card's shards; mesh_topk_merge)",
+        "mesh_ivf_rerank", mesh_src, "surrealdb_tpu/parallel/mesh.py:173",
+        mesh_b["launches"]["mesh_ivf_rerank"], kb["max_abs_err"],
+        {kk: v for kk, v in k13[1].items() if kk not in K13_EXTRA},
         {"q": 1, "n": full, "d": DIM, "k": 10, "shards": MESH_SHARDS,
-         "candidate_rows": k13[1]["candidate_rows"]},
-        {"by_q": {"64": k13[64]},
+         **{kk: k13[1][kk] for kk in ("candidate_rows", "probed_lists", "rows_read")}},
+        {"by_q": {str(nq): k13[nq] for nq in (8, 64)},
+         "kernels_a_call": k13[1]["kernels"], "kernels_per_call": k13[1]["kernels_per_call"],
          "launches_by_kernel": {n: mesh_b["launches"][n] for n in (
              "knn_pairwise", "knn_select", "ivf_gather_distance", "ivf_map_slots",
-             "mesh_topk_merge")}},
+             "mesh_ivf_rerank", "mesh_topk_merge")}},
     ))
     gt = mesh_graph_k["timing"]
     for name, kern, replaces, key in (

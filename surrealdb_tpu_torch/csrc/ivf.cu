@@ -776,9 +776,9 @@ int launch_gather(const float* q, const T* x, long long cap, int D, float p, con
   const int vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0) && (D % (16 / (int)sizeof(T)) == 0);
   const unsigned blocks = (unsigned)((long long)Q * P * ((L + GD_SLOTS - 1) / GD_SLOTS));
   const size_t smem = (size_t)D * sizeof(float);
-  const cudaError_t e = cudaFuncSetAttribute(
-      gather_distance_kernel<M, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  static std::atomic<unsigned> seen{0};
+  if (smem > (size_t)SMEM_OPT_IN) return (int)cudaErrorInvalidValue;
+  if (int err = opt_in_smem(gather_distance_kernel<M, T>, SMEM_OPT_IN, seen)) return err;
   gather_distance_kernel<M, T><<<blocks, GD_THREADS, smem, s>>>(
       q, x, cap, D, p, probes, P, list_rows, list_mask, L, slot_ok, out, vec);
   return (int)cudaGetLastError();
@@ -866,18 +866,16 @@ int ivf_kmeans_update(const void* x, int x_bf16, long long n, int D, const void*
   const size_t smem = update_smem_bytes(D);
   const cudaStream_t s = (cudaStream_t)stream;
   const unsigned blocks = (unsigned)((C + UP_GROUP - 1) / UP_GROUP);
-  cudaError_t e;
+  if (smem > (size_t)SMEM_OPT_IN) return (int)cudaErrorInvalidValue;
+  static std::atomic<unsigned> seen_bf16{0}, seen_f32{0};
   if (x_bf16) {
-    e = cudaFuncSetAttribute(kmeans_update_kernel<__nv_bfloat16>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+    if (int err = opt_in_smem(kmeans_update_kernel<__nv_bfloat16>, SMEM_OPT_IN, seen_bf16))
+      return err;
     kmeans_update_kernel<__nv_bfloat16><<<blocks, UP_THREADS, smem, s>>>(
         (const __nv_bfloat16*)x, n, D, (const int*)assign, (const float*)c_old, C,
         (float*)c_new, (int*)counts);
   } else {
-    e = cudaFuncSetAttribute(kmeans_update_kernel<float>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+    if (int err = opt_in_smem(kmeans_update_kernel<float>, SMEM_OPT_IN, seen_f32)) return err;
     kmeans_update_kernel<float><<<blocks, UP_THREADS, smem, s>>>(
         (const float*)x, n, D, (const int*)assign, (const float*)c_old, C, (float*)c_new,
         (int*)counts);

@@ -1,9 +1,11 @@
 // The exact kNN's shared device code (knn.cu; knn_f32.cu, which builds the
 // f32-row streaming kernels as a source of its own, so nvcc compiles them
-// beside knn.cu): the order-preserving keys, the warps' running top-k
-// (warp_offer), and the streaming tier (DistBody over rowstream.cuh,
-// stream_kernel, its launcher). The design is in knn.cu's header. Include
-// after <cuda_runtime.h>, <cuda_bf16.h>, launch.cuh, metric.cuh, mma.cuh and
+// beside knn.cu; mesh.cu, whose K12 instances take the accumulator
+// epilogue and whose K13 rerank keeps the same warp lists): the
+// order-preserving keys, the warps' running top-k (warp_offer), and the
+// streaming tier (DistBody over rowstream.cuh, stream_kernel, its
+// launcher). The design is in knn.cu's header. Include after
+// <cuda_runtime.h>, <cuda_bf16.h>, launch.cuh, metric.cuh, mma.cuh and
 // rowstream.cuh.
 #pragma once
 
@@ -18,6 +20,17 @@ struct KnnPlan {
   int qt, nqt, Qp, Dp;
   long long nblk, per;
   long long picks_d, picks_i, kept, limbs, qss, bytes;
+};
+
+// Where a launch's rows and queries lie, and K12's accumulator: rows ld
+// elements apart and queries qld apart (D and D for K1 and K2; a feature
+// shard's views of wider rows for K12); acc_in and fin are read by the
+// ACC instances only (DistBody).
+struct KnnView {
+  long long ld;
+  int qld;
+  const float* acc_in;
+  int fin;
 };
 
 namespace {
@@ -198,13 +211,17 @@ constexpr int ST_MIN_ROWS = 32;  // rows a block at least
 
 // The distance arithmetic of QT queries q0 .. q0 + QT - 1 against a thread's
 // rows: K1 writes the distances, K2 offers the keys to its warp's lists.
-template <int METRIC, typename T, int QT>
+// ACC (K12, euclidean only, mesh.cu): the value is the slice's partial
+// qss + xss - 2 q.x plus acc_in's entry (null on the first feature shard),
+// and with fin the finished sqrt(max(., 0)), +inf at masked rows; K1's
+// epilogue then writes it to out (the accumulator), K2's offers its key.
+template <int METRIC, typename T, int QT, bool ACC = false>
 struct DistBody {
   static constexpr int E = 16 / (int)sizeof(T);
   static constexpr int R = StCfg<QT>::R;  // rows a thread
   static constexpr bool DOT = is_dot_metric<METRIC>();
   const float* q;
-  int Q, q0, D;
+  int Q, q0, D, qld;  // qld: elements between queries
   float p;
   const float* qmean;
   const float* xmean;
@@ -214,6 +231,8 @@ struct DistBody {
   int vp;
   const float* qss;  // [QT] squared query norms (centred for pearson)
   float* out;                // K1: [Q, N] (null for K2)
+  const float* acc_in;       // ACC: [Q, N], added before finishing (may be out)
+  int fin;                   // ACC: finish (sqrt, mask)
   unsigned long long* kept;  // K2: this warp's lists [QT][k]
   int k;
   unsigned long long theta[QT];  // the k-th of this warp's lists
@@ -228,7 +247,7 @@ struct DistBody {
       const int j = e / w, c = e % w, qi = q0 + j;
       float v = 0.f;
       if (qi < Q && c < clen) {
-        v = q[(long long)qi * D + c0 + c];
+        v = q[(long long)qi * qld + c0 + c];
         if (METRIC == M_PEARSON) v -= qmean[qi];
       }
       vs[j * vp + c] = v;
@@ -279,6 +298,14 @@ struct DistBody {
       for (int e = 0; e < n; ++e) columns<1>(v, e, lc);
     }
   }
+  // ACC's value of (query qi, row i) at a row below re
+  __device__ __forceinline__ float acc_value(int qi, long long row, int i, float qs, float xs,
+                                             float dot) const {
+    float v = qs + xs - 2.f * dot;  // pw_finish's euclidean expression, unfinished
+    if (acc_in != nullptr) v = acc_in[(long long)qi * N + row] + v;
+    if (fin) v = open[i] ? sqrtf(fmaxf(v, 0.f)) : __uint_as_float(0x7f800000u);
+    return v;
+  }
   // the tile's distances: K1 stores them; K2 gathers, query by query, the
   // pairs of the thread's R rows below the list's bound and inserts them
   // once. A pair above any warp's k-th has k better pairs in that warp's
@@ -294,7 +321,11 @@ struct DistBody {
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         const long long row = row0 + i * RS_THREADS + threadIdx.x;
-        const float d = pw_finish<METRIC>(qss[j], xss[i], acc[i][j], acc2[i][j], p);
+        float d;
+        if constexpr (ACC)
+          d = row < re ? acc_value(qi, row, i, qss[j], xss[i], acc[i][j]) : 0.f;
+        else
+          d = pw_finish<METRIC>(qss[j], xss[i], acc[i][j], acc2[i][j], p);
         if (out == nullptr) {  // uniform
           unsigned long long c = PAD_PAIR;
           if (row < re) c = pair_of(open[i] ? f2key(d) : INF_KEY, row);
@@ -316,14 +347,14 @@ struct DistBody {
 // (out null) writes the block's k picks a query to picks [Q, nblk, k],
 // sorted by (key, row), through the warps' lists (kept [blocks][WARPS][QT]
 // [k] where they do not fit shared memory). One kernel for both keeps the
-// build's instances down.
-template <int METRIC, typename T, int QT>
+// build's instances down; ACC (K12) as DistBody's.
+template <int METRIC, typename T, int QT, bool ACC = false>
 __global__ void __launch_bounds__(RS_THREADS, 1)
 stream_kernel(const float* __restrict__ q, const T* __restrict__ x, int Q, long long N, int D,
-              float p, const float* __restrict__ qmean, const float* __restrict__ xmean,
-              const unsigned char* __restrict__ mask, int k, long long per, int nqt, int vec,
-              int vchunk, int kept_smem, float* __restrict__ out, unsigned long long* kept,
-              float* __restrict__ picks_d, int* __restrict__ picks_i) {
+              KnnView view, float p, const float* __restrict__ qmean,
+              const float* __restrict__ xmean, const unsigned char* __restrict__ mask, int k,
+              long long per, int nqt, int vec, int vchunk, int kept_smem, float* out,
+              unsigned long long* kept, float* __restrict__ picks_d, int* __restrict__ picks_i) {
   // ring, then the queries, then (kept_smem) the warps' lists
   extern __shared__ __align__(16) unsigned char st_smem[];
   __shared__ float s_qss[QT];
@@ -335,11 +366,12 @@ stream_kernel(const float* __restrict__ q, const T* __restrict__ x, int Q, long 
   const long long rb = b * per, re = min(N, rb + per);
   const bool fused = out == nullptr;
   using Cfg = StCfg<QT>;
-  DistBody<METRIC, T, QT> body;
+  DistBody<METRIC, T, QT, ACC> body;
   body.q = q;
   body.Q = Q;
   body.q0 = q0;
   body.D = D;
+  body.qld = view.qld;
   body.p = p;
   body.qmean = qmean;
   body.xmean = xmean;
@@ -350,6 +382,8 @@ stream_kernel(const float* __restrict__ q, const T* __restrict__ x, int Q, long 
   body.vp = (min(vchunk, D) + 15) / 16 * 16;
   body.qss = s_qss;
   body.out = out;
+  body.acc_in = view.acc_in;
+  body.fin = view.fin;
   body.k = k;
   // this block's lists [WARPS][QT][k]: shared memory while they fit (an
   // insert then costs no L2 round trip), else global scratch
@@ -373,14 +407,14 @@ stream_kernel(const float* __restrict__ q, const T* __restrict__ x, int Q, long 
     if (is_dot_metric<METRIC>() && q0 + j < Q) {
       const float m = METRIC == M_PEARSON ? qmean[q0 + j] : 0.f;
       for (int c = lane; c < D; c += 32) {
-        const float v = q[(long long)(q0 + j) * D + c] - m;
+        const float v = q[(long long)(q0 + j) * view.qld + c] - m;
         s = fmaf(v, v, s);
       }
     }
     s = wsum(s);
     if (lane == 0) s_qss[j] = s;
   }
-  row_stream<T, Cfg::R, Cfg::STAGES>(x, rb, re, D, vec, vchunk, st_smem, body);
+  row_stream<T, Cfg::R, Cfg::STAGES>(x, rb, re, D, view.ld, vec, vchunk, st_smem, body);
   if (!fused) return;
   __syncthreads();  // every warp's lists are complete
   const long long nblk = gridDim.x / nqt;
@@ -409,10 +443,11 @@ int vchunk_for(int D) {
   return (D + 15) / 16 * 16 <= fit ? D : fit;
 }
 
-template <int M, typename T, int QT>
+template <int M, typename T, int QT, bool ACC = false>
 int launch_stream_qt(bool fused, const KnnPlan& pl, const float* q, const T* x, int Q, long long N, int D,
-                     float p, const float* qmean, const float* xmean, const unsigned char* mask,
-                     int k, float* out, unsigned char* scratch, cudaStream_t s) {
+                     const KnnView& view, float p, const float* qmean, const float* xmean,
+                     const unsigned char* mask, int k, float* out, unsigned char* scratch,
+                     cudaStream_t s) {
   using Cfg = StCfg<QT>;
   static std::atomic<unsigned> seen{0};
   const int vchunk = vchunk_for<T, QT>(D);
@@ -421,14 +456,15 @@ int launch_stream_qt(bool fused, const KnnPlan& pl, const float* q, const T* x, 
   const int base = Cfg::Tile::RING + QT * vp * 4;
   const int kept_smem = fused && base + lists <= SMEM_MAX;
   const int smem = base + (kept_smem ? lists : 0);
-  if (int err = opt_in_smem(stream_kernel<M, T, QT>, SMEM_MAX, seen)) return err;
-  const int vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0) && ((long long)D * sizeof(T) % 16 == 0);
+  if (int err = opt_in_smem(stream_kernel<M, T, QT, ACC>, SMEM_MAX, seen)) return err;
+  const int vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0) && ((long long)D * sizeof(T) % 16 == 0) &&
+                  (view.ld * (long long)sizeof(T) % 16 == 0);
   unsigned long long* kept = fused ? reinterpret_cast<unsigned long long*>(scratch + pl.kept) : nullptr;
   float* pd = fused ? reinterpret_cast<float*>(scratch + pl.picks_d) : nullptr;
   int* pi = fused ? reinterpret_cast<int*>(scratch + pl.picks_i) : nullptr;
-  stream_kernel<M, T, QT><<<(unsigned)(pl.nblk * pl.nqt), RS_THREADS, smem, s>>>(
-      q, x, Q, N, D, p, qmean, xmean, mask, k, pl.per, pl.nqt, vec, vchunk, kept_smem, out, kept,
-      pd, pi);
+  stream_kernel<M, T, QT, ACC><<<(unsigned)(pl.nblk * pl.nqt), RS_THREADS, smem, s>>>(
+      q, x, Q, N, D, view, p, qmean, xmean, mask, k, pl.per, pl.nqt, vec, vchunk, kept_smem, out,
+      kept, pd, pi);
   return (int)cudaGetLastError();
 }
 
@@ -439,12 +475,13 @@ int stream_dispatch(bool fused, int metric, const KnnPlan& pl, const float* q, c
                     long long N, int D, float p, const float* qmean, const float* xmean,
                     const unsigned char* mask, int k, float* out, unsigned char* scratch,
                     cudaStream_t s) {
-#define KNN_CASE(M)                                                                          \
-  case M:                                                                                    \
-    return pl.qt == 1 ? launch_stream_qt<M, T, 1>(fused, pl, q, x, Q, N, D, p, qmean, xmean, \
-                                                  mask, k, out, scratch, s)                  \
-                      : launch_stream_qt<M, T, 8>(fused, pl, q, x, Q, N, D, p, qmean, xmean, \
-                                                  mask, k, out, scratch, s);
+  const KnnView view{D, D, nullptr, 1};
+#define KNN_CASE(M)                                                                              \
+  case M:                                                                                        \
+    return pl.qt == 1 ? launch_stream_qt<M, T, 1>(fused, pl, q, x, Q, N, D, view, p, qmean,      \
+                                                  xmean, mask, k, out, scratch, s)               \
+                      : launch_stream_qt<M, T, 8>(fused, pl, q, x, Q, N, D, view, p, qmean,      \
+                                                  xmean, mask, k, out, scratch, s);
   switch (metric) {
     KNN_CASE(M_EUCLIDEAN)
     KNN_CASE(M_COSINE)

@@ -9,6 +9,11 @@
 
 namespace {
 
+// The dynamic shared memory a launcher whose size varies by call raises its
+// kernel to, once (a block's 227 KB, less 4 KB for its static arrays); a
+// launch asks for its own size up to it.
+constexpr int SMEM_OPT_IN = 232448 - 4096;
+
 // Raises a kernel's dynamic shared memory limit to `bytes` once a device:
 // `seen` is the launcher's own mask of devices done.
 template <class Kern>

@@ -1,9 +1,10 @@
 // Mesh kernels for Hopper (sm_90a), behind the same plain C interface as
 // knn.cu (one library, loaded with ctypes by surrealdb_tpu_torch/ops/_cuda.py).
 // They serve surrealdb_tpu_torch/parallel/mesh.py, the port of
-// surrealdb_tpu/parallel/mesh.py, whose shard_map programs run one launch
-// sequence a shard here: a shard is a view of one tensor when the shards
-// share a card, a copy on its own card otherwise.
+// surrealdb_tpu/parallel/mesh.py, whose shard_map programs run here as one
+// launch a shard, or (K13) one launch over all the shards a card holds: a
+// shard is a view of one tensor when the shards share a card, a copy on its
+// own card otherwise.
 //
 // mesh_topk_merge is the merge of K11 sharded_knn, K12 sharded_knn_2d and
 // K13 _ivf_searcher: after the all-gather of every shard's kk candidates
@@ -13,25 +14,53 @@
 // shard * shard_rows (K11, K12: always, so a shard's +inf picks keep their
 // ids, as the reference returns them; K13: only where the distance is
 // finite, else -1). Order is lax.top_k's: distance, then the lower
-// position. What bounds it: nothing on this card (S*kk <= 512 candidates a
-// query at the mesh path's shapes, a few KB); its time is the launch.
-// Design: one block a query; each thread ranks its candidates against all
-// of the query's candidates (the count of smaller keys plus equal keys at
-// lower positions), O((S*kk)^2) compares, staged in shared memory when
-// they fit; the rank is the output slot, so no sort and no second pass.
+// position. What bounds it: nothing on this card (a few thousand
+// candidates a query at most, a few KB); its time should be the launch.
+// Design: one block a query; for k_out <= 256 each warp keeps a running
+// top-k_out of its share (knn.cuh's warp lists, keyed (key << 32 |
+// position)) and warp 0 merges them; above, each thread ranks its
+// candidates against all of the query's (O(M^2) compares: at K13's M =
+// 5,280 this alone took most of a Q=1 call on the H100, PERF.md §6, so it
+// serves only the large k_out the lists cannot hold); the rank is the
+// output slot.
 //
-// mesh_partial_sqdist is K12's per-shard distance step: for one (row shard,
-// feature shard) block of the corpus and the matching feature slice of the
-// queries, the reference's |q|^2 + |x|^2 - 2 q.x over the slice in f32 (its
-// formula, not K1's), added into a [Q, rows] f32 accumulator: the first
-// feature shard writes, the rest add, in feature-shard order, which is the
-// psum over `model`; `finish` on the last applies sqrt(max(d2, 0)) and sets
-// masked rows to +inf. What bounds it: reading the corpus slice (bytes;
-// 2*Q FMAs a bf16 element, far below the ridge). Design: one block owns 256
-// rows (a thread a row) and 8 queries; it walks the slice's columns 32 at a
-// time, staging the rows (any row stride: a feature shard is a strided view)
-// and the query chunk in shared memory; blocks of one row tile are adjacent,
-// so the tile is read from HBM once and the other query tiles hit L2.
+// mesh_knn_2d is K12's step for one (row shard, feature shard) block of the
+// corpus, or on one card for a feature shard of every row shard at once,
+// and the matching feature slice of the queries (strided views):
+// the reference's |q|^2 + |x|^2 - 2 q.x over the slice in f32, the psum
+// over `model` as an accumulator [Q, rows] that the first feature shard
+// writes and the next ones add to, in feature-shard order; the last applies
+// sqrt(max(d2, 0)) and the mask and takes the row shard's top-kk in
+// (distance, lower row) order. What bounds it: reading the corpus slice
+// (bytes) at Q <= 8; at Q = 64 the products (the corpus read once against
+// 64 queries). Design: K1/K2's cores (knn.cuh's streaming tier at Q <= 8,
+// and at Q > 8 over f32 rows; knn_tq.cuh's tensor tier at Q > 8 over bf16
+// rows: three bf16 limbs of the queries on mma.sync, a block a whole
+// 64-query tile), so each feature shard's rows are read from HBM once at
+// every Q, with their accumulator epilogue: a non-last shard's pass writes
+// or adds its partial into acc (K1's epilogue), the last one reads acc,
+// finishes and offers the keys straight to K2's running top-k, and the
+// merge below, over the blocks' picks, gives the row shard's kk: the
+// finished [Q, rows] distances never reach HBM, and no selection over
+// them follows. Its
+// instances (euclidean; f32 and bf16 rows at query tiles 1 and 8; the
+// tensor tier, both epilogues) build here, beside knn.cu.
+//
+// mesh_ivf_rerank is K13's rerank of every shard a card holds, one launch:
+// per shard, the probed lists' members that are listed (list_mask) and
+// slot_ok, ranked by `metric` in (distance, position pr * L + j) order,
+// top-kk, slots local to the shard. What bounds it: reading the candidate
+// rows (bytes), and at small Q the latency of a warp's row reads. Design:
+// a block a (query, shard, probe rank, contiguous range of the list's
+// extent), the ranges chosen so the launch has about four blocks an SM; a
+// warp reads its chunk's 32 mask bytes and offers nothing, reading no row,
+// where none is live; live rows are read as ivf.cu's gather reads them (a
+// warp a row, 16-byte loads, metric.cuh's formulas), four rows at once, and
+// their keys go straight to the warp's running top-k (knn.cuh's
+// warp_offer); the block writes its sorted picks with the slots mapped, so
+// no [Q, nprobe * L] scratch is written and no slot-mapping launch follows.
+// The picks lie in (shard, position) order, so mesh_topk_merge (with kk the
+// picks a shard) finishes with the reference's order.
 //
 // mesh_frontier_hop is K14 sharded_frontier_hop's per-shard gather: for
 // each (frontier row f, offset o < max_degree), start = indptr[fr],
@@ -54,6 +83,14 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include "launch.cuh"
+#include "metric.cuh"
+#include "mma.cuh"
+#include "rowstream.cuh"
+#include "knn.cuh"
+#include "knn_tq.cuh"
 #include "compact.cuh"
 
 namespace {
@@ -61,106 +98,369 @@ namespace {
 // ------------------------------------------------------------------ merge
 
 constexpr int MG_THREADS = 256;
+constexpr int MG_WARPS = MG_THREADS / 32;
 constexpr int MG_SMEM_KEYS = 12288;  // 48 KB of keys: static shared-memory limit
 
-// the order-preserving u32 image of an f32 (-0.0 ties with +0.0)
-__device__ __forceinline__ unsigned order_key(float f) {
-  unsigned u = __float_as_uint(f);
-  if (u == 0x80000000u) u = 0u;
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+// the pick at position p of a query's candidates d / ids, to out_d / out_i
+__device__ __forceinline__ void merge_pick(const float* __restrict__ d, const int* __restrict__ ids,
+                                           int p, int kk, long long shard_rows, int finite_only,
+                                           float* out_d, int* out_i) {
+  const float dv = d[p];
+  const long long shard = p / kk;
+  const bool finite = dv < __uint_as_float(0x7f800000u);  // below +inf
+  const long long gid = (long long)ids[p] + shard * shard_rows;
+  *out_d = dv;
+  *out_i = (finite_only && !finite) ? -1 : (int)gid;
 }
 
+// k_out <= KNN_FUSED_MAX_K: each warp keeps the k_out least (key << 32 |
+// position) pairs of its share of the query's candidates (knn.cuh's running
+// top-k), then warp 0 merges the warps' lists and writes them in order: a
+// candidate costs a compare and a ballot once the lists are good.
 __global__ void __launch_bounds__(MG_THREADS)
-topk_merge_kernel(const float* __restrict__ d_all, const int* __restrict__ i_all, int M, int kk,
-                  long long shard_rows, int k_out, int finite_only, float* __restrict__ out_d,
-                  int* __restrict__ out_i) {
+topk_merge_lists_kernel(const float* __restrict__ d_all, const int* __restrict__ i_all, int M,
+                        int kk, long long shard_rows, int k_out, int finite_only,
+                        float* __restrict__ out_d, int* __restrict__ out_i) {
+  extern __shared__ unsigned long long mg_lists[];  // [MG_WARPS][k_out]
+  const long long row = blockIdx.x;
+  const float* d = d_all + row * M;
+  const int* ids = i_all + row * M;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned long long* kept = mg_lists + warp * k_out;
+  for (int e = lane; e < k_out; e += 32) kept[e] = PAD_PAIR;
+  __syncwarp();
+  unsigned long long theta = PAD_PAIR;
+  for (int p0 = warp * 32; p0 < M; p0 += MG_THREADS) {
+    const int p = p0 + lane;
+    theta = warp_offer(kept, k_out, theta, p < M ? pair_of(f2key(d[p]), p) : PAD_PAIR);
+  }
+  __syncthreads();  // every warp's list is complete
+  if (warp != 0) return;
+  for (int w = 1; w < MG_WARPS; ++w) {
+    const unsigned long long* other = mg_lists + w * k_out;
+    for (int c0 = 0; c0 < k_out; c0 += 32)
+      theta = warp_offer(kept, k_out, theta, c0 + lane < k_out ? other[c0 + lane] : PAD_PAIR);
+  }
+  for (int r = lane; r < k_out; r += 32)  // M >= k_out: every entry a candidate
+    merge_pick(d, ids, (int)(unsigned)(kept[r] & 0xFFFFFFFFull), kk, shard_rows, finite_only,
+               out_d + row * k_out + r, out_i + row * k_out + r);
+}
+
+// k_out above it: each thread ranks its candidates against all of the
+// query's candidates (the count of smaller keys plus equal keys at lower
+// positions), staged in shared memory when they fit; the rank is the
+// output slot.
+__global__ void __launch_bounds__(MG_THREADS)
+topk_merge_rank_kernel(const float* __restrict__ d_all, const int* __restrict__ i_all, int M,
+                       int kk, long long shard_rows, int k_out, int finite_only,
+                       float* __restrict__ out_d, int* __restrict__ out_i) {
   extern __shared__ unsigned keys_smem[];
   const long long row = blockIdx.x;
   const float* d = d_all + row * M;
   const int* ids = i_all + row * M;
   const bool staged = M <= MG_SMEM_KEYS;
   if (staged)
-    for (int j = threadIdx.x; j < M; j += MG_THREADS) keys_smem[j] = order_key(d[j]);
+    for (int j = threadIdx.x; j < M; j += MG_THREADS) keys_smem[j] = f2key(d[j]);
   __syncthreads();
   for (int p = threadIdx.x; p < M; p += MG_THREADS) {
-    const unsigned kp = staged ? keys_smem[p] : order_key(d[p]);
+    const unsigned kp = staged ? keys_smem[p] : f2key(d[p]);
     int rank = 0;
     for (int j = 0; j < M && rank < k_out; ++j) {
-      const unsigned kj = staged ? keys_smem[j] : order_key(d[j]);
+      const unsigned kj = staged ? keys_smem[j] : f2key(d[j]);
       rank += (kj < kp) || (kj == kp && j < p);
     }
-    if (rank < k_out) {
-      const float dv = d[p];
-      const long long shard = p / kk;
-      const bool finite = dv < __uint_as_float(0x7f800000u);  // below +inf
-      const long long gid = (long long)ids[p] + shard * shard_rows;
-      out_d[row * k_out + rank] = dv;
-      out_i[row * k_out + rank] = (finite_only && !finite) ? -1 : (int)gid;
-    }
+    if (rank < k_out)
+      merge_pick(d, ids, p, kk, shard_rows, finite_only, out_d + row * k_out + rank,
+                 out_i + row * k_out + rank);
   }
 }
 
 // ------------------------------------------------------------------ K12
 
-constexpr int PS_THREADS = 256;  // rows a block, one a thread
-constexpr int PS_QT = 8;         // queries a block
-constexpr int PS_DK = 32;        // columns staged a step
+// One (row shard, feature shard) step on K1/K2's cores with the
+// accumulator epilogue (ACC): fused (kk > 0, the last feature shard) offers
+// the finished keys to K2's running top-k, else K1's pass writes the
+// accumulator. Euclidean only; f32 and bf16 rows at query tiles 1 and 8,
+// the tensor tier at Q > 8 over bf16 rows.
+template <bool FUSED>
+int knn2d_launch(const KnnPlan& pl, const float* q, const void* x, int x_bf16, int Q,
+                 long long rows, int Dm, const KnnView& view, const unsigned char* mask, int k,
+                 float* out, unsigned char* scratch, cudaStream_t s) {
+  constexpr int E = M_EUCLIDEAN;
+  if (pl.tq)
+    return launch_tq<E, FUSED, true>(pl, q, (const unsigned short*)x, Q, rows, Dm, view, mask, k,
+                                     out, scratch, s);
+  if (x_bf16) {
+    const __nv_bfloat16* xb = (const __nv_bfloat16*)x;
+    return pl.qt == 1 ? launch_stream_qt<E, __nv_bfloat16, 1, true>(
+                            FUSED, pl, q, xb, Q, rows, Dm, view, 0.f, nullptr, nullptr, mask, k,
+                            out, scratch, s)
+                      : launch_stream_qt<E, __nv_bfloat16, 8, true>(
+                            FUSED, pl, q, xb, Q, rows, Dm, view, 0.f, nullptr, nullptr, mask, k,
+                            out, scratch, s);
+  }
+  const float* xf = (const float*)x;
+  return pl.qt == 1 ? launch_stream_qt<E, float, 1, true>(FUSED, pl, q, xf, Q, rows, Dm, view,
+                                                          0.f, nullptr, nullptr, mask, k, out,
+                                                          scratch, s)
+                    : launch_stream_qt<E, float, 8, true>(FUSED, pl, q, xf, Q, rows, Dm, view,
+                                                          0.f, nullptr, nullptr, mask, k, out,
+                                                          scratch, s);
+}
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+// ------------------------------------------------------------------ K13
+
+constexpr int IR_THREADS = 256;
+constexpr int IR_WARPS = IR_THREADS / 32;
+constexpr int IR_ROWS = 4;  // member rows a warp reads at once
+
+// positions a block covers at most: a list of L positions split in G
+// contiguous ranges, rounded up to whole 32-position chunks
+__host__ __device__ inline int ir_span(int n, int G) { return ((n + G - 1) / G + 31) / 32 * 32; }
+
+int ir_smem_bytes(int D, int kkb) { return (D * 4 + 15) / 16 * 16 + IR_WARPS * kkb * 8; }
+
+// The distances of the query (qs [D] in shared memory, centred for
+// pearson; qss its squared norm) to up to IR_ROWS member rows xr[r] at
+// once (src[r] < 0: none; uniform in the warp), a warp a row as ivf.cu's
+// gather reads them: 16-byte loads (vec) or one value a lane, then a
+// shuffle reduction, so every lane holds every distance.
+template <int METRIC, typename T>
+__device__ __forceinline__ void member_distances(const T* const (&xr)[IR_ROWS],
+                                                 const int (&src)[IR_ROWS],
+                                                 const float* __restrict__ qs, int D, float p,
+                                                 float qss, int vec, float (&out)[IR_ROWS]) {
+  constexpr bool DOT = is_dot_metric<METRIC>();
+  constexpr int V = 16 / (int)sizeof(T);  // row values in 16 bytes
+  const int lane = threadIdx.x & 31;
+  float acc[IR_ROWS], acc2[IR_ROWS], xss[IR_ROWS], xm[IR_ROWS];
+#pragma unroll
+  for (int r = 0; r < IR_ROWS; ++r) acc[r] = acc2[r] = xss[r] = xm[r] = 0.f;
+  if (METRIC == M_PEARSON) {
+#pragma unroll
+    for (int r = 0; r < IR_ROWS; ++r) {
+      if (src[r] < 0) continue;  // uniform
+      float t = 0.f;
+      for (int c = lane; c < D; c += 32) t += to_f(xr[r][c]);
+      xm[r] = wsum(t) / (float)D;
+    }
+  }
+  if (vec) {
+    for (int c0 = lane * V; c0 < D; c0 += 32 * V) {
+      uint4 raw[IR_ROWS];
+#pragma unroll
+      for (int r = 0; r < IR_ROWS; ++r)  // every row's load in flight before the arithmetic
+        if (src[r] >= 0) raw[r] = __ldg(reinterpret_cast<const uint4*>(xr[r] + c0));
+#pragma unroll
+      for (int r = 0; r < IR_ROWS; ++r) {
+        if (src[r] < 0) continue;
+        const T* tv = reinterpret_cast<const T*>(&raw[r]);
+#pragma unroll
+        for (int u = 0; u < V; ++u) {
+          const float xv = to_f(tv[u]) - xm[r];
+          pw_step<METRIC>(qs[c0 + u], xv, p, acc[r], acc2[r]);
+          if (DOT) xss[r] = fmaf(xv, xv, xss[r]);
+        }
+      }
+    }
+  } else {
+    for (int c = lane; c < D; c += 32) {
+#pragma unroll
+      for (int r = 0; r < IR_ROWS; ++r) {
+        if (src[r] < 0) continue;
+        const float xv = to_f(xr[r][c]) - xm[r];
+        pw_step<METRIC>(qs[c], xv, p, acc[r], acc2[r]);
+        if (DOT) xss[r] = fmaf(xv, xv, xss[r]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < IR_ROWS; ++r) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float oa = __shfl_xor_sync(FULL, acc[r], off);
+      acc[r] = METRIC == M_CHEBYSHEV ? fmaxf(acc[r], oa) : acc[r] + oa;
+      acc2[r] += __shfl_xor_sync(FULL, acc2[r], off);
+      xss[r] += __shfl_xor_sync(FULL, xss[r], off);
+    }
+    out[r] = pw_finish<METRIC>(qss, xss[r], acc[r], acc2[r], p);
+  }
+}
+
+// Block b = (((query * S + shard) * P + probe rank) * G + g): query qi
+// against the members of list probes[qi, pr] in shard s (tables [S, C, L],
+// rows [S * cap, D], slot_ok [S * cap] or null: every slot) that lie in the
+// g-th of G contiguous ranges of the list's extent (one past its last
+// listed position). Warp w takes the range's 32-position chunks w, w + 8,
+// ...: a lane reads its position's mask byte, row and slot_ok byte; a chunk
+// with no live member reads no row and offers nothing; live rows are read a
+// warp a row, IR_ROWS at once; the chunk's keys (f2key(d) << 32 | position)
+// go to the warp's running top-kkb (warp_offer). At the end warp 0 merges
+// the warps' lists and writes the block's kkb picks, sorted: the distance
+// and the row's slot (list_rows, local to the shard), +inf and -1 past the
+// candidates, to out [Q, S, P, G, kkb], so a query's picks lie in (shard,
+// position) order among equal distances.
+template <int METRIC, typename T>
+__global__ void __launch_bounds__(IR_THREADS)
+ivf_rerank_kernel(const float* __restrict__ q, int D, float p, const int* __restrict__ probes,
+                  int P, const T* __restrict__ x, long long cap,
+                  const int* __restrict__ list_rows, const unsigned char* __restrict__ list_mask,
+                  int C, int L, const unsigned char* __restrict__ slot_ok, int S, int G, int kkb,
+                  int vec, float* __restrict__ out_d, int* __restrict__ out_i) {
+  constexpr bool DOT = is_dot_metric<METRIC>();
+  // the query [D] (centred for pearson), then the warps' lists [IR_WARPS][kkb]
+  extern __shared__ __align__(16) unsigned char ir_smem[];
+  __shared__ float s_red[IR_WARPS];
+  __shared__ int s_last[IR_WARPS];
+  __shared__ float s_qmean, s_qss;
+  float* qs = reinterpret_cast<float*>(ir_smem);
+  unsigned long long* lists =
+      reinterpret_cast<unsigned long long*>(ir_smem + (D * 4 + 15) / 16 * 16);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = (int)(blockIdx.x % G);
+  const long long qsp = blockIdx.x / G;  // (query * S + shard) * P + probe rank
+  const int pr = (int)(qsp % P);
+  const int s = (int)(qsp / P % S);
+  const int qi = (int)(qsp / P / S);
+  const long long lb = ((long long)s * C + probes[(long long)qi * P + pr]) * L;
+  const int* lr = list_rows + lb;
+  const unsigned char* lm = list_mask + lb;
+  const T* xs = x + (long long)s * cap * D;
+  const unsigned char* ok = slot_ok == nullptr ? nullptr : slot_ok + (long long)s * cap;
+
+  float part = 0.f;
+  for (int c = tid; c < D; c += IR_THREADS) {
+    const float v = q[(long long)qi * D + c];
+    qs[c] = v;
+    part += v;
+  }
+  if (METRIC == M_PEARSON) {
+    part = wsum(part);
+    if (lane == 0) s_red[warp] = part;
+    __syncthreads();
+    if (tid == 0) {
+      float t = 0.f;
+      for (int w = 0; w < IR_WARPS; ++w) t += s_red[w];
+      s_qmean = t / (float)D;
+    }
+    __syncthreads();
+    for (int c = tid; c < D; c += IR_THREADS) qs[c] -= s_qmean;
+  }
+  __syncthreads();
+  if (DOT) {
+    float t = 0.f;
+    for (int c = tid; c < D; c += IR_THREADS) t = fmaf(qs[c], qs[c], t);
+    t = wsum(t);
+    if (lane == 0) s_red[warp] = t;
+    __syncthreads();
+    if (tid == 0) {
+      float u = 0.f;
+      for (int w = 0; w < IR_WARPS; ++w) u += s_red[w];
+      s_qss = u;
+    }
+  }
+  // the list's extent; the warp's list starts empty
+  int last = -1;
+  for (int j = tid; j < L; j += IR_THREADS)
+    if (lm[j]) last = j;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) last = max(last, __shfl_xor_sync(FULL, last, o));
+  if (lane == 0) s_last[warp] = last;
+  unsigned long long* kept = lists + warp * kkb;
+  for (int e = lane; e < kkb; e += 32) kept[e] = PAD_PAIR;
+  __syncthreads();
+  const float qss = DOT ? s_qss : 0.f;
+  int ext = 0;
+  for (int w = 0; w < IR_WARPS; ++w) ext = max(ext, s_last[w] + 1);
+  const int span = ir_span(ext, G);
+  const int lo = g * span, hi = min(ext, lo + span);
+  unsigned long long theta = PAD_PAIR;
+  for (int c0 = lo + warp * 32; c0 < hi; c0 += IR_THREADS) {
+    const int j = c0 + lane;
+    bool live = j < hi && lm[j] != 0;
+    long long row = 0;
+    if (live) {
+      row = lr[j];
+      row = row < 0 ? 0 : (row >= cap ? cap - 1 : row);
+      live = ok == nullptr || ok[row] != 0;
+    }
+    unsigned todo = __ballot_sync(FULL, live);
+    if (todo == 0u) continue;  // uniform: no row read, nothing offered
+    float mine = 0.f;
+    while (todo != 0u) {  // uniform
+      int src[IR_ROWS];
+      const T* xr[IR_ROWS];
+#pragma unroll
+      for (int r = 0; r < IR_ROWS; ++r) {
+        src[r] = todo != 0u ? __ffs((int)todo) - 1 : -1;
+        todo &= todo - 1u;
+        xr[r] = xs + __shfl_sync(FULL, row, src[r] < 0 ? 0 : src[r]) * D;
+      }
+      float dist[IR_ROWS];
+      member_distances<METRIC, T>(xr, src, qs, D, p, qss, vec, dist);
+#pragma unroll
+      for (int r = 0; r < IR_ROWS; ++r)
+        if (lane == src[r]) mine = dist[r];
+    }
+    theta = warp_offer(kept, kkb, theta, live ? pair_of(f2key(mine), j) : PAD_PAIR);
+  }
+  __syncthreads();  // every warp's list is complete
+  if (warp != 0) return;
+  unsigned long long th = kept[kkb - 1];
+  for (int w = 1; w < IR_WARPS; ++w) {
+    const unsigned long long* other = lists + w * kkb;
+    for (int c0 = 0; c0 < kkb; c0 += 32)
+      th = warp_offer(kept, kkb, th, c0 + lane < kkb ? other[c0 + lane] : PAD_PAIR);
+  }
+  // the picks' place: a query's row, by shard, then probe rank, then range
+  const long long o = (qsp * G + g) * kkb;
+  for (int i = lane; i < kkb; i += 32) {
+    const unsigned long long v = kept[i];
+    const bool real = v != PAD_PAIR;
+    out_d[o + i] = real ? key2f((unsigned)(v >> 32)) : __uint_as_float(0x7f800000u);
+    out_i[o + i] = real ? lr[(unsigned)(v & 0xFFFFFFFFull)] : -1;
+  }
+}
+
+template <int M, typename T>
+int launch_rerank(const float* q, int Q, int D, float p, const int* probes, int P, const T* x,
+                  long long cap, const int* list_rows, const unsigned char* list_mask, int C,
+                  int L, const unsigned char* slot_ok, int S, int G, int kkb, float* out_d,
+                  int* out_i, cudaStream_t s) {
+  static std::atomic<unsigned> seen{0};
+  const int smem = ir_smem_bytes(D, kkb);
+  if (smem > SMEM_OPT_IN) return (int)cudaErrorInvalidValue;
+  if (int err = opt_in_smem(ivf_rerank_kernel<M, T>, smem > 48 * 1024 ? SMEM_OPT_IN : smem, seen))
+    return err;
+  const int vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0) && (D % (16 / (int)sizeof(T)) == 0);
+  const long long blocks = (long long)Q * S * P * G;
+  ivf_rerank_kernel<M, T><<<(unsigned)blocks, IR_THREADS, smem, s>>>(
+      q, D, p, probes, P, x, cap, list_rows, list_mask, C, L, slot_ok, S, G, kkb, vec, out_d,
+      out_i);
+  return (int)cudaGetLastError();
+}
 
 template <typename T>
-__global__ void __launch_bounds__(PS_THREADS)
-partial_sqdist_kernel(const float* __restrict__ q, long long q_stride, int Q,
-                      const T* __restrict__ x, long long x_stride, long long rows, int Dm,
-                      float* __restrict__ acc, int first, int finish,
-                      const unsigned char* __restrict__ mask) {
-  __shared__ float xs[PS_THREADS][PS_DK + 1];  // +1: conflict-free row reads
-  __shared__ float qs[PS_DK][PS_QT];
-  __shared__ float qq_s[PS_QT];
-
-  const long long nqt = (Q + PS_QT - 1) / PS_QT;
-  const int q0 = (int)(blockIdx.x % nqt) * PS_QT;  // blocks of one row tile are adjacent
-  const long long r0 = (long long)(blockIdx.x / nqt) * PS_THREADS;
-  const int t = threadIdx.x;
-  const long long row = r0 + t;
-
-  float dot[PS_QT];
-  for (int i = 0; i < PS_QT; ++i) dot[i] = 0.f;
-  float xx = 0.f, qq = 0.f;  // qq: thread t < PS_QT sums query q0 + t
-
-  for (int c0 = 0; c0 < Dm; c0 += PS_DK) {
-    for (int e = t; e < PS_THREADS * PS_DK; e += PS_THREADS) {
-      const int r = e / PS_DK, c = e % PS_DK;
-      const long long gr = r0 + r;
-      xs[r][c] = (gr < rows && c0 + c < Dm) ? to_f32(x[gr * x_stride + c0 + c]) : 0.f;
-    }
-    for (int e = t; e < PS_DK * PS_QT; e += PS_THREADS) {
-      const int c = e / PS_QT, qi = e % PS_QT;
-      qs[c][qi] = (q0 + qi < Q && c0 + c < Dm) ? q[(long long)(q0 + qi) * q_stride + c0 + c] : 0.f;
-    }
-    __syncthreads();
-    if (t < PS_QT)
-      for (int c = 0; c < PS_DK; ++c) qq += qs[c][t] * qs[c][t];
-    for (int c = 0; c < PS_DK; ++c) {
-      const float xv = xs[t][c];
-      xx += xv * xv;
-#pragma unroll
-      for (int i = 0; i < PS_QT; ++i) dot[i] += qs[c][i] * xv;
-    }
-    __syncthreads();
+int rerank_dispatch(int metric, const float* q, int Q, int D, float p, const int* probes, int P,
+                    const T* x, long long cap, const int* list_rows,
+                    const unsigned char* list_mask, int C, int L, const unsigned char* slot_ok,
+                    int S, int G, int kkb, float* out_d, int* out_i, cudaStream_t s) {
+#define IR_CASE(M)                                                                         \
+  case M:                                                                                  \
+    return launch_rerank<M, T>(q, Q, D, p, probes, P, x, cap, list_rows, list_mask, C, L, \
+                               slot_ok, S, G, kkb, out_d, out_i, s);
+  switch (metric) {
+    IR_CASE(M_EUCLIDEAN)
+    IR_CASE(M_COSINE)
+    IR_CASE(M_MANHATTAN)
+    IR_CASE(M_CHEBYSHEV)
+    IR_CASE(M_HAMMING)
+    IR_CASE(M_JACCARD)
+    IR_CASE(M_PEARSON)
+    IR_CASE(M_MINKOWSKI)
+    default: return (int)cudaErrorInvalidValue;
   }
-  if (t < PS_QT) qq_s[t] = qq;
-  __syncthreads();
-  if (row >= rows) return;
-  const bool live = mask == nullptr || mask[row] != 0;
-  for (int i = 0; i < PS_QT && q0 + i < Q; ++i) {
-    float* a = acc + (long long)(q0 + i) * rows + row;
-    float d2 = qq_s[i] + xx - 2.0f * dot[i];
-    if (!first) d2 = *a + d2;
-    if (finish) d2 = live ? sqrtf(fmaxf(d2, 0.f)) : __uint_as_float(0x7f800000u);
-    *a = d2;
-  }
+#undef IR_CASE
 }
 
 // ------------------------------------------------------------------ K14
@@ -220,34 +520,110 @@ int mesh_topk_merge(const void* d_all, const void* i_all, int Q, int M, int kk,
                     void* stream) {
   if (Q <= 0 || M <= 0 || kk <= 0 || k_out <= 0 || k_out > M || M % kk != 0)
     return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (k_out <= KNN_FUSED_MAX_K) {
+    topk_merge_lists_kernel<<<Q, MG_THREADS, (size_t)MG_WARPS * k_out * 8, s>>>(
+        (const float*)d_all, (const int*)i_all, M, kk, shard_rows, k_out, finite_only,
+        (float*)out_d, (int*)out_i);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = M <= MG_SMEM_KEYS ? (size_t)M * sizeof(unsigned) : 0;
-  topk_merge_kernel<<<Q, MG_THREADS, smem, (cudaStream_t)stream>>>(
+  topk_merge_rank_kernel<<<Q, MG_THREADS, smem, s>>>(
       (const float*)d_all, (const int*)i_all, M, kk, shard_rows, k_out, finite_only,
       (float*)out_d, (int*)out_i);
   return (int)cudaGetLastError();
 }
 
-// q: the feature slice of [Q, *] f32 queries (row stride q_stride); x: the
-// [rows, Dm] block of the corpus (f32, or bf16 with x_bf16 = 1; row stride
-// x_stride); acc [Q, rows] f32; mask [rows] u8, read only with finish.
-int mesh_partial_sqdist(const void* q, long long q_stride, int Q, const void* x, int x_bf16,
-                        long long x_stride, long long rows, int Dm, void* acc, int first,
-                        int finish, const void* mask, void* stream) {
-  if (Q <= 0 || rows <= 0 || Dm <= 0) return (int)cudaErrorInvalidValue;
-  const long long nqt = (Q + PS_QT - 1) / PS_QT;
-  const long long blocks = ((rows + PS_THREADS - 1) / PS_THREADS) * nqt;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+// K12's step for one (row shard, feature shard): q the feature slice of
+// [Q, *] f32 queries (q_stride elements between queries); x the [rows, Dm]
+// block of the corpus (f32, or bf16 with x_bf16 = 1; rows x_stride
+// elements apart); acc [Q, rows] f32, read unless `first`; mask [rows] u8
+// (0: the row reads as +inf), read with `finish`. kk = 0: acc = (first ? 0
+// : acc) + the slice's |q|^2 + |x|^2 - 2 q.x, with `finish` sqrt(max(., 0))
+// and the mask (K1's pass). kk > 0 (needs finish; kk <= knn_search_max_k(),
+// <= rows): the kk nearest rows of the finished distances, in (distance,
+// row) order, to out_d [Q, kk] f32 / out_i [Q, kk] i32 (K2's fused pass,
+// then mesh_topk_merge's kernel over the blocks' picks); acc is not
+// written. scratch:
+// mesh_knn_2d_scratch_bytes(Q, rows, Dm, kk, x_bf16) bytes, null when 0.
+int mesh_knn_2d(const void* q, long long q_stride, int Q, const void* x, int x_bf16,
+                long long x_stride, long long rows, int Dm, void* acc, int first, int finish,
+                const void* mask, int kk, void* scratch, long long scratch_bytes, void* out_d,
+                void* out_i, void* stream) {
+  if (Q <= 0 || rows <= 0 || Dm <= 0 || kk < 0 || kk > KNN_FUSED_MAX_K || kk > rows ||
+      (kk > 0 && !finish) || q_stride < Dm || x_stride < Dm || q_stride > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const bool fused = kk > 0;
+  const KnnPlan pl = make_plan(Q, rows, Dm, fused ? kk : 1, x_bf16, M_EUCLIDEAN, fused);
+  if (pl.bytes > 0 && (scratch == nullptr || scratch_bytes < pl.bytes))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  const KnnView view{x_stride, (int)q_stride, first ? nullptr : (const float*)acc, finish};
   const unsigned char* m = finish ? (const unsigned char*)mask : nullptr;
+  unsigned char* sc = (unsigned char*)scratch;
+  if (!fused)
+    return knn2d_launch<false>(pl, (const float*)q, x, x_bf16, Q, rows, Dm, view, m, 1,
+                               (float*)acc, sc, s);
+  const int err = knn2d_launch<true>(pl, (const float*)q, x, x_bf16, Q, rows, Dm, view, m, kk,
+                                     nullptr, sc, s);
+  if (err != 0) return err;
+  // the blocks' picks [Q, nblk * kk] lie in row order among equal keys:
+  // the merge as one shard of local ids
+  return mesh_topk_merge(sc + pl.picks_d, sc + pl.picks_i, Q, (int)(pl.nblk * kk),
+                         (int)(pl.nblk * kk), 0, kk, 0, out_d, out_i, stream);
+}
+
+long long mesh_knn_2d_scratch_bytes(int Q, long long rows, int Dm, int kk, int x_bf16) {
+  if (Q <= 0 || rows <= 0 || Dm <= 0 || kk < 0) return 0;
+  return make_plan(Q, rows, Dm, kk > 0 ? kk : 1, x_bf16, M_EUCLIDEAN, kk > 0).bytes;
+}
+
+// K13's rerank over S shards of one device, one launch: q [Q, D] f32;
+// probes [Q, P] i32 (list ids); x [S * cap, D] f32 / bf16 (shard s's rows
+// from s * cap); list_rows [S, C, L] i32 (slots local to the shard) and
+// list_mask [S, C, L] u8; slot_ok [S * cap] u8 or null (every slot); G
+// ranges a list (mesh_ivf_rerank_groups), kkb picks a block
+// (mesh_ivf_rerank_picks). out_d / out_i [Q, S * P * G * kkb]: each block's
+// picks, sorted by (distance, position), +inf / -1 past its candidates; a
+// query's row lies in (shard, probe rank, range) order, so
+// mesh_topk_merge with kk = P * G * kkb selects them in the reference's
+// (distance, shard, position) order and adds the shard offsets.
+int mesh_ivf_rerank(const void* q, int Q, int D, int metric, float p, const void* probes, int P,
+                    const void* x, int x_bf16, long long cap, const void* list_rows,
+                    const void* list_mask, int C, int L, const void* slot_ok, int S, int G,
+                    int kkb, void* out_d, void* out_i, void* stream) {
+  if (Q <= 0 || D <= 0 || P <= 0 || cap <= 0 || C <= 0 || L <= 0 || S <= 0 || G <= 0 ||
+      kkb <= 0 || kkb > KNN_FUSED_MAX_K || kkb > ir_span(L, G) ||
+      (long long)Q * S * P * G > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int* pr = (const int*)probes;
+  const int* lr = (const int*)list_rows;
+  const unsigned char* lm = (const unsigned char*)list_mask;
+  const unsigned char* ok = (const unsigned char*)slot_ok;
   if (x_bf16)
-    partial_sqdist_kernel<__nv_bfloat16><<<(unsigned)blocks, PS_THREADS, 0, s>>>(
-        (const float*)q, q_stride, Q, (const __nv_bfloat16*)x, x_stride, rows, Dm, (float*)acc,
-        first, finish, m);
-  else
-    partial_sqdist_kernel<float><<<(unsigned)blocks, PS_THREADS, 0, s>>>(
-        (const float*)q, q_stride, Q, (const float*)x, x_stride, rows, Dm, (float*)acc, first,
-        finish, m);
-  return (int)cudaGetLastError();
+    return rerank_dispatch<__nv_bfloat16>(metric, (const float*)q, Q, D, p, pr, P,
+                                          (const __nv_bfloat16*)x, cap, lr, lm, C, L, ok, S, G,
+                                          kkb, (float*)out_d, (int*)out_i, s);
+  return rerank_dispatch<float>(metric, (const float*)q, Q, D, p, pr, P, (const float*)x, cap, lr,
+                                lm, C, L, ok, S, G, kkb, (float*)out_d, (int*)out_i, s);
+}
+
+// G: the contiguous ranges each of `lists` (Q * S * P) probed lists of L
+// positions is split into, so the launch has about four blocks an SM; a kk
+// above knn_search_max_k() splits a list into ranges of at most that many
+// positions, so a block's list holds all its candidates.
+long long mesh_ivf_rerank_groups(long long lists, int L, int kk) {
+  if (lists <= 0 || L <= 0) return 1;
+  long long g = (4LL * sm_count() + lists - 1) / lists;
+  g = max(1LL, min(g, (long long)(L + 31) / 32));
+  if (kk > KNN_FUSED_MAX_K) g = max(g, (long long)(L + KNN_FUSED_MAX_K - 1) / KNN_FUSED_MAX_K);
+  return g;
+}
+
+// kkb: the picks a block keeps, min(kk, the positions a range may hold)
+int mesh_ivf_rerank_picks(int L, int G, int kk) {
+  return L <= 0 || G <= 0 ? 0 : min(kk, ir_span(L, G));
 }
 
 // indptr [V1] i32, indices [E] i32, frontier [F] i32, fmask [F] u8;

@@ -237,7 +237,7 @@ skinny_kernel(const T* __restrict__ x, const float* __restrict__ w,
   body.out = out;
   body.ws = reinterpret_cast<float*>(sk_smem + SkTile::RING);
   body.wp = (min(kchunk, K) + 15) / 16 * 16;
-  row_stream<T, SK_R, SK_STAGES>(x, rb, re, K, vec, kchunk, sk_smem, body);
+  row_stream<T, SK_R, SK_STAGES>(x, rb, re, K, K, vec, kchunk, sk_smem, body);
 }
 
 // ------------------------------------------------------------------ narrow

@@ -62,13 +62,15 @@ __device__ __forceinline__ void rs_unpack(const unsigned char* p, float* v, __nv
   }
 }
 
-// x [N, D] row-major; the block's rows [rb, re); vchunk: the vector columns
-// staged at a time (a multiple of RS_CHUNK / sizeof(T), or >= D: staged
-// once); vec: 16-byte cp.async (x and D * sizeof(T) 16-byte aligned)
+// x [N, D] with rows ld elements apart (ld = D, or a feature shard's
+// view of wider rows); the block's rows [rb, re); vchunk: the vector
+// columns staged at a time (a multiple of RS_CHUNK / sizeof(T), or >= D:
+// staged once); vec: 16-byte cp.async (x, D * sizeof(T) and ld *
+// sizeof(T) 16-byte aligned)
 template <typename T, int R, int STAGES, class Body>
 __device__ __forceinline__ void row_stream(const T* __restrict__ x, long long rb, long long re,
-                                           int D, int vec, int vchunk, unsigned char* xs,
-                                           Body& body) {
+                                           int D, long long ld, int vec, int vchunk,
+                                           unsigned char* xs, Body& body) {
   constexpr int E = 16 / (int)sizeof(T);          // values a 16-byte piece
   constexpr int KC = RS_CHUNK / (int)sizeof(T);   // columns a step
   constexpr int PIECES = RS_CHUNK / 16;
@@ -95,13 +97,13 @@ __device__ __forceinline__ void row_stream(const T* __restrict__ x, long long rb
           const long long row = row0 + r;
           const int k = k0 + q * E;
           const bool in = row < re && k < D;
-          cp_async16(st + r * RS_PITCH + q * 16, in ? x + row * D + k : x, in ? 16 : 0);
+          cp_async16(st + r * RS_PITCH + q * 16, in ? x + row * ld + k : x, in ? 16 : 0);
         }
       } else {
         for (int p = tid; p < ROWS * KC; p += RS_THREADS) {
           const int r = p / KC, kk = p % KC, k = k0 + kk;
           const long long row = row0 + r;
-          reinterpret_cast<T*>(st + r * RS_PITCH)[kk] = (row < re && k < D) ? x[row * D + k] : T{};
+          reinterpret_cast<T*>(st + r * RS_PITCH)[kk] = (row < re && k < D) ? x[row * ld + k] : T{};
         }
       }
     }

@@ -21,8 +21,10 @@ A CUDA tensor goes to the kernels (or the wrapper raises); CPU tensors go
 to the plain versions, which the tests hold against the reference and
 chip_smoke.py holds the kernels against. The mesh half
 (`_device_sharded`, `search_batch_sharded`) runs K13 through
-parallel/mesh.py `sharded_ivf_search`, which calls this module's probe and
-rerank halves (`_ivf_probe`, `_ivf_rerank`) once a device and once a shard.
+parallel/mesh.py `sharded_ivf_search`: on the card K2's probe once a device
+and one `mesh_ivf_rerank` launch over a device's shards; on the CPU this
+module's plain probe and rerank (`ivf_probe_plain`, `ivf_rerank_plain`)
+once a device and once a shard.
 
 Role of the reference's graph ANN structures (reference:
 core/src/idx/trees/hnsw/mod.rs:337-416 layered beam search) re-designed
@@ -300,7 +302,9 @@ def _ivf_rerank(q, probes, list_rows, list_mask, x, slot_ok, metric, k):
     [C, L] row slots of x, list_mask [C, L]) that are listed and slot_ok,
     by `metric`, top-min(k, nprobe*L) in (distance, position) order, slots
     -1 where the distance is +inf. On the card `ivf_gather_distance`, K2's
-    selection and `ivf_map_slots`; the mesh (K13) calls it once a shard."""
+    selection and `ivf_map_slots` (the single-device path; the mesh's K13
+    reranks every shard of a card in one `mesh_ivf_rerank` launch instead,
+    parallel/mesh.py)."""
     if not _on_card(q, probes, list_rows, list_mask, x, slot_ok):
         return ivf_rerank_plain(q, probes, list_rows, list_mask, x, slot_ok, metric, k)
     from surrealdb_tpu_torch.ops import _cuda

@@ -88,9 +88,19 @@ _SIGNATURES = {
     "mesh_topk_merge": (ctypes.c_int, [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P,
                                        _P]),
-    "mesh_partial_sqdist": (ctypes.c_int, [_P, ctypes.c_longlong, ctypes.c_int, _P, ctypes.c_int,
-                                           ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                                           _P, ctypes.c_int, ctypes.c_int, _P, _P]),
+    "mesh_knn_2d": (ctypes.c_int, [_P, ctypes.c_longlong, ctypes.c_int, _P, ctypes.c_int,
+                                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _P,
+                                   ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P,
+                                   ctypes.c_longlong, _P, _P, _P]),
+    "mesh_knn_2d_scratch_bytes": (ctypes.c_longlong, [ctypes.c_int, ctypes.c_longlong,
+                                                      ctypes.c_int, ctypes.c_int, ctypes.c_int]),
+    "mesh_ivf_rerank": (ctypes.c_int, [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_float, _P, ctypes.c_int, _P, ctypes.c_int,
+                                       ctypes.c_longlong, _P, _P, ctypes.c_int, ctypes.c_int, _P,
+                                       ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P]),
+    "mesh_ivf_rerank_groups": (ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_int,
+                                                   ctypes.c_int]),
+    "mesh_ivf_rerank_picks": (ctypes.c_int, [ctypes.c_int, ctypes.c_int, ctypes.c_int]),
     "mesh_frontier_hop": (ctypes.c_int, [_P, ctypes.c_longlong, _P, ctypes.c_longlong, _P, _P,
                                          ctypes.c_longlong, ctypes.c_int, _P, _P, _P]),
     "mesh_dedup_frontier": (ctypes.c_int, [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,

@@ -22,15 +22,17 @@ PyTorch version here:
   the shard's slab: N = shard_rows, the shard's slice of the mask), then
   `mesh_topk_merge`, which selects k in lax.top_k's order and adds each
   candidate's shard offset to its id;
-- K12 `sharded_knn_2d`: per (row, feature) shard `mesh_partial_sqdist`
-  (the reference's |q|^2 + |x|^2 - 2 q.x over the feature slice, psum over
-  `model`, sqrt and mask on the last slice), per row shard K2's selection,
-  then `mesh_topk_merge`;
+- K12 `sharded_knn_2d`: per (row, feature) shard `mesh_knn_2d` (the
+  reference's |q|^2 + |x|^2 - 2 q.x over the feature slice on K1/K2's
+  cores, psum over `model` into an accumulator; the last slice finishes,
+  masks and selects the row shard's top-kk in the same pass), then
+  `mesh_topk_merge`; on one card one `mesh_knn_2d` a feature shard over
+  all row shards, the last selecting the answer;
 - K13 `sharded_ivf_search`: the probe (the fused K2 over the replicated
-  centroids) once a distinct device, per shard K3's rerank on the shard's
-  [C, L] slab (idx/ivf.py `_ivf_rerank`: `ivf_gather_distance`,
-  `knn_select`, `ivf_map_slots`), then `mesh_topk_merge` (ids of finite
-  distances only, -1 else);
+  centroids) once a distinct device, then `mesh_ivf_rerank` once over all
+  the shards a device holds (every probed list's members ranked and
+  selected in one launch, slots mapped), then `mesh_topk_merge` (ids of
+  finite distances only, -1 else);
 - K14 `sharded_frontier_hop`: per frontier shard `mesh_frontier_hop`;
 - K15 `dedup_frontier`: `mesh_dedup_frontier`.
 
@@ -48,6 +50,7 @@ chip_smoke.py holds the kernels against.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -58,10 +61,11 @@ from surrealdb_tpu_torch.ops import distances as D
 from surrealdb_tpu_torch.ops.distances import LaunchCounter
 
 MERGE = LaunchCounter("mesh_topk_merge")  # K11, K12, K13's merge
-PARTIAL = LaunchCounter("mesh_partial_sqdist")  # K12
+KNN2D = LaunchCounter("mesh_knn_2d")  # K12
+RERANK = LaunchCounter("mesh_ivf_rerank")  # K13
 HOP = LaunchCounter("mesh_frontier_hop")  # K14
 DEDUP = LaunchCounter("mesh_dedup_frontier")  # K15
-KERNELS = (MERGE, PARTIAL, HOP, DEDUP)
+KERNELS = (MERGE, KNN2D, RERANK, HOP, DEDUP)
 
 
 # ------------------------------------------------------------------ mesh
@@ -241,6 +245,31 @@ def as_sharded(mesh: Mesh, t, spec, dtype=None) -> ShardedTensor:
     return shard_tensor(mesh, t, spec, dtype=dtype, copy=False)
 
 
+def _launch_groups(mesh: Mesh, axis: str, parts: Sequence[ShardedTensor], feat_axis=None):
+    """The shards along `axis` grouped by the launches that cover them, as
+    [tensors of each part] a group. When every part's shards are views of
+    its base (the mesh on one device), one group whose tensors are the
+    bases: a launch over all the shards; otherwise one group a shard, in
+    shard order, holding each part's shard there. With `feat_axis` each
+    part gives a list, one entry a feature shard: its column slice (of the
+    base, or the shard at that grid position) where the part is split over
+    `feat_axis`, else the whole part (or its replica at that position)."""
+    n_feat = mesh.shape[feat_axis] if feat_axis else 1
+    one = all(p.base is not None for p in parts)
+
+    def tensor(p, s, m):
+        if not one:
+            return p.shard(mesh.position(**{axis: s, **({feat_axis: m} if feat_axis else {})}))
+        if feat_axis is None or feat_axis not in p.spec:
+            return p.base
+        dim = p.spec.index(feat_axis)
+        w = p.shape[dim] // n_feat
+        return p.base.narrow(dim, m * w, w)
+
+    return [[tensor(p, s, 0) if feat_axis is None else [tensor(p, s, m) for m in range(n_feat)]
+             for p in parts] for s in ([0] if one else range(mesh.shape[axis]))]
+
+
 # ------------------------------------------------------------------ collectives
 def all_gather(parts: Sequence[torch.Tensor], device, axis: int = 1) -> torch.Tensor:
     """Concatenate the shards' parts along `axis`, in shard order, into one
@@ -338,6 +367,12 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
 
 
+def _on(dev):
+    """The card `dev` as the current one (a launch plan sizes itself there);
+    nothing for the CPU, where the tests drive the kernels' emulation."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
 def _on_card(*ts) -> bool:
     devs = {t.device for t in ts}
     if all(d.type == "cpu" for d in devs):
@@ -383,9 +418,12 @@ def topk_merge(d_all, i_all, kk: int, shard_rows: int, k_out: int, finite_only: 
     return out
 
 
-def _launch_partial_sqdist(lib, q, x, acc, finish, mask):
-    """mesh_partial_sqdist's argument checks and launch through `lib`;
-    returns the accumulator (made here when acc is None: the first slice)."""
+def _launch_knn_2d(lib, q, x, acc=None, finish=False, mask=None, kk=0):
+    """mesh_knn_2d's argument checks and launch through `lib`. kk = 0:
+    returns the accumulator (made here when acc is None: the first slice);
+    kk > 0 (a finished last slice): (dists [Q, kk] f32, rows [Q, kk]
+    int32), the row shard's top-kk; acc is then read (unless None), not
+    written."""
     from surrealdb_tpu_torch.ops import _cuda
 
     if q.dtype != torch.float32 or x.dtype not in (torch.float32, torch.bfloat16):
@@ -395,39 +433,121 @@ def _launch_partial_sqdist(lib, q, x, acc, finish, mask):
         raise ValueError(f"q [Q, Dm] and x [rows, Dm] must have unit column stride, got "
                          f"{tuple(q.shape)} {q.stride()}, {tuple(x.shape)} {x.stride()}")
     nq, rows = q.shape[0], x.shape[0]
+    if kk and (not finish or not 1 <= kk <= rows):
+        raise ValueError(f"kk={kk} needs finish and 1 <= kk <= {rows}")
     first = acc is None
-    if first:
+    if first and not kk:
         acc = torch.empty((nq, rows), dtype=torch.float32, device=x.device)
-    elif acc.dtype != torch.float32 or acc.shape != (nq, rows) or not acc.is_contiguous():
+    elif not first and (acc.dtype != torch.float32 or acc.shape != (nq, rows)
+                        or not acc.is_contiguous()):
         raise ValueError(f"acc must be a contiguous float32 [{nq}, {rows}] tensor")
     m = None
     if finish and mask is not None:
         if mask.shape != (rows,) or mask.dtype != torch.bool or not mask.is_contiguous():
             raise ValueError(f"mask must be a contiguous bool [{rows}] tensor")
         m = mask.view(torch.uint8)
-    status = lib.mesh_partial_sqdist(
-        q.data_ptr(), q.stride(0), nq, x.data_ptr(), int(x.dtype == torch.bfloat16), x.stride(0),
-        rows, x.shape[1], acc.data_ptr(), int(first), int(finish),
-        None if m is None else m.data_ptr(), _stream(x.device),
+    bf16 = int(x.dtype == torch.bfloat16)
+    nbytes = int(lib.mesh_knn_2d_scratch_bytes(nq, rows, x.shape[1], kk, bf16))
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes else None
+    out_d = out_i = None
+    if kk:
+        out_d = torch.empty((nq, kk), dtype=torch.float32, device=x.device)
+        out_i = torch.empty((nq, kk), dtype=torch.int32, device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    status = lib.mesh_knn_2d(
+        q.data_ptr(), q.stride(0), nq, x.data_ptr(), bf16, x.stride(0), rows, x.shape[1],
+        ptr(acc), int(first), int(finish), ptr(m), kk, ptr(scratch), nbytes, ptr(out_d),
+        ptr(out_i), _stream(x.device),
     )
-    _cuda.check(status, "mesh_partial_sqdist")
-    return acc
+    _cuda.check(status, "mesh_knn_2d")
+    return (out_d, out_i) if kk else acc
+
+
+def _knn_2d_cuda(q, x, acc, finish, mask, kk):
+    from surrealdb_tpu_torch.ops import _cuda
+
+    with torch.cuda.device(x.device):  # the plan sizes itself on the shard's card
+        out = _launch_knn_2d(_cuda.lib(), q, x, acc, finish, mask, kk)
+    KNN2D.bump()
+    return out
 
 
 def partial_sqdist(q, x, acc=None, finish: bool = False, mask=None):
     """One (row shard, feature shard) step of K12: acc [Q, rows] f32 (None:
     this is the first feature shard) + the slice's partial squared
-    distance; `finish` (the last feature shard) applies sqrt(max(., 0))
-    and +inf at the rows `mask` excludes."""
+    distance; `finish` applies sqrt(max(., 0)) and +inf at the rows `mask`
+    excludes."""
     ts = [q, x] + ([acc] if acc is not None else []) + ([mask] if mask is not None else [])
     if not _on_card(*ts):
         return partial_sqdist_plain(q, x, acc, finish, mask)
+    return _knn_2d_cuda(q, x, acc, finish, mask, 0)
+
+
+def sqdist_topk(q, x, acc, mask, kk: int):
+    """The last feature shard's step of K12: acc (None: the only feature
+    shard) + the slice's partial squared distance, finished and masked as
+    partial_sqdist's, then the row shard's kk nearest rows in (distance,
+    lower row) order -> (dists [Q, kk] f32, rows [Q, kk] int32). On the
+    card one fused pass and its merge, so the finished distances never
+    reach memory; a kk above K2's fused limit (a shape rule, as K2's)
+    finishes into the accumulator and selects it with K2's select."""
+    ts = [q, x] + ([acc] if acc is not None else []) + ([mask] if mask is not None else [])
+    if not _on_card(*ts):
+        return D._topk_min_stable(partial_sqdist_plain(q, x, acc, True, mask), kk)
     from surrealdb_tpu_torch.ops import _cuda
 
-    with torch.cuda.device(x.device):
-        out = _launch_partial_sqdist(_cuda.lib(), q, x, acc, finish, mask)
-    PARTIAL.bump()
-    return out
+    if kk > _cuda.lib().knn_search_max_k():
+        return D.select_min_k(_knn_2d_cuda(q, x, acc, True, mask, 0), kk)
+    return _knn_2d_cuda(q, x, acc, True, mask, kk)
+
+
+def _launch_ivf_rerank(lib, q, probes, x, list_rows, list_mask, slot_ok, metric, groups, kkb):
+    """mesh_ivf_rerank's checks and launch through `lib` over the S shards
+    of one device held as one tensor each: x [S * cap, D] rows, list_rows /
+    list_mask [S, C, L] (slots local to the shard), slot_ok [S * cap] bool
+    or None (every slot). Returns the blocks' picks (dists [Q, S * P *
+    groups * kkb] f32, local slots int32), in (shard, position) order."""
+    from surrealdb_tpu_torch.idx.ivf import _rows_ptr
+    from surrealdb_tpu_torch.ops import _cuda
+
+    xp, bf16 = _rows_ptr(x)
+    if q.dtype != torch.float32 or q.dim() != 2 or not q.is_contiguous() \
+            or q.shape[1] != x.shape[1]:
+        raise ValueError("queries must be a contiguous float32 [Q, D] tensor of the rows' width")
+    if probes.dtype != torch.int32 or probes.dim() != 2 or not probes.is_contiguous() \
+            or probes.shape[0] != q.shape[0]:
+        raise ValueError("probes must be a contiguous int32 [Q, nprobe] tensor")
+    if list_rows.dtype != torch.int32 or list_mask.dtype != torch.bool or list_rows.dim() != 3 \
+            or list_mask.shape != list_rows.shape or not (list_rows.is_contiguous()
+                                                          and list_mask.is_contiguous()):
+        raise ValueError("list_rows and list_mask must be contiguous int32 / bool [S, C, L]")
+    n_sh, n_lists, lmax = list_rows.shape
+    if x.shape[0] % n_sh:
+        raise ValueError(f"{x.shape[0]} rows do not split into {n_sh} shards")
+    cap = x.shape[0] // n_sh
+    if slot_ok is not None and (slot_ok.dtype != torch.bool or slot_ok.shape != (x.shape[0],)
+                                or not slot_ok.is_contiguous()):
+        raise ValueError(f"slot_ok must be a contiguous bool [{x.shape[0]}] tensor")
+    code, p = D._metric_code(metric)
+    nq, nprobe = probes.shape
+    width = n_sh * nprobe * groups * kkb
+    out_d = torch.empty((nq, width), dtype=torch.float32, device=x.device)
+    out_i = torch.empty((nq, width), dtype=torch.int32, device=x.device)
+    status = lib.mesh_ivf_rerank(
+        q.data_ptr(), nq, q.shape[1], code, p, probes.data_ptr(), nprobe, xp, bf16, cap,
+        list_rows.data_ptr(), list_mask.view(torch.uint8).data_ptr(), n_lists, lmax,
+        None if slot_ok is None else slot_ok.view(torch.uint8).data_ptr(), n_sh, groups, kkb,
+        out_d.data_ptr(), out_i.data_ptr(), _stream(x.device),
+    )
+    _cuda.check(status, "mesh_ivf_rerank")
+    return out_d, out_i
+
+
+def rerank_plan(lib, n_queries: int, n_shards: int, nprobe: int, lmax: int, kk: int):
+    """(groups, kkb) of a K13 launch: the ranges a probed list splits into
+    and the picks a block keeps (sized on the current card)."""
+    groups = int(lib.mesh_ivf_rerank_groups(n_queries * n_shards * nprobe, lmax, kk))
+    return groups, int(lib.mesh_ivf_rerank_picks(lmax, groups, kk))
 
 
 def _check_i32(t, what):
@@ -552,26 +672,31 @@ def sharded_knn_2d(mesh: Mesh, corpus, mask, queries, k: int, data_axis: str = "
     `data_axis`, features over `feat_axis`; queries [Q, D] split on
     features. Each (row, feature) shard adds its partial squared distance
     into its row shard's accumulator in feature order (the psum); the last
-    applies the sqrt and the mask; then per row shard a top-kk, the
-    all-gather over rows and the merge. Returns (dists [Q, k], ids [Q, k])
-    on the merge device."""
+    applies the sqrt and the mask and takes the row shard's top-kk in the
+    same pass; then the all-gather over rows and the merge. On one card
+    each feature shard's step runs once over all row shards, and the last
+    one's top-k over all rows is the answer (the merge's order: distance,
+    then the lower row). Returns (dists [Q, k], ids [Q, k]) on the merge
+    device."""
     corpus, mask, qs, shard_rows, kk = _sharded_2d_inputs(mesh, corpus, mask, queries, k,
                                                           data_axis, feat_axis)
+    if corpus.shard(mesh.position()).device.type == "cpu":  # CPU shards: the plain versions
+        return sharded_knn_2d_plain(mesh, corpus, mask, qs, k, data_axis, feat_axis)
     n_feat = mesh.shape[feat_axis]
     d_parts, i_parts = [], []
-    for r in range(mesh.shape[data_axis]):
+    for xs, q_parts, masks in _launch_groups(mesh, data_axis, (corpus, qs, mask), feat_axis):
         acc = None
-        for m in range(n_feat):
-            pos = mesh.position(**{data_axis: r, feat_axis: m})
-            x = corpus.shard(pos)
+        for m, (q, x) in enumerate(zip(q_parts, xs)):
             if acc is not None and acc.device != x.device:
                 acc = acc.to(x.device)  # the psum's hop to the next feature shard's card
-            acc = partial_sqdist(qs.shard(pos), x, acc, finish=m == n_feat - 1,
-                                 mask=mask.shard(pos))
-        d, i = D.select_min_k(acc, kk)
+            if m < n_feat - 1:
+                acc = partial_sqdist(q, x, acc)
+        d, i = sqdist_topk(q, x, acc, masks[-1], min(k, x.shape[0]))
         d_parts.append(d)
         i_parts.append(i)
     dev = mesh.merge_device
+    if len(d_parts) == 1:  # the group covers every row: its top-k is the merge's answer
+        return d.to(dev), i.to(dev)
     return topk_merge(all_gather(d_parts, dev), all_gather(i_parts, dev), kk, shard_rows, k)
 
 
@@ -605,6 +730,9 @@ def sharded_knn_2d_plain(mesh: Mesh, corpus, mask, queries, k: int, data_axis: s
 # ------------------------------------------------------------------ K13
 def _ivf_search_shards(mesh, cents, list_rows, list_mask, corpus, slot_ok, queries, kk, k_out,
                        nprobe, metric, probe_metric, axis, probe, rerank, merge):
+    """K13 a shard at a time: the probe once a device, K3's rerank a shard,
+    the merge of the finite picks (the plain versions, or the wrappers
+    that take them for CPU tensors)."""
     n_dev = mesh.shape[axis]
     shard_rows = corpus.shape[0] // n_dev
     probes = {}  # the same function of replicated inputs: once a device
@@ -623,23 +751,65 @@ def _ivf_search_shards(mesh, cents, list_rows, list_mask, corpus, slot_ok, queri
     return merge(all_gather(d_parts, dev), all_gather(i_parts, dev), kk, shard_rows, k_out, True)
 
 
+def _ivf_search_cuda(mesh, cents, list_rows, list_mask, corpus, slot_ok, queries, kk, k_out,
+                     nprobe, metric, probe_metric, axis, probe_ok):
+    """K13 on the card: the probe once a distinct device, `mesh_ivf_rerank`
+    once a launch group (all the shards on one card, else a shard), then
+    the merge of the finite picks. `probe_ok` caches the probe's all-true mask a (device, C)."""
+    from surrealdb_tpu_torch.ops import _cuda
+
+    lib = _cuda.lib()
+    n_dev = mesh.shape[axis]
+    shard_rows = corpus.shape[0] // n_dev
+    n_lists, lmax = int(list_rows.shape[1]), int(list_rows.shape[2])
+    dev0 = mesh.merge_device
+    with _on(dev0):
+        groups, kkb = rerank_plan(lib, int(queries.shape[0]), n_dev, nprobe, lmax, kk)
+    probes = {}
+    d_parts, i_parts = [], []
+    for q, c, x, lrows, lmask, ok in _launch_groups(
+            mesh, axis, (queries, cents, corpus, list_rows, list_mask, slot_ok)):
+        dev = x.device
+        if dev not in probes:
+            key = (dev, n_lists)
+            if key not in probe_ok:
+                probe_ok[key] = torch.ones(n_lists, dtype=torch.bool, device=dev)
+            probes[dev] = D.knn_search(q, c, probe_ok[key], probe_metric, nprobe)[1]
+        with _on(dev):
+            d, i = _launch_ivf_rerank(lib, q, probes[dev], x, lrows.reshape(-1, n_lists, lmax),
+                                      lmask.reshape(-1, n_lists, lmax), ok, metric, groups, kkb)
+        RERANK.bump()
+        d_parts.append(d)
+        i_parts.append(i)
+    if len(d_parts) == 1 and d_parts[0].device == dev0:
+        d_all, i_all = d_parts[0], i_parts[0]
+    else:
+        d_all, i_all = all_gather(d_parts, dev0), all_gather(i_parts, dev0)
+    return topk_merge(d_all, i_all, nprobe * groups * kkb, shard_rows, k_out, True)
+
+
 @functools.lru_cache(maxsize=64)
 def _ivf_searcher(mesh: Mesh, k: int, nprobe: int, kk: int, k_out: int, metric: str,
                   probe_metric: str, axis: str, plain: bool = False):
     """The sharded probe + rerank for one (mesh, params), cached as the
-    reference caches its compiled executable: the probe (the fused K2 over the
-    centroids) once a distinct device, K3's rerank once a shard, then the
-    merge of the finite picks."""
+    reference caches its compiled executable: on the card the probe (the
+    fused K2 over the centroids) once a distinct device, K13's rerank once
+    a device, then the merge of the finite picks; with plain (or shards on
+    the CPU) the plain versions a shard."""
     from surrealdb_tpu_torch.idx import ivf as IVF
 
     if plain:
         fns = (IVF.ivf_probe_plain, IVF.ivf_rerank_plain, topk_merge_plain)
-    else:
+    else:  # CPU shards: the wrappers, which take the plain versions
         fns = (IVF._ivf_probe, IVF._ivf_rerank, topk_merge)
+    probe_ok = {}
 
     def search(cents, list_rows, list_mask, corpus, slot_ok, queries):
-        return _ivf_search_shards(mesh, cents, list_rows, list_mask, corpus, slot_ok, queries,
-                                  kk, k_out, nprobe, metric, probe_metric, axis, *fns)
+        args = (mesh, cents, list_rows, list_mask, corpus, slot_ok, queries, kk, k_out, nprobe,
+                metric, probe_metric, axis)
+        if plain or corpus.shard(mesh.position()).device.type == "cpu":
+            return _ivf_search_shards(*args, *fns)
+        return _ivf_search_cuda(*args, probe_ok)
 
     return search
 

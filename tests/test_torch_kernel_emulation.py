@@ -25,8 +25,10 @@ sides round the same f32 steps in the same order, only log1pf may differ),
 tied rows bit-identical, and its top-k order exact; the ML forward (K10)
 rtol 1e-5, atol 1e-5 (f32 sums in another order), softmax outputs atol
 1e-6; the mesh kernels: the merge, the frontier hop and the dedup exact
-(ids, order, masks, the index rules), K12's partial distances rtol 1e-5,
-atol 1e-4 (f32 sums in another order).
+(ids, order, masks, the index rules), K12's partial and selected
+distances rtol 1e-5, atol 1e-4 (f32 sums in another order) with ids equal
+up to ties at the kk-th, K13's rerank the same against K3's plain rerank
+a shard (misses exact; on equal rows, ids and order exact).
 """
 
 import ctypes
@@ -393,33 +395,35 @@ def test_k2_tensor_tier_lower_limbs_decide(lib, k, dim):
 
 _K2_FAULTS = {  # fault: [(file, old, new)]
     # the tensor tier without query limb 2
-    "dropped_limb2": [("knn.cu", "for (int l = 2; l >= 0; --l) {", "for (int l = 1; l >= 0; --l) {")],
+    "dropped_limb2": [("knn_tq.cuh", "for (int l = 2; l >= 0; --l) {",
+                       "for (int l = 1; l >= 0; --l) {")],
     # one sum over the three limbs, step by step
-    "single_limb_sum": [("knn.cu", "mma_bf16_16816(l == 0 ? hi[mt][nt] : lo[mt][nt], a[mt], bq[nt]);",
+    "single_limb_sum": [("knn_tq.cuh",
+                         "mma_bf16_16816(l == 0 ? hi[mt][nt] : lo[mt][nt], a[mt], bq[nt]);",
                          "mma_bf16_16816(hi[mt][nt], a[mt], bq[nt]);")],
     # every block's range one row short at its end
     "range_end_off_by_one": [
         ("knn.cuh", "const long long rb = b * per, re = min(N, rb + per);\n  const bool fused",
          "const long long rb = b * per, re = min(N, rb + per - 1);\n  const bool fused"),
-        ("knn.cu", "const long long rb = b * per, re = min(N, rb + per);\n  unsigned long long* kq",
-         "const long long rb = b * per, re = min(N, rb + per - 1);\n  unsigned long long* kq")],
+        ("knn_tq.cuh", "const long long rb = b * per, re = min(N, rb + per);\n  const long long ld",
+         "const long long rb = b * per, re = min(N, rb + per - 1);\n  const long long ld")],
     # the blocks' picks written last block first: among equal distances the
     # merge then takes the higher index
     "ties_take_the_higher_index": [
         ("knn.cuh", "const long long o = ((long long)(q0 + j) * nblk + b) * k;",
          "const long long o = ((long long)(q0 + j) * nblk + (nblk - 1 - b)) * k;"),
-        ("knn.cu", "const long long o = ((long long)(q0 + c) * nblk + b) * k;",
+        ("knn_tq.cuh", "const long long o = ((long long)(q0 + c) * nblk + b) * k;",
          "const long long o = ((long long)(q0 + c) * nblk + (nblk - 1 - b)) * k;")],
 }
 
 
 @pytest.mark.parametrize("fault", sorted(_K2_FAULTS))
 def test_k2_planted_fault_fails_the_comparison(tmp_path, fault):
-    """The comparisons above have teeth: a copy of knn.cu / knn.cuh with one
-    fault planted disagrees with the plain version on the lower-limb groups, on
-    queries that sit on the blocks' first and last rows, or on a corpus of
-    equal rows."""
-    srcs = {n: _source(n) for n in ("knn.cu", "knn_f32.cu", "knn.cuh")}
+    """The comparisons above have teeth: a copy of knn.cu's headers (knn.cuh,
+    knn_tq.cuh) with one fault planted disagrees with the plain version on
+    the lower-limb groups, on queries that sit on the blocks' first and last
+    rows, or on a corpus of equal rows."""
+    srcs = {n: _source(n) for n in ("knn.cu", "knn_f32.cu", "knn.cuh", "knn_tq.cuh")}
     for name, old, new in _K2_FAULTS[fault]:
         assert srcs[name].count(old) == 1, old
         srcs[name] = srcs[name].replace(old, new)
@@ -1339,24 +1343,279 @@ def test_mesh_topk_merge_above_shared_memory(lib):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("finite_only", [False, True], ids=["k11", "k13"])
+@pytest.mark.parametrize("s,kk,k_out", [(8, 64, 257), (8, 1600, 300), (3, 200, 600)])
+def test_mesh_topk_merge_rank_kernel_above_256(lib, finite_only, s, kk, k_out):
+    """k_out above the warp lists' 256: the rank kernel, with its keys in
+    shared memory (up to 12,288 candidates) and above."""
+    d, i = _merge_inputs(s * kk + k_out, 3, s, kk, 5000)
+    got = M._launch_topk_merge(lib, d, i, kk, 5000, k_out, finite_only)
+    want = M.topk_merge_plain(d, i, kk, 5000, k_out, finite_only)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("corpus", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("nq", [1, 11])
 def test_mesh_partial_sqdist_matches_plain(lib, nq, corpus):
-    """Two feature slices of 40 and 30 columns (strided views, neither a
-    multiple of the 32-column step) over 300 rows (two row tiles, the last
-    ragged): the first writes, the second adds and finishes with the mask."""
+    """mesh_knn_2d without selection (K1's epilogue): two feature slices of
+    40 and 30 columns (strided views, neither a multiple of the 32-column
+    step) over 300 rows (each emulated SM's range ragged; 11 bf16 queries
+    on the tensor tier): the first writes, the second adds and finishes
+    with the mask."""
     rng = np.random.default_rng(nq)
     q = torch.from_numpy(rng.standard_normal((nq, 70)).astype(np.float32))
     x = torch.from_numpy(rng.standard_normal((300, 70)).astype(np.float32)).to(corpus)
     mask = torch.from_numpy(rng.random(300) > 0.1)
-    acc = M._launch_partial_sqdist(lib, q[:, :40], x[:, :40], None, False, mask)
+    acc = M._launch_knn_2d(lib, q[:, :40], x[:, :40], None, False, mask)
     want = M.partial_sqdist_plain(q[:, :40], x[:, :40])
     torch.testing.assert_close(acc, want, rtol=1e-5, atol=1e-4)
-    out = M._launch_partial_sqdist(lib, q[:, 40:], x[:, 40:], acc, True, mask)
+    out = M._launch_knn_2d(lib, q[:, 40:], x[:, 40:], acc, True, mask)
     assert out is acc  # in place: the psum's accumulator
     want = M.partial_sqdist_plain(q[:, 40:], x[:, 40:], want, True, mask)
     assert torch.equal(torch.isinf(out), ~mask[None, :].expand(nq, -1))
     torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-4)
+
+
+def _knn2d_steps(lib, q, x, widths, mask, kk):
+    """K12 over one row shard on the emulated mesh_knn_2d: the feature
+    slices of `widths` columns in order (strided views), the last one
+    finished and selected -> (dists [Q, kk], rows [Q, kk])."""
+    acc, c0 = None, 0
+    for w in widths[:-1]:
+        acc = M._launch_knn_2d(lib, q[:, c0:c0 + w], x[:, c0:c0 + w], acc)
+        c0 += w
+    return M._launch_knn_2d(lib, q[:, c0:], x[:, c0:], acc, True, mask, kk)
+
+
+def _knn2d_plain(q, x, widths, mask, kk):
+    acc, c0 = None, 0
+    for w in widths[:-1]:
+        acc = M.partial_sqdist_plain(q[:, c0:c0 + w], x[:, c0:c0 + w], acc)
+        c0 += w
+    return D._topk_min_stable(M.partial_sqdist_plain(q[:, c0:], x[:, c0:], acc, True, mask), kk)
+
+
+def _knn2d_cases():
+    cases = []
+    for nq in (1, 4, 11, 64):
+        for dt in (torch.float32, torch.bfloat16):
+            tag = "f32" if dt == torch.float32 else "bf16"
+            widths = (40, 30) if nq in (1, 11) else (24, 24, 24)
+            cases.append((f"q{nq}-{tag}-{len(widths)}slices", nq, dt, widths, 10))
+    cases.append(("q1-bf16-k1", 1, torch.bfloat16, (24, 24, 24), 1))
+    cases.append(("q11-bf16-k256", 11, torch.bfloat16, (40, 30), 256))
+    return cases
+
+
+@pytest.mark.parametrize("case", _knn2d_cases(), ids=lambda c: c[0])
+def test_k12_knn_2d_matches_plain(lib, case):
+    """K12's step chain on one row shard of 700 rows (each emulated SM's
+    range ragged), 10% masked, two rows equal: Q 1 and 4 on the streaming
+    tier (query tiles 1 and 8), 11 and 64 on the tensor tier over bf16 rows
+    and on 8-query streaming tiles over f32 rows; two feature slices of 40
+    and 30 columns (scalar loads) or three of 24 (16-byte loads); ids equal
+    up to ties at the kk-th distance, distances rtol 1e-5, atol 1e-4."""
+    _label, nq, dtype, widths, kk = case
+    rng = np.random.default_rng(nq * 100 + sum(widths) + kk)
+    n, dim = 700, sum(widths)
+    q = torch.from_numpy(rng.standard_normal((nq, dim)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((n, dim)).astype(np.float32))
+    x[n // 3] = x[n // 5]
+    x = x.to(dtype)
+    mask = torch.from_numpy(rng.random(n) > 0.1)
+    got_d, got_i = _knn2d_steps(lib, q, x, widths, mask, kk)
+    want_d, want_i = _knn2d_plain(q, x, widths, mask, kk)
+    assert got_i.dtype == torch.int32 and got_d.shape == (nq, kk)
+    torch.testing.assert_close(got_d, want_d, rtol=1e-5, atol=1e-4)
+    assert _ids_up_to_kth_ties(got_d, got_i, want_d, want_i)
+
+
+@pytest.mark.parametrize("nq", [1, 12])
+def test_k12_ties_at_the_kth_take_the_lower_row(lib, nq):
+    """Equal rows: every distance ties, so the kk picks are the lowest live
+    rows, in order, exactly (both tiers); every 7th row is masked."""
+    x = torch.ones(900, 48, dtype=torch.bfloat16)
+    q = torch.full((nq, 48), 0.5)
+    mask = torch.ones(900, dtype=torch.bool)
+    mask[::7] = False
+    got = _knn2d_steps(lib, q, x, (16, 32), mask, 20)
+    want = _knn2d_plain(q, x, (16, 32), mask, 20)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# K13: sharded tables built as IvfState._device_sharded lays them out
+def _k13_tables(rng, n_shards, cap, n_lists, lmax, fill, dim, dtype, metric):
+    """Rows [S * cap, D] and per-shard tables [S, C, L]: "packed" lists
+    hold their members from position 0, "holes" at scattered positions
+    (the rest padding with out-of-range rows); a quarter of the (shard,
+    list) buckets are empty."""
+    x = rng.standard_normal((n_shards * cap, dim)).astype(np.float32)
+    if metric == "jaccard":
+        x = np.abs(x)
+    rows = np.full((n_shards, n_lists, lmax), cap + 3, dtype=np.int32)
+    lmask = np.zeros((n_shards, n_lists, lmax), dtype=bool)
+    for s in range(n_shards):
+        for c in range(n_lists):
+            n = 0 if rng.random() < 0.25 else int(rng.integers(1, lmax + 1))
+            where = np.arange(n) if fill == "packed" else np.sort(rng.choice(lmax, n, replace=False))
+            rows[s, c, where] = rng.choice(cap, n, replace=False)
+            lmask[s, c, where] = True
+    return (torch.from_numpy(x).to(dtype), torch.from_numpy(rows), torch.from_numpy(lmask))
+
+
+def _k13_emu(lib, q, probes, x, list_rows, list_mask, slot_ok, metric, k, groups=None):
+    """mesh_ivf_rerank over every shard, then mesh_topk_merge, emulated."""
+    n_sh, _, lmax = list_rows.shape
+    nq, nprobe = probes.shape
+    kk = min(k, nprobe * lmax)
+    if groups is None:
+        groups, kkb = M.rerank_plan(lib, nq, n_sh, nprobe, lmax, kk)
+    else:
+        kkb = lib.mesh_ivf_rerank_picks(lmax, groups, kk)
+    d, i = M._launch_ivf_rerank(lib, q, probes, x, list_rows, list_mask, slot_ok, metric, groups,
+                                kkb)
+    return M._launch_topk_merge(lib, d, i, nprobe * groups * kkb, x.shape[0] // n_sh,
+                                min(k, n_sh * kk), True)
+
+
+def _k13_plain(q, probes, x, list_rows, list_mask, slot_ok, metric, k):
+    """The reference composition: K3's plain rerank a shard, the merge."""
+    n_sh, _, lmax = list_rows.shape
+    cap = x.shape[0] // n_sh
+    kk = min(k, probes.shape[1] * lmax)
+    parts = [IVF.ivf_rerank_plain(q, probes, list_rows[s], list_mask[s], x[s * cap:(s + 1) * cap],
+                                  torch.ones(cap, dtype=torch.bool) if slot_ok is None
+                                  else slot_ok[s * cap:(s + 1) * cap], metric, kk)
+             for s in range(n_sh)]
+    return M.topk_merge_plain(torch.cat([p[0] for p in parts], 1),
+                              torch.cat([p[1] for p in parts], 1), kk, cap,
+                              min(k, n_sh * kk), True)
+
+
+def _assert_k13_matches(got, want):
+    """Misses (+inf / -1) where the plain version has them; finite
+    distances rtol 1e-5, atol 1e-4; an id that differs lies at a tie with
+    the k-th finite distance (f32 sums in another order)."""
+    (gd, gi), (wd, wi) = got, want
+    assert gd.shape == wd.shape and gi.dtype == torch.int32
+    miss = torch.isinf(wd)
+    assert torch.equal(torch.isinf(gd), miss) and torch.equal(gi[miss], wi[miss])
+    torch.testing.assert_close(gd[~miss], wd[~miss], rtol=1e-5, atol=1e-4)
+    for r in range(gd.shape[0]):
+        if miss[r].all():
+            continue
+        kth = float(wd[r][~miss[r]].max())
+        for c in (gi[r] != wi[r]).nonzero()[:, 0].tolist():
+            assert abs(float(gd[r, c]) - kth) <= 1e-4 + 1e-5 * abs(kth), (r, c)
+
+
+def _k13_cases():
+    return [
+        # label, shards, fill, metric, rows dtype, k, slot_ok share, groups
+        ("s1-packed-euclidean", 1, "packed", "euclidean", torch.bfloat16, 10, None, None),
+        ("s1-holes-euclidean-3ranges", 1, "holes", "euclidean", torch.float32, 10, None, 3),
+        ("s3-holes-cosine", 3, "holes", "cosine", torch.float32, 10, None, None),
+        ("s3-packed-manhattan-slotok", 3, "packed", "manhattan", torch.bfloat16, 10, 3, None),
+        ("s8-packed-pearson", 8, "packed", "pearson", torch.float32, 10, None, None),
+        ("s8-holes-euclidean-slotok", 8, "holes", "euclidean", torch.bfloat16, 10, 3, 2),
+        ("s8-packed-cosine-k-above", 8, "packed", "cosine", torch.bfloat16, 3000, None, None),
+        ("s1-holes-manhattan-k-above", 1, "holes", "manhattan", torch.float32, 300, 3, 3),
+    ]
+
+
+@pytest.mark.parametrize("case", _k13_cases(), ids=lambda c: c[0])
+def test_k13_ivf_rerank_matches_plain(lib, case):
+    """K13's rerank over 1, 3 and 8 shards of one tensor, then the merge,
+    against K3's plain rerank a shard and the plain merge: packed lists and
+    lists with holes (padding rows out of range), empty buckets, slot_ok
+    masking every third slot, a list split in 2 or 3 ranges, k above the
+    probed candidates (misses +inf / -1); 32-position chunks, L = 96."""
+    _label, n_sh, fill, metric, dtype, k, every, groups = case
+    rng = np.random.default_rng(n_sh * 10 + k + len(metric))
+    cap, n_lists, lmax, dim, nq, nprobe = 120, 6, 96, 24, 3, 3
+    x, rows, lmask = _k13_tables(rng, n_sh, cap, n_lists, lmax, fill, dim, dtype, metric)
+    slot_ok = None if every is None else torch.from_numpy(np.arange(n_sh * cap) % every != 0)
+    q = torch.from_numpy(rng.standard_normal((nq, dim)).astype(np.float32))
+    probes = torch.from_numpy(np.stack([rng.choice(n_lists, nprobe, replace=False)
+                                        for _ in range(nq)]).astype(np.int32))
+    got = _k13_emu(lib, q, probes, x, rows, lmask, slot_ok, metric, k, groups)
+    want = _k13_plain(q, probes, x, rows, lmask, slot_ok, metric, k)
+    _assert_k13_matches(got, want)
+    if k > 100:
+        assert torch.isinf(got[0]).any()
+
+
+def _k13_tie_case(members):
+    """Equal rows in 3 shards of 64 rows, 4 lists of 64 positions, the first
+    `members` listed, slots in reverse position order; queries at the
+    origin probing lists (2, 1) and (1, 3)."""
+    n_sh, cap, n_lists, lmax = 3, 64, 4, 64
+    x = torch.ones(n_sh * cap, 16, dtype=torch.bfloat16)
+    rows = torch.from_numpy(np.tile(np.arange(lmax, dtype=np.int32)[::-1].copy(),
+                                    (n_sh, n_lists, 1)))
+    lmask = torch.zeros(n_sh, n_lists, lmax, dtype=torch.bool)
+    lmask[:, :, :members] = True
+    probes = torch.tensor([[2, 1], [1, 3]], dtype=torch.int32)
+    return torch.zeros(2, 16), probes, x, rows, lmask
+
+
+@pytest.mark.parametrize("groups", [1, 3])
+def test_k13_ties_across_probes_and_shards_take_the_lower_position(lib, groups):
+    """Equal rows in every list of every shard: every distance ties, so the
+    picks are taken in (shard, probe rank, position) order, exactly; an
+    empty bucket on shard 0, and shard 1's first member dropped by
+    slot_ok."""
+    q, probes, x, rows, lmask = _k13_tie_case(5)
+    lmask[0, 2] = False
+    slot_ok = torch.ones(x.shape[0], dtype=torch.bool)
+    slot_ok[64 + rows[1, 1, 0]] = False
+    got = _k13_emu(lib, q, probes, x, rows, lmask, slot_ok, "euclidean", 12, groups)
+    want = _k13_plain(q, probes, x, rows, lmask, slot_ok, "euclidean", 12)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_k13_every_probed_list_empty_on_a_shard(lib):
+    """Shard 1 holds no member of any probed list: it contributes only
+    misses, and the others' picks come back as the plain version's."""
+    rng = np.random.default_rng(13)
+    x, rows, lmask = _k13_tables(rng, 3, 100, 5, 64, "packed", 20, torch.bfloat16, "euclidean")
+    lmask[1] = False
+    q = torch.from_numpy(rng.standard_normal((2, 20)).astype(np.float32))
+    probes = torch.tensor([[0, 1, 2], [4, 3, 2]], dtype=torch.int32)
+    got = _k13_emu(lib, q, probes, x, rows, lmask, None, "euclidean", 10)
+    _assert_k13_matches(got, _k13_plain(q, probes, x, rows, lmask, None, "euclidean", 10))
+    assert not (got[1] >= 100).logical_and(got[1] < 200).any()
+
+
+@pytest.mark.parametrize("one_tensor", [True, False], ids=["a-launch-a-device", "a-launch-a-shard"])
+def test_k13_card_composition_matches_plain(lib, monkeypatch, one_tensor):
+    """parallel/mesh.py's card composition of K13 with the emulated
+    kernels: the probe, mesh_ivf_rerank once over shards that are views of
+    one tensor (the mesh on one card) or once a shard (shards held apart,
+    as on several cards), then the merge, against
+    sharded_ivf_search_plain; a third of the slots masked."""
+    monkeypatch.setattr(_cuda, "lib", lambda: lib)
+    rng = np.random.default_rng(41)
+    cap, n_lists, lmax, dim, k, nprobe = 64, 6, 64, 16, 10, 3
+    mesh = M.make_mesh(8, devices=[torch.device("cpu")] * 8)
+    x, rows, lmask = _k13_tables(rng, 8, cap, n_lists, lmax, "holes", dim, torch.bfloat16,
+                                 "euclidean")
+    ok = torch.from_numpy(np.arange(8 * cap) % 3 != 0)
+    cents = torch.from_numpy(rng.standard_normal((n_lists, dim)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((4, dim)).astype(np.float32))
+    placed = [M.shard_corpus(mesh, x), M.shard_tensor(mesh, rows, ("data",)),
+              M.shard_tensor(mesh, lmask, ("data",)), M.shard_tensor(mesh, ok, ("data",))]
+    if not one_tensor:
+        for t in placed:
+            t.base = None  # the shards stay views, but are launched one at a time
+    kk = min(k, nprobe * lmax)
+    M.RERANK.reset()
+    got = M._ivf_search_cuda(mesh, M.replicate(mesh, cents), placed[1], placed[2], placed[0],
+                             placed[3], M.replicate(mesh, q), kk, min(k, 8 * kk), nprobe,
+                             "euclidean", "euclidean", "data", {})
+    assert M.RERANK.launches == (1 if one_tensor else 8)
+    want = M.sharded_ivf_search_plain(mesh, cents, rows, lmask, x, q, k, nprobe, slot_ok=ok)
+    _assert_k13_matches(got, want)
 
 
 @pytest.mark.parametrize("max_degree", [1, 4, 9])
@@ -1394,39 +1653,116 @@ def test_mesh_dedup_frontier_matches_plain(lib, n_nodes, f):
     assert int(got[1].sum()) > 0
 
 
-_MESH_FAULTS = {
-    # equal keys ranked to the higher position first
-    "merge_tie_order": ("(kj == kp && j < p)", "(kj == kp && j > p)"),
+def _fault_merge(k_out):
+    """The merge on tied candidates at k_out (above 256: the rank kernel),
+    the least of them at position 40 (warp 1's share of the lists kernel)."""
+
+    def differs(bad):
+        d, i = _merge_inputs(k_out, 3, 8, 64, 1000)
+        d[:, 40] = -1.0
+        got = M._launch_topk_merge(bad, d, i, 64, 1000, k_out, True)
+        want = M.topk_merge_plain(d, i, 64, 1000, k_out, True)
+        return not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+
+    return differs
+
+
+def _fault_hop(bad):
+    indptr = torch.arange(11, dtype=torch.int32)
+    indices = torch.arange(10, dtype=torch.int32) * 3
+    fr = torch.tensor([-1, 2, -3, 4], dtype=torch.int32)
+    fm = torch.ones(4, dtype=torch.bool)
+    got = M._launch_frontier_hop(bad, indptr, indices, fr, fm, 2)[0]
+    return not torch.equal(got, M.frontier_hop_plain(indptr, indices, fr, fm, 2)[0])
+
+
+def _fault_dedup(bad):
+    nodes = torch.tensor([3, -2, 1, 0], dtype=torch.int32)  # -2 wraps to node 9
+    mask = torch.tensor([True, True, True, False])
+    got = M._launch_dedup_frontier(bad, nodes, mask, 10)
+    want = M.dedup_frontier_plain(nodes, mask, 10)
+    return not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+
+
+def _fault_k12(bad):
+    """Two and three feature slices on both tiers."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((300, 48)).astype(np.float32)).to(torch.bfloat16)
+    mask = torch.from_numpy(rng.random(300) > 0.1)
+    differs = []
+    for nq, widths in ((1, (16, 32)), (12, (16, 16, 16))):
+        q = torch.from_numpy(rng.standard_normal((nq, 48)).astype(np.float32))
+        got_d, got_i = _knn2d_steps(bad, q, x, widths, mask, 10)
+        want_d, want_i = _knn2d_plain(q, x, widths, mask, 10)
+        differs.append(not (torch.allclose(got_d, want_d, rtol=1e-5, atol=1e-4)
+                            and _ids_up_to_kth_ties(got_d, got_i, want_d, want_i)))
+    return any(differs)
+
+
+def _fault_k13(bad):
+    """The tie case (both range splits) and a packed case over 3 shards."""
+    differs = []
+    for groups in (1, 3):
+        q, probes, x, rows, lmask = _k13_tie_case(40)
+        got = _k13_emu(bad, q, probes, x, rows, lmask, None, "euclidean", 12, groups)
+        want = _k13_plain(q, probes, x, rows, lmask, None, "euclidean", 12)
+        differs.append(not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])))
+    rng = np.random.default_rng(31)
+    x, rows, lmask = _k13_tables(rng, 3, 120, 6, 96, "packed", 24, torch.float32, "euclidean")
+    q = torch.from_numpy(rng.standard_normal((3, 24)).astype(np.float32))
+    probes = torch.tensor([[0, 1, 2], [3, 4, 5], [5, 0, 2]], dtype=torch.int32)
+    got = _k13_emu(bad, q, probes, x, rows, lmask, None, "euclidean", 10)
+    want = _k13_plain(q, probes, x, rows, lmask, None, "euclidean", 10)
+    try:
+        _assert_k13_matches(got, want)
+    except AssertionError:
+        differs.append(True)
+    return any(differs)
+
+
+_MESH_FAULTS = {  # fault: ([(file, old, new)], the comparison that must fail)
+    # the rank kernel (k_out > 256): equal keys ranked to the higher position first
+    "merge_tie_order": ([("mesh.cu", "(kj == kp && j < p)", "(kj == kp && j > p)")],
+                        _fault_merge(300)),
+    # the lists kernel (k_out <= 256): warp 1's candidates left out
+    "merge_lists_drop_a_warp": ([("mesh.cu", "for (int w = 1; w < MG_WARPS; ++w) {",
+                                  "for (int w = 2; w < MG_WARPS; ++w) {")], _fault_merge(10)),
     # a negative frontier id clamped without the wrap
-    "hop_no_wrap": ("if (i < 0) i += n;", ""),
+    "hop_no_wrap": ([("mesh.cu", "if (i < 0) i += n;", "")], _fault_hop),
     # a negative node id dropped without the scatter's wrap
-    "dedup_no_wrap": ("if (v < 0) v += (long long)n_nodes + 1;", ""),
+    "dedup_no_wrap": ([("mesh.cu", "if (v < 0) v += (long long)n_nodes + 1;", "")], _fault_dedup),
+    # K12: the accumulator input dropped (the last slice alone), both tiers
+    "k12_accumulator_dropped": ([
+        ("knn.cuh", "    if (acc_in != nullptr) v = acc_in[(long long)qi * N + row] + v;\n", ""),
+        ("knn_tq.cuh",
+         "            if (view.acc_in != nullptr) d = view.acc_in[(long long)qi * N + row] + d;\n",
+         "")], _fault_k12),
+    # K13: among equal distances the higher probe rank and range first
+    "k13_ties_take_the_higher_position": ([
+        ("mesh.cu", "const long long o = (qsp * G + g) * kkb;",
+         "const long long o = ((qsp / P * P + (P - 1 - pr)) * G + (G - 1 - g)) * kkb;")],
+        _fault_k13),
+    # K13: a range's first chunk skipped, members and all
+    "k13_chunk_skipped": ([("mesh.cu", "if (todo == 0u) continue;",
+                            "if (todo == 0u || c0 == lo) continue;")], _fault_k13),
+    # K13: every shard reads shard 0's rows
+    "k13_shard_rows_offset_dropped": ([("mesh.cu", "const T* xs = x + (long long)s * cap * D;",
+                                        "const T* xs = x;")], _fault_k13),
+    # the merge without the shard offset of a candidate's slot
+    "shard_offset_dropped": ([("mesh.cu", "const long long gid = (long long)ids[p] + shard * shard_rows;",
+                               "const long long gid = (long long)ids[p];")], _fault_k13),
 }
 
 
 @pytest.mark.parametrize("fault", sorted(_MESH_FAULTS))
 def test_mesh_planted_fault_fails_the_comparison(tmp_path, fault):
-    """The comparisons above have teeth: a copy of mesh.cu with one fault
-    planted disagrees with the plain versions."""
-    src = _source("mesh.cu")
-    old, new = _MESH_FAULTS[fault]
-    assert src.count(old) == 1
-    bad = _build_emu(tmp_path, {"mesh.cu": src.replace(old, new)})
-    if fault == "merge_tie_order":
-        d = torch.tensor([[1.0, INF, 1.0, INF, 0.5]])
-        i = torch.tensor([[10, 11, 12, 13, 14]], dtype=torch.int32)
-        got = M._launch_topk_merge(bad, d, i, 1, 100, 5, False)[1]
-        assert not torch.equal(got, M.topk_merge_plain(d, i, 1, 100, 5, False)[1])
-    elif fault == "hop_no_wrap":
-        indptr = torch.arange(11, dtype=torch.int32)
-        indices = torch.arange(10, dtype=torch.int32) * 3
-        fr = torch.tensor([-1, 2, -3, 4], dtype=torch.int32)
-        fm = torch.ones(4, dtype=torch.bool)
-        got = M._launch_frontier_hop(bad, indptr, indices, fr, fm, 2)[0]
-        assert not torch.equal(got, M.frontier_hop_plain(indptr, indices, fr, fm, 2)[0])
-    else:
-        nodes = torch.tensor([3, -2, 1, 0], dtype=torch.int32)  # -2 wraps to node 9
-        mask = torch.tensor([True, True, True, False])
-        got = M._launch_dedup_frontier(bad, nodes, mask, 10)
-        want = M.dedup_frontier_plain(nodes, mask, 10)
-        assert not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+    """The comparisons above have teeth: a copy of mesh.cu (or of the
+    headers its K12 instances share with K1/K2) with one fault planted
+    disagrees with the plain versions."""
+    patches, differs = _MESH_FAULTS[fault]
+    srcs = {"mesh.cu": _source("mesh.cu")}
+    for name, old, new in patches:
+        srcs.setdefault(name, _source(name))
+        assert srcs[name].count(old) == 1, old
+        srcs[name] = srcs[name].replace(old, new)
+    assert differs(_build_emu(tmp_path, srcs))

@@ -209,7 +209,7 @@ def test_topk_merge_tie_order_is_lax_top_k():
 
 
 # ------------------------------------------------------------------ K12
-@pytest.mark.parametrize("nq,k", [(3, 5), (8, 12)])
+@pytest.mark.parametrize("nq,k", [(3, 5), (8, 12), (64, 10)])
 def test_k12_sharded_knn_2d_matches_reference(pmesh, nq, k):
     rng = np.random.default_rng(2 + nq)
     n, d = 32, 8
@@ -229,6 +229,29 @@ def test_k12_sharded_knn_2d_matches_reference(pmesh, nq, k):
     qd, qi = PM.sharded_knn_2d_plain(*args)
     np.testing.assert_array_equal(pd.numpy(), qd.numpy())
     np.testing.assert_array_equal(pi.numpy(), qi.numpy())
+
+
+@pytest.mark.parametrize("one_device", [True, False])
+def test_launch_groups_cover_every_shard_in_order(one_device):
+    """K12's and K13's launch groups: on one device one group over the
+    bases (feature parts as column slices); with shards on several cards
+    (no base) one group a row shard, its feature parts the shards at (row,
+    feature), a part not split over features its replica there."""
+    mesh = PM.Mesh([CPU] * 8, ("data", "model"), (4, 2))
+    x = torch.arange(16 * 6, dtype=torch.float32).reshape(16, 6)
+    mask = torch.arange(16) % 3 != 0
+    placed = [PM.shard_tensor(mesh, x, ("data", "model")), PM.shard_tensor(mesh, mask, ("data",))]
+    if not one_device:
+        for t in placed:
+            t.base = None
+    groups = PM._launch_groups(mesh, "data", placed, "model")
+    rows = [slice(0, 16)] if one_device else [slice(4 * r, 4 * r + 4) for r in range(4)]
+    assert len(groups) == len(rows)
+    for (xs, masks), sl in zip(groups, rows):
+        assert [torch.equal(p, x[sl, 3 * m:3 * m + 3]) for m, p in enumerate(xs)] == [True] * 2
+        assert [torch.equal(p, mask[sl]) for p in masks] == [True] * 2
+    flat = PM._launch_groups(mesh, "data", placed[1:])
+    assert [torch.equal(g[0], mask[sl]) for g, sl in zip(flat, rows)] == [True] * len(rows)
 
 
 def test_k12_partial_steps_accumulate_in_feature_order():
@@ -337,6 +360,60 @@ def test_k13_sharded_function_matches_reference_k_out(rmesh, pmesh, trained):
                                    _t(qs), big_k, 1)
     assert pd.shape == tuple(np.asarray(rd).shape)
     _assert_topk_match(rd, ri, pd.numpy(), pi.numpy())
+
+
+def _hand_tables(rng, n_dev, n_lists, lmax, cap):
+    """[n_dev, C, L] local-row tables made by hand: members at scattered
+    positions (holes), padding rows out of range, some buckets empty."""
+    rows = np.full((n_dev, n_lists, lmax), cap + 7, dtype=np.int32)
+    mask = np.zeros((n_dev, n_lists, lmax), dtype=bool)
+    for s in range(n_dev):
+        for c in range(n_lists):
+            n = int(rng.integers(0, lmax + 1))
+            where = np.sort(rng.choice(lmax, n, replace=False))
+            rows[s, c, where] = rng.choice(cap, n, replace=False)
+            mask[s, c, where] = True
+    return rows, mask
+
+
+def _run_k13_tables(rmesh, pmesh, cents, rows, mask, x, qs, k, nprobe, metric):
+    spec = JP("data", None, None)
+    rd, ri = RM.sharded_ivf_search(rmesh, jnp.asarray(cents), _jput(rmesh, rows, spec),
+                                   _jput(rmesh, mask, spec), RM.shard_corpus(rmesh, x),
+                                   jnp.asarray(qs), k, nprobe, metric=metric)
+    pd, pi = PM.sharded_ivf_search(pmesh, _t(cents), PM.shard_tensor(pmesh, rows, ("data",)),
+                                   PM.shard_tensor(pmesh, mask, ("data",)),
+                                   PM.shard_corpus(pmesh, x), _t(qs), k, nprobe, metric=metric)
+    _assert_topk_match(rd, ri, pd.numpy(), pi.numpy())
+    return pd.numpy(), pi.numpy()
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_k13_hand_made_mask_with_holes_matches_reference(rmesh, pmesh, metric):
+    """sharded_ivf_search over tables whose members sit at scattered list
+    positions (the function takes any mask, not only _device_sharded's
+    packed one)."""
+    rng = np.random.default_rng(17)
+    cap, n_lists, lmax, dim = 40, 6, 16, 8
+    x = rng.standard_normal((8 * cap, dim)).astype(np.float32)
+    rows, mask = _hand_tables(rng, 8, n_lists, lmax, cap)
+    cents = rng.standard_normal((n_lists, dim)).astype(np.float32)
+    qs = rng.standard_normal((5, dim)).astype(np.float32)
+    _run_k13_tables(rmesh, pmesh, cents, rows, mask, x, qs, 10, 3, metric)
+
+
+def test_k13_every_probed_list_empty_on_one_shard_matches_reference(rmesh, pmesh):
+    """Shard 3 holds no member of any list: it yields only misses, and no
+    id of its slots comes back."""
+    rng = np.random.default_rng(19)
+    cap, n_lists, lmax, dim = 40, 6, 16, 8
+    x = rng.standard_normal((8 * cap, dim)).astype(np.float32)
+    rows, mask = _hand_tables(rng, 8, n_lists, lmax, cap)
+    mask[3] = False
+    cents = rng.standard_normal((n_lists, dim)).astype(np.float32)
+    qs = rng.standard_normal((4, dim)).astype(np.float32)
+    _, pi = _run_k13_tables(rmesh, pmesh, cents, rows, mask, x, qs, 12, 2, "euclidean")
+    assert not ((pi >= 3 * cap) & (pi < 4 * cap)).any()
 
 
 def test_sharded_ivf_matches_single_device(pmesh):
