@@ -686,6 +686,7 @@ def phase_ivf_timing(torch, inputs, dim: int):
         library_ms=None, bound_ms=step_bound, bound_by=step_by,
         single_pass_bound_ms=bound_ms(step_bytes, flops + n * dim, "bfloat16")[0],
         update_ms=median_ms(lambda: IVF.kmeans_update(x, a, cents)),
+        update_queued_ms=queued_device_ms(torch, lambda: IVF.kmeans_update(x, a, cents)),
         update_plain_ms=median_ms(lambda: IVF.kmeans_update_plain(x, a, cents), iters=5),
         update_bound_ms=upd_bound, update_bound_by=upd_by,
     )
@@ -694,16 +695,18 @@ def phase_ivf_timing(torch, inputs, dim: int):
 
 
 def check_ivf_search(torch, ivf, matrix, queries, nprobe: int):
-    """K3 (the probe+rerank composition) against its plain version on the
-    trained state: Q in {1, 8, 64}, euclidean and cosine, a slot_ok that
-    masks a third of the slots, k = 10 and k above the candidate count.
-    Ids must agree up to ties at the k-th distance, misses (-1 / +inf)
-    exactly and distances within TOL; a query whose probed lists differ
-    at a tie of the nprobe-th centroid distance is counted and left out.
-    The queries are fresh points of the corpus's clusters, not the main
-    path's near-duplicates: close to a zero distance the sqrt amplifies the
-    cancellation in |q|^2 + |x|^2 - 2 q.x (|x|^2 ~ 860 here), which any two
-    f32 summation orders expose beyond TOL."""
+    """K3 (the probe, ivf_rerank and the merge) against its plain version on
+    the trained state: Q in {1, 8, 64}, euclidean and cosine, bf16 rows and
+    an f32 copy of them, a slot_ok that masks a third of the slots, k = 10,
+    k = 200 and (bf16 rows) k above the candidate count. Ids must agree up
+    to ties at the k-th distance, misses (-1 / +inf) exactly and distances
+    within TOL; a query whose probed lists differ at a tie of the nprobe-th
+    centroid distance is counted and left out. The rerank's two modes
+    (pair-major, list-major) must give the same picks bit for bit, on
+    every query. The queries are fresh points of the corpus's clusters, not
+    the main path's near-duplicates: close to a zero distance the sqrt
+    amplifies the cancellation in |q|^2 + |x|^2 - 2 q.x (|x|^2 ~ 860
+    here), which any two f32 summation orders expose beyond TOL."""
     from surrealdb_tpu_torch.idx import ivf as IVF
     from surrealdb_tpu_torch.ops import distances as D
 
@@ -713,54 +716,77 @@ def check_ivf_search(torch, ivf, matrix, queries, nprobe: int):
     slot_ok = (torch.arange(cap, device=dev) % 3) != 0
     lmax = int(list_rows.shape[1])
     err_max, checks, probe_ties = 0.0, 0, 0
-    for metric in ("euclidean", "cosine"):
-        for nq in (1, 8, 64):
-            q = torch.from_numpy(np.ascontiguousarray(queries[:nq], dtype=np.float32)).to(dev)
-            pd = D.pairwise_distance_plain(q, cents, metric)
-            pv, pp = D._topk_min_stable(pd, nprobe)
-            _, kp = D.knn_search(q, cents, probe_ok, metric, nprobe)
-            same = (kp.sort(1).values == pp.sort(1).values).all(1)
-            for r in (~same).nonzero()[:, 0].tolist():
-                diff = set(kp[r].tolist()) ^ set(pp[r].tolist())
-                kth = float(pv[r, -1])
-                require(all(abs(float(pd[r, c]) - kth) <= TOL["atol"] + TOL["rtol"] * abs(kth)
-                            for c in diff), f"K3 probe of query {r} differs beyond a tie")
-            probe_ties += int((~same).sum())
-            for k in (10, nprobe * lmax + 7):
-                got_d, got_i = IVF._ivf_search(q, cents, list_rows, list_mask, matrix, slot_ok,
-                                               metric=metric, probe_metric=metric, k=k,
-                                               nprobe=nprobe, probe_ok=probe_ok)
-                if dev.type == "cuda":
-                    torch.cuda.synchronize()
-                want_d, want_i = IVF.ivf_search_plain(q, cents, list_rows, list_mask, matrix,
-                                                      slot_ok, metric, metric, k, nprobe)
-                s = same
-                gd, gi, wd, wi = got_d[s], got_i[s], want_d[s], want_i[s]
-                miss = torch.isinf(wd)
-                miss_ok = bool(torch.equal(torch.isinf(gd), miss)) and bool(
-                    torch.equal(gi[miss], wi[miss]))
-                fin = ~miss
-                err = float((gd[fin] - wd[fin]).abs().max()) if bool(fin.any()) else 0.0
-                d_ok = bool(torch.allclose(gd[fin], wd[fin], **TOL))
-                id_ok = ids_match_up_to_ties(
-                    gd.cpu().numpy(), gi.cpu().numpy(), wd.cpu().numpy(), wi.cpu().numpy(),
-                    finite_kth=True,
-                )
-                emit("k3_check", metric=metric, q=nq, k=k, k_served=int(got_d.shape[1]),
-                     nprobe=nprobe, L=lmax, probe_tie_queries=int((~s).sum()),
-                     misses=int(miss.sum()), max_abs_err=err,
-                     ids_equal=bool(torch.equal(gi, wi)), ok=miss_ok and d_ok and id_ok)
-                require(miss_ok and d_ok and id_ok,
-                        f"K3 {metric} Q={nq} k={k} disagrees with its plain version")
-                err_max = max(err_max, err)
-                checks += 1
+    for rows_dtype in ("bfloat16", "float32"):
+        x = matrix if rows_dtype == "bfloat16" else matrix.float()
+        for metric in ("euclidean", "cosine"):
+            for nq in (1, 8, 64):
+                q = torch.from_numpy(np.ascontiguousarray(queries[:nq], dtype=np.float32)).to(dev)
+                pd = D.pairwise_distance_plain(q, cents, metric)
+                pv, pp = D._topk_min_stable(pd, nprobe)
+                _, kp = D.knn_search(q, cents, probe_ok, metric, nprobe)
+                same = (kp.sort(1).values == pp.sort(1).values).all(1)
+                for r in (~same).nonzero()[:, 0].tolist():
+                    diff = set(kp[r].tolist()) ^ set(pp[r].tolist())
+                    kth = float(pv[r, -1])
+                    require(all(abs(float(pd[r, c]) - kth) <= TOL["atol"] + TOL["rtol"] * abs(kth)
+                                for c in diff), f"K3 probe of query {r} differs beyond a tie")
+                if rows_dtype == "bfloat16":
+                    probe_ties += int((~same).sum())
+                # k above the candidates (the rank merge) on the bf16 rows only
+                for k in (10, 200) + ((nprobe * lmax + 7,) if rows_dtype == "bfloat16" else ()):
+                    got_d, got_i = IVF._ivf_search(q, cents, list_rows, list_mask, x, slot_ok,
+                                                   metric=metric, probe_metric=metric, k=k,
+                                                   nprobe=nprobe, probe_ok=probe_ok)
+                    modes = {m: IVF._ivf_rerank(q, kp, list_rows, list_mask, x, slot_ok, metric,
+                                                k, mode=m) for m in IVF.RERANK_MODES}
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize()
+                    bit_equal = all(torch.equal(v[0], got_d) and torch.equal(v[1], got_i)
+                                    for v in modes.values())
+                    want_d, want_i = IVF.ivf_search_plain(q, cents, list_rows, list_mask, x,
+                                                          slot_ok, metric, metric, k, nprobe)
+                    s = same
+                    gd, gi, wd, wi = got_d[s], got_i[s], want_d[s], want_i[s]
+                    miss = torch.isinf(wd)
+                    miss_ok = bool(torch.equal(torch.isinf(gd), miss)) and bool(
+                        torch.equal(gi[miss], wi[miss]))
+                    fin = ~miss
+                    err = float((gd[fin] - wd[fin]).abs().max()) if bool(fin.any()) else 0.0
+                    d_ok = bool(torch.allclose(gd[fin], wd[fin], **TOL))
+                    id_ok = ids_match_up_to_ties(
+                        gd.cpu().numpy(), gi.cpu().numpy(), wd.cpu().numpy(), wi.cpu().numpy(),
+                        finite_kth=True,
+                    )
+                    emit("k3_check", rows=rows_dtype, metric=metric, q=nq, k=k,
+                         k_served=int(got_d.shape[1]), nprobe=nprobe, L=lmax,
+                         probe_tie_queries=int((~s).sum()), misses=int(miss.sum()),
+                         max_abs_err=err, ids_equal=bool(torch.equal(gi, wi)),
+                         modes_bit_equal=bit_equal, ok=miss_ok and d_ok and id_ok and bit_equal)
+                    require(miss_ok and d_ok and id_ok,
+                            f"K3 {rows_dtype} {metric} Q={nq} k={k} disagrees with its plain "
+                            "version")
+                    require(bit_equal, f"K3 {rows_dtype} {metric} Q={nq} k={k}: the rerank's "
+                            "modes differ")
+                    err_max = max(err_max, err)
+                    checks += 1
+        del x
     return err_max, checks, probe_ties
 
 
+K3_KERNELS_A_TILE = {"knn_select": 2, "ivf_rerank": 1, "mesh_topk_merge": 1}
+
+
 def time_ivf_search(torch, ivf, matrix, queries, nprobe: int, k: int, dim: int):
-    """Median time of K3 at the main path's launch shapes (Q in {1, 8, 64},
-    all slots ok, euclidean), with its bound from this run's probed lists."""
+    """Median times of K3 (probe, ivf_rerank, merge), by events and queued,
+    at the main path's launch shapes (Q in {1, 8, 64}, all slots ok,
+    euclidean), in the plan's mode and in each mode forced, with its bound
+    from this run's probed lists: the queries and centroids, each distinct
+    probed list's mask bytes and, for each of its members, its slot, its
+    slot_ok byte and its row, once however many queries probe it, and the
+    picks; the operations a product a (query, member) pair and the probe's.
+    The kernels a call come from the wrappers' counts."""
     from surrealdb_tpu_torch.idx import ivf as IVF
+    from surrealdb_tpu_torch.ops import _cuda
     from surrealdb_tpu_torch.ops import distances as D
 
     dev = matrix.device
@@ -772,17 +798,37 @@ def time_ivf_search(torch, ivf, matrix, queries, nprobe: int, k: int, dim: int):
     for nq in (1, 8, 64):
         q = torch.from_numpy(np.ascontiguousarray(queries[:nq], dtype=np.float32)).to(dev)
         _, probes = D.knn_search(q, cents, probe_ok, "euclidean", nprobe)
-        cand = int(lens[probes.cpu().numpy()].sum())  # real candidate rows of this run
-        nbytes = (nq * dim * 4 + nl * dim * 4 + cand * dim * 2
-                  + nq * nprobe * lmax * 5 + nq * k * 8)
+        pr = probes.cpu().numpy()
+        cand = int(lens[pr].sum())  # (query, member) pairs of this run: the products
+        probed = np.unique(pr)
+        rows_read = int(lens[probed].sum())
+        nbytes = (nq * dim * 4 + nl * dim * 4 + probed.size * lmax + rows_read * (5 + dim * 2)
+                  + nq * k * 8)
         flops = 2.0 * nq * nl * dim + 2.0 * cand * dim
         bound, by = bound_ms(nbytes, flops, "bfloat16")
         args = (q, cents, list_rows, list_mask, matrix, slot_ok)
         kw = dict(metric="euclidean", probe_metric="euclidean", k=k, nprobe=nprobe)
+        call = lambda: IVF._ivf_search(*args, probe_ok=probe_ok, **kw)  # noqa: E731
+        before = read_launches()
+        call()
+        torch.cuda.synchronize()
+        launched = {c: v - before[c] for c, v in read_launches().items() if v - before[c]}
+        kernels = sum(K3_KERNELS_A_TILE.get(c, 99) * v for c, v in launched.items())
+        require(set(launched) == set(K3_KERNELS_A_TILE) and kernels == 4,
+                f"K3 at Q={nq} launched {launched}: {kernels} kernels a call")
+        by_mode = {}
+        for m in IVF.RERANK_MODES:
+            rr = lambda: IVF._ivf_rerank(q, probes, list_rows, list_mask, matrix,  # noqa: E731
+                                         slot_ok, "euclidean", k, mode=m)
+            by_mode[m] = dict(rerank_ms=median_ms(rr), rerank_queued_ms=queued_device_ms(torch, rr))
         out[nq] = dict(
-            ms=median_ms(lambda: IVF._ivf_search(*args, probe_ok=probe_ok, **kw)),
+            ms=median_ms(call), queued_ms=queued_device_ms(torch, call),
             plain_ms=median_ms(lambda: IVF.ivf_search_plain(*args, **kw), iters=5),
             library_ms=None, bound_ms=bound, bound_by=by, candidate_rows=cand,
+            probed_lists=int(probed.size), rows_read=rows_read,
+            mode=IVF.rerank_plan(_cuda.lib(), nq, 1, nprobe, lmax, min(k, nprobe * lmax), dim,
+                                 int(matrix.dtype == torch.bfloat16))[0],
+            launches=launched, kernels=kernels, by_mode=by_mode,
         )
         emit("timing_k3", q=nq, nlists=nl, nprobe=nprobe, L=lmax, k=k, **out[nq])
     return out
@@ -1171,7 +1217,7 @@ def phase_main_path_hnsw(torch, device: str, corpus, queries, truth, batch: int,
     """HNSW: `DEFINE INDEX … HNSW … EFC 64` queried with `<|10,64|>`. The
     first query after ingest serves exactly while the quantizer trains in
     the background (K4 k-means, K5 full assignment); every timed query then
-    takes the `ivf` strategy (K2 probe, K3 gather + select + mapping).
+    takes the `ivf` strategy (K2 probe, K3 rerank, the merge).
     Device recall@10 must lie within 0.01 of the host twin's
     (IvfState.search_host, numpy f32) on the same quantizer and queries.
     `then(ds, results, out)`, when given, runs last on the open Datastore
@@ -1240,11 +1286,10 @@ def phase_main_path_hnsw(torch, device: str, corpus, queries, truth, batch: int,
                 f"strategies {delta}, expected {n_queries} ivf")
         n_assign = 8 + -(-n_rows // 65_536)  # 8 k-means steps + the full assignment's tiles
         if device == "cuda":
-            # each dispatched tile: one probe (the fused K2), the gather, a
-            # second select and the slot mapping; no training launch
+            # each dispatched tile: the probe (the fused K2: two kernels, one
+            # count), ivf_rerank and the merge, 4 kernels; no training launch
             want = {c.name: 0 for c in kernel_counters()}
-            want.update(knn_select=2 * tiles,
-                        ivf_gather_distance=tiles, ivf_map_slots=tiles)
+            want.update(knn_select=tiles, ivf_rerank=tiles, mesh_topk_merge=tiles)
             require(timed == want, f"launches {timed} for {tiles} dispatched tiles")
             require(train_launches["ivf_assign"] == n_assign
                     and train_launches["ivf_kmeans_update"] == 8,
@@ -1283,9 +1328,11 @@ def phase_main_path_hnsw(torch, device: str, corpus, queries, truth, batch: int,
         if device == "cuda":
             from surrealdb_tpu_torch.idx import ivf as IVF
             from surrealdb_tpu_torch.ops import distances as D
+            from surrealdb_tpu_torch.parallel import mesh as M
 
             # K1 has no caller on the engine's paths (K2 fuses its distances)
-            path = {c.name: out["run_launches"][c.name] for c in (D.SELECT,) + IVF.KERNELS}
+            path = {c.name: out["run_launches"][c.name]
+                    for c in (D.SELECT, M.MERGE) + IVF.KERNELS}
             require(all(v > 0 for v in path.values()),
                     f"a kernel of the HNSW path never launched: {path}")
         fresh = make_queries(corpus, 64, 7, noise=CLUSTER_SIGMA)
@@ -1465,13 +1512,25 @@ def phase_graph_kernels(torch):
           G.dense_count_batch(As, outdeg, fr, cw, n0),
           G.dense_count_batch_plain(As, outdeg, fr, cw, n0))
     del As
+    # K7: every (->knows, knows->person) pair fuses (each knows record has
+    # one source); a hop alone, a 1-hop count, and a chain that starts at
+    # the records (kp first: many sources a person) runs unfused
+    require(G.csc_facts(*pk_csc)[1] and not G.csc_facts(*kp_csc)[1],
+            "the person->knows CSC does not read as single-source")
+    for lanes, per_lane in ((32, 3), (64, 1)):
+        fr, cw = seeds(lanes, n_cap, per_lane)
+        for hops in range(0, 5):
+            csc = tuple((pk_csc,) if i % 2 == 0 else (kp_csc,) for i in range(hops))
+            last = ((pk[0],),) if hops % 2 == 0 else ((kp[0],),)
+            check("graph_csc_count", f"lanes{lanes}_csc_hops{hops}",
+                  G.chain_count_batch(csc, last, fr, cw, n_cap),
+                  G.chain_count_batch_plain(csc, last, fr, cw, n_cap))
     fr, cw = seeds(32, n_cap, 3)
-    for hops in range(1, 5):
-        csc = tuple((pk_csc,) if i % 2 == 0 else (kp_csc,) for i in range(hops))
-        last = ((pk[0],),) if hops % 2 == 0 else ((kp[0],),)
-        check("graph_csc_count", f"lanes32_csc_hops{hops}",
-              G.chain_count_batch(csc, last, fr, cw, n_cap),
-              G.chain_count_batch_plain(csc, last, fr, cw, n_cap))
+    fr = torch.where(fr < n_cap, fr + nodes, fr)  # knows records as the seeds
+    csc = ((kp_csc,), (pk_csc,), (kp_csc,))
+    check("graph_csc_count", "lanes32_kp_unfused_then_pk_kp_fused",
+          G.chain_count_batch(csc, ((pk[0],),), fr, cw, n_cap),
+          G.chain_count_batch_plain(csc, ((pk[0],),), fr, cw, n_cap))
     fnodes, fcounts = fof_frontier(arrs, int(rng.integers(0, nodes)))
     ffsz = next_pow2(max(fnodes.size, fsz))
     f1 = np.full(ffsz, n_cap, dtype=np.int32)
@@ -1544,11 +1603,16 @@ def phase_graph_kernels(torch):
     x_bytes = 4 * 2 * (n_cap + 1) * 32 * 4  # the lane-minor x written and read back a hop
     k7_ops = 32.0 * (sum(int(pair[1].numel()) for hop in csc for pair in hop) + 2 * n_cap)
     k7_bound, k7_by = bound_ms(in_bytes, k7_ops, "float32")
+    fr64, cw64 = seeds(64, n_cap, 1)
+    k7 = lambda: G.chain_count_batch(csc, last, fr, cw, n_cap)  # noqa: E731
+    k7_64 = lambda: G.chain_count_batch(csc, last, fr64, cw64, n_cap)  # noqa: E731
     timing["graph_csc_count"] = dict(
-        ms=median_ms(lambda: G.chain_count_batch(csc, last, fr, cw, n_cap)),
+        ms=median_ms(k7), queued_ms=queued_device_ms(torch, k7),
         plain_ms=median_ms(lambda: G.chain_count_batch_plain(csc, last, fr, cw, n_cap), iters=5),
         library_ms=None, bound_ms=k7_bound, bound_by=k7_by,
+        # the floor of a design that moves x through HBM every hop
         bound_with_x_ms=bound_ms(in_bytes + x_bytes, k7_ops, "float32")[0],
+        ms_64_lanes=median_ms(k7_64), queued_ms_64_lanes=queued_device_ms(torch, k7_64),
         shape={"lanes": 32, "fsz": fsz, "n_cap": n_cap, "csc_hops": 4},
     )
     # K6's bytes are this frontier's: its entries, their two pointers each,
@@ -1557,8 +1621,9 @@ def phase_graph_kernels(torch):
     touched = int(np.minimum(kp_ptr[fnodes + 1] - kp_ptr[fnodes], 1).sum())
     k6_bytes = 2 * ffsz * 4 + 2 * int(fnodes.size) * 4 + touched * 4 + 2 * ffsz * 4
     k6_bound, k6_by = bound_ms(k6_bytes, float(touched), "float32")
+    k6 = lambda: G.chain_kernel(one, f1, c1, ((1,),), n_cap, out1, False)  # noqa: E731
     timing["graph_chain"] = dict(
-        ms=median_ms(lambda: G.chain_kernel(one, f1, c1, ((1,),), n_cap, out1, False)),
+        ms=median_ms(k6), queued_ms=queued_device_ms(torch, k6),
         plain_ms=median_ms(lambda: G.chain_plain(one, f1, c1, ((1,),), n_cap, out1, False),
                            iters=5),
         library_ms=None, bound_ms=k6_bound, bound_by=k6_by,
@@ -3049,9 +3114,9 @@ def phase_mesh_multicard(torch, n: int = 1 << 18, dim: int = DIM, k: int = 10):
         before = read_launches()
         d, r = ivf.search_batch_sharded(qs[:nq], mesh, sharded, "euclidean", k, nprobe)
         launched = {c: v - before[c] for c, v in read_launches().items()}
-        # a rerank a card (one shard each), no K3 gather
+        # a rerank a card (one shard each), none through K3's own wrapper
         checks[f"K13 launches q{nq}"] = (launched["mesh_ivf_rerank"] == n_dev
-                                         and launched["ivf_gather_distance"] == 0)
+                                         and launched["ivf_rerank"] == 0)
         q = torch.from_numpy(np.ascontiguousarray(qs[:nq])).to(dev0)
         sd, sr = IVF._ivf_search(q, cents, rows1, mask1, single,
                                  torch.ones(n, dtype=torch.bool, device=dev0), "euclidean",
@@ -3158,9 +3223,10 @@ class MeshPaths:
 
 # ------------------------------------------------------------------ main
 def kernel_entry(name, kern, source, replaces, launches, err, timing, shape, extra=None):
+    # the main path's launches and the checks' error stand over any timing key
     return {
-        "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches, "max_abs_err": err, **timing, "shape": shape, **(extra or {}),
+        "name": name, "route": "cuda", "source": source, "replaces": replaces, **timing,
+        "launches": launches, "max_abs_err": err, "shape": shape, **(extra or {}),
     }
 
 
@@ -3299,17 +3365,20 @@ def main(argv=None) -> int:
         ))
     run_launches = hnsw["run_launches"]
     k3 = hnsw["k3_timing"]
+    k3_shape_keys = ("candidate_rows", "probed_lists", "rows_read", "mode")
+    k3_extra = ("by_mode", "launches", "kernels")  # a call's, beside the run's launches
     kernels.append(kernel_entry(
-        "K3 _ivf_search (fused knn_search probe + ivf_gather_distance + knn_select + "
-        "ivf_map_slots)",
-        "ivf_gather_distance", "surrealdb_tpu_torch/csrc/ivf.cu",
-        "surrealdb_tpu/idx/ivf.py:693", run_launches["ivf_gather_distance"], hnsw["k3_err"],
-        {kk: v for kk, v in k3[1].items() if kk != "candidate_rows"},
+        "K3 _ivf_search (fused knn_search probe + ivf_rerank + mesh_topk_merge, 4 kernels a "
+        "tile)",
+        "ivf_rerank", "surrealdb_tpu_torch/csrc/ivf.cu",
+        "surrealdb_tpu/idx/ivf.py:693", run_launches["ivf_rerank"], hnsw["k3_err"],
+        {kk: v for kk, v in k3[1].items() if kk not in k3_shape_keys + k3_extra},
         {"q": 1, "nlists": hnsw["nlists"], "nprobe": hnsw["nprobe"], "L": hnsw["L"],
-         "n": full, "d": DIM, "k": 10, "candidate_rows": k3[1]["candidate_rows"]},
-        {"by_q": {str(nq): k3[nq] for nq in (8, 64)},
-         "launches_by_kernel": {n: run_launches[n] for n in ("ivf_gather_distance",
-                                                              "ivf_map_slots")}},
+         "n": full, "d": DIM, "k": 10, **{kk: k3[1][kk] for kk in k3_shape_keys}},
+        {"by_q": {str(nq): k3[nq] for nq in (8, 64)}, "by_mode": k3[1]["by_mode"],
+         "kernels_a_call": k3[1]["kernels"],
+         "launches_by_kernel": {n: run_launches[n] for n in ("knn_select", "ivf_rerank",
+                                                              "mesh_topk_merge")}},
     ))
     kernels.append(kernel_entry(
         "K4 _kmeans_step (ivf_assign k=1 + ivf_kmeans_update)", "ivf_kmeans_update",
@@ -3408,9 +3477,9 @@ def main(argv=None) -> int:
     ))
     k13 = kb["timing"]
     kernels.append(kernel_entry(
-        "K13 _ivf_searcher / sharded_ivf_search (probe once a card; mesh_ivf_rerank once "
+        "K13 _ivf_searcher / sharded_ivf_search (probe once a card; K3's ivf_rerank once "
         "over a card's shards; mesh_topk_merge)",
-        "mesh_ivf_rerank", mesh_src, "surrealdb_tpu/parallel/mesh.py:173",
+        "mesh_ivf_rerank", "surrealdb_tpu_torch/csrc/ivf.cu", "surrealdb_tpu/parallel/mesh.py:173",
         mesh_b["launches"]["mesh_ivf_rerank"], kb["max_abs_err"],
         {kk: v for kk, v in k13[1].items() if kk not in K13_EXTRA},
         {"q": 1, "n": full, "d": DIM, "k": 10, "shards": MESH_SHARDS,
@@ -3418,8 +3487,8 @@ def main(argv=None) -> int:
         {"by_q": {str(nq): k13[nq] for nq in (8, 64)},
          "kernels_a_call": k13[1]["kernels"], "kernels_per_call": k13[1]["kernels_per_call"],
          "launches_by_kernel": {n: mesh_b["launches"][n] for n in (
-             "knn_pairwise", "knn_select", "ivf_gather_distance", "ivf_map_slots",
-             "mesh_ivf_rerank", "mesh_topk_merge")}},
+             "knn_pairwise", "knn_select", "ivf_rerank", "mesh_ivf_rerank",
+             "mesh_topk_merge")}},
     ))
     gt = mesh_graph_k["timing"]
     for name, kern, replaces, key in (

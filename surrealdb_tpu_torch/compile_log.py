@@ -41,20 +41,19 @@ from typing import Any, Deque, Optional, Tuple
 # subsystem strings passed to tracked().
 KERNEL_SITES = {
     "knn_exact": ("knn_pairwise", "knn_select"),
-    "ivf": ("knn_pairwise", "knn_select", "ivf_gather_distance", "ivf_map_slots"),
+    "ivf": ("knn_pairwise", "knn_select", "ivf_rerank", "mesh_topk_merge"),
     "graph_dense": ("graph_dense_count",),
     "graph_csc": ("graph_csc_count",),
     "graph_chain": ("graph_chain",),
     "bm25": ("bm25_scores",),
     "ml_forward": ("ml_linear", "ml_softmax"),
     "knn_sharded": ("knn_pairwise", "knn_select", "mesh_topk_merge"),
-    "ivf_sharded": ("knn_pairwise", "knn_select", "ivf_gather_distance", "ivf_map_slots",
-                    "mesh_topk_merge"),
+    "ivf_sharded": ("knn_pairwise", "knn_select", "ivf_rerank", "mesh_topk_merge"),
     "kernel_build": (
         "knn_pairwise", "knn_row_mean", "knn_select",
-        "ivf_assign", "ivf_kmeans_update", "ivf_gather_distance", "ivf_map_slots",
+        "ivf_assign", "ivf_kmeans_update", "ivf_rerank",
         "graph_dense_count", "graph_csc_count", "graph_chain", "bm25_scores",
-        "ml_linear", "ml_softmax", "mesh_topk_merge", "mesh_partial_sqdist",
+        "ml_linear", "ml_softmax", "mesh_topk_merge", "mesh_knn_2d",
         "mesh_frontier_hop", "mesh_dedup_frontier",
     ),
 }

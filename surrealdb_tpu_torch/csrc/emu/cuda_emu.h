@@ -63,6 +63,7 @@ template <class T> T __ldg(const T* p) { return *p; }
 inline unsigned atomicAdd(unsigned* p, unsigned v) { return std::atomic_ref<unsigned>(*p).fetch_add(v); }
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
 inline float atomicAdd(float* p, float v) { return std::atomic_ref<float>(*p).fetch_add(v); }
+inline unsigned atomicOr(unsigned* p, unsigned v) { return std::atomic_ref<unsigned>(*p).fetch_or(v); }
 inline unsigned long long atomicMin(unsigned long long* p, unsigned long long v) {
   std::atomic_ref<unsigned long long> a(*p);
   unsigned long long o = a.load();

@@ -32,16 +32,31 @@
 // B count chains over destination-sorted (cptr, csrc) adjacency. The
 // reference's cumsum-and-difference form exists because scatter is slow on
 // a TPU; this computes what it computes, y[v, b] = sum over the edges e of v
-// of x[csrc[e], b] (summed over the hop's mirrors), pull-based: a warp owns a
-// destination and reads each source's row of B lanes as one contiguous 128
-// bytes (B = 32). Then sum_v x[v, b] * deg(v) over the last hop. int32 sums
-// wrap exactly as the reference's cumsum difference does (unsigned
-// arithmetic here), so any order gives the same bits. What bounds it: the
-// [n_cap + 1, B] int32 x (134 MB at n_cap = 2^20, B = 32) read and written
-// once a hop (bytes). The reference's shapes are kept: x starts n_cap + 1
-// wide, each hop's output is its mirrors' cap (+ a zero sentinel) wide,
-// gathers past the width read the last column, and column n_cap is zeroed
-// before each hop.
+// of x[csrc[e], b] (summed over the hop's mirrors), then sum_v x[v, b] *
+// deg(v) over the last hop. int32 sums wrap exactly as the reference's
+// cumsum difference does (unsigned arithmetic here), so any order gives the
+// same bits, and a row whose lanes all sum to 0 counts as a row never
+// written. What bounds it: reading the CSC arrays once (bytes). Design:
+// - live rows only: x is lane-minor ([rows, B]) with a live bitmap a hop
+//   (2^20 rows: 128 KB, in L2); a source whose bit is clear is not read, a
+//   destination with no live source is not written and stays clear, and
+//   nothing the size of x is memset (the seeds' rows are zeroed, then
+//   summed); the degree dot walks the live rows (live_dot);
+// - fused edge hops: where a hop's CSC gives every node at most one
+//   source (an edge table's `->edge` hop: each record has one `in`; the
+//   host checks it once a mirror generation, graph_csr.py csc_facts), it
+//   and the hop after run as one: y[v] = sum over e of v of x[src1(csrc2[e])],
+//   so the edge-wide intermediate is never written; the reference's index
+//   rules apply at both levels (a negative index wraps once, then clamps
+//   into the width, so a gather past it reads the last column; column
+//   n_cap and the sentinel read zero; a reversed segment negates);
+// - hop_edges (pointers that rise; the host gives each edge's destination):
+//   a warp a range of 256 edges moved to whole destinations, so it owns
+//   what it writes (no atomics on x), lanes over edges (coalesced), each
+//   live source's B lanes read as one line, four rows in flight;
+//   hop_dests (any pointers, or B above 128): a warp a destination.
+// The reference's shapes are kept: x starts n_cap + 1 wide, each hop's
+// output is its mirrors' cap (+ a zero sentinel) wide.
 //
 // K6 graph_chain replaces chain_kernel (chain_impl, gather_hop, accum_cap):
 // one frontier's multi-hop chain. Each hop is a weighted CSR gather with the
@@ -68,50 +83,6 @@ constexpr int THREADS = 256;
 
 __device__ __forceinline__ long long clampll(long long v, long long lo, long long hi) {
   return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// x[clip(fr, 0, n), b] += w for w > 0, x lane-minor ([n + 1, B]); the
-// sentinel column n is dropped (the caller zeroes it before each hop).
-__global__ void __launch_bounds__(THREADS) densify(const int* fr, const int* w, int B, int fsz,
-                                                   int n, unsigned* x) {
-  const long long total = (long long)B * fsz;
-  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < total;
-       i += (long long)gridDim.x * THREADS) {
-    const int wv = w[i];
-    if (wv <= 0) continue;
-    const long long c = clampll(fr[i], 0, n);
-    if (c < n) atomicAdd(&x[c * B + i / fsz], (unsigned)wv);
-  }
-}
-
-// out[b] += sum_v x[v, b] * (ptr[v + 1] - ptr[v]) over v < V, x lane-minor
-// [V, B]. A thread keeps its lane's sum in a register when the lane window
-// divides the block, else adds each term into shared memory.
-__global__ void __launch_bounds__(THREADS) lane_dot(const unsigned* x, long long V, int B,
-                                                    const int* ptr, unsigned* out) {
-  __shared__ unsigned sacc[THREADS];
-  for (int l0 = 0; l0 < B; l0 += THREADS) {
-    const int W = B - l0 < THREADS ? B - l0 : THREADS;
-    const bool fixed = THREADS % W == 0;
-    sacc[threadIdx.x] = 0u;
-    __syncthreads();
-    unsigned mine = 0u;
-    const long long total = V * W;
-    for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < total;
-         i += (long long)gridDim.x * THREADS) {
-      const long long v = i / W;
-      const int lane = (int)(i % W);
-      const unsigned term = x[v * B + l0 + lane] * (unsigned)(ptr[v + 1] - ptr[v]);
-      if (fixed)
-        mine += term;
-      else
-        atomicAdd(&sacc[lane], term);
-    }
-    if (fixed) atomicAdd(&sacc[threadIdx.x % W], mine);
-    __syncthreads();
-    if (threadIdx.x < (unsigned)W) atomicAdd(&out[l0 + threadIdx.x], sacc[threadIdx.x]);
-    __syncthreads();
-  }
 }
 
 // ------------------------------------------------------------------ K8
@@ -220,38 +191,312 @@ cudaError_t launch_matvec(const uint16_t* A, int R, int N, const float* u, float
 
 // ------------------------------------------------------------------ K7
 
-// y[v, :] (= or +=) sum over edges e in [cptr[v], cptr[v+1]) of
-// x[src(e), :], src(e) = csrc[e] clamped to the input width W (a negative
-// index counts from the end, as the reference's gather does); a reversed
-// segment gives the negated sum (the reference's s[end] - s[start]). A warp
-// a destination; 32 sources loaded at once and broadcast by shuffles.
-__global__ void __launch_bounds__(THREADS) csc_hop(const int* cptr, const int* csrc, long long E,
-                                                   int cap, const unsigned* x, long long W, int B,
-                                                   unsigned* y, int accumulate) {
+constexpr int K7_LANES = 128;    // count lanes a warp keeps in registers (4 a thread)
+constexpr int K7_EDGES = 256;    // a warp's nominal edge range in hop_edges
+constexpr int K7_FUSE_MAX = 4;   // first-hop mirrors a fused pair resolves through
+
+// The reference's gather index into a width-W input: a negative index
+// wraps once, then the index clamps into [0, W - 1].
+__device__ __forceinline__ long long gather_col(long long raw, long long W) {
+  if (raw < 0) raw += W;
+  return clampll(raw, 0, W - 1);
+}
+
+// A column of a width-W hop input that reads zero whatever was written:
+// the last (the sentinel, or a wider width's padding) and, when it lies
+// inside, column n_cap, which the reference zeroes before every hop.
+__device__ __forceinline__ bool dead_col(long long u, long long W, int n_cap) {
+  return u == W - 1 || ((long long)n_cap < W && u == n_cap);
+}
+
+__device__ __forceinline__ bool live_bit(const unsigned* bits, long long u) {
+  return (__ldg(bits + (u >> 5)) >> (u & 31)) & 1u;
+}
+
+// The first hop of a fused (->edge, edge->node) pair: its mirrors' CSC
+// (cptr [W1], csrc [E]) over one cap (W1 - 1), each giving every
+// intermediate node at most one source (checked on the host), and the
+// width W0 of the pair's input.
+struct FirstHop {
+  const int* c[K7_FUSE_MAX];
+  const int* s[K7_FUSE_MAX];
+  long long E[K7_FUSE_MAX];
+  int n;
+  long long W1, W0;
+};
+
+// The input rows a hop-input column u stands for: itself, live, unless
+// dead or clear (unfused); or, fused, the first hop's source of the
+// intermediate node u in mirror m, where it has one and that is live. -1:
+// nothing. u is a gathered (never dead) column of the pair's intermediate.
+template <bool FUSED>
+__device__ __forceinline__ long long resolve(long long u, int m, const FirstHop& f,
+                                             const unsigned* xbits, long long W, int n_cap) {
+  if (!FUSED) return dead_col(u, W, n_cap) || !live_bit(xbits, u) ? -1 : u;
+  const long long E = f.E[m];
+  const long long a = clampll(f.c[m][u], 0, E), b = clampll(f.c[m][u + 1], 0, E);
+  if (b - a != 1) return -1;  // no source (a single-source hop has 0 or 1)
+  const long long s = gather_col(f.s[m][a], f.W0);
+  return dead_col(s, f.W0, n_cap) || !live_bit(xbits, s) ? -1 : s;
+}
+
+// Adds (or, for a destination no earlier launch of this hop wrote,
+// writes) a warp's sums for destination v into y and marks v live; the
+// calling warp owns v in this launch. Lane l holds lanes l + 32 i.
+__device__ __forceinline__ void flush_row(unsigned* y, unsigned* ybits, long long v, int B,
+                                          const unsigned (&acc)[K7_LANES / 32]) {
+  const int lane = threadIdx.x & 31;
+  unsigned had = 0u;  // set before (an earlier mirror's launch, or this warp), and now set
+  if (lane == 0) had = (atomicOr(&ybits[v >> 5], 1u << (v & 31)) >> (v & 31)) & 1u;
+  had = __shfl_sync(0xffffffffu, had, 0);
+#pragma unroll
+  for (int i = 0; i < K7_LANES / 32; ++i) {
+    const int c = lane + 32 * i;
+    if (c < B) y[v * B + c] = had ? y[v * B + c] + acc[i] : acc[i];
+  }
+}
+
+// One mirror of a hop (or of a fused pair's second hop) whose pointers rise
+// (cdst [E]: each edge's destination, cap where it has none; host-made):
+// a warp a range of K7_EDGES edges, moved to whole destinations (it skips
+// the edges of a destination begun before it and finishes the one it ends
+// in), so it owns every destination it writes. Lanes take 32 edges at a
+// time (coalesced cdst and csrc); each edge's live input rows (resolve)
+// are read a row a load across the lanes, four rows in flight, and summed
+// into the warp's current destination, flushed when it changes. A source
+// whose bit is clear is not read; a destination with no live source is not
+// written. B <= K7_LANES.
+template <bool FUSED>
+__global__ void __launch_bounds__(THREADS) hop_edges(const int* __restrict__ csrc,
+                                                     const int* __restrict__ cdst, long long E,
+                                                     int cap, FirstHop f,
+                                                     const unsigned* __restrict__ x,
+                                                     const unsigned* __restrict__ xbits,
+                                                     long long W, int n_cap, int B, unsigned* y,
+                                                     unsigned* ybits) {
+  constexpr unsigned FULL_MASK = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const long long e0 = ((long long)blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5)) * K7_EDGES;
+  if (e0 >= E) return;  // whole warps
+  const long long e1 = e0 + K7_EDGES < E ? e0 + K7_EDGES : E;
+  // the first edge of a destination that begins in the range
+  long long start = e0;
+  if (e0 > 0) {
+    const int prev = cdst[e0 - 1];
+    for (;; start += 32) {
+      const long long e = start + lane;
+      const unsigned m = __ballot_sync(FULL_MASK, e < e1 && cdst[e] != prev);
+      if (m != 0u) {
+        start += __ffs((int)m) - 1;
+        break;
+      }
+      if (start + 32 >= e1) return;  // no destination begins here: the range is owned
+    }
+  }
+  // one past the last edge of the destination the range ends in
+  long long end = e1;
+  const int last = cdst[e1 - 1];
+  if (last < cap)
+    for (;; end += 32) {
+      const long long e = end + lane;
+      const unsigned m = __ballot_sync(FULL_MASK, e >= E || cdst[e] != last);
+      if (m != 0u) {
+        end += __ffs((int)m) - 1;
+        break;
+      }
+    }
+  unsigned acc[K7_LANES / 32];
+#pragma unroll
+  for (int i = 0; i < K7_LANES / 32; ++i) acc[i] = 0u;
+  long long cur = -1;
+  const int nm = FUSED ? f.n : 1;
+  for (long long base = start; base < end; base += 32) {
+    const long long e = base + lane;
+    const int v = e < end ? cdst[e] : cap;
+    long long u = 0;
+    if (v < cap) u = gather_col(csrc[e], FUSED ? f.W1 : W);
+    const bool gathered = v < cap && !(FUSED && dead_col(u, f.W1, n_cap));
+#pragma unroll
+    for (int m = 0; m < K7_FUSE_MAX; ++m) {
+      if (m >= nm) break;  // uniform; unrolled, so f's arrays take constant indices
+      const long long src = gathered ? resolve<FUSED>(u, m, f, xbits, W, n_cap) : -1;
+      unsigned todo = __ballot_sync(FULL_MASK, src >= 0);
+      while (todo != 0u) {  // uniform: up to four live rows in flight
+        int who[4];
+        unsigned row[4][K7_LANES / 32];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          who[r] = todo != 0u ? __ffs((int)todo) - 1 : -1;
+          todo &= todo - 1u;
+          const long long sr = __shfl_sync(FULL_MASK, src, who[r] < 0 ? 0 : who[r]);
+#pragma unroll
+          for (int i = 0; i < K7_LANES / 32; ++i) {
+            const int c = lane + 32 * i;
+            row[r][i] = who[r] >= 0 && c < B ? x[sr * B + c] : 0u;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          if (who[r] < 0) break;  // uniform
+          const long long vr = __shfl_sync(FULL_MASK, (long long)v, who[r]);
+          if (vr != cur) {
+            if (cur >= 0) flush_row(y, ybits, cur, B, acc);
+            cur = vr;
+#pragma unroll
+            for (int i = 0; i < K7_LANES / 32; ++i) acc[i] = 0u;
+          }
+#pragma unroll
+          for (int i = 0; i < K7_LANES / 32; ++i) acc[i] += row[r][i];
+        }
+      }
+    }
+  }
+  if (cur >= 0) flush_row(y, ybits, cur, B, acc);
+}
+
+// One mirror of a hop whose pointers may fall (a reversed segment gives
+// the negated sum, the reference's s[end] - s[start]), or with B above
+// K7_LANES: a warp a destination, lanes over its edges to find the live
+// input rows, then over the count lanes to sum them.
+template <bool FUSED>
+__global__ void __launch_bounds__(THREADS) hop_dests(const int* __restrict__ cptr,
+                                                     const int* __restrict__ csrc, long long E,
+                                                     int cap, FirstHop f,
+                                                     const unsigned* __restrict__ x,
+                                                     const unsigned* __restrict__ xbits,
+                                                     long long W, int n_cap, int B, unsigned* y,
+                                                     unsigned* ybits) {
+  constexpr unsigned FULL_MASK = 0xffffffffu;
   const long long v = (long long)blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (v >= cap) return;  // whole warps
   const long long a = clampll(cptr[v], 0, E), b = clampll(cptr[v + 1], 0, E);
   const long long lo = a < b ? a : b, hi = a < b ? b : a;
+  const int nm = FUSED ? f.n : 1;
+  bool any = false;
+  for (long long e0 = lo; e0 < hi && !any; e0 += 32) {
+    const long long e = e0 + lane;
+    long long u = 0;
+    bool g = e < hi;
+    if (g) {
+      u = gather_col(csrc[e], FUSED ? f.W1 : W);
+      g = !(FUSED && dead_col(u, f.W1, n_cap));
+    }
+    bool live = false;
+#pragma unroll
+    for (int m = 0; m < K7_FUSE_MAX; ++m)
+      if (m < nm) live |= g && resolve<FUSED>(u, m, f, xbits, W, n_cap) >= 0;
+    any = __ballot_sync(FULL_MASK, live) != 0u;
+  }
+  if (!any) return;  // uniform: nothing written, v stays clear
+  unsigned had = 0u;  // written by an earlier mirror's launch; marked live from here
+  if (lane == 0) had = (atomicOr(&ybits[v >> 5], 1u << (v & 31)) >> (v & 31)) & 1u;
+  had = __shfl_sync(FULL_MASK, had, 0);
   for (int c0 = 0; c0 < B; c0 += 32) {
     const int c = c0 + lane;
     unsigned acc = 0u;
     for (long long e0 = lo; e0 < hi; e0 += 32) {
-      long long src = 0;
-      if (e0 + lane < hi) {
-        src = csrc[e0 + lane];
-        if (src < 0) src += W;
-        src = clampll(src, 0, W - 1);
+      const long long e = e0 + lane;
+      long long u = 0;
+      bool g = e < hi;
+      if (g) {
+        u = gather_col(csrc[e], FUSED ? f.W1 : W);
+        g = !(FUSED && dead_col(u, f.W1, n_cap));
       }
-      const int cnt = hi - e0 < 32 ? (int)(hi - e0) : 32;
-      for (int j = 0; j < cnt; ++j) {
-        const long long sj = __shfl_sync(0xffffffffu, src, j);
-        if (c < B) acc += x[sj * B + c];
+#pragma unroll
+      for (int m = 0; m < K7_FUSE_MAX; ++m) {
+        if (m >= nm) break;  // uniform
+        const long long src = g ? resolve<FUSED>(u, m, f, xbits, W, n_cap) : -1;
+        for (unsigned todo = __ballot_sync(FULL_MASK, src >= 0); todo != 0u; todo &= todo - 1u) {
+          const long long sj = __shfl_sync(FULL_MASK, src, __ffs((int)todo) - 1);
+          if (c < B) acc += x[sj * B + c];
+        }
       }
     }
     if (c < B) {
       const unsigned val = b < a ? 0u - acc : acc;
-      y[v * B + c] = accumulate ? y[v * B + c] + val : val;
+      y[v * B + c] = had ? y[v * B + c] + val : val;
+    }
+  }
+}
+
+// The seeds' rows of x: zeroed and marked live (first launch), then
+// x[clip(fr, 0, n), b] += w for w > 0 (second); column n is dropped.
+__global__ void __launch_bounds__(THREADS) seed_rows(const int* fr, const int* w, int B, int fsz,
+                                                     int n, unsigned* x, unsigned* bits,
+                                                     int add) {
+  const long long total = (long long)B * fsz;
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < total;
+       i += (long long)gridDim.x * THREADS) {
+    const int wv = w[i];
+    if (wv <= 0) continue;
+    const long long c = clampll(fr[i], 0, n);
+    if (c >= n) continue;
+    if (add) {
+      atomicAdd(&x[c * B + i / fsz], (unsigned)wv);
+    } else {
+      for (int b = 0; b < B; ++b) x[c * B + b] = 0u;
+      atomicOr(&bits[c >> 5], 1u << (c & 31));
+    }
+  }
+}
+
+// out[b] += sum over the live rows v < V of x[v, b] * (ptr[v + 1] - ptr[v]),
+// x lane-minor [*, B]. Warp w takes the live bitmap's words w, w + warps,
+// ... (its lane j the j-th), so the marked words, which crowd where the
+// live rows do, go to different warps; for a marked word the lanes read
+// its rows' degrees at once, then each row's counts as one line, four rows
+// in flight.
+__global__ void __launch_bounds__(THREADS) live_dot(const unsigned* __restrict__ x,
+                                                    const unsigned* __restrict__ bits,
+                                                    long long V, int B, const int* ptr,
+                                                    unsigned* out) {
+  constexpr unsigned FULL_MASK = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const long long words = (V + 31) / 32;
+  const long long nwarps = (long long)gridDim.x * (THREADS / 32);
+  const long long w0 = (long long)blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
+  for (int g0 = 0; g0 < B; g0 += K7_LANES) {
+    unsigned acc[K7_LANES / 32];
+#pragma unroll
+    for (int i = 0; i < K7_LANES / 32; ++i) acc[i] = 0u;
+    for (long long base = w0; base < words; base += nwarps * 32) {
+      const long long wl = base + nwarps * lane;
+      const unsigned mine = wl < words ? __ldg(bits + wl) : 0u;
+      for (unsigned todo = __ballot_sync(FULL_MASK, mine != 0u); todo != 0u; todo &= todo - 1u) {
+        const int j = __ffs((int)todo) - 1;
+        const long long word = base + nwarps * j;
+        const unsigned m = __shfl_sync(FULL_MASK, mine, j);
+        const long long vl = word * 32 + lane;  // lane l: the word's row l and its degree
+        const unsigned deg = (m >> lane) & 1u && vl < V ? (unsigned)(ptr[vl + 1] - ptr[vl]) : 0u;
+        for (unsigned rows = m; rows != 0u;) {  // uniform: four rows in flight
+          int who[4];
+          unsigned xv[4][K7_LANES / 32];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            who[r] = rows != 0u ? __ffs((int)rows) - 1 : -1;
+            rows &= rows - 1u;
+            const long long v = word * 32 + (who[r] < 0 ? 0 : who[r]);
+#pragma unroll
+            for (int i = 0; i < K7_LANES / 32; ++i) {
+              const int c = g0 + lane + 32 * i;
+              xv[r][i] = who[r] >= 0 && v < V && c < B ? x[v * B + c] : 0u;
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const unsigned dr = __shfl_sync(FULL_MASK, deg, who[r] < 0 ? 0 : who[r]);
+#pragma unroll
+            for (int i = 0; i < K7_LANES / 32; ++i)
+              if (who[r] >= 0) acc[i] += xv[r][i] * dr;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < K7_LANES / 32; ++i) {
+      const int c = g0 + lane + 32 * i;
+      if (c < B && acc[i] != 0u) atomicAdd(&out[c], acc[i]);
     }
   }
 }
@@ -341,14 +586,19 @@ int graph_dense_count(const void* const* mats, const int* dims, int n_mats, cons
 }
 
 // K7. Hop h has per_hop[h] mirrors, flattened in order: cptrs[m] [caps[m] + 1]
-// and csrcs[m] [nedges[m]] int32, one cap within a hop. last_ptrs[m]
-// [last_caps[m] + 1] are the final hop's CSR pointers. fr / w [B, fsz] int32;
-// xa / xb scratch of (max(n_cap, caps) + 1) * B int32 each; out [B] int32.
-// The caller has checked the reference's shape rules (graph_csr.py).
-int graph_csc_count(const void* const* cptrs, const void* const* csrcs, const int* caps,
-                    const long long* nedges, const int* per_hop, int n_hops,
-                    const void* const* last_ptrs, const int* last_caps, int n_last,
-                    const void* fr, const void* w, int B, int fsz, int n_cap, void* xa, void* xb,
+// and csrcs[m] [nedges[m]] int32, one cap within a hop; cdsts[m] [nedges[m]]
+// int32, each edge's destination (caps[m] where none), where the mirror's
+// clamped pointers rise, else null; singles[m] 1 where they rise by at most
+// one a node. last_ptrs[m] [last_caps[m] + 1] are the final hop's CSR
+// pointers. fr / w [B, fsz] int32; xa / xb scratch of rows * B int32 each
+// (rows = max(n_cap, caps) + 1), bits scratch of (n_hops + 1) * words
+// uint32 (words = (rows + 31) / 32); out [B] int32. The caller has checked
+// the reference's shape rules (graph_csr.py).
+int graph_csc_count(const void* const* cptrs, const void* const* csrcs, const void* const* cdsts,
+                    const int* singles, const int* caps, const long long* nedges,
+                    const int* per_hop, int n_hops, const void* const* last_ptrs,
+                    const int* last_caps, int n_last, const void* fr, const void* w, int B,
+                    int fsz, int n_cap, void* xa, void* xb, void* bits, long long words,
                     void* out, void* stream) {
   if (B <= 0 || fsz < 0 || n_cap < 0 || n_hops < 0 || n_last < 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -362,39 +612,82 @@ int graph_csc_count(const void* const* cptrs, const void* const* csrcs, const in
         return (int)e;
     return (int)cudaSuccess;
   }
+  if (words < ((long long)n_cap + 32) / 32) return (int)cudaErrorInvalidValue;
+  unsigned* bm = (unsigned*)bits;
+  if ((e = cudaMemsetAsync(bm, 0, (size_t)(n_hops + 1) * words * sizeof(unsigned), s)) !=
+      cudaSuccess)
+    return (int)e;
   unsigned* x = (unsigned*)xa;
   unsigned* y = (unsigned*)xb;
+  for (int add = 0; add < 2; ++add) {  // the seeds' rows: zeroed and marked, then summed
+    seed_rows<<<grid_for((long long)B * fsz), THREADS, 0, s>>>((const int*)fr, (const int*)w, B,
+                                                                fsz, n_cap, x, bm, add);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
   long long W = (long long)n_cap + 1;
-  if ((e = cudaMemsetAsync(x, 0, (size_t)W * B * sizeof(unsigned), s)) != cudaSuccess) return (int)e;
-  densify<<<grid_for((long long)B * fsz), THREADS, 0, s>>>(
-      (const int*)fr, (const int*)w, B, fsz, n_cap, x);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  int m = 0;
-  for (int h = 0; h < n_hops; ++h) {
-    if (n_cap < W &&
-        (e = cudaMemsetAsync(x + (size_t)n_cap * B, 0, (size_t)B * sizeof(unsigned), s)) !=
-            cudaSuccess)
-      return (int)e;
+  int level = 0;
+  for (int h = 0, m0 = 0; h < n_hops; ++level) {
+    const int n0 = per_hop[h];
+    for (int i = 1; i < n0; ++i)
+      if (caps[m0 + i] != caps[m0]) return (int)cudaErrorInvalidValue;
+    bool fuse = h + 1 < n_hops && n0 >= 1 && n0 <= K7_FUSE_MAX;
+    for (int i = 0; fuse && i < n0; ++i) fuse = singles[m0 + i] != 0;
+    FirstHop f{};
+    int m = m0, nm = n0;  // the mirrors whose launches write this level
+    if (fuse) {  // (->edge, edge->node): the intermediate is never written
+      for (int i = 0; i < n0; ++i) {
+        f.c[i] = (const int*)cptrs[m0 + i];
+        f.s[i] = (const int*)csrcs[m0 + i];
+        f.E[i] = nedges[m0 + i];
+      }
+      f.n = n0;
+      f.W1 = (long long)caps[m0] + 1;
+      f.W0 = W;
+      m = m0 + n0;
+      nm = per_hop[h + 1];
+      for (int i = 1; i < nm; ++i)
+        if (caps[m + i] != caps[m]) return (int)cudaErrorInvalidValue;
+    }
     const int cap = caps[m];
-    for (int i = 0; i < per_hop[h]; ++i, ++m) {
-      if (caps[m] != cap) return (int)cudaErrorInvalidValue;
-      const unsigned grid = (unsigned)(((long long)cap + THREADS / 32 - 1) / (THREADS / 32));
-      if (grid == 0) continue;
-      csc_hop<<<grid, THREADS, 0, s>>>((const int*)cptrs[m], (const int*)csrcs[m], nedges[m], cap,
-                                       x, W, B, y, i > 0);
+    const unsigned* xbits = bm + (size_t)level * words;
+    unsigned* ybits = bm + (size_t)(level + 1) * words;
+    for (int i = 0; i < nm; ++i, ++m) {
+      const long long E = nedges[m];
+      if (cdsts[m] != nullptr && B <= K7_LANES) {
+        const long long warps = (E + K7_EDGES - 1) / K7_EDGES;
+        const unsigned grid = (unsigned)((warps + THREADS / 32 - 1) / (THREADS / 32));
+        if (grid == 0) continue;
+        if (fuse)
+          hop_edges<true><<<grid, THREADS, 0, s>>>((const int*)csrcs[m], (const int*)cdsts[m], E,
+                                                   cap, f, x, xbits, W, n_cap, B, y, ybits);
+        else
+          hop_edges<false><<<grid, THREADS, 0, s>>>((const int*)csrcs[m], (const int*)cdsts[m],
+                                                    E, cap, f, x, xbits, W, n_cap, B, y, ybits);
+      } else {
+        const unsigned grid = (unsigned)(((long long)cap + THREADS / 32 - 1) / (THREADS / 32));
+        if (grid == 0) continue;
+        if (fuse)
+          hop_dests<true><<<grid, THREADS, 0, s>>>((const int*)cptrs[m], (const int*)csrcs[m], E,
+                                                   cap, f, x, xbits, W, n_cap, B, y, ybits);
+        else
+          hop_dests<false><<<grid, THREADS, 0, s>>>((const int*)cptrs[m], (const int*)csrcs[m],
+                                                    E, cap, f, x, xbits, W, n_cap, B, y, ybits);
+      }
       if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     }
-    if ((e = cudaMemsetAsync(y + (size_t)cap * B, 0, (size_t)B * sizeof(unsigned), s)) !=
-        cudaSuccess)
-      return (int)e;
+    m0 = m;
+    h += fuse ? 2 : 1;
     W = (long long)cap + 1;
     unsigned* t = x;
     x = y;
     y = t;
   }
-  for (int l = 0; l < n_last; ++l) {
-    lane_dot<<<grid_for((long long)n_cap * B / 8), THREADS, 0, s>>>(
-        x, n_cap, B, (const int*)last_ptrs[l], (unsigned*)out);
+  const unsigned* live = bm + (size_t)level * words;
+  const long long chunks = ((long long)n_cap + 32 * 32 - 1) / (32 * 32);  // 32 words a warp
+  const unsigned grid = (unsigned)((chunks + THREADS / 32 - 1) / (THREADS / 32));  // one pass
+  for (int l = 0; l < n_last && grid > 0; ++l) {
+    live_dot<<<grid, THREADS, 0, s>>>(x, live, n_cap, B, (const int*)last_ptrs[l],
+                                      (unsigned*)out);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   return (int)cudaSuccess;

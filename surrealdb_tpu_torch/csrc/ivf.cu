@@ -76,19 +76,39 @@
 // thread a column; no float atomics, so two runs on the same data agree
 // bit for bit.
 //
-// K3 ivf_gather_distance + ivf_map_slots replace the rerank of
-// surrealdb_tpu/idx/ivf.py:_ivf_search (its probe is K2 over the
-// centroids, its top-k is K2's knn_select). ivf_gather_distance writes, for
-// each query and each probed list (in probe rank order) and each list
-// position, the distance with `metric` to the list's member row, or +inf
-// where the list slot is padding or the slot's slot_ok byte is 0 (the row
-// is then not read): a [Q, nprobe*L] f32 array in the order of the
-// reference's concatenated candidates. What bounds it: reading the
-// candidate rows (bytes). Design: the grid covers (query, probe, chunk of
-// 64 list positions), so the whole card reads the candidates; a warp
-// computes one row at a time with 16-byte loads and a shuffle reduction;
-// the query sits in shared memory. ivf_map_slots maps each selected
-// position back to its corpus slot, -1 where the distance is +inf.
+// K3 ivf_rerank replaces the rerank of surrealdb_tpu/idx/ivf.py:_ivf_search
+// (its probe is K2 over the centroids, its top-k the merge after it), and
+// with S shards K13's rerank (surrealdb_tpu/parallel/mesh.py _ivf_searcher):
+// per (query, shard, probe rank), the probed list's members that are listed
+// (list_mask) and slot_ok, ranked by `metric` in (distance, position pr * L
+// + j) order, top-kk, slots local to the shard. One launch, no [Q, nprobe *
+// L] scratch, the slots mapped in the kernel; mesh_topk_merge (mesh.cu)
+// finishes. What bounds it: the bytes are each distinct probed list's rows
+// read once (0.21 ms at the HNSW cell's Q = 64), and the products, a
+// (query, member) pair each (8.6 GFLOP there, 0.13 ms at the f32 peak), are
+// below that at full rate; but each product is a lane-split FMA chain and
+// a five-step shuffle sum, in the reference formula's order, so on the
+// card the products bound it (about 90 SM cycles a pair in the pair-major
+// mode, PERF.md §6). Two modes, the same picks bit for bit (one distance
+// arithmetic, one pick layout):
+// - pair-major (rerank_pairs_kernel): a block a (query, shard, probe rank,
+//   contiguous range of the list's extent), the ranges chosen so the
+//   launch has about four blocks an SM; live rows are read from global
+//   memory a warp a row, four at once, and each warp keeps a running top-k
+//   (knn.cuh's warp lists). A row is read, converted and its norm summed
+//   once a (query, probe) pair.
+// - list-major (rerank_lists_kernel): the pairs are grouped by list inside
+//   the launch (a sort of (list, pair) keys in shared memory, the same in
+//   every block); persistent blocks take (group of up to 32 pairs,
+//   1,024-position range) items from a ticket, the heaviest groups first;
+//   the range's live rows are staged once into shared memory by 16-byte
+//   cp.async, two stages in flight, converted and their norms summed once,
+//   and scored there against every query of the group, so a list's rows
+//   are read once a tile (once a group when more than 32 pairs probe it).
+// ivf_rerank_plan chooses: list-major from LM_MIN_Q (16) queries where its
+// shared memory fits (D <= 768), else pair-major; measured on the H100 at
+// the HNSW cell's shapes, pair-major wins at 8 queries and list-major from
+// 16 (PERF.md §6).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -97,6 +117,8 @@
 #include "launch.cuh"
 #include "metric.cuh"
 #include "mma.cuh"
+#include "rowstream.cuh"
+#include "knn.cuh"
 
 namespace {
 
@@ -660,162 +682,794 @@ kmeans_update_kernel(const T* __restrict__ x, long long n, int D,
   }
 }
 
-// ------------------------------------------------------------------ K3
+// ------------------------------------------------------------------ K3 (and K13)
 
-constexpr int GD_THREADS = 256;
-constexpr int GD_SLOTS = 64;  // list positions a block, 8 a warp
+constexpr int IR_THREADS = 256;  // the pair-major blocks
+constexpr int IR_WARPS = IR_THREADS / 32;
+constexpr int IR_ROWS = 4;         // member rows a warp scores at once
+constexpr int LM_THREADS = 512;    // the list-major blocks
+constexpr int LM_WARPS = LM_THREADS / 32;
+constexpr int LM_ROWS = 2;         // staged rows a warp holds in registers
+constexpr int LM_CHUNK = LM_WARPS * LM_ROWS;  // list positions a stage (32: one ballot)
+constexpr int LM_QREG = 24;        // a row's values a lane holds
+constexpr int LM_MAX_D = 32 * LM_QREG;   // so the list-major mode takes D <= 768
+constexpr int LM_TPQ = 64;         // threads that stage one query
+constexpr int LM_RANGE = 1024;     // list positions a list-major range (256 when kk > 256)
+constexpr int LM_MAX_STAGES = 2;
+constexpr int LM_MAX_PAIRS = 4096; // (query, shard, probe) pairs a list-major launch groups
+constexpr int LM_MIN_Q = 16;       // queries from which the plan takes the list-major mode
+static_assert(LM_CHUNK == 32, "a stage's live positions are one ballot");
 
-// Block b covers query qi, probe rank pr and list positions
-// [chunk * GD_SLOTS, + GD_SLOTS) of list probes[qi, pr]; out[qi, pr*L + j].
+// positions a block covers at most: n positions split in G contiguous
+// ranges, rounded up to whole 32-position chunks
+__host__ __device__ inline int ir_span(int n, int G) { return ((n + G - 1) / G + 31) / 32 * 32; }
+
+int ir_smem_bytes(int D, int kkb) { return (D * 4 + 15) / 16 * 16 + IR_WARPS * kkb * 8; }
+
+__host__ __device__ inline long long align16(long long b) { return (b + 15) / 16 * 16; }
+
+// A list-major launch's shape: qb pairs a group at most, nstage stages of
+// LM_CHUNK staged rows, and the shared-memory layout (byte offsets): the
+// group's queries and squared norms, the stages, the pairs' lists, a
+// chunk's keys, the sort keys, the group starts and the groups' order.
+struct LmPlan {
+  int qb, nstage, np2;
+  long long qs, qss, stage, lists, ckeys, keys, gstart, order, bytes;
+};
+
+LmPlan lm_plan(int D, int tsize, int kkb, int np, int qb, int nstage) {
+  LmPlan p{};
+  p.qb = qb;
+  p.nstage = nstage;
+  p.np2 = 2;
+  while (p.np2 < np) p.np2 <<= 1;
+  long long b = 0;
+  p.qs = b;
+  b = align16(b + (long long)qb * align16(D * 4LL));
+  p.qss = b;
+  b = align16(b + qb * 4LL);
+  p.stage = b;
+  b = align16(b + (long long)nstage * LM_CHUNK * align16((long long)D * tsize));
+  p.lists = b;
+  b = align16(b + (long long)qb * kkb * 8);
+  p.ckeys = b;
+  b = align16(b + (long long)qb * LM_CHUNK * 8);
+  p.keys = b;
+  b = align16(b + p.np2 * 8LL);
+  p.gstart = b;
+  b = align16(b + (np + 1) * 4LL);
+  p.order = b;
+  p.bytes = align16(b + p.np2 * 4LL);
+  return p;
+}
+
+// The largest group (32 pairs at most) and the deeper ring (at 16 pairs
+// or more) that fit a block's shared memory; qb = 0 when none does, or D
+// is above LM_MAX_D.
+LmPlan lm_fit(int D, int tsize, int kkb, int np) {
+  static const int shapes[][2] = {{32, 2}, {24, 2}, {16, 2}, {32, 1}, {24, 1}, {16, 1},
+                                  {8, 2},  {8, 1},  {4, 2},  {4, 1},  {2, 2},  {2, 1}};
+  for (const auto& sh : shapes) {
+    const LmPlan p = lm_plan(D, tsize, kkb, np, sh[0], sh[1]);
+    if (D <= LM_MAX_D && p.bytes <= SMEM_OPT_IN) return p;
+  }
+  return LmPlan{};
+}
+
+// waits until at most n (0 or 1) of this thread's copy groups are in flight
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  if (n == 0)
+    cp_async_wait<0>();
+  else
+    cp_async_wait<1>();
+}
+
+// The distances of the query (qs [D], centred for pearson; qss its squared
+// norm) to up to IR_ROWS member rows xr[r] at once (src[r] < 0: none;
+// uniform in the warp), a warp a row: lane l takes columns l*V + 32*V*i
+// (16-byte loads, vec) or l + 32*i, then a shuffle reduction, so every lane
+// holds every distance. The list-major kernel repeats this arithmetic in
+// this order, so the two modes' distances are the same bits.
 template <int METRIC, typename T>
-__global__ void __launch_bounds__(GD_THREADS)
-gather_distance_kernel(const float* __restrict__ q, const T* __restrict__ x, long long cap,
-                       int D, float p, const int* __restrict__ probes, int P,
-                       const int* __restrict__ list_rows,
-                       const unsigned char* __restrict__ list_mask, int L,
-                       const unsigned char* __restrict__ slot_ok, float* __restrict__ out,
-                       int vec) {
+__device__ __forceinline__ void member_distances(const T* const (&xr)[IR_ROWS],
+                                                 const int (&src)[IR_ROWS],
+                                                 const float* __restrict__ qs, int D, float p,
+                                                 float qss, int vec, float (&out)[IR_ROWS]) {
   constexpr bool DOT = is_dot_metric<METRIC>();
   constexpr int V = 16 / (int)sizeof(T);  // row values in 16 bytes
-  extern __shared__ __align__(16) float gd_q[];  // [D], centred for pearson
-  __shared__ float s_red[GD_THREADS / 32];
-  __shared__ float s_qmean, s_qss;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long chunks = (L + GD_SLOTS - 1) / GD_SLOTS;
-  const long long qp = blockIdx.x / chunks;  // query * P + probe rank
-  const int chunk = (int)(blockIdx.x % chunks);
-  const int qi = (int)(qp / P), pr = (int)(qp % P);
-  const int list = probes[qp];
-
-  float part = 0.f;
-  for (int c = tid; c < D; c += GD_THREADS) {
-    const float v = q[(long long)qi * D + c];
-    gd_q[c] = v;
-    part += v;
-  }
+  const int lane = threadIdx.x & 31;
+  float acc[IR_ROWS], acc2[IR_ROWS], xss[IR_ROWS], xm[IR_ROWS];
+#pragma unroll
+  for (int r = 0; r < IR_ROWS; ++r) acc[r] = acc2[r] = xss[r] = xm[r] = 0.f;
   if (METRIC == M_PEARSON) {
-    part = warp_sum(part);
-    if (lane == 0) s_red[warp] = part;
-    __syncthreads();
-    if (tid == 0) {
-      float s = 0.f;
-      for (int w = 0; w < GD_THREADS / 32; ++w) s += s_red[w];
-      s_qmean = s / (float)D;
-    }
-    __syncthreads();
-    for (int c = tid; c < D; c += GD_THREADS) gd_q[c] -= s_qmean;
-  }
-  __syncthreads();
-  if (DOT) {
-    float s = 0.f;
-    for (int c = tid; c < D; c += GD_THREADS) s = fmaf(gd_q[c], gd_q[c], s);
-    s = warp_sum(s);
-    if (lane == 0) s_red[warp] = s;
-    __syncthreads();
-    if (tid == 0) {
+#pragma unroll
+    for (int r = 0; r < IR_ROWS; ++r) {
+      if (src[r] < 0) continue;  // uniform
       float t = 0.f;
-      for (int w = 0; w < GD_THREADS / 32; ++w) t += s_red[w];
-      s_qss = t;
+      for (int c = lane; c < D; c += 32) t += to_f(xr[r][c]);
+      xm[r] = wsum(t) / (float)D;
     }
-    __syncthreads();
   }
-  const float qss = DOT ? s_qss : 0.f;
-
-  constexpr int PER_WARP = GD_SLOTS / (GD_THREADS / 32);
-  for (int t = 0; t < PER_WARP; ++t) {
-    const int j = chunk * GD_SLOTS + warp * PER_WARP + t;
-    if (j >= L) break;  // uniform in the warp
-    float* o = out + (long long)qi * P * L + (long long)pr * L + j;
-    long long row = list_rows[(long long)list * L + j];
-    row = row < 0 ? 0 : (row >= cap ? cap - 1 : row);
-    if (!list_mask[(long long)list * L + j] || !slot_ok[row]) {
-      if (lane == 0) *o = __uint_as_float(0x7f800000u);  // +inf, the row unread
-      continue;
-    }
-    const T* xr = x + row * D;
-    float xm = 0.f;
-    if (METRIC == M_PEARSON) {
-      float s = 0.f;
-      for (int c = lane; c < D; c += 32) s += to_f(xr[c]);
-      xm = warp_sum(s) / (float)D;
-    }
-    float acc = 0.f, acc2 = 0.f, xss = 0.f;
-    if (vec) {
-      for (int c0 = lane * V; c0 < D; c0 += 32 * V) {
-        const uint4 raw = __ldg(reinterpret_cast<const uint4*>(xr + c0));
-        const T* tv = reinterpret_cast<const T*>(&raw);
+  if (vec) {
+    for (int c0 = lane * V; c0 < D; c0 += 32 * V) {
+      uint4 raw[IR_ROWS];
+#pragma unroll
+      for (int r = 0; r < IR_ROWS; ++r)  // every row's load in flight before the arithmetic
+        if (src[r] >= 0) raw[r] = __ldg(reinterpret_cast<const uint4*>(xr[r] + c0));
+      float qv[V];  // the query's V values as float4 reads: no bank conflicts
+#pragma unroll
+      for (int h = 0; h < V / 4; ++h) {
+        const float4 f = reinterpret_cast<const float4*>(qs + c0)[h];
+        qv[4 * h] = f.x;
+        qv[4 * h + 1] = f.y;
+        qv[4 * h + 2] = f.z;
+        qv[4 * h + 3] = f.w;
+      }
+#pragma unroll
+      for (int r = 0; r < IR_ROWS; ++r) {
+        if (src[r] < 0) continue;
+        const T* tv = reinterpret_cast<const T*>(&raw[r]);
 #pragma unroll
         for (int u = 0; u < V; ++u) {
-          const float xv = to_f(tv[u]) - xm;
-          pw_step<METRIC>(gd_q[c0 + u], xv, p, acc, acc2);
-          if (DOT) xss = fmaf(xv, xv, xss);
+          const float xv = to_f(tv[u]) - xm[r];
+          pw_step<METRIC>(qv[u], xv, p, acc[r], acc2[r]);
+          if (DOT) xss[r] = fmaf(xv, xv, xss[r]);
         }
       }
-    } else {
-      for (int c = lane; c < D; c += 32) {
-        const float xv = to_f(xr[c]) - xm;
-        pw_step<METRIC>(gd_q[c], xv, p, acc, acc2);
-        if (DOT) xss = fmaf(xv, xv, xss);
+    }
+  } else {
+    for (int c = lane; c < D; c += 32) {
+#pragma unroll
+      for (int r = 0; r < IR_ROWS; ++r) {
+        if (src[r] < 0) continue;
+        const float xv = to_f(xr[r][c]) - xm[r];
+        pw_step<METRIC>(qs[c], xv, p, acc[r], acc2[r]);
+        if (DOT) xss[r] = fmaf(xv, xv, xss[r]);
       }
     }
+  }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float oa = __shfl_xor_sync(0xffffffffu, acc, off);
-      acc = METRIC == M_CHEBYSHEV ? fmaxf(acc, oa) : acc + oa;
-      acc2 += __shfl_xor_sync(0xffffffffu, acc2, off);
-      xss += __shfl_xor_sync(0xffffffffu, xss, off);
+  for (int r = 0; r < IR_ROWS; ++r) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {  // the sums a metric reads, only
+      const float oa = __shfl_xor_sync(FULL, acc[r], off);
+      acc[r] = METRIC == M_CHEBYSHEV ? fmaxf(acc[r], oa) : acc[r] + oa;
+      if (METRIC == M_JACCARD) acc2[r] += __shfl_xor_sync(FULL, acc2[r], off);
+      if (DOT) xss[r] += __shfl_xor_sync(FULL, xss[r], off);
     }
-    if (lane == 0) *o = pw_finish<METRIC>(qss, xss, acc, acc2, p);
+    out[r] = pw_finish<METRIC>(qss, xss[r], acc[r], acc2[r], p);
   }
 }
 
+// One query's row q [D] into qs (centred for pearson) and its squared norm
+// (the dot metrics) into *qss, exactly as 256 threads take them in the
+// pair-major blocks: thread v sums columns v, v + 256, ..., a warp adds its
+// threads by shuffles, and thread 0 adds the warps in order. TPQ threads
+// (t their index, red [8] the warps' partial sums) stand for the 256: each
+// plays 256 / TPQ of them (v = t + TPQ k), whose warps are t / 32 + TPQ k
+// / 32, lane for lane, so the sums are the same bits. Every thread of the
+// block calls it (it holds __syncthreads); `on` is false for a share of
+// threads with no query.
+template <int METRIC, int TPQ = 256>
+__device__ void query_stats(const float* __restrict__ q, int D, float* qs, float* qss, int t,
+                            float* red, bool on) {
+  constexpr bool DOT = is_dot_metric<METRIC>();
+  constexpr int NV = 256 / TPQ, WPQ = TPQ / 32;
+  const int lane = t & 31, w = t >> 5;
+  float part[NV];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    part[k] = 0.f;
+    if (on)
+      for (int c = t + TPQ * k; c < D; c += 256) {
+        const float v = q[c];
+        qs[c] = v;
+        part[k] += v;
+      }
+  }
+  if (METRIC == M_PEARSON) {
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      part[k] = wsum(part[k]);
+      if (lane == 0) red[w + WPQ * k] = part[k];
+    }
+    __syncthreads();
+    float mean = 0.f;
+    for (int i = 0; i < 8; ++i) mean += red[i];
+    mean /= (float)D;
+    __syncthreads();  // red is written again below
+    if (on) {
+#pragma unroll
+      for (int k = 0; k < NV; ++k)
+        for (int c = t + TPQ * k; c < D; c += 256) qs[c] -= mean;
+    }
+  }
+  __syncthreads();
+  if (DOT) {
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      float s = 0.f;
+      if (on)
+        for (int c = t + TPQ * k; c < D; c += 256) s = fmaf(qs[c], qs[c], s);
+      s = wsum(s);
+      if (lane == 0) red[w + WPQ * k] = s;
+    }
+    __syncthreads();
+    if (t == 0 && on) {
+      float u = 0.f;
+      for (int i = 0; i < 8; ++i) u += red[i];
+      *qss = u;
+    }
+    __syncthreads();
+  }
+}
+
+// The pair-major mode. Block b = (((query * S + shard) * P + probe rank) *
+// G + g): query qi against the members of list probes[qi, pr] in shard s
+// (tables [S, C, L], rows [S * cap, D], slot_ok [S * cap] or null: every
+// slot) that lie in the g-th of G contiguous ranges of the list's extent
+// (one past its last listed position). Warp w takes the range's
+// 32-position chunks w, w + 8, ...: a lane reads its position's mask byte,
+// row and slot_ok byte; a chunk with no live member reads no row and
+// offers nothing; live rows are read a warp a row, IR_ROWS at once; the
+// chunk's keys (f2key(d) << 32 | position) go to the warp's running
+// top-kkb (warp_offer). At the end warp 0 merges the warps' lists and
+// writes the block's kkb picks, sorted: the distance and the row's slot
+// (list_rows, local to the shard), +inf and -1 past the candidates, to out
+// [Q, S, P, G, kkb].
+template <int METRIC, typename T>
+__global__ void __launch_bounds__(IR_THREADS)
+rerank_pairs_kernel(const float* __restrict__ q, int D, float p, const int* __restrict__ probes,
+                    int P, const T* __restrict__ x, long long cap,
+                    const int* __restrict__ list_rows, const unsigned char* __restrict__ list_mask,
+                    int C, int L, const unsigned char* __restrict__ slot_ok, int S, int G, int kkb,
+                    int vec, float* __restrict__ out_d, int* __restrict__ out_i) {
+  constexpr bool DOT = is_dot_metric<METRIC>();
+  // the query [D] (centred for pearson), then the warps' lists [IR_WARPS][kkb]
+  extern __shared__ __align__(16) unsigned char ir_smem[];
+  __shared__ float s_red[IR_WARPS];
+  __shared__ int s_last[IR_WARPS];
+  __shared__ float s_qss;
+  // the least last entry of the warps' full lists: no key above it can be
+  // among the block's kkb best
+  __shared__ unsigned long long s_bound;
+  float* qs = reinterpret_cast<float*>(ir_smem);
+  unsigned long long* lists =
+      reinterpret_cast<unsigned long long*>(ir_smem + (D * 4 + 15) / 16 * 16);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = (int)(blockIdx.x % G);
+  const long long qsp = blockIdx.x / G;  // (query * S + shard) * P + probe rank
+  const int pr = (int)(qsp % P);
+  const int s = (int)(qsp / P % S);
+  const int qi = (int)(qsp / P / S);
+  const long long lb = ((long long)s * C + probes[(long long)qi * P + pr]) * L;
+  const int* lr = list_rows + lb;
+  const unsigned char* lm = list_mask + lb;
+  const T* xs = x + (long long)s * cap * D;
+  const unsigned char* ok = slot_ok == nullptr ? nullptr : slot_ok + (long long)s * cap;
+
+  query_stats<METRIC>(q + (long long)qi * D, D, qs, &s_qss, tid, s_red, true);
+  // the list's extent; the warp's list starts empty
+  int last = -1;
+  for (int j = tid; j < L; j += IR_THREADS)
+    if (lm[j]) last = j;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) last = max(last, __shfl_xor_sync(FULL, last, o));
+  if (lane == 0) s_last[warp] = last;
+  unsigned long long* kept = lists + warp * kkb;
+  for (int e = lane; e < kkb; e += 32) kept[e] = PAD_PAIR;
+  if (tid == 0) s_bound = PAD_PAIR;
+  __syncthreads();
+  const float qss = DOT ? s_qss : 0.f;
+  int ext = 0;
+  for (int w = 0; w < IR_WARPS; ++w) ext = max(ext, s_last[w] + 1);
+  const int span = ir_span(ext, G);
+  const int lo = g * span, hi = min(ext, lo + span);
+  unsigned long long theta = PAD_PAIR;
+  for (int c0 = lo + warp * 32; c0 < hi; c0 += IR_THREADS) {
+    const int j = c0 + lane;
+    bool live = j < hi && lm[j] != 0;
+    long long row = 0;
+    if (live) {
+      row = lr[j];
+      row = row < 0 ? 0 : (row >= cap ? cap - 1 : row);
+      live = ok == nullptr || ok[row] != 0;
+    }
+    unsigned todo = __ballot_sync(FULL, live);
+    if (todo == 0u) continue;  // uniform: no row read, nothing offered
+    float mine = 0.f;
+    while (todo != 0u) {  // uniform
+      int src[IR_ROWS];
+      const T* xr[IR_ROWS];
+#pragma unroll
+      for (int r = 0; r < IR_ROWS; ++r) {
+        src[r] = todo != 0u ? __ffs((int)todo) - 1 : -1;
+        todo &= todo - 1u;
+        xr[r] = xs + __shfl_sync(FULL, row, src[r] < 0 ? 0 : src[r]) * D;
+      }
+      float dist[IR_ROWS];
+      member_distances<METRIC, T>(xr, src, qs, D, p, qss, vec, dist);
+#pragma unroll
+      for (int r = 0; r < IR_ROWS; ++r)
+        if (lane == src[r]) mine = dist[r];
+    }
+    const unsigned long long bound = s_bound;
+    unsigned long long cand = live ? pair_of(f2key(mine), j) : PAD_PAIR;
+    if (cand >= bound) cand = PAD_PAIR;  // above kkb keys another warp holds
+    theta = warp_offer(kept, kkb, theta, cand);
+    if (lane == 0 && theta < bound) atomicMin(&s_bound, theta);
+  }
+  __syncthreads();  // every warp's list is complete
+  if (warp != 0) return;
+  unsigned long long th = kept[kkb - 1];
+  for (int w = 1; w < IR_WARPS; ++w) {
+    const unsigned long long* other = lists + w * kkb;
+    for (int c0 = 0; c0 < kkb; c0 += 32)
+      th = warp_offer(kept, kkb, th, c0 + lane < kkb ? other[c0 + lane] : PAD_PAIR);
+  }
+  // the picks' place: a query's row, by shard, then probe rank, then range
+  const long long o = (qsp * G + g) * kkb;
+  for (int i = lane; i < kkb; i += 32) {
+    const unsigned long long v = kept[i];
+    const bool real = v != PAD_PAIR;
+    out_d[o + i] = real ? key2f((unsigned)(v >> 32)) : __uint_as_float(0x7f800000u);
+    out_i[o + i] = real ? lr[(unsigned)(v & 0xFFFFFFFFull)] : -1;
+  }
+}
+
+// The list-major mode: each probed (shard, list)'s live members are staged
+// once for all the (query, shard, probe rank) pairs that probe it. Every
+// block first groups the NP = Q * S * P pairs the same way: keys (shard *
+// C + list) << 32 | pair, bitonic-sorted in shared memory, cut into groups
+// of at most qb pairs of one list (in pair order; qb from shared memory's
+// room, 32 at kk = 10), and orders the groups, most pairs first. Then the
+// persistent blocks take the work items (group, range g of span
+// positions) one after another from the launch's ticket, the heaviest
+// groups' ranges first, so a few heavy lists do not keep a few SMs busy
+// alone. An item stages its pairs' queries in shared memory, eight at a
+// time, exactly as the pair-major blocks take them (query_stats), then its
+// range's live rows LM_CHUNK positions at a time, compacted, by 16-byte
+// cp.async into a ring of two stages (plain loads when the rows are not
+// 16-byte aligned). Warp w holds staged rows 2 w and 2 w + 1 in registers
+// (lane l's columns, as member_distances takes them), with their squared
+// norms, and scores them against the group's pairs two at a time (four
+// FMA chains a lane) with member_distances' arithmetic in its order, so
+// the distances are the pair-major mode's bits; the query values come as
+// conflict-free 16-byte reads. The chunk's keys (f2key(d) << 32 |
+// position) go to shared memory, and each pair's running top-kkb
+// (knn.cuh's warp lists, a warp a pair) takes them in one 32-key offer.
+// The picks go where the pair-major blocks put theirs ([Q, S, P, G,
+// kkb]), so the merge selects the same bits in the same order. D <=
+// LM_MAX_D.
+template <int METRIC, typename T>
+__global__ void __launch_bounds__(LM_THREADS, 1)
+rerank_lists_kernel(const float* __restrict__ q, int D, float p, const int* __restrict__ probes,
+                    int P, const T* __restrict__ x, long long cap,
+                    const int* __restrict__ list_rows, const unsigned char* __restrict__ list_mask,
+                    int C, int L, const unsigned char* __restrict__ slot_ok, int S, int G, int kkb,
+                    int vec, int NP, LmPlan pl, unsigned* __restrict__ ticket,
+                    float* __restrict__ out_d, int* __restrict__ out_i) {
+  constexpr bool DOT = is_dot_metric<METRIC>();
+  constexpr int V = 16 / (int)sizeof(T);  // row values in 16 bytes
+  constexpr int NI = LM_QREG / V;         // a lane's 16-byte steps of a row (vec)
+  constexpr int QPR = LM_THREADS / LM_TPQ;  // queries staged a round
+  extern __shared__ __align__(16) unsigned char lm_smem[];
+  __shared__ float s_red[QPR][8];
+  __shared__ int s_pos[LM_MAX_STAGES][LM_CHUNK];
+  __shared__ int s_nlive[LM_MAX_STAGES];
+  __shared__ int s_ngroups, s_any;
+  __shared__ unsigned s_item;
+
+  const int Dq = (int)(align16(D * 4LL) / 4);  // a staged query's pitch (floats)
+  const long long Dr = align16((long long)D * sizeof(T)) / sizeof(T);  // a staged row's pitch
+  float* qs = reinterpret_cast<float*>(lm_smem + pl.qs);
+  float* qss = reinterpret_cast<float*>(lm_smem + pl.qss);
+  T* stage = reinterpret_cast<T*>(lm_smem + pl.stage);
+  unsigned long long* lists = reinterpret_cast<unsigned long long*>(lm_smem + pl.lists);
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(lm_smem + pl.keys);
+  int* gstart = reinterpret_cast<int*>(lm_smem + pl.gstart);
+  unsigned* order = reinterpret_cast<unsigned*>(lm_smem + pl.order);
+  // a chunk's keys (f2key(d) << 32 | position), [pair][staged row]
+  unsigned long long(*s_keys)[LM_CHUNK] =
+      reinterpret_cast<unsigned long long(*)[LM_CHUNK]>(lm_smem + pl.ckeys);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qb = pl.qb, ns = pl.nstage;
+
+  // ---- the grouping, the same in every block
+  for (int i = tid; i < pl.np2; i += LM_THREADS) {
+    unsigned long long v = PAD_PAIR;
+    if (i < NP) {
+      const int pr = i % P, s = i / P % S, qi = i / P / S;
+      v = ((unsigned long long)((long long)s * C + probes[(long long)qi * P + pr]) << 32) |
+          (unsigned)i;
+    }
+    keys[i] = v;
+  }
+  __syncthreads();
+  for (int size = 2; size <= pl.np2; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = tid; i < pl.np2 / 2; i += LM_THREADS) {
+        const int a = 2 * i - (i & (stride - 1)), b = a + stride;
+        const unsigned long long ka = keys[a], kb = keys[b];
+        if ((ka > kb) == ((a & size) == 0)) {
+          keys[a] = kb;
+          keys[b] = ka;
+        }
+      }
+      __syncthreads();
+    }
+  if (warp == 0) {  // a group starts where its list starts, then every qb pairs
+    int n = 0;
+    for (int i0 = 0; i0 < NP; i0 += 32) {
+      const int i = i0 + lane;
+      bool start = false;
+      if (i < NP) {
+        const unsigned long long k = keys[i] >> 32 << 32;
+        int lo = 0, len = i;  // the first entry of this list: a binary search
+        while (len > 0) {
+          const int half = len >> 1;
+          if (keys[lo + half] < k) {
+            lo += half + 1;
+            len -= half + 1;
+          } else {
+            len = half;
+          }
+        }
+        start = (i - lo) % qb == 0;
+      }
+      const unsigned m = __ballot_sync(FULL, start);
+      if (start) gstart[n + __popc(m & ((1u << lane) - 1u))] = i;
+      n += __popc(m);
+    }
+    if (lane == 0) {
+      gstart[n] = NP;
+      s_ngroups = n;
+    }
+  }
+  __syncthreads();
+  const int ngroups = s_ngroups;
+  const int span = ir_span(L, G);
+  // the groups, most pairs first (then in group order): their ranges are
+  // the items with the most work, taken first
+  for (int i = tid; i < pl.np2; i += LM_THREADS)
+    order[i] = i < ngroups ? (unsigned)(64 - (gstart[i + 1] - gstart[i])) << 16 | (unsigned)i
+                           : 0xFFFFFFFFu;
+  __syncthreads();
+  for (int size = 2; size <= pl.np2; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = tid; i < pl.np2 / 2; i += LM_THREADS) {
+        const int a = 2 * i - (i & (stride - 1)), b = a + stride;
+        const unsigned ka = order[a], kb = order[b];
+        if ((ka > kb) == ((a & size) == 0)) {
+          order[a] = kb;
+          order[b] = ka;
+        }
+      }
+      __syncthreads();
+    }
+
+  // ---- the work items (group, range): each block takes the next from the
+  // launch's ticket, the heaviest groups' ranges first
+  for (;;) {
+    if (tid == 0) s_item = atomicAdd(ticket, 1u);
+    __syncthreads();
+    const unsigned t = s_item;
+    if (t >= (unsigned)ngroups * (unsigned)G) break;  // uniform
+    const int gi = (int)(order[t / G] & 0xFFFFu), g = (int)(t % G);
+    const int a = gstart[gi], np = gstart[gi + 1] - a;
+    const long long key = (long long)(keys[a] >> 32);
+    const int s = (int)(key / C);
+    const long long lb = key * L;
+    const int* lr = list_rows + lb;
+    const unsigned char* lm = list_mask + lb;
+    const T* xs = x + (long long)s * cap * D;
+    const unsigned char* ok = slot_ok == nullptr ? nullptr : slot_ok + (long long)s * cap;
+    const int lo = g * span, hi = min(L, lo + span);
+    if (tid == 0) s_any = 0;
+    __syncthreads();
+    for (int j = lo + tid; j < hi; j += LM_THREADS)
+      if (lm[j]) s_any = 1;
+    __syncthreads();
+    const bool any = s_any != 0;
+    // the group's queries, QPR at a time, LM_TPQ threads each
+    for (int r = 0; any && r < np; r += QPR) {
+      const int i = r + tid / LM_TPQ;
+      const int pair = (int)(keys[a + min(i, np - 1)] & 0xFFFFFFFFull);
+      query_stats<METRIC, LM_TPQ>(q + (long long)(pair / P / S) * D, D,
+                                  qs + (long long)min(i, qb - 1) * Dq, qss + min(i, qb - 1),
+                                  tid % LM_TPQ, s_red[tid / LM_TPQ], i < np);
+    }
+    if (any)  // pair j's running top-kkb, [qb][kkb]; warp j % LM_WARPS keeps it
+      for (int e = tid; e < np * kkb; e += LM_THREADS) lists[e] = PAD_PAIR;
+    const int nchunks = any ? (hi - lo + LM_CHUNK - 1) / LM_CHUNK : 0;
+    // A chunk's positions: every warp reads their mask bytes and slots (one
+    // a lane, a chunk ahead of the slot_ok bytes, which depend on the slots,
+    // and two ahead of the copies), so the index loads' latency hides
+    // behind a chunk's scoring; warp 0 keeps the compacted positions, and
+    // the live rows are staged a warp a row.
+    auto load_slots = [&](int ci, bool& listed, long long& row) {
+      const int j = lo + ci * LM_CHUNK + lane;
+      listed = j < hi && lm[j] != 0;
+      row = j < hi ? lr[j] : 0;
+    };
+    // the slot clamped, and its slot_ok byte loaded (1 where unlisted or no
+    // slot_ok): the byte is first read when the chunk is staged
+    auto load_ok = [&](bool listed, long long& row) -> unsigned char {
+      row = row < 0 ? 0 : (row >= cap ? cap - 1 : row);
+      return listed && ok != nullptr ? ok[row] : (unsigned char)1;
+    };
+    auto stage_chunk = [&](int ci, bool live, long long row) {
+      const int st = ci % ns;
+      const int j = lo + ci * LM_CHUNK + lane;
+      const unsigned m = __ballot_sync(FULL, live);
+      if (warp == 0) {
+        if (live) s_pos[st][__popc(m & ((1u << lane) - 1u))] = j;
+        if (lane == 0) s_nlive[st] = __popc(m);
+      }
+      T* dst0 = stage + (long long)st * LM_CHUNK * Dr;
+      unsigned mm = m;
+      for (int k = 0; k < warp && mm != 0u; ++k) mm &= mm - 1u;  // the warp-th live lane
+      for (int r = warp; mm != 0u; r += LM_WARPS) {
+        const long long src_row = __shfl_sync(FULL, row, __ffs((int)mm) - 1);
+        const T* srcp = xs + src_row * D;
+        T* dst = dst0 + r * Dr;
+        if (vec) {
+          for (int c = lane * V; c < D; c += 32 * V) cp_async16(dst + c, srcp + c, 16);
+        } else {
+          for (int c = lane; c < D; c += 32) dst[c] = srcp[c];
+        }
+        for (int k = 0; k < LM_WARPS && mm != 0u; ++k) mm &= mm - 1u;
+      }
+    };
+    // chunk `next` (listed_a, row_a, ok_a) is staged next; chunk next + 1
+    // (listed_b, row_b) has its slots loaded
+    int next = 0;
+    bool listed_a = false, listed_b = false;
+    long long row_a = 0, row_b = 0;
+    unsigned char ok_a = 0;
+    auto advance = [&]() {
+      ++next;
+      listed_a = listed_b;
+      row_a = row_b;
+      ok_a = load_ok(listed_a, row_a);
+      if (next + 1 < nchunks) load_slots(next + 1, listed_b, row_b);
+    };
+    if (nchunks > 0) {
+      load_slots(0, listed_a, row_a);
+      ok_a = load_ok(listed_a, row_a);
+      if (nchunks > 1) load_slots(1, listed_b, row_b);
+    }
+    for (int c = 0; c < ns - 1; ++c) {  // the ring's first chunks in flight, a group each
+      if (next < nchunks) {
+        stage_chunk(next, listed_a && ok_a != 0, row_a);
+        advance();
+      }
+      cp_async_commit();
+    }
+    for (int ci = 0; ci < nchunks; ++ci) {
+      if (next < nchunks && next == ci + ns - 1) {
+        stage_chunk(next, listed_a && ok_a != 0, row_a);
+        advance();
+      }
+      cp_async_commit();
+      cp_async_wait_n(ns - 1);  // chunk ci's copies have landed
+      __syncthreads();          // and every thread's, with its positions
+      const int st = ci % ns, nl = s_nlive[st];
+      const T* rows = stage + (long long)st * LM_CHUNK * Dr;
+      if (LM_ROWS * warp < nl) {  // the warp's rows, in registers
+        float xv[LM_ROWS][LM_QREG], xss[LM_ROWS];
+#pragma unroll
+        for (int r = 0; r < LM_ROWS; ++r) {
+          const int k = LM_ROWS * warp + r;
+          const T* xr = rows + (long long)(k < nl ? k : 0) * Dr;
+          float xm = 0.f;
+          if (METRIC == M_PEARSON) {
+            float t2 = 0.f;
+            for (int c = lane; c < D; c += 32) t2 += to_f(xr[c]);
+            xm = wsum(t2) / (float)D;
+          }
+          if (vec) {
+#pragma unroll
+            for (int i2 = 0; i2 < NI; ++i2) {
+              const int c0 = lane * V + 32 * V * i2;
+              uint4 raw = {0u, 0u, 0u, 0u};
+              if (c0 < D) raw = *reinterpret_cast<const uint4*>(xr + c0);
+              const T* tv = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+              for (int u = 0; u < V; ++u) xv[r][i2 * V + u] = to_f(tv[u]) - xm;
+            }
+          } else {
+#pragma unroll
+            for (int m = 0; m < LM_QREG; ++m)
+              xv[r][m] = lane + 32 * m < D ? to_f(xr[lane + 32 * m]) - xm : 0.f;
+          }
+          // a lane's columns in member_distances' order; those past D skipped
+          xss[r] = 0.f;
+          if (DOT) {
+#pragma unroll
+            for (int m = 0; m < LM_QREG; ++m)
+              if ((vec ? lane * V + 32 * V * (m / V) : lane + 32 * m) < D)
+                xss[r] = fmaf(xv[r][m], xv[r][m], xss[r]);
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1) xss[r] += __shfl_xor_sync(FULL, xss[r], off);
+          }
+        }
+        const int k0 = LM_ROWS * warp;
+        for (int j0 = 0; j0 < np; j0 += 2) {  // two pairs at a time: four chains a lane
+          const int nj = j0 + 1 < np ? 2 : 1;
+          float acc[2][LM_ROWS], acc2[2][LM_ROWS];
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int r = 0; r < LM_ROWS; ++r) acc[h][r] = acc2[h][r] = 0.f;
+          if (vec) {
+#pragma unroll
+            for (int i2 = 0; i2 < NI; ++i2) {
+              const int c0 = lane * V + 32 * V * i2;
+              if (c0 >= D) break;
+              float qq[2][V];
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float* qv = qs + (long long)(j0 + (h < nj ? h : 0)) * Dq + c0;
+#pragma unroll
+                for (int e = 0; e < V / 4; ++e) {
+                  const float4 f = reinterpret_cast<const float4*>(qv)[e];
+                  qq[h][4 * e] = f.x;
+                  qq[h][4 * e + 1] = f.y;
+                  qq[h][4 * e + 2] = f.z;
+                  qq[h][4 * e + 3] = f.w;
+                }
+              }
+#pragma unroll
+              for (int u = 0; u < V; ++u)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+#pragma unroll
+                  for (int r = 0; r < LM_ROWS; ++r)
+                    pw_step<METRIC>(qq[h][u], xv[r][i2 * V + u], p, acc[h][r], acc2[h][r]);
+            }
+          } else {
+#pragma unroll
+            for (int m = 0; m < LM_QREG; ++m) {
+              if (lane + 32 * m >= D) break;
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float qm = qs[(long long)(j0 + (h < nj ? h : 0)) * Dq + lane + 32 * m];
+#pragma unroll
+                for (int r = 0; r < LM_ROWS; ++r)
+                  pw_step<METRIC>(qm, xv[r][m], p, acc[h][r], acc2[h][r]);
+              }
+            }
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (h >= nj) break;  // uniform
+            float d[LM_ROWS];
+#pragma unroll
+            for (int r = 0; r < LM_ROWS; ++r) {
+#pragma unroll
+              for (int off = 16; off > 0; off >>= 1) {
+                const float oa = __shfl_xor_sync(FULL, acc[h][r], off);
+                acc[h][r] = METRIC == M_CHEBYSHEV ? fmaxf(acc[h][r], oa) : acc[h][r] + oa;
+                if (METRIC == M_JACCARD) acc2[h][r] += __shfl_xor_sync(FULL, acc2[h][r], off);
+              }
+              d[r] = pw_finish<METRIC>(DOT ? qss[j0 + h] : 0.f, xss[r], acc[h][r], acc2[h][r], p);
+            }
+            // lane r keeps row k0 + r's key for the pair's list
+            if (lane < LM_ROWS && k0 + lane < nl) {
+              float mine = d[0];
+#pragma unroll
+              for (int r = 1; r < LM_ROWS; ++r) mine = lane == r ? d[r] : mine;
+              s_keys[j0 + h][k0 + lane] = pair_of(f2key(mine), s_pos[st][k0 + lane]);
+            }
+          }
+        }
+      }
+      __syncthreads();  // the chunk's keys are in place
+      // each pair's list takes the chunk's keys at once, 32 a warp offer
+      for (int j = warp; nl > 0 && j < np; j += LM_WARPS) {
+        unsigned long long* kept = lists + (long long)j * kkb;
+        warp_offer(kept, kkb, kept[kkb - 1], lane < nl ? s_keys[j][lane] : PAD_PAIR);
+      }
+      __syncthreads();  // the stage and the keys are refilled a chunk on
+    }
+    // each pair's picks written
+    for (int j = warp; j < np; j += LM_WARPS) {
+      const int pair = (int)(keys[a + j] & 0xFFFFFFFFull);
+      const long long o = ((long long)pair * G + g) * kkb;
+      const unsigned long long* kept = lists + (long long)j * kkb;
+      for (int r = lane; r < kkb; r += 32) {
+        const unsigned long long v = any ? kept[r] : PAD_PAIR;
+        const bool real = v != PAD_PAIR;
+        out_d[o + r] = real ? key2f((unsigned)(v >> 32)) : __uint_as_float(0x7f800000u);
+        out_i[o + r] = real ? lr[(unsigned)(v & 0xFFFFFFFFull)] : -1;
+      }
+    }
+    __syncthreads();  // the lists and the queries are rewritten by the next item
+  }
+}
+
+// the (mode, G, kkb) of a rerank: mode -1 chooses
+void rerank_shape(int Q, int S, int P, int L, int kk, int D, int tsize, int mode, int* out) {
+  const int np = Q * S * P;
+  const bool fits = np <= LM_MAX_PAIRS &&
+                    lm_fit(D, tsize, min(kk, kk > KNN_FUSED_MAX_K ? 256 : LM_RANGE), np).qb > 0;
+  if (mode < 0) mode = Q >= LM_MIN_Q && fits ? 1 : 0;
+  if (mode == 1 && !fits) mode = -1;  // refused
+  long long G;
+  if (mode == 1) {
+    G = (L + (kk > KNN_FUSED_MAX_K ? 256 : LM_RANGE) - 1) / (kk > KNN_FUSED_MAX_K ? 256 : LM_RANGE);
+  } else {
+    // about four blocks an SM; a kk above knn_search_max_k() splits a list
+    // into ranges of at most that many positions, so a block's list holds
+    // all its candidates
+    const long long lists = (long long)np;
+    G = (4LL * sm_count() + lists - 1) / lists;
+    G = max(1LL, min(G, (long long)(L + 31) / 32));
+    if (kk > KNN_FUSED_MAX_K) G = max(G, (long long)(L + KNN_FUSED_MAX_K - 1) / KNN_FUSED_MAX_K);
+  }
+  out[0] = mode;
+  out[1] = (int)G;
+  out[2] = min(kk, ir_span(L, (int)G));
+}
+
 template <int M, typename T>
-int launch_gather(const float* q, const T* x, long long cap, int D, float p, const int* probes,
-                  int Q, int P, const int* list_rows, const unsigned char* list_mask, int L,
-                  const unsigned char* slot_ok, float* out, cudaStream_t s) {
+int launch_rerank(const float* q, int Q, int D, float p, const int* probes, int P, const T* x,
+                  long long cap, const int* list_rows, const unsigned char* list_mask, int C,
+                  int L, const unsigned char* slot_ok, int S, int mode, int G, int kkb,
+                  unsigned* ticket, float* out_d, int* out_i, cudaStream_t s) {
   const int vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0) && (D % (16 / (int)sizeof(T)) == 0);
-  const unsigned blocks = (unsigned)((long long)Q * P * ((L + GD_SLOTS - 1) / GD_SLOTS));
-  const size_t smem = (size_t)D * sizeof(float);
+  if (mode == 0) {
+    static std::atomic<unsigned> seen{0};
+    const int smem = ir_smem_bytes(D, kkb);
+    if (smem > SMEM_OPT_IN) return (int)cudaErrorInvalidValue;
+    if (int err = opt_in_smem(rerank_pairs_kernel<M, T>, smem > 48 * 1024 ? SMEM_OPT_IN : smem,
+                              seen))
+      return err;
+    const long long blocks = (long long)Q * S * P * G;
+    rerank_pairs_kernel<M, T><<<(unsigned)blocks, IR_THREADS, smem, s>>>(
+        q, D, p, probes, P, x, cap, list_rows, list_mask, C, L, slot_ok, S, G, kkb, vec, out_d,
+        out_i);
+    return (int)cudaGetLastError();
+  }
+  const int np = Q * S * P;
+  const LmPlan pl = lm_fit(D, (int)sizeof(T), kkb, np);
+  if (np > LM_MAX_PAIRS || pl.qb == 0 || ticket == nullptr) return (int)cudaErrorInvalidValue;
+  if (cudaError_t e = cudaMemsetAsync(ticket, 0, sizeof(unsigned), s)) return (int)e;
   static std::atomic<unsigned> seen{0};
-  if (smem > (size_t)SMEM_OPT_IN) return (int)cudaErrorInvalidValue;
-  if (int err = opt_in_smem(gather_distance_kernel<M, T>, SMEM_OPT_IN, seen)) return err;
-  gather_distance_kernel<M, T><<<blocks, GD_THREADS, smem, s>>>(
-      q, x, cap, D, p, probes, P, list_rows, list_mask, L, slot_ok, out, vec);
+  if (int err = opt_in_smem(rerank_lists_kernel<M, T>, SMEM_OPT_IN, seen)) return err;
+  const int per_sm = max(1, (int)(SMEM_OPT_IN / pl.bytes));
+  const long long items = (long long)np * G;  // the groups are at most the pairs
+  const long long grid = min(items, (long long)sm_count() * per_sm);
+  if (items > 0xffffffffLL) return (int)cudaErrorInvalidValue;
+  rerank_lists_kernel<M, T><<<(unsigned)grid, LM_THREADS, (size_t)pl.bytes, s>>>(
+      q, D, p, probes, P, x, cap, list_rows, list_mask, C, L, slot_ok, S, G, kkb, vec, np, pl,
+      ticket, out_d, out_i);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int gather_dispatch(int metric, const float* q, const T* x, long long cap, int D, float p,
-                    const int* probes, int Q, int P, const int* list_rows,
-                    const unsigned char* list_mask, int L, const unsigned char* slot_ok,
-                    float* out, cudaStream_t s) {
+int rerank_dispatch(int metric, const float* q, int Q, int D, float p, const int* probes, int P,
+                    const T* x, long long cap, const int* list_rows,
+                    const unsigned char* list_mask, int C, int L, const unsigned char* slot_ok,
+                    int S, int mode, int G, int kkb, unsigned* ticket, float* out_d, int* out_i,
+                    cudaStream_t s) {
+#define IR_CASE(M)                                                                         \
+  case M:                                                                                  \
+    return launch_rerank<M, T>(q, Q, D, p, probes, P, x, cap, list_rows, list_mask, C, L, \
+                               slot_ok, S, mode, G, kkb, ticket, out_d, out_i, s);
   switch (metric) {
-    case M_EUCLIDEAN: return launch_gather<M_EUCLIDEAN, T>(q, x, cap, D, p, probes, Q, P, list_rows, list_mask, L, slot_ok, out, s);
-    case M_COSINE: return launch_gather<M_COSINE, T>(q, x, cap, D, p, probes, Q, P, list_rows, list_mask, L, slot_ok, out, s);
-    case M_MANHATTAN: return launch_gather<M_MANHATTAN, T>(q, x, cap, D, p, probes, Q, P, list_rows, list_mask, L, slot_ok, out, s);
-    case M_CHEBYSHEV: return launch_gather<M_CHEBYSHEV, T>(q, x, cap, D, p, probes, Q, P, list_rows, list_mask, L, slot_ok, out, s);
-    case M_HAMMING: return launch_gather<M_HAMMING, T>(q, x, cap, D, p, probes, Q, P, list_rows, list_mask, L, slot_ok, out, s);
-    case M_JACCARD: return launch_gather<M_JACCARD, T>(q, x, cap, D, p, probes, Q, P, list_rows, list_mask, L, slot_ok, out, s);
-    case M_PEARSON: return launch_gather<M_PEARSON, T>(q, x, cap, D, p, probes, Q, P, list_rows, list_mask, L, slot_ok, out, s);
-    case M_MINKOWSKI: return launch_gather<M_MINKOWSKI, T>(q, x, cap, D, p, probes, Q, P, list_rows, list_mask, L, slot_ok, out, s);
+    IR_CASE(M_EUCLIDEAN)
+    IR_CASE(M_COSINE)
+    IR_CASE(M_MANHATTAN)
+    IR_CASE(M_CHEBYSHEV)
+    IR_CASE(M_HAMMING)
+    IR_CASE(M_JACCARD)
+    IR_CASE(M_PEARSON)
+    IR_CASE(M_MINKOWSKI)
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-__global__ void map_slots_kernel(const int* __restrict__ probes, int P,
-                                 const int* __restrict__ list_rows, int L,
-                                 const float* __restrict__ sel_d, const int* __restrict__ sel_i,
-                                 long long total, int k, int* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const long long qi = i / k;
-  const int pos = sel_i[i];
-  int slot = -1;
-  if (sel_d[i] < __uint_as_float(0x7f800000u) && pos >= 0) {
-    const int pr = pos / L, j = pos % L;
-    slot = list_rows[(long long)probes[qi * P + pr] * L + j];
-  }
-  out[i] = slot;
+#undef IR_CASE
 }
 
 }  // namespace
@@ -883,39 +1537,52 @@ int ivf_kmeans_update(const void* x, int x_bf16, long long n, int D, const void*
   return (int)cudaGetLastError();
 }
 
-// q [Q, D] f32; x [cap, D] f32 / bf16; probes [Q, P] i32 (list ids);
-// list_rows [C, L] i32, list_mask [C, L] u8; slot_ok [cap] u8;
-// out [Q, P*L] f32: distance with `metric` (codes of knn.cu), +inf where
-// the list slot is padding or its slot is not ok.
-int ivf_gather_distance(const void* q, const void* x, int x_bf16, long long cap, int D,
-                        int metric, float p, const void* probes, int Q, int P,
-                        const void* list_rows, const void* list_mask, int L,
-                        const void* slot_ok, void* out, void* stream) {
-  if (Q <= 0 || P <= 0 || L <= 0 || D <= 0 || cap <= 0) return (int)cudaErrorInvalidValue;
+// K3's rerank (S = 1) and K13's (S shards of one device), one launch:
+// q [Q, D] f32; probes [Q, P] i32 (list ids); x [S * cap, D] f32 / bf16
+// (shard s's rows from s * cap); list_rows [S, C, L] i32 (slots local to
+// the shard) and list_mask [S, C, L] u8; slot_ok [S * cap] u8 or null
+// (every slot); mode 0 pair-major, 1 list-major, with G ranges a list and
+// kkb picks a block, all three from ivf_rerank_plan; work: 4 bytes of
+// scratch for the list-major blocks' work ticket (reset here), null for
+// pair-major. out_d / out_i [Q, S *
+// P * G * kkb]: each (query, shard, probe rank, range)'s picks, sorted by
+// (distance, position), +inf / -1 past its candidates; a query's row lies
+// in (shard, probe rank, range) order, so mesh_topk_merge with kk = P * G *
+// kkb selects them in the reference's (distance, shard, position) order
+// and adds the shard offsets.
+int ivf_rerank(const void* q, int Q, int D, int metric, float p, const void* probes, int P,
+               const void* x, int x_bf16, long long cap, const void* list_rows,
+               const void* list_mask, int C, int L, const void* slot_ok, int S, int mode, int G,
+               int kkb, void* work, void* out_d, void* out_i, void* stream) {
+  if (Q <= 0 || D <= 0 || P <= 0 || cap <= 0 || C <= 0 || L <= 0 || S <= 0 || G <= 0 ||
+      kkb <= 0 || kkb > KNN_FUSED_MAX_K || kkb > ir_span(L, G) || mode < 0 || mode > 1 ||
+      (long long)Q * S * P * G > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int* pr = (const int*)probes;
   const int* lr = (const int*)list_rows;
   const unsigned char* lm = (const unsigned char*)list_mask;
   const unsigned char* ok = (const unsigned char*)slot_ok;
   if (x_bf16)
-    return gather_dispatch<__nv_bfloat16>(metric, (const float*)q, (const __nv_bfloat16*)x, cap, D,
-                                          p, pr, Q, P, lr, lm, L, ok, (float*)out, s);
-  return gather_dispatch<float>(metric, (const float*)q, (const float*)x, cap, D, p, pr, Q, P,
-                                lr, lm, L, ok, (float*)out, s);
+    return rerank_dispatch<__nv_bfloat16>(metric, (const float*)q, Q, D, p, pr, P,
+                                          (const __nv_bfloat16*)x, cap, lr, lm, C, L, ok, S, mode,
+                                          G, kkb, (unsigned*)work, (float*)out_d, (int*)out_i, s);
+  return rerank_dispatch<float>(metric, (const float*)q, Q, D, p, pr, P, (const float*)x, cap, lr,
+                                lm, C, L, ok, S, mode, G, kkb, (unsigned*)work, (float*)out_d,
+                                (int*)out_i, s);
 }
 
-// sel_d / sel_i [Q, k]: knn_select's picks over ivf_gather_distance's
-// [Q, P*L] output; out [Q, k] i32: the corpus slot of each pick, -1 where
-// its distance is +inf.
-int ivf_map_slots(const void* probes, int Q, int P, const void* list_rows, int L,
-                  const void* sel_d, const void* sel_i, int k, void* out, void* stream) {
-  if (Q <= 0 || P <= 0 || L <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)Q * k;
-  const unsigned blocks = (unsigned)((total + 255) / 256);
-  map_slots_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
-      (const int*)probes, P, (const int*)list_rows, L, (const float*)sel_d, (const int*)sel_i,
-      total, k, (int*)out);
-  return (int)cudaGetLastError();
+// out [3]: the mode (mode -1: the plan's choice, list-major from LM_MIN_Q
+// queries where its shared memory fits; 0 / 1 asked for), G and kkb of a
+// rerank of Q queries x S shards x P probes over lists of L positions,
+// top-kk, D-wide rows (bf16 with x_bf16). Sized on the current card.
+// Returns cudaErrorInvalidValue when the list-major mode is asked for and
+// does not fit.
+int ivf_rerank_plan(int Q, int S, int P, int L, int kk, int D, int x_bf16, int mode, int* out) {
+  if (Q <= 0 || S <= 0 || P <= 0 || L <= 0 || kk <= 0 || D <= 0 || mode < -1 || mode > 1)
+    return (int)cudaErrorInvalidValue;
+  rerank_shape(Q, S, P, L, kk, D, x_bf16 ? 2 : 4, mode, out);
+  return out[0] < 0 ? (int)cudaErrorInvalidValue : (int)cudaSuccess;
 }
 
 }  // extern "C"

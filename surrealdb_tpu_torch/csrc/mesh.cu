@@ -2,17 +2,18 @@
 // knn.cu (one library, loaded with ctypes by surrealdb_tpu_torch/ops/_cuda.py).
 // They serve surrealdb_tpu_torch/parallel/mesh.py, the port of
 // surrealdb_tpu/parallel/mesh.py, whose shard_map programs run here as one
-// launch a shard, or (K13) one launch over all the shards a card holds: a
+// launch a shard, or (K12) one launch over all the shards a card holds: a
 // shard is a view of one tensor when the shards share a card, a copy on its
 // own card otherwise.
 //
 // mesh_topk_merge is the merge of K11 sharded_knn, K12 sharded_knn_2d and
-// K13 _ivf_searcher: after the all-gather of every shard's kk candidates
-// into d_all / i_all [Q, S*kk] (shard order), lax.top_k(-d_all, k_out) and
+// K13 _ivf_searcher (and of K3's rerank, as one shard): after the
+// all-gather of every shard's kk candidates into d_all / i_all [Q, S*kk]
+// (shard order), lax.top_k(-d_all, k_out) and
 // the take of the ids, with the id arithmetic done here: a candidate at
 // position p belongs to shard p / kk, and its global id is its local id +
 // shard * shard_rows (K11, K12: always, so a shard's +inf picks keep their
-// ids, as the reference returns them; K13: only where the distance is
+// ids, as the reference returns them; K3, K13: only where the distance is
 // finite, else -1). Order is lax.top_k's: distance, then the lower
 // position. What bounds it: nothing on this card (a few thousand
 // candidates a query at most, a few KB); its time should be the launch.
@@ -46,21 +47,8 @@
 // instances (euclidean; f32 and bf16 rows at query tiles 1 and 8; the
 // tensor tier, both epilogues) build here, beside knn.cu.
 //
-// mesh_ivf_rerank is K13's rerank of every shard a card holds, one launch:
-// per shard, the probed lists' members that are listed (list_mask) and
-// slot_ok, ranked by `metric` in (distance, position pr * L + j) order,
-// top-kk, slots local to the shard. What bounds it: reading the candidate
-// rows (bytes), and at small Q the latency of a warp's row reads. Design:
-// a block a (query, shard, probe rank, contiguous range of the list's
-// extent), the ranges chosen so the launch has about four blocks an SM; a
-// warp reads its chunk's 32 mask bytes and offers nothing, reading no row,
-// where none is live; live rows are read as ivf.cu's gather reads them (a
-// warp a row, 16-byte loads, metric.cuh's formulas), four rows at once, and
-// their keys go straight to the warp's running top-k (knn.cuh's
-// warp_offer); the block writes its sorted picks with the slots mapped, so
-// no [Q, nprobe * L] scratch is written and no slot-mapping launch follows.
-// The picks lie in (shard, position) order, so mesh_topk_merge (with kk the
-// picks a shard) finishes with the reference's order.
+// K13's rerank is K3's ivf_rerank (ivf.cu) over the S shards a card holds,
+// one launch; mesh_topk_merge above finishes it.
 //
 // mesh_frontier_hop is K14 sharded_frontier_hop's per-shard gather: for
 // each (frontier row f, offset o < max_degree), start = indptr[fr],
@@ -149,21 +137,36 @@ topk_merge_lists_kernel(const float* __restrict__ d_all, const int* __restrict__
 // k_out above it: each thread ranks its candidates against all of the
 // query's candidates (the count of smaller keys plus equal keys at lower
 // positions), staged in shared memory when they fit; the rank is the
-// output slot.
+// output slot. With finite_only and no NaN among them, every non-finite
+// candidate comes out as (+inf, -1) after the finite ones, so only the
+// finite ones are ranked and the rest of the row is filled: a K3 / K13
+// merge whose k_out is above the probed candidates ranks those alone.
 __global__ void __launch_bounds__(MG_THREADS)
 topk_merge_rank_kernel(const float* __restrict__ d_all, const int* __restrict__ i_all, int M,
                        int kk, long long shard_rows, int k_out, int finite_only,
                        float* __restrict__ out_d, int* __restrict__ out_i) {
   extern __shared__ unsigned keys_smem[];
+  __shared__ int s_finite, s_nan;
   const long long row = blockIdx.x;
   const float* d = d_all + row * M;
   const int* ids = i_all + row * M;
   const bool staged = M <= MG_SMEM_KEYS;
-  if (staged)
-    for (int j = threadIdx.x; j < M; j += MG_THREADS) keys_smem[j] = f2key(d[j]);
+  if (threadIdx.x == 0) s_finite = s_nan = 0;
   __syncthreads();
+  int fin = 0, nan = 0;
+  for (int j = threadIdx.x; j < M; j += MG_THREADS) {
+    const unsigned kj = f2key(d[j]);
+    if (staged) keys_smem[j] = kj;
+    fin += kj < INF_KEY;
+    nan += kj > INF_KEY;
+  }
+  atomicAdd(&s_finite, fin);
+  atomicAdd(&s_nan, nan);
+  __syncthreads();
+  const bool skip = finite_only && s_nan == 0;  // the non-finite picks all read (+inf, -1)
   for (int p = threadIdx.x; p < M; p += MG_THREADS) {
     const unsigned kp = staged ? keys_smem[p] : f2key(d[p]);
+    if (skip && kp >= INF_KEY) continue;
     int rank = 0;
     for (int j = 0; j < M && rank < k_out; ++j) {
       const unsigned kj = staged ? keys_smem[j] : f2key(d[j]);
@@ -173,6 +176,11 @@ topk_merge_rank_kernel(const float* __restrict__ d_all, const int* __restrict__ 
       merge_pick(d, ids, p, kk, shard_rows, finite_only, out_d + row * k_out + rank,
                  out_i + row * k_out + rank);
   }
+  if (skip)
+    for (int r = s_finite + threadIdx.x; r < k_out; r += MG_THREADS) {
+      out_d[row * k_out + r] = __uint_as_float(0x7f800000u);
+      out_i[row * k_out + r] = -1;
+    }
 }
 
 // ------------------------------------------------------------------ K12
@@ -206,261 +214,6 @@ int knn2d_launch(const KnnPlan& pl, const float* q, const void* x, int x_bf16, i
                     : launch_stream_qt<E, float, 8, true>(FUSED, pl, q, xf, Q, rows, Dm, view,
                                                           0.f, nullptr, nullptr, mask, k, out,
                                                           scratch, s);
-}
-
-// ------------------------------------------------------------------ K13
-
-constexpr int IR_THREADS = 256;
-constexpr int IR_WARPS = IR_THREADS / 32;
-constexpr int IR_ROWS = 4;  // member rows a warp reads at once
-
-// positions a block covers at most: a list of L positions split in G
-// contiguous ranges, rounded up to whole 32-position chunks
-__host__ __device__ inline int ir_span(int n, int G) { return ((n + G - 1) / G + 31) / 32 * 32; }
-
-int ir_smem_bytes(int D, int kkb) { return (D * 4 + 15) / 16 * 16 + IR_WARPS * kkb * 8; }
-
-// The distances of the query (qs [D] in shared memory, centred for
-// pearson; qss its squared norm) to up to IR_ROWS member rows xr[r] at
-// once (src[r] < 0: none; uniform in the warp), a warp a row as ivf.cu's
-// gather reads them: 16-byte loads (vec) or one value a lane, then a
-// shuffle reduction, so every lane holds every distance.
-template <int METRIC, typename T>
-__device__ __forceinline__ void member_distances(const T* const (&xr)[IR_ROWS],
-                                                 const int (&src)[IR_ROWS],
-                                                 const float* __restrict__ qs, int D, float p,
-                                                 float qss, int vec, float (&out)[IR_ROWS]) {
-  constexpr bool DOT = is_dot_metric<METRIC>();
-  constexpr int V = 16 / (int)sizeof(T);  // row values in 16 bytes
-  const int lane = threadIdx.x & 31;
-  float acc[IR_ROWS], acc2[IR_ROWS], xss[IR_ROWS], xm[IR_ROWS];
-#pragma unroll
-  for (int r = 0; r < IR_ROWS; ++r) acc[r] = acc2[r] = xss[r] = xm[r] = 0.f;
-  if (METRIC == M_PEARSON) {
-#pragma unroll
-    for (int r = 0; r < IR_ROWS; ++r) {
-      if (src[r] < 0) continue;  // uniform
-      float t = 0.f;
-      for (int c = lane; c < D; c += 32) t += to_f(xr[r][c]);
-      xm[r] = wsum(t) / (float)D;
-    }
-  }
-  if (vec) {
-    for (int c0 = lane * V; c0 < D; c0 += 32 * V) {
-      uint4 raw[IR_ROWS];
-#pragma unroll
-      for (int r = 0; r < IR_ROWS; ++r)  // every row's load in flight before the arithmetic
-        if (src[r] >= 0) raw[r] = __ldg(reinterpret_cast<const uint4*>(xr[r] + c0));
-#pragma unroll
-      for (int r = 0; r < IR_ROWS; ++r) {
-        if (src[r] < 0) continue;
-        const T* tv = reinterpret_cast<const T*>(&raw[r]);
-#pragma unroll
-        for (int u = 0; u < V; ++u) {
-          const float xv = to_f(tv[u]) - xm[r];
-          pw_step<METRIC>(qs[c0 + u], xv, p, acc[r], acc2[r]);
-          if (DOT) xss[r] = fmaf(xv, xv, xss[r]);
-        }
-      }
-    }
-  } else {
-    for (int c = lane; c < D; c += 32) {
-#pragma unroll
-      for (int r = 0; r < IR_ROWS; ++r) {
-        if (src[r] < 0) continue;
-        const float xv = to_f(xr[r][c]) - xm[r];
-        pw_step<METRIC>(qs[c], xv, p, acc[r], acc2[r]);
-        if (DOT) xss[r] = fmaf(xv, xv, xss[r]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < IR_ROWS; ++r) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float oa = __shfl_xor_sync(FULL, acc[r], off);
-      acc[r] = METRIC == M_CHEBYSHEV ? fmaxf(acc[r], oa) : acc[r] + oa;
-      acc2[r] += __shfl_xor_sync(FULL, acc2[r], off);
-      xss[r] += __shfl_xor_sync(FULL, xss[r], off);
-    }
-    out[r] = pw_finish<METRIC>(qss, xss[r], acc[r], acc2[r], p);
-  }
-}
-
-// Block b = (((query * S + shard) * P + probe rank) * G + g): query qi
-// against the members of list probes[qi, pr] in shard s (tables [S, C, L],
-// rows [S * cap, D], slot_ok [S * cap] or null: every slot) that lie in the
-// g-th of G contiguous ranges of the list's extent (one past its last
-// listed position). Warp w takes the range's 32-position chunks w, w + 8,
-// ...: a lane reads its position's mask byte, row and slot_ok byte; a chunk
-// with no live member reads no row and offers nothing; live rows are read a
-// warp a row, IR_ROWS at once; the chunk's keys (f2key(d) << 32 | position)
-// go to the warp's running top-kkb (warp_offer). At the end warp 0 merges
-// the warps' lists and writes the block's kkb picks, sorted: the distance
-// and the row's slot (list_rows, local to the shard), +inf and -1 past the
-// candidates, to out [Q, S, P, G, kkb], so a query's picks lie in (shard,
-// position) order among equal distances.
-template <int METRIC, typename T>
-__global__ void __launch_bounds__(IR_THREADS)
-ivf_rerank_kernel(const float* __restrict__ q, int D, float p, const int* __restrict__ probes,
-                  int P, const T* __restrict__ x, long long cap,
-                  const int* __restrict__ list_rows, const unsigned char* __restrict__ list_mask,
-                  int C, int L, const unsigned char* __restrict__ slot_ok, int S, int G, int kkb,
-                  int vec, float* __restrict__ out_d, int* __restrict__ out_i) {
-  constexpr bool DOT = is_dot_metric<METRIC>();
-  // the query [D] (centred for pearson), then the warps' lists [IR_WARPS][kkb]
-  extern __shared__ __align__(16) unsigned char ir_smem[];
-  __shared__ float s_red[IR_WARPS];
-  __shared__ int s_last[IR_WARPS];
-  __shared__ float s_qmean, s_qss;
-  float* qs = reinterpret_cast<float*>(ir_smem);
-  unsigned long long* lists =
-      reinterpret_cast<unsigned long long*>(ir_smem + (D * 4 + 15) / 16 * 16);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = (int)(blockIdx.x % G);
-  const long long qsp = blockIdx.x / G;  // (query * S + shard) * P + probe rank
-  const int pr = (int)(qsp % P);
-  const int s = (int)(qsp / P % S);
-  const int qi = (int)(qsp / P / S);
-  const long long lb = ((long long)s * C + probes[(long long)qi * P + pr]) * L;
-  const int* lr = list_rows + lb;
-  const unsigned char* lm = list_mask + lb;
-  const T* xs = x + (long long)s * cap * D;
-  const unsigned char* ok = slot_ok == nullptr ? nullptr : slot_ok + (long long)s * cap;
-
-  float part = 0.f;
-  for (int c = tid; c < D; c += IR_THREADS) {
-    const float v = q[(long long)qi * D + c];
-    qs[c] = v;
-    part += v;
-  }
-  if (METRIC == M_PEARSON) {
-    part = wsum(part);
-    if (lane == 0) s_red[warp] = part;
-    __syncthreads();
-    if (tid == 0) {
-      float t = 0.f;
-      for (int w = 0; w < IR_WARPS; ++w) t += s_red[w];
-      s_qmean = t / (float)D;
-    }
-    __syncthreads();
-    for (int c = tid; c < D; c += IR_THREADS) qs[c] -= s_qmean;
-  }
-  __syncthreads();
-  if (DOT) {
-    float t = 0.f;
-    for (int c = tid; c < D; c += IR_THREADS) t = fmaf(qs[c], qs[c], t);
-    t = wsum(t);
-    if (lane == 0) s_red[warp] = t;
-    __syncthreads();
-    if (tid == 0) {
-      float u = 0.f;
-      for (int w = 0; w < IR_WARPS; ++w) u += s_red[w];
-      s_qss = u;
-    }
-  }
-  // the list's extent; the warp's list starts empty
-  int last = -1;
-  for (int j = tid; j < L; j += IR_THREADS)
-    if (lm[j]) last = j;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) last = max(last, __shfl_xor_sync(FULL, last, o));
-  if (lane == 0) s_last[warp] = last;
-  unsigned long long* kept = lists + warp * kkb;
-  for (int e = lane; e < kkb; e += 32) kept[e] = PAD_PAIR;
-  __syncthreads();
-  const float qss = DOT ? s_qss : 0.f;
-  int ext = 0;
-  for (int w = 0; w < IR_WARPS; ++w) ext = max(ext, s_last[w] + 1);
-  const int span = ir_span(ext, G);
-  const int lo = g * span, hi = min(ext, lo + span);
-  unsigned long long theta = PAD_PAIR;
-  for (int c0 = lo + warp * 32; c0 < hi; c0 += IR_THREADS) {
-    const int j = c0 + lane;
-    bool live = j < hi && lm[j] != 0;
-    long long row = 0;
-    if (live) {
-      row = lr[j];
-      row = row < 0 ? 0 : (row >= cap ? cap - 1 : row);
-      live = ok == nullptr || ok[row] != 0;
-    }
-    unsigned todo = __ballot_sync(FULL, live);
-    if (todo == 0u) continue;  // uniform: no row read, nothing offered
-    float mine = 0.f;
-    while (todo != 0u) {  // uniform
-      int src[IR_ROWS];
-      const T* xr[IR_ROWS];
-#pragma unroll
-      for (int r = 0; r < IR_ROWS; ++r) {
-        src[r] = todo != 0u ? __ffs((int)todo) - 1 : -1;
-        todo &= todo - 1u;
-        xr[r] = xs + __shfl_sync(FULL, row, src[r] < 0 ? 0 : src[r]) * D;
-      }
-      float dist[IR_ROWS];
-      member_distances<METRIC, T>(xr, src, qs, D, p, qss, vec, dist);
-#pragma unroll
-      for (int r = 0; r < IR_ROWS; ++r)
-        if (lane == src[r]) mine = dist[r];
-    }
-    theta = warp_offer(kept, kkb, theta, live ? pair_of(f2key(mine), j) : PAD_PAIR);
-  }
-  __syncthreads();  // every warp's list is complete
-  if (warp != 0) return;
-  unsigned long long th = kept[kkb - 1];
-  for (int w = 1; w < IR_WARPS; ++w) {
-    const unsigned long long* other = lists + w * kkb;
-    for (int c0 = 0; c0 < kkb; c0 += 32)
-      th = warp_offer(kept, kkb, th, c0 + lane < kkb ? other[c0 + lane] : PAD_PAIR);
-  }
-  // the picks' place: a query's row, by shard, then probe rank, then range
-  const long long o = (qsp * G + g) * kkb;
-  for (int i = lane; i < kkb; i += 32) {
-    const unsigned long long v = kept[i];
-    const bool real = v != PAD_PAIR;
-    out_d[o + i] = real ? key2f((unsigned)(v >> 32)) : __uint_as_float(0x7f800000u);
-    out_i[o + i] = real ? lr[(unsigned)(v & 0xFFFFFFFFull)] : -1;
-  }
-}
-
-template <int M, typename T>
-int launch_rerank(const float* q, int Q, int D, float p, const int* probes, int P, const T* x,
-                  long long cap, const int* list_rows, const unsigned char* list_mask, int C,
-                  int L, const unsigned char* slot_ok, int S, int G, int kkb, float* out_d,
-                  int* out_i, cudaStream_t s) {
-  static std::atomic<unsigned> seen{0};
-  const int smem = ir_smem_bytes(D, kkb);
-  if (smem > SMEM_OPT_IN) return (int)cudaErrorInvalidValue;
-  if (int err = opt_in_smem(ivf_rerank_kernel<M, T>, smem > 48 * 1024 ? SMEM_OPT_IN : smem, seen))
-    return err;
-  const int vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0) && (D % (16 / (int)sizeof(T)) == 0);
-  const long long blocks = (long long)Q * S * P * G;
-  ivf_rerank_kernel<M, T><<<(unsigned)blocks, IR_THREADS, smem, s>>>(
-      q, D, p, probes, P, x, cap, list_rows, list_mask, C, L, slot_ok, S, G, kkb, vec, out_d,
-      out_i);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int rerank_dispatch(int metric, const float* q, int Q, int D, float p, const int* probes, int P,
-                    const T* x, long long cap, const int* list_rows,
-                    const unsigned char* list_mask, int C, int L, const unsigned char* slot_ok,
-                    int S, int G, int kkb, float* out_d, int* out_i, cudaStream_t s) {
-#define IR_CASE(M)                                                                         \
-  case M:                                                                                  \
-    return launch_rerank<M, T>(q, Q, D, p, probes, P, x, cap, list_rows, list_mask, C, L, \
-                               slot_ok, S, G, kkb, out_d, out_i, s);
-  switch (metric) {
-    IR_CASE(M_EUCLIDEAN)
-    IR_CASE(M_COSINE)
-    IR_CASE(M_MANHATTAN)
-    IR_CASE(M_CHEBYSHEV)
-    IR_CASE(M_HAMMING)
-    IR_CASE(M_JACCARD)
-    IR_CASE(M_PEARSON)
-    IR_CASE(M_MINKOWSKI)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef IR_CASE
 }
 
 // ------------------------------------------------------------------ K14
@@ -576,54 +329,6 @@ int mesh_knn_2d(const void* q, long long q_stride, int Q, const void* x, int x_b
 long long mesh_knn_2d_scratch_bytes(int Q, long long rows, int Dm, int kk, int x_bf16) {
   if (Q <= 0 || rows <= 0 || Dm <= 0 || kk < 0) return 0;
   return make_plan(Q, rows, Dm, kk > 0 ? kk : 1, x_bf16, M_EUCLIDEAN, kk > 0).bytes;
-}
-
-// K13's rerank over S shards of one device, one launch: q [Q, D] f32;
-// probes [Q, P] i32 (list ids); x [S * cap, D] f32 / bf16 (shard s's rows
-// from s * cap); list_rows [S, C, L] i32 (slots local to the shard) and
-// list_mask [S, C, L] u8; slot_ok [S * cap] u8 or null (every slot); G
-// ranges a list (mesh_ivf_rerank_groups), kkb picks a block
-// (mesh_ivf_rerank_picks). out_d / out_i [Q, S * P * G * kkb]: each block's
-// picks, sorted by (distance, position), +inf / -1 past its candidates; a
-// query's row lies in (shard, probe rank, range) order, so
-// mesh_topk_merge with kk = P * G * kkb selects them in the reference's
-// (distance, shard, position) order and adds the shard offsets.
-int mesh_ivf_rerank(const void* q, int Q, int D, int metric, float p, const void* probes, int P,
-                    const void* x, int x_bf16, long long cap, const void* list_rows,
-                    const void* list_mask, int C, int L, const void* slot_ok, int S, int G,
-                    int kkb, void* out_d, void* out_i, void* stream) {
-  if (Q <= 0 || D <= 0 || P <= 0 || cap <= 0 || C <= 0 || L <= 0 || S <= 0 || G <= 0 ||
-      kkb <= 0 || kkb > KNN_FUSED_MAX_K || kkb > ir_span(L, G) ||
-      (long long)Q * S * P * G > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int* pr = (const int*)probes;
-  const int* lr = (const int*)list_rows;
-  const unsigned char* lm = (const unsigned char*)list_mask;
-  const unsigned char* ok = (const unsigned char*)slot_ok;
-  if (x_bf16)
-    return rerank_dispatch<__nv_bfloat16>(metric, (const float*)q, Q, D, p, pr, P,
-                                          (const __nv_bfloat16*)x, cap, lr, lm, C, L, ok, S, G,
-                                          kkb, (float*)out_d, (int*)out_i, s);
-  return rerank_dispatch<float>(metric, (const float*)q, Q, D, p, pr, P, (const float*)x, cap, lr,
-                                lm, C, L, ok, S, G, kkb, (float*)out_d, (int*)out_i, s);
-}
-
-// G: the contiguous ranges each of `lists` (Q * S * P) probed lists of L
-// positions is split into, so the launch has about four blocks an SM; a kk
-// above knn_search_max_k() splits a list into ranges of at most that many
-// positions, so a block's list holds all its candidates.
-long long mesh_ivf_rerank_groups(long long lists, int L, int kk) {
-  if (lists <= 0 || L <= 0) return 1;
-  long long g = (4LL * sm_count() + lists - 1) / lists;
-  g = max(1LL, min(g, (long long)(L + 31) / 32));
-  if (kk > KNN_FUSED_MAX_K) g = max(g, (long long)(L + KNN_FUSED_MAX_K - 1) / KNN_FUSED_MAX_K);
-  return g;
-}
-
-// kkb: the picks a block keeps, min(kk, the positions a range may hold)
-int mesh_ivf_rerank_picks(int L, int G, int kk) {
-  return L <= 0 || G <= 0 ? 0 : min(kk, ir_span(L, G));
 }
 
 // indptr [V1] i32, indices [E] i32, frontier [F] i32, fmask [F] u8;

@@ -186,6 +186,8 @@ class PointerCsr:
         if self._dev_csc is None:
             cptr, csrc = csc_arrays(self.indptr, self.indices)
             self._dev_csc = (torch.from_numpy(cptr).to(device), torch.from_numpy(csrc).to(device))
+            # K7's facts of this generation, from the host arrays
+            self._dev_csc[0]._csc_facts = _csc_facts(cptr, len(csrc), device)
         return self._dev_csc
 
 
@@ -206,6 +208,32 @@ def csc_arrays(indptr: np.ndarray, indices: np.ndarray):
     cptr = np.zeros(cap + 2, dtype=np.int32)
     np.cumsum(counts, out=cptr[1:])
     return np.ascontiguousarray(cptr[: cap + 1]), csrc
+
+
+def _csc_facts(cptr: np.ndarray, n_edges: int, device):
+    """K7's facts of one CSC mirror, taken once a mirror generation: (each
+    edge's destination [E] int32 on `device`, cap where it has none, or
+    None where the clamped pointers fall somewhere; True where they rise by
+    at most one a node, so every destination has at most one source)."""
+    c = np.clip(np.asarray(cptr, dtype=np.int64), 0, n_edges)
+    steps = np.diff(c)
+    if steps.size and steps.min() < 0:
+        return None, False
+    cap = len(c) - 1
+    cdst = np.full(n_edges, cap, dtype=np.int32)
+    cdst[c[0]:c[-1]] = np.repeat(np.arange(cap, dtype=np.int32), steps)
+    return torch.from_numpy(cdst).to(device), bool(steps.size == 0 or steps.max() <= 1)
+
+
+def csc_facts(cptr: torch.Tensor, csrc: torch.Tensor):
+    """_csc_facts of a CSC pair, kept on its cptr tensor (PointerCsr.device_csc
+    sets them from the host arrays; a pair made elsewhere is read to the
+    host once)."""
+    facts = getattr(cptr, "_csc_facts", None)
+    if facts is None:
+        facts = _csc_facts(cptr.cpu().numpy(), int(csrc.shape[0]), cptr.device)
+        cptr._csc_facts = facts
+    return facts
 
 
 # ------------------------------------------------------------------ kernels
@@ -437,15 +465,23 @@ def _launch_csc_count(lib, csc_hops, last_hop, frontiers, weights, n_cap):
         last_caps.append(cap)
     B, fsz = frontiers.shape
     dev = frontiers.device
+    facts = [csc_facts(cptr, csrc) for cptr, csrc in zip(cptrs, csrcs)]
     rows = max([n_cap] + caps) + 1
+    words = (rows + 31) // 32
     xa = torch.empty(rows * B if csc_hops else 1, dtype=torch.int32, device=dev)
     xb = torch.empty(rows * B if csc_hops else 1, dtype=torch.int32, device=dev)
+    bits = torch.empty((len(per_hop) + 1) * words if csc_hops else 1, dtype=torch.int32,
+                       device=dev)
     out = torch.empty(B, dtype=torch.int32, device=dev)
     status = lib.graph_csc_count(
-        _ptrs(cptrs), _ptrs(csrcs), _ints(caps), _ints([c.shape[0] for c in csrcs], ctypes.c_longlong),
-        _ints(per_hop), len(per_hop), _ptrs([p for (p,) in last_hop]), _ints(last_caps),
-        len(last_caps), frontiers.data_ptr(), weights.data_ptr(), B, fsz, n_cap, xa.data_ptr(),
-        xb.data_ptr(), out.data_ptr(), _stream(dev),
+        _ptrs(cptrs), _ptrs(csrcs),
+        (ctypes.c_void_p * max(len(facts), 1))(*[None if d is None else d.data_ptr()
+                                                 for d, _ in facts]),
+        _ints([single for _, single in facts]), _ints(caps),
+        _ints([c.shape[0] for c in csrcs], ctypes.c_longlong), _ints(per_hop), len(per_hop),
+        _ptrs([p for (p,) in last_hop]), _ints(last_caps), len(last_caps), frontiers.data_ptr(),
+        weights.data_ptr(), B, fsz, n_cap, xa.data_ptr(), xb.data_ptr(), bits.data_ptr(), words,
+        out.data_ptr(), _stream(dev),
     )
     _cuda.check(status, "graph_csc_count")
     return out

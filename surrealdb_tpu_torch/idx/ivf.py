@@ -13,18 +13,20 @@ with a wrapper and a plain PyTorch version in this module:
   (the mean of each cluster's rows in row order; an empty cluster keeps
   its centroid);
 - K3 `_ivf_search` probes with K2 over the centroids
-  (ops/distances.py `knn_search`), writes the probed lists' candidate
-  distances with `ivf_gather_distance`, selects with K2's `select_min_k`
-  and maps positions to slots with `ivf_map_slots`.
+  (ops/distances.py `knn_search`), reranks the probed lists' members with
+  `ivf_rerank` (one launch: pair-major, a block a (query, probe), or
+  list-major, each probed list's rows staged once for every query that
+  probes it, the plan's choice) and merges the blocks' picks with
+  parallel/mesh.py's `topk_merge` as one shard: 4 kernels a tile.
 
 A CUDA tensor goes to the kernels (or the wrapper raises); CPU tensors go
 to the plain versions, which the tests hold against the reference and
 chip_smoke.py holds the kernels against. The mesh half
 (`_device_sharded`, `search_batch_sharded`) runs K13 through
 parallel/mesh.py `sharded_ivf_search`: on the card K2's probe once a device
-and one `mesh_ivf_rerank` launch over a device's shards; on the CPU this
-module's plain probe and rerank (`ivf_probe_plain`, `ivf_rerank_plain`)
-once a device and once a shard.
+and one `ivf_rerank` launch over a device's shards (this module's
+`_launch_rerank`); on the CPU this module's plain probe and rerank
+(`ivf_probe_plain`, `ivf_rerank_plain`) once a device and once a shard.
 
 Role of the reference's graph ANN structures (reference:
 core/src/idx/trees/hnsw/mod.rs:337-416 layered beam search) re-designed
@@ -36,6 +38,7 @@ the operator's ef (reference `<|k,ef|>` Ann operator, sql/operator.rs:65).
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -52,9 +55,9 @@ _PROBE_METRICS = {"euclidean", "cosine", "manhattan", "chebyshev"}
 
 ASSIGN = LaunchCounter("ivf_assign")
 KMEANS_UPDATE = LaunchCounter("ivf_kmeans_update")
-GATHER = LaunchCounter("ivf_gather_distance")
-MAP_SLOTS = LaunchCounter("ivf_map_slots")
-KERNELS = (ASSIGN, KMEANS_UPDATE, GATHER, MAP_SLOTS)
+RERANK = LaunchCounter("ivf_rerank")
+KERNELS = (ASSIGN, KMEANS_UPDATE, RERANK)
+RERANK_MODES = ("pair", "list")  # ivf_rerank's modes, by their C code
 
 
 def _start_host_copy(d, r):
@@ -297,51 +300,93 @@ def _ivf_probe(q, cents, probe_metric, nprobe, probe_ok=None):
     return D.knn_search(q, cents, probe_ok, probe_metric, nprobe)[1]
 
 
-def _ivf_rerank(q, probes, list_rows, list_mask, x, slot_ok, metric, k):
+def rerank_plan(lib, n_queries: int, n_shards: int, nprobe: int, lmax: int, kk: int, dim: int,
+                bf16: int, mode=None):
+    """(mode, groups, kkb) of an ivf_rerank launch, sized on the current
+    card: its mode ("pair" or "list"; None lets the plan choose), the
+    ranges a probed list splits into and the picks a range keeps."""
+    out = (ctypes.c_int * 3)()
+    code = -1 if mode is None else RERANK_MODES.index(mode)
+    status = lib.ivf_rerank_plan(n_queries, n_shards, nprobe, lmax, kk, dim, bf16, code, out)
+    if status != 0:
+        raise ValueError(f"ivf_rerank has no {mode!r} plan for {n_queries} queries x {n_shards} "
+                         f"shards x {nprobe} probes of {lmax} positions, k={kk}, D={dim}")
+    return RERANK_MODES[out[0]], int(out[1]), int(out[2])
+
+
+def _launch_rerank(lib, q, probes, x, list_rows, list_mask, slot_ok, metric, plan):
+    """ivf_rerank's checks and launch through `lib` over the S shards of one
+    device held as one tensor each: x [S * cap, D] rows, list_rows /
+    list_mask [S, C, L] (slots local to the shard), slot_ok [S * cap] bool
+    or None (every slot); `plan` from rerank_plan. Returns the blocks'
+    picks (dists [Q, S * P * groups * kkb] f32, local slots int32), in
+    (shard, probe rank, position) order."""
+    from surrealdb_tpu_torch.ops import _cuda
+
+    xp, bf16 = _rows_ptr(x)
+    if q.dtype != torch.float32 or q.dim() != 2 or not q.is_contiguous() \
+            or q.shape[1] != x.shape[1]:
+        raise ValueError("queries must be a contiguous float32 [Q, D] tensor of the rows' width")
+    if probes.dtype != torch.int32 or probes.dim() != 2 or not probes.is_contiguous() \
+            or probes.shape[0] != q.shape[0]:
+        raise ValueError("probes must be a contiguous int32 [Q, nprobe] tensor")
+    if list_rows.dtype != torch.int32 or list_mask.dtype != torch.bool or list_rows.dim() != 3 \
+            or list_mask.shape != list_rows.shape or not (list_rows.is_contiguous()
+                                                          and list_mask.is_contiguous()):
+        raise ValueError("list_rows and list_mask must be contiguous int32 / bool [S, C, L]")
+    n_sh, n_lists, lmax = list_rows.shape
+    if x.shape[0] % n_sh:
+        raise ValueError(f"{x.shape[0]} rows do not split into {n_sh} shards")
+    if slot_ok is not None and (slot_ok.dtype != torch.bool or slot_ok.shape != (x.shape[0],)
+                                or not slot_ok.is_contiguous()):
+        raise ValueError(f"slot_ok must be a contiguous bool [{x.shape[0]}] tensor")
+    mode, groups, kkb = plan
+    code, p = D._metric_code(metric)
+    nq, nprobe = probes.shape
+    width = n_sh * nprobe * groups * kkb
+    out_d = torch.empty((nq, width), dtype=torch.float32, device=x.device)
+    out_i = torch.empty((nq, width), dtype=torch.int32, device=x.device)
+    # the list-major blocks' work ticket (the launch resets it)
+    work = torch.empty(1, dtype=torch.int32, device=x.device) if mode == "list" else None
+    status = lib.ivf_rerank(
+        q.data_ptr(), nq, q.shape[1], code, p, probes.data_ptr(), nprobe, xp, bf16,
+        x.shape[0] // n_sh, list_rows.data_ptr(), list_mask.view(torch.uint8).data_ptr(), n_lists,
+        lmax, None if slot_ok is None else slot_ok.view(torch.uint8).data_ptr(), n_sh,
+        RERANK_MODES.index(mode), groups, kkb, None if work is None else work.data_ptr(),
+        out_d.data_ptr(), out_i.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream if x.device.type == "cuda" else None,
+    )
+    _cuda.check(status, "ivf_rerank")
+    return out_d, out_i
+
+
+def _ivf_rerank(q, probes, list_rows, list_mask, x, slot_ok, metric, k, mode=None):
     """K3's rerank over given probes: the probed lists' members (list_rows
     [C, L] row slots of x, list_mask [C, L]) that are listed and slot_ok,
     by `metric`, top-min(k, nprobe*L) in (distance, position) order, slots
-    -1 where the distance is +inf. On the card `ivf_gather_distance`, K2's
-    selection and `ivf_map_slots` (the single-device path; the mesh's K13
-    reranks every shard of a card in one `mesh_ivf_rerank` launch instead,
-    parallel/mesh.py)."""
+    -1 where the distance is +inf. On the card one `ivf_rerank` launch in
+    the plan's mode (or `mode`, "pair" or "list") and the merge of its
+    picks as one shard (parallel/mesh.py `topk_merge`)."""
     if not _on_card(q, probes, list_rows, list_mask, x, slot_ok):
         return ivf_rerank_plain(q, probes, list_rows, list_mask, x, slot_ok, metric, k)
     from surrealdb_tpu_torch.ops import _cuda
+    from surrealdb_tpu_torch.parallel.mesh import topk_merge
 
-    nlists, lmax = list_rows.shape
-    nprobe = probes.shape[1]
     if list_rows.dtype != torch.int32 or list_mask.dtype != torch.bool or slot_ok.dtype != torch.bool:
         raise TypeError("list_rows must be int32, list_mask and slot_ok bool")
     if list_mask.shape != list_rows.shape or slot_ok.shape != (x.shape[0],):
         raise ValueError("list_mask must match list_rows, slot_ok must be [cap]")
-    if probes.dtype != torch.int32 or not probes.is_contiguous():
-        raise ValueError("probes must be a contiguous int32 [Q, nprobe] tensor")
-    code, p = D._metric_code(metric)
-    xp, bf16 = _rows_ptr(x)
-    nq = q.shape[0]
-    dist = torch.empty((nq, nprobe * lmax), dtype=torch.float32, device=q.device)
+    nq, nprobe = probes.shape
+    lmax = int(list_rows.shape[1])
+    kk = min(k, nprobe * lmax)
     lib = _cuda.lib()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.ivf_gather_distance(
-            q.data_ptr(), xp, bf16, x.shape[0], x.shape[1], code, p, probes.data_ptr(), nq,
-            nprobe, list_rows.data_ptr(), list_mask.view(torch.uint8).data_ptr(), lmax,
-            slot_ok.view(torch.uint8).data_ptr(), dist.data_ptr(), stream,
-        )
-        _cuda.check(status, "ivf_gather_distance")
-    GATHER.bump()
-    kk = min(k, nprobe * lmax)
-    vals, pos = D.select_min_k(dist, kk)  # K2's selection
-    slots = torch.empty((nq, kk), dtype=torch.int32, device=q.device)
-    with torch.cuda.device(q.device):
-        status = lib.ivf_map_slots(
-            probes.data_ptr(), nq, nprobe, list_rows.data_ptr(), lmax, vals.data_ptr(),
-            pos.data_ptr(), kk, slots.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-        _cuda.check(status, "ivf_map_slots")
-    MAP_SLOTS.bump()
-    return vals, slots
+        plan = rerank_plan(lib, nq, 1, nprobe, lmax, kk, int(x.shape[1]),
+                           int(x.dtype == torch.bfloat16), mode)
+        d, i = _launch_rerank(lib, q, probes, x, list_rows[None], list_mask[None], slot_ok,
+                              metric, plan)
+    RERANK.bump()
+    return topk_merge(d, i, int(d.shape[1]), 0, kk, True)
 
 
 # ------------------------------------------------------------ training

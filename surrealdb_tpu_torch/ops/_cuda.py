@@ -64,16 +64,18 @@ _SIGNATURES = {
     "ivf_assign_limb_pitch": (ctypes.c_int, [ctypes.c_int]),
     "ivf_kmeans_update": (ctypes.c_int, [_P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                                          _P, _P, ctypes.c_int, _P, _P, _P]),
-    "ivf_gather_distance": (ctypes.c_int, [_P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_float, _P, ctypes.c_int,
-                                           ctypes.c_int, _P, _P, ctypes.c_int, _P, _P, _P]),
-    "ivf_map_slots": (ctypes.c_int, [_P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
-                                     _P, _P, ctypes.c_int, _P, _P]),
+    "ivf_rerank": (ctypes.c_int, [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                  _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong, _P, _P,
+                                  ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_int, _P, _P, _P, _P]),
+    "ivf_rerank_plan": (ctypes.c_int, [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                       _P]),
     "graph_dense_count": (ctypes.c_int, [_P, _P, ctypes.c_int, _P, _P, _P, ctypes.c_int,
                                          ctypes.c_int, _P, _P, _P, _P]),
-    "graph_csc_count": (ctypes.c_int, [_P, _P, _P, _P, _P, ctypes.c_int, _P, _P, ctypes.c_int,
-                                       _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                       _P, _P, _P, _P]),
+    "graph_csc_count": (ctypes.c_int, [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, _P, _P,
+                                       ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_int, _P, _P, _P, ctypes.c_longlong, _P, _P]),
     "graph_chain": (ctypes.c_int, [_P, _P, _P, _P, _P, _P, ctypes.c_int, _P, _P, _P,
                                    ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
                                    _P, _P]),
@@ -94,13 +96,6 @@ _SIGNATURES = {
                                    ctypes.c_longlong, _P, _P, _P]),
     "mesh_knn_2d_scratch_bytes": (ctypes.c_longlong, [ctypes.c_int, ctypes.c_longlong,
                                                       ctypes.c_int, ctypes.c_int, ctypes.c_int]),
-    "mesh_ivf_rerank": (ctypes.c_int, [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_float, _P, ctypes.c_int, _P, ctypes.c_int,
-                                       ctypes.c_longlong, _P, _P, ctypes.c_int, ctypes.c_int, _P,
-                                       ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P]),
-    "mesh_ivf_rerank_groups": (ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_int,
-                                                   ctypes.c_int]),
-    "mesh_ivf_rerank_picks": (ctypes.c_int, [ctypes.c_int, ctypes.c_int, ctypes.c_int]),
     "mesh_frontier_hop": (ctypes.c_int, [_P, ctypes.c_longlong, _P, ctypes.c_longlong, _P, _P,
                                          ctypes.c_longlong, ctypes.c_int, _P, _P, _P]),
     "mesh_dedup_frontier": (ctypes.c_int, [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,

@@ -29,10 +29,10 @@ PyTorch version here:
   `mesh_topk_merge`; on one card one `mesh_knn_2d` a feature shard over
   all row shards, the last selecting the answer;
 - K13 `sharded_ivf_search`: the probe (the fused K2 over the replicated
-  centroids) once a distinct device, then `mesh_ivf_rerank` once over all
-  the shards a device holds (every probed list's members ranked and
-  selected in one launch, slots mapped), then `mesh_topk_merge` (ids of
-  finite distances only, -1 else);
+  centroids) once a distinct device, then K3's `ivf_rerank` (idx/ivf.py
+  `_launch_rerank`) once over all the shards a device holds (every probed
+  list's members ranked and selected in one launch, slots mapped), then
+  `mesh_topk_merge` (ids of finite distances only, -1 else);
 - K14 `sharded_frontier_hop`: per frontier shard `mesh_frontier_hop`;
 - K15 `dedup_frontier`: `mesh_dedup_frontier`.
 
@@ -62,7 +62,7 @@ from surrealdb_tpu_torch.ops.distances import LaunchCounter
 
 MERGE = LaunchCounter("mesh_topk_merge")  # K11, K12, K13's merge
 KNN2D = LaunchCounter("mesh_knn_2d")  # K12
-RERANK = LaunchCounter("mesh_ivf_rerank")  # K13
+RERANK = LaunchCounter("mesh_ivf_rerank")  # K13: its launches of ivf_rerank
 HOP = LaunchCounter("mesh_frontier_hop")  # K14
 DEDUP = LaunchCounter("mesh_dedup_frontier")  # K15
 KERNELS = (MERGE, KNN2D, RERANK, HOP, DEDUP)
@@ -501,55 +501,6 @@ def sqdist_topk(q, x, acc, mask, kk: int):
     return _knn_2d_cuda(q, x, acc, True, mask, kk)
 
 
-def _launch_ivf_rerank(lib, q, probes, x, list_rows, list_mask, slot_ok, metric, groups, kkb):
-    """mesh_ivf_rerank's checks and launch through `lib` over the S shards
-    of one device held as one tensor each: x [S * cap, D] rows, list_rows /
-    list_mask [S, C, L] (slots local to the shard), slot_ok [S * cap] bool
-    or None (every slot). Returns the blocks' picks (dists [Q, S * P *
-    groups * kkb] f32, local slots int32), in (shard, position) order."""
-    from surrealdb_tpu_torch.idx.ivf import _rows_ptr
-    from surrealdb_tpu_torch.ops import _cuda
-
-    xp, bf16 = _rows_ptr(x)
-    if q.dtype != torch.float32 or q.dim() != 2 or not q.is_contiguous() \
-            or q.shape[1] != x.shape[1]:
-        raise ValueError("queries must be a contiguous float32 [Q, D] tensor of the rows' width")
-    if probes.dtype != torch.int32 or probes.dim() != 2 or not probes.is_contiguous() \
-            or probes.shape[0] != q.shape[0]:
-        raise ValueError("probes must be a contiguous int32 [Q, nprobe] tensor")
-    if list_rows.dtype != torch.int32 or list_mask.dtype != torch.bool or list_rows.dim() != 3 \
-            or list_mask.shape != list_rows.shape or not (list_rows.is_contiguous()
-                                                          and list_mask.is_contiguous()):
-        raise ValueError("list_rows and list_mask must be contiguous int32 / bool [S, C, L]")
-    n_sh, n_lists, lmax = list_rows.shape
-    if x.shape[0] % n_sh:
-        raise ValueError(f"{x.shape[0]} rows do not split into {n_sh} shards")
-    cap = x.shape[0] // n_sh
-    if slot_ok is not None and (slot_ok.dtype != torch.bool or slot_ok.shape != (x.shape[0],)
-                                or not slot_ok.is_contiguous()):
-        raise ValueError(f"slot_ok must be a contiguous bool [{x.shape[0]}] tensor")
-    code, p = D._metric_code(metric)
-    nq, nprobe = probes.shape
-    width = n_sh * nprobe * groups * kkb
-    out_d = torch.empty((nq, width), dtype=torch.float32, device=x.device)
-    out_i = torch.empty((nq, width), dtype=torch.int32, device=x.device)
-    status = lib.mesh_ivf_rerank(
-        q.data_ptr(), nq, q.shape[1], code, p, probes.data_ptr(), nprobe, xp, bf16, cap,
-        list_rows.data_ptr(), list_mask.view(torch.uint8).data_ptr(), n_lists, lmax,
-        None if slot_ok is None else slot_ok.view(torch.uint8).data_ptr(), n_sh, groups, kkb,
-        out_d.data_ptr(), out_i.data_ptr(), _stream(x.device),
-    )
-    _cuda.check(status, "mesh_ivf_rerank")
-    return out_d, out_i
-
-
-def rerank_plan(lib, n_queries: int, n_shards: int, nprobe: int, lmax: int, kk: int):
-    """(groups, kkb) of a K13 launch: the ranges a probed list splits into
-    and the picks a block keeps (sized on the current card)."""
-    groups = int(lib.mesh_ivf_rerank_groups(n_queries * n_shards * nprobe, lmax, kk))
-    return groups, int(lib.mesh_ivf_rerank_picks(lmax, groups, kk))
-
-
 def _check_i32(t, what):
     if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
         raise ValueError(f"{what} must be a contiguous 1-d int32 tensor, got "
@@ -753,9 +704,10 @@ def _ivf_search_shards(mesh, cents, list_rows, list_mask, corpus, slot_ok, queri
 
 def _ivf_search_cuda(mesh, cents, list_rows, list_mask, corpus, slot_ok, queries, kk, k_out,
                      nprobe, metric, probe_metric, axis, probe_ok):
-    """K13 on the card: the probe once a distinct device, `mesh_ivf_rerank`
+    """K13 on the card: the probe once a distinct device, K3's `ivf_rerank`
     once a launch group (all the shards on one card, else a shard), then
     the merge of the finite picks. `probe_ok` caches the probe's all-true mask a (device, C)."""
+    from surrealdb_tpu_torch.idx import ivf as IVF
     from surrealdb_tpu_torch.ops import _cuda
 
     lib = _cuda.lib()
@@ -764,7 +716,9 @@ def _ivf_search_cuda(mesh, cents, list_rows, list_mask, corpus, slot_ok, queries
     n_lists, lmax = int(list_rows.shape[1]), int(list_rows.shape[2])
     dev0 = mesh.merge_device
     with _on(dev0):
-        groups, kkb = rerank_plan(lib, int(queries.shape[0]), n_dev, nprobe, lmax, kk)
+        plan = IVF.rerank_plan(lib, int(queries.shape[0]), n_dev, nprobe, lmax, kk,
+                               int(corpus.shape[1]), int(corpus.dtype == torch.bfloat16))
+    groups, kkb = plan[1:]
     probes = {}
     d_parts, i_parts = [], []
     for q, c, x, lrows, lmask, ok in _launch_groups(
@@ -776,8 +730,10 @@ def _ivf_search_cuda(mesh, cents, list_rows, list_mask, corpus, slot_ok, queries
                 probe_ok[key] = torch.ones(n_lists, dtype=torch.bool, device=dev)
             probes[dev] = D.knn_search(q, c, probe_ok[key], probe_metric, nprobe)[1]
         with _on(dev):
-            d, i = _launch_ivf_rerank(lib, q, probes[dev], x, lrows.reshape(-1, n_lists, lmax),
-                                      lmask.reshape(-1, n_lists, lmax), ok, metric, groups, kkb)
+            # every launch group takes the plan made for all the shards
+            # (valid for fewer), so the merge reads one layout
+            d, i = IVF._launch_rerank(lib, q, probes[dev], x, lrows.reshape(-1, n_lists, lmax),
+                                      lmask.reshape(-1, n_lists, lmax), ok, metric, plan)
         RERANK.bump()
         d_parts.append(d)
         i_parts.append(i)

@@ -167,6 +167,56 @@ def test_chain_count_batch_narrow_first_hop_matches_reference():
     assert bool((got > 0).any())
 
 
+def _edge_table_csrs(rng, persons, edges, second_source):
+    """person -> edge record -> person as an edge table lays it out in one
+    node space (persons first, then the records): the person->record CSR,
+    in which every record has one source (or, with second_source, one
+    record two), and the record->person CSR."""
+    pairs = rng.integers(0, persons, (edges, 2))
+    n_cap = 1 << (persons + edges - 1).bit_length()
+    src, dst = pairs[:, 0], np.arange(persons, persons + edges)
+    if second_source:  # person 3 also points at record 0
+        src, dst = np.append(src, 3), np.append(dst, persons)
+
+    def csr(a, b):
+        order = np.argsort(a, kind="stable")
+        indptr = np.zeros(n_cap + 1, dtype=np.int64)
+        np.add.at(indptr, a + 1, 1)
+        indices = np.zeros(1 << (len(a) - 1).bit_length(), dtype=np.int32)
+        indices[: len(a)] = b[order]
+        return np.cumsum(indptr).astype(np.int32), indices
+
+    return csr(src, dst), csr(np.arange(persons, persons + edges), pairs[:, 1]), n_cap
+
+
+@pytest.mark.parametrize("second_source", [False, True], ids=["one-source", "two-sources"])
+def test_chain_count_batch_edge_table_chain_matches_reference(second_source):
+    """person->edge->person->edge->person (four CSC hops, then the degree
+    over person->edge) where every edge record has one source, so the port
+    fuses each (->edge, edge->person) pair on the card, and where one
+    record has two (the pairs run hop by hop); the plain versions here,
+    against the reference's chain_count_batch."""
+    rng = np.random.default_rng(31 + second_source)
+    (pk_ptr, pk_idx), (kp_ptr, kp_idx), n_cap = _edge_table_csrs(rng, 40, 300, second_source)
+    pk_r, pk_p = _both(P.csc_arrays(pk_ptr, pk_idx))
+    kp_r, kp_p = _both(P.csc_arrays(kp_ptr, kp_idx))
+    (last_r,), (last_p,) = _both([pk_ptr])
+    seeds = [_frontier(rng, 40, 8, n_cap, 3) for _ in range(32)]
+    fr = np.stack([s[0] for s in seeds])
+    w = np.stack([s[1] for s in seeds])
+    fr[0, 0], w[0, 0] = 3, 2  # person 3, the second source's, seeded
+    want = _ref_kernel("chain_count_batch")(
+        ((pk_r,), (kp_r,), (pk_r,), (kp_r,)), ((last_r,),), jnp.asarray(fr), jnp.asarray(w),
+        n_cap=n_cap,
+    )
+    got = P.chain_count_batch(((pk_p,), (kp_p,), (pk_p,), (kp_p,)), ((last_p,),),
+                              torch.from_numpy(fr), torch.from_numpy(w), n_cap)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert bool((got > 0).any())
+    assert P.csc_facts(*pk_p)[1] is (not second_source)
+
+
 @pytest.mark.parametrize("lanes", [8, 32])
 @pytest.mark.parametrize("products", [0, 1, 2])
 def test_dense_count_batch_matches_reference(products, lanes):

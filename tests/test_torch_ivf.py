@@ -269,6 +269,34 @@ def test_ivf_search_matches_reference(trained, metric, nq):
     _assert_topk_match(rd, ri, gd, gi)
 
 
+@pytest.mark.parametrize("k", [10, 200])
+def test_ivf_search_queries_sharing_probed_lists_match_reference(trained, k):
+    """A tile of 24 queries near three rows, so most probed lists are
+    probed by several queries (the shape on which the port's rerank scores
+    a list once for all its queries), a third of the slots masked."""
+    x, ref, got = trained
+    rng = np.random.default_rng(k)
+    qs = x[np.repeat([7, 500, 1500], 8)] + rng.standard_normal((24, 16)).astype(np.float32)
+    slot_ok = rng.random(3000) > 0.33
+    (rd, ri), (gd, gi) = _search_both(x, ref, got, qs, "euclidean", k, 6, slot_ok)
+    probes = P.ivf_probe_plain(_t(qs), got._device("cpu")[0], "euclidean", 6).numpy()
+    assert len(np.unique(probes)) < probes.size // 2  # lists shared across queries
+    rd, ri = np.asarray(rd), np.asarray(ri)
+    miss = ~np.isfinite(rd)
+    np.testing.assert_array_equal(~np.isfinite(gd), miss)
+    np.testing.assert_array_equal(gi[miss], ri[miss])
+    np.testing.assert_allclose(gd[~miss], rd[~miss], rtol=TIE, atol=TIE)
+    # an id out of place ties (within TIE) with the reference's pick there:
+    # two equal distances summed in another order may swap anywhere in k = 200
+    for r, j in zip(*np.nonzero(gi != ri)):
+        same = np.nonzero(ri[r] == gi[r, j])[0]
+        near = abs(float(gd[r, j]) - float(rd[r, j])) <= TIE * max(1.0, abs(float(rd[r, j])))
+        tied = same.size and abs(float(rd[r, same[0]]) - float(gd[r, j])) <= TIE * max(
+            1.0, abs(float(gd[r, j])))
+        assert near and (tied or abs(float(rd[r, -1]) - float(gd[r, j])) <= TIE * max(
+            1.0, abs(float(gd[r, j])))), (r, j)
+
+
 def test_ivf_search_k_above_the_candidates_returns_misses(trained):
     x, ref, got = trained
     lmax = int(ref._device()[1].shape[1])

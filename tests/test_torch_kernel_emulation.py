@@ -1,7 +1,10 @@
-"""The CUDA kernels' logic (surrealdb_tpu_torch/csrc/knn.cu, ivf.cu,
-graph.cu, bm25.cu, ml.cu and mesh.cu, with the headers they include), run on
-the CPU under the emulation header csrc/emu/cuda_emu.h and held against the
-plain PyTorch versions.
+"""The CUDA kernels' logic (surrealdb_tpu_torch/csrc/knn.cu, graph.cu,
+bm25.cu, ml.cu and mesh.cu, with the headers they include, and ivf.cu's
+rerank as K13 shares it), run on the CPU under the emulation header
+csrc/emu/cuda_emu.h and held against the plain PyTorch versions. The IVF
+and graph kernels K3-K7 have their cases in
+tests/test_torch_kernel_emulation_ivf_graph.py, which builds its library
+with this file's `_build_emu`.
 
 The source is compiled with the host C++ compiler: CUDA qualifiers become
 no-ops, `__shared__` arrays become function statics (blocks run one after
@@ -11,24 +14,20 @@ masking at small shapes — not speed, and not what only the card can show
 (it builds, launches and agrees there: chip_smoke.py). Skipped where there
 is no C++20 compiler.
 
-Tolerances: K1 and the IVF rerank distances rtol 1e-5, atol 1e-4 (f32 sums
-in another order); K2's select exact, since both sides select from the
-same distances; the fused K2 exact against K1's distances selected in the
-plain order (one distance core), and within K1's tolerance of the plain
-search, ids equal up to ties at the k-th distance; the K5 assignment's ids
-exact except where two centroids' distances
-tie within that tolerance; the K4 update's counts exact and its centroids
-bit-equal to the CPU's index_add_, which adds in row order as the kernel
-must; the slot mapping exact; the graph kernels (K6-K8) exact: integer
-counts, node ids and their order; BM25 (K9) rtol 1e-5, atol 1e-6 (both
-sides round the same f32 steps in the same order, only log1pf may differ),
-tied rows bit-identical, and its top-k order exact; the ML forward (K10)
-rtol 1e-5, atol 1e-5 (f32 sums in another order), softmax outputs atol
-1e-6; the mesh kernels: the merge, the frontier hop and the dedup exact
-(ids, order, masks, the index rules), K12's partial and selected
-distances rtol 1e-5, atol 1e-4 (f32 sums in another order) with ids equal
-up to ties at the kk-th, K13's rerank the same against K3's plain rerank
-a shard (misses exact; on equal rows, ids and order exact).
+Tolerances: K1 distances rtol 1e-5, atol 1e-4 (f32 sums in another order);
+K2's select exact, since both sides select from the same distances; the
+fused K2 exact against K1's distances selected in the plain order (one
+distance core), and within K1's tolerance of the plain search, ids equal
+up to ties at the k-th distance; the dense graph count (K8) exact: integer
+counts; BM25 (K9) rtol 1e-5, atol 1e-6 (both sides round the same f32
+steps in the same order, only log1pf may differ), tied rows bit-identical,
+and its top-k order exact; the ML forward (K10) rtol 1e-5, atol 1e-5 (f32
+sums in another order), softmax outputs atol 1e-6; the mesh kernels: the
+merge, the frontier hop and the dedup exact (ids, order, masks, the index
+rules), K12's partial and selected distances rtol 1e-5, atol 1e-4 (f32
+sums in another order) with ids equal up to ties at the kk-th, K13's
+rerank the same against K3's plain rerank a shard (misses exact; on equal
+rows, ids and order exact).
 """
 
 import ctypes
@@ -450,330 +449,7 @@ def test_k2_planted_fault_fails_the_comparison(tmp_path, fault):
     assert any(failed)
 
 
-# ------------------------------------------------------------------ IVF
-
-
-def _assign(lib, x, cents, k, idx=None):
-    return IVF._launch_assign(lib, x, cents, k, idx)
-
-
-def _ties_broken(got, want, d):
-    """(row, slot, d[got], d[want]) wherever the ids differ and the two
-    picks' distances do not tie within the tolerance (f32 sums in another
-    order); a non-finite distance never ties."""
-    got2, want2 = got.reshape(len(d), -1).long(), want.reshape(len(d), -1).long()
-    out = []
-    for r, c in (got2 != want2).nonzero().tolist():
-        a, b = float(d[r, got2[r, c]]), float(d[r, want2[r, c]])
-        if not abs(a - b) <= 1e-4 + 1e-5 * abs(b):
-            out.append((r, c, a, b))
-    return out
-
-
-def _assert_ids_up_to_ties(got, want, d):
-    """Ids equal, except where the two picks' distances tie within the
-    tolerance."""
-    assert not _ties_broken(got, want, d)
-
-
-@pytest.mark.parametrize("gather", [False, True], ids=["rows", "index"])
-@pytest.mark.parametrize("k", [1, 2])
-@pytest.mark.parametrize("corpus", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_k5_assign_matches_plain(lib, corpus, k, gather):
-    rng = np.random.default_rng(40 + k)
-    cents = torch.from_numpy(rng.standard_normal((70, 40)).astype(np.float32))
-    cents[40] = cents[5]  # exact ties: the lower index wins
-    cents[60] = cents[3]
-    x = torch.from_numpy(rng.standard_normal((150, 40)).astype(np.float32))
-    x[:20] = cents[[5, 3] * 10] + 0.01 * x[:20]
-    x = x.to(corpus)
-    idx = None
-    if gather:  # out-of-range indices are clipped, as the reference clips
-        idx = torch.from_numpy(rng.integers(-5, 160, size=130).astype(np.int32))
-    got = _assign(lib, x, cents, k, idx)
-    want = IVF.assign_plain(x, cents, k, idx=idx)
-    rows = x if idx is None else x[idx.long().clamp(0, x.shape[0] - 1)]
-    d = D.pairwise_distance_plain(rows, cents, "euclidean")
-    _assert_ids_up_to_ties(got, want, d)
-    near = slice(0, 20) if idx is None else (idx.clamp(0, 149) < 20).nonzero()[:, 0]
-    assert set(got.reshape(len(rows), -1)[near, 0].tolist()) <= {3, 5}
-
-
-def _assign_case(rng, n, C, D, dtype):
-    """Rows near centroids 3 and 5 (ties within the tolerance), two pairs of
-    equal centroids (exact ties: the lower index wins), the rest random."""
-    cents = torch.from_numpy(rng.standard_normal((C, D)).astype(np.float32))
-    cents[C - 10] = cents[5]
-    cents[C - 3] = cents[3]
-    x = torch.from_numpy(rng.standard_normal((n, D)).astype(np.float32))
-    x[:20] = cents[[5, 3] * 10] + 0.01 * x[:20]
-    return x.to(dtype), cents
-
-
-@pytest.mark.parametrize("gather", [False, True], ids=["rows", "index"])
-@pytest.mark.parametrize("k", [1, 2])
-@pytest.mark.parametrize("C", [70, 300])
-@pytest.mark.parametrize("dim", [20, 40, 768])
-def test_k5_bf16_shapes_match_plain(lib, dim, C, k, gather):
-    """The tensor-core path: D not a multiple of 8 (plain-load staging), of
-    16 (a zero-padded limb plane) and the main path's 768; C within one
-    centroid tile and over three, the last partial; rows past a block."""
-    rng = np.random.default_rng(dim + C + k)
-    x, cents = _assign_case(rng, 150, C, dim, torch.bfloat16)
-    idx = None
-    if gather:  # out-of-range indices are clipped, as the reference clips
-        idx = torch.from_numpy(rng.integers(-5, 160, size=140).astype(np.int32))
-    got = _assign(lib, x, cents, k, idx)
-    want = IVF.assign_plain(x, cents, k, idx=idx)
-    rows = x if idx is None else x[idx.long().clamp(0, x.shape[0] - 1)]
-    _assert_ids_up_to_ties(got, want, D.pairwise_distance_plain(rows, cents, "euclidean"))
-    near = slice(0, 20) if idx is None else (idx.clamp(0, 149) < 20).nonzero()[:, 0]
-    assert set(got.reshape(len(rows), -1)[near, 0].tolist()) <= {3, 5}
-
-
-@pytest.mark.parametrize("gather", [False, True], ids=["rows", "index"])
-@pytest.mark.parametrize("k", [1, 2])
-@pytest.mark.parametrize("corpus", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_k5_inf_and_nan_rows_match_plain(lib, corpus, k, gather):
-    """A row holding +inf, one holding -inf and one holding NaN get the ids
-    f32 gives (a NaN distance first, in index order), also where a zero
-    limb meets the inf; the finite rows beside them are unchanged."""
-    rng = np.random.default_rng(60 + k)
-    x, cents = _assign_case(rng, 150, 70, 40, torch.float32)
-    cents[:, 7] = torch.from_numpy(rng.integers(-2, 3, 70).astype(np.float32))  # limbs 1, 2 zero
-    x[30, 7] = float("inf")
-    x[31, 2] = float("-inf")
-    x[32, 11] = float("nan")
-    x = x.to(corpus)
-    idx = torch.tensor([30, 31, 32, 0, 1, 40, 33], dtype=torch.int32) if gather else None
-    got = _assign(lib, x, cents, k, idx)
-    want = IVF.assign_plain(x, cents, k, idx=idx)
-    bad = [0, 1, 2] if gather else [30, 31, 32]
-    assert torch.equal(got[bad], want[bad])
-    rows = x if idx is None else x[idx.long()]
-    fine = [i for i in range(len(rows)) if i not in bad]
-    _assert_ids_up_to_ties(got[fine], want[fine],
-                           D.pairwise_distance_plain(rows[fine], cents, "euclidean"))
-
-
-def _lower_limb_case(rng, groups, dim):
-    """bf16 rows whose nearest f32 centroid is told from the next one only
-    by limb 1 (even groups) or only by limb 2 (odd groups) of the kernel's
-    truncating split: a group's centroids are `far` (index 2g) and `near`
-    (2g + 1) = far + a value below far's last kept bit, and its row lies 1
-    above both in every column, so near is nearer. A product without limb
-    1 or limb 2 sees near as far, or farther, and ranks far first."""
-    v = 4 + rng.integers(0, 64, (groups, dim)) / 16  # bf16 values: limbs 1, 2 zero
-    r1 = (1 + rng.integers(0, 128, (groups, dim)) / 128) / 64  # below v's last bit, 2^-5
-    r2 = rng.integers(128, 256, (groups, dim)) / 2 ** 21  # below r1's last bit, 2^-13
-    odd = (np.arange(groups) % 2 == 1)[:, None]
-    far = v + np.where(odd, r1, 0)
-    near = far + np.where(odd, r2, r1)
-    cents = np.stack([far, near], 1).reshape(2 * groups, dim).astype(np.float32)
-    return torch.from_numpy((v + 1).astype(np.float32)), torch.from_numpy(cents)
-
-
-@pytest.mark.parametrize("gather", [False, True], ids=["rows", "index"])
-@pytest.mark.parametrize("k", [1, 2])
-@pytest.mark.parametrize("dim", [40, 768])
-def test_k5_lower_limbs_decide_match_plain(lib, dim, k, gather):
-    """Centroids off the bf16 grid, where limb 1 or limb 2 alone decides
-    the nearest: the ids are the plain version's up to ties, and near wins
-    in every group (the case's gaps are far above the tolerance)."""
-    rng = np.random.default_rng(dim + k)
-    x, cents = _lower_limb_case(rng, 12, dim)
-    x = x.to(torch.bfloat16)
-    idx = torch.from_numpy(rng.permutation(12).astype(np.int32)) if gather else None
-    got = _assign(lib, x, cents, k, idx)
-    rows = x if idx is None else x[idx.long()]
-    want = IVF.assign_plain(rows, cents, k)
-    _assert_ids_up_to_ties(got, want, D.pairwise_distance_plain(rows, cents, "euclidean"))
-    owner = torch.arange(12) if idx is None else idx.long()
-    assert torch.equal(got.reshape(12, -1)[:, 0].long(), 2 * owner + 1)
-
-
-_K5_FAULTS = {
-    # the largest limb's pass left out of the product
-    "dropped_limb0": ("for (int l = hi ? 1 : 0; l < 2; ++l) {",
-                      "for (int l = hi ? 2 : 0; l < 2; ++l) {"),
-    # a single bf16 pass: limbs 1 and 2 left out
-    "dropped_limbs_1_2": ("for (int l = hi ? 1 : 0; l < 2; ++l) {",
-                          "for (int l = hi ? 1 : 2; l < 2; ++l) {"),
-    # two passes: limb 2 left out
-    "dropped_limb2": ("for (int l = hi ? 1 : 0; l < 2; ++l) {",
-                      "for (int l = hi ? 1 : 1; l < 2; ++l) {"),
-    # limb plane 2 staged from plane 1's place
-    "limb_plane2_misplaced": ("const int pl = hi ? 0 : 2 - l;", "const int pl = hi ? 0 : 1;"),
-    # a non-finite tensor-core product kept, its row not recomputed as f32 gives it
-    "no_fma_recompute": ("if (!finite_f(dot)) bad[r] = 1;", ""),
-    # the column warps' best-2 not merged: the first warp's stands
-    "unmerged_column_warps": ("for (int w = 1; w < 4; ++w) {", "for (int w = 1; w < 1; ++w) {"),
-}
-
-
-@pytest.mark.parametrize("fault", sorted(_K5_FAULTS))
-def test_k5_planted_fault_fails_the_comparison(tmp_path, fault):
-    """The comparisons above have teeth: a copy of ivf.cu with one fault
-    planted fails the comparison with the plain version (ids up to ties),
-    on random rows, a row holding inf and the lower-limb groups."""
-    src = _source("ivf.cu")
-    old, new = _K5_FAULTS[fault]
-    assert src.count(old) == 1
-    bad = _build_emu(tmp_path, {"ivf.cu": src.replace(old, new)})
-    rng = np.random.default_rng(61)
-    x, cents = _assign_case(rng, 150, 300, 40, torch.float32)
-    cents[:, 7] = torch.from_numpy(rng.integers(-2, 3, 300).astype(np.float32))
-    x[30, 7] = float("inf")
-    lx, lc = _lower_limb_case(rng, 12, 40)
-    x, cents = torch.cat([x, lx]).to(torch.bfloat16), torch.cat([cents, lc])
-    want = IVF.assign_plain(x, cents, 2)
-    assert _ties_broken(_assign(bad, x, cents, 2), want,
-                        D.pairwise_distance_plain(x, cents, "euclidean"))
-
-
-@pytest.mark.parametrize("skewed", [False, True], ids=["uniform", "skewed"])
-@pytest.mark.parametrize("corpus", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_k4_update_matches_plain(lib, corpus, skewed):
-    rng = np.random.default_rng(9)
-    n = 5001  # three compaction rounds, the last one short
-    xs = torch.from_numpy(rng.standard_normal((n, 24)).astype(np.float32)).to(corpus)
-    c = torch.from_numpy(rng.standard_normal((20, 24)).astype(np.float32))
-    a = rng.integers(0, 20, size=n).astype(np.int32)
-    if skewed:  # one centroid takes most rows: a whole round in one list
-        a[rng.random(n) < 0.9] = 3
-    a[a == 7] = 8  # centroid 7 stays empty and keeps its value
-    assign = torch.from_numpy(a)
-    new = torch.empty_like(c)
-    counts = torch.empty(20, dtype=torch.int32)
-    status = lib.ivf_kmeans_update(
-        xs.data_ptr(), int(corpus == torch.bfloat16), n, 24, assign.data_ptr(),
-        c.data_ptr(), 20, new.data_ptr(), counts.data_ptr(), None,
-    )
-    assert status == 0
-    want, want_counts = IVF.kmeans_update_plain(xs, assign, c)
-    assert torch.equal(counts, want_counts) and int(counts[7]) == 0
-    assert torch.equal(new[7], c[7])
-    torch.testing.assert_close(new, want, rtol=1e-5, atol=1e-4)
-    # the sums run in row order, as the CPU's index_add_ adds: bit-equal
-    assert torch.equal(new, want)
-
-
-def _ivf_case(rng, corpus, metric):
-    cap, dim, nlists, lmax = 300, 24, 10, 32
-    x = rng.standard_normal((cap, dim)).astype(np.float32)
-    if metric == "jaccard":
-        x = np.abs(x)
-    lens = rng.integers(5, lmax + 1, size=nlists)
-    lens[0] = lmax
-    list_rows = np.zeros((nlists, lmax), dtype=np.int32)
-    list_mask = np.zeros((nlists, lmax), dtype=bool)
-    for i, n in enumerate(lens):
-        list_rows[i, :n] = rng.choice(cap, size=n, replace=False)
-        list_mask[i, :n] = True
-    slot_ok = rng.random(cap) > 0.3
-    return (torch.from_numpy(x).to(corpus), torch.from_numpy(list_rows),
-            torch.from_numpy(list_mask), torch.from_numpy(slot_ok))
-
-
-def _gather(lib, q, x, probes, list_rows, list_mask, slot_ok, metric):
-    code, p = D._metric_code(metric)
-    nq, nprobe = probes.shape
-    lmax = list_rows.shape[1]
-    out = torch.empty((nq, nprobe * lmax))
-    status = lib.ivf_gather_distance(
-        q.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16), x.shape[0], x.shape[1],
-        code, p, probes.data_ptr(), nq, nprobe, list_rows.data_ptr(),
-        list_mask.view(torch.uint8).data_ptr(), lmax, slot_ok.view(torch.uint8).data_ptr(),
-        out.data_ptr(), None,
-    )
-    assert status == 0
-    return out
-
-
-@pytest.mark.parametrize("corpus", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("metric", list(D.METRICS) + ["minkowski:3"])
-def test_k3_gather_distance_matches_plain(lib, metric, corpus):
-    rng = np.random.default_rng(len(metric))
-    x, list_rows, list_mask, slot_ok = _ivf_case(rng, corpus, metric)
-    q = torch.from_numpy(rng.standard_normal((3, x.shape[1])).astype(np.float32))
-    if metric == "jaccard":
-        q = q.abs()
-    probes = torch.tensor([[0, 3, 7, 1], [2, 9, 0, 5], [4, 6, 8, 3]], dtype=torch.int32)
-    got = _gather(lib, q, x, probes, list_rows, list_mask, slot_ok, metric)
-    lmax = list_rows.shape[1]
-    rows = list_rows[probes.long()].reshape(3, -1).long()
-    ok = list_mask[probes.long()].reshape(3, -1) & slot_ok[rows]
-    for i in range(3):
-        want = D.pairwise_distance_plain(q[i : i + 1], x[rows[i]], metric)[0]
-        want = torch.where(ok[i], want, torch.full_like(want, float("inf")))
-        torch.testing.assert_close(got[i], want, rtol=1e-5, atol=1e-4, msg=metric)
-    assert got.shape == (3, 4 * lmax)
-
-
-def test_k3_map_slots_maps_positions_and_misses(lib):
-    list_rows = torch.arange(40, dtype=torch.int32).reshape(5, 8) * 3
-    probes = torch.tensor([[4, 1], [0, 2]], dtype=torch.int32)
-    sel_d = torch.tensor([[0.5, 1.0, float("inf")], [0.1, float("inf"), float("inf")]])
-    sel_i = torch.tensor([[3, 9, 15], [8, 0, 1]], dtype=torch.int32)
-    out = torch.empty((2, 3), dtype=torch.int32)
-    status = lib.ivf_map_slots(probes.data_ptr(), 2, 2, list_rows.data_ptr(), 8,
-                               sel_d.data_ptr(), sel_i.data_ptr(), 3, out.data_ptr(), None)
-    assert status == 0
-    want = torch.tensor([[list_rows[4, 3], list_rows[1, 1], -1], [list_rows[2, 0], -1, -1]],
-                        dtype=torch.int32)
-    assert torch.equal(out, want)
-
-
-@pytest.mark.parametrize("k", [3, 200])
-@pytest.mark.parametrize("metric", ["euclidean", "cosine", "pearson"])
-def test_k3_composed_search_matches_plain(lib, metric, k):
-    """The CUDA composition of _ivf_search (K2 probe, gather, K2 select,
-    slot mapping) under emulation against the plain version; k = 200 is
-    above the 4 x 32 candidates."""
-    rng = np.random.default_rng(5)
-    x, list_rows, list_mask, slot_ok = _ivf_case(rng, torch.float32, metric)
-    cents = torch.from_numpy(rng.standard_normal((10, x.shape[1])).astype(np.float32))
-    q = torch.from_numpy(rng.standard_normal((4, x.shape[1])).astype(np.float32))
-    probe_metric = metric if metric in IVF._PROBE_METRICS else "euclidean"
-    nprobe, lmax = 4, list_rows.shape[1]
-    dc = _pairwise(lib, q, cents, probe_metric)
-    _, probes, _ = _select(lib, dc, torch.ones(10, dtype=torch.bool), nprobe)
-    dist = _gather(lib, q, x, probes, list_rows, list_mask, slot_ok, metric)
-    kk = min(k, nprobe * lmax)
-    vals, pos, _ = _select(lib, dist, torch.ones(nprobe * lmax, dtype=torch.bool), kk)
-    slots = torch.empty((4, kk), dtype=torch.int32)
-    assert lib.ivf_map_slots(probes.data_ptr(), 4, nprobe, list_rows.data_ptr(), lmax,
-                             vals.data_ptr(), pos.data_ptr(), kk, slots.data_ptr(), None) == 0
-    want_d, want_i = IVF.ivf_search_plain(q, cents, list_rows, list_mask, x, slot_ok, metric,
-                                          probe_metric, k, nprobe)
-    miss = torch.isinf(want_d)
-    assert torch.equal(torch.isinf(vals), miss) and torch.equal(slots[miss], want_i[miss])
-    torch.testing.assert_close(vals[~miss], want_d[~miss], rtol=1e-5, atol=1e-4)
-    for r in range(4):
-        kth = float(want_d[r][~miss[r]].max())
-        for c in (slots[r] != want_i[r]).nonzero()[:, 0].tolist():
-            assert abs(float(vals[r, c]) - kth) <= 1e-4 + 1e-5 * abs(kth)
-
-
 # ------------------------------------------------------------------ graph
-
-
-def _csr(rng, n_nodes, cap, n_edges):
-    """A pow2-padded CSR over node ids < n_nodes (cap >= n_nodes): random
-    edges, some parallel, node 1 isolated, as PointerCsr.ensure_arrays lays
-    it out; returns (indptr, indices, pow2 max degree)."""
-    src = rng.integers(0, n_nodes, n_edges)
-    dst = rng.integers(0, n_nodes, n_edges)
-    src[:6], dst[:6] = src[0], dst[0]
-    src[src == 1] = 2
-    order = np.argsort(src, kind="stable")
-    indptr = np.zeros(cap + 1, dtype=np.int64)
-    np.add.at(indptr, src + 1, 1)
-    md = 1 << max(int(indptr.max()) - 1, 0).bit_length()
-    indptr = np.cumsum(indptr).astype(np.int32)
-    indices = np.zeros(1 << max(n_edges - 1, 0).bit_length(), dtype=np.int32)
-    indices[:n_edges] = dst[order]
-    return torch.from_numpy(indptr), torch.from_numpy(indices), md
 
 
 def _frontier(rng, n, width, fill, k):
@@ -784,103 +460,6 @@ def _frontier(rng, n, width, fill, k):
     w[:k] = rng.integers(0, 4, k)
     fr[k // 2] = -3  # clipped to node 0
     return torch.from_numpy(fr), torch.from_numpy(w)
-
-
-def _chain_cases():
-    # (label, n_nodes, n_cap, mirror caps per hop, out_sizes, frontier width)
-    return [
-        ("one hop, one mirror", 150, 256, [[256]], [256], 64),
-        ("two hops, two mirrors", 150, 256, [[256], [256, 256]], [256, 128], 64),
-        ("truncated at out_size", 150, 256, [[256], [256]], [256, 8], 64),
-        ("mirror cap below n_cap", 200, 256, [[128], [256]], [256, 256], 32),
-        ("several compaction blocks", 5000, 8192, [[8192], [8192]], [8192, 8192], 1024),
-    ]
-
-
-@pytest.mark.parametrize("count_only", [False, True], ids=["expand", "count"])
-@pytest.mark.parametrize("case", _chain_cases(), ids=lambda c: c[0])
-def test_k6_chain_matches_plain_exactly(lib, case, count_only):
-    label, n_nodes, n_cap, caps, outs, width = case
-    rng = np.random.default_rng(len(label))
-    hops, mds = [], []
-    for hop_caps in caps:
-        ms = [_csr(rng, min(n_nodes, cap), cap, 6 * n_nodes) for cap in hop_caps]
-        hops.append(tuple((p, i) for p, i, _ in ms))
-        mds.append(tuple(md for _, _, md in ms))
-    fr, w = _frontier(rng, n_nodes, width, n_cap, width // 2)
-    fr[-1], w[-1] = n_cap - 1, 5  # past every mirror's nodes
-    args = (tuple(hops), fr, w, tuple(mds), n_cap, tuple(outs), count_only)
-    got, want = G._launch_chain(lib, *args), G.chain_plain(*args)
-    if count_only:
-        assert got.dtype == want.dtype == torch.int32 and int(got) == int(want) > 0
-        return
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    live = want[1] > 0
-    nodes = want[0][live]
-    assert nodes.numel() and bool((nodes[1:] > nodes[:-1]).all())  # ascending ids
-    if label.startswith("truncated"):
-        assert bool(live.all())  # more nodes were present than out_size keeps
-
-
-def _csc_hop(rng, n_nodes, cap, n_edges):
-    p, i, _ = _csr(rng, n_nodes, cap, n_edges)
-    return tuple(torch.from_numpy(a) for a in G.csc_arrays(p.numpy(), i.numpy())), p
-
-
-@pytest.mark.parametrize("lanes", [1, 32, 40, 64])
-@pytest.mark.parametrize("hops", [0, 1, 3])
-def test_k7_csc_count_matches_plain_exactly(lib, hops, lanes):
-    rng = np.random.default_rng(hops * 100 + lanes)
-    n_nodes, n_cap = 180, 256
-    csc, ptrs = [], []
-    for _ in range(hops + 1):
-        (cptr, csrc), ptr = _csc_hop(rng, n_nodes, n_cap, 900)
-        csc.append(((cptr, csrc),))
-        ptrs.append(ptr)
-    if hops:  # a hop of two mirrors
-        csc[0] = csc[0] + (_csc_hop(rng, n_nodes, n_cap, 500)[0],)
-    frs, cws = zip(*[_frontier(rng, n_nodes, 16, n_cap, 3) for _ in range(lanes)])
-    fr, w = torch.stack(frs), torch.stack(cws)
-    w[-1] = 0  # an empty lane
-    args = (tuple(csc[:hops]), ((ptrs[-1],),), fr, w, n_cap)
-    got, want = G._launch_csc_count(lib, *args), G.chain_count_batch_plain(*args)
-    assert got.dtype == torch.int32 and torch.equal(got, want)
-    assert int(got[-1]) == 0 and (lanes == 1 or bool((got[:-1] > 0).any()))
-
-
-def test_k7_narrow_hop_matches_plain(lib):
-    """A first hop whose mirror cap (64) is below n_cap (256): its output
-    is 65 wide and the next hop's gathers past it read the zero column. A
-    last hop narrower than the frontier fails, as it does in the
-    reference."""
-    rng = np.random.default_rng(8)
-    (c1, s1), _ = _csc_hop(rng, 60, 64, 300)
-    (c2, s2), _ = _csc_hop(rng, 200, 256, 900)
-    _, p3 = _csc_hop(rng, 200, 256, 900)
-    frs, cws = zip(*[_frontier(rng, 60, 8, 256, 4) for _ in range(32)])
-    fr, w = torch.stack(frs), torch.stack(cws)
-    args = ((((c1, s1),), ((c2, s2),)), ((p3,),), fr, w, 256)
-    got = G._launch_csc_count(lib, *args)
-    assert torch.equal(got, G.chain_count_batch_plain(*args)) and bool((got > 0).any())
-    with pytest.raises(ValueError, match="does not cover"):
-        G._launch_csc_count(lib, (((c1, s1),),), ((p3,),), fr, w, 256)
-
-
-def test_k7_reversed_segment_gives_the_negated_sum(lib):
-    """A pointer pair out of order gives the negated (wrapped) sum of the
-    edges between them, as the reference's cumsum difference does."""
-    rng = np.random.default_rng(9)
-    (cptr, csrc), ptr = _csc_hop(rng, 200, 256, 900)
-    frs, cws = zip(*[_frontier(rng, 200, 64, 256, 60) for _ in range(32)])
-    fr, w = torch.stack(frs), torch.stack(cws)
-    v = int(torch.argmax(cptr[1:] - cptr[:-1]))  # the busiest destination
-    swapped = cptr.clone()
-    swapped[v], swapped[v + 1] = cptr[v + 1], cptr[v]
-    args = ((((swapped, csrc),),), ((ptr,),), fr, w, 256)
-    got = G._launch_csc_count(lib, *args)
-    assert torch.equal(got, G.chain_count_batch_plain(*args))
-    plain = G.chain_count_batch_plain((((cptr, csrc),),), ((ptr,),), fr, w, 256)
-    assert not torch.equal(got, plain)  # the swap changes the answer
 
 
 @pytest.mark.parametrize("lanes", [8, 32, 64, 96])
@@ -1464,17 +1043,18 @@ def _k13_tables(rng, n_shards, cap, n_lists, lmax, fill, dim, dtype, metric):
 
 
 def _k13_emu(lib, q, probes, x, list_rows, list_mask, slot_ok, metric, k, groups=None):
-    """mesh_ivf_rerank over every shard, then mesh_topk_merge, emulated."""
+    """K3's ivf_rerank over every shard (the plan's mode; `groups` forces a
+    pair-major split of each list into that many ranges), then
+    mesh_topk_merge, emulated."""
     n_sh, _, lmax = list_rows.shape
     nq, nprobe = probes.shape
     kk = min(k, nprobe * lmax)
-    if groups is None:
-        groups, kkb = M.rerank_plan(lib, nq, n_sh, nprobe, lmax, kk)
-    else:
-        kkb = lib.mesh_ivf_rerank_picks(lmax, groups, kk)
-    d, i = M._launch_ivf_rerank(lib, q, probes, x, list_rows, list_mask, slot_ok, metric, groups,
-                                kkb)
-    return M._launch_topk_merge(lib, d, i, nprobe * groups * kkb, x.shape[0] // n_sh,
+    plan = IVF.rerank_plan(lib, nq, n_sh, nprobe, lmax, kk, x.shape[1],
+                           int(x.dtype == torch.bfloat16))
+    if groups is not None:
+        plan = ("pair", groups, min(kk, ((lmax + groups - 1) // groups + 31) // 32 * 32))
+    d, i = IVF._launch_rerank(lib, q, probes, x, list_rows, list_mask, slot_ok, metric, plan)
+    return M._launch_topk_merge(lib, d, i, nprobe * plan[1] * plan[2], x.shape[0] // n_sh,
                                 min(k, n_sh * kk), True)
 
 
@@ -1737,17 +1317,18 @@ _MESH_FAULTS = {  # fault: ([(file, old, new)], the comparison that must fail)
         ("knn_tq.cuh",
          "            if (view.acc_in != nullptr) d = view.acc_in[(long long)qi * N + row] + d;\n",
          "")], _fault_k12),
-    # K13: among equal distances the higher probe rank and range first
+    # K13 (ivf.cu's pair-major rerank): among equal distances the higher
+    # probe rank and range first
     "k13_ties_take_the_higher_position": ([
-        ("mesh.cu", "const long long o = (qsp * G + g) * kkb;",
+        ("ivf.cu", "const long long o = (qsp * G + g) * kkb;",
          "const long long o = ((qsp / P * P + (P - 1 - pr)) * G + (G - 1 - g)) * kkb;")],
         _fault_k13),
     # K13: a range's first chunk skipped, members and all
-    "k13_chunk_skipped": ([("mesh.cu", "if (todo == 0u) continue;",
+    "k13_chunk_skipped": ([("ivf.cu", "if (todo == 0u) continue;",
                             "if (todo == 0u || c0 == lo) continue;")], _fault_k13),
     # K13: every shard reads shard 0's rows
-    "k13_shard_rows_offset_dropped": ([("mesh.cu", "const T* xs = x + (long long)s * cap * D;",
-                                        "const T* xs = x;")], _fault_k13),
+    "k13_shard_rows_offset_dropped": ([("ivf.cu", "\n  const T* xs = x + (long long)s * cap * D;",
+                                        "\n  const T* xs = x;")], _fault_k13),
     # the merge without the shard offset of a candidate's slot
     "shard_offset_dropped": ([("mesh.cu", "const long long gid = (long long)ids[p] + shard * shard_rows;",
                                "const long long gid = (long long)ids[p];")], _fault_k13),
@@ -1757,10 +1338,12 @@ _MESH_FAULTS = {  # fault: ([(file, old, new)], the comparison that must fail)
 @pytest.mark.parametrize("fault", sorted(_MESH_FAULTS))
 def test_mesh_planted_fault_fails_the_comparison(tmp_path, fault):
     """The comparisons above have teeth: a copy of mesh.cu (or of the
-    headers its K12 instances share with K1/K2) with one fault planted
-    disagrees with the plain versions."""
+    headers its K12 instances share with K1/K2, or of ivf.cu, whose rerank
+    K13 runs) with one fault planted disagrees with the plain versions."""
     patches, differs = _MESH_FAULTS[fault]
     srcs = {"mesh.cu": _source("mesh.cu")}
+    if differs is _fault_k13:
+        srcs["ivf.cu"] = _source("ivf.cu")
     for name, old, new in patches:
         srcs.setdefault(name, _source(name))
         assert srcs[name].count(old) == 1, old
