@@ -17,9 +17,12 @@ Phases, one JSON line each (or more):
    (exact kNN: the fused search's streaming tier at Q <= 8, its tensor
    tier at Q = 64 with a lower-limb case, k up to 256 and K1 + select
    above, the IVF probe's shape), K5 ivf_assign and the K4 k-means update
-   at the training's shapes; then median times (by events and queued)
-   beside the bound, the plain version and a one-call PyTorch yardstick
-   where one exists;
+   at the training's shapes (the update on four assignments: to one step's
+   means, the training's first step's, 90% of the rows in one centroid,
+   every odd centroid empty; counts equal, TOL, two runs bit-equal); then
+   median times (by events and queued) beside the bound, the plain version
+   and a one-call PyTorch yardstick where one exists (K4's update at the
+   first and second steps' assignments, beside index_reduce_ "mean");
 3. the MTREE main path through Datastore.execute: an exact index over a
    seeded clustered corpus, ingested with INSERT, then sequential and
    concurrent `<|10|>` queries; every query must take `exact-device`, the
@@ -99,6 +102,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 
 import numpy as np
 
@@ -630,18 +634,93 @@ def phase_ivf_kernels(torch, dim: int, cap: int, n_rows: int = 65_536, nlists: i
                 "plain version")
     del bad, nf_cents
     a = IVF._assign_chunk(x, cents, 1)
-    got_c, got_n = IVF.kmeans_update(x, a, cents)
-    torch.cuda.synchronize()
-    want_c, want_n = IVF.kmeans_update_plain(x, a, cents)
-    k4_err = float((got_c - want_c).abs().max())
-    ok = bool(torch.allclose(got_c, want_c, **TOL)) and bool(torch.equal(got_n, want_n))
-    again = IVF.kmeans_update(x, a, cents)[0]
-    emit("k4_check", rows=n_rows, c=nlists, d=dim, max_abs_err=k4_err,
-         counts_equal=bool(torch.equal(got_n, want_n)), empty_clusters=int((want_n == 0).sum()),
-         deterministic=bool(torch.equal(again, got_c)), ok=ok)
-    require(ok, "ivf_kmeans_update disagrees with its plain version")
-    require(bool(torch.equal(again, got_c)), "ivf_kmeans_update is not deterministic")
-    return dict(matrix=matrix, idx=idx, x=x, cents=cents, assign=a), k5_err, k4_err
+    k4 = k4_assignments(torch, x, nlists)
+    first, seeds = k4["first_step"]
+    skewed = first.clone()
+    skewed[torch.rand(n_rows, generator=g).to(dev) < 0.9] = 3  # one centroid: 90% of the rows
+    # the K4 update: the current case (the assignment to one step's means
+    # from rows of the corpus), the training's first step (to rows of x),
+    # 90% of the rows in one centroid, and every odd centroid empty
+    k4_err = 0.0
+    for case, ka, kc in (("means_of_corpus_seeds", a, cents), ("first_step", first, seeds),
+                         ("skewed", skewed, seeds), ("empty", first & ~1, seeds)):
+        got_c, got_n = IVF.kmeans_update(x, ka, kc)
+        torch.cuda.synchronize()
+        want_c, want_n = IVF.kmeans_update_plain(x, ka, kc)
+        err = float((got_c - want_c).abs().max())
+        counts_equal = bool(torch.equal(got_n, want_n))
+        ok = bool(torch.allclose(got_c, want_c, **TOL)) and counts_equal
+        again = IVF.kmeans_update(x, ka, kc)[0]
+        deterministic = bool(torch.equal(again, got_c))
+        emit("k4_check", case=case, rows=n_rows, c=nlists, d=dim, max_abs_err=err,
+             counts_equal=counts_equal, largest_count=int(want_n.max()),
+             empty_clusters=int((want_n == 0).sum()), deterministic=deterministic, ok=ok)
+        require(ok, f"ivf_kmeans_update ({case}) disagrees with its plain version")
+        require(deterministic, f"ivf_kmeans_update ({case}) is not deterministic")
+        k4_err = max(k4_err, err)
+    return dict(matrix=matrix, idx=idx, x=x, cents=cents, assign=a, k4=k4), k5_err, k4_err
+
+
+def k4_assignments(torch, x, nlists: int, seed: int = 2):
+    """The K4 update's two timed inputs over the rows x [n, D]: {name:
+    (assignment, centroids)} for the training's first step (nlists random
+    rows of x, as _kmeans_xs seeds it; "first_step") and its second (the
+    plain means of that step; "means"). scripts/k3_k7_timing.py builds the
+    same two."""
+    from surrealdb_tpu_torch.idx import ivf as IVF
+
+    g = torch.Generator().manual_seed(seed)
+    seeds = x[torch.randperm(x.shape[0], generator=g)[:nlists].to(x.device)].float().contiguous()
+    first = IVF._assign_chunk(x, seeds, 1)
+    means = IVF.kmeans_update_plain(x, first, seeds)[0].contiguous()
+    return {"first_step": (first, seeds), "means": (IVF._assign_chunk(x, means, 1), means)}
+
+
+def k4_update_timing(torch, x, a, c):
+    """K4's update on one assignment: the largest count, event and queued
+    ms, the kernels a call (torch.profiler), the plain version, the bound
+    (rows, assignment, c_old and c_new once; bytes) and, beside it, the
+    bytes the design also moves (its row-id scratch and the heavy
+    centroids' partial sums, written and read back), and
+    `index_reduce_(..., "mean")` as the one-call yardstick, with the upcast
+    of x in the call and on a pre-cast x."""
+    import re
+
+    from surrealdb_tpu_torch.idx import ivf as IVF
+    from surrealdb_tpu_torch.ops import _cuda
+
+    n, dim = x.shape
+    nl = c.shape[0]
+    counts = torch.bincount(a.long(), minlength=nl)
+    with open(os.path.join(_cuda.CSRC, "ivf.cu")) as f:
+        item_rows = int(re.search(r"constexpr int UP_ITEM = (\d+);", f.read()).group(1))
+    heavy_items = int(((counts + item_rows - 1) // item_rows)[counts > item_rows].sum())
+    nbytes = n * dim * x.element_size() + n * 4 + 2 * nl * dim * 4 + nl * 4
+    design_bytes = nbytes + 2 * heavy_items * dim * 4 + 3 * n * 4
+    bound, by = bound_ms(nbytes, n * dim, "bfloat16")
+    al, xf = a.long(), x.float()
+
+    def library(rows, idx):
+        return c.clone().index_reduce_(0, idx, rows, "mean", include_self=False)
+
+    run_k = lambda: IVF.kmeans_update(x, a, c)  # noqa: E731
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # index_reduce_ is in beta
+        lib_err = float((library(xf, al) - IVF.kmeans_update_plain(x, a, c)[0]).abs().max())
+        lib_cast = lambda: library(x.float(), a.long())  # noqa: E731
+        lib_nocast = lambda: library(xf, al)  # noqa: E731
+        return dict(
+            largest_count=int(counts.max()), empty_clusters=int((counts == 0).sum()),
+            heavy_items=heavy_items, ms=median_ms(run_k),
+            queued_ms=queued_device_ms(torch, run_k),
+            kernels_a_call=kernels_per_call(torch, run_k),
+            plain_ms=median_ms(lambda: IVF.kmeans_update_plain(x, a, c), iters=5),
+            bound_ms=bound, bound_by=by, design_bytes_ms=design_bytes / HBM_BYTES_PER_S * 1e3,
+            library_ms=median_ms(lib_cast), library_queued_ms=queued_device_ms(torch, lib_cast),
+            library_nocast_ms=median_ms(lib_nocast),
+            library_nocast_queued_ms=queued_device_ms(torch, lib_nocast),
+            library_max_abs_err=lib_err,
+        )
 
 
 def phase_ivf_timing(torch, inputs, dim: int):
@@ -678,17 +757,19 @@ def phase_ivf_timing(torch, inputs, dim: int):
         )
     step_bytes = n * dim * 2 + 2 * nl * dim * 4 + nl * 4
     step_bound, step_by = bound_ms(step_bytes, limb_flops + n * dim, "bfloat16")
-    upd_bound, upd_by = bound_ms(step_bytes + n * 4, n * dim, "bfloat16")
+    by_assignment = {name: k4_update_timing(torch, x, ka, kc)
+                     for name, (ka, kc) in inputs["k4"].items()}
+    means = by_assignment["means"]
     out["ivf_kmeans_update"] = dict(
         ms=median_ms(lambda: IVF._kmeans_step(x, cents, nl)),
         plain_ms=median_ms(lambda: IVF.kmeans_update_plain(
             x, IVF.assign_plain(x, cents, 1), cents), iters=5),
         library_ms=None, bound_ms=step_bound, bound_by=step_by,
         single_pass_bound_ms=bound_ms(step_bytes, flops + n * dim, "bfloat16")[0],
-        update_ms=median_ms(lambda: IVF.kmeans_update(x, a, cents)),
-        update_queued_ms=queued_device_ms(torch, lambda: IVF.kmeans_update(x, a, cents)),
-        update_plain_ms=median_ms(lambda: IVF.kmeans_update_plain(x, a, cents), iters=5),
-        update_bound_ms=upd_bound, update_bound_by=upd_by,
+        update_ms=means["ms"], update_queued_ms=means["queued_ms"],
+        update_plain_ms=means["plain_ms"], update_bound_ms=means["bound_ms"],
+        update_bound_by=means["bound_by"], update_library_ms=means["library_ms"],
+        update_by_assignment=by_assignment,
     )
     emit("timing_ivf", rows=n, c=nl, d=dim, corpus="bfloat16", **out)
     return out

@@ -13,7 +13,8 @@ the HNSW cell's IVF (chip_smoke.py's 2^20 x 768 bf16 corpus and queries,
 1,024 lists, nprobe 6, k 10) at Q 1, 8, 16, 32 and 64, each rerank mode
 the tree has timed on its own; K7 the odd 5-spec count at 32 lanes; K6 the
 friends-of-friends expand's hop; K4's update over 65,536 rows and 1,024
-centroids. The tree's own chip_smoke.py supplies the corpus, the graph and
+centroids at chip_smoke.py's two assignments (the training's first step and
+its second). The tree's own chip_smoke.py supplies the corpus, the graph and
 the timers. One JSON line a measurement on stdout (and, with --out, all
 of them in that JSON file); exits 1 if a --check fails.
 """
@@ -91,7 +92,9 @@ def main(argv=None) -> int:
     # check takes them (near a zero distance the sqrt amplifies f32 order)
     fresh = C.make_queries(corpus, 64, 7, noise=C.CLUSTER_SIGMA)
     matrix = torch.from_numpy(corpus).to(dev).to(torch.bfloat16)
+    t1 = time.perf_counter()  # the training alone: what chip_smoke.py's training_s waits on
     ivf = IVF.IvfState.train(corpus, np.ones(n, dtype=bool), matrix=matrix, device=dev)
+    train_s = time.perf_counter() - t1
     del corpus
     nprobe = IVF.default_nprobe(ivf.nlists, 64)
     cents, list_rows, list_mask, probe_ok = ivf._device(dev)
@@ -100,7 +103,8 @@ def main(argv=None) -> int:
     lmax = int(list_rows.shape[1])
     modes = getattr(IVF, "RERANK_MODES", ())
     has_mode = "mode" in inspect.signature(IVF._ivf_rerank).parameters
-    emit("ivf", seconds=time.perf_counter() - t0, nlists=ivf.nlists, nprobe=nprobe, L=lmax,
+    emit("ivf", seconds=time.perf_counter() - t0, train_seconds=train_s, nlists=ivf.nlists,
+         nprobe=nprobe, L=lmax,
          list_len_mean=float(lens.mean()), list_len_max=int(lens.max()), modes=list(modes))
     for nq in (1, 8, 16, 32, 64):
         q = torch.from_numpy(np.ascontiguousarray(queries[:nq], dtype=np.float32)).to(dev)
@@ -156,12 +160,21 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ K4's update
-    g = torch.Generator().manual_seed(2)
+    # chip_smoke.py's two timed assignments (k4_assignments), built here so
+    # a parent tree is timed on the same inputs: 65,536 rows (the first
+    # chunk of chip_smoke.py's seed-3 corpus) to the training's first seeds
+    # (1,024 random rows of x) and to the plain means of that step
     x = torch.from_numpy(C.gen_corpus(65_536, dim, seed=3)).to(dev).to(torch.bfloat16)
-    c4 = x[torch.randperm(65_536, generator=g)[:1024].to(dev)].float().contiguous()
-    a4 = IVF._assign_chunk(x, c4, 1)
-    emit("k4_update", rows=65_536, c=1024, d=dim, **timed(lambda: IVF.kmeans_update(x, a4, c4)))
-    del x, c4, a4
+    g = torch.Generator().manual_seed(2)
+    seeds = x[torch.randperm(65_536, generator=g)[:1024].to(dev)].float().contiguous()
+    first = IVF._assign_chunk(x, seeds, 1)
+    means = IVF.kmeans_update_plain(x, first, seeds)[0].contiguous()
+    for name, (a4, c4) in (("first_step", (first, seeds)),
+                           ("means", (IVF._assign_chunk(x, means, 1), means))):
+        emit("k4_update", assignment=name, rows=65_536, c=1024, d=dim,
+             largest_count=int(torch.bincount(a4.long(), minlength=1024).max()),
+             **timed(lambda: IVF.kmeans_update(x, a4, c4)))
+    del x, seeds, first, means
 
     # ------------------------------------------------------------ K7 / K6
     from surrealdb_tpu_torch.utils.num import next_pow2

@@ -60,6 +60,8 @@ struct uint4 { unsigned x, y, z, w; };
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 template <class T> T __ldg(const T* p) { return *p; }
+template <class T> T __ldcg(const T* p) { return *p; }
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 inline unsigned atomicAdd(unsigned* p, unsigned v) { return std::atomic_ref<unsigned>(*p).fetch_add(v); }
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
 inline float atomicAdd(float* p, float v) { return std::atomic_ref<float>(*p).fetch_add(v); }

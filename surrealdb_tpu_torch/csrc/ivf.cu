@@ -68,13 +68,48 @@
 // K4 ivf_kmeans_update replaces the update half of
 // surrealdb_tpu/idx/ivf.py:_kmeans_step (segment_sum of the rows and of
 // ones by assignment, the mean, an empty cluster keeping its centroid).
-// What bounds it: reading the n rows once (bytes). Design, deterministic:
-// a block owns 8 centroids and scans the assignment vector in rounds of
-// 2048 entries; each round compacts the rows of each of its centroids in
-// row order into shared memory (per-thread counts packed 16 bits a group,
-// one warp scan and one block prefix) and sums them in that order, one
-// thread a column; no float atomics, so two runs on the same data agree
-// bit for bit.
+// What bounds it: reading the n rows once (bytes; 0.032 ms for 65,536 x
+// 768 bf16 rows at 3.35 TB/s). The rows are grouped by centroid once, then
+// each row is read once. Three launches, no float atomics, no host sync,
+// scratch from the wrapper (ivf_kmeans_update_scratch_bytes):
+// 1. up_count_kernel: a block a tile of the assignment (2,048 entries; more
+//    above 65,536 rows, so there are at most 32 tiles) counts its entries a
+//    centroid in shared memory (a warp's equal entries added once, found by
+//    __match_any_sync) -> hist [tile, C].
+// 2. up_scatter_kernel: every block sums all tiles' counts and scans them
+//    (the same sums in every block, so no block waits for another): each
+//    centroid's first position start [C + 1] and, with one work item per
+//    UP_ITEM (128) members or part of it (one for an empty centroid), its
+//    first item istart [C + 1]. Then it scatters its own tile's row ids
+//    into order [n] stably: the warps take turns in entry order, and a
+//    warp's equal entries take consecutive positions in lane order, so
+//    order holds the rows grouped by centroid, in row order within one.
+//    Each block also writes its share of start, istart, counts and the
+//    item -> centroid map, and zeroes its share of the tickets.
+// 3. up_sum_kernel: a block a work item (at most UP_ITEM consecutive
+//    members of one centroid, so a heavy centroid spreads over many SMs);
+//    a thread a 16-byte column vector (8 bf16 or 4 f32 values; one value
+//    where D or the rows' alignment rules 16-byte loads out) walks the
+//    item's rows with UP_LOADS (8) loads in flight and adds them in member
+//    order into f32 registers. A centroid of one item writes its mean
+//    (c_old when it is empty). The items of a heavier centroid write f32
+//    partial sums; the last of them to finish (an integer ticket a
+//    centroid) adds the partials in item order and writes the mean.
+// Summation order, the same bits on every run: a centroid's rows in row
+// order, cut into consecutive runs of UP_ITEM; each run summed in f32 from
+// 0.0f in row order (adds only, nothing to fuse into an FMA); one run: its
+// sum / count; more runs: 0.0f + run 0 + run 1 + ... in f32, then / count.
+// An assignment entry outside [0, C) belongs to no centroid: it is neither
+// counted nor summed. Limits: n < 2^31 and C <= 19,028 (launch 2 holds 3 C
+// + 2 ints in shared memory).
+// What holds it back (H100, 65,536 x 768 bf16 rows, C = 1,024): launch 3
+// is one wave of ~1,300 short blocks, so its ramp, its tail and the three
+// dependent index loads before a block's first row weigh on a stream of a
+// few tens of microseconds; 16 loads in flight a thread (fewer blocks an
+// SM), 64- or 256-member items and rows in row order did not move it
+// (scripts/k4_update_variants.py).
+// Launch 2's warp turns are serial (64 a tile), and it reads every tile's
+// counts from L2 in each block.
 //
 // K3 ivf_rerank replaces the rerank of surrealdb_tpu/idx/ivf.py:_ivf_search
 // (its probe is K2 over the centroids, its top-k the merge after it), and
@@ -566,120 +601,321 @@ assign_tc_kernel(const unsigned short* __restrict__ x, const int* __restrict__ i
 
 // ------------------------------------------------------------------ K4
 
-constexpr int UP_THREADS = 256;
-constexpr int UP_GROUP = 8;                       // centroids a block
-constexpr int UP_PER_THREAD = 8;                  // consecutive entries a thread
-constexpr int UP_CHUNK = UP_THREADS * UP_PER_THREAD;  // entries compacted a round
+constexpr int UP_THREADS = 256;                       // the count and scatter blocks
+constexpr int UP_WARPS = UP_THREADS / 32;
+constexpr int UP_UNROLL = 8;                          // assignment entries a thread holds at once
+constexpr int UP_CHUNK = UP_THREADS * UP_UNROLL;      // assignment entries a block holds at once
+constexpr int UP_MAX_TILES = 32;                      // count / scatter blocks, at most
+constexpr int UP_ITEM = 128;                          // members a work item, at most
+constexpr int UP_SUM_THREADS = 256;                   // a sum block's threads, at most
+constexpr int UP_LOADS = 8;                           // rows (or partials) a sum thread has in flight
+constexpr unsigned UP_NONE = 0xFFFFFFFFu;             // the key of an entry outside [0, C)
 
-// dynamic shared memory: sums [UP_GROUP][D] f32, then member lists
-// [UP_GROUP][UP_CHUNK] i32
-size_t update_smem_bytes(int D) {
-  return (size_t)UP_GROUP * D * sizeof(float) + (size_t)UP_GROUP * UP_CHUNK * sizeof(int);
-}
+__host__ __device__ inline long long align16(long long b) { return (b + 15) / 16 * 16; }
 
-// Per-group counts of a round, packed 16 bits a group (a round holds at
-// most UP_CHUNK = 2048 entries): groups 0-3 in .x, 4-7 in .y, so one pair
-// of 64-bit adds moves all eight counts at once.
-struct Packed8 {
-  unsigned long long x, y;
+// One update's scratch, byte offsets: per-tile counts hist [NT, C], the
+// grouped row ids order [n], start and istart [C + 1] each, each item's
+// centroid item_c [items], a ticket a centroid, and the partial sums [items,
+// D] f32 of the centroids that span several items. T: entries a tile (a
+// multiple of UP_CHUNK); items: the work items' count at most.
+struct UpLayout {
+  long long T, NT, items, hist, order, start, istart, item_c, ticket, partial, bytes;
 };
 
-__device__ __forceinline__ Packed8 p8_add(Packed8 a, Packed8 b) { return {a.x + b.x, a.y + b.y}; }
-
-__device__ __forceinline__ Packed8 p8_one(int g) {
-  const unsigned long long bit = 1ull << (16 * (g & 3));
-  return g < 4 ? Packed8{bit, 0ull} : Packed8{0ull, bit};
+UpLayout up_layout(long long n, int D, int C) {
+  UpLayout L;
+  const long long chunks = (n + UP_CHUNK - 1) / UP_CHUNK;
+  L.T = UP_CHUNK * ((chunks + UP_MAX_TILES - 1) / UP_MAX_TILES);
+  L.NT = (n + L.T - 1) / L.T;
+  // sum over centroids of max(1, ceil(count / UP_ITEM)) <= C + n / UP_ITEM
+  L.items = C + n / UP_ITEM;
+  L.hist = 0;
+  L.order = align16(L.NT * C * 4);
+  L.start = align16(L.order + n * 4);
+  L.istart = align16(L.start + (C + 1) * 4LL);
+  L.item_c = align16(L.istart + (C + 1) * 4LL);
+  L.ticket = align16(L.item_c + L.items * 4);
+  L.partial = align16(L.ticket + C * 4LL);
+  L.bytes = L.partial + L.items * D * 4;
+  return L;
 }
 
-__device__ __forceinline__ int p8_get(Packed8 a, int g) {
-  return (int)(((g < 4 ? a.x : a.y) >> (16 * (g & 3))) & 0xFFFFull);
+// A chunk's keys: warp w holds entries [w, w + 1) * 32 * UP_UNROLL of the
+// chunk from r0, 32 a step, so the warps' order is the entries' order.
+__device__ __forceinline__ void up_keys(unsigned* key, const int* __restrict__ assign,
+                                        long long n, int C, long long r0) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int u = 0; u < UP_UNROLL; ++u) {
+    const long long r = r0 + (warp * UP_UNROLL + u) * 32 + lane;
+    const int a = r < n ? assign[r] : -1;
+    key[u] = a >= 0 && a < C ? (unsigned)a : UP_NONE;
+  }
+}
+
+// launch 1: each tile's count a centroid -> hist [tile, C]
+__global__ void __launch_bounds__(UP_THREADS)
+up_count_kernel(const int* __restrict__ assign, long long n, int C, int T, int* __restrict__ hist) {
+  extern __shared__ int up_sh[];
+  const int tid = threadIdx.x, lane = tid & 31;
+  for (int c = tid; c < C; c += UP_THREADS) up_sh[c] = 0;
+  __syncthreads();
+  const long long t0 = (long long)blockIdx.x * T;
+  for (int r0 = 0; r0 < T; r0 += UP_CHUNK) {
+    unsigned key[UP_UNROLL];
+    up_keys(key, assign, n, C, t0 + r0);
+#pragma unroll
+    for (int u = 0; u < UP_UNROLL; ++u) {
+      const unsigned peers = __match_any_sync(FULL, key[u]);
+      if (key[u] != UP_NONE && lane == __ffs(peers) - 1) atomicAdd(&up_sh[key[u]], __popc(peers));
+    }
+  }
+  __syncthreads();
+  int* h = hist + (long long)blockIdx.x * C;
+  for (int c = tid; c < C; c += UP_THREADS) h[c] = up_sh[c];
+}
+
+// Exclusive scan in place of a [0, len) in shared memory by the block's
+// UP_THREADS threads (each a run of consecutive entries); a [len] = the
+// total. wsum: UP_WARPS ints of shared scratch.
+__device__ void up_scan(int* a, int len, int* wsum) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = (len + UP_THREADS - 1) / UP_THREADS;
+  const int lo = min(len, tid * per), hi = min(len, lo + per);
+  int s = 0;
+  for (int i = lo; i < hi; ++i) s += a[i];
+  int inc = s;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int up = __shfl_up_sync(FULL, inc, o);
+    if (lane >= o) inc += up;
+  }
+  if (lane == 31) wsum[warp] = inc;
+  __syncthreads();
+  int run = inc - s, total = 0;
+  for (int w = 0; w < UP_WARPS; ++w) {
+    run += w < warp ? wsum[w] : 0;
+    total += wsum[w];
+  }
+  for (int i = lo; i < hi; ++i) {
+    const int v = a[i];
+    a[i] = run;
+    run += v;
+  }
+  if (tid == 0) a[len] = total;
+  __syncthreads();
+}
+
+// launch 2: the scans, then this tile's stable scatter into order, and
+// this block's share of the tables launch 3 reads
+__global__ void __launch_bounds__(UP_THREADS)
+up_scatter_kernel(const int* __restrict__ assign, long long n, int C, int T, int NT,
+                  const int* __restrict__ hist, int* __restrict__ order, int* __restrict__ start,
+                  int* __restrict__ istart, int* __restrict__ item_c,
+                  unsigned* __restrict__ ticket, int* __restrict__ counts) {
+  extern __shared__ int up_sh[];
+  int* st = up_sh;        // [C + 1]: counts, then first positions
+  int* it = st + C + 1;   // [C + 1]: items, then first items
+  int* run = it + C + 1;  // [C]: the next position of this tile's rows a centroid
+  __shared__ int wsum[UP_WARPS];
+  const int t = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long t0 = (long long)t * T;
+  unsigned key[UP_UNROLL];
+  up_keys(key, assign, n, C, t0);  // in flight during the sums
+  for (int c = tid; c < C; c += UP_THREADS) {
+    int tot = 0, pre = 0;
+#pragma unroll 32
+    for (int u = 0; u < NT; ++u) {
+      const int h = hist[(long long)u * C + c];
+      tot += h;
+      pre += u < t ? h : 0;
+    }
+    st[c] = tot;
+    it[c] = max(1, (tot + UP_ITEM - 1) / UP_ITEM);
+    run[c] = pre;
+  }
+  __syncthreads();
+  up_scan(st, C, wsum);
+  up_scan(it, C, wsum);
+  for (int c = tid; c < C; c += UP_THREADS) run[c] += st[c];
+  __syncthreads();
+  for (int r0 = 0; r0 < T; r0 += UP_CHUNK) {
+    if (r0 > 0) up_keys(key, assign, n, C, t0 + r0);
+    unsigned peers[UP_UNROLL];
+#pragma unroll
+    for (int u = 0; u < UP_UNROLL; ++u) peers[u] = __match_any_sync(FULL, key[u]);
+    // the warps in turn; in a warp's turn its steps in order, each equal
+    // entries' group placed from run[] in lane order
+    for (int w = 0; w < UP_WARPS; ++w) {
+      if (warp == w) {
+#pragma unroll
+        for (int u = 0; u < UP_UNROLL; ++u) {
+          const bool ok = key[u] != UP_NONE;
+          const int rank = __popc(peers[u] & ((1u << lane) - 1u));
+          const int base = ok ? run[key[u]] : 0;
+          __syncwarp();
+          if (ok) {
+            order[base + rank] = (int)(t0 + r0 + (warp * UP_UNROLL + u) * 32 + lane);
+            if (rank == 0) run[key[u]] = base + __popc(peers[u]);
+          }
+          __syncwarp();
+        }
+      }
+      __syncthreads();
+    }
+  }
+  const int c1 = (int)((long long)C * (t + 1) / NT);
+  for (int c = (int)((long long)C * t / NT) + tid; c < c1; c += UP_THREADS) {
+    start[c] = st[c];
+    istart[c] = it[c];
+    counts[c] = st[c + 1] - st[c];
+    ticket[c] = 0u;
+  }
+  if (t == NT - 1 && tid == 0) {
+    start[C] = st[C];
+    istart[C] = it[C];
+  }
+  const int items = it[C], j1 = (int)((long long)items * (t + 1) / NT);
+  for (int j = (int)((long long)items * t / NT) + tid; j < j1; j += UP_THREADS) {
+    int lo = 0, hi = C - 1;  // the last centroid whose first item is <= j
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (it[mid] <= j) lo = mid;
+      else hi = mid - 1;
+    }
+    item_c[j] = lo;
+  }
+}
+
+// a row's 16 bytes added to the f32 sums
+__device__ __forceinline__ void up_add(float* acc, uint4 v, __nv_bfloat16) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc[2 * i] += __uint_as_float(w[i] << 16);
+    acc[2 * i + 1] += __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+
+__device__ __forceinline__ void up_add(float* acc, uint4 v, float) {
+  acc[0] += __uint_as_float(v.x);
+  acc[1] += __uint_as_float(v.y);
+  acc[2] += __uint_as_float(v.z);
+  acc[3] += __uint_as_float(v.w);
+}
+
+// the last item of a centroid: its ni partial rows p [ni, D] added in item
+// order, CW floats a load (4 when D % 4 == 0), / cnt -> out [D]
+template <int CW>
+__device__ void up_combine(const float* p, int ni, int D, int cnt, float* __restrict__ out) {
+  const int nv = D / CW;
+  for (int v = threadIdx.x; v < nv; v += blockDim.x) {
+    float tot[CW] = {};
+    for (int k = 0; k < ni; k += UP_LOADS) {
+      float b[UP_LOADS][CW] = {};
+#pragma unroll
+      for (int u = 0; u < UP_LOADS; ++u) {
+        if (k + u >= ni) continue;
+        const float* q = p + (long long)(k + u) * D + (long long)v * CW;
+        if constexpr (CW == 4) {
+          const float4 f = __ldcg(reinterpret_cast<const float4*>(q));
+          b[u][0] = f.x;
+          b[u][1] = f.y;
+          b[u][2] = f.z;
+          b[u][3] = f.w;
+        } else {
+          b[u][0] = __ldcg(q);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UP_LOADS; ++u) {
+        if (k + u >= ni) continue;
+#pragma unroll
+        for (int j = 0; j < CW; ++j) tot[j] += b[u][j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < CW; ++j) out[(long long)v * CW + j] = tot[j] / (float)cnt;
+  }
+}
+
+// launch 3: a block a work item; W elements a load (16 bytes, or 1)
+template <typename T, int W>
+__global__ void __launch_bounds__(UP_SUM_THREADS)
+up_sum_kernel(const T* __restrict__ x, int D, int C, const int* __restrict__ order,
+              const int* __restrict__ start, const int* __restrict__ istart,
+              const int* __restrict__ item_c, const float* __restrict__ c_old,
+              float* __restrict__ partial, unsigned* __restrict__ ticket,
+              float* __restrict__ c_new) {
+  __shared__ int rows[UP_ITEM];
+  __shared__ int s_last;
+  const int item = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  if (item >= istart[C]) return;  // past the launch's items: the whole block
+  const int c = item_c[item];
+  const int i0 = istart[c], ni = istart[c + 1] - i0;
+  const int s0 = start[c], cnt = start[c + 1] - s0;
+  const int m0 = s0 + (item - i0) * UP_ITEM, mn = min(UP_ITEM, s0 + cnt - m0);
+  for (int i = tid; i < mn; i += nt) rows[i] = order[m0 + i];
+  __syncthreads();
+  const int nv = D / W;
+  for (int v = tid; v < nv; v += nt) {
+    float acc[W] = {};
+    for (int m = 0; m < mn; m += UP_LOADS) {
+      if constexpr (W == 1) {
+        float b[UP_LOADS] = {};
+#pragma unroll
+        for (int u = 0; u < UP_LOADS; ++u)
+          if (m + u < mn) b[u] = to_f(x[(long long)rows[m + u] * D + v]);
+#pragma unroll
+        for (int u = 0; u < UP_LOADS; ++u)
+          if (m + u < mn) acc[0] += b[u];
+      } else {
+        const uint4* xv = reinterpret_cast<const uint4*>(x) + v;
+        uint4 b[UP_LOADS] = {};
+#pragma unroll
+        for (int u = 0; u < UP_LOADS; ++u)
+          if (m + u < mn) b[u] = __ldg(xv + (long long)rows[m + u] * nv);
+#pragma unroll
+        for (int u = 0; u < UP_LOADS; ++u)
+          if (m + u < mn) up_add(acc, b[u], T{});
+      }
+    }
+    const long long o = (long long)v * W;
+    if (ni == 1) {
+      const long long cd = (long long)c * D + o;
+#pragma unroll
+      for (int j = 0; j < W; ++j) c_new[cd + j] = cnt > 0 ? acc[j] / (float)cnt : c_old[cd + j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < W; ++j) partial[(long long)item * D + o + j] = acc[j];
+    }
+  }
+  if (ni == 1) return;  // the same for the whole block
+  __threadfence();      // this item's partials before its ticket
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(ticket + c, 1u) == (unsigned)(ni - 1);
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const float* p = partial + (long long)i0 * D;
+  if (D % 4 == 0) up_combine<4>(p, ni, D, cnt, c_new + (long long)c * D);
+  else up_combine<1>(p, ni, D, cnt, c_new + (long long)c * D);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(UP_THREADS)
-kmeans_update_kernel(const T* __restrict__ x, long long n, int D,
-                     const int* __restrict__ assign, const float* __restrict__ c_old, int C,
-                     float* __restrict__ c_new, int* __restrict__ counts) {
-  extern __shared__ __align__(16) unsigned char up_smem[];
-  float* sums = reinterpret_cast<float*>(up_smem);
-  int* lists = reinterpret_cast<int*>(sums + (size_t)UP_GROUP * D);
-  __shared__ Packed8 warp_tot[UP_THREADS / 32];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g0 = blockIdx.x * UP_GROUP;
-
-  for (int i = tid; i < UP_GROUP * D; i += UP_THREADS) sums[i] = 0.f;
-  int total[UP_GROUP];
-#pragma unroll
-  for (int g = 0; g < UP_GROUP; ++g) total[g] = 0;
-
-  for (long long base = 0; base < n; base += UP_CHUNK) {
-    // ordered compaction: thread t owns the UP_PER_THREAD consecutive
-    // entries from base + t * UP_PER_THREAD; a block-wide exclusive scan of
-    // the per-group counts (in thread order) places each thread's rows, so
-    // list g holds the rows of centroid g0 + g of this round in row order
-    int grp[UP_PER_THREAD];
-    Packed8 mine = {0ull, 0ull};
-#pragma unroll
-    for (int u = 0; u < UP_PER_THREAD; ++u) {
-      const long long r = base + tid * UP_PER_THREAD + u;
-      const int g = r < n ? assign[r] - g0 : -1;
-      grp[u] = (g >= 0 && g < UP_GROUP) ? g : -1;
-      if (grp[u] >= 0) mine = p8_add(mine, p8_one(grp[u]));
-    }
-    Packed8 incl = mine;  // inclusive scan across the warp
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const Packed8 up = {__shfl_up_sync(0xffffffffu, incl.x, o),
-                          __shfl_up_sync(0xffffffffu, incl.y, o)};
-      if (lane >= o) incl = p8_add(incl, up);
-    }
-    if (lane == 31) warp_tot[warp] = incl;
-    __syncthreads();
-    Packed8 pos = {incl.x - mine.x, incl.y - mine.y};  // exclusive, within the warp
-    Packed8 round = {0ull, 0ull};
-    for (int w = 0; w < UP_THREADS / 32; ++w) {
-      if (w < warp) pos = p8_add(pos, warp_tot[w]);
-      round = p8_add(round, warp_tot[w]);
-    }
-#pragma unroll
-    for (int u = 0; u < UP_PER_THREAD; ++u) {
-      const int g = grp[u];
-      if (g >= 0) {
-        lists[g * UP_CHUNK + p8_get(pos, g)] = (int)(base + tid * UP_PER_THREAD + u);
-        pos = p8_add(pos, p8_one(g));
-      }
-    }
-    __syncthreads();
-    // sum the members in row order, one thread a column
-#pragma unroll
-    for (int g = 0; g < UP_GROUP; ++g) {
-      const int m_end = p8_get(round, g);
-      total[g] += m_end;
-      const int* lst = lists + g * UP_CHUNK;
-      for (int d = tid; d < D; d += UP_THREADS) {
-        float acc = sums[g * D + d];
-#pragma unroll 4
-        for (int m = 0; m < m_end; ++m) acc += to_f(x[(long long)lst[m] * D + d]);
-        sums[g * D + d] = acc;
-      }
-    }
-    __syncthreads();  // lists and warp_tot are rewritten next round
-  }
-  // the mean; an empty cluster keeps its previous centroid
-  for (int i = tid; i < UP_GROUP * D; i += UP_THREADS) {
-    const int g = i / D, d = i % D, c = g0 + g;
-    if (c >= C) continue;
-    int cnt = 0;
-#pragma unroll
-    for (int h = 0; h < UP_GROUP; ++h) cnt = h == g ? total[h] : cnt;
-    c_new[(long long)c * D + d] = cnt > 0 ? sums[i] / (float)cnt : c_old[(long long)c * D + d];
-  }
-  if (tid < UP_GROUP && g0 + tid < C) {
-    int cnt = 0;
-#pragma unroll
-    for (int h = 0; h < UP_GROUP; ++h) cnt = h == tid ? total[h] : cnt;
-    counts[g0 + tid] = cnt;
-  }
+int up_sum_launch(const T* x, int D, int C, bool vec, long long items, const int* order,
+                  const int* start, const int* istart, const int* item_c, const float* c_old,
+                  float* partial, unsigned* ticket, float* c_new, cudaStream_t s) {
+  constexpr int W = 16 / sizeof(T);
+  const int nv = vec ? D / W : D;
+  const int threads = min(UP_SUM_THREADS, (nv + 31) / 32 * 32);
+  if (vec)
+    up_sum_kernel<T, W><<<(unsigned)items, threads, 0, s>>>(x, D, C, order, start, istart, item_c,
+                                                            c_old, partial, ticket, c_new);
+  else
+    up_sum_kernel<T, 1><<<(unsigned)items, threads, 0, s>>>(x, D, C, order, start, istart, item_c,
+                                                            c_old, partial, ticket, c_new);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------------ K3 (and K13)
@@ -705,8 +941,6 @@ static_assert(LM_CHUNK == 32, "a stage's live positions are one ballot");
 __host__ __device__ inline int ir_span(int n, int G) { return ((n + G - 1) / G + 31) / 32 * 32; }
 
 int ir_smem_bytes(int D, int kkb) { return (D * 4 + 15) / 16 * 16 + IR_WARPS * kkb * 8; }
-
-__host__ __device__ inline long long align16(long long b) { return (b + 15) / 16 * 16; }
 
 // A list-major launch's shape: qb pairs a group at most, nstage stages of
 // LM_CHUNK staged rows, and the shared-memory layout (byte offsets): the
@@ -1511,30 +1745,53 @@ int ivf_assign(const void* x, int x_bf16, const void* idx, long long n, long lon
 // bf16 of a limb plane's row: D rounded up to 16
 int ivf_assign_limb_pitch(int D) { return limb_pitch(D); }
 
+// bytes of scratch ivf_kmeans_update takes for n rows of D columns and C
+// centroids; -1 for a shape it does not take
+long long ivf_kmeans_update_scratch_bytes(long long n, int D, int C) {
+  if (n <= 0 || D <= 0 || C <= 0) return -1;
+  return up_layout(n, D, C).bytes;
+}
+
 // x [n, D] f32 / bf16; assign [n] i32; c_old [C, D] f32 -> c_new [C, D] f32
-// (the mean of each centroid's rows, c_old where it has none) and
-// counts [C] i32.
+// (the mean of each centroid's rows in the order of the K4 note above,
+// c_old where it has none) and counts [C] i32; scratch:
+// ivf_kmeans_update_scratch_bytes(n, D, C) bytes, 16-byte aligned, that
+// the launches write before they read. Three launches.
 int ivf_kmeans_update(const void* x, int x_bf16, long long n, int D, const void* assign,
-                      const void* c_old, int C, void* c_new, void* counts, void* stream) {
-  if (n <= 0 || D <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = update_smem_bytes(D);
+                      const void* c_old, int C, void* scratch, void* c_new, void* counts,
+                      void* stream) {
+  const long long scan_smem = (3LL * C + 2) * 4;
+  if (n <= 0 || n > 0x7fffffffLL || D <= 0 || C <= 0 || scratch == nullptr ||
+      scan_smem > SMEM_OPT_IN || reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const UpLayout L = up_layout(n, D, C);
   const cudaStream_t s = (cudaStream_t)stream;
-  const unsigned blocks = (unsigned)((C + UP_GROUP - 1) / UP_GROUP);
-  if (smem > (size_t)SMEM_OPT_IN) return (int)cudaErrorInvalidValue;
-  static std::atomic<unsigned> seen_bf16{0}, seen_f32{0};
-  if (x_bf16) {
-    if (int err = opt_in_smem(kmeans_update_kernel<__nv_bfloat16>, SMEM_OPT_IN, seen_bf16))
-      return err;
-    kmeans_update_kernel<__nv_bfloat16><<<blocks, UP_THREADS, smem, s>>>(
-        (const __nv_bfloat16*)x, n, D, (const int*)assign, (const float*)c_old, C,
-        (float*)c_new, (int*)counts);
-  } else {
-    if (int err = opt_in_smem(kmeans_update_kernel<float>, SMEM_OPT_IN, seen_f32)) return err;
-    kmeans_update_kernel<float><<<blocks, UP_THREADS, smem, s>>>(
-        (const float*)x, n, D, (const int*)assign, (const float*)c_old, C, (float*)c_new,
-        (int*)counts);
-  }
-  return (int)cudaGetLastError();
+  char* b = (char*)scratch;
+  int* hist = (int*)(b + L.hist);
+  int* order = (int*)(b + L.order);
+  int* start = (int*)(b + L.start);
+  int* istart = (int*)(b + L.istart);
+  int* item_c = (int*)(b + L.item_c);
+  unsigned* ticket = (unsigned*)(b + L.ticket);
+  float* partial = (float*)(b + L.partial);
+  const int* a = (const int*)assign;
+  static std::atomic<unsigned> seen_count{0}, seen_scatter{0};
+  if (int err = opt_in_smem(up_count_kernel, SMEM_OPT_IN, seen_count)) return err;
+  if (int err = opt_in_smem(up_scatter_kernel, SMEM_OPT_IN, seen_scatter)) return err;
+  up_count_kernel<<<(unsigned)L.NT, UP_THREADS, (size_t)C * 4, s>>>(a, n, C, (int)L.T, hist);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  up_scatter_kernel<<<(unsigned)L.NT, UP_THREADS, (size_t)scan_smem, s>>>(
+      a, n, C, (int)L.T, (int)L.NT, hist, order, start, istart, item_c, ticket, (int*)counts);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int elt = x_bf16 ? 2 : 4;
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && (long long)D * elt % 16 == 0;
+  if (x_bf16)
+    return up_sum_launch((const __nv_bfloat16*)x, D, C, vec, L.items, order, start, istart,
+                         item_c, (const float*)c_old, partial, ticket, (float*)c_new, s);
+  return up_sum_launch((const float*)x, D, C, vec, L.items, order, start, istart, item_c,
+                       (const float*)c_old, partial, ticket, (float*)c_new, s);
 }
 
 // K3's rerank (S = 1) and K13's (S shards of one device), one launch:

@@ -10,8 +10,9 @@ with a wrapper and a plain PyTorch version in this module:
   row, the rows optionally picked by an index vector inside the kernel)
   launch `ivf_assign`;
 - K4 `_kmeans_step` launches `ivf_assign` (k = 1) and `ivf_kmeans_update`
-  (the mean of each cluster's rows in row order; an empty cluster keeps
-  its centroid);
+  (three launches: the rows grouped by centroid, then each cluster's mean
+  summed in runs of 128 rows in the order csrc/ivf.cu states; an empty
+  cluster keeps its centroid);
 - K3 `_ivf_search` probes with K2 over the centroids
   (ops/distances.py `knn_search`), reranks the probed lists' members with
   `ivf_rerank` (one launch: pair-major, a block a (query, probe), or
@@ -245,6 +246,35 @@ def _assign_gather(matrix: torch.Tensor, idx: torch.Tensor, cents: torch.Tensor,
     return _assign_cuda(matrix, cents, k_assign, idx=idx)
 
 
+def _launch_kmeans_update(lib, xs, assign, c):
+    """ivf_kmeans_update's argument checks and launch (K4's update) through
+    `lib`, the kernel library (the tests pass the CPU-emulated one), with
+    its scratch from torch's allocator."""
+    from surrealdb_tpu_torch.ops import _cuda
+
+    xp, bf16 = _rows_ptr(xs)
+    c = c.float().contiguous()
+    if c.dim() != 2 or c.shape[1] != xs.shape[1]:
+        raise ValueError("centroids must be a [C, D] tensor of the rows' width")
+    if assign.dtype != torch.int32 or assign.shape != (xs.shape[0],) or not assign.is_contiguous():
+        raise ValueError("assign must be a contiguous int32 [n] tensor")
+    n, dim = xs.shape
+    nlists = c.shape[0]
+    nbytes = lib.ivf_kmeans_update_scratch_bytes(n, dim, nlists)
+    if nbytes < 0:
+        raise ValueError(f"ivf_kmeans_update takes no rows of shape {tuple(xs.shape)}")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=xs.device)
+    new = torch.empty_like(c)
+    counts = torch.empty(nlists, dtype=torch.int32, device=c.device)
+    status = lib.ivf_kmeans_update(
+        xp, bf16, n, dim, assign.data_ptr(), c.data_ptr(), nlists, scratch.data_ptr(),
+        new.data_ptr(), counts.data_ptr(),
+        torch.cuda.current_stream().cuda_stream if xs.device.type == "cuda" else None,
+    )
+    _cuda.check(status, "ivf_kmeans_update")
+    return new, counts
+
+
 def kmeans_update(xs: torch.Tensor, assign: torch.Tensor, c: torch.Tensor):
     """K4's update: (new centroids [C, D] f32, counts [C] int32) from the
     rows xs [n, D], their assignment [n] int32 and the centroids c [C, D]."""
@@ -252,20 +282,10 @@ def kmeans_update(xs: torch.Tensor, assign: torch.Tensor, c: torch.Tensor):
         return kmeans_update_plain(xs, assign, c)
     from surrealdb_tpu_torch.ops import _cuda
 
-    xp, bf16 = _rows_ptr(xs)
-    c = c.float().contiguous()
-    if assign.dtype != torch.int32 or assign.shape != (xs.shape[0],) or not assign.is_contiguous():
-        raise ValueError("assign must be a contiguous int32 [n] tensor")
-    new = torch.empty_like(c)
-    counts = torch.empty(c.shape[0], dtype=torch.int32, device=c.device)
     with torch.cuda.device(xs.device):
-        status = _cuda.lib().ivf_kmeans_update(
-            xp, bf16, xs.shape[0], xs.shape[1], assign.data_ptr(), c.data_ptr(), c.shape[0],
-            new.data_ptr(), counts.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-        _cuda.check(status, "ivf_kmeans_update")
+        out = _launch_kmeans_update(_cuda.lib(), xs, assign, c)
     KMEANS_UPDATE.bump()
-    return new, counts
+    return out
 
 
 def _kmeans_step(xs: torch.Tensor, c: torch.Tensor, nlists: int) -> torch.Tensor:

@@ -63,7 +63,9 @@ _SIGNATURES = {
                                   _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P]),
     "ivf_assign_limb_pitch": (ctypes.c_int, [ctypes.c_int]),
     "ivf_kmeans_update": (ctypes.c_int, [_P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                                         _P, _P, ctypes.c_int, _P, _P, _P]),
+                                         _P, _P, ctypes.c_int, _P, _P, _P, _P]),
+    "ivf_kmeans_update_scratch_bytes": (ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_int,
+                                                            ctypes.c_int]),
     "ivf_rerank": (ctypes.c_int, [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                   _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong, _P, _P,
                                   ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int,

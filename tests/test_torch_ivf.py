@@ -161,6 +161,21 @@ def test_kmeans_update_counts_each_cluster():
     assert not new[9].any()  # empty: kept
 
 
+@pytest.mark.parametrize("corpus", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_index_reduce_mean_is_the_update(corpus):
+    """chip_smoke.py times `c.clone().index_reduce_(0, a, x.float(), "mean",
+    include_self=False)` beside the K4 update as its one-call yardstick: it
+    computes the plain update, an empty cluster keeping its centroid."""
+    xs = torch.from_numpy(_mixture(3000, 16, clusters=8, seed=8)).to(corpus)
+    a = torch.from_numpy(np.random.default_rng(8).integers(0, 11, size=3000).astype(np.int32))
+    a[a == 4] = 5  # cluster 4 empty
+    c = torch.from_numpy(np.random.default_rng(9).normal(size=(12, 16)).astype(np.float32))
+    want = P.kmeans_update_plain(xs, a, c)[0]
+    got = c.clone().index_reduce_(0, a.long(), xs.float(), "mean", include_self=False)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert torch.equal(got[[4, 11]], c[[4, 11]])
+
+
 @pytest.mark.parametrize("iters", [0, 8])
 def test_kmeans_xs_picks_the_same_sample(iters):
     xs = _mixture(4000, 16, seed=7)

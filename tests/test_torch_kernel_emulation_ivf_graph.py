@@ -9,10 +9,15 @@ another order), misses (+inf / -1) exact, ids equal up to ties at the k-th
 distance; its two modes (pair-major, list-major) bit-equal to each other,
 picks and order; on rows that all tie, ids and order exact; the K5
 assignment's ids exact except where two centroids' distances tie within
-that tolerance; the K4 update's counts exact and its centroids bit-equal to
-the CPU's index_add_, which adds in row order as the kernel must; the graph
-kernels (K6, K7) exact: integer counts, node ids and their order.
+that tolerance; the K4 update's counts exact, its centroids within rtol
+1e-5, atol 1e-4 of the plain version (f32 sums in another order) and bit-equal
+to a numpy f32 rendering of the order ivf.cu states (a centroid's rows in row
+order, summed in runs of UP_ITEM, the runs' sums added in order), two
+launches bit-equal; the graph kernels (K6, K7) exact: integer counts, node
+ids and their order.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -223,31 +228,123 @@ def test_k5_planted_fault_fails_the_comparison(tmp_path, fault):
                         D.pairwise_distance_plain(x, cents, "euclidean"))
 
 
-@pytest.mark.parametrize("skewed", [False, True], ids=["uniform", "skewed"])
-@pytest.mark.parametrize("corpus", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_k4_update_matches_plain(lib, corpus, skewed):
-    rng = np.random.default_rng(9)
-    n = 5001  # three compaction rounds, the last one short
-    xs = torch.from_numpy(rng.standard_normal((n, 24)).astype(np.float32)).to(corpus)
-    c = torch.from_numpy(rng.standard_normal((20, 24)).astype(np.float32))
-    a = rng.integers(0, 20, size=n).astype(np.int32)
-    if skewed:  # one centroid takes most rows: a whole round in one list
+# K4's update cases: (rows, centroids, columns, what is special). Every
+# case leaves centroid 7 empty; n = 5,001 ends in a short tile and a short
+# run of UP_ITEM rows.
+_K4_CASES = {
+    "uniform": (5001, 20, 24, None),
+    "skewed": (5001, 20, 24, "skewed"),  # 90% of the rows to centroid 3: 36 items
+    "empty": (5001, 20, 24, "empty"),  # every odd centroid empty
+    "odd_c_d20": (5001, 37, 20, "skewed"),  # bf16 rows not 16-byte multiples: one value a load
+    "d19": (5001, 20, 19, "skewed"),  # f32 rows too; the combine one value a load
+    "unaligned": (5001, 20, 24, "unaligned"),  # rows off a 16-byte boundary
+    "outside": (5001, 20, 24, "outside"),  # entries -1 and C: in no cluster
+    "long_tiles": (70001, 37, 20, None),  # tiles of two 2,048-entry chunks, the last short
+}
+
+
+def _k4_case(corpus, case, seed=9):
+    n, nlists, dim, how = _K4_CASES[case]
+    rng = np.random.default_rng(seed)
+    xs = torch.from_numpy(rng.standard_normal((n, dim)).astype(np.float32)).to(corpus)
+    if how == "unaligned":  # one element into a flat buffer
+        flat = torch.empty(n * dim + 1, dtype=corpus)
+        flat[1:] = xs.reshape(-1)
+        xs = flat[1:].view(n, dim)
+        assert xs.data_ptr() % 16 != 0
+    c = torch.from_numpy(rng.standard_normal((nlists, dim)).astype(np.float32))
+    a = rng.integers(0, nlists, size=n).astype(np.int32)
+    if how == "skewed":
         a[rng.random(n) < 0.9] = 3
+    if how == "empty":
+        a &= ~1
     a[a == 7] = 8  # centroid 7 stays empty and keeps its value
-    assign = torch.from_numpy(a)
-    new = torch.empty_like(c)
-    counts = torch.empty(20, dtype=torch.int32)
-    status = lib.ivf_kmeans_update(
-        xs.data_ptr(), int(corpus == torch.bfloat16), n, 24, assign.data_ptr(),
-        c.data_ptr(), 20, new.data_ptr(), counts.data_ptr(), None,
-    )
-    assert status == 0
-    want, want_counts = IVF.kmeans_update_plain(xs, assign, c)
-    assert torch.equal(counts, want_counts) and int(counts[7]) == 0
-    assert torch.equal(new[7], c[7])
-    torch.testing.assert_close(new, want, rtol=1e-5, atol=1e-4)
-    # the sums run in row order, as the CPU's index_add_ adds: bit-equal
-    assert torch.equal(new, want)
+    if how == "outside":
+        a[rng.random(n) < 0.05] = -1
+        a[rng.random(n) < 0.05] = nlists
+    return xs, torch.from_numpy(a), c
+
+
+def _k4_item_rows():
+    """UP_ITEM of csrc/ivf.cu: the members a work item sums, at most."""
+    return int(re.search(r"constexpr int UP_ITEM = (\d+);", _source("ivf.cu")).group(1))
+
+
+def _k4_render(xs, assign, c):
+    """The update in the order ivf.cu states, in numpy f32: a centroid's
+    rows in row order cut into runs of UP_ITEM; each run summed from 0 in
+    row order; one run: its sum / count; more: 0 + run 0 + run 1 + ...,
+    then / count; an empty centroid keeps its value; an entry outside [0,
+    C) belongs to no centroid."""
+    x, a, new = xs.float().numpy(), assign.numpy(), c.numpy().copy()
+    run = _k4_item_rows()
+    for k in range(len(new)):
+        rows = np.nonzero(a == k)[0]
+        if rows.size:
+            sums = [np.add.accumulate(x[rows[i:i + run]], axis=0, dtype=np.float32)[-1]
+                    for i in range(0, rows.size, run)]
+            tot = np.add.accumulate(np.stack(sums), axis=0, dtype=np.float32)[-1]
+            new[k] = tot / np.float32(rows.size)
+    return torch.from_numpy(new)
+
+
+def _k4_failures(lib, xs, assign, c):
+    """What the emulated update gets wrong on one case (empty: nothing):
+    counts exact, the centroids within tolerance of the plain version,
+    bit-equal to the stated order, empty centroids kept, a second launch
+    bit-equal."""
+    new, counts = IVF._launch_kmeans_update(lib, xs, assign, c)
+    ok = (assign >= 0) & (assign < c.shape[0])
+    want, want_counts = IVF.kmeans_update_plain(xs[ok], assign[ok], c)
+    bad = []
+    if not torch.equal(counts, want_counts):
+        bad.append("counts")
+    if not torch.allclose(new, want, rtol=1e-5, atol=1e-4):
+        bad.append(f"tolerance ({float((new - want).abs().max())})")
+    if not torch.equal(new, _k4_render(xs, assign, c)):
+        bad.append("stated order")
+    if not torch.equal(new[want_counts == 0], c[want_counts == 0]):
+        bad.append("empty centroids")
+    if not torch.equal(IVF._launch_kmeans_update(lib, xs, assign, c)[0], new):
+        bad.append("second launch")
+    return bad
+
+
+@pytest.mark.parametrize("case", list(_K4_CASES))
+@pytest.mark.parametrize("corpus", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k4_update_matches_plain(lib, corpus, case):
+    """The update on each case of _K4_CASES: counts exact, within tolerance
+    of the plain version, bit-equal to the order ivf.cu states, and the
+    same bits on a second launch."""
+    xs, assign, c = _k4_case(corpus, case)
+    assert int((assign == 7).sum()) == 0
+    assert _k4_failures(lib, xs, assign, c) == []
+
+
+_K4_FAULTS = {
+    # the combine leaves out a heavy centroid's first item
+    "combine_drops_first_item": ("for (int k = 0; k < ni; k += UP_LOADS) {",
+                                 "for (int k = 1; k < ni; k += UP_LOADS) {"),
+    # the scatter's warps take their turns last to first: each centroid's
+    # rows out of row order
+    "scatter_turns_reversed": ("if (warp == w) {", "if (warp == UP_WARPS - 1 - w) {"),
+    # a warp's equal entries placed from the highest lane down
+    "scatter_lanes_reversed": ("const int rank = __popc(peers[u] & ((1u << lane) - 1u));",
+                               "const int rank = __popc(peers[u] >> lane) - 1;"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(_K4_FAULTS))
+def test_k4_planted_fault_fails_the_comparison(tmp_path, fault):
+    """The K4 comparison has teeth: a copy of ivf.cu with one fault planted
+    in the ticketed combine or in the scatter fails it on the skewed case
+    (a centroid over 36 items; three tiles)."""
+    src = _source("ivf.cu")
+    old, new = _K4_FAULTS[fault]
+    assert src.count(old) == 1
+    bad = _build_emu(tmp_path, {"ivf.cu": src.replace(old, new)})
+    xs, assign, c = _k4_case(torch.bfloat16, "skewed")
+    assert _k4_failures(bad, xs, assign, c)
 
 
 def _ivf_case(rng, corpus, metric):
