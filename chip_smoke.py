@@ -36,8 +36,11 @@ Phases, one JSON line each (or more):
    against its plain version and its times, on the trained state;
 5. the graph kernels K6 graph_chain, K7 graph_csc_count and K8
    graph_dense_count against their plain versions, exactly, on bench config
-   1's adjacency (10,000 `person` nodes, 1,000,000 `knows` edges), and their
-   times;
+   1's adjacency (10,000 `person` nodes, 1,000,000 `knows` edges; K6 also
+   with int32 counts that wrap, a frontier that touches the sentinel, two
+   mirrors a hop, calls back to back that leave its scratch zero, and a
+   planted failed call followed by a good one), and their times (K6's
+   beside the floors of its old dense design and its bitmap design);
 6. the graph main path: config 1 ingested with INSERT / INSERT RELATION,
    then `count(->knows->person x3)` (K8) sequentially and from 32 clients,
    the odd 5-spec count (K7) and the friends-of-friends expand (K6); every
@@ -45,14 +48,22 @@ Phases, one JSON line each (or more):
 7. bm25_kernels: K9 bm25_scores and bm25_topk against their plain versions
    at config 3's candidate shapes (N up to 2^20, T in {1, 2, 8}, int32 and
    f32 tf, a total length above 2^24), their times, and the crossover of
-   the engine's device path against the numpy twin;
+   the engine's device path against the numpy twin; then K9's match
+   (bm25_match_scores) over config 3's postings on the card against its
+   plain version (dids equal, scores bit-equal, also to bm25_scores' on the
+   same tf rows: T 1, 2, 3 and 8, rarest lists of one did, one tile and many
+   tiles, empty and full intersections, the largest did, stats_override
+   df), its times at the median query, and the engine's per-query paths
+   (the match, the old device path, the host path) in the crossover rows;
 8. the full-text main path: bench config 3 (1,000,000 documents of 12
    zipf-drawn words) ingested with INSERT, then bench_bm25's `@1@ ... ORDER
    BY sc DESC LIMIT 10` queries sequentially and from 32 clients and one
    broad one-term query, with cnf.TPU_FT_ONDEVICE_THRESHOLD lowered to 1 so
-   every non-empty candidate set launches K9 (the launches must equal
-   them), then again at the default threshold (the numpy twin); every
-   answer equals an independent numpy BM25 over the generated words;
+   every query whose words all have postings launches K9's match once (the
+   launches must equal them; the first query uploads the postings), one
+   query inside a transaction that writes to the index (K9 bm25_scores),
+   then again at the default threshold (the numpy twin); every answer
+   equals an independent numpy BM25 over the generated words;
 9. the ML main path, run on phase 4's Datastore before it closes (its
    2^20 x 768 items and HNSW mirror; nothing re-ingested): bench config 5,
    `SELECT VALUE ml::scorer<1>(emb) FROM item` with a linear 768 -> 1
@@ -1632,6 +1643,56 @@ def phase_graph_kernels(torch):
         check("graph_chain", f"{label}_fsz{ffsz}_outs{'-'.join(map(str, outs))}",
               G.chain_kernel(hops, f1, c1, mds, n_cap, outs, count_only),
               G.chain_plain(hops, f1, c1, mds, n_cap, outs, count_only))
+    # K6's touched-node design: counts that wrap in int32, a frontier that
+    # touches the sentinel, two mirrors a hop, each twice back to back over
+    # the cached scratch (zero after every call), then a planted failed call
+    # (a hop's second mirror with no max degree fails after the first's
+    # gather) and a good call after it
+    from surrealdb_tpu_torch.ops import _cuda
+
+    sc = G.chain_scratch(_cuda.lib(), dev, n_cap)
+    wptr = np.zeros(n_cap + 1, dtype=np.int64)
+    wadj = {0: [5] * 3 + [6] * 4 + [8] * 2 + [7], 2: [n_cap, n_cap + 9, 1 << 30, -4, 3]}
+    for src, dst in wadj.items():
+        wptr[src + 1] = len(dst)
+    widx = np.zeros(16, dtype=np.int32)
+    widx[:15] = [d for src in sorted(wadj) for d in wadj[src]]
+    wrap = (t(np.cumsum(wptr).astype(np.int32)), t(widx))
+    wfr = t(np.array([0, 2, 2, n_cap, 9, 0, nodes + 7], dtype=np.int32))
+    wcw = t(np.array([1 << 30, 1, 2, 7, 0, 0, 3], dtype=np.int32))
+    scratch_zero = []
+    new_cases = (
+        ("wrapped_counts_and_sentinel_1hop", ((wrap,),), wfr, wcw, ((16,),), (16,), False),
+        ("wrapped_counts_and_sentinel_2hops", ((wrap,), (wrap,)), wfr, wcw, ((16,), (16,)),
+         (16, 16), False),
+        ("two_mirrors_a_hop", ((kp,), (pk, pk)), f1, c1, ((1,), (md_pk, md_pk)),
+         out3[:2], False),
+        ("two_mirrors_a_hop_count", ((kp,), (pk, pk), (kp,)), f1, c1,
+         ((1,), (md_pk, md_pk), (1,)), out3, True),
+    )
+    for rep in range(2):
+        for label, hops, fr_, cw_, mds, outs, count_only in new_cases:
+            check("graph_chain", f"{label}_call{rep + 1}",
+                  G.chain_kernel(hops, fr_, cw_, mds, n_cap, outs, count_only),
+                  G.chain_plain(hops, fr_, cw_, mds, n_cap, outs, count_only))
+            zero = not (bool(sc.cnt.any()) or bool(sc.bits.any()) or bool(sc.state.any()))
+            scratch_zero.append(zero)
+            require(zero and not sc.dirty, f"graph_chain {label}: the scratch is not zero")
+    failed = None
+    try:
+        G.chain_kernel(((kp, kp),), f1, c1, ((1, 0),), n_cap, out1, False)
+    except RuntimeError as e:
+        failed = str(e)
+    torch.cuda.synchronize()
+    dirty = sc.dirty and bool(sc.cnt.any()) and bool(sc.bits.any())
+    emit("graph_check", kernel="graph_chain", case="planted_failed_call", raised=failed,
+         scratch_dirty=dirty)
+    require(failed is not None and dirty, "the planted failed graph_chain call left no trace")
+    check("graph_chain", "after_the_failed_call", G.chain_kernel(one, f1, c1, ((1,),), n_cap,
+                                                                  out1, False),
+          G.chain_plain(one, f1, c1, ((1,),), n_cap, out1, False))
+    require(not (sc.dirty or bool(sc.cnt.any()) or bool(sc.bits.any())),
+            "graph_chain left its scratch dirty after the good call")
 
     # times at the main path's shapes: K8 a 3-hop count at 32 lanes (two
     # products), K7 the 5-spec count at 32 lanes (four CSC hops), K6 the
@@ -1703,15 +1764,44 @@ def phase_graph_kernels(torch):
     k6_bytes = 2 * ffsz * 4 + 2 * int(fnodes.size) * 4 + touched * 4 + 2 * ffsz * 4
     k6_bound, k6_by = bound_ms(k6_bytes, float(touched), "float32")
     k6 = lambda: G.chain_kernel(one, f1, c1, ((1,),), n_cap, out1, False)  # noqa: E731
+    nodes_out = int((k6()[1] > 0).sum())
+    words = int(sc.bits.numel())
     timing["graph_chain"] = dict(
         ms=median_ms(k6), queued_ms=queued_device_ms(torch, k6),
         plain_ms=median_ms(lambda: G.chain_plain(one, f1, c1, ((1,),), n_cap, out1, False),
                            iters=5),
         library_ms=None, bound_ms=k6_bound, bound_by=k6_by,
+        # the floors of the two designs: the old one memsets and scans the
+        # dense [n_cap + 1] array; the new one reads the bitmap, and reads
+        # and clears each touched node's count and bitmap word
+        bound_with_dense_ms=bound_ms(k6_bytes + 2 * 4 * (n_cap + 1), float(touched),
+                                     "float32")[0],
+        bound_with_bitmap_ms=bound_ms(k6_bytes + 4 * words + 12 * nodes_out, float(touched),
+                                      "float32")[0],
+        kernels_per_call=kernels_per_call(torch, k6),
         shape={"fsz": ffsz, "frontier": int(fnodes.size), "n_cap": n_cap, "md": 1,
-               "out_size": ffsz},
+               "out_size": ffsz, "touched": nodes_out, "bitmap_words": words},
     )
     emit("timing_graph", **timing)
+    # the wrapper's host side: one allocation a call (what it returns),
+    # where the dense design made five
+    def enqueue():
+        t0 = time.perf_counter()
+        k6()
+        return (time.perf_counter() - t0) * 1e3
+
+    def old_allocs():
+        for n in (ffsz, ffsz, n_cap + 1, (n_cap + 2047) // 2048, 1):
+            torch.empty(n, dtype=torch.int32, device=dev)
+
+    enq = [enqueue() for _ in range(30)]
+    torch.cuda.synchronize()
+    emit("host_side", kernel="graph_chain", torch_empty_a_call=1,
+         call_enqueue_host_ms=statistics.median(enq[5:]),
+         alloc_host_ms=median_host_ms(lambda: torch.empty(2 * ffsz, dtype=torch.int32,
+                                                          device=dev)),
+         old_five_allocs_host_ms=median_host_ms(old_allocs), call_event_ms=timing[
+             "graph_chain"]["ms"])
     return {"checks": checks, "max_abs_err": err, "timing": timing}
 
 
@@ -1968,6 +2058,14 @@ class FtReference:
         self.W, self.k1, self.b = words, k1, b
         self.n = words.shape[0]
         self.tl = float(words.size)
+        # each word's document frequency (the length of its posting list)
+        key = np.unique(np.arange(self.n, dtype=np.int64)[:, None] * FT_VOCAB + words)
+        self.df = np.bincount(key % FT_VOCAB, minlength=FT_VOCAB)
+
+    def rarest(self, ranks) -> int:
+        """The shortest posting list among the query's words (0: a word no
+        document has)."""
+        return int(min(self.df[int(r)] for r in ranks))
 
     def top(self, ranks, k: int = 10):
         """-> (ids, scores) of the k best documents, and the candidate count."""
@@ -2031,14 +2129,205 @@ def median_host_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+# the match checks' synthetic terms (ft_postings)
+FT_EXTRA = ("one", "tile", "all", "even", "odd", "all2", "all3", "third", "not_seventh")
+
+
+def ft_postings(n_docs: int, seed: int = 7):
+    """Config 3's postings built directly with numpy (ft_ingest's
+    generator, no SQL): the 2,000 words' lists (ids ascending, tf the
+    word's count in the document, lengths 12 with 1% tombstoned at 0),
+    then FT_EXTRA's terms for the match checks (tf 1-2): the last document
+    alone (the largest did), 256 documents (one tile), every document, the
+    even and the odd ones, every document twice more, every third, all but
+    every seventh. -> (indptr, dids, tfs, lens)"""
+    rng = np.random.default_rng(seed)
+    w = 1.0 / (np.arange(FT_VOCAB) + 10.0)
+    words = rng.choice(FT_VOCAB, size=(n_docs, FT_WORDS), p=w / w.sum())
+    key, tf = np.unique(words.astype(np.int64) * n_docs + np.arange(n_docs)[:, None],
+                        return_counts=True)
+    every = np.arange(n_docs)
+    extra = [np.array([n_docs - 1]), np.sort(rng.choice(n_docs, 256, replace=False)), every,
+             every[::2], every[1::2], every, every, every[::3], every[every % 7 != 0]]
+    counts = list(np.bincount(key // n_docs, minlength=FT_VOCAB)) + [len(e) for e in extra]
+    indptr = np.zeros(len(counts) + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    dids = np.concatenate([key % n_docs] + extra)
+    tfs = np.concatenate([tf.astype(np.float32)]
+                         + [rng.integers(1, 3, len(e)).astype(np.float32) for e in extra])
+    lens = np.full(n_docs, float(FT_WORDS), dtype=np.float32)
+    lens[rng.random(n_docs) < 0.01] = 0.0
+    return indptr, dids, tfs, lens
+
+
+def search_order(indptr, tids):
+    """FtMirror.search's term order: rarest first, ties in query order."""
+    return sorted(dict.fromkeys(int(t) for t in tids), key=lambda t: indptr[t + 1] - indptr[t])
+
+
+def host_and(indptr, dids, tids):
+    """The reference's AND-match on the host -> the matched dids."""
+    cand = dids[indptr[tids[0]]:indptr[tids[0] + 1]]
+    for t in tids[1:]:
+        d = dids[indptr[t]:indptr[t + 1]]
+        pos = np.clip(np.searchsorted(d, cand), 0, len(d) - 1)
+        cand = cand[d[pos] == cand]
+    return cand
+
+
+def match_bytes(indptr, dids, tids, matches: int) -> int:
+    """The bytes a match must move: the rarest list's dids and tf, each
+    other list's dids over the rarest list's did span, the matches' tf of
+    every other list and lengths, and the output pairs with the count."""
+    first = dids[indptr[tids[0]]:indptr[tids[0] + 1]]
+    n = 8 * first.size + 8 + 16 * len(tids)
+    for t in tids[1:]:
+        d = dids[indptr[t]:indptr[t + 1]]
+        n += 4 * int(np.searchsorted(d, first[-1], "right") - np.searchsorted(d, first[0]))
+    return n + matches * (4 * (len(tids) - 1) + 4 + 8)
+
+
+def phase_bm25_match(torch):
+    """K9's match (bm25_match_scores) against its plain version on the
+    card, over config 3's postings (ft_postings) on the card: T = 1, 2, 3
+    and 8; rarest lists of one did (the largest), one tile and many tiles;
+    empty and full intersections; stats_override df values. The dids must
+    be equal and the scores bit-equal, both to the plain version's and to
+    bm25_scores' on the same tf rows, and the look-back state zero after.
+    Then its times at config 3's median query and the engine's per-query
+    paths (the match; the old host AND-match + uploads + bm25_scores +
+    download; the host AND-match + the numpy twin) by candidate count."""
+    from surrealdb_tpu_torch import cnf
+    from surrealdb_tpu_torch.idx.ft_mirror import FtMirror
+    from surrealdb_tpu_torch.ops import _cuda
+    from surrealdb_tpu_torch.ops import bm25 as B
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    indptr, dids, tfs, lens = ft_postings(FT_DOCS)
+    build_s = time.perf_counter() - t0
+    post = B.upload_postings(indptr, dids, tfs, lens, dev)
+    emit("bm25_match_postings", docs=FT_DOCS, postings=int(indptr[FT_VOCAB]),
+         bytes=post.nbytes, upload_s=post.seconds, numpy_build_s=build_s)
+    ex = {name: FT_VOCAB + i for i, name in enumerate(FT_EXTRA)}
+    dc, tl = np.float32(FT_DOCS), np.float32(float(lens.sum()))
+    pairs = ft_query_pairs(88)
+    counts = [host_and(indptr, dids, search_order(indptr, p)).size for p in pairs]
+    med = pairs[int(np.argsort(counts)[len(counts) // 2])]
+    cases = [
+        ("T1_word", [50], None), ("T1_largest_did", [ex["one"]], None),
+        ("T1_one_tile", [ex["tile"]], None), ("T1_every_doc", [ex["all"]], None),
+        ("T2_median_query", list(med), None), ("T2_largest_did", [ex["one"], ex["all"]], None),
+        ("T2_full", [ex["tile"], ex["all"]], None), ("T2_empty", [ex["even"], ex["odd"]], None),
+        ("T2_many_tiles", [0, 1], None), ("T3_words", [110, 50, 10], None),
+        ("T3", [10, ex["all"], ex["even"]], None),
+        ("T8", [10, 11, ex["all"], ex["all2"], ex["all3"], ex["even"], ex["third"],
+                ex["not_seventh"]], None),
+        ("T8_one_tile", [ex["tile"], ex["all"], ex["all2"], ex["all3"], ex["odd"], 0, 1, 2],
+         None),
+        ("T2_stats_override", list(med), [400_000.0, 12.5]),
+    ]
+    err, checks = 0.0, []
+    for label, terms, odf in cases:
+        tids = search_order(indptr, terms)
+        df = np.array(odf or [indptr[t + 1] - indptr[t] for t in tids], dtype=np.float32)
+        cdc, ctl = (np.float32(3e6), np.float32(36_000_001.0)) if odf else (dc, tl)
+        got_d, got_s = B.bm25_match_scores(post, tids, df, cdc, ctl)
+        want_d, want_s = B.bm25_match_scores_plain(post, tids, df, cdc, ctl)
+        host_d = host_and(indptr, dids, tids)
+        ok = np.array_equal(got_d, want_d) and np.array_equal(got_d, host_d) and \
+            np.array_equal(got_s.view(np.int32), want_s.view(np.int32))
+        same_bits = True
+        if got_d.size:
+            rows = np.stack([tfs[indptr[t]:indptr[t + 1]][
+                np.searchsorted(dids[indptr[t]:indptr[t + 1]], got_d)] for t in tids], 1)
+            ref = B.bm25_scores(torch.from_numpy(rows).to(dev), torch.from_numpy(df).to(dev),
+                                post.doc_len[torch.from_numpy(got_d).to(dev)], cdc, ctl)
+            same_bits = np.array_equal(ref.cpu().numpy().view(np.int32), got_s.view(np.int32))
+        state_zero = not bool(B.match_scratch(dev).state.any())
+        e = float(np.abs(got_s - want_s).max()) if got_s.size and got_d.size == want_d.size \
+            else 0.0
+        err = max(err, e)
+        checks.append(dict(case=label, t=len(tids), rarest=int(indptr[tids[0] + 1]
+                                                               - indptr[tids[0]]),
+                           matches=int(got_d.size), exact=ok, bm25_scores_bits=same_bits,
+                           state_zero=state_zero))
+        emit("bm25_match_check", **checks[-1], max_abs_err=e)
+        require(ok and same_bits and state_zero,
+                f"bm25_match_scores {label} disagrees with its plain version")
+        if label == "T2_empty":
+            require(got_d.size == 0, "the even and odd lists intersect")
+        if label in ("T2_full", "T1_every_doc"):
+            require(got_d.size == indptr[tids[0] + 1] - indptr[tids[0]], f"{label} lost dids")
+    # times at config 3's median query
+    tids = search_order(indptr, med)
+    df = np.array([indptr[t + 1] - indptr[t] for t in tids], dtype=np.float32)
+    n_match = host_and(indptr, dids, tids).size
+    lib, sc = _cuda.lib(), B.match_scratch(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    nbytes = match_bytes(indptr, dids, tids, n_match)
+    bound, by = bound_ms(nbytes, 5.0 * n_match * len(tids), "float32")
+    call = lambda: B.bm25_match_scores(post, tids, df, dc, tl)  # noqa: E731
+    launch = lambda: B._launch_match(lib, post, tids, df, dc, tl, 1.2, 0.75, sc, stream,  # noqa: E731
+                                     download=False)
+    timing = dict(
+        ms=median_ms(call, iters=20), queued_ms=queued_device_ms(torch, launch),
+        launch_ms=median_ms(launch, iters=20),
+        plain_ms=median_ms(lambda: B.bm25_match_scores_plain(post, tids, df, dc, tl)),
+        library_ms=None, bound_ms=bound, bound_by=by, bound_bytes=nbytes,
+        engine_call_host_ms=median_host_ms(call),
+        kernels_per_call=kernels_per_call(torch, launch),
+        shape={"t": len(tids), "rarest": int(indptr[tids[0] + 1] - indptr[tids[0]]),
+               "matches": int(n_match), "query_ranks": [int(r) for r in med]},
+    )
+    emit("timing_bm25_match", **timing)
+    # the wrapper's host side: no allocation a call (its scratch is cached)
+    emit("host_side", kernel="bm25_match_scores", torch_empty_a_call=0,
+         call_host_ms=timing["engine_call_host_ms"], call_event_ms=timing["ms"])
+    # the engine's per-query paths on config-3 queries, nearest each count
+    arrays = (indptr, dids, tfs, lens)
+    queries = [search_order(indptr, p) for p in pairs] + [[r] for r in range(0, 120, 3)] + \
+        [[ex["all"]]]
+    qcount = [host_and(indptr, dids, q).size for q in queries]
+    paths = {}
+    saved = cnf.TPU_FT_ONDEVICE_THRESHOLD
+    cnf.TPU_FT_ONDEVICE_THRESHOLD = 1  # score_candidates takes the card
+    try:
+        for n in (500, 1000, 2000, 3000, 5000, 8000, 11_000, 202_000, 1 << 20):
+            i = int(np.argmin([abs(c - n) for c in qcount]))
+            q = queries[i]
+            qdf = np.array([indptr[t + 1] - indptr[t] for t in q], dtype=np.float32)
+
+            def old_device(q=q, qdf=qdf):
+                cand, tf, ln = FtMirror._and_match(arrays, q)
+                return B.score_candidates(dev, tf, qdf, ln, dc, tl)
+
+            def host(q=q, qdf=qdf):
+                cand, tf, ln = FtMirror._and_match(arrays, q)
+                return B.bm25_scores_host(tf, qdf, ln, dc, tl)
+
+            paths[n] = dict(
+                query_candidates=qcount[i], query_rarest=int(indptr[q[0] + 1] - indptr[q[0]]),
+                engine_match_path_ms=median_host_ms(
+                    lambda q=q, qdf=qdf: B.bm25_match_scores(post, q, qdf, dc, tl)),
+                engine_old_device_path_ms=median_host_ms(old_device),
+                engine_host_path_ms=median_host_ms(host),
+            )
+    finally:
+        cnf.TPU_FT_ONDEVICE_THRESHOLD = saved
+    emit("bm25_match_paths", by_n=paths)
+    return {"max_abs_err": err, "checks": checks, "timing": timing, "paths": paths}
+
+
 def phase_bm25_kernels(torch):
     """K9 bm25_scores and bm25_topk against their plain versions on the
     card at config 3's shapes (N in {1,000, 11,000, 202,000, 2^20}
     candidates, T in {1, 2, 8}, int32 and f32 tf, one total length above
     2^24), then at T = 2: the kernel's median time beside its bytes bound
-    and the plain version's, bm25_topk's, and the crossover: the device
-    path as the engine runs it (upload tf / df / lengths, launch, download)
-    beside the numpy twin on the same arrays."""
+    and the plain version's, bm25_topk's, and the crossover: the old device
+    path (upload tf / df / lengths, launch, download) beside the numpy twin
+    on the same arrays; then K9's match (phase_bm25_match), whose per-query
+    paths join the crossover rows."""
     from surrealdb_tpu_torch import cnf
     from surrealdb_tpu_torch.ops import bm25 as B
 
@@ -2098,10 +2387,14 @@ def phase_bm25_kernels(torch):
                 engine_device_path_ms=median_host_ms(lambda: B.score_candidates(dev, *host)),
                 engine_host_twin_ms=median_host_ms(lambda: B.bm25_scores_host(*host)),
             )
-        emit("bm25_crossover", t=2, by_n=crossover)
     finally:
         cnf.TPU_FT_ONDEVICE_THRESHOLD = saved
-    return {"max_abs_err": err, "timing": timing, "crossover": crossover, "checks": len(cases)}
+    match = phase_bm25_match(torch)
+    for n, row in match["paths"].items():  # the engine's new per-query path beside the old
+        crossover[n].update(row)
+    emit("bm25_crossover", t=2, by_n=crossover)
+    return {"max_abs_err": err, "timing": timing, "crossover": crossover, "checks": len(cases),
+            "match": match}
 
 
 def phase_main_path_bm25(torch, device: str, n_docs: int, batch: int, n_seq: int,
@@ -2109,9 +2402,13 @@ def phase_main_path_bm25(torch, device: str, n_docs: int, batch: int, n_seq: int
     """Bench config 3 through Datastore.execute: ingest as bench.py
     ingest_docs does, then bench_bm25's queries sequentially and from
     n_threads clients, and the broad one-term query on w0000, with
-    cnf.TPU_FT_ONDEVICE_THRESHOLD lowered to 1 so every non-empty candidate
-    set launches K9; then the sequential queries again at the default
-    threshold (the numpy twin). Every answer must equal FtReference's."""
+    cnf.TPU_FT_ONDEVICE_THRESHOLD lowered to 1 so every query whose words
+    all have postings launches K9's match (bm25_match_scores, over the
+    postings the first query uploads) once, and nothing launches
+    bm25_scores; then one query inside a transaction that writes to the
+    index (the KV path: one bm25_scores); then the sequential queries again
+    at the default threshold (the match where the rarest list reaches it,
+    here none: the numpy twin). Every answer must equal FtReference's."""
     from surrealdb_tpu_torch import cnf
     from surrealdb_tpu_torch.kvs.ds import Datastore
 
@@ -2142,7 +2439,13 @@ def phase_main_path_bm25(torch, device: str, n_docs: int, batch: int, n_seq: int
         cnf.TPU_FT_ONDEVICE_THRESHOLD = 1
         t = time.perf_counter()
         check(0, run(FT_SQL.format(texts[0])), "first query")
-        first_query_s = time.perf_counter() - t  # builds the mirror
+        first_query_s = time.perf_counter() - t  # builds the mirror, uploads the postings
+        mirror = ds.index_stores.get("test", "test", "doc", "fbody")
+        post = mirror._dev[2] if mirror is not None and mirror._dev else None
+        postings = None if post is None else dict(
+            device=str(post.device), bytes=post.nbytes, upload_s=post.seconds,
+            postings=int(mirror.t_indptr[-1]))
+        emit("bm25_postings_on_device", first_query_s=first_query_s, postings=postings)
         mem0 = window_start(torch, device)
         # what still holds device memory from earlier phases: every tensor
         # of 16 MB or more (this phase's own are a few MB)
@@ -2162,11 +2465,15 @@ def phase_main_path_bm25(torch, device: str, n_docs: int, batch: int, n_seq: int
         for i, res in enumerate(results):
             check(i, res, "threshold 1")
         non_empty = sum(c > 0 for c in cand)
+        # the match runs once a query whose every word has postings (the
+        # rarest list reaches threshold 1), scoring on the card; no bm25_scores
+        ranks = [list(p) for p in pairs] + [[0]]
+        with_postings = sum(ref.rarest(r) > 0 for r in ranks)
         if device == "cuda":
             want_l = {c.name: 0 for c in kernel_counters()}
-            want_l["bm25_scores"] = non_empty
+            want_l["bm25_match_scores"] = with_postings
             require(launches == want_l,
-                    f"launches {launches}, expected {non_empty} bm25_scores")
+                    f"launches {launches}, expected {with_postings} bm25_match_scores")
         busy = None
         for _ in range(2 if device == "cuda" else 0):  # once more if no device time came back
             busy = device_busy_share(torch, lambda: [
@@ -2175,17 +2482,49 @@ def phase_main_path_bm25(torch, device: str, n_docs: int, batch: int, n_seq: int
             if busy["device_ms"] != "not measured":
                 break
 
+        # the in-transaction path (idx/ft_index.py search, for a transaction
+        # with its own write to the index) still scores with bm25_scores:
+        # one launch; the document is deleted again, so the corpus is as before
+        new_ranks = [int(pairs[0][0])] * 5 + [int(pairs[0][1])] * 5 + [200, 201]  # ranks first
+        body = " ".join(ft_word(r) for r in new_ranks)
+        tx_want = FtReference(np.vstack([words, np.array([new_ranks], dtype=words.dtype)])).top(
+            pairs[0])
+        lt = read_launches()
+        t = time.perf_counter()
+        tx = ds.execute(f"BEGIN; CREATE doc:{n_docs} SET body = '{body}'; "
+                        f"{FT_SQL.format(texts[0])}; COMMIT;")
+        txn_query_ms = (time.perf_counter() - t) * 1e3
+        require(all(r.get("status") == "OK" for r in tx), f"the transaction failed: {tx}")
+        got_ids = [int(r["id"].id) for r in tx[-1]["result"]]
+        got_sc = np.array([r["sc"] for r in tx[-1]["result"]], dtype=np.float64)
+        require(got_ids == tx_want[0].tolist() and n_docs in got_ids and
+                np.allclose(got_sc, tx_want[1], rtol=BM25_TOL["rtol"], atol=0),
+                f"in-transaction query returned {got_ids}, reference {tx_want[0].tolist()}")
+        lt1 = read_launches()
+        txn_launches = {k: lt1[k] - lt[k] for k in ("bm25_scores", "bm25_match_scores")}
+        require(device != "cuda" or txn_launches == {"bm25_scores": 1, "bm25_match_scores": 0},
+                f"the in-transaction query launched {txn_launches}")
+        run(f"DELETE doc:{n_docs}")
+
         cnf.TPU_FT_ONDEVICE_THRESHOLD = saved  # what users get today: the numpy twin
-        l0 = read_launches()["bm25_scores"]
+        l0 = read_launches()
         lat = []
         for i in range(n_seq):
             t = time.perf_counter()
             res = run(FT_SQL.format(texts[i]))
             lat.append(time.perf_counter() - t)
             check(i, res, f"threshold {saved}")
+        # at the default the match runs where the rarest list reaches the
+        # threshold, and scores on the card where the candidates do: `above`
         above = sum(c >= saved for c in cand[:n_seq])
-        require(read_launches()["bm25_scores"] - l0 == (above if device == "cuda" else 0),
-                f"the default threshold launched K9 other than {above} times")
+        reach = sum(ref.rarest(r) >= saved for r in ranks[:n_seq])
+        device_scored = sum(ref.rarest(r) >= saved and c >= saved
+                            for r, c in zip(ranks[:n_seq], cand[:n_seq]))
+        l1 = read_launches()
+        require(device_scored == above and l1["bm25_scores"] == l0["bm25_scores"] and
+                l1["bm25_match_scores"] - l0["bm25_match_scores"] ==
+                (reach if device == "cuda" else 0),
+                f"the default threshold launched the match other than {reach} times")
         out = dict(
             docs=n_docs, words_per_doc=FT_WORDS, vocab=FT_VOCAB, device=str(ds.device),
             ingest_s=ingest_s, ingest_rows_per_s=n_docs / ingest_s, reference_s=ref_s,
@@ -2194,7 +2533,10 @@ def phase_main_path_bm25(torch, device: str, n_docs: int, batch: int, n_seq: int
             candidates=dict(min=int(min(cand[:-1])), p50=float(np.median(cand[:-1])),
                             max=int(max(cand[:-1])), empty=int(sum(c == 0 for c in cand)),
                             single_term=int(sum(a == b for a, b in pairs))),
-            launches=launches, non_empty_queries=non_empty,
+            launches=launches, non_empty_queries=non_empty, queries_with_postings=with_postings,
+            postings_on_device=postings, default_match_launches=reach,
+            txn_query_ms=txn_query_ms, txn_query_launches=txn_launches,
+            default_device_scored=device_scored,
             profiled_8_seq_queries=busy, peak_device_memory_bytes=peak,
             device_memory_at_window_start_bytes=mem0,
             window_peak_above_start_bytes=None if peak is None else peak - mem0,
@@ -3490,12 +3832,14 @@ def main(argv=None) -> int:
             graph["run_launches"][kern], graph_k["max_abs_err"][kern],
             {k: v for k, v in tm.items() if k != "shape"}, {**graph_shape, **tm["shape"]},
         ))
-    # K9 at N = 1,000 candidates (about the main path's median), T = 2
+    # K9 at N = 1,000 candidates (about the main path's median), T = 2; its
+    # main-path launch is the in-transaction query's (idx/ft_index.py)
     bt = bm25_k["timing"]
     kernels.append(kernel_entry(
         "K9 bm25_scores (bm25_scores; bm25_topk = bm25_scores + knn_select)", "bm25_scores",
         "surrealdb_tpu_torch/csrc/bm25.cu", "surrealdb_tpu/ops/bm25.py:19",
-        bm25["launches"]["bm25_scores"], bm25_k["max_abs_err"],
+        bm25["launches"]["bm25_scores"] + bm25["txn_query_launches"]["bm25_scores"],
+        bm25_k["max_abs_err"],
         {k: bt[1000][k] for k in ("ms", "queued_ms", "plain_ms", "library_ms", "bound_ms",
                                   "bound_by")},
         {"n": 1000, "t": 2, "tf": "float32"},
@@ -3505,6 +3849,23 @@ def main(argv=None) -> int:
             "bound_ms": bt[1000]["topk_bound_ms"], "bound_by": bt[1000]["topk_bound_by"],
             "library_ms": None}},
          "by_n": {str(n): v for n, v in bt.items() if n != 1000}},
+    ))
+    # K9's match at config 3's median query, with the engine's per-query paths
+    bm = bm25_k["match"]
+    kernels.append(kernel_entry(
+        "K9 bm25_match_scores (the mirror's AND-match and BM25 scores in one launch over "
+        "card-resident postings)", "bm25_match_scores", "surrealdb_tpu_torch/csrc/bm25.cu",
+        "surrealdb_tpu/ops/bm25.py:19", bm25["launches"]["bm25_match_scores"],
+        bm["max_abs_err"],
+        {k: bm["timing"][k] for k in ("ms", "queued_ms", "plain_ms", "library_ms", "bound_ms",
+                                      "bound_by")},
+        bm["timing"]["shape"],
+        {"also_replaces": "surrealdb_tpu/idx/ft_mirror.py:420 (search's host AND-match)",
+         "launch_ms": bm["timing"]["launch_ms"],
+         "engine_call_host_ms": bm["timing"]["engine_call_host_ms"],
+         "kernels_per_call": bm["timing"]["kernels_per_call"],
+         "checks": len(bm["checks"]),
+         "engine_paths_by_n": {str(n): v for n, v in bm["paths"].items()}},
     ))
     # K10 at bench config 5's shape (the mirror's bf16 [2^20, 768] x [768, 1]);
     # its library time includes addmm's upcast of x (library_cast_ms alone,

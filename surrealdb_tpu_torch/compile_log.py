@@ -46,6 +46,7 @@ KERNEL_SITES = {
     "graph_csc": ("graph_csc_count",),
     "graph_chain": ("graph_chain",),
     "bm25": ("bm25_scores",),
+    "bm25_match": ("bm25_match_scores",),
     "ml_forward": ("ml_linear", "ml_softmax"),
     "knn_sharded": ("knn_pairwise", "knn_select", "mesh_topk_merge"),
     "ivf_sharded": ("knn_pairwise", "knn_select", "ivf_rerank", "mesh_topk_merge"),
@@ -53,7 +54,7 @@ KERNEL_SITES = {
         "knn_pairwise", "knn_row_mean", "knn_select",
         "ivf_assign", "ivf_kmeans_update", "ivf_rerank",
         "graph_dense_count", "graph_csc_count", "graph_chain", "bm25_scores",
-        "ml_linear", "ml_softmax", "mesh_topk_merge", "mesh_knn_2d",
+        "bm25_match_scores", "ml_linear", "ml_softmax", "mesh_topk_merge", "mesh_knn_2d",
         "mesh_frontier_hop", "mesh_dedup_frontier",
     ),
 }

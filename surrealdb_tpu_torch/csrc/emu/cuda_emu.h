@@ -34,17 +34,21 @@ inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 typedef int cudaError_t;
 typedef struct CUstream_st* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaMemcpyKind { cudaMemcpyDeviceToHost = 2 };
 enum { cudaDevAttrMultiProcessorCount = 16 };
 inline cudaError_t cudaGetLastError() { return 0; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 // a small card: persistent grids walk several tiles a block
 inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 2; return 0; }
 inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) { std::memset(p, v, n); return 0; }
+inline cudaError_t cudaMemcpyAsync(void* d, const void* s, size_t n, cudaMemcpyKind, cudaStream_t) { std::memcpy(d, s, n); return 0; }
+inline cudaError_t cudaStreamSynchronize(cudaStream_t) { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emu"; }
 template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
 struct __nv_bfloat16 { unsigned short v; };
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
+inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
 inline float __bfloat162float(__nv_bfloat16 b) { return __uint_as_float(((unsigned)b.v) << 16); }
 // IEEE single-precision steps, rounded each on its own (the host compiler
 // contracts nothing under -std=c++20)
@@ -57,6 +61,10 @@ inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __clz(int x) { return x == 0 ? 32 : __builtin_clz((unsigned)x); }
 struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
+struct int2 { int x, y; };
+struct alignas(16) int4 { int x, y, z, w; };
+inline int2 make_int2(int x, int y) { return {x, y}; }
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 template <class T> T __ldg(const T* p) { return *p; }
@@ -66,6 +74,13 @@ inline unsigned atomicAdd(unsigned* p, unsigned v) { return std::atomic_ref<unsi
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
 inline float atomicAdd(float* p, float v) { return std::atomic_ref<float>(*p).fetch_add(v); }
 inline unsigned atomicOr(unsigned* p, unsigned v) { return std::atomic_ref<unsigned>(*p).fetch_or(v); }
+// look-back flags and tickets (csrc/lookback.cuh)
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
+}
+inline unsigned long long atomicExch(unsigned long long* p, unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*p).exchange(v);
+}
 inline unsigned long long atomicMin(unsigned long long* p, unsigned long long v) {
   std::atomic_ref<unsigned long long> a(*p);
   unsigned long long o = a.load();
@@ -78,9 +93,23 @@ struct EmuBlock {
   std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
   std::vector<unsigned long long> xchg;  // [threads]
   std::vector<std::array<unsigned, 6>> frag;  // [threads]: a lane's mma fragments (A 4, B 2)
+  std::atomic<int> count[2] = {0, 0};  // __syncthreads_count's two slots, used in turn
 };
 inline EmuBlock* g_blk = nullptr;
 inline void __syncthreads() { g_blk->block_bar->arrive_and_wait(); }
+// the block's count of threads passing a non-zero p: the two slots in turn,
+// thread 0 zeroing a slot after the second barrier, before it can reach the
+// slot's next use (two calls later)
+inline thread_local unsigned emu_count_turn = 0;
+inline int __syncthreads_count(int p) {
+  auto& c = g_blk->count[emu_count_turn++ & 1];
+  if (p) c.fetch_add(1);
+  g_blk->block_bar->arrive_and_wait();
+  const int r = c.load();
+  g_blk->block_bar->arrive_and_wait();
+  if (threadIdx.x == 0) c.store(0);
+  return r;
+}
 inline unsigned lane_id() { return threadIdx.x & 31; }
 inline unsigned warp_id() { return threadIdx.x >> 5; }
 inline void __syncwarp(unsigned = 0xffffffffu) { g_blk->warp_bar[warp_id()]->arrive_and_wait(); }
@@ -174,6 +203,7 @@ inline void emu_launch(unsigned grid, unsigned block, size_t, cudaStream_t, std:
     ts.emplace_back([&, t] {
       threadIdx = dim3(t);
       emu_mma_turn = 0;
+      emu_count_turn = 0;
       blockDim = dim3(block);
       gridDim = dim3(grid);
       for (unsigned b = 0; b < grid; ++b) {

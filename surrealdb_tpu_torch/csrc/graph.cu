@@ -61,14 +61,25 @@
 // K6 graph_chain replaces chain_kernel (chain_impl, gather_hop, accum_cap):
 // one frontier's multi-hop chain. Each hop is a weighted CSR gather with the
 // reference's clips and validity (offs < deg, weight > 0, frontier < n), an
-// int32 scatter-add into a dense [n_cap + 1] (integer atomicAdd: any order
-// gives the same sums), the sentinel zeroed, and an ordered stream
-// compaction (compact.cuh) of the nodes with a count > 0 in ascending id order, truncated
-// at the hop's out_size and filled with (n_cap, 0), as nonzero(size=...,
-// fill_value=n_cap). The order is part of the result (chain() emits records
-// in it). A count-only chain ends with the weighted degree reduction. What
-// bounds it: the compaction's scan of the dense array (4 MB at 2^20) and the
-// gathered adjacency (bytes); at these sizes mostly the launches.
+// int32 scatter-add (integer atomicAdd: any order gives the same sums) with
+// the sentinel dropped, and the nodes with a signed count > 0 in ascending
+// id order, truncated at the hop's out_size and filled with (n_cap, 0), as
+// nonzero(size=..., fill_value=n_cap). The order is part of the result
+// (chain() emits records in it). A count-only chain ends with the weighted
+// degree reduction. Design: touched nodes only. The caller keeps a count
+// array [n_cap + 1] and a bitmap of the touched nodes ((n_cap + 32) / 32
+// words, 128 KB at 2^20: it sits in L2) zero between calls; a hop is two
+// launches: chain_gather (adds each weight with atomicAdd, sets the node's
+// bit with atomicOr, writes the hop's (n_cap, 0) fill) and bit_compact
+// (a block a tile of 256 bitmap words: a touched node whose count is > 0
+// is kept, every count and word read is cleared; a thread reads its word's
+// counts as 16-byte groups all at once, so a word with many touched nodes
+// costs one round trip; the kept nodes take their ranks by a block scan and
+// lookback.cuh's decoupled look-back, and go out a warp a word, so a
+// densely touched tile still writes coalesced). Nothing
+// the size of the count array is memset or scanned. What bounds it: the
+// gathered adjacency and the outputs (bytes); the bitmap's 128 KB the
+// design's floor beside them.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -76,6 +87,7 @@
 
 #include "compact.cuh"
 #include "launch.cuh"
+#include "lookback.cuh"
 
 namespace {
 
@@ -530,16 +542,25 @@ cudaError_t launch_frontier_degree(const int* fr, const int* w, int B, int fsz, 
 
 // ------------------------------------------------------------------ K6
 
-// dense[clip(idx[s + o], 0, n_cap)] += w for each frontier entry j and each
-// o < md with o < deg, w > 0 and fr < n (s, deg of clip(fr, 0, n - 1));
-// the gathered position is clipped into the index array, as the reference's.
+// cnt[clip(idx[s + o], 0, n_cap)] += w, and the node's bit set, for each
+// frontier entry j and each o < md with o < deg, w > 0 and fr < n (s, deg
+// of clip(fr, 0, n - 1)); the gathered position is clipped into the index
+// array, as the reference's; the sentinel n_cap is dropped. The first
+// fill_n outputs of the hop are set to (n_cap, 0) on the way.
 __global__ void __launch_bounds__(THREADS) chain_gather(const int* ptr, int n, const int* idx,
                                                         long long E, const int* fr, const int* w,
                                                         int fsz, int md, int n_cap,
-                                                        unsigned* dense) {
-  const long long total = (long long)fsz * md;
+                                                        unsigned* cnt, unsigned* bits,
+                                                        int* pres, int* cnts, int fill_n) {
+  const long long slots = (long long)fsz * md;
+  const long long total = slots > fill_n ? slots : fill_n;
   for (long long t = (long long)blockIdx.x * THREADS + threadIdx.x; t < total;
        t += (long long)gridDim.x * THREADS) {
+    if (t < fill_n) {
+      pres[t] = n_cap;
+      cnts[t] = 0;
+    }
+    if (t >= slots) continue;
     const long long j = t / md;
     const int o = (int)(t % md);
     const int f = fr[j], wv = w[j];
@@ -549,8 +570,81 @@ __global__ void __launch_bounds__(THREADS) chain_gather(const int* ptr, int n, c
     if (o >= ptr[c + 1] - s) continue;
     const int node = idx[clampll((long long)s + o, 0, E - 1)];
     const long long safe = clampll(node, 0, n_cap);
-    if (safe < n_cap) atomicAdd(&dense[safe], (unsigned)wv);  // the sentinel is zeroed anyway
+    if (safe < n_cap) {
+      atomicAdd(&cnt[safe], (unsigned)wv);
+      atomicOr(&bits[safe >> 5], 1u << (safe & 31));
+    }
   }
+}
+
+constexpr int BC_THREADS = 256;  // bitmap words a tile, one a thread (8 warps)
+
+// The touched nodes of a tile of the bitmap whose signed count is > 0, in
+// ascending id order, at their ranks among all tiles' (truncated at
+// out_size): pres = node, cnts = count. Every count and bitmap word read is
+// left zero. Two steps:
+// - a thread a word loads the 16-byte groups of its word's 32 counts that
+//   hold a touched node, all at once (one round trip, however many of its
+//   nodes are touched), and keeps the positive ones in shared memory; the
+//   words' kept counts are scanned over the block, and the tile's offset
+//   comes from the look-back;
+// - a warp a word, a lane a node, writes the kept nodes at their ranks and
+//   clears the touched counts: consecutive nodes, so the stores coalesce
+//   however densely a tile is touched.
+// bits holds tiles * BC_THREADS words, cnt 32 counts a word.
+__global__ void __launch_bounds__(BC_THREADS) bit_compact(unsigned* bits, unsigned* cnt,
+                                                          int tiles, int out_size, int* pres,
+                                                          int* cnts, unsigned long long* state) {
+  __shared__ unsigned s_word[BC_THREADS], s_keep[BC_THREADS], s_base[BC_THREADS];
+  __shared__ int s_cnt[BC_THREADS * 33];  // word t's counts from 33 t: a warp's stores hit 32 banks
+  const int tile = lb_tile(state);
+  const long long w0 = (long long)tile * BC_THREADS;
+  const unsigned word = bits[w0 + threadIdx.x];
+  const uint4* cp = reinterpret_cast<const uint4*>(cnt + (w0 + threadIdx.x) * 32);
+  uint4 g[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    g[q] = (word >> (4 * q)) & 0xfu ? cp[q] : make_uint4(0u, 0u, 0u, 0u);
+  unsigned keep = 0u;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const unsigned c4[4] = {g[q].x, g[q].y, g[q].z, g[q].w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // the reference's signed `dense > 0`
+      if ((int)c4[i] > 0 && ((word >> (4 * q + i)) & 1u)) {
+        keep |= 1u << (4 * q + i);
+        s_cnt[threadIdx.x * 33 + 4 * q + i] = (int)c4[i];
+      }
+    }
+  }
+  s_word[threadIdx.x] = word;
+  s_keep[threadIdx.x] = keep;
+  if (word != 0u) bits[w0 + threadIdx.x] = 0u;
+  const unsigned mine = __popc(keep);
+  unsigned count;
+  s_base[threadIdx.x] = block_scan<BC_THREADS>(mine, &count) - mine;
+  const long long before = (long long)lb_offset(state, tile, count);  // syncs the block
+  const int lane = threadIdx.x & 31;
+  for (int wi = threadIdx.x >> 5; wi < BC_THREADS; wi += BC_THREADS / 32) {
+    const unsigned tw = s_word[wi];
+    if (tw == 0u) continue;  // the whole warp
+    const long long node = (w0 + wi) * 32 + lane;
+    const unsigned kw = s_keep[wi];
+    if ((kw >> lane) & 1u) {
+      const long long r = before + s_base[wi] + __popc(kw & ((1u << lane) - 1u));
+      if (r < out_size) {
+        pres[r] = (int)node;
+        cnts[r] = s_cnt[wi * 33 + lane];
+      }
+    }
+    if ((tw >> lane) & 1u) cnt[node] = 0u;
+  }
+  lb_finish(state, tiles, nullptr);
+}
+
+long long bitmap_words(long long n_cap) {
+  const long long words = (n_cap + 32) / 32;
+  return (words + BC_THREADS - 1) / BC_THREADS * BC_THREADS;
 }
 
 }  // namespace
@@ -696,19 +790,30 @@ int graph_csc_count(const void* const* cptrs, const void* const* csrcs, const vo
 // K6. Hop h has per_hop[h] mirrors, flattened in order: ptrs[m] [caps[m] + 1],
 // idxs[m] [nidx[m]] int32, md[m] their pow2 max degree. fr / w [fsz] int32.
 // Non-final hops (all hops without count_only) write presents[h] / counts[h]
-// [out_sizes[h]] int32; dense is [n_cap + 1] int32 scratch and blk
-// graph_compact_blocks(n_cap) int32; a count-only chain writes total [1].
+// [out_sizes[h]] int32; a count-only chain writes total [1]. Scratch, zero
+// and left zero: bits [graph_chain_bitmap_words(n_cap)] uint32, cnt 32 uint32
+// a bitmap word, state [graph_chain_state_entries(n_cap)] uint64; `clear` zeroes
+// them first (the caller's scratch after a failed call). A mirror with no
+// max degree or no index array fails the call where it is reached.
 int graph_chain(const void* const* ptrs, const int* caps, const void* const* idxs,
                 const long long* nidx, const int* mds, const int* per_hop, int n_hops,
                 const int* out_sizes, const void* fr, const void* w, int fsz, int n_cap,
-                int count_only, void* dense, void* blk, void* const* presents,
-                void* const* counts, void* total, void* stream) {
+                int count_only, void* cnt, void* bits, void* state, int clear,
+                void* const* presents, void* const* counts, void* total, void* stream) {
   if (fsz < 0 || n_cap < 0 || n_hops <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  const long long words = bitmap_words(n_cap);
+  const int tiles = (int)(words / BC_THREADS);
+  cudaError_t e;
+  if (clear &&
+      ((e = cudaMemsetAsync(cnt, 0, (size_t)words * 32 * sizeof(unsigned), s)) != cudaSuccess ||
+       (e = cudaMemsetAsync(bits, 0, (size_t)words * sizeof(unsigned), s)) != cudaSuccess ||
+       (e = cudaMemsetAsync(state, 0, (size_t)(2 + tiles) * sizeof(unsigned long long), s)) !=
+           cudaSuccess))
+    return (int)e;
   const int* cur_fr = (const int*)fr;
   const int* cur_w = (const int*)w;
   int width = fsz;
-  cudaError_t e;
   int m = 0;
   for (int h = 0; h < n_hops; ++h) {
     if (count_only && h == n_hops - 1) {
@@ -719,23 +824,22 @@ int graph_chain(const void* const* ptrs, const int* caps, const void* const* idx
           return (int)e;
       return (int)cudaSuccess;
     }
-    if ((e = cudaMemsetAsync(dense, 0, ((size_t)n_cap + 1) * sizeof(unsigned), s)) != cudaSuccess)
-      return (int)e;
-    for (int i = 0; i < per_hop[h]; ++i, ++m) {
-      if (mds[m] <= 0 || nidx[m] <= 0) return (int)cudaErrorInvalidValue;
-      chain_gather<<<grid_for((long long)width * mds[m]), THREADS, 0, s>>>(
-          (const int*)ptrs[m], caps[m], (const int*)idxs[m], nidx[m], cur_fr, cur_w, width, mds[m],
-          n_cap, (unsigned*)dense);
-      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    }
     const int out_size = out_sizes[h];
     int* pres = (int*)presents[h];
     int* cnts = (int*)counts[h];
-    compact_fill<int><<<grid_for(out_size), CP_THREADS, 0, s>>>(pres, cnts, out_size, n_cap);
+    for (int i = 0; i < per_hop[h]; ++i, ++m) {
+      if (mds[m] <= 0 || nidx[m] <= 0) return (int)cudaErrorInvalidValue;
+      const int fill_n = i == 0 ? out_size : 0;
+      const long long work = (long long)width * mds[m];
+      chain_gather<<<grid_for(work > fill_n ? work : fill_n), THREADS, 0, s>>>(
+          (const int*)ptrs[m], caps[m], (const int*)idxs[m], nidx[m], cur_fr, cur_w, width,
+          mds[m], n_cap, (unsigned*)cnt, (unsigned*)bits, pres, cnts, fill_n);
+      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    }
+    bit_compact<<<(unsigned)tiles, BC_THREADS, 0, s>>>((unsigned*)bits, (unsigned*)cnt, tiles,
+                                                      out_size, pres, cnts,
+                                                      (unsigned long long*)state);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    if ((e = compact_run<int>((const unsigned*)dense, n_cap, (int*)blk, out_size, pres, cnts, s)) !=
-        cudaSuccess)
-      return (int)e;
     cur_fr = pres;
     cur_w = cnts;
     width = out_size;
@@ -743,6 +847,10 @@ int graph_chain(const void* const* ptrs, const int* caps, const void* const* idx
   return (int)cudaSuccess;
 }
 
-long long graph_compact_blocks(long long n) { return compact_blocks(n); }
+long long graph_chain_bitmap_words(long long n_cap) { return bitmap_words(n_cap); }
+
+long long graph_chain_state_entries(long long n_cap) {
+  return 2 + bitmap_words(n_cap) / BC_THREADS;
+}
 
 }  // extern "C"

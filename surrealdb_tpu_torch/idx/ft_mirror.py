@@ -2,10 +2,13 @@
 
 Mirrors surrealdb_tpu/idx/ft_mirror.py. The host half (the build scan, the
 per-document and bulk deltas, the compaction into CSR arrays, term_stats)
-is the reference's, copied as it is. The scoring step of `search` runs the
-port's K9 (ops/bm25.py `score_candidates`, csrc/bm25.cu) on the device of
-the Datastore that built the mirror, which `ensure_built` records: the
-candidates' tf / df / lengths go up, the scores come back.
+is the reference's, copied as it is. `search` keeps the reference's rule
+(score on the device from cnf.TPU_FT_ONDEVICE_THRESHOLD candidates, else
+the numpy twin) around the port's K9 match (ops/bm25.py
+`bm25_match_scores`, csrc/bm25.cu): the AND-match and the scores in one
+launch over postings that live on the Datastore's device, which
+`ensure_built` records; `device_postings` uploads them once a compaction
+generation.
 
 Role of the reference's per-query posting B-tree walks (reference:
 core/src/idx/ft/postings.rs, termdocs.rs, scorer.rs:13-92): the inverted
@@ -83,6 +86,8 @@ class FtMirror:
         self._lock = _locks.RLock("idx.ft.state")
         self._build_lock = _locks.Lock("idx.ft.build")
         self.device = None  # the Datastore's torch device, set by ensure_built
+        # (generation, device, ops.bm25.Postings): the postings on the card
+        self._dev: Optional[tuple] = None
 
     # ------------------------------------------------------------ build
     def ensure_built(self, ctx, ix: dict) -> None:
@@ -425,12 +430,68 @@ class FtMirror:
                 df,
             )
 
+    def device_postings(self, device):
+        """This compaction generation's postings on `device` (ops/bm25.py
+        Postings: int32 dids, f32 tf and lengths, one pinned copy), uploaded
+        at the first call after a compaction; the previous generation's are
+        dropped first. A did of 2^31 or more raises."""
+        from surrealdb_tpu_torch.ops.bm25 import upload_postings
+
+        with self._lock:
+            self._ensure_arrays()
+            got = self._dev
+            if got is not None and got[0] == self._stats_gen and got[1] == device:
+                return got[2]
+            self._dev = None
+            if self.next_did >= 2 ** 31:
+                raise ValueError(f"full-text document ids reach {self.next_did}: the card's "
+                                 "postings take int32 ids below 2^31")
+            post = upload_postings(self.t_indptr, self.t_dids, self.t_tfs, self.doclen_arr,
+                                   device)
+            self._dev = (self._stats_gen, device, post)
+            return post
+
+    @staticmethod
+    def _and_match(arrays, tids):
+        """The reference's rarest-first intersection over one generation's
+        host arrays -> (dids, tf [N, T], lengths); empty dids when none."""
+        indptr, all_dids, all_tfs, doclen = arrays
+        rows = [(all_dids[indptr[t]:indptr[t + 1]], all_tfs[indptr[t]:indptr[t + 1]])
+                for t in tids]
+        cand = rows[0][0]
+        tf_cols = [rows[0][1]]
+        for dids, tfs in rows[1:]:
+            pos = np.searchsorted(dids, cand)
+            pos_c = np.clip(pos, 0, len(dids) - 1)
+            mask = dids[pos_c] == cand
+            cand = cand[mask]
+            tf_cols = [c[mask] for c in tf_cols]
+            tf_cols.append(tfs[pos_c[mask]])
+            if cand.size == 0:
+                return cand, None, None
+        return cand, np.stack(tf_cols, axis=1), doclen[cand]
+
     def search(self, terms: List[str], k1: float, b: float, stats_override=None):
         """AND-match the analyzed query terms; returns (dids, scores) —
         empty arrays when any term is unknown. `stats_override`
         ({dc, tl, df: {term: n}}) swaps the corpus statistics BM25 scores
         with — the cluster executor passes the merged GLOBAL stats so every
-        shard scores exactly as one single-node corpus would."""
+        shard scores exactly as one single-node corpus would.
+
+        The reference's rule decides where a query scores: on the device
+        from cnf.TPU_FT_ONDEVICE_THRESHOLD candidates, else on the numpy
+        twin. Here the device branch is K9's match, which counts the
+        candidates itself: a rarest list shorter than the threshold cannot
+        reach it and takes the host path (the reference's intersection, then
+        the twin) at once; otherwise `bm25_match_scores` runs on this
+        generation's device postings, and if its count stays below the
+        threshold the query takes the host path all the same and answers
+        with the twin's scores. So every query gets the bits the reference's
+        rule gives it. TPU_DISABLE takes the host path; a CPU Datastore's
+        device branch is the plain version."""
+        from surrealdb_tpu_torch import cnf, compile_log
+        from surrealdb_tpu_torch.ops.bm25 import bm25_match_scores, bm25_scores_host
+
         with self._lock:
             self._ensure_arrays()
             uniq = list(dict.fromkeys(terms))
@@ -444,32 +505,12 @@ class FtMirror:
                     return np.empty(0, np.int64), np.empty(0, np.float32)
                 tids.append(tid)
                 term_of[tid] = t
-            # rarest-first intersection over sorted did rows
+            # rarest first, ties in query order (a stable sort)
             tids.sort(key=lambda tid: self.t_indptr[tid + 1] - self.t_indptr[tid])
-            rows = [
-                (
-                    self.t_dids[self.t_indptr[t] : self.t_indptr[t + 1]],
-                    self.t_tfs[self.t_indptr[t] : self.t_indptr[t + 1]],
-                )
-                for t in tids
-            ]
-            cand = rows[0][0]
-            tf_cols = [rows[0][1]]
-            for dids, tfs in rows[1:]:
-                pos = np.searchsorted(dids, cand)
-                pos_c = np.clip(pos, 0, len(dids) - 1)
-                mask = dids[pos_c] == cand
-                cand = cand[mask]
-                tf_cols = [c[mask] for c in tf_cols]
-                tf_cols.append(tfs[pos_c[mask]])
-                if cand.size == 0:
-                    return cand, np.empty(0, np.float32)
-            tf_mat = np.stack(tf_cols, axis=1)
             df = np.array(
                 [self.t_indptr[t + 1] - self.t_indptr[t] for t in tids],
                 dtype=np.float32,
             )
-            lens = self.doclen_arr[cand]
             dc, tl = self.dc, self.tl
             if isinstance(stats_override, dict):
                 odf = stats_override.get("df") or {}
@@ -479,12 +520,26 @@ class FtMirror:
                 )
                 dc = float(stats_override.get("dc", dc))
                 tl = float(stats_override.get("tl", tl))
-        from surrealdb_tpu_torch.ops.bm25 import score_candidates
-
-        # the numpy twin below cnf.TPU_FT_ONDEVICE_THRESHOLD candidates, else
-        # K9 on the Datastore's device (compile_log subsystem `bm25`)
-        scores = score_candidates(self.device, tf_mat, df, lens, dc, tl, k1, b)
-        return cand, scores
+            threshold = cnf.TPU_FT_ONDEVICE_THRESHOLD
+            n0 = int(self.t_indptr[tids[0] + 1] - self.t_indptr[tids[0]])
+            on_device = not cnf.TPU_DISABLE and n0 >= threshold
+            if on_device:
+                if self.device is None:
+                    raise RuntimeError("no device recorded for this full-text index")
+                post = self.device_postings(self.device)
+            arrays = (self.t_indptr, self.t_dids, self.t_tfs, self.doclen_arr)
+        if on_device:
+            # K9 on the Datastore's device (compile_log subsystem `bm25_match`)
+            with compile_log.tracked("bm25_match", (len(tids),)):
+                cand, scores = bm25_match_scores(post, tids, df, np.float32(dc),
+                                                 np.float32(tl), k1, b)
+            if len(cand) >= threshold:
+                return cand, scores
+        # the host path: fewer candidates than the threshold
+        cand, tf_mat, lens = self._and_match(arrays, tids)
+        if cand.size == 0:
+            return cand, np.empty(0, np.float32)
+        return cand, bm25_scores_host(tf_mat, df, lens, dc, tl, k1, b)
 
     def count(self) -> int:
         with self._lock:

@@ -24,7 +24,8 @@ copied. Its device programs are hand-written CUDA kernels here
 version in this module:
 
 - K6 `chain_kernel` (the fused frontier chain: weighted CSR gathers,
-  scatter-add dedup, ordered compaction) launches `graph_chain`;
+  scatter-add dedup, ordered compaction) launches `graph_chain`, over a
+  scratch kept zero between calls (`ChainScratch`);
 - K7 `chain_count_batch` (B count chains over destination-sorted CSC
   adjacency) launches `graph_csc_count`;
 - K8 `dense_count_batch` (B count chains through composed node-to-node
@@ -487,8 +488,52 @@ def _launch_csc_count(lib, csc_hops, last_hop, frontiers, weights, n_cap):
     return out
 
 
-def _launch_chain(lib, hops, frontier, weights, mds, n_cap, out_sizes, count_only):
-    """graph_chain's argument checks and launch (K6) through `lib`."""
+class ChainScratch:
+    """K6's scratch on one (device, stream, n_cap): the touched-node bitmap,
+    the count array (32 counts a bitmap word: n_cap + 1 and the tail of the
+    last words) and the compaction's look-back state, all zero
+    between calls (the kernels leave them so), and the buffer the
+    intermediate hops' outputs take. A failed call marks it `dirty` and the
+    next call zeroes it first. `lock` keeps one call's launches together on
+    the stream (the ctypes call lets go of the GIL)."""
+
+    def __init__(self, lib, n_cap: int, device):
+        words = int(lib.graph_chain_bitmap_words(n_cap))
+        self.bits = torch.zeros(words, dtype=torch.int32, device=device)
+        self.cnt = torch.zeros(32 * words, dtype=torch.int32, device=device)
+        self.state = torch.zeros(int(lib.graph_chain_state_entries(n_cap)), dtype=torch.int64,
+                                 device=device)
+        self.inter = torch.empty(0, dtype=torch.int32, device=device)
+        self.dirty = False
+        self.lock = threading.Lock()
+
+    def intermediate(self, n: int) -> torch.Tensor:
+        """n int32 of the hop-output buffer (reused in stream order)."""
+        if self.inter.numel() < n:
+            self.inter = torch.empty(n, dtype=torch.int32, device=self.cnt.device)
+        return self.inter[:n]
+
+
+_CHAIN_SCRATCH: Dict[tuple, ChainScratch] = {}
+_CHAIN_SCRATCH_LOCK = threading.Lock()
+
+
+def chain_scratch(lib, device, n_cap: int, stream=None) -> ChainScratch:
+    """The cached ChainScratch of (device, its current stream, n_cap)."""
+    key = (device, stream or _stream(device), int(n_cap))
+    with _CHAIN_SCRATCH_LOCK:
+        sc = _CHAIN_SCRATCH.get(key)
+        if sc is None:
+            sc = _CHAIN_SCRATCH[key] = ChainScratch(lib, int(n_cap), device)
+        return sc
+
+
+def _launch_chain(lib, hops, frontier, weights, mds, n_cap, out_sizes, count_only,
+                  scratch: Optional[ChainScratch] = None):
+    """graph_chain's argument checks and launch (K6) through `lib`, over
+    `scratch` (default: the cached one of the frontier's device, stream and
+    n_cap). A mirror with no max degree or index array fails in the call,
+    after the hop's earlier launches: the scratch is then marked dirty."""
     from surrealdb_tpu_torch.ops import _cuda
 
     _check_i32(frontier, "frontier")
@@ -502,30 +547,42 @@ def _launch_chain(lib, hops, frontier, weights, mds, n_cap, out_sizes, count_onl
         for (ptr, idx), md in zip(mirrors, mds[h]):
             _check_i32(ptr, "indptr")
             _check_i32(idx, "indices")
-            if md < 1 or idx.shape[0] < 1:
-                raise ValueError("a mirror needs a max degree >= 1 and an index array")
             ptrs.append(ptr)
             idxs.append(idx)
             caps.append(int(ptr.shape[0]) - 1)
             flat_mds.append(int(md))
         per_hop.append(len(mirrors))
     dev = frontier.device
+    stream = _stream(dev)
     kept = len(hops) - 1 if count_only else len(hops)
-    presents = [torch.empty(int(out_sizes[h]), dtype=torch.int32, device=dev) for h in range(kept)]
-    counts = [torch.empty(int(out_sizes[h]), dtype=torch.int32, device=dev) for h in range(kept)]
-    dense = torch.empty(n_cap + 1, dtype=torch.int32, device=dev)
-    blk = torch.empty(max(int(lib.graph_compact_blocks(n_cap)), 1), dtype=torch.int32, device=dev)
-    total = torch.empty(1, dtype=torch.int32, device=dev)
-    status = lib.graph_chain(
-        _ptrs(ptrs), _ints(caps), _ptrs(idxs), _ints([i.shape[0] for i in idxs], ctypes.c_longlong),
-        _ints(flat_mds), _ints(per_hop), len(hops), _ints(out_sizes[:kept]),
-        frontier.data_ptr(), weights.data_ptr(), frontier.shape[0], n_cap, int(count_only),
-        dense.data_ptr(), blk.data_ptr(), _ptrs(presents), _ptrs(counts), total.data_ptr(),
-        _stream(dev),
-    )
-    _cuda.check(status, "graph_chain")
+    sizes = [int(out_sizes[h]) for h in range(kept)]
+    if scratch is None:
+        scratch = chain_scratch(lib, dev, n_cap, stream)
+    # the one allocation a call: what it returns
+    out = torch.empty(1 if count_only else 2 * sizes[-1], dtype=torch.int32, device=dev)
+    inner = sizes if count_only else sizes[:-1]
+    with scratch.lock:
+        buf = scratch.intermediate(2 * sum(inner))
+        presents, counts, at = [], [], 0
+        for n in inner:
+            presents.append(buf[at:at + n])
+            counts.append(buf[at + n:at + 2 * n])
+            at += 2 * n
+        if not count_only:
+            presents.append(out[:sizes[-1]])
+            counts.append(out[sizes[-1]:])
+        status = lib.graph_chain(
+            _ptrs(ptrs), _ints(caps), _ptrs(idxs),
+            _ints([i.shape[0] for i in idxs], ctypes.c_longlong), _ints(flat_mds),
+            _ints(per_hop), len(hops), _ints(sizes), frontier.data_ptr(), weights.data_ptr(),
+            frontier.shape[0], n_cap, int(count_only), scratch.cnt.data_ptr(),
+            scratch.bits.data_ptr(), scratch.state.data_ptr(), int(scratch.dirty),
+            _ptrs(presents), _ptrs(counts), out.data_ptr(), stream,
+        )
+        scratch.dirty = status != 0
+    _cuda.check(status, "graph_chain", lib)
     if count_only:
-        return total[0]
+        return out[0]
     return presents[-1], counts[-1]
 
 

@@ -79,13 +79,21 @@ _SIGNATURES = {
                                        ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int,
                                        ctypes.c_int, _P, _P, _P, ctypes.c_longlong, _P, _P]),
     "graph_chain": (ctypes.c_int, [_P, _P, _P, _P, _P, _P, ctypes.c_int, _P, _P, _P,
-                                   ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
-                                   _P, _P]),
-    "graph_compact_blocks": (ctypes.c_longlong, [ctypes.c_longlong]),
+                                   ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P,
+                                   ctypes.c_int, _P, _P, _P, _P]),
+    "graph_chain_bitmap_words": (ctypes.c_longlong, [ctypes.c_longlong]),
+    "graph_chain_state_entries": (ctypes.c_longlong, [ctypes.c_longlong]),
     "bm25_scores": (ctypes.c_int, [_P, ctypes.c_int, _P, _P, ctypes.c_longlong, ctypes.c_int,
                                    ctypes.c_float, ctypes.c_float, ctypes.c_float,
                                    ctypes.c_float, ctypes.c_float, ctypes.c_float,
                                    ctypes.c_int, _P, _P]),
+    "bm25_match_scores": (ctypes.c_longlong, [_P, _P, _P, _P, _P, _P, ctypes.c_int,
+                                              ctypes.c_longlong, ctypes.c_float, ctypes.c_float,
+                                              ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                                              ctypes.c_float, _P, _P, _P, ctypes.c_longlong,
+                                              _P]),
+    "bm25_match_max_terms": (ctypes.c_int, []),
+    "bm25_match_state_entries": (ctypes.c_longlong, [ctypes.c_longlong]),
     "ml_linear": (ctypes.c_int, [_P, ctypes.c_int, _P, _P, ctypes.c_longlong, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_int, _P, _P]),
     "ml_softmax": (ctypes.c_int, [_P, ctypes.c_longlong, ctypes.c_int, _P, _P]),
@@ -216,8 +224,9 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def check(status: int, what: str) -> None:
-    """Raise on a non-zero cudaError_t returned right after a launch."""
+def check(status: int, what: str, via=None) -> None:
+    """Raise on a non-zero cudaError_t returned right after a launch; `via`
+    is the library that returned it (default: the built one)."""
     if status != 0:
-        name = lib().knn_error_string(status).decode(errors="replace")
+        name = (via or lib()).knn_error_string(status).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA launch failed with error {status} ({name})")

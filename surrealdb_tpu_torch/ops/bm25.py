@@ -1,7 +1,7 @@
-"""Batched BM25 scoring (PyTorch; a CUDA kernel on the card).
+"""Batched BM25 scoring (PyTorch; CUDA kernels on the card).
 
-Mirrors surrealdb_tpu/ops/bm25.py. Its device program (K9) is a
-hand-written CUDA kernel here (csrc/bm25.cu):
+Mirrors surrealdb_tpu/ops/bm25.py. Its device program (K9) is hand-written
+CUDA here (csrc/bm25.cu), in two entries that share one score function:
 
 - `bm25_scores` (tf [N,T] f32 or int32, df [T] f32, doc_len [N] f32, the
   corpus's doc count and total length as f32 scalars -> [N] f32) launches
@@ -9,24 +9,33 @@ hand-written CUDA kernel here (csrc/bm25.cu):
   a block in shared memory;
 - `bm25_topk` is that kernel writing the negated scores, then K2's
   selection (`knn_select`, ops/distances.py) for the k smallest: lax.top_k's
-  order (larger score first, lower index first on ties) with int32 indices.
+  order (larger score first, lower index first on ties) with int32 indices;
+- `bm25_match_scores` is the full-text mirror's AND-match and scoring in one
+  launch over postings that live on the card (`Postings`, uploaded once a
+  compaction generation by idx/ft_mirror.py FtMirror.device_postings): the
+  query's terms rarest first in, the matched dids (the rarest list's order)
+  and their scores out, with one download.
 
-The launch counter counts launches of the score kernel (one per call of
-either wrapper); bm25_topk's selection counts under `knn_select`.
+Each launch counter counts its kernel's launches (`bm25_scores` one per call
+of either tf wrapper; bm25_topk's selection counts under `knn_select`).
 
 Each wrapper takes tensors on one device. A CUDA tensor goes to the kernel
 (or the wrapper raises); a CPU tensor goes to the plain PyTorch version
-beside it (`bm25_scores_plain`, `bm25_topk_plain`), which the tests hold
-against the reference and chip_smoke.py holds the kernel against.
-`score_candidates` is the engine's scoring step (idx/ft_mirror.py,
-idx/ft_index.py): the reference's numpy twin `bm25_scores_host`, copied as
-it is, below cnf.TPU_FT_ONDEVICE_THRESHOLD candidates, else K9 on the
-Datastore's device.
+beside it (`bm25_scores_plain`, `bm25_topk_plain`,
+`bm25_match_scores_plain`), which the tests hold against the reference and
+chip_smoke.py holds the kernels against. `score_candidates` is the scoring
+step of idx/ft_index.py's in-transaction search (and of the reference's
+mirror search): the reference's numpy twin `bm25_scores_host`, copied as it
+is, below cnf.TPU_FT_ONDEVICE_THRESHOLD candidates, else K9 on the
+Datastore's device. idx/ft_mirror.py's search keeps the same threshold rule
+around `bm25_match_scores` (its docstring says how).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import threading
+import time
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +43,11 @@ import torch
 from surrealdb_tpu_torch.ops.distances import LaunchCounter
 
 SCORES = LaunchCounter("bm25_scores")
-KERNELS = (SCORES,)
+MATCH = LaunchCounter("bm25_match_scores")
+KERNELS = (SCORES, MATCH)
+
+MATCH_MAX_TERMS = 256  # csrc/bm25.cu MS_MAX_T: distinct terms a match launch takes
+MATCH_FIRST = 4096  # matches that come down with the count in the first copy
 
 
 def _f32(x) -> float:
@@ -177,10 +190,199 @@ def bm25_topk(tf, df, doc_len, doc_count, total_len, k: int, k1: float = 1.2,
     return 0.0 - d[0], i[0]
 
 
+# ------------------------------------------------------------ the match
+class Postings:
+    """One compaction generation of a full-text index's postings on one
+    device, as idx/ft_mirror.py lays them out (t_indptr, t_dids, t_tfs,
+    doclen_arr): `indptr` int64 [terms + 1], `dids` int32 ascending within
+    each term's list (4 zeros past the last posting, so the kernel's 16-byte
+    loads stay inside), `tfs` f32, `doc_len` f32 [max(next_did, 1)];
+    `host_indptr` is the numpy indptr (the lists' lengths on the host).
+    Views of one buffer, filled by one copy from pinned memory; `nbytes` and
+    `seconds` (packing and copy) are recorded."""
+
+    def __init__(self, indptr, dids, tfs, doc_len, host_indptr, nbytes, seconds):
+        self.indptr, self.dids, self.tfs, self.doc_len = indptr, dids, tfs, doc_len
+        self.host_indptr = host_indptr
+        self.device = dids.device
+        self.nbytes, self.seconds = nbytes, seconds
+
+    def length(self, tid: int) -> int:
+        return int(self.host_indptr[tid + 1] - self.host_indptr[tid])
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def upload_postings(indptr, dids, tfs, doc_len, device) -> Postings:
+    """Postings on `device` from the mirror's numpy arrays: int32 dids (a did
+    of 2^31 or more raises), f32 tf and lengths, in one copy from pinned
+    memory (on a CPU device one host buffer of the same layout)."""
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    if len(doc_len) > 2 ** 31 - 1:
+        raise ValueError(f"document ids reach {len(doc_len)}: the card's postings take "
+                         "int32 ids below 2^31")
+    nnz = len(dids)
+    sizes = [8 * len(indptr), 4 * (nnz + 4), 4 * nnz, 4 * len(doc_len)]
+    offs = [0]
+    for n in sizes:
+        offs.append(offs[-1] + _align16(n))
+    pin = device.type == "cuda"
+    host = torch.empty(offs[-1], dtype=torch.uint8, pin_memory=pin)
+    h = host.numpy()
+    h[offs[0]:offs[0] + sizes[0]].view(np.int64)[:] = indptr
+    hd = h[offs[1]:offs[1] + sizes[1]].view(np.int32)
+    hd[:nnz] = dids
+    hd[nnz:] = 0
+    h[offs[2]:offs[2] + sizes[2]].view(np.float32)[:] = tfs
+    h[offs[3]:offs[3] + sizes[3]].view(np.float32)[:] = doc_len
+    buf = host.to(device) if pin else host
+    if pin:
+        torch.cuda.synchronize(device)
+
+    def part(i, dtype):
+        return buf[offs[i]:offs[i] + sizes[i]].view(dtype)
+
+    return Postings(part(0, torch.int64), part(1, torch.int32), part(2, torch.float32),
+                    part(3, torch.float32), np.asarray(indptr, dtype=np.int64).copy(),
+                    offs[-1], time.perf_counter() - t0)
+
+
+def bm25_match_scores_plain(postings: Postings, tids: Sequence[int], df, doc_count, total_len,
+                            k1: float = 1.2, b: float = 0.75):
+    """Plain bm25_match_scores, the reference's intersection in PyTorch on
+    the postings' device: the rarest list's dids kept where searchsorted
+    finds them in each other list, their tf columns stacked, then
+    bm25_scores_plain. -> (dids int64, scores f32) numpy."""
+    ip = postings.host_indptr
+    rows = [(postings.dids[ip[t]:ip[t + 1]], postings.tfs[ip[t]:ip[t + 1]]) for t in tids]
+    cand = rows[0][0]
+    cols = [rows[0][1]]
+    for dids, tfs in rows[1:]:
+        pos = torch.searchsorted(dids, cand).clamp(0, dids.shape[0] - 1)
+        mask = dids[pos] == cand
+        cand = cand[mask]
+        cols = [c[mask] for c in cols] + [tfs[pos[mask]]]
+        if cand.numel() == 0:
+            return np.empty(0, np.int64), np.empty(0, np.float32)
+    dfs = torch.as_tensor(np.asarray(df, dtype=np.float32), device=cand.device)
+    s = bm25_scores_plain(torch.stack(cols, 1), dfs, postings.doc_len[cand.long()], doc_count,
+                          total_len, k1, b)
+    return cand.long().cpu().numpy(), s.cpu().numpy()
+
+
+class MatchScratch:
+    """bm25_match_scores' buffers on one (device, stream), grown with the
+    rarest list: the look-back state (zero between calls; a failed call
+    marks it `dirty` and the next one zeroes it), the output pairs on the
+    device, and the host buffer the count and matches come down to (pinned
+    on a card). `lock` keeps one call's launch and download together."""
+
+    def __init__(self, device):
+        self.device = device
+        self.state = torch.zeros(0, dtype=torch.int64, device=device)
+        self.out = torch.empty(0, dtype=torch.int32, device=device)
+        self.host = torch.empty(0, dtype=torch.int32)
+        self.dirty = False
+        self.lock = threading.Lock()
+
+    def ensure(self, lib, n0: int) -> None:
+        states = int(lib.bm25_match_state_entries(n0))
+        if self.state.numel() < states:
+            self.state = torch.zeros(states, dtype=torch.int64, device=self.device)
+        elif self.dirty:
+            self.state.zero_()
+        self.dirty = False
+        if self.out.numel() < 2 * (1 + n0):
+            self.out = torch.empty(2 * (1 + n0), dtype=torch.int32, device=self.device)
+        if self.host.numel() < 2 * (1 + n0):
+            self.host = torch.empty(2 * (1 + n0), dtype=torch.int32,
+                                    pin_memory=self.device.type == "cuda")
+
+
+_MATCH_SCRATCH: Dict[tuple, MatchScratch] = {}
+_MATCH_SCRATCH_LOCK = threading.Lock()
+
+
+def match_scratch(device) -> MatchScratch:
+    """The cached MatchScratch of (device, its current stream)."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream
+           if device.type == "cuda" else None)
+    with _MATCH_SCRATCH_LOCK:
+        sc = _MATCH_SCRATCH.get(key)
+        if sc is None:
+            sc = _MATCH_SCRATCH[key] = MatchScratch(device)
+        return sc
+
+
+def _launch_match(lib, postings: Postings, tids, df, doc_count, total_len, k1, b,
+                  scratch: MatchScratch, stream, download: bool = True):
+    """One call of csrc/bm25.cu's bm25_match_scores through `lib` (the
+    built library, or the CPU emulation's in the tests): the launch, then
+    the count and the matches copied into scratch.host. -> (dids int64,
+    scores f32) numpy; with download=False the launch alone (a timing's),
+    -> None."""
+    t = len(tids)
+    if not 1 <= t <= MATCH_MAX_TERMS:
+        raise ValueError(f"{t} distinct terms: a match launch takes 1..{MATCH_MAX_TERMS}")
+    n0 = postings.length(tids[0])
+    if n0 <= 0:
+        raise ValueError("the rarest term has no postings")
+    tid_a = np.ascontiguousarray(tids, dtype=np.int32)
+    df_a = np.ascontiguousarray(df, dtype=np.float32)
+    with scratch.lock:
+        scratch.ensure(lib, n0)
+        count = lib.bm25_match_scores(
+            postings.indptr.data_ptr(), postings.dids.data_ptr(), postings.tfs.data_ptr(),
+            postings.doc_len.data_ptr(), tid_a.ctypes.data, df_a.ctypes.data, t, n0,
+            _f32(doc_count), _f32(total_len), _f32(k1), _f32(b), _f32(k1 + 1.0),
+            _f32(1.0 - b), scratch.state.data_ptr(), scratch.out.data_ptr(),
+            scratch.host.data_ptr() if download else None, MATCH_FIRST, stream,
+        )
+        if count < 0:
+            from surrealdb_tpu_torch.ops import _cuda
+
+            scratch.dirty = True
+            _cuda.check(int(-count), "bm25_match_scores", lib)
+        if not download:
+            return None
+        pairs = scratch.host.numpy()[2:2 + 2 * count].reshape(count, 2)
+        return pairs[:, 0].astype(np.int64), pairs[:, 1].copy().view(np.float32)
+
+
+def bm25_match_scores(postings: Postings, tids: Sequence[int], df, doc_count, total_len,
+                      k1: float = 1.2, b: float = 0.75):
+    """The AND-match and BM25 scores of one query over card-resident
+    postings (K9, one launch and one download) -> (dids int64, scores f32)
+    numpy: the dids of the first term's list found in every other list, in
+    that list's ascending order, each scored over the terms left to right.
+
+    tids: the query's distinct term ids rarest first, ties in query order
+    (FtMirror.search's order), each list non-empty, at most
+    MATCH_MAX_TERMS; df: their document frequencies (the index's or a
+    stats_override's); doc_count, total_len taken as f32. The scores are
+    bm25_scores' bits for the same tf rows. Postings on the CPU run the
+    plain version; on a card a failed launch raises."""
+    if postings.device.type != "cuda":
+        return bm25_match_scores_plain(postings, tids, df, doc_count, total_len, k1, b)
+    from surrealdb_tpu_torch.ops import _cuda
+
+    dev = postings.device
+    lib = _cuda.lib()
+    with torch.cuda.device(dev):
+        out = _launch_match(lib, postings, tids, df, doc_count, total_len, k1, b,
+                            match_scratch(dev), torch.cuda.current_stream(dev).cuda_stream)
+    MATCH.bump()
+    return out
+
+
 # ------------------------------------------------------------ engine step
 def score_candidates(device, tf, df, doc_len, doc_count, total_len, k1=1.2, b=0.75):
     """Score one query's candidate set as the reference's two call sites do
-    (idx/ft_mirror.py search, idx/ft_index.py search): numpy arrays in,
+    (idx/ft_mirror.py search, idx/ft_index.py search; the port's mirror
+    search runs bm25_match_scores under the same rule): numpy arrays in,
     [N] f32 numpy out. Below cnf.TPU_FT_ONDEVICE_THRESHOLD candidates (or
     with TPU_DISABLE) the numpy twin; otherwise tf / df / doc_len go to
     `device` (the Datastore's) and K9 scores them there, with doc_count and

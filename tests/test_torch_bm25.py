@@ -328,6 +328,176 @@ def test_mirror_search_with_stats_override_matches_reference(loaded, threshold):
     assert mirrors[1].device == torch.device("cpu")
 
 
+# ------------------------------------------------------------ K9's match over device postings
+def _search_order(mirror, terms):
+    """The term ids FtMirror.search passes to the match: rarest first, ties
+    in query order; None when a term is unknown or has no postings."""
+    tids = []
+    for t in dict.fromkeys(terms):
+        tid = mirror.term_ids.get(t)
+        if tid is None or mirror.t_indptr[tid + 1] == mirror.t_indptr[tid]:
+            return None
+        tids.append(tid)
+    return sorted(tids, key=lambda t: mirror.t_indptr[t + 1] - mirror.t_indptr[t])
+
+
+_MATCH_TERMS = [
+    ["w0010", "w0020"], ["w0100"], ["w0000"], ["w0015", "w0015", "w0042"],
+    ["w0003", "w0050", "w0007"], ["w1999", "w0001"], ["nope", "w0001"], ["w0011", "w0111"],
+    ["w1999", "w1998"],  # both known, no document has both
+]
+
+
+@pytest.mark.parametrize("thr", [1, 4, 1_000_000])
+def test_match_plain_equals_reference_search(loaded, thr, monkeypatch):
+    """bm25_match_scores_plain over the port mirror's device postings (CPU)
+    against the reference's FtMirror.search at each threshold: the same dids
+    in the same order, the scores within the f32 tolerance; and the port's
+    own search equal to the reference's (bit-equal where both score on the
+    numpy twin)."""
+    for c in (rcnf, pcnf):
+        monkeypatch.setattr(c, "TPU_FT_ONDEVICE_THRESHOLD", thr)
+    ref, port = loaded
+    for ds in (ref, port):
+        _run(ds, _bm25_queries()[0])
+    rm, pm = (ds.index_stores.get("test", "test", "doc", "fbody") for ds in (ref, port))
+    post = pm.device_postings(torch.device("cpu"))
+    seen, empty = 0, 0
+    for terms in _MATCH_TERMS + [q.split("'")[1].split() for q in _bm25_queries()]:
+        rd, rs = rm.search(terms, 1.2, 0.75)
+        pd, ps = pm.search(terms, 1.2, 0.75)
+        np.testing.assert_array_equal(pd, rd)
+        if thr > N_DOCS:
+            np.testing.assert_array_equal(ps, rs)
+        else:
+            np.testing.assert_allclose(ps, rs, rtol=RTOL, atol=ATOL)
+        tids = _search_order(pm, terms)
+        if tids is None:
+            assert rd.size == 0
+            continue
+        df = np.array([post.length(t) for t in tids], dtype=np.float32)
+        md, ms = P.bm25_match_scores_plain(post, tids, df, np.float32(pm.dc), np.float32(pm.tl))
+        assert md.dtype == np.int64 and ms.dtype == np.float32
+        np.testing.assert_array_equal(md, rd)
+        np.testing.assert_allclose(ms, rs, rtol=RTOL, atol=ATOL)
+        seen += md.size
+        empty += md.size == 0
+    assert seen > N_DOCS // 10  # the cases match documents (w0000 alone ~20%)
+    assert empty >= 1  # and an empty intersection of known words
+
+
+def test_match_with_stats_override_equals_reference(loaded, monkeypatch):
+    """The cluster's merged statistics through the match (threshold 1)."""
+    for c in (rcnf, pcnf):
+        monkeypatch.setattr(c, "TPU_FT_ONDEVICE_THRESHOLD", 1)
+    ref, port = loaded
+    for ds in (ref, port):
+        _run(ds, _bm25_queries()[0])
+    rm, pm = (ds.index_stores.get("test", "test", "doc", "fbody") for ds in (ref, port))
+    override = {"dc": 3_000_000, "tl": 36_000_001.0, "df": {"w0020": 400_000.0}}
+    for terms in (["w0010", "w0020"], ["w0020"], ["w0020", "w0003", "w0010"]):
+        rd, rs = rm.search(terms, 1.2, 0.75, stats_override=override)
+        pd, ps = pm.search(terms, 1.2, 0.75, stats_override=override)
+        np.testing.assert_array_equal(pd, rd)
+        assert pd.size > 0
+        np.testing.assert_allclose(ps, rs, rtol=RTOL, atol=ATOL)
+
+
+def test_rarest_list_at_the_threshold_with_a_smaller_and_set_gets_the_twin(loaded, monkeypatch):
+    """The rarest list reaches the threshold but the AND set does not: the
+    match runs and counts, then the query answers with the host path's
+    numpy twin, bit-equal to the reference's (which takes its twin too)."""
+    ref, port = loaded
+    for ds in (ref, port):
+        _run(ds, _bm25_queries()[0])
+    rm, pm = (ds.index_stores.get("test", "test", "doc", "fbody") for ds in (ref, port))
+    terms = ["w0010", "w0020"]
+    tids = _search_order(pm, terms)
+    rarest = int(pm.t_indptr[tids[0] + 1] - pm.t_indptr[tids[0]])
+    and_set = rm.search(terms, 1.2, 0.75)[0].size
+    assert 0 < and_set < rarest
+    for c in (rcnf, pcnf):
+        monkeypatch.setattr(c, "TPU_FT_ONDEVICE_THRESHOLD", and_set + 1)
+    calls = []
+    match = P.bm25_match_scores
+    monkeypatch.setattr(P, "bm25_match_scores", lambda *a, **k: calls.append(a) or match(*a, **k))
+    rd, rs = rm.search(terms, 1.2, 0.75)
+    pd, ps = pm.search(terms, 1.2, 0.75)
+    assert len(calls) == 1  # the match ran, and its count fell short
+    np.testing.assert_array_equal(pd, rd)
+    np.testing.assert_array_equal(ps, rs)
+    twin = P.bm25_scores_host(*_host_inputs(pm, tids, rd))
+    np.testing.assert_array_equal(ps, twin)
+    for c in (rcnf, pcnf):  # at the AND set's size the device branch answers
+        monkeypatch.setattr(c, "TPU_FT_ONDEVICE_THRESHOLD", and_set)
+    pd2, ps2 = pm.search(terms, 1.2, 0.75)
+    np.testing.assert_array_equal(pd2, rd)
+    assert len(calls) == 2 and not np.array_equal(ps2, twin)
+    np.testing.assert_allclose(ps2, twin, rtol=RTOL, atol=ATOL)
+
+
+def _host_inputs(mirror, tids, dids):
+    ip, all_d, all_f = mirror.t_indptr, mirror.t_dids, mirror.t_tfs
+    tf = np.stack([all_f[ip[t]:ip[t + 1]][np.searchsorted(all_d[ip[t]:ip[t + 1]], dids)]
+                   for t in tids], axis=1)
+    df = np.array([ip[t + 1] - ip[t] for t in tids], dtype=np.float32)
+    return tf, df, mirror.doclen_arr[dids], mirror.dc, mirror.tl
+
+
+def test_writes_make_a_new_generation_of_device_postings(monkeypatch):
+    """CREATE / UPDATE / DELETE (a tombstone) after a device search: the
+    next search uploads the new generation and drops the old one, and
+    answers as the reference does."""
+    for c in (rcnf, pcnf):
+        monkeypatch.setattr(c, "TPU_FT_ONDEVICE_THRESHOLD", 1)
+    ref, port = RDatastore("memory"), PDatastore("memory", device="cpu")
+    sql = ("SELECT id, search::score(1) AS sc FROM doc WHERE body @1@ 'w0001 w0002' "
+           "ORDER BY sc DESC LIMIT 10")
+    try:
+        for ds in (ref, port):
+            _run(ds, _SCHEMA)
+            _run(ds, "INSERT INTO doc $rows RETURN NONE", {"rows": _docs(400, seed=3)})
+        _assert_same_rows(_run(ref, sql), _run(port, sql))
+        pm = port.index_stores.get("test", "test", "doc", "fbody")
+        gen0, _, post0 = pm._dev
+        old = weakref.ref(post0.dids)
+        del post0
+        for ds in (ref, port):
+            _run(ds, "CREATE doc:100000 SET body = 'w0001 w0002 w0001'")
+            _run(ds, "UPDATE doc:5 SET body = 'w0002 w0001 zz'")
+            _run(ds, "DELETE doc:7")
+        a, b = _run(ref, sql), _run(port, sql)
+        _assert_same_rows(a, b)
+        assert ("doc", 100000) in [_key(r["id"]) for r in b]
+        assert ("doc", 7) not in [_key(r["id"]) for r in b]
+        gen1, _, post1 = pm._dev
+        assert gen1 > gen0 and post1.length(pm.term_ids["w0001"]) > 0
+        gc.collect()
+        assert old() is None  # the old generation is gone
+        assert P.MATCH.launches == 0  # CPU postings launch nothing
+    finally:
+        ref.close()
+        port.close()
+
+
+def test_closed_datastore_frees_its_device_postings(monkeypatch):
+    """A closed Datastore's device postings are garbage once the caller
+    lets go of it."""
+    monkeypatch.setattr(pcnf, "TPU_FT_ONDEVICE_THRESHOLD", 1)
+    ds = PDatastore("memory", device="cpu")
+    try:
+        _run(ds, _SCHEMA)
+        _run(ds, "INSERT INTO doc $rows RETURN NONE", {"rows": _docs(50)})
+        assert _run(ds, "SELECT id FROM doc WHERE body @1@ 'w0000'")
+    finally:
+        ds.close()
+    post = ds.index_stores.get("test", "test", "doc", "fbody")._dev[2]
+    refs = [weakref.ref(post.dids), weakref.ref(post.doc_len)]
+    del ds, post
+    gc.collect()
+    assert [r() for r in refs] == [None, None]
+
+
 def _sweeps_after(advisor, n0, timeout=20.0):
     t0 = time.monotonic()
     while advisor.snapshot()["sweeps"] < n0 and time.monotonic() - t0 < timeout:

@@ -107,6 +107,50 @@ def test_chain_kernel_matches_reference(case, count_only):
         assert bool((got[1] > 0).all())
 
 
+def _wrap_and_sentinel_csr(n_cap):
+    """Node 0 reaches node 5 by 3 parallel edges, node 6 by 4, node 8 by 2
+    and node 7 by 1; node 2 reaches the sentinel n_cap, ids past it and a
+    negative id (clipped to node 0)."""
+    adj = {0: [5] * 3 + [6] * 4 + [8] * 2 + [7], 2: [n_cap, n_cap + 9, 1 << 30, -4, 3]}
+    indptr = np.zeros(n_cap + 1, dtype=np.int32)
+    for src, dst in adj.items():
+        indptr[src + 1] = len(dst)
+    indptr = np.cumsum(indptr).astype(np.int32)
+    indices = np.zeros(16, dtype=np.int32)
+    flat = [d for src in sorted(adj) for d in adj[src]]
+    indices[:len(flat)] = flat
+    return indptr, indices, 16
+
+
+@pytest.mark.parametrize("count_only", [False, True], ids=["expand", "count"])
+def test_chain_kernel_wrapped_counts_and_the_sentinel_match_reference(count_only):
+    """int32 counts that wrap: 3 x 2^30 (negative), 4 x 2^30 (zero) and
+    2 x 2^30 (-2^31) stay absent, as the reference's signed `dense > 0`
+    has them, 2^30 stays; a frontier that touches the sentinel drops it
+    (ids at and past n_cap) and counts a negative id at node 0."""
+    n_cap = 64
+    ptr, idx, md = _wrap_and_sentinel_csr(n_cap)
+    (ptr_r, idx_r), (ptr_p, idx_p) = _both((ptr, idx))
+    fr = np.array([0, 2, 2, n_cap, 9, 0], dtype=np.int32)
+    w = np.array([1 << 30, 1, 2, 7, 0, 0], dtype=np.int32)
+    hops_r = (((ptr_r, idx_r),), ((ptr_r, idx_r),))
+    hops_p = (((ptr_p, idx_p),), ((ptr_p, idx_p),))
+    outs = (16, 16)
+    want = _ref_kernel("chain")(hops_r, jnp.asarray(fr), jnp.asarray(w), mds=((md,), (md,)),
+                                n_cap=n_cap, out_sizes=outs, count_only=count_only)
+    got = P.chain_kernel(hops_p, torch.from_numpy(fr), torch.from_numpy(w), ((md,), (md,)),
+                         n_cap, outs, count_only)
+    if count_only:
+        assert int(got) == int(want)
+        return
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    one = P.chain_kernel(hops_p[:1], torch.from_numpy(fr), torch.from_numpy(w), ((md,),),
+                         n_cap, outs[:1], False)
+    live = one[0][one[1] > 0].tolist()
+    assert live == [0, 3, 7] and one[1][:3].tolist() == [3, 3, 1 << 30]
+
+
 CSC_CASES = [
     # (label, hops, lanes)
     ("1-hop count", 0, 32),

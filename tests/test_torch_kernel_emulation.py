@@ -632,7 +632,7 @@ _BM25_FAULTS = {
     # the idf's +0.5 smoothing of df
     "idf": ("__fadd_rn(d, 0.5f)", "__fadd_rn(d, 1.5f)"),
     # the length normalisation without the division by the average length
-    "length_norm": ("__fdiv_rn(doc_len[row], avg_len)", "doc_len[row]"),
+    "length_norm": ("__fdiv_rn(len, avg_len)", "len"),
 }
 
 
@@ -648,6 +648,125 @@ def test_k9_planted_fault_fails_the_comparison(tmp_path, fault):
     got = _bm25_emu(bad, tf, df, lens, dc, tl)
     assert not torch.allclose(got, B.bm25_scores_plain(tf, df, lens, dc, tl),
                               rtol=1e-5, atol=1e-6)
+
+
+def _k9_postings(rng, ndoc=6000):
+    """Postings of 15 terms over ndoc documents (tf 1-3, lengths 0-30): 0
+    every document, 1-3 a half / a fifth / a twentieth, 4 exactly 256 (one
+    tile), 5 the last document only (the largest did), 6 the first and the
+    last, 7 / 8 the even / odd ones (disjoint), 9-14 dense (70-95%)."""
+    lists = [np.arange(ndoc)]
+    lists += [np.nonzero(rng.random(ndoc) < p)[0] for p in (0.5, 0.2, 0.05)]
+    lists.append(np.sort(rng.choice(ndoc, 256, replace=False)))
+    lists += [np.array([ndoc - 1]), np.array([0, ndoc - 1]), np.arange(0, ndoc, 2),
+              np.arange(1, ndoc, 2)]
+    lists += [np.nonzero(rng.random(ndoc) < p)[0] for p in (0.9, 0.8, 0.95, 0.7, 0.85, 0.75)]
+    indptr = np.zeros(len(lists) + 1, dtype=np.int64)
+    indptr[1:] = np.cumsum([len(x) for x in lists])
+    dids = np.concatenate(lists).astype(np.int64)
+    tfs = rng.integers(1, 4, len(dids)).astype(np.float32)
+    lens = rng.integers(0, 31, ndoc).astype(np.float32)
+    return B.upload_postings(indptr, dids, tfs, lens, "cpu"), float(lens.sum())
+
+
+# (label, term ids rarest first, stats_override df or None)
+_K9_MATCH_CASES = [
+    ("T1 half", [1], None), ("T1 one did", [5], None), ("T1 one tile", [4], None),
+    ("T1 every doc, many tiles", [0], None),
+    ("T2", [3, 1], None), ("T2 window past the stage", [6, 1], None),
+    ("T2 empty", [7, 8], None), ("T2 full", [4, 0], None), ("T2 largest did", [5, 0], None),
+    ("T2 many tiles", [1, 9], None), ("T3", [3, 2, 1], None),
+    ("T8", [3, 0, 9, 10, 11, 12, 13, 14], None),
+    ("T2 stats_override", [3, 1], [400_000.0, 12.5]),
+]
+
+
+def _k9_match_emu(lib, post, tids, df, dc, tl, scratch=None):
+    sc = scratch or B.MatchScratch(torch.device("cpu"))
+    out = B._launch_match(lib, post, tids, df, dc, tl, 1.2, 0.75, sc, None)
+    return out, sc
+
+
+def _k9_tf_rows(post, tids, dids):
+    """The tf rows of the matched dids, for bm25_scores."""
+    ip, all_d, all_f = post.host_indptr, post.dids.numpy(), post.tfs.numpy()
+    cols = []
+    for t in tids:
+        d, f = all_d[ip[t]:ip[t + 1]], all_f[ip[t]:ip[t + 1]]
+        cols.append(f[np.searchsorted(d, dids)])
+    return torch.from_numpy(np.stack(cols, 1).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", _K9_MATCH_CASES, ids=lambda c: c[0])
+def test_k9_match_matches_plain(lib, case):
+    """bm25_match_scores under emulation: the plain version's dids in its
+    order, scores within the tolerance (log1pf against torch's log1p) and
+    bit-equal to bm25_scores' on the same tf rows; the look-back state zero
+    after the call."""
+    label, tids, odf = case
+    post, tl = _k9_postings(np.random.default_rng(90))
+    df = np.array(odf or [post.length(t) for t in tids], dtype=np.float32)
+    dc, tl = (3_000_000.0, 36_000_001.0) if odf else (6000.0, tl)
+    (dids, scores), sc = _k9_match_emu(lib, post, tids, df, dc, tl)
+    want_d, want_s = B.bm25_match_scores_plain(post, tids, df, dc, tl)
+    np.testing.assert_array_equal(dids, want_d)
+    np.testing.assert_allclose(scores, want_s, rtol=1e-5, atol=1e-6)
+    assert not bool(sc.state.any())
+    if label.endswith("empty"):
+        assert dids.size == 0
+        return
+    assert dids.size > 0
+    if "full" in label or label.startswith("T1"):
+        assert dids.size == post.length(tids[0])
+    if dids.size:
+        rows = _k9_tf_rows(post, tids, dids)
+        same = _bm25_emu(lib, rows, torch.from_numpy(df), post.doc_len[torch.from_numpy(dids)],
+                         dc, tl)
+        assert np.array_equal(same.numpy().view(np.int32), scores.view(np.int32))
+
+
+def test_k9_match_back_to_back_over_one_scratch(lib):
+    """Queries of every size in turn over one scratch (it grows with the
+    rarest list and its state stays zero): each equal to a fresh call's."""
+    post, tl = _k9_postings(np.random.default_rng(91))
+    sc = B.MatchScratch(torch.device("cpu"))
+    for _, tids, _ in _K9_MATCH_CASES[:10]:
+        df = np.array([post.length(t) for t in tids], dtype=np.float32)
+        got, _ = _k9_match_emu(lib, post, tids, df, 6000.0, tl, sc)
+        want = B.bm25_match_scores_plain(post, tids, df, 6000.0, tl)
+        np.testing.assert_array_equal(got[0], want[0])
+        assert not bool(sc.state.any())
+
+
+_K9_MATCH_FAULTS = {
+    # the window of another list ends before the tile's last did
+    "window_end": ("warp_bound(dids, sj, ej, span[warp], warp == 1)",
+                   "warp_bound(dids, sj, ej, span[warp], false)"),
+    # each tile ranks its matches from 0: the tiles overwrite each other
+    "no_look_back": ("out[1 + before + rank]", "out[1 + 0 * before + rank]"),
+    # every term scored with the rarest term's idf
+    "idf_of_the_rarest": ("bm25_term(idf[j], tfs[pos], k1p1, kn)",
+                          "bm25_term(idf[0], tfs[pos], k1p1, kn)"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(_K9_MATCH_FAULTS))
+def test_k9_match_planted_fault_fails_the_comparison(tmp_path, fault):
+    """The match cases have teeth: a copy of bm25.cu with one fault planted
+    disagrees with the plain version on them."""
+    src = _source("bm25.cu")
+    old, new = _K9_MATCH_FAULTS[fault]
+    assert src.count(old) == 1
+    bad = _build_emu(tmp_path, {"bm25.cu": src.replace(old, new)})
+    post, tl = _k9_postings(np.random.default_rng(90))
+    differs = []
+    for _, tids, _ in _K9_MATCH_CASES:
+        df = np.array([post.length(t) for t in tids], dtype=np.float32)
+        (dids, scores), _ = _k9_match_emu(bad, post, tids, df, 6000.0, tl)
+        want_d, want_s = B.bm25_match_scores_plain(post, tids, df, 6000.0, tl)
+        differs.append(dids.shape != want_d.shape or not np.array_equal(dids, want_d)
+                       or not np.allclose(scores, want_s, rtol=1e-5, atol=1e-6))
+    assert any(differs)
 
 
 # ------------------------------------------------------------------ ML (K10)

@@ -581,6 +581,129 @@ def test_k6_chain_matches_plain_exactly(lib, case, count_only):
         assert bool(live.all())  # more nodes were present than out_size keeps
 
 
+def _wrap_csr(n_cap):
+    """Node 0 reaches node 5 by 3 parallel edges, node 6 by 4, node 8 by 2,
+    node 7 by 1; node 2 reaches the sentinel n_cap, ids past it, a negative
+    id and node 3."""
+    adj = {0: [5] * 3 + [6] * 4 + [8] * 2 + [7], 2: [n_cap, n_cap + 9, 1 << 30, -4, 3]}
+    indptr = np.zeros(n_cap + 1, dtype=np.int64)
+    for src, dst in adj.items():
+        indptr[src + 1] = len(dst)
+    indptr = np.cumsum(indptr).astype(np.int32)
+    indices = np.zeros(16, dtype=np.int32)
+    flat = [d for src in sorted(adj) for d in adj[src]]
+    indices[:len(flat)] = flat
+    return torch.from_numpy(indptr), torch.from_numpy(indices), 16
+
+
+def _k6_new_cases(rng):
+    """(label, args) of the bitmap design's cases: several bitmap tiles
+    (n_cap 2^16: 2,049 words in three tiles of 1,024), int32 counts that
+    wrap to <= 0 (absent) beside 2^30 (kept), and the sentinel."""
+    n_cap = 1 << 16
+    p1, i1, md1 = _csr(rng, 40_000, n_cap, 60_000)
+    p2, i2, md2 = _csr(rng, 40_000, n_cap, 30_000)
+    fr, w = _frontier(rng, 40_000, 512, n_cap, 400)
+    tiles = ((((p1, i1),), ((p2, i2), (p1, i1))), fr, w, ((md1,), (md2, md1)), n_cap,
+             (4096, 2048))
+    wp, wi, wmd = _wrap_csr(n_cap)
+    wfr = torch.tensor([0, 2, 2, n_cap, 9, 0, 40_000], dtype=torch.int32)
+    ww = torch.tensor([1 << 30, 1, 2, 7, 0, 0, 3], dtype=torch.int32)
+    wrap = ((((wp, wi),), ((wp, wi),)), wfr, ww, ((wmd,), (wmd,)), n_cap, (16, 16))
+    wrap1 = ((((wp, wi),),), wfr, ww, ((wmd,),), n_cap, (16,))
+    # node 3 reaches 5,000 nodes of the first tile (157 of its words):
+    # written out whole, or truncated at 3,000 inside the tile
+    dptr = np.zeros(n_cap + 1, dtype=np.int64)
+    dptr[4:] = 5000
+    didx = np.zeros(8192, dtype=np.int32)
+    didx[:5000] = np.arange(5000) * 7 % 5003
+    dense = (torch.from_numpy(dptr.astype(np.int32)), torch.from_numpy(didx))
+    dfr = torch.tensor([3, 3, n_cap, 7], dtype=torch.int32)
+    dw = torch.tensor([2, 1, 0, 4], dtype=torch.int32)
+    full = (((dense,),), dfr, dw, ((8192,),), n_cap, (8192,))
+    cut = (((dense,),), dfr, dw, ((8192,),), n_cap, (3000,))
+    return [("bitmap tiles", tiles), ("wrapped counts and the sentinel", wrap),
+            ("wrapped counts, one hop", wrap1), ("a dense tile", full),
+            ("a dense tile, truncated", cut)]
+
+
+def _scratch_zero(sc):
+    return not (bool(sc.cnt.any()) or bool(sc.bits.any()) or bool(sc.state.any()))
+
+
+def test_k6_bitmap_cases_back_to_back_keep_the_scratch_zero(lib):
+    """Each case twice, expand and count, over one scratch: exact against
+    the plain version every time, and the count array, the bitmap and the
+    look-back state all zero after every call."""
+    rng = np.random.default_rng(61)
+    cases = _k6_new_cases(rng)
+    sc = G.ChainScratch(lib, 1 << 16, torch.device("cpu"))
+    for _ in range(2):
+        for label, args in cases:
+            for count_only in (False, True):
+                got = G._launch_chain(lib, *args, count_only, scratch=sc)
+                want = G.chain_plain(*args, count_only)
+                if count_only:
+                    assert int(got) == int(want), label
+                else:
+                    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), label
+                assert _scratch_zero(sc) and not sc.dirty, label
+    one = G._launch_chain(lib, *cases[2][1], False, scratch=sc)
+    assert one[0][one[1] > 0].tolist() == [0, 3, 7]  # 3, 4 and 2 x 2^30 wrap out
+    assert one[1][:3].tolist() == [3, 3, 1 << 30]
+
+
+def test_k6_failed_call_dirties_the_scratch_and_the_next_call_clears_it(lib):
+    """A hop whose second mirror has no max degree fails after the first
+    mirror's gather ran: the call raises, the scratch holds that gather's
+    counts and is marked dirty; the next call zeroes it first and is exact,
+    and leaves it zero."""
+    rng = np.random.default_rng(62)
+    label, args = _k6_new_cases(rng)[0]
+    hops, fr, w, mds, n_cap, outs = args
+    sc = G.ChainScratch(lib, n_cap, torch.device("cpu"))
+    bad_hops = (hops[0] + hops[0],) + hops[1:]
+    bad_mds = ((mds[0][0], 0),) + mds[1:]
+    with pytest.raises(RuntimeError, match="graph_chain"):
+        G._launch_chain(lib, bad_hops, fr, w, bad_mds, n_cap, outs, False, scratch=sc)
+    assert sc.dirty and bool(sc.cnt.any()) and bool(sc.bits.any())
+    got = G._launch_chain(lib, *args, False, scratch=sc)
+    want = G.chain_plain(*args, False)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert _scratch_zero(sc) and not sc.dirty
+
+
+_K6_FAULTS = {
+    # an unsigned count test: counts that wrap negative stay in the frontier
+    "unsigned_count": ("if ((int)c4[i] > 0 && ((word >> (4 * q + i)) & 1u))",
+                       "if (c4[i] != 0u && ((word >> (4 * q + i)) & 1u))"),
+    # the counts read are not cleared: the next call adds to them
+    "count_not_cleared": ("    if ((tw >> lane) & 1u) cnt[node] = 0u;\n", ""),
+    # each tile ranks its nodes from 0: the tiles overwrite each other
+    "no_look_back": ("const long long before = (long long)lb_offset(state, tile, count);",
+                     "const long long before = 0 * (long long)lb_offset(state, tile, count);"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(_K6_FAULTS))
+def test_k6_planted_fault_fails_the_comparison(tmp_path, fault):
+    """The bitmap cases have teeth: a copy of graph.cu with one fault planted
+    disagrees with the plain version on them, called back to back."""
+    src = _source("graph.cu")
+    old, new = _K6_FAULTS[fault]
+    assert src.count(old) == 1
+    bad = _build_emu(tmp_path, {"graph.cu": src.replace(old, new)})
+    rng = np.random.default_rng(61)
+    sc = G.ChainScratch(bad, 1 << 16, torch.device("cpu"))
+    differs = []
+    for _ in range(2):
+        for label, args in _k6_new_cases(rng):
+            got = G._launch_chain(bad, *args, False, scratch=sc)
+            want = G.chain_plain(*args, False)
+            differs.append(not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])))
+    assert any(differs)
+
+
 def _csc_hop(rng, n_nodes, cap, n_edges):
     p, i, _ = _csr(rng, n_nodes, cap, n_edges)
     return tuple(torch.from_numpy(a) for a in G.csc_arrays(p.numpy(), i.numpy())), p
