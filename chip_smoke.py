@@ -262,8 +262,9 @@ def kernels_per_call(torch, fn, calls: int = 10):
     PyTorch's fills and copies; not memcpy / memset), by torch.profiler
     over `calls` calls, one a profiler step, after two warm-up steps (a
     session without them lost the first calls' kernels): {"kernels": n,
-    "device_ms": t, "by_name": {name: [kernels, device ms] a call}}, or
-    "not measured" when the profiler reports no kernel on this machine."""
+    "device_ms": t, "by_name": {name: [kernels, device ms] a call},
+    "memsets": memsets a call}, or "not measured" when the profiler reports
+    no kernel on this machine."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
@@ -272,19 +273,21 @@ def kernels_per_call(torch, fn, calls: int = 10):
             fn()
             torch.cuda.synchronize()
             prof.step()
-    by_name = {}
+    by_name, memsets = {}, 0.0
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0)
-        if us and not ev.key.startswith(("Memcpy", "Memset")):
+        if ev.key.startswith("Memset"):
+            memsets += ev.count / calls
+        elif us and not ev.key.startswith("Memcpy"):
             n, t = by_name.get(ev.key[:60], (0.0, 0.0))
             by_name[ev.key[:60]] = (n + ev.count / calls, t + us / 1e3 / calls)
     if not by_name:
         return "not measured"
     return {"kernels": sum(n for n, _ in by_name.values()),
             "device_ms": sum(t for _, t in by_name.values()),
-            "by_name": {k: list(v) for k, v in by_name.items()}}
+            "by_name": {k: list(v) for k, v in by_name.items()}, "memsets": memsets}
 
 
 # ------------------------------------------------------------------ phase 1
@@ -3376,26 +3379,58 @@ def person_csr(pairs, nodes: int):
     return np.cumsum(indptr).astype(np.int32), pairs[order, 1].astype(np.int32)
 
 
-def phase_mesh_kernels_graph(torch, seed: int = 7, hops: int = 3):
-    """K14 and K15 against their plain versions on the card, exactly, on
-    config 1's person graph over 8 frontier shards on cuda:0: a `hops`-hop
-    BFS from `seed`, each frontier padded to a multiple of 8 with the
-    out-of-range id `nodes` (masked), max_degree its largest out-degree;
-    each hop's reached set equals numpy's. Times at the last hop's shapes,
-    beside the bounds and (K15) torch.unique."""
-    from surrealdb_tpu_torch.parallel import mesh as M
+def spread_csr(indptr, indices, cap: int, seed: int = 3):
+    """The graph of (indptr, indices) with its nodes moved to distinct
+    seeded ids in [0, cap): (indptr [cap + 1], indices, the id map)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.choice(cap, indptr.size - 1, replace=False).astype(np.int64)
+    deg = np.zeros(cap, dtype=np.int64)
+    deg[ids] = np.diff(indptr)
+    order = np.argsort(ids, kind="stable")  # the rows in their new id order
+    rows = np.concatenate([indices[indptr[v]:indptr[v + 1]] for v in order])
+    new_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    return new_ptr, ids[rows].astype(np.int32), ids.astype(np.int32)
 
-    t0 = time.perf_counter()
+
+def hop_read_bytes(indptr, indices, frontier, max_degree: int) -> int:
+    """The bytes K14 must read at this hop: the frontier and its mask whole,
+    and of indptr and indices the 32-byte sectors its rows touch, each once
+    (the two pointers of each row under the reference's gather rule, and
+    indices[clip(start + o)] for o < max_degree, every row: invalid entries
+    carry their neighbour too)."""
+    v1, e = indptr.size, indices.size
+
+    def wrap32(x):
+        return (x + (1 << 31)) % (1 << 32) - (1 << 31)
+
+    def gather(i):
+        i = np.where(i < 0, i + v1, i)
+        return np.clip(i, 0, v1 - 1)
+
+    def sector_bytes(entries, nbytes):
+        sectors = np.unique(entries * 4 // 32)
+        return int(np.minimum(32, nbytes - 32 * sectors).sum())
+
+    fr = frontier.astype(np.int64)
+    a, b = gather(fr), gather(wrap32(fr + 1))
+    take = wrap32(indptr[a].astype(np.int64)[:, None] + np.arange(max_degree))
+    return (sector_bytes(np.concatenate([a, b]), indptr.nbytes)
+            + sector_bytes(np.clip(take, 0, e - 1).ravel(), indices.nbytes) + frontier.size * 5)
+
+
+def mesh_graph_bfs(torch, M, mesh, indptr, indices, nodes: int, seed: int, hops: int, shape: str):
+    """A `hops`-hop BFS from `seed` through K14 and K15 on the card, each
+    frontier padded to a multiple of MESH_SHARDS with the masked id
+    `nodes`, max_degree its largest out-degree: every hop's outputs equal
+    the plain versions', its reached set numpy's; K14 one launch a hop (one
+    card), K15 leaves its scratch zero. The last hop's (frontier, mask,
+    max_degree, neighbours, valid)."""
+    from surrealdb_tpu_torch.ops import _cuda
+
     dev = torch.device("cuda", 0)
-    nodes = GRAPH_NODES
-    pairs = graph_pairs(nodes, GRAPH_EDGES)
-    indptr, indices = person_csr(pairs, nodes)
+    ptr, idx = M.replicate(mesh, indptr), M.replicate(mesh, indices)
     deg = np.diff(indptr)
-    mesh = one_device_mesh(torch, "cuda")
-    ptr = M.replicate(mesh, indptr)
-    idx = M.replicate(mesh, indices)
     live = np.array([seed], dtype=np.int32)
-    shapes = []
     for h in range(hops):
         f = -(-live.size // MESH_SHARDS) * MESH_SHARDS
         fr = np.full(f, nodes, dtype=np.int32)
@@ -3405,46 +3440,98 @@ def phase_mesh_kernels_graph(torch, seed: int = 7, hops: int = 3):
         md = int(deg[live].max())
         frt = torch.from_numpy(fr).to(dev)
         fmt = torch.from_numpy(fm).to(dev)
+        M.HOP.reset()
         nb, valid = M.sharded_frontier_hop(mesh, ptr, idx, frt, fmt, md)
         torch.cuda.synchronize()
+        hop_launches = M.HOP.launches
         want = M.sharded_frontier_hop_plain(mesh, ptr, idx, frt, fmt, md)
         hop_ok = bool(torch.equal(nb, want[0]) and torch.equal(valid, want[1]))
         uniq, umask = M.dedup_frontier(nb, valid, nodes)
         torch.cuda.synchronize()
         wu, wm = M.dedup_frontier_plain(nb, valid, nodes)
         dedup_ok = bool(torch.equal(uniq, wu) and torch.equal(umask, wm))
+        sc = M.dedup_scratch(_cuda.lib(), dev, nodes)
+        zero = not (bool(sc.bits.any()) or bool(sc.state.any()) or sc.dirty)
         reached = np.unique(np.concatenate([indices[indptr[v]:indptr[v + 1]] for v in live]))
         nxt = uniq[umask].cpu().numpy()
         numpy_ok = bool(np.array_equal(nxt, reached))
-        emit("mesh_kernels", kernel="K14+K15", hop=h + 1, frontier=f, live=int(live.size),
-             max_degree=md, gathered=int(nb.numel()), reached=int(nxt.size),
-             hop_exact=hop_ok, dedup_exact=dedup_ok, numpy_equal=numpy_ok)
-        require(hop_ok and dedup_ok and numpy_ok, f"K14/K15 hop {h + 1} disagrees")
-        shapes.append((frt, fmt, md, nb, valid))
+        emit("mesh_kernels", kernel="K14+K15", shape=shape, hop=h + 1, frontier=f,
+             live=int(live.size), max_degree=md, gathered=int(nb.numel()), reached=int(nxt.size),
+             hop_exact=hop_ok, dedup_exact=dedup_ok, numpy_equal=numpy_ok,
+             hop_launches=hop_launches, dedup_scratch_zero=zero)
+        require(hop_ok and dedup_ok and numpy_ok, f"K14/K15 {shape} hop {h + 1} disagrees")
+        require(hop_launches == 1, f"K14 {shape} hop {h + 1}: {hop_launches} launches on one card")
+        require(zero, f"K15 {shape} hop {h + 1} left its scratch dirty")
         live = nxt.astype(np.int32)
-    frt, fmt, md, nb, valid = shapes[-1]
-    f = frt.numel()
-    hop_bound, hop_by = bound_ms(indptr.nbytes + indices.nbytes + f * 5 + f * md * 5, 0.0,
-                                 "float32")
-    dd_bound, dd_by = bound_ms(f * md * 5 + f * md * 5, 0.0, "float32")
-    timing = {
-        "K14": dict(
-            ms=median_ms(lambda: M.sharded_frontier_hop(mesh, ptr, idx, frt, fmt, md)),
-            queued_ms=queued_device_ms(
-                torch, lambda: M.sharded_frontier_hop(mesh, ptr, idx, frt, fmt, md)),
-            plain_ms=median_ms(lambda: M.sharded_frontier_hop_plain(mesh, ptr, idx, frt, fmt,
-                                                                    md)),
-            library_ms=None, bound_ms=hop_bound, bound_by=hop_by,
-            shape={"frontier": f, "max_degree": md, "nodes": nodes, "edges": GRAPH_EDGES}),
-        "K15": dict(
-            ms=median_ms(lambda: M.dedup_frontier(nb, valid, nodes)),
-            queued_ms=queued_device_ms(torch, lambda: M.dedup_frontier(nb, valid, nodes)),
-            plain_ms=median_ms(lambda: M.dedup_frontier_plain(nb, valid, nodes)),
-            library_ms=median_ms(lambda: torch.unique(nb[valid])),
-            bound_ms=dd_bound, bound_by=dd_by,
-            shape={"entries": int(nb.numel()), "nodes": nodes}),
-    }
-    emit("timing_mesh_graph", **timing)
+    return frt, fmt, md, nb, valid
+
+
+def phase_mesh_kernels_graph(torch, seed: int = 7, hops: int = 3, cap: int = 1 << 20):
+    """K14 and K15 against their plain versions on the card, exactly, over
+    8 frontier shards on cuda:0 (mesh_graph_bfs): on config 1's person graph
+    and on the same graph with its nodes spread over `cap` ids (config 1's
+    CSC capacity: K15's bitmap 128 KB, past its shared-memory marking).
+    Times at each last hop's shapes beside the bounds and (K15)
+    torch.unique; K15's kernels and memsets a call from torch.profiler, and
+    its scratch zero after the timing's back-to-back calls."""
+    from surrealdb_tpu_torch.ops import _cuda
+    from surrealdb_tpu_torch.parallel import mesh as M
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    nodes = GRAPH_NODES
+    pairs = graph_pairs(nodes, GRAPH_EDGES)
+    indptr, indices = person_csr(pairs, nodes)
+    mesh = one_device_mesh(torch, "cuda")
+    sptr, sidx, ids = spread_csr(indptr, indices, cap)
+    timing = {}
+    for shape, (ptr_np, idx_np, n, s0) in (
+            ("config1", (indptr, indices, nodes, seed)),
+            (f"spread_{cap}", (sptr, sidx, cap, int(ids[seed])))):
+        frt, fmt, md, nb, valid = mesh_graph_bfs(torch, M, mesh, ptr_np, idx_np, n, s0, hops,
+                                                 shape)
+        ptr, idx = M.replicate(mesh, ptr_np), M.replicate(mesh, idx_np)
+        f = frt.numel()
+        hop = lambda: M.sharded_frontier_hop(mesh, ptr, idx, frt, fmt, md)  # noqa: E731
+        dedup = lambda: M.dedup_frontier(nb, valid, n)  # noqa: E731
+        read = hop_read_bytes(ptr_np, idx_np, frt.cpu().numpy(), md)
+        hop_bound, hop_by = bound_ms(read + f * md * 5, 0.0, "float32")
+        dd_bound, dd_by = bound_ms(f * md * 5 + f * md * 5, 0.0, "float32")
+        M.DEDUP.reset()
+        for _ in range(5):
+            dedup()
+        calls = M.DEDUP.launches
+        per_call = kernels_per_call(torch, dedup)
+        sc = M.dedup_scratch(_cuda.lib(), dev, n)
+        torch.cuda.synchronize()
+        zero = not (bool(sc.bits.any()) or bool(sc.state.any()) or sc.dirty)
+        require(zero, f"K15 {shape}: scratch dirty after back-to-back calls")
+        # the wrapper's count: one mesh_dedup_frontier (2 launches) a call
+        require(calls == 5, f"K15 {shape}: {calls} wrapper launches over 5 calls")
+        if per_call != "not measured":
+            require(per_call["kernels"] <= 2 and per_call["memsets"] == 0,
+                    f"K15 {shape}: {per_call} a call (at most 2 kernels, no memset)")
+        else:
+            emit("mesh_kernels", kernel="K15", shape=shape, wrapper_launches_a_call=calls / 5,
+                 kernels_and_memsets="not measured (the profiler reported no kernel): only "
+                                     "the wrapper's one launch a call was checked")
+        timing[shape] = {
+            "K14": dict(
+                ms=median_ms(hop), queued_ms=queued_device_ms(torch, hop),
+                plain_ms=median_ms(lambda: M.sharded_frontier_hop_plain(mesh, ptr, idx, frt, fmt,
+                                                                        md)),
+                library_ms=None, bound_ms=hop_bound, bound_by=hop_by,
+                kernels_per_call=kernels_per_call(torch, hop),
+                shape={"frontier": f, "max_degree": md, "nodes": n, "edges": GRAPH_EDGES}),
+            "K15": dict(
+                ms=median_ms(dedup), queued_ms=queued_device_ms(torch, dedup),
+                plain_ms=median_ms(lambda: M.dedup_frontier_plain(nb, valid, n)),
+                library_ms=median_ms(lambda: torch.unique(nb[valid])),
+                bound_ms=dd_bound, bound_by=dd_by, kernels_per_call=per_call,
+                scratch_zero_after_timing=zero,
+                shape={"entries": int(nb.numel()), "nodes": n}),
+        }
+        emit("timing_mesh_graph", shape=shape, **timing[shape])
     return dict(timing=timing, seconds=time.perf_counter() - t0)
 
 
@@ -3932,7 +4019,8 @@ def main(argv=None) -> int:
              "knn_pairwise", "knn_select", "ivf_rerank", "mesh_ivf_rerank",
              "mesh_topk_merge")}},
     ))
-    gt = mesh_graph_k["timing"]
+    gt = mesh_graph_k["timing"]["config1"]
+    spread = {k: v for k, v in mesh_graph_k["timing"].items() if k != "config1"}
     for name, kern, replaces, key in (
         ("K14 sharded_frontier_hop (mesh_frontier_hop)", "mesh_frontier_hop",
          "surrealdb_tpu/parallel/mesh.py:263", "K14"),
@@ -3942,6 +4030,7 @@ def main(argv=None) -> int:
         kernels.append(kernel_entry(
             name, kern, mesh_src, replaces, dry["launches"].get(kern, 0), 0.0,
             {k: v for k, v in gt[key].items() if k != "shape"}, gt[key]["shape"],
+            {"by_shape": {lab: t[key] for lab, t in spread.items()}},
         ))
     emit("done", seconds=time.perf_counter() - t_all)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,9 +7,16 @@
 // `k<<<grid, block, smem, stream>>>(args)` launch is rewritten to
 // emu_launch(grid, block, smem, stream, [&]{ k(args); }). It checks logic
 // (indexing, barriers, ties, masks), never speed or the hardware's limits.
+//
+// Built with -DEMU_CONCURRENT (and the sources' `__shared__` declarations
+// rewritten to emu_smem / emu_dyn_smem, a block's own), every block of a
+// launch runs at once instead, and the later blocks run ahead (see
+// emu_launch there): what one block waits for in another's writes, as
+// lookback.cuh's look-back does, is then really waited for.
 #pragma once
 #include <atomic>
 #include <barrier>
+#include <chrono>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -20,6 +27,8 @@
 #include <thread>
 #include <vector>
 #include <memory>
+#include <map>
+#include <mutex>
 using std::min; using std::max;
 #define __global__
 #define __device__
@@ -94,9 +103,46 @@ struct EmuBlock {
   std::vector<unsigned long long> xchg;  // [threads]
   std::vector<std::array<unsigned, 6>> frag;  // [threads]: a lane's mma fragments (A 4, B 2)
   std::atomic<int> count[2] = {0, 0};  // __syncthreads_count's two slots, used in turn
+#ifdef EMU_CONCURRENT
+  std::mutex smem_mu;
+  std::map<const void*, std::unique_ptr<unsigned char[]>> smem;  // by declaration
+  std::atomic<bool> go{false};        // the block may start
+  std::atomic<bool>* next = nullptr;  // the next block's `go`
+  unsigned lag_ms = 0;                // each __syncthreads after the first waits this first
+#endif
 };
+#ifdef EMU_CONCURRENT
+#ifndef EMU_STEP_MS
+#define EMU_STEP_MS 25
+#endif
+inline thread_local EmuBlock* g_blk = nullptr;
+inline thread_local unsigned emu_syncs = 0;
+// A block's `__shared__` declaration number ID, of type T.
+template <class T, int ID> T& emu_smem() {
+  static const char tag = 0;
+  std::lock_guard<std::mutex> lock(g_blk->smem_mu);
+  auto& p = g_blk->smem[&tag];
+  if (!p) p.reset(new unsigned char[sizeof(T)]());
+  return *reinterpret_cast<T*>(p.get());
+}
+// A block's dynamic shared memory (`extern __shared__ T name[]`).
+template <class T> T* emu_dyn_smem() {
+  static const char tag = 0;
+  std::lock_guard<std::mutex> lock(g_blk->smem_mu);
+  auto& p = g_blk->smem[&tag];
+  if (!p) p.reset(new unsigned char[1 << 21]());
+  return reinterpret_cast<T*>(p.get());
+}
+inline void __syncthreads() {
+  if (emu_syncs++ > 0 && threadIdx.x == 0 && g_blk->lag_ms > 0)
+    std::this_thread::sleep_for(std::chrono::milliseconds(g_blk->lag_ms));
+  g_blk->block_bar->arrive_and_wait();
+  if (threadIdx.x == 0 && g_blk->next != nullptr) g_blk->next->store(true);
+}
+#else
 inline EmuBlock* g_blk = nullptr;
 inline void __syncthreads() { g_blk->block_bar->arrive_and_wait(); }
+#endif
 // the block's count of threads passing a non-zero p: the two slots in turn,
 // thread 0 zeroing a slot after the second barrier, before it can reach the
 // slot's next use (two calls later)
@@ -186,6 +232,45 @@ inline void mma_bf16_16816(float* d, const unsigned* a, const unsigned* b) {
     d[i] = s;
   }
 }
+#ifdef EMU_CONCURRENT
+// One OS thread per CUDA thread of every block, all at once. Block b starts
+// once block b - 1 has passed its first __syncthreads (or ended), so blocks
+// take a launch's tickets in index order; after its first, each
+// __syncthreads of block b waits (grid - 1 - b) * EMU_STEP_MS ms, so the
+// later blocks run ahead of the earlier ones and reach a read of what an
+// earlier block publishes before it is published.
+inline void emu_launch(unsigned grid, unsigned block, size_t, cudaStream_t, std::function<void()> fn) {
+  std::vector<std::unique_ptr<EmuBlock>> blks;
+  for (unsigned b = 0; b < grid; ++b) {
+    auto blk = std::make_unique<EmuBlock>();
+    blk->block_bar = std::make_unique<std::barrier<>>(block);
+    for (unsigned w = 0; w < (block + 31) / 32; ++w) blk->warp_bar.push_back(std::make_unique<std::barrier<>>(32));
+    blk->xchg.assign(block, 0);
+    blk->frag.resize(2 * block);
+    blk->lag_ms = (grid - 1 - b) * EMU_STEP_MS;
+    blk->go.store(b == 0);
+    blks.push_back(std::move(blk));
+  }
+  for (unsigned b = 0; b + 1 < grid; ++b) blks[b]->next = &blks[b + 1]->go;
+  std::vector<std::thread> ts;
+  for (unsigned b = 0; b < grid; ++b)
+    for (unsigned t = 0; t < block; ++t)
+      ts.emplace_back([&, b, t] {
+        g_blk = blks[b].get();
+        threadIdx = dim3(t);
+        blockIdx = dim3(b);
+        blockDim = dim3(block);
+        gridDim = dim3(grid);
+        emu_syncs = 0;
+        emu_mma_turn = 0;
+        emu_count_turn = 0;
+        while (!g_blk->go.load()) std::this_thread::sleep_for(std::chrono::milliseconds(1));
+        fn();
+        if (t == 0 && g_blk->next != nullptr) g_blk->next->store(true);
+      });
+  for (auto& t : ts) t.join();
+}
+#else
 // One OS thread per CUDA thread of a block, reused for every block of the
 // grid in turn; an end-of-block barrier keeps the blocks apart (every
 // thread reaches each __syncthreads of a block equally often, so the block
@@ -214,3 +299,4 @@ inline void emu_launch(unsigned grid, unsigned block, size_t, cudaStream_t, std:
     });
   for (auto& t : ts) t.join();
 }
+#endif

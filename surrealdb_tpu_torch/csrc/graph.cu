@@ -85,13 +85,13 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "compact.cuh"
 #include "launch.cuh"
 #include "lookback.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
+static_assert(THREADS == GRID_THREADS, "grid_for sizes the grids of THREADS-thread blocks");
 
 __device__ __forceinline__ long long clampll(long long v, long long lo, long long hi) {
   return v < lo ? lo : (v > hi ? hi : v);

@@ -1,6 +1,7 @@
 // Host-side launch helpers shared by the kernel files: a kernel's dynamic
-// shared-memory limit raised once a device, and the device's SM count
-// cached, so a launch makes no attribute calls after the first.
+// shared-memory limit raised once a device, the device's SM count cached,
+// so a launch makes no attribute calls after the first, and the grid of a
+// thread-an-item kernel.
 // csrc/emu/cuda_emu.h defines the runtime calls for the CPU emulation.
 // Include after <cuda_runtime.h>.
 #pragma once
@@ -27,6 +28,17 @@ int opt_in_smem(Kern kernel, int bytes, std::atomic<unsigned>& seen) {
       (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == 0) seen.fetch_or(bit);
   return err;
+}
+
+// The block size grid_for sizes its grids for.
+constexpr int GRID_THREADS = 256;
+
+// A grid of GRID_THREADS-thread blocks covering `work` items, one a thread,
+// grid-stride above 65,536 blocks.
+inline unsigned grid_for(long long work) {
+  long long g = (work + GRID_THREADS - 1) / GRID_THREADS;
+  if (g < 1) g = 1;
+  return (unsigned)(g < 65536 ? g : 65536);
 }
 
 inline int sm_count() {

@@ -1,11 +1,11 @@
 // Ordered compaction across the blocks of one launch, in one pass (decoupled
 // look-back, after Merrill and Garland's single-pass prefix scan), shared by
-// the BM25 match (K9, bm25.cu) and the graph chain's bitmap compaction (K6,
-// graph.cu). Each block takes a tile from a ticket, so tiles start in order
-// and a block waits only on tiles that are already running; it publishes its
-// tile's count (an aggregate), sums its predecessors' counts back to the
-// first inclusive prefix it meets (a warp reads 32 flags at a time), and
-// publishes its own inclusive prefix.
+// the BM25 match (K9, bm25.cu), the graph chain's bitmap compaction (K6,
+// graph.cu) and the frontier dedup's (K15, mesh.cu). Each block takes a tile
+// from a ticket, so tiles start in order and a block waits only on tiles
+// that are already running; it publishes its tile's count (an aggregate),
+// sums its predecessors' counts back to the first inclusive prefix it meets
+// (a warp reads 32 flags at a time), and publishes its own inclusive prefix.
 //
 // State: unsigned long long [2 + tiles]: [0] the ticket, [1] the blocks
 // finished, [2 + t] tile t's flag, (status << 32) | value with status 1 an

@@ -2,7 +2,7 @@
 // knn.cu (one library, loaded with ctypes by surrealdb_tpu_torch/ops/_cuda.py).
 // They serve surrealdb_tpu_torch/parallel/mesh.py, the port of
 // surrealdb_tpu/parallel/mesh.py, whose shard_map programs run here as one
-// launch a shard, or (K12) one launch over all the shards a card holds: a
+// launch a shard, or (K12, K14) one launch over all the shards a card holds: a
 // shard is a view of one tensor when the shards share a card, a copy on its
 // own card otherwise.
 //
@@ -50,22 +50,47 @@
 // K13's rerank is K3's ivf_rerank (ivf.cu) over the S shards a card holds,
 // one launch; mesh_topk_merge above finishes it.
 //
-// mesh_frontier_hop is K14 sharded_frontier_hop's per-shard gather: for
-// each (frontier row f, offset o < max_degree), start = indptr[fr],
-// deg = indptr[fr + 1] - start, valid = o < deg && mask[f], and the
-// neighbour indices[clip(start + o, 0, E - 1)], with JAX's gather index
-// rule for fr and fr + 1 (a negative index wraps once, then clamps into
-// [0, V]) so padded frontier entries read what the reference reads. One
-// thread an output. Bound: the bytes it touches (launch-bound here).
+// mesh_frontier_hop is K14 sharded_frontier_hop's gather, one launch over
+// the whole frontier of a card (parallel/mesh.py hands it every shard at
+// once when the shards are views of one tensor): for each (frontier row f,
+// offset o < max_degree), start = indptr[fr], deg = indptr[fr + 1] - start
+// (int32, wrapping as the reference's), valid = o < deg && mask[f], and the
+// neighbour indices[clip(start + o, 0, E - 1)], with JAX's gather index rule
+// for fr and fr + 1 (a negative index wraps once, then clamps into [0, V])
+// so padded frontier entries read what the reference reads, and invalid
+// entries carry their neighbour too. What bounds it: the bytes (the outputs,
+// 5 a slot, and the rows' index windows); at config 1's last hop one short
+// wave, so the launch and its dependent loads. Design: a block a window of
+// HOP_WINDOW consecutive outputs; the rows the window touches are read once
+// (frontier, mask, both pointers) into shared memory, a thread a row; then a
+// thread takes 4 consecutive outputs at a time: one 32-bit division a quad,
+// none an output, the index reads of neighbouring threads consecutive, the
+// neighbours stored as one 16-byte store and the valid flags as one 32-bit
+// store where the outputs are aligned (else byte by byte). Windows cut rows
+// anywhere, so no lane idles at a max_degree that is not a power of two (as
+// a group of lanes a row would) and the flags pack across row ends.
 //
 // mesh_dedup_frontier is K15 dedup_frontier: marks = zeros(n_nodes + 1),
 // marks[where(mask, nodes, n_nodes)] = 1 with JAX's scatter rule (a negative
 // index wraps once; one still out of range is dropped), marks[n_nodes] = 0,
 // then the ascending ids of the marked nodes, size F, padded with n_nodes,
-// and their mask (id < n_nodes): a scatter kernel, then the ordered
-// compaction of compact.cuh over the n_nodes marks. Bound: reading the
-// frontier and writing F ids (bytes); in practice the compaction's scan of
-// the n_nodes marks and the launches.
+// and their mask (id < n_nodes). What bounds it: reading the entries and
+// writing F ids and flags (bytes). Design: two launches from one call over a
+// scratch the caller keeps zero between calls (parallel/mesh.py
+// DedupScratch): a bitmap of the nodes, a bit a node, and lookback.cuh's
+// state. dedup_mark writes every output's padding (n_nodes, 0) on its pass
+// over the entries and sets their bits with atomicOr: a bitmap of at most
+// DD_SMEM_WORDS words is marked in each block's shared memory first, so the
+// repeated ids of a hop meet shared memory and only a block's new words
+// reach L2 (at config 1, ~10^6 entries over 313 words, ors straight into L2
+// queue on those words and took over ten times as long, PERF.md §6); a
+// larger one is marked in place, an or only where a read finds the bit
+// clear. dedup_compact, a block a tile of DD_THREADS words, a thread a word,
+// ranks the marked nodes by their words' popcounts, a block scan and
+// lookback.cuh's one-pass decoupled look-back, clears each word behind its
+// read, and writes the ids ascending over the padding, a warp a word. No
+// memset, and nothing the size of n_nodes allocated, a call; the caller
+// clears the scratch only after a failed call.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -79,7 +104,7 @@
 #include "rowstream.cuh"
 #include "knn.cuh"
 #include "knn_tq.cuh"
-#include "compact.cuh"
+#include "lookback.cuh"
 
 namespace {
 
@@ -218,6 +243,11 @@ int knn2d_launch(const KnnPlan& pl, const float* q, const void* x, int x_bf16, i
 
 // ------------------------------------------------------------------ K14
 
+constexpr int HOP_THREADS = 256;
+constexpr int HOP_QUADS = 2;                                // output quads a thread a window
+constexpr int HOP_WINDOW = 4 * HOP_QUADS * HOP_THREADS;    // outputs a block a window
+constexpr int HOP_MAX_ROWS = HOP_WINDOW + 1;               // rows a window touches, at most
+
 // JAX's gather rule for one index into n entries: a negative index wraps
 // once, then the result clamps into [0, n - 1]
 __device__ __forceinline__ long long gather_index(long long i, long long n) {
@@ -225,41 +255,179 @@ __device__ __forceinline__ long long gather_index(long long i, long long n) {
   return i < 0 ? 0 : (i > n - 1 ? n - 1 : i);
 }
 
-__global__ void __launch_bounds__(CP_THREADS)
+// out_nb / out_valid [F * md]: window w covers outputs [w * HOP_WINDOW, +
+// HOP_WINDOW); `aligned`: out_nb 16-byte and out_valid 4-byte aligned.
+__global__ void __launch_bounds__(HOP_THREADS)
 frontier_hop_kernel(const int* __restrict__ indptr, long long V1, const int* __restrict__ indices,
                     long long E, const int* __restrict__ frontier,
                     const unsigned char* __restrict__ fmask, long long F, int max_degree,
-                    int* __restrict__ out_nb, unsigned char* __restrict__ out_valid) {
+                    int aligned, int* __restrict__ out_nb, unsigned char* __restrict__ out_valid) {
+  __shared__ int s_start[HOP_MAX_ROWS];
+  __shared__ int s_lim[HOP_MAX_ROWS];  // deg where the row is live, else 0: valid = o < lim
   const long long total = F * max_degree;
-  for (long long i = (long long)blockIdx.x * CP_THREADS + threadIdx.x; i < total;
-       i += (long long)gridDim.x * CP_THREADS) {
-    const long long f = i / max_degree;
-    const int o = (int)(i % max_degree);
-    const int fr = frontier[f];
-    const int start = indptr[gather_index(fr, V1)];
-    // int32 arithmetic wraps as the reference's does
-    const int end = indptr[gather_index((int)((unsigned)fr + 1u), V1)];
-    const int deg = (int)((unsigned)end - (unsigned)start);
-    const int take = (int)((unsigned)start + (unsigned)o);
-    const long long safe = take < 0 ? 0 : (take > E - 1 ? E - 1 : take);
-    out_nb[i] = indices[safe];
-    out_valid[i] = (o < deg && fmask[f] != 0) ? 1 : 0;
+  const long long windows = (total + HOP_WINDOW - 1) / HOP_WINDOW;
+  const unsigned md = (unsigned)max_degree;
+  for (long long w = blockIdx.x; w < windows; w += gridDim.x) {
+    const long long w0 = w * HOP_WINDOW;
+    const long long r0 = w0 / max_degree;  // a division a window
+    const unsigned o0 = (unsigned)(w0 - r0 * max_degree);
+    const long long r_end = (w0 + HOP_WINDOW - 1) / max_degree + 1;
+    const int rows = (int)((r_end < F ? r_end : F) - r0);
+    for (int i = threadIdx.x; i < rows; i += HOP_THREADS) {
+      const int fr = frontier[r0 + i];
+      const int start = indptr[gather_index(fr, V1)];
+      // int32 arithmetic wraps as the reference's does
+      const int end = indptr[gather_index((int)((unsigned)fr + 1u), V1)];
+      s_start[i] = start;
+      s_lim[i] = fmask[r0 + i] ? (int)((unsigned)end - (unsigned)start) : 0;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < HOP_QUADS; ++q) {
+      const unsigned rel = 4u * (unsigned)(q * HOP_THREADS + threadIdx.x);
+      const long long t0 = w0 + rel;
+      if (t0 >= total) break;
+      const unsigned u = o0 + rel;  // < md + HOP_WINDOW <= 2^31 + HOP_WINDOW
+      int row = (int)(u / md);
+      unsigned o = u - (unsigned)row * md;
+      int nb[4];
+      unsigned vb = 0u;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (t0 + e < total) {
+          const int take = (int)((unsigned)s_start[row] + o);
+          const long long safe = take < 0 ? 0 : (take > E - 1 ? E - 1 : take);
+          nb[e] = indices[safe];
+          vb |= ((int)o < s_lim[row] ? 1u : 0u) << (8 * e);
+        }
+        if (++o == md) {
+          o = 0u;
+          ++row;
+        }
+      }
+      if (aligned && t0 + 3 < total) {
+        *reinterpret_cast<int4*>(out_nb + t0) = int4{nb[0], nb[1], nb[2], nb[3]};
+        *reinterpret_cast<unsigned*>(out_valid + t0) = vb;
+      } else {
+        for (int e = 0; e < 4 && t0 + e < total; ++e) {
+          out_nb[t0 + e] = nb[e];
+          out_valid[t0 + e] = (unsigned char)((vb >> (8 * e)) & 1u);
+        }
+      }
+    }
+    __syncthreads();  // the rows of the next window overwrite these
   }
 }
 
 // ------------------------------------------------------------------ K15
 
-// marks[v] = 1 for v = where(mask, nodes, n_nodes) under JAX's scatter rule
-// over n_nodes + 1 slots; slot n_nodes is left 0 (the reference clears it)
-__global__ void __launch_bounds__(CP_THREADS)
-dedup_mark_kernel(const int* __restrict__ nodes, const unsigned char* __restrict__ mask,
-                  long long F, int n_nodes, unsigned* __restrict__ marks) {
-  for (long long i = (long long)blockIdx.x * CP_THREADS + threadIdx.x; i < F;
-       i += (long long)gridDim.x * CP_THREADS) {
-    long long v = mask[i] ? (long long)nodes[i] : (long long)n_nodes;
-    if (v < 0) v += (long long)n_nodes + 1;
-    if (v >= 0 && v < n_nodes) marks[v] = 1u;
+constexpr int DD_THREADS = 256;          // a block; a compaction tile: DD_THREADS bitmap words
+static_assert(DD_THREADS == GRID_THREADS, "grid_for sizes the unshared marking's grid");
+constexpr int DD_SMEM_WORDS = 4096;      // bitmaps marked in shared memory first: 131,072 nodes
+constexpr int DD_BATCH = 8;              // entries a thread loads before it marks them (shared)
+constexpr int DD_ROUNDS_A_BLOCK = 2;     // rounds a marking block takes, at least (shared path)
+constexpr int DD_BLOCKS_AN_SM = 2;       // marking blocks an SM at most (shared path)
+
+// The bitmap's words: a bit a node, in whole compaction tiles.
+long long dedup_words(long long n_nodes) {
+  const long long used = (n_nodes + 31) / 32;
+  return (used + DD_THREADS - 1) / DD_THREADS * DD_THREADS;
+}
+
+// out_nodes / out_mask [F] = (n_nodes, 0), and bit v of `bits` set for each
+// v = where(mask, nodes, n_nodes) under JAX's scatter rule over n_nodes + 1
+// slots, slot n_nodes left clear (the reference clears it). SMEM: a thread
+// loads DD_BATCH entries a round (coalesced: the round's entries
+// thread-minor) before it marks them, so their loads are in flight
+// together, in a shared bitmap of `used` words; then the block's words with
+// a bit not yet in `bits` are or-ed in. Else a thread an entry, whose bit is
+// or-ed in where a read of its word finds it clear: ids repeat many times a
+// hop and ors of one word queue at L2, so the reads are the cheap side, and
+// the grid's later waves find most bits set (batched into one wave, every
+// read came before any or and the marking took longer, PERF.md §6). The
+// ors' old values are not read, so no thread waits on them.
+template <bool SMEM>
+__global__ void __launch_bounds__(DD_THREADS)
+dedup_mark(const int* __restrict__ nodes, const unsigned char* __restrict__ mask, long long F,
+           int n_nodes, int used, unsigned* __restrict__ bits, int* __restrict__ out_nodes,
+           unsigned char* __restrict__ out_mask) {
+  extern __shared__ unsigned dd_bits[];  // SMEM: [used]
+  if (SMEM) {
+    for (int w = threadIdx.x; w < used; w += DD_THREADS) dd_bits[w] = 0u;
+    __syncthreads();
   }
+  constexpr int B = SMEM ? DD_BATCH : 1;
+  for (long long i0 = (long long)blockIdx.x * DD_THREADS * B; i0 < F;
+       i0 += (long long)gridDim.x * DD_THREADS * B) {
+    long long v[B];
+#pragma unroll
+    for (int k = 0; k < B; ++k) {
+      const long long i = i0 + k * DD_THREADS + threadIdx.x;
+      v[k] = -1;  // past F: wraps to slot n_nodes, which is never marked
+      if (i < F) {
+        const int nd = nodes[i];
+        v[k] = mask[i] ? (long long)nd : (long long)n_nodes;
+        out_nodes[i] = n_nodes;
+        out_mask[i] = 0;
+      }
+    }
+    unsigned seen[B];
+#pragma unroll
+    for (int k = 0; k < B; ++k) {
+      if (v[k] < 0) v[k] += (long long)n_nodes + 1;
+      if (!(v[k] >= 0 && v[k] < n_nodes)) v[k] = -1;  // dropped
+      if (!SMEM) seen[k] = v[k] >= 0 ? __ldcg(bits + (v[k] >> 5)) : ~0u;
+    }
+#pragma unroll
+    for (int k = 0; k < B; ++k) {
+      if (v[k] < 0) continue;
+      const unsigned bit = 1u << (v[k] & 31);
+      if (SMEM)
+        atomicOr(&dd_bits[v[k] >> 5], bit);
+      else if ((seen[k] & bit) == 0u)
+        atomicOr(&bits[v[k] >> 5], bit);
+    }
+  }
+  if (SMEM) {
+    __syncthreads();
+    for (int w = threadIdx.x; w < used; w += DD_THREADS) {
+      const unsigned b = dd_bits[w];
+      if (b != 0u && (__ldcg(bits + w) & b) != b) atomicOr(&bits[w], b);
+    }
+  }
+}
+
+// The marked nodes of a tile of the bitmap, in ascending id order, at their
+// ranks among all tiles' (truncated at out_size): out_nodes = node, out_mask
+// = 1. Every word read is left zero. A thread a word counts its bits; the
+// words' counts are scanned over the block and the tile's offset comes from
+// the look-back; then a warp a word, a lane a bit, writes the marked nodes at
+// their ranks: consecutive nodes, so the stores coalesce however densely a
+// tile is marked.
+__global__ void __launch_bounds__(DD_THREADS)
+dedup_compact(unsigned* __restrict__ bits, int tiles, int out_size, int* __restrict__ out_nodes,
+              unsigned char* __restrict__ out_mask, unsigned long long* state) {
+  __shared__ unsigned s_word[DD_THREADS], s_base[DD_THREADS];
+  const int tile = lb_tile(state);
+  const long long w0 = (long long)tile * DD_THREADS;
+  const unsigned word = bits[w0 + threadIdx.x];
+  if (word != 0u) bits[w0 + threadIdx.x] = 0u;
+  s_word[threadIdx.x] = word;
+  const unsigned mine = __popc(word);
+  unsigned count;
+  s_base[threadIdx.x] = block_scan<DD_THREADS>(mine, &count) - mine;
+  const long long before = (long long)lb_offset(state, tile, count);  // syncs the block
+  const int lane = threadIdx.x & 31;
+  for (int wi = threadIdx.x >> 5; wi < DD_THREADS; wi += DD_THREADS / 32) {
+    const unsigned tw = s_word[wi];
+    if (((tw >> lane) & 1u) == 0u) continue;
+    const long long r = before + s_base[wi] + __popc(tw & ((1u << lane) - 1u));
+    if (r < out_size) {
+      out_nodes[r] = (int)((w0 + wi) * 32 + lane);
+      out_mask[r] = 1;
+    }
+  }
+  lb_finish(state, tiles, nullptr);
 }
 
 }  // namespace
@@ -332,38 +500,62 @@ long long mesh_knn_2d_scratch_bytes(int Q, long long rows, int Dm, int kk, int x
 }
 
 // indptr [V1] i32, indices [E] i32, frontier [F] i32, fmask [F] u8;
-// out_nb / out_valid [F * max_degree] i32 / u8.
+// out_nb / out_valid [F * max_degree] i32 / u8. One launch.
 int mesh_frontier_hop(const void* indptr, long long V1, const void* indices, long long E,
                       const void* frontier, const void* fmask, long long F, int max_degree,
                       void* out_nb, void* out_valid, void* stream) {
   if (V1 <= 0 || E <= 0 || F < 0 || max_degree <= 0) return (int)cudaErrorInvalidValue;
   if (F == 0) return (int)cudaSuccess;
-  frontier_hop_kernel<<<grid_for(F * max_degree), CP_THREADS, 0, (cudaStream_t)stream>>>(
+  const long long windows = (F * max_degree + HOP_WINDOW - 1) / HOP_WINDOW;
+  const int aligned = ((uintptr_t)out_nb % 16 == 0) && ((uintptr_t)out_valid % 4 == 0);
+  frontier_hop_kernel<<<(unsigned)(windows < 65536 ? windows : 65536), HOP_THREADS, 0,
+                        (cudaStream_t)stream>>>(
       (const int*)indptr, V1, (const int*)indices, E, (const int*)frontier,
-      (const unsigned char*)fmask, F, max_degree, (int*)out_nb, (unsigned char*)out_valid);
+      (const unsigned char*)fmask, F, max_degree, aligned, (int*)out_nb,
+      (unsigned char*)out_valid);
   return (int)cudaGetLastError();
 }
 
-// nodes [F] i32, mask [F] u8; marks [n_nodes + 1] u32 and blk
-// [mesh_dedup_blocks(n_nodes)] i32 scratch; out_nodes [F] i32, out_mask [F] u8.
-int mesh_dedup_frontier(const void* nodes, const void* mask, int F, int n_nodes, void* marks,
-                        void* blk, void* out_nodes, void* out_mask, void* stream) {
+// nodes [F] i32, mask [F] u8; out_nodes [F] i32, out_mask [F] u8. Scratch,
+// zero and left zero: bits [mesh_dedup_bitmap_words(n_nodes)] u32, state
+// [mesh_dedup_state_entries(n_nodes)] u64; `clear` zeroes them first (the
+// caller's scratch after a failed call). Two launches.
+int mesh_dedup_frontier(const void* nodes, const void* mask, int F, int n_nodes, void* bits,
+                        void* state, int clear, void* out_nodes, void* out_mask, void* stream) {
   if (F <= 0 || n_nodes < 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = cudaMemsetAsync(marks, 0, ((size_t)n_nodes + 1) * sizeof(unsigned), s);
-  if (e != cudaSuccess) return (int)e;
-  dedup_mark_kernel<<<grid_for(F), CP_THREADS, 0, s>>>((const int*)nodes,
-                                                       (const unsigned char*)mask, F, n_nodes,
-                                                       (unsigned*)marks);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  compact_fill<unsigned char><<<grid_for(F), CP_THREADS, 0, s>>>((int*)out_nodes,
-                                                                 (unsigned char*)out_mask, F,
-                                                                 n_nodes);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  return (int)compact_run<unsigned char>((const unsigned*)marks, n_nodes, (int*)blk, F,
-                                         (int*)out_nodes, (unsigned char*)out_mask, s);
+  const long long words = dedup_words(n_nodes);
+  const int tiles = (int)(words / DD_THREADS);
+  const int used = (int)(((long long)n_nodes + 31) / 32);
+  cudaError_t e;
+  if (clear &&
+      ((e = cudaMemsetAsync(bits, 0, (size_t)words * sizeof(unsigned), s)) != cudaSuccess ||
+       (e = cudaMemsetAsync(state, 0, (size_t)(2 + tiles) * sizeof(unsigned long long), s)) !=
+           cudaSuccess))
+    return (int)e;
+  if (used <= DD_SMEM_WORDS) {
+    const long long per_block = (long long)DD_ROUNDS_A_BLOCK * DD_THREADS * DD_BATCH;
+    long long grid = (F + per_block - 1) / per_block;
+    if (grid > DD_BLOCKS_AN_SM * sm_count()) grid = DD_BLOCKS_AN_SM * sm_count();
+    dedup_mark<true><<<(unsigned)grid, DD_THREADS, (size_t)used * sizeof(unsigned), s>>>(
+        (const int*)nodes, (const unsigned char*)mask, F, n_nodes, used, (unsigned*)bits,
+        (int*)out_nodes, (unsigned char*)out_mask);
+  } else {
+    dedup_mark<false><<<grid_for(F), DD_THREADS, 0, s>>>(
+        (const int*)nodes, (const unsigned char*)mask, F, n_nodes, used, (unsigned*)bits,
+        (int*)out_nodes, (unsigned char*)out_mask);
+  }
+  if ((e = cudaGetLastError()) != cudaSuccess || tiles == 0) return (int)e;
+  dedup_compact<<<(unsigned)tiles, DD_THREADS, 0, s>>>((unsigned*)bits, tiles, F,
+                                                        (int*)out_nodes, (unsigned char*)out_mask,
+                                                        (unsigned long long*)state);
+  return (int)cudaGetLastError();
 }
 
-long long mesh_dedup_blocks(long long n_nodes) { return compact_blocks(n_nodes); }
+long long mesh_dedup_bitmap_words(long long n_nodes) { return dedup_words(n_nodes); }
+
+long long mesh_dedup_state_entries(long long n_nodes) {
+  return 2 + dedup_words(n_nodes) / DD_THREADS;
+}
 
 }  // extern "C"

@@ -52,6 +52,7 @@ import torch
 from surrealdb_tpu_torch import key as keys
 from surrealdb_tpu_torch.idx.ivf import _on_card
 from surrealdb_tpu_torch.ops.distances import LaunchCounter
+from surrealdb_tpu_torch.ops.scratch import ZeroKept, zero_kept
 from surrealdb_tpu_torch.key.encode import prefix_end
 from surrealdb_tpu_torch.sql.value import Thing
 from surrealdb_tpu_torch.utils.num import next_pow2 as _next_pow2
@@ -488,24 +489,21 @@ def _launch_csc_count(lib, csc_hops, last_hop, frontiers, weights, n_cap):
     return out
 
 
-class ChainScratch:
-    """K6's scratch on one (device, stream, n_cap): the touched-node bitmap,
-    the count array (32 counts a bitmap word: n_cap + 1 and the tail of the
-    last words) and the compaction's look-back state, all zero
-    between calls (the kernels leave them so), and the buffer the
-    intermediate hops' outputs take. A failed call marks it `dirty` and the
-    next call zeroes it first. `lock` keeps one call's launches together on
-    the stream (the ctypes call lets go of the GIL)."""
+class ChainScratch(ZeroKept):
+    """K6's scratch on one (device, stream, n_cap) (ops/scratch.py): the
+    touched-node bitmap, the count array (32 counts a bitmap word: n_cap + 1
+    and the tail of the last words) and the compaction's look-back state,
+    all zero between calls (the kernels leave them so), and the buffer the
+    intermediate hops' outputs take."""
 
     def __init__(self, lib, n_cap: int, device):
+        super().__init__()
         words = int(lib.graph_chain_bitmap_words(n_cap))
         self.bits = torch.zeros(words, dtype=torch.int32, device=device)
         self.cnt = torch.zeros(32 * words, dtype=torch.int32, device=device)
         self.state = torch.zeros(int(lib.graph_chain_state_entries(n_cap)), dtype=torch.int64,
                                  device=device)
         self.inter = torch.empty(0, dtype=torch.int32, device=device)
-        self.dirty = False
-        self.lock = threading.Lock()
 
     def intermediate(self, n: int) -> torch.Tensor:
         """n int32 of the hop-output buffer (reused in stream order)."""
@@ -514,18 +512,9 @@ class ChainScratch:
         return self.inter[:n]
 
 
-_CHAIN_SCRATCH: Dict[tuple, ChainScratch] = {}
-_CHAIN_SCRATCH_LOCK = threading.Lock()
-
-
 def chain_scratch(lib, device, n_cap: int, stream=None) -> ChainScratch:
     """The cached ChainScratch of (device, its current stream, n_cap)."""
-    key = (device, stream or _stream(device), int(n_cap))
-    with _CHAIN_SCRATCH_LOCK:
-        sc = _CHAIN_SCRATCH.get(key)
-        if sc is None:
-            sc = _CHAIN_SCRATCH[key] = ChainScratch(lib, int(n_cap), device)
-        return sc
+    return zero_kept(ChainScratch, lib, device, n_cap, stream or _stream(device))
 
 
 def _launch_chain(lib, hops, frontier, weights, mds, n_cap, out_sizes, count_only,
@@ -561,9 +550,11 @@ def _launch_chain(lib, hops, frontier, weights, mds, n_cap, out_sizes, count_onl
     # the one allocation a call: what it returns
     out = torch.empty(1 if count_only else 2 * sizes[-1], dtype=torch.int32, device=dev)
     inner = sizes if count_only else sizes[:-1]
-    with scratch.lock:
+    presents, counts = [], []
+
+    def launch(clear):
         buf = scratch.intermediate(2 * sum(inner))
-        presents, counts, at = [], [], 0
+        at = 0
         for n in inner:
             presents.append(buf[at:at + n])
             counts.append(buf[at + n:at + 2 * n])
@@ -571,15 +562,16 @@ def _launch_chain(lib, hops, frontier, weights, mds, n_cap, out_sizes, count_onl
         if not count_only:
             presents.append(out[:sizes[-1]])
             counts.append(out[sizes[-1]:])
-        status = lib.graph_chain(
+        return lib.graph_chain(
             _ptrs(ptrs), _ints(caps), _ptrs(idxs),
             _ints([i.shape[0] for i in idxs], ctypes.c_longlong), _ints(flat_mds),
             _ints(per_hop), len(hops), _ints(sizes), frontier.data_ptr(), weights.data_ptr(),
             frontier.shape[0], n_cap, int(count_only), scratch.cnt.data_ptr(),
-            scratch.bits.data_ptr(), scratch.state.data_ptr(), int(scratch.dirty),
+            scratch.bits.data_ptr(), scratch.state.data_ptr(), clear,
             _ptrs(presents), _ptrs(counts), out.data_ptr(), stream,
         )
-        scratch.dirty = status != 0
+
+    status = scratch.run(launch)
     _cuda.check(status, "graph_chain", lib)
     if count_only:
         return out[0]

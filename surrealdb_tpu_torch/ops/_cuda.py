@@ -108,9 +108,10 @@ _SIGNATURES = {
                                                       ctypes.c_int, ctypes.c_int, ctypes.c_int]),
     "mesh_frontier_hop": (ctypes.c_int, [_P, ctypes.c_longlong, _P, ctypes.c_longlong, _P, _P,
                                          ctypes.c_longlong, ctypes.c_int, _P, _P, _P]),
-    "mesh_dedup_frontier": (ctypes.c_int, [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
-                                           _P]),
-    "mesh_dedup_blocks": (ctypes.c_longlong, [ctypes.c_longlong]),
+    "mesh_dedup_frontier": (ctypes.c_int, [_P, _P, ctypes.c_int, ctypes.c_int, _P, _P,
+                                           ctypes.c_int, _P, _P, _P]),
+    "mesh_dedup_bitmap_words": (ctypes.c_longlong, [ctypes.c_longlong]),
+    "mesh_dedup_state_entries": (ctypes.c_longlong, [ctypes.c_longlong]),
 }
 
 

@@ -33,8 +33,11 @@ PyTorch version here:
   `_launch_rerank`) once over all the shards a device holds (every probed
   list's members ranked and selected in one launch, slots mapped), then
   `mesh_topk_merge` (ids of finite distances only, -1 else);
-- K14 `sharded_frontier_hop`: per frontier shard `mesh_frontier_hop`;
-- K15 `dedup_frontier`: `mesh_dedup_frontier`.
+- K14 `sharded_frontier_hop`: `mesh_frontier_hop` once a launch group (on
+  one card the whole frontier in one launch, written into the merged
+  output);
+- K15 `dedup_frontier`: `mesh_dedup_frontier` (two launches over a
+  `DedupScratch` kept zero between calls).
 
 Where the shards share a device (a mesh of [cuda:0] * 8 on one card, or
 [cpu] * 8 in the tests) every shard is a view of one contiguous tensor, so
@@ -59,6 +62,7 @@ import torch
 
 from surrealdb_tpu_torch.ops import distances as D
 from surrealdb_tpu_torch.ops.distances import LaunchCounter
+from surrealdb_tpu_torch.ops.scratch import ZeroKept, zero_kept
 
 MERGE = LaunchCounter("mesh_topk_merge")  # K11, K12, K13's merge
 KNN2D = LaunchCounter("mesh_knn_2d")  # K12
@@ -537,8 +541,28 @@ def _launch_frontier_hop(lib, indptr, indices, frontier, frontier_mask, max_degr
     return out_nb, out_valid
 
 
-def _launch_dedup_frontier(lib, nodes, mask, n_nodes):
-    """mesh_dedup_frontier's checks and launch through `lib`."""
+class DedupScratch(ZeroKept):
+    """K15's scratch on one (device, stream, n_nodes) (ops/scratch.py): the
+    bitmap of the marked nodes and the compaction's look-back state, zero
+    between calls (the kernels leave them so)."""
+
+    def __init__(self, lib, n_nodes: int, device):
+        super().__init__()
+        words = int(lib.mesh_dedup_bitmap_words(n_nodes))
+        self.bits = torch.zeros(max(words, 1), dtype=torch.int32, device=device)
+        self.state = torch.zeros(int(lib.mesh_dedup_state_entries(n_nodes)), dtype=torch.int64,
+                                 device=device)
+
+
+def dedup_scratch(lib, device, n_nodes: int, stream=None) -> DedupScratch:
+    """The cached DedupScratch of (device, its current stream, n_nodes)."""
+    return zero_kept(DedupScratch, lib, device, n_nodes, stream or _stream(device))
+
+
+def _launch_dedup_frontier(lib, nodes, mask, n_nodes, scratch: Optional[DedupScratch] = None):
+    """mesh_dedup_frontier's checks and launch through `lib`, over `scratch`
+    (default: the cached one of the nodes' device, stream and n_nodes). The
+    one allocation a call is what it returns: F ids and F flags."""
     from surrealdb_tpu_torch.ops import _cuda
 
     _check_i32(nodes, "nodes")
@@ -547,15 +571,15 @@ def _launch_dedup_frontier(lib, nodes, mask, n_nodes):
     if f < 1 or n_nodes < 0:
         raise ValueError(f"F={f}, n_nodes={n_nodes}")
     dev = nodes.device
-    marks = torch.empty(n_nodes + 1, dtype=torch.int32, device=dev)
-    blk = torch.empty(max(int(lib.mesh_dedup_blocks(n_nodes)), 1), dtype=torch.int32, device=dev)
-    out = torch.empty(f, dtype=torch.int32, device=dev)
-    out_mask = torch.empty(f, dtype=torch.bool, device=dev)
-    status = lib.mesh_dedup_frontier(
-        nodes.data_ptr(), mask.view(torch.uint8).data_ptr(), f, n_nodes, marks.data_ptr(),
-        blk.data_ptr(), out.data_ptr(), out_mask.view(torch.uint8).data_ptr(), _stream(dev),
-    )
-    _cuda.check(status, "mesh_dedup_frontier")
+    stream = _stream(dev)
+    if scratch is None:
+        scratch = dedup_scratch(lib, dev, n_nodes, stream)
+    buf = torch.empty(5 * f, dtype=torch.uint8, device=dev)
+    out, out_mask = buf[: 4 * f].view(torch.int32), buf[4 * f:].view(torch.bool)
+    status = scratch.run(lambda clear: lib.mesh_dedup_frontier(
+        nodes.data_ptr(), mask.view(torch.uint8).data_ptr(), f, n_nodes, scratch.bits.data_ptr(),
+        scratch.state.data_ptr(), clear, out.data_ptr(), out_mask.data_ptr(), stream))
+    _cuda.check(status, "mesh_dedup_frontier", lib)
     return out, out_mask
 
 
@@ -818,29 +842,35 @@ def sharded_ivf_search_plain(mesh: Mesh, cents, list_rows, list_mask, corpus, qu
 def _hop_cuda(args, max_degree, out=()):
     from surrealdb_tpu_torch.ops import _cuda
 
-    with torch.cuda.device(args[2].device):
+    with _on(args[2].device):
         res = _launch_frontier_hop(_cuda.lib(), *args, max_degree, *out)
     HOP.bump()
     return res
 
 
 def _frontier_hop(mesh, indptr, indices, frontier, frontier_mask, max_degree, axis, plain):
+    """K14 once a launch group (_launch_groups: the whole frontier at once
+    where its shards are views of one tensor, else once a shard): the plain
+    version for a group on the CPU (or with `plain`), else the kernel,
+    written straight into the merged output where the group lies on the
+    merge device, else copied there. The groups' frontiers, in order, are
+    the frontier in shard order, so the output is the shards' outputs
+    concatenated."""
     ptr = replicate(mesh, indptr)
     idx = replicate(mesh, indices)
     fr = as_sharded(mesh, frontier, (axis,))
     fm = as_sharded(mesh, frontier_mask, (axis,))
-    n_dev = mesh.shape[axis]
-    width = fr.shape[0] // n_dev * max_degree
     dev = mesh.merge_device
-    nb = torch.empty(fr.shape[0] * max_degree, dtype=torch.int32, device=dev)
-    valid = torch.empty(fr.shape[0] * max_degree, dtype=torch.bool, device=dev)
-    for s in range(n_dev):
-        pos = mesh.position(**{axis: s})
-        args = (ptr.shard(pos), idx.shard(pos), fr.shard(pos), fm.shard(pos))
-        out = slice(s * width, (s + 1) * width)
+    n = fr.shape[0] * max_degree
+    nb = torch.empty(n, dtype=torch.int32, device=dev)
+    valid = torch.empty(n, dtype=torch.bool, device=dev)
+    lo = 0
+    for args in _launch_groups(mesh, axis, (ptr, idx, fr, fm)):
+        out = slice(lo, lo + args[2].shape[0] * max_degree)
+        lo = out.stop
         if plain or not _on_card(*args):
             part = frontier_hop_plain(*args, max_degree)
-        elif args[2].device == dev:  # write straight into the merged output
+        elif args[2].device == dev:
             _hop_cuda(args, max_degree, (nb[out], valid[out]))
             continue
         else:
@@ -857,8 +887,9 @@ def sharded_frontier_hop(mesh: Mesh, indptr, indices, frontier, frontier_mask, m
     indptr [V+1] and indices [E] int32, replicated; frontier [F] int32 and
     frontier_mask [F] bool, F a multiple of the axis's size, sharded. Each
     shard expands its frontier slice with a fixed-width (max_degree)
-    gather. Returns (neighbours [F*max_degree] int32, valid mask) on the
-    merge device, in frontier order (the shards' outputs concatenated)."""
+    gather (on one card one launch over every shard). Returns (neighbours
+    [F*max_degree] int32, valid mask) on the merge device, in frontier
+    order (the shards' outputs concatenated)."""
     return _frontier_hop(mesh, indptr, indices, frontier, frontier_mask, max_degree, axis,
                          False)
 
@@ -870,7 +901,9 @@ def sharded_frontier_hop_plain(mesh: Mesh, indptr, indices, frontier, frontier_m
 
 
 def dedup_frontier(nodes, mask, n_nodes: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """On-device frontier dedup via a dense visited bitmap scatter (K15).
+    """On-device frontier dedup via a visited bitmap (K15): the nodes' bits
+    set, then compacted in ascending order, over a scratch kept zero
+    between calls.
 
     Returns (unique ascending nodes [F] int32, padded with n_nodes;
     new_mask): a fixed output shape, the input's."""

@@ -12,7 +12,9 @@ another), each CUDA thread is an OS thread, and __syncthreads and the warp
 intrinsics are barriers. This checks indexing, barriers, tie order and
 masking at small shapes — not speed, and not what only the card can show
 (it builds, launches and agrees there: chip_smoke.py). Skipped where there
-is no C++20 compiler.
+is no C++20 compiler. One build of mesh.cu runs in the header's concurrent
+mode (a launch's blocks at once, each with its own shared memory, the later
+ones ahead), so K15's look-back really waits on its predecessors there.
 
 Tolerances: K1 distances rtol 1e-5, atol 1e-4 (f32 sums in another order);
 K2's select exact, since both sides select from the same distances; the
@@ -51,9 +53,28 @@ from surrealdb_tpu_torch.parallel import mesh as M
 CSRC = _cuda.CSRC
 
 
-def _translate(src: str) -> str:
+_SMEM_IDS = iter(range(1 << 30))  # numbers the `__shared__` declarations of concurrent builds
+
+
+def _block_smem(m) -> str:
+    """`__shared__ T a[n], b;` as references to the block's own arrays
+    (cuda_emu.h's emu_smem, concurrent builds)."""
+    decls = [d.strip() for d in m.group(1).split(",")]
+    first = re.fullmatch(r"(?:__align__\(\d+\) )?(.*?)\s*(\w+)((?:\[[^\]]*\])*)", decls[0])
+    kind, out = first.group(1), []
+    for d in [first.group(2) + first.group(3)] + decls[1:]:
+        name, dims = re.fullmatch(r"(\w+)((?:\[[^\]]*\])*)", d).groups()
+        out.append(f"auto& {name} = emu_smem<{kind}{dims}, {next(_SMEM_IDS)}>();")
+    return " ".join(out)
+
+
+def _translate(src: str, concurrent: bool = False) -> str:
     src = src.replace("#include <cuda_runtime.h>", '#include "cuda_emu.h"')
     src = src.replace("#include <cuda_bf16.h>", "")
+    if concurrent:  # every block its own shared memory
+        src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?(.*?) (\w+)\[\];",
+                     r"\1* \2 = emu_dyn_smem<\1>();", src)
+        src = re.sub(r"__shared__ ([^;]*);", _block_smem, src)
     # dynamic shared memory: a static array, large enough for the test shapes
     src = re.sub(r"extern __shared__ (.*?) (\w+)\[\];", r"static \1 \2[1 << 18];", src)
     return re.sub(
@@ -64,28 +85,32 @@ def _translate(src: str) -> str:
     )
 
 
-def _build_emu(out, sources):
+def _build_emu(out, sources, concurrent: bool = False):
     """Compile the sources ({name: CUDA text}) under the emulation header
-    into out/libkernels_emu.so and bind the signatures it exports."""
+    into out/libkernels_emu.so and bind the signatures it exports; with
+    `concurrent`, in cuda_emu.h's mode that runs a launch's blocks at once."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no g++ to build the emulated kernels")
     cpps = []
-    # headers are translated too (compact.cuh launches kernels) and found
-    # in `out` before csrc/; a header given in `sources` replaces csrc's
+    # headers are translated too (knn.cuh launches kernels) and found in
+    # `out` before csrc/; a header given in `sources` replaces csrc's
     headers = {f: _source(f) for f in os.listdir(CSRC) if f.endswith(".cuh")}
     headers.update({n: t for n, t in sources.items() if n.endswith(".cuh")})
     for name, text in headers.items():
-        (out / name).write_text(_translate(text))
+        (out / name).write_text(_translate(text, concurrent))
     for name, text in sources.items():
         if name.endswith(".cuh"):
             continue
         cpp = out / name.replace(".cu", "_emu.cpp")
-        cpp.write_text(_translate(text))
+        cpp.write_text(_translate(text, concurrent))
         cpps.append(str(cpp))
     so = out / "libkernels_emu.so"
     proc = subprocess.run(
         [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-Wno-unknown-pragmas",
+         # the concurrent mode's inline variables (thread_local there) must
+         # not bind to an earlier default build's in the same process
+         *(["-DEMU_CONCURRENT", "-fno-gnu-unique"] if concurrent else []),
          "-I", os.path.join(CSRC, "emu"), "-I", str(out), "-o", str(so), *cpps],
         capture_output=True, text=True, timeout=300,
     )
@@ -1317,10 +1342,11 @@ def test_k13_card_composition_matches_plain(lib, monkeypatch, one_tensor):
     _assert_k13_matches(got, want)
 
 
-@pytest.mark.parametrize("max_degree", [1, 4, 9])
+@pytest.mark.parametrize("max_degree", [1, 4, 9, 31, 32, 33, 100])
 def test_mesh_frontier_hop_matches_plain(lib, max_degree):
     """Every entry, padded ones included: a negative id wraps once, then
-    every index clamps; int32 fr + 1 wraps at 2^31 - 1."""
+    every index clamps; int32 fr + 1 wraps at 2^31 - 1. At 33 and 100 the
+    outputs span two windows of 2,048."""
     rng = np.random.default_rng(max_degree)
     n = 60
     deg = rng.integers(0, 7, n)
@@ -1334,22 +1360,226 @@ def test_mesh_frontier_hop_matches_plain(lib, max_degree):
     assert torch.equal(nb, want_nb) and torch.equal(valid, want_valid)
 
 
-@pytest.mark.parametrize("n_nodes,f", [(40, 16), (3000, 64), (5000, 2100)])
-def test_mesh_dedup_frontier_matches_plain(lib, n_nodes, f):
-    """Duplicates, masked entries, and the scatter rule's drops (at and
-    past n_nodes, negative ids that stay out of range after one wrap);
-    n_nodes of several compaction blocks."""
-    rng = np.random.default_rng(n_nodes)
-    nodes = rng.integers(0, n_nodes, f).astype(np.int32)
+def _k14_case(label):
+    """(indptr, indices, frontier, mask, max_degree) of a K14 edge case."""
+    rng = np.random.default_rng(len(label))
+    n = 500
+    deg = rng.integers(0, 12, n)
+    deg[-5:] = 1  # the last rows' windows run past E
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    indices = rng.integers(0, n, int(deg.sum())).astype(np.int32)
+    f, md = {"past E": (13, 9), "several windows, F odd": (613, 7), "padded frontier": (96, 11),
+             "unaligned outputs": (37, 5), "empty frontier": (0, 3)}[label]
+    fr = rng.integers(0, n, f).astype(np.int32)
+    fm = rng.random(f) > 0.2
+    if label == "past E":
+        fr[:6] = [n - 1, n - 2, n - 3, n, -1, 2**31 - 1]
+        fm[:6] = True
+    if label == "padded frontier":  # the live rows, then n masked, as chip_smoke.py pads
+        fr[70:], fm[:70], fm[70:] = n, True, False
+    t = torch.from_numpy
+    return t(indptr), t(indices), t(fr), t(fm), md
+
+
+@pytest.mark.parametrize("label", ["past E", "several windows, F odd", "padded frontier",
+                                   "unaligned outputs", "empty frontier"])
+def test_k14_edge_cases_match_plain(lib, label):
+    """Rows whose window runs past E (clipped reads, still carried where
+    invalid), F not a multiple of the 4-output quads over several windows,
+    a frontier padded with the masked id n, outputs one element off the
+    16-byte alignment (the byte-by-byte stores), and F = 0."""
+    indptr, indices, fr, fm, md = _k14_case(label)
+    out = ()
+    if label == "unaligned outputs":
+        nb_buf = torch.full((fr.numel() * md + 1,), -7, dtype=torch.int32)
+        valid_buf = torch.ones(fr.numel() * md + 1, dtype=torch.bool)
+        out = (nb_buf[1:], valid_buf[1:])
+    nb, valid = M._launch_frontier_hop(lib, indptr, indices, fr, fm, md, *out)
+    want_nb, want_valid = M.frontier_hop_plain(indptr, indices, fr, fm, md)
+    assert torch.equal(nb, want_nb) and torch.equal(valid, want_valid)
+    if out:
+        assert int(nb_buf[0]) == -7 and bool(valid_buf[0])
+
+
+def _k14_placed(one_tensor):
+    """K14's padded-frontier case placed over a mesh of 8 CPU shards: the
+    shards views of one tensor (one launch group, as on one card) or held
+    apart (a launch group a shard, as on several cards)."""
+    indptr, indices, fr, fm, md = _k14_case("padded frontier")
+    mesh = M.make_mesh(8, devices=[torch.device("cpu")] * 8)
+    placed = [M.replicate(mesh, indptr), M.replicate(mesh, indices),
+              M.shard_tensor(mesh, fr, ("data",)), M.shard_tensor(mesh, fm, ("data",))]
+    if not one_tensor:
+        for t in placed:
+            t.base = None  # the shards stay views, but are launched one at a time
+    return mesh, placed, md, M.sharded_frontier_hop_plain(mesh, indptr, indices, fr, fm, md)
+
+
+@pytest.mark.parametrize("one_tensor", [True, False], ids=["a-launch-a-device", "a-launch-a-shard"])
+def test_k14_card_composition_matches_plain(lib, monkeypatch, one_tensor):
+    """parallel/mesh.py's card composition of K14 with the emulated kernel
+    (every launch group taken as one on a card): one mesh_frontier_hop over
+    a frontier whose 8 shards are views of one tensor (the mesh on one
+    card), or one a shard, into the merged output, against
+    sharded_frontier_hop_plain."""
+    monkeypatch.setattr(_cuda, "lib", lambda: lib)
+    monkeypatch.setattr(M, "_on_card", lambda *ts: True)
+    mesh, placed, md, want = _k14_placed(one_tensor)
+    M.HOP.reset()
+    got = M.sharded_frontier_hop(mesh, *placed, md)
+    assert M.HOP.launches == (1 if one_tensor else 8)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_k14_cpu_group_takes_the_plain_version(lib, monkeypatch):
+    """A launch group whose tensors lie on the CPU takes the plain version
+    even where the other groups launch the kernel (a mesh mixing a card's
+    shards and the CPU's): here the odd shards are taken as the card's."""
+    monkeypatch.setattr(_cuda, "lib", lambda: lib)
+    mesh, placed, md, want = _k14_placed(False)
+    on_card = M._on_card
+    groups = iter(range(8))
+    monkeypatch.setattr(M, "_on_card", lambda *ts: next(groups) % 2 == 1 or on_card(*ts))
+    M.HOP.reset()
+    got = M.sharded_frontier_hop(mesh, *placed, md)
+    assert M.HOP.launches == 4
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_k14_group_on_two_devices_raises():
+    """A launch group whose tensors lie on two devices raises before any
+    launch (its pointers cannot reach one kernel): shard 3's indptr replica
+    moved to another device."""
+    mesh, placed, md, _ = _k14_placed(False)
+    pos = mesh.position(data=3)
+    placed[0].shards[pos] = placed[0].shard(pos).to("meta")
+    M.HOP.reset()
+    with pytest.raises(ValueError, match="several devices"):
+        M.sharded_frontier_hop(mesh, *placed, md)
+    assert M.HOP.launches == 0
+
+
+def _dedup_inputs(seed, n_nodes, f, dup_only=False):
+    """Duplicates, masked entries, and the scatter rule's drops (at and past
+    n_nodes, negative ids that stay out of range after one wrap, -1 that
+    wraps to n_nodes and is cleared)."""
+    rng = np.random.default_rng(seed)
+    hi = min(n_nodes, 7) if dup_only else n_nodes
+    nodes = rng.integers(0, max(hi, 1), f).astype(np.int32)
     nodes[:4] = nodes[4:8]
-    nodes[[9, 10, 11, 12, 13]] = [-1, n_nodes, n_nodes + 5, -(n_nodes + 3), -(n_nodes + 1)]
     mask = rng.random(f) > 0.15
-    mask[[9, 10, 11, 12, 13]] = True
-    nodes, mask = torch.from_numpy(nodes), torch.from_numpy(mask)
-    got = M._launch_dedup_frontier(lib, nodes, mask, n_nodes)
+    if not dup_only:
+        nodes[[9, 10, 11, 12, 13]] = [-1, n_nodes, n_nodes + 5, -(n_nodes + 3), -(n_nodes + 1)]
+        mask[[9, 10, 11, 12, 13]] = True
+    return torch.from_numpy(nodes), torch.from_numpy(mask)
+
+
+def _dedup_zero(sc):
+    return not (bool(sc.bits.any()) or bool(sc.state.any()) or sc.dirty)
+
+
+@pytest.mark.parametrize("n_nodes,f", [(40, 16), (3000, 64), (5000, 2100), (63, 100), (64, 100),
+                                       (65, 100), (140_000, 3000)])
+def test_mesh_dedup_frontier_matches_plain(lib, n_nodes, f):
+    """The ids, order and mask exact, over a scratch left zero; n_nodes
+    around a bitmap word's end, of several compaction tiles (5,000), and
+    above the shared-memory marking's 131,072 (the marking in place)."""
+    nodes, mask = _dedup_inputs(n_nodes, n_nodes, f)
+    sc = M.DedupScratch(lib, n_nodes, torch.device("cpu"))
+    got = M._launch_dedup_frontier(lib, nodes, mask, n_nodes, sc)
     want = M.dedup_frontier_plain(nodes, mask, n_nodes)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert int(got[1].sum()) > 0
+    assert int(got[1].sum()) > 0 and _dedup_zero(sc)
+
+
+@pytest.mark.parametrize("label", ["all masked", "duplicates only", "negative ids", "no nodes"])
+def test_k15_edge_cases_match_plain(lib, label):
+    """Every entry masked (all padding), a few ids repeated over F, ids
+    below zero only (one wrap: -1 is slot n_nodes, cleared; -n_nodes - 1 is
+    0), and n_nodes = 0 (no bitmap, every entry dropped)."""
+    n_nodes = 0 if label == "no nodes" else 3000
+    nodes, mask = _dedup_inputs(77, n_nodes, 500, dup_only=label == "duplicates only")
+    if label == "all masked":
+        mask[:] = False
+    if label == "negative ids":
+        nodes = torch.from_numpy(-np.random.default_rng(3).integers(1, n_nodes + 3, 500)
+                                 .astype(np.int32))
+    sc = M.DedupScratch(lib, n_nodes, torch.device("cpu"))
+    got = M._launch_dedup_frontier(lib, nodes, mask, n_nodes, sc)
+    want = M.dedup_frontier_plain(nodes, mask, n_nodes)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert _dedup_zero(sc)
+
+
+def test_k15_back_to_back_over_one_scratch_keeps_it_zero(lib):
+    """Calls of other inputs one after another over one scratch: each exact,
+    the bitmap and the look-back state zero after every call."""
+    n_nodes = 9000
+    sc = M.DedupScratch(lib, n_nodes, torch.device("cpu"))
+    for seed in range(4):
+        nodes, mask = _dedup_inputs(100 + seed, n_nodes, 700 * (seed + 1))
+        got = M._launch_dedup_frontier(lib, nodes, mask, n_nodes, sc)
+        want = M.dedup_frontier_plain(nodes, mask, n_nodes)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), seed
+        assert _dedup_zero(sc), seed
+
+
+class _FailedDedup:
+    """The emulated library, whose mesh_dedup_frontier runs, then leaves
+    stray bits and a stray ticket in the scratch and reports an error: a
+    failed call that left the scratch dirty."""
+
+    def __init__(self, lib, sc):
+        self.lib, self.sc = lib, sc
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def mesh_dedup_frontier(self, *args):
+        assert self.lib.mesh_dedup_frontier(*args) == 0
+        self.sc.bits[::3] = 0x01010101
+        self.sc.state[0] = 5
+        return 1  # cudaErrorInvalidValue
+
+
+def test_k15_failed_call_dirties_the_scratch_and_the_next_call_clears_it(lib):
+    n_nodes = 9000
+    sc = M.DedupScratch(lib, n_nodes, torch.device("cpu"))
+    nodes, mask = _dedup_inputs(5, n_nodes, 1500)
+    with pytest.raises(RuntimeError, match="mesh_dedup_frontier"):
+        M._launch_dedup_frontier(_FailedDedup(lib, sc), nodes, mask, n_nodes, sc)
+    assert sc.dirty and bool(sc.bits.any())
+    got = M._launch_dedup_frontier(lib, nodes, mask, n_nodes, sc)
+    want = M.dedup_frontier_plain(nodes, mask, n_nodes)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert _dedup_zero(sc)
+
+
+@pytest.fixture(scope="module")
+def concurrent_lib(tmp_path_factory):
+    """mesh.cu in the emulator's concurrent mode (a launch's blocks at once,
+    the later ones ahead)."""
+    return _build_emu(tmp_path_factory.mktemp("kernels_emu_concurrent"),
+                      {"mesh.cu": _source("mesh.cu")}, concurrent=True)
+
+
+def _dedup_concurrent(bad):
+    """K15 over 5 compaction tiles, each with marked nodes, with the blocks
+    of a launch run at once: the look-back must wait for the earlier
+    tiles; True where a call disagrees with the plain version."""
+    n_nodes = 5 * 256 * 32
+    sc = M.DedupScratch(bad, n_nodes, torch.device("cpu"))
+    nodes, mask = _dedup_inputs(9, n_nodes, 2500)
+    got = M._launch_dedup_frontier(bad, nodes, mask, n_nodes, sc)
+    want = M.dedup_frontier_plain(nodes, mask, n_nodes)
+    return not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+
+
+def test_k15_lookback_waits_with_concurrent_blocks(concurrent_lib):
+    """The tiles of the compaction in flight at once, the later ones ahead:
+    each waits on its predecessors' flags, and the ranks come out exact
+    (the planted fault `lookback_wait_dropped` is caught here)."""
+    assert not _dedup_concurrent(concurrent_lib)
 
 
 def _fault_merge(k_out):
@@ -1378,9 +1608,22 @@ def _fault_hop(bad):
 def _fault_dedup(bad):
     nodes = torch.tensor([3, -2, 1, 0], dtype=torch.int32)  # -2 wraps to node 9
     mask = torch.tensor([True, True, True, False])
-    got = M._launch_dedup_frontier(bad, nodes, mask, 10)
+    got = M._launch_dedup_frontier(bad, nodes, mask, 10, M.DedupScratch(bad, 10, "cpu"))
     want = M.dedup_frontier_plain(nodes, mask, 10)
     return not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+
+
+def _fault_dedup_back_to_back(bad):
+    """Two calls over one scratch: the second must not see the first's
+    marks."""
+    sc = M.DedupScratch(bad, 3000, "cpu")
+    differs = []
+    for seed in (1, 2):
+        nodes, mask = _dedup_inputs(seed, 3000, 400)
+        got = M._launch_dedup_frontier(bad, nodes, mask, 3000, sc)
+        want = M.dedup_frontier_plain(nodes, mask, 3000)
+        differs.append(not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])))
+    return any(differs)
 
 
 def _fault_k12(bad):
@@ -1429,7 +1672,17 @@ _MESH_FAULTS = {  # fault: ([(file, old, new)], the comparison that must fail)
     # a negative frontier id clamped without the wrap
     "hop_no_wrap": ([("mesh.cu", "if (i < 0) i += n;", "")], _fault_hop),
     # a negative node id dropped without the scatter's wrap
-    "dedup_no_wrap": ([("mesh.cu", "if (v < 0) v += (long long)n_nodes + 1;", "")], _fault_dedup),
+    "dedup_no_wrap": ([("mesh.cu", "if (v[k] < 0) v[k] += (long long)n_nodes + 1;", "")],
+                      _fault_dedup),
+    # K15's compaction leaves the words it read set
+    "dedup_word_not_cleared": ([("mesh.cu", "  if (word != 0u) bits[w0 + threadIdx.x] = 0u;\n",
+                                 "")], _fault_dedup_back_to_back),
+    # the look-back takes a predecessor's flag as it finds it, published or
+    # not (shared by K6, K9 and K15; caught with the blocks run at once)
+    "lookback_wait_dropped": ([("lookback.cuh",
+                                "      while (__ballot_sync(0xffffffffu, (f >> 32) == 0) != 0u)\n"
+                                "        if ((f >> 32) == 0) f = lb_peek(&flags[p]);\n", "")],
+                              _dedup_concurrent),
     # K12: the accumulator input dropped (the last slice alone), both tiers
     "k12_accumulator_dropped": ([
         ("knn.cuh", "    if (acc_in != nullptr) v = acc_in[(long long)qi * N + row] + v;\n", ""),
@@ -1467,4 +1720,4 @@ def test_mesh_planted_fault_fails_the_comparison(tmp_path, fault):
         srcs.setdefault(name, _source(name))
         assert srcs[name].count(old) == 1, old
         srcs[name] = srcs[name].replace(old, new)
-    assert differs(_build_emu(tmp_path, srcs))
+    assert differs(_build_emu(tmp_path, srcs, concurrent=differs is _dedup_concurrent))
