@@ -7,6 +7,8 @@
     python3 chip_smoke.py --multicard      # only the mesh over 2+ cards
     python3 chip_smoke.py --ml-only        # only phase 10 and ml_paths: the
                                            # narrow against the skinny design
+    python3 chip_smoke.py --file-only      # only phase 12 (--file-rows 1048576:
+                                           # at config 2's full 2^20 rows)
     python3 chip_smoke.py --cpu-rehearsal  # tiny, on the CPU, plain versions;
                                            # exits 1 and prints no result
 
@@ -94,7 +96,22 @@ Phases, one JSON line each (or more):
    the HNSW state (Q 1, 8 and 64), K14 and K15 on config 1's 3-hop BFS,
    each against its plain version (K11 also against single-device K2, K13
    against K3), with times and the kernels a call runs; `dryrun_mesh`:
-   parallel/dryrun.py's entry() and dryrun_multichip(8) on the card.
+   parallel/dryrun.py's entry() and dryrun_multichip(8) on the card;
+12. main_path_file: phase 3's MTREE schema on the file backend after a
+   crash. A child process ingests the corpus's first 2^18 rows (config 2's
+   2^20 cut for the time limit; --file-rows) into `file://<tmp>/db` on the
+   card, printing an ack after each committed batch, and is killed with
+   SIGKILL once it acknowledged every row (no close, no compaction at
+   exit); a torn frame is appended to its WAL. The store reopens on the
+   card: count() must equal the acknowledged rows, INFO FOR TABLE must list
+   the index, tick() runs, and phase 3's 88 queries must all take
+   `exact-device` with K2's launches equal to the dispatched tiles and
+   recall@10 >= 0.99 over the cut corpus. Then a compaction and a clean
+   close, and a reopen from the snapshot alone answers a query as before.
+   It prints ingest rows/s, WAL and snapshot bytes, reopen_s, first_query_s
+   and time_to_recover_s (their sum), p50 and qps after recovery, the busy
+   share of 8 queries and peak device memory, beside the card's name and
+   power limit.
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`. Any failure exits non-zero. This
@@ -1226,6 +1243,62 @@ def dispatched_tiles(ds, widths0):
     return widths, tiles
 
 
+def serve_exact(torch, device: str, ds, run, sql, queries, truth, k: int,
+                n_seq: int, n_threads: int, rounds: int):
+    """The MTREE queries of a main path on an open Datastore whose mirror
+    is on the device (its first query ran): sequential, then n_threads
+    clients; every query must take `exact-device`, K2's launches must equal
+    the dispatched tiles (no other kernel), recall@k >= 0.99. Returns the
+    window's numbers and the results."""
+    from surrealdb_tpu_torch import bg
+
+    # the first query's background warmers launch every other tile shape of
+    # this matrix once; let them finish before the counts start
+    require(bg.wait_idle(timeout=120, owner=id(ds)), "background tasks did not finish")
+    mem0 = window_start(torch, device)
+    before = strategies()
+    widths0 = ds.dispatch.width_distribution()
+    reset_launches()
+    results, timing = drive_queries(lambda i: run(sql, {"q": queries[i].tolist()}),
+                                    queries.shape[0], n_seq, n_threads, rounds,
+                                    "exact-device")
+    # the background tile warmers launch too: wait for them to finish
+    # before the counts are read
+    require(bg.wait_idle(timeout=120, owner=id(ds)), "background tasks did not finish")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = read_launches()
+    widths, tiles = dispatched_tiles(ds, widths0)
+    delta = strategy_delta(before)
+    n_queries = queries.shape[0]
+    require(
+        delta == {'knn_strategy{strategy="exact-device"}': float(n_queries)},
+        f"strategies {delta}, expected {n_queries} exact-device",
+    )
+    if device == "cuda":
+        # every dispatched tile is one fused knn_search call, counted
+        # under knn_select, and no K1 launch (every tile shape was
+        # warmed before the counts)
+        want = {c.name: 0 for c in kernel_counters()}
+        want.update(knn_select=tiles)
+        require(launches == want, f"launches {launches} for {tiles} dispatched tiles")
+    recall = recall_of(results, truth, k)
+    require(recall >= 0.99, f"recall@{k} {recall} < 0.99")
+    busy = device_busy_share(torch, lambda: [
+        run(sql, {"q": queries[i].tolist()}) for i in range(8)
+    ]) if device == "cuda" else None
+    return dict(
+        **timing,
+        dispatch_widths={str(w): c for w, c in sorted(widths.items())},
+        tiles_dispatched=tiles, launches=launches,
+        strategies=delta, recall_at_10=recall, profiled_8_seq_queries=busy,
+        peak_device_memory_bytes=(
+            torch.cuda.max_memory_allocated() if device == "cuda" else None
+        ),
+        device_memory_at_window_start_bytes=mem0,
+    ), results
+
+
 def phase_main_path(torch, device: str, corpus, queries, truth, batch: int,
                     n_seq: int, n_threads: int, rounds: int, then=None):
     """MTREE: exact kNN through Datastore.execute, every query `exact-device`.
@@ -1252,52 +1325,12 @@ def phase_main_path(torch, device: str, corpus, queries, truth, batch: int,
         t = time.perf_counter()
         run(sql, {"q": queries[0].tolist()})
         upload_query_s = time.perf_counter() - t
-        # that query's background warmers launch every other tile shape of
-        # this matrix once; let them finish before the counts start
-        require(bg.wait_idle(timeout=120, owner=id(ds)), "background tasks did not finish")
-        mem0 = window_start(torch, device)
-        before = strategies()
-        widths0 = ds.dispatch.width_distribution()
-        reset_launches()
-        results, timing = drive_queries(lambda i: run(sql, {"q": queries[i].tolist()}),
-                                        queries.shape[0], n_seq, n_threads, rounds,
-                                        "exact-device")
-        # the background tile warmers launch too: wait for them to finish
-        # before the counts are read
-        require(bg.wait_idle(timeout=120, owner=id(ds)), "background tasks did not finish")
-        if device == "cuda":
-            torch.cuda.synchronize()
-        launches = read_launches()
-        widths, tiles = dispatched_tiles(ds, widths0)
-        delta = strategy_delta(before)
-        n_queries = queries.shape[0]
-        require(
-            delta == {'knn_strategy{strategy="exact-device"}': float(n_queries)},
-            f"strategies {delta}, expected {n_queries} exact-device",
-        )
-        if device == "cuda":
-            # every dispatched tile is one fused knn_search call, counted
-            # under knn_select, and no K1 launch (every tile shape was
-            # warmed before the counts)
-            want = {c.name: 0 for c in kernel_counters()}
-            want.update(knn_select=tiles)
-            require(launches == want, f"launches {launches} for {tiles} dispatched tiles")
-        recall = recall_of(results, truth, k)
-        require(recall >= 0.99, f"recall@{k} {recall} < 0.99")
-        busy = device_busy_share(torch, lambda: [
-            run(sql, {"q": queries[i].tolist()}) for i in range(8)
-        ]) if device == "cuda" else None
+        served, results = serve_exact(torch, device, ds, run, sql, queries, truth, k,
+                                      n_seq, n_threads, rounds)
         out = dict(
             rows=n_rows, dim=dim, device=str(ds.device),
             ingest_rows_per_s=n_rows / ingest_s, ingest_s=ingest_s,
-            first_query_with_upload_s=upload_query_s, **timing,
-            dispatch_widths={str(w): c for w, c in sorted(widths.items())},
-            tiles_dispatched=tiles, launches=launches,
-            strategies=delta, recall_at_10=recall, profiled_8_seq_queries=busy,
-            peak_device_memory_bytes=(
-                torch.cuda.max_memory_allocated() if device == "cuda" else None
-            ),
-            device_memory_at_window_start_bytes=mem0,
+            first_query_with_upload_s=upload_query_s, **served,
         )
         emit("main_path", **out)
         if then is not None:
@@ -3732,6 +3765,190 @@ class MeshPaths:
 
 
 # ------------------------------------------------------------------ main
+# ------------------------------------------------------------------ phase 12
+FILE_ROWS = 1 << 18  # phase 12's rows: config 2's 2^20, cut for the time limit
+FILE_BATCH = 20_000  # phase 3's INSERT batch
+# the start of a frame whose body never landed: a length past the file's end
+TORN_FRAME = (10_000).to_bytes(4, "big") + (12345).to_bytes(4, "big") + b"short"
+
+
+def file_schema(dim: int) -> str:
+    return ("DEFINE TABLE item SCHEMALESS; "
+            f"DEFINE INDEX iemb ON item FIELDS emb MTREE DIMENSION {dim} DIST EUCLIDEAN")
+
+
+def file_child(path: str, rows: int, dim: int, device: str, batch: int) -> int:
+    """`--file-child`: open a file-backed Datastore at `path`, INSERT the
+    corpus's first `rows` rows in batches, print `{"ack": rows so far,
+    "ingest_s": ...}` after each committed batch, then `{"blocked": true}`,
+    and wait to be killed (no close(), so no compaction at exit)."""
+    from surrealdb_tpu_torch.kvs.ds import Datastore
+
+    corpus = gen_corpus(rows, dim)
+    ds = Datastore("file://" + path, device=device)
+    run = sql_runner(ds)
+    run(file_schema(dim))
+    ingest_s = 0.0
+    for lo in range(0, rows, batch):
+        hi = min(lo + batch, rows)
+        ingest_s += ingest(run, corpus, batch, lo, hi)
+        print(json.dumps({"ack": hi, "ingest_s": ingest_s}), flush=True)
+    print(json.dumps({"blocked": True}), flush=True)
+    while True:
+        time.sleep(3600)
+
+
+def file_sizes(path: str) -> dict:
+    return {"snapshot_bytes": os.path.getsize(path) if os.path.exists(path) else 0,
+            "wal_bytes": os.path.getsize(path + ".wal")}
+
+
+def phase_main_path_file(torch, device: str, rows: int, dim: int, queries, truth, smi,
+                         batch: int, n_seq: int, n_threads: int, rounds: int,
+                         child_timeout: float = 900.0):
+    """The MTREE main path on the file backend after a crash: a child
+    process ingests gen_corpus(rows, dim) (the first rows of phase 3's
+    corpus when rows is a multiple of its 65,536-row step, or the whole
+    corpus) into `file://<tmp>/db` and is killed (SIGKILL) once it
+    has acknowledged every batch; a torn frame is appended to the WAL; the
+    store reopens on `device` (snapshot load + WAL replay) and must hold
+    every acknowledged row, list the index, run tick(), and serve phase 3's
+    queries `exact-device` (K2's launches equal to the dispatched tiles,
+    recall@10 >= 0.99 over the cut corpus). Then a compaction and a clean
+    close, and a reopen from the snapshot alone answers one query as
+    before."""
+    import shutil
+    import signal
+    import tempfile
+
+    from surrealdb_tpu_torch import bg
+    from surrealdb_tpu_torch.kvs.ds import Datastore
+    from surrealdb_tpu_torch.kvs.file import WAL_MAGIC
+
+    k = 10
+    sql = f"SELECT id FROM item WHERE emb <|{k}|> $q"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_file_")
+    path = os.path.join(tmp, "db")
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    err_path = os.path.join(tmp, "child.err")
+    ds = None
+    with open(err_path, "w") as err:
+        child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--file-child", path,
+             "--file-rows", str(rows), "--file-dim", str(dim), "--file-device", device,
+             "--file-batch", str(batch)],
+            stdout=subprocess.PIPE, stderr=err, text=True,
+        )
+    watchdog = threading.Timer(child_timeout, child.kill)
+    watchdog.start()
+    try:
+        acks = []
+        for line in child.stdout:
+            if not line.startswith("{"):
+                continue  # not one of file_child's lines
+            msg = json.loads(line)
+            if msg.get("blocked"):
+                break
+            acks.append(msg)
+        watchdog.cancel()
+        with open(err_path) as f:
+            require(bool(acks) and child.poll() is None,
+                    f"file child ended before blocking: {f.read()[-2000:]}")
+        child.send_signal(signal.SIGKILL)
+        child.wait(timeout=60)
+        acked, child_ingest_s = acks[-1]["ack"], acks[-1]["ingest_s"]
+        require(acked == rows, f"child acknowledged {acked} of {rows} rows")
+        killed = file_sizes(path)
+        with open(path + ".wal", "ab") as f:
+            f.write(TORN_FRAME)
+
+        t = time.perf_counter()
+        ds = Datastore("file://" + path, device=device)
+        reopen_s = time.perf_counter() - t
+        require(os.path.getsize(path + ".wal") == killed["wal_bytes"],
+                "the torn WAL tail was not truncated to the intact prefix")
+        run = sql_runner(ds)
+        t = time.perf_counter()
+        count = run("SELECT count() FROM item GROUP ALL")[0]["count"]
+        count_s = time.perf_counter() - t
+        require(count == acked, f"count() {count} after recovery, {acked} acknowledged")
+        info = run("INFO FOR TABLE item")
+        require("iemb" in info["indexes"] and "MTREE" in info["indexes"]["iemb"],
+                f"INFO FOR TABLE item lists no MTREE index: {info}")
+        t = time.perf_counter()
+        collected = ds.tick()
+        tick_s = time.perf_counter() - t
+        # the first query builds the mirror from the KV store and uploads it
+        t = time.perf_counter()
+        first = run(sql, {"q": queries[0].tolist()})
+        first_query_s = time.perf_counter() - t
+        served, results = serve_exact(torch, device, ds, run, sql, queries, truth, k,
+                                      n_seq, n_threads, rounds)
+
+        ds.backend.flush()  # compaction: the whole state into the snapshot
+        ds.close()
+        ds = None
+        compacted = file_sizes(path)
+        require(compacted["wal_bytes"] == len(WAL_MAGIC), f"WAL after compaction {compacted}")
+        t = time.perf_counter()
+        ds = Datastore("file://" + path, device=device)
+        reopen2_s = time.perf_counter() - t
+        run = sql_runner(ds)
+        t = time.perf_counter()
+        again = run(sql, {"q": queries[0].tolist()})
+        first_query2_s = time.perf_counter() - t
+        require(bg.wait_idle(timeout=120, owner=id(ds)), "background tasks did not finish")
+        before, widths0 = strategies(), ds.dispatch.width_distribution()
+        reset_launches()
+        again2 = run(sql, {"q": queries[0].tolist()})
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches2 = read_launches()
+        _widths, tiles2 = dispatched_tiles(ds, widths0)
+        ids = [[int(r["id"].id) for r in res] for res in (first, results[0], again, again2)]
+        require(all(i == ids[1] for i in ids), f"query 0 after recovery and reopen: {ids}")
+        require(strategy_delta(before) == {'knn_strategy{strategy="exact-device"}': 1.0},
+                f"strategies after the snapshot reopen {strategy_delta(before)}")
+        if device == "cuda":
+            want = {c.name: 0 for c in kernel_counters()}
+            want.update(knn_select=tiles2)
+            require(launches2 == want, f"launches {launches2} for {tiles2} tiles after reopen")
+        out = dict(
+            rows=rows, dim=dim, device=str(ds.device), nvidia_smi=smi,
+            reduced=None if rows == 1 << 20 else {
+                "rows": rows, "published_rows": 1 << 20,
+                "why": "the script's time limit: at 2^20 rows this phase alone takes ~5.4 "
+                       "min on an H100 (6.6 GB on disk, ingest ~7,400 rows/s)"},
+            acked_rows=acked, recovered_rows=count,
+            ingest_rows_per_s=acked / child_ingest_s, ingest_s=child_ingest_s,
+            at_kill=killed, torn_frame_bytes=len(TORN_FRAME),
+            reopen_s=reopen_s, first_query_s=first_query_s,
+            time_to_recover_s=reopen_s + first_query_s,
+            count_s=count_s, tick_s=tick_s, tick_collected=collected,
+            **{f"after_recovery_{key}": v for key, v in served.items()},
+            after_compaction=compacted, snapshot_reopen_s=reopen2_s,
+            snapshot_first_query_s=first_query2_s,
+            snapshot_reopen_launches=launches2, snapshot_reopen_tiles=tiles2,
+            peak_device_memory_bytes_phase=(
+                torch.cuda.max_memory_allocated() if device == "cuda" else None),
+            seconds=time.perf_counter() - t_phase,
+        )
+        emit("main_path_file", **out)
+        return out
+    finally:
+        watchdog.cancel()
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=60)
+        child.stdout.close()
+        if ds is not None:
+            ds.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def kernel_entry(name, kern, source, replaces, launches, err, timing, shape, extra=None):
     # the main path's launches and the checks' error stand over any timing key
     return {
@@ -3751,9 +3968,23 @@ def main(argv=None) -> int:
                          "against its skinny design (phase ml_paths)")
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run the main paths tiny on the CPU (plain versions); exits 1")
+    ap.add_argument("--file-rows", type=int, default=FILE_ROWS,
+                    help="rows of phase 12 (main_path_file): a multiple of 65,536 up to 2^20")
+    ap.add_argument("--file-only", action="store_true",
+                    help="only phase 12 (main_path_file), at --file-rows")
+    # phase 12's child process (file_child); not for callers
+    ap.add_argument("--file-child", help=argparse.SUPPRESS)
+    ap.add_argument("--file-dim", type=int, default=DIM, help=argparse.SUPPRESS)
+    ap.add_argument("--file-device", default="cuda", help=argparse.SUPPRESS)
+    ap.add_argument("--file-batch", type=int, default=FILE_BATCH, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
+
+    if args.file_child:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return file_child(args.file_child, args.file_rows, args.file_dim, args.file_device,
+                          args.file_batch)
 
     if args.cpu_rehearsal:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -3778,6 +4009,8 @@ def main(argv=None) -> int:
         phase_main_path_graph(torch, "cpu", 200, 4000, batch=1000, n_seq=4, n_threads=8,
                               rounds=2, n_odd=2, n_fof=4)
         phase_main_path_bm25(torch, "cpu", 3000, 1000, n_seq=4, n_threads=8, rounds=2)
+        phase_main_path_file(torch, "cpu", corpus.shape[0], 32, queries, truth, None,
+                             batch=1000, n_seq=4, n_threads=8, rounds=2)
         print("cpu rehearsal: no card, no result", file=sys.stderr)
         return 1
     if not torch.cuda.is_available():
@@ -3791,13 +4024,23 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     full = 1 << 20
+    if not (0 < args.file_rows <= full and args.file_rows % 65_536 == 0):
+        # gen_corpus(rows) is then the first rows of phase 3's corpus
+        ap.error("--file-rows must be a multiple of 65,536 up to 2^20")
     t_all = time.perf_counter()
-    if args.multicard or args.ml_only:
+    if args.multicard or args.ml_only or args.file_only:
         try:
             smi = phase_environment(torch)
             if args.ml_only:
                 phase_ml_kernels(torch)
                 phase_ml_paths(torch)
+            elif args.file_only:
+                corpus = gen_corpus(full, DIM)
+                queries = make_queries(corpus, 24 + 32 * 2, 42)
+                truth = knn_ground_truth(corpus[: args.file_rows], queries, 10)
+                del corpus
+                phase_main_path_file(torch, "cuda", args.file_rows, DIM, queries, truth, smi,
+                                     batch=FILE_BATCH, n_seq=24, n_threads=32, rounds=2)
             else:
                 phase_mesh_multicard(torch)
         except SmokeFailure as e:
@@ -3823,6 +4066,8 @@ def main(argv=None) -> int:
         emit("ground_truth", queries=queries.shape[0], seconds=time.perf_counter() - t)
         mtree_truth = truth if args.rows == full else knn_ground_truth(
             corpus[: args.rows], queries, 10)
+        file_truth = truth if args.file_rows == full else knn_ground_truth(
+            corpus[: args.file_rows], queries, 10)
         main = phase_main_path(
             torch, "cuda", corpus[: args.rows], queries, mtree_truth, batch=20_000, n_seq=24,
             n_threads=32, rounds=2,
@@ -3853,6 +4098,11 @@ def main(argv=None) -> int:
              main_path_mesh_hnsw=mesh_b["seconds"],
              mesh_kernels=mesh_a["kernels"]["seconds"] + mesh_b["kernels"]["seconds"]
              + mesh_graph_k["seconds"], dryrun_mesh=dry["seconds"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        file_path = phase_main_path_file(torch, "cuda", args.file_rows, DIM, queries,
+                                         file_truth, smi, batch=FILE_BATCH, n_seq=24,
+                                         n_threads=32, rounds=2)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3869,6 +4119,9 @@ def main(argv=None) -> int:
         extra = {"by_q": {str(nq): timing[nq][kern] for nq in (8, 64)}}
         if kern == "knn_select":
             extra["by_variant"] = {"ivf probe (q 1, n 1024 f32, k 6)": timing["probe"]}
+            extra["main_path_file_launches"] = (
+                file_path["after_recovery_launches"][kern]
+                + file_path["snapshot_reopen_launches"][kern])
         kernels.append(kernel_entry(
             name, kern, "surrealdb_tpu_torch/csrc/knn.cu", replaces, main["launches"][kern],
             err, timing[1][kern], knn_shape, extra,

@@ -1,0 +1,309 @@
+"""One-shot debug bundle: the engine's whole observability state as JSON.
+
+`debug_bundle(ds)` snapshots every flight-recorder surface into a single
+versioned document — the artifact you attach to any perf report:
+
+1. `traces`        — trace-store summaries + the newest full span trees;
+2. `slow_queries`  — the structured slow-statement ring;
+3. `errors`        — the bounded error ring (trace-id joined);
+4. `tasks`         — the background-task registry (bg.py): live, recent,
+                     stalled counts, watchdog state;
+5. `compiles`      — the compile-event log (compile_log.py):
+                     prewarm vs on-demand, per-shape cache hits;
+6. `engine`        — dispatch stats + width distribution, column-mirror /
+                     graph-CSR / vector-mirror staleness states,
+                     per-subsystem mirror memory watermarks, and — on a
+                     cluster node — the cluster view (replication factor,
+                     per-node probe/breaker state, admission counters);
+7. `locks`         — the concurrency sanitizer's report (utils/locks.py):
+                     observed lock-acquisition edges, order cycles and
+                     guarded-state violations (populated under
+                     SURREAL_SANITIZE=1; enabled=false otherwise);
+8. `faults`        — the failpoint engine's state (faults.py): armed
+                     sites, per-site trip counters, the chaos seed;
+9. `events`        — the structured event timeline (events.py): bounded,
+                     trace-linked operational transitions (flaps, breaker
+                     trips, degraded reads, sheds, failpoint trips,
+                     bg stalls/restarts, group-commit rescues);
+10. `kernel_audit` — always `{"available": false, "reason": ...}` here:
+                     the graftcheck audit reads the JAX package's
+                     compiled programs, which this package does not have.
+11. `flow_audit`   — likewise `available: false`: the graftflow analysis
+                     audits the JAX package's call graph.
+12. `statements`   — the workload statistics plane (stats.py): per-
+                     statement-fingerprint cumulative stats — calls,
+                     errors, latency quantiles, rows in/out, the
+                     plan-mix vector and plan-flip log — plus store
+                     size and eviction count (new in bundle/6);
+13. `profiler`     — the always-on sampling profiler's report
+                     (profiler.py): per-thread (`bg:<kind>`-named) and
+                     per-fingerprint sample counts and the hottest
+                     folded stacks (new in bundle/6).
+14. `tenants`      — the tenant cost-attribution plane (accounting.py):
+                     per-(ns, db) resource meters — cpu/exec/dispatch
+                     time, rows and bytes, bg-task and scatter cost —
+                     with global conservation totals, store size and
+                     eviction count (new in bundle/7).
+15. `advisor`      — the advisor plane (advisor.py): live evidence-
+                     chained tuning proposals (observe-only), the
+                     proposal-kind catalog, the expired ring and sweep
+                     health (new in bundle/8).
+16. `plan_cache`   — the fingerprint-keyed plan & pipeline cache
+                     (dbs/plan_cache.py): hit/miss/invalidation
+                     counters by cause, entry/variant/route counts,
+                     per-fingerprint warm-vs-cold pre-kernel timings
+                     and the recent eviction log (new in bundle/9).
+
+Served by `GET /debug/bundle` (system-user-gated) and embedded via
+`INFO FOR ROOT` (`system.bundle`); bench.py embeds one per artifact so a
+perf number always ships with the engine state that produced it. Works
+with `ds=None` too (global registries only) — the tier-1 failure hook
+uses that to dump diagnostics from a dying test process.
+
+On a cluster node `GET /debug/bundle?cluster=1` federates instead
+(cluster/federation.py): one `surrealdb-tpu-bundle/4` document whose
+`nodes` map carries every member's full bundle, dead members marked
+`{"unreachable": true}` — the request still answers 200.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, Optional
+
+BUNDLE_SCHEMA = "surrealdb-tpu-bundle/10"
+
+# the sections every consumer may rely on
+SECTIONS = (
+    "traces", "slow_queries", "errors", "tasks", "compiles", "engine",
+    "locks", "faults", "events", "kernel_audit", "flow_audit",
+    "statements", "profiler", "tenants", "advisor", "plan_cache", "net",
+)
+
+
+def debug_bundle(
+    ds=None, trace_limit: int = 50, full_traces: int = 10
+) -> Dict[str, Any]:
+    from surrealdb_tpu_torch import (
+        accounting, advisor, bg, compile_log, events, faults, profiler,
+        stats, telemetry, tracing,
+    )
+    from surrealdb_tpu_torch.utils import locks
+
+    ids = tracing.trace_ids()
+    docs = []
+    # NB: full_traces=0 must mean "no docs" — a bare ids[-0:] is the WHOLE list
+    for tid in ids[-full_traces:] if full_traces > 0 else ():
+        doc = tracing.get_trace(tid)
+        if doc is not None:
+            docs.append(doc)
+    out: Dict[str, Any] = {
+        "schema": BUNDLE_SCHEMA,
+        "ts": time.time(),
+        "node_id": str(ds.node_id) if ds is not None else None,
+        "traces": {
+            "summaries": tracing.list_traces(limit=trace_limit),
+            "docs": docs,
+        },
+        "slow_queries": telemetry.slow_queries(),
+        "errors": telemetry.recent_errors(),
+        "tasks": bg.snapshot(),
+        "compiles": compile_log.snapshot(),
+        "engine": _engine_state(ds),
+        "locks": locks.report(),
+        "faults": faults.snapshot(),
+        "events": events.snapshot(),
+        "kernel_audit": _kernel_audit_state(),
+        "flow_audit": _flow_audit_state(),
+        "statements": stats.snapshot(),
+        "profiler": profiler.report(),
+        "tenants": accounting.snapshot(),
+        "advisor": advisor.snapshot(),
+        "plan_cache": ds.plan_cache.snapshot()
+        if ds is not None
+        else {"enabled": False, "available": False},
+        "net": _net_state(),
+    }
+    return out
+
+
+def _net_state() -> Dict[str, Any]:
+    """The network plane: live event-loop servers (conn counts, accept-to-
+    first-byte quantiles) + the per-tenant weighted-fair admission state
+    (sheds/throttles per tenant — the first read in a noisy-neighbor
+    incident). Import is lazy and guarded: a bundle from a process that
+    never served a socket still gets a well-formed section."""
+    try:
+        from surrealdb_tpu_torch.net import loop as _loop
+
+        return _loop.snapshot()
+    except Exception:  # noqa: BLE001 — a bundle section must never
+        # take down the whole diagnostic export
+        from surrealdb_tpu_torch import telemetry
+
+        telemetry.inc("scrape_section_errors", section="net")
+        return {"enabled": False, "servers": [], "qos": {}}
+
+
+def _flow_audit_state() -> Dict[str, Any]:
+    """The graftflow report audits the JAX package's call graph; this
+    package carries neither graftflow nor those programs, so the section
+    keeps its name and says why it is empty."""
+    return {
+        "available": False,
+        "reason": "graftflow audits the JAX package, not surrealdb_tpu_torch",
+    }
+
+
+def _kernel_audit_state() -> Dict[str, Any]:
+    """The graftcheck report audits the JAX package's compiled programs;
+    this package's kernels are CUDA sources checked against their plain
+    versions instead, so the section keeps its name and says why it is
+    empty."""
+    return {
+        "available": False,
+        "reason": "graftcheck audits the JAX package's compiled programs, "
+        "not surrealdb_tpu_torch's CUDA kernels",
+    }
+
+
+def _engine_state(ds) -> Dict[str, Any]:
+    """Dispatch + mirror section: the state that decides whether the next
+    query pays a build/compile cliff or serves warm."""
+    from surrealdb_tpu_torch import telemetry
+
+    if ds is None:
+        return {"dispatch": None, "column_mirrors": {}, "graph": {},
+                "vector_indexes": {}, "memory_bytes": {}}
+    out: Dict[str, Any] = {
+        "dispatch": {
+            "stats": ds.dispatch.stats(),
+            "width_distribution": {
+                str(w): n for w, n in sorted(ds.dispatch.width_distribution().items())
+            },
+        },
+        "column_mirrors": _column_state(ds),
+        "graph": _graph_state(ds),
+        "vector_indexes": _vector_state(ds),
+    }
+    try:
+        out["memory_bytes"] = telemetry.mirror_memory_bytes(ds)
+    except Exception:  # noqa: BLE001 — a bundle must never fail its caller
+        out["memory_bytes"] = {}
+    try:
+        out["cluster"] = _cluster_state(ds)
+    except Exception:  # noqa: BLE001
+        out["cluster"] = None
+    return out
+
+
+def _cluster_state(ds) -> Optional[Dict[str, Any]]:
+    """Cluster fault-tolerance view: per-node probe/breaker state (the
+    thing you read when a `degraded` flag shows up) + admission counters."""
+    node = getattr(ds, "cluster", None)
+    if node is None:
+        return None
+    from surrealdb_tpu_torch import cnf
+    from surrealdb_tpu_torch.cluster import repair as _repair
+
+    members = node.membership.nodes()
+    out: Dict[str, Any] = {
+        "node_id": node.node_id,
+        "members": [n["id"] for n in members],
+        "rf": max(min(cnf.CLUSTER_RF, len(members)), 1),
+        # elastic-membership plane: which ring version this member serves
+        # under (peer drift when it disagrees with the fleet), plus the
+        # migration/repair progress behind a capacity change
+        "epoch": node.membership.epoch,
+        "membership": node.membership.view(),
+        "migration": node.migration.view(),
+        "repair": _repair.last_sweep(node),
+    }
+    if node.client is not None:
+        out["nodes"] = node.client.probe_state()
+    if node.executor is not None:
+        out["admission"] = node.executor.admission.stats()
+    return out
+
+
+def _column_state(ds) -> Dict[str, Any]:
+    cm = getattr(ds, "column_mirrors", None)
+    if cm is None:
+        return {}
+    now = time.monotonic()
+    out: Dict[str, Any] = {}
+    with cm._lock:  # noqa: SLF001 — read-only snapshot within the package
+        mirrors = dict(cm._mirrors)  # noqa: SLF001
+        versions = dict(cm.versions)
+        pending = set(cm._timers)  # noqa: SLF001
+    for key3, m in mirrors.items():
+        cur = versions.get(key3, 0)
+        out[".".join(key3)] = {
+            "rows": m.n,
+            "columns": len(m.columns),
+            "built_version": m.built_version,
+            "current_version": cur,
+            "stale": m.built_version != cur,
+            "rebuild_armed": key3 in pending,
+            "age_s": round(now - m.build_time, 3) if m.build_time else None,
+        }
+    return out
+
+
+def _graph_state(ds) -> Dict[str, Any]:
+    gm = getattr(ds, "graph_mirrors", None)
+    if gm is None:
+        return {}
+    with gm._lock:  # noqa: SLF001
+        built = sorted(".".join(k) for k in gm._built)  # noqa: SLF001
+        prewarm_pending = sorted(
+            ".".join(k) for k in gm._prewarm_timers  # noqa: SLF001
+        )
+        mirrors = {
+            f"{k[2]}:{k[3].decode() if isinstance(k[3], bytes) else k[3]}:{k[4]}": {
+                "edges": m.edge_count,
+                "dirty": m.dirty,
+                "max_degree": m.max_degree,
+            }
+            for k, m in gm._m.items()  # noqa: SLF001
+        }
+    return {
+        "built_tables": built,
+        "prewarm_pending": prewarm_pending,
+        "mirrors": mirrors,
+    }
+
+
+def _vector_state(ds) -> Dict[str, Any]:
+    stores = getattr(ds, "index_stores", None)
+    if stores is None:
+        return {}
+    with stores._lock:  # noqa: SLF001
+        items = list(stores._stores.items())  # noqa: SLF001
+    out: Dict[str, Any] = {}
+    for key, m in items:
+        if not hasattr(m, "ivf_status"):
+            continue
+        entry: Dict[str, Any] = {"rows": m.count() if hasattr(m, "count") else None}
+        try:
+            entry["ann"] = m.ivf_status()
+        except Exception as e:  # noqa: BLE001 — a bundle must never fail,
+            # but an unreadable quantizer state is itself a diagnostic
+            entry["ann_error"] = f"{type(e).__name__}: {e}"
+        out[".".join(key)] = entry
+    return out
+
+
+def write_bundle(path: str, ds=None) -> Optional[str]:
+    """Dump a bundle to `path` (JSON, default=str for stray types); returns
+    the path, or None when the dump failed. Used by the tier-1 failure
+    hook — diagnostics capture must never raise inside a dying process."""
+    import json
+
+    try:
+        with open(path, "w") as f:
+            json.dump(debug_bundle(ds), f, indent=1, default=str)
+            f.write("\n")
+        return path
+    except Exception:  # noqa: BLE001
+        return None

@@ -1,0 +1,229 @@
+"""INFO FOR ... statements.
+
+Role of the reference's InfoStatement::compute (reference:
+core/src/sql/statements/info.rs): snapshot the catalog at each level into an
+object of `name -> definition-text` maps (or structured objects with
+STRUCTURE).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+from surrealdb_tpu_torch.err import IxNotFoundError, SurrealError
+
+
+def info_compute(ctx, stm) -> Any:
+    from surrealdb_tpu_torch.iam.check import check_info
+
+    check_info(ctx, stm.level)
+    level = stm.level
+    txn = ctx.txn()
+    structure = stm.structure
+
+    def fmt(items, render):
+        out: Dict[str, Any] = {}
+        for d in items:
+            out[d["name"]] = d if structure else render(d)
+        return out
+
+    if level == "root":
+        return {
+            "namespaces": fmt(txn.all_ns(), _r_ns),
+            "users": fmt(txn.all_root_users(), _r_user),
+            "accesses": fmt(txn.all_accesses(()), _r_access),
+            "nodes": {},
+            "system": _system_info(ctx.ds()),
+        }
+    if level == "ns":
+        ns = ctx.session.ns
+        return {
+            "databases": fmt(txn.all_db(ns), _r_db),
+            "users": fmt(txn.all_ns_users(ns), _r_user),
+            "accesses": fmt(txn.all_accesses((ns,)), _r_access),
+        }
+    if level == "db":
+        ns, db = ctx.ns_db()
+        return {
+            "tables": fmt(txn.all_tb(ns, db), _r_tb),
+            "users": fmt(txn.all_db_users(ns, db), _r_user),
+            "accesses": fmt(txn.all_accesses((ns, db)), _r_access),
+            "functions": fmt(txn.all_fc(ns, db), _r_fc),
+            "params": fmt(txn.all_pa(ns, db), _r_pa),
+            "analyzers": fmt(txn.all_az(ns, db), _r_az),
+            "models": fmt(txn.all_ml(ns, db), _r_ml),
+            "configs": {},
+        }
+    if level == "table":
+        ns, db = ctx.ns_db()
+        tb = stm.target
+        txn.expect_tb(ns, db, tb)
+        return {
+            "fields": fmt(txn.all_tb_fields(ns, db, tb), _r_fd),
+            "indexes": fmt(txn.all_tb_indexes(ns, db, tb), _r_ix),
+            "events": fmt(txn.all_tb_events(ns, db, tb), _r_ev),
+            "tables": fmt(txn.all_tb_views(ns, db, tb), lambda d: d["name"]),
+            "lives": {},
+        }
+    if level == "index":
+        ns, db = ctx.ns_db()
+        name, _, tb = (stm.target or "").partition(":")
+        ix = txn.get_tb_index(ns, db, tb, name)
+        if ix is None:
+            raise IxNotFoundError(name)
+        building: Dict[str, Any] = {"status": ix.get("status", "ready")}
+        live = ctx.ds().index_builder.status(ns, db, tb, name)
+        if live is not None:
+            building.update(live)
+        out: Dict[str, Any] = {"building": building}
+        # ANN state: a trained/stale/absent IVF over the vector mirror
+        if ix.get("index", {}).get("type") in ("hnsw", "mtree"):
+            mirror = ctx.ds().index_stores.get(ns, db, tb, name)
+            if mirror is not None and hasattr(mirror, "ivf_status"):
+                out["ann"] = mirror.ivf_status()
+        return out
+    if level == "user":
+        user = stm.target
+        d = txn.get_root_user(user)
+        if d is None:
+            raise SurrealError(f"The root user '{user}' does not exist")
+        return d if structure else _r_user(d)
+    raise SurrealError(f"INFO FOR {level} is not supported")
+
+
+def _system_info(ds=None) -> Dict[str, Any]:
+    """Embedded-user access to the slow-query ring, error ring, trace
+    store, and the full flight-recorder bundle (these were HTTP-only —
+    GET /slow, /traces, /debug/bundle — which left SDK/embedded
+    deployments blind). INFO FOR ROOT is already gated to root-level
+    users, the same bar as the HTTP endpoints. Traces are the bounded
+    store's summaries; fetch one in full by id via `traces` ->
+    tracing.get_trace (or GET /trace/:id on a server)."""
+    from surrealdb_tpu_torch import accounting, advisor, stats, telemetry, tracing
+    from surrealdb_tpu_torch.bundle import debug_bundle
+
+    return {
+        "slow_queries": telemetry.slow_queries(),
+        "errors": telemetry.recent_errors(),
+        "traces": tracing.list_traces(limit=50),
+        # workload statistics plane: the top statement shapes by
+        # cumulative time, with plan-mix vectors + flip counts (stats.py)
+        "statements": stats.statements(limit=20),
+        # tenant cost-attribution plane: the top (ns, db) pairs by
+        # cumulative execution time (accounting.py)
+        "tenants": accounting.top(limit=20),
+        # advisor plane: live evidence-chained tuning proposals + sweep
+        # health (advisor.py; observe-only — nothing is ever applied)
+        "advisor": advisor.snapshot(limit=20),
+        # the flight-recorder bundle for embedded users. full_traces=0: the
+        # rings/summaries above already cover them, and re-materializing the
+        # newest full span trees would double this (routine, root-gated)
+        # statement's serialization cost; fetch a tree by id via `traces`.
+        "bundle": debug_bundle(ds, full_traces=0),
+    }
+
+
+# ------------------------------------------------------------------ renderers
+def _r_ns(d) -> str:
+    return f"DEFINE NAMESPACE {d['name']}"
+
+
+def _r_db(d) -> str:
+    out = f"DEFINE DATABASE {d['name']}"
+    if d.get("changefeed"):
+        out += f" CHANGEFEED {d['changefeed']['expiry'] // 10**9}s"
+    return out
+
+
+def _r_tb(d) -> str:
+    out = f"DEFINE TABLE {d['name']}"
+    out += " TYPE " + d.get("kind", "ANY")
+    if d.get("kind") == "RELATION":
+        if d.get("relation_in"):
+            out += " IN " + "|".join(d["relation_in"])
+        if d.get("relation_out"):
+            out += " OUT " + "|".join(d["relation_out"])
+    out += " SCHEMAFULL" if d.get("schemafull") else " SCHEMALESS"
+    if d.get("drop"):
+        out += " DROP"
+    if d.get("changefeed"):
+        out += f" CHANGEFEED {d['changefeed']['expiry'] // 10**9}s"
+    return out
+
+
+def _r_fd(d) -> str:
+    out = f"DEFINE FIELD {d['name']} ON {d['table']}"
+    if d.get("flex"):
+        out += " FLEXIBLE"
+    if d.get("kind") is not None:
+        out += f" TYPE {d['kind']!r}"
+    if d.get("default") is not None:
+        out += f" DEFAULT {d['default']!r}"
+    if d.get("value") is not None:
+        out += f" VALUE {d['value']!r}"
+    if d.get("assert") is not None:
+        out += f" ASSERT {d['assert']!r}"
+    if d.get("readonly"):
+        out += " READONLY"
+    return out
+
+
+def _r_ix(d) -> str:
+    out = f"DEFINE INDEX {d['name']} ON {d['table']}"
+    if d.get("fields"):
+        out += " FIELDS " + ", ".join(repr(f) for f in d["fields"])
+    ix = d.get("index", {})
+    t = ix.get("type")
+    if t == "uniq":
+        out += " UNIQUE"
+    elif t == "search":
+        out += f" SEARCH ANALYZER {ix.get('analyzer')} BM25({ix.get('k1')},{ix.get('b')})"
+        if ix.get("highlights"):
+            out += " HIGHLIGHTS"
+    elif t == "mtree":
+        out += f" MTREE DIMENSION {ix.get('dimension')} DIST {ix.get('dist').upper()}"
+    elif t == "hnsw":
+        out += (
+            f" HNSW DIMENSION {ix.get('dimension')} DIST {ix.get('dist').upper()}"
+            f" EFC {ix.get('efc')} M {ix.get('m')}"
+        )
+    return out
+
+
+def _r_ev(d) -> str:
+    whens = f" WHEN {d['when']!r}" if d.get("when") else ""
+    thens = ", ".join(repr(t) for t in d.get("then", []))
+    return f"DEFINE EVENT {d['name']} ON {d['table']}{whens} THEN {thens}"
+
+
+def _r_user(d) -> str:
+    roles = ", ".join(d.get("roles", []))
+    return f"DEFINE USER {d['name']} ON {d.get('base', 'root').upper()} PASSHASH '***' ROLES {roles}"
+
+
+def _r_access(d) -> str:
+    return f"DEFINE ACCESS {d['name']} ON {d.get('base', 'db').upper()} TYPE {(d.get('access_type') or '').upper()}"
+
+
+def _r_fc(d) -> str:
+    ps = ", ".join(f"${p}: {k!r}" for p, k in d.get("params", []))
+    return f"DEFINE FUNCTION fn::{d['name']}({ps}) {d.get('body')!r}"
+
+
+def _r_pa(d) -> str:
+    from surrealdb_tpu_torch.sql.value import format_value
+
+    return f"DEFINE PARAM ${d['name']} VALUE {format_value(d.get('value'))}"
+
+
+def _r_az(d) -> str:
+    out = f"DEFINE ANALYZER {d['name']}"
+    if d.get("tokenizers"):
+        out += " TOKENIZERS " + ",".join(d["tokenizers"])
+    if d.get("filters"):
+        out += " FILTERS " + ",".join(f["name"] for f in d["filters"])
+    return out
+
+
+def _r_ml(d) -> str:
+    return f"DEFINE MODEL ml::{d['name']}<{d.get('version')}>"

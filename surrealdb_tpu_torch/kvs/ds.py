@@ -399,9 +399,9 @@ class Datastore:
         if path in ("memory", "mem") or scheme in ("mem", "memory"):
             return MemDatastore()
         if scheme in ("file", "surrealkv", "rocksdb"):
-            raise NotImplementedError(
-                "the file backend (kvs/file.py) is not ported yet; see ROADMAP"
-            )
+            from .file import FileDatastore
+
+            return FileDatastore(rest)
         raise KvsError(f"Unknown datastore path {path!r}")
 
     # ------------------------------------------------------------ txns
