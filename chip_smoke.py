@@ -55,7 +55,8 @@ Phases, one JSON line each (or more):
    plain version (dids equal, scores bit-equal, also to bm25_scores' on the
    same tf rows: T 1, 2, 3 and 8, rarest lists of one did, one tile and many
    tiles, empty and full intersections, the largest did, stats_override
-   df), its times at the median query, and the engine's per-query paths
+   df; T 256, 257 and 300 over many_term_postings, past the terms a launch
+   takes by value), its times at the median query, and the engine's per-query paths
    (the match, the old device path, the host path) in the crossover rows;
 8. the full-text main path: bench config 3 (1,000,000 documents of 12
    zipf-drawn words) ingested with INSERT, then bench_bm25's `@1@ ... ORDER
@@ -1340,6 +1341,274 @@ def phase_main_path(torch, device: str, corpus, queries, truth, batch: int,
         ds.close()
 
 
+# ------------------------------------------------------------------ server
+SERVER_CLI_ROWS = 4096  # the CLI child's MTREE rows (written over HTTP)
+SERVER_SQL_QUERIES = 8  # queries sent to /sql as text
+SERVER_GQL_ROWS = 6  # the small table the GraphQL query reads
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_call(host, port, method, path, body=None, headers=None, timeout=120):
+    """One request on a fresh connection -> (status, body bytes)."""
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=timeout)
+    try:
+        conn.request(method, path, body, headers or {})
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def metric_value(text: str, series: str):
+    """The value of one sample of a Prometheus scrape, or None."""
+    for line in text.splitlines():
+        if line.startswith(series + " "):
+            return float(line.split()[-1])
+    return None
+
+
+def sql_literal_query(k: int, q) -> str:
+    """The kNN query with the vector written as a literal (repr keeps each
+    f32 value exactly)."""
+    return f"SELECT id FROM item WHERE emb <|{k}|> [{', '.join(repr(float(x)) for x in q)}]"
+
+
+def server_transport(torch, device, ds, url, queries, truth, base_results, rows, k,
+                     n_seq, n_threads, rounds):
+    """The cell's queries through the SDK at `url` (HTTP /rpc or WS, CBOR),
+    a client a thread: drive_queries' sequential and concurrent windows;
+    every query `exact-device`, K2's launches equal to the dispatched tiles,
+    the in-process answers up to ties, recall@k >= 0.99."""
+    from surrealdb_tpu_torch import bg
+    from surrealdb_tpu_torch.sdk import Surreal
+
+    sql = f"SELECT id FROM item WHERE emb <|{k}|> $q"
+    local, clients, lock = threading.local(), [], threading.Lock()
+
+    def ask(i):
+        db = getattr(local, "db", None)
+        if db is None:
+            db = local.db = Surreal(url, format="cbor")
+            db.use("test", "test")
+            with lock:
+                clients.append(db)
+        res = db.query(sql, {"q": queries[i].tolist()})
+        require(res[-1]["status"] == "OK", f"query {i} over {url}: {res[-1]}")
+        return res[-1]["result"]
+
+    require(bg.wait_idle(timeout=120, owner=id(ds)), "background tasks did not finish")
+    before, widths0 = strategies(), ds.dispatch.width_distribution()
+    reset_launches()
+    try:
+        results, timing = drive_queries(ask, queries.shape[0], n_seq, n_threads, rounds,
+                                        "exact-device")
+    finally:
+        for db in clients:
+            db.close()
+    require(bg.wait_idle(timeout=120, owner=id(ds)), "background tasks did not finish")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = read_launches()
+    widths, tiles = dispatched_tiles(ds, widths0)
+    delta = strategy_delta(before)
+    n = queries.shape[0]
+    require(delta == {'knn_strategy{strategy="exact-device"}': float(n)},
+            f"strategies over {url}: {delta}, expected {n} exact-device")
+    if device == "cuda":
+        want = {c.name: 0 for c in kernel_counters()}
+        want.update(knn_select=tiles)
+        require(launches == want, f"launches {launches} over {url} for {tiles} tiles")
+    mirror = ds.index_stores.get("test", "test", "item", "iemb")
+    equal, tied = sql_ids_up_to_ties(torch, mirror, rows, queries, results, base_results, k)
+    recall = recall_of(results, truth, k)
+    require(recall >= 0.99, f"recall@{k} over {url}: {recall} < 0.99")
+    return dict(**timing, tiles_dispatched=tiles, launches=launches,
+                dispatch_widths={str(w): c for w, c in sorted(widths.items())},
+                ids_equal_queries=equal, ids_tied_queries=tied, recall_at_10=recall)
+
+
+def server_cli_child(torch, device, dim, rows, k, n_queries):
+    """`python -m surrealdb_tpu_torch start` as a child process on `device`
+    (the CLI's --device; cuda is its default): the SDK over HTTP signs in,
+    defines a dim-wide MTREE index, writes `rows` seeded rows and asks
+    n_queries queries, each held to numpy's exact top-k over the rows as
+    the mirror holds them (bf16 on a card) up to ties; its /metrics must
+    show device memory in use on a card; SIGINT must end it with code 0."""
+    import signal
+    import tempfile
+
+    from surrealdb_tpu_torch.sdk import Surreal
+
+    port = free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "surrealdb_tpu_torch", "start", "--bind", f"127.0.0.1:{port}",
+           "--user", "root", "--pass", "root"]
+    if device != "cuda":
+        cmd += ["--device", device]
+    t0 = time.perf_counter()
+    err = tempfile.TemporaryFile(mode="w+")  # a file, so the child never blocks on a pipe
+
+    def child_err():
+        err.seek(0)
+        return err.read()[-2000:]
+
+    child = subprocess.Popen(cmd + ["memory"], cwd=here, stdout=subprocess.DEVNULL, stderr=err)
+    try:
+        while True:
+            try:
+                if http_call("127.0.0.1", port, "GET", "/health", timeout=2)[0] == 200:
+                    break
+            except OSError:
+                pass
+            if child.poll() is not None:
+                raise SmokeFailure(f"the CLI server exited: {child_err()}")
+            require(time.perf_counter() - t0 < 180, "the CLI server did not come up in 180 s")
+            time.sleep(0.2)
+        up_s = time.perf_counter() - t0
+        data = gen_corpus(rows, dim, seed=7)
+        qs = make_queries(data, n_queries, 7)
+        t = time.perf_counter()
+        with Surreal(f"http://127.0.0.1:{port}", format="cbor") as db:
+            db.signin(user="root", password="root")
+            db.use("test", "test")
+            db.query("DEFINE TABLE item SCHEMALESS; DEFINE INDEX iemb ON item FIELDS emb "
+                     f"MTREE DIMENSION {dim} DIST EUCLIDEAN")
+            for i in range(0, rows, 1024):
+                res = db.query("INSERT INTO item $rows RETURN NONE", {"rows": [
+                    {"id": j, "emb": data[j].tolist()} for j in range(i, min(i + 1024, rows))]})
+                require(res[-1]["status"] == "OK", f"CLI ingest: {res[-1]}")
+            write_s = time.perf_counter() - t
+            got, lat = [], []
+            for q in qs:
+                t = time.perf_counter()
+                res = db.query(f"SELECT id FROM item WHERE emb <|{k}|> $q", {"q": q.tolist()})
+                lat.append(time.perf_counter() - t)
+                require(res[-1]["status"] == "OK", f"CLI query: {res[-1]}")
+                got.append(result_ids(res[-1]["result"]))
+        held = data
+        if device == "cuda":  # the mirror's rows on the card are bf16
+            held = torch.from_numpy(data).bfloat16().float().numpy()
+        d = ((held[None, :, :].astype(np.float64) - qs[:, None, :]) ** 2).sum(-1)
+        want_i = np.argsort(d, axis=1, kind="stable")[:, :k]
+        got_i = np.array(got)
+        require(got_i.shape == want_i.shape, f"CLI answers of shape {got_i.shape}")
+        require(ids_match_up_to_ties(np.take_along_axis(d, got_i, 1), got_i,
+                                     np.take_along_axis(d, want_i, 1), want_i),
+                "the CLI server's answers differ from numpy's exact top-k beyond ties")
+        status, body = http_call("127.0.0.1", port, "GET", "/metrics")
+        mem = metric_value(body.decode(), 'surreal_device_memory_bytes_in_use{device="0"}')
+        require(status == 200 and (device != "cuda" or (mem or 0) > 0),
+                f"the CLI server's /metrics shows device memory {mem}")
+        child.send_signal(signal.SIGINT)
+        rc = child.wait(timeout=60)
+        require(rc == 0, f"the CLI server exited {rc} on SIGINT: {child_err()}")
+        return dict(rows=rows, dim=dim, device=device, up_s=up_s, write_s=write_s,
+                    queries=n_queries, p50_ms=statistics.median(lat) * 1e3,
+                    exact_up_to_ties=True, device_memory_bytes_in_use=mem, sigint_rc=rc)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=60)
+        err.close()
+
+
+def phase_main_path_server(torch, device: str, ds, queries, truth, base_results, base,
+                           smi, n_seq: int, n_threads: int, rounds: int,
+                           cli_rows: int = SERVER_CLI_ROWS):
+    """The MTREE cell served over the network from its open Datastore
+    (nothing re-ingested): net.server.Server on 127.0.0.1 with the event
+    loop, then the cell's queries through the SDK over HTTP /rpc and over
+    WebSocket (CBOR; server_transport), SERVER_SQL_QUERIES of them to /sql
+    as text, one /metrics scrape (device memory in use, jit_cache_*), one
+    GraphQL query on a small table against the same SurrealQL in process,
+    and the CLI as a child process (server_cli_child). Prints each
+    transport's p50 and qps beside the in-process ones of the same run."""
+    from surrealdb_tpu_torch.net.server import Server
+    from surrealdb_tpu_torch.sql.value import Thing
+
+    k = 10
+    t_phase = time.perf_counter()
+    mirror = ds.index_stores.get("test", "test", "item", "iemb")
+    rows = mirror.device_snapshot(ds.device)[0]
+    srv = Server(ds, "127.0.0.1", 0, auth_enabled=False).start_background()
+    try:
+        require(srv.loop_mode, "the server is not on the event loop")
+        out = {}
+        for name, url in (("http_rpc", srv.url),
+                          ("ws", srv.url.replace("http://", "ws://") + "/rpc")):
+            out[name] = server_transport(torch, device, ds, url, queries, truth, base_results,
+                                         rows, k, n_seq, n_threads, rounds)
+            emit("main_path_server_transport", transport=name, **out[name],
+                 in_process=base_timing_of(base), nvidia_smi=smi)
+        # /sql: the vector as a literal in the statement's text
+        hdrs = {"surreal-ns": "test", "surreal-db": "test", "Accept": "application/json"}
+        before = strategies()
+        got, lat = [], []
+        for i in range(SERVER_SQL_QUERIES):
+            t = time.perf_counter()
+            status, body = http_call(srv.host, srv.port, "POST", "/sql",
+                                     sql_literal_query(k, queries[i]), hdrs)
+            lat.append(time.perf_counter() - t)
+            res = json.loads(body)
+            require(status == 200 and res[-1]["status"] == "OK", f"/sql query {i}: {res}")
+            got.append([{"id": Thing("item", int(str(r["id"]).split(":", 1)[1]))}
+                        for r in res[-1]["result"]])
+        delta = strategy_delta(before)
+        require(delta == {'knn_strategy{strategy="exact-device"}': float(SERVER_SQL_QUERIES)},
+                f"/sql strategies {delta}")
+        equal, tied = sql_ids_up_to_ties(torch, mirror, rows, queries[:SERVER_SQL_QUERIES],
+                                         got, base_results[:SERVER_SQL_QUERIES], k)
+        out["sql"] = dict(queries=SERVER_SQL_QUERIES, seq_p50_ms=statistics.median(lat) * 1e3,
+                          seq_qps=SERVER_SQL_QUERIES / sum(lat), ids_equal_queries=equal,
+                          ids_tied_queries=tied)
+        # one scrape of /metrics
+        status, body = http_call(srv.host, srv.port, "GET", "/metrics")
+        text = body.decode()
+        mem = metric_value(text, 'surreal_device_memory_bytes_in_use{device="0"}')
+        jit = {g: metric_value(text, f"surreal_jit_cache_{g}") for g in ("hits", "misses", "size")}
+        require(status == 200, f"/metrics answered {status}")
+        require(device != "cuda" or (mem or 0) > 0, f"/metrics device memory in use {mem}")
+        require(all(v is not None for v in jit.values()), f"/metrics jit_cache gauges {jit}")
+        out["metrics"] = dict(device_memory_bytes_in_use=mem, jit_cache=jit,
+                              bytes=len(body))
+        # GraphQL over a small table against the same SurrealQL in process
+        run = sql_runner(ds)
+        run("DEFINE TABLE person SCHEMALESS; INSERT INTO person $rows RETURN NONE",
+            {"rows": [{"id": i, "name": f"p{i}", "age": 20 + 3 * i}
+                      for i in range(SERVER_GQL_ROWS)]})
+        saved = os.environ.get("SURREAL_EXPERIMENTAL_GRAPHQL")
+        os.environ["SURREAL_EXPERIMENTAL_GRAPHQL"] = "true"
+        try:
+            status, body = http_call(srv.host, srv.port, "POST", "/graphql", json.dumps(
+                {"query": "{ person(order: {age: DESC}, limit: 4) { name age } }"}), hdrs)
+        finally:
+            if saved is None:
+                os.environ.pop("SURREAL_EXPERIMENTAL_GRAPHQL")
+            else:
+                os.environ["SURREAL_EXPERIMENTAL_GRAPHQL"] = saved
+        gql = json.loads(body)
+        want = run("SELECT name, age FROM person ORDER BY age DESC LIMIT 4")
+        require(status == 200 and gql.get("data", {}).get("person") == want,
+                f"GraphQL {status} {gql} against {want}")
+        out["graphql"] = dict(rows=len(want), equal=True)
+    finally:
+        srv.shutdown()
+    out["cli"] = server_cli_child(torch, device, queries.shape[1], cli_rows, k, 8)
+    out.update(in_process=base_timing_of(base), device=str(ds.device), nvidia_smi=smi,
+               seconds=time.perf_counter() - t_phase)
+    emit("main_path_server", **out)
+    return out
+
+
 def phase_main_path_hnsw(torch, device: str, corpus, queries, truth, batch: int,
                          n_seq: int, n_threads: int, rounds: int, ef: int = 64, then=None):
     """HNSW: `DEFINE INDEX … HNSW … EFC 64` queried with `<|10,64|>`. The
@@ -2196,6 +2465,25 @@ def ft_postings(n_docs: int, seed: int = 7):
     return indptr, dids, tfs, lens
 
 
+def many_term_postings(n_terms: int = 300, n_docs: int = 4096, seed: int = 17):
+    """Postings for K9's match past the terms it takes by value: n_terms
+    terms over n_docs documents, each term's list the same 300 documents
+    (which so hold every term, spread over the did range) and a share of
+    its own (2-50%, drawn a term), tf 1-3, lengths 0-30. The rarest list
+    spans two tiles and every query over these terms has matches in each.
+    -> (indptr, dids, tfs, lens)"""
+    rng = np.random.default_rng(seed)
+    core = np.sort(rng.choice(n_docs, 300, replace=False))
+    lists = [np.union1d(core, np.nonzero(rng.random(n_docs) < p)[0])
+             for p in rng.uniform(0.02, 0.5, n_terms)]
+    indptr = np.zeros(n_terms + 1, dtype=np.int64)
+    np.cumsum([len(x) for x in lists], out=indptr[1:])
+    dids = np.concatenate(lists).astype(np.int64)
+    tfs = rng.integers(1, 4, len(dids)).astype(np.float32)
+    lens = rng.integers(0, 31, n_docs).astype(np.float32)
+    return indptr, dids, tfs, lens
+
+
 def search_order(indptr, tids):
     """FtMirror.search's term order: rarest first, ties in query order."""
     return sorted(dict.fromkeys(int(t) for t in tids), key=lambda t: indptr[t + 1] - indptr[t])
@@ -2227,10 +2515,11 @@ def phase_bm25_match(torch):
     """K9's match (bm25_match_scores) against its plain version on the
     card, over config 3's postings (ft_postings) on the card: T = 1, 2, 3
     and 8; rarest lists of one did (the largest), one tile and many tiles;
-    empty and full intersections; stats_override df values. The dids must
-    be equal and the scores bit-equal, both to the plain version's and to
-    bm25_scores' on the same tf rows, and the look-back state zero after.
-    Then its times at config 3's median query and the engine's per-query
+    empty and full intersections; stats_override df values; then T = 256,
+    257 and 300 over many_term_postings (past 256 the terms reach the
+    kernel from the card). The dids must be equal and the scores
+    bit-equal, both to the plain version's and to bm25_scores' on the same
+    tf rows, and the look-back state zero after. Then its times at config 3's median query and the engine's per-query
     paths (the match; the old host AND-match + uploads + bm25_scores +
     download; the host AND-match + the numpy twin) by candidate count."""
     from surrealdb_tpu_torch import cnf
@@ -2264,10 +2553,9 @@ def phase_bm25_match(torch):
         ("T2_stats_override", list(med), [400_000.0, 12.5]),
     ]
     err, checks = 0.0, []
-    for label, terms, odf in cases:
-        tids = search_order(indptr, terms)
-        df = np.array(odf or [indptr[t + 1] - indptr[t] for t in tids], dtype=np.float32)
-        cdc, ctl = (np.float32(3e6), np.float32(36_000_001.0)) if odf else (dc, tl)
+
+    def check(label, post, arrays, tids, df, cdc, ctl):
+        indptr, dids, tfs, _lens = arrays
         got_d, got_s = B.bm25_match_scores(post, tids, df, cdc, ctl)
         want_d, want_s = B.bm25_match_scores_plain(post, tids, df, cdc, ctl)
         host_d = host_and(indptr, dids, tids)
@@ -2283,7 +2571,6 @@ def phase_bm25_match(torch):
         state_zero = not bool(B.match_scratch(dev).state.any())
         e = float(np.abs(got_s - want_s).max()) if got_s.size and got_d.size == want_d.size \
             else 0.0
-        err = max(err, e)
         checks.append(dict(case=label, t=len(tids), rarest=int(indptr[tids[0] + 1]
                                                                - indptr[tids[0]]),
                            matches=int(got_d.size), exact=ok, bm25_scores_bits=same_bits,
@@ -2291,10 +2578,31 @@ def phase_bm25_match(torch):
         emit("bm25_match_check", **checks[-1], max_abs_err=e)
         require(ok and same_bits and state_zero,
                 f"bm25_match_scores {label} disagrees with its plain version")
+        return got_d, e
+
+    for label, terms, odf in cases:
+        tids = search_order(indptr, terms)
+        df = np.array(odf or [indptr[t + 1] - indptr[t] for t in tids], dtype=np.float32)
+        cdc, ctl = (np.float32(3e6), np.float32(36_000_001.0)) if odf else (dc, tl)
+        got_d, e = check(label, post, (indptr, dids, tfs, lens), tids, df, cdc, ctl)
+        err = max(err, e)
         if label == "T2_empty":
             require(got_d.size == 0, "the even and odd lists intersect")
         if label in ("T2_full", "T1_every_doc"):
             require(got_d.size == indptr[tids[0] + 1] - indptr[tids[0]], f"{label} lost dids")
+    # past the 256 terms a launch takes by value (the scratch's (tid, df)
+    # pairs on the card): 256, 257 and 300 terms over many_term_postings,
+    # whose 300 documents hold every term
+    many = many_term_postings()
+    mpost = B.upload_postings(*many, dev)
+    for n in (256, 257, 300):
+        tids = search_order(many[0], list(range(n)))
+        df = np.array([many[0][t + 1] - many[0][t] for t in tids], dtype=np.float32)
+        got_d, e = check(f"T{n}_many_terms", mpost, many, tids, df, np.float32(4096),
+                         np.float32(float(many[3].sum())))
+        err = max(err, e)
+        require(got_d.size >= 300, f"T{n}_many_terms lost the documents holding every term")
+    del mpost
     # times at config 3's median query
     tids = search_order(indptr, med)
     df = np.array([indptr[t + 1] - indptr[t] for t in tids], dtype=np.float32)
@@ -3972,6 +4280,8 @@ def main(argv=None) -> int:
                     help="rows of phase 12 (main_path_file): a multiple of 65,536 up to 2^20")
     ap.add_argument("--file-only", action="store_true",
                     help="only phase 12 (main_path_file), at --file-rows")
+    ap.add_argument("--server-only", action="store_true",
+                    help="only phase 3's MTREE store and main_path_server on it")
     # phase 12's child process (file_child); not for callers
     ap.add_argument("--file-child", help=argparse.SUPPRESS)
     ap.add_argument("--file-dim", type=int, default=DIM, help=argparse.SUPPRESS)
@@ -3997,8 +4307,14 @@ def main(argv=None) -> int:
         truth = knn_ground_truth(corpus, queries, 10)
         mesh_paths = MeshPaths(torch, "cpu", queries, truth, corpus, n_seq=4, n_threads=8,
                                rounds=2)
+
+        def server_then_mesh(ds, results, out):
+            return (phase_main_path_server(torch, "cpu", ds, queries, truth, results, out, None,
+                                           n_seq=4, n_threads=8, rounds=2),
+                    mesh_paths.mtree(ds, results, out))
+
         phase_main_path(torch, "cpu", corpus, queries, truth, batch=1000,
-                        n_seq=4, n_threads=8, rounds=2, then=mesh_paths.mtree)
+                        n_seq=4, n_threads=8, rounds=2, then=server_then_mesh)
         phase_main_path_hnsw(torch, "cpu", corpus, queries, truth, batch=1000,
                              n_seq=4, n_threads=8, rounds=2, then=mesh_paths.hnsw)
         phase_dryrun_mesh(torch, "cpu")
@@ -4028,12 +4344,22 @@ def main(argv=None) -> int:
         # gen_corpus(rows) is then the first rows of phase 3's corpus
         ap.error("--file-rows must be a multiple of 65,536 up to 2^20")
     t_all = time.perf_counter()
-    if args.multicard or args.ml_only or args.file_only:
+    if args.multicard or args.ml_only or args.file_only or args.server_only:
         try:
             smi = phase_environment(torch)
             if args.ml_only:
                 phase_ml_kernels(torch)
                 phase_ml_paths(torch)
+            elif args.server_only:
+                corpus = gen_corpus(full, DIM)
+                queries = make_queries(corpus, 24 + 32 * 2, 42)
+                truth = knn_ground_truth(corpus, queries, 10)
+                phase_main_path(
+                    torch, "cuda", corpus, queries, truth, batch=20_000, n_seq=24,
+                    n_threads=32, rounds=2,
+                    then=lambda ds, results, out: phase_main_path_server(
+                        torch, "cuda", ds, queries, truth, results, out, smi, n_seq=24,
+                        n_threads=32, rounds=2))
             elif args.file_only:
                 corpus = gen_corpus(full, DIM)
                 queries = make_queries(corpus, 24 + 32 * 2, 42)
@@ -4068,12 +4394,18 @@ def main(argv=None) -> int:
             corpus[: args.rows], queries, 10)
         file_truth = truth if args.file_rows == full else knn_ground_truth(
             corpus[: args.file_rows], queries, 10)
+        mesh_mtree = MeshPaths(torch, "cuda", queries, mtree_truth, corpus, n_seq=24,
+                               n_threads=32, rounds=2).mtree
+
+        def server_then_mesh(ds, results, out):
+            return (phase_main_path_server(torch, "cuda", ds, queries, mtree_truth, results, out,
+                                           smi, n_seq=24, n_threads=32, rounds=2),
+                    mesh_mtree(ds, results, out))
+
         main = phase_main_path(
             torch, "cuda", corpus[: args.rows], queries, mtree_truth, batch=20_000, n_seq=24,
-            n_threads=32, rounds=2,
-            then=MeshPaths(torch, "cuda", queries, mtree_truth, corpus, n_seq=24,
-                           n_threads=32, rounds=2).mtree)
-        mesh_a = main.pop("then")
+            n_threads=32, rounds=2, then=server_then_mesh)
+        server, mesh_a = main.pop("then")
         gc.collect()
         hnsw = phase_main_path_hnsw(
             torch, "cuda", corpus, queries, truth, batch=20_000, n_seq=24, n_threads=32,
@@ -4094,6 +4426,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         ml_k = phase_ml_kernels(torch)
         dry = phase_dryrun_mesh(torch, "cuda")
+        emit("server_seconds", main_path_server=server["seconds"])
         emit("mesh_seconds", main_path_mesh_mtree=mesh_a["seconds"],
              main_path_mesh_hnsw=mesh_b["seconds"],
              mesh_kernels=mesh_a["kernels"]["seconds"] + mesh_b["kernels"]["seconds"]

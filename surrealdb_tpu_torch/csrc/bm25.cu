@@ -39,11 +39,20 @@
 //   missing drops out, and a tile with no live thread stops;
 // - the matches take their ranks in one pass (lookback.cuh: block scan,
 //   decoupled look-back over the tiles), and the last block writes the count.
+// The terms come by value (a 2 KB MatchTerms parameter) up to MS_MAX_T;
+// past that the call copies them once into a (tid, df) array on the card
+// (the caller's scratch) and the kernel reads them there. Either way the
+// idf values are staged in shared memory IDF_CHUNK terms at a time, as the
+// terms are reached, and the sum runs over the terms in the same order, so
+// a query of up to MS_MAX_T terms gives the bits it gave by value alone.
 // What bounds it: reading the rarest list and the other lists' windows
 // (bytes), a few hundred KB a query; in practice its one launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <vector>
 
 #include "lookback.cuh"
 
@@ -105,13 +114,31 @@ bm25_kernel(const TF* __restrict__ tf, const float* __restrict__ df,
 
 constexpr int MS_THREADS = 256;  // dids of the rarest list a tile, one a thread
 constexpr int MS_STAGE = 2048;   // dids of another list's window staged a step
-constexpr int MS_MAX_T = 256;    // distinct query terms a launch
+constexpr int MS_MAX_T = 256;    // distinct query terms passed by value
 
 // the query's terms, rarest first, passed by value (2 KB of parameters)
 struct MatchTerms {
   int tid[MS_MAX_T];
   float df[MS_MAX_T];
 };
+
+// term j's id and df: from the parameter, or from the card when the query
+// has more than MS_MAX_T terms (`dterms`: (tid, df bits) a term)
+__device__ __forceinline__ int term_tid(const MatchTerms& terms, const int2* dterms, int j) {
+  return dterms ? dterms[j].x : terms.tid[j];
+}
+
+__device__ __forceinline__ float term_df(const MatchTerms& terms, const int2* dterms, int j) {
+  return dterms ? __int_as_float(dterms[j].y) : terms.df[j];
+}
+
+// idf[0, ...) = the idf values of terms c0 .. c0 + IDF_CHUNK (at most t)
+__device__ __forceinline__ void stage_idf(float* idf, const MatchTerms& terms,
+                                          const int2* dterms, int c0, int t, float nd) {
+  const int cn = min(IDF_CHUNK, t - c0);
+  for (int j = threadIdx.x; j < cn; j += MS_THREADS)
+    idf[j] = bm25_idf(nd, term_df(terms, dterms, c0 + j));
+}
 
 // The position in a[lo, hi) of the first element >= key (upper: > key), by
 // one warp: each round splits the range into 32 parts and keeps the part
@@ -147,18 +174,19 @@ __device__ __forceinline__ void stage_dids(int* stage, const int* __restrict__ a
 __global__ void __launch_bounds__(MS_THREADS)
 bm25_match_kernel(const long long* __restrict__ indptr, const int* __restrict__ dids,
                   const float* __restrict__ tfs, const float* __restrict__ doc_len,
-                  MatchTerms terms, int t, float doc_count, float total_len, float k1, float b,
-                  float k1p1, float one_minus_b, int tiles, unsigned long long* state,
-                  int2* __restrict__ out) {
-  __shared__ float idf[MS_MAX_T];
+                  MatchTerms terms, const int2* __restrict__ dterms, int t, float doc_count,
+                  float total_len, float k1, float b, float k1p1, float one_minus_b, int tiles,
+                  unsigned long long* state, int2* __restrict__ out) {
+  __shared__ float idf[IDF_CHUNK];  // terms c0 .. c0 + IDF_CHUNK, c0 = j rounded down
   __shared__ __align__(16) int stage[MS_STAGE + 8];
   __shared__ long long win[2];
   __shared__ int span[2];  // the tile's first and last did
   const int tile = lb_tile(state);
   const float nd = fmaxf(doc_count, 1.0f);
   const float avg_len = bm25_avg_len(nd, total_len);
-  for (int j = threadIdx.x; j < t; j += MS_THREADS) idf[j] = bm25_idf(nd, terms.df[j]);
-  const long long s0 = indptr[terms.tid[0]], n0 = indptr[terms.tid[0] + 1] - s0;
+  stage_idf(idf, terms, dterms, 0, t, nd);
+  const int tid0 = term_tid(terms, dterms, 0);
+  const long long s0 = indptr[tid0], n0 = indptr[tid0 + 1] - s0;
   const long long first = (long long)tile * MS_THREADS, i = first + threadIdx.x;
   bool live = i < n0;
   const int d = live ? dids[s0 + i] : 0;
@@ -171,7 +199,11 @@ bm25_match_kernel(const long long* __restrict__ indptr, const int* __restrict__ 
   float acc = 0.0f, kn = 0.0f;
   for (int j = 1; j < t; ++j) {
     if (__syncthreads_count(live) == 0) break;  // the whole tile is out
-    const long long sj = indptr[terms.tid[j]], ej = indptr[terms.tid[j] + 1];
+    // the next chunk's idf values; the barrier above ends the last chunk's
+    // reads, the one after the window search orders these writes
+    if (j % IDF_CHUNK == 0) stage_idf(idf, terms, dterms, j, t, nd);
+    const int tj = term_tid(terms, dterms, j);
+    const long long sj = indptr[tj], ej = indptr[tj + 1];
     const int warp = threadIdx.x >> 5;
     if (warp < 2) {
       const long long r = warp_bound(dids, sj, ej, span[warp], warp == 1);
@@ -205,7 +237,7 @@ bm25_match_kernel(const long long* __restrict__ indptr, const int* __restrict__ 
           kn = bm25_kn(doc_len[d], avg_len, k1, b, one_minus_b);
           acc = bm25_term(idf[0], f0, k1p1, kn);
         }
-        acc = __fadd_rn(acc, bm25_term(idf[j], tfs[pos], k1p1, kn));
+        acc = __fadd_rn(acc, bm25_term(idf[j % IDF_CHUNK], tfs[pos], k1p1, kn));
       }
     }
   }
@@ -247,7 +279,7 @@ int bm25_scores(const void* tf, int tf_int, const void* df, const void* doc_len,
   return (int)cudaGetLastError();
 }
 
-int bm25_match_max_terms() { return MS_MAX_T; }
+int bm25_match_by_value_terms() { return MS_MAX_T; }  // more go through `dterms`
 
 // The state entries (unsigned long long) bm25_match_scores needs for a
 // rarest list of n0 dids.
@@ -256,8 +288,10 @@ long long bm25_match_state_entries(long long n0) { return 2 + (n0 + MS_THREADS -
 // K9, the match. Postings on the card: indptr [terms + 1] int64, dids int32
 // (padded by 4 past its last posting), tfs f32, doc_len f32 (one a did).
 // tids / df: the query's t terms on the host, rarest first, each list
-// non-empty (n0 = the first's length). state: bm25_match_state_entries(n0)
-// zeroed entries, left zeroed; out: 1 + n0 int2 on the card. One launch,
+// non-empty (n0 = the first's length). Up to MS_MAX_T terms go by value;
+// past that they are copied (one copy, before the launch) into `dterms`,
+// t int2 on the card. state: bm25_match_state_entries(n0) zeroed entries,
+// left zeroed; out: 1 + n0 int2 on the card. One launch,
 // then the count and the first min(count, first) matches are copied into
 // `host` (pinned, 1 + first int2) and the stream is synchronised; matches
 // past `first` follow in a second copy (host then holds 1 + n0). Returns
@@ -265,21 +299,37 @@ long long bm25_match_state_entries(long long n0) { return 2 + (n0 + MS_THREADS -
 long long bm25_match_scores(const void* indptr, const void* dids, const void* tfs,
                             const void* doc_len, const int* tids, const float* df, int t,
                             long long n0, float doc_count, float total_len, float k1, float b,
-                            float k1p1, float one_minus_b, void* state, void* out, void* host,
-                            long long first, void* stream) {
-  if (t <= 0 || t > MS_MAX_T || n0 <= 0 || first < 0) return -(long long)cudaErrorInvalidValue;
+                            float k1p1, float one_minus_b, void* dterms, void* state, void* out,
+                            void* host, long long first, void* stream) {
+  if (t <= 0 || n0 <= 0 || first < 0 || (t > MS_MAX_T && dterms == nullptr))
+    return -(long long)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   MatchTerms terms;
-  for (int j = 0; j < t; ++j) {
-    terms.tid[j] = tids[j];
-    terms.df[j] = df[j];
+  cudaError_t e;
+  if (t <= MS_MAX_T) {
+    for (int j = 0; j < t; ++j) {
+      terms.tid[j] = tids[j];
+      terms.df[j] = df[j];
+    }
+    dterms = nullptr;
+  } else {
+    // from pageable memory: the copy has read `pairs` when it returns
+    std::vector<int2> pairs((size_t)t);
+    for (int j = 0; j < t; ++j) {
+      int bits;
+      memcpy(&bits, df + j, sizeof bits);
+      pairs[(size_t)j] = make_int2(tids[j], bits);
+    }
+    if ((e = cudaMemcpyAsync(dterms, pairs.data(), (size_t)t * sizeof(int2),
+                             cudaMemcpyHostToDevice, s)) != cudaSuccess)
+      return -(long long)e;
   }
   const long long tiles = (n0 + MS_THREADS - 1) / MS_THREADS;
   bm25_match_kernel<<<(unsigned)tiles, MS_THREADS, 0, s>>>(
       (const long long*)indptr, (const int*)dids, (const float*)tfs, (const float*)doc_len,
-      terms, t, doc_count, total_len, k1, b, k1p1, one_minus_b, (int)tiles,
-      (unsigned long long*)state, (int2*)out);
-  cudaError_t e = cudaGetLastError();
+      terms, (const int2*)dterms, t, doc_count, total_len, k1, b, k1p1, one_minus_b,
+      (int)tiles, (unsigned long long*)state, (int2*)out);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return -(long long)e;
   if (host == nullptr) return 0;  // the launch alone (timing): the count stays in out[0]
   const long long head = 1 + (first < n0 ? first : n0);

@@ -43,7 +43,7 @@ inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 typedef int cudaError_t;
 typedef struct CUstream_st* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-enum cudaMemcpyKind { cudaMemcpyDeviceToHost = 2 };
+enum cudaMemcpyKind { cudaMemcpyHostToDevice = 1, cudaMemcpyDeviceToHost = 2 };
 enum { cudaDevAttrMultiProcessorCount = 16 };
 inline cudaError_t cudaGetLastError() { return 0; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
@@ -58,6 +58,7 @@ struct __nv_bfloat16 { unsigned short v; };
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
 inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
+inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 inline float __bfloat162float(__nv_bfloat16 b) { return __uint_as_float(((unsigned)b.v) << 16); }
 // IEEE single-precision steps, rounded each on its own (the host compiler
 // contracts nothing under -std=c++20)

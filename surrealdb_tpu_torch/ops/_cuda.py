@@ -90,9 +90,9 @@ _SIGNATURES = {
     "bm25_match_scores": (ctypes.c_longlong, [_P, _P, _P, _P, _P, _P, ctypes.c_int,
                                               ctypes.c_longlong, ctypes.c_float, ctypes.c_float,
                                               ctypes.c_float, ctypes.c_float, ctypes.c_float,
-                                              ctypes.c_float, _P, _P, _P, ctypes.c_longlong,
-                                              _P]),
-    "bm25_match_max_terms": (ctypes.c_int, []),
+                                              ctypes.c_float, _P, _P, _P, _P,
+                                              ctypes.c_longlong, _P]),
+    "bm25_match_by_value_terms": (ctypes.c_int, []),
     "bm25_match_state_entries": (ctypes.c_longlong, [ctypes.c_longlong]),
     "ml_linear": (ctypes.c_int, [_P, ctypes.c_int, _P, _P, ctypes.c_longlong, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_int, _P, _P]),

@@ -46,7 +46,9 @@ SCORES = LaunchCounter("bm25_scores")
 MATCH = LaunchCounter("bm25_match_scores")
 KERNELS = (SCORES, MATCH)
 
-MATCH_MAX_TERMS = 256  # csrc/bm25.cu MS_MAX_T: distinct terms a match launch takes
+# csrc/bm25.cu MS_MAX_T: terms a match launch takes by value; a longer query's
+# go through MatchScratch.terms on the card
+MATCH_BY_VALUE = 256
 MATCH_FIRST = 4096  # matches that come down with the count in the first copy
 
 
@@ -277,18 +279,23 @@ class MatchScratch:
     """bm25_match_scores' buffers on one (device, stream), grown with the
     rarest list: the look-back state (zero between calls; a failed call
     marks it `dirty` and the next one zeroes it), the output pairs on the
-    device, and the host buffer the count and matches come down to (pinned
-    on a card). `lock` keeps one call's launch and download together."""
+    device, the host buffer the count and matches come down to (pinned on a
+    card), and the (tid, df) pairs of a query of more than MATCH_BY_VALUE
+    terms on the device (grown with the terms, written by one copy a call).
+    `lock` keeps one call's launch and download together."""
 
     def __init__(self, device):
         self.device = device
+        self.terms = torch.empty(0, dtype=torch.int32, device=device)
         self.state = torch.zeros(0, dtype=torch.int64, device=device)
         self.out = torch.empty(0, dtype=torch.int32, device=device)
         self.host = torch.empty(0, dtype=torch.int32)
         self.dirty = False
         self.lock = threading.Lock()
 
-    def ensure(self, lib, n0: int) -> None:
+    def ensure(self, lib, n0: int, t: int) -> None:
+        if t > MATCH_BY_VALUE and self.terms.numel() < 2 * t:
+            self.terms = torch.empty(2 * t, dtype=torch.int32, device=self.device)
         states = int(lib.bm25_match_state_entries(n0))
         if self.state.numel() < states:
             self.state = torch.zeros(states, dtype=torch.int64, device=self.device)
@@ -325,20 +332,21 @@ def _launch_match(lib, postings: Postings, tids, df, doc_count, total_len, k1, b
     scores f32) numpy; with download=False the launch alone (a timing's),
     -> None."""
     t = len(tids)
-    if not 1 <= t <= MATCH_MAX_TERMS:
-        raise ValueError(f"{t} distinct terms: a match launch takes 1..{MATCH_MAX_TERMS}")
+    if t < 1:
+        raise ValueError("a match launch takes at least one term")
     n0 = postings.length(tids[0])
     if n0 <= 0:
         raise ValueError("the rarest term has no postings")
     tid_a = np.ascontiguousarray(tids, dtype=np.int32)
     df_a = np.ascontiguousarray(df, dtype=np.float32)
     with scratch.lock:
-        scratch.ensure(lib, n0)
+        scratch.ensure(lib, n0, t)
         count = lib.bm25_match_scores(
             postings.indptr.data_ptr(), postings.dids.data_ptr(), postings.tfs.data_ptr(),
             postings.doc_len.data_ptr(), tid_a.ctypes.data, df_a.ctypes.data, t, n0,
             _f32(doc_count), _f32(total_len), _f32(k1), _f32(b), _f32(k1 + 1.0),
-            _f32(1.0 - b), scratch.state.data_ptr(), scratch.out.data_ptr(),
+            _f32(1.0 - b), scratch.terms.data_ptr() if t > MATCH_BY_VALUE else None,
+            scratch.state.data_ptr(), scratch.out.data_ptr(),
             scratch.host.data_ptr() if download else None, MATCH_FIRST, stream,
         )
         if count < 0:
@@ -360,8 +368,9 @@ def bm25_match_scores(postings: Postings, tids: Sequence[int], df, doc_count, to
     that list's ascending order, each scored over the terms left to right.
 
     tids: the query's distinct term ids rarest first, ties in query order
-    (FtMirror.search's order), each list non-empty, at most
-    MATCH_MAX_TERMS; df: their document frequencies (the index's or a
+    (FtMirror.search's order), each list non-empty, any number of them
+    (past MATCH_BY_VALUE they reach the kernel through the scratch on the
+    card); df: their document frequencies (the index's or a
     stats_override's); doc_count, total_len taken as f32. The scores are
     bm25_scores' bits for the same tf rows. Postings on the CPU run the
     plain version; on a card a failed launch raises."""

@@ -395,6 +395,22 @@ def collect_node_metrics(ds=None) -> None:
         bg.export_gauges()
     except Exception:  # noqa: BLE001 — metrics must never fail a scrape
         inc("scrape_section_errors", section="bg_gauges")
+    # network plane: admission queue depths + write-queue backpressure, so
+    # a scrape shows where bytes and requests are piling up RIGHT NOW
+    try:
+        from surrealdb_tpu_torch.net import loop as _netloop
+        from surrealdb_tpu_torch.net import qos as _netqos
+
+        nd = _netloop.queue_depths()
+        gauge_set("net_open_connections", nd["conns"])
+        gauge_set("net_write_queued_bytes", nd["write_queued_bytes"])
+        qd = _netqos.queue_depths()
+        # aggregate series only (label cardinality stays bounded); the
+        # per-tenant breakdown lives in the bundle's `net` section
+        gauge_set("net_admission_queued", qd["queued"])
+        gauge_set("net_admission_inflight", qd["inflight"])
+    except Exception:  # noqa: BLE001 — metrics must never fail a scrape
+        inc("scrape_section_errors", section="net")
     if ds is not None:
         try:
             for subsystem, nbytes in mirror_memory_bytes(ds).items():

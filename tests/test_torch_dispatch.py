@@ -4,8 +4,11 @@ class. The reference retries on XLA's transient markers (remote compile
 500s, RESOURCE_EXHAUSTED, UNAVAILABLE); the port retries only on
 `torch.cuda.OutOfMemoryError` and the fault injector's transient error, so
 each twin raises the card's out-of-memory error where its reference case
-raises a marker string, and checks the same bisected retry."""
+raises a marker string, and checks the same bisected retry (and, for
+tests/test_telemetry_obs.py's two retry cases, the cause label on a
+served /metrics)."""
 
+import re
 import threading
 import time
 
@@ -14,6 +17,17 @@ import torch
 
 from surrealdb_tpu_torch import cnf
 from surrealdb_tpu_torch.dbs.dispatch import DispatchQueue
+
+
+# one exposition sample, name{labels} value, and a TYPE line, as
+# tests/test_telemetry_obs.py checks them
+_SAMPLE_RE = re.compile(
+    r"^[a-zA-Z_:][a-zA-Z0-9_:]*"
+    r"(\{[a-zA-Z_][a-zA-Z0-9_]*=\"(?:[^\"\\\n]|\\[\\\"n])*\""
+    r"(,[a-zA-Z_][a-zA-Z0-9_]*=\"(?:[^\"\\\n]|\\[\\\"n])*\")*\})?"
+    r" (?:[0-9.eE+-]+|\+Inf|-Inf|NaN)$"
+)
+_TYPE_RE = re.compile(r"^# TYPE [a-zA-Z_:][a-zA-Z0-9_:]* (counter|gauge|histogram)$")
 
 
 def _oom(msg="CUDA out of memory. Tried to allocate 2.00 GiB"):
@@ -186,3 +200,83 @@ def test_collect_phase_transient_failure_split_retried(no_backoff):
     results, errors = _coalesce_batch(q, 4, runner)
     assert errors == {} and results == {i: i * 10 for i in range(1, 5)}
     assert q.stats()["splits"] == 1
+
+
+def test_dispatch_transient_retry_counted_by_cause():
+    """tests/test_telemetry_obs.py's case: the retry is counted under its
+    cause, which the port labels by the exception class."""
+    from surrealdb_tpu_torch import telemetry
+
+    telemetry.reset()
+    q = DispatchQueue()
+    calls = {"n": 0}
+
+    def flaky(payloads):
+        calls["n"] += 1
+        if calls["n"] == 1:
+            raise _oom()
+        return [p * 2 for p in payloads]
+
+    assert q.submit("k", 21, flaky) == 42
+    st = q.stats()
+    assert st["retries"] == 1 and st["failures"] == 0
+    assert telemetry.get_counter("dispatch_retries", cause="OutOfMemoryError") == 1
+    text = telemetry.render_prometheus()
+    assert 'surreal_dispatch_retries_total{cause="OutOfMemoryError"} 1' in text
+
+
+def test_metrics_and_slow_endpoints_roundtrip(monkeypatch):
+    """tests/test_telemetry_obs.py's case on the port's server: one scrape
+    of /metrics shows the batch sizes, the cause-labelled retry, the
+    unknown RPC method and the statement durations; /slow lists the
+    CREATE."""
+    import http.client
+    import json
+
+    from surrealdb_tpu_torch import telemetry
+    from surrealdb_tpu_torch.net.server import serve
+
+    monkeypatch.setattr(cnf, "SLOW_QUERY_THRESHOLD_SECS", 0.0)
+    telemetry.reset()
+    q = DispatchQueue()
+    calls = {"n": 0}
+
+    def flaky(ps):
+        calls["n"] += 1
+        if calls["n"] == 1:
+            raise _oom()
+        return list(ps)
+
+    q.submit("k", 1, flaky)
+    srv = serve("memory", port=0, auth_enabled=False, device="cpu").start_background()
+    try:
+        conn = http.client.HTTPConnection(srv.host, srv.port)
+        hdrs = {"surreal-ns": "t", "surreal-db": "t"}
+        conn.request("POST", "/sql", "CREATE m:1 SET v = 2; SELECT * FROM m;", hdrs)
+        r = conn.getresponse()
+        r.read()
+        assert r.status == 200
+        conn.request("POST", "/rpc", json.dumps({"method": "nosuch", "params": []}),
+                     {**hdrs, "Content-Type": "application/json"})
+        conn.getresponse().read()
+        conn.request("GET", "/metrics")
+        r = conn.getresponse()
+        text = r.read().decode()
+        assert r.status == 200
+        for line in text.rstrip("\n").split("\n"):
+            assert _TYPE_RE.match(line) or _SAMPLE_RE.match(line), line
+        assert "surreal_dispatch_batch_size_bucket" in text
+        assert 'surreal_dispatch_retries_total{cause="OutOfMemoryError"} 1' in text
+        assert re.search(r'surreal_rpc_errors_total\{.*method="_unknown".*\} 1', text)
+        for kind in ("CreateStatement", "SelectStatement"):
+            assert re.search(r'surreal_statement_duration_seconds_bucket\{kind="%s",le="\+Inf"\} \d+'
+                             % kind, text)
+        conn.request("GET", "/slow")
+        r = conn.getresponse()
+        slow = json.loads(r.read())
+        assert r.status == 200 and isinstance(slow, list) and slow
+        assert any(e["kind"] == "CreateStatement" and e["error"] is None for e in slow)
+        conn.close()
+    finally:
+        srv.shutdown()
+        srv.httpd.RequestHandlerClass.ds.close()

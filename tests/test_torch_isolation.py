@@ -4,9 +4,10 @@ The subprocess drives every ported path (MTREE, HNSW through IVF, the
 graph path's count and expand branches, the full-text path, the ML
 path: a columnar scan, a batch above the device threshold and an ONNX
 import from a .surml file, the mesh path: MTREE and HNSW on an
-8-shard CPU mesh and the mesh dry run, and the embedded engine on a file
-store: FETCH, INFO FOR, SHOW CHANGES, an embedded script, tick(), export
-and a reopen) before it looks for a leak."""
+8-shard CPU mesh and the mesh dry run, the server surface: a query over
+HTTP and one over WebSocket through the SDK, and the embedded engine on a
+file store: FETCH, INFO FOR, SHOW CHANGES, an embedded script, tick(),
+export and a reopen) before it looks for a leak."""
 
 import os
 import re
@@ -102,6 +103,17 @@ assert strategies['knn_strategy{{strategy="exact-sharded"}}'] == 1, strategies
 assert strategies['knn_strategy{{strategy="ivf-sharded"}}'] >= 1, strategies
 dryrun.dryrun_multichip(8, device="cpu")
 Datastore._mesh_cache = ("unset", None)
+# the server surface: one query over HTTP /rpc and one over WebSocket,
+# each through the SDK, served from this store
+from surrealdb_tpu_torch.net.server import Server
+from surrealdb_tpu_torch.sdk import Surreal
+srv = Server(ds, port=0, auth_enabled=False).start_background()
+for url in (srv.url, srv.url.replace("http://", "ws://") + "/rpc"):
+    with Surreal(url, format="cbor") as db:
+        db.use("test", "test")
+        out = db.query("SELECT id FROM item WHERE emb <|3|> $q", {{"q": rows[1]["emb"]}})
+        assert out[-1]["status"] == "OK" and out[-1]["result"][0]["id"].id == 1, out
+srv.shutdown()
 ds.close()
 # the embedded engine's statements on a file store: FETCH, INFO FOR, SHOW
 # CHANGES, an embedded script, tick(), export, then a reopen from disk

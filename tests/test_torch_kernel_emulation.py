@@ -763,6 +763,79 @@ def test_k9_match_back_to_back_over_one_scratch(lib):
         assert not bool(sc.state.any())
 
 
+def _k9_many_terms(n):
+    """chip_smoke.py's many-term postings (300 terms, 300 documents holding
+    every one) and the first n terms in FtMirror.search's order."""
+    import chip_smoke as C
+
+    indptr, dids, tfs, lens = C.many_term_postings()
+    post = B.upload_postings(indptr, dids, tfs, lens, "cpu")
+    tids = C.search_order(indptr, list(range(n)))
+    df = np.array([indptr[t + 1] - indptr[t] for t in tids], dtype=np.float32)
+    return post, tids, df, 4096.0, float(lens.sum())
+
+
+@pytest.fixture(scope="module")
+def lib_all_terms_on_card(tmp_path_factory):
+    """bm25.cu with MS_MAX_T = 1: every query of two or more terms reads
+    its terms from the card."""
+    src = _source("bm25.cu")
+    old = "constexpr int MS_MAX_T = 256;"
+    assert src.count(old) == 1
+    return _build_emu(tmp_path_factory.mktemp("bm25_terms_on_card"),
+                      {"bm25.cu": src.replace(old, "constexpr int MS_MAX_T = 1;")})
+
+
+@pytest.mark.parametrize("n", [2, 256, 257, 300])
+def test_k9_match_past_the_terms_by_value(lib, lib_all_terms_on_card, monkeypatch, n):
+    """_launch_match with 2 and 256 distinct terms (by value) and 257 and
+    300 (through the scratch's (tid, df) pairs on the card, idf staged 256
+    at a time): the plain version's dids in its order and scores within
+    the tolerance (log1pf against torch's log1p), bit-equal to bm25_scores'
+    on the same tf rows; the same bits when every term comes from the card;
+    the look-back state zero after. Every query keeps the 300 documents
+    that hold every term, so the last chunk of terms is reached."""
+    assert B.MATCH_BY_VALUE == lib.bm25_match_by_value_terms() == 256
+    post, tids, df, dc, tl = _k9_many_terms(n)
+    (dids, scores), sc = _k9_match_emu(lib, post, tids, df, dc, tl)
+    want_d, want_s = B.bm25_match_scores_plain(post, tids, df, dc, tl)
+    np.testing.assert_array_equal(dids, want_d)
+    assert dids.size >= 300
+    np.testing.assert_allclose(scores, want_s, rtol=1e-5, atol=1e-6)
+    assert (sc.terms.numel() >= 2 * n) == (n > 256) and not bool(sc.state.any())
+    same = _bm25_emu(lib, _k9_tf_rows(post, tids, dids), torch.from_numpy(df),
+                     post.doc_len[torch.from_numpy(dids)], dc, tl)
+    assert np.array_equal(same.numpy().view(np.int32), scores.view(np.int32))
+    monkeypatch.setattr(B, "MATCH_BY_VALUE", 1)
+    (d2, s2), _ = _k9_match_emu(lib_all_terms_on_card, post, tids, df, dc, tl)
+    np.testing.assert_array_equal(d2, dids)
+    assert np.array_equal(s2.view(np.int32), scores.view(np.int32))
+
+
+_K9_MANY_TERM_FAULTS = {
+    # the second chunk of terms scored with the first chunk's idf values
+    "no_restage": ("if (j % IDF_CHUNK == 0) stage_idf(idf, terms, dterms, j, t, nd);", ""),
+    # the terms past the first chunk read from the parameter's last slots
+    "by_value_index": ("return dterms ? dterms[j].x : terms.tid[j];",
+                       "return dterms ? dterms[j % MS_MAX_T].x : terms.tid[j];"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(_K9_MANY_TERM_FAULTS))
+def test_k9_match_many_terms_planted_fault_fails(tmp_path, fault):
+    """The 300-term case has teeth: a copy of bm25.cu with one fault in the
+    terms past the first 256 disagrees with the plain version."""
+    src = _source("bm25.cu")
+    old, new = _K9_MANY_TERM_FAULTS[fault]
+    assert src.count(old) == 1
+    bad = _build_emu(tmp_path, {"bm25.cu": src.replace(old, new)})
+    post, tids, df, dc, tl = _k9_many_terms(300)
+    (dids, scores), _ = _k9_match_emu(bad, post, tids, df, dc, tl)
+    want_d, want_s = B.bm25_match_scores_plain(post, tids, df, dc, tl)
+    assert dids.shape != want_d.shape or not np.array_equal(dids, want_d) \
+        or not np.allclose(scores, want_s, rtol=1e-5, atol=1e-6)
+
+
 _K9_MATCH_FAULTS = {
     # the window of another list ends before the tile's last did
     "window_end": ("warp_bound(dids, sj, ej, span[warp], warp == 1)",
@@ -770,7 +843,7 @@ _K9_MATCH_FAULTS = {
     # each tile ranks its matches from 0: the tiles overwrite each other
     "no_look_back": ("out[1 + before + rank]", "out[1 + 0 * before + rank]"),
     # every term scored with the rarest term's idf
-    "idf_of_the_rarest": ("bm25_term(idf[j], tfs[pos], k1p1, kn)",
+    "idf_of_the_rarest": ("bm25_term(idf[j % IDF_CHUNK], tfs[pos], k1p1, kn)",
                           "bm25_term(idf[0], tfs[pos], k1p1, kn)"),
 }
 

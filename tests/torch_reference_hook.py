@@ -5,8 +5,9 @@ starts (never by the suite's own process): it installs a `sys.meta_path`
 finder that answers `import surrealdb_tpu[.x]` with the already-imported
 `surrealdb_tpu_torch[.x]` module, so the reference's tests drive the
 port's objects. The port's entry points default to `device="cuda"`; here
-`Datastore`, `IvfState.train`, `_kmeans` and `_full_assign` are wrapped
-to default to `"cpu"`, the way the port's own CPU tests pass it. The port
+`Datastore`, `net.server.serve`, `sdk.local.LocalEngine`,
+`IvfState.train`, `_kmeans` and `_full_assign` are wrapped to default to
+`"cpu"`, the way the port's own CPU tests pass it. The port
 itself gains no knob.
 
     python tests/torch_reference_hook.py --junitxml=OUT tests/test_kvs.py ...
@@ -70,7 +71,12 @@ def install() -> None:
     from surrealdb_tpu_torch.idx import ivf
     from surrealdb_tpu_torch.kvs.ds import Datastore
 
+    from surrealdb_tpu_torch.net import server
+    from surrealdb_tpu_torch.sdk.local import LocalEngine
+
     Datastore.__init__ = _default_cpu(Datastore.__init__)
+    server.serve = _default_cpu(server.serve)
+    LocalEngine.__init__ = _default_cpu(LocalEngine.__init__)
     ivf.IvfState.train = staticmethod(_default_cpu(ivf.IvfState.train))
     ivf._kmeans = _default_cpu(ivf._kmeans)
     ivf._full_assign = _default_cpu(ivf._full_assign)
