@@ -9,6 +9,8 @@
                                            # narrow against the skinny design
     python3 chip_smoke.py --file-only      # only phase 12 (--file-rows 1048576:
                                            # at config 2's full 2^20 rows)
+    python3 chip_smoke.py --cluster-only   # only phase 13 (--cluster-rows 1048576:
+                                           # at config 2's full 2^20 rows)
     python3 chip_smoke.py --cpu-rehearsal  # tiny, on the CPU, plain versions;
                                            # exits 1 and prints no result
 
@@ -71,11 +73,11 @@ Phases, one JSON line each (or more):
    2^20 x 768 items and HNSW mirror; nothing re-ingested): bench config 5,
    `SELECT VALUE ml::scorer<1>(emb) FROM item` with a linear 768 -> 1
    (warm-up, 5 timed scans, one under cnf.TPU_DISABLE), an MLP 768 -> 128
-   relu -> 10 softmax over the same scan, and the row path `... WHERE id <
-   item:16384`; every answer equals a numpy f64 forward over the bf16
-   features in key order, each scan is one dispatch, and K10's launches are
-   forwards x layers (+ one softmax); cProfile breakdowns and the busy share
-   of a scan;
+   relu -> 10 softmax over the same scan, and the row path `... FROM
+   item:0..16384` (a record range); every answer equals a numpy f64
+   forward over the bf16 features in key order, each scan is one dispatch,
+   and K10's launches are forwards x layers (+ one softmax); cProfile
+   breakdowns and the busy share of a scan;
 10. ml_kernels: K10 ml_linear (config 5's 2^20 x 768 bf16 -> 1, f32, the
    MLP's layers, config 5's width to 2, 10 and 16 outputs, the row path's
    shapes, a ragged M) and ml_softmax against their plain versions, with
@@ -113,6 +115,20 @@ Phases, one JSON line each (or more):
    and time_to_recover_s (their sum), p50 and qps after recovery, the busy
    share of 8 queries and peak device memory, beside the card's name and
    power limit.
+13. main_path_cluster: config 2's kNN from a 3-node RF-2 cluster (README.md
+   "Cluster mode": 64 vnodes, a shared secret), each node a Datastore on
+   the card behind net.server.serve(..., cluster_config=...) in this
+   process. Phase 12's rows (2^18; --cluster-rows) go into each node's own
+   store by the ring's placement (the counts must sum to RF x rows and
+   match the ring); fresh rows through n1's write path are read back from
+   both replicas; the 88 queries through n1's executor (24 sequential, 32
+   clients x 2) and 24 over WebSocket must reach every node's K2
+   (`exact-device`; launches = the nodes' dispatched tiles, no other
+   kernel), recall@10 >= 0.99 and ids equal phase 12's single node's up to
+   ties; a kept trace gives the coordinator's spans beside each node's;
+   then a scan, BM25 at threshold 1 (K9's match on every shard) and a
+   2-hop select against one node on the card, n3 stopped (the same answers,
+   `degraded`), and two `start --cluster` children at RF 2 of 2.
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`. Any failure exits non-zero. This
@@ -144,8 +160,12 @@ TOL = dict(rtol=1e-5, atol=1e-4)
 PROBE_K = 6  # the IVF probe's k: default_nprobe(1024 lists, ef 64)
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **kv) -> None:
-    print(json.dumps({"phase": phase, **kv}), flush=True)
+    # t_s: the script's clock, so a run's log shows where its time went
+    print(json.dumps({"phase": phase, **kv, "t_s": time.perf_counter() - T0}), flush=True)
 
 
 class SmokeFailure(Exception):
@@ -807,14 +827,22 @@ def phase_ivf_timing(torch, inputs, dim: int):
     return out
 
 
+# K3 with k above its candidate count probes this many lists (k = 4 L + 7,
+# L the longest list): the same rank merge as at the main path's nprobe of
+# 6, over two thirds of its candidates (at 6 lists those six checks took
+# 115 s of the script's 1,200 on an H100, at 4 lists 50 s)
+K3_LARGE_K_NPROBE = 4
+
+
 def check_ivf_search(torch, ivf, matrix, queries, nprobe: int):
     """K3 (the probe, ivf_rerank and the merge) against its plain version on
     the trained state: Q in {1, 8, 64}, euclidean and cosine, bf16 rows and
     an f32 copy of them, a slot_ok that masks a third of the slots, k = 10,
-    k = 200 and (bf16 rows) k above the candidate count. Ids must agree up
-    to ties at the k-th distance, misses (-1 / +inf) exactly and distances
-    within TOL; a query whose probed lists differ at a tie of the nprobe-th
-    centroid distance is counted and left out. The rerank's two modes
+    k = 200 and (bf16 rows) k above the candidate count (over
+    K3_LARGE_K_NPROBE probed lists). Ids must agree up to ties at the k-th
+    distance, misses (-1 / +inf) exactly and distances within TOL; a query
+    whose probed lists differ at a tie of the nprobe-th centroid distance
+    is counted and left out. The rerank's two modes
     (pair-major, list-major) must give the same picks bit for bit, on
     every query. The queries are fresh points of the corpus's clusters, not
     the main path's near-duplicates: close to a zero distance the sqrt
@@ -831,57 +859,61 @@ def check_ivf_search(torch, ivf, matrix, queries, nprobe: int):
     err_max, checks, probe_ties = 0.0, 0, 0
     for rows_dtype in ("bfloat16", "float32"):
         x = matrix if rows_dtype == "bfloat16" else matrix.float()
+        # k above the candidates (the rank merge) on the bf16 rows only
+        cases = [(nprobe, (10, 200))] + ([(K3_LARGE_K_NPROBE, (K3_LARGE_K_NPROBE * lmax + 7,))]
+                                         if rows_dtype == "bfloat16" else [])
         for metric in ("euclidean", "cosine"):
             for nq in (1, 8, 64):
                 q = torch.from_numpy(np.ascontiguousarray(queries[:nq], dtype=np.float32)).to(dev)
-                pd = D.pairwise_distance_plain(q, cents, metric)
-                pv, pp = D._topk_min_stable(pd, nprobe)
-                _, kp = D.knn_search(q, cents, probe_ok, metric, nprobe)
-                same = (kp.sort(1).values == pp.sort(1).values).all(1)
-                for r in (~same).nonzero()[:, 0].tolist():
-                    diff = set(kp[r].tolist()) ^ set(pp[r].tolist())
-                    kth = float(pv[r, -1])
-                    require(all(abs(float(pd[r, c]) - kth) <= TOL["atol"] + TOL["rtol"] * abs(kth)
-                                for c in diff), f"K3 probe of query {r} differs beyond a tie")
-                if rows_dtype == "bfloat16":
-                    probe_ties += int((~same).sum())
-                # k above the candidates (the rank merge) on the bf16 rows only
-                for k in (10, 200) + ((nprobe * lmax + 7,) if rows_dtype == "bfloat16" else ()):
-                    got_d, got_i = IVF._ivf_search(q, cents, list_rows, list_mask, x, slot_ok,
-                                                   metric=metric, probe_metric=metric, k=k,
-                                                   nprobe=nprobe, probe_ok=probe_ok)
-                    modes = {m: IVF._ivf_rerank(q, kp, list_rows, list_mask, x, slot_ok, metric,
-                                                k, mode=m) for m in IVF.RERANK_MODES}
-                    if dev.type == "cuda":
-                        torch.cuda.synchronize()
-                    bit_equal = all(torch.equal(v[0], got_d) and torch.equal(v[1], got_i)
-                                    for v in modes.values())
-                    want_d, want_i = IVF.ivf_search_plain(q, cents, list_rows, list_mask, x,
-                                                          slot_ok, metric, metric, k, nprobe)
-                    s = same
-                    gd, gi, wd, wi = got_d[s], got_i[s], want_d[s], want_i[s]
-                    miss = torch.isinf(wd)
-                    miss_ok = bool(torch.equal(torch.isinf(gd), miss)) and bool(
-                        torch.equal(gi[miss], wi[miss]))
-                    fin = ~miss
-                    err = float((gd[fin] - wd[fin]).abs().max()) if bool(fin.any()) else 0.0
-                    d_ok = bool(torch.allclose(gd[fin], wd[fin], **TOL))
-                    id_ok = ids_match_up_to_ties(
-                        gd.cpu().numpy(), gi.cpu().numpy(), wd.cpu().numpy(), wi.cpu().numpy(),
-                        finite_kth=True,
-                    )
-                    emit("k3_check", rows=rows_dtype, metric=metric, q=nq, k=k,
-                         k_served=int(got_d.shape[1]), nprobe=nprobe, L=lmax,
-                         probe_tie_queries=int((~s).sum()), misses=int(miss.sum()),
-                         max_abs_err=err, ids_equal=bool(torch.equal(gi, wi)),
-                         modes_bit_equal=bit_equal, ok=miss_ok and d_ok and id_ok and bit_equal)
-                    require(miss_ok and d_ok and id_ok,
-                            f"K3 {rows_dtype} {metric} Q={nq} k={k} disagrees with its plain "
-                            "version")
-                    require(bit_equal, f"K3 {rows_dtype} {metric} Q={nq} k={k}: the rerank's "
-                            "modes differ")
-                    err_max = max(err_max, err)
-                    checks += 1
+                for npr, ks in cases:
+                    pd = D.pairwise_distance_plain(q, cents, metric)
+                    pv, pp = D._topk_min_stable(pd, npr)
+                    _, kp = D.knn_search(q, cents, probe_ok, metric, npr)
+                    same = (kp.sort(1).values == pp.sort(1).values).all(1)
+                    for r in (~same).nonzero()[:, 0].tolist():
+                        diff = set(kp[r].tolist()) ^ set(pp[r].tolist())
+                        kth = float(pv[r, -1])
+                        band = TOL["atol"] + TOL["rtol"] * abs(kth)
+                        require(all(abs(float(pd[r, c]) - kth) <= band for c in diff),
+                                f"K3 probe of query {r} differs beyond a tie")
+                    if rows_dtype == "bfloat16" and npr == nprobe:
+                        probe_ties += int((~same).sum())
+                    for k in ks:
+                        got_d, got_i = IVF._ivf_search(q, cents, list_rows, list_mask, x, slot_ok,
+                                                       metric=metric, probe_metric=metric, k=k,
+                                                       nprobe=npr, probe_ok=probe_ok)
+                        modes = {m: IVF._ivf_rerank(q, kp, list_rows, list_mask, x, slot_ok, metric,
+                                                    k, mode=m) for m in IVF.RERANK_MODES}
+                        if dev.type == "cuda":
+                            torch.cuda.synchronize()
+                        bit_equal = all(torch.equal(v[0], got_d) and torch.equal(v[1], got_i)
+                                        for v in modes.values())
+                        want_d, want_i = IVF.ivf_search_plain(q, cents, list_rows, list_mask, x,
+                                                              slot_ok, metric, metric, k, npr)
+                        s = same
+                        gd, gi, wd, wi = got_d[s], got_i[s], want_d[s], want_i[s]
+                        miss = torch.isinf(wd)
+                        miss_ok = bool(torch.equal(torch.isinf(gd), miss)) and bool(
+                            torch.equal(gi[miss], wi[miss]))
+                        fin = ~miss
+                        err = float((gd[fin] - wd[fin]).abs().max()) if bool(fin.any()) else 0.0
+                        d_ok = bool(torch.allclose(gd[fin], wd[fin], **TOL))
+                        id_ok = ids_match_up_to_ties(
+                            gd.cpu().numpy(), gi.cpu().numpy(), wd.cpu().numpy(), wi.cpu().numpy(),
+                            finite_kth=True,
+                        )
+                        emit("k3_check", rows=rows_dtype, metric=metric, q=nq, k=k,
+                             k_served=int(got_d.shape[1]), nprobe=npr, L=lmax,
+                             probe_tie_queries=int((~s).sum()), misses=int(miss.sum()),
+                             max_abs_err=err, ids_equal=bool(torch.equal(gi, wi)),
+                             modes_bit_equal=bit_equal, ok=miss_ok and d_ok and id_ok and bit_equal)
+                        require(miss_ok and d_ok and id_ok,
+                                f"K3 {rows_dtype} {metric} Q={nq} k={k} disagrees with its plain "
+                                "version")
+                        require(bit_equal, f"K3 {rows_dtype} {metric} Q={nq} k={k}: the rerank's "
+                                "modes differ")
+                        err_max = max(err_max, err)
+                        checks += 1
         del x
     return err_max, checks, probe_ties
 
@@ -1222,7 +1254,8 @@ def _drive_queries(ask, n_total, n_seq, n_threads, rounds, strategy):
         seq_max_ms=max(seq_lat) * 1e3, seq_slowest=int(np.argmax(seq_lat)),
         seq_qps=n_seq / sum(seq_lat), seq_layer_mean_ms=layers,
         concurrent_clients=n_threads, rounds=rounds,
-        conc_p50_ms=statistics.median(conc_lat) * 1e3, conc_qps=n_conc / conc_wall,
+        conc_p50_ms=statistics.median(conc_lat) * 1e3 if n_conc else None,
+        conc_qps=n_conc / conc_wall if n_conc else None,
     )
 
 
@@ -1436,6 +1469,85 @@ def server_transport(torch, device, ds, url, queries, truth, base_results, rows,
                 ids_equal_queries=equal, ids_tied_queries=tied, recall_at_10=recall)
 
 
+class CliChild:
+    """`python -m surrealdb_tpu_torch start --bind 127.0.0.1:<free port>
+    <args> memory` as a child process, its stderr in a file (so it never
+    blocks on a pipe)."""
+
+    def __init__(self, args, port=None):
+        import tempfile
+
+        self.port = port or free_port()
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.err = tempfile.TemporaryFile(mode="w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "surrealdb_tpu_torch", "start", "--bind",
+             f"127.0.0.1:{self.port}", *args, "memory"],
+            cwd=here, stdout=subprocess.DEVNULL, stderr=self.err)
+
+    def stderr(self) -> str:
+        self.err.seek(0)
+        return self.err.read()[-2000:]
+
+    def wait_health(self, what: str, limit: float = 180.0) -> float:
+        """Poll /health until it answers 200 -> seconds since the start."""
+        while True:
+            try:
+                if http_call("127.0.0.1", self.port, "GET", "/health", timeout=2)[0] == 200:
+                    return time.perf_counter() - self.t0
+            except OSError:
+                pass
+            if self.proc.poll() is not None:
+                raise SmokeFailure(f"{what} exited: {self.stderr()}")
+            require(time.perf_counter() - self.t0 < limit, f"{what} did not come up in {limit} s")
+            time.sleep(0.2)
+
+    def stop(self, what: str) -> int:
+        """SIGINT, which must end the child with code 0."""
+        import signal
+
+        self.proc.send_signal(signal.SIGINT)
+        rc = self.proc.wait(timeout=60)
+        require(rc == 0, f"{what} exited {rc} on SIGINT: {self.stderr()}")
+        return rc
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        self.err.close()
+
+
+def cli_data(dim: int, rows: int, n_queries: int):
+    """The CLI checks' seeded rows and queries."""
+    data = gen_corpus(rows, dim, seed=7)
+    return data, make_queries(data, n_queries, 7)
+
+
+def sdk_insert(db, data, batch: int, what: str) -> None:
+    """data's rows (ids 0..) through an SDK connection, `batch` a statement."""
+    for i in range(0, data.shape[0], batch):
+        res = db.query("INSERT INTO item $rows RETURN NONE", {"rows": [
+            {"id": j, "emb": data[j].tolist()} for j in range(i, min(i + batch, data.shape[0]))]})
+        require(res[-1]["status"] == "OK", f"{what} ingest: {res[-1]}")
+
+
+def hold_to_exact_topk(torch, device, data, qs, got, k: int, what: str) -> None:
+    """`got` (a list of id lists) must be numpy's exact top-k of qs over
+    data as the mirror holds it (bf16 on a card), up to ties."""
+    held = data
+    if device == "cuda":  # the mirror's rows on the card are bf16
+        held = torch.from_numpy(data).bfloat16().float().numpy()
+    d = ((held[None, :, :].astype(np.float64) - qs[:, None, :]) ** 2).sum(-1)
+    want_i = np.argsort(d, axis=1, kind="stable")[:, :k]
+    got_i = np.array(got)
+    require(got_i.shape == want_i.shape, f"{what}: answers of shape {got_i.shape}")
+    require(ids_match_up_to_ties(np.take_along_axis(d, got_i, 1), got_i,
+                                 np.take_along_axis(d, want_i, 1), want_i),
+            f"{what}: answers differ from numpy's exact top-k beyond ties")
+
+
 def server_cli_child(torch, device, dim, rows, k, n_queries):
     """`python -m surrealdb_tpu_torch start` as a child process on `device`
     (the CLI's --device; cuda is its default): the SDK over HTTP signs in,
@@ -1443,49 +1555,20 @@ def server_cli_child(torch, device, dim, rows, k, n_queries):
     n_queries queries, each held to numpy's exact top-k over the rows as
     the mirror holds them (bf16 on a card) up to ties; its /metrics must
     show device memory in use on a card; SIGINT must end it with code 0."""
-    import signal
-    import tempfile
-
     from surrealdb_tpu_torch.sdk import Surreal
 
-    port = free_port()
-    here = os.path.dirname(os.path.abspath(__file__))
-    cmd = [sys.executable, "-m", "surrealdb_tpu_torch", "start", "--bind", f"127.0.0.1:{port}",
-           "--user", "root", "--pass", "root"]
-    if device != "cuda":
-        cmd += ["--device", device]
-    t0 = time.perf_counter()
-    err = tempfile.TemporaryFile(mode="w+")  # a file, so the child never blocks on a pipe
-
-    def child_err():
-        err.seek(0)
-        return err.read()[-2000:]
-
-    child = subprocess.Popen(cmd + ["memory"], cwd=here, stdout=subprocess.DEVNULL, stderr=err)
+    child = CliChild(["--user", "root", "--pass", "root"]
+                     + (["--device", device] if device != "cuda" else []))
     try:
-        while True:
-            try:
-                if http_call("127.0.0.1", port, "GET", "/health", timeout=2)[0] == 200:
-                    break
-            except OSError:
-                pass
-            if child.poll() is not None:
-                raise SmokeFailure(f"the CLI server exited: {child_err()}")
-            require(time.perf_counter() - t0 < 180, "the CLI server did not come up in 180 s")
-            time.sleep(0.2)
-        up_s = time.perf_counter() - t0
-        data = gen_corpus(rows, dim, seed=7)
-        qs = make_queries(data, n_queries, 7)
+        up_s = child.wait_health("the CLI server")
+        data, qs = cli_data(dim, rows, n_queries)
         t = time.perf_counter()
-        with Surreal(f"http://127.0.0.1:{port}", format="cbor") as db:
+        with Surreal(f"http://127.0.0.1:{child.port}", format="cbor") as db:
             db.signin(user="root", password="root")
             db.use("test", "test")
             db.query("DEFINE TABLE item SCHEMALESS; DEFINE INDEX iemb ON item FIELDS emb "
                      f"MTREE DIMENSION {dim} DIST EUCLIDEAN")
-            for i in range(0, rows, 1024):
-                res = db.query("INSERT INTO item $rows RETURN NONE", {"rows": [
-                    {"id": j, "emb": data[j].tolist()} for j in range(i, min(i + 1024, rows))]})
-                require(res[-1]["status"] == "OK", f"CLI ingest: {res[-1]}")
+            sdk_insert(db, data, 1024, "CLI")
             write_s = time.perf_counter() - t
             got, lat = [], []
             for q in qs:
@@ -1494,31 +1577,17 @@ def server_cli_child(torch, device, dim, rows, k, n_queries):
                 lat.append(time.perf_counter() - t)
                 require(res[-1]["status"] == "OK", f"CLI query: {res[-1]}")
                 got.append(result_ids(res[-1]["result"]))
-        held = data
-        if device == "cuda":  # the mirror's rows on the card are bf16
-            held = torch.from_numpy(data).bfloat16().float().numpy()
-        d = ((held[None, :, :].astype(np.float64) - qs[:, None, :]) ** 2).sum(-1)
-        want_i = np.argsort(d, axis=1, kind="stable")[:, :k]
-        got_i = np.array(got)
-        require(got_i.shape == want_i.shape, f"CLI answers of shape {got_i.shape}")
-        require(ids_match_up_to_ties(np.take_along_axis(d, got_i, 1), got_i,
-                                     np.take_along_axis(d, want_i, 1), want_i),
-                "the CLI server's answers differ from numpy's exact top-k beyond ties")
-        status, body = http_call("127.0.0.1", port, "GET", "/metrics")
+        hold_to_exact_topk(torch, device, data, qs, got, k, "the CLI server")
+        status, body = http_call("127.0.0.1", child.port, "GET", "/metrics")
         mem = metric_value(body.decode(), 'surreal_device_memory_bytes_in_use{device="0"}')
         require(status == 200 and (device != "cuda" or (mem or 0) > 0),
                 f"the CLI server's /metrics shows device memory {mem}")
-        child.send_signal(signal.SIGINT)
-        rc = child.wait(timeout=60)
-        require(rc == 0, f"the CLI server exited {rc} on SIGINT: {child_err()}")
+        rc = child.stop("the CLI server")
         return dict(rows=rows, dim=dim, device=device, up_s=up_s, write_s=write_s,
                     queries=n_queries, p50_ms=statistics.median(lat) * 1e3,
                     exact_up_to_ties=True, device_memory_bytes_in_use=mem, sigint_rc=rc)
     finally:
-        if child.poll() is None:
-            child.kill()
-            child.wait(timeout=60)
-        err.close()
+        child.close()
 
 
 def phase_main_path_server(torch, device: str, ds, queries, truth, base_results, base,
@@ -2898,7 +2967,9 @@ def phase_main_path_bm25(torch, device: str, n_docs: int, batch: int, n_seq: int
 # ------------------------------------------------------------------ ML (K10)
 ML_MLP_HIDDEN = 128  # the scan's MLP: 768 -> 128 relu -> 10 softmax
 ML_MLP_OUT = 10
-ML_ROW_IDS = 16_384  # the row path's WHERE selects ids below this
+# the row path reads the record range item:0..ML_ROW_IDS (a WHERE id <
+# item:16384 scans all 2^20 rows: ~30 s on the host)
+ML_ROW_IDS = 16_384
 ML_NARROW_WIDTHS = (2, 10, 16)  # config 5's 768 inputs to a multi-output head
 SOFTMAX_TOL = dict(rtol=0.0, atol=1e-6)
 
@@ -3205,7 +3276,7 @@ def phase_main_path_ml(torch, device: str, ds, corpus, seed: int = 5):
     ml::scorer<1>(emb) FROM item` once to warm up and 5 timed runs, once
     under cnf.TPU_DISABLE (bench.py's cpu_mode baseline), then an MLP
     (768 -> 128 relu -> 10 softmax) over the same scan, then the row path
-    `SELECT id, ml::scorer<1>(emb) AS s FROM item WHERE id < item:16384`
+    `SELECT id, ml::scorer<1>(emb) AS s FROM item:0..16384`
     (one batched forward above the 1024-row threshold). Every answer equals
     a numpy f64 forward over the features as the device holds them (bf16 on
     the card), in key order, within TOL; each scan is one dispatch and K10's
@@ -3228,7 +3299,7 @@ def phase_main_path_ml(torch, device: str, ds, corpus, seed: int = 5):
                         "activation": l["activation"]} for l in layers]})
     sql = "SELECT VALUE ml::scorer<1>(emb) FROM item"
     mlp_sql = "SELECT VALUE ml::mlp<1>(emb) FROM item"
-    rows_sql = f"SELECT id, ml::scorer<1>(emb) AS s FROM item WHERE id < item:{ML_ROW_IDS}"
+    rows_sql = f"SELECT id, ml::scorer<1>(emb) AS s FROM item:0..{ML_ROW_IDS}"
     n_rows_path = min(ML_ROW_IDS, n)
 
     t = time.perf_counter()
@@ -3400,8 +3471,19 @@ def sql_ids_up_to_ties(torch, mirror, rows, queries, got, want, k):
     by the plain K1 over the rows the card holds. Returns (queries with
     equal sets, queries that differ at a tie)."""
     from surrealdb_tpu_torch.idx.knn import _rid_key
-    from surrealdb_tpu_torch.ops import distances as D
     from surrealdb_tpu_torch.sql.value import Thing
+
+    def rows_of(ids):
+        return rows[torch.tensor([mirror.slot_of[_rid_key(Thing("item", j))] for j in ids],
+                                 device=rows.device)]
+
+    return ids_up_to_ties(torch, rows_of, queries, got, want, k)
+
+
+def ids_up_to_ties(torch, rows_of, queries, got, want, k):
+    """sql_ids_up_to_ties over rows_of(ids) -> [len(ids), D] tensor (the
+    rows as the card holds them)."""
+    from surrealdb_tpu_torch.ops import distances as D
 
     equal = tied = 0
     for i, (g, w) in enumerate(zip(got, want)):
@@ -3411,10 +3493,9 @@ def sql_ids_up_to_ties(torch, mirror, rows, queries, got, want, k):
             equal += 1
             continue
         ids = sorted(gs | ws)
-        slots = torch.tensor([mirror.slot_of[_rid_key(Thing("item", j))] for j in ids],
-                             device=rows.device)
+        held = rows_of(ids)
         q = torch.from_numpy(np.ascontiguousarray(queries[i : i + 1], dtype=np.float32))
-        d = D.pairwise_distance_plain(q.to(rows.device), rows[slots])[0].cpu().numpy()
+        d = D.pairwise_distance_plain(q.to(held.device), held)[0].cpu().numpy()
         dist = dict(zip(ids, d.tolist()))
         kth = max(dist[j] for j in ws)
         band = TOL["atol"] + TOL["rtol"] * abs(kth)
@@ -4245,6 +4326,7 @@ def phase_main_path_file(torch, device: str, rows: int, dim: int, queries, truth
             seconds=time.perf_counter() - t_phase,
         )
         emit("main_path_file", **out)
+        out["results"] = results  # the answers after recovery (main_path_cluster's twin)
         return out
     finally:
         watchdog.cancel()
@@ -4255,6 +4337,625 @@ def phase_main_path_file(torch, device: str, rows: int, dim: int, queries, truth
         if ds is not None:
             ds.close()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ------------------------------------------------------------------ cluster
+# main_path_cluster's rows in the whole run: config 2's 2^20, cut for the time
+# limit as phase 12's were, to the same rows (its answers after recovery are
+# then the single node's); the in-process load runs 3,900-5,000 768-d rows/s
+# on an H100 host
+CLUSTER_ROWS = FILE_ROWS
+CLUSTER_NODES = 3  # README.md "Cluster mode": n1-n3
+CLUSTER_RF = 2  # cnf.CLUSTER_RF's default
+CLUSTER_VNODES = 64  # the topology's default vnodes
+# the coordinator's own write path: fresh 768-d rows, 1,024 a statement (one
+# statement of 16,384 rows sends ~2,700 to a replica set in one RPC, past
+# the default 10 s cnf.CLUSTER_RPC_TIMEOUT_SECS at the CBOR codec's rate);
+# 16,384 with --cluster-only, 128 (one statement) in the whole run
+CLUSTER_WRITE_ROWS, CLUSTER_WRITE_BATCH = 16_384, 1024
+CLUSTER_PARITY_DOCS = 4096  # the small routes' sizes: documents and rows
+CLUSTER_PARITY_NODES, CLUSTER_PARITY_EDGES = 200, 400  # the 2-hop graph
+# the CLI pair's rows, written over HTTP: 256 in the whole run, 4,096 with
+# --cluster-only; 256 a statement, since a cluster INSERT answers with every
+# row it wrote (the routed statement drops RETURN NONE) and the event loop
+# closes a connection whose queued response passes cnf.NET_WRITE_BUF_MAX (4 MB)
+CLUSTER_CLI_ROWS, CLUSTER_CLI_BATCH = 4096, 256
+
+
+def cluster_up(stores, timeout: float = 60.0) -> float:
+    """Wait until every node's probes see every peer up (a peer probed
+    before it listened is marked down and probed again after a backoff);
+    -> seconds waited."""
+    t0 = time.perf_counter()
+    while True:
+        views = [ds.cluster.client.health() for ds in stores]
+        if all(h["up"] for v, ds in zip(views, stores) for nid, h in v.items()
+               if nid != ds.cluster.node_id) and not any(
+                   ds.cluster.client.down_nodes() for ds in stores):
+            return time.perf_counter() - t0
+        require(time.perf_counter() - t0 < timeout,
+                f"cluster peers not all up after {timeout} s: {views}")
+        time.sleep(0.1)
+
+
+def cluster_spans(ds, sql, queries, n: int) -> dict:
+    """n queries through the coordinator under kept traces: the mean ms of
+    the coordinator's `cluster_execute` (the statement end to end), its
+    scatter and replay `statement`, and a node's `cluster_rpc`, its remote
+    `statement` and `knn_search` (grafted spans, labelled by node)."""
+    import uuid
+
+    from surrealdb_tpu_torch import tracing
+
+    acc = {}
+    for i in range(n):
+        tid = uuid.uuid4().hex
+        with tracing.request("chip_smoke", trace_id=tid):
+            tracing.force_keep()
+            r = ds.execute(sql, vars={"q": queries[i].tolist()})
+        require(r[-1]["status"] == "OK", f"traced query {i}: {r[-1]}")
+        doc = tracing.get_trace(tid)
+        require(doc is not None, f"trace {tid} was not kept")
+        by_id = {sp["id"]: sp for sp in doc["spans"]}
+        for sp in doc["spans"]:
+            node = sp["labels"].get("node")
+            parent = by_id.get(sp["parent"], {})
+            if sp["name"] in ("cluster_execute", "cluster_scatter"):
+                key = sp["name"]
+            elif sp["name"] == "cluster_rpc":
+                key = f"cluster_rpc[{node}]"
+            elif sp["name"] == "statement" and parent.get("name") == "cluster_scatter":
+                key = "replay_statement"
+            elif sp["name"] in ("statement", "knn_search"):  # n1's own spans carry no node
+                key = f"{sp['name']}[{node or ds.cluster.node_id}]"
+            else:
+                continue
+            acc.setdefault(key, []).append(sp["dur_ms"])
+    return {key: float(np.mean(v)) for key, v in sorted(acc.items())}
+
+
+def cluster_knn_window(torch, device, stores, ask, queries, truth, k, n_seq, n_threads, rounds,
+                       n_nodes, min_recall=0.99):
+    """The cell's queries through `ask` (drive_queries' windows): every
+    query must reach every node's shard as `exact-device`, K2's launches
+    summed over the nodes equal their dispatched tiles (no other kernel),
+    recall@k >= min_recall (None: a subset of the cell's queries, whose
+    caller holds its ids to the whole window's). -> (results, timing)."""
+    from surrealdb_tpu_torch import bg, telemetry
+
+    for ds in stores:
+        require(bg.wait_idle(timeout=120, owner=id(ds)), "background tasks did not finish")
+    before = strategies()
+    div0 = telemetry.snapshot()["counters"].get("cluster_read_divergence", 0.0)
+    widths0 = [ds.dispatch.width_distribution() for ds in stores]
+    reset_launches()
+    results, timing = drive_queries(ask, queries.shape[0], n_seq, n_threads, rounds,
+                                    "exact-device")
+    # two replicas' copies of a row that differ (their distances too) count here
+    divergence = telemetry.snapshot()["counters"].get("cluster_read_divergence", 0.0) - div0
+    for ds in stores:
+        require(bg.wait_idle(timeout=120, owner=id(ds)), "background tasks did not finish")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = read_launches()
+    tiles = {ds.cluster.node_id: dispatched_tiles(ds, w0)[1] for ds, w0 in zip(stores, widths0)}
+    delta = strategy_delta(before)
+    n = queries.shape[0]
+    require(delta == {'knn_strategy{strategy="exact-device"}': float(n * n_nodes)},
+            f"strategies {delta}, expected {n} x {n_nodes} nodes exact-device")
+    if device == "cuda":
+        want = {c.name: 0 for c in kernel_counters()}
+        want.update(knn_select=sum(tiles.values()))
+        require(launches == want, f"launches {launches} for {tiles} dispatched tiles")
+    recall = recall_of(results, truth, k)
+    require(min_recall is None or recall >= min_recall, f"recall@{k} {recall} < {min_recall}")
+    return results, dict(**timing, tiles_by_node=tiles, launches=launches, strategies=delta,
+                         recall_at_10=recall, read_divergence=divergence)
+
+
+def cluster_load(stores, membership, corpus, rows: int, batch: int, k: int) -> dict:
+    """The corpus's first `rows` rows into each node's own store in process
+    (execute_local), each row on the RF nodes the ring names; a node's
+    mirror is built after its first batch so the rest reach it as deltas."""
+    from surrealdb_tpu_torch.cluster.placement import placement_key
+    from surrealdb_tpu_torch.dbs.session import Session
+
+    s = Session.owner("test", "test")
+    t = time.perf_counter()
+    owned = {ds.cluster.node_id: [] for ds in stores}
+    for j in range(rows):
+        for nid in membership.replicas_of_key(placement_key("item", j), CLUSTER_RF):
+            owned[nid].append(j)
+    place_s = time.perf_counter() - t
+    ingest_s = {}
+    for ds in stores:
+        ids = owned[ds.cluster.node_id]
+        t = time.perf_counter()
+        for i in range(0, len(ids), batch):
+            # lists, as a client's rows arrive (a record's numpy array would
+            # not compare in the coordinator's merge)
+            res = ds.execute_local("INSERT INTO item $rows RETURN NONE", s, {
+                "rows": [{"id": j, "emb": corpus[j].tolist()} for j in ids[i:i + batch]]})
+            require(res[-1]["status"] == "OK", f"{ds.cluster.node_id} ingest: {res[-1]}")
+            if i == 0:
+                res = ds.execute_local(f"SELECT id FROM item WHERE emb <|{k}|> $q", s,
+                                       {"q": corpus[ids[0]].tolist()})
+                require(res[-1]["status"] == "OK", f"{ds.cluster.node_id} mirror: {res[-1]}")
+        ingest_s[ds.cluster.node_id] = time.perf_counter() - t
+    counts = {}
+    for ds in stores:
+        res = ds.execute_local("SELECT count() FROM item GROUP ALL", s)
+        counts[ds.cluster.node_id] = res[-1]["result"][0]["count"]
+    require(counts == {nid: len(v) for nid, v in owned.items()},
+            f"rows a node {counts}, the ring assigns {({n: len(v) for n, v in owned.items()})}")
+    require(sum(counts.values()) == CLUSTER_RF * rows,
+            f"rows over the nodes {sum(counts.values())} != RF x rows {CLUSTER_RF * rows}")
+    return dict(rows_by_node=counts, placement_s=place_s, ingest_s_by_node=ingest_s,
+                ingest_rows_per_s=CLUSTER_RF * rows / sum(ingest_s.values()))
+
+
+def cluster_write_path(stores, membership, dim: int, n: int, batch: int) -> dict:
+    """n fresh rows INSERTed through n1's execute, `batch` rows a statement
+    (the coordinator's write path: every row to its RF replicas, the
+    remote ones as CBOR; a statement's rows go to a replica set in one
+    RPC, which must finish inside cnf.CLUSTER_RPC_TIMEOUT_SECS); every
+    acknowledged row is then read back from each of its replicas by
+    execute_local on that node."""
+    from surrealdb_tpu_torch.cluster.placement import placement_key
+    from surrealdb_tpu_torch.dbs.session import Session
+
+    s = Session.owner("test", "test")
+    data = gen_corpus(n, dim, seed=9)
+    run = sql_runner(stores[0])
+    run("DEFINE TABLE fresh SCHEMALESS; "
+        f"DEFINE INDEX femb ON fresh FIELDS emb MTREE DIMENSION {dim} DIST EUCLIDEAN")
+    write_s = 0.0
+    for lo in range(0, n, batch):
+        rows = [{"id": j, "emb": data[j].tolist()} for j in range(lo, min(lo + batch, n))]
+        t = time.perf_counter()
+        run("INSERT INTO fresh $rows RETURN NONE", {"rows": rows})
+        write_s += time.perf_counter() - t
+    held = {}
+    for ds in stores:
+        res = ds.execute_local("SELECT id, emb FROM fresh", s)
+        require(res[-1]["status"] == "OK", f"{ds.cluster.node_id} read-back: {res[-1]}")
+        held[ds.cluster.node_id] = {int(r["id"].id): r["emb"] for r in res[-1]["result"]}
+    copies = 0
+    for j in range(n):
+        for nid in membership.replicas_of_key(placement_key("fresh", j), CLUSTER_RF):
+            got = held[nid].get(j)
+            require(got is not None and np.array_equal(np.asarray(got, np.float32), data[j]),
+                    f"fresh:{j} acknowledged but not read back from replica {nid}")
+            copies += 1
+    require(copies == CLUSTER_RF * n and sum(len(h) for h in held.values()) == copies,
+            f"{copies} replica copies read back, {({k: len(v) for k, v in held.items()})} held")
+    run("REMOVE TABLE fresh")
+    return dict(rows=n, rows_a_statement=batch, write_s=write_s, write_rows_per_s=n / write_s,
+                replica_copies_read_back=copies)
+
+
+def _multiset(v) -> str:
+    """A graph answer as a multiset (edge ids are random a store, so two
+    stores expand hops in different orders)."""
+    if isinstance(v, list):
+        return "[" + ",".join(sorted(_multiset(x) for x in v)) + "]"
+    if isinstance(v, dict):
+        return "{" + ",".join(f"{k}:{_multiset(x)}" for k, x in sorted(v.items())) + "}"
+    return repr(v)
+
+
+def cluster_parity(torch, device, stores, membership) -> dict:
+    """The executor's other routes against one node on the same card and
+    data, at a small size: a filtered scan with ORDER/LIMIT (equal), BM25
+    two-phase at TPU_FT_ONDEVICE_THRESHOLD 1 (every node's shard runs K9's
+    match under the merged global stats: ids and order equal up to ties,
+    scores to BM25_TOL), and a 2-hop graph select (equal as multisets; no
+    kernel launched while the cluster answers it: cluster/rpc.py expands
+    pointer keys on the host; the single node's own launches are shown)."""
+    from surrealdb_tpu_torch import bg, cnf
+    from surrealdb_tpu_torch.cluster.placement import placement_key
+    from surrealdb_tpu_torch.kvs.ds import Datastore
+
+    ref = Datastore("memory", device=device)
+    both = (sql_runner(stores[0]), sql_runner(ref))
+    out = {}
+    try:
+        # a filtered scan with ORDER / LIMIT
+        rng = np.random.default_rng(21)
+        rows = [{"id": i, "band": int(i % 7), "val": int(v)}
+                for i, v in enumerate(rng.integers(0, 10_000, CLUSTER_PARITY_DOCS))]
+        for run in both:
+            run("DEFINE TABLE acct SCHEMALESS; INSERT INTO acct $rows RETURN NONE",
+                {"rows": rows})
+        scans = ("SELECT id, val FROM acct WHERE band = 3 AND val > 2000 "
+                 "ORDER BY val DESC, id LIMIT 25",
+                 "SELECT VALUE val FROM acct WHERE val < 500 ORDER BY val, id",
+                 "SELECT band, count() AS n, math::sum(val) AS tot FROM acct GROUP BY band")
+        for sql in scans:
+            a, b = (run(sql) for run in both)
+            require(a == b and len(a) > 0, f"cluster scan differs from one node: {sql}")
+        out["scan"] = dict(rows=CLUSTER_PARITY_DOCS, statements=len(scans), equal=True)
+
+        # BM25 two-phase, K9's match on every shard
+        words = None
+        for run in both:
+            run(FT_SCHEMA)
+            words, _ = ft_ingest(run, CLUSTER_PARITY_DOCS, 1024)
+        pairs = ft_query_pairs(24)
+        local = {ds.cluster.node_id: set() for ds in stores}
+        for j in range(CLUSTER_PARITY_DOCS):
+            for nid in membership.replicas_of_key(placement_key("doc", j), CLUSTER_RF):
+                local[nid].update(int(w) for w in words[j])
+        want_launches = sum(all(int(w) in held for w in pair)
+                            for held in local.values() for pair in pairs)
+        saved = cnf.TPU_FT_ONDEVICE_THRESHOLD
+        cnf.TPU_FT_ONDEVICE_THRESHOLD = 1
+        try:
+            got = []
+            reset_launches()
+            for pair in pairs:
+                got.append(both[0](FT_SQL.format(" ".join(ft_word(int(w)) for w in pair))))
+            if device == "cuda":
+                torch.cuda.synchronize()
+            launches = read_launches()
+            want_ref = [both[1](FT_SQL.format(" ".join(ft_word(int(w)) for w in pair)))
+                        for pair in pairs]
+        finally:
+            cnf.TPU_FT_ONDEVICE_THRESHOLD = saved
+        if device == "cuda":
+            want = {c.name: 0 for c in kernel_counters()}
+            want.update(bm25_match_scores=want_launches)
+            require(launches == want, f"BM25 launches {launches}, want {want_launches} "
+                                      "K9 matches (a node, a query whose words it holds)")
+        err, tied, hits = 0.0, 0, 0
+        for pair, a, b in zip(pairs, got, want_ref):
+            require(len(a) == len(b), f"BM25 {pair}: {len(a)} rows, one node {len(b)}")
+            sa = np.array([r["sc"] for r in a], np.float64)
+            sb = np.array([r["sc"] for r in b], np.float64)
+            require(np.allclose(sa, sb, **BM25_TOL), f"BM25 {pair}: scores {sa} vs {sb}")
+            err = max(err, float(np.abs(sa - sb).max(initial=0.0)))
+            for ra, rb in zip(a, b):
+                if ra["id"] != rb["id"]:
+                    require(abs(ra["sc"] - rb["sc"]) <= BM25_TOL["atol"]
+                            + BM25_TOL["rtol"] * abs(rb["sc"]),
+                            f"BM25 {pair}: {ra} where one node has {rb}, not a tie")
+                    tied += 1
+            hits += len(a)
+        out["bm25"] = dict(docs=CLUSTER_PARITY_DOCS, queries=len(pairs), rows=hits,
+                           k9_match_launches=launches.get("bm25_match_scores")
+                           if device == "cuda" else None,
+                           want_launches=want_launches, max_abs_score_diff=err,
+                           rows_tied=tied, tol=BM25_TOL)
+
+        # a 2-hop graph select
+        edges = np.random.default_rng(23).integers(0, CLUSTER_PARITY_NODES,
+                                                   size=(CLUSTER_PARITY_EDGES, 2))
+        rel = "; ".join(f"RELATE person:{int(a)}->knows->person:{int(b)} RETURN NONE"
+                        for a, b in edges)
+        for run in both:
+            run("DEFINE TABLE person SCHEMALESS; DEFINE TABLE knows SCHEMALESS; "
+                "INSERT INTO person $rows RETURN NONE",
+                {"rows": [{"id": i} for i in range(CLUSTER_PARITY_NODES)]})
+            run(rel)
+        seeds = (0, 7, 42, 199)
+        sqls = [sql for sd in seeds for sql in (
+            f"SELECT VALUE ->knows->person->knows->person FROM person:{sd}",
+            f"SELECT ->knows->person AS f FROM person:{sd}")]
+
+        def window(run):
+            """The selects through `run` with the counts at 0, after and
+            before every store's background work (the RELATEs arm each
+            store's graph prewarm, which warms K8 after 0.5 s) -> (answers,
+            launches)."""
+            for ds in stores + [ref]:
+                require(bg.wait_idle(timeout=120, owner=id(ds)), "background tasks did not finish")
+            reset_launches()
+            res = [run(sql) for sql in sqls]
+            for ds in stores + [ref]:
+                require(bg.wait_idle(timeout=120, owner=id(ds)), "background tasks did not finish")
+            if device == "cuda":
+                torch.cuda.synchronize()
+            return res, read_launches()
+
+        got, launches = window(both[0])
+        # no kernel at all: cluster/rpc.py expands pointer keys on the host
+        require(not any(launches.values()), f"the cluster's 2-hop selects launched {launches}")
+        want_ref, ref_launches = window(both[1])
+        for sql, a, b in zip(sqls, got, want_ref):
+            require([_multiset(v) for v in a] == [_multiset(v) for v in b],
+                    f"cluster graph select differs from one node: {sql}")
+        out["graph"] = dict(nodes=CLUSTER_PARITY_NODES, edges=CLUSTER_PARITY_EDGES,
+                            seeds=len(seeds), statements=len(sqls), multiset_equal=True,
+                            cluster_launches={}, single_node_launches={
+                                n: c for n, c in ref_launches.items() if c})
+    finally:
+        ref.close()
+    return out
+
+
+def cluster_nodes(ports):
+    return [{"id": f"n{i + 1}", "url": f"http://127.0.0.1:{p}"} for i, p in enumerate(ports)]
+
+
+def cluster_topology(path, ports, secret):
+    nodes = cluster_nodes(ports)
+    with open(path, "w") as f:
+        json.dump({"nodes": nodes, "self": "n1", "vnodes": CLUSTER_VNODES, "secret": secret}, f)
+    return nodes
+
+
+class ClusterCliPair:
+    """`python -m surrealdb_tpu_torch start --cluster topo.json
+    [--cluster-node n2] --device <device>` twice (CliChild), started
+    first so their start-up overlaps the phase's load; run() writes seeded
+    rows over HTTP to n1 (SDK, CBOR), checks that each node's own store
+    holds every one (RF 2 of 2, read on the internal /cluster channel) and
+    that a kNN through either node gives numpy's exact top-k over the rows
+    as held (bf16 on a card) up to ties, and ends both with SIGINT (code 0);
+    close() kills what is left."""
+
+    def __init__(self, device):
+        import tempfile
+
+        self.device = device
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+        self.ports = [free_port(), free_port()]
+        topo = os.path.join(self.tmp, "topo.json")
+        self.secret = "chip-smoke-cli"
+        self.nodes = cluster_topology(topo, self.ports, self.secret)
+        self.children = []
+        for i, port in enumerate(self.ports):
+            child = CliChild(["--unauthenticated", "--cluster", topo, "--device", device]
+                             + (["--cluster-node", f"n{i + 1}"] if i else []), port=port)
+            self.children.append(child)
+
+    def run(self, torch, dim: int, rows: int, k: int, n_queries: int) -> dict:
+        from surrealdb_tpu_torch.cluster import ClusterConfig
+        from surrealdb_tpu_torch.cluster.client import ClusterClient
+        from surrealdb_tpu_torch.sdk import Surreal
+
+        ports, t0 = self.ports, self.children[0].t0
+        up_s = max(c.wait_health(f"cluster CLI node n{i + 1}")
+                   for i, c in enumerate(self.children))
+        # each node's probe of the other must have seen it up
+        while True:
+            views = []
+            for port, other in ((ports[0], "n2"), (ports[1], "n1")):
+                text = http_call("127.0.0.1", port, "GET", "/metrics")[1].decode()
+                views.append(metric_value(text, f'surreal_cluster_node_up{{node="{other}"}}'))
+            if views == [1.0, 1.0]:
+                break
+            require(time.perf_counter() - t0 < 240, f"CLI nodes' probes: {views}")
+            time.sleep(0.2)
+        probes_s = time.perf_counter() - t0 - up_s
+        data, qs = cli_data(dim, rows, n_queries)
+        t = time.perf_counter()
+        with Surreal(f"http://127.0.0.1:{ports[0]}", format="cbor") as db:
+            db.use("test", "test")
+            res = db.query("DEFINE TABLE item SCHEMALESS; DEFINE INDEX iemb ON item FIELDS emb "
+                           f"MTREE DIMENSION {dim} DIST EUCLIDEAN")
+            require(all(r["status"] == "OK" for r in res), f"CLI cluster DDL: {res}")
+            sdk_insert(db, data, CLUSTER_CLI_BATCH, "CLI cluster")
+        write_s = time.perf_counter() - t
+        # RF 2 of 2: each node's own store holds every row
+        client = ClusterClient(ClusterConfig(self.nodes, "n1", vnodes=CLUSTER_VNODES,
+                                             secret=self.secret))
+        try:
+            held = {}
+            for nid in ("n1", "n2"):
+                r = client.call(nid, "query", {"sql": "SELECT count() FROM item GROUP ALL",
+                                               "ns": "test", "db": "test"})
+                held[nid] = r["results"][-1]["result"][0]["count"]
+        finally:
+            client.shutdown()
+        require(held == {"n1": rows, "n2": rows}, f"CLI nodes hold {held}, want {rows} each")
+        by_node = {}
+        for nid, port in zip(("n1", "n2"), ports):
+            got, lat = [], []
+            with Surreal(f"http://127.0.0.1:{port}", format="cbor") as db:
+                db.use("test", "test")
+                for q in qs:
+                    t = time.perf_counter()
+                    res = db.query(f"SELECT id FROM item WHERE emb <|{k}|> $q", {"q": q.tolist()})
+                    lat.append(time.perf_counter() - t)
+                    require(res[-1]["status"] == "OK", f"CLI cluster query via {nid}: {res[-1]}")
+                    got.append(result_ids(res[-1]["result"]))
+            hold_to_exact_topk(torch, self.device, data, qs, got, k,
+                               f"the CLI cluster via {nid}")
+            by_node[nid] = statistics.median(lat) * 1e3
+        rcs = [c.stop(f"CLI node n{i + 1}") for i, c in enumerate(self.children)]
+        return dict(nodes=2, rf=2, rows=rows, dim=dim, device=self.device, up_s=up_s,
+                    probes_up_s=probes_s, write_s=write_s, write_rows_per_s=rows / write_s,
+                    rows_held=held, queries_a_node=n_queries, p50_ms_by_node=by_node,
+                    exact_up_to_ties=True, sigint_rcs=rcs)
+
+    def close(self):
+        import shutil
+
+        for child in self.children:
+            child.close()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def single_node_answers(torch, device, corpus, queries, batch: int, k: int):
+    """One node's answers to the queries over the same rows (sequentially),
+    for a cluster run whose rows differ from main_path_file's."""
+    from surrealdb_tpu_torch.kvs.ds import Datastore
+
+    ds = Datastore("memory", device=device)
+    try:
+        run = sql_runner(ds)
+        run(file_schema(corpus.shape[1]))
+        sql = f"SELECT id FROM item WHERE emb <|{k}|> $q"
+        ingest(run, corpus, batch, 0, batch)
+        run(sql, {"q": corpus[0].tolist()})
+        ingest(run, corpus, batch, batch)
+        return [run(sql, {"q": q.tolist()}) for q in queries]
+    finally:
+        ds.close()
+
+
+def phase_main_path_cluster(torch, device: str, corpus, queries, truth, smi, batch: int,
+                            n_seq: int, n_threads: int, rounds: int, single_results=None,
+                            write_rows: int = CLUSTER_WRITE_ROWS,
+                            cli_rows: int = CLUSTER_CLI_ROWS):
+    """Config 2's kNN from a 3-node RF-2 cluster (README.md "Cluster mode",
+    cnf.CLUSTER_RF, 64 vnodes): each node a full Datastore on `device`
+    behind net.server.serve(..., cluster_config=...) on 127.0.0.1, all in
+    this process (tests/test_cluster.py's harness). The rows go into each
+    node's own store by the ring's placement (cluster_load), then the
+    coordinator's own write path is timed on fresh rows
+    (cluster_write_path). The MTREE cell's queries go through n1's
+    Datastore.execute (the scatter/gather executor: 24 sequential, 32
+    clients x 2) and 24 through the SDK over WebSocket to n1; each must
+    reach every node's K2 (`exact-device`, launches = the nodes' dispatched
+    tiles), recall@10 >= 0.99, ids equal to `single_results` (one node's
+    answers on the same rows; built here when None) up to ties. Then the
+    statement's spans beside the remote ones, the executor's other routes
+    at a small size (cluster_parity), n3 stopped (the same 24 answers,
+    `degraded`, cluster_failover_total up), and the CLI pair
+    (cluster_cli_pair)."""
+    from surrealdb_tpu_torch import cluster, telemetry
+    from surrealdb_tpu_torch.net.server import serve
+    from surrealdb_tpu_torch.sdk import Surreal
+
+    k = 10
+    rows, dim = corpus.shape
+    sql = f"SELECT id FROM item WHERE emb <|{k}|> $q"
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    marks = {}
+
+    def at(step):  # the phase's clock at the end of each step
+        marks[step] = time.perf_counter() - t_phase
+        emit("main_path_cluster_clock", step=step, at_s=marks[step])
+
+    cli = ClusterCliPair(device)  # its start-up overlaps the load
+    try:
+        ports = [free_port() for _ in range(CLUSTER_NODES)]
+        nodes = cluster_nodes(ports)
+        servers, stores = [], []
+        down = set()
+        out = dict(nodes=CLUSTER_NODES, rf=CLUSTER_RF, vnodes=CLUSTER_VNODES, rows=rows, dim=dim,
+                   k=k, device=device, nvidia_smi=smi,
+                   reduced=None if rows == 1 << 20 else {
+                       "rows": rows, "published_rows": 1 << 20,
+                       "why": "the script's time limit (--cluster-rows 1048576 runs the full "
+                              "2^20 alone)"},
+                   bulk_load="in process, each node's own store by the ring's placement "
+                             "(the coordinator's write path is timed on write_rows fresh rows)")
+        try:
+            for i, port in enumerate(ports):
+                cfg = cluster.ClusterConfig(nodes, f"n{i + 1}", vnodes=CLUSTER_VNODES,
+                                            secret="chip-smoke-cluster")
+                srv = serve("memory", "127.0.0.1", port, auth_enabled=False, cluster_config=cfg,
+                            device=device).start_background()
+                servers.append(srv)
+                stores.append(srv.httpd.RequestHandlerClass.ds)
+            coord = stores[0]
+            membership = coord.cluster.membership
+            out["peers_up_s"] = cluster_up(stores)
+            run = sql_runner(coord)
+            run(file_schema(dim))  # DDL through the coordinator: every node
+            at("up")
+            out["load"] = cluster_load(stores, membership, corpus, rows, batch, k)
+            at("load")
+            emit("main_path_cluster_load", **out["load"])
+            out["write_path"] = cluster_write_path(stores, membership, dim, write_rows,
+                                                   min(write_rows, CLUSTER_WRITE_BATCH))
+            at("write_path")
+            emit("main_path_cluster_write", **out["write_path"])
+            # the first query through the coordinator uploads every node's mirror
+            t = time.perf_counter()
+            run(sql, {"q": queries[0].tolist()})
+            out["first_query_with_upload_s"] = time.perf_counter() - t
+            mem0 = window_start(torch, device)
+            results, out["in_process"] = cluster_knn_window(
+                torch, device, stores, lambda i: run(sql, {"q": queries[i].tolist()}), queries,
+                truth, k, n_seq, n_threads, rounds, CLUSTER_NODES)
+            out["device_memory_at_window_start_bytes"] = mem0
+            at("in_process")
+            emit("main_path_cluster_knn", **out["in_process"])
+            out["spans_mean_ms"] = cluster_spans(coord, sql, queries, 8)
+            emit("main_path_cluster_spans", **out["spans_mean_ms"])
+
+            ws_url = servers[0].url.replace("http://", "ws://") + "/rpc"
+            with Surreal(ws_url, format="cbor") as db:
+                db.use("test", "test")
+
+                def ask_ws(i):
+                    res = db.query(sql, {"q": queries[i].tolist()})
+                    require(res[-1]["status"] == "OK", f"query {i} over WebSocket: {res[-1]}")
+                    return res[-1]["result"]
+
+                ws_results, out["ws"] = cluster_knn_window(
+                    torch, device, stores, ask_ws, queries[:n_seq], truth[:n_seq], k, n_seq,
+                    0, 0, CLUSTER_NODES, min_recall=None)
+            require([result_ids(r) for r in ws_results]
+                    == [result_ids(r) for r in results[:n_seq]],
+                    "the WebSocket answers differ from the in-process ones")
+            at("ws")
+            emit("main_path_cluster_ws", **out["ws"])
+
+            out["parity"] = cluster_parity(torch, device, stores, membership)
+            at("parity")
+            emit("main_path_cluster_parity", **out["parity"])
+
+            # failover: n3's server stops; every record keeps a live replica
+            fo0 = sum(telemetry.counters_matching("cluster_failover_total").values())
+            servers[2].shutdown()
+            down.add(2)
+            lat, degraded = [], 0
+            for i in range(n_seq):
+                t = time.perf_counter()
+                r = coord.execute(sql, vars={"q": queries[i].tolist()})[-1]
+                lat.append(time.perf_counter() - t)
+                require(r["status"] == "OK", f"query {i} with n3 down: {r}")
+                require(result_ids(r["result"]) == result_ids(results[i]),
+                        f"query {i} with n3 down answers {result_ids(r['result'])}, "
+                        f"healthy {result_ids(results[i])}")
+                degraded += r.get("degraded") is True
+            require(degraded == n_seq,
+                    f"{degraded} of {n_seq} answers with n3 down say degraded")
+            fo = sum(telemetry.counters_matching("cluster_failover_total").values()) - fo0
+            require(fo > 0, "cluster_failover_total did not rise with n3 down")
+            out["failover"] = dict(down="n3", queries=n_seq, equal=True, degraded=degraded,
+                                   failover_total=fo, seq_p50_ms=statistics.median(lat) * 1e3)
+            at("failover")
+            out["peak_device_memory_bytes_phase"] = (
+                torch.cuda.max_memory_allocated() if device == "cuda" else None)
+        finally:
+            for i, (srv, ds) in enumerate(zip(servers, stores)):
+                cluster.detach(ds)
+                if i not in down:
+                    srv.shutdown()
+                ds.close()
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        if single_results is None:
+            t = time.perf_counter()
+            single_results = single_node_answers(torch, device, corpus, queries, batch, k)
+            out["single_node_build_s"] = time.perf_counter() - t
+        at("single_node")
+
+        def rows_of(ids):
+            held = torch.from_numpy(corpus[ids]).to(device)
+            return held.bfloat16().float() if device == "cuda" else held
+
+        equal, tied = ids_up_to_ties(torch, rows_of, queries, results, single_results, k)
+        out["single_node"] = dict(ids_equal_queries=equal, ids_tied_queries=tied, tol=TOL)
+        emit("main_path_cluster_single_node", **out["single_node"])
+        out["cli"] = cli.run(torch, dim, cli_rows, k, 8)
+    finally:
+        cli.close()
+    at("cli")
+    out["seconds"] = time.perf_counter() - t_phase
+    out["clock_at_s"] = marks
+    emit("main_path_cluster", **out)
+    return out
 
 
 def kernel_entry(name, kern, source, replaces, launches, err, timing, shape, extra=None):
@@ -4282,6 +4983,11 @@ def main(argv=None) -> int:
                     help="only phase 12 (main_path_file), at --file-rows")
     ap.add_argument("--server-only", action="store_true",
                     help="only phase 3's MTREE store and main_path_server on it")
+    ap.add_argument("--cluster-rows", type=int, default=CLUSTER_ROWS,
+                    help="rows of phase 13 (main_path_cluster): a multiple of 65,536 up to 2^20")
+    ap.add_argument("--cluster-only", action="store_true",
+                    help="only phase 13 (main_path_cluster), at --cluster-rows, with "
+                         f"{CLUSTER_WRITE_ROWS:,} fresh rows through the coordinator")
     # phase 12's child process (file_child); not for callers
     ap.add_argument("--file-child", help=argparse.SUPPRESS)
     ap.add_argument("--file-dim", type=int, default=DIM, help=argparse.SUPPRESS)
@@ -4325,8 +5031,12 @@ def main(argv=None) -> int:
         phase_main_path_graph(torch, "cpu", 200, 4000, batch=1000, n_seq=4, n_threads=8,
                               rounds=2, n_odd=2, n_fof=4)
         phase_main_path_bm25(torch, "cpu", 3000, 1000, n_seq=4, n_threads=8, rounds=2)
-        phase_main_path_file(torch, "cpu", corpus.shape[0], 32, queries, truth, None,
-                             batch=1000, n_seq=4, n_threads=8, rounds=2)
+        file_path = phase_main_path_file(torch, "cpu", corpus.shape[0], 32, queries, truth,
+                                         None, batch=1000, n_seq=4, n_threads=8, rounds=2)
+        phase_main_path_cluster(torch, "cpu", corpus, queries, truth, None, batch=1000,
+                                n_seq=4, n_threads=8, rounds=2,
+                                single_results=file_path["results"], write_rows=256,
+                                cli_rows=512)
         print("cpu rehearsal: no card, no result", file=sys.stderr)
         return 1
     if not torch.cuda.is_available():
@@ -4340,11 +5050,12 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     full = 1 << 20
-    if not (0 < args.file_rows <= full and args.file_rows % 65_536 == 0):
-        # gen_corpus(rows) is then the first rows of phase 3's corpus
-        ap.error("--file-rows must be a multiple of 65,536 up to 2^20")
+    for flag, rows in (("--file-rows", args.file_rows), ("--cluster-rows", args.cluster_rows)):
+        if not (0 < rows <= full and rows % 65_536 == 0):
+            # gen_corpus(rows) is then the first rows of phase 3's corpus
+            ap.error(f"{flag} must be a multiple of 65,536 up to 2^20")
     t_all = time.perf_counter()
-    if args.multicard or args.ml_only or args.file_only or args.server_only:
+    if args.multicard or args.ml_only or args.file_only or args.server_only or args.cluster_only:
         try:
             smi = phase_environment(torch)
             if args.ml_only:
@@ -4367,6 +5078,13 @@ def main(argv=None) -> int:
                 del corpus
                 phase_main_path_file(torch, "cuda", args.file_rows, DIM, queries, truth, smi,
                                      batch=FILE_BATCH, n_seq=24, n_threads=32, rounds=2)
+            elif args.cluster_only:
+                corpus = gen_corpus(full, DIM)
+                queries = make_queries(corpus, 24 + 32 * 2, 42)
+                corpus = corpus[: args.cluster_rows].copy()
+                truth = knn_ground_truth(corpus, queries, 10)
+                phase_main_path_cluster(torch, "cuda", corpus, queries, truth, smi,
+                                        batch=FILE_BATCH, n_seq=24, n_threads=32, rounds=2)
             else:
                 phase_mesh_multicard(torch)
         except SmokeFailure as e:
@@ -4394,6 +5112,9 @@ def main(argv=None) -> int:
             corpus[: args.rows], queries, 10)
         file_truth = truth if args.file_rows == full else knn_ground_truth(
             corpus[: args.file_rows], queries, 10)
+        cluster_truth = file_truth if args.cluster_rows == args.file_rows else (
+            truth if args.cluster_rows == full else knn_ground_truth(
+                corpus[: args.cluster_rows], queries, 10))
         mesh_mtree = MeshPaths(torch, "cuda", queries, mtree_truth, corpus, n_seq=24,
                                n_threads=32, rounds=2).mtree
 
@@ -4412,6 +5133,7 @@ def main(argv=None) -> int:
             rounds=2, then=MeshPaths(torch, "cuda", queries, truth, corpus, n_seq=24,
                                      n_threads=32, rounds=2).hnsw)
         ml, mesh_b = hnsw.pop("then")
+        cluster_corpus = corpus[: args.cluster_rows].copy()  # gen_corpus(rows)'s rows
         del corpus
         gc.collect()
         torch.cuda.empty_cache()
@@ -4436,6 +5158,15 @@ def main(argv=None) -> int:
         file_path = phase_main_path_file(torch, "cuda", args.file_rows, DIM, queries,
                                          file_truth, smi, batch=FILE_BATCH, n_seq=24,
                                          n_threads=32, rounds=2)
+        file_results = file_path.pop("results")
+        gc.collect()
+        torch.cuda.empty_cache()
+        # one node's answers on the same rows: phase 12's after recovery
+        cluster = phase_main_path_cluster(
+            torch, "cuda", cluster_corpus, queries, cluster_truth, smi,
+            batch=FILE_BATCH, n_seq=24, n_threads=32, rounds=2,
+            single_results=file_results if args.cluster_rows == args.file_rows else None,
+            write_rows=128, cli_rows=CLUSTER_CLI_BATCH)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4455,6 +5186,8 @@ def main(argv=None) -> int:
             extra["main_path_file_launches"] = (
                 file_path["after_recovery_launches"][kern]
                 + file_path["snapshot_reopen_launches"][kern])
+            # the coordinator's 88 queries: every node's shard, summed
+            extra["main_path_cluster_launches"] = cluster["in_process"]["launches"][kern]
         kernels.append(kernel_entry(
             name, kern, "surrealdb_tpu_torch/csrc/knn.cu", replaces, main["launches"][kern],
             err, timing[1][kern], knn_shape, extra,
@@ -4538,7 +5271,8 @@ def main(argv=None) -> int:
          "engine_call_host_ms": bm["timing"]["engine_call_host_ms"],
          "kernels_per_call": bm["timing"]["kernels_per_call"],
          "checks": len(bm["checks"]),
-         "engine_paths_by_n": {str(n): v for n, v in bm["paths"].items()}},
+         "engine_paths_by_n": {str(n): v for n, v in bm["paths"].items()},
+         "main_path_cluster_parity_launches": cluster["parity"]["bm25"]["k9_match_launches"]},
     ))
     # K10 at bench config 5's shape (the mirror's bf16 [2^20, 768] x [768, 1]);
     # its library time includes addmm's upcast of x (library_cast_ms alone,

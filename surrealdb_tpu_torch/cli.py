@@ -153,8 +153,11 @@ def _start(args) -> int:
 
         telemetry.enable(True)
 
+    cluster_config = None
     if getattr(args, "cluster", None):
-        raise NotImplementedError("cluster mode is not ported yet: ROADMAP.md queue 1")
+        from surrealdb_tpu_torch.cluster import load_config
+
+        cluster_config = load_config(args.cluster, getattr(args, "cluster_node", None))
 
     host, _, port = args.bind.partition(":")
     srv = serve(
@@ -163,8 +166,15 @@ def _start(args) -> int:
         capabilities=from_env_and_args(args),
         tls_cert=getattr(args, "web_crt", None),
         tls_key=getattr(args, "web_key", None),
+        cluster_config=cluster_config,
         device=args.device,
     )
+    if cluster_config is not None:
+        print(
+            f"cluster node {cluster_config.node_id!r}: "
+            f"{len(cluster_config.nodes)} member(s), {cluster_config.vnodes} vnodes",
+            file=sys.stderr,
+        )
     if args.user and args.password:
         from surrealdb_tpu_torch.sql.value import format_value
 

@@ -17,7 +17,9 @@
 // (row, query) key to a running top-k. Two tiers:
 //
 // - Streaming (Q <= 8, every metric, f32 or bf16 rows; knn.cuh, its f32
-//   instances in knn_f32.cu so nvcc builds them in parallel): rowstream.cuh.
+//   instances in knn_f32.cu and its bf16 ones in knn_bf16_lo.cu /
+//   knn_bf16_hi.cu, half the metrics each, so nvcc builds them in
+//   parallel): rowstream.cuh.
 //   A thread owns 2 rows of a 512-row tile at one query, 4 of a 1,024-row
 //   tile at 8; rows arrive by 16-byte cp.async through a ring (64 bytes of
 //   each row a step), the queries sit in shared memory and every query
@@ -321,8 +323,12 @@ int run(const void* q, const void* x, int x_bf16, const void* mask, int Q, long 
   if (pl.tq)
     return tq_dispatch<FUSED>(metric, pl, qf, (const unsigned short*)x, Q, N, D, mk, k,
                               (float*)out, sc, s);
-  return stream_dispatch<__nv_bfloat16>(FUSED, metric, pl, qf, (const __nv_bfloat16*)x, Q, N, D,
-                                        p, qm, xm, mk, k, (float*)out, sc, s);
+  const __nv_bfloat16* xb = (const __nv_bfloat16*)x;
+  if (metric <= KNN_BF16_LO_LAST)
+    return knn_stream_bf16_lo(FUSED, metric, pl, qf, xb, Q, N, D, p, qm, xm, mk, k, (float*)out,
+                              sc, s);
+  return knn_stream_bf16_hi(FUSED, metric, pl, qf, xb, Q, N, D, p, qm, xm, mk, k, (float*)out, sc,
+                            s);
 }
 
 }  // namespace

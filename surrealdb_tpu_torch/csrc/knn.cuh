@@ -469,8 +469,10 @@ int launch_stream_qt(bool fused, const KnnPlan& pl, const float* q, const T* x, 
 }
 
 // the streaming tier over rows of type T: the metric's kernel at the plan's
-// query tile (fused: K2's running top-k, else K1 into out)
-template <typename T>
+// query tile (fused: K2's running top-k, else K1 into out); only the
+// metrics LO..HI are instantiated (a source builds a share of them), the
+// others are refused
+template <typename T, int LO = M_EUCLIDEAN, int HI = M_MINKOWSKI>
 int stream_dispatch(bool fused, int metric, const KnnPlan& pl, const float* q, const T* x, int Q,
                     long long N, int D, float p, const float* qmean, const float* xmean,
                     const unsigned char* mask, int k, float* out, unsigned char* scratch,
@@ -478,10 +480,12 @@ int stream_dispatch(bool fused, int metric, const KnnPlan& pl, const float* q, c
   const KnnView view{D, D, nullptr, 1};
 #define KNN_CASE(M)                                                                              \
   case M:                                                                                        \
-    return pl.qt == 1 ? launch_stream_qt<M, T, 1>(fused, pl, q, x, Q, N, D, view, p, qmean,      \
-                                                  xmean, mask, k, out, scratch, s)               \
-                      : launch_stream_qt<M, T, 8>(fused, pl, q, x, Q, N, D, view, p, qmean,      \
-                                                  xmean, mask, k, out, scratch, s);
+    if constexpr (M >= LO && M <= HI)                                                            \
+      return pl.qt == 1 ? launch_stream_qt<M, T, 1>(fused, pl, q, x, Q, N, D, view, p, qmean,    \
+                                                    xmean, mask, k, out, scratch, s)             \
+                        : launch_stream_qt<M, T, 8>(fused, pl, q, x, Q, N, D, view, p, qmean,    \
+                                                    xmean, mask, k, out, scratch, s);            \
+    return (int)cudaErrorInvalidValue;
   switch (metric) {
     KNN_CASE(M_EUCLIDEAN)
     KNN_CASE(M_COSINE)
@@ -503,3 +507,16 @@ int knn_stream_f32(bool fused, int metric, const KnnPlan& pl, const float* q, co
                    int Q, long long N, int D, float p, const float* qmean, const float* xmean,
                    const unsigned char* mask, int k, float* out, unsigned char* scratch,
                    cudaStream_t s);
+
+// the streaming tier over bf16 rows, its metrics in two sources so nvcc
+// builds the halves in parallel: euclidean to chebyshev (knn_bf16_lo.cu),
+// hamming to minkowski (knn_bf16_hi.cu)
+#define KNN_BF16_LO_LAST M_CHEBYSHEV
+int knn_stream_bf16_lo(bool fused, int metric, const KnnPlan& pl, const float* q,
+                       const __nv_bfloat16* x, int Q, long long N, int D, float p,
+                       const float* qmean, const float* xmean, const unsigned char* mask, int k,
+                       float* out, unsigned char* scratch, cudaStream_t s);
+int knn_stream_bf16_hi(bool fused, int metric, const KnnPlan& pl, const float* q,
+                       const __nv_bfloat16* x, int Q, long long N, int D, float p,
+                       const float* qmean, const float* xmean, const unsigned char* mask, int k,
+                       float* out, unsigned char* scratch, cudaStream_t s);

@@ -1262,12 +1262,18 @@ def serve(
     `Server`."""
     from surrealdb_tpu_torch.kvs.ds import Datastore
 
-    if cluster_config is not None:
-        raise NotImplementedError("cluster mode is not ported yet: ROADMAP.md queue 1")
     ds = Datastore(path, device=device)
     ds.enable_notifications()
     if capabilities is not None:
         ds.capabilities = capabilities
+    if cluster_config is not None:
+        # sharded serving: this node owns its consistent-hash slice and
+        # coordinates scatter/gather for queries that arrive here; the
+        # Datastore above has already reached its device (or raised), so
+        # no probe or repair service starts for a node that cannot serve
+        from surrealdb_tpu_torch import cluster as _cluster
+
+        _cluster.attach(ds, cluster_config)
     return Server(
         ds, host, port, auth_enabled,
         tls_cert=tls_cert, tls_key=tls_key, cors_origins=cors_origins,

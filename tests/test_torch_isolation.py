@@ -5,9 +5,11 @@ graph path's count and expand branches, the full-text path, the ML
 path: a columnar scan, a batch above the device threshold and an ONNX
 import from a .surml file, the mesh path: MTREE and HNSW on an
 8-shard CPU mesh and the mesh dry run, the server surface: a query over
-HTTP and one over WebSocket through the SDK, and the embedded engine on a
+HTTP and one over WebSocket through the SDK, the embedded engine on a
 file store: FETCH, INFO FOR, SHOW CHANGES, an embedded script, tick(),
-export and a reopen) before it looks for a leak."""
+export and a reopen, and cluster mode: three RF-2 nodes answering a kNN
+and a scan through the coordinator) before it looks for a leak. Each
+module of `cluster/` is also imported alone in a fresh interpreter."""
 
 import os
 import re
@@ -137,6 +139,25 @@ fds = Datastore("file://" + {db!r}, device="cpu")
 out = fds.execute("SELECT VALUE name FROM person")
 assert out[-1]["result"] == ["a", "b"], out
 fds.close()
+# cluster mode: three nodes, RF 2, a kNN and a scan through the coordinator
+from surrealdb_tpu_torch import cluster
+from surrealdb_tpu_torch.net.server import serve
+srvs = [serve("memory", port=0, auth_enabled=False, device="cpu").start_background()
+        for _ in range(3)]
+nodes = [{{"id": f"n{{i + 1}}", "url": srv.url}} for i, srv in enumerate(srvs)]
+stores = [srv.httpd.RequestHandlerClass.ds for srv in srvs]
+for i, cds in enumerate(stores):
+    cluster.attach(cds, cluster.ClusterConfig(nodes, f"n{{i + 1}}", secret="s"))
+out = stores[0].execute("DEFINE TABLE item; DEFINE INDEX im ON item FIELDS emb MTREE "
+                        "DIMENSION 8 DIST EUCLIDEAN; INSERT INTO item $rows RETURN NONE; "
+                        "SELECT id FROM item WHERE emb <|3|> $q; "
+                        "SELECT count() FROM item GROUP ALL", vars={{"rows": rows, "q": rows[1]["emb"]}})
+assert all(r["status"] == "OK" for r in out), out
+assert out[3]["result"][0]["id"].id == 1 and out[4]["result"] == [{{"count": 64}}], out
+for srv, cds in zip(srvs, stores):
+    cluster.detach(cds)
+    srv.shutdown()
+    cds.close()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "ml_dtypes"))
              or m == "surrealdb_tpu" or m.startswith(("surrealdb_tpu.", "scripts"))
@@ -164,6 +185,63 @@ def test_slice_loads_no_jax_and_no_reference_module(tmp_path):
         [sys.executable, "-c", _SLICE.format(repo=REPO, surml=_SURML, db=str(tmp_path / "db"))],
         capture_output=True, text=True, timeout=120, env=env, cwd=REPO,
     )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "LEAKED []" in proc.stdout, proc.stdout
+
+
+_CLUSTER_MODULES = sorted(
+    f[:-3] for f in os.listdir(os.path.join(PKG, "cluster")) if f.endswith(".py"))
+
+_LEAKED = """
+import importlib, sys
+sys.path.insert(0, {repo!r})
+importlib.import_module({mod!r})
+print("LEAKED", sorted(m for m in sys.modules
+                       if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "scripts",
+                                              "surrealdb_tpu")))
+"""
+
+
+@pytest.fixture(scope="module")
+def cluster_imports():
+    from concurrent.futures import ThreadPoolExecutor
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+
+    def one(name):
+        mod = "surrealdb_tpu_torch.cluster" + ("" if name == "__init__" else "." + name)
+        return subprocess.run([sys.executable, "-c", _LEAKED.format(repo=REPO, mod=mod)],
+                              capture_output=True, text=True, timeout=120, env=env, cwd=REPO)
+
+    with ThreadPoolExecutor(4) as pool:
+        return dict(zip(_CLUSTER_MODULES, pool.map(one, _CLUSTER_MODULES)))
+
+
+def test_cluster_has_every_reference_module():
+    ref = sorted(f[:-3] for f in os.listdir(os.path.join(REPO, "surrealdb_tpu", "cluster"))
+                 if f.endswith(".py"))
+    assert _CLUSTER_MODULES == ref and len(ref) == 11, (_CLUSTER_MODULES, ref)
+
+
+def _modules(root):
+    return {os.path.relpath(os.path.join(d, f), root)
+            for d, _dirs, files in os.walk(root) if "_build" not in d
+            for f in files if f.endswith(".py")}
+
+
+def test_port_has_every_reference_module():
+    """A tree diff of the two packages: every module of the reference has
+    its twin in the port; the port's own are the kernel loader, its
+    scratch cache and the mesh dry run."""
+    ref, port = _modules(os.path.join(REPO, "surrealdb_tpu")), _modules(PKG)
+    assert ref - port == set()
+    assert port - ref == {os.path.join("ops", "_cuda.py"), os.path.join("ops", "scratch.py"),
+                          os.path.join("parallel", "dryrun.py")}
+
+
+@pytest.mark.parametrize("name", _CLUSTER_MODULES)
+def test_cluster_module_loads_no_jax_and_no_reference_module(cluster_imports, name):
+    proc = cluster_imports[name]
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "LEAKED []" in proc.stdout, proc.stdout
 

@@ -131,8 +131,9 @@ def _source(name):
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     out = tmp_path_factory.mktemp("kernels_emu")
-    return _build_emu(out, {n: _source(n) for n in ("knn.cu", "knn_f32.cu", "ivf.cu", "graph.cu",
-                                                     "bm25.cu", "ml.cu", "mesh.cu")})
+    return _build_emu(out, {n: _source(n) for n in (
+        "knn.cu", "knn_f32.cu", "knn_bf16_lo.cu", "knn_bf16_hi.cu", "ivf.cu", "graph.cu",
+        "bm25.cu", "ml.cu", "mesh.cu")})
 
 
 def _means(lib, q, x, metric):
@@ -447,7 +448,8 @@ def test_k2_planted_fault_fails_the_comparison(tmp_path, fault):
     knn_tq.cuh) with one fault planted disagrees with the plain version on
     the lower-limb groups, on queries that sit on the blocks' first and last
     rows, or on a corpus of equal rows."""
-    srcs = {n: _source(n) for n in ("knn.cu", "knn_f32.cu", "knn.cuh", "knn_tq.cuh")}
+    srcs = {n: _source(n) for n in ("knn.cu", "knn_f32.cu", "knn_bf16_lo.cu", "knn_bf16_hi.cu",
+                                    "knn.cuh", "knn_tq.cuh")}
     for name, old, new in _K2_FAULTS[fault]:
         assert srcs[name].count(old) == 1, old
         srcs[name] = srcs[name].replace(old, new)

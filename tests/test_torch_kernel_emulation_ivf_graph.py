@@ -43,8 +43,9 @@ from test_torch_kernel_emulation import (
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     out = tmp_path_factory.mktemp("kernels_emu_ivf_graph")
-    return _build_emu(out, {n: _source(n) for n in ("knn.cu", "knn_f32.cu", "ivf.cu", "graph.cu",
-                                                     "mesh.cu")})
+    return _build_emu(out, {n: _source(n) for n in (
+        "knn.cu", "knn_f32.cu", "knn_bf16_lo.cu", "knn_bf16_hi.cu", "ivf.cu", "graph.cu",
+        "mesh.cu")})
 
 
 # ------------------------------------------------------------------ IVF

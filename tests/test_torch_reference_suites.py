@@ -1,13 +1,15 @@
 """The reference's own test files, run against the PyTorch port.
 
 One subprocess runs the files below through `tests/torch_reference_hook.py`,
-which maps `import surrealdb_tpu[.x]` to `surrealdb_tpu_torch[.x]` and
-defaults the port's `device` to "cpu" there (never in this process). Each
+which maps `import surrealdb_tpu[.x]` to `surrealdb_tpu_torch[.x]`, answers
+`import jax[.numpy]` with a stub that raises when touched, and defaults the
+port's `device` to "cpu" there (never in this process). Each
 file is then one case: it must collect, and the set of its cases that fail
 must equal its entry in KNOWN_DIFFERENCES, so a case that starts passing
 fails the test too and the list can only shrink."""
 
 import ast
+import importlib.util
 import json
 import os
 import subprocess
@@ -30,6 +32,8 @@ REFERENCE_FILES = (
     "test_node_telemetry", "test_telemetry_obs", "test_flight_recorder",
     "test_locks_sanitizer", "test_fuzz", "test_ml", "test_surml",
     "test_ft_mirror", "test_fulltext", "test_ml_batch",
+    "test_cluster", "test_cluster_obs", "test_elastic", "test_faults", "test_tombstone_gc",
+    "test_accounting", "test_advisor", "test_stats", "test_plan_cache", "test_column_pipeline",
 )
 
 # Cases that test the reference's own tooling, not the engine: each loads
@@ -51,6 +55,19 @@ NOT_RUN = {
     },
     "test_surml": {
         "test_onnx_mini_jax_forward": "runs the ONNX graph under jax.jit",
+    },
+    "test_elastic": {
+        "test_cutover_failpoint_leaves_member_on_old_epoch": _BENCH_TOOLS,
+    },
+    "test_stats": {
+        "test_bench_diff_statements_names_flip_culprit": _BENCH_TOOLS,
+        "test_drift_proof_end_to_end": _BENCH_TOOLS,
+    },
+    "test_accounting": {
+        "test_bench_diff_tenants_names_share_shift": _BENCH_TOOLS,
+    },
+    "test_advisor": {
+        "test_bench_diff_advisor_names_lifecycle": _BENCH_TOOLS,
     },
 }
 
@@ -152,3 +169,65 @@ def test_not_run_names_existing_cases(suite_run):
         for c in names:
             assert c in defined, f"{f}::{c} no longer exists"
             assert not any(k == c or k.startswith(c + "[") for k in cases[f]), f"{f}::{c} ran"
+
+
+def _hook():
+    spec = importlib.util.spec_from_file_location(
+        "torch_reference_hook", os.path.join(REPO, "tests", "torch_reference_hook.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_leak_check_reports_real_jax_but_not_the_stub():
+    """The stub the hook gives for `import jax.numpy` is not a leak, a real
+    JAX module still is (this process has real JAX: conftest imports it),
+    and touching the stub fails."""
+    import jax
+    import jax.numpy
+
+    hook = _hook()
+    stubs = {"jax": hook.JaxStub("jax"), "jax.numpy": hook.JaxStub("jax.numpy")}
+    assert hook.leaks(REPO, stubs) == {"reference_files": [], "foreign_modules": []}
+    real = hook.leaks(REPO, {"jax": jax, "jax.numpy": jax.numpy})
+    assert real["foreign_modules"] == ["jax", "jax.numpy"]
+    assert "jax" in hook.leaks(REPO)["foreign_modules"]
+    with pytest.raises(hook.StubTouched, match="has no JAX"):
+        stubs["jax.numpy"].zeros((2,))
+    with pytest.raises(hook.StubTouched):
+        stubs["jax"].jit
+
+
+def test_stub_is_not_swallowed_as_a_missing_attribute():
+    """`hasattr`, a `getattr` default or `except AttributeError` in a
+    reference file does not take the stub for a JAX that lacks the name:
+    touching it still fails; only a missing dunder is an AttributeError."""
+    hook = _hook()
+    stub = hook.JaxStub("jax.numpy")
+    assert not issubclass(hook.StubTouched, AttributeError)
+    with pytest.raises(hook.StubTouched):
+        hasattr(stub, "numpy_fn")
+    with pytest.raises(hook.StubTouched):
+        getattr(stub, "float32", None)
+    assert not hasattr(stub, "__wrapped__")
+
+
+def test_hook_stubs_jax_in_its_subprocess():
+    """Under the hook `import jax.numpy` gives the stub (nothing of real
+    JAX is loaded), and any use of it raises."""
+    code = (
+        "import sys; sys.argv = ['hook']; import runpy\n"
+        f"hook = runpy.run_path({os.path.join(REPO, 'tests', 'torch_reference_hook.py')!r})\n"
+        "hook['install']()\n"
+        "import jax.numpy\n"
+        "assert isinstance(jax, hook['JaxStub']) and isinstance(jax.numpy, hook['JaxStub'])\n"
+        "try:\n    jax.numpy.asarray([1])\nexcept hook['StubTouched']:\n    pass\n"
+        "else:\n    raise SystemExit('stub did not raise')\n"
+        "assert not [m for m in sys.modules if m.startswith(('jaxlib', 'jax._src'))]\n"
+        f"assert hook['leaks']({REPO!r}) == {{'reference_files': [], 'foreign_modules': []}}\n"
+        "print('stubbed')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, env=env, cwd=REPO)
+    assert proc.returncode == 0 and "stubbed" in proc.stdout, proc.stdout + proc.stderr

@@ -13,8 +13,10 @@ the reference's on the same inputs, on the CPU.
   CBOR) and over /sql as text give the same ids in the same order, and the
   port's equal numpy's exact top-10 up to ties.
 - Every entry point that opens a store defaults to "cuda" and raises
-  without a card; cluster mode raises NotImplementedError; the CLI serves
-  on the CPU when asked and exits 0 on SIGINT.
+  without a card, cluster mode (`serve(cluster_config=...)`, `start
+  --cluster`) included; both cluster entry points attach a node that
+  answers a scatter on the CPU; the CLI serves on the CPU when asked and
+  exits 0 on SIGINT.
 """
 
 import base64
@@ -292,17 +294,134 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         cli.main(["export", "--ns", "t", "--db", "t"])
 
 
-def test_cluster_mode_is_not_ported_yet(tmp_path):
-    from surrealdb_tpu_torch import cli
+def _topology(path, ports, secret="cluster-test-secret"):
+    nodes = [{"id": f"n{i + 1}", "url": f"http://127.0.0.1:{p}"} for i, p in enumerate(ports)]
+    path.write_text(json.dumps({"nodes": nodes, "self": "n1", "vnodes": 64, "secret": secret}))
+    return str(path)
+
+
+def _wait_peers_up(stores, timeout=30.0):
+    """A node that probed a peer before it listened holds it down until the
+    next probe; wait until every node sees every peer up."""
+    deadline = time.monotonic() + timeout
+    while any(ds.cluster.client.down_nodes() or not all(
+            h["up"] for nid, h in ds.cluster.client.health().items()
+            if nid != ds.cluster.node_id) for ds in stores):
+        assert time.monotonic() < deadline, [ds.cluster.client.health() for ds in stores]
+        time.sleep(0.1)
+
+
+def test_serve_with_cluster_config_attaches_and_answers_a_scatter(tmp_path):
+    """Two `serve(..., cluster_config=...)` nodes on the CPU: each is
+    attached (its `execute` routes through the executor), a write through
+    n1 lands on both (RF 2 of 2), and a scan through either node is
+    answered by a scatter over both."""
+    from surrealdb_tpu_torch import cluster
+    from surrealdb_tpu_torch.dbs.session import Session
     from surrealdb_tpu_torch.net.server import serve
 
-    with pytest.raises(NotImplementedError, match="cluster mode is not ported yet"):
-        serve("memory", port=0, cluster_config=object(), device="cpu")
-    topo = tmp_path / "cluster.json"
-    topo.write_text(json.dumps({"self": "a", "nodes": {"a": "127.0.0.1:1"}}))
-    with pytest.raises(NotImplementedError, match="cluster mode is not ported yet"):
-        cli.main(["start", "--device", "cpu", "--bind", "127.0.0.1:0", "--cluster", str(topo),
-                  "memory"])
+    ports = [_free_port(), _free_port()]
+    topo = _topology(tmp_path / "topo.json", ports)
+    srvs = [serve("memory", port=p, auth_enabled=False, device="cpu",
+                  cluster_config=cluster.load_config(topo, f"n{i + 1}")).start_background()
+            for i, p in enumerate(ports)]
+    stores = [srv.httpd.RequestHandlerClass.ds for srv in srvs]
+    s = Session.owner("t", "t")
+    try:
+        _wait_peers_up(stores)
+        assert [ds.cluster.node_id for ds in stores] == ["n1", "n2"]
+        assert all(ds.device == torch.device("cpu") for ds in stores)
+        out = stores[0].execute("DEFINE TABLE a SCHEMALESS; "
+                                + "; ".join(f"CREATE a:{i} SET v = {i}" for i in range(12)), s)
+        assert all(r["status"] == "OK" for r in out), out
+        for ds in stores:
+            local = ds.execute_local("SELECT VALUE v FROM a", s)[0]["result"]
+            assert sorted(local) == list(range(12)), local
+        for ds in stores:
+            out = ds.execute("SELECT VALUE v FROM a WHERE v >= 3 ORDER BY v DESC LIMIT 4", s)
+            assert out[-1]["status"] == "OK" and out[-1]["result"] == [11, 10, 9, 8], out
+            plan = ds.execute("SELECT VALUE v FROM a WHERE v >= 3 EXPLAIN ANALYZE", s)[-1]["result"]
+            assert sorted(op["detail"]["node"] for op in plan if op["operation"] == "Shard") == [
+                "n1", "n2"], plan
+    finally:
+        for srv, ds in zip(srvs, stores):
+            cluster.detach(ds)
+            srv.shutdown()
+            ds.close()
+
+
+def test_cli_start_cluster_serves_as_a_node(tmp_path):
+    """`start --cluster topo.json --cluster-node n2 --device cpu` serves as
+    n2 of a two-node topology whose n1 is served in this process: a write
+    through n1 reaches the child's shard, a read through the child sees
+    every row, and the child exits 0 on SIGINT."""
+    from surrealdb_tpu_torch import cluster
+    from surrealdb_tpu_torch.dbs.session import Session
+    from surrealdb_tpu_torch.net.server import serve
+    from surrealdb_tpu_torch.sdk import Surreal
+
+    ports = [_free_port(), _free_port()]
+    topo = _topology(tmp_path / "topo.json", ports)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "surrealdb_tpu_torch", "start", "--device", "cpu",
+         "--bind", f"127.0.0.1:{ports[1]}", "--unauthenticated", "--cluster", topo,
+         "--cluster-node", "n2", "memory"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    srv = serve("memory", port=ports[0], auth_enabled=False, device="cpu",
+                cluster_config=cluster.load_config(topo)).start_background()
+    ds = srv.httpd.RequestHandlerClass.ds
+    s = Session.owner("t", "t")
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", ports[1], timeout=2)
+                conn.request("GET", "/health")
+                if conn.getresponse().status == 200:
+                    break
+            except OSError:
+                pass
+            assert proc.poll() is None, proc.communicate()[1][-2000:]
+            assert time.monotonic() < deadline, "the CLI node did not come up"
+            time.sleep(0.2)
+        _wait_peers_up([ds])
+        out = ds.execute("DEFINE TABLE a SCHEMALESS; "
+                         + "; ".join(f"CREATE a:{i} SET v = {i}" for i in range(10)), s)
+        assert all(r["status"] == "OK" for r in out), out
+        with Surreal(f"http://127.0.0.1:{ports[1]}") as db:
+            db.use("t", "t")
+            out = db.query("SELECT VALUE v FROM a ORDER BY v")
+            assert out[-1]["status"] == "OK" and out[-1]["result"] == list(range(10)), out
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=30) == 0, proc.communicate()[1][-2000:]
+        assert "cluster node 'n2': 2 member(s), 64 vnodes" in proc.communicate()[1]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        cluster.detach(ds)
+        srv.shutdown()
+        ds.close()
+
+
+def test_cluster_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path, monkeypatch):
+    """`serve(cluster_config=...)` and `start --cluster` open the store on
+    "cuda" unless told otherwise, and raise without a card before any
+    probe or repair service is started (`attach` is never reached)."""
+    from surrealdb_tpu_torch import cli, cluster
+    from surrealdb_tpu_torch.net.server import serve
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the defaults succeed")
+    attached = []
+    monkeypatch.setattr(cluster, "attach", lambda *a: attached.append(a))
+    topo = _topology(tmp_path / "topo.json", [_free_port(), _free_port()])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve("memory", port=0, cluster_config=cluster.load_config(topo))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["start", "--bind", "127.0.0.1:0", "--cluster", topo, "memory"])
+    assert attached == []
 
 
 def test_cpu_entry_points_keep_their_device():

@@ -1,7 +1,8 @@
 """Run the reference package's own test files against the PyTorch port.
 
-Imported only by the subprocess that `test_torch_reference_suites.py`
-starts (never by the suite's own process): it installs a `sys.meta_path`
+Run as the subprocess that `test_torch_reference_suites.py` starts (the
+suite's own process imports it only to test `leaks` and the JAX stub, and
+never calls `install`): it installs a `sys.meta_path`
 finder that answers `import surrealdb_tpu[.x]` with the already-imported
 `surrealdb_tpu_torch[.x]` module, so the reference's tests drive the
 port's objects. The port's entry points default to `device="cuda"`; here
@@ -14,8 +15,16 @@ itself gains no knob.
 
 runs pytest with the repo's `tests/conftest.py` left out (it imports JAX
 and primes the reference's tooling) and its `ds` fixture supplied here.
+Some reference files `import jax.numpy` at module level and use nothing
+of it; the hook answers `jax` and `jax.numpy` with stub modules (marked
+by their type, `JaxStub`) whose every other attribute access raises
+`StubTouched`, so such a file collects and any real use of JAX fails.
+`StubTouched` is not an `AttributeError`, so `hasattr`, a `getattr`
+default or `except AttributeError` does not swallow it; only the dunder
+names that the import system and pytest probe raise `AttributeError`.
 With TORCH_REFERENCE_HOOK_LEAKS=PATH set, it writes to PATH (JSON) any
-module of the reference package, JAX or `scripts/` that the run loaded.
+module of the reference package, real JAX or `scripts/` that the run
+loaded; the stubs are not reported.
 """
 
 import functools
@@ -26,6 +35,7 @@ import inspect
 import json
 import os
 import sys
+import types
 
 import pytest
 
@@ -53,6 +63,43 @@ class _AliasFinder(importlib.abc.MetaPathFinder):
         return importlib.util.spec_from_loader(fullname, _AliasLoader())
 
 
+class StubTouched(RuntimeError):
+    """A reference test touched the JAX stub: it needs real JAX."""
+
+
+class JaxStub(types.ModuleType):
+    """What `import jax` / `import jax.numpy` gives under the hook. Only the
+    import system's own attributes exist (and the submodule the import
+    binds); a missing dunder is an AttributeError, anything else raises
+    StubTouched."""
+
+    def __getattr__(self, attr):
+        if attr.startswith("__") and attr.endswith("__"):
+            raise AttributeError(attr)
+        raise StubTouched(
+            f"{self.__name__}.{attr}: the port's reference run has no JAX "
+            "(tests/torch_reference_hook.py stubs it)"
+        )
+
+
+_STUBBED = ("jax", "jax.numpy")
+
+
+class _StubLoader(importlib.abc.Loader):
+    def create_module(self, spec):
+        return JaxStub(spec.name)
+
+    def exec_module(self, module):
+        pass
+
+
+class _JaxStubFinder(importlib.abc.MetaPathFinder):
+    def find_spec(self, fullname, path=None, target=None):
+        if fullname not in _STUBBED:
+            return None
+        return importlib.util.spec_from_loader(fullname, _StubLoader(), is_package=True)
+
+
 def _default_cpu(fn):
     sig = inspect.signature(fn)
 
@@ -68,6 +115,7 @@ def _default_cpu(fn):
 
 def install() -> None:
     sys.meta_path.insert(0, _AliasFinder())
+    sys.meta_path.insert(0, _JaxStubFinder())
     from surrealdb_tpu_torch.idx import ivf
     from surrealdb_tpu_torch.kvs.ds import Datastore
 
@@ -92,12 +140,16 @@ class _Fixtures:
         return Datastore("memory")
 
 
-def leaks(repo: str) -> dict:
-    """What a run loaded that it should not have: a module file of the
-    reference package, or anything of JAX or of the repo's `scripts/`."""
+def leaks(repo: str, modules=None) -> dict:
+    """What a run loaded that it should not have (`modules` defaults to
+    sys.modules): a module file of the reference package, or anything of
+    real JAX or of the repo's `scripts/`. The hook's JAX stubs are not
+    reported."""
     ref_dir = os.path.join(repo, REF) + os.sep
     files, foreign = set(), set()
-    for name, mod in list(sys.modules.items()):
+    for name, mod in list((sys.modules if modules is None else modules).items()):
+        if isinstance(mod, JaxStub):
+            continue
         f = getattr(mod, "__file__", None) or ""
         if f.startswith(ref_dir):
             files.add(os.path.relpath(f, repo))
