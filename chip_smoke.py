@@ -1152,7 +1152,8 @@ def sql_runner(ds):
     def run(sql, vars=None):
         res = ds.execute(sql, vars=vars or {})
         for r in res:
-            require(r.get("status") == "OK", f"{sql[:60]!r} failed: {r}")
+            if r.get("status") != "OK":  # the message only then: a result can be 2^20 rows
+                require(False, f"{sql[:60]!r} failed: {r}")
         return res[-1]["result"]
 
     return run
@@ -3003,6 +3004,27 @@ def ml_reference(feats, layers, step: int = 65_536):
     return np.concatenate(out)
 
 
+def ml_models(dim: int, seed: int):
+    """The ML phase's seeded models: the scorer (a linear dim -> 1, b = 0,
+    as bench_ml_scan imports it) and the MLP (dim -> 128 relu -> 10
+    softmax), each a list of layers."""
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((dim, 1)).astype(np.float32)
+    scorer = [{"w": w, "b": np.zeros(1, np.float32), "activation": None}]
+    return scorer, ml_layers(rng, (dim, ML_MLP_HIDDEN, ML_MLP_OUT), ("relu", "softmax"))
+
+
+def import_layers(ds, name: str, layers) -> None:
+    """import_model of a linear / MLP spec of `layers` as ml::name<1>."""
+    from surrealdb_tpu_torch.dbs.session import Session
+    from surrealdb_tpu_torch.ml.exec import import_model
+
+    import_model(ds, Session.owner(), name, "1", {
+        "format": "mlp" if len(layers) > 1 else "linear",
+        "layers": [{"w": l["w"].tolist(), "b": l["b"].tolist(),
+                    "activation": l["activation"]} for l in layers]})
+
+
 def linear_bound(m: int, k: int, n: int, x_bytes: int):
     """The least time of one f32-accurate [m, k] x [k, n] product on the
     card: x read and out written once at HBM rate, or its bf16 limb
@@ -3046,9 +3068,9 @@ def phase_ml_kernels(torch):
     cases += [("config5_bf16", xb, w1, torch.zeros(1, device=dev), None, False),
               ("config5_f32", x768, w1, torch.zeros(1, device=dev), None, False)]
     wh, bh = layer(DIM, 128)
-    h1 = ML.linear_act_plain(xb, wh, bh, "relu")
+    h1 = ML.linear_act_plain(xb, wh, ML.Epilogue.layer(bh, "relu"))
     w2, b2 = layer(128, 64)
-    h2 = ML.linear_act_plain(h1, w2, b2, "tanh")
+    h2 = ML.linear_act_plain(h1, w2, ML.Epilogue.layer(b2, "tanh"))
     w3, b3 = layer(64, 16)
     w4, b4 = layer(128, 10)
     cases += [("mlp_768x128_relu_bf16", xb, wh, bh, "relu", False),
@@ -3066,18 +3088,19 @@ def phase_ml_kernels(torch):
         cases.append((f"narrow_768x{n}_bf16", xb, wn, bn, None, False))
     results, lin_err, sm_err = {}, 0.0, 0.0
     for label, x, w, b, act, softmax in cases:
-        got = ML.linear_act(x, w, b, act)
+        ep = ML.Epilogue.layer(b, act)
+        got = ML.linear_act(x, w, ep)
         torch.cuda.synchronize()
-        want = ML.linear_act_plain(x, w, b, act)
+        want = ML.linear_act_plain(x, w, ep)
         e = float((got - want).abs().max())
         ok = bool(torch.allclose(got, want, **TOL))
         m, k = x.shape
         n = w.shape[1]
         bound, by, fma_bound = linear_bound(m, k, n, x.element_size())
         r = dict(m=m, k=k, n=n, x=str(x.dtype).split(".")[-1], act=act, max_abs_err=e, ok=ok,
-                 ms=median_ms(lambda: ML.linear_act(x, w, b, act)),
-                 queued_ms=queued_device_ms(torch, lambda: ML.linear_act(x, w, b, act)),
-                 plain_ms=median_ms(lambda: ML.linear_act_plain(x, w, b, act)),
+                 ms=median_ms(lambda: ML.linear_act(x, w, ep)),
+                 queued_ms=queued_device_ms(torch, lambda: ML.linear_act(x, w, ep)),
+                 plain_ms=median_ms(lambda: ML.linear_act_plain(x, w, ep)),
                  library_ms=median_ms(lambda: torch.addmm(b, x.float(), w)),
                  library_queued_ms=queued_device_ms(torch, lambda: torch.addmm(b, x.float(), w)),
                  bound_ms=bound, bound_by=by, f32_fma_bound_ms=fma_bound)
@@ -3166,14 +3189,15 @@ def phase_ml_paths(torch):
         x = torch.randn(big, k, device=dev, generator=g).to(dtype)
         w = torch.randn(k, n, device=dev, generator=g) / float(np.sqrt(k))
         b = torch.randn(n, device=dev, generator=g)
-        want = ML.linear_act_plain(x, w, b, None)
+        ep = ML.Epilogue.layer(b, None)
+        want = ML.linear_act_plain(x, w, ep)
         rec = {}
         for name, lib in libs.items():
             y = torch.empty(big, n, device=dev)
             status = []
 
             def run():
-                status.append(ML._launch_linear(lib, x, w, b, None, y, stream))
+                status.append(ML._launch_linear(lib, x, w, ep, y, stream))
 
             run()
             torch.cuda.synchronize()
@@ -3282,21 +3306,13 @@ def phase_main_path_ml(torch, device: str, ds, corpus, seed: int = 5):
     the card), in key order, within TOL; each scan is one dispatch and K10's
     launches are forwards x layers (+ one softmax)."""
     from surrealdb_tpu_torch import cnf
-    from surrealdb_tpu_torch.dbs.session import Session
-    from surrealdb_tpu_torch.ml.exec import import_model
 
     n, dim = corpus.shape
     run = sql_runner(ds)
-    rng = np.random.default_rng(seed)
-    w = rng.standard_normal((dim, 1)).astype(np.float32)
-    scorer = [{"w": w, "b": np.zeros(1, np.float32), "activation": None}]
-    mlp = ml_layers(rng, (dim, ML_MLP_HIDDEN, ML_MLP_OUT), ("relu", "softmax"))
+    scorer, mlp = ml_models(dim, seed)
     run("DEFINE MODEL ml::scorer<1>; DEFINE MODEL ml::mlp<1>")
     for name, layers in (("scorer", scorer), ("mlp", mlp)):
-        import_model(ds, Session.owner(), name, "1", {
-            "format": "mlp" if len(layers) > 1 else "linear",
-            "layers": [{"w": l["w"].tolist(), "b": l["b"].tolist(),
-                        "activation": l["activation"]} for l in layers]})
+        import_layers(ds, name, layers)
     sql = "SELECT VALUE ml::scorer<1>(emb) FROM item"
     mlp_sql = "SELECT VALUE ml::mlp<1>(emb) FROM item"
     rows_sql = f"SELECT id, ml::scorer<1>(emb) AS s FROM item:0..{ML_ROW_IDS}"
@@ -3422,6 +3438,577 @@ def phase_main_path_ml(torch, device: str, ds, corpus, seed: int = 5):
         mlp_forward_events_ms=mlp_forward_ms,
     )
     emit("main_path_ml", **out)
+    return out
+
+
+# ------------------------------------------------------------------ ONNX (K16)
+# ONNX models written here from seeded weights (protobuf wire format, the
+# fields onnx_mini.py parses); nothing is downloaded
+def pb_varint(v: int) -> bytes:
+    out = b""
+    while True:
+        c = v & 0x7F
+        v >>= 7
+        out += bytes([c | (0x80 if v else 0)])
+        if not v:
+            return out
+
+
+def pb_ld(field: int, payload: bytes) -> bytes:
+    return pb_varint((field << 3) | 2) + pb_varint(len(payload)) + payload
+
+
+def pb_vint(field: int, v: int) -> bytes:
+    return pb_varint(field << 3) + pb_varint(v)
+
+
+def onnx_tensor(name: str, arr) -> bytes:
+    """TensorProto: f32 (or int64) raw data."""
+    arr = np.asarray(arr)
+    i64 = arr.dtype == np.int64
+    t = b"".join(pb_vint(1, d) for d in arr.shape) + pb_vint(2, 7 if i64 else 1)
+    return t + pb_ld(8, name.encode()) + pb_ld(9, arr.astype("<i8" if i64 else "<f4").tobytes())
+
+
+def onnx_attr(name: str, v) -> bytes:
+    """AttributeProto: a float, an int, a tensor or a list of ints."""
+    import struct
+
+    a = pb_ld(1, name.encode())
+    if isinstance(v, float):
+        return a + pb_varint((2 << 3) | 5) + struct.pack("<f", v) + pb_vint(20, 1)
+    if isinstance(v, int):
+        return a + pb_vint(3, v) + pb_vint(20, 2)
+    if isinstance(v, np.ndarray):
+        return a + pb_ld(5, onnx_tensor("", v)) + pb_vint(20, 4)
+    return a + b"".join(pb_vint(8, i) for i in v) + pb_vint(20, 7)
+
+
+def onnx_value_info(name: str, last_dim=None) -> bytes:
+    """ValueInfoProto, shape [N, last_dim] (N dynamic)."""
+    if last_dim is None:
+        return pb_ld(1, name.encode())
+    dims = pb_ld(1, pb_ld(2, b"N")) + pb_ld(1, pb_vint(1, last_dim))
+    return pb_ld(1, name.encode()) + pb_ld(2, pb_ld(1, pb_vint(1, 1) + pb_ld(2, dims)))
+
+
+def onnx_model(nodes, inits, in_dim: int, out: str = "y") -> bytes:
+    """ModelProto of one graph: nodes (op, inputs, outputs, attrs), input
+    "x" [N, in_dim], initializers {name: array}."""
+    graph = b""
+    for op, ins, outs, attrs in nodes:
+        n = b"".join(pb_ld(1, i.encode()) for i in ins)
+        n += b"".join(pb_ld(2, o.encode()) for o in outs) + pb_ld(4, op.encode())
+        graph += pb_ld(1, n + b"".join(pb_ld(5, onnx_attr(k, v)) for k, v in attrs.items()))
+    graph += b"".join(pb_ld(5, onnx_tensor(k, v)) for k, v in inits.items())
+    graph += pb_ld(11, onnx_value_info("x", in_dim)) + pb_ld(12, onnx_value_info(out))
+    return pb_vint(1, 7) + pb_ld(7, graph)
+
+
+def onnx_mlp(layers) -> bytes:
+    """Graph A: an MLP's layers as torch.onnx.export writes an nn.Sequential
+    of Linears (weights [out, in], Gemm transB=1) with Relu between and
+    Softmax(axis=1) last, for ml_layers' relu -> softmax MLP."""
+    (l1, l2) = layers
+    nodes = [("Gemm", ["x", "w1", "b1"], ["h"], {"transB": 1}), ("Relu", ["h"], ["r"], {}),
+             ("Gemm", ["r", "w2", "b2"], ["z"], {"transB": 1}),
+             ("Softmax", ["z"], ["y"], {"axis": 1})]
+    inits = {"w1": np.ascontiguousarray(l1["w"].T), "b1": l1["b"],
+             "w2": np.ascontiguousarray(l2["w"].T), "b2": l2["b"]}
+    return onnx_model(nodes, inits, l1["w"].shape[0])
+
+
+ONNX_HEAD_HIDDEN, ONNX_HEAD_GATES = 64, 8  # graph B's widths on the card
+
+
+def onnx_scaled_head(rng, dim: int, hidden: int = ONNX_HEAD_HIDDEN,
+                     gates: int = ONNX_HEAD_GATES) -> bytes:
+    """Graph B: a StandardScaler-style input and a gated head. (x - mu) /
+    sigma, MatMul + Add, LeakyRelu(0.1), Gemm(alpha 0.5, beta 2, C), Elu,
+    Clip(-1, 4), Sigmoid -> the gates g [M, gates]; ReduceMean(g, axes
+    [1], keepdims 1) and Concat(g, mean) -> [M, gates + 1]."""
+    f = rng.standard_normal
+    inits = {"mu": (0.05 * f(dim)).astype(np.float32),
+             "sigma": (1.0 + 0.1 * np.abs(f(dim))).astype(np.float32),
+             "w1": (f((dim, hidden)) / np.sqrt(dim)).astype(np.float32),
+             "b1": (0.1 * f(hidden)).astype(np.float32),
+             "w2": (f((hidden, gates)) / np.sqrt(hidden)).astype(np.float32),
+             "c": f(gates).astype(np.float32),
+             "lo": np.array(-1.0, np.float32), "hi": np.array(4.0, np.float32)}
+    nodes = [("Sub", ["x", "mu"], ["xc"], {}), ("Div", ["xc", "sigma"], ["xs"], {}),
+             ("MatMul", ["xs", "w1"], ["h"], {}), ("Add", ["h", "b1"], ["hb"], {}),
+             ("LeakyRelu", ["hb"], ["hl"], {"alpha": 0.1}),
+             ("Gemm", ["hl", "w2", "c"], ["z"], {"alpha": 0.5, "beta": 2.0}),
+             ("Elu", ["z"], ["ze"], {}), ("Clip", ["ze", "lo", "hi"], ["zc"], {}),
+             ("Sigmoid", ["zc"], ["g"], {}),
+             ("ReduceMean", ["g"], ["m"], {"axes": [1], "keepdims": 1}),
+             ("Concat", ["g", "m"], ["y"], {"axis": 1})]
+    return onnx_model(nodes, inits, dim)
+
+
+def surml_file(onnx_raw: bytes, name: str, version: str) -> bytes:
+    """A .surml container (ml/surml.py): no keys, normalisers or output
+    normaliser, so a call feeds the vector straight through."""
+    import struct
+
+    # a leading separator: parse_surml drops one empty first field
+    header = "//=>" + "//=>".join(["", "", "", name, version, "a gated head over config 5's "
+                                   "items", "onnx", "chip_smoke.py", "surrealdb_tpu_torch"])
+    header = header.encode()
+    return struct.pack(">I", len(header)) + header + onnx_raw
+
+
+def ulp_distance(torch, a, b):
+    """Per element |a - b| in f32 units in the last place; 0 where both are
+    NaN (a NaN against a number: 2^31)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    an, bn = torch.isnan(a), torch.isnan(b)
+    d = (ordered(a) - ordered(b)).abs()
+    d = torch.where(an & bn, torch.zeros_like(d), d)
+    return torch.where(an ^ bn, torch.full_like(d, 1 << 31), d)
+
+
+ONNX_EXACT_OPS = ("copy", "add", "sub", "mul", "div", "max", "min", "neg", "relu", "leaky")
+# the reductions' tolerance: |kernel - plain| <= 1e-5 sum|x| (the longest
+# chain of sequential f32 adds is ~100 of a lane's values, chunk sums and
+# butterfly steps; torch.sum's order differs) + 1e-6
+REDUCE_TOL = (1e-5, 1e-6)
+
+
+def ewise_ok(torch, got, want, op, x=None, alpha=0.0):
+    """(ok, max ulps): exact ops the same values (NaN where NaN); exp, sqrt,
+    pow, tanh, sigmoid, elu within 2 ulp, Elu also within alpha times 2 ulp
+    of exp(x) where alpha (exp(x) - 1) cancels near 0."""
+    ulps = ulp_distance(torch, got, want)
+    if op == "elu":
+        e = torch.exp(torch.clamp(x.float(), max=0.0))
+        ulps = torch.where((got - want).abs() <= abs(alpha) * 2 * 2.0 ** -23 * e,
+                           torch.zeros_like(ulps), ulps)
+    worst = int(ulps.max())
+    return worst <= (0 if op in ONNX_EXACT_OPS else 2), worst
+
+
+def special_values(torch, x):
+    """x with NaN, +-inf, -0.0 and values near 0 planted (in place)."""
+    x[0, :6] = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0, 0.0, -1e-30])
+    x[1] = -0.0
+    x[2] = torch.linspace(-1e-3, 1e-3, x.shape[1])
+    x[3] = torch.linspace(-100, 100, x.shape[1])
+    x[7::97] = -0.0
+    x[11::101, ::3] = float("nan")
+    return x
+
+
+def phase_onnx_check(torch, device: str = "cuda", m: int = 1 << 20):
+    """K16's kernels against their plain versions on the card at 2^20 rows:
+    ml_ewise over every op code (f32, and bf16 for three), each broadcast
+    shape of the second operand ([N], [M, 1], an immediate), config 5's
+    z-score over [2^20, 768] bf16 (graph B's first launch), a strided
+    Transpose and a Concat on each axis; ml_reduce over the inner axis
+    (graph B's mean, and [2^20, 768] bf16), the outer axis and both;
+    ml_linear with an epilogue on its three paths (graph A's first product,
+    graph B's two, and the head's chain at N = 1). Each case: event and
+    queued ms, its bound (inputs read and outputs written once at 3.35
+    TB/s; a product's by linear_bound), the plain version's ms and, where
+    one exists, the PyTorch call's (addmm and the activation for a product,
+    torch.mean / torch.sum for a reduction). Tolerances: ewise_ok,
+    REDUCE_TOL, TOL for a product."""
+    import torch.nn.functional as F
+
+    from surrealdb_tpu_torch.ml import model as ML
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(19)
+
+    def rand(*shape):
+        return torch.randn(*shape, device=dev, generator=g)
+
+    results = {}
+
+    def timings(fn, plain, library, nbytes, bound=None):
+        b, by = bound if bound is not None else bound_ms(nbytes, 0.0, "float32")
+        r = dict(ms=median_ms(fn), queued_ms=queued_device_ms(torch, fn),
+                 plain_ms=median_ms(plain), bound_ms=b, bound_by=by,
+                 library_ms=None if library is None else median_ms(library))
+        if library is not None:
+            r["library_queued_ms"] = queued_device_ms(torch, library)
+        return r
+
+    def out_like(shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    # ---- ml_ewise: every op code over [2^20, 64]
+    x64 = special_values(torch, rand(m, 64) * 3)
+    col = rand(64)
+    col[:4] = torch.tensor([0.0, -0.0, float("nan"), float("inf")])
+    row = rand(m, 1)
+    row[5::7] = 0.0
+    expo = torch.tensor([2.0, 3.0, 0.5, -1.0, 0.0, -2.0, 1.5, 4.0], device=dev).repeat(8)
+    shape_of = {"add": "per_column", "sub": "per_row", "mul": "imm", "div": "per_column",
+                "pow": "per_column", "max": "per_row", "min": "imm"}
+    cases = [(op, torch.float32) for op in ML.EW_OPS] + \
+        [(op, torch.bfloat16) for op in ("relu", "sigmoid", "add")]
+    worst_ulps = {}
+    for op, dtype in cases:
+        x = x64.to(dtype)
+        alpha = {"leaky": 0.1, "elu": 0.7}.get(op, 0.0)
+        kind = shape_of.get(op)
+        if kind is None:
+            prog, inputs = ML.Program([(op, 4, 0, 0, alpha)], 4), [x]
+        elif kind == "imm":
+            prog, inputs = ML.Program([(op, 4, 0, ML.IMM, -2.5)], 4), [x]
+        else:
+            other = expo if op == "pow" else (col if kind == "per_column" else row)
+            prog, inputs = ML.Program([(op, 4, 0, 1, 0.0)], 4), [x, other]
+        out = out_like((m, 64))
+        got = ML.ewise(prog, inputs, out)
+        torch.cuda.synchronize()
+        want = ML.ewise_plain(prog, inputs, out_like((m, 64)))
+        ok, worst = ewise_ok(torch, got, want, op, x, alpha)
+        label = f"ewise_{op}_{str(dtype).split('.')[-1]}" + (f"_{kind}" if kind else "")
+        require(ok, f"ml_ewise {label} disagrees with its plain version ({worst} ulp)")
+        worst_ulps[label] = worst
+        nbytes = sum(t.numel() * t.element_size() for t in inputs) + out.numel() * 4
+        results[label] = dict(
+            kernel="ml_ewise", ulps=worst, max_abs_err=float(
+                torch.nan_to_num((got - want).abs(), nan=0.0, posinf=0.0).max()),
+            **timings(lambda: ML.ewise(prog, inputs, out),
+                      lambda: ML.ewise_plain(prog, inputs, out_like((m, 64))), None, nbytes))
+        emit("onnx_check", case=label, **results[label])
+    del x64, got, want
+    # ---- config 5's z-score: [2^20, 768] bf16 -> f32 (graph B's first launch)
+    xb = rand(m, DIM).to(torch.bfloat16)
+    mu, sd = rand(DIM) * 0.05, 1.0 + 0.1 * rand(DIM).abs()
+    zprog = ML.Program([("sub", 4, 0, 1, 0.0), ("div", 4, 4, 2, 0.0)], 4)
+    zout = out_like((m, DIM))
+    got = ML.ewise(zprog, [xb, mu, sd], zout)
+    torch.cuda.synchronize()
+    want = ML.ewise_plain(zprog, [xb, mu, sd], out_like((m, DIM)))
+    require(torch.equal(got, want), "ml_ewise's z-score disagrees with its plain version")
+    results["ewise_zscore_bf16"] = dict(
+        kernel="ml_ewise", max_abs_err=0.0, shape=[m, DIM],
+        **timings(lambda: ML.ewise(zprog, [xb, mu, sd], zout),
+                  lambda: ML.ewise_plain(zprog, [xb, mu, sd], out_like((m, DIM))), None,
+                  m * DIM * 2 + m * DIM * 4 + 2 * DIM * 4))
+    emit("onnx_check", case="ewise_zscore_bf16", **results["ewise_zscore_bf16"])
+    del got, want
+    # ---- layout: a strided Transpose, a Concat on each axis (exact copies)
+    copy = ML.Program([("copy", 0, 0, 0, 0.0)], 0)
+    a8, b1, c8 = rand(m, 8), rand(m, 1), rand(4096, 8)
+    xt = rand(m, 64)
+
+    def transpose():
+        return ML.ewise(copy, [xt.t()], out_like((64, m)))
+
+    def cat(axis):
+        parts = (a8, b1) if axis == 1 else (a8, c8)
+        shape = [m, 9] if axis == 1 else [m + 4096, 8]
+        out, off = out_like(shape), 0
+        for p in parts:
+            ML.ewise(copy, [p], out.narrow(axis, off, p.shape[axis]))
+            off += p.shape[axis]
+        return out
+
+    for label, fn, want_fn, nbytes in (
+            ("ewise_transpose_f32", transpose, lambda: xt.t().contiguous(), 2 * xt.numel() * 4),
+            ("ewise_concat_axis1", lambda: cat(1), lambda: torch.cat([a8, b1], 1),
+             2 * m * 9 * 4),
+            ("ewise_concat_axis0", lambda: cat(0), lambda: torch.cat([a8, c8], 0),
+             2 * (m + 4096) * 8 * 4)):
+        got = fn()
+        torch.cuda.synchronize()
+        require(torch.equal(got, want_fn()), f"ml_ewise {label} is not an exact copy")
+        results[label] = dict(kernel="ml_ewise", max_abs_err=0.0,
+                              launches_a_call=2 if "concat" in label else 1,
+                              **timings(fn, want_fn, want_fn, nbytes))
+        emit("onnx_check", case=label, **results[label])
+    # ---- ml_reduce: the inner axis, the outer axis, both
+    g8 = torch.sigmoid(rand(m, 8))
+    for label, x, axes, mean, lib_fn in (
+            ("reduce_mean_inner_2^20x8", g8, [1], True, lambda: torch.mean(g8, 1, keepdim=True)),
+            ("reduce_sum_inner_2^20x768_bf16", xb, [1], False,
+             lambda: torch.sum(xb, 1, dtype=torch.float32)),
+            ("reduce_mean_outer_2^20x8", g8, [0], True, lambda: torch.mean(g8, 0)),
+            ("reduce_sum_both_2^20x8", g8, None, False, lambda: torch.sum(g8))):
+        got = ML.reduce_axis(x, axes, True, mean)
+        torch.cuda.synchronize()
+        want = ML.reduce_axis_plain(x, axes, True, mean)
+        scale = ML.reduce_axis_plain(x.float().abs(), axes, True, mean)
+        err = (got - want).abs()
+        ok = bool((err <= REDUCE_TOL[0] * scale + REDUCE_TOL[1]).all())
+        require(ok, f"ml_reduce {label} disagrees with its plain version (max {float(err.max())})")
+        results[label] = dict(
+            kernel="ml_reduce", max_abs_err=float(err.max()),
+            max_rel_err=float((err / want.abs().clamp_min(1e-30)).max()),
+            **timings(lambda: ML.reduce_axis(x, axes, True, mean),
+                      lambda: ML.reduce_axis_plain(x, axes, True, mean), lib_fn,
+                      x.numel() * x.element_size() + got.numel() * 4))
+        emit("onnx_check", case=label, **results[label])
+    del xb, mu, sd, zout
+    # ---- ml_linear with an epilogue on its three paths
+    head = [("mul", 0, 0, ML.IMM, 0.5), ("add", 0, 0, 1, 0.0), ("elu", 0, 0, 0, 1.0),
+            ("max", 0, 0, ML.IMM, -1.0), ("min", 0, 0, ML.IMM, 4.0),
+            ("sigmoid", 0, 0, 0, 0.0)]
+
+    def head_lib(x, w, c2):
+        return lambda: torch.sigmoid(torch.clamp(F.elu(torch.addmm(c2, x.float(), w, alpha=0.5)),
+                                                 -1.0, 4.0))
+
+    x768b = rand(m, DIM).to(torch.bfloat16)
+    x768 = rand(m, DIM)
+    h64 = F.leaky_relu(rand(m, ONNX_HEAD_HIDDEN), 0.1)
+    lin = []
+    w, b = rand(DIM, 128) / float(np.sqrt(DIM)), rand(128)
+    lin.append(("linear_wide_add_relu_bf16", x768b, w, ML.Epilogue.layer(b, "relu"),
+                (lambda x, w, b: lambda: torch.relu(torch.addmm(b, x.float(), w)))(x768b, w, b)))
+    w1, b1 = rand(DIM, ONNX_HEAD_HIDDEN) / float(np.sqrt(DIM)), 0.1 * rand(ONNX_HEAD_HIDDEN)
+    lin.append(("linear_wide_add_leaky_f32", x768, w1,
+                ML.Epilogue(ML.Program([("add", 0, 0, 1, 0.0), ("leaky", 0, 0, 0, 0.1)], 0),
+                            [b1]),
+                (lambda: F.leaky_relu(torch.addmm(b1, x768, w1), 0.1))))
+    w2 = rand(ONNX_HEAD_HIDDEN, ONNX_HEAD_GATES) / float(np.sqrt(ONNX_HEAD_HIDDEN))
+    c2 = 2.0 * rand(ONNX_HEAD_GATES)
+    lin.append(("linear_narrow_head_f32", h64, w2, ML.Epilogue(ML.Program(head, 0), [c2]),
+                head_lib(h64, w2, c2)))
+    ws, cs = rand(DIM, 1) / float(np.sqrt(DIM)), 2.0 * rand(1)
+    lin.append(("linear_skinny_head_bf16", x768b, ws, ML.Epilogue(ML.Program(head, 0), [cs]),
+                head_lib(x768b, ws, cs)))
+    for label, x, w, ep, lib_fn in lin:
+        got = ML.linear_act(x, w, ep)
+        torch.cuda.synchronize()
+        want = ML.linear_act_plain(x, w, ep)
+        e = float((got - want).abs().max())
+        require(bool(torch.allclose(got, want, **TOL)),
+                f"ml_linear {label} disagrees with its plain version (max {e})")
+        mm, k = x.shape
+        bound, by, fma_bound = linear_bound(mm, k, w.shape[1], x.element_size())
+        results[label] = dict(
+            kernel="ml_linear", m=mm, k=k, n=w.shape[1], x=str(x.dtype).split(".")[-1],
+            epilogue=[i[0] for i in ep.prog.ins], max_abs_err=e, f32_fma_bound_ms=fma_bound,
+            **timings(lambda: ML.linear_act(x, w, ep),
+                      lambda: ML.linear_act_plain(x, w, ep), lib_fn, 0,
+                      (bound, by)))
+        emit("onnx_check", case=label, **results[label])
+    out = {"cases": results, "seconds": time.perf_counter() - t0,
+           "max_abs_err": {kern: max(r["max_abs_err"] for r in results.values()
+                                     if r["kernel"] == kern)
+                           for kern in ("ml_ewise", "ml_reduce", "ml_linear")},
+           "max_ulps": worst_ulps}
+    emit("onnx_check_seconds", seconds=out["seconds"])
+    return out
+
+
+ONNX_KERNEL_NAMES = ("ewise_kernel", "reduce_rows_kernel", "reduce_cols_kernel",
+                     "skinny_kernel", "narrow_kernel", "wide_kernel", "softmax_rows_kernel",
+                     "softmax_warp_kernel", "softmax_long_kernel")
+
+
+# aten ops that run no device kernel: allocations and views (a plan's
+# outputs and its reshapes); a forward that dispatches any other op runs a
+# PyTorch kernel (a copy, a fill, an elementwise op) or a host sync
+NO_KERNEL_OPS = frozenset((
+    "empty.memory_format", "empty_like.default", "empty_strided.default", "view.default",
+    "_unsafe_view.default", "as_strided.default", "permute.default", "t.default",
+    "transpose.int", "slice.Tensor", "select.int", "expand.default", "unsqueeze.default",
+    "squeeze.dim", "squeeze.dims", "alias.default", "detach.default", "_reshape_alias.default"))
+
+
+def aten_ops(torch, fn):
+    """Counter of the aten ops (overload names) one call of fn() dispatches,
+    by a TorchDispatchMode: it sees every op on a tensor and every factory
+    call, whichever device runs it, and never goes silent; a ctypes launch
+    of the port's kernels is no op."""
+    from collections import Counter
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = Counter()
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen[func.__name__] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        fn()
+    return seen
+
+
+def config5_store(device: str, corpus, batch: int):
+    """An open Datastore on `device` holding config 5's items: the corpus
+    under phase 3's MTREE schema (ids = row numbers), ingested with INSERT,
+    the mirror built by a first query."""
+    from surrealdb_tpu_torch.kvs.ds import Datastore
+
+    ds = Datastore("memory", device=device)
+    run = sql_runner(ds)
+    run("DEFINE TABLE item SCHEMALESS; "
+        f"DEFINE INDEX iemb ON item FIELDS emb MTREE DIMENSION {corpus.shape[1]} DIST EUCLIDEAN")
+    t = time.perf_counter()
+    ingest(run, corpus, batch)
+    run("SELECT id FROM item WHERE emb <|10|> $q", {"q": corpus[0].tolist()})
+    emit("config5_store", rows=corpus.shape[0], seconds=time.perf_counter() - t)
+    return ds
+
+
+def onnx_reference(raw: bytes, feats, step: int = 65_536):
+    """The graph's numpy f64 forward (OnnxGraph.build_forward(np)) over the
+    features in f64, in row blocks on a thread each (numpy's loops and BLAS
+    release the GIL; the forward is pure)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from surrealdb_tpu_torch.ml.onnx_mini import OnnxGraph
+
+    fwd = OnnxGraph(raw).build_forward(np)
+    with ThreadPoolExecutor(max(1, min(8, os.cpu_count() or 1))) as pool:
+        return np.concatenate(list(pool.map(
+            lambda i: fwd(feats[i : i + step].astype(np.float64)),
+            range(0, feats.shape[0], step))))
+
+
+def phase_main_path_onnx(torch, device: str, ds, corpus, seed: int = 5,
+                         import_mlp: bool = False):
+    """K16's main path over an open Datastore holding config 5's items
+    (ids = row numbers, an HNSW or MTREE index on emb, bf16 on the card):
+    graph A (`onnx_mlp`: the ML phase's ml::mlp<1> weights as
+    torch.onnx.export writes an nn.Sequential, imported as an
+    {"format": "onnx"} spec) and graph B (`onnx_scaled_head`, from a .surml
+    file through import_surml), each `SELECT VALUE ml::<name><1>(emb) FROM
+    item` once to warm up and once timed. Every answer is held to a numpy
+    f64 forward of the same graph over the features as the card holds them
+    (TOL, key order); each scan is one dispatch and launches exactly its
+    plan's kernels, and the four scans are the path's launches (read
+    before anything calls a plan directly). Then one forward of each plan
+    under aten_ops dispatches no op outside NO_KERNEL_OPS (and launches its
+    plan's kernels), and torch.profiler, where it reports, finds only the
+    port's kernels; graph A's answers equal ml::mlp<1>'s within TOL. Prints
+    rows/s, the forward's device ms (CUDA events) and the window's peak
+    memory."""
+    from collections import Counter
+
+    from surrealdb_tpu_torch.dbs.session import Session
+    from surrealdb_tpu_torch.ml.exec import import_model, import_surml
+
+    t_phase = time.perf_counter()
+    n, dim = corpus.shape
+    run = sql_runner(ds)
+    _, mlp = ml_models(dim, seed)
+    if import_mlp:
+        run("DEFINE MODEL ml::mlp<1>")
+        import_layers(ds, "mlp", mlp)
+    graphs = {"onnx_mlp": onnx_mlp(mlp),
+              "onnx_scaled_head": onnx_scaled_head(np.random.default_rng(seed + 1), dim)}
+    run("DEFINE MODEL ml::onnx_mlp<1>; DEFINE MODEL ml::onnx_scaled_head<1>")
+    import_model(ds, Session.owner(), "onnx_mlp", "1",
+                 {"format": "onnx", "onnx": graphs["onnx_mlp"]})
+    import_surml(ds, Session.owner(),
+                 surml_file(graphs["onnx_scaled_head"], "onnx_scaled_head", "1"))
+    t = time.perf_counter()
+    feats = corpus if device == "cpu" else \
+        torch.from_numpy(corpus).to(torch.bfloat16).to(torch.float32).numpy()
+    want = {name: onnx_reference(raw, feats) for name, raw in graphs.items()}
+    reference_s = time.perf_counter() - t
+    del feats
+
+    def check(got, ref, what):
+        got = np.asarray(got, dtype=np.float64)
+        require(got.shape == ref.shape and np.isfinite(got).all(),
+                f"{what}: shape {got.shape} vs {ref.shape}, or non-finite values")
+        e = float(np.abs(got - ref).max())
+        require(np.allclose(got, ref, **TOL), f"{what}: max abs error {e} against numpy f64")
+        return e
+
+    def timed(q):
+        t0 = time.perf_counter()
+        res = run(q)
+        return res, time.perf_counter() - t0
+
+    mirror = ds.index_stores.get("test", "test", "item", "iemb")
+    reset_launches()  # the ONNX path's run: the SQL scans below, and nothing else
+    out = {"rows": n, "dim": dim, "device": str(ds.device), "reference_s": reference_s}
+    answers, plans = {}, {}
+    for name in graphs:
+        sql = f"SELECT VALUE ml::{name}<1>(emb) FROM item"
+        l0 = read_launches()
+        res, first_s = timed(sql)  # warm-up: lowers the plan, uploads its weights
+        first_launches = ml_launch_delta(l0)
+        cm = ds._ml_cache[("test", "test", name, "1")]
+        require(cm.dispatches == 1, f"{name}'s first scan took {cm.dispatches} dispatches")
+        err_first = check(res, want[name], f"{name} first scan")
+        plan = plans[name] = cm._device_fn(ds.device)
+        mem0 = window_start(torch, device)
+        l0, d0 = read_launches(), cm.dispatches
+        fwd_ms = None
+        if device == "cuda":
+            with forward_events(torch, cm, ds.device) as fwd_ms:
+                res, scan_s = timed(sql)
+        else:
+            res, scan_s = timed(sql)
+        err = check(res, want[name], f"{name} timed scan")
+        answers[name] = res
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+        launches = ml_launch_delta(l0)
+        require(cm.dispatches - d0 == 1, f"a {name} scan took {cm.dispatches - d0} dispatches")
+        if device == "cuda":
+            plan_launches = dict(Counter(plan.kernels))
+            for what, got in (("first", first_launches), ("timed", launches)):
+                require(got == plan_launches,
+                        f"{name}'s {what} scan launched {got}, the plan's {plan_launches}")
+        out[name] = dict(plan=list(plan.kernels), first_scan_s=first_s, scan_s=scan_s,
+                         rows_per_s=n / scan_s, max_abs_err=max(err_first, err),
+                         launches=launches, first_scan_launches=first_launches,
+                         forward_device_ms=fwd_ms, peak_device_memory_bytes=peak,
+                         device_memory_at_window_start_bytes=mem0,
+                         window_peak_above_start_bytes=None if peak is None else peak - mem0)
+        emit("main_path_onnx_scan", graph=name, **out[name])
+    # the main path's launches: the four scans' alone, read before anything
+    # below calls a plan or a model directly
+    run_launches = read_launches()
+    if device == "cuda":
+        want_run = Counter()
+        for plan in plans.values():
+            want_run.update({k: 2 * v for k, v in Counter(plan.kernels).items()})
+        got_run = {k: v for k, v in run_launches.items() if v and k in want_run}
+        require(got_run == dict(want_run),
+                f"the ONNX scans launched {got_run}, twice their plans' {dict(want_run)}")
+        for kern in ("ml_linear", "ml_softmax", "ml_ewise", "ml_reduce"):
+            require(run_launches[kern] > 0, f"{kern} never launched on the ONNX path")
+    out["run_launches"] = {k: v for k, v in run_launches.items() if v}
+    if device == "cuda":  # no PyTorch kernel in a forward, by two witnesses
+        matrix, _mask, _rids = mirror.device_snapshot(ds.device)
+        for name, plan in plans.items():
+            l0 = read_launches()
+            ops = aten_ops(torch, lambda: plan(matrix))
+            torch.cuda.synchronize()
+            foreign = {op: c for op, c in ops.items() if op not in NO_KERNEL_OPS}
+            require(sum(ops.values()) > 0 and not foreign,
+                    f"{name}'s forward dispatched PyTorch ops that run kernels: {foreign} "
+                    f"(all: {dict(ops)})")
+            require(ml_launch_delta(l0) == dict(Counter(plan.kernels)),
+                    f"{name}'s witnessed forward launched {ml_launch_delta(l0)}")
+            kpc = kernels_per_call(torch, lambda: plan(matrix), calls=3)
+            if kpc != "not measured":
+                foreign_k = [k for k in kpc["by_name"]
+                             if not any(ours in k for ours in ONNX_KERNEL_NAMES)]
+                require(not foreign_k and not kpc["memsets"],
+                        f"{name}'s forward ran kernels not the port's: {foreign_k}, "
+                        f"{kpc['memsets']} memsets")
+            out[name].update(aten_ops_a_forward=dict(ops), kernels_per_call=kpc)
+            emit("main_path_onnx_forward_ops", graph=name, aten_ops=dict(ops),
+                 kernels_per_call=kpc)
+    # graph A's timed answers against ml::mlp<1>'s, the same weights as a K10 MLP
+    mlp_res = np.asarray(run("SELECT VALUE ml::mlp<1>(emb) FROM item"), np.float64)
+    a_res = np.asarray(answers["onnx_mlp"], np.float64)
+    e = float(np.abs(a_res - mlp_res).max())
+    require(a_res.shape == mlp_res.shape and np.allclose(a_res, mlp_res, **TOL),
+            f"graph A differs from ml::mlp<1> by {e}")
+    out["onnx_mlp_vs_mlp"] = dict(max_abs_diff=e, bit_equal=bool(np.array_equal(a_res, mlp_res)))
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("main_path_onnx", **{k: v for k, v in out.items() if k not in graphs})
     return out
 
 
@@ -4139,6 +4726,7 @@ class MeshPaths:
         from surrealdb_tpu_torch.idx.ivf import default_nprobe
 
         ml = phase_main_path_ml(self.torch, self.device, ds, self.corpus)
+        onnx = phase_main_path_onnx(self.torch, self.device, ds, self.corpus)
         t0 = time.perf_counter()
         out, mesh, matrix = phase_main_path_mesh(
             self.torch, self.device, ds, "hnsw", "iemb", HNSW_SQL, "ivf-sharded",
@@ -4150,7 +4738,7 @@ class MeshPaths:
             fresh = make_queries(self.corpus, 64, 7, noise=CLUSTER_SIGMA)
             out["kernels"] = phase_mesh_kernels_ivf(
                 self.torch, ivf, mesh, matrix, fresh, default_nprobe(ivf.nlists, 64), DIM)
-        return ml, out
+        return ml, onnx, out
 
 
 # ------------------------------------------------------------------ main
@@ -4973,8 +5561,9 @@ def main(argv=None) -> int:
     ap.add_argument("--multicard", action="store_true",
                     help="only the mesh over every visible card (needs 2+ cards)")
     ap.add_argument("--ml-only", action="store_true",
-                    help="only the K10 checks (phase ml_kernels) and ml_linear's narrow "
-                         "against its skinny design (phase ml_paths)")
+                    help="only the K10 and K16 checks (phases ml_kernels, onnx_check), "
+                         "ml_linear's narrow against its skinny design (phase ml_paths) "
+                         "and the ONNX path over config 5's items in an MTREE store")
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run the main paths tiny on the CPU (plain versions); exits 1")
     ap.add_argument("--file-rows", type=int, default=FILE_ROWS,
@@ -5060,7 +5649,14 @@ def main(argv=None) -> int:
             smi = phase_environment(torch)
             if args.ml_only:
                 phase_ml_kernels(torch)
+                phase_onnx_check(torch)
                 phase_ml_paths(torch)
+                corpus = gen_corpus(full, DIM)
+                ds = config5_store("cuda", corpus, FILE_BATCH)
+                try:
+                    phase_main_path_onnx(torch, "cuda", ds, corpus, import_mlp=True)
+                finally:
+                    ds.close()
             elif args.server_only:
                 corpus = gen_corpus(full, DIM)
                 queries = make_queries(corpus, 24 + 32 * 2, 42)
@@ -5132,7 +5728,7 @@ def main(argv=None) -> int:
             torch, "cuda", corpus, queries, truth, batch=20_000, n_seq=24, n_threads=32,
             rounds=2, then=MeshPaths(torch, "cuda", queries, truth, corpus, n_seq=24,
                                      n_threads=32, rounds=2).hnsw)
-        ml, mesh_b = hnsw.pop("then")
+        ml, onnx, mesh_b = hnsw.pop("then")
         cluster_corpus = corpus[: args.cluster_rows].copy()  # gen_corpus(rows)'s rows
         del corpus
         gc.collect()
@@ -5147,6 +5743,9 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         ml_k = phase_ml_kernels(torch)
+        onnx_k = phase_onnx_check(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
         dry = phase_dryrun_mesh(torch, "cuda")
         emit("server_seconds", main_path_server=server["seconds"])
         emit("mesh_seconds", main_path_mesh_mtree=mesh_a["seconds"],
@@ -5296,6 +5895,34 @@ def main(argv=None) -> int:
                      for lab, r in ml_k["cases"].items() if lab != "config5_bf16"},
          "mlp_forward_events_ms": ml["mlp_forward_events_ms"]},
     ))
+    # K16 (the ONNX plan): ml_ewise at config 5's z-score (graph B's first
+    # launch), ml_reduce at graph B's mean, ml_linear's epilogue at graph
+    # B's head; launches over the ONNX path's run (both graphs' two scans
+    # each, nothing else)
+    oc, onnx_run = onnx_k["cases"], onnx["run_launches"]
+    k16_keys = ("ms", "queued_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    for name, kern, case, shape in (
+        ("K16 ONNX forward: ml_ewise (elementwise chains, Transpose, Concat)", "ml_ewise",
+         "ewise_zscore_bf16", {"m": 1 << 20, "n": DIM, "x": "bfloat16", "program": "sub, div"}),
+        ("K16 ONNX forward: ml_reduce (ReduceSum, ReduceMean)", "ml_reduce",
+         "reduce_mean_inner_2^20x8", {"m": 1 << 20, "n": ONNX_HEAD_GATES, "axes": [1],
+                                      "mean": True}),
+        ("K16 ONNX forward: ml_linear with an epilogue program (MatMul / Gemm and the chain "
+         "after it)", "ml_linear", "linear_narrow_head_f32",
+         {"m": 1 << 20, "k": ONNX_HEAD_HIDDEN, "n": ONNX_HEAD_GATES, "x": "float32"}),
+    ):
+        kernels.append(kernel_entry(
+            name, kern, "surrealdb_tpu_torch/csrc/onnx.cu" if kern != "ml_linear"
+            else "surrealdb_tpu_torch/csrc/ml.cu", "surrealdb_tpu/ml/model.py:198",
+            onnx_run.get(kern, 0), onnx_k["max_abs_err"][kern],
+            {k: oc[case][k] for k in k16_keys}, shape,
+            {"queued_and_library_by_case": {lab: {k: r.get(k) for k in k16_keys + (
+                "library_queued_ms", "max_abs_err", "ulps") if k in r}
+                for lab, r in oc.items() if r["kernel"] == kern},
+             "plans": {g: onnx[g]["plan"] for g in ("onnx_mlp", "onnx_scaled_head")},
+             "forward_device_ms": {g: onnx[g]["forward_device_ms"]
+                                   for g in ("onnx_mlp", "onnx_scaled_head")}},
+        ))
     # K11-K15 (parallel/mesh.py): 8 shards on cuda:0; K11's launches are
     # the merges of its mesh window and K13's its reranks (one a dispatched
     # tile each), K12, K14 and K15's those of the dry run, their only caller

@@ -36,6 +36,7 @@ using std::min; using std::max;
 #define __shared__ static
 #define __forceinline__ inline
 #define __noinline__ __attribute__((noinline))
+#define __grid_constant__
 #define __launch_bounds__(...)
 #define __align__(n) __attribute__((aligned(n)))
 struct dim3 { unsigned x = 1, y = 1, z = 1; dim3() {} dim3(unsigned a) : x(a) {} };

@@ -7,11 +7,18 @@
 // f32 (preferred_element_type=f32), then relu / tanh / sigmoid / softmax
 // over the last axis / none. Two kernels:
 //
-// ml_linear: out [M, N] f32 = act(x [M, K] @ W [K, N] + b [N]); x f32 or
-// bf16 (the vector mirror as the card holds it: read as bf16, upcast
-// exactly, so no f32 copy of the corpus is made), W and b f32, the
-// activation (none, relu, tanh, sigmoid) fused into the epilogue. The
-// result is f32-accurate: no TF32, no bf16 rounding of W or of f32 x.
+// ml_linear: out [M, N] f32 = E(x [M, K] @ W [K, N]); x f32 or bf16 (the
+// vector mirror as the card holds it: read as bf16, upcast exactly, so no
+// f32 copy of the corpus is made), W f32, E the epilogue program
+// (ewise.cuh): at most 8 instructions passed by value, over the
+// product and up to two per-column [N] operands. A model layer's is
+// act(h + b): the bias add and one activation instruction; an ONNX Gemm's
+// or MatMul's (K16, ml/onnx_mini.py) carries its alpha, + beta C and the
+// chain of elementwise nodes after it. E runs over a thread's tile of
+// products before they are written (epi_tile: one dispatch an
+// instruction); the wide path runs a layer's act(h + b) value by value at
+// the store instead (its LAYER instance). The result is
+// f32-accurate: no TF32, no bf16 rounding of W or of f32 x.
 // Three paths, chosen by linear_dispatch:
 //
 // - skinny (N = 1, bench config 5's 768 -> 1; N = 2 over rows of 1 KB or
@@ -65,8 +72,8 @@
 //   of bf16 pairs with a 20-word pitch, so every fragment load is one
 //   conflict-free 32-bit read. The planes are double-buffered: one
 //   barrier a step, and a warp issues step s's mma.sync and then splits
-//   step s + 1 while the tensor cores work. Bias and activation are fused
-//   into the epilogue, stored from the fragments (a lane's two columns as
+//   step s + 1 while the tensor cores work. The epilogue program runs on
+//   the fragments, which are stored (a lane's two columns as
 //   one 8-byte store: whole 32-byte sectors). What holds the path back on
 //   the H100: every block splits W again for each of its tiles, f32 x is
 //   split on the CUDA cores, and mma.sync reaches about half the tensor
@@ -104,6 +111,7 @@
 
 #include <atomic>
 
+#include "ewise.cuh"
 #include "launch.cuh"
 #include "mma.cuh"
 #include "rowstream.cuh"
@@ -114,17 +122,8 @@
 
 namespace {
 
-enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_TANH = 2, ACT_SIGMOID = 3 };
-
 __device__ __forceinline__ float ml_f(float v) { return v; }
 __device__ __forceinline__ float ml_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-__device__ __forceinline__ float ml_act(float v, int act) {
-  if (act == ACT_RELU) return v < 0.f ? 0.f : v;  // keeps a NaN, as jnp.maximum does
-  if (act == ACT_TANH) return tanhf(v);
-  if (act == ACT_SIGMOID) return 1.f / (1.f + expf(-v));
-  return v;
-}
 
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -165,15 +164,15 @@ constexpr int SK_W_BYTES =
     SK_SMEM_CAP - SkTile::RING < 96 * 1024 ? SK_SMEM_CAP - SkTile::RING : 96 * 1024;
 static_assert(SK_W_BYTES >= 8 * 1024, "room for W");
 
-// out[row] = act(x[row] . W[:, n] + b[n]) for the NB (>= N) columns of W
-// staged as f32 [NB][wp] (zero past N and K): an f32 FMA chain over k a
-// (row, column), bias and activation at the row's end (rowstream.cuh)
+// out[row] = E(x[row] . W[:, n]) for the NB (>= N) columns of W staged as
+// f32 [NB][wp] (zero past N and K): an f32 FMA chain over k a (row,
+// column), the epilogue at the row's end (rowstream.cuh)
 template <typename T, int NB>
 struct LinearBody {
   static constexpr int E = 16 / (int)sizeof(T);
   const float* w;
-  const float* b;
-  int K, N, act;
+  const EpiProg* epi;
+  int K, N;
   long long re;
   float* out;
   float* ws;
@@ -207,13 +206,14 @@ struct LinearBody {
       }
   }
   __device__ void finish(long long row0) {
+    epi_tile<SK_R, NB>(*epi, acc, EpiCols{0, 2}, N);
 #pragma unroll
     for (int i = 0; i < SK_R; ++i) {
       const long long row = row0 + i * RS_THREADS + threadIdx.x;
       if (row >= re) continue;
 #pragma unroll
       for (int n = 0; n < NB; ++n)
-        if (n < N) out[row * N + n] = ml_act(acc[i][n] + b[n], act);
+        if (n < N) out[row * N + n] = acc[i][n];
     }
   }
 };
@@ -223,16 +223,16 @@ struct LinearBody {
 template <typename T, int NB>
 __global__ void __launch_bounds__(RS_THREADS, 1)
 skinny_kernel(const T* __restrict__ x, const float* __restrict__ w,
-              const float* __restrict__ b, long long M, int K, int N, int act, long long per,
-              int vec, int kchunk, float* __restrict__ out) {
+              const __grid_constant__ EpiProg epi,
+              long long M, int K, int N, long long per, int vec, int kchunk,
+              float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char sk_smem[];  // ring, then W
   const long long rb = (long long)blockIdx.x * per, re = min(M, rb + per);
   LinearBody<T, NB> body;
   body.w = w;
-  body.b = b;
+  body.epi = &epi;
   body.K = K;
   body.N = N;
-  body.act = act;
   body.re = re;
   body.out = out;
   body.ws = reinterpret_cast<float*>(sk_smem + SkTile::RING);
@@ -259,8 +259,9 @@ struct NarrowTile {
 
 template <typename T, int NB, int R>
 __global__ void __launch_bounds__(NR_THREADS, 1)
-narrow_kernel(const T* __restrict__ x, const float* __restrict__ w, const float* __restrict__ b,
-              long long M, int K, int N, int act, float* __restrict__ out) {
+narrow_kernel(const T* __restrict__ x, const float* __restrict__ w,
+              const __grid_constant__ EpiProg epi,
+              long long M, int K, int N, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char nr_smem[];
   constexpr int E = 16 / (int)sizeof(T);         // values a 16-byte piece
   constexpr int KC = NR_CHUNK / (int)sizeof(T);  // values of a row a step
@@ -276,9 +277,6 @@ narrow_kernel(const T* __restrict__ x, const float* __restrict__ w, const float*
     const int k = e / NB, n = e % NB;
     ws[e] = n < N ? w[(long long)k * N + n] : 0.f;
   }
-  float bias[NB];
-#pragma unroll
-  for (int n = 0; n < NB; ++n) bias[n] = n < N ? b[n] : 0.f;
   const long long tiles = (M + ROWS - 1) / ROWS;
   const int nchunks = (K + KC - 1) / KC;
   const long long mine =
@@ -331,13 +329,14 @@ narrow_kernel(const T* __restrict__ x, const float* __restrict__ w, const float*
     }
     if (chunk == nchunks - 1) {  // the tile's last chunk: its outputs
       const long long row0 = tile_row0(s);
+      epi_tile<R, NB>(epi, acc, EpiCols{0, 2}, N);
       __syncthreads();  // the stage is read: it holds the outputs now
       float* os = reinterpret_cast<float*>(cur);
 #pragma unroll
       for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int n = 0; n < NB; ++n) {
-          os[(tid + i * NR_THREADS) * P + n] = ml_act(acc[i][n] + bias[n], act);
+          os[(tid + i * NR_THREADS) * P + n] = acc[i][n];
           acc[i][n] = 0.f;
         }
       __syncthreads();
@@ -390,11 +389,50 @@ struct WideTile {
                 "the copy and split loops take whole turns of the block");
 };
 
-template <typename T, int MT, int NT>
+// a model layer's program, act(h + b): [add r0, r1] with r1 a per-column
+// [N] operand, then at most one of relu, tanh, sigmoid over r0 (epi_layer
+// reads it off an EpiProg). The bias is required: a test for a missing one
+// at each store cost the bf16 instance a fifth of its time (PERF.md)
+struct EpiLayer {
+  const float* b;  // r1's [N]
+  int act;         // EW_COPY for none
+};
+
+inline bool epi_layer(const EpiProg& e, EpiLayer& l) {
+  l = EpiLayer{nullptr, EW_COPY};
+  const EwIns* in = e.ins;
+  if (e.n < 1 || in[0].op != EW_ADD || in[0].a + in[0].b != 1 || in[0].a * in[0].b != 0 ||
+      e.opnd[0] == nullptr || e.ostride[0] != 1)
+    return false;
+  l.b = e.opnd[0];
+  int i = 1;
+  if (i < e.n && in[i].a == 0 &&
+      (in[i].op == EW_RELU || in[i].op == EW_TANH || in[i].op == EW_SIGMOID)) {
+    l.act = in[i].op;
+    ++i;
+  }
+  return i == e.n;
+}
+
+// a layer's activation of one value at its store: epi_tile's, so the bits
+// agree
+__device__ __forceinline__ float layer_act(float v, int act) {
+  if (act == EW_RELU) return ew_relu(v);
+  if (act == EW_TANH) return tanhf(v);
+  if (act == EW_SIGMOID) return ew_sigmoid(v);
+  return v;
+}
+
+// LAYER: the program is a layer's (epi_layer: bias lb, activation lact),
+// run value by value at the store, which keeps the bf16 instance's
+// registers (128 a thread at 512 threads, 64 of them accumulators) at the
+// fused bias and activation's; else epi_tile over a copy of the tile (it
+// spills there: PERF.md)
+template <typename T, int MT, int NT, bool LAYER>
 __global__ void __launch_bounds__(WD_THREADS, 1)
-wide_kernel(const T* __restrict__ x, const float* __restrict__ w, const float* __restrict__ b,
-            long long M, int K, int N, int act, int vec, int wvec, int ovec,
-            float* __restrict__ out) {
+wide_kernel(const T* __restrict__ x, const float* __restrict__ w,
+            const __grid_constant__ EpiProg epi, const float* __restrict__ lb, int lact,
+            long long M, int K, int N, int vec, int wvec, int ovec, float* __restrict__ out) {
   using Tile = WideTile<T, MT, NT>;
   constexpr int BM = Tile::BM, BN = Tile::BN, E = Tile::E, XP = Tile::XP, WP = Tile::WP;
   constexpr bool XBF = sizeof(T) == 2;
@@ -558,37 +596,86 @@ wide_kernel(const T* __restrict__ x, const float* __restrict__ w, const float* _
     }
     convert(s + 1);
     if (s % nk == nk - 1) {
-      // the tile's outputs with bias and activation, stored from the
+      // the tile's outputs through the epilogue, stored from the
       // fragments: a lane's two columns as one 8-byte store, so a warp's
       // store fills whole 32-byte sectors of 8 rows
       long long row0;
       int col0;
       tile_of(s, row0, col0);
+      if constexpr (LAYER) {
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
+          for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const long long row = row0 + wm * 16 * MT + 16 * mt + g + 8 * h;
-            const int col = col0 + wn * 8 * NT + 8 * nt + 2 * t;
-            float v[2] = {acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]};
-            acc[mt][nt][2 * h] = acc[mt][nt][2 * h + 1] = 0.f;
-            if (row >= M) continue;
-#pragma unroll
-            for (int u = 0; u < 2; ++u)
-              if (col + u < N) {
-                if (!finite_f(v[u])) v[u] = exact_dot(x, w, row, col + u, K, N);
-                v[u] = ml_act(v[u] + b[col + u], act);
-              }
-            if (ovec && col + 1 < N) {  // N even: the pair is all in or all out
-              *reinterpret_cast<float2*>(out + row * N + col) = float2{v[0], v[1]};
-            } else {
+            for (int h = 0; h < 2; ++h) {
+              const long long row = row0 + wm * 16 * MT + 16 * mt + g + 8 * h;
+              const int col = col0 + wn * 8 * NT + 8 * nt + 2 * t;
+              float v[2] = {acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]};
+              acc[mt][nt][2 * h] = acc[mt][nt][2 * h + 1] = 0.f;
+              if (row >= M) continue;
 #pragma unroll
               for (int u = 0; u < 2; ++u)
-                if (col + u < N) out[row * N + col + u] = v[u];
+                if (col + u < N) {
+                  if (!finite_f(v[u])) v[u] = exact_dot(x, w, row, col + u, K, N);
+                  v[u] = __fadd_rn(v[u], lb[col + u]);
+                  v[u] = layer_act(v[u], lact);
+                }
+              if (ovec && col + 1 < N) {  // N even: the pair is all in or all out
+                *reinterpret_cast<float2*>(out + row * N + col) = float2{v[0], v[1]};
+              } else {
+#pragma unroll
+                for (int u = 0; u < 2; ++u)
+                  if (col + u < N) out[row * N + col + u] = v[u];
+              }
             }
-          }
+      } else {
+        // a lane's outputs as v [2 MT][2 NT]: row 2 mt + h, column 2 nt + u
+        float v[2 * MT][2 * NT];
+        const EpiCols cols{col0 + wn * 8 * NT + 2 * t, 8};
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int u = 0; u < 2; ++u) {
+                float p = acc[mt][nt][2 * h + u];
+                if (!finite_f(p)) {  // the row only here: no row held through the epilogue
+                  const long long row = row0 + wm * 16 * MT + 16 * mt + g + 8 * h;
+                  if (row < M && cols(2 * nt + u) < N)
+                    p = exact_dot(x, w, row, cols(2 * nt + u), K, N);
+                }
+                v[2 * mt + h][2 * nt + u] = p;
+              }
+        epi_tile<2 * MT, 2 * NT>(epi, v, cols, N);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const long long row = row0 + wm * 16 * MT + 16 * mt + g + 8 * h;
+              const int col = cols(2 * nt);
+              if (row >= M) continue;
+              if (ovec && col + 1 < N) {  // N even: the pair is all in or all out
+                *reinterpret_cast<float2*>(out + row * N + col) =
+                    float2{v[2 * mt + h][2 * nt], v[2 * mt + h][2 * nt + 1]};
+              } else {
+#pragma unroll
+                for (int u = 0; u < 2; ++u)
+                  if (col + u < N) out[row * N + col + u] = v[2 * mt + h][2 * nt + u];
+              }
+            }
+        // zeroed only now: v takes acc's registers through the epilogue
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+      }
     }
   }
   cp_async_wait<0>();
@@ -720,8 +807,8 @@ softmax_long_kernel(const float* h, long long M, int N, float* out) {
 
 // ------------------------------------------------------------------ launchers
 template <typename T, int NB>
-int launch_skinny(const T* x, const float* w, const float* b, long long M, int K, int N,
-                  int act, bool vec, float* out, cudaStream_t s) {
+int launch_skinny(const T* x, const float* w, const EpiProg& epi, long long M, int K, int N,
+                  bool vec, float* out, cudaStream_t s) {
   constexpr int KC = RS_CHUNK / (int)sizeof(T);
   static std::atomic<unsigned> seen{0};
   const int fit = SK_W_BYTES / (NB * 4) / KC * KC;
@@ -731,20 +818,20 @@ int launch_skinny(const T* x, const float* w, const float* b, long long M, int K
   const long long grid = min((long long)sm_count(), (M + 31) / 32);
   const long long per = (M + grid - 1) / grid;
   skinny_kernel<T, NB><<<(unsigned)grid, RS_THREADS, SkTile::RING + NB * wp * 4, s>>>(
-      x, w, b, M, K, N, act, per, (int)vec, kchunk, out);
+      x, w, epi, M, K, N, per, (int)vec, kchunk, out);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int NB, int R>
-int launch_narrow(const T* x, const float* w, const float* b, long long M, int K, int N,
-                  int act, float* out, cudaStream_t s) {
+int launch_narrow(const T* x, const float* w, const EpiProg& epi, long long M, int K, int N,
+                  float* out, cudaStream_t s) {
   using Tile = NarrowTile<R>;
   static std::atomic<unsigned> seen{0};
   if (int err = opt_in_smem(narrow_kernel<T, NB, R>, Tile::SMEM_MAX, seen)) return err;
   const size_t smem = (size_t)Tile::STAGES * Tile::STAGE_BYTES + (size_t)K * NB * sizeof(float);
   const long long tiles = (M + Tile::ROWS - 1) / Tile::ROWS;
   const unsigned grid = (unsigned)min(tiles, (long long)sm_count());
-  narrow_kernel<T, NB, R><<<grid, NR_THREADS, smem, s>>>(x, w, b, M, K, N, act, out);
+  narrow_kernel<T, NB, R><<<grid, NR_THREADS, smem, s>>>(x, w, epi, M, K, N, out);
   return (int)cudaGetLastError();
 }
 
@@ -752,41 +839,50 @@ int launch_narrow(const T* x, const float* w, const float* b, long long M, int K
 // long row: K of 1 KB or more), else R = 2 (ML_FORCE_PATH 2 and 3 force 2
 // and 4 at NB >= 8)
 template <typename T, int NB>
-int launch_narrow(const T* x, const float* w, const float* b, long long M, int K, int N,
-                  int act, float* out, cudaStream_t s) {
+int launch_narrow(const T* x, const float* w, const EpiProg& epi, long long M, int K, int N,
+                  float* out, cudaStream_t s) {
   const bool long_rows = (long long)K * sizeof(T) >= 1024;
   if (NB >= 8 && (ML_FORCE_PATH == 0 ? long_rows : ML_FORCE_PATH == 3))
-    return launch_narrow<T, NB, NB >= 8 ? 4 : 2>(x, w, b, M, K, N, act, out, s);
-  return launch_narrow<T, NB, 2>(x, w, b, M, K, N, act, out, s);
+    return launch_narrow<T, NB, NB >= 8 ? 4 : 2>(x, w, epi, M, K, N, out, s);
+  return launch_narrow<T, NB, 2>(x, w, epi, M, K, N, out, s);
 }
 
-template <typename T, int MT, int NT>
-int launch_wide(const T* x, const float* w, const float* b, long long M, int K, int N, int act,
-                bool vec, float* out, cudaStream_t s) {
+template <typename T, int MT, int NT, bool LAYER>
+int launch_wide(const T* x, const float* w, const EpiProg& epi, const EpiLayer& layer,
+                long long M, int K, int N, bool vec, float* out, cudaStream_t s) {
   using Tile = WideTile<T, MT, NT>;
   static std::atomic<unsigned> seen{0};
-  if (int err = opt_in_smem(wide_kernel<T, MT, NT>, Tile::SMEM, seen)) return err;
+  if (int err = opt_in_smem(wide_kernel<T, MT, NT, LAYER>, Tile::SMEM, seen)) return err;
   const long long tiles = (M + Tile::BM - 1) / Tile::BM * ((N + Tile::BN - 1) / Tile::BN);
   const unsigned grid = (unsigned)min(tiles, (long long)sm_count());
   const int wvec = N % 4 == 0 && ((uintptr_t)w % 16) == 0;
   const int ovec = N % 2 == 0 && ((uintptr_t)out % 8) == 0;
-  wide_kernel<T, MT, NT><<<grid, WD_THREADS, Tile::SMEM, s>>>(
-      x, w, b, M, K, N, act, (int)vec, wvec, ovec, out);
+  wide_kernel<T, MT, NT, LAYER><<<grid, WD_THREADS, Tile::SMEM, s>>>(
+      x, w, epi, layer.b, layer.act, M, K, N, (int)vec, wvec, ovec, out);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int MT, int NT>
+int launch_wide(const T* x, const float* w, const EpiProg& epi, long long M, int K, int N,
+                bool vec, float* out, cudaStream_t s) {
+  EpiLayer layer;
+  if (epi_layer(epi, layer))
+    return launch_wide<T, MT, NT, true>(x, w, epi, layer, M, K, N, vec, out, s);
+  return launch_wide<T, MT, NT, false>(x, w, epi, layer, M, K, N, vec, out, s);
 }
 
 // W's row width in the narrow path: N rounded up to 2, 4, 8, 12 or 16
 constexpr int narrow_nb(int n) { return n <= 2 ? 2 : n <= 4 ? 4 : n <= 8 ? 8 : n <= 12 ? 12 : 16; }
 
 template <typename T>
-int linear_dispatch(const T* x, const float* w, const float* b, long long M, int K, int N,
-                    int act, float* out, cudaStream_t s) {
+int linear_dispatch(const T* x, const float* w, const EpiProg& e, long long M, int K, int N,
+                    float* out, cudaStream_t s) {
   constexpr int E = 16 / (int)sizeof(T);
   const bool vec = K % E == 0 && ((uintptr_t)x % 16) == 0;
   if (N > 16) {  // column tiles of 128, or of 64 where that pads N less
     if ((N + 63) / 64 * 64 < (N + 127) / 128 * 128)
-      return launch_wide<T, sizeof(T) == 2 ? 4 : 2, 2>(x, w, b, M, K, N, act, vec, out, s);
-    return launch_wide<T, sizeof(T) == 2 ? 4 : 1, 4>(x, w, b, M, K, N, act, vec, out, s);
+      return launch_wide<T, sizeof(T) == 2 ? 4 : 2, 2>(x, w, e, M, K, N, vec, out, s);
+    return launch_wide<T, sizeof(T) == 2 ? 4 : 1, 4>(x, w, e, M, K, N, vec, out, s);
   }
   // narrow where it runs, but N = 2 over rows of 1 KB or more on the skinny
   // path (the rule in the header), unless ML_FORCE_PATH says otherwise
@@ -796,38 +892,39 @@ int linear_dispatch(const T* x, const float* w, const float* b, long long M, int
                           : ML_FORCE_PATH >= 2 && narrow_runs;
   if (narrow) {
     switch (narrow_nb(N)) {
-      case 2: return launch_narrow<T, 2>(x, w, b, M, K, N, act, out, s);
-      case 4: return launch_narrow<T, 4>(x, w, b, M, K, N, act, out, s);
-      case 8: return launch_narrow<T, 8>(x, w, b, M, K, N, act, out, s);
-      case 12: return launch_narrow<T, 12>(x, w, b, M, K, N, act, out, s);
-      default: return launch_narrow<T, 16>(x, w, b, M, K, N, act, out, s);
+      case 2: return launch_narrow<T, 2>(x, w, e, M, K, N, out, s);
+      case 4: return launch_narrow<T, 4>(x, w, e, M, K, N, out, s);
+      case 8: return launch_narrow<T, 8>(x, w, e, M, K, N, out, s);
+      case 12: return launch_narrow<T, 12>(x, w, e, M, K, N, out, s);
+      default: return launch_narrow<T, 16>(x, w, e, M, K, N, out, s);
     }
   }
-  if (N <= 1) return launch_skinny<T, 1>(x, w, b, M, K, N, act, vec, out, s);
-  if (N <= 2) return launch_skinny<T, 2>(x, w, b, M, K, N, act, vec, out, s);
-  if (N <= 4) return launch_skinny<T, 4>(x, w, b, M, K, N, act, vec, out, s);
-  if (N <= 8) return launch_skinny<T, 8>(x, w, b, M, K, N, act, vec, out, s);
-  return launch_skinny<T, 16>(x, w, b, M, K, N, act, vec, out, s);
+  if (N <= 1) return launch_skinny<T, 1>(x, w, e, M, K, N, vec, out, s);
+  if (N <= 2) return launch_skinny<T, 2>(x, w, e, M, K, N, vec, out, s);
+  if (N <= 4) return launch_skinny<T, 4>(x, w, e, M, K, N, vec, out, s);
+  if (N <= 8) return launch_skinny<T, 8>(x, w, e, M, K, N, vec, out, s);
+  return launch_skinny<T, 16>(x, w, e, M, K, N, vec, out, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// K10 linear layer. x [M, K] row-major, f32 (x_bf16 = 0) or bf16 (x_bf16 =
-// 1); w [K, N] row-major f32; b [N] f32; act 0 none, 1 relu, 2 tanh, 3
-// sigmoid; out [M, N] f32 (never aliasing x). M = 0 launches nothing.
-int ml_linear(const void* x, int x_bf16, const void* w, const void* b, long long M, int K,
-              int N, int act, void* out, void* stream) {
-  if (M < 0 || K <= 0 || N <= 0 || act < ACT_NONE || act > ACT_SIGMOID)
-    return (int)cudaErrorInvalidValue;
+// K10 linear layer (and K16's products). x [M, K] row-major, f32 (x_bf16 =
+// 0) or bf16 (x_bf16 = 1); w [K, N] row-major f32; epi host memory laid out
+// as EpiProg (ewise.cuh; at most 8 instructions, each operand [N] f32 or
+// one value); out [M, N] f32 (never aliasing x). M = 0 launches nothing.
+int ml_linear(const void* x, int x_bf16, const void* w, long long M, int K, int N,
+              const void* epi, void* out, void* stream) {
+  if (M < 0 || K <= 0 || N <= 0 || epi == nullptr) return (int)cudaErrorInvalidValue;
+  const EpiProg e = *static_cast<const EpiProg*>(epi);
+  if (!epi_valid(e)) return (int)cudaErrorInvalidValue;
   if (M == 0) return (int)cudaSuccess;
   const cudaStream_t s = (cudaStream_t)stream;
   if (x_bf16)
-    return linear_dispatch<__nv_bfloat16>((const __nv_bfloat16*)x, (const float*)w,
-                                          (const float*)b, M, K, N, act, (float*)out, s);
-  return linear_dispatch<float>((const float*)x, (const float*)w, (const float*)b, M, K, N, act,
-                                (float*)out, s);
+    return linear_dispatch<__nv_bfloat16>((const __nv_bfloat16*)x, (const float*)w, e, M, K, N,
+                                          (float*)out, s);
+  return linear_dispatch<float>((const float*)x, (const float*)w, e, M, K, N, (float*)out, s);
 }
 
 // K10 softmax over the last axis: h [M, N] f32 -> out [M, N] f32; out may

@@ -417,6 +417,7 @@ def try_columnar_ml_scan(ctx, stm, sources):
     order = sorted(
         range(len(rids_live)), key=lambda i: enc_value_key(rids_live[i].id)
     )
+    # the same Python floats as float() of each f32 value, in one pass
     if cm.out_dim == 1:
-        return [float(out[i, 0]) for i in order]
-    return [[float(x) for x in out[i]] for i in order]
+        return out[order, 0].tolist()
+    return out[order].tolist()

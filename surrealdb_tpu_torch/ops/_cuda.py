@@ -94,9 +94,15 @@ _SIGNATURES = {
                                               ctypes.c_longlong, _P]),
     "bm25_match_by_value_terms": (ctypes.c_int, []),
     "bm25_match_state_entries": (ctypes.c_longlong, [ctypes.c_longlong]),
-    "ml_linear": (ctypes.c_int, [_P, ctypes.c_int, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                                 ctypes.c_int, ctypes.c_int, _P, _P]),
+    "ml_linear": (ctypes.c_int, [_P, ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_int,
+                                 ctypes.c_int, _P, _P, _P]),
     "ml_softmax": (ctypes.c_int, [_P, ctypes.c_longlong, ctypes.c_int, _P, _P]),
+    "ml_ewise": (ctypes.c_int, [_P, _P]),
+    "ml_reduce": (ctypes.c_int, [_P, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+                                 ctypes.c_longlong, ctypes.c_float, _P, ctypes.c_longlong, _P,
+                                 _P]),
+    "ml_reduce_scratch_floats": (ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_longlong,
+                                                     ctypes.c_longlong]),
     "mesh_topk_merge": (ctypes.c_int, [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P,
                                        _P]),

@@ -1,5 +1,5 @@
 """The CUDA kernels' logic (surrealdb_tpu_torch/csrc/knn.cu, graph.cu,
-bm25.cu, ml.cu and mesh.cu, with the headers they include, and ivf.cu's
+bm25.cu, ml.cu, onnx.cu and mesh.cu, with the headers they include, and ivf.cu's
 rerank as K13 shares it), run on the CPU under the emulation header
 csrc/emu/cuda_emu.h and held against the plain PyTorch versions. The IVF
 and graph kernels K3-K7 have their cases in
@@ -24,7 +24,12 @@ up to ties at the k-th distance; the dense graph count (K8) exact: integer
 counts; BM25 (K9) rtol 1e-5, atol 1e-6 (both sides round the same f32
 steps in the same order, only log1pf may differ), tied rows bit-identical,
 and its top-k order exact; the ML forward (K10) rtol 1e-5, atol 1e-5 (f32
-sums in another order), softmax outputs atol 1e-6; the mesh kernels: the
+sums in another order), softmax outputs atol 1e-6; the ONNX plan's kernels
+(K16): ml_ewise exact for add, sub, mul, div, max, min, neg, relu, leaky
+relu and copies (NaN where the plain version has NaN), at most 2 ulp for
+exp, sqrt, pow, tanh, sigmoid and elu (the host's libm against PyTorch's);
+ml_reduce within 1e-5 of the sum of |x| (f32 sums in another order);
+ml_linear's epilogue rtol 1e-5, atol 1e-5 as K10; the mesh kernels: the
 merge, the frontier hop and the dedup exact (ids, order, masks, the index
 rules), K12's partial and selected distances rtol 1e-5, atol 1e-4 (f32
 sums in another order) with ids equal up to ties at the kk-th, K13's
@@ -133,7 +138,7 @@ def lib(tmp_path_factory):
     out = tmp_path_factory.mktemp("kernels_emu")
     return _build_emu(out, {n: _source(n) for n in (
         "knn.cu", "knn_f32.cu", "knn_bf16_lo.cu", "knn_bf16_hi.cu", "ivf.cu", "graph.cu",
-        "bm25.cu", "ml.cu", "mesh.cu")})
+        "bm25.cu", "ml.cu", "onnx.cu", "mesh.cu")})
 
 
 def _means(lib, q, x, metric):
@@ -874,8 +879,12 @@ def test_k9_match_planted_fault_fails_the_comparison(tmp_path, fault):
 
 def _linear_emu(lib, x, w, b, act):
     out = torch.empty((x.shape[0], w.shape[1]))
-    assert ML._launch_linear(lib, x, w, b, act, out, None) == 0
+    assert ML._launch_linear(lib, x, w, ML.Epilogue.layer(b, act), out, None) == 0
     return out
+
+
+def _linear_plain(x, w, b, act):
+    return ML.linear_act_plain(x, w, ML.Epilogue.layer(b, act))
 
 
 def _softmax_emu(lib, h, out=None):
@@ -902,7 +911,7 @@ def test_k10_linear_matches_plain(lib, n, x_dtype, act):
     a multiple of any path's row tile."""
     x, w, b = _ml_inputs(n, 77, 48, n, x_dtype)
     got = _linear_emu(lib, x, w, b, act)
-    torch.testing.assert_close(got, ML.linear_act_plain(x, w, b, act), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, _linear_plain(x, w, b, act), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -917,7 +926,7 @@ def test_k10_linear_odd_k_and_chunked_w(lib, k, n, x_dtype):
     96 KB chunk; K = 6,200 at N = 2 takes the skinny path's one chunk."""
     x, w, b = _ml_inputs(k + n, 37, k, n, x_dtype)
     got = _linear_emu(lib, x, w, b, "relu")
-    torch.testing.assert_close(got, ML.linear_act_plain(x, w, b, "relu"), rtol=1e-5,
+    torch.testing.assert_close(got, _linear_plain(x, w, b, "relu"), rtol=1e-5,
                                atol=1e-4 if k > 1000 else 1e-5)
 
 
@@ -927,7 +936,7 @@ def test_k10_sigmoid_and_tanh_saturate_without_nan(lib):
     sig = _linear_emu(lib, x, w, b, "sigmoid")[:, 0]
     assert sig.tolist() == [0.0, 0.0, 0.5, 1.0, 1.0]
     assert _linear_emu(lib, x, w, b, "tanh")[:, 0].tolist() == [-1.0, -1.0, 0.0, 1.0, 1.0]
-    torch.testing.assert_close(ML.linear_act_plain(x, w, b, "sigmoid")[:, 0], sig)
+    torch.testing.assert_close(_linear_plain(x, w, b, "sigmoid")[:, 0], sig)
 
 
 @pytest.mark.parametrize("n", [1, 10, 33, 300])
@@ -958,7 +967,7 @@ def test_k10_narrow_matches_plain(lib, n, k, x_dtype):
     walked by the emulation's two persistent blocks, K in 64-byte steps
     through the 3-stage ring (K = 45: the skinny path's scalar loads)."""
     x, w, b = _ml_inputs(100 * n + k, 1100, k, n, x_dtype)
-    _assert_linear_close(_linear_emu(lib, x, w, b, "tanh"), ML.linear_act_plain(x, w, b, "tanh"),
+    _assert_linear_close(_linear_emu(lib, x, w, b, "tanh"), _linear_plain(x, w, b, "tanh"),
                          k)
 
 
@@ -971,7 +980,7 @@ def test_k10_wide_matches_plain(lib, n, k, x_dtype):
     9 tiles): one column tile up to N = 128, two at N = 130, three at N =
     300; K = 45 stages x with plain loads and a ragged last K step."""
     x, w, b = _ml_inputs(1000 + n + k, 150, k, n, x_dtype)
-    _assert_linear_close(_linear_emu(lib, x, w, b, "relu"), ML.linear_act_plain(x, w, b, "relu"),
+    _assert_linear_close(_linear_emu(lib, x, w, b, "relu"), _linear_plain(x, w, b, "relu"),
                          k)
 
 
@@ -984,7 +993,7 @@ def test_k10_unaligned_base_takes_the_scalar_loads(lib, n, x_dtype):
     flat = torch.from_numpy(rng.standard_normal(70 * 64 + 1).astype(np.float32)).to(x_dtype)
     x = flat[1:].view(70, 64)
     _, w, b = _ml_inputs(n, 1, 64, n, torch.float32)
-    _assert_linear_close(_linear_emu(lib, x, w, b, None), ML.linear_act_plain(x, w, b, None), 64)
+    _assert_linear_close(_linear_emu(lib, x, w, b, None), _linear_plain(x, w, b, None), 64)
 
 
 @pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
@@ -1000,7 +1009,7 @@ def test_k10_skinny_rows_past_a_tile_match_plain(lib, x_dtype, k, offset):
     x = flat.to(x_dtype)[offset:].view(1100, k)
     _, w, b = _ml_inputs(k, 1, k, 1, torch.float32)
     _assert_linear_close(_linear_emu(lib, x, w, b, "sigmoid"),
-                         ML.linear_act_plain(x, w, b, "sigmoid"), k)
+                         _linear_plain(x, w, b, "sigmoid"), k)
 
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -1016,7 +1025,7 @@ def test_k10_inf_and_nan_in_x_land_where_f32_puts_them(lib, n, x_dtype):
     x[20, 1], x[20, 2] = float("inf"), -float("inf")
     x = x.to(x_dtype)
     got = _linear_emu(lib, x, w, b, "relu")
-    want = ML.linear_act_plain(x, w, b, "relu")
+    want = _linear_plain(x, w, b, "relu")
     assert bool(torch.isinf(want).any()) and bool(torch.isnan(want).any())
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5, equal_nan=True)
 
@@ -1043,10 +1052,12 @@ def test_k10_softmax_rows_with_neg_inf_match_plain(lib, n):
 
 
 _ML_FAULTS = {
-    # the bias left out of the three linear paths' epilogues
-    "dropped_bias": [("ml_act(acc[i][n] + b[n], act)", "ml_act(acc[i][n], act)"),
-                     ("ml_act(acc[i][n] + bias[n], act)", "ml_act(acc[i][n], act)"),
-                     ("v[u] = ml_act(v[u] + b[col + u], act);", "v[u] = ml_act(v[u], act);")],
+    # the bias (the epilogue's first operand) left out of the three linear
+    # paths' epilogues: epi_src, in ewise.cuh, reads it for them all but the
+    # wide path's layer instance, which adds it at its store
+    "dropped_bias": [("ewise.cuh", "const float* p = e.opnd[reg - 1];",
+                      "const float* p = reg == 1 ? nullptr : e.opnd[reg - 1];"),
+                     ("v[u] = __fadd_rn(v[u], lb[col + u]);", "v[u] = __fadd_rn(v[u], 0.f);")],
     # the softmax's exp without the row max subtracted, in all three kernels
     "softmax_without_max": [("expf(row[c] - m)", "expf(row[c])"),
                             ("expf(v[j] - m)", "expf(v[j])"),
@@ -1072,13 +1083,16 @@ _ML_FAULT_WIDTHS = {"dropped_bias": (1, 10, 130), "softmax_without_max": (10, 13
 
 @pytest.mark.parametrize("fault", sorted(_ML_FAULTS))
 def test_k10_planted_fault_fails_the_comparison(tmp_path, fault):
-    """The comparisons above have teeth: a copy of ml.cu with one fault
-    planted disagrees with the plain versions, on every path it touches."""
-    src = _source("ml.cu")
-    for old, new in _ML_FAULTS[fault]:
+    """The comparisons above have teeth: a copy of ml.cu (or of the
+    ewise.cuh it includes) with one fault planted disagrees with the plain
+    versions, on every path it touches."""
+    srcs = {"ml.cu": _source("ml.cu")}
+    for *name, old, new in _ML_FAULTS[fault]:  # (file,) old, new; ml.cu by default
+        name = name[0] if name else "ml.cu"
+        src = srcs.setdefault(name, _source(name))
         assert src.count(old) == 1
-        src = src.replace(old, new)
-    bad = _build_emu(tmp_path, {"ml.cu": src})
+        srcs[name] = src.replace(old, new)
+    bad = _build_emu(tmp_path, srcs)
     for n in _ML_FAULT_WIDTHS[fault]:
         if fault.startswith("softmax"):
             h = torch.from_numpy((np.random.default_rng(2).standard_normal((300, n)) * 300)
@@ -1089,8 +1103,248 @@ def test_k10_planted_fault_fails_the_comparison(tmp_path, fault):
         for x_dtype in (torch.float32, torch.bfloat16):
             x, w, b = _ml_inputs(n, 600, 128, n, x_dtype)
             assert not torch.allclose(_linear_emu(bad, x, w, b, None),
-                                      ML.linear_act_plain(x, w, b, None), rtol=1e-5,
+                                      _linear_plain(x, w, b, None), rtol=1e-5,
                                       atol=1e-5), (n, x_dtype)
+
+
+
+# ------------------------------------------------------------------ ONNX plan (K16)
+_EXACT_OPS = ("copy", "add", "sub", "mul", "div", "max", "min", "neg", "relu", "leaky")
+_ULP_OPS = ("exp", "sqrt", "pow", "tanh", "sigmoid", "elu")
+
+
+def _special_rows(rng, m, n, dtype=torch.float32):
+    """[m, n] normal values times 3, with NaN, +-inf, -0.0 and 0.0 planted."""
+    x = rng.standard_normal((m, n)).astype(np.float32) * 3
+    x[0, : min(n, 5)] = [np.nan, np.inf, -np.inf, -0.0, 0.0][: min(n, 5)]
+    x[rng.random((m, n)) < 0.02] = -0.0
+    x[rng.random((m, n)) < 0.01] = np.nan
+    return torch.from_numpy(x).to(dtype)
+
+
+def _ulps(a, b):
+    """|a - b| in f32 units in the last place (NaN against NaN: 0)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    both_nan = torch.isnan(a) & torch.isnan(b)
+    d = (ordered(a) - ordered(b)).abs()
+    return torch.where(both_nan, torch.zeros_like(d), d)
+
+
+def _assert_ewise_close(got, want, op, x=None, alpha=0.0):
+    """Exact ops: the same bits (any NaN for a NaN); others within 2 ulp;
+    Elu within 2 ulp, or where alpha (exp(x) - 1) cancels (x near 0) within
+    alpha times 2 ulp of exp(x): the two libms' exp may differ by an ulp."""
+    assert torch.equal(torch.isnan(got), torch.isnan(want)), op
+    ulps = _ulps(got, want)
+    if op == "elu":
+        e = torch.exp(torch.clamp(x.float(), max=0.0))
+        ulps = torch.where((got - want).abs() <= abs(alpha) * 2 * 2.0 ** -23 * e,
+                           torch.zeros_like(ulps), ulps)
+    limit = 0 if op in _EXACT_OPS else 2
+    assert int(ulps.max()) <= limit, (op, int(ulps.max()))
+
+
+def _ewise_emu(lib, prog, inputs, out):
+    assert ML._launch_ewise(lib, prog, inputs, out, None) == 0
+    return out
+
+
+def _op_prog(op, operand):
+    """op over r0 and, for a binary op, `operand` ("reg": r1, or a float
+    immediate); LeakyRelu / Elu take 0.1 / 0.7 as alpha."""
+    if op in ("add", "sub", "mul", "div", "pow", "max", "min"):
+        b = ML.IMM if isinstance(operand, float) else 1
+        return ML.Program([(op, 4, 0, b, operand if b == ML.IMM else 0.0)], 4)
+    alpha = {"leaky": 0.1, "elu": 0.7}.get(op, 0.0)
+    return ML.Program([(op, 4, 0, 0, alpha)], 4)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", ["per_column", "per_row", "scalar"])
+@pytest.mark.parametrize("op", list(ML.EW_OPS))
+def test_k16_ewise_each_op_matches_plain(lib, op, shape, x_dtype):
+    """Every op code over 301 x 37 values with NaN, +-inf and -0 planted,
+    the second operand [37] (one a column), [301, 1] (one a row) or an
+    immediate; x f32 or bf16 (read as bf16)."""
+    rng = np.random.default_rng(ML.EW_OPS.index(op))
+    x = _special_rows(rng, 301, 37, x_dtype)
+    if op == "pow":  # negative bases meet integer and fractional exponents
+        other = torch.from_numpy(rng.choice([2.0, 3.0, 0.5, -1.0, 0.0, -2.5], 37 if shape ==
+                                            "per_column" else (301, 1)).astype(np.float32))
+    else:
+        other = _special_rows(rng, 301, 37)[:, 0].contiguous()
+        other = other[:37].contiguous() if shape == "per_column" else other.view(301, 1)
+        other[1] = 0.0  # a division by zero
+    operand = -2.5 if shape == "scalar" else "reg"
+    prog = _op_prog(op, operand)
+    inputs = [x] if operand != "reg" else [x, other]
+    got = _ewise_emu(lib, prog, inputs, torch.empty(301, 37))
+    _assert_ewise_close(got, ML.ewise_plain(prog, inputs, torch.empty(301, 37)), op,
+                        torch.broadcast_to(x.float(), (301, 37)), 0.7)
+
+
+def test_k16_ewise_chain_over_four_inputs_and_sixteen_instructions(lib):
+    """A 16-instruction program over 4 inputs of 4 broadcast shapes (a
+    z-score, a gate, clip, a mix of registers), 3-D."""
+    rng = np.random.default_rng(40)
+    x = torch.from_numpy(rng.standard_normal((7, 50, 12)).astype(np.float32))
+    mu = torch.from_numpy(rng.standard_normal(12).astype(np.float32))
+    sd = torch.from_numpy((1 + np.abs(rng.standard_normal((50, 1)))).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((7, 1, 1)).astype(np.float32)).to(torch.bfloat16)
+    ins = [("sub", 4, 0, 1, 0.0), ("div", 4, 4, 2, 0.0), ("mul", 5, 4, 3, 0.0),
+           ("sigmoid", 5, 5, 5, 0.0), ("add", 4, 4, 5, 0.0), ("max", 4, 4, ML.IMM, -1.5),
+           ("min", 4, 4, ML.IMM, 2.0), ("neg", 6, 4, 4, 0.0), ("exp", 6, 6, 6, 0.0),
+           ("tanh", 7, 4, 4, 0.0), ("mul", 6, 6, 7, 0.0), ("leaky", 6, 6, 6, 0.2),
+           ("elu", 6, 6, 6, 1.3), ("sqrt", 7, 5, 5, 0.0), ("pow", 7, 7, ML.IMM, 1.5),
+           ("add", 4, 6, 7, 0.0)]
+    prog = ML.Program(ins, 4)
+    inputs = [x, mu, sd, g]
+    got = _ewise_emu(lib, prog, inputs, torch.empty(7, 50, 12))
+    want = ML.ewise_plain(prog, inputs, torch.empty(7, 50, 12))
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k16_ewise_strided_transpose_and_concat_on_both_axes(lib, x_dtype):
+    """A Transpose as one copy through permuted strides (2-D and a 4-D
+    permutation), a Concat as one copy an input into a slice of its output
+    along each axis: the same bits as the plain versions."""
+    rng = np.random.default_rng(41)
+    copy = ML.Program([("copy", 0, 0, 0, 0.0)], 0)
+    x = torch.from_numpy(rng.standard_normal((130, 24)).astype(np.float32)).to(x_dtype)
+    got = _ewise_emu(lib, copy, [x.t()], torch.empty(24, 130))
+    assert torch.equal(got, x.t().float())
+    x4 = torch.from_numpy(rng.standard_normal((3, 5, 7, 11)).astype(np.float32)).to(x_dtype)
+    v = x4.permute(2, 0, 3, 1)
+    assert torch.equal(_ewise_emu(lib, copy, [v], torch.empty(v.shape)), v.float())
+    a = torch.from_numpy(rng.standard_normal((130, 8)).astype(np.float32)).to(x_dtype)
+    b = torch.from_numpy(rng.standard_normal((130, 1)).astype(np.float32))
+    cat1 = torch.empty(130, 9)
+    _ewise_emu(lib, copy, [a], cat1.narrow(1, 0, 8))
+    _ewise_emu(lib, copy, [b], cat1.narrow(1, 8, 1))
+    assert torch.equal(cat1, torch.cat([a.float(), b], 1))
+    c = torch.from_numpy(rng.standard_normal((77, 8)).astype(np.float32))
+    cat0 = torch.empty(207, 8)
+    _ewise_emu(lib, copy, [a], cat0.narrow(0, 0, 130))
+    _ewise_emu(lib, copy, [c], cat0.narrow(0, 130, 77))
+    assert torch.equal(cat0, torch.cat([a.float(), c], 0))
+
+
+def _reduce_emu(lib, x, axes, mean):
+    """reduce_axis's launches over the emulated library: one a run of
+    adjacent axes, the last run first, the mean's division last."""
+    dims = ML._norm_axes(x.dim(), axes)
+    shape, cur = list(x.shape), x
+    count = int(np.prod([x.shape[d] for d in dims]))
+    runs = ML._axis_runs(dims)
+    for i, (a, z) in enumerate(reversed(runs)):
+        outer, length = int(np.prod(shape[:a])), int(np.prod(shape[a:z + 1]))
+        inner = int(np.prod(shape[z + 1:]))
+        out = torch.empty(outer * inner)
+        div = float(count) if mean and i == len(runs) - 1 else 1.0
+        assert ML._launch_reduce(lib, cur, outer, length, inner, div, out, None) == 0
+        shape[a:z + 1] = [1] * (z + 1 - a)
+        cur = out.view(shape)
+    return cur.view([n for k, n in enumerate(shape) if k not in dims])
+
+
+_REDUCE_CASES = [
+    # (label, shape, axes): the inner axis at G = 1 .. 32 lanes an output,
+    # the outer axis (a thread an output), both, non-adjacent axes, and the
+    # chunked two-launch split (few outputs over a long axis)
+    ("inner_L1", (300, 1), [1]), ("inner_L3", (300, 3), [1]), ("inner_L8", (1000, 8), [1]),
+    ("inner_L12", (300, 12), [1]), ("inner_L33", (300, 33), [1]), ("inner_L700", (40, 700), [1]),
+    ("outer", (1000, 8), [0]), ("both", (1000, 8), None), ("middle", (6, 50, 7), [1]),
+    ("non_adjacent", (6, 50, 7), [0, 2]), ("chunked_outer", (9000, 3), [0]),
+    ("chunked_inner", (3, 9000), [1]), ("chunked_all", (300, 40), None),
+]
+
+
+@pytest.mark.parametrize("mean", [False, True], ids=["sum", "mean"])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", _REDUCE_CASES, ids=lambda c: c[0])
+def test_k16_reduce_matches_plain(lib, case, x_dtype, mean):
+    _, shape, axes = case
+    rng = np.random.default_rng(len(shape) * 100 + shape[-1])
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(x_dtype)
+    got = _reduce_emu(lib, x, axes, mean)
+    want = ML.reduce_axis_plain(x, axes, False, mean)
+    scale = ML.reduce_axis_plain(x.float().abs(), axes, False, mean)
+    assert got.shape == want.shape
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-7).all()), (got - want).abs().max()
+
+
+# graph B's second product: alpha 0.5, + 2 C, Elu, Clip(-1, 4), Sigmoid
+_HEAD_INS = [("mul", 0, 0, ML.IMM, 0.5), ("add", 0, 0, 1, 0.0), ("elu", 0, 0, 0, 1.0),
+             ("max", 0, 0, ML.IMM, -1.0), ("min", 0, 0, ML.IMM, 4.0), ("sigmoid", 0, 0, 0, 0.0)]
+
+
+@pytest.fixture(scope="module", params=[0, 1, 2, 3], ids=["rule", "forced_skinny",
+                                                          "forced_narrow_r2", "forced_narrow_r4"])
+def ml_path_lib(request, lib, tmp_path_factory):
+    """ml.cu as built (the rule), and with ML_FORCE_PATH 1, 2, 3 (N <= 16
+    on the skinny path, or the narrow one at 2 or 4 rows a thread)."""
+    if request.param == 0:
+        return 0, lib
+    out = tmp_path_factory.mktemp(f"ml_force_{request.param}")
+    src = f"#define ML_FORCE_PATH {request.param}\n" + _source("ml.cu")
+    return request.param, _build_emu(out, {"ml.cu": src})
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("k,n", [(64, 1), (64, 8), (768, 10), (64, 40), (45, 8)],
+                         ids=["skinny-n1", "narrow-n8", "narrow-k768-n10", "wide-n40",
+                              "unaligned-k45-n8"])
+def test_k16_linear_epilogue_matches_plain(ml_path_lib, k, n, x_dtype):
+    """ml_linear with graph B's epilogue (alpha, + beta C as a per-column
+    operand, Elu, Clip, Sigmoid) and with a one-value operand, on each path:
+    N = 1 skinny, N = 8 and 10 narrow (or skinny / narrow R = 2 / R = 4
+    where ML_FORCE_PATH says), N = 40 wide, K = 45 the scalar loads; 1,100
+    rows."""
+    force, plib = ml_path_lib
+    x, w, c = _ml_inputs(k * n + force, 1100, k, n, x_dtype)
+    for operand in (c, c[:1].contiguous()):
+        ep = ML.Epilogue(ML.Program(_HEAD_INS, 0), [operand])
+        out = torch.empty(1100, n)
+        assert ML._launch_linear(plib, x, w, ep, out, None) == 0
+        _assert_linear_close(out, ML.linear_act_plain(x, w, epilogue=ep), k)
+
+
+def test_k16_linear_two_operands_and_an_empty_epilogue(lib):
+    """Two per-column operands (r1 - r2, then r1 as a divisor; and an
+    instruction reading neither side from r0, then r1 over r0) and a bare
+    product (no instructions), on the three paths."""
+    for n in (1, 8, 40):
+        x, w, c = _ml_inputs(n + 7, 300, 64, n, torch.float32)
+        d = c.abs() + 0.5
+        for ins in ([("sub", 0, 0, 2, 0.0), ("div", 0, 0, 1, 0.0)],
+                    [("mul", 0, 0, ML.IMM, 0.25), ("sub", 0, 1, 2, 0.0), ("div", 0, 1, 0, 0.0),
+                     ("add", 0, ML.IMM, 0, -1.5)]):
+            ep = ML.Epilogue(ML.Program(ins, 0), [d, c])
+            out = torch.empty(300, n)
+            assert ML._launch_linear(lib, x, w, ep, out, None) == 0
+            _assert_linear_close(out, ML.linear_act_plain(x, w, epilogue=ep), 64)
+        bare = ML.Epilogue(ML.Program([], 0))
+        assert ML._launch_linear(lib, x, w, bare, out, None) == 0
+        _assert_linear_close(out, x @ w, 64)
+
+
+def test_k16_bad_programs_are_refused(lib):
+    """An op code, a register or a length out of range: the launch is
+    refused (cudaErrorInvalidValue), nothing runs."""
+    x = torch.zeros(4, 3)
+    bad = ML.Program([("add", 4, 0, 0, 0.0)], 4)
+    desc = ML._ew_desc(bad, [x], torch.empty(4, 3))
+    desc.ins[0].op = len(ML.EW_OPS)
+    assert lib.ml_ewise(ctypes.byref(desc), None) != 0
+    desc.ins[0].op, desc.nins = 1, 17
+    assert lib.ml_ewise(ctypes.byref(desc), None) != 0
+    ep = ML._epi_desc(ML.Epilogue(ML.Program([("relu", 0, 0, 0, 0.0)], 0)))
+    ep.ins[0].dst = 9
+    assert lib.ml_linear(x.data_ptr(), 0, torch.zeros(3, 2).data_ptr(), 4, 3, 2,
+                         ctypes.byref(ep), torch.empty(4, 2).data_ptr(), None) != 0
 
 
 # ------------------------------------------------------------------ mesh (K11-K15)

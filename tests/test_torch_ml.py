@@ -32,7 +32,6 @@ from surrealdb_tpu_torch.kvs.ds import Datastore as PDatastore
 from surrealdb_tpu_torch.ml import exec as PX
 from surrealdb_tpu_torch.ml import model as PM
 from surrealdb_tpu_torch.ml.onnx_mini import OnnxGraph as POnnxGraph
-from surrealdb_tpu_torch.ml.onnx_mini import TorchNp
 from surrealdb_tpu_torch.ml.surml import denormalise, normalise, parse_surml
 
 RTOL, ATOL, ATOL_768, SOFTMAX_ATOL = 1e-5, 1e-5, 1e-4, 1e-6
@@ -78,7 +77,8 @@ def test_linear_act_wrapper_equals_its_plain_version_on_the_cpu():
     x = torch.from_numpy(rng.standard_normal((9, 20)).astype(np.float32))
     w, b = torch.from_numpy(lay["w"]), torch.from_numpy(lay["b"])
     before = [c.launches for c in PM.KERNELS]
-    assert torch.equal(PM.linear_act(x, w, b, "tanh"), PM.linear_act_plain(x, w, b, "tanh"))
+    ep = PM.Epilogue.layer(b, "tanh")
+    assert torch.equal(PM.linear_act(x, w, ep), PM.linear_act_plain(x, w, ep))
     assert torch.equal(PM.row_softmax(x), PM.row_softmax_plain(x))
     assert [c.launches for c in PM.KERNELS] == before  # the plain versions count nothing
 
@@ -156,9 +156,9 @@ def test_mlp_shapes_through_the_emulated_kernels_match_reference(monkeypatch, em
     forward."""
     calls = []
 
-    def linear(x, w, b, act=None):
+    def linear(x, w, epilogue):
         out = torch.empty((x.shape[0], w.shape[1]))
-        assert PM._launch_linear(emu_lib, x, w, b, act, out, None) == 0
+        assert PM._launch_linear(emu_lib, x, w, epilogue, out, None) == 0
         calls.append("ml_linear")
         return out
 
@@ -186,7 +186,7 @@ def test_mlp_shapes_through_the_emulated_kernels_match_reference(monkeypatch, em
 def test_wrappers_reject_bad_inputs_off_the_cpu():
     x, w, b = torch.zeros(4, 3), torch.zeros(3, 2), torch.zeros(2)
     with pytest.raises(ValueError, match="CUDA"):
-        PM.linear_act(x.to("meta"), w, b)
+        PM.linear_act(x.to("meta"), w, PM.Epilogue.layer(b, None))
     with pytest.raises(ValueError, match="CUDA"):
         PM.row_softmax(x.to("meta"))
 
@@ -380,7 +380,7 @@ def test_onnx_torch_forward_matches_reference_jit(name):
         ref_fwd = jax.jit(ref_fwd)
     want = np.asarray(ref_fwd(jnp.asarray(x)))
     g = POnnxGraph(raw)
-    got = g.build_forward(TorchNp("cpu"))(torch.from_numpy(x))
+    got = g.lower("cpu")(torch.from_numpy(x))
     assert isinstance(got, torch.Tensor) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL,
                                atol=SOFTMAX_ATOL if "softmax" in name else ATOL)
@@ -388,27 +388,32 @@ def test_onnx_torch_forward_matches_reference_jit(name):
     assert np.array_equal(host, ROnnxGraph(raw).build_forward(np)(x))
 
 
-def test_onnx_initializers_upload_once_and_keep_int64():
-    g = POnnxGraph(_graph("reshape_reducesum"))
+def test_onnx_initializers_upload_once_and_keep_int64(monkeypatch):
+    """The plan uploads its f32 weight once, when it is lowered; the
+    Reshape targets stay int64 on the host and are never uploaded."""
+    from surrealdb_tpu_torch.ml.onnx_mini import OnnxPlan
+
     calls = []
+    upload = OnnxPlan._upload
 
-    class Counting(TorchNp):
-        def asarray(self, arr):
-            calls.append(np.asarray(arr).dtype)
-            return super().asarray(arr)
+    def counting(self, arr):
+        calls.append(np.asarray(arr).dtype)
+        return upload(self, arr)
 
-    fwd = g.build_forward(Counting("cpu"))
+    monkeypatch.setattr(OnnxPlan, "_upload", counting)
+    plan = POnnxGraph(_graph("reshape_reducesum")).lower("cpu")
     n = len(calls)
-    assert sorted(map(str, calls)) == ["float32", "int64", "int64"]
+    assert sorted(set(map(str, calls))) == ["float32"]
+    assert plan._host["s3"].dtype == plan._host["s2"].dtype == np.int64
     for _ in range(3):
-        fwd(torch.zeros(4, 6))
+        plan(torch.zeros(4, 6))
     assert len(calls) == n
 
 
 @pytest.mark.parametrize("m", [10, 3000])
 def test_onnx_compiled_model_forward_matches_reference(m):
     """An ONNX spec carried across: below the threshold the numpy twins,
-    above it the reference's jitted graph and the port's TorchNp graph."""
+    above it the reference's jitted graph and the port's lowered plan."""
     spec = RM.validate_spec({"format": "onnx", "onnx": _graph("gemm_transb_beta_relu")})
     ref = RM.CompiledModel(spec)
     port = PM.model_from_reference(spec, CPU)
@@ -832,7 +837,7 @@ def test_onnx_mini_forward_matches_numpy():
 
 def test_onnx_mini_torch_forward():
     g = POnnxGraph(_mini_onnx_linear([[2.0], [3.0]], [1.0]))
-    out = g.build_forward(TorchNp("cpu"))(torch.tensor([[1.0, 1.0]]))
+    out = g.lower("cpu")(torch.tensor([[1.0, 1.0]]))
     np.testing.assert_allclose(out.numpy(), [[6.0]], atol=1e-6)
 
 
